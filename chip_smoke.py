@@ -4,19 +4,26 @@
     python3 chip_smoke.py      # exits 0 only if every phase holds
 
 Phases (each raises on failure; none carries on after another failed):
-  1. device   card name / power limit; build the four CUDA kernels
+  1. device   card name / power limit; build the CUDA kernels (nvcc, one
+              process per source, in parallel), print registers / spills
   2. forward  load the r5b checkpoint (flax msgpack, read without msgpack)
               at full cr.cf width; theory bpsp of 8 images of 512x512 (the
               bench.py image recipe); GPU vs CPU bpsp on a 64x64 crop
-  3. codec    the main path with every kernel launch count set to 0:
+  3. codec    the main path with every kernel launch count set to 0 and
+              the int_coder row/lookup builders counted on CUDA tensors:
               TorchBitcoding.encode_batch (fbatch 8, balanced, topk 4) ->
               v8 files -> decode_batch, which also builds the scale-0 v7
-              float rows; asserts bit-exact, prints file vs theory bpsp
-              and enc/dec times
+              float rows; asserts bit-exact, 4 x rans_encode and 9 x
+              rans_decode, no builder call on the card; prints file vs
+              theory bpsp and enc/dec times; the canary on card and CPU,
+              and K3/K4 held to int_coder on the canary's IntParams at
+              every symbol value
   4. kernels  each kernel against its plain PyTorch version on the card at
-              the main path's shapes and inputs: exact for the rANS scans,
-              <= 1 step (coarse) / <= 2 steps on well-conditioned rows
-              (fine) for the float rows; times by CUDA events
+              the main path's shapes and inputs: K1/K2 <= 1 step (coarse)
+              / <= 2 steps on well-conditioned rows (fine); K3/K4 in every
+              mode (uniform, bn, RGB coarse and fine per channel) exact:
+              lengths, used words and symbols identical; times by CUDA
+              events (K3/K4 records: per launch, averaged over the round)
   5. profile  device time by op and by kernel over one more encode+decode
               round (torch.profiler), and the device's busy share
   6. report   one JSON line of kernel records, the card line, then
@@ -34,14 +41,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from l3c_torch import blueprint
 from l3c_torch.codec.bitcoding2 import (TorchBitcoding, canary_inputs,
-                                        canary_leaves, contract_canary,
-                                        fbatch_for)
+                                        canary_leaves, coder_check,
+                                        contract_canary, fbatch_for)
 from l3c_torch.config import MsConfig
 from l3c_torch.device import numerics_guard
 from l3c_torch.models import layers
@@ -63,11 +71,31 @@ KERNEL_INFO = {
                       "tools/pallas_cdf.py:48"),
     "fine_cdf_q": ("l3c_torch/ops/kernels/csrc/float_cdf.cu",
                    "tools/pallas_cdf.py:120"),
+    # the rANS scan and the CDF evaluation fused into its JAX program
     "rans_encode": ("l3c_torch/ops/kernels/csrc/rans.cu",
-                    "l3c_tpu/ops/tpu_coder.py:305"),
+                    "l3c_tpu/ops/tpu_coder.py:305 + "
+                    "l3c_tpu/codec/bitcoding2.py:320/:417"),
     "rans_decode": ("l3c_torch/ops/kernels/csrc/rans.cu",
-                    "l3c_tpu/ops/tpu_coder.py:481"),
+                    "l3c_tpu/ops/tpu_coder.py:481 + "
+                    "l3c_tpu/codec/bitcoding2.py:344/:361"),
 }
+# the int_coder row and lookup builders: on the card the main path must
+# call none of them (the kernels evaluate the CDF themselves)
+INT_CODER_BUILDERS = ("bn_rows", "bn_lookup", "rgb_coarse_rows",
+                      "rgb_coarse_lookup", "rgb_fine_rows", "rgb_fine_lookup")
+# f32 operations per CDF evaluation, counted from csrc/int_cdf.cuh as
+# rans.cu builds it: a component's term (edge z and clip 4, the sigmoid
+# table read 6: |z|, clamp, index, convert, sign and select; term and
+# sum 4), an edge's finish (clamp 2 + quantize_edge 11), the fine
+# conditional renormalisation (cond_norm with floor_div 29 per edge,
+# cond_bounds 4 per pixel), the lambda chain per component (channel 1: 4,
+# channel 2: 6). The sigmoid table (16384 int_sigmoid values of 88
+# operations) is counted once per launch: the function needs each value
+# once, though the kernel fills a table in every block.
+OPS_TERM, OPS_EDGE, OPS_COND, OPS_BOUNDS = 14, 13, 29, 4
+OPS_LAMBDA = (0, 4, 6)
+OPS_TABLE = 16384 * 88
+LAMBDA_SLOTS = (0, 1, 2)          # w slots read by channel c
 
 
 def log(msg: str) -> None:
@@ -161,9 +189,29 @@ def phase_forward(cfg, net, imgs, card):
     return bpsp
 
 
+def count_cuda_calls(module, names, counts):
+    """Wrap module.<name> to count calls whose first tensor argument lies
+    on the card; returns a function that restores the originals."""
+    orig = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def counted(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda or
+                   isinstance(a, int_coder.IntParams) and a.p.is_cuda
+                   for a in args):
+                counts[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    for name, fn in orig.items():
+        setattr(module, name, wrap(name, fn))
+    return lambda: [setattr(module, n, f) for n, f in orig.items()]
+
+
 def phase_codec(bc, imgs, theory_bpsp, card):
     """The main path, launch-counted; then two more timed rounds."""
     enc_ms, dec_ms = [], []
+    builder_calls = {name: 0 for name in INT_CODER_BUILDERS}
     with tempfile.TemporaryDirectory(prefix="l3c_smoke_") as d:
         warm = [os.path.join(d, f"warm{b}.l3c") for b in range(B)]
         bc.encode_batch(imgs, warm)        # cuDNN / allocator warm-up
@@ -172,6 +220,8 @@ def phase_codec(bc, imgs, theory_bpsp, card):
             paths = [os.path.join(d, f"r{r}_{b}.l3c") for b in range(B)]
             if r == 0:
                 kernels.reset_launches()
+                restore = count_cuda_calls(int_coder, INT_CODER_BUILDERS,
+                                           builder_calls)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             bpsps = bc.encode_batch(imgs, paths)
@@ -182,6 +232,7 @@ def phase_codec(bc, imgs, theory_bpsp, card):
             t2 = time.perf_counter()
             if r == 0:
                 counts = dict(kernels.launches)
+                restore()
             for im, o in zip(imgs, outs):
                 if not np.array_equal(o, im):
                     raise RuntimeError("round trip is NOT bit-exact")
@@ -190,6 +241,16 @@ def phase_codec(bc, imgs, theory_bpsp, card):
     missing = [k for k in kernels.KERNELS if not counts.get(k)]
     if missing:
         raise RuntimeError(f"main path never launched {missing}: {counts}")
+    # one round: unit 0 + 2 bn units + the stacked scale-0 units (encode);
+    # unit 0 + 2 bn units + 3 channels x (coarse, fine) (decode)
+    if (counts["rans_encode"], counts["rans_decode"]) != (4, 9):
+        raise RuntimeError(f"expected 4 x rans_encode, 9 x rans_decode per "
+                           f"round: {counts}")
+    log(f"[codec] int_coder row/lookup calls on CUDA tensors in the "
+        f"round: {builder_calls}")
+    if any(builder_calls.values()):
+        raise RuntimeError("the main path built CDF rows or lookups in "
+                           "PyTorch on the card")
     file_bpsp = float(np.mean(bpsps))
     mp = B * SZ * SZ / 1e6
     e, dd = statistics.median(enc_ms), statistics.median(dec_ms)
@@ -241,22 +302,37 @@ def phase_codec(bc, imgs, theory_bpsp, card):
         f"cpu: {n_bad} of {sum(b.numel() for b, _ in on_cpu)} differ")
     if n_bad:
         raise RuntimeError("exact-integer evaluator differs on the card")
+    # the card's canary holds K3/K4 to int_coder on the card's IntParams
+    # before it is computed; here the same on the CPU's IntParams
+    with torch.inference_mode():
+        coder_check(to_card(ips["rgb"][1]), to_card(ips["bn"][1]), bc._bn.L)
+    log("[codec] K3/K4 equal to int_coder + the plain scans on the CPU's "
+        "canary IntParams at every symbol value (coder_check)")
     if not (0 < file_bpsp < 2 * theory_bpsp + 1):
         raise RuntimeError(f"file bpsp {file_bpsp} implausible")
     return counts, e + dd
 
 
-def _scale0_params(bc, imgs):
-    """IntParams of scale 0 and the uint8 batch, as encode computes them."""
+def coded_units(bc, imgs):
+    """What encode_batch codes, computed as it computes it: {unit: (ip,
+    true symbols (C, N), n per group)} for unit 0 ("uniform", ip None), the
+    bn scales ("bn<scale>") and scale 0 ("rgb", the image planes)."""
     x = torch.from_numpy(np.concatenate(imgs)).to(bc.device)
+    planes = lambda t: t.permute(3, 0, 1, 2).reshape(t.shape[3], -1)
+    units = {}
     with torch.inference_mode():
         per_scale = bc.net.enc_forward(layers.sub_rgb_mean(x.float()))
+        s = per_scale[-1].syms
+        units["uniform"] = (None, planes(s), s.shape[1] * s.shape[2])
         dec_F, bn = None, per_scale[-1].bn_q
         for scale in reversed(range(bc.cfg.num_scales)):
             ip, dec_F, _ = bc._get_P_int(scale, bc.coder_topk, bn, dec_F)
+            t = x if scale == 0 else per_scale[scale - 1].syms
+            units["rgb" if scale == 0 else f"bn{scale}"] = (
+                ip, planes(t), t.shape[1] * t.shape[2])
             if scale:
                 bn = per_scale[scale - 1].bn_q
-    return ip, x
+    return units
 
 
 def phase_kernels(bc, imgs, counts):
@@ -321,59 +397,189 @@ def phase_kernels(bc, imgs, counts):
     bc.last_float_rows = None
     del fr, pi, mu, inv_s
 
-    # ---- K3 / K4 on the scale-0 unit's real (start, freq) and rows
-    ip, x = _scale0_params(bc, imgs)
-    F, h, w, _ = x.shape
-    n = h * w
-    T = gpu_coder.t_policy(n, bc.coder_profile)
-    with torch.inference_mode():
-        start, freq = bc.rgb_lookups(ip, x)
-        lay6 = gpu_coder.layout_for(n, 6 * F, T)
-        st = gpu_coder._to_streams(start, lay6).contiguous()
-        fq = gpu_coder._to_streams(freq, lay6).contiguous()
-        m6 = gpu_coder._mask_for(lay6, st.device)
-        wk, lk = gpu_coder.rans_encode(st, fq, m6)
-        wp, lp = gpu_coder.rans_encode_plain(st, fq, m6)
-        # the kernel leaves slots past a stream's length unwritten
-        used = torch.arange(T + 2, device=lk.device)[None, :] < lk[:, None]
-        if not (torch.equal(lk, lp) and torch.equal(wk[used], wp[used])):
-            raise RuntimeError("rans_encode kernel != plain")
-        ns = st.shape[0]
-        active = int(m6.sum())
-        # bytes at the width of the values: start, freq and the emitted
-        # words are u16 (2 bytes), the mask 1 byte, lengths u16; only the
-        # words each stream emits are written
-        record("rans_encode", 0,
-               cuda_ms(lambda: gpu_coder.rans_encode(st, fq, m6)),
-               cuda_ms(lambda: gpu_coder.rans_encode_plain(st, fq, m6), 3),
-               bound(ns * T * (2 + 2 + 1) + int(lk.sum()) * 2 + ns * 2,
-                     active * 12))
-        # channel 0 coarse streams: the first F*ns_c lanes of the 6F stack
-        lay = gpu_coder.layout_for(n, F, T)
-        rows = int_coder.rgb_coarse_rows(ip, 0, ())
-        rl = torch.nn.functional.pad(rows.reshape(16, F, n), (0, lay.pad)) \
-            .reshape(16, lay.lanes, T).contiguous()
-        cols = int(lk[:lay.lanes].max())
-        wd = wk[:lay.lanes, :cols].contiguous()
-        mk = gpu_coder._mask_for(lay, rl.device)
-        sk = gpu_coder.rans_decode(rl, wd, mk)
-        sp = gpu_coder.rans_decode_plain(rl, wd, mk)
-        if not torch.equal(sk, sp):
-            raise RuntimeError("rans_decode kernel != plain")
-        a0 = (x[..., 0].to(torch.int64) >> 4).reshape(-1)
-        if not torch.equal(gpu_coder._from_streams(sk, lay).reshape(-1)
-                           .to(torch.int64), a0):
-            raise RuntimeError("rans_decode did not recover the symbols")
-        record("rans_decode", 0,
-               cuda_ms(lambda: gpu_coder.rans_decode(rl, wd, mk)),
-               cuda_ms(lambda: gpu_coder.rans_decode_plain(rl, wd, mk), 3),
-               # rows u16 (2 bytes), each stream's own words u16, mask
-               # and symbols (< 16) 1 byte each
-               bound(16 * lay.lanes * T * 2 + int(lk[:lay.lanes].sum()) * 2
-                     + lay.lanes * T * 2, lay.lanes * T * (16 * 3 + 10)))
-        log(f"[kernels] rans shapes: encode NS={ns} T={T}; decode L=16 "
-            f"NS={lay.lanes} T={T} W={cols}")
+    phase_coder(bc, imgs, record)
     return recs
+
+
+def coder_bound(mode, ip, n_px, words_used, c=0, L=25):
+    """(ms, by) of one K3/K4 launch over n_px pixels: each IntParams field
+    the mode reads at f32, symbol planes in and symbols out at 1 byte, the
+    used words at 2 bytes; f32 operations per pixel from int_cdf.cuh, and
+    the sigmoid table once."""
+    K = 0 if ip is None else ip.p.shape[1]
+    slots, lam = LAMBDA_SLOTS[c], OPS_LAMBDA[c] * K
+    fields, sym_bytes, ops = {
+        # mode: (IntParams fields read, symbol bytes per pixel, ops)
+        "enc uniform": (0, 1, 0),
+        "dec uniform": (0, 1, 0),
+        "enc bn": (3, 1, 2 * (K * OPS_TERM + OPS_EDGE)),
+        "dec bn": (3, 1, (L - 1) * (K * OPS_TERM + OPS_EDGE)),
+        "dec rgb_coarse": (3 + slots, c + 1,
+                           15 * (K * OPS_TERM + OPS_EDGE) + lam),
+        "dec rgb_fine": (4 + slots, c + 2,
+                         17 * K * OPS_TERM + 15 * (OPS_EDGE + OPS_COND)
+                         + OPS_BOUNDS + 2 * K + lam),
+        # the stacked scale-0 units: the three image planes in; per
+        # channel the coarse (2 edges) and fine (4 edges) lookups from one
+        # lambda chain
+        "enc rgb": (12 + sum(LAMBDA_SLOTS), 3, sum(
+            2 * (K * OPS_TERM + OPS_EDGE) + 4 * K * OPS_TERM
+            + 2 * (OPS_EDGE + OPS_COND) + OPS_BOUNDS + 2 * K
+            + OPS_LAMBDA[ch] * K for ch in range(3))),
+    }[mode]
+    return bound(n_px * (4 * K * fields + sym_bytes) + words_used * 2,
+                 n_px * ops + (OPS_TABLE if K else 0))
+
+
+class CoderCase(NamedTuple):
+    """One K3/K4 launch of the round: run() calls the dispatching wrapper
+    on the card, plain() the plain version on the same inputs; truth holds
+    the symbols a decode must return (None for an encode)."""
+    kernel: str
+    label: str
+    run: Callable
+    plain: Callable
+    truth: Optional[torch.Tensor]
+    bound: Tuple[float, str]
+
+
+def coder_cases(bc, imgs) -> List[CoderCase]:
+    """The round's 4 K3 and 9 K4 launches at the main path's shapes and
+    inputs: unit 0, the bn scales, the stacked scale-0 units (encode) and
+    each scale-0 channel's coarse and fine symbols (decode, the lambda
+    chain on the true symbols). The decodes read the encodes' words."""
+    gc, L, F = gpu_coder, bc._bn.L, B
+    units = coded_units(bc, imgs)
+    cases = []
+
+    def enc(label, run, plain, mode, ip, n_px):
+        w, ln = run()
+        cases.append(CoderCase("rans_encode", label, run, plain, None,
+                               coder_bound(mode, ip, n_px,
+                                           int(ln.sum()) + ln.numel())))
+        return w, ln
+
+    def dec(label, run, plain, truth, mode, ip, ln, c=0):
+        cases.append(CoderCase("rans_decode", label, run, plain, truth,
+                               coder_bound(mode, ip, truth.numel(),
+                                           int(ln.sum()), c, L)))
+
+    with torch.inference_mode():
+        # ---- unit 0: the uniform prior over all bn channels
+        _, syms, n = units["uniform"]
+        lay = gc.layout_for(n, syms.shape[0] * F, gc.t_policy(n))
+        flat = syms.reshape(-1)
+        # (the lambdas bind their inputs: the names are reused below)
+        w, ln = enc(f"uniform NS={lay.lanes} T={lay.T}",
+                    lambda s=flat, y=lay: gc.encode_uniform(s, L, y),
+                    lambda s=flat, y=lay: gc.encode_uniform_plain(s, L, y),
+                    "enc uniform", None, flat.numel())
+        wd = w[:, :int(ln.max())].contiguous()
+        dec(f"uniform L={L} NS={lay.lanes} T={lay.T}",
+            lambda w=wd, y=lay: gc.decode_uniform(w, L, y),
+            lambda w=wd, y=lay: gc.decode_uniform_plain(w, L, y), syms,
+            "dec uniform", None, ln)
+        # ---- the bn scales
+        for scale in range(bc.cfg.num_scales - 1, 0, -1):
+            ip, syms, n = units[f"bn{scale}"]
+            lay = gc.layout_for(n, syms.shape[0] * F, gc.t_policy(n))
+            w, ln = enc(f"bn scale {scale} NS={lay.lanes} T={lay.T}",
+                        lambda ip=ip, s=syms, y=lay: gc.encode_bn(ip, s, L, y),
+                        lambda ip=ip, s=syms, y=lay: gc.encode_bn_plain(
+                            ip, s, L, y), "enc bn", ip, syms.numel())
+            wd = w[:, :int(ln.max())].contiguous()
+            dec(f"bn scale {scale} L={L} NS={lay.lanes} T={lay.T}",
+                lambda ip=ip, w=wd, y=lay: gc.decode_bn(ip, w, L, y),
+                lambda ip=ip, w=wd, y=lay: gc.decode_bn_plain(ip, w, L, y),
+                syms, "dec bn", ip, ln)
+        # ---- scale 0: both units stacked (encode), per channel (decode)
+        ip, img, n = units["rgb"]
+        T = gc.t_policy(n)
+        lay6 = gc.layout_for(n, 6 * F, T)
+        w6, l6 = enc(f"rgb NS={lay6.lanes} T={T}",
+                     lambda: gc.encode_rgb(ip, img, lay6),
+                     lambda: gc.encode_rgb_plain(ip, img, lay6), "enc rgb",
+                     ip, img.shape[1])
+        lay = gc.layout_for(n, F, T)
+        ns, half = F * lay.ns_c, lay6.lanes // 2
+        planes = img.to(torch.uint8).contiguous()   # the lambda chain's
+        a_true, b_true = planes >> 4, planes & 15     # decoded symbols
+        for c in range(3):
+            a_c = a_true[c].contiguous()
+            for level, r0 in (("coarse", c * ns), ("fine", half + c * ns)):
+                ln = l6[r0:r0 + ns]
+                wd = w6[r0:r0 + ns, :int(ln.max())].contiguous()
+                label = (f"rgb {level} c={c} L=16 NS={lay.lanes} T={T} "
+                         f"W={wd.shape[1]}")
+                if level == "coarse":
+                    dec(label,
+                        lambda c=c, w=wd: gc.decode_rgb_coarse(
+                            ip, c, planes, w, lay),
+                        lambda c=c, w=wd: gc.decode_rgb_coarse_plain(
+                            ip, c, planes, w, lay),
+                        a_true[c], "dec rgb_coarse", ip, ln, c)
+                else:
+                    dec(label,
+                        lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine(
+                            ip, c, planes, a, w, lay),
+                        lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine_plain(
+                            ip, c, planes, a, w, lay),
+                        b_true[c], "dec rgb_fine", ip, ln, c)
+    return cases
+
+
+def same_output(case: CoderCase, got, want) -> bool:
+    """K3: lengths and the words each stream uses identical; K4: symbols
+    identical (and, against the truth, the coded symbols)."""
+    if case.truth is None:
+        (wk, lk), (wp, lp) = got, want
+        keep = lambda w, ln: w[torch.arange(w.shape[1], device=w.device)
+                               [None] < ln[:, None]]
+        return torch.equal(lk, lp) and torch.equal(keep(wk, lk),
+                                                   keep(wp, lp))
+    return torch.equal(got, want)
+
+
+def phase_coder(bc, imgs, record):
+    """K3 and K4 in every mode at the main path's shapes and inputs,
+    against their plain versions on the same inputs (exact); decodes also
+    against the coded symbols. The 13 calls are the round's launches, so
+    their sums are the round's coder time. Times by CUDA events (plain:
+    median of 3)."""
+    cases = coder_cases(bc, imgs)
+    with torch.inference_mode():
+        for case in cases:
+            got = case.run()
+            if not same_output(case, got, case.plain()):
+                raise RuntimeError(f"{case.kernel} {case.label}: kernel != "
+                                   "plain")
+            if case.truth is not None and not torch.equal(
+                    got.reshape(case.truth.shape).long(),
+                    case.truth.long()):
+                raise RuntimeError(f"{case.kernel} {case.label}: symbols "
+                                   "not recovered")
+        times = [(cuda_ms(c.run), cuda_ms(c.plain, 3)) for c in cases]
+    for c, (ms, pms) in zip(cases, times):
+        log(f"[kernels] {c.kernel} {c.label}: {ms * 1e3:.1f} us/launch | "
+            f"plain {pms * 1e3:.1f} us | bound {c.bound[0] * 1e3:.1f} us "
+            f"({c.bound[1]})")
+    # the JSON records: per launch, averaged over the round's launches of
+    # each kernel (so launches x (ms - bound) is the round's gap); bound
+    # by whichever limit contributes more of the summed bound
+    for name in ("rans_encode", "rans_decode"):
+        ix = [i for i, c in enumerate(cases) if c.kernel == name]
+        by = {k: sum(cases[i].bound[0] for i in ix
+                     if cases[i].bound[1] == k)
+              for k in ("bytes", "operations")}
+        n = len(ix)
+        log(f"[kernels] {name} per round ({n} launches): "
+            f"{sum(times[i][0] for i in ix):.3f} ms | plain "
+            f"{sum(times[i][1] for i in ix):.1f} ms | bound "
+            f"{sum(by.values()):.3f} ms ({by['operations']:.3f} of it "
+            "operations-bound)")
+        record(name, 0, sum(times[i][0] for i in ix) / n,
+               sum(times[i][1] for i in ix) / n,
+               (sum(by.values()) / n, max(by, key=by.get)))
 
 
 def phase_profile(bc, imgs, round_ms):
@@ -404,7 +610,7 @@ def phase_profile(bc, imgs, round_ms):
         f"{round_ms:.1f} ms wall (profiled wall {wall:.1f} ms)")
     for title, group in (("op", ops), ("kernel", kern)):
         group.sort(key=lambda e: -e.self_device_time_total)
-        for e in group[:12]:
+        for e in group[:15]:
             log(f"[profile] {title:6s} {e.self_device_time_total / 1e3:9.2f}"
                 f" ms {e.count:6d}x  {e.key[:80]}")
 

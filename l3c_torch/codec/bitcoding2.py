@@ -122,6 +122,67 @@ def canary_leaves(ip_r: ic.IntParams, ip_b: ic.IntParams,
             + [(bn_rows, np.uint16)] + [(x, np.uint32) for x in bn_look])
 
 
+def coder_check(ip_r: ic.IntParams, ip_b: ic.IntParams, bn_L: int,
+                T: int = 256) -> None:
+    """Hold the coder's channel-level functions to their plain versions
+    on the canary's IntParams, at every symbol value of every pixel: the
+    encodes' lengths and used words identical, the decodes recovering the
+    symbols. On the card the coder is the rANS kernels, whose own CDF
+    evaluation (csrc/int_cdf.cuh) the canary's int_coder leaves do not
+    run; this ties it to them. Raises RuntimeError where they differ."""
+    dev = ip_b.p.device
+    n = ip_b.p.shape[2]
+
+    def tiled(ip, V):      # every pixel's parameters V times along N
+        return ic.IntParams(*[None if x is None else
+                              x.repeat(1, 1, V).contiguous() for x in ip])
+
+    def same(got, want):
+        (wk, lk), (wp, lp) = got, want
+        used = lambda w, ln: w[torch.arange(w.shape[1], device=dev)[None]
+                               < ln[:, None]]
+        return torch.equal(lk, lp) and torch.equal(used(wk, lk),
+                                                   used(wp, lp))
+
+    def cut(w, ln):
+        return w[:, :int(ln.max())].contiguous()
+
+    bad = []
+    # RGB: pixel block v codes value (2c + 1) v + 37 c of channel c, a
+    # bijection of 0..255 per channel, so the lambda chain varies
+    v = torch.arange(256, device=dev).repeat_interleave(n)
+    img = torch.stack([((2 * c + 1) * v + 37 * c) % 256 for c in range(3)])
+    ip = tiled(ip_r, 256)
+    lay6 = gc.layout_for(img.shape[1], 6, T)
+    w6, l6 = gc.encode_rgb(ip, img, lay6)
+    if not same((w6, l6), gc.encode_rgb_plain(ip, img, lay6)):
+        bad.append("encode_rgb")
+    lay = gc.layout_for(img.shape[1], 1, T)
+    ns, planes = lay.ns_c, img.to(torch.uint8)
+    for c in range(3):
+        rc, rf = slice(c * ns, (c + 1) * ns), slice((3 + c) * ns,
+                                                    (4 + c) * ns)
+        a = gc.decode_rgb_coarse(ip, c, planes, cut(w6[rc], l6[rc]), lay)
+        b = gc.decode_rgb_fine(ip, c, planes, a, cut(w6[rf], l6[rf]), lay)
+        if not torch.equal((a.long() << 4) | b.long(), img[c]):
+            bad.append(f"decode_rgb channel {c}")
+    # bn: every channel codes value v at pixel block v
+    C_bn = ip_b.p.shape[0]
+    syms = torch.arange(bn_L, device=dev).repeat_interleave(n)
+    syms = syms[None].expand(C_bn, -1).contiguous()
+    ip = tiled(ip_b, bn_L)
+    lay = gc.layout_for(syms.shape[1], C_bn, T)
+    coded = gc.encode_bn(ip, syms, bn_L, lay)
+    if not same(coded, gc.encode_bn_plain(ip, syms, bn_L, lay)):
+        bad.append("encode_bn")
+    if not torch.equal(gc.decode_bn(ip, cut(*coded), bn_L, lay).long(),
+                       syms):
+        bad.append("decode_bn")
+    if bad:
+        raise RuntimeError(f"the coder differs from its plain version on "
+                           f"the canary's inputs: {', '.join(bad)}")
+
+
 def contract_canary(rgb_spec, bn_spec, C_bn: int, K: int, topk: int,
                     device: torch.device) -> int:
     """u32 attestation that THIS process produces the coder numerics the
@@ -129,17 +190,20 @@ def contract_canary(rgb_spec, bn_spec, C_bn: int, K: int, topk: int,
     then decode rows and encode 2-edge lookups, bn and two-level RGB) on
     fixed synthetic network outputs, CRC32'd. The inputs, the chain and the
     byte layout are the JAX package's, so the canaries agree exactly when
-    both packages' float pack rounds the same way."""
+    both packages' float pack rounds the same way. On the card the coder
+    kernels are first held to the chain's int_coder on the same IntParams
+    (coder_check), so the canary attests them too."""
     l_rgb, l_bn, t_rgb, t_bn = canary_inputs(bn_spec, C_bn, K)
 
     def dev(a):
         return torch.from_numpy(a).to(device)
 
     with torch.inference_mode():
-        leaves = canary_leaves(
-            ic.pack_int_params(rgb_spec, dev(l_rgb), 3, topk),
-            ic.pack_int_params(bn_spec, dev(l_bn), C_bn, topk),
-            dev(t_rgb), dev(t_bn), bn_spec.L)
+        ip_r = ic.pack_int_params(rgb_spec, dev(l_rgb), 3, topk)
+        ip_b = ic.pack_int_params(bn_spec, dev(l_bn), C_bn, topk)
+        if ip_b.p.is_cuda:
+            coder_check(ip_r, ip_b, bn_spec.L)
+        leaves = canary_leaves(ip_r, ip_b, dev(t_rgb), dev(t_bn), bn_spec.L)
     blob = b"".join(x.cpu().numpy().astype(dt).tobytes() for x, dt in leaves)
     return zlib.crc32(blob) & 0xFFFFFFFF
 
@@ -285,38 +349,21 @@ class TorchBitcoding:
             bpsps.append(os.path.getsize(pout) * 8 / float(n_sp))
         return bpsps
 
-    def rgb_lookups(self, ip: ic.IntParams, target: torch.Tensor):
-        """Scale-0 2-edge lookups: (start, freq) of all coarse units then all
-        fine units, each (3*F*h*w,) channel-major, with the lambda chain on
-        the true channel symbols."""
-        t_i = target.to(torch.int64)
-        a = t_i >> FINE_BITS
-        bsym = t_i & ((1 << FINE_BITS) - 1)
-        sc_, fc_, sf_, ff_ = [], [], [], []
-        for c in range(3):
-            dec = tuple(t_i[..., j].reshape(-1) for j in range(c))
-            a_c, b_c = a[..., c].reshape(-1), bsym[..., c].reshape(-1)
-            s1, f1 = ic.rgb_coarse_lookup(ip, c, dec, a_c)
-            s2, f2 = ic.rgb_fine_lookup(ip, c, dec, a_c, b_c)
-            sc_.append(s1), fc_.append(f1), sf_.append(s2), ff_.append(f2)
-        return torch.cat(sc_ + sf_), torch.cat(fc_ + ff_)
-
     def _enc_rgb_units(self, ip, target, T):
         """Both scale-0 units (coarse + fine) in ONE rANS launch over the
-        stacked 6*F channel streams (the streams are independent, so
-        stacking only widens the launch); split back into the two units."""
+        stacked 6*F channel streams; split back into the two units."""
         F, h, w, _ = target.shape
-        start, freq = self.rgb_lookups(ip, target)
         lay6 = gc.layout_for(h * w, 6 * F, T)
-        w6, l6 = gc.encode_sf(start, freq, lay6)
+        w6, l6 = gc.encode_rgb(ip, target.permute(3, 0, 1, 2).reshape(3, -1),
+                               lay6)
         half = 3 * F * lay6.ns_c
         return w6[:half], l6[:half], w6[half:], l6[half:]
 
     def _enc_bn_unit(self, ip, syms_nhwc, T):
         F, h, w, C = syms_nhwc.shape
         syms_cm = syms_nhwc.permute(3, 0, 1, 2).reshape(C, -1)
-        start, freq = ic.bn_lookup(ip, syms_cm, C, self._bn.L)
-        return gc.encode_sf(start, freq, gc.layout_for(h * w, C * F, T))
+        return gc.encode_bn(ip, syms_cm, self._bn.L,
+                            gc.layout_for(h * w, C * F, T))
 
     # ------------------------------------------------------------ decode
 
@@ -380,7 +427,7 @@ class TorchBitcoding:
             syms = gc.decode_uniform(words, self._bn.L,
                                      gc.layout_for(h * w, C_bn * F, T0))
             bn_prev = levels_select(self._bn_levels,
-                                    _ungroup_syms(syms, F, h, w))
+                                    _ungroup_syms(syms.long(), F, h, w))
             dec_F = None
             for scale in reversed(range(S)):
                 ip, dec_F, l = self._get_P_int(scale, topk, bn_prev, dec_F)
@@ -391,15 +438,14 @@ class TorchBitcoding:
                                                T_c, T_f)
                 else:
                     words, T_u = unit_words[S - scale]
-                    tables = ic.bn_rows(ip, C_bn, self._bn.L)
-                    syms = gc.decode_channels(
-                        tables, words, self._bn.L,
-                        gc.layout_for(hs * ws, C_bn * F, T_u))
-                    bn_prev = levels_select(self._bn_levels,
-                                            _ungroup_syms(syms, F, hs, ws))
+                    syms = gc.decode_bn(ip, words, self._bn.L,
+                                        gc.layout_for(hs * ws, C_bn * F, T_u))
+                    bn_prev = levels_select(
+                        self._bn_levels,
+                        _ungroup_syms(syms.long(), F, hs, ws))
             if float_rows:
                 self.last_float_rows = self._float_rows(l, decoded)
-            imgs = decoded.to(torch.uint8).cpu().numpy()
+            imgs = decoded.contiguous().cpu().numpy()
         out = []
         for b in range(B):
             im = imgs[b:b + 1]
@@ -448,26 +494,19 @@ class TorchBitcoding:
 
     def _decode_rgb(self, ip, w_coarse, w_fine, F, hs, ws, T_c, T_f):
         """Channel-sequential two-level RGB decode with the lambda chain on
-        decoded symbols: per channel, coarse rows -> a, conditional fine
-        rows from a -> b, s = 16a + b. Returns (F,hs,ws,3) int64."""
+        decoded symbols: per channel, coarse symbols a, then fine symbols b
+        conditional on a, s = 16a + b. Returns (F,hs,ws,3) uint8."""
         n = hs * ws
-        decoded = torch.zeros((F, hs, ws, 3), dtype=torch.int64,
-                              device=self.device)
-        nsc = gc.layout_for(n, 1, T_c).ns_c
-        nsf = gc.layout_for(n, 1, T_f).ns_c
+        dec = torch.zeros((3, F * n), dtype=torch.uint8, device=self.device)
+        lay_c, lay_f = gc.layout_for(n, F, T_c), gc.layout_for(n, F, T_f)
+        nsc, nsf = F * lay_c.ns_c, F * lay_f.ns_c
         for c in range(3):
-            dec = tuple(decoded[..., j].reshape(-1) for j in range(c))
-            ct = ic.rgb_coarse_rows(ip, c, dec)
-            a_flat = gc.decode_channels(
-                ct, w_coarse[c * F * nsc:(c + 1) * F * nsc],
-                ic.N_COARSE, gc.layout_for(n, F, T_c)).reshape(-1)
-            ft = ic.rgb_fine_rows(ip, c, dec, a_flat)
-            b_flat = gc.decode_channels(
-                ft, w_fine[c * F * nsf:(c + 1) * F * nsf],
-                ic.FINE, gc.layout_for(n, F, T_f)).reshape(-1)
-            decoded[..., c] = ((a_flat.to(torch.int64) << FINE_BITS)
-                               | b_flat.to(torch.int64)).reshape(F, hs, ws)
-        return decoded
+            a = gc.decode_rgb_coarse(ip, c, dec,
+                                     w_coarse[c * nsc:(c + 1) * nsc], lay_c)
+            b = gc.decode_rgb_fine(ip, c, dec, a,
+                                   w_fine[c * nsf:(c + 1) * nsf], lay_f)
+            dec[c] = (a << FINE_BITS) | b
+        return dec.reshape(3, F, hs, ws).permute(1, 2, 3, 0)
 
     def _float_rows(self, l0: torch.Tensor, decoded: torch.Tensor) -> dict:
         """Scale-0 v7 float rows (ops/float_cdf) of every channel on the

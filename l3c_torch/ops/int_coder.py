@@ -16,9 +16,11 @@ network output), which must run identically at encode and decode; the
 file header's canary attests it (codec/bitcoding2.contract_canary).
 
 Lane-major layout as in the reference: IntParams are (C, K', n) with the
-pixel axis n minor; rows come out (L, n). Plain tensor ops: on the card
-these are PyTorch elementwise kernels (XLA elementwise on the TPU);
-fusing them into hand-written kernels is queued (ROADMAP.md).
+pixel axis n minor; rows come out (L, n). On the card the codec does not
+run these tensor functions: the rANS kernels evaluate the same
+expressions in registers (kernels/csrc/int_cdf.cuh), as the JAX coder
+programs do in-program. Here they are the plain versions the CPU path,
+the tests and the header canary use.
 
 Fixed-point formats (all stored in f32):
   z         Q10, saturated to +-16383 (|z| >= 16 saturates sigmoid)

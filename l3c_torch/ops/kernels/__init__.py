@@ -5,19 +5,21 @@ outputs with torch.empty, launches on PyTorch's current stream, raises if
 the launch was refused, and adds one to its entry of `launches`. Nothing
 here runs at import: the libraries are built at first launch
 (build.py). The dispatching wrappers that CPU tensors route to the plain
-versions are `float_cdf.mixture_cdf_q` / `fine_cdf_q` and
-`gpu_coder.rans_encode` / `rans_decode`.
+versions are `float_cdf.mixture_cdf_q` / `fine_cdf_q` and the
+channel-level coders of `gpu_coder` (`encode_*` / `decode_*`).
 
 | kernel         | source             | replaces (TPU)                        |
 | mixture_cdf_q  | csrc/float_cdf.cu  | tools/pallas_cdf.py:48 (Pallas)       |
 | fine_cdf_q     | csrc/float_cdf.cu  | tools/pallas_cdf.py:120 (Pallas)      |
 | rans_encode    | csrc/rans.cu       | l3c_tpu/ops/tpu_coder.py:305 (scan)   |
+|                |                    | + codec/bitcoding2.py:320/:417 lookups|
 | rans_decode    | csrc/rans.cu       | l3c_tpu/ops/tpu_coder.py:481 (scan)   |
+|                |                    | + codec/bitcoding2.py:344/:361 rows   |
 """
 from __future__ import annotations
 
 import collections
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -93,40 +95,121 @@ def fine_cdf_q(pi: torch.Tensor, mu: torch.Tensor, inv_s: torch.Tensor,
     return out
 
 
-def rans_encode(start: torch.Tensor, freq: torch.Tensor, mask: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(NS, T) int32 start/freq + (NS, T) bool mask -> (words (NS, T+2)
-    int32 u16 values in decode order, unwritten past each length; lengths
-    (NS,) int32)."""
-    _check(start, "start", torch.int32, 2)
-    _check(freq, "freq", torch.int32, 2)
-    _check(mask, "mask", torch.bool, 2)
-    ns, T = start.shape
-    if freq.shape != (ns, T) or mask.shape != (ns, T):
-        raise ValueError("rans_encode: shape mismatch")
-    words = torch.empty((ns, T + 2), dtype=torch.int32, device=start.device)
-    lengths = torch.empty((ns,), dtype=torch.int32, device=start.device)
-    if ns:
-        _launch("rans", "l3c_rans_encode", "rans_encode",
-                start.data_ptr(), freq.data_ptr(), mask.data_ptr(),
-                words.data_ptr(), lengths.data_ptr(), ns, T)
-    return words, lengths
+DEC_MODES = {"uniform": 0, "bn": 1, "rgb_coarse": 2, "rgb_fine": 3}
+ENC_MODES = {"uniform": 0, "bn": 1, "rgb": 2}
+MAX_K = 10                     # mixture components: csrc/rans.cu kMaxK
 
 
-def rans_decode(rows: torch.Tensor, words: torch.Tensor, mask: torch.Tensor
-                ) -> torch.Tensor:
-    """(L, NS, T) int32 rows, (NS, W) int32 words, (NS, T) bool mask ->
-    (NS, T) int32 symbols."""
-    _check(rows, "rows", torch.int32, 3)
+def _int_params(ip, mode: str) -> Tuple[list, int, int]:
+    """Pointers of the IntParams fields (p, a, sc, v, and w for RGB), K'
+    and N; the uniform mode takes none (null pointers, K' = N = 0)."""
+    if mode == "uniform":
+        return [None] * 5, 0, 0
+    if ip is None:
+        raise ValueError(f"mode {mode} needs IntParams")
+    _check(ip[0], "p", torch.float32, 3)
+    C, K, N = ip[0].shape
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K'={K}: the kernels take 1..{MAX_K} components")
+    fields = list(zip(("p", "a", "sc", "v", "w"), ip, (C, C, C, C, 3)))
+    fields = fields if mode.startswith("rgb") else fields[:4]
+    for name, x, rows in fields:
+        _check(x, name, torch.float32, 3)
+        if x.shape != (rows, K, N):
+            raise ValueError(f"IntParams {name}: shape {tuple(x.shape)}, "
+                             f"expected {(rows, K, N)}")
+    ptrs = [x.data_ptr() for _, x, _ in fields]
+    return ptrs + [None] * (5 - len(ptrs)), K, N
+
+
+def _groups(lanes: int, n: int, T: int) -> int:
+    ns_c = -(-n // T)
+    if n < 1 or T < 1 or lanes % ns_c:
+        raise ValueError(f"{lanes} lanes are not whole channels of "
+                         f"{ns_c} streams (n={n}, T={T})")
+    return lanes // ns_c
+
+
+def rans_decode(mode: str, words: torch.Tensor, n: int, T: int, L: int,
+                ip=None, F: int = 1, c: int = 0,
+                dec: Optional[torch.Tensor] = None,
+                asym: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode rANS streams with the coding CDF built inside the kernel.
+
+    words (lanes, W >= 2) int32 u16 values in decode order; streams of T
+    symbols over groups of n pixels. mode: "uniform" (closed-form row),
+    "bn" (IntParams ip, L <= 33 edges, group g = pixels g % F of channel
+    g / F), "rgb_coarse" / "rgb_fine" (channel c of RGB IntParams, F
+    groups; dec (>= c, N) u8 the decoded channel symbols for the lambda
+    chain, asym (N,) u8 the coarse symbols for fine). ip is (p, a, sc, v,
+    w) lane-major (C, K', N) f32 with N = F n. Returns (groups, n) u8."""
     _check(words, "words", torch.int32, 2)
-    _check(mask, "mask", torch.bool, 2)
-    L, ns, T = rows.shape
-    W = words.shape[1]
-    if words.shape[0] != ns or mask.shape != (ns, T) or W < 2:
-        raise ValueError("rans_decode: shape mismatch")
-    syms = torch.empty((ns, T), dtype=torch.int32, device=rows.device)
-    if ns:
-        _launch("rans", "l3c_rans_decode", "rans_decode",
-                rows.data_ptr(), words.data_ptr(), mask.data_ptr(),
-                syms.data_ptr(), ns, T, W, L)
+    lanes, W = words.shape
+    G = _groups(lanes, n, T)
+    ptrs, K, N = _int_params(ip, mode)
+    if W < 2 or not 2 <= L <= 33:
+        raise ValueError(f"rans_decode: W={W}, L={L} out of range")
+    if mode != "uniform" and N != F * n:
+        raise ValueError(f"IntParams hold {N} pixels, not F*n = {F * n}")
+    if mode == "bn" and G != ip[0].shape[0] * F:
+        raise ValueError(f"{G} groups != {ip[0].shape[0]} channels x {F}")
+    dec_ptr = asym_ptr = None
+    if mode.startswith("rgb"):
+        if G != F or not 0 <= c < 3:
+            raise ValueError(f"RGB decode: {G} groups, F={F}, c={c}")
+        if c:
+            _check(dec, "dec", torch.uint8, 2)
+            if dec.shape[0] < c or dec.shape[1] != N:
+                raise ValueError(f"dec: shape {tuple(dec.shape)}")
+            dec_ptr = dec.data_ptr()
+        if mode == "rgb_fine":
+            _check(asym, "asym", torch.uint8, 1)
+            if asym.shape != (N,):
+                raise ValueError(f"asym: shape {tuple(asym.shape)}")
+            asym_ptr = asym.data_ptr()
+    elif mode not in DEC_MODES:
+        raise ValueError(f"unknown decode mode {mode!r}")
+    syms = torch.empty((G, n), dtype=torch.uint8, device=words.device)
+    if lanes:
+        _launch("rans", "l3c_rans_decode", "rans_decode", *ptrs, dec_ptr,
+                asym_ptr, words.data_ptr(), syms.data_ptr(),
+                DEC_MODES[mode], K, N, n, T, W, lanes, F, c, L)
     return syms
+
+
+def rans_encode(mode: str, syms: torch.Tensor, n: int, T: int, L: int,
+                ip=None, F: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """rANS-encode symbols with each symbol's (start, freq) computed
+    inside the kernel from its two CDF edges.
+
+    syms (C, N) u8 symbol planes, N = F n, streams of T symbols over
+    groups of n pixels. mode: "uniform" (C groups, F = 1), "bn" (IntParams
+    ip, C F groups), "rgb" (syms the image's three channel planes; 6 F
+    groups: the coarse symbols of channels 0..2, then the fine ones).
+    Returns (words (lanes, T+2) int32 u16 values in decode order, unwritten
+    past each length; lengths (lanes,) int32)."""
+    _check(syms, "syms", torch.uint8, 2)
+    if mode not in ENC_MODES:
+        raise ValueError(f"unknown encode mode {mode!r}")
+    ptrs, K, N = _int_params(ip, mode)
+    C, Ns = syms.shape
+    if Ns != F * n or (mode != "uniform" and N != Ns):
+        raise ValueError(f"syms hold {Ns} pixels; F*n = {F * n}, "
+                         f"IntParams {N}")
+    if mode == "bn" and ip[0].shape[0] != C:
+        raise ValueError(f"{C} symbol planes, {ip[0].shape[0]} channels")
+    if mode == "rgb" and C != 3:
+        raise ValueError(f"RGB encode takes 3 planes, got {C}")
+    if L < 2:
+        raise ValueError(f"L={L}")
+    groups = (6 if mode == "rgb" else C) * F
+    lanes = groups * -(-n // T)
+    words = torch.empty((lanes, T + 2), dtype=torch.int32,
+                        device=syms.device)
+    lengths = torch.empty((lanes,), dtype=torch.int32, device=syms.device)
+    if lanes:
+        _launch("rans", "l3c_rans_encode", "rans_encode", *ptrs,
+                syms.data_ptr(), words.data_ptr(), lengths.data_ptr(),
+                ENC_MODES[mode], K, N if mode != "uniform" else Ns, n, T,
+                lanes, F, L)
+    return words, lengths

@@ -36,6 +36,7 @@ _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float}
 # every launcher returns its cudaError_t as an int
 _EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
+_INCLUDE = re.compile(r'^#include\s+"([^"]+)"', re.M)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -49,10 +50,20 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> str:
+def sources_of(name: str) -> List[str]:
+    """csrc/<name>.cu and the csrc headers it includes (`#include "x"`),
+    the files whose content names the library."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    with open(src) as f:
+        heads = _INCLUDE.findall(f.read())
+    return [src] + [os.path.join(CSRC, h) for h in heads]
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources_of(name):
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 

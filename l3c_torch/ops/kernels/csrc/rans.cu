@@ -1,149 +1,651 @@
-// rANS32 encode and decode scans for the v8 codec, one thread per stream.
+// rANS32 encode and decode for the v8 codec, with the exact-integer coding
+// CDF evaluated inside the kernels (int_cdf.cuh).
 //
-// Replaces the XLA-lowered lax.scan programs of the JAX package:
-//   rans_encode  <- l3c_tpu/ops/tpu_coder.py:305 rans_encode
-//                   (+ _divmod_by_freq :250 and _compact_left :375)
-//   rans_decode  <- l3c_tpu/ops/tpu_coder.py:481 rans_decode
-//                   (+ _decode_symbol :418 and the word window :453)
-// The plain PyTorch versions are in l3c_torch/ops/gpu_coder.py.
+// Replaces, per kernel, one JAX program of the TPU package: the rANS
+// lax.scan plus the CDF evaluation that l3c_tpu/codec/bitcoding2.py fuses
+// into the same program:
+//   rans_encode  <- l3c_tpu/ops/tpu_coder.py:305 rans_encode (+
+//                   _divmod_by_freq :250, _compact_left :375), with the
+//                   2-edge lookups of bitcoding2.py:320 enc_bn_unit and
+//                   :417 enc_rgb_units (int_coder bn_lookup,
+//                   rgb_coarse_lookup, rgb_fine_lookup; the uniform row)
+//   rans_decode  <- l3c_tpu/ops/tpu_coder.py:481 rans_decode (+
+//                   _decode_symbol :418, the word window :453), with the
+//                   row builds of bitcoding2.py:344 dec_bn_unit and :361
+//                   dec_rgb_channel (int_coder bn_rows, rgb_coarse_rows,
+//                   rgb_fine_rows; the uniform row)
+// The plain PyTorch versions are the int_coder rows/lookups followed by
+// rans_encode_plain / rans_decode_plain (l3c_torch/ops/gpu_coder.py).
 //
-// What bounds them on Hopper: each stream is a chain of T dependent
-// steps (the rANS state), so a stream is inherently serial and the
-// kernels are latency-bound, not bandwidth-bound: the bytes they move
-// (start/freq/mask in, words out; rows in, symbols out) take tens of
-// microseconds at HBM rate while the T-step chains take milliseconds.
-// The design therefore spends nothing on the TPU's workarounds:
-//   - exact hardware u32 '/' and '%' replace the two-f32-division divmod
-//     (a VPU workaround, bit-identical by proof, so the output is too);
-//   - the encoder writes each renorm word straight to its decode-order
-//     slot (written from the row's end, then moved to the front once), so
-//     the log-rotation compaction pass disappears;
-//   - the decoder reads its next word at its own cursor instead of a
-//     one-hot window fetch, and searches the L <= 25 row entries linearly.
-// Both are integer-exact, so outputs equal the JAX scans bit for bit:
-// words/lengths byte-identical, symbols identical, including masked
-// (padding) slots, which never move the state.
+// Inputs are the per-scale IntParams, lane-major (C, K', N) f32 with the
+// N = F n pixels of a channel minor, and the symbols as u8 planes; no CDF
+// row and no (start, freq) pair is ever written to device memory.
+//
+// What bounds them on Hopper: operations, and the serial rANS chain. Every
+// CDF edge costs K' exact-integer sigmoids (~88 f32 operations each, if
+// evaluated) against ~50 bytes of IntParams per pixel; each stream's rANS
+// chain is T dependent steps, so the walk is latency-bound. The design
+// separates the two inside each block of 8 warps:
+//   - every block first fills a table of int_sigmoid over its whole
+//     integer domain (16384 u16, shared memory) from int_sigmoid itself,
+//     so each sigmoid of the build is a table read (int_cdf.cuh);
+//   - warps 1..7 build, for the block's streams, a tile of steps x streams
+//     of CDF rows (decode: u16 row entries) or packed (start, freq)
+//     pairs (encode) into shared memory, one pixel per thread, threads
+//     running along a stream's pixels so IntParams reads are coalesced
+//     and a pixel's K' parameters are loaded at once; an RGB encode block
+//     walks the coarse and the fine streams of the same pixels, so one
+//     builder computes both lookups from one read of the parameters;
+//   - warp 0 walks the tile: one thread per encode stream; four lanes per
+//     decode stream, each searching a quarter of the row, combined by
+//     shuffles. The walk reads shared memory only (decode prefetches the
+//     stream's next renorm word into a register through L1); the tiles
+//     are double-buffered, so the walk of tile i overlaps the build of
+//     tile i+1.
+// Both are integer-exact: words and lengths byte-identical to the plain
+// versions and the JAX scans, symbols identical; padding steps (past a
+// channel's n pixels) are skipped and never move the state. The decoder's
+// search is the reference's counts-and-extrema over the row, valid for
+// any row of entries <= 65534 (the +2l spec's range). The encoder parks
+// each renorm word at the end of its stream's word row and moves the run
+// to the front once (decode order), so the JAX compaction pass is not
+// needed.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "int_cdf.cuh"
+
 namespace {
 
-constexpr uint32_t kRansL = 1u << 16;
+using namespace l3c;
 
-// start, freq: (NS, T) int32 (u32 values < 2^17); mask: (NS, T) u8.
-// words: (NS, T + 2) int32 holding u16 values in decode order
-// [state_lo, state_hi, renorm words...]; slots past the stream's length
-// are left as they are (no reader looks past a length);
-// lengths: (NS,) int32 = renorm words + 2.
-__global__ void rans_encode_kernel(const int32_t* __restrict__ start,
-                                   const int32_t* __restrict__ freq,
-                                   const uint8_t* __restrict__ mask,
-                                   int32_t* __restrict__ words,
-                                   int32_t* __restrict__ lengths,
-                                   int ns, int T) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= ns) return;
-  const size_t in_off = static_cast<size_t>(s) * T;
-  int32_t* row = words + static_cast<size_t>(s) * (T + 2);
-  uint32_t x = kRansL;
-  int n = 0;  // renorm words emitted so far
-  for (int t = T - 1; t >= 0; --t) {  // rANS encodes in reverse order
-    if (!mask[in_off + t]) continue;
-    const uint32_t f = static_cast<uint32_t>(freq[in_off + t]);
-    const uint32_t st = static_cast<uint32_t>(start[in_off + t]);
-    if (x >= (f << 16)) {
-      // the k-th emitted word is the (n_emit-1-k)-th in decode order:
-      // park it at the row's end, counting down
-      row[T + 1 - n] = static_cast<int32_t>(x & 0xFFFFu);
-      ++n;
-      x >>= 16;
+constexpr uint32_t kRansL = 1u << 16;
+constexpr int kThreads = 256;               // warp 0 walks, 1..7 build
+constexpr int kBuilders = kThreads - 32;
+constexpr int kDecStreams = 8;              // streams per decode block
+constexpr int kEncStreams = 16;             // streams per encode block
+constexpr int kMaxK = 10;                   // mixture components K'
+
+enum DecMode { kDecUniform = 0, kDecBn = 1, kDecCoarse = 2, kDecFine = 3 };
+enum EncMode { kEncUniform = 0, kEncBn = 1, kEncRgb = 2 };
+
+// IntParams fields (C, K, N) f32; w: (3, K, N) lambda slots (RGB) or null
+struct Params {
+  const float* p;
+  const float* a;
+  const float* sc;
+  const float* v;
+  const float* w;
+  int K;
+  int N;
+};
+
+// Stream geometry: lane s codes pixels i = (s % ns_c) T + t, t < T, of
+// group g = s / ns_c while i < n; group g is pixel block g % F of
+// channel c0 + g / F, i.e. channel pixel (g % F) n + i of N = F n.
+struct Geom {
+  int n;
+  int T;
+  int ns_c;
+  int lanes;
+  int F;
+  int c0;
+};
+
+// bytes of the sigmoid table at the start of dynamic shared memory (the
+// uniform modes evaluate no sigmoid)
+template <bool kUniform>
+__host__ __device__ constexpr size_t table_bytes() {
+  return kUniform ? 0 : kSigmoidTable * sizeof(uint16_t);
+}
+
+__device__ __forceinline__ size_t at(const Params& P, int c, int k,
+                                     size_t pix) {
+  return (static_cast<size_t>(c) * P.K + k) * P.N + pix;
+}
+
+// the K' values of one IntParams field at a pixel, all loads in flight
+// at once (KMAX >= K' registers; entries k >= K' are not read)
+template <int KMAX>
+__device__ __forceinline__ void load_k(float (&dst)[KMAX], const float* f,
+                                       const Params& P, int c, size_t pix) {
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    dst[k] = k < P.K ? __ldg(f + at(P, c, k, pix)) : 0.0f;
+}
+
+// channel c's v with the lambda chain on the channel symbols s0, s1 of
+// channels 0 and 1 (w slot j is row j of P.w)
+template <int KMAX>
+__device__ __forceinline__ void load_chained_v(float (&v)[KMAX],
+                                               const Params& P, int c,
+                                               size_t pix, float s0,
+                                               float s1) {
+  load_k(v, P.v, P, c, pix);
+  if (c == 0) return;
+  float wa[KMAX], wb[KMAX];
+  load_k(wa, P.w, P, c == 1 ? 0 : 1, pix);
+  if (c == 2) load_k(wb, P.w, P, 2, pix);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    v[k] = c == 1 ? apply_lambda_chain(v[k], 1, wa[k], 0.0f, 0.0f, s0, s1)
+                  : apply_lambda_chain(v[k], 2, 0.0f, wa[k], wb[k], s0, s1);
+}
+
+__device__ __forceinline__ float uniform_edge(int l, int L) {
+  return static_cast<float>((static_cast<uint32_t>(l) << 16) /
+                            static_cast<uint32_t>(L));
+}
+
+// ------------------------------------------------------------- decode
+
+// Row entries 1..LP of channel c's CDF row at pixel pix (entry 0 is 0 in
+// every mode and is not stored); entries l >= L - 1 are padding, 0xFFFF.
+template <int MODE, int LP, int KMAX>
+__device__ __forceinline__ void build_row(const Params& P,
+                                          const uint16_t* tab,
+                                          const uint8_t* __restrict__ dec,
+                                          const uint8_t* __restrict__ asym,
+                                          int c, size_t pix, int L,
+                                          uint16_t* row) {
+  float q[LP];
+  if (MODE == kDecUniform) {
+#pragma unroll
+    for (int l = 0; l < LP; ++l)
+      q[l] = l + 1 < L ? uniform_edge(l + 1, L) : 65535.0f;
+  } else {
+    float s0 = 0.0f, s1 = 0.0f, af = 0.0f;
+    if (MODE != kDecBn) {
+      if (c > 0) s0 = static_cast<float>(__ldg(dec + pix));
+      if (c > 1) s1 = static_cast<float>(__ldg(dec + P.N + pix));
+      if (MODE == kDecFine) af = static_cast<float>(__ldg(asym + pix));
     }
-    const uint32_t fs = f > 0 ? f : 1u;   // padded slots carry f = 0
-    x = ((x / fs) << 16) + (x % fs) + st;
+    // p, the edge step (a: bn, fine; sc: coarse, fine) and v (with the
+    // lambda chain for RGB)
+    float p[KMAX], step[KMAX], sc[KMAX], v[KMAX];
+    load_k(p, P.p, P, c, pix);
+    load_k(step, MODE == kDecCoarse ? P.sc : P.a, P, c, pix);
+    if (MODE == kDecFine) load_k(sc, P.sc, P, c, pix);
+    if (MODE == kDecBn) {
+      load_k(v, P.v, P, c, pix);
+    } else {
+      load_chained_v(v, P, c, pix, s0, s1);
+    }
+    float acc[LP];
+    float c_lo = 0.0f, c_hi = 0.0f;
+#pragma unroll
+    for (int l = 0; l < LP; ++l) acc[l] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k >= P.K) break;
+      if (MODE == kDecBn) {
+#pragma unroll
+        for (int l = 0; l < LP; ++l)
+          if (l + 1 < L)
+            acc[l] += table_term(tab, p[k], bn_z(l + 1.0f, step[k], v[k]));
+      } else if (MODE == kDecCoarse) {
+#pragma unroll
+        for (int l = 0; l < LP; ++l)
+          if (l + 1 < L)
+            acc[l] += table_term(tab, p[k],
+                                 coarse_z(l + 1.0f, step[k], v[k]));
+      } else {
+        const float z_a = fine_za(af, sc[k], v[k]);
+        c_lo += table_term(tab, p[k], clip_z(z_a));
+        c_hi += table_term(
+            tab, p[k], fine_z(z_a, static_cast<float>(kFineBins), step[k]));
+#pragma unroll
+        for (int l = 0; l < LP; ++l)
+          if (l + 1 < L)
+            acc[l] += table_term(tab, p[k], fine_z(z_a, l + 1.0f, step[k]));
+      }
+    }
+    float lo = 0.0f, d = 1.0f;
+    if (MODE == kDecFine)
+      cond_bounds(af, cdf_clamp(c_lo), cdf_clamp(c_hi), &lo, &d);
+#pragma unroll
+    for (int l = 0; l < LP; ++l) {
+      float cq = cdf_clamp(acc[l]);
+      if (MODE == kDecFine) cq = cond_norm(cq, lo, d);
+      q[l] = l + 1 < L ? quantize_edge(cq, l + 1.0f, L) : 65535.0f;
+    }
   }
-  // move the n parked words [T+2-n, T+2) to [2, 2+n): dst < src, so an
+  uint4* dst = reinterpret_cast<uint4*>(row);
+#pragma unroll
+  for (int j = 0; j < LP / 8; ++j) {
+    uint32_t u[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      u[h] = static_cast<uint32_t>(q[8 * j + 2 * h]) |
+             (static_cast<uint32_t>(q[8 * j + 2 * h + 1]) << 16);
+    dst[j] = make_uint4(u[0], u[1], u[2], u[3]);
+  }
+}
+
+// decode tile geometry: kG streams x kS steps of LP-entry u16 rows; warp 0
+// walks them with kLanes lanes per stream, each lane searching LP / 8 of
+// the row's u32 words (two entries each)
+template <int LP>
+struct DecTile {
+  static constexpr int kG = kDecStreams;
+  static constexpr int kLanes = 32 / kG;
+  static constexpr int kWords = LP / 2 / kLanes;
+  static constexpr int kS = kBuilders / kG;      // one pixel per builder
+  static constexpr int kGStride = kS * LP + 8;   // +16 B: streams spread
+  static constexpr size_t kRowBytes = 2 * kG * kGStride * sizeof(uint16_t);
+};
+
+// IntParams P; dec (>= c0 rows, N) u8 channel symbols for the lambda
+// chain (RGB); asym (N,) u8 coarse symbols (fine); words (lanes, W) int32
+// u16 values in decode order -> syms (lanes / ns_c, n) u8.
+template <int MODE, int LP, int KMAX>
+__global__ void __launch_bounds__(kThreads)
+    rans_decode_kernel(Params P, const uint8_t* __restrict__ dec,
+                       const uint8_t* __restrict__ asym,
+                       const int32_t* __restrict__ words,
+                       uint8_t* __restrict__ syms, Geom G, int W, int L) {
+  using D = DecTile<LP>;
+  constexpr int kG = D::kG, kS = D::kS, kGStride = D::kGStride;
+  constexpr int kLanes = D::kLanes, kWords = D::kWords;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* rows = reinterpret_cast<uint16_t*>(
+      smem + table_bytes<MODE == kDecUniform>());     // [2][kG][kGStride]
+  const int tid = threadIdx.x;
+  const int s_first = blockIdx.x * kG;
+  const int ntiles = (G.T + kS - 1) / kS;
+  if (table_bytes<MODE == kDecUniform>()) {
+    fill_sigmoid_table(tab, tid, kThreads);
+    __syncthreads();
+  }
+
+  auto build = [&](int t0, int buf) {
+    const int idx = tid - 32;
+    const int gl = idx / kS, tt = idx % kS;
+    const int s = s_first + gl, t = t0 + tt;
+    if (s >= G.lanes || t >= G.T) return;
+    const int g = s / G.ns_c;
+    const int i = (s % G.ns_c) * G.T + t;
+    if (i >= G.n) return;
+    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i;
+    build_row<MODE, LP, KMAX>(P, tab, dec, asym, G.c0 + g / G.F, pix, L,
+                              rows + (buf * kG + gl) * kGStride + tt * LP);
+  };
+
+  // warp 0: lanes [kLanes gl, kLanes (gl + 1)) walk stream s_first + gl
+  // in step, each holding the stream's state
+  const int gl = tid / kLanes, part = tid % kLanes;
+  const unsigned group = ((1u << kLanes) - 1) << (kLanes * gl);
+  const int s = s_first + gl;
+  const bool walker = tid < 32 && s < G.lanes;
+  const int32_t* wr = words + static_cast<size_t>(walker ? s : 0) * W;
+  uint32_t x = 0;
+  int cur = 2, nvalid = 0;
+  size_t out = 0;
+  if (walker) {
+    x = static_cast<uint32_t>(wr[0]) | (static_cast<uint32_t>(wr[1]) << 16);
+    const int i0 = (s % G.ns_c) * G.T;
+    nvalid = min(G.T, G.n - i0);
+    out = static_cast<size_t>(s / G.ns_c) * G.n + i0;
+  }
+  // which u16 halves of this lane's row words are entries 1..L-1
+  uint32_t valid[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const int e = 2 * (part * kWords + j) + 1;       // entry of the low half
+    valid[j] = (e < L ? 0xFFFFu : 0u) | (e + 1 < L ? 0xFFFF0000u : 0u);
+  }
+  // the stream's next renorm word, prefetched through L1
+  uint32_t wnext = walker && cur < W ? static_cast<uint32_t>(wr[cur]) : 0u;
+  if (tid >= 32) build(0, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    __syncthreads();     // tile it is built; the walk of it - 1 is done
+    const int buf = it & 1;
+    if (tid < 32) {
+      const int t0 = it * kS;
+      const int steps = walker ? min(kS, nvalid - t0) : 0;
+      const uint32_t* tile = reinterpret_cast<const uint32_t*>(
+          rows + (buf * kG + gl) * kGStride) + part * kWords;
+      for (int tt = 0; tt < steps; ++tt) {
+        const uint32_t* r = tile + tt * (LP / 2);
+        const uint32_t cf = x & 0xFFFFu;
+        // searchsorted as counts and extrema over the row: this lane's
+        // words, two u16 entries each, then over the stream's lanes;
+        // entry 0 (= 0) is always <= cf
+        const uint32_t cf2 = cf | (cf << 16);
+        uint32_t cnt = 0, lo2 = 0, hi2 = 0xFFFFFFFFu;
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) {
+          const uint32_t u = r[j];
+          const uint32_t m = __vcmpleu2(u, cf2) & valid[j];
+          cnt += __popc(m);
+          lo2 = __vmaxu2(lo2, u & m);
+          hi2 = __vminu2(hi2, u | m);        // entries <= cf drop out
+        }
+        uint32_t lo = max(lo2 & 0xFFFFu, lo2 >> 16);
+        uint32_t hi = min(hi2 & 0xFFFFu, hi2 >> 16);
+#pragma unroll
+        for (int o = 1; o < kLanes; o <<= 1) {
+          cnt += __shfl_xor_sync(group, cnt, o);
+          lo = max(lo, __shfl_xor_sync(group, lo, o));
+          hi = min(hi, __shfl_xor_sync(group, hi, o));
+        }
+        const int sym = static_cast<int>(cnt >> 4);
+        // no entry above cf (entries are <= 65534): the top is 65536
+        if (sym == L - 1) hi = 65536;
+        const uint32_t x1 = (hi - lo) * (x >> 16) + cf - lo;
+        if (x1 < kRansL) {
+          x = (x1 << 16) | wnext;
+          ++cur;
+          wnext = cur < W ? static_cast<uint32_t>(wr[cur]) : 0u;
+        } else {
+          x = x1;
+        }
+        if (part == 0) syms[out + t0 + tt] = static_cast<uint8_t>(sym);
+      }
+    } else if (it + 1 < ntiles) {
+      build((it + 1) * kS, buf ^ 1);
+    }
+  }
+}
+
+// ------------------------------------------------------------- encode
+
+// (freq << 16) | start from the quantized CDF at the symbol's two edges
+__device__ __forceinline__ uint32_t pack_sf(float q0, float q1) {
+  const uint32_t start = static_cast<uint32_t>(q0);
+  return ((static_cast<uint32_t>(q1) - start) << 16) | start;
+}
+
+// packed (start, freq) of the uniform or bn symbol at channel pixel pix,
+// from the two CDF edges around it
+template <int MODE, int KMAX>
+__device__ __forceinline__ uint32_t lookup(const Params& P,
+                                           const uint16_t* tab,
+                                           const uint8_t* __restrict__ sym,
+                                           int c, size_t pix, int L) {
+  const int t = __ldg(sym + static_cast<size_t>(c) * P.N + pix);
+  if (MODE == kEncUniform) return pack_sf(uniform_edge(t, L),
+                                          uniform_edge(t + 1, L));
+  const float e = static_cast<float>(t);
+  float p[KMAX], a[KMAX], v[KMAX];
+  load_k(p, P.p, P, c, pix);
+  load_k(a, P.a, P, c, pix);
+  load_k(v, P.v, P, c, pix);
+  float acc0 = 0.0f, acc1 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= P.K) break;
+    acc0 += table_term(tab, p[k], bn_z(e, a[k], v[k]));
+    acc1 += table_term(tab, p[k], bn_z(e + 1.0f, a[k], v[k]));
+  }
+  return pack_sf(quantize_edge(cdf_clamp(acc0), e, L),
+                 quantize_edge(cdf_clamp(acc1), e + 1.0f, L));
+}
+
+// packed (start, freq) of RGB channel c's coarse (.x) and fine (.y) symbol
+// at pixel pix, the lambda chain on the true symbols of channels < c
+template <int KMAX>
+__device__ __forceinline__ uint2 lookup_rgb(const Params& P,
+                                            const uint16_t* tab,
+                                            const uint8_t* __restrict__ sym,
+                                            int c, size_t pix) {
+  const int t = __ldg(sym + static_cast<size_t>(c) * P.N + pix);
+  const float s0 = c > 0 ? static_cast<float>(__ldg(sym + pix)) : 0.0f;
+  const float s1 = c > 1 ? static_cast<float>(__ldg(sym + P.N + pix)) : 0.0f;
+  const float af = static_cast<float>(t >> 4);
+  const float bf = static_cast<float>(t & 15);
+  float p[KMAX], a[KMAX], sc[KMAX], v[KMAX];
+  load_k(p, P.p, P, c, pix);
+  load_k(a, P.a, P, c, pix);
+  load_k(sc, P.sc, P, c, pix);
+  load_chained_v(v, P, c, pix, s0, s1);
+  float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f, c_lo = 0.0f, c_hi = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= P.K) break;
+    a0 += table_term(tab, p[k], coarse_z(af, sc[k], v[k]));
+    a1 += table_term(tab, p[k], coarse_z(af + 1.0f, sc[k], v[k]));
+    const float z_a = fine_za(af, sc[k], v[k]);
+    c_lo += table_term(tab, p[k], clip_z(z_a));
+    c_hi += table_term(tab, p[k],
+                       fine_z(z_a, static_cast<float>(kFineBins), a[k]));
+    b0 += table_term(tab, p[k], fine_z(z_a, bf, a[k]));
+    b1 += table_term(tab, p[k], fine_z(z_a, bf + 1.0f, a[k]));
+  }
+  float lo, d;
+  cond_bounds(af, cdf_clamp(c_lo), cdf_clamp(c_hi), &lo, &d);
+  return make_uint2(
+      pack_sf(quantize_edge(cdf_clamp(a0), af, kCoarseBins),
+              quantize_edge(cdf_clamp(a1), af + 1.0f, kCoarseBins)),
+      pack_sf(quantize_edge(cond_norm(cdf_clamp(b0), lo, d), bf, kFineBins),
+              quantize_edge(cond_norm(cdf_clamp(b1), lo, d), bf + 1.0f,
+                            kFineBins)));
+}
+
+// encode tile geometry: kG streams x kS steps of packed (start, freq);
+// RGB blocks walk the coarse and the fine streams of the same kPix pixel
+// streams, whose lookups one builder computes from one read of the params
+template <int MODE>
+struct EncTile {
+  static constexpr int kLevels = MODE == kEncRgb ? 2 : 1;
+  static constexpr int kG = kEncStreams;
+  static constexpr int kPix = kG / kLevels;
+  static constexpr int kS = kBuilders / kPix;    // one pixel per builder
+  static constexpr size_t kBufBytes = 2 * kG * kS * sizeof(uint32_t);
+};
+
+// IntParams P; sym (C, N) u8 symbol planes (RGB: the image's three
+// channel planes) -> words (lanes, T + 2) int32 u16 values in decode
+// order [state_lo, state_hi, renorm words...], slots past a stream's
+// length left as they are; lengths (lanes,) int32 = renorm words + 2.
+// RGB: lanes [0, lanes/2) code the coarse symbols of groups 0..3F-1
+// (channel-major), lanes [lanes/2, lanes) the fine ones.
+template <int MODE, int KMAX>
+__global__ void __launch_bounds__(kThreads)
+    rans_encode_kernel(Params P, const uint8_t* __restrict__ sym,
+                       int32_t* __restrict__ words,
+                       int32_t* __restrict__ lengths, Geom G, int L) {
+  using E = EncTile<MODE>;
+  constexpr int kG = E::kG, kPix = E::kPix, kS = E::kS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* sf = reinterpret_cast<uint32_t*>(
+      smem + table_bytes<MODE == kEncUniform>());     // [2][kG][kS]
+  const int tid = threadIdx.x;
+  const int pix_lanes = G.lanes / E::kLevels;
+  const int s_first = blockIdx.x * kPix;
+  const int ntiles = (G.T + kS - 1) / kS;
+  if (table_bytes<MODE == kEncUniform>()) {
+    fill_sigmoid_table(tab, tid, kThreads);
+    __syncthreads();
+  }
+
+  auto build = [&](int t0, int buf) {
+    const int idx = tid - 32;
+    const int gl = idx / kS, tt = idx % kS;
+    const int s = s_first + gl, t = t0 + tt;
+    if (s >= pix_lanes || t >= G.T) return;
+    const int g = s / G.ns_c;
+    const int i = (s % G.ns_c) * G.T + t;
+    if (i >= G.n) return;
+    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i;
+    uint32_t* out = sf + (buf * kG + gl) * kS + tt;
+    if (MODE == kEncRgb) {
+      const uint2 q = lookup_rgb<KMAX>(P, tab, sym, g / G.F, pix);
+      out[0] = q.x;
+      out[kPix * kS] = q.y;                  // the fine stream's slot
+    } else {
+      out[0] = lookup<MODE, KMAX>(P, tab, sym, g / G.F, pix, L);
+    }
+  };
+
+  // walker tid codes level tid / kPix of pixel stream s_first + tid % kPix
+  const int ps = s_first + tid % kPix;
+  const bool walker = tid < kG && ps < pix_lanes;
+  const int s = (tid / kPix) * pix_lanes + ps;
+  int32_t* row = words + static_cast<size_t>(walker ? s : 0) * (G.T + 2);
+  const int nvalid = walker ? min(G.T, G.n - (ps % G.ns_c) * G.T) : 0;
+  uint32_t x = kRansL;
+  int nw = 0;                               // renorm words emitted so far
+  if (tid >= 32) build((ntiles - 1) * kS, 0);
+  for (int it = 0; it < ntiles; ++it) {     // rANS encodes in reverse
+    __syncthreads();
+    const int buf = it & 1;
+    const int t0 = (ntiles - 1 - it) * kS;
+    if (tid < 32) {
+      const int steps = walker ? min(kS, nvalid - t0) : 0;
+      const uint32_t* tile = sf + (buf * kG + tid) * kS;
+      for (int tt = steps - 1; tt >= 0; --tt) {
+        const uint32_t v = tile[tt];
+        const uint32_t st = v & 0xFFFFu, f = v >> 16;
+        if (x >= (f << 16)) {
+          // the k-th emitted word is the (n_emit-1-k)-th in decode order:
+          // park it at the row's end, counting down
+          row[G.T + 1 - nw] = static_cast<int32_t>(x & 0xFFFFu);
+          ++nw;
+          x >>= 16;
+        }
+        const uint32_t fs = f > 0 ? f : 1u;
+        x = ((x / fs) << 16) + (x % fs) + st;
+      }
+    } else if (it + 1 < ntiles) {
+      build(t0 - kS, buf ^ 1);
+    }
+  }
+  if (!walker) return;
+  // move the nw parked words [T+2-nw, T+2) to [2, 2+nw): dst < src, so an
   // ascending copy never overwrites a word before it is read
-  for (int i = 0; i < n; ++i) row[2 + i] = row[T + 2 - n + i];
+  for (int i = 0; i < nw; ++i) row[2 + i] = row[G.T + 2 - nw + i];
   row[0] = static_cast<int32_t>(x & 0xFFFFu);
   row[1] = static_cast<int32_t>(x >> 16);
-  lengths[s] = n + 2;
+  lengths[s] = nw + 2;
 }
 
-// rows: (L, NS, T) int32 CDF rows (u16 values), lane-major;
-// words: (NS, W) int32 u16 stream words in decode order; mask (NS, T) u8.
-// syms: (NS, T) int32.
-__global__ void rans_decode_kernel(const int32_t* __restrict__ rows,
-                                   const int32_t* __restrict__ words,
-                                   const uint8_t* __restrict__ mask,
-                                   int32_t* __restrict__ syms,
-                                   int ns, int T, int W, int L) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= ns) return;
-  const int32_t* wr = words + static_cast<size_t>(s) * W;
-  const size_t lane_stride = static_cast<size_t>(ns) * T;
-  const int32_t* rs = rows + static_cast<size_t>(s) * T;
-  const size_t io_off = static_cast<size_t>(s) * T;
-  uint32_t x = W > 1 ? (static_cast<uint32_t>(wr[0]) |
-                        (static_cast<uint32_t>(wr[1]) << 16))
-                     : 0u;
-  int cur = 2;
-  for (int t = 0; t < T; ++t) {
-    const int32_t cf = static_cast<int32_t>(x & 0xFFFFu);
-    // searchsorted as counts and extrema over the row, the reference's
-    // exact definition (valid for any row, monotone or not)
-    int cnt = 0;
-    int32_t lo = 0, hi = 65536;
-    for (int l = 0; l < L; ++l) {
-      const int32_t r = rs[l * lane_stride + t];
-      if (r <= cf) {
-        ++cnt;
-        lo = r > lo ? r : lo;
-      } else {
-        hi = r < hi ? r : hi;
-      }
-    }
-    const int sym = cnt > 0 ? cnt - 1 : 0;
-    if (sym == L - 1) hi = 65536;
-    const uint32_t f = static_cast<uint32_t>(hi - lo);
-    const uint32_t x1 = f * (x >> 16) + (x & 0xFFFFu) -
-                        static_cast<uint32_t>(lo);
-    if (mask[io_off + t]) {
-      if (x1 < kRansL) {
-        const uint32_t w = cur < W ? static_cast<uint32_t>(wr[cur]) : 0u;
-        x = (x1 << 16) | w;
-        ++cur;
-      } else {
-        x = x1;
-      }
-    }
-    syms[io_off + t] = sym;
+// launch with `smem` bytes of dynamic shared memory (above 48 KB only
+// after raising the kernel's limit)
+template <typename... KArgs, typename... Args>
+int launch(void (*kernel)(KArgs...), int lanes, int per_block, size_t smem,
+           cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  const int blocks = (lanes + per_block - 1) / per_block;
+  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kThreads = 64;
+template <int MODE, int LP, int KMAX>
+int decode(const Params& P, const void* dec, const void* asym,
+           const void* words, void* syms, const Geom& G, int W, int L,
+           cudaStream_t stream) {
+  using D = DecTile<LP>;
+  const size_t smem = table_bytes<MODE == kDecUniform>() + D::kRowBytes;
+  return launch(rans_decode_kernel<MODE, LP, KMAX>, G.lanes, D::kG, smem,
+                stream, P, static_cast<const uint8_t*>(dec),
+                static_cast<const uint8_t*>(asym),
+                static_cast<const int32_t*>(words),
+                static_cast<uint8_t*>(syms), G, W, L);
+}
+
+// K' <= 4 (the top-k mixtures) or <= 10 registers per parameter
+template <int MODE, int LP>
+int decode_k(const Params& P, const void* dec, const void* asym,
+             const void* words, void* syms, const Geom& G, int W, int L,
+             cudaStream_t stream) {
+  if constexpr (MODE != kDecUniform) {
+    if (P.K > 4)
+      return decode<MODE, LP, kMaxK>(P, dec, asym, words, syms, G, W, L,
+                                     stream);
+  }
+  return decode<MODE, LP, 4>(P, dec, asym, words, syms, G, W, L, stream);
+}
+
+template <int MODE>
+int encode(const Params& P, const void* sym, void* words, void* lengths,
+           const Geom& G, int L, cudaStream_t stream) {
+  using E = EncTile<MODE>;
+  const size_t smem = table_bytes<MODE == kEncUniform>() + E::kBufBytes;
+  auto kernel = rans_encode_kernel<MODE, 4>;
+  if constexpr (MODE != kEncUniform) {
+    if (P.K > 4) kernel = rans_encode_kernel<MODE, kMaxK>;
+  }
+  return launch(kernel, G.lanes / E::kLevels, E::kPix, smem, stream, P,
+                static_cast<const uint8_t*>(sym),
+                static_cast<int32_t*>(words), static_cast<int32_t*>(lengths),
+                G, L);
+}
+
+template <int MODE>
+int decode_rows(int L, const Params& P, const void* dec, const void* asym,
+                const void* words, void* syms, const Geom& G, int W,
+                cudaStream_t stream) {
+  // row entries 1..L-1 rounded up to whole 16-byte vectors
+  if (L <= 17) return decode_k<MODE, 16>(P, dec, asym, words, syms, G, W, L,
+                                         stream);
+  if (L <= 25) return decode_k<MODE, 24>(P, dec, asym, words, syms, G, W, L,
+                                         stream);
+  return decode_k<MODE, 32>(P, dec, asym, words, syms, G, W, L, stream);
+}
+
+Params params(const void* p, const void* a, const void* sc, const void* v,
+              const void* w, int K, int N) {
+  return Params{static_cast<const float*>(p), static_cast<const float*>(a),
+                static_cast<const float*>(sc), static_cast<const float*>(v),
+                static_cast<const float*>(w), K, N};
+}
 
 }  // namespace
 
-extern "C" int l3c_rans_encode(const void* start, const void* freq,
-                               const void* mask, void* words, void* lengths,
-                               int ns, int T, void* stream) {
-  const int blocks = (ns + kThreads - 1) / kThreads;
-  rans_encode_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(start), static_cast<const int32_t*>(freq),
-      static_cast<const uint8_t*>(mask), static_cast<int32_t*>(words),
-      static_cast<int32_t*>(lengths), ns, T);
-  return static_cast<int>(cudaGetLastError());
+// mode: 0 uniform (L <= 33), 1 bn (L <= 33), 2 RGB coarse, 3 RGB fine
+// (L = 16); channel c0 (RGB) or 0 (bn); F groups per channel.
+extern "C" int l3c_rans_decode(const void* p, const void* a, const void* sc,
+                               const void* v, const void* w, const void* dec,
+                               const void* asym, const void* words,
+                               void* syms, int mode, int K, int N, int n,
+                               int T, int W, int lanes, int F, int c0, int L,
+                               void* stream) {
+  const Params P = params(p, a, sc, v, w, K, N);
+  const Geom G{n, T, (n + T - 1) / T, lanes, F, c0};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (L < 2 || L > 33 || K > kMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kDecUniform:
+      return decode_rows<kDecUniform>(L, P, dec, asym, words, syms, G, W, st);
+    case kDecBn:
+      return decode_rows<kDecBn>(L, P, dec, asym, words, syms, G, W, st);
+    case kDecCoarse:
+      return decode_k<kDecCoarse, 16>(P, dec, asym, words, syms, G, W,
+                                      kCoarseBins, st);
+    case kDecFine:
+      return decode_k<kDecFine, 16>(P, dec, asym, words, syms, G, W,
+                                    kFineBins, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int l3c_rans_decode(const void* rows, const void* words,
-                               const void* mask, void* syms, int ns, int T,
-                               int W, int L, void* stream) {
-  const int blocks = (ns + kThreads - 1) / kThreads;
-  rans_decode_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(words),
-      static_cast<const uint8_t*>(mask), static_cast<int32_t*>(syms), ns, T,
-      W, L);
-  return static_cast<int>(cudaGetLastError());
+// mode: 0 uniform, 1 bn, 2 RGB (coarse and fine units stacked, L = 16);
+// sym (C, N) u8 with N = F n; F groups per channel.
+extern "C" int l3c_rans_encode(const void* p, const void* a, const void* sc,
+                               const void* v, const void* w, const void* sym,
+                               void* words, void* lengths, int mode, int K,
+                               int N, int n, int T, int lanes, int F, int L,
+                               void* stream) {
+  const Params P = params(p, a, sc, v, w, K, N);
+  const Geom G{n, T, (n + T - 1) / T, lanes, F, 0};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (L < 2 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kEncUniform:
+      return encode<kEncUniform>(P, sym, words, lengths, G, L, st);
+    case kEncBn:
+      return encode<kEncBn>(P, sym, words, lengths, G, L, st);
+    case kEncRgb:
+      return encode<kEncRgb>(P, sym, words, lengths, G, kFineBins, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

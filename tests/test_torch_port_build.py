@@ -5,12 +5,13 @@ Runs on the CPU: the C launchers are replaced by recorders, so nothing is
 compiled or launched.
 """
 import ctypes
+import os
 import types
 
 import pytest
 import torch
 
-from l3c_torch.ops import kernels
+from l3c_torch.ops import int_coder as ic, kernels
 from l3c_torch.ops.kernels import build
 
 torch.set_num_threads(1)
@@ -66,18 +67,27 @@ def _cpu_as_cuda(monkeypatch):
 
 def test_wrappers_pass_declared_arguments(monkeypatch):
     calls = _cpu_as_cuda(monkeypatch)
-    P, K, L, ns, T = 3, 2, 16, 2, 5
+    P, K, L = 3, 2, 16
     f = torch.zeros((P, K))
     kernels.mixture_cdf_q(f, f, f, torch.zeros(L), L)
     kernels.fine_cdf_q(f, f, f, torch.zeros(P), 1.0, -0.5)
-    i = torch.zeros((ns, T), dtype=torch.int32)
-    m = torch.ones((ns, T), dtype=torch.bool)
-    kernels.rans_encode(i, i, m)
-    kernels.rans_decode(torch.zeros((L, ns, T), dtype=torch.int32),
-                        torch.zeros((ns, 4), dtype=torch.int32), m)
+    # F = 2 groups of n = 3 pixels per channel, one stream each (T = 8)
+    rgb = ic.IntParams(*[torch.zeros((3, K, 6)) for _ in range(5)])
+    bn = ic.IntParams(*[torch.zeros((5, K, 6)) for _ in range(4)], None)
+    u3 = torch.zeros((3, 6), dtype=torch.uint8)
+    u5 = torch.zeros((5, 6), dtype=torch.uint8)
+    words = lambda lanes: torch.zeros((lanes, 4), dtype=torch.int32)
+    kernels.rans_encode("uniform", u5, 6, 8, 25)
+    kernels.rans_encode("bn", u5, 3, 8, 25, bn, 2)
+    kernels.rans_encode("rgb", u3, 3, 8, 16, rgb, 2)
+    kernels.rans_decode("uniform", words(5), 6, 8, 25)
+    kernels.rans_decode("bn", words(10), 3, 8, 25, bn, 2)
+    kernels.rans_decode("rgb_coarse", words(2), 3, 8, 16, rgb, 2, 0)
+    kernels.rans_decode("rgb_fine", words(2), 3, 8, 16, rgb, 2, 2, u3,
+                        torch.zeros(6, dtype=torch.uint8))
     assert [fn for fn, _ in calls] == [
-        "l3c_mixture_cdf_q", "l3c_fine_cdf_q", "l3c_rans_encode",
-        "l3c_rans_decode"]
+        "l3c_mixture_cdf_q", "l3c_fine_cdf_q"] + ["l3c_rans_encode"] * 3 \
+        + ["l3c_rans_decode"] * 4
     sigs = {**build.signatures("float_cdf"), **build.signatures("rans")}
     for fn, args in calls:
         assert len(args) == len(sigs[fn])
@@ -86,9 +96,40 @@ def test_wrappers_pass_declared_arguments(monkeypatch):
             assert isinstance(a, float) == (t is ctypes.c_float)
             if t is ctypes.c_int:
                 assert 0 <= a < 2 ** 31
+    # the mode is the first int; the uniform mode passes no IntParams
+    modes = [args[sigs[fn].index(ctypes.c_int)] for fn, args in calls[2:]]
+    assert modes == [0, 1, 2, 0, 1, 2, 3]
+    assert calls[2][1][:5] == (None,) * 5
+
+
+def test_wrappers_refuse_inconsistent_shapes(monkeypatch):
+    _cpu_as_cuda(monkeypatch)
+    bn = ic.IntParams(*[torch.zeros((5, 2, 6)) for _ in range(4)], None)
+    u5 = torch.zeros((5, 6), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="pixels"):
+        kernels.rans_encode("bn", u5, 4, 8, 25, bn, 2)      # F*n != N
+    with pytest.raises(ValueError, match="groups"):
+        kernels.rans_decode("bn", torch.zeros((9, 4), dtype=torch.int32),
+                            3, 8, 25, bn, 2)               # 9 != 5 x 2
+    with pytest.raises(ValueError, match="mode"):
+        kernels.rans_encode("fine", u5, 3, 8, 25, bn, 2)
 
 
 def test_call_refuses_wrong_argument_count(monkeypatch):
     _cpu_as_cuda(monkeypatch)
-    with pytest.raises(TypeError, match="takes 8 arguments"):
+    with pytest.raises(TypeError, match="takes 17 arguments"):
         build.call("rans", "l3c_rans_encode", 0, 0, 0)
+
+
+def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
+    """An edit to a header a source includes names a new library, so a
+    stale build is never reused."""
+    for f in ("rans.cu", "int_cdf.cuh"):
+        (tmp_path / f).write_text(open(os.path.join(build.CSRC, f)).read())
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    assert build.sources_of("rans") == [str(tmp_path / "rans.cu"),
+                                        str(tmp_path / "int_cdf.cuh")]
+    before = build._lib_path("rans")
+    with open(tmp_path / "int_cdf.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build._lib_path("rans") != before

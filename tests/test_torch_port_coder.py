@@ -1,6 +1,6 @@
 """Plain versions of the four kernels vs the JAX package.
 
-- plain rans_encode / rans_decode and the uniform coders vs
+- plain rans_encode_plain / rans_decode_plain and the uniform coders vs
   l3c_tpu.ops.tpu_coder: words and lengths bytewise, symbols equal;
 - plain mixture_cdf_q / fine_cdf_q (and the v7 row builders around them)
   vs the Pallas kernels of tools/pallas_cdf.py in interpret mode and vs
@@ -53,7 +53,7 @@ def test_rans_plain_matches_tpu_coder(L, T):
     w_j, l_j = jax.jit(tc.rans_encode)(jnp.asarray(st), jnp.asarray(fr),
                                        jnp.asarray(mask))
     w_j, l_j = np.asarray(w_j), np.asarray(l_j)
-    w_t, l_t = gpu_coder.rans_encode(
+    w_t, l_t = gpu_coder.rans_encode_plain(
         torch.from_numpy(st.astype(np.int32)),
         torch.from_numpy(fr.astype(np.int32)), torch.from_numpy(mask))
     np.testing.assert_array_equal(l_t.numpy(), l_j)
@@ -65,8 +65,8 @@ def test_rans_plain_matches_tpu_coder(L, T):
     s_j = np.asarray(jax.jit(tc.rans_decode, static_argnums=3)(
         jnp.asarray(rows.astype(np.uint16)), jnp.asarray(w_j),
         jnp.asarray(mask_t), L))
-    s_t = gpu_coder.rans_decode(torch.from_numpy(rows), w_t,
-                                torch.from_numpy(mask)).numpy()
+    s_t = gpu_coder.rans_decode_plain(torch.from_numpy(rows), w_t,
+                                      torch.from_numpy(mask)).numpy()
     np.testing.assert_array_equal(s_t, s_j)
     np.testing.assert_array_equal(s_t[mask], syms[mask])
 

@@ -63,10 +63,11 @@ def test_kernel_launchers_refuse_cpu_tensors():
     before any build; only the dispatching wrappers route CPU tensors to
     the plain versions."""
     from l3c_torch.ops import kernels
-    x = torch.zeros((4, 8), dtype=torch.int32)
-    m = torch.ones((4, 8), dtype=torch.bool)
+    x = torch.zeros((4, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.rans_encode(x, x, m)
+        kernels.rans_encode("uniform", x, 8, 8, 25)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.rans_decode("uniform", x.to(torch.int32), 8, 8, 25)
     f = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.mixture_cdf_q(f, f, f, torch.zeros(16), 16)

@@ -1,4 +1,4 @@
-"""The four CUDA kernels of l3c_torch against their plain PyTorch versions.
+"""The CUDA kernels of l3c_torch against their plain PyTorch versions.
 
 Needs an NVIDIA card (sm_90a) and nvcc; skips elsewhere. This file imports
 no JAX, so on the card machine it runs without the JAX test setup:
@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from l3c_torch.ops import float_cdf, gpu_coder, kernels
+from l3c_torch.ops import float_cdf, gpu_coder, int_coder as ic, kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -21,45 +21,107 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rows(rng, ns, T, L):
-    """Strictly increasing +2l rows with row[0] = 0, lane-major (L,NS,T)."""
-    c = np.sort(rng.randint(0, 65536 - 2 * L, (ns, T, L)), axis=-1)
-    r = c + 2 * np.arange(L)
-    r[..., 0] = 0
-    return np.ascontiguousarray(r.transpose(2, 0, 1)).astype(np.int32)
+def _int_params(N, K, rgb, seed):
+    """Random IntParams (C, K, N) within the evaluator's ranges, sharp and
+    flat mixtures mixed (the construction of test_torch_port_int_coder)."""
+    rng = np.random.RandomState(seed)
+    C = 3 if rgb else 5
+    pi = rng.dirichlet(np.ones(K) * rng.choice([0.05, 0.5]), (C, N))
+    a_hat = np.clip(np.exp(rng.uniform(-6, 5, (C, N, K))), 1 / 256, 64)
+    m_hat = rng.uniform(-10, 300 if rgb else 30, (C, N, K))
+    v = np.clip(np.round(m_hat * a_hat * 1024), -2 ** 24, 2 ** 24)
+    w = (np.round(rng.uniform(0, 1, (3, N, K)) * a_hat[[1, 2, 2]] * 1024)
+         if rgb else None)
+    fields = (np.round(pi * 4096), np.round(a_hat * 1024),
+              np.round(a_hat * 16 * 1024), v, w)
+    return ic.IntParams(*[
+        None if x is None else torch.from_numpy(np.ascontiguousarray(
+            x.transpose(0, 2, 1)).astype(np.float32)) for x in fields])
 
 
-def _sf(rows, syms, L):
-    rl = torch.from_numpy(rows.reshape(L, -1))
-    st, fr = gpu_coder.table_lookup_symbol(rl, torch.from_numpy(
-        syms.reshape(-1)), L)
-    ns, T = syms.shape
-    return st.reshape(ns, T), fr.reshape(ns, T)
+def _on(ip, dev):
+    return ic.IntParams(*[None if x is None else x.to(dev) for x in ip])
 
 
-@pytest.mark.parametrize("L", [16, 25])
-def test_rans_kernels_match_plain(cuda, L):
-    rng = np.random.RandomState(L)
-    ns, T = 200, 1024
-    rows = _rows(rng, ns, T, L)
-    syms = rng.randint(0, L, (ns, T))
-    st, fr = _sf(rows, syms, L)
-    mask = torch.ones((ns, T), dtype=torch.bool)
-    mask[-1, -37:] = False
-    w_ref, l_ref = gpu_coder.rans_encode_plain(st, fr, mask)
-    w, l = gpu_coder.rans_encode(st.to(cuda), fr.to(cuda), mask.to(cuda))
+def _used(words, lengths):
+    keep = (torch.arange(words.shape[1], device=words.device)[None, :]
+            < lengths[:, None])
+    return words[keep]
+
+
+# (n, T) with n not a multiple of T and several streams per group; F = 2
+@pytest.mark.parametrize("mode,K", [("uniform", 4), ("bn", 4), ("bn", 10),
+                                    ("rgb", 4), ("rgb", 10)])
+def test_rans_kernels_match_plain(cuda, mode, K):
+    """K3 and K4 in every mode against their plain versions: lengths and
+    used words identical, decoded symbols identical and equal to the
+    encoded ones."""
+    F, n, T, L = 2, 3000, 1024, 25
+    N = F * n
+    rng = np.random.RandomState(K)
+    n0 = dict(kernels.launches)
+    if mode == "rgb":
+        ip = _int_params(N, K, True, K)
+        syms = torch.from_numpy(rng.randint(0, 256, (3, N)))
+        lay = gpu_coder.layout_for(n, 6 * F, T)
+        enc = lambda s, p: gpu_coder.encode_rgb(p, s, lay)
+    else:
+        ip = _int_params(N, K, False, K)
+        syms = torch.from_numpy(rng.randint(0, L, (5, N)))
+        lay = gpu_coder.layout_for(n, 5 * F, T)
+        enc = ((lambda s, p: gpu_coder.encode_uniform(s, L, lay))
+               if mode == "uniform" else
+               (lambda s, p: gpu_coder.encode_bn(p, s, L, lay)))
+    ipc = _on(ip, cuda)
+    w_ref, l_ref = enc(syms, ip)
+    w, l = enc(syms.to(cuda), ipc)
     torch.cuda.synchronize()
     assert torch.equal(l.cpu(), l_ref)
-    # the kernel leaves slots past a stream's length unwritten
-    used = torch.arange(T + 2)[None, :] < l_ref[:, None]
-    assert torch.equal(w.cpu()[used], w_ref[used])
-    s_ref = gpu_coder.rans_decode_plain(torch.from_numpy(rows), w_ref, mask)
-    s = gpu_coder.rans_decode(torch.from_numpy(rows).to(cuda),
-                              w[:, :int(l.max())], mask.to(cuda))
-    torch.cuda.synchronize()
-    assert torch.equal(s.cpu(), s_ref)
-    assert torch.equal(s_ref[mask],
-                       torch.from_numpy(syms)[mask].to(torch.int32))
+    assert torch.equal(_used(w.cpu(), l.cpu()), _used(w_ref, l_ref))
+    if mode == "rgb":
+        half = lay.lanes // 2
+        lay1 = gpu_coder.layout_for(n, F, T)
+        ns = F * lay1.ns_c
+        dec = {d: torch.zeros((3, N), dtype=torch.uint8, device=d)
+               for d in ("cpu", cuda)}
+        for c in range(3):
+            wc = w_ref[c * ns:(c + 1) * ns]
+            wf = w_ref[half + c * ns:half + (c + 1) * ns]
+            got = {}
+            for d, p in (("cpu", ip), (cuda, ipc)):
+                a = gpu_coder.decode_rgb_coarse(p, c, dec[d], wc.to(d), lay1)
+                b = gpu_coder.decode_rgb_fine(p, c, dec[d], a, wf.to(d),
+                                              lay1)
+                got[d] = (a.cpu(), b.cpu())
+                dec[d][c] = (a << 4) | b
+            assert torch.equal(got["cpu"][0], got[cuda][0])
+            assert torch.equal(got["cpu"][1], got[cuda][1])
+        assert torch.equal(dec[cuda].cpu().long(), syms)
+        assert torch.equal(dec["cpu"].long(), syms)
+    else:
+        dec_fn = ((lambda w_, p: gpu_coder.decode_uniform(w_, L, lay))
+                  if mode == "uniform" else
+                  (lambda w_, p: gpu_coder.decode_bn(p, w_, L, lay)))
+        ref = dec_fn(w_ref, ip)
+        got = dec_fn(w_ref.to(cuda), ipc)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref)
+        assert torch.equal(ref.reshape(5, N).long(), syms)
+    want = {"rans_encode": 1, "rans_decode": 6 if mode == "rgb" else 1}
+    assert {k: kernels.launches[k] - n0.get(k, 0) for k in want} == want
+
+
+def test_canary_holds_the_kernels_on_card(cuda):
+    """The card's canary first holds K3/K4 to int_coder on its IntParams
+    at every symbol value (coder_check), which raises if they differ."""
+    from l3c_torch import blueprint, config
+    from l3c_torch.codec.bitcoding2 import contract_canary
+    cfg = config.MsConfig()
+    n0 = dict(kernels.launches)
+    contract_canary(blueprint.rgb_spec(cfg), blueprint.bn_spec(cfg),
+                    cfg.q.C, cfg.prob.K, 4, cuda)
+    want = {"rans_encode": 2, "rans_decode": 7}
+    assert {k: kernels.launches[k] - n0.get(k, 0) for k in want} == want
 
 
 def _mixture(rng, P, K):

@@ -1,0 +1,334 @@
+"""The rANS kernels' source (csrc/rans.cu) run on the CPU, against the plain
+versions of ops/gpu_coder.py.
+
+There is no CUDA compiler here, so the test compiles rans.cu with g++
+against a small header that maps the CUDA constructs the file uses onto
+the host: each block runs as 256 std::threads, `__syncthreads` is a
+std::barrier, the four-lane shuffles exchange through memory behind a
+barrier of the four lanes, the SIMD intrinsics are written out, and
+`kernel<<<...>>>(args)` becomes one such block run per block. Shared
+memory is a static array per kernel. The library is then bound in place
+of build.library("rans"), with tensors reporting is_cuda, so the
+channel-level functions take the kernels' path on CPU memory. This checks
+the kernels' index arithmetic, tiling, double buffering, word placement
+and search exactly, in every mode, at small sizes; it does not check what
+only the card can show (the CUDA compiler, the card's arithmetic, speed), which
+tests/test_torch_port_kernels.py and chip_smoke.py do on the card.
+"""
+import os
+import re
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from l3c_torch import blueprint
+from l3c_torch import config as tcfg
+from l3c_torch.codec.bitcoding2 import (TorchBitcoding, canary_inputs,
+                                        coder_check, contract_canary)
+from l3c_torch.models.network import MultiscaleNetwork
+from l3c_torch.ops import gpu_coder as gc
+from l3c_torch.ops import int_coder as ic
+from l3c_torch.ops import kernels
+from l3c_torch.ops.kernels import build
+
+torch.set_num_threads(1)
+
+HOST_CUDA_H = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__ static
+#define __align__(x) __attribute__((aligned(x)))
+#define __restrict__
+using std::max;
+using std::min;
+struct Dim { int x = 0; };
+inline thread_local Dim threadIdx, blockIdx;
+inline std::barrier<>* g_block = nullptr;
+inline std::barrier<>* g_quad[64];
+inline uint32_t g_lanes[256];
+inline void __syncthreads() { g_block->arrive_and_wait(); }
+template <class T> inline T __ldg(const T* p) { return *p; }
+struct uint2 { uint32_t x, y; };
+struct uint4 { uint32_t x, y, z, w; };
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return uint4{a, b, c, d};
+}
+// rans.cu shuffles only within groups of four lanes
+inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int o) {
+  const int t = threadIdx.x;
+  g_lanes[t] = v;
+  g_quad[t >> 2]->arrive_and_wait();
+  const uint32_t r = g_lanes[t ^ o];
+  g_quad[t >> 2]->arrive_and_wait();
+  return r;
+}
+inline uint32_t __vcmpleu2(uint32_t a, uint32_t b) {
+  return ((a & 0xFFFF) <= (b & 0xFFFF) ? 0xFFFFu : 0u) |
+         ((a >> 16) <= (b >> 16) ? 0xFFFF0000u : 0u);
+}
+inline uint32_t __vmaxu2(uint32_t a, uint32_t b) {
+  return max(a & 0xFFFF, b & 0xFFFF) | (max(a >> 16, b >> 16) << 16);
+}
+inline uint32_t __vminu2(uint32_t a, uint32_t b) {
+  return min(a & 0xFFFF, b & 0xFFFF) | (min(a >> 16, b >> 16) << 16);
+}
+inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+inline int cudaGetLastError() { return 0; }
+template <class F> void host_launch(int blocks, int threads, F body) {
+  for (int b = 0; b < blocks; ++b) {
+    std::barrier<> block(threads);
+    std::vector<std::unique_ptr<std::barrier<>>> quads;
+    for (int q = 0; q < threads / 4; ++q) {
+      quads.emplace_back(new std::barrier<>(4));
+      g_quad[q] = quads.back().get();
+    }
+    g_block = &block;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        body();
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+"""
+
+def _host_source() -> str:
+    src = open(os.path.join(build.CSRC, "rans.cu")).read()
+    for old, new in (
+            ("kernel<<<blocks, kThreads, smem, stream>>>(args...);",
+             "host_launch(blocks, kThreads, [&] { kernel(args...); });"),
+            ("extern __shared__ __align__(16) unsigned char smem[];",
+             "static unsigned char smem[1 << 18] __attribute__((aligned(16)));"
+             )):
+        assert old in src, f"rans.cu no longer contains {old!r}"
+        src = src.replace(old, new)
+    assert not re.search(r"<<<|extern __shared__", src)
+    return src
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """ctypes library of rans.cu compiled for the host."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile rans.cu for the host")
+    d = tmp_path_factory.mktemp("rans_host")
+    (d / "cuda_runtime.h").write_text(HOST_CUDA_H)
+    (d / "rans_host.cpp").write_text(_host_source())
+    out = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-pthread", f"-I{d}", f"-I{build.CSRC}", "-o",
+         str(d / "librans.so"), str(d / "rans_host.cpp")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    assert out.returncode == 0, out.stdout[-4000:]
+    return build._bind("rans", str(d / "librans.so"))
+
+
+def _kernel_path(monkeypatch, lib):
+    """Route the rANS launchers to `lib` on CPU tensors."""
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+
+
+F, n, T, L_BN = 2, 150, 64, 25
+N = F * n
+
+
+def _int_params(K, rgb, seed):
+    """Random IntParams (C, K, N) within the evaluator's ranges, sharp and
+    flat mixtures mixed."""
+    rng = np.random.RandomState(seed)
+    C = 3 if rgb else 5
+    pi = rng.dirichlet(np.ones(K) * rng.choice([0.05, 0.5]), (C, N))
+    a_hat = np.clip(np.exp(rng.uniform(-6, 5, (C, N, K))), ic.A_MIN,
+                    ic.A_MAX)
+    m_hat = rng.uniform(-10, 300 if rgb else 30, (C, N, K))
+    v = np.clip(np.round(m_hat * a_hat * 1024), -ic.V_CLAMP, ic.V_CLAMP)
+    w = (np.round(rng.uniform(0, 1, (3, N, K)) * a_hat[[1, 2, 2]] * 1024)
+         if rgb else None)
+    return ic.IntParams(*[
+        None if x is None else torch.from_numpy(np.ascontiguousarray(
+            x.transpose(0, 2, 1)).astype(np.float32))
+        for x in (np.round(pi * ic.PI_Q), np.round(a_hat * 1024),
+                  np.round(a_hat * 16 * 1024), v, w)])
+
+
+def _same_coded(got, want):
+    (wk, lk), (wp, lp) = got, want
+    keep = lambda w, ln: w[torch.arange(w.shape[1])[None] < ln[:, None]]
+    return torch.equal(lk, lp) and torch.equal(keep(wk, lk), keep(wp, lp))
+
+
+def _cut(w, ln):
+    return w[:, :int(ln.max())].contiguous()
+
+
+def _run(monkeypatch, lib, fn):
+    with monkeypatch.context() as m:
+        _kernel_path(m, lib)
+        return fn()
+
+
+@pytest.mark.parametrize("mode,K", [
+    ("uniform", 0), ("bn", 1), ("bn", 3), ("bn", 4), ("bn", 7), ("bn", 10),
+    ("rgb", 1), ("rgb", 3), ("rgb", 4), ("rgb", 7), ("rgb", 10)])
+def test_rans_source_matches_plain(host_lib, monkeypatch, mode, K):
+    """K3 and K4 of rans.cu against the plain versions: lengths and used
+    words identical, symbols identical and equal to the coded ones. K' > 4
+    takes the kernels' 10-component parameter registers, K' <= 4 the
+    4-component ones; n = 150 is not a multiple of T = 64."""
+    lib = host_lib
+    rng = np.random.RandomState(K)
+    launches = dict(kernels.launches)
+    if mode == "rgb":
+        ip = _int_params(K, True, 10 + K)
+        img = torch.from_numpy(rng.randint(0, 256, (3, N)))
+        lay6 = gc.layout_for(n, 6 * F, T)
+        want = gc.encode_rgb_plain(ip, img, lay6)
+        w6, l6 = _run(monkeypatch, lib, lambda: gc.encode_rgb(ip, img, lay6))
+        assert _same_coded((w6, l6), want)
+        lay = gc.layout_for(n, F, T)
+        ns, half = F * lay.ns_c, lay6.lanes // 2
+        dec = img.to(torch.uint8)
+        for c in range(3):
+            wc = _cut(w6[c * ns:(c + 1) * ns], l6[c * ns:(c + 1) * ns])
+            r0 = half + c * ns
+            wf = _cut(w6[r0:r0 + ns], l6[r0:r0 + ns])
+            a = _run(monkeypatch, lib, lambda: gc.decode_rgb_coarse(
+                ip, c, dec, wc, lay))
+            assert torch.equal(a, gc.decode_rgb_coarse_plain(ip, c, dec, wc,
+                                                             lay))
+            b = _run(monkeypatch, lib, lambda: gc.decode_rgb_fine(
+                ip, c, dec, a, wf, lay))
+            assert torch.equal(b, gc.decode_rgb_fine_plain(ip, c, dec, a, wf,
+                                                           lay))
+            assert torch.equal(((a << 4) | b).long(), img[c])
+        want_launches = {"rans_encode": 1, "rans_decode": 6}
+    else:
+        syms = torch.from_numpy(rng.randint(0, L_BN, (5, N)))
+        lay = gc.layout_for(n, 5 * F, T)
+        if mode == "uniform":
+            flat = syms.reshape(-1)
+            enc = lambda: gc.encode_uniform(flat, L_BN, lay)
+            want = gc.encode_uniform_plain(flat, L_BN, lay)
+        else:
+            ip = _int_params(K, False, 20 + K)
+            enc = lambda: gc.encode_bn(ip, syms, L_BN, lay)
+            want = gc.encode_bn_plain(ip, syms, L_BN, lay)
+        coded = _run(monkeypatch, lib, enc)
+        assert _same_coded(coded, want)
+        words = _cut(*coded)
+        if mode == "uniform":
+            got = _run(monkeypatch, lib,
+                       lambda: gc.decode_uniform(words, L_BN, lay))
+            ref = gc.decode_uniform_plain(words, L_BN, lay)
+        else:
+            got = _run(monkeypatch, lib,
+                       lambda: gc.decode_bn(ip, words, L_BN, lay))
+            ref = gc.decode_bn_plain(ip, words, L_BN, lay)
+        assert torch.equal(got, ref)
+        assert torch.equal(got.reshape(5, N).long(), syms)
+        want_launches = {"rans_encode": 1, "rans_decode": 1}
+    assert {k: kernels.launches[k] - launches.get(k, 0)
+            for k in want_launches} == want_launches
+
+
+def test_codec_files_through_rans_source(host_lib, monkeypatch, tmp_path):
+    """A tiny model's codec round through the host-built kernels writes the
+    same bytes as the plain path and decodes bit-exactly, launching K3 4
+    times and K4 9 times."""
+    cfg = tcfg.MsConfig(num_scales=3, Cf=8, enc=tcfg.EncConfig(num_blocks=1),
+                        dec=tcfg.DecConfig(num_blocks=1),
+                        q=tcfg.QConfig(C=5, L=25), prob=tcfg.ProbConfig(K=10))
+    torch.manual_seed(0)
+    bc = TorchBitcoding(cfg, MultiscaleNetwork(cfg), device="cpu")
+    imgs = [np.random.RandomState(i).randint(0, 256, (1, 21, 19, 3))
+            .astype(np.uint8) for i in range(3)]
+    plain = [str(tmp_path / f"p{i}") for i in range(3)]
+    fused = [str(tmp_path / f"k{i}") for i in range(3)]
+    bc.encode_batch(imgs, plain)
+    kernels.reset_launches()
+    outs = _run(monkeypatch, host_lib,
+                lambda: (bc.encode_batch(imgs, fused),
+                         bc.decode_batch(fused))[1])
+    assert dict(kernels.launches) == {"rans_encode": 4, "rans_decode": 9}
+    for p, k, img, out in zip(plain, fused, imgs, outs):
+        assert open(p, "rb").read() == open(k, "rb").read()
+        np.testing.assert_array_equal(out, img)
+
+
+def _canary(cfg):
+    return contract_canary(blueprint.rgb_spec(cfg), blueprint.bn_spec(cfg),
+                           cfg.q.C, cfg.prob.K, 4, torch.device("cpu"))
+
+
+def test_canary_holds_the_kernels(host_lib, monkeypatch):
+    """On the kernel path the canary first holds K3/K4 to the plain
+    versions on its IntParams at every symbol value (coder_check: one
+    RGB and one bn encode, six RGB and one bn decode), then gives the
+    plain path's value."""
+    cfg = tcfg.MsConfig()
+    want = _canary(cfg)
+    launches = dict(kernels.launches)
+    assert _run(monkeypatch, host_lib, lambda: _canary(cfg)) == want
+    assert {k: kernels.launches[k] - launches.get(k, 0)
+            for k in kernels.KERNELS if k.startswith("rans")} == {
+        "rans_encode": 2, "rans_decode": 7}
+
+
+@pytest.mark.parametrize("fn,what", [
+    ("encode_rgb", "encode_rgb"), ("decode_rgb_fine", "decode_rgb channel 0"),
+    ("encode_bn", "encode_bn"), ("decode_bn", "decode_bn")])
+def test_coder_check_refuses_a_differing_coder(monkeypatch, fn, what):
+    """A channel-level coder function whose output differs from its plain
+    version by one bit of one element fails coder_check (plain path: the
+    check's comparisons, not the kernels, are under test here)."""
+    cfg = tcfg.MsConfig()
+    rgb, bn = blueprint.rgb_spec(cfg), blueprint.bn_spec(cfg)
+    l_rgb, l_bn, _, _ = canary_inputs(bn, cfg.q.C, cfg.prob.K)
+    ip_r = ic.pack_int_params(rgb, torch.from_numpy(l_rgb), 3, 4)
+    ip_b = ic.pack_int_params(bn, torch.from_numpy(l_bn), cfg.q.C, 4)
+    orig = getattr(gc, fn)
+
+    def broken(*args):
+        out = orig(*args)
+        if fn.startswith("encode"):          # the first stream's state
+            w, ln = out
+            w = w.clone()
+            w[0, 0] ^= 1
+            return w, ln
+        out = out.clone()
+        out.view(-1)[0] ^= 1
+        return out
+
+    coder_check(ip_r, ip_b, bn.L)
+    monkeypatch.setattr(gc, fn, broken)
+    with pytest.raises(RuntimeError, match=what):
+        coder_check(ip_r, ip_b, bn.L)
