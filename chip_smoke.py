@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the l3c_torch codec path on one NVIDIA card and check it.
+"""Drive the l3c_torch codec and its serving entry points on one NVIDIA
+card and check them.
 
     python3 chip_smoke.py      # exits 0 only if every phase holds
 
@@ -11,28 +12,50 @@ Phases (each raises on failure; none carries on after another failed):
               bench.py image recipe); GPU vs CPU bpsp on a 64x64 crop
   3. codec    the main path with every kernel launch count set to 0 and
               the int_coder row/lookup builders counted on CUDA tensors:
+              and the plain pack / top-k functions counted on CUDA tensors:
               TorchBitcoding.encode_batch (fbatch 8, balanced, topk 4) ->
               v8 files -> decode_batch, which also builds the scale-0 v7
-              float rows; asserts bit-exact, 4 x rans_encode and 9 x
-              rans_decode, no builder call on the card; prints file vs
-              theory bpsp and enc/dec times; the canary on card and CPU,
-              and K3/K4 held to int_coder on the canary's IntParams at
-              every symbol value
+              float rows; asserts bit-exact, 4 x rans_encode, 9 x
+              rans_decode and 6 x pack_int, no row/lookup and no plain pack
+              call on the card; prints file vs theory bpsp and enc/dec
+              times; the canary on card and CPU, and K3/K4 held to
+              int_coder on the canary's IntParams at every symbol value
   4. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes and inputs: K1/K2 <= 1 step (coarse)
               / <= 2 steps on well-conditioned rows (fine); K3/K4 in every
               mode (uniform, bn, RGB coarse and fine per channel) exact:
-              lengths, used words and symbols identical; times by CUDA
-              events (K3/K4 records: per launch, averaged over the round)
-  5. profile  device time by op and by kernel over one more encode+decode
+              lengths, used words and symbols identical; K5 on the round's
+              classifier outputs at the three scales' shapes, topk 4 and
+              0: the selected components exact, every output within one
+              step in <= 1e-3 of the entries; times by CUDA events (K3/K4
+              /K5 records: per launch, averaged over the round); then
+              K3/K4/K5 again, held the same way, at the layouts phase cli
+              codes with: fbatch 8 with the size profile (T up to 16384)
+              and all K = 10 components, and fbatch 1 balanced top-4 (the
+              plain versions run once there, not timed)
+  5. cli      the serving entry points at full width on 8 seeded 512x512
+              PNGs written by the port's writer: cli.l3c enc then dec of
+              one (decoded PNG == source); cli.test (theory bpsp, equal to
+              phase forward's) and cli.test --write_to_files
+              --compare_theory (size profile, all 10 components, group 8,
+              bit-exact gate); a stage_batch -> encode_batch(staged=) ->
+              device-resident decode -> verify_batch round (flag true,
+              hash == the numpy hash of the source pixels); every call
+              has the launch counts set to 0 before it and read after it,
+              and they must be exactly its path's (an encode 4 x K3 and
+              3 x K5, a decode 9 x K4 and 3 x K5, a new codec object's
+              canary 2 x K5, 2 x K3, 7 x K4; cli.test alone none)
+  6. profile  device time by op and by kernel over one more encode+decode
               round (torch.profiler), and the device's busy share
-  6. report   one JSON line of kernel records, the card line, then
+  7. report   one JSON line of kernel records, the card line, then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -47,20 +70,26 @@ import numpy as np
 import torch
 
 from l3c_torch import blueprint
+from l3c_torch.cli import l3c as l3c_cli
+from l3c_torch.cli import test as test_cli
 from l3c_torch.codec.bitcoding2 import (TorchBitcoding, canary_inputs,
                                         canary_leaves, coder_check,
-                                        contract_canary, fbatch_for)
-from l3c_torch.config import MsConfig
+                                        contract_canary, fbatch_for,
+                                        pack_int)
+from l3c_torch.config import load_ms_config
+from l3c_torch.data.images import Testset, read_png, write_png
 from l3c_torch.device import numerics_guard
+from l3c_torch.eval.tester import MultiscaleTester
 from l3c_torch.models import layers
 from l3c_torch.models.network import MultiscaleNetwork
 from l3c_torch.models.weights import load_network_weights
 from l3c_torch.ops import float_cdf, gpu_coder, int_coder, kernels
 from l3c_torch.ops.kernels import build
+from l3c_torch.utils.logdir import find_log_dir
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CKPT = os.path.join(ROOT, "models_zoo",
-                    "0820_0345 cr oi_offline r@0819_0307 r5b", "ckpts",
+ZOO, LOG_DATE = os.path.join(ROOT, "models_zoo"), "0820_0345"
+CKPT = os.path.join(ZOO, "0820_0345 cr oi_offline r@0819_0307 r5b", "ckpts",
                     "ckpt_0000246250.ckpt")
 SZ, B = 512, 8                       # bench.py's serving shape
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
@@ -78,11 +107,18 @@ KERNEL_INFO = {
     "rans_decode": ("l3c_torch/ops/kernels/csrc/rans.cu",
                     "l3c_tpu/ops/tpu_coder.py:481 + "
                     "l3c_tpu/codec/bitcoding2.py:344/:361"),
+    # XLA-lowered inside the JAX codec's per-scale get_P program
+    "pack_int": ("l3c_torch/ops/kernels/csrc/pack.cu",
+                 "l3c_tpu/ops/int_coder.py:259"),
 }
 # the int_coder row and lookup builders: on the card the main path must
 # call none of them (the kernels evaluate the CDF themselves)
-INT_CODER_BUILDERS = ("bn_rows", "bn_lookup", "rgb_coarse_rows",
+INT_CODER_ROWS = ("bn_rows", "bn_lookup", "rgb_coarse_rows",
                       "rgb_coarse_lookup", "rgb_fine_rows", "rgb_fine_lookup")
+# the plain float pack stage and its top-k selection: none on the card
+# either (K5 packs there)
+PLAIN_PACK = ("pack_int_params", "pack_int_params_nchw", "topk_rank",
+              "topk_index")
 # f32 operations per CDF evaluation, counted from csrc/int_cdf.cuh as
 # rans.cu builds it: a component's term (edge z and clip 4, the sigmoid
 # table read 6: |z|, clamp, index, convert, sign and select; term and
@@ -96,6 +132,25 @@ OPS_TERM, OPS_EDGE, OPS_COND, OPS_BOUNDS = 14, 13, 29, 4
 OPS_LAMBDA = (0, 4, 6)
 OPS_TABLE = 16384 * 88
 LAMBDA_SLOTS = (0, 1, 2)          # w slots read by channel c
+# f32 operations of pack_int per (pixel, channel), counted from
+# csrc/pack.cu: the rank (K^2 x (==, >, select, add)) and, per selected
+# value, K x (compare, select) when K' < K; per component the softmax (sub,
+# expf, add, div, x 4096, rint), inv_s / a_hat / m_hat / v and the three
+# roundings (~16), expf and a division counted as 8 each; a lambda slot
+# (sigmoid, two products, rint) ~22 per component
+OPS_EXP = 8
+
+
+def pack_bound(Kp: int, C: int, K: int, KS: int, lam: bool, n: int):
+    """(ms, by) of one K5 launch: Kp planes of n f32 read, 4 C K' (+ 3 K'
+    with the lambda slots) planes written; operations as counted above."""
+    planes_out = 4 * C * KS + (3 * KS if lam else 0)
+    groups = 3 + (1 if lam else 0)
+    sel = (4 * K * K + groups * 2 * K * KS) if KS < K else 0
+    per_comp = (4 + 2 * OPS_EXP) + (8 + 2 * OPS_EXP) + 3
+    ops = C * (sel + KS * per_comp) + (3 * KS * (6 + 2 * OPS_EXP)
+                                       if lam else 0)
+    return bound((Kp + planes_out) * n * 4, n * ops)
 
 
 def log(msg: str) -> None:
@@ -211,7 +266,7 @@ def count_cuda_calls(module, names, counts):
 def phase_codec(bc, imgs, theory_bpsp, card):
     """The main path, launch-counted; then two more timed rounds."""
     enc_ms, dec_ms = [], []
-    builder_calls = {name: 0 for name in INT_CODER_BUILDERS}
+    plain_calls = {name: 0 for name in INT_CODER_ROWS + PLAIN_PACK}
     with tempfile.TemporaryDirectory(prefix="l3c_smoke_") as d:
         warm = [os.path.join(d, f"warm{b}.l3c") for b in range(B)]
         bc.encode_batch(imgs, warm)        # cuDNN / allocator warm-up
@@ -220,8 +275,9 @@ def phase_codec(bc, imgs, theory_bpsp, card):
             paths = [os.path.join(d, f"r{r}_{b}.l3c") for b in range(B)]
             if r == 0:
                 kernels.reset_launches()
-                restore = count_cuda_calls(int_coder, INT_CODER_BUILDERS,
-                                           builder_calls)
+                restore = count_cuda_calls(
+                    int_coder, INT_CODER_ROWS + PLAIN_PACK,
+                    plain_calls)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             bpsps = bc.encode_batch(imgs, paths)
@@ -242,15 +298,17 @@ def phase_codec(bc, imgs, theory_bpsp, card):
     if missing:
         raise RuntimeError(f"main path never launched {missing}: {counts}")
     # one round: unit 0 + 2 bn units + the stacked scale-0 units (encode);
-    # unit 0 + 2 bn units + 3 channels x (coarse, fine) (decode)
-    if (counts["rans_encode"], counts["rans_decode"]) != (4, 9):
-        raise RuntimeError(f"expected 4 x rans_encode, 9 x rans_decode per "
-                           f"round: {counts}")
-    log(f"[codec] int_coder row/lookup calls on CUDA tensors in the "
-        f"round: {builder_calls}")
-    if any(builder_calls.values()):
-        raise RuntimeError("the main path built CDF rows or lookups in "
-                           "PyTorch on the card")
+    # unit 0 + 2 bn units + 3 channels x (coarse, fine) (decode); one pack
+    # per scale on each side
+    if (counts["rans_encode"], counts["rans_decode"],
+            counts["pack_int"]) != (4, 9, 6):
+        raise RuntimeError(f"expected 4 x rans_encode, 9 x rans_decode, 6 x "
+                           f"pack_int per round: {counts}")
+    log(f"[codec] int_coder row/lookup and plain pack/top-k calls on CUDA "
+        f"tensors in the round: {plain_calls}")
+    if any(plain_calls.values()):
+        raise RuntimeError("the main path built CDF rows or lookups, or "
+                           "packed IntParams, in PyTorch on the card")
     file_bpsp = float(np.mean(bpsps))
     mp = B * SZ * SZ / 1e6
     e, dd = statistics.median(enc_ms), statistics.median(dec_ms)
@@ -270,7 +328,8 @@ def phase_codec(bc, imgs, theory_bpsp, card):
     log(f"[codec] canary topk {bc.coder_topk}: card {card_c:#010x} cpu "
         f"{cpu:#010x} ({'equal' if cpu == card_c else 'DIFFERENT'})")
     # where card and CPU part ways on the canary's inputs: the float pack
-    # stage (entries differing per IntParams field), and the integer
+    # stage as the codec runs it (K5 on the card, the plain version on the
+    # CPU; entries differing per IntParams field), and the integer
     # rows/lookups evaluated on the card from the CPU's IntParams (which
     # the exact-integer design says must be identical)
     l_rgb, l_bn, t_rgb, t_bn = canary_inputs(bc._bn, bc.cfg.q.C,
@@ -279,13 +338,13 @@ def phase_codec(bc, imgs, theory_bpsp, card):
     with torch.inference_mode():
         for name, spec, l, C in (("rgb", bc._rgb, l_rgb, 3),
                                  ("bn", bc._bn, l_bn, bc.cfg.q.C)):
-            ips[name] = [int_coder.pack_int_params(
-                spec, torch.from_numpy(l).to(d), C, bc.coder_topk)
-                for d in (bc.device, torch.device("cpu"))]
+            planes = torch.from_numpy(l).permute(0, 3, 1, 2).contiguous()
+            ips[name] = [pack_int(spec, planes.to(d), C, bc.coder_topk)
+                         for d in (bc.device, torch.device("cpu"))]
             diffs = {f: (int((a.cpu() != b).sum()), a.numel())
                      for f, a, b in zip(ips[name][0]._fields, *ips[name])
                      if a is not None}
-            log(f"[codec] pack_int_params card vs cpu, {name} canary "
+            log(f"[codec] pack_int card (K5) vs cpu (plain), {name} canary "
                 "inputs: " + ", ".join(f"{f} {n}/{m}"
                                        for f, (n, m) in diffs.items()))
         to_card = lambda ip: int_coder.IntParams(
@@ -313,10 +372,12 @@ def phase_codec(bc, imgs, theory_bpsp, card):
     return counts, e + dd
 
 
-def coded_units(bc, imgs):
+def coded_units(bc, imgs, logits=None):
     """What encode_batch codes, computed as it computes it: {unit: (ip,
     true symbols (C, N), n per group)} for unit 0 ("uniform", ip None), the
-    bn scales ("bn<scale>") and scale 0 ("rgb", the image planes)."""
+    bn scales ("bn<scale>") and scale 0 ("rgb", the image planes). With a
+    dict `logits`, the classifier's output of each scale (N, Kp, H, W) is
+    left in it."""
     x = torch.from_numpy(np.concatenate(imgs)).to(bc.device)
     planes = lambda t: t.permute(3, 0, 1, 2).reshape(t.shape[3], -1)
     units = {}
@@ -326,7 +387,9 @@ def coded_units(bc, imgs):
         units["uniform"] = (None, planes(s), s.shape[1] * s.shape[2])
         dec_F, bn = None, per_scale[-1].bn_q
         for scale in reversed(range(bc.cfg.num_scales)):
-            ip, dec_F, _ = bc._get_P_int(scale, bc.coder_topk, bn, dec_F)
+            ip, dec_F, l = bc._get_P_int(scale, bc.coder_topk, bn, dec_F)
+            if logits is not None:
+                logits[scale] = l
             t = x if scale == 0 else per_scale[scale - 1].syms
             units["rgb" if scale == 0 else f"bn{scale}"] = (
                 ip, planes(t), t.shape[1] * t.shape[2])
@@ -397,8 +460,125 @@ def phase_kernels(bc, imgs, counts):
     bc.last_float_rows = None
     del fr, pi, mu, inv_s
 
-    phase_coder(bc, imgs, record)
+    logits = {}
+    phase_coder(bc, coder_cases(bc, imgs, logits), record)
+    phase_pack(bc, logits, record)
+    del logits
+    # the layouts of phase cli, each kernel against its plain version there
+    # too (the plain versions run once and are not timed):
+    # cli.test --write_to_files codes the eight with the size profile (T up
+    # to 16384) and all K = 10 components (K5 at topk 0 and these shapes
+    # was held above: the pack does not see the stream profile) ...
+    bc_size = TorchBitcoding(bc.cfg, bc.net, device=bc.device,
+                             coder_profile="size")
+    phase_coder(bc_size, coder_cases(bc_size, imgs), None)
+    # ... and cli.l3c one image alone: fbatch 1, balanced, top-4
+    one = {}
+    phase_coder(bc, coder_cases(bc, imgs[:1], one), None)
+    phase_pack(bc, one, None, topks=(4,))
     return recs
+
+
+def pack_diffs(got, want):
+    """{field: (entries differing, entries)}; raises when an entry is off
+    by more than one step."""
+    out = {}
+    for f, g, w in zip(got._fields, got, want):
+        if w is None:
+            if g is not None:
+                raise RuntimeError(f"pack_int: field {f} should be None")
+            continue
+        d = (g - w).abs()
+        if not float(d.max()) <= 1:
+            raise RuntimeError(f"pack_int: {f} off by {float(d.max())}")
+        out[f] = (int((d > 0).sum()), d.numel())
+    return out
+
+
+def phase_pack(bc, logits, record, topks=(4, 0)):
+    """K5 against the plain version on the round's classifier outputs at
+    the three scales' shapes, topk 4 (the main path's) and topk 0 (the
+    size profile's); timed only with `record`. The float part may differ after the roundings by one
+    step in <= 1e-3 of the entries (the kernel's own expf and summation
+    order); the selection must be exact: with mu set to the component's
+    index and the log-scales to 0, v tells the selected components apart
+    and must equal the plain version's bit for bit."""
+    K, times, worst = bc.cfg.prob.K, {}, 0
+    with torch.inference_mode():
+        for scale in sorted(logits, reverse=True):
+            l = logits[scale]
+            spec, C = ((bc._rgb, 3) if scale == 0 else
+                       (bc._bn, bc.cfg.q.C))
+            N, Kp, H, W = l.shape
+            for topk in topks:
+                KS = topk if 0 < topk < K else K
+                got = pack_int(spec, l, C, topk)
+                want = int_coder.pack_int_params_nchw(spec, l, C, topk)
+                diffs = pack_diffs(got, want)
+                n_bad = sum(a for a, _ in diffs.values())
+                n_all = sum(b for _, b in diffs.values())
+                worst = max(worst, int(n_bad > 0))  # steps: 0 or 1
+                if n_bad > 1e-3 * n_all:
+                    raise RuntimeError(f"pack_int scale {scale} topk {topk}:"
+                                       f" {n_bad}/{n_all} entries differ")
+                del got, want
+                shown = (f"[kernels] pack_int scale {scale} "
+                         f"{tuple(l.shape)} topk {topk} (K'={KS}): differ "
+                         "by one step " + ", ".join(
+                             f"{f} {a}/{m}" for f, (a, m) in diffs.items()))
+                if record is None:
+                    log(shown + " | not timed")
+                    continue
+                ms = cuda_ms(lambda: pack_int(spec, l, C, topk))
+                pms = cuda_ms(lambda: int_coder.pack_int_params_nchw(
+                    spec, l, C, topk), 3)
+                b = pack_bound(Kp, C, K, KS, spec.rgb_scale, N * H * W)
+                times[scale, topk] = (ms, pms, b)
+                log(shown + f" | {ms * 1e3:.1f} us/launch | plain "
+                    f"{pms * 1e3:.1f} us | bound {b[0] * 1e3:.1f} us "
+                    f"({b[1]})")
+            if scale == 1 and record is not None:
+                # why the pack divides by a tensor: by a Python scalar
+                # PyTorch multiplies with the reciprocal on the card
+                mu = l[:, C * K:2 * C * K]
+                bw = float(np.float32(spec.bin_width))
+                n_off = int((mu / bw != mu / torch.full(
+                    (), bw, device=l.device)).sum())
+                log(f"[kernels] scale-1 mu / bin width: tensor / Python "
+                    f"scalar differs from the true division in {n_off} of "
+                    f"{mu.numel()} values on the card")
+                del mu
+            # the selection: mu = k, log_s = 0 on the real pi logits
+            lx = l.reshape(N, spec.num_params, C, K, H * W).clone()
+            lx[:, 1] = torch.arange(K, dtype=l.dtype,
+                                    device=l.device)[None, None, :, None]
+            lx[:, 2] = 0.0
+            lx = lx.reshape(l.shape)
+            v_k = pack_int(spec, lx, C, 4).v
+            v_p = int_coder.pack_int_params_nchw(spec, lx, C, 4).v
+            same = torch.equal(v_k, v_p)
+            log(f"[kernels] pack_int scale {scale}: top-4 of {K} components "
+                f"selected at {v_k.numel()} entries, "
+                f"{int((v_k != v_p).sum())} differ from the plain version")
+            if not same:
+                raise RuntimeError("pack_int selects other components than "
+                                   "the plain version")
+            del lx, v_k, v_p
+    if record is None:
+        return
+    # the record: per launch, averaged over the round's launches (one per
+    # scale on each codec side, topk 4)
+    main = [times[scale, 4] for scale in sorted(logits)]
+    n = len(main)
+    log(f"[kernels] pack_int per round (2 x {n} launches): "
+        f"{2 * sum(t[0] for t in main):.3f} ms | plain "
+        f"{2 * sum(t[1] for t in main):.1f} ms | bound "
+        f"{2 * sum(t[2][0] for t in main):.3f} ms")
+    by = {k: sum(t[2][0] for t in main if t[2][1] == k)
+          for k in ("bytes", "operations")}
+    record("pack_int", worst, sum(t[0] for t in main) / n,
+           sum(t[1] for t in main) / n,
+           (sum(by.values()) / n, max(by, key=by.get)))
 
 
 def coder_bound(mode, ip, n_px, words_used, c=0, L=25):
@@ -441,33 +621,38 @@ class CoderCase(NamedTuple):
     plain: Callable
     truth: Optional[torch.Tensor]
     bound: Tuple[float, str]
+    fbatch: int
 
 
-def coder_cases(bc, imgs) -> List[CoderCase]:
-    """The round's 4 K3 and 9 K4 launches at the main path's shapes and
-    inputs: unit 0, the bn scales, the stacked scale-0 units (encode) and
+def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
+    """The 4 K3 and 9 K4 launches of a round of `imgs` (a float batch of
+    its own) at bc's stream profile and topk, at the shapes and inputs the
+    codec gives them: unit 0, the bn scales, the stacked scale-0 units (encode) and
     each scale-0 channel's coarse and fine symbols (decode, the lambda
     chain on the true symbols). The decodes read the encodes' words."""
-    gc, L, F = gpu_coder, bc._bn.L, B
-    units = coded_units(bc, imgs)
+    gc, L, F = gpu_coder, bc._bn.L, fbatch_for(len(imgs))
+    if F != len(imgs):
+        raise ValueError("coder_cases takes a full float batch")
+    units = coded_units(bc, imgs, logits)
+    t_policy = lambda n: gc.t_policy(n, bc.coder_profile)
     cases = []
 
     def enc(label, run, plain, mode, ip, n_px):
         w, ln = run()
         cases.append(CoderCase("rans_encode", label, run, plain, None,
                                coder_bound(mode, ip, n_px,
-                                           int(ln.sum()) + ln.numel())))
+                                           int(ln.sum()) + ln.numel()), F))
         return w, ln
 
     def dec(label, run, plain, truth, mode, ip, ln, c=0):
         cases.append(CoderCase("rans_decode", label, run, plain, truth,
                                coder_bound(mode, ip, truth.numel(),
-                                           int(ln.sum()), c, L)))
+                                           int(ln.sum()), c, L), F))
 
     with torch.inference_mode():
         # ---- unit 0: the uniform prior over all bn channels
         _, syms, n = units["uniform"]
-        lay = gc.layout_for(n, syms.shape[0] * F, gc.t_policy(n))
+        lay = gc.layout_for(n, syms.shape[0] * F, t_policy(n))
         flat = syms.reshape(-1)
         # (the lambdas bind their inputs: the names are reused below)
         w, ln = enc(f"uniform NS={lay.lanes} T={lay.T}",
@@ -482,7 +667,7 @@ def coder_cases(bc, imgs) -> List[CoderCase]:
         # ---- the bn scales
         for scale in range(bc.cfg.num_scales - 1, 0, -1):
             ip, syms, n = units[f"bn{scale}"]
-            lay = gc.layout_for(n, syms.shape[0] * F, gc.t_policy(n))
+            lay = gc.layout_for(n, syms.shape[0] * F, t_policy(n))
             w, ln = enc(f"bn scale {scale} NS={lay.lanes} T={lay.T}",
                         lambda ip=ip, s=syms, y=lay: gc.encode_bn(ip, s, L, y),
                         lambda ip=ip, s=syms, y=lay: gc.encode_bn_plain(
@@ -494,7 +679,7 @@ def coder_cases(bc, imgs) -> List[CoderCase]:
                 syms, "dec bn", ip, ln)
         # ---- scale 0: both units stacked (encode), per channel (decode)
         ip, img, n = units["rgb"]
-        T = gc.t_policy(n)
+        T = t_policy(n)
         lay6 = gc.layout_for(n, 6 * F, T)
         w6, l6 = enc(f"rgb NS={lay6.lanes} T={T}",
                      lambda: gc.encode_rgb(ip, img, lay6),
@@ -540,13 +725,15 @@ def same_output(case: CoderCase, got, want) -> bool:
     return torch.equal(got, want)
 
 
-def phase_coder(bc, imgs, record):
+def phase_coder(bc, cases, record):
     """K3 and K4 in every mode at the main path's shapes and inputs,
     against their plain versions on the same inputs (exact); decodes also
     against the coded symbols. The 13 calls are the round's launches, so
     their sums are the round's coder time. Times by CUDA events (plain:
-    median of 3)."""
-    cases = coder_cases(bc, imgs)
+    median of 3). Without `record` (the layouts of phase cli) the plain
+    versions run once, for the comparison, and are not timed."""
+    tag = (f"{bc.coder_profile} F={cases[0].fbatch} "
+           f"K'={bc.coder_topk or bc.cfg.prob.K} ")
     with torch.inference_mode():
         for case in cases:
             got = case.run()
@@ -558,10 +745,13 @@ def phase_coder(bc, imgs, record):
                     case.truth.long()):
                 raise RuntimeError(f"{case.kernel} {case.label}: symbols "
                                    "not recovered")
-        times = [(cuda_ms(c.run), cuda_ms(c.plain, 3)) for c in cases]
+        times = [(cuda_ms(c.run),
+                  cuda_ms(c.plain, 3) if record else float("nan"))
+                 for c in cases]
     for c, (ms, pms) in zip(cases, times):
-        log(f"[kernels] {c.kernel} {c.label}: {ms * 1e3:.1f} us/launch | "
-            f"plain {pms * 1e3:.1f} us | bound {c.bound[0] * 1e3:.1f} us "
+        plain = f"{pms * 1e3:.1f} us" if record else "equal, not timed"
+        log(f"[kernels] {c.kernel} {tag}{c.label}: {ms * 1e3:.1f} us/launch"
+            f" | plain {plain} | bound {c.bound[0] * 1e3:.1f} us "
             f"({c.bound[1]})")
     # the JSON records: per launch, averaged over the round's launches of
     # each kernel (so launches x (ms - bound) is the round's gap); bound
@@ -572,14 +762,173 @@ def phase_coder(bc, imgs, record):
                      if cases[i].bound[1] == k)
               for k in ("bytes", "operations")}
         n = len(ix)
-        log(f"[kernels] {name} per round ({n} launches): "
+        log(f"[kernels] {name} {tag}per round ({n} launches): "
             f"{sum(times[i][0] for i in ix):.3f} ms | plain "
-            f"{sum(times[i][1] for i in ix):.1f} ms | bound "
+            f"{sum(times[i][1] for i in ix):.1f} ms (nan: not timed) | bound "
             f"{sum(by.values()):.3f} ms ({by['operations']:.3f} of it "
             "operations-bound)")
-        record(name, 0, sum(times[i][0] for i in ix) / n,
-               sum(times[i][1] for i in ix) / n,
-               (sum(by.values()) / n, max(by, key=by.get)))
+        if record:
+            record(name, 0, sum(times[i][0] for i in ix) / n,
+                   sum(times[i][1] for i in ix) / n,
+                   (sum(by.values()) / n, max(by, key=by.get)))
+
+
+def np_content_hash(px: np.ndarray) -> int:
+    """verify_batch's u32 content hash of a pixel buffer, with numpy."""
+    flat = px.reshape(-1).astype(np.uint64)
+    w = ((np.arange(flat.size, dtype=np.uint64) * np.uint64(2654435761))
+         & np.uint64(0xFFFFFFFF)) | np.uint64(1)
+    return int((flat * w).sum() & np.uint64(0xFFFFFFFF))
+
+
+def run_cli(main, argv) -> str:
+    """main(argv) in-process; its output is shown and returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"[cli]   {line}")
+    if rc != 0:
+        raise RuntimeError(f"{main.__module__} {argv} returned {rc}")
+    return buf.getvalue()
+
+
+# launches of one encode and one decode of a float batch (phase codec), and
+# of the header canary the first time a codec object computes it: two packs
+# and coder_check's two encodes and seven decodes
+ENCODE = {"rans_encode": 4, "pack_int": 3}
+DECODE = {"rans_decode": 9, "pack_int": 3}
+CANARY = {"rans_encode": 2, "rans_decode": 7, "pack_int": 2}
+
+
+def counted(total, label, fn, *parts):
+    """fn() with every launch count set to 0 just before and read just
+    after; raises unless the counts are exactly the sum of `parts`. The
+    counts are added to `total`."""
+    kernels.reset_launches()
+    out = fn()
+    got = {k: kernels.launches.get(k, 0) for k in kernels.KERNELS}
+    want = {k: sum(p.get(k, 0) for p in parts) for k in kernels.KERNELS}
+    log(f"[cli] launches of {label}: "
+        f"{ {k: v for k, v in got.items() if v} }")
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want}")
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def phase_cli(bc, imgs, theory_bpsp, card):
+    """The serving entry points on the card, as a user calls them (no
+    --device: the card is the default). Each call has its own launch
+    counts, set to 0 before it and read after it, and they must be exactly
+    what its path launches: a CLI call builds its codec anew, so its first
+    header costs a canary."""
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="l3c_cli_") as d:
+        img_dir = os.path.join(d, "imgs")
+        os.makedirs(img_dir)
+        for b, im in enumerate(imgs):
+            write_png(os.path.join(img_dir, f"im{b}.png"), im[0])
+        src = os.path.join(img_dir, "im0.png")
+        if not np.array_equal(read_png(src), imgs[0][0]):
+            raise RuntimeError("PNG writer/reader do not round-trip")
+        # ---- cli.l3c enc / dec of one image (balanced, top-4, fbatch 1)
+        coded, back = os.path.join(d, "im0.l3c"), os.path.join(d, "back.png")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counted(total, "cli.l3c enc", lambda: run_cli(
+            l3c_cli.main, [ZOO, LOG_DATE, "enc", src, coded]),
+            ENCODE, CANARY)
+        t1 = time.perf_counter()
+        counted(total, "cli.l3c dec", lambda: run_cli(
+            l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
+            DECODE, CANARY)
+        t2 = time.perf_counter()
+        if not np.array_equal(read_png(back), imgs[0][0]):
+            raise RuntimeError("cli.l3c dec did not return the source PNG")
+        bpsp1 = os.path.getsize(coded) * 8 / imgs[0].size
+        log(f"[cli] cli.l3c enc+dec of one {SZ}x{SZ} PNG bit-exact: file "
+            f"bpsp {bpsp1:.6f} | enc {1e3 * (t1 - t0):.0f} ms dec "
+            f"{1e3 * (t2 - t1):.0f} ms, each with the checkpoint load, the "
+            f"canary and cuDNN's first calls | {card}")
+        # ---- cli.test: theory bpsp of the eight (no file is written)
+        out = counted(total, "cli.test", lambda: run_cli(
+            test_cli.main, [ZOO, LOG_DATE, img_dir, "--reset_cache"]))
+        shown = float(out.strip().splitlines()[-1].split()[-1])
+        tester = MultiscaleTester.from_log_dir(
+            find_log_dir(ZOO, LOG_DATE), l3c_cli.default_config_roots(),
+            use_cache=False)
+        res = tester.test(Testset(img_dir))
+        rel = abs(res.mean_bpsp() - theory_bpsp) / theory_bpsp
+        log(f"[cli] cli.test theory bpsp {res.mean_bpsp():.6f} (table "
+            f"{shown:.4f}) vs phase forward {theory_bpsp:.6f}: rel "
+            f"{rel:.2e}")
+        if rel > 1e-5 or f"{res.mean_bpsp():.4f}" != f"{shown:.4f}":
+            raise RuntimeError("cli.test bpsp differs from phase forward's")
+        # ---- cli.test --write_to_files --compare_theory: size profile,
+        # all K components, the eight as one group, bit-exact gate inside
+        out_dir, rep = os.path.join(d, "out"), os.path.join(d, "times.txt")
+        out = counted(
+            total, "cli.test --write_to_files", lambda: run_cli(
+                test_cli.main, [
+                    ZOO, LOG_DATE, img_dir, "--write_to_files", out_dir,
+                    "--compare_theory", "--time_report", rep,
+                    "--reset_cache"]), ENCODE, DECODE, CANARY)
+        sizes = [os.path.getsize(os.path.join(out_dir, f"im{b}.l3c"))
+                 for b in range(B)]
+        head = open(os.path.join(out_dir, "im0.l3c"), "rb").read(8)
+        if (head[6], head[7]) != (fbatch_for(B), 0):
+            raise RuntimeError(f"expected fbatch {fbatch_for(B)}, topk 0 in "
+                               f"the header: {head[6]}, {head[7]}")
+        size_bpsp = float(np.mean(sizes)) * 8 / imgs[0].size
+        shown = float(out.strip().splitlines()[-1].split()[-1])
+        if f"{size_bpsp:.4f}" != f"{shown:.4f}" or \
+                out.count("assumed:") != B:
+            raise RuntimeError("cli.test --write_to_files table does not "
+                               "show the files' bpsp")
+        times = {}
+        for line in open(rep).read().splitlines():
+            key, val = line.strip().rsplit(": ", 1)
+            times[key] = float(val[:-2])
+        log(f"[cli] cli.test --write_to_files: {B} files bit-exact, size "
+            f"profile (T up to 16384), K'={bc.cfg.prob.K}, fbatch "
+            f"{head[6]}: file bpsp {size_bpsp:.6f} vs theory "
+            f"{res.mean_bpsp():.6f} "
+            f"(+{100 * (size_bpsp / res.mean_bpsp() - 1):.2f}%) | enc "
+            f"{times['enc']:.1f} ms dec {times['dec']:.1f} ms (one group, "
+            f"its first: warm-up included) | {card}")
+        # ---- the staged round: pixels cross to the card once, the decoded
+        # batch stays there, two scalars come back
+        paths = [os.path.join(d, f"s{b}.l3c") for b in range(B)]
+
+        def staged_round():
+            staged = bc.stage_batch(imgs)
+            bpsps = bc.encode_batch(None, paths, staged=staged)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            handle = bc.decode_batch_async(paths)
+            return (bpsps, t1, handle, *bc.verify_batch(handle, staged))
+
+        # bc has its canary since phase codec
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bpsps, t1, handle, ok, h = counted(total, "the staged round",
+                                           staged_round, ENCODE, DECODE)
+        t2 = time.perf_counter()
+        want = np_content_hash(np.concatenate(imgs))
+        log(f"[cli] staged round: verify_batch flag {ok}, hash {h:#010x} "
+            f"(numpy {want:#010x}) | file bpsp {np.mean(bpsps):.6f} | "
+            f"stage+enc {1e3 * (t1 - t0):.1f} ms dec+verify "
+            f"{1e3 * (t2 - t1):.1f} ms | {card}")
+        if not ok or h != want:
+            raise RuntimeError("staged round: decoded batch differs from "
+                               "the staged pixels")
+        if not handle["imgs"].is_cuda:
+            raise RuntimeError("staged round: the decoded batch left the "
+                               "card")
+    log(f"[cli] launches on this path, all calls: {total}")
+    return total
 
 
 def phase_profile(bc, imgs, round_ms):
@@ -622,7 +971,8 @@ def main() -> int:
     t_start = time.perf_counter()
     numerics_guard()
     card = phase_device()
-    cfg = MsConfig()
+    cfg = load_ms_config(os.path.join(l3c_cli.default_config_roots()[0],
+                                      "ms", "cr.cf"))
     net = MultiscaleNetwork(cfg)
     step = load_network_weights(net, CKPT)
     net = net.cuda().eval()
@@ -635,6 +985,9 @@ def main() -> int:
                         coder_topk=4)
     counts, round_ms = phase_codec(bc, imgs, theory, card)
     recs = phase_kernels(bc, imgs, counts)
+    cli_counts = phase_cli(bc, imgs, theory, card)
+    for rec in recs:
+        rec["cli_launches"] = cli_counts.get(rec["name"], 0)
     phase_profile(bc, imgs, round_ms)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))

@@ -45,6 +45,7 @@ import torch
 from .. import blueprint
 from ..config import MsConfig
 from ..device import DeviceLike, numerics_guard, resolve
+from ..eval.timer import NoOpTimer
 from ..models import dmll as dmll_mod
 from ..models import grids, layers
 from ..models.network import MultiscaleNetwork
@@ -52,6 +53,7 @@ from ..models.quantizer import levels_select
 from ..ops import float_cdf
 from ..ops import gpu_coder as gc
 from ..ops import int_coder as ic
+from ..ops import kernels
 from ..utils import pad as pad_mod
 from . import auto_crop, part_suffix
 
@@ -86,6 +88,20 @@ def _ungroup_syms(flat_gn: torch.Tensor, F: int, h: int, w: int
     """(C*F, n) -> (F,h,w,C)."""
     C = flat_gn.shape[0] // F
     return flat_gn.reshape(C, F, h, w).permute(1, 2, 3, 0)
+
+
+def pack_int(spec: dmll_mod.DMLLSpec, l: torch.Tensor, C: int, topk: int
+             ) -> ic.IntParams:
+    """The coder's float pack stage on the classifier's output l
+    (N,Kp,H,W) as the convolution wrote it: the pack_int kernel for a
+    tensor on the card, int_coder.pack_int_params_nchw for one on the
+    CPU. The one function both codec sides and the header canary pack
+    with."""
+    if l.is_cuda:
+        return ic.IntParams(*kernels.pack_int(
+            l.contiguous(), C, topk, spec.rgb_scale, spec.bin_width,
+            spec.x_min - spec.bin_width / 2.0))
+    return ic.pack_int_params_nchw(spec, l, C, topk)
 
 
 def canary_inputs(bn_spec, C_bn: int, K: int):
@@ -186,21 +202,25 @@ def coder_check(ip_r: ic.IntParams, ip_b: ic.IntParams, bn_L: int,
 def contract_canary(rgb_spec, bn_spec, C_bn: int, K: int, topk: int,
                     device: torch.device) -> int:
     """u32 attestation that THIS process produces the coder numerics the
-    encoder's did: the v8 chain (pack_int_params, the one float stage,
-    then decode rows and encode 2-edge lookups, bn and two-level RGB) on
-    fixed synthetic network outputs, CRC32'd. The inputs, the chain and the
-    byte layout are the JAX package's, so the canaries agree exactly when
-    both packages' float pack rounds the same way. On the card the coder
-    kernels are first held to the chain's int_coder on the same IntParams
-    (coder_check), so the canary attests them too."""
+    encoder's did: the v8 chain (the float pack stage, then decode rows
+    and encode 2-edge lookups, bn and two-level RGB) on fixed synthetic
+    network outputs, CRC32'd. The inputs, the chain and the byte layout are
+    the JAX package's, so the canaries agree exactly when both packages'
+    float pack rounds the same way. The pack is `pack_int`, the function
+    the codec runs (on the card the pack_int kernel), and on the card the
+    coder kernels are first held to the chain's int_coder on the same
+    IntParams (coder_check), so the canary attests them too."""
     l_rgb, l_bn, t_rgb, t_bn = canary_inputs(bn_spec, C_bn, K)
 
     def dev(a):
         return torch.from_numpy(a).to(device)
 
+    def planes(l_nhwc):          # the layout the classifier writes
+        return dev(l_nhwc).permute(0, 3, 1, 2).contiguous()
+
     with torch.inference_mode():
-        ip_r = ic.pack_int_params(rgb_spec, dev(l_rgb), 3, topk)
-        ip_b = ic.pack_int_params(bn_spec, dev(l_bn), C_bn, topk)
+        ip_r = pack_int(rgb_spec, planes(l_rgb), 3, topk)
+        ip_b = pack_int(bn_spec, planes(l_bn), C_bn, topk)
         if ip_b.p.is_cuda:
             coder_check(ip_r, ip_b, bn_spec.L)
         leaves = canary_leaves(ip_r, ip_b, dev(t_rgb), dev(t_bn), bn_spec.L)
@@ -216,9 +236,11 @@ class TorchBitcoding:
     def __init__(self, cfg: MsConfig, net: MultiscaleNetwork,
                  device: DeviceLike = None,
                  coder_profile: Optional[str] = None,
-                 coder_topk: Optional[int] = None):
+                 coder_topk: Optional[int] = None, times=None):
         """net: a MultiscaleNetwork with its weights loaded; it is moved to
         `device` (CUDA unless the caller passes "cpu").
+        times: an eval.timer.StackTimer that receives the per-stage times
+        (its scopes synchronize with the card); none are taken without.
         coder_profile: speed|balanced|size stream-length policy
         (ops/gpu_coder.t_policy), balanced by default.
         coder_topk: code with the top-k mixture components (renormalized);
@@ -238,6 +260,11 @@ class TorchBitcoding:
         self._bn_levels = torch.from_numpy(
             grids.levels(lo, hi, cfg.q.L)).to(self.device)
         self._canaries: Dict[int, int] = {}
+        self.times = times if times is not None else NoOpTimer()
+        # per file of the last encode_batch, per unit: bytes on disk
+        # (streams + framing, without the separator); unit_scale_map()
+        # labels the units
+        self.last_unit_bytes: List[List[int]] = []
         # filled by decode_batch(float_rows=True): the scale-0 v7 float
         # rows of the last decoded batch and the inputs they came from
         self.last_float_rows: Optional[dict] = None
@@ -250,11 +277,12 @@ class TorchBitcoding:
         return self._canaries[topk]
 
     def _get_P_int(self, scale: int, topk: int, bn, dec_F):
-        """get_P + pack_int_params: the codec's only float stage, shared by
-        encode and decode. Returns (IntParams, decoder feature, l)."""
-        l, F = self.net.get_P(scale, bn, dec_F)
+        """get_P + pack_int: the codec's only float stage, shared by
+        encode and decode. The classifier's NCHW output goes to the pack
+        as it lies. Returns (IntParams, decoder feature, l NCHW)."""
+        l, F = self.net.get_P_nchw(scale, bn, dec_F)
         spec, C = (self._rgb, 3) if scale == 0 else (self._bn, self.cfg.q.C)
-        return ic.pack_int_params(spec, l, C, topk), F, l
+        return pack_int(spec, l, C, topk), F, l
 
     # ------------------------------------------------------------ encode
 
@@ -267,23 +295,25 @@ class TorchBitcoding:
             raise ValueError(f"expected one (1,H,W,3) image, got {img.shape}")
         if auto_crop.needs_crop(img):
             comb = auto_crop.CropLossCombinator()
+            unit_sums: List[int] = []
             for i, crop in enumerate(auto_crop.iter_crops(img)):
                 bpsp = self.encode(crop,
                                    pout + part_suffix.make_part_suffix(i))
                 comb.add(bpsp, int(np.prod(crop.shape[1:3])))
+                part_units = self.last_unit_bytes[0]
+                unit_sums = [a + b for a, b in zip(
+                    unit_sums or [0] * len(part_units), part_units)]
+            # the whole image's per-unit bytes: the sum over its part files
+            self.last_unit_bytes = [unit_sums]
             return comb.get_bpsp()
         return self.encode_batch([img], [pout])[0]
 
-    def encode_batch(self, imgs: Sequence[np.ndarray],
-                     pouts: Sequence[str]) -> List[float]:
-        """Encode B same-shape uint8 images together; writes one v8 file
-        each and returns their bpsp (over the pre-pad subpixels)."""
+    def stage_batch(self, imgs: Sequence[np.ndarray]) -> dict:
+        """Pad and upload a batch of same-shape uint8 images ONCE. The
+        returned handle feeds encode_batch(staged=...) and verify_batch:
+        for serving pipelines whose pixels stay on the device, they cross
+        the host link once instead of once per use."""
         B = len(imgs)
-        if B != len(pouts):
-            raise ValueError(f"{B} images but {len(pouts)} output paths")
-        for p in pouts:
-            if os.path.isfile(p):
-                raise FileExistsError(p)
         F = fbatch_for(B)
         padded, pad_tuples = [], []
         for im in imgs:
@@ -292,62 +322,106 @@ class TorchBitcoding:
                                   "constant")
             padded.append(pd[0])
             pad_tuples.append(tup)
-        # pad the batch to the physical fbatch by repeating image 0
+        # pad the batch to the physical fbatch by repeating image 0; the
+        # dummy slots are coded too (their streams are never written)
         x = torch.from_numpy(np.stack(padded + [padded[0]] * (F - B))
                              ).to(self.device)
+        return dict(x=x, pad_tuples=pad_tuples, B=B, F=F)
+
+    def encode_batch(self, imgs: Optional[Sequence[np.ndarray]],
+                     pouts: Sequence[str], staged: Optional[dict] = None
+                     ) -> List[float]:
+        """Encode B same-shape uint8 images together; writes one v8 file
+        each and returns their bpsp (over the pre-pad subpixels). With
+        staged=stage_batch(...) (imgs None) the device-resident pixels are
+        coded without another upload."""
+        if staged is None:
+            if imgs is None:
+                raise ValueError("encode_batch needs imgs or staged")
+            staged = self.stage_batch(imgs)
+        x, pad_tuples = staged["x"], staged["pad_tuples"]
+        B, F = staged["B"], staged["F"]
+        if B != len(pouts):
+            raise ValueError(f"{B} images but {len(pouts)} output paths")
+        for p in pouts:
+            if os.path.isfile(p):
+                raise FileExistsError(p)
         _, H, W, _ = x.shape
         S, C_bn, topk = self.cfg.num_scales, self.cfg.q.C, self.coder_topk
+        times = self.times
         with torch.inference_mode():
-            per_scale = self.net.enc_forward(
-                layers.sub_rgb_mean(x.to(torch.float32)))
-            syms_c = per_scale[-1].syms
-            n_u = syms_c.shape[1] * syms_c.shape[2]
-            T_u = gc.t_policy(n_u, self.coder_profile)
-            units = [gc.encode_uniform(_group_syms(syms_c), self.cfg.q.L,
-                                       gc.layout_for(n_u, C_bn * F, T_u))]
+            with times.run("[-] forward+uniform"):
+                per_scale = self.net.enc_forward(
+                    layers.sub_rgb_mean(x.to(torch.float32)))
+                syms_c = per_scale[-1].syms
+                n_u = syms_c.shape[1] * syms_c.shape[2]
+                T_u = gc.t_policy(n_u, self.coder_profile)
+                units = [gc.encode_uniform(
+                    _group_syms(syms_c), self.cfg.q.L,
+                    gc.layout_for(n_u, C_bn * F, T_u))]
             units_C, units_T = [C_bn], [T_u]
             dec_F, bn_prev = None, per_scale[S - 1].bn_q
             for scale in reversed(range(S)):
-                ip, dec_F, _ = self._get_P_int(scale, topk, bn_prev, dec_F)
-                target = x if scale == 0 else per_scale[scale - 1].syms
-                n = target.shape[1] * target.shape[2]
-                T_u = gc.t_policy(n, self.coder_profile)
-                if scale == 0:
-                    wc, lc, wf, lf = self._enc_rgb_units(ip, target, T_u)
-                    units += [(wc, lc), (wf, lf)]
-                    units_C += [3, 3]
-                    units_T += [T_u, T_u]
-                else:
-                    bn_prev = per_scale[scale - 1].bn_q
-                    units.append(self._enc_bn_unit(ip, target, T_u))
-                    units_C.append(C_bn)
-                    units_T.append(T_u)
-            host = []
-            for words, lens in units:
-                lens_np = lens.cpu().numpy().astype(np.int64)
-                need = max(2, int(lens_np.max()))
-                host.append((words[:, :need].cpu().numpy(), lens_np))
+                with times.prefix_scope(f"[{scale}]"):
+                    with times.run("get_P"):
+                        ip, dec_F, _ = self._get_P_int(scale, topk, bn_prev,
+                                                       dec_F)
+                    target = x if scale == 0 else per_scale[scale - 1].syms
+                    n = target.shape[1] * target.shape[2]
+                    T_u = gc.t_policy(n, self.coder_profile)
+                    with times.run("lookups+rans"):
+                        if scale == 0:
+                            wc, lc, wf, lf = self._enc_rgb_units(ip, target,
+                                                                 T_u)
+                            units += [(wc, lc), (wf, lf)]
+                            units_C += [3, 3]
+                            units_T += [T_u, T_u]
+                        else:
+                            bn_prev = per_scale[scale - 1].bn_q
+                            units.append(self._enc_bn_unit(ip, target, T_u))
+                            units_C.append(C_bn)
+                            units_T.append(T_u)
+            with times.run("fetch"):
+                host = []
+                for words, lens in units:
+                    lens_np = lens.cpu().numpy().astype(np.int64)
+                    need = max(2, int(lens_np.max()))
+                    host.append((words[:, :need].cpu().numpy(), lens_np))
         canary = self.canary(topk)
         bpsps = []
-        for b, pout in enumerate(pouts):
-            with open(pout, "wb") as fout:
-                fout.write(MAGIC)
-                fout.write(struct.pack("<BBBB", self.VERSION, S, F,
-                                       topk & 0xFF))
-                fout.write(struct.pack("<I", canary))
-                fout.write(struct.pack("<4H", *pad_tuples[b]))
-                fout.write(struct.pack("<HH", H, W))
-                for (words, lens), C, T in zip(host, units_C, units_T):
-                    ns_c = words.shape[0] // (C * F)
-                    w_b = words.reshape(C, F, ns_c, -1)[:, b]
-                    l_b = lens.reshape(C, F, ns_c)[:, b]
-                    _write_unit(fout, w_b.reshape(-1, w_b.shape[-1]),
-                                l_b.reshape(-1), T)
-                    fout.write(struct.pack("<I", MAGIC_SEP))
-            pl_, pr_, pt_, pb_ = pad_tuples[b]
-            n_sp = (H - pt_ - pb_) * (W - pl_ - pr_) * 3
-            bpsps.append(os.path.getsize(pout) * 8 / float(n_sp))
+        self.last_unit_bytes = []
+        with times.run("write"):
+            for b, pout in enumerate(pouts):
+                unit_bytes = []
+                with open(pout, "wb") as fout:
+                    fout.write(MAGIC)
+                    fout.write(struct.pack("<BBBB", self.VERSION, S, F,
+                                           topk & 0xFF))
+                    fout.write(struct.pack("<I", canary))
+                    fout.write(struct.pack("<4H", *pad_tuples[b]))
+                    fout.write(struct.pack("<HH", H, W))
+                    for (words, lens), C, T in zip(host, units_C, units_T):
+                        ns_c = words.shape[0] // (C * F)
+                        w_b = words.reshape(C, F, ns_c, -1)[:, b]
+                        l_b = lens.reshape(C, F, ns_c)[:, b]
+                        at = fout.tell()
+                        _write_unit(fout, w_b.reshape(-1, w_b.shape[-1]),
+                                    l_b.reshape(-1), T)
+                        unit_bytes.append(fout.tell() - at)
+                        fout.write(struct.pack("<I", MAGIC_SEP))
+                pl_, pr_, pt_, pb_ = pad_tuples[b]
+                n_sp = (H - pt_ - pb_) * (W - pl_ - pr_) * 3
+                bpsps.append(os.path.getsize(pout) * 8 / float(n_sp))
+                self.last_unit_bytes.append(unit_bytes)
         return bpsps
+
+    def unit_scale_map(self) -> List[str]:
+        """The scale each file unit codes, aligned with last_unit_bytes:
+        ['uniform', 'scale_{S-1}', ..., 'scale_0', 'scale_0'] (the RGB
+        scale has two units, coarse and fine)."""
+        S = self.cfg.num_scales
+        return (["uniform"] + [f"scale_{s}" for s in range(S - 1, 0, -1)]
+                + ["scale_0", "scale_0"])
 
     def _enc_rgb_units(self, ip, target, T):
         """Both scale-0 units (coarse + fine) in ONE rANS launch over the
@@ -376,7 +450,19 @@ class TorchBitcoding:
 
     def decode_batch(self, pins: Sequence[str], float_rows: bool = False
                      ) -> List[np.ndarray]:
-        """Decode B same-shape v8 files together -> (1,H,W,3) uint8 each.
+        """Decode B same-shape v8 files together -> (1,H,W,3) uint8 each
+        (decode_batch_async + decode_batch_finish)."""
+        return self.decode_batch_finish(
+            self.decode_batch_async(pins, float_rows))
+
+    def decode_batch_async(self, pins: Sequence[str],
+                           float_rows: bool = False) -> dict:
+        """Decode B same-shape v8 files together and LEAVE the decoded
+        batch on the device: the handle holds `imgs`, (F,H,W,3) uint8
+        (padded, the dummy slots b >= B repeating file 0), for
+        verify_batch or a consumer on the device; decode_batch_finish
+        fetches the images. (The JAX package overlaps host and device work
+        through this pair; here it is one synchronous pass.)
 
         float_rows: also build the scale-0 v7 FLOAT CDF rows (coarse and
         fine, all three channels with the lambda chain on the decoded
@@ -419,41 +505,67 @@ class TorchBitcoding:
                     "rounds differently; it is NOT corrupt, but decoding "
                     "it here would corrupt pixels. Decode it with the "
                     "build that wrote it.")
-        unit_words = [self._unit_words(per_file_units, ui, C, B, F)
-                      for ui, C in enumerate(unit_Cs)]
+        times = self.times
+        with times.run("upload"):
+            unit_words = [self._unit_words(per_file_units, ui, C, B, F)
+                          for ui, C in enumerate(unit_Cs)]
         with torch.inference_mode():
             h, w = H >> S, W >> S
-            words, T0 = unit_words[0]
-            syms = gc.decode_uniform(words, self._bn.L,
-                                     gc.layout_for(h * w, C_bn * F, T0))
-            bn_prev = levels_select(self._bn_levels,
-                                    _ungroup_syms(syms.long(), F, h, w))
+            with times.run("uniform decode"):
+                words, T0 = unit_words[0]
+                syms = gc.decode_uniform(words, self._bn.L,
+                                         gc.layout_for(h * w, C_bn * F, T0))
+                bn_prev = levels_select(self._bn_levels,
+                                        _ungroup_syms(syms.long(), F, h, w))
             dec_F = None
             for scale in reversed(range(S)):
-                ip, dec_F, l = self._get_P_int(scale, topk, bn_prev, dec_F)
-                hs, ws = H >> scale, W >> scale
-                if scale == 0:
-                    (w_c, T_c), (w_f, T_f) = unit_words[-2:]
-                    decoded = self._decode_rgb(ip, w_c, w_f, F, hs, ws,
-                                               T_c, T_f)
-                else:
-                    words, T_u = unit_words[S - scale]
-                    syms = gc.decode_bn(ip, words, self._bn.L,
-                                        gc.layout_for(hs * ws, C_bn * F, T_u))
-                    bn_prev = levels_select(
-                        self._bn_levels,
-                        _ungroup_syms(syms.long(), F, hs, ws))
+                with times.prefix_scope(f"[{scale}]"):
+                    with times.run("get_P"):
+                        ip, dec_F, l = self._get_P_int(scale, topk, bn_prev,
+                                                       dec_F)
+                    hs, ws = H >> scale, W >> scale
+                    with times.run("rows+rans"):
+                        if scale == 0:
+                            (w_c, T_c), (w_f, T_f) = unit_words[-2:]
+                            decoded = self._decode_rgb(ip, w_c, w_f, F, hs,
+                                                       ws, T_c, T_f)
+                        else:
+                            words, T_u = unit_words[S - scale]
+                            syms = gc.decode_bn(
+                                ip, words, self._bn.L,
+                                gc.layout_for(hs * ws, C_bn * F, T_u))
+                            bn_prev = levels_select(
+                                self._bn_levels,
+                                _ungroup_syms(syms.long(), F, hs, ws))
             if float_rows:
                 self.last_float_rows = self._float_rows(l, decoded)
-            imgs = decoded.contiguous().cpu().numpy()
+            imgs = decoded.contiguous()
+        return dict(imgs=imgs, headers=headers, B=B)
+
+    def decode_batch_finish(self, handle: dict) -> List[np.ndarray]:
+        """Fetch a decode handle's images -> (1,H,W,3) uint8 each, the
+        padding undone."""
+        B = handle["B"]
+        with self.times.run("fetch images"):
+            imgs = handle["imgs"][:B].cpu().numpy()
         out = []
         for b in range(B):
             im = imgs[b:b + 1]
-            tup = headers[b]["pad"]
+            tup = handle["headers"][b]["pad"]
             if any(tup):
                 im = pad_mod.undo_pad(im, *tup)
             out.append(im)
         return out
+
+    def verify_batch(self, dec_handle: dict, staged: dict
+                     ) -> Tuple[bool, int]:
+        """Round-trip verification on the device: the decoded batch of
+        decode_batch_async against the staged originals, without fetching
+        pixels. Returns (all equal, u32 content hash of the decoded
+        buffer): hash = sum_i px_i * ((i * 2654435761 mod 2^32) | 1) mod
+        2^32 over the flattened (F,H,W,3) buffer, the JAX package's
+        verify_batch_finish value for the same pixels."""
+        return verify_pixels(dec_handle["imgs"], staged["x"])
 
     def _unit_words(self, per_file_units, ui: int, C: int, B: int, F: int
                     ) -> Tuple[torch.Tensor, int]:
@@ -510,9 +622,10 @@ class TorchBitcoding:
 
     def _float_rows(self, l0: torch.Tensor, decoded: torch.Tensor) -> dict:
         """Scale-0 v7 float rows (ops/float_cdf) of every channel on the
-        decoded scale's params, lambda chain on the decoded values, fine
-        rows on the true coarse symbols."""
-        packed = dmll_mod.pack_coder_params(self._rgb, l0, 3)
+        decoded scale's params (l0 NCHW, read through an NHWC view), lambda
+        chain on the decoded values, fine rows on the true coarse symbols."""
+        packed = dmll_mod.pack_coder_params(self._rgb,
+                                            l0.permute(0, 2, 3, 1), 3)
         dec_f = decoded.to(torch.float32)
         rows = []
         for c in range(3):
@@ -523,6 +636,27 @@ class TorchBitcoding:
                 float_cdf.rgb_fine_tables_packed(self._rgb, packed, c,
                                                  dec_f, a_c)))
         return dict(packed=packed, decoded=dec_f, rows=rows)
+
+
+def content_hash(flat: torch.Tensor) -> torch.Tensor:
+    """0-dim int64 u32 content hash of a flat integer tensor (see
+    TorchBitcoding.verify_batch). int64 sums wrap mod 2^64, of which 2^32
+    is a divisor, so the low 32 bits are exact at any size."""
+    i = torch.arange(flat.numel(), dtype=torch.int64, device=flat.device)
+    w = ((i * 2654435761) & 0xFFFFFFFF) | 1
+    return torch.sum(flat.to(torch.int64) * w) & 0xFFFFFFFF
+
+
+def verify_pixels(dec: torch.Tensor, ref: torch.Tensor) -> Tuple[bool, int]:
+    """(dec == ref everywhere, content_hash(dec)); two scalars leave the
+    device."""
+    if dec.shape != ref.shape:
+        raise ValueError(f"decoded batch {tuple(dec.shape)} vs staged "
+                         f"{tuple(ref.shape)}")
+    with torch.inference_mode():
+        out = torch.stack([torch.all(dec == ref).to(torch.int64),
+                           content_hash(dec.reshape(-1))]).cpu()
+    return bool(out[0]), int(out[1])
 
 
 # ------------------------------------------------------------------ io

@@ -1,0 +1,221 @@
+"""Image files for the tester and the codec CLIs: listings, testsets, PNG.
+
+Port of the serving half of `l3c_tpu/data/images.py` (`iter_images_in`,
+`load_image_uint8`, `Testset`); the training loaders wait for the training
+port. The JAX package reads images with Pillow; the port depends on
+torch, numpy and the standard library only, so it reads and writes PNG
+itself (zlib + numpy): 8 bits per sample, colour types 0 (grey), 2 (RGB),
+3 (palette) and 6 (RGBA), non-interlaced, all five row filters. Anything
+else raises ValueError with the reason. Every image comes out as RGB the
+way Pillow's convert("RGB") gives it: grey replicated, the palette looked
+up, alpha dropped.
+"""
+from __future__ import annotations
+
+import glob
+import os
+import struct
+import zlib
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}     # colour type -> samples per pixel
+
+
+def _is_image(p: str) -> bool:
+    return p.lower().endswith(IMG_EXTS)
+
+
+def iter_images_in(root_or_glob: str) -> List[str]:
+    """Accepts a dir, a glob, or a single file; returns sorted paths."""
+    if os.path.isfile(root_or_glob):
+        return [root_or_glob]
+    if os.path.isdir(root_or_glob):
+        out = []
+        for base, _, files in os.walk(root_or_glob):
+            out.extend(os.path.join(base, f) for f in files
+                       if _is_image(f))
+        return sorted(out)
+    return sorted(p for p in glob.glob(root_or_glob, recursive=True)
+                  if _is_image(p))
+
+
+# ------------------------------------------------------------------- PNG
+
+
+def _chunks(f, path: str):
+    """(type, data) of each chunk of an open PNG file, CRC checked."""
+    if f.read(8) != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file (the port reads PNG only)")
+    while True:
+        head = f.read(8)
+        if len(head) != 8:
+            raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
+        size, ctype = struct.unpack(">I4s", head)
+        data = f.read(size)
+        crc = f.read(4)
+        if len(data) != size or len(crc) != 4:
+            raise ValueError(f"{path}: truncated PNG chunk {ctype!r}")
+        if zlib.crc32(ctype + data) & 0xFFFFFFFF != struct.unpack(">I",
+                                                                  crc)[0]:
+            raise ValueError(f"{path}: CRC mismatch in chunk {ctype!r}")
+        yield ctype, data
+        if ctype == b"IEND":
+            return
+
+
+def _header(data: bytes, path: str) -> Tuple[int, int, int]:
+    """IHDR -> (width, height, colour type), refusing what is not read."""
+    w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB",
+                                                              data)
+    if depth != 8:
+        raise ValueError(f"{path}: bit depth {depth}; only 8-bit PNGs are "
+                         "read")
+    if ctype not in _CHANNELS:
+        raise ValueError(f"{path}: PNG colour type {ctype}; only 0 (grey), "
+                         "2 (RGB), 3 (palette) and 6 (RGBA) are read")
+    if interlace or comp or filt:
+        raise ValueError(f"{path}: interlaced PNGs (or unknown compression "
+                         "/ filter methods) are not read")
+    if w < 1 or h < 1:
+        raise ValueError(f"{path}: empty image {w}x{h}")
+    return w, h, ctype
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(height, width) from the PNG header, without decoding pixels."""
+    with open(path, "rb") as f:
+        ctype, data = next(_chunks(f, path))
+    if ctype != b"IHDR":
+        raise ValueError(f"{path}: PNG does not start with IHDR")
+    w, h, _ = _header(data, path)
+    return h, w
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The Paeth predictor of left a, up b, up-left c (int arrays)."""
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(ftype: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """Undo the row filters: ftype (H,), data (H, W, bpp) filtered bytes
+    -> (H, W, bpp) uint8. A pixel needs its left, up and up-left
+    neighbours, so the image is walked along anti-diagonals: all pixels of
+    one diagonal are independent, H + W - 1 vectorised steps in all."""
+    H, W, bpp = data.shape
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"bad PNG filter type {int(ftype.max())}")
+    out = np.zeros((H + 1, W + 1, bpp), np.int32)    # zero border: row 0,
+    raw = data.astype(np.int32)                      # column 0
+    for d in range(H + W - 1):
+        r = np.arange(max(0, d - W + 1), min(H - 1, d) + 1)
+        x = d - r
+        a, b, c = out[r + 1, x], out[r, x + 1], out[r, x]
+        f = ftype[r][:, None]
+        pred = np.where(f == 1, a, np.where(f == 2, b, np.where(
+            f == 3, (a + b) >> 1, np.where(f == 4, _paeth(a, b, c), 0))))
+        out[r + 1, x + 1] = (raw[r, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a PNG file."""
+    palette = None
+    idat = []
+    with open(path, "rb") as f:
+        chunks = _chunks(f, path)
+        ctype, data = next(chunks)
+        if ctype != b"IHDR":
+            raise ValueError(f"{path}: PNG does not start with IHDR")
+        w, h, colour = _header(data, path)
+        for ctype, data in chunks:
+            if ctype == b"PLTE":
+                palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
+            elif ctype == b"IDAT":
+                idat.append(data)
+    bpp = _CHANNELS[colour]
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG data ({e})") from e
+    if len(raw) != h * (1 + w * bpp):
+        raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
+                         f"expected {h * (1 + w * bpp)}")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp)
+    px = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
+    if colour == 3:
+        if palette is None or int(px.max()) >= len(palette):
+            raise ValueError(f"{path}: palette missing or too short")
+        return palette[px[..., 0]]
+    if colour == 0:
+        return np.repeat(px, 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 RGB as an 8-bit colour-type-2 PNG, every row
+    Paeth-filtered (an encoder knows all neighbours, so it vectorises)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    h, w, _ = img.shape
+    pad = np.zeros((h + 1, w + 1, 3), np.int32)
+    pad[1:, 1:] = img
+    pred = _paeth(pad[1:, :-1], pad[:-1, 1:], pad[:-1, :-1])
+    rows = np.empty((h, 1 + w * 3), np.uint8)
+    rows[:, 0] = 4
+    rows[:, 1:] = ((pad[1:, 1:] - pred) & 255).reshape(h, w * 3)
+
+    def chunk(ctype: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + ctype + data
+                + struct.pack(">I", zlib.crc32(ctype + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE)
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def load_image_uint8(p: str) -> np.ndarray:
+    """(H,W,3) uint8 RGB; non-RGB PNGs are converted (RGBA -> drop alpha)."""
+    return read_png(p)
+
+
+class Testset:
+    """Sorted image list with deterministic subsampling and a stable id."""
+
+    def __init__(self, root_or_glob: str, max_imgs: Optional[int] = None,
+                 name: Optional[str] = None,
+                 append_id: Optional[str] = None):
+        ps = iter_images_in(root_or_glob)
+        if not ps:
+            raise ValueError(f"no images found for {root_or_glob!r}")
+        if max_imgs and max_imgs < len(ps):
+            sel = np.linspace(0, len(ps) - 1, max_imgs).astype(int)
+            ps = [ps[i] for i in sel]
+        self.paths = ps
+        base = name or os.path.basename(os.path.normpath(root_or_glob))
+        self.id = f"{base}_{len(ps)}"
+        if append_id:
+            self.id += append_id
+
+    def filter_filenames(self, keep: "list[str]"):
+        """Keep only images whose extension-less basename is in `keep`
+        (test.py --match_filenames)."""
+        name = lambda p: os.path.splitext(os.path.basename(p))[0]
+        kept = [p for p in self.paths if name(p) in keep]
+        if not kept:
+            raise ValueError(f"no files left after filtering for {keep}")
+        self.paths = kept
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __iter__(self):
+        return iter(self.paths)

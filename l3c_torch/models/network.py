@@ -185,10 +185,19 @@ class MultiscaleNetwork(nn.Module):
         bn = (img_syms.to(torch.float32),) + tuple(eo.bn_q for eo in enc_outs)
         return Out(S=S, bn=bn, P=Ps)
 
+    def get_P_nchw(self, scale: int, bn_q: torch.Tensor,
+                   dec_F_prev: Optional[torch.Tensor] = None):
+        """One decoder + classifier application for coding: NHWC bottleneck
+        in, (l NCHW as the convolution wrote it, decoder feature NCHW)
+        out. The coder's pack stage reads l in this layout."""
+        if not 0 <= scale < self.cfg.num_scales:
+            raise ValueError(f"scale {scale} of {self.cfg.num_scales}")
+        F = self._m("dec", scale)(nchw(bn_q), dec_F_prev)
+        return self._m("clf", scale)(F), F
+
     def get_P(self, scale: int, bn_q: torch.Tensor,
               dec_F_prev: Optional[torch.Tensor] = None):
-        """One decoder + classifier application for coding: NHWC bottleneck
-        in, (l NHWC, decoder feature NCHW) out."""
-        assert 0 <= scale < self.cfg.num_scales
-        F = self._m("dec", scale)(nchw(bn_q), dec_F_prev)
-        return nhwc(self._m("clf", scale)(F)), F
+        """get_P_nchw with l in the public layout: (l NHWC, decoder
+        feature NCHW)."""
+        l, F = self.get_P_nchw(scale, bn_q, dec_F_prev)
+        return nhwc(l), F

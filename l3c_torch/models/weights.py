@@ -5,12 +5,16 @@ msgpack serializer (l3c_tpu/train/saver.py). Arrays are msgpack ext type 1
 whose payload is itself msgpack: `(shape, dtype name, raw C-order bytes)`.
 This module is a small msgpack decoder for exactly the types flax writes
 (nil, bool, int, float, str, bin, array, map, ext), plus the mapping of a
-flax parameter tree onto `MultiscaleNetwork.state_dict()` (HWIO -> OIHW).
+flax parameter tree onto `MultiscaleNetwork.state_dict()` (HWIO -> OIHW)
+and the choice of a log dir's checkpoint for a requested iteration
+(`Restorer.restore_params_only` of l3c_tpu/train/saver.py).
 """
 from __future__ import annotations
 
+import os
+import re
 import struct
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -153,3 +157,32 @@ def load_network_weights(net: torch.nn.Module, path: str) -> int:
     ckpt = read_checkpoint(path)
     net.load_state_dict(params_from_jax(ckpt["params"]), strict=True)
     return int(np.asarray(ckpt.get("step", -1)))
+
+
+CKPT_RE = re.compile(r"ckpt_(\d{10})\.ckpt(\.tmp)?$")
+
+
+def list_ckpts(log_dir: str) -> List[Tuple[int, str]]:
+    """[(iteration, path)] of the checkpoints under <log_dir>/ckpts,
+    sorted; temporary ones (.ckpt.tmp) count."""
+    ckpt_dir = os.path.join(log_dir, "ckpts")
+    if not os.path.isdir(ckpt_dir):
+        return []
+    found = [(CKPT_RE.match(name), name) for name in os.listdir(ckpt_dir)]
+    return sorted((int(m.group(1)), os.path.join(ckpt_dir, name))
+                  for m, name in found if m)
+
+
+def restore_params_only(log_dir: str, itr: int = -1
+                        ) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """For eval and the codec: (iteration, MultiscaleNetwork state_dict) of
+    the checkpoint for `itr` under <log_dir>/ckpts: -1 is the newest, else
+    the closest one <= itr (the earliest when all are later)."""
+    ckpts = list_ckpts(log_dir)
+    if not ckpts:
+        raise FileNotFoundError(
+            f"no checkpoints in {os.path.join(log_dir, 'ckpts')}")
+    at_most = [c for c in ckpts if c[0] <= itr]
+    got_itr, path = (ckpts[-1] if itr == -1 else
+                     at_most[-1] if at_most else ckpts[0])
+    return got_itr, params_from_jax(read_checkpoint(path)["params"])

@@ -181,12 +181,21 @@ def pack_int_params(spec: dmll_mod.DMLLSpec, l: torch.Tensor, C: int,
     dmll.pack_coder_params's. With topk, the components are selected on
     the raw pi LOGITS first (softmax is monotone per pixel) and the
     transcendentals run on the topk selected ones only."""
-    lr = dmll_mod._reshape_l(spec, l, C)           # (N,H,W,P,C,K)
-    N, H, W, P, _, K = lr.shape
-    n = N * H * W
+    return pack_int_params_nchw(spec, l.permute(0, 3, 1, 2), C, topk)
+
+
+def pack_int_params_nchw(spec: dmll_mod.DMLLSpec, l: torch.Tensor, C: int,
+                         topk: int = 0) -> IntParams:
+    """pack_int_params on the classifier's output where the convolution
+    wrote it, (N,Kp,H,W): channel (i C + c) K + k of parameter group i is
+    already pixel-minor per plane, so no NHWC copy is made."""
+    N, Kp, H, W = l.shape
+    K = dmll_mod.non_shared_get_K(Kp, C)
+    lr = l.reshape(N, spec.num_params, C, K, H * W)
 
     def tp(i):
-        return lr[..., i, :, :].to(_F).permute(3, 4, 0, 1, 2).reshape(C, K, n)
+        # parameter group i (pi logits, mu, log-scales, lambda): (C, K, n)
+        return lr[:, i].to(_F).permute(1, 2, 0, 3).reshape(C, K, N * H * W)
 
     if topk and K > topk:
         pl = tp(0)
@@ -213,7 +222,12 @@ def pack_int_params(spec: dmll_mod.DMLLSpec, l: torch.Tensor, C: int,
     bw = float(np.float32(spec.bin_width))
     t0 = float(np.float32(spec.x_min - spec.bin_width / 2.0))
     a_hat = torch.clamp(inv_s * bw, A_MIN, A_MAX)
-    m_hat = (mu - t0) / bw
+    # a true division on every device: the divisor is a tensor, because
+    # by a Python scalar PyTorch divides on the CPU but multiplies with the
+    # reciprocal on the card, which rounds otherwise in a quarter of the
+    # values. The JAX package's header canary attests the division (its
+    # constant inputs are folded), so the canaries agree only with it
+    m_hat = (mu - t0) / torch.full((), bw, dtype=_F, device=mu.device)
     p_q = torch.round(pi * float(PI_Q))
     a_q = torch.round(a_hat * float(1 << ZF))
     sc_q = torch.round(a_hat * float(16 << ZF))

@@ -5,8 +5,9 @@ outputs with torch.empty, launches on PyTorch's current stream, raises if
 the launch was refused, and adds one to its entry of `launches`. Nothing
 here runs at import: the libraries are built at first launch
 (build.py). The dispatching wrappers that CPU tensors route to the plain
-versions are `float_cdf.mixture_cdf_q` / `fine_cdf_q` and the
-channel-level coders of `gpu_coder` (`encode_*` / `decode_*`).
+versions are `float_cdf.mixture_cdf_q` / `fine_cdf_q`, the channel-level
+coders of `gpu_coder` (`encode_*` / `decode_*`) and the codec's
+`bitcoding2.pack_int`.
 
 | kernel         | source             | replaces (TPU)                        |
 | mixture_cdf_q  | csrc/float_cdf.cu  | tools/pallas_cdf.py:48 (Pallas)       |
@@ -15,17 +16,21 @@ channel-level coders of `gpu_coder` (`encode_*` / `decode_*`).
 |                |                    | + codec/bitcoding2.py:320/:417 lookups|
 | rans_decode    | csrc/rans.cu       | l3c_tpu/ops/tpu_coder.py:481 (scan)   |
 |                |                    | + codec/bitcoding2.py:344/:361 rows   |
+| pack_int       | csrc/pack.cu       | l3c_tpu/ops/int_coder.py:259 (XLA, in |
+|                |                    | get_P, codec/bitcoding2.py:279)       |
 """
 from __future__ import annotations
 
 import collections
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import build
 
-KERNELS = ("mixture_cdf_q", "fine_cdf_q", "rans_encode", "rans_decode")
+KERNELS = ("mixture_cdf_q", "fine_cdf_q", "rans_encode", "rans_decode",
+           "pack_int")
 
 # kernel name -> launches since the last reset (read by chip_smoke.py to
 # show the codec path went through each kernel)
@@ -95,9 +100,40 @@ def fine_cdf_q(pi: torch.Tensor, mu: torch.Tensor, inv_s: torch.Tensor,
     return out
 
 
+MAX_K = 10          # mixture components: kMaxK of csrc/rans.cu and pack.cu
+
+
+def pack_int(l: torch.Tensor, C: int, topk: int, lam: bool, bw: float,
+             t0: float) -> Tuple[Optional[torch.Tensor], ...]:
+    """The classifier's output l (N, Kp, H, W) f32 NCHW, Kp = (4 if lam
+    else 3) C K -> the IntParams fields (p, a, sc, v, w): exact-integer
+    f32 (C, K', N H W) each, w (3, K', N H W) with lam (the RGB scale, C =
+    3) else None. K' = topk where 0 < topk < K (the top-k components by pi
+    logit), else K. bw, t0: the spec's bin width and lowest edge."""
+    _check(l, "l", torch.float32, 4)
+    N, Kp, H, W = l.shape
+    groups = 4 if lam else 3
+    K = Kp // (groups * C)
+    if K * groups * C != Kp or not 1 <= K <= MAX_K or (lam and C != 3):
+        raise ValueError(f"pack_int: {Kp} planes are not {groups} groups "
+                         f"of C={C} channels with 1..{MAX_K} components")
+    if N * H * W < 1 or topk < 0:
+        raise ValueError(f"pack_int: shape {tuple(l.shape)}, topk {topk}")
+    KS = topk if 0 < topk < K else K
+    n = N * H * W
+    p, a, sc, v = (torch.empty((C, KS, n), dtype=torch.float32,
+                               device=l.device) for _ in range(4))
+    w = torch.empty((3, KS, n), dtype=torch.float32,
+                    device=l.device) if lam else None
+    _launch("pack", "l3c_pack_int", "pack_int", l.data_ptr(), p.data_ptr(),
+            a.data_ptr(), sc.data_ptr(), v.data_ptr(),
+            w.data_ptr() if lam else None, N, H * W, C, K, KS, int(lam),
+            float(np.float32(bw)), float(np.float32(t0)))
+    return p, a, sc, v, w
+
+
 DEC_MODES = {"uniform": 0, "bn": 1, "rgb_coarse": 2, "rgb_fine": 3}
 ENC_MODES = {"uniform": 0, "bn": 1, "rgb": 2}
-MAX_K = 10                     # mixture components: csrc/rans.cu kMaxK
 
 
 def _int_params(ip, mode: str) -> Tuple[list, int, int]:

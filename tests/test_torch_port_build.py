@@ -17,7 +17,8 @@ from l3c_torch.ops.kernels import build
 torch.set_num_threads(1)
 
 LAUNCHERS = {"float_cdf": {"l3c_mixture_cdf_q", "l3c_fine_cdf_q"},
-             "rans": {"l3c_rans_encode", "l3c_rans_decode"}}
+             "rans": {"l3c_rans_encode", "l3c_rans_decode"},
+             "pack": {"l3c_pack_int"}}
 
 
 @pytest.mark.parametrize("name", build.SOURCES)
@@ -85,10 +86,19 @@ def test_wrappers_pass_declared_arguments(monkeypatch):
     kernels.rans_decode("rgb_coarse", words(2), 3, 8, 16, rgb, 2, 0)
     kernels.rans_decode("rgb_fine", words(2), 3, 8, 16, rgb, 2, 2, u3,
                         torch.zeros(6, dtype=torch.uint8))
+    # the classifier's planes: (N, Kp, H, W), Kp = groups x C x K
+    out = kernels.pack_int(torch.zeros((2, 4 * 3 * K, 1, 3)), 3, 0, True,
+                           1.0, -0.5)
+    assert [tuple(x.shape) for x in out] == [(3, K, 6)] * 5
+    out = kernels.pack_int(torch.zeros((2, 3 * 5 * 10, 1, 3)), 5, 4, False,
+                           0.08, -1.04)
+    assert [tuple(x.shape) for x in out[:4]] == [(5, 4, 6)] * 4
+    assert out[4] is None
     assert [fn for fn, _ in calls] == [
         "l3c_mixture_cdf_q", "l3c_fine_cdf_q"] + ["l3c_rans_encode"] * 3 \
-        + ["l3c_rans_decode"] * 4
-    sigs = {**build.signatures("float_cdf"), **build.signatures("rans")}
+        + ["l3c_rans_decode"] * 4 + ["l3c_pack_int"] * 2
+    sigs = {**build.signatures("float_cdf"), **build.signatures("rans"),
+            **build.signatures("pack")}
     for fn, args in calls:
         assert len(args) == len(sigs[fn])
         for a, t in zip(args, sigs[fn]):
@@ -97,9 +107,14 @@ def test_wrappers_pass_declared_arguments(monkeypatch):
             if t is ctypes.c_int:
                 assert 0 <= a < 2 ** 31
     # the mode is the first int; the uniform mode passes no IntParams
-    modes = [args[sigs[fn].index(ctypes.c_int)] for fn, args in calls[2:]]
+    modes = [args[sigs[fn].index(ctypes.c_int)] for fn, args in calls[2:9]]
     assert modes == [0, 1, 2, 0, 1, 2, 3]
     assert calls[2][1][:5] == (None,) * 5
+    # pack_int: (N, HW, C, K, K', lambda) after the six pointers; no w
+    # pointer without the lambda slots
+    assert calls[9][1][6:12] == (2, 3, 3, K, K, 1)
+    assert calls[10][1][6:12] == (2, 3, 5, 10, 4, 0)
+    assert calls[10][1][5] is None
 
 
 def test_wrappers_refuse_inconsistent_shapes(monkeypatch):
@@ -113,6 +128,11 @@ def test_wrappers_refuse_inconsistent_shapes(monkeypatch):
                             3, 8, 25, bn, 2)               # 9 != 5 x 2
     with pytest.raises(ValueError, match="mode"):
         kernels.rans_encode("fine", u5, 3, 8, 25, bn, 2)
+    with pytest.raises(ValueError, match="planes"):
+        kernels.pack_int(torch.zeros((1, 31, 2, 2)), 5, 4, False, 0.08,
+                         -1.04)                           # 31 != 3 x 5 x K
+    with pytest.raises(ValueError, match="planes"):
+        kernels.pack_int(torch.zeros((1, 40, 2, 2)), 5, 4, True, 1.0, -0.5)
 
 
 def test_call_refuses_wrong_argument_count(monkeypatch):

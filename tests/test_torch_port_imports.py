@@ -1,7 +1,8 @@
 """The port's import boundary and its no-fallback rule.
 
 l3c_torch and chip_smoke.py must import nothing of JAX (jax, flax, optax)
-and nothing of the JAX package (l3c_tpu) or its tools. An `ast` scan, not
+and nothing of the JAX package (l3c_tpu) or its tools, and no Pillow or
+msgpack (the card machine is not known to have them). An `ast` scan, not
 a sys.modules check: the environment may preload jax into every process.
 """
 import ast
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "l3c_tpu", "tools")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "l3c_tpu", "tools", "PIL",
+             "msgpack")
 
 
 def _port_files():
@@ -34,7 +36,15 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
     files = _port_files()
-    assert len(files) >= 15, files
+    rel = {os.path.relpath(p, ROOT) for p in files}
+    # the scan reaches every package of the port, the serving entry
+    # points included
+    assert len(files) >= 30, files
+    assert {"l3c_torch/" + m for m in (
+        "config.py", "cli/l3c.py", "cli/test.py", "data/images.py",
+        "eval/tester.py", "eval/timer.py", "utils/logdir.py",
+        "utils/printer.py", "models/weights.py", "codec/bitcoding2.py",
+        "ops/kernels/__init__.py")} <= rel
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                              & set(FORBIDDEN))
            for p in files}
@@ -71,3 +81,6 @@ def test_kernel_launchers_refuse_cpu_tensors():
     f = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.mixture_cdf_q(f, f, f, torch.zeros(16), 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.pack_int(torch.zeros((1, 30, 2, 2)), 5, 0, False, 0.08,
+                         -1.04)

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from l3c_torch.codec.bitcoding2 import pack_int
+from l3c_torch.models import dmll
 from l3c_torch.ops import float_cdf, gpu_coder, int_coder as ic, kernels
 
 pytestmark = pytest.mark.cuda
@@ -112,16 +114,61 @@ def test_rans_kernels_match_plain(cuda, mode, K):
 
 
 def test_canary_holds_the_kernels_on_card(cuda):
-    """The card's canary first holds K3/K4 to int_coder on its IntParams
-    at every symbol value (coder_check), which raises if they differ."""
+    """The card's canary packs with K5 and first holds K3/K4 to int_coder
+    on its IntParams at every symbol value (coder_check), which raises if
+    they differ."""
     from l3c_torch import blueprint, config
     from l3c_torch.codec.bitcoding2 import contract_canary
     cfg = config.MsConfig()
     n0 = dict(kernels.launches)
     contract_canary(blueprint.rgb_spec(cfg), blueprint.bn_spec(cfg),
                     cfg.q.C, cfg.prob.K, 4, cuda)
-    want = {"rans_encode": 2, "rans_decode": 7}
+    want = {"rans_encode": 2, "rans_decode": 7, "pack_int": 2}
     assert {k: kernels.launches[k] - n0.get(k, 0) for k in want} == want
+
+
+@pytest.mark.parametrize("rgb,K,topk", [(True, 10, 4), (True, 10, 0),
+                                        (False, 10, 4), (False, 10, 0),
+                                        (False, 3, 2)])
+def test_pack_int_kernel_matches_plain(cuda, rgb, K, topk):
+    """K5 against the plain version on the card, pi-logit ties and
+    log-scales below the -7 clamp included: every output within one step,
+    in at most 1e-3 of the entries (expf and the order of the softmax's
+    sum are the kernel's own); the selected components exactly, shown by
+    v of parameters that make it the component's index."""
+    spec = dmll.DMLLSpec(True) if rgb else dmll.DMLLSpec(False, -1.0, 1.0,
+                                                          25)
+    C, P = (3, 4) if rgb else (5, 3)
+    rng = np.random.RandomState(K + topk)
+    N, H, W = 2, 37, 53
+    l = (rng.randn(N, P, C, K, H, W) * 2.0).astype(np.float32)
+    ties = rng.rand(N, 1, C, 1, H, W) < 0.2
+    l[:, 0:1] = np.where(ties, np.round(l[:, 0:1]), l[:, 0:1])
+    sharp = rng.rand(N, 1, C, K, H, W) < 0.2
+    l[:, 2:3] = np.where(sharp, l[:, 2:3] * 4 - 9, l[:, 2:3])
+    index = l.copy()                 # mu = k, log_s = 0: v tells k apart
+    index[:, 1] = np.arange(K, dtype=np.float32)[None, None, :, None, None]
+    index[:, 2] = 0.0
+    n0 = kernels.launches["pack_int"]
+    for x, exact in ((l, False), (index, True)):
+        lc = torch.from_numpy(x.reshape(N, P * C * K, H, W)).to(cuda)
+        got = pack_int(spec, lc, C, topk)
+        want = ic.pack_int_params_nchw(spec, lc, C, topk)
+        torch.cuda.synchronize()
+        n_bad = n_all = 0
+        for f, g, w in zip(got._fields, got, want):
+            if w is None:
+                assert g is None
+                continue
+            assert g.shape == w.shape and g.dtype == w.dtype
+            d = (g - w).abs()
+            assert float(d.max()) <= 1, f
+            if exact and f == "v":
+                assert float(d.max()) == 0
+            n_bad += int((d > 0).sum())
+            n_all += d.numel()
+        assert n_bad <= 1e-3 * n_all
+    assert kernels.launches["pack_int"] == n0 + 2
 
 
 def _mixture(rng, P, K):

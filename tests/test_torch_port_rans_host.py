@@ -27,6 +27,7 @@ import torch
 
 from l3c_torch import blueprint
 from l3c_torch import config as tcfg
+from l3c_torch.codec import bitcoding2
 from l3c_torch.codec.bitcoding2 import (TorchBitcoding, canary_inputs,
                                         coder_check, contract_canary)
 from l3c_torch.models.network import MultiscaleNetwork
@@ -150,8 +151,11 @@ def host_lib(tmp_path_factory):
 
 
 def _kernel_path(monkeypatch, lib):
-    """Route the rANS launchers to `lib` on CPU tensors."""
+    """Route the rANS launchers to `lib` on CPU tensors. The float pack
+    stage keeps its plain version: its kernel is another source, run on
+    the host by tests/test_torch_port_pack_host.py."""
     monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(bitcoding2, "pack_int", ic.pack_int_params_nchw)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
