@@ -22,7 +22,12 @@ Phases (each raises on failure; none carries on after another failed):
               int_coder on the canary's IntParams at every symbol value
   4. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes and inputs: K1/K2 <= 1 step (coarse)
-              / <= 2 steps on well-conditioned rows (fine); K3/K4 in every
+              / <= 2 steps on well-conditioned rows (fine) on the decoded
+              scale-0 parameters of each channel, with the counts of
+              entries 0, 1, 2 and more steps off; again at ragged sizes
+              (P no multiple of a tile, less than a tile, 1), from a base
+              off the 16-byte boundary and at (K, L) = (3, 25); their
+              special-function floor; K3/K4 in every
               mode (uniform, bn, RGB coarse and fine per channel) exact:
               lengths, used words and symbols identical; K5 on the round's
               classifier outputs at the three scales' shapes, topk 4 and
@@ -398,6 +403,146 @@ def coded_units(bc, imgs, logits=None):
     return units
 
 
+def step_counts(diff: torch.Tensor) -> Tuple[int, int, int, int]:
+    """How many entries of a kernel's rows are 0, 1, 2 and more
+    quantization steps off the plain version's."""
+    d = diff.abs().reshape(-1)
+    return tuple(int((d == n).sum()) for n in (0, 1, 2)) + (int((d > 2).sum()),)
+
+
+def fine_good_rows(pi, mu, inv_s, a, bw, t0) -> torch.Tensor:
+    """The well-conditioned fine rows: the coarse bin holds over 1e-2 of the
+    mass (elsewhere the conditional row divides ~0 by ~0)."""
+    tt = (a[:, None] * 16.0 + torch.arange(17.0, device=a.device)) * bw + t0
+    cv = float_cdf.edge_cdf(pi, mu, inv_s, tt)
+    return (cv[:, -1] - cv[:, 0]) > 1e-2
+
+
+def float_rows_hold(label, pi, mu, inv_s, t, a, bw, t0):
+    """K1 and K2 on one set of inputs against their plain versions, with
+    the step counts printed. Raises unless K1 is within 1 step, K2 within 2
+    on well-conditioned rows, and the finished rows strictly increasing.
+    Returns (K1 rows, worst K1, worst K2 on good rows)."""
+    L = t.shape[0]
+    k1 = kernels.mixture_cdf_q(pi, mu, inv_s, t, L)
+    k2 = kernels.fine_cdf_q(pi, mu, inv_s, a, bw, t0)
+    d1 = k1 - float_cdf.mixture_cdf_q_plain(pi, mu, inv_s, t, L)
+    d2 = k2 - float_cdf.fine_cdf_q_plain(pi, mu, inv_s, a, bw, t0)
+    good = fine_good_rows(pi, mu, inv_s, a, bw, t0)
+    err1 = int(d1.abs().max())
+    err2 = int(d2[good].abs().max()) if good.any() else 0
+    log(f"[kernels] {label} P={pi.shape[0]} K={pi.shape[1]}: mixture_cdf_q "
+        f"L={L} entries 0/1/2/more steps off plain {step_counts(d1)} | "
+        f"fine_cdf_q on {int(good.sum())} well-conditioned rows "
+        f"{step_counts(d2[good])}, on all rows {step_counts(d2)}")
+    if err1 > 1 or err2 > 2:
+        raise RuntimeError(f"float rows off ({label}): K1 {err1} K2 {err2} "
+                           "steps")
+    for q in (k1, k2):
+        rows = float_cdf.finish_rows(q)
+        top = torch.full((rows.shape[0], 1), 65536, device=rows.device)
+        if not (torch.diff(torch.cat([rows, top], 1), dim=1) >= 1).all():
+            raise RuntimeError(f"float rows not strictly increasing "
+                               f"({label})")
+    return k1, err1, err2
+
+
+# f32 operations per mixture term of K1/K2 by K5's convention (an
+# exponential and a division OPS_EXP each), counted from csrc/float_cdf.cu
+# (add_term / mixture): the edge's z (sub, mul), the sigmoid (negate and
+# clamp 2 in K2's exact form; K1's cheap form, which has neither, is held
+# to the same count; the exponential, the add of 1, the reciprocal), the
+# weight's product and the sum: 2 + 2 + OPS_EXP + 1 + OPS_EXP + 2. An
+# entry's finish: clip 2, the product with M, floor; K2 adds its
+# conditional (sub, a true division) per entry and the 17 edge targets (3
+# each) and lo / hi / denom (5) per pixel.
+OPS_FLOAT_TERM = 7 + 2 * OPS_EXP
+OPS_FLOAT_ENTRY = 4
+OPS_FINE_ENTRY = OPS_FLOAT_ENTRY + 1 + OPS_EXP
+OPS_FINE_PIXEL = 17 * 3 + 5
+SFU_PER_TERM = 2                  # MUFU.EX2 and MUFU.RCP, in both kernels
+SFU_PER_CLOCK_SM = 16
+
+
+def phase_float_rows(bc, record):
+    """K1 / K2 on the decoded scale-0 params of all three channels (the
+    main path's inputs), held to the plain versions; the ragged sizes, a
+    misaligned base and (K, L) = (3, 25)."""
+    fr = bc.last_float_rows
+    spec = bc._rgb
+    bw, t0 = float_cdf._bw_t0(spec)
+    err1 = err2 = 0
+    for c in range(3):
+        pi, mu, inv_s = float_cdf.channel_params_packed(
+            spec, fr["packed"], c, fr["decoded"])
+        t = float_cdf.coarse_edge_targets(spec, pi.device)
+        a = (fr["decoded"][..., c].reshape(-1) / 16.0).floor()
+        k1, e1, e2 = float_rows_hold(f"float rows channel {c}", pi, mu,
+                                     inv_s, t, a, bw, t0)
+        err1, err2 = max(err1, e1), max(err2, e2)
+        # the main path's rows are these kernels' rows
+        if not torch.equal(fr["rows"][c][0], float_cdf.finish_rows(k1)):
+            raise RuntimeError("main-path coarse rows differ from K1")
+    P, K = pi.shape
+    # ragged sizes on channel 2's parameters: P no multiple of a tile, less
+    # than a tile, one pixel; a base off the 16-byte boundary (rows 3..)
+    for label, sl in (("ragged", slice(0, P - 77)), ("ragged", slice(0, 50)),
+                      ("ragged", slice(0, 1)),
+                      ("misaligned base", slice(3, 1003))):
+        part = [x[sl] for x in (pi, mu, inv_s)]
+        if label.startswith("mis") and not all(
+                x.is_contiguous() and x.data_ptr() % 16 for x in part):
+            raise RuntimeError("the slice is not misaligned")
+        float_rows_hold(label, *part, t, a[sl], bw, t0)
+    # K1 at the bottleneck table's shape, (K, L) = (3, 25): seeded mixtures
+    rng = np.random.RandomState(25)
+    p3 = [torch.from_numpy(x.astype(np.float32)).to(pi.device) for x in (
+        rng.dirichlet(np.ones(3), size=5000),
+        rng.uniform(-20, 280, (5000, 3)),
+        np.exp(-rng.uniform(-3, 4, (5000, 3))))]
+    t25 = torch.arange(25, dtype=torch.float32, device=pi.device) * 10.24 \
+        - 0.5
+    float_rows_hold("(K, L) = (3, 25)", *p3, t25,
+                    (p3[1][:, 0] / 16.0).clamp(0, 15).floor(), bw, t0)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    run = {"mixture_cdf_q": lambda: kernels.mixture_cdf_q(
+               pi, mu, inv_s, t, 16),
+           "fine_cdf_q": lambda: kernels.fine_cdf_q(
+               pi, mu, inv_s, a, bw, t0)}
+    plain = {"mixture_cdf_q": lambda: float_cdf.mixture_cdf_q_plain(
+                 pi, mu, inv_s, t, 16),
+             "fine_cdf_q": lambda: float_cdf.fine_cdf_q_plain(
+                 pi, mu, inv_s, a, bw, t0)}
+    terms = {"mixture_cdf_q": P * 16 * K, "fine_cdf_q": P * 17 * K}
+    bounds = {
+        # f32 params in; rows (u16 values) out at 2 bytes
+        "mixture_cdf_q": bound(3 * P * K * 4 + 16 * 4 + P * 16 * 2,
+                               terms["mixture_cdf_q"] * OPS_FLOAT_TERM
+                               + P * 16 * OPS_FLOAT_ENTRY),
+        # coarse symbols (< 16) in at 1 byte, rows out at 2 bytes
+        "fine_cdf_q": bound(3 * P * K * 4 + P + P * 16 * 2,
+                            terms["fine_cdf_q"] * OPS_FLOAT_TERM
+                            + P * (16 * OPS_FINE_ENTRY + OPS_FINE_PIXEL))}
+    for name, err in (("mixture_cdf_q", err1), ("fine_cdf_q", err2)):
+        # what this way of computing the function needs at least: its
+        # special-function instructions at the unit's rate
+        floor_ms = terms[name] * SFU_PER_TERM / (
+            SFU_PER_CLOCK_SM * sms * mhz * 1e6) * 1e3
+        log(f"[kernels] {name}: special-function floor {floor_ms * 1e3:.1f} "
+            f"us = {terms[name]} sigmoids x {SFU_PER_TERM} instructions / "
+            f"({SFU_PER_CLOCK_SM} a clock x {sms} SMs x {mhz:.0f} MHz, "
+            "clocks.max.sm)")
+        record(name, err, cuda_ms(run[name]),
+               cuda_ms(plain[name]), bounds[name])
+    log(f"[kernels] float rows: P={P} K={K}, 3 channels")
+    bc.last_float_rows = None
+
+
 def phase_kernels(bc, imgs, counts):
     recs = []
 
@@ -411,54 +556,7 @@ def phase_kernels(bc, imgs, counts):
             f" | plain {plain_ms * 1e3:.1f} us | bound {b[0] * 1e3:.1f} us"
             f" ({b[1]}) | main-path launches {counts[name]}")
 
-    # ---- K1 / K2 on the decoded scale-0 params (the main path's inputs)
-    fr = bc.last_float_rows
-    spec = bc._rgb
-    bw, t0 = float_cdf._bw_t0(spec)
-    err1 = err2 = 0
-    for c in range(3):
-        pi, mu, inv_s = float_cdf.channel_params_packed(
-            spec, fr["packed"], c, fr["decoded"])
-        t = float_cdf.coarse_edge_targets(spec, pi.device)
-        a = (fr["decoded"][..., c].reshape(-1) / 16.0).floor()
-        k1 = float_cdf.mixture_cdf_q(pi, mu, inv_s, t, 16)
-        p1 = float_cdf.mixture_cdf_q_plain(pi, mu, inv_s, t, 16)
-        err1 = max(err1, int((k1 - p1).abs().max()))
-        k2 = float_cdf.fine_cdf_q(pi, mu, inv_s, a, bw, t0)
-        p2 = float_cdf.fine_cdf_q_plain(pi, mu, inv_s, a, bw, t0)
-        tt = (a[:, None] * 16.0 + torch.arange(17.0, device=a.device)) \
-            * bw + t0
-        cv = float_cdf.edge_cdf(pi, mu, inv_s, tt)
-        good = (cv[:, -1] - cv[:, 0]) > 1e-2
-        err2 = max(err2, int((k2 - p2)[good].abs().max()))
-        for q in (k1, k2):
-            rows = float_cdf.finish_rows(q)
-            top = torch.full((rows.shape[0], 1), 65536, device=rows.device)
-            if not (torch.diff(torch.cat([rows, top], 1), dim=1) >= 1).all():
-                raise RuntimeError("float rows not strictly increasing")
-        # the main path's rows are these kernels' rows
-        if not torch.equal(fr["rows"][c][0], float_cdf.finish_rows(k1)):
-            raise RuntimeError("main-path coarse rows differ from K1")
-    if err1 > 1 or err2 > 2:
-        raise RuntimeError(f"float rows off: K1 {err1} K2 {err2} steps")
-    P, K = pi.shape
-    log(f"[kernels] float rows: P={P} K={K}, 3 channels, good fine rows "
-        f"{int(good.sum())}/{P} (channel 2)")
-    record("mixture_cdf_q", err1,
-           cuda_ms(lambda: float_cdf.mixture_cdf_q(pi, mu, inv_s, t, 16)),
-           cuda_ms(lambda: float_cdf.mixture_cdf_q_plain(pi, mu, inv_s, t,
-                                                         16)),
-           # f32 params in; rows (u16 values) out at 2 bytes
-           bound(3 * P * K * 4 + 16 * 4 + P * 16 * 2, P * 16 * K * 8))
-    record("fine_cdf_q", err2,
-           cuda_ms(lambda: float_cdf.fine_cdf_q(pi, mu, inv_s, a, bw, t0)),
-           cuda_ms(lambda: float_cdf.fine_cdf_q_plain(pi, mu, inv_s, a, bw,
-                                                      t0)),
-           # coarse symbols (< 16) in at 1 byte, rows out at 2 bytes
-           bound(3 * P * K * 4 + P + P * 16 * 2,
-                 P * 17 * K * 8 + P * 16 * 4))
-    bc.last_float_rows = None
-    del fr, pi, mu, inv_s
+    phase_float_rows(bc, record)
 
     logits = {}
     phase_coder(bc, coder_cases(bc, imgs, logits), record)

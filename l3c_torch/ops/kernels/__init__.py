@@ -11,7 +11,15 @@ coders of `gpu_coder` (`encode_*` / `decode_*`) and the codec's
 
 | kernel         | source             | replaces (TPU)                        |
 | mixture_cdf_q  | csrc/float_cdf.cu  | tools/pallas_cdf.py:48 (Pallas)       |
+|                | + csrc/ptx.cuh     | a tile of 64 pixels a block through   |
+|                |                    | shared memory (cp.async), 4 edges a   |
+|                |                    | thread, one int4 store each; the      |
+|                |                    | special-function unit's sigmoid       |
 | fine_cdf_q     | csrc/float_cdf.cu  | tools/pallas_cdf.py:120 (Pallas)      |
+|                | + csrc/ptx.cuh     | a tile of 128 pixels, a pixel's 17    |
+|                |                    | edges a thread, rows staged in shared |
+|                |                    | memory and stored flat as int4; expf  |
+|                |                    | and a refined reciprocal              |
 | rans_encode    | csrc/rans.cu       | l3c_tpu/ops/tpu_coder.py:305 (scan)   |
 |                |                    | + codec/bitcoding2.py:320/:417 lookups|
 | rans_decode    | csrc/rans.cu       | l3c_tpu/ops/tpu_coder.py:481 (scan)   |
@@ -60,16 +68,33 @@ def _launch(lib: str, fn: str, kernel: str, *args) -> None:
     launches[kernel] += 1
 
 
+MAX_K = 10          # mixture components: kMaxK of the csrc sources
+MAX_L = 32          # edges of mixture_cdf_q: kMaxL of csrc/float_cdf.cu
+
+
+def _float_cdf_args(kernel: str, pi, mu, inv_s) -> Tuple[int, int]:
+    """Check a float_cdf kernel's (P, K) parameters; (P, K)."""
+    for x, n in ((pi, "pi"), (mu, "mu"), (inv_s, "inv_s")):
+        _check(x, n, torch.float32, 2)
+    P, K = pi.shape
+    if mu.shape != (P, K) or inv_s.shape != (P, K):
+        raise ValueError(f"{kernel}: shape mismatch")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{kernel}: K={K}, the kernel takes 1..{MAX_K}")
+    return P, K
+
+
 def mixture_cdf_q(pi: torch.Tensor, mu: torch.Tensor, inv_s: torch.Tensor,
                   t: torch.Tensor, L: int) -> torch.Tensor:
     """(P, K) f32 params, (L,) f32 edges -> (P, L) int32
-    floor(clip(sum_k pi sigmoid((t-mu) inv_s), 0, 1) * (65536 - 2L))."""
-    for x, n in ((pi, "pi"), (mu, "mu"), (inv_s, "inv_s")):
-        _check(x, n, torch.float32, 2)
+    floor(clip(sum_k pi sigmoid((t-mu) inv_s), 0, 1) * (65536 - 2L)),
+    within one step of the plain version (the kernel's sigmoid is the
+    special-function unit's)."""
+    P, K = _float_cdf_args("mixture_cdf_q", pi, mu, inv_s)
     _check(t, "t", torch.float32, 1)
-    P, K = pi.shape
-    if mu.shape != (P, K) or inv_s.shape != (P, K) or t.shape != (L,):
-        raise ValueError("mixture_cdf_q: shape mismatch")
+    if t.shape != (L,) or not 1 <= L <= MAX_L:
+        raise ValueError(f"mixture_cdf_q: t {tuple(t.shape)}, L={L}; the "
+                         f"kernel takes 1..{MAX_L} edges")
     out = torch.empty((P, L), dtype=torch.int32, device=pi.device)
     if P:
         _launch("float_cdf", "l3c_mixture_cdf_q", "mixture_cdf_q",
@@ -84,11 +109,9 @@ def fine_cdf_q(pi: torch.Tensor, mu: torch.Tensor, inv_s: torch.Tensor,
     """(P, K) f32 params + (P,) f32 coarse symbols -> (P, 16) int32
     conditional fine rows of the 16 x 16 RGB split (pre +2l finish)."""
     fine, n_coarse = 16, 16
-    for x, n in ((pi, "pi"), (mu, "mu"), (inv_s, "inv_s")):
-        _check(x, n, torch.float32, 2)
+    P, K = _float_cdf_args("fine_cdf_q", pi, mu, inv_s)
     _check(a, "a", torch.float32, 1)
-    P, K = pi.shape
-    if mu.shape != (P, K) or inv_s.shape != (P, K) or a.shape != (P,):
+    if a.shape != (P,):
         raise ValueError("fine_cdf_q: shape mismatch")
     out = torch.empty((P, fine), dtype=torch.int32, device=pi.device)
     if P:
@@ -98,9 +121,6 @@ def fine_cdf_q(pi: torch.Tensor, mu: torch.Tensor, inv_s: torch.Tensor,
                 P, K, float(bw), float(t0), n_coarse,
                 float(65536 - 2 * fine))
     return out
-
-
-MAX_K = 10          # mixture components: kMaxK of csrc/rans.cu and pack.cu
 
 
 def pack_int(l: torch.Tensor, C: int, topk: int, lam: bool, bw: float,
