@@ -49,10 +49,21 @@ Phases (each raises on failure; none carries on after another failed):
               has the launch counts set to 0 before it and read after it,
               and they must be exactly its path's (an encode 4 x K3 and
               3 x K5, a decode 9 x K4 and 3 x K5, a new codec object's
-              canary 2 x K5, 2 x K3, 7 x K4; cli.test alone none)
+              canary 2 x K5, 2 x K3, 7 x K4; an image's theory bpsp
+              3 x K6 forward)
   6. profile  device time by op and by kernel over one more encode+decode
               round (torch.profiler), and the device's busy share
-  7. report   one JSON line of kernel records, the card line, then
+  7. train    training through cli.train.main at full cr.cf width, batch
+              16 x 128^2 (oi_offline.cf) on seeded PNGs: K6 (the mixture
+              NLL, forward and backward) against its plain version on r5b's
+              outputs at the three scales, timed; r5b resumed strictly
+              (params, nu, count, step) and trained 20 steps, the first
+              loss equal to the eval forward's; that checkpoint codes a
+              512x512 image through cli.l3c bit-exactly; 40 steps from a
+              fresh initialisation lower the validation bpsp; every step
+              exactly 3 + 3 K6 launches and no plain nll on the card; step
+              time, peak memory and one profiled step by kind
+  8. report   one JSON line of kernel records, the card line, then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
@@ -81,7 +92,7 @@ from l3c_torch.codec.bitcoding2 import (TorchBitcoding, canary_inputs,
                                         canary_leaves, coder_check,
                                         contract_canary, fbatch_for,
                                         pack_int)
-from l3c_torch.config import load_ms_config
+from l3c_torch.config import load_dl_config, load_ms_config
 from l3c_torch.data.images import Testset, read_png, write_png
 from l3c_torch.device import numerics_guard
 from l3c_torch.eval.tester import MultiscaleTester
@@ -115,7 +126,15 @@ KERNEL_INFO = {
     # XLA-lowered inside the JAX codec's per-scale get_P program
     "pack_int": ("l3c_torch/ops/kernels/csrc/pack.cu",
                  "l3c_tpu/ops/int_coder.py:259"),
+    # the mixture NLL and its VJP, XLA-fused into the jitted train step
+    "dmll_nll": ("l3c_torch/ops/kernels/csrc/dmll.cu",
+                 "l3c_tpu/models/dmll.py:126"),
+    "dmll_nll_grad": ("l3c_torch/ops/kernels/csrc/dmll.cu",
+                      "l3c_tpu/models/dmll.py:126 (VJP, "
+                      "l3c_tpu/train/trainer.py:115)"),
 }
+CODEC_KERNELS = ("mixture_cdf_q", "fine_cdf_q", "rans_encode", "rans_decode",
+                 "pack_int")
 # the int_coder row and lookup builders: on the card the main path must
 # call none of them (the kernels evaluate the CDF themselves)
 INT_CODER_ROWS = ("bn_rows", "bn_lookup", "rgb_coarse_rows",
@@ -299,7 +318,7 @@ def phase_codec(bc, imgs, theory_bpsp, card):
                     raise RuntimeError("round trip is NOT bit-exact")
             enc_ms.append((t1 - t0) * 1e3)
             dec_ms.append((t2 - t1) * 1e3)
-    missing = [k for k in kernels.KERNELS if not counts.get(k)]
+    missing = [k for k in CODEC_KERNELS if not counts.get(k)]
     if missing:
         raise RuntimeError(f"main path never launched {missing}: {counts}")
     # one round: unit 0 + 2 bn units + the stacked scale-0 units (encode);
@@ -543,9 +562,9 @@ def phase_float_rows(bc, record):
     bc.last_float_rows = None
 
 
-def phase_kernels(bc, imgs, counts):
-    recs = []
-
+def make_recorder(recs, counts):
+    """record(name, err, ms, plain_ms, (bound ms, by)): appends the
+    kernel's record, with its launches on the main path from `counts`."""
     def record(name, err, ms, plain_ms, b):
         src, repl = KERNEL_INFO[name]
         recs.append(dict(name=name, route="cuda", source=src, replaces=repl,
@@ -555,7 +574,12 @@ def phase_kernels(bc, imgs, counts):
         log(f"[kernels] {name}: max|diff| {err} | {ms * 1e3:.1f} us/launch"
             f" | plain {plain_ms * 1e3:.1f} us | bound {b[0] * 1e3:.1f} us"
             f" ({b[1]}) | main-path launches {counts[name]}")
+    return record
 
+
+def phase_kernels(bc, imgs, counts):
+    recs = []
+    record = make_recorder(recs, counts)
     phase_float_rows(bc, record)
 
     logits = {}
@@ -897,6 +921,9 @@ def run_cli(main, argv) -> str:
 ENCODE = {"rans_encode": 4, "pack_int": 3}
 DECODE = {"rans_decode": 9, "pack_int": 3}
 CANARY = {"rans_encode": 2, "rans_decode": 7, "pack_int": 2}
+# the theory bpsp of the B images (one auto-crop tile each): K6's forward
+# once per scale
+THEORY = {"dmll_nll": 3 * B}
 
 
 def counted(total, label, fn, *parts):
@@ -952,7 +979,8 @@ def phase_cli(bc, imgs, theory_bpsp, card):
             f"canary and cuDNN's first calls | {card}")
         # ---- cli.test: theory bpsp of the eight (no file is written)
         out = counted(total, "cli.test", lambda: run_cli(
-            test_cli.main, [ZOO, LOG_DATE, img_dir, "--reset_cache"]))
+            test_cli.main, [ZOO, LOG_DATE, img_dir, "--reset_cache"]),
+            THEORY)
         shown = float(out.strip().splitlines()[-1].split()[-1])
         tester = MultiscaleTester.from_log_dir(
             find_log_dir(ZOO, LOG_DATE), l3c_cli.default_config_roots(),
@@ -972,7 +1000,7 @@ def phase_cli(bc, imgs, theory_bpsp, card):
                 test_cli.main, [
                     ZOO, LOG_DATE, img_dir, "--write_to_files", out_dir,
                     "--compare_theory", "--time_report", rep,
-                    "--reset_cache"]), ENCODE, DECODE, CANARY)
+                    "--reset_cache"]), ENCODE, DECODE, CANARY, THEORY)
         sizes = [os.path.getsize(os.path.join(out_dir, f"im{b}.l3c"))
                  for b in range(B)]
         head = open(os.path.join(out_dir, "im0.l3c"), "rb").read(8)
@@ -1062,6 +1090,426 @@ def phase_profile(bc, imgs, round_ms):
                 f" ms {e.count:6d}x  {e.key[:80]}")
 
 
+# ------------------------------------------------------------------ train
+
+# f32 operations of K6 per mixture term, counted from csrc/dmll.cu (expf,
+# log1pf, logf and a division 8 each): shared by every term the logits'
+# max and softmax sum (10), the weighted sum and max (14) and the term's
+# setup (clamp, x - mean, expf(-ls), p, m: 15); the branch: the interior
+# two sigmoids, their difference, the clamp and the log (46), a tail one
+# softplus and a sum (21); the RGB means add a sigmoid, a product and a
+# sum per lambda (20 each: channel 1 one, channel 2 two). The backward
+# recomputes the forward and adds the branch's derivative (interior 19,
+# tail 18), the chain to d and ls (13) and, per term, the responsibility,
+# the softmax weight and the five gradients (44); a lambda's gradient 8.
+OPS_K6_TERM = 10 + 14 + 15
+OPS_K6_BRANCH = {"interior": 46, "tail": 21}
+OPS_K6_GRAD = {"interior": 19 + 13 + 44, "tail": 18 + 13 + 44}
+OPS_K6_LAMBDA = ((0, 0), (20, 28), (40, 56))     # channel: (fwd, bwd)
+TRAIN_STEPS_RESUMED, TRAIN_STEPS_FRESH, TRAIN_WARMUP = 20, 40, 3
+TRAIN_IMGS, VAL_IMGS, TRAIN_SZ = 32, 8, 160
+
+
+def k6_bound(l_nchw, x, spec, grad: bool):
+    """(ms, by) of one K6 launch on these inputs: l and x read once (and the
+    upstream gradient), nll (grad_l and grad_x) written once; operations
+    per term as counted above, by the branch each element takes."""
+    N, Kp, H, W = l_nchw.shape
+    C = x.shape[-1]
+    K = Kp // ((4 if spec.rgb_scale else 3) * C)
+    tail = (x < spec.x_lower_bound) | (x > spec.x_upper_bound)
+    n_tail = tail.sum(dim=(0, 1, 2)).double().cpu().numpy()   # per channel
+    n_px = N * H * W
+    ops = 0.0
+    for c in range(C):
+        lam = OPS_K6_LAMBDA[c][grad] if spec.rgb_scale else 0
+        for kind, n in (("tail", n_tail[c]), ("interior", n_px - n_tail[c])):
+            term = OPS_K6_TERM + OPS_K6_BRANCH[kind] + lam
+            if grad:
+                term += OPS_K6_GRAD[kind]
+            ops += n * K * term
+    n_bytes = (Kp + C) * n_px * 4 + (C * n_px * 4 if not grad
+                                      else (Kp + 2 * C) * n_px * 4)
+    return bound(n_bytes, ops)
+
+
+def train_pngs(d: str):
+    """TRAIN_IMGS + VAL_IMGS images of TRAIN_SZ^2 from a seed (smooth
+    random fields plus noise), written as PNGs by the port's writer;
+    returns (train dir, val dir)."""
+    rng = np.random.RandomState(1)
+    yy, xx = np.mgrid[0:TRAIN_SZ, 0:TRAIN_SZ] / TRAIN_SZ
+    dirs = []
+    for sub, n in (("train", TRAIN_IMGS), ("val", VAL_IMGS)):
+        os.makedirs(os.path.join(d, sub))
+        for i in range(n):
+            f = rng.uniform(0.5, 6.0, (3, 2))
+            ph = rng.uniform(0, 2 * np.pi, (3,))
+            base = np.stack([
+                127 + 100 * np.sin(2 * np.pi * (f[c, 0] * yy + f[c, 1] * xx)
+                                   + ph[c]) for c in range(3)], -1)
+            img = np.clip(base + rng.normal(0, rng.uniform(2, 12),
+                                            base.shape), 0, 255)
+            write_png(os.path.join(d, sub, f"im{i:03d}.png"),
+                      img.astype(np.uint8))
+        dirs.append(os.path.join(d, sub))
+    return dirs
+
+
+@contextlib.contextmanager
+def patched(cls, name, make):
+    """cls.<name> replaced by make(original) for the block."""
+    orig = getattr(cls, name)
+    setattr(cls, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def phase_k6(net, cfg, batch, record):
+    """K6 against its plain version on r5b's real outputs for one training
+    batch (the training forward: straight-through bottlenecks), at the three
+    scales, forward and backward, every element within the tight bound of
+    tests/test_torch_port_kernels.py (nll 1e-5 relative + 1e-6, each sum
+    1e-6 relative, grads 1e-5 of the largest; the tests add each element's
+    float32 spread for their adversarial inputs, which real outputs do not
+    need); times by CUDA events. Returns the eval forward's loss_pc on the
+    batch."""
+    from l3c_torch.models import dmll
+    x_img = torch.from_numpy(batch).cuda().float()
+    with torch.no_grad():
+        out = net(x_img, train=True)
+        loss_eval = float(blueprint.compute_loss(
+            cfg, net(x_img, train=False)).loss_pc)
+    specs = [blueprint.rgb_spec(cfg)] + [blueprint.bn_spec(cfg)] * (
+        len(out.P) - 1)
+    rows = {"dmll_nll": [], "dmll_nll_grad": []}
+    worst = {"dmll_nll": 0.0, "dmll_nll_grad": 0.0}
+    for i, spec in enumerate(specs):
+        x = (out.S[0].float() if i == 0 else out.bn[i]).contiguous()
+        l_nchw = out.P[i].permute(0, 3, 1, 2)        # the classifier's planes
+        if not l_nchw.is_contiguous():
+            raise RuntimeError("the training forward copied l")
+        g = torch.ones_like(x)
+
+        def grads(fn):
+            xr = x.clone().requires_grad_(True)
+            lr = l_nchw.clone().requires_grad_(True)
+            n = fn(spec, xr, lr.permute(0, 2, 3, 1))
+            gl, gx = torch.autograd.grad(n, (lr, xr), g)
+            return n.detach(), gl, gx
+
+        got, want = grads(dmll.nll), grads(dmll.nll_plain)
+        torch.cuda.synchronize()
+        stats = []
+        for name, a, b in zip(("nll", "grad_l", "grad_x"), got, want):
+            a, b = a.double(), b.double()
+            err = (a - b).abs()
+            sum_ok = True
+            if name == "nll":
+                tol = 1e-5 * b.abs() + 1e-6
+                rel = float((err / b.abs().clamp(min=1e-6)).max())
+                s_rel = abs(float(a.sum() - b.sum())) / abs(float(b.sum()))
+                extra = f" max rel {rel:.2e}, sum rel {s_rel:.2e}"
+                sum_ok = s_rel <= 1e-6
+            else:
+                scale = float(b.abs().max())
+                tol = 1e-5 * scale
+                extra = f" of max |grad| {scale:.3e}"
+            n_out = int((err > tol).sum())
+            stats.append(f"{name} max|diff| {float(err.max()):.3e}{extra}, "
+                         f"{n_out}/{err.numel()} beyond the bound")
+            if n_out or not sum_ok:
+                raise RuntimeError(f"K6 scale {i} {name} disagrees with the "
+                                   f"plain version: {stats[-1]}")
+            key = "dmll_nll" if name == "nll" else "dmll_nll_grad"
+            worst[key] = max(worst[key], float(err.max()))
+        log(f"[train] K6 scale {i} {tuple(l_nchw.shape)} vs plain: "
+            + "; ".join(stats) + " (every element: nll 1e-5 rel + 1e-6, "
+            "sum 1e-6 rel, grads 1e-5 of max)")
+        consts = (spec.bin_width / 2.0, spec.x_lower_bound,
+                  spec.x_upper_bound)
+        fwd = cuda_ms(lambda: kernels.dmll_nll(l_nchw, x, spec.rgb_scale,
+                                               *consts))
+        bwd = cuda_ms(lambda: kernels.dmll_nll_grad(l_nchw, x, g,
+                                                    spec.rgb_scale, *consts))
+        plain_f = cuda_ms(lambda: dmll.nll_plain(
+            spec, x, l_nchw.permute(0, 2, 3, 1)), 3)
+        plain_fb = cuda_ms(lambda: grads(dmll.nll_plain), 3)
+        bf, bb = k6_bound(l_nchw, x, spec, False), k6_bound(l_nchw, x, spec,
+                                                            True)
+        rows["dmll_nll"].append((fwd, plain_f, bf))
+        rows["dmll_nll_grad"].append((bwd, plain_fb - plain_f, bb))
+        log(f"[train] K6 scale {i}: forward {fwd * 1e3:.1f} us (bound "
+            f"{bf[0] * 1e3:.1f} us, {bf[1]}), backward {bwd * 1e3:.1f} us "
+            f"(bound {bb[0] * 1e3:.1f} us, {bb[1]}) | plain forward "
+            f"{plain_f * 1e3:.1f} us, forward+backward {plain_fb * 1e3:.1f}"
+            " us")
+        del got, want
+    for name, r in rows.items():
+        n = len(r)
+        by = {k: sum(t[2][0] for t in r if t[2][1] == k)
+              for k in ("bytes", "operations")}
+        log(f"[train] {name} per step ({n} launches): "
+            f"{sum(t[0] for t in r):.3f} ms | plain {sum(t[1] for t in r):.3f}"
+            f" ms | bound {sum(t[2][0] for t in r):.3f} ms")
+        record(name, worst[name], sum(t[0] for t in r) / n,
+               sum(t[1] for t in r) / n,
+               (sum(by.values()) / n, max(by, key=by.get)))
+    del out
+    return loss_eval
+
+
+def phase_train(net, cfg, card):
+    """Training on the card through the entry point a user calls
+    (cli.train.main, in-process, no --device) at full cr.cf width with
+    oi_offline.cf's shapes on seeded PNGs: K6 against its plain version on
+    r5b's outputs; r5b resumed strictly and trained TRAIN_STEPS_RESUMED
+    steps (its first loss equal to the eval forward's); the checkpoint it
+    wrote coding a 512x512 image through cli.l3c; TRAIN_STEPS_FRESH steps
+    from a fresh initialisation lowering the validation bpsp; step time,
+    memory and one profiled step. Every train step launches exactly 3 + 3
+    K6 kernels and calls the plain nll on no CUDA tensor."""
+    from l3c_torch.cli import train as train_cli
+    from l3c_torch.data.images import TrainBatches
+    from l3c_torch.models import dmll
+    from l3c_torch.models.weights import read_checkpoint
+    from l3c_torch.train.trainer import Trainer
+    ms_cf = os.path.join(l3c_cli.default_config_roots()[0], "ms", "cr.cf")
+    dl_cf = os.path.join(l3c_cli.default_config_roots()[0], "dl",
+                         "oi_offline.cf")
+    per_step = {"dmll_nll": 3, "dmll_nll_grad": 3}
+    with tempfile.TemporaryDirectory(prefix="l3c_train_") as d:
+        pending = []
+        train_dir, val_dir = train_pngs(d)
+        data = ["-p", f"dl.train_imgs_glob='{train_dir}'", "-p",
+                f"dl.val_glob='{val_dir}'", "-p", "dl.image_cache_pkl=None"]
+        # the first batch cli.train draws (TrainBatches is deterministic)
+        dl = load_dl_config(dl_cf)
+        tb = TrainBatches(sorted(os.path.join(train_dir, f)
+                                 for f in os.listdir(train_dir)),
+                          dl.batchsize_train, dl.crop_size, seed=0,
+                          aug_strong=dl.aug_strong)
+        batch = next(iter(tb))
+        tb.close()
+        loss_eval = phase_k6(net, cfg, batch, lambda *a: pending.append(a))
+
+        # ---- resume r5b strictly, TRAIN_STEPS_RESUMED steps at a constant
+        # lr (exp_0.75_e5 in epochs of this corpus would be ~0 at step
+        # 246250)
+        root = os.path.join(d, "logs")
+        os.makedirs(root)
+        os.symlink(os.path.dirname(os.path.dirname(CKPT)),
+                   os.path.join(root, os.path.basename(
+                       os.path.dirname(os.path.dirname(CKPT)))))
+        r5b = read_checkpoint(CKPT)
+        seen = {"losses": [], "steps": [], "starts": []}
+
+        def restore(orig):
+            def run(self, *a, **k):
+                got = orig(self, *a, **k)
+                st = self.state_tree()
+                flat = lambda t, p="": (
+                    [x for k_, v in sorted(t.items())
+                     for x in flat(v, f"{p}/{k_}")]
+                    if isinstance(t, dict) else [(p, t)])
+                a_, b_ = flat(st), flat(r5b)
+                same = len(a_) == len(b_) and all(
+                    pa == pb and va.dtype == vb.dtype and np.array_equal(va, vb)
+                    for (pa, va), (pb, vb) in zip(a_, b_))
+                log(f"[train] restored itr {got}: {len(a_)} leaves (params, "
+                    f"nu, count {int(st['opt_state']['1']['count'])}, step "
+                    f"{int(st['step'])}) equal to r5b's: {same}")
+                if not same:
+                    raise RuntimeError("r5b did not resume strictly")
+                return got
+            return run
+
+        def step(orig):
+            def run(self, batch_):
+                before = dict(kernels.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                seen["starts"].append(t0)
+                m = orig(self, batch_)
+                torch.cuda.synchronize()
+                seen["steps"].append(time.perf_counter() - t0)
+                seen["losses"].append(float(m["loss_bpsp"]))
+                seen["lr"] = float(m["lr"])
+                seen["trainer"] = self
+                got = {k: kernels.launches.get(k, 0) - before.get(k, 0)
+                       for k in kernels.KERNELS}
+                if got != {k: per_step.get(k, 0) for k in kernels.KERNELS}:
+                    raise RuntimeError(f"a train step launched {got}")
+                return m
+            return run
+
+        plain = {"nll_plain": 0}
+        unpatch = count_cuda_calls(dmll, ["nll_plain"], plain)
+        try:
+            with patched(Trainer, "restore", restore), \
+                    patched(Trainer, "train_step", step):
+                kernels.reset_launches()
+                run_cli(train_cli.main, [
+                    ms_cf, dl_cf, root, *data, "-p", "lr.schedule='none'",
+                    "--restore", LOG_DATE, "--num_itr",
+                    str(TRAIN_STEPS_RESUMED), "--log_train", "5",
+                    "--log_val", "0"])
+                resumed = dict(kernels.launches)
+        finally:
+            unpatch()
+        want = {k: TRAIN_STEPS_RESUMED * v for k, v in per_step.items()}
+        log(f"[train] launches of the resumed run: "
+            f"{ {k: v for k, v in resumed.items() if v} } (expected {want}); "
+            f"plain nll calls on CUDA tensors: {plain['nll_plain']}")
+        if {k: resumed.get(k, 0) for k in want} != want or any(
+                resumed.get(k, 0) for k in CODEC_KERNELS) or \
+                plain["nll_plain"]:
+            raise RuntimeError("the resumed run did not train through K6 "
+                               "alone")
+        losses = seen["losses"]
+        rel = abs(losses[0] - loss_eval) / loss_eval
+        log(f"[train] resumed r5b: lr {seen['lr']:.3e}; first step loss_bpsp "
+            f"{losses[0]:.7f} vs the eval forward's loss_pc {loss_eval:.7f} "
+            f"(rel {rel:.2e}); losses {[round(v, 4) for v in losses]}")
+        if rel > 1e-5 or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError("resumed losses wrong or not finite")
+        new_dir = [n for n in os.listdir(root) if not n.startswith(LOG_DATE)]
+        if len(new_dir) != 1:
+            raise RuntimeError(f"expected one new log dir: {new_dir}")
+        end = 246250 + TRAIN_STEPS_RESUMED
+        ck = os.path.join(root, new_dir[0], "ckpts",
+                          f"ckpt_{end:010d}.ckpt.tmp")
+        saved = read_checkpoint(ck)
+        shape = lambda t: ({k: shape(v) for k, v in t.items()}
+                           if isinstance(t, dict) else (t.shape, t.dtype.str))
+        if shape(saved) != shape(r5b) or int(saved["step"]) != end:
+            raise RuntimeError("the saved checkpoint is not shaped as r5b's")
+        log(f"[train] {new_dir[0]}/ckpts/{os.path.basename(ck)}: r5b's keys, "
+            f"shapes and dtypes, step {int(saved['step'])}, count "
+            f"{int(saved['opt_state']['1']['count'])}")
+
+        # ---- train to serve: that checkpoint codes a 512x512 image
+        src, coded = os.path.join(d, "serve.png"), os.path.join(d, "s.l3c")
+        back = os.path.join(d, "back.png")
+        img = bench_images()[0][0]
+        write_png(src, img)
+        date = new_dir[0].split()[0]
+        total = {}
+        counted(total, "cli.l3c enc (trained)", lambda: run_cli(
+            l3c_cli.main, [root, date, "enc", src, coded]), ENCODE, CANARY)
+        counted(total, "cli.l3c dec (trained)", lambda: run_cli(
+            l3c_cli.main, [root, date, "dec", coded, back]), DECODE, CANARY)
+        if not np.array_equal(read_png(back), img):
+            raise RuntimeError("the trained checkpoint did not code the "
+                               "image bit-exactly")
+        log(f"[train] cli.l3c enc+dec with {new_dir[0]} (step {end}): "
+            f"bit-exact, file bpsp {os.path.getsize(coded) * 8 / img.size:.6f}")
+
+        # ---- fresh initialisation, TRAIN_STEPS_FRESH steps
+        seen.update(losses=[], steps=[], starts=[])
+        vals = {}
+
+        def train(orig):
+            def run(self, *a, **k):
+                vals["before"] = self.validation_loop()
+                out_ = orig(self, *a, **k)
+                vals["after"] = self.validation_loop()
+                return out_
+            return run
+
+        torch.cuda.reset_peak_memory_stats()
+        plain["nll_plain"] = 0
+        unpatch = count_cuda_calls(dmll, ["nll_plain"], plain)
+        try:
+            with patched(Trainer, "train", train), \
+                    patched(Trainer, "train_step", step):
+                kernels.reset_launches()
+                run_cli(train_cli.main, [
+                    ms_cf, dl_cf, os.path.join(d, "fresh"), *data,
+                    "--num_itr", str(TRAIN_STEPS_FRESH), "--log_train", "10",
+                    "--log_val", "0"])
+                fresh = dict(kernels.launches)
+        finally:
+            unpatch()
+        peak = torch.cuda.max_memory_allocated()
+        steps = seen["steps"][TRAIN_WARMUP:]
+        med = statistics.median(steps) * 1e3
+        starts = seen["starts"][TRAIN_WARMUP:]
+        loop = statistics.median(b - a for a, b in zip(starts, starts[1:]))
+        log(f"[train] fresh init, {TRAIN_STEPS_FRESH} steps: validation bpsp "
+            f"{vals['before']:.4f} -> {vals['after']:.4f}; launches "
+            f"{ {k: v for k, v in fresh.items() if v} }; plain nll calls on "
+            f"CUDA tensors {plain['nll_plain']}")
+        if not vals["after"] < vals["before"] or plain["nll_plain"]:
+            raise RuntimeError("fresh training did not lower the validation "
+                               "bpsp, or ran the plain nll on the card")
+        log(f"[train] step time (batch {dl.batchsize_train} x "
+            f"{dl.crop_size}^2, full cr.cf, host clock around a synchronised "
+            f"step, median of {len(steps)} after {TRAIN_WARMUP} warm-up): "
+            f"{med:.2f} ms = {dl.batchsize_train * 1e3 / med:.1f} img/s "
+            f"(min {min(steps) * 1e3:.2f}, max {max(steps) * 1e3:.2f}) | the "
+            f"training loop, waits for the loader's batches included: median "
+            f"{loop * 1e3:.2f} ms from a step's start to the next's = "
+            f"{dl.batchsize_train / loop:.1f} img/s | peak memory "
+            f"{peak / 2 ** 30:.3f} GiB | {card}")
+        profile_step(seen["trainer"], batch, med)
+    recs = []
+    record = make_recorder(recs, resumed)
+    for args in pending:
+        record(*args)
+    return recs
+
+
+def profile_step(trainer, batch, step_ms):
+    """Device time of one train step by kind (torch.profiler): the cuDNN
+    convolutions forward and backward, K6, the optimizer, everything else
+    (elementwise, reductions, copies); the host / idle share against the
+    unprofiled step's time."""
+    from torch.profiler import ProfilerActivity, profile
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    # device-side ranges of user annotations (the optimizer's step) span
+    # kernels counted on their own: left out
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "self_device_time_total", 0) > 0
+          and not getattr(e, "is_user_annotation", False)
+          and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    # kernels are device-type events; the host op that launched a kernel
+    # carries its time again as self device time: kinds are read from the
+    # ops, K6 (launched through ctypes, under no op) from its kernels
+    kern = [e for e in ev if str(e.device_type).endswith("CUDA")]
+    ops = [e for e in ev if not str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    kinds = {"K6": sum(e.self_device_time_total for e in kern
+                       if "dmll_kernel" in e.key) / 1e3}
+    for e in ops:
+        k = e.key.lower()
+        kind = ("convolution backward (cuDNN)" if "convolution" in k
+                and "backward" in k
+                else "convolution forward (cuDNN)" if "convolution" in k
+                else "optimizer" if "foreach" in k or "rmsprop" in k
+                else "elementwise and other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    log(f"[train] profiled step: device busy {busy:.2f} ms in "
+        f"{sum(e.count for e in kern)} kernels; the unprofiled step "
+        f"{step_ms:.2f} ms, so {100 * (1 - busy / step_ms):.1f}% host / idle"
+        f" (profiled wall {wall:.1f} ms)")
+    for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"[train]   {kind:30s} {t:8.2f} ms ({100 * t / busy:.1f}%)")
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    for e in kern[:8]:
+        log(f"[train]   kernel {e.self_device_time_total / 1e3:8.2f} ms "
+            f"{e.count:4d}x  {e.key[:80]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1087,6 +1535,8 @@ def main() -> int:
     for rec in recs:
         rec["cli_launches"] = cli_counts.get(rec["name"], 0)
     phase_profile(bc, imgs, round_ms)
+    del bc
+    recs += phase_train(net, cfg, card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

@@ -1,0 +1,174 @@
+"""Training CLI.
+
+Port of `l3c_tpu/cli/train.py`:
+    python -m l3c_torch.cli.train MS_CONFIG DL_CONFIG LOG_DIR_ROOT \
+        [-p key=value ...] [--restore DATE ...] [--num_itr N] [--debug]
+        [--device cpu]
+The same flags and behaviour; the checkpoints are the JAX package's
+format, and each package restores the other's. Runs on the first CUDA
+card and raises when there is none; `--device cpu` runs the plain
+versions on the CPU. Not ported: --log_train_heavy (ROADMAP.md item 14)
+and training on more than one device (item 13); both raise.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("ms_config_p")
+    p.add_argument("dl_config_p")
+    p.add_argument("log_dir_root")
+    p.add_argument("--postfix", default=None)
+    p.add_argument("-p", "--params", action="append", default=[],
+                   help="override config: -p key=value")
+    p.add_argument("--restore", metavar="LOG_DATE", default=None,
+                   help="restore a previous experiment for training")
+    p.add_argument("--restore_continue", action="store_true",
+                   help="continue in the restored log dir")
+    p.add_argument("--restore_restart", action="store_true",
+                   help="restart at itr 0, skip optimizer state")
+    p.add_argument("--restore_itr", type=int, default=-1)
+    p.add_argument("--restore_strict", type=str, default="1",
+                   choices=("0", "1"),
+                   help="0 = partial restore: adopt matching subtrees, "
+                        "keep fresh init elsewhere")
+    p.add_argument("--num_itr", type=int, default=None,
+                   help="iterations to train (default: until killed)")
+    p.add_argument("--log_train", type=int, default=100)
+    p.add_argument("--log_val", type=int, default=500)
+    p.add_argument("--log_train_heavy", type=int, default=0,
+                   help="not ported yet: other than 0 raises")
+    p.add_argument("--keep_tmp_itr", type=int, default=250)
+    p.add_argument("--keep_every", type=int, default=10)
+    p.add_argument("--keep_tmp_last", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--debug", action="store_true",
+                   help="one train step + one val pass, then exit")
+    p.add_argument("--device", default=None,
+                   help="torch device; default: the first CUDA card "
+                        "(an error without one). 'cpu' on request")
+    flags = p.parse_args(argv)
+    if flags.log_train_heavy:
+        raise NotImplementedError(
+            "--log_train_heavy (images, histograms and figures) is not "
+            "ported yet: ROADMAP.md item 14")
+    if os.environ.get("L3C_COORDINATOR"):
+        raise NotImplementedError(
+            "training over several processes or cards is not ported yet: "
+            "ROADMAP.md item 13")
+
+    import numpy as np
+
+    from .. import config as config_mod
+    from ..data.images import ImagesCached, TrainBatches, load_image_uint8
+    from ..device import numerics_guard, resolve
+    from ..models.network import MultiscaleNetwork
+    from ..train.saver import Restorer, Saver
+    from ..train.trainer import Trainer
+    from ..utils import logdir as logdir_mod
+    from ..utils.summarizer import SafeWriter
+
+    overrides = config_mod.parse_overrides(flags.params)
+    ms_over = {k: v for k, v in overrides.items()
+               if not k.startswith("dl.")}
+    dl_over = {k[3:]: v for k, v in overrides.items()
+               if k.startswith("dl.")}
+    cfg = config_mod.load_ms_config(flags.ms_config_p, ms_over)
+    dl = config_mod.load_dl_config(flags.dl_config_p, dl_over)
+    device = resolve(flags.device)
+    numerics_guard()      # float32 convolutions (no TF32), deterministic
+
+    train_paths = ImagesCached(dl.train_imgs_glob,
+                               dl.image_cache_pkl).paths()
+    val_paths = ImagesCached(dl.val_glob, dl.image_cache_pkl,
+                             dl.val_glob_min_size).paths()
+    print(f"{len(train_paths)} train / {len(val_paths)} val images")
+    if dl.real_oversample > 1:
+        real = [q for q in train_paths
+                if not os.path.basename(q).startswith("x_synth")]
+        train_paths = train_paths + real * (dl.real_oversample - 1)
+        print(f"real_oversample={dl.real_oversample}: {len(real)} real "
+              f"tiles -> {len(train_paths)} sampled paths "
+              f"({len(real) * dl.real_oversample / len(train_paths):.0%}"
+              " real)")
+
+    batches = TrainBatches(train_paths, dl.batchsize_train, dl.crop_size,
+                           seed=flags.seed, aug_strong=dl.aug_strong)
+    try:
+        val_gen = TrainBatches(val_paths, dl.batchsize_val, dl.crop_size,
+                               seed=flags.seed + 1)
+        val_it = iter(val_gen)
+        val_batches = [next(val_it) for _ in range(dl.num_val_batches)]
+        val_gen.close()
+
+        # a fixed first validation image (center crop) keeps the
+        # summaries comparable across runs
+        fixed = dl.val_fixed_first
+        if fixed is None:
+            for cand_dir in {os.path.dirname(q) for q in val_paths[:1]}:
+                for ext in ("jpg", "png"):
+                    cand = os.path.join(cand_dir, f"fixedimg.{ext}")
+                    if os.path.isfile(cand):
+                        fixed = cand
+        if fixed and val_batches:
+            im = load_image_uint8(fixed)
+            ch, cw = val_batches[0].shape[1:3]
+            t = max(0, (im.shape[0] - ch) // 2)
+            l = max(0, (im.shape[1] - cw) // 2)
+            crop = im[t: t + ch, l: l + cw]
+            if crop.shape[:2] == (ch, cw):
+                val_batches[0] = val_batches[0].copy()
+                val_batches[0][0] = crop
+                print(f"pinned fixed first val image: {fixed}")
+
+        restore_dir = None
+        if flags.restore:
+            restore_dir = logdir_mod.find_log_dir(flags.log_dir_root,
+                                                  flags.restore)
+        if flags.restore_continue and restore_dir:
+            log_dir = restore_dir
+        else:
+            log_dir = logdir_mod.create_unique_log_dir(
+                flags.log_dir_root, [flags.ms_config_p, flags.dl_config_p],
+                postfix=[flags.postfix] if flags.postfix else None,
+                restore_dir=restore_dir)
+        print(f"log dir: {log_dir}")
+
+        sw = SafeWriter(log_dir)  # no-ops if tensorboard is unavailable
+        trainer = Trainer(cfg, dl, MultiscaleNetwork(cfg), batches,
+                          val_batches=val_batches, epoch_len=batches.epoch_len,
+                          seed=flags.seed, summary_writer=sw, device=device)
+        trainer.saver = Saver(log_dir, flags.keep_tmp_itr, flags.keep_every,
+                              flags.keep_tmp_last)
+
+        if restore_dir:
+            got = trainer.restore(Restorer(restore_dir), flags.restore_itr,
+                                  restart=flags.restore_restart,
+                                  strict=flags.restore_strict == "1")
+            print(f"restored itr {got} from {restore_dir}")
+
+        if flags.debug:
+            m = trainer.debug_step()
+            print({k: float(np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+                            .reshape(-1)[0]) for k, v in m.items()})
+            return 0
+
+        num_itr = flags.num_itr if flags.num_itr is not None else 10 ** 9
+        try:
+            trainer.train(num_itr, log_every=flags.log_train,
+                          val_every=flags.log_val)
+        except KeyboardInterrupt:
+            print("interrupted; saving final checkpoint")
+            trainer.saver.save(trainer.state_tree(), trainer.step)
+        sw.close()
+    finally:
+        batches.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,11 @@
-"""Network configuration: frozen dataclasses + the `.cf` file parser.
+"""Network and data configuration: frozen dataclasses + the `.cf` parser.
 
-The port's own copy of `l3c_tpu/config.py`'s network half (the port
+The port's own copy of `l3c_tpu/config.py` (the port
 imports nothing of `l3c_tpu`): `.cf` files are `key = python_literal`
 lines with dotted keys, `#` comments and single inheritance through a
 leading `use <parent.cf>` line; `-p key=value` overrides merge on top, and
 a key no field takes is an error. The dataclass defaults are
-`configs/ms/cr.cf`. The data (`dl`) configs wait for the training port.
+`configs/ms/cr.cf`; the data config's (`dl`) are the JAX package's.
 """
 from __future__ import annotations
 
@@ -66,8 +66,14 @@ class MsConfig:
     learned_L: bool = False
     after_q1x1: bool = True
     x4_down_in_scale0: bool = False
+    # 'float32' only: 'bfloat16' convolutions are ROADMAP.md item 15
+    compute_dtype: str = "float32"
 
     def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype = {self.compute_dtype!r}: the port computes "
+                "in float32 only; bfloat16 is ROADMAP.md item 15")
         if (self.rgb_bicubic_baseline or self.shared_across_scales
                 or self.enc.cls != "EDSRLikeEnc"):
             raise NotImplementedError(
@@ -85,6 +91,29 @@ class MsConfig:
     @property
     def padding_fac(self) -> int:
         return 2 ** self.num_scales
+
+
+@dataclasses.dataclass(frozen=True)
+class DlConfig:
+    """Data config; field names mirror configs/dl/oi.cf."""
+    batchsize_train: int = 30
+    batchsize_val: int = 30
+    crop_size: int = 128
+    max_epochs: Optional[int] = None
+    image_cache_pkl: Optional[str] = None
+    train_imgs_glob: str = ""
+    val_glob: str = ""
+    val_glob_min_size: Optional[int] = None
+    num_val_batches: int = 5
+    # this image (or <val dir>/fixedimg.{jpg,png} when None) is pinned as
+    # the first validation example, center-cropped
+    val_fixed_first: Optional[str] = None
+    # channel permutation, gamma jitter and vertical flips on top of the
+    # crop and horizontal flip (data.images._strong_aug)
+    aug_strong: bool = False
+    # sample real tiles (basename without the 'x_synth' prefix) this many
+    # times as often as synthetic ones; 1 = off
+    real_oversample: int = 1
 
 
 # --------------------------------------------------------------------- parser
@@ -157,15 +186,24 @@ def _build(cls, d: Dict[str, Any], used: set, prefix: str = ""):
 _FLAT_RENAMES = {"lr.initial": "lr_initial", "lr.schedule": "lr_schedule"}
 
 
-def ms_config_from_dict(flat: Dict[str, Any]) -> MsConfig:
-    """A flat `.cf` dict -> MsConfig; a key no field takes is an error."""
-    flat = {_FLAT_RENAMES.get(k, k): v for k, v in flat.items()}
+def _from_dict(cls, flat: Dict[str, Any], kind: str):
     used: set = set()
-    cfg = _build(MsConfig, _nested(flat), used)
+    cfg = _build(cls, _nested(flat), used)
     unused = [k for k in flat if k not in used]
     if unused:
-        raise ValueError(f"Unknown ms config keys: {sorted(unused)}")
+        raise ValueError(f"Unknown {kind} config keys: {sorted(unused)}")
     return cfg
+
+
+def ms_config_from_dict(flat: Dict[str, Any]) -> MsConfig:
+    """A flat `.cf` dict -> MsConfig; a key no field takes is an error."""
+    return _from_dict(MsConfig, {_FLAT_RENAMES.get(k, k): v
+                                 for k, v in flat.items()}, "ms")
+
+
+def dl_config_from_dict(flat: Dict[str, Any]) -> DlConfig:
+    """A flat `.cf` dict -> DlConfig; a key no field takes is an error."""
+    return _from_dict(DlConfig, flat, "dl")
 
 
 def load_ms_config(path: str, overrides: Optional[Dict[str, Any]] = None
@@ -173,6 +211,13 @@ def load_ms_config(path: str, overrides: Optional[Dict[str, Any]] = None
     flat = parse_cf(path)
     flat.update(overrides or {})
     return ms_config_from_dict(flat)
+
+
+def load_dl_config(path: str, overrides: Optional[Dict[str, Any]] = None
+                   ) -> DlConfig:
+    flat = parse_cf(path)
+    flat.update(overrides or {})
+    return dl_config_from_dict(flat)
 
 
 def parse_overrides(specs) -> Dict[str, Any]:

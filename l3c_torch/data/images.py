@@ -1,8 +1,11 @@
-"""Image files for the tester and the codec CLIs: listings, testsets, PNG.
+"""Image files for training, the tester and the codec CLIs: listings,
+training batches, testsets, PNG.
 
-Port of the serving half of `l3c_tpu/data/images.py` (`iter_images_in`,
-`load_image_uint8`, `Testset`); the training loaders wait for the training
-port. The JAX package reads images with Pillow; the port depends on
+Port of `l3c_tpu/data/images.py` (`iter_images_in`, `ImagesCached`,
+`load_image_uint8`, `random_crop_flip`, `TrainBatches`, `Testset`). The
+training batches are the JAX package's bit for bit for the same paths,
+seed and flags: both draw from one np.random.RandomState in the same
+order. The JAX package reads images with Pillow; the port depends on
 torch, numpy and the standard library only, so it reads and writes PNG
 itself (zlib + numpy): 8 bits per sample, colour types 0 (grey), 2 (RGB),
 3 (palette) and 6 (RGBA), non-interlaced, all five row filters. Anything
@@ -14,9 +17,12 @@ from __future__ import annotations
 
 import glob
 import os
+import pickle
+import queue
 import struct
+import threading
 import zlib
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -185,6 +191,136 @@ def write_png(path: str, img: np.ndarray) -> None:
 def load_image_uint8(p: str) -> np.ndarray:
     """(H,W,3) uint8 RGB; non-RGB PNGs are converted (RGBA -> drop alpha)."""
     return read_png(p)
+
+
+class ImagesCached:
+    """Pickle-cached recursive file listing with min-size filtering."""
+
+    def __init__(self, spec: str, cache_pkl: Optional[str] = None,
+                 min_size: Optional[int] = None):
+        self.spec = spec
+        self.cache_pkl = cache_pkl
+        self.min_size = min_size
+
+    def _cache_key(self):
+        return (self.spec, self.min_size)
+
+    def paths(self, update_cache: bool = False) -> List[str]:
+        cache = {}
+        if self.cache_pkl and os.path.isfile(self.cache_pkl):
+            # the cache is this program's own file, next to the data
+            with open(self.cache_pkl, "rb") as f:
+                cache = pickle.load(f)
+            if not update_cache and self._cache_key() in cache:
+                return cache[self._cache_key()]
+        ps = iter_images_in(self.spec)
+        if self.min_size:
+            ps = [p for p in ps if min(image_size(p)) >= self.min_size]
+        if self.cache_pkl:
+            cache[self._cache_key()] = ps
+            tmp = self.cache_pkl + ".write"
+            with open(tmp, "wb") as f:
+                pickle.dump(cache, f)
+            os.replace(tmp, self.cache_pkl)
+        return ps
+
+
+def random_crop_flip(img: np.ndarray, crop: int,
+                     rng: np.random.RandomState,
+                     strong: bool = False) -> np.ndarray:
+    """A random crop x crop window (images smaller than the crop are
+    reflection-padded first), flipped left-right with probability 1/2."""
+    h, w = img.shape[:2]
+    if h < crop or w < crop:
+        img = np.pad(img, ((0, max(0, crop - h)), (0, max(0, crop - w)),
+                           (0, 0)), mode="reflect")
+        h, w = img.shape[:2]
+    y = rng.randint(0, h - crop + 1)
+    x = rng.randint(0, w - crop + 1)
+    out = img[y:y + crop, x:x + crop]
+    if rng.rand() < 0.5:
+        out = out[:, ::-1]
+    if strong:
+        out = _strong_aug(out, rng)
+    return out
+
+
+def _strong_aug(out: np.ndarray, rng: np.random.RandomState
+                ) -> np.ndarray:
+    """dl.aug_strong, for small corpora: a channel permutation, a gamma
+    jitter (through a uint8 lookup table) and vertical flips, each with
+    its probability."""
+    if rng.rand() < 0.5:
+        out = out[:, :, rng.permutation(3)]
+    if rng.rand() < 0.5:
+        g = np.float32(rng.uniform(0.7, 1.4))
+        lut = (np.power(np.arange(256, dtype=np.float32) / 255.0, g)
+               * 255.0 + 0.5).astype(np.uint8)
+        out = lut[out]
+    if rng.rand() < 0.3:
+        out = out[::-1]
+    return np.ascontiguousarray(out)
+
+
+class TrainBatches:
+    """Infinite iterator of (B, crop, crop, 3) uint8 batches: random
+    images (with replacement), random crops and flips. One background
+    thread prefetches the next batches while the card computes; `close()`
+    stops it."""
+
+    def __init__(self, paths: Sequence[str], batch_size: int,
+                 crop_size: int, seed: int = 0, prefetch: int = 2,
+                 aug_strong: bool = False):
+        if not paths:
+            raise ValueError("no training images found")
+        self.paths = list(paths)
+        self.batch_size = batch_size
+        self.crop_size = crop_size
+        self.seed = seed
+        self.aug_strong = aug_strong
+        self._q: "queue.Queue[np.ndarray]" = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    @property
+    def epoch_len(self) -> int:
+        return max(1, len(self.paths) // self.batch_size)
+
+    def _worker(self):
+        rng = np.random.RandomState(self.seed)
+        while not self._stop.is_set():
+            try:
+                idx = rng.randint(0, len(self.paths), size=self.batch_size)
+                batch = np.stack([
+                    random_crop_flip(load_image_uint8(self.paths[i]),
+                                     self.crop_size, rng,
+                                     strong=self.aug_strong)
+                    for i in idx])
+            except Exception as e:   # handed to the consumer, which raises
+                batch = e
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(batch, Exception):
+                return
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            batch = self._q.get()
+            if isinstance(batch, Exception):
+                raise RuntimeError("reading a training batch failed") \
+                    from batch
+            yield batch
+
+    def close(self):
+        """Stop the prefetch thread and wait for it (at most the batch it is
+        reading), so that it holds no interpreter time after the call."""
+        self._stop.set()
+        self._thread.join()
 
 
 class Testset:

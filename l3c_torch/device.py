@@ -38,7 +38,8 @@ def numerics_guard() -> None:
     codec/bitcoding2.py). cuDNN convolutions default to TF32 and to
     benchmark-picked, possibly nondeterministic algorithms; either would
     let a decode diverge from its encode without raising. So: full float32
-    everywhere, deterministic algorithms, no autotuning."""
+    everywhere, deterministic algorithms, no autotuning. Training sets the
+    same (float32 is its compute type; runs repeat)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True

@@ -13,6 +13,10 @@ scale channel autoregression through sigmoid'd lambda coefficients:
 Layout is NHWC(+K trailing), as in the JAX reference: the network output
 `l` (N,H,W,Kp) has channel index kp = ((p * C) + c) * K + k with
 p in {pi, mu, log_s[, lambda]}.
+
+`nll` dispatches on the device: a CUDA tensor goes through the K6 kernels
+(csrc/dmll.cu, forward and backward, as one autograd.Function), a CPU
+tensor through `nll_plain`, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -83,7 +87,9 @@ def extract_params(spec: DMLLSpec, l: torch.Tensor, C: int,
     lr = _reshape_l(spec, l, C)
     logit_pis = lr[..., 0, :, :]
     means = lr[..., 1, :, :]
-    log_scales = torch.clamp(lr[..., 2, :, :], min=LOG_SCALES_MIN)
+    # torch.maximum, not clamp: half the gradient at an exact tie, as
+    # jnp.maximum (and K6) pass it
+    log_scales = torch.maximum(lr[..., 2, :, :], _const(LOG_SCALES_MIN, l))
     if spec.rgb_scale and x is not None:
         assert C == 3, "lambda coefficients only defined for RGB (C=3)"
         lam = torch.sigmoid(lr[..., 3, :, :])
@@ -97,13 +103,57 @@ def extract_params(spec: DMLLSpec, l: torch.Tensor, C: int,
     return logit_pis, means, log_scales
 
 
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     # log(1 + e^x) without torch's threshold shortcut (jax.nn.softplus)
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def nll(spec: DMLLSpec, x: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
-    """Per-element negative log-likelihood in nats, (N,H,W,C):
+    """Per-element negative log-likelihood in nats, (N,H,W,C), of the
+    target x (N,H,W,C) under the mixture l (N,H,W,Kp); differentiable
+    w.r.t. both. CUDA tensors run K6 (forward and backward), CPU tensors
+    `nll_plain`."""
+    if l.is_cuda:
+        return _NllK6.apply(spec, x, l)
+    return nll_plain(spec, x, l)
+
+
+class _NllK6(torch.autograd.Function):
+    """nll through the K6 kernels: l is read as the NCHW planes the
+    classifier wrote (no copy when l is their NHWC view, as the training
+    forward hands it), and grad_l comes back as the same view."""
+
+    @staticmethod
+    def forward(ctx, spec: DMLLSpec, x: torch.Tensor, l: torch.Tensor):
+        from ..ops import kernels
+        l_nchw = l.permute(0, 3, 1, 2).contiguous()
+        x = x.contiguous()
+        ctx.spec = spec
+        ctx.save_for_backward(l_nchw, x)
+        return kernels.dmll_nll(l_nchw, x, spec.rgb_scale,
+                                *_k6_consts(spec))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        from ..ops import kernels
+        l_nchw, x = ctx.saved_tensors
+        gl, gx = kernels.dmll_nll_grad(l_nchw, x, g.contiguous(),
+                                       ctx.spec.rgb_scale,
+                                       *_k6_consts(ctx.spec))
+        return None, gx, gl.permute(0, 2, 3, 1)
+
+
+def _k6_consts(spec: DMLLSpec) -> Tuple[float, float, float]:
+    return spec.bin_width / 2.0, spec.x_lower_bound, spec.x_upper_bound
+
+
+def nll_plain(spec: DMLLSpec, x: torch.Tensor, l: torch.Tensor
+              ) -> torch.Tensor:
+    """The plain PyTorch version of nll (per-element, nats, (N,H,W,C)):
       - cdf_delta  = sig(s'(x-mu+b/2)) - sig(s'(x-mu-b/2))
       - x < x_min+eps  -> log cdf_plus          (open lower tail)
       - x > x_max-eps  -> log(1 - cdf_min)      (open upper tail)
@@ -120,7 +170,7 @@ def nll(spec: DMLLSpec, x: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
     log_cdf_plus = plus_in - _softplus(plus_in)
     log_one_minus_cdf_min = -_softplus(min_in)
-    out_a = torch.log(torch.clamp(cdf_delta, min=1e-12))
+    out_a = torch.log(torch.maximum(cdf_delta, _const(1e-12, cdf_delta)))
     out_b = torch.where(xk > spec.x_upper_bound, log_one_minus_cdf_min, out_a)
     log_probs = torch.where(xk < spec.x_lower_bound, log_cdf_plus, out_b)
     log_weighted = log_probs + torch.log_softmax(logit_pis, dim=-1)

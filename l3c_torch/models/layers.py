@@ -19,10 +19,25 @@ RGB_MEAN = np.asarray((0.4488, 0.4371, 0.4040), np.float32)
 
 def conv(cin: int, cout: int, kernel_size: int, stride: int = 1,
          rate: int = 1) -> nn.Conv2d:
-    """default_conv: same-pad (dilation-aware), OIHW weights, with bias."""
+    """default_conv: same-pad (dilation-aware), OIHW weights, with bias.
+    Initialised as the JAX package's flax convs: weights U(+-1/sqrt(fan_in))
+    (PyTorch's default, = variance_scaling(1/3, fan_in, uniform)), biases
+    zero (flax's default; not PyTorch's U(+-1/sqrt(fan_in)))."""
     pad = kernel_size // 2 if rate == 1 else rate
-    return nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
-                     dilation=rate)
+    c = nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
+                  dilation=rate)
+    nn.init.zeros_(c.bias)
+    return c
+
+
+def init_conv(c: nn.Conv2d, generator: torch.Generator) -> None:
+    """Draw c's weights anew from `generator` (U(+-1/sqrt(fan_in))) and
+    zero its bias, in place."""
+    fan_in = c.weight.shape[1] * c.weight.shape[2] * c.weight.shape[3]
+    bound = 1.0 / float(np.sqrt(fan_in))
+    with torch.no_grad():
+        c.weight.uniform_(-bound, bound, generator=generator)
+        c.bias.zero_()
 
 
 class ResBlock(nn.Module):

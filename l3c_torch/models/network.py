@@ -41,11 +41,16 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 class EncOut(NamedTuple):
-    """Per-scale encoder result. bn_q/syms NHWC; F is the pre-quantization
-    feature in NCHW (internal: only the next scale's head reads it)."""
+    """Per-scale encoder result. bn (the straight-through bottleneck:
+    forward hard, gradient soft; None outside training), bn_q, syms and
+    raw (the 1x1 conv's output before quantization) are NHWC; F is the
+    pre-quantization feature in NCHW (internal: only the next scale's head
+    reads it)."""
+    bn: Optional[torch.Tensor]
     bn_q: torch.Tensor
     syms: torch.Tensor
     F: torch.Tensor
+    raw: torch.Tensor
 
 
 class Out(NamedTuple):
@@ -69,19 +74,22 @@ class EDSRLikeEnc(nn.Module):
             self.add_module(f"block{i}", layers.ResBlock(c.Cf, c.kernel_size))
         self.body_out = layers.conv(c.Cf, c.Cf, c.kernel_size)
         self.to_q = layers.conv(c.Cf, c.q.C, 1)
+        self.sigma = c.q.sigma
         lo, hi = c.q.levels_range
         self.register_buffer(
             "levels", torch.from_numpy(grids.levels(lo, hi, c.q.L)),
             persistent=False)
 
-    def forward(self, x) -> EncOut:
+    def forward(self, x, train: bool = False) -> EncOut:
         x = self.down(x)
         r = x
         for i in range(self.n_blocks):
             r = getattr(self, f"block{i}")(r)
         F = x + self.body_out(r)
-        q = quantizer.quantize(nhwc(self.to_q(F)), self.levels)
-        return EncOut(bn_q=q.bn_q, syms=q.syms, F=F)
+        raw = nhwc(self.to_q(F))
+        q = quantizer.quantize(raw, self.levels,
+                               self.sigma if train else None)
+        return EncOut(bn=q.bn, bn_q=q.bn_q, syms=q.syms, F=F, raw=raw)
 
 
 class EDSRDec(nn.Module):
@@ -152,14 +160,17 @@ class MultiscaleNetwork(nn.Module):
     def _m(self, kind: str, scale: int) -> nn.Module:
         return getattr(self, f"{kind}{scale}")
 
-    def enc_forward(self, x: torch.Tensor) -> List[EncOut]:
-        """All encoders fine->coarse; `x` is the mean-subtracted NHWC image."""
+    def enc_forward(self, x: torch.Tensor, train: bool = False
+                    ) -> List[EncOut]:
+        """All encoders fine->coarse; `x` is the mean-subtracted NHWC image.
+        With `train` each EncOut carries the straight-through `bn`."""
         enc_outs = []
         inp = nchw(x)
         for scale in range(self.cfg.num_scales):
-            eo = self._m("enc", scale)(self._m("head", scale)(inp))
+            eo = self._m("enc", scale)(self._m("head", scale)(inp), train)
             enc_outs.append(eo)
-            inp = eo.F if self.cfg.enc.feed_F else nchw(eo.bn_q)
+            inp = (eo.F if self.cfg.enc.feed_F else
+                   nchw(eo.bn if train else eo.bn_q))
         return enc_outs
 
     def dec_forward(self, dec_inputs: List[torch.Tensor]
@@ -175,15 +186,28 @@ class MultiscaleNetwork(nn.Module):
                                                    fuse))
         return dec_Fs
 
-    def forward(self, x: torch.Tensor) -> Out:
-        """Full inference forward. `x`: NHWC float image in [0, 255]."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> Out:
+        """Full forward. `x`: NHWC float image in [0, 255]. With `train`
+        the decoders read, and Out.bn holds, the straight-through
+        bottlenecks (else the hard ones), and Out.P holds NHWC views of
+        the classifier's NCHW output (the loss's K6 reads those planes
+        where they lie; inference gets contiguous NHWC copies)."""
         img_syms = torch.round(x).to(torch.int64)
-        enc_outs = self.enc_forward(layers.sub_rgb_mean(x))
-        dec_Fs = self.dec_forward([eo.bn_q for eo in enc_outs])
-        Ps = tuple(nhwc(self._m("clf", s)(F)) for s, F in enumerate(dec_Fs))
+        enc_outs = self.enc_forward(layers.sub_rgb_mean(x), train)
+        bns = [eo.bn if train else eo.bn_q for eo in enc_outs]
+        dec_Fs = self.dec_forward(bns)
+        ls = [self._m("clf", s)(F) for s, F in enumerate(dec_Fs)]
+        Ps = tuple(l.permute(0, 2, 3, 1) if train else nhwc(l) for l in ls)
         S = (img_syms,) + tuple(eo.syms for eo in enc_outs)
-        bn = (img_syms.to(torch.float32),) + tuple(eo.bn_q for eo in enc_outs)
+        bn = (img_syms.to(torch.float32),) + tuple(bns)
         return Out(S=S, bn=bn, P=Ps)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw every conv's weights from `generator` with the JAX package's
+        initializers (U(+-1/sqrt(fan_in)), zero biases), in place."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                layers.init_conv(m, generator)
 
     def get_P_nchw(self, scale: int, bn_q: torch.Tensor,
                    dec_F_prev: Optional[torch.Tensor] = None):

@@ -1,13 +1,13 @@
-"""Read flax-msgpack checkpoints without msgpack, flax or JAX.
+"""Read and write flax-msgpack checkpoints without msgpack, flax or JAX.
 
 The JAX package saves `{'params', 'opt_state', 'step'}` with flax's
 msgpack serializer (l3c_tpu/train/saver.py). Arrays are msgpack ext type 1
 whose payload is itself msgpack: `(shape, dtype name, raw C-order bytes)`.
-This module is a small msgpack decoder for exactly the types flax writes
-(nil, bool, int, float, str, bin, array, map, ext), plus the mapping of a
-flax parameter tree onto `MultiscaleNetwork.state_dict()` (HWIO -> OIHW)
-and the choice of a log dir's checkpoint for a requested iteration
-(`Restorer.restore_params_only` of l3c_tpu/train/saver.py).
+This module is a small msgpack decoder and encoder for exactly the types
+flax writes (nil, bool, int, float, str, bin, array, map, ext), plus the
+mapping between a flax parameter tree and `MultiscaleNetwork.state_dict()`
+(HWIO <-> OIHW) and the choice of a log dir's checkpoint for a requested
+iteration (`Restorer.restore_params_only` of l3c_tpu/train/saver.py).
 """
 from __future__ import annotations
 
@@ -117,6 +117,89 @@ def unpackb(buf: bytes) -> Any:
     return out
 
 
+def _pack_len(out: List[bytes], n: int, small: Tuple[int, int],
+              codes: Tuple[int, int, int]) -> None:
+    """The header of a str / bin / array / map / ext of length n: the fix
+    form (small = (base, limit)) where it fits, else 8, 16 or 32 bits."""
+    base, limit = small
+    if n < limit:
+        out.append(struct.pack(">B", base | n))
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"),
+                              (1 << 8, 1 << 16, 1 << 32)):
+        if code and n < top:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _pack(out: List[bytes], v: Any) -> None:
+    if v is None:
+        out.append(b"\xc0")
+    elif isinstance(v, (bool, np.bool_)):
+        out.append(b"\xc3" if v else b"\xc2")
+    elif isinstance(v, int):
+        # the smallest form, as msgpack's packer chooses it
+        if 0 <= v < 0x80 or -32 <= v < 0:
+            out.append(struct.pack(">b" if v < 0 else ">B", v))
+            return
+        forms = ((0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16),
+                 (0xCE, ">I", 0, 1 << 32), (0xCF, ">Q", 0, 1 << 64))
+        if v < 0:
+            forms = ((0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
+                     (0xD2, ">i", -(1 << 31), 0), (0xD3, ">q", -(1 << 63), 0))
+        for code, fmt, lo, hi in forms:
+            if lo <= v < hi:
+                out.append(struct.pack(">B", code) + struct.pack(fmt, v))
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    elif isinstance(v, str):
+        raw = v.encode("utf-8")
+        _pack_len(out, len(raw), (0xA0, 32), (0xD9, 0xDA, 0xDB))
+        out.append(raw)
+    elif isinstance(v, bytes):
+        _pack_len(out, len(v), (0xC4, 0), (0xC4, 0xC5, 0xC6))
+        out.append(v)
+    elif isinstance(v, (list, tuple)):
+        _pack_len(out, len(v), (0x90, 16), (0, 0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, Mapping):
+        # keys sorted, as a tree that went through JAX's tree functions
+        # reaches flax's serializer
+        _pack_len(out, len(v), (0x80, 16), (0, 0xDE, 0xDF))
+        for k in sorted(v, key=str):
+            _pack(out, str(k))
+            _pack(out, v[k])
+    elif isinstance(v, (np.ndarray, np.generic)):
+        # flax's ndarray extension: (shape, dtype name, C-order bytes)
+        arr = np.asarray(v)
+        payload = packb([list(arr.shape), arr.dtype.name,
+                         np.ascontiguousarray(arr).astype(
+                             arr.dtype.newbyteorder("<")).tobytes()])
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixext:
+            out.append(struct.pack(">B", fixext[len(payload)]))
+        else:
+            _pack_len(out, len(payload), (0, 0), (0xC7, 0xC8, 0xC9))
+        out.append(struct.pack(">b", _EXT_NDARRAY) + payload)
+    else:
+        raise TypeError(f"cannot msgpack {type(v).__name__}")
+
+
+def packb(v: Any) -> bytes:
+    """Encode `v` (nested dicts / lists of numpy arrays, ints, floats,
+    strings, bytes, None) as flax's msgpack serializer does: arrays and
+    numpy scalars as ext type 1, dict keys as sorted strings; a
+    checkpoint's tree comes out byte for byte as the JAX package writes
+    it."""
+    out: List[bytes] = []
+    _pack(out, v)
+    return b"".join(out)
+
+
 def read_checkpoint(path: str) -> Dict[str, Any]:
     """A flax msgpack checkpoint file -> nested dict of numpy arrays."""
     with open(path, "rb") as f:
@@ -152,6 +235,26 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Any]:
+    """MultiscaleNetwork state_dict (or any tensors keyed by its names,
+    such as an optimizer's per-parameter state) -> the flax parameter tree
+    {'params': {...}} with numpy leaves: the inverse of params_from_jax
+    (`weight` -> `kernel`, OIHW -> HWIO; `bias` stays)."""
+    tree: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        v = t.detach().cpu().numpy()
+        if name.endswith(".weight"):
+            name = name[:-len("weight")] + "kernel"
+            v = v.transpose(2, 3, 1, 0)
+        *path, leaf = name.split(".")
+        cur = tree
+        for k in path:
+            cur = cur.setdefault(k, {})
+        cur[leaf] = np.ascontiguousarray(v)
+    return {"params": tree}
+
+
 def load_network_weights(net: torch.nn.Module, path: str) -> int:
     """Load a flax checkpoint file's params into `net`; returns its step."""
     ckpt = read_checkpoint(path)
@@ -173,16 +276,22 @@ def list_ckpts(log_dir: str) -> List[Tuple[int, str]]:
                   for m, name in found if m)
 
 
-def restore_params_only(log_dir: str, itr: int = -1
-                        ) -> Tuple[int, Dict[str, torch.Tensor]]:
-    """For eval and the codec: (iteration, MultiscaleNetwork state_dict) of
-    the checkpoint for `itr` under <log_dir>/ckpts: -1 is the newest, else
-    the closest one <= itr (the earliest when all are later)."""
+def ckpt_for_itr(log_dir: str, itr: int = -1) -> Tuple[int, str]:
+    """(iteration, path) of the checkpoint for `itr` under <log_dir>/ckpts:
+    -1 is the newest, else the closest one <= itr (the earliest when all
+    are later)."""
     ckpts = list_ckpts(log_dir)
     if not ckpts:
         raise FileNotFoundError(
             f"no checkpoints in {os.path.join(log_dir, 'ckpts')}")
     at_most = [c for c in ckpts if c[0] <= itr]
-    got_itr, path = (ckpts[-1] if itr == -1 else
-                     at_most[-1] if at_most else ckpts[0])
+    return (ckpts[-1] if itr == -1 else
+            at_most[-1] if at_most else ckpts[0])
+
+
+def restore_params_only(log_dir: str, itr: int = -1
+                        ) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """For eval and the codec: (iteration, MultiscaleNetwork state_dict) of
+    the checkpoint ckpt_for_itr picks."""
+    got_itr, path = ckpt_for_itr(log_dir, itr)
     return got_itr, params_from_jax(read_checkpoint(path)["params"])

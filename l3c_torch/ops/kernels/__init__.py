@@ -6,8 +6,8 @@ the launch was refused, and adds one to its entry of `launches`. Nothing
 here runs at import: the libraries are built at first launch
 (build.py). The dispatching wrappers that CPU tensors route to the plain
 versions are `float_cdf.mixture_cdf_q` / `fine_cdf_q`, the channel-level
-coders of `gpu_coder` (`encode_*` / `decode_*`) and the codec's
-`bitcoding2.pack_int`.
+coders of `gpu_coder` (`encode_*` / `decode_*`), the codec's
+`bitcoding2.pack_int` and the mixture loss `models/dmll.nll`.
 
 | kernel         | source             | replaces (TPU)                        |
 | mixture_cdf_q  | csrc/float_cdf.cu  | tools/pallas_cdf.py:48 (Pallas)       |
@@ -26,6 +26,9 @@ coders of `gpu_coder` (`encode_*` / `decode_*`) and the codec's
 |                |                    | + codec/bitcoding2.py:344/:361 rows   |
 | pack_int       | csrc/pack.cu       | l3c_tpu/ops/int_coder.py:259 (XLA, in |
 |                |                    | get_P, codec/bitcoding2.py:279)       |
+| dmll_nll       | csrc/dmll.cu       | l3c_tpu/models/dmll.py:126 (XLA, in   |
+| dmll_nll_grad  |                    | the train step, train/trainer.py:113) |
+|                |                    | with its VJP; one thread a pixel      |
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import torch
 from . import build
 
 KERNELS = ("mixture_cdf_q", "fine_cdf_q", "rans_encode", "rans_decode",
-           "pack_int")
+           "pack_int", "dmll_nll", "dmll_nll_grad")
 
 # kernel name -> launches since the last reset (read by chip_smoke.py to
 # show the codec path went through each kernel)
@@ -269,3 +272,57 @@ def rans_encode(mode: str, syms: torch.Tensor, n: int, T: int, L: int,
                 ENC_MODES[mode], K, N if mode != "uniform" else Ns, n, T,
                 lanes, F, L)
     return words, lengths
+
+
+def _dmll_args(kernel: str, l: torch.Tensor, x: torch.Tensor, lam: bool
+               ) -> Tuple[int, int, int, int]:
+    """Check K6's inputs; (N, HW, C, K)."""
+    _check(l, "l", torch.float32, 4)
+    _check(x, "x", torch.float32, 4)
+    N, Kp, H, W = l.shape
+    C = x.shape[3]
+    groups = 4 if lam else 3
+    K = Kp // (groups * C)
+    if x.shape[:3] != (N, H, W) or (lam and C != 3):
+        raise ValueError(f"{kernel}: l {tuple(l.shape)} and x "
+                         f"{tuple(x.shape)} do not match")
+    if K * groups * C != Kp or not 1 <= K <= MAX_K or N * H * W < 1:
+        raise ValueError(f"{kernel}: {Kp} planes are not {groups} groups "
+                         f"of C={C} channels with 1..{MAX_K} components")
+    return N, H * W, C, K
+
+
+def _dmll_consts(half_bin: float, lower: float, upper: float):
+    return tuple(float(np.float32(v)) for v in (half_bin, lower, upper))
+
+
+def dmll_nll(l: torch.Tensor, x: torch.Tensor, lam: bool, half_bin: float,
+             lower: float, upper: float) -> torch.Tensor:
+    """K6 forward: the classifier's output l (N, Kp, H, W) f32 NCHW and the
+    target x (N, H, W, C) f32 -> per-element mixture NLL (N, H, W, C).
+    lam: the RGB scale's lambda groups (C = 3); half_bin, lower, upper:
+    half the spec's bin width and its open-tail thresholds."""
+    N, HW, C, K = _dmll_args("dmll_nll", l, x, lam)
+    out = torch.empty(x.shape, dtype=torch.float32, device=l.device)
+    _launch("dmll", "l3c_dmll_nll", "dmll_nll", l.data_ptr(), x.data_ptr(),
+            out.data_ptr(), N, HW, C, K, int(lam),
+            *_dmll_consts(half_bin, lower, upper))
+    return out
+
+
+def dmll_nll_grad(l: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
+                  lam: bool, half_bin: float, lower: float, upper: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 backward: l, x as dmll_nll takes them and g (N, H, W, C) the
+    gradient of its output -> (grad_l in l's layout, grad_x)."""
+    N, HW, C, K = _dmll_args("dmll_nll_grad", l, x, lam)
+    _check(g, "g", torch.float32, 4)
+    if g.shape != x.shape:
+        raise ValueError(f"dmll_nll_grad: g {tuple(g.shape)} is not "
+                         f"x's {tuple(x.shape)}")
+    gl = torch.empty_like(l)
+    gx = torch.empty_like(x)
+    _launch("dmll", "l3c_dmll_nll_grad", "dmll_nll_grad", l.data_ptr(),
+            x.data_ptr(), g.data_ptr(), gl.data_ptr(), gx.data_ptr(), N, HW,
+            C, K, int(lam), *_dmll_consts(half_bin, lower, upper))
+    return gl, gx

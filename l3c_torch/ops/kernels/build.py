@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
               # exact products: float rows round where the plain versions do
               "-fmad=false", "-Xptxas", "-v")
 
-SOURCES = ("float_cdf", "rans", "pack")    # csrc/<name>.cu
+SOURCES = ("float_cdf", "rans", "pack", "dmll")    # csrc/<name>.cu
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float}
 # every launcher returns its cudaError_t as an int

@@ -1,0 +1,212 @@
+"""Training runtime: the train and eval steps, the loop, validation and
+checkpoints.
+
+Port of `l3c_tpu/train/trainer.py`. One train step is the forward with
+the straight-through bottlenecks, the loss (blueprint.compute_loss, whose
+mixture NLL runs through K6 on the card, forward and backward), the
+backward, the optimizer update at the schedule's lr, and the metrics
+(loss_bpsp, bpsp_total, scale_bpsps, grad_norm, lr). The loop is
+epochless: the schedule is a function of the step, so a restored run
+needs no replay. Validation runs over fixed batches; checkpoints follow
+the keep policy of train/saver.py, and a run whose length is no multiple
+of keep_tmp_itr saves its last state too. Data parallelism and the heavy
+summaries are not ported (ROADMAP.md items 13 and 14).
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from .. import blueprint
+from ..config import DlConfig, MsConfig
+from ..device import DeviceLike, resolve
+from ..models.network import MultiscaleNetwork
+from ..models.weights import params_from_jax, params_to_jax
+from . import optim as optim_mod
+from . import schedule as schedule_mod
+from .saver import Saver
+
+
+class Values:
+    """Console metric line."""
+
+    @staticmethod
+    def format(step: int, metrics: Dict, img_per_s: float) -> str:
+        s = (f"{step:8d} loss={float(metrics['loss_bpsp']):.4f} "
+             f"bpsp={float(metrics['bpsp_total']):.4f} ")
+        s += "scales=[" + " ".join(
+            f"{float(b):.3f}" for b in metrics["scale_bpsps"].tolist()
+        ) + "] "
+        s += (f"gnorm={float(metrics['grad_norm']):.2f} "
+              f"lr={float(metrics['lr']):.2e} {img_per_s:.1f} img/s")
+        return s
+
+
+def grad_norm(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
+    """sqrt of the sum of all gradients' squares (optax.global_norm)."""
+    norms = [torch.linalg.vector_norm(p.grad) for p in params
+             if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class Trainer:
+    def __init__(self, cfg: MsConfig, dl_cfg: DlConfig,
+                 net: MultiscaleNetwork,
+                 train_batches: Iterable[np.ndarray],
+                 val_batches: Optional[list] = None,
+                 out_dir: Optional[str] = None,
+                 epoch_len: Optional[int] = None, seed: int = 0,
+                 summary_writer=None, device: DeviceLike = None):
+        self.cfg, self.dl_cfg = cfg, dl_cfg
+        self.device = resolve(device)
+        net.init_weights(torch.Generator().manual_seed(seed))
+        self.net = net.to(self.device)
+        self.train_batches = train_batches
+        self.val_batches = val_batches or []
+        self.epoch_len = epoch_len
+        self.summary_writer = summary_writer
+        self.lr_fn = schedule_mod.from_spec(cfg.lr_schedule, cfg.lr_initial,
+                                            epoch_len)
+        self.named = dict(self.net.named_parameters())
+        self.optimizer = optim_mod.make_optimizer(cfg, self.named.values())
+        self.count = 0   # optimizer updates: the schedule's step
+        self.step = 0
+        self.saver = Saver(out_dir) if out_dir else None
+        self.start_itr = 0
+
+    # ------------------------------------------------------------ state
+
+    def state_tree(self) -> Dict[str, Any]:
+        """{'params', 'opt_state', 'step'} as the JAX package's train state
+        (numpy leaves): what a checkpoint holds."""
+        return {"params": params_to_jax(self.net.state_dict()),
+                "opt_state": optim_mod.state_tree(
+                    self.cfg, self.optimizer, self.named, self.count),
+                "step": np.asarray(self.step, np.int32)}
+
+    def load_state_tree(self, state: Dict[str, Any]) -> None:
+        self.net.load_state_dict(params_from_jax(state["params"]),
+                                 strict=True)
+        self.count = optim_mod.load_state_tree(
+            self.cfg, self.optimizer, self.named, state["opt_state"])
+        self.step = int(np.asarray(state["step"]))
+
+    def restore(self, restorer, itr: int = -1, restart: bool = False,
+                strict: bool = True) -> int:
+        """Load a checkpoint of `restorer`; with `restart` keep only its
+        params (fresh optimizer state, step 0)."""
+        template = self.state_tree()
+        got_itr, state = restorer.restore(template, itr, strict=strict)
+        if restart:
+            state["opt_state"] = template["opt_state"]
+            state["step"] = np.zeros((), np.int32)
+            got_itr = 0
+        self.load_state_tree(state)
+        self.start_itr = int(got_itr)
+        return got_itr
+
+    # ------------------------------------------------------------ steps
+
+    def _place(self, batch: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(np.ascontiguousarray(batch))
+        if self.device.type == "cuda":
+            # pinned: the copy does not wait for the card to go idle
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        return x.to(self.device).float()
+
+    def train_step(self, batch: np.ndarray) -> Dict[str, Any]:
+        """One update on a (B, H, W, 3) uint8 batch; metrics stay on the
+        device (reading them waits for it)."""
+        x = self._place(batch)
+        out = self.net(x, train=True)
+        loss = blueprint.compute_loss(self.cfg, out)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.loss_pc.backward()
+        gnorm = grad_norm(self.named.values())
+        optim_mod.set_lr(self.optimizer, self.lr_fn(self.count))
+        self.optimizer.step()
+        metrics = {
+            "loss_bpsp": loss.loss_pc.detach(),
+            "bpsp_total": blueprint.total_bpsp(loss).detach(),
+            # the uniform tail is a Python float: filled on the device, no
+            # copy that would wait for it
+            "scale_bpsps": torch.stack([
+                b.detach() if torch.is_tensor(b) else
+                torch.full((), b, device=self.device)
+                for b in loss.nonrecursive_bpsps]),
+            "grad_norm": gnorm.detach(),
+            "lr": self.lr_fn(self.step),
+        }
+        self.count += 1
+        self.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def eval_bpsp(self, batch: np.ndarray) -> float:
+        out = self.net(self._place(batch), train=False)
+        return float(blueprint.total_bpsp(
+            blueprint.compute_loss(self.cfg, out)))
+
+    def validation_loop(self) -> float:
+        return float(np.mean([self.eval_bpsp(b) for b in self.val_batches]))
+
+    def debug_step(self) -> Dict[str, Any]:
+        """One train step + one val pass (train.py --debug)."""
+        metrics = self.train_step(next(iter(self.train_batches)))
+        if self.val_batches:
+            metrics["val_bpsp"] = self.validation_loop()
+        return metrics
+
+    # ------------------------------------------------------------- loop
+
+    def train(self, num_itr: int, log_every: int = 100,
+              val_every: int = 500, heavy_every: int = 0,
+              log_fn=print) -> Dict[str, Any]:
+        if heavy_every:
+            raise NotImplementedError(
+                "the heavy summaries (--log_train_heavy) are not ported "
+                "yet: ROADMAP.md item 14")
+        it = iter(self.train_batches)
+        t0 = time.time()
+        imgs = 0
+        metrics: Dict[str, Any] = {}
+        for i in range(self.start_itr, self.start_itr + num_itr):
+            batch = next(it)
+            metrics = self.train_step(batch)
+            imgs += batch.shape[0]
+            if log_every and (i + 1) % log_every == 0:
+                float(metrics["loss_bpsp"])     # waits for the step
+                dt = time.time() - t0
+                log_fn(Values.format(i + 1, metrics, imgs / max(dt, 1e-9)))
+                self._write_summaries("train", metrics, i + 1)
+                t0, imgs = time.time(), 0
+            if val_every and (i + 1) % val_every == 0 and self.val_batches:
+                val_bpsp = self.validation_loop()
+                log_fn(f"{i + 1:8d} VAL bpsp={val_bpsp:.4f}")
+                if self.summary_writer is not None:
+                    self.summary_writer.add_scalar("val/bpsp", val_bpsp,
+                                                   i + 1)
+            if self.saver is not None and self.saver.save_due(i + 1):
+                self.saver.save(self.state_tree(), i + 1)
+        # the state the run ended with is saved even when the interval
+        # saver would drop it (short runs stay restorable)
+        end = self.start_itr + num_itr
+        if self.saver is not None and num_itr and not self.saver.save_due(end):
+            self.saver.save(self.state_tree(), end)
+        return metrics
+
+    def _write_summaries(self, prefix: str, metrics: Dict, step: int):
+        sw = self.summary_writer
+        if sw is None:
+            return
+        sw.add_scalar(f"{prefix}/loss_bpsp", float(metrics["loss_bpsp"]),
+                      step)
+        sw.add_scalar(f"{prefix}/bpsp", float(metrics["bpsp_total"]), step)
+        for i, b in enumerate(metrics["scale_bpsps"].tolist()):
+            sw.add_scalar(f"{prefix}/costs/scale_{i}_bpsp", float(b), step)
+        sw.add_scalar(f"{prefix}/grad_norm", float(metrics["grad_norm"]),
+                      step)
+        sw.add_scalar(f"{prefix}/lr", float(metrics["lr"]), step)

@@ -1,18 +1,48 @@
-"""Experiment log-dir names: find a log dir, parse its configs back.
+"""Experiment log-dir names: create a unique log dir, find one, parse its
+configs back.
 
-Port of `l3c_tpu/utils/logdir.py` (the reading half; creating log dirs
-belongs to training): a log dir is named
+Port of `l3c_tpu/utils/logdir.py`: a log dir is named
 'MMDD_HHMM msconfig dlconfig [r@DATE] [postfix...]', so the tester
-recovers the experiment's config files from the directory name alone.
+recovers the experiment's config files from the directory name alone;
+creating one bumps the minute on a collision (an atomic mkdir is the
+test).
 """
 from __future__ import annotations
 
+import datetime
 import os
 import re
 from typing import List, Optional, Tuple
 
 _SEP = " "
+_DATE_FMT = "%m%d_%H%M"
 _DATE_RE = re.compile(r"^\d{4}_\d{4}$")
+
+
+def create_unique_log_dir(log_dir_root: str, config_paths: List[str],
+                          postfix: Optional[List[str]] = None,
+                          restore_dir: Optional[str] = None) -> str:
+    """Create 'MMDD_HHMM cfg1 cfg2 [r@DATE] [postfix]' under root."""
+    os.makedirs(log_dir_root, exist_ok=True)
+    comps = [_strip_cf(p) for p in config_paths]
+    if restore_dir:
+        comps.append("r@" + log_date_from_log_dir(restore_dir))
+    if postfix:
+        comps.extend(postfix)
+    when = datetime.datetime.now()
+    while True:
+        path = os.path.join(log_dir_root, _SEP.join(
+            [when.strftime(_DATE_FMT)] + comps))
+        try:
+            os.makedirs(path)
+            return path
+        except FileExistsError:
+            when += datetime.timedelta(minutes=1)
+
+
+def _strip_cf(p: str) -> str:
+    base = os.path.basename(p)
+    return base[:-3] if base.endswith(".cf") else base
 
 
 def log_date_from_log_dir(log_dir: str) -> str:

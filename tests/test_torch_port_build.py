@@ -18,7 +18,8 @@ torch.set_num_threads(1)
 
 LAUNCHERS = {"float_cdf": {"l3c_mixture_cdf_q", "l3c_fine_cdf_q"},
              "rans": {"l3c_rans_encode", "l3c_rans_decode"},
-             "pack": {"l3c_pack_int"}}
+             "pack": {"l3c_pack_int"},
+             "dmll": {"l3c_dmll_nll", "l3c_dmll_nll_grad"}}
 
 
 @pytest.mark.parametrize("name", build.SOURCES)
@@ -94,11 +95,19 @@ def test_wrappers_pass_declared_arguments(monkeypatch):
                            0.08, -1.04)
     assert [tuple(x.shape) for x in out[:4]] == [(5, 4, 6)] * 4
     assert out[4] is None
+    # K6: the classifier's planes and the NHWC target (bottleneck, C = 5)
+    l = torch.zeros((2, 3 * 5 * K, 1, 3))
+    x = torch.zeros((2, 1, 3, 5))
+    assert kernels.dmll_nll(l, x, False, 0.04, -0.999, 0.999).shape == \
+        x.shape
+    gl, gx = kernels.dmll_nll_grad(l, x, x, False, 0.04, -0.999, 0.999)
+    assert gl.shape == l.shape and gx.shape == x.shape
     assert [fn for fn, _ in calls] == [
         "l3c_mixture_cdf_q", "l3c_fine_cdf_q"] + ["l3c_rans_encode"] * 3 \
-        + ["l3c_rans_decode"] * 4 + ["l3c_pack_int"] * 2
-    sigs = {**build.signatures("float_cdf"), **build.signatures("rans"),
-            **build.signatures("pack")}
+        + ["l3c_rans_decode"] * 4 + ["l3c_pack_int"] * 2 \
+        + ["l3c_dmll_nll", "l3c_dmll_nll_grad"]
+    sigs = {name: at for src in build.SOURCES
+            for name, at in build.signatures(src).items()}
     for fn, args in calls:
         assert len(args) == len(sigs[fn])
         for a, t in zip(args, sigs[fn]):
@@ -115,6 +124,9 @@ def test_wrappers_pass_declared_arguments(monkeypatch):
     assert calls[9][1][6:12] == (2, 3, 3, K, K, 1)
     assert calls[10][1][6:12] == (2, 3, 5, 10, 4, 0)
     assert calls[10][1][5] is None
+    # K6: (N, HW, C, K, lambda) after its pointers, then the spec's floats
+    assert calls[11][1][3:8] == (2, 3, 5, K, 0)
+    assert calls[12][1][5:10] == (2, 3, 5, K, 0)
 
 
 def test_wrappers_refuse_inconsistent_shapes(monkeypatch):
@@ -133,6 +145,16 @@ def test_wrappers_refuse_inconsistent_shapes(monkeypatch):
                          -1.04)                           # 31 != 3 x 5 x K
     with pytest.raises(ValueError, match="planes"):
         kernels.pack_int(torch.zeros((1, 40, 2, 2)), 5, 4, True, 1.0, -0.5)
+    with pytest.raises(ValueError, match="planes"):
+        kernels.dmll_nll(torch.zeros((1, 31, 2, 2)), torch.zeros(
+            (1, 2, 2, 5)), False, 0.04, -0.999, 0.999)   # 31 != 3 x 5 x K
+    with pytest.raises(ValueError, match="match"):
+        kernels.dmll_nll(torch.zeros((1, 120, 2, 2)), torch.zeros(
+            (1, 2, 3, 3)), True, 0.5, 0.001, 254.999)    # W 2 != 3
+    with pytest.raises(ValueError, match="g"):
+        kernels.dmll_nll_grad(torch.zeros((1, 120, 2, 2)), torch.zeros(
+            (1, 2, 2, 3)), torch.zeros((1, 2, 2, 1)), True, 0.5, 0.001,
+            254.999)
 
 
 def test_call_refuses_wrong_argument_count(monkeypatch):

@@ -2,9 +2,8 @@
 JAX package's, on the CPU.
 
 - `load_ms_config` of the port's own `configs/ms/cr.cf` equals the JAX
-  package's `load_ms_config` of its own, field by field (the JAX package
-  has one field more, `compute_dtype`, whose only ported value is
-  'float32');
+  package's `load_ms_config` of its own, field by field (`compute_dtype`
+  included, whose only ported value is 'float32');
 - `parse_cf` (with `use` inheritance), `parse_overrides`, unknown keys;
 - `find_log_dir` / `parse_log_dir` / `log_date_from_log_dir` give the JAX
   package's answers on the `models_zoo/` names (spaces, `r@...`
@@ -47,7 +46,7 @@ def _flat(cfg, prefix=""):
 def test_cr_cf_equals_jax_field_by_field():
     t = _flat(tcfg.load_ms_config(os.path.join(T_CONFIGS, "ms", "cr.cf")))
     j = _flat(jcfg.load_ms_config(os.path.join(J_CONFIGS, "ms", "cr.cf")))
-    assert j.pop("compute_dtype") == "float32"
+    assert j["compute_dtype"] == "float32"
     assert t == j
     for k in t:
         assert type(t[k]) is type(j[k]), k
@@ -72,9 +71,7 @@ def test_overrides_equal_jax(overrides):
                             tcfg.parse_overrides(overrides))
     j = jcfg.load_ms_config(os.path.join(J_CONFIGS, "ms", "cr.cf"),
                             jcfg.parse_overrides(overrides))
-    jf = _flat(j)
-    jf.pop("compute_dtype")
-    assert _flat(t) == jf
+    assert _flat(t) == _flat(j)
     assert tcfg.parse_overrides(overrides + ["flag"]) \
         == jcfg.parse_overrides(overrides + ["flag"])
 

@@ -1,0 +1,147 @@
+"""K6 (csrc/dmll.cu: the mixture NLL and its gradient) run on the CPU,
+against the plain version (models/dmll.nll_plain and its autograd
+gradient).
+
+There is no CUDA compiler here, so the test compiles dmll.cu with g++
+against the host header of test_torch_port_pack_host.py: the kernel has no
+shared memory and no barrier, so a launch is a loop over the grid's blocks
+and threads. The library is bound in place of build.library("dmll"), with
+tensors reporting is_cuda, so dmll.nll takes the kernel's path (its
+autograd.Function, forward and backward) on CPU memory. What only the
+card can show (the CUDA compiler, the card's expf, speed) chip_smoke.py and
+tests/test_torch_port_kernels.py check there.
+
+Tolerances (test_torch_port_kernels.assert_nll_close / assert_grad_close).
+The kernel evaluates the plain version's expression in its order; what
+differs is the libraries' exp / log1p / log (glibc here, PyTorch's
+vectorised ones in the plain version), ~1 ulp apart, and the order of the
+gradient's products: every nll element within 1e-5 relative + 1e-6, every
+grad_l and grad_x entry within 1e-5 of the tensor's largest magnitude,
+each plus its float32_spread of two roundings (non-zero only where a term
+is ill-conditioned); each sum within 1e-6 relative.
+"""
+import os
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from l3c_torch.models import dmll
+from l3c_torch.ops import kernels
+from l3c_torch.ops.kernels import build
+from tests.test_torch_port_kernels import (assert_grad_close,
+                                          assert_nll_close,
+                                          dmll_grads as _grads, dmll_inputs,
+                                          float32_spread)
+from tests.test_torch_port_pack_host import HOST_CUDA_H
+
+torch.set_num_threads(1)
+
+RGB = dmll.DMLLSpec(True)
+BN = dmll.DMLLSpec(False, -1.0, 1.0, 25)
+
+
+def _host_source() -> str:
+    src = open(os.path.join(build.CSRC, "dmll.cu")).read()
+    for lam in ("true", "false"):
+        old = (f"dmll_kernel<GRAD, {lam}><<<grid, kThreads, 0, "
+               "stream>>>(A);")
+        assert old in src, f"dmll.cu no longer contains {old!r}"
+        src = src.replace(old, "host_launch(grid, kThreads, [&] { "
+                               f"dmll_kernel<GRAD, {lam}>(A); }});")
+    assert "<<<" not in src
+    return src
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """ctypes library of dmll.cu compiled for the host."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile dmll.cu for the host")
+    d = tmp_path_factory.mktemp("dmll_host")
+    (d / "cuda_runtime.h").write_text(HOST_CUDA_H)
+    (d / "dmll_host.cpp").write_text(_host_source())
+    out = subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-fno-gnu-unique",   # threadIdx: one per library, not shared
+         f"-I{d}", "-o", str(d / "libdmll.so"), str(d / "dmll_host.cpp")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    assert out.returncode == 0, out.stdout[-4000:]
+    return build._bind("dmll", str(d / "libdmll.so"))
+
+
+def _kernel_path(monkeypatch, lib):
+    """Route dmll.nll to the kernels of `lib` on CPU tensors."""
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+
+
+@pytest.mark.parametrize("rgb,K,C,H", [(True, 10, 3, 37), (False, 10, 5, 37),
+                                       (True, 2, 3, 7), (False, 3, 2, 7)])
+def test_dmll_source_matches_plain(host_lib, monkeypatch, rgb, K, C, H):
+    """K6 forward and backward against the plain version and its autograd
+    gradient: both tails, log-scales below and at -7, the lambda path;
+    exactly one forward and one backward launch."""
+    spec = RGB if rgb else BN
+    x, l = dmll_inputs(rgb, K, 10 * K + C, H=H, W=53, C=C)
+    g = torch.from_numpy(np.random.RandomState(1).rand(*x.shape)
+                         .astype(np.float32))
+    want = _grads(dmll.nll_plain, spec, x, l, g)
+    kernels.reset_launches()
+    with monkeypatch.context() as m:
+        _kernel_path(m, host_lib)
+        got = _grads(dmll.nll, spec, x, l, g)
+    assert dict(kernels.launches) == {"dmll_nll": 1, "dmll_nll_grad": 1}
+    spread = float32_spread(spec, x, l, g)
+    assert_nll_close(got[0], want[0], spread[0])
+    assert_grad_close("grad_l", got[1], want[1], spread[1])
+    assert_grad_close("grad_x", got[2], want[2], spread[2])
+    # the lambda terms move channels 0 and 1 of grad_x on the RGB scale
+    if rgb:
+        x0 = _grads(dmll.nll_plain, spec, x, l,
+                    g * torch.tensor([0.0, 1.0, 1.0]))[2]
+        assert float(x0[..., 0].abs().max()) > 0
+
+
+def test_dmll_reads_the_nchw_planes_in_place(host_lib, monkeypatch):
+    """The training forward hands l as the NHWC view of the classifier's
+    NCHW output: K6 reads it without a copy and returns grad_l as the same
+    view; an NHWC-contiguous l (the eval forward's) gives the same
+    numbers."""
+    x, l = dmll_inputs(False, 10, 5)
+    l_nchw = l.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    view = l_nchw.permute(0, 2, 3, 1)
+    with monkeypatch.context() as m:
+        _kernel_path(m, host_lib)
+        out = dmll.nll(BN, x, view)
+        out.sum().backward()
+        ref = _grads(dmll.nll, BN, x, l, torch.ones_like(x))
+    assert torch.equal(out.detach(), ref[0])
+    assert l_nchw.grad.is_contiguous()
+    assert torch.equal(l_nchw.grad.permute(0, 2, 3, 1), ref[1])
+
+
+def test_dmll_kernel_refuses_what_it_does_not_take(monkeypatch):
+    """A CPU tensor takes the plain version through nll; the launchers
+    themselves refuse CPU tensors and inconsistent shapes."""
+    x, l = dmll_inputs(True, 2, 0)
+    kernels.reset_launches()
+    torch.testing.assert_close(dmll.nll(RGB, x, l), dmll.nll_plain(RGB, x, l),
+                               rtol=0, atol=0)
+    assert not kernels.launches
+    l_nchw = l.permute(0, 3, 1, 2).contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dmll_nll(l_nchw, x, True, 0.5, 0.001, 254.999)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    with pytest.raises(ValueError, match="planes"):
+        kernels.dmll_nll(l_nchw[:, :-1].contiguous(), x, True, 0.5, 0.001,
+                         254.999)
+    with pytest.raises(ValueError, match="match"):
+        kernels.dmll_nll(l_nchw, x[:, :-1].contiguous(), True, 0.5, 0.001,
+                         254.999)

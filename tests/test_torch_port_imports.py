@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
         "config.py", "cli/l3c.py", "cli/test.py", "data/images.py",
         "eval/tester.py", "eval/timer.py", "utils/logdir.py",
         "utils/printer.py", "models/weights.py", "codec/bitcoding2.py",
-        "ops/kernels/__init__.py")} <= rel
+        "ops/kernels/__init__.py", "cli/train.py", "train/trainer.py",
+        "train/optim.py", "train/saver.py", "train/schedule.py",
+        "utils/summarizer.py")} <= rel
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                              & set(FORBIDDEN))
            for p in files}
@@ -66,6 +68,12 @@ def test_default_device_raises_without_cuda():
                    dec=DecConfig(num_blocks=1), prob=ProbConfig(K=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchBitcoding(cfg, MultiscaleNetwork(cfg))
+    from l3c_torch.cli import train as train_cli
+    from l3c_torch.cli.l3c import default_config_roots
+    root = default_config_roots()[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main([os.path.join(root, "ms", "cr.cf"),
+                        os.path.join(root, "dl", "oi_offline.cf"), "logs"])
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -84,3 +92,6 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.pack_int(torch.zeros((1, 30, 2, 2)), 5, 0, False, 0.08,
                          -1.04)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dmll_nll(torch.zeros((1, 30, 2, 2)), torch.zeros(
+            (1, 2, 2, 5)), False, 0.04, -0.999, 0.999)

@@ -245,3 +245,176 @@ def test_float_cdf_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="L=33"):
         float_cdf.mixture_cdf_q(g, g, g, torch.zeros(33, device=cuda), 33)
     assert dict(kernels.launches) == n0
+
+
+def dmll_inputs(rgb, K, seed, N=2, H=7, W=9, C=5):
+    """(x (N,H,W,C), l (N,H,W,Kp)) made with numpy for K6: x on the spec's
+    grid with both tails well represented (RGB 0 and 255, bottleneck -1
+    and 1) plus, for the bottleneck, the straight-through estimator's
+    rounding (a few ulps off the level); log-scales far below the -7 clamp
+    in a fifth of the terms and exactly at it in some; lambda logits on
+    the RGB scale."""
+    rng = np.random.RandomState(seed)
+    C = 3 if rgb else C
+    P = 4 if rgb else 3
+    l = rng.randn(N, H, W, P, C, K).astype(np.float32) * 2.0
+    l[..., 1, :, :] *= 40.0 if rgb else 0.4
+    if rgb:
+        l[..., 1, :, :] += 128.0
+    sharp = rng.rand(N, H, W, C, K) < 0.2
+    l[..., 2, :, :] = np.where(sharp, l[..., 2, :, :] * 3 - 9,
+                               l[..., 2, :, :])
+    l[..., 2, :, :][rng.rand(N, H, W, C, K) < 0.05] = -7.0
+    if rgb:
+        x = rng.randint(0, 256, (N, H, W, C)).astype(np.float32)
+        x[rng.rand(N, H, W, C) < 0.15] = 0.0
+        x[rng.rand(N, H, W, C) < 0.15] = 255.0
+    else:
+        lv = np.linspace(-1.0, 1.0, 25).astype(np.float32)
+        x = lv[rng.randint(0, 25, (N, H, W, C))]
+        x[rng.rand(N, H, W, C) < 0.15] = -1.0
+        x[rng.rand(N, H, W, C) < 0.15] = 1.0
+        x = x + (rng.randint(-2, 3, x.shape) * 6e-8).astype(np.float32)
+    return (torch.from_numpy(x),
+            torch.from_numpy(l.reshape(N, H, W, P * C * K)))
+
+
+def _nll64(spec, x, l, jiggle):
+    """nll_plain's expression in float64, each result of a library call
+    (exp, the sigmoids and their derivatives, log1p, log) and each
+    lambda-conditioned mean passed through jiggle."""
+
+    def sigmoid(z):
+        y = torch.sigmoid(z)
+        dy = jiggle(y * (1 - y))
+        return jiggle(y).detach() + (z - z.detach()) * dy.detach()
+
+    C = x.shape[-1]
+    lr = l.reshape(*l.shape[:-1], spec.num_params, C, -1)
+    logit, mean = lr[..., 0, :, :], lr[..., 1, :, :]
+    ls = torch.maximum(lr[..., 2, :, :], torch.tensor(dmll.LOG_SCALES_MIN,
+                                                      dtype=l.dtype))
+    xk = x.unsqueeze(-1)
+    if spec.rgb_scale:
+        lam = sigmoid(lr[..., 3, :, :])
+        mean = torch.stack([
+            mean[..., 0, :],
+            jiggle(mean[..., 1, :] + lam[..., 0, :] * xk[..., 0, :]),
+            jiggle(mean[..., 2, :] + lam[..., 1, :] * xk[..., 0, :]
+                   + lam[..., 2, :] * xk[..., 1, :])], dim=-2)
+    inv = jiggle(torch.exp(-ls))
+    p = inv * ((xk - mean) + spec.bin_width / 2)
+    m = inv * ((xk - mean) - spec.bin_width / 2)
+
+    def softplus(z):
+        return z.clamp(min=0) + jiggle(torch.log1p(torch.exp(-z.abs())))
+
+    delta = sigmoid(p) - sigmoid(m)
+    lp = jiggle(torch.log(torch.maximum(delta, torch.tensor(
+        1e-12, dtype=l.dtype))))
+    lp = torch.where(xk > spec.x_upper_bound, -softplus(m), lp)
+    lp = torch.where(xk < spec.x_lower_bound, p - softplus(p), lp)
+    return -torch.logsumexp(lp + torch.log_softmax(logit, dim=-1), dim=-1)
+
+
+def float32_spread(spec, x, l, g, rel=2.0 ** -23):
+    """How far two float32 evaluations of nll's expression (K6, the plain
+    version, JAX) may differ, per entry of (nll, grad_l, grad_x): the
+    largest move of the float64 result and its gradient, over eight
+    draws, when each result of a library call and each lambda-conditioned
+    mean is off by `rel` either way (random signs). The default, two
+    roundings, is for two evaluations on the CPU: the libraries' exp /
+    log1p / log differ by an ulp here and there, and XLA may fuse the
+    mean's products. Where a term's two sigmoids nearly cancel (one ulp
+    of a sigmoid moves log(delta) by ~6e-8 / delta) or a narrow logistic
+    sits on a large mean (one ulp of the mean, times exp(7)), the move
+    exceeds the tight bound."""
+    x, l, g = (t.detach().cpu().double() for t in (x, l, g))
+    gen = torch.Generator().manual_seed(0)
+
+    def grads(eps):
+        def jiggle(v):
+            s = torch.randint(0, 2, v.shape, generator=gen).to(v.dtype)
+            return v * (1 + eps * (2 * s - 1))
+        return dmll_grads(lambda *a: _nll64(*a, jiggle), spec, x, l, g)
+
+    base = grads(0.0)
+    spread = [torch.zeros_like(b) for b in base]
+    for _ in range(8):
+        for s, a, b in zip(spread, grads(rel), base):
+            torch.maximum(s, (a - b).abs(), out=s)
+    return spread
+
+
+def assert_nll_close(got, want, spread=0.0):
+    """Every element within 1e-5 relative + 1e-6 of the reference plus its
+    float32_spread (0 where the element is well conditioned, or where both
+    sides evaluate the same float32 operations); the sum within 1e-6
+    relative."""
+    got, want = got.double().cpu(), want.double().cpu()
+    err = (got - want).abs()
+    tight = 1e-5 * want.abs() + 1e-6
+    n_out = int((err > tight).sum())
+    worst = float((err / (tight + spread)).max())
+    print(f"nll: {n_out}/{err.numel()} elements beyond 1e-5 rel + 1e-6 "
+          f"(max abs {float(err.max()):.2e}), max diff / (that + spread) "
+          f"{worst:.3f}")
+    assert worst <= 1.0
+    assert abs(float(got.sum() - want.sum())) <= 1e-6 * abs(float(
+        want.sum()))
+
+
+def assert_grad_close(name, got, want, spread=0.0):
+    """Every entry within 1e-5 of the reference gradient's largest
+    magnitude plus its float32_spread (the gradient of an ill-conditioned
+    term carries 1 / delta)."""
+    err = (got.double().cpu() - want.double().cpu()).abs()
+    tight = 1e-5 * float(want.abs().max())
+    n_out = int((err > tight).sum())
+    worst = float((err / (tight + spread)).max())
+    print(f"{name}: {n_out}/{err.numel()} entries beyond 1e-5 of max |grad| "
+          f"(max abs {float(err.max()):.2e} of {tight * 1e5:.3e}), max diff "
+          f"/ (that + spread) {worst:.3f}")
+    assert worst <= 1.0, name
+
+
+def dmll_grads(fn, spec, x, l, g):
+    """(nll, grad_l, grad_x) of fn(spec, x, l) against upstream g."""
+    x = x.clone().requires_grad_(True)
+    l = l.clone().requires_grad_(True)
+    out = fn(spec, x, l)
+    (out * g).sum().backward()
+    return out.detach(), l.grad, x.grad
+
+
+@pytest.mark.parametrize("rgb,K,C,N,H", [(True, 10, 3, 2, 37),
+                                         (False, 10, 5, 2, 37),
+                                         (True, 2, 3, 1, 5),
+                                         (False, 3, 2, 1, 5)])
+def test_dmll_kernel_matches_plain(cuda, rgb, K, C, N, H):
+    """K6 forward and backward on the card against the plain version and
+    its autograd gradient: on the card, which runs the same float32
+    operations through the same libraries, every element within the tight
+    bound; on the CPU within the tight bound plus the float32 spread of
+    four roundings (CUDA's expf is within 2 ulp, the CPU's within 1, and
+    each sigmoid adds a sum and a division). One launch each."""
+    spec = dmll.DMLLSpec(True) if rgb else dmll.DMLLSpec(False, -1.0, 1.0,
+                                                          25)
+    x, l = dmll_inputs(rgb, K, K + C, N=N, H=H, W=53, C=C)
+    g = torch.from_numpy(np.random.RandomState(1).rand(*x.shape)
+                         .astype(np.float32))
+    n0 = dict(kernels.launches)
+    got = dmll_grads(dmll.nll, spec, x.to(cuda), l.to(cuda), g.to(cuda))
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - n0.get(k, 0)
+            for k in ("dmll_nll", "dmll_nll_grad")} == {
+        "dmll_nll": 1, "dmll_nll_grad": 1}
+    card = dmll_grads(dmll.nll_plain, spec, x.to(cuda), l.to(cuda),
+                      g.to(cuda))
+    cpu = dmll_grads(dmll.nll_plain, spec, x, l, g)
+    for want, spread in ((card, (0.0,) * 3),
+                         (cpu, float32_spread(spec, x, l, g,
+                                              rel=2.0 ** -21))):
+        assert_nll_close(got[0], want[0], spread[0])
+        assert_grad_close("grad_l", got[1], want[1], spread[1])
+        assert_grad_close("grad_x", got[2], want[2], spread[2])

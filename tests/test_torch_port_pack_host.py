@@ -102,6 +102,7 @@ def host_lib(tmp_path_factory):
     (d / "pack_host.cpp").write_text(_host_source())
     out = subprocess.run(
         [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-fno-gnu-unique",   # threadIdx: one per library, not shared
          f"-I{d}", "-o", str(d / "libpack.so"), str(d / "pack_host.cpp")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     assert out.returncode == 0, out.stdout[-4000:]

@@ -143,6 +143,7 @@ def host_lib(tmp_path_factory):
     (d / "rans_host.cpp").write_text(_host_source())
     out = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-fno-gnu-unique",   # threadIdx: one per library, not shared
          "-pthread", f"-I{d}", f"-I{build.CSRC}", "-o",
          str(d / "librans.so"), str(d / "rans_host.cpp")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
