@@ -1,17 +1,23 @@
 """Image files for training, the tester and the codec CLIs: listings,
-training batches, testsets, PNG.
+training batches, testsets, PNG, PNM and BMP.
 
 Port of `l3c_tpu/data/images.py` (`iter_images_in`, `ImagesCached`,
 `load_image_uint8`, `random_crop_flip`, `TrainBatches`, `Testset`). The
 training batches are the JAX package's bit for bit for the same paths,
 seed and flags: both draw from one np.random.RandomState in the same
 order. The JAX package reads images with Pillow; the port depends on
-torch, numpy and the standard library only, so it reads and writes PNG
-itself (zlib + numpy): 8 bits per sample, colour types 0 (grey), 2 (RGB),
-3 (palette) and 6 (RGBA), non-interlaced, all five row filters. Anything
-else raises ValueError with the reason. Every image comes out as RGB the
-way Pillow's convert("RGB") gives it: grey replicated, the palette looked
-up, alpha dropped.
+torch, numpy and the standard library only, so it reads the formats
+itself, told apart by their first bytes as Pillow tells them:
+  - PNG (zlib + numpy; it also writes them): 8 bits per sample, colour
+    types 0 (grey), 2 (RGB), 3 (palette) and 6 (RGBA), non-interlaced,
+    all five row filters;
+  - binary PNM: P6 (RGB) and P5 (grey), maxval 255;
+  - BMP: uncompressed (BI_RGB), 24 and 32 bits a pixel (the fourth byte
+    unused, as Pillow reads it), bottom-up and top-down rows.
+Anything else, JPEG and WebP among it (they need a decoder the port does
+not have), raises ValueError naming the format and the reason. Every
+image comes out as RGB the way Pillow's convert("RGB") gives it: grey
+replicated, the palette looked up, alpha dropped.
 """
 from __future__ import annotations
 
@@ -91,7 +97,7 @@ def _header(data: bytes, path: str) -> Tuple[int, int, int]:
     return w, h, ctype
 
 
-def image_size(path: str) -> Tuple[int, int]:
+def _png_size(path: str) -> Tuple[int, int]:
     """(height, width) from the PNG header, without decoding pixels."""
     with open(path, "rb") as f:
         ctype, data = next(_chunks(f, path))
@@ -188,9 +194,139 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+# ------------------------------------------------------------- PNM, BMP
+
+
+def _pnm_header(f, path: str) -> Tuple[int, int, int]:
+    """(channels, width, height) of a binary PNM, the file positioned at
+    its pixels; refuses what is not read."""
+    magic = f.read(2)
+    if magic not in (b"P5", b"P6"):
+        raise ValueError(f"{path}: PNM type {magic.decode(errors='replace')}"
+                         "; only binary P5 (grey) and P6 (RGB) are read")
+    fields = []
+    c = f.read(1)
+    while len(fields) < 3:     # width, height, maxval; '#' comments between
+        if c == b"#":
+            while c not in (b"\n", b"\r", b""):
+                c = f.read(1)
+        elif c.isspace():
+            c = f.read(1)
+        elif c.isdigit():
+            tok = b""
+            while c.isdigit():
+                tok, c = tok + c, f.read(1)
+            fields.append(int(tok))
+        else:
+            raise ValueError(f"{path}: malformed PNM header")
+    if not c.isspace():        # one whitespace byte before the pixels
+        raise ValueError(f"{path}: malformed PNM header")
+    w, h, maxval = fields
+    if maxval != 255:
+        raise ValueError(f"{path}: PNM maxval {maxval}; only 8-bit PNMs "
+                         "(maxval 255) are read" + (
+                             ", not 16-bit ones" if maxval > 255 else ""))
+    if w < 1 or h < 1:
+        raise ValueError(f"{path}: empty image {w}x{h}")
+    return (1 if magic == b"P5" else 3), w, h
+
+
+def read_pnm(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a binary PNM (P5 grey replicated)."""
+    with open(path, "rb") as f:
+        ch, w, h = _pnm_header(f, path)
+        data = f.read(w * h * ch)
+    if len(data) != w * h * ch:
+        raise ValueError(f"{path}: truncated PNM ({len(data)} of "
+                         f"{w * h * ch} pixel bytes)")
+    px = np.frombuffer(data, np.uint8).reshape(h, w, ch)
+    return np.repeat(px, 3, axis=2) if ch == 1 else px.copy()
+
+
+_BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS", 4: "JPEG",
+                    5: "PNG", 6: "BI_ALPHABITFIELDS"}
+
+
+def _bmp_header(head: bytes, path: str) -> Tuple[int, int, int, bool, int]:
+    """(width, height, bytes a pixel, top-down, pixel offset) of a BMP's
+    first 54 bytes; refuses what is not read."""
+    if len(head) < 30 or head[:2] != b"BM":
+        raise ValueError(f"{path}: truncated BMP header")
+    offset, dib = struct.unpack("<II", head[10:18])
+    if dib < 40:
+        raise ValueError(f"{path}: BMP with a {dib}-byte (OS/2) header; "
+                         "only BITMAPINFOHEADER and later are read")
+    if len(head) < 54:
+        raise ValueError(f"{path}: truncated BMP header")
+    w, h, _, bits, comp = struct.unpack("<iiHHI", head[18:34])
+    if comp != 0:
+        raise ValueError(f"{path}: {_BMP_COMPRESSION.get(comp, comp)} BMP; "
+                         "only uncompressed (BI_RGB) BMPs are read")
+    if bits not in (24, 32):
+        raise ValueError(f"{path}: {bits}-bit BMP; only 24- and 32-bit "
+                         "BMPs are read")
+    if w < 1 or h == 0:
+        raise ValueError(f"{path}: empty image {w}x{abs(h)}")
+    return w, abs(h), bits // 8, h < 0, offset
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of an uncompressed 24- or 32-bit BMP."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    w, h, bpp, top_down, offset = _bmp_header(blob[:54], path)
+    stride = (w * bpp + 3) // 4 * 4              # rows padded to 4 bytes
+    data = blob[offset:offset + stride * h]
+    if len(data) != stride * h:
+        raise ValueError(f"{path}: truncated BMP ({len(data)} of "
+                         f"{stride * h} pixel bytes)")
+    rows = np.frombuffer(data, np.uint8).reshape(h, stride)
+    px = rows[:, :w * bpp].reshape(h, w, bpp)[..., 2::-1]    # BGR -> RGB
+    return np.ascontiguousarray(px if top_down else px[::-1])
+
+
+def _format(path: str) -> str:
+    """'png', 'pnm' or 'bmp' from the file's first bytes; other formats
+    raise with the reason."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:8] == PNG_SIGNATURE:
+        return "png"
+    if head[:1] == b"P" and head[1:2] in b"123456":
+        return "pnm"
+    if head[:2] == b"BM":
+        return "bmp"
+    if head[:3] == b"\xff\xd8\xff":
+        kind = "JPEG"
+    elif head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        kind = "WebP"
+    else:
+        raise ValueError(f"{path}: unknown image format; the port reads "
+                         "PNG, PNM (P5, P6) and BMP")
+    raise ValueError(f"{path}: {kind} is not read by the port: it decodes "
+                     "PNG, PNM (P5, P6) and BMP itself and has no "
+                     f"{kind} decoder")
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(height, width) from the image's header, without decoding pixels."""
+    kind = _format(path)
+    if kind == "png":
+        return _png_size(path)
+    if kind == "pnm":
+        with open(path, "rb") as f:
+            _, w, h = _pnm_header(f, path)
+        return h, w
+    with open(path, "rb") as f:
+        w, h, _, _, _ = _bmp_header(f.read(54), path)
+    return h, w
+
+
 def load_image_uint8(p: str) -> np.ndarray:
-    """(H,W,3) uint8 RGB; non-RGB PNGs are converted (RGBA -> drop alpha)."""
-    return read_png(p)
+    """(H,W,3) uint8 RGB of a PNG, PNM or BMP; non-RGB images are
+    converted (grey replicated, palette looked up, alpha dropped)."""
+    return {"png": read_png, "pnm": read_pnm, "bmp": read_bmp}[
+        _format(p)](p)
 
 
 class ImagesCached:

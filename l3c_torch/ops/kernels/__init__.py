@@ -27,8 +27,12 @@ coders of `gpu_coder` (`encode_*` / `decode_*`), the codec's
 | pack_int       | csrc/pack.cu       | l3c_tpu/ops/int_coder.py:259 (XLA, in |
 |                |                    | get_P, codec/bitcoding2.py:279)       |
 | dmll_nll       | csrc/dmll.cu       | l3c_tpu/models/dmll.py:126 (XLA, in   |
-| dmll_nll_grad  |                    | the train step, train/trainer.py:113) |
-|                |                    | with its VJP; one thread a pixel      |
+| dmll_nll_grad  | + csrc/ptx.cuh     | the train step, train/trainer.py:113) |
+|                |                    | with its VJP; a tile of 32 pixels a   |
+|                |                    | block through shared memory           |
+|                |                    | (cp.async), two lanes a (pixel,       |
+|                |                    | channel), sums over k by shuffles;    |
+|                |                    | C <= 8                                |
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ def _launch(lib: str, fn: str, kernel: str, *args) -> None:
 
 
 MAX_K = 10          # mixture components: kMaxK of the csrc sources
+MAX_C = 8           # channels of dmll_nll / dmll_nll_grad: kMaxC of dmll.cu
 MAX_L = 32          # edges of mixture_cdf_q: kMaxL of csrc/float_cdf.cu
 
 
@@ -286,6 +291,10 @@ def _dmll_args(kernel: str, l: torch.Tensor, x: torch.Tensor, lam: bool
     if x.shape[:3] != (N, H, W) or (lam and C != 3):
         raise ValueError(f"{kernel}: l {tuple(l.shape)} and x "
                          f"{tuple(x.shape)} do not match")
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"{kernel}: C={C} channels; the kernel takes "
+                         f"1..{MAX_C} (two lanes a (pixel, channel) in a "
+                         "block of 32 pixels)")
     if K * groups * C != Kp or not 1 <= K <= MAX_K or N * H * W < 1:
         raise ValueError(f"{kernel}: {Kp} planes are not {groups} groups "
                          f"of C={C} channels with 1..{MAX_K} components")
@@ -301,7 +310,10 @@ def dmll_nll(l: torch.Tensor, x: torch.Tensor, lam: bool, half_bin: float,
     """K6 forward: the classifier's output l (N, Kp, H, W) f32 NCHW and the
     target x (N, H, W, C) f32 -> per-element mixture NLL (N, H, W, C).
     lam: the RGB scale's lambda groups (C = 3); half_bin, lower, upper:
-    half the spec's bin width and its open-tail thresholds."""
+    half the spec's bin width and its open-tail thresholds. Takes
+    1 <= C <= MAX_C (8) channels and 1 <= K <= MAX_K (10) components:
+    a q.C above 8 raises here, in training and in every theory bpsp on
+    the card."""
     N, HW, C, K = _dmll_args("dmll_nll", l, x, lam)
     out = torch.empty(x.shape, dtype=torch.float32, device=l.device)
     _launch("dmll", "l3c_dmll_nll", "dmll_nll", l.data_ptr(), x.data_ptr(),

@@ -17,10 +17,13 @@
 //            -softplus(m)                    x > x_max - 0.001
 //            log(max(s(p) - s(m), 1e-12))    otherwise
 //   nll    = -logsumexp_k(lp_k + log_softmax_k(pi logits))
-// in the plain version's order of operations (the products and sums as
-// written, softplus as max(z, 0) + log1p(exp(-|z|)), the sigmoid as
-// 1 / (1 + exp(-z)), expf / log1pf / logf and IEEE divisions; the file is
-// built with -fmad=false).
+// in the plain version's order of operations within a term (the products
+// and sums as written, softplus as max(z, 0) + log1p(exp(-|z|)), the
+// sigmoid as 1 / (1 + exp(-z)), expf / log1pf / logf and IEEE divisions;
+// the file is built with -fmad=false). Every sum over k runs k ascending
+// from 0, as a loop over k in one thread adds them, so the results do not
+// depend on how the threads share a pixel's components: they are those of
+// a kernel that runs one thread a pixel, bit for bit.
 //
 // The gradient follows JAX's conventions: a branch passes the gradient of
 // the branch it selects only; max(ls_raw, -7) and max(delta, 1e-12) pass
@@ -36,26 +39,59 @@
 // Layout: l (N, Kp, H, W) f32 as the classifier's convolution writes it,
 // plane (i C + c) K + k for parameter group i (Kp = 4 C K for RGB, C = 3,
 // else 3 C K); x, the upstream gradient g, nll and grad_x (N, H, W, C);
-// grad_l in l's layout. One thread per pixel handles all C channels, so
-// the lambda coupling of the RGB channels stays inside the thread; the
-// threads of a warp run along neighbouring pixels, so every plane read or
-// written is coalesced.
+// grad_l in l's layout.
 //
-// What bounds it on Hopper: bytes. Per pixel it reads Kp floats (120 or
-// 150) and writes C (forward) or Kp + C (backward), against ~8
-// transcendentals per term in the forward and ~12 in the backward; each
-// input byte is read once and no intermediate reaches device memory
-// (autograd's plain version writes ~25 (N, H, W, C, K) tensors). The
-// backward recomputes the forward per pixel rather than storing it.
+// What bounds it on Hopper: issuing its math. Per pixel it reads Kp
+// floats (120 or 150) and writes C (forward) or Kp + C (backward), which
+// the card moves in 40-50 % of the kernel's time; the accurate expf /
+// logf / log1pf and IEEE divisions of K terms a (pixel, channel), which
+// the order of operations above pins, take the rest (measured with
+// profile_k6.py: without the tile's load the kernel keeps 80-90 % of its
+// time). A kernel that walked a pixel's C K
+// terms in one thread was held by latency instead: 16,384 to 65,536
+// threads at the bottleneck scales, 8-16 warps an SM at scale 0. So:
+//  - A block owns a tile of kTile consecutive pixels of one image (tiles
+//    never straddle two images: an image's last tile is ragged). Its Kp
+//    plane slices reach shared memory at once, by 16-byte cp.async (4-byte
+//    copies where HW % 4 != 0, where the tile is ragged, or where a base
+//    is off a 16-byte boundary), as do its x and g.
+//  - Threads map to (pixel, channel, sub): kSplit lanes share a pixel's
+//    channel, lane s taking the components k = s, s + kSplit, ...; a
+//    warp holds 32 / kSplit pixels of one channel. So a thread's chain is
+//    K / kSplit terms (one thread walked C K before), and the reductions
+//    over k (the logits' max and sum, the weighted max and sum, sum_k r_k,
+//    the grad_x sums) are warp shuffles inside the kSplit lanes, which
+//    leave the same value in every lane of the group: a max by a
+//    butterfly, a sum by gathering the group's values into every lane and
+//    adding them k ascending.
+//  - Shared memory rows (one plane slice each) are swizzled: a warp's
+//    lanes read kSplit neighbouring rows at once, and the row's parity
+//    (mod kSplit) moves its columns onto other banks. 16-byte pieces stay
+//    whole, so copies in and out are 16 bytes a thread.
+//  - The backward keeps the forward's intermediates (d lp / d d, d lp / d
+//    ls, the lambda sigmoids) in the shared-memory slots of the values
+//    they came from, and writes grad_l over them: every slot belongs to
+//    one thread (the lambda planes of channel 0's mean to channel 1, those
+//    of channels 0 and 1's to channel 2). The block then copies the tile
+//    out as rows of the planes, 16 bytes a thread.
+//  - The RGB coupling (channels 1 and 2's terms reach grad_x of channels
+//    0 and 1) is summed in shared memory in a fixed order, (own + from
+//    channel 1) + from channel 2, and stored once per pixel.
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int kMaxK = 10;     // mixture components K
-constexpr int kThreads = 128;
+constexpr int kMaxC = 8;      // channels C (threads a block: 32 C kSplit)
+constexpr int kTile = 32;     // pixels a block
+constexpr int kSplit = 2;     // lanes a (pixel, channel)
+constexpr int kSlots = (kMaxK + kSplit - 1) / kSplit;   // components a lane
+constexpr int kGroupPx = 32 / kSplit;                  // pixels a warp
 constexpr float kLogScalesMin = -7.0f;
 constexpr float kDeltaMin = 1e-12f;
 
@@ -65,7 +101,7 @@ struct DmllArgs {
   const float* g;     // (n, C) upstream gradient; backward only
   float* nll;         // (n, C); forward only
   float *gl, *gx;     // (N, Kp, HW), (n, C); backward only
-  int n, HW, C, K;    // n = N HW
+  int HW, C, K, tiles;   // tiles: a image's
   float half_bin, lower, upper;
 };
 
@@ -120,124 +156,289 @@ __device__ __forceinline__ float term(float x, float mean, float ls_raw,
   return lp;
 }
 
-template <bool GRAD, bool LAM>
-__global__ void __launch_bounds__(kThreads) dmll_kernel(DmllArgs A) {
-  const int pix = blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= A.n) return;
-  const int C = A.C, K = A.K;
-  const size_t plane = static_cast<size_t>(A.HW);
-  const int b = pix / A.HW;
-  const int groups = LAM ? 4 : 3;
-  const size_t base = static_cast<size_t>(b) * groups * C * K * plane +
-                      (pix - b * A.HW);
-  // parameter group i of channel ch, component k
-  auto at = [&](int i, int ch, int k) {
-    return base + static_cast<size_t>((i * C + ch) * K + k) * plane;
-  };
-  const float* xp = A.x + static_cast<size_t>(pix) * C;
-  const float x0 = xp[0], x1 = LAM ? xp[1] : 0.0f;
+// over the kSplit lanes of a (pixel, channel): every lane gets the result
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = 1; o < kSplit; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
-#pragma unroll 1
-  for (int c = 0; c < C; ++c) {
-    const float xc = xp[c];
-    const int branch =
-        xc < A.lower ? kLower : (xc > A.upper ? kUpper : kMiddle);
-    // log_softmax of the pi logits: (logit - max) - log(sum exp(. - max))
-    float logit[kMaxK];
-    float lmax = -INFINITY;
+// sum_k v_k over the K components, k ascending from 0.0f as one thread
+// summed them before: lane s of the group holds v_k, k = s + kSplit j, in
+// v[j]; every lane gathers the group's values (lane s ^ o's by a shuffle)
+// and adds them in that order
+__device__ __forceinline__ float ordered_sum(const float (&v)[kSlots], int K,
+                                             int s) {
+  float sum = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < K) {
-        logit[k] = A.l[at(0, c, k)];
-        lmax = fmaxf(lmax, logit[k]);
-      }
-    float se = 0.0f;
+  for (int j = 0; j < kSlots; ++j) {
+    float got[kSplit];                  // got[o]: lane s ^ o's v[j]
+    got[0] = v[j];
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < K) se = se + expf(logit[k] - lmax);
-    const float lse_pi = logf(se);
+    for (int o = 1; o < kSplit; ++o)
+      got[o] = __shfl_xor_sync(0xffffffffu, v[j], o);
+#pragma unroll
+    for (int t = 0; t < kSplit; ++t) {  // component kSplit j + t
+      float x = got[0];
+#pragma unroll
+      for (int o = 1; o < kSplit; ++o)
+        if ((s ^ o) == t) x = got[o];
+      if (kSplit * j + t < K) sum = sum + x;
+    }
+  }
+  return sum;
+}
 
-    float lw[kMaxK], dd[kMaxK], dls[kMaxK], s1[kMaxK], s2[kMaxK];
-    float wmax = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k >= K) continue;
-      float mean = A.l[at(1, c, k)];
-      if (LAM && c == 1) {
-        s1[k] = sigmoid(A.l[at(3, 0, k)]);
-        mean = mean + s1[k] * x0;
-      } else if (LAM && c == 2) {
-        s1[k] = sigmoid(A.l[at(3, 1, k)]);
-        s2[k] = sigmoid(A.l[at(3, 2, k)]);
-        mean = (mean + s1[k] * x0) + s2[k] * x1;
-      }
-      const float lp = term<GRAD>(xc, mean, A.l[at(2, c, k)], branch,
-                                  A.half_bin, &dd[k], &dls[k]);
-      lw[k] = lp + ((logit[k] - lmax) - lse_pi);
-      wmax = fmaxf(wmax, lw[k]);
-    }
-    float sw = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < K) sw = sw + expf(lw[k] - wmax);
-    const size_t o = static_cast<size_t>(pix) * C + c;
-    if (!GRAD) {
-      A.nll[o] = -(logf(sw) + wmax);
-      continue;
-    }
+// where column col of row r lies in the tile (kTile floats a row): rows
+// read together differ in r mod kSplit, which moves them by multiples of
+// a warp's kGroupPx columns onto other banks
+__device__ __forceinline__ int slot(int r, int col) {
+  return r * kTile + (col ^ ((r & (kSplit - 1)) * kGroupPx));
+}
 
-    const float g = A.g[o];
-    float r[kMaxK], sum_r = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < K) {
-        r[k] = expf(lw[k] - wmax) / sw;
-        sum_r = sum_r + r[k];
-      }
-    float gxc = 0.0f, gx0 = 0.0f, gx1 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k >= K) continue;
-      const float pi = expf(logit[k] - lmax) / se;
-      A.gl[at(0, c, k)] = g * (pi * sum_r - r[k]);
-      const float G = -(g * r[k]);          // d nll / d lp_k
-      const float g_d = G * dd[k];           // d / d (x - mean~)
-      gxc = gxc + g_d;
-      A.gl[at(1, c, k)] = -g_d;
-      A.gl[at(2, c, k)] = G * dls[k];
-      if (LAM && c == 1) {
-        A.gl[at(3, 0, k)] = -g_d * x0 * (s1[k] * (1.0f - s1[k]));
-        gx0 = gx0 + -g_d * s1[k];
-      } else if (LAM && c == 2) {
-        A.gl[at(3, 1, k)] = -g_d * x0 * (s1[k] * (1.0f - s1[k]));
-        A.gl[at(3, 2, k)] = -g_d * x1 * (s2[k] * (1.0f - s2[k]));
-        gx0 = gx0 + -g_d * s1[k];
-        gx1 = gx1 + -g_d * s2[k];
-      }
-    }
-    // a thread owns its pixel's grad_x entries: channel c's own term is
-    // written at step c, the lambda terms of later channels are added
-    float* gxp = A.gx + static_cast<size_t>(pix) * C;
-    gxp[c] = gxc;
-    if (LAM && c >= 1) gxp[0] = gxp[0] + gx0;
-    if (LAM && c == 2) gxp[1] = gxp[1] + gx1;
+// n floats g -> s by all threads of the block, asynchronously: 16 bytes a
+// copy where g is 16-byte aligned (s is), the rest 4 bytes a copy
+__device__ __forceinline__ void load_run(float* s, const float* g, int n) {
+  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) == 0 ? n >> 2 : 0;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    ptx::cp_async16(s + 4 * i, g + 4 * i);
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x)
+    ptx::cp_async4(s + i, g + i);
+}
+
+// the tile's columns 0..n_px-1 of every plane: 16-byte pieces where the
+// planes' rows and g are 16-byte aligned, else 4-byte copies
+__device__ __forceinline__ void load_tile(float* tile, const float* g,
+                                          int Kp, int HW, int n_px,
+                                          bool vec) {
+  const int n4 = vec ? n_px >> 2 : 0;
+  for (int i = threadIdx.x; i < Kp * n4; i += blockDim.x) {
+    const int r = i / n4, q = 4 * (i - r * n4);
+    ptx::cp_async16(tile + slot(r, q),
+                    g + static_cast<size_t>(r) * HW + q);
+  }
+  const int rest = n_px - 4 * n4;
+  for (int i = threadIdx.x; i < Kp * rest; i += blockDim.x) {
+    const int r = i / rest, q = 4 * n4 + (i - r * rest);
+    ptx::cp_async4(tile + slot(r, q), g + static_cast<size_t>(r) * HW + q);
   }
 }
 
+// the tile back to the planes, as load_tile reads them
+__device__ __forceinline__ void store_tile(float* g, const float* tile,
+                                           int Kp, int HW, int n_px,
+                                           bool vec) {
+  const int n4 = vec ? n_px >> 2 : 0;
+  for (int i = threadIdx.x; i < Kp * n4; i += blockDim.x) {
+    const int r = i / n4, q = 4 * (i - r * n4);
+    *reinterpret_cast<float4*>(g + static_cast<size_t>(r) * HW + q) =
+        *reinterpret_cast<const float4*>(tile + slot(r, q));
+  }
+  const int rest = n_px - 4 * n4;
+  for (int i = threadIdx.x; i < Kp * rest; i += blockDim.x) {
+    const int r = i / rest, q = 4 * n4 + (i - r * rest);
+    g[static_cast<size_t>(r) * HW + q] = tile[slot(r, q)];
+  }
+}
+
+// shared memory a block uses: the tile, then x, then (backward) g and the
+// grad_x parts: a pixel's own channels, and channel 0's from channels 1
+// and 2 and channel 1's from channel 2
+int smem_floats(int Kp, int C, bool grad) {
+  return Kp * kTile + kTile * C * (grad ? 3 : 1) + (grad ? 3 * kTile : 0);
+}
+
+template <bool GRAD, bool LAM>
+__global__ void __launch_bounds__(32 * kMaxC * kSplit)
+    dmll_kernel(DmllArgs A) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = A.C, K = A.K, HW = A.HW;
+  const int groups = LAM ? 4 : 3;
+  const int Kp = groups * C * K;
+  const int b = blockIdx.x / A.tiles;
+  const int p0 = (blockIdx.x - b * A.tiles) * kTile;
+  const int n_px = min(kTile, HW - p0);
+  const size_t pix0 = static_cast<size_t>(b) * HW + p0;
+  const size_t base = static_cast<size_t>(b) * Kp * HW + p0;
+  const bool vec = (HW & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(A.l) |
+                     reinterpret_cast<uintptr_t>(GRAD ? A.gl : A.l)) &
+                    15) == 0;
+  float* tile = smem;
+  float* xs = tile + Kp * kTile;
+  float* gs = xs + kTile * C;
+  float* own = gs + kTile * C;      // (pixel, channel)
+  float* lam = own + kTile * C;     // [3][pixel]: 0 <- 1, 0 <- 2, 1 <- 2
+
+  load_tile(tile, A.l + base, Kp, HW, n_px, vec);
+  load_run(xs, A.x + pix0 * C, n_px * C);
+  if (GRAD) load_run(gs, A.g + pix0 * C, n_px * C);
+  ptx::cp_async_wait_all();
+  __syncthreads();
+
+  // this thread's (pixel, channel, sub); the lanes of a ragged tile's
+  // missing pixels run on their columns' stale values and write nothing
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = warp / kSplit;
+  const int p = (warp - c * kSplit) * kGroupPx + lane / kSplit;
+  const int s = lane & (kSplit - 1);
+  const bool on = p < n_px;
+  // this thread's component j of parameter group i, channel ch: plane
+  // (i C + ch) K + s + kSplit j, whose rows all have the parity of j = 0,
+  // so component j lies kSplit rows on from component j - 1
+  auto plane = [&](int i, int ch) {
+    return tile + slot((i * C + ch) * K + s, p);
+  };
+  constexpr int kNext = kSplit * kTile;
+  float* const t_pi = plane(0, c);
+  float* const t_mu = plane(1, c);
+  float* const t_ls = plane(2, c);
+  float* const t_l1 = LAM ? plane(3, c == 1 ? 0 : 1) : tile;  // lambda of x0
+  float* const t_l2 = LAM ? plane(3, 2) : tile;               // lambda of x1
+  const float xc = xs[p * C + c];
+  const float x0 = LAM ? xs[p * C] : 0.0f;
+  const float x1 = LAM ? xs[p * C + 1] : 0.0f;
+  const int branch =
+      xc < A.lower ? kLower : (xc > A.upper ? kUpper : kMiddle);
+
+  // log_softmax of the pi logits: (logit - max) - log(sum exp(. - max))
+  float logit[kSlots], e[kSlots] = {}, lw[kSlots] = {};
+  float lmax = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    if (s + kSplit * j < K) {
+      logit[j] = t_pi[kNext * j];
+      lmax = fmaxf(lmax, logit[j]);
+    }
+  lmax = group_max(lmax);
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    if (s + kSplit * j < K) e[j] = expf(logit[j] - lmax);
+  const float se = ordered_sum(e, K, s);
+  const float lse_pi = logf(se);
+
+  float wmax = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    if (s + kSplit * j >= K) continue;
+    const int q = kNext * j;
+    float mean = t_mu[q], s1 = 0.0f, s2 = 0.0f;
+    if (LAM && c == 1) {
+      s1 = sigmoid(t_l1[q]);
+      mean = mean + s1 * x0;
+    } else if (LAM && c == 2) {
+      s1 = sigmoid(t_l1[q]);
+      s2 = sigmoid(t_l2[q]);
+      mean = (mean + s1 * x0) + s2 * x1;
+    }
+    float dd, dls;
+    const float lp = term<GRAD>(xc, mean, t_ls[q], branch, A.half_bin, &dd,
+                                &dls);
+    lw[j] = lp + ((logit[j] - lmax) - lse_pi);
+    wmax = fmaxf(wmax, lw[j]);
+    if (GRAD && on) {   // kept in the slots of the values they came from
+      t_mu[q] = dd;
+      t_ls[q] = dls;
+      if (LAM && c >= 1) t_l1[q] = s1;
+      if (LAM && c == 2) t_l2[q] = s2;
+    }
+  }
+  wmax = group_max(wmax);
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    if (s + kSplit * j < K) lw[j] = expf(lw[j] - wmax);
+  const float sw = ordered_sum(lw, K, s);
+  if (!GRAD) {
+    if (on && s == 0) A.nll[(pix0 + p) * C + c] = -(logf(sw) + wmax);
+    return;
+  }
+
+  const float gv = gs[p * C + c];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    if (s + kSplit * j < K) lw[j] = lw[j] / sw;              // r_k
+  const float sum_r = ordered_sum(lw, K, s);
+  // per component: d nll / d (x - mean~), and the lambda terms' parts of
+  // grad_x of channels 0 and 1
+  float gd[kSlots] = {}, g0[kSlots] = {}, g1[kSlots] = {};
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    if (s + kSplit * j >= K) continue;
+    const int q = kNext * j;
+    const float pi = e[j] / se;
+    const float r = lw[j];
+    const float G = -(gv * r);                        // d nll / d lp_k
+    gd[j] = G * t_mu[q];
+    const float g_ls = G * t_ls[q];
+    float gl1 = 0.0f, gl2 = 0.0f;
+    if (LAM && c >= 1) {
+      const float s1 = t_l1[q];
+      gl1 = -gd[j] * x0 * (s1 * (1.0f - s1));
+      g0[j] = -gd[j] * s1;
+    }
+    if (LAM && c == 2) {
+      const float s2 = t_l2[q];
+      gl2 = -gd[j] * x1 * (s2 * (1.0f - s2));
+      g1[j] = -gd[j] * s2;
+    }
+    if (!on) continue;
+    t_pi[q] = gv * (pi * sum_r - r);
+    t_mu[q] = -gd[j];
+    t_ls[q] = g_ls;
+    if (LAM && c >= 1) t_l1[q] = gl1;
+    if (LAM && c == 2) t_l2[q] = gl2;
+  }
+  // (every warp shuffles: channel 0's g0, g1 and channel 1's g1 are 0)
+  const float gxc = ordered_sum(gd, K, s);
+  const float gx0 = LAM ? ordered_sum(g0, K, s) : 0.0f;
+  const float gx1 = LAM ? ordered_sum(g1, K, s) : 0.0f;
+  if (on && s == 0) {
+    own[p * C + c] = gxc;
+    if (LAM && c == 1) lam[p] = gx0;
+    if (LAM && c == 2) {
+      lam[kTile + p] = gx0;
+      lam[2 * kTile + p] = gx1;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_px * C; i += blockDim.x) {
+    float v = own[i];
+    if (LAM) {
+      const int q = i / C, ch = i - q * C;
+      if (ch == 0) v = (v + lam[q]) + lam[kTile + q];
+      if (ch == 1) v = v + lam[2 * kTile + q];
+    }
+    A.gx[pix0 * C + i] = v;
+  }
+  store_tile(A.gl + base, tile, Kp, HW, n_px, vec);
+}
+
 template <bool GRAD>
-int launch(const DmllArgs& A, bool lam, cudaStream_t stream) {
-  const dim3 grid((A.n + kThreads - 1) / kThreads);
+int launch(const DmllArgs& A, int N, bool lam, cudaStream_t stream) {
+  const int grid = N * A.tiles, threads = 32 * A.C * kSplit;
+  const int Kp = (lam ? 4 : 3) * A.C * A.K;
+  const size_t bytes = sizeof(float) * smem_floats(Kp, A.C, GRAD);
   if (lam)
-    dmll_kernel<GRAD, true><<<grid, kThreads, 0, stream>>>(A);
+    dmll_kernel<GRAD, true><<<grid, threads, bytes, stream>>>(A);
   else
-    dmll_kernel<GRAD, false><<<grid, kThreads, 0, stream>>>(A);
+    dmll_kernel<GRAD, false><<<grid, threads, bytes, stream>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_shape(int N, int HW, int C, int K, int lam) {
-  return K < 1 || K > kMaxK || C < 1 || N < 1 || HW < 1 ||
+  return K < 1 || K > kMaxK || C < 1 || C > kMaxC || N < 1 || HW < 1 ||
          (lam && C != 3) ||
          static_cast<long long>(N) * HW >= (1LL << 31);
+}
+
+DmllArgs args(const void* l, const void* x, const void* g, void* nll,
+              void* gl, void* gx, int HW, int C, int K, float half_bin,
+              float lower, float upper) {
+  return DmllArgs{static_cast<const float*>(l), static_cast<const float*>(x),
+                  static_cast<const float*>(g), static_cast<float*>(nll),
+                  static_cast<float*>(gl), static_cast<float*>(gx), HW, C,
+                  K, (HW + kTile - 1) / kTile, half_bin, lower, upper};
 }
 
 }  // namespace
@@ -248,10 +449,9 @@ extern "C" int l3c_dmll_nll(const void* l, const void* x, void* nll, int N,
                             float lower, float upper, void* stream) {
   if (bad_shape(N, HW, C, K, lam))
     return static_cast<int>(cudaErrorInvalidValue);
-  DmllArgs A{static_cast<const float*>(l), static_cast<const float*>(x),
-             nullptr, static_cast<float*>(nll), nullptr, nullptr,
-             N * HW, HW, C, K, half_bin, lower, upper};
-  return launch<false>(A, lam != 0, static_cast<cudaStream_t>(stream));
+  return launch<false>(args(l, x, nullptr, nll, nullptr, nullptr, HW, C, K,
+                            half_bin, lower, upper),
+                       N, lam != 0, static_cast<cudaStream_t>(stream));
 }
 
 // l, x as above, g (N, H, W, C) the gradient of nll -> grad_l in l's
@@ -262,9 +462,7 @@ extern "C" int l3c_dmll_nll_grad(const void* l, const void* x, const void* g,
                                  float upper, void* stream) {
   if (bad_shape(N, HW, C, K, lam))
     return static_cast<int>(cudaErrorInvalidValue);
-  DmllArgs A{static_cast<const float*>(l), static_cast<const float*>(x),
-             static_cast<const float*>(g), nullptr, static_cast<float*>(gl),
-             static_cast<float*>(gx), N * HW, HW, C, K, half_bin, lower,
-             upper};
-  return launch<true>(A, lam != 0, static_cast<cudaStream_t>(stream));
+  return launch<true>(args(l, x, g, nullptr, gl, gx, HW, C, K, half_bin,
+                           lower, upper),
+                      N, lam != 0, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
-// The PTX instructions float_cdf.cu uses directly, one device function
-// each: asynchronous copies from global into shared memory (cp.async) and
-// the special-function unit's approximate 2^x and 1/x. They are kept apart from the kernels so that a build for the host (the
-// CPU test of float_cdf.cu) can put plain copies and libm calls in their
+// The PTX instructions float_cdf.cu and dmll.cu use directly, one device
+// function each: asynchronous copies from global into shared memory
+// (cp.async) and the special-function unit's approximate 2^x and 1/x.
+// They are kept apart from the kernels so that a build for the host (the
+// CPU tests of both files) can put plain copies and libm calls in their
 // place: every function below has the same meaning there, the copies
 // being complete on return.
 #pragma once

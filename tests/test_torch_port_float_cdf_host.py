@@ -6,7 +6,10 @@ There is no CUDA compiler here, so the test compiles float_cdf.cu with g++
 against a small header that maps the CUDA constructs the file uses onto
 the host: each block runs as its threads' std::threads, `__syncthreads` is
 a std::barrier, shared memory a static array per kernel, and
-`kernel<<<...>>>(args)` one such block run per block of the grid. The
+`kernel<<<...>>>(args)` one such block run per block of the grid (the
+header also serves test_torch_port_dmll_host.py: a warp shuffle is an
+exchange through an array between two barriers, so every thread of the
+block must reach it, as every lane of a warp must on the card). The
 PTX the kernels use (csrc/ptx.cuh: the asynchronous copies, ex2.approx,
 rcp.approx) is replaced by a header of the same name with plain copies,
 exp2f and a division. The library is bound in place of
@@ -69,8 +72,19 @@ inline Dim blockDim, gridDim;
 inline std::barrier<>* g_block = nullptr;
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 struct int4 { int32_t x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline int4 make_int4(int32_t a, int32_t b, int32_t c, int32_t d) {
   return int4{a, b, c, d};
+}
+// a warp's exchange, for kernels whose every thread reaches each shuffle:
+// all threads of the block post their value, then read their partner's
+inline float g_shfl[1024];
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  g_shfl[threadIdx.x] = v;
+  __syncthreads();
+  const float got = g_shfl[threadIdx.x ^ lane_mask];
+  __syncthreads();
+  return got;
 }
 typedef void* cudaStream_t;
 typedef int cudaError_t;

@@ -1,6 +1,7 @@
 """The port's import boundary and its no-fallback rule.
 
-l3c_torch and chip_smoke.py must import nothing of JAX (jax, flax, optax)
+l3c_torch, chip_smoke.py and the card scripts beside it (profile_k6.py,
+train_fresh.py) must import nothing of JAX (jax, flax, optax)
 and nothing of the JAX package (l3c_tpu) or its tools, and no Pillow or
 msgpack (the card machine is not known to have them). An `ast` scan, not
 a sys.modules check: the environment may preload jax into every process.
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "l3c_tpu", "tools", "PIL",
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "profile_k6.py",
+                                           "train_fresh.py")]
     for d, subdirs, names in os.walk(os.path.join(ROOT, "l3c_torch")):
         subdirs[:] = [s for s in subdirs if s != "_build"]  # build output
         out += [os.path.join(d, n) for n in names if n.endswith(".py")]

@@ -387,11 +387,7 @@ def dmll_grads(fn, spec, x, l, g):
     return out.detach(), l.grad, x.grad
 
 
-@pytest.mark.parametrize("rgb,K,C,N,H", [(True, 10, 3, 2, 37),
-                                         (False, 10, 5, 2, 37),
-                                         (True, 2, 3, 1, 5),
-                                         (False, 3, 2, 1, 5)])
-def test_dmll_kernel_matches_plain(cuda, rgb, K, C, N, H):
+def _dmll_on_card(cuda, rgb, K, C, N, H, W, seed):
     """K6 forward and backward on the card against the plain version and
     its autograd gradient: on the card, which runs the same float32
     operations through the same libraries, every element within the tight
@@ -400,7 +396,7 @@ def test_dmll_kernel_matches_plain(cuda, rgb, K, C, N, H):
     each sigmoid adds a sum and a division). One launch each."""
     spec = dmll.DMLLSpec(True) if rgb else dmll.DMLLSpec(False, -1.0, 1.0,
                                                           25)
-    x, l = dmll_inputs(rgb, K, K + C, N=N, H=H, W=53, C=C)
+    x, l = dmll_inputs(rgb, K, seed, N=N, H=H, W=W, C=C)
     g = torch.from_numpy(np.random.RandomState(1).rand(*x.shape)
                          .astype(np.float32))
     n0 = dict(kernels.launches)
@@ -418,3 +414,21 @@ def test_dmll_kernel_matches_plain(cuda, rgb, K, C, N, H):
         assert_nll_close(got[0], want[0], spread[0])
         assert_grad_close("grad_l", got[1], want[1], spread[1])
         assert_grad_close("grad_x", got[2], want[2], spread[2])
+
+
+# W = 53 with seed K + C: the first cases; then the shapes of
+# test_torch_port_dmll_host.py's ragged tiles (K6's tile is 32 pixels of
+# one image): one pixel; several images with HW no multiple of the tile
+# nor of 4; HW a multiple of 4 with ragged and whole tiles; K = 3 and 10,
+# C = 3 with lambda and C = 5
+@pytest.mark.parametrize("rgb,K,C,N,H,W,seed", [
+    (True, 10, 3, 2, 37, 53, 13), (False, 10, 5, 2, 37, 53, 15),
+    (True, 2, 3, 1, 5, 53, 5), (False, 3, 2, 1, 5, 53, 5),
+    (True, 10, 3, 1, 1, 1, 11), (False, 10, 5, 3, 5, 7, 115),
+    (True, 3, 3, 3, 5, 7, 108), (False, 3, 5, 2, 4, 13, 107),
+    (True, 10, 3, 2, 4, 13, 114), (False, 10, 5, 2, 16, 12, 394),
+    (True, 10, 3, 1, 8, 16, 138)])
+def test_dmll_kernel_matches_plain(cuda, rgb, K, C, N, H, W, seed):
+    """K6 against the plain version on the card and on the CPU
+    (_dmll_on_card's bounds)."""
+    _dmll_on_card(cuda, rgb, K, C, N, H, W, seed)

@@ -16,6 +16,8 @@ Tolerances, each with its reason:
   1e-5 of each tensor's largest magnitude, the loss within 1e-5 relative,
   the parameter gradients within 1e-4 of each tensor's largest magnitude.
 """
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,12 +27,13 @@ import torch
 
 from l3c_tpu import blueprint as jbp
 from l3c_tpu.config import (DecConfig, DlConfig, EncConfig, MsConfig,
-                            ProbConfig, QConfig)
+                            ProbConfig, QConfig, load_ms_config)
 from l3c_tpu.models import dmll as jdmll
 from l3c_tpu.models import grids as jgrids
 from l3c_tpu.models import quantizer as jquant
 from l3c_tpu.models.network import MultiscaleNetwork as JNet
 from l3c_tpu.train import optim as joptim
+from l3c_tpu.train import saver as jsaver
 from l3c_tpu.train import schedule as jsched
 from l3c_tpu.train.trainer import Trainer as JTrainer
 from l3c_torch import blueprint as tbp
@@ -40,6 +43,7 @@ from l3c_torch.models import quantizer as tquant
 from l3c_torch.models.network import MultiscaleNetwork as TNet
 from l3c_torch.models.weights import params_from_jax, params_to_jax
 from l3c_torch.train import optim as toptim
+from l3c_torch.train import saver as tsaver
 from l3c_torch.train import schedule as tsched
 from l3c_torch.train.trainer import Trainer as TTrainer
 from tests.test_torch_port_kernels import (assert_grad_close,
@@ -362,3 +366,62 @@ def test_bfloat16_and_heavy_summaries_raise():
                  device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         t.train(1, heavy_every=1)
+
+
+# --------------------------------------------------------- r5b, resumed
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R5B = os.path.join(ROOT, "models_zoo",
+                   "0820_0345 cr oi_offline r@0819_0307 r5b")
+
+
+def test_r5b_resumed_steps_match_jax():
+    """r5b restored strictly in both packages at full cr.cf width, then
+    three RMSprop steps at cr.cf's lr 1e-4 held constant
+    (lr.schedule=none, as chip_smoke.py's resumed run) on the same seeded
+    2 x 64^2 batches. Held: each step's loss within 1e-5 relative, the
+    step and update count equal, and RMSprop's nu after each step, every
+    leaf, within (1e-5, 1e-4, 1e-2) of its largest magnitude. nu gains
+    1e-2 g^2 a step, and the two packages' float32 gradients part as the
+    steps overshoot (the gradient norm goes 15.7 -> 47.3 -> 94.4 in both):
+    on this CPU the largest departures were 7.9e-7, 1.1e-5 and 2.7e-3.
+    The overshoot is JAX's too, so the port is not its cause; the same
+    steps at r5b's final lr, 5e-6, stay within 5 % of the first loss."""
+    over = {"lr.schedule": "none"}
+    jc = load_ms_config(os.path.join(ROOT, "l3c_tpu", "configs", "ms",
+                                     "cr.cf"), over)
+    tc = tcfg.load_ms_config(os.path.join(ROOT, "l3c_torch", "configs",
+                                          "ms", "cr.cf"), over)
+    bs = batches(3, B=2, crop=64, seed=5)
+    jt = JTrainer(jc, DlConfig(batchsize_train=2, crop_size=64), JNet(jc),
+                  iter(bs), epoch_len=10)
+    assert jt.restore(jsaver.Restorer(R5B)) == 246250
+
+    def port(cfg):
+        tr = TTrainer(cfg, tcfg.DlConfig(batchsize_train=2, crop_size=64),
+                      TNet(cfg), [], epoch_len=10, device="cpu")
+        assert tr.restore(tsaver.Restorer(R5B)) == 246250
+        return tr
+
+    tt = port(tc)
+    got, want = [], []
+    for b, rel in zip(bs, (1e-5, 1e-4, 1e-2)):
+        jt.state, m = jt._step(jt.state, jnp.asarray(b))
+        want.append(float(m["loss_bpsp"]))
+        got.append(float(tt.train_step(b)["loss_bpsp"]))
+        js, ts = np_tree(jt.state), tt.state_tree()
+        assert int(ts["step"]) == int(js["step"])
+        assert int(ts["opt_state"]["1"]["count"]) == int(
+            js["opt_state"]["1"]["count"])
+        assert_tree_close(ts["opt_state"]["0"]["nu"],
+                          js["opt_state"]["0"]["nu"], rel)
+    assert int(ts["step"]) == 246253
+    low = port(tcfg.load_ms_config(os.path.join(
+        ROOT, "l3c_torch", "configs", "ms", "cr.cf"),
+        dict(over, **{"lr.initial": 5e-6})))
+    slow = [float(low.train_step(b)["loss_bpsp"]) for b in bs]
+    print(f"r5b resumed, 3 steps: lr 1e-4 port {got} JAX {want}; "
+          f"lr 5e-6 port {slow}")
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[2] > 1.2 * got[0] and want[2] > 1.2 * want[0]
+    assert max(abs(v / slow[0] - 1) for v in slow) < 0.05
