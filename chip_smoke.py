@@ -59,7 +59,22 @@ Phases (each raises on failure; none carries on after another failed):
               3 x K6 forward)
   6. profile  device time by op and by kernel over one more encode+decode
               round (torch.profiler), and the device's busy share
-  7. train    training through cli.train.main at full cr.cf width, batch
+  7. serve    bench.py's serving configuration, in float32 and in
+              bfloat16 (r5b's parameters, the conv stacks in bf16): theory
+              and file bpsp of the 8 images, a bit-exact round at fbatch 8
+              and at fbatch 1, then its three shapes through the async
+              pairs (encode_batch_async / _finish, decode_batch_async /
+              _finish, verify_batch_async / _finish): phase-split,
+              duplex and device-resident duplex, depth 2, 4 rounds after
+              a warm-up; every round bit-exact, its files byte-identical
+              to encode_batch's, its launches exactly an encode's and a
+              decode's; MP/s, median round, device-busy share
+  8. limits   every kernel where the JAX package's sizes pass its fast
+              variant (K6 at q.C = 9 and 16; K1-K6 at K = 12 and 16; K1
+              and K3/K4 at L = 40), 2 x 64^2 pixels, against its plain
+              version at the main path's bounds (K3/K4 exact, round
+              trip), each timed beside its plain version and bound
+  9. train    training through cli.train.main at full cr.cf width, batch
               16 x 128^2 (oi_offline.cf) on seeded PNGs: K6 (the mixture
               NLL, forward and backward) against its plain version on r5b's
               outputs at the three scales, timed by CUDA events around one
@@ -73,8 +88,12 @@ Phases (each raises on failure; none carries on after another failed):
               fresh initialisation from each of three seeds lower the
               validation bpsp in at least two; every step
               exactly 3 + 3 K6 launches and no plain nll on the card; step
-              time, peak memory and one profiled step by kind
-  8. report   one JSON line of kernel records, the card line, then
+              time, peak memory and one profiled step by kind; r5b resumed
+              in bfloat16 (-p compute_dtype='bfloat16') for 8 steps, the
+              first loss equal to the bf16 eval forward's, its step time
+              and profiled step, and every convolution's output and
+              weight gradient equal over two runs (deterministic cuDNN)
+ 10. report   one JSON line of kernel records, the card line, then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
@@ -82,6 +101,7 @@ Exits non-zero, printing no result, without CUDA or without the repo.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -1162,6 +1182,402 @@ def phase_profile(bc, imgs, round_ms):
                 f" ms {e.count:6d}x  {e.key[:80]}")
 
 
+# ------------------------------------------------------------------ serve
+
+# bench.py's serving configuration: its three shapes (phase-split
+# :236-266, duplex :215-235, device-resident duplex with the on-device
+# verification :193-214), each in float32 and in bfloat16 (bench.py:35-37
+# serves with compute_dtype bfloat16): SERVE_ROUNDS timed rounds after
+# one warm-up round, SERVE_DEPTH batches in flight
+SERVE_ROUNDS, SERVE_DEPTH = 4, 2
+SERVE_SHAPES = ("phase-split", "duplex", "resident")
+
+
+def with_dtype(cfg, net, dtype):
+    """(cfg, a copy of net on the card) computing in `dtype`, with the
+    same float32 parameters."""
+    c = dataclasses.replace(cfg, compute_dtype=dtype)
+    n = MultiscaleNetwork(c)
+    n.load_state_dict(net.state_dict())
+    return c, n.cuda().eval()
+
+
+def pipeline(disp, fin, n: int) -> List[float]:
+    """bench.py's duplex loop at depth SERVE_DEPTH: n dispatches, every
+    round dispatching one and finishing the oldest in flight. Returns the
+    ms of the rounds that began with a dispatch, the first (the warm-up)
+    left out; the drain is not timed."""
+    inflight = [disp(i) for i in range(SERVE_DEPTH - 1)]
+    rounds = []
+    for i in range(SERVE_DEPTH - 1, n + SERVE_DEPTH - 1):
+        t0 = time.perf_counter()
+        if i < n:
+            inflight.append(disp(i))
+        fin(inflight.pop(0))
+        if i < n:
+            rounds.append((time.perf_counter() - t0) * 1e3)
+    return rounds[1:]
+
+
+def device_busy_ms(fn) -> float:
+    """Device time of the kernels fn() launches (torch.profiler), ms."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0
+               and str(e.device_type).endswith("CUDA")) / 1e3
+
+
+def serve_shape(bc, shape, imgs, d, warm, ref):
+    """One serving shape at full size: (MP/s, median round ms, the rounds'
+    ms, launches a round, device-busy ms a round). Every decoded batch
+    must equal the images and every encoded file encode_batch's bytes
+    `ref`; the round's launches must be exactly an encode's and a
+    decode's."""
+    n = SERVE_ROUNDS + 2
+    dt = bc.cfg.compute_dtype
+    paths = lambda tag, i: [os.path.join(d, f"{dt}_{shape}{tag}{i}_{b}.l3c")
+                            for b in range(B)]
+
+    def files_equal(ps):
+        for p, want in zip(ps, ref):
+            with open(p, "rb") as f:
+                if f.read() != want:
+                    raise RuntimeError(f"serve {shape}: the encode pair's "
+                                       f"{p} differs from encode_batch's")
+
+    def pixels_equal(outs):
+        for o, im in zip(outs, imgs):
+            if not np.array_equal(o, im):
+                raise RuntimeError(f"serve {shape}: round NOT bit-exact")
+
+    staged = bc.stage_batch(imgs) if shape == "resident" else None
+    want_hash = np_content_hash(np.concatenate(imgs)) if staged else None
+
+    def verified(vh):
+        ok, h = bc.verify_batch_finish(vh)
+        if not ok or h != want_hash:
+            raise RuntimeError(f"serve {shape}: on-device verification "
+                               f"failed (flag {ok}, hash {h:#010x})")
+
+    if shape == "phase-split":
+        def enc_disp(i):
+            return bc.encode_batch_async(imgs, paths("e", i)), paths("e", i)
+
+        def enc_fin(h):
+            bc.encode_batch_finish(h[0])
+            files_equal(h[1])
+
+        def dec_fin(h):
+            pixels_equal(bc.decode_batch_finish(h))
+
+        kernels.reset_launches()
+        enc = pipeline(enc_disp, enc_fin, n)
+        dec = pipeline(lambda i: bc.decode_batch_async(paths("e", i)),
+                       dec_fin, n)
+        launches = dict(kernels.launches)
+        med = statistics.median(enc) + statistics.median(dec)
+        rounds = [a + b for a, b in zip(enc, dec)]
+        busy = device_busy_ms(lambda: (
+            enc_fin(enc_disp(n)), dec_fin(bc.decode_batch_async(warm))))
+    else:
+        def disp(i):
+            e = bc.encode_batch_async(None if staged else imgs,
+                                      paths("d", i), staged=staged)
+            return e, bc.decode_batch_async(warm), paths("d", i)
+
+        def fin(h):
+            bc.encode_batch_finish(h[0])
+            files_equal(h[2])
+            if staged is None:
+                pixels_equal(bc.decode_batch_finish(h[1]))
+            else:
+                verified(bc.verify_batch_async(h[1], staged))
+
+        kernels.reset_launches()
+        rounds = pipeline(disp, fin, n)
+        launches = dict(kernels.launches)
+        med = statistics.median(rounds)
+        busy = device_busy_ms(lambda: fin(disp(n)))
+    per_round = {k: v / n for k, v in launches.items() if v}
+    want = {k: ENCODE.get(k, 0) + DECODE.get(k, 0) for k in kernels.KERNELS}
+    if {k: launches.get(k, 0) for k in kernels.KERNELS} != {
+            k: v * n for k, v in want.items()}:
+        raise RuntimeError(f"serve {shape}: {n} rounds launched "
+                           f"{launches}, expected {want} a round")
+    return B * SZ * SZ / 1e6 / med * 1e3, med, rounds, per_round, busy
+
+
+def phase_serve(cfg, net, imgs, card):
+    """bench.py's serving configuration on the card, in float32 and in
+    bfloat16 (the same r5b parameters): theory and file bpsp of the 8
+    images, a bit-exact round at fbatch 8 and at fbatch 1 through the
+    synchronous calls, then the three shapes through the async pairs,
+    each round bit-exact, its files byte-identical to encode_batch's and
+    its launches exactly an encode's and a decode's."""
+    mp = B * SZ * SZ / 1e6
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="l3c_serve_") as d:
+        for dtype in ("float32", "bfloat16"):
+            cfg_d, net_d = ((cfg, net) if dtype == "float32" else
+                            with_dtype(cfg, net, dtype))
+            bc = TorchBitcoding(cfg_d, net_d, device="cuda",
+                                coder_profile="balanced", coder_topk=4)
+            with torch.inference_mode():
+                theory = float(blueprint.total_bpsp(blueprint.compute_loss(
+                    cfg_d, net_d(torch.from_numpy(np.concatenate(imgs))
+                                 .cuda().float()))))
+            warm = [os.path.join(d, f"{dtype}_w{b}.l3c") for b in range(B)]
+            file_bpsp = float(np.mean(bc.encode_batch(imgs, warm)))
+            ref = []
+            for p in warm:
+                with open(p, "rb") as f:
+                    ref.append(f.read())
+            outs = bc.decode_batch(warm)
+            one = [os.path.join(d, f"{dtype}_one.l3c")]
+            bc.encode_batch(imgs[:1], one)
+            outs += bc.decode_batch(one)
+            for o, im in zip(outs, imgs + imgs[:1]):
+                if not np.array_equal(o, im):
+                    raise RuntimeError(f"serve {dtype}: encode_batch / "
+                                       "decode_batch NOT bit-exact")
+            log(f"[serve] {dtype}: theory bpsp {theory:.6f}, file bpsp "
+                f"{file_bpsp:.6f} on {B}x{SZ}x{SZ}; bit-exact at fbatch 8 "
+                f"and at fbatch 1 | {card}")
+            res[dtype] = dict(theory=theory, file=file_bpsp)
+            for shape in SERVE_SHAPES:
+                mps, med, rounds, per_round, busy = serve_shape(
+                    bc, shape, imgs, d, warm, ref)
+                res[dtype][shape] = mps
+                log(f"[serve] {dtype} {shape}: {mps:.3f} MP/s ({mp:.3f} MP "
+                    f"a round), median round {med:.1f} ms of "
+                    f"{[round(r, 1) for r in rounds]} (depth {SERVE_DEPTH}, "
+                    f"{SERVE_ROUNDS} after a warm-up), device busy "
+                    f"{busy:.1f} ms a round = {100 * busy / med:.1f}%, "
+                    f"launches a round {per_round} | {card}")
+            del bc, net_d
+    f32, bf = res["float32"], res["bfloat16"]
+    log(f"[serve] bfloat16 vs float32 on the same {B} images: theory bpsp "
+        f"{bf['theory']:.6f} vs {f32['theory']:.6f} "
+        f"({100 * (bf['theory'] / f32['theory'] - 1):+.3f}%), file bpsp "
+        f"{bf['file']:.6f} vs {f32['file']:.6f} "
+        f"({100 * (bf['file'] / f32['file'] - 1):+.3f}%); MP/s "
+        + ", ".join(f"{s} {bf[s]:.3f} vs {f32[s]:.3f}"
+                    for s in SERVE_SHAPES) + f" | {card}")
+    return res
+
+
+# ----------------------------------------------------------------- limits
+
+# the sizes the JAX package takes where the kernels' fast variants stop:
+# K6 at q.C = 9 and 16 (channel groups of 8), every kernel at K = 12 and
+# 16 (the generic variants), K1 and K3/K4 at L = 40
+LIMIT_K6 = ((False, 10, 9), (False, 4, 16), (True, 12, 3), (False, 16, 5),
+            (True, 16, 3))
+LIMIT_SIDE, LIMIT_N = 64, 2
+
+
+def limit_line(label, ms, plain_ms, b):
+    log(f"[limits] {label}: {ms * 1e3:.1f} us/launch | plain "
+        f"{plain_ms * 1e3:.1f} us | bound {b[0] * 1e3:.2f} us ({b[1]})")
+
+
+def phase_limits(cfg, card, dev="cuda"):
+    """Every kernel where the JAX package's sizes pass its fast variant,
+    at LIMIT_N x LIMIT_SIDE^2 pixels, against its plain version on the
+    card at the bound the kernel is held to on the main path; each timed
+    (CUDA events around one call) beside its plain version and bound."""
+    from l3c_torch.models import dmll
+    n_px = LIMIT_N * LIMIT_SIDE ** 2
+    # ---- K6: channel groups and the generic variant
+    for rgb, K, C in LIMIT_K6:
+        spec = (blueprint.rgb_spec(cfg) if rgb else blueprint.bn_spec(cfg))
+        x, l_nchw, g = k6_inputs(rgb, K, C, LIMIT_N, LIMIT_SIDE, LIMIT_SIDE,
+                                 K + C)
+        kernels.reset_launches()
+        got = k6_grads(dmll.nll, spec, x, l_nchw, g)
+        if dict(kernels.launches) != {"dmll_nll": 1, "dmll_nll_grad": 1}:
+            raise RuntimeError(f"K6 launches {dict(kernels.launches)}")
+        want = k6_grads(dmll.nll_plain, spec, x, l_nchw, g)
+        label = f"K6 {'RGB' if rgb else 'bn'} K={K} C={C}"
+        stats, _ = k6_agree(label, got, want)
+        log(f"[limits] {label} vs plain: {stats}")
+        lv = l_nchw.permute(0, 2, 3, 1)
+        fwd = lambda f: f(spec, x, lv)
+        limit_line(f"{label} dmll_nll", cuda_ms(lambda: fwd(dmll.nll)),
+                   cuda_ms(lambda: fwd(dmll.nll_plain), 3),
+                   k6_bound(l_nchw, x, spec, False))
+        half, lo, up = (spec.bin_width / 2, spec.x_lower_bound,
+                        spec.x_upper_bound)
+        limit_line(f"{label} dmll_nll_grad", cuda_ms(
+            lambda: kernels.dmll_nll_grad(l_nchw, x, g, rgb, half, lo, up)),
+            cuda_ms(lambda: k6_grads(dmll.nll_plain, spec, x, l_nchw, g), 3)
+            - cuda_ms(lambda: fwd(dmll.nll_plain), 3),
+            k6_bound(l_nchw, x, spec, True))
+    # ---- K5 generic, then K3/K4 on its IntParams
+    gc = gpu_coder
+    for K in (12, 16):
+        for rgb in (True, False):
+            L = 25 if K == 12 else 40
+            spec = (blueprint.rgb_spec(cfg) if rgb else
+                    dmll.DMLLSpec(False, -1.0, 1.0, L))
+            C = 3 if rgb else cfg.q.C
+            rng = np.random.RandomState(K + rgb)
+            l = torch.from_numpy((rng.randn(
+                LIMIT_N, spec.num_params * C * K, LIMIT_SIDE, LIMIT_SIDE)
+                * 2.0).astype(np.float32)).to(dev)
+            for topk in (4, 0):
+                KS = topk or K
+                got = pack_int(spec, l, C, topk)
+                diffs = pack_diffs(got, int_coder.pack_int_params_nchw(
+                    spec, l, C, topk))
+                n_bad = sum(a for a, _ in diffs.values())
+                n_all = sum(b for _, b in diffs.values())
+                label = f"K5 {'RGB' if rgb else 'bn'} K={K} topk {topk}"
+                log(f"[limits] {label} vs plain: {n_bad}/{n_all} entries "
+                    "one step off")
+                if n_bad > 1e-3 * n_all:
+                    raise RuntimeError(f"{label}: too many entries differ")
+                limit_line(label, cuda_ms(lambda: pack_int(spec, l, C, topk)),
+                           cuda_ms(lambda: int_coder.pack_int_params_nchw(
+                               spec, l, C, topk), 3),
+                           pack_bound(l.shape[1], C, K, KS, rgb, n_px))
+            ip = pack_int(spec, l, C, 0)        # K' = K: the generic coder
+            coder_limits(f"K={K}", ip, rgb, C, L, dev)
+    # ---- K3/K4 at L = 40 with K' <= 10 (the tiles' registers, the generic
+    # row length), and the uniform unit at L = 40
+    spec40 = dmll.DMLLSpec(False, -1.0, 1.0, 40)
+    rng = np.random.RandomState(40)
+    l = torch.from_numpy((rng.randn(LIMIT_N, 3 * cfg.q.C * 10, LIMIT_SIDE,
+                                    LIMIT_SIDE) * 2.0).astype(np.float32)
+                         ).to(dev)
+    coder_limits("K'=4", pack_int(spec40, l, cfg.q.C, 4), False,
+                 cfg.q.C, 40, dev)
+    syms = torch.from_numpy(rng.randint(0, 40, (cfg.q.C * n_px,))).to(dev)
+    lay = gc.layout_for(n_px, cfg.q.C, 256)
+    coder_pair("uniform L=40", lambda: gc.encode_uniform(syms, 40, lay),
+               lambda: gc.encode_uniform_plain(syms, 40, lay),
+               lambda w: gc.decode_uniform(w, 40, lay),
+               lambda w: gc.decode_uniform_plain(w, 40, lay),
+               syms.reshape(cfg.q.C, -1), ("enc uniform", "dec uniform"),
+               None, n_px * cfg.q.C, 40)
+    # ---- K1 / K2 at K = 12 and 16, K1 at L = 40
+    bw, t0 = float_cdf._bw_t0(blueprint.rgb_spec(cfg))
+    for K, L in ((12, 16), (16, 16), (10, 40), (16, 40)):
+        rng = np.random.RandomState(K * L)
+        P = n_px
+        p3 = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+            rng.dirichlet(np.ones(K), size=P), rng.uniform(-20, 280, (P, K)),
+            np.exp(-rng.uniform(-3, 4, (P, K))))]
+        t = torch.arange(L, dtype=torch.float32, device=dev) * (
+            256.0 / L) - 0.5
+        a = (p3[1][:, 0] / 16.0).clamp(0, 15).floor()
+        float_rows_hold(f"limits K={K} L={L}", *p3, t, a, bw, t0)
+        limit_line(f"K1 K={K} L={L}", cuda_ms(
+            lambda: kernels.mixture_cdf_q(*p3, t, L)), cuda_ms(
+            lambda: float_cdf.mixture_cdf_q_plain(*p3, t, L), 3),
+            bound(3 * P * K * 4 + L * 4 + P * L * 2,
+                  P * L * K * OPS_FLOAT_TERM + P * L * OPS_FLOAT_ENTRY))
+        if L == 16:
+            limit_line(f"K2 K={K}", cuda_ms(
+                lambda: kernels.fine_cdf_q(*p3, a, bw, t0)), cuda_ms(
+                lambda: float_cdf.fine_cdf_q_plain(*p3, a, bw, t0), 3),
+                bound(3 * P * K * 4 + P + P * 16 * 2,
+                      P * 17 * K * OPS_FLOAT_TERM
+                      + P * (16 * OPS_FINE_ENTRY + OPS_FINE_PIXEL)))
+    log(f"[limits] every kernel at q.C = 9 / 16, K = 12 / 16 and L = 40 "
+        f"held to its plain version | {card}")
+
+
+def coder_pair(label, enc, enc_plain, dec, dec_plain, truth, modes, ip,
+               n_sym, L, c=0):
+    """One K3 encode and its K4 decode against their plain versions:
+    lengths and used words identical, symbols identical and equal to the
+    coded ones; both timed."""
+    (w, ln), (wp, lp) = enc(), enc_plain()
+    used = lambda w_, l_: w_[torch.arange(w_.shape[1], device=w_.device)[
+        None] < l_[:, None]]
+    if not (torch.equal(ln, lp) and torch.equal(used(w, ln), used(wp, lp))):
+        raise RuntimeError(f"K3 {label} differs from its plain version")
+    words = w[:, :int(ln.max())].contiguous()
+    got, want = dec(words), dec_plain(words)
+    if not torch.equal(got, want) or not torch.equal(
+            got.reshape(truth.shape).long(), truth.long()):
+        raise RuntimeError(f"K4 {label}: symbols differ or do not round-trip")
+    n_words = int(ln.sum())
+    limit_line(f"K3 {label}", cuda_ms(enc), cuda_ms(enc_plain, 1),
+               coder_bound(modes[0], ip, n_sym, n_words, c, L))
+    limit_line(f"K4 {label}", cuda_ms(lambda: dec(words)),
+               cuda_ms(lambda: dec_plain(words), 1),
+               coder_bound(modes[1], ip, n_sym, n_words, c, L))
+    log(f"[limits] K3/K4 {label}: words, lengths and symbols equal to the "
+        "plain versions', round trip exact")
+
+
+def coder_limits(tag, ip, rgb, C, L, dev):
+    """K3/K4 on IntParams `ip` (C, K', N): the bn unit at L symbols, or
+    the stacked RGB units and every channel's coarse and fine decode."""
+    gc = gpu_coder
+    N = ip.p.shape[2]
+    rng = np.random.RandomState(N + C)
+    if not rgb:
+        syms = torch.from_numpy(rng.randint(0, L, (C, N))).to(dev)
+        lay = gc.layout_for(N, C, 256)
+        coder_pair(f"bn {tag} L={L}",
+                   lambda: gc.encode_bn(ip, syms, L, lay),
+                   lambda: gc.encode_bn_plain(ip, syms, L, lay),
+                   lambda w: gc.decode_bn(ip, w, L, lay),
+                   lambda w: gc.decode_bn_plain(ip, w, L, lay), syms,
+                   ("enc bn", "dec bn"), ip, N * C, L)
+        return
+    img = torch.from_numpy(rng.randint(0, 256, (3, N))).to(dev)
+    lay6, lay = gc.layout_for(N, 6, 256), gc.layout_for(N, 1, 256)
+    w6, l6 = gc.encode_rgb(ip, img, lay6)
+    wp, lp = gc.encode_rgb_plain(ip, img, lay6)
+    used = lambda w_, l_: w_[torch.arange(w_.shape[1], device=w_.device)[
+        None] < l_[:, None]]
+    if not (torch.equal(l6, lp) and torch.equal(used(w6, l6),
+                                                used(wp, lp))):
+        raise RuntimeError(f"K3 RGB {tag} differs from its plain version")
+    limit_line(f"K3 RGB {tag}", cuda_ms(lambda: gc.encode_rgb(ip, img, lay6)),
+               cuda_ms(lambda: gc.encode_rgb_plain(ip, img, lay6), 1),
+               coder_bound("enc rgb", ip, N, int(l6.sum())))
+    ns, half = lay.ns_c, lay6.lanes // 2
+    dec = torch.zeros((3, N), dtype=torch.uint8, device=dev)
+    for c in range(3):
+        wc = w6[c * ns:(c + 1) * ns]
+        wf = w6[half + c * ns:half + (c + 1) * ns]
+        wc, wf = (w[:, :int(ln.max())].contiguous() for w, ln in (
+            (wc, l6[c * ns:(c + 1) * ns]),
+            (wf, l6[half + c * ns:half + (c + 1) * ns])))
+        a = gc.decode_rgb_coarse(ip, c, dec, wc, lay)
+        b = gc.decode_rgb_fine(ip, c, dec, a, wf, lay)
+        if not (torch.equal(a, gc.decode_rgb_coarse_plain(ip, c, dec, wc,
+                                                          lay))
+                and torch.equal(b, gc.decode_rgb_fine_plain(ip, c, dec, a,
+                                                            wf, lay))):
+            raise RuntimeError(f"K4 RGB {tag} channel {c} differs from its "
+                               "plain version")
+        if c == 0:
+            limit_line(f"K4 RGB coarse {tag}", cuda_ms(
+                lambda: gc.decode_rgb_coarse(ip, c, dec, wc, lay)), cuda_ms(
+                lambda: gc.decode_rgb_coarse_plain(ip, c, dec, wc, lay), 1),
+                coder_bound("dec rgb_coarse", ip, N, int(l6[:ns].sum())))
+            limit_line(f"K4 RGB fine {tag}", cuda_ms(
+                lambda: gc.decode_rgb_fine(ip, c, dec, a, wf, lay)), cuda_ms(
+                lambda: gc.decode_rgb_fine_plain(ip, c, dec, a, wf, lay), 1),
+                coder_bound("dec rgb_fine", ip, N,
+                            int(l6[half:half + ns].sum())))
+        dec[c] = (a << 4) | b
+    if not torch.equal(dec.long(), img.long()):
+        raise RuntimeError(f"K3/K4 RGB {tag}: no round trip")
+    log(f"[limits] K3/K4 RGB {tag}: words, lengths and symbols equal to the "
+        "plain versions', round trip exact")
+
+
 # ------------------------------------------------------------------ train
 
 # K6 a launch when it ran one thread a pixel (ms, CUDA events around one
@@ -1208,6 +1624,11 @@ def k6_bound(l_nchw, x, spec, grad: bool):
                                      else (Kp + 2 * C) * n_px * 4)
     return bound(n_bytes, ops)
 TRAIN_STEPS_RESUMED, TRAIN_STEPS_FRESH, TRAIN_WARMUP = 20, 40, 3
+# r5b resumed in bfloat16 (-p compute_dtype='bfloat16'): steps, and the
+# first loss's tolerance against the bf16 eval forward's (the training
+# forward reads the straight-through bottleneck, equal to the hard one up
+# to a float32 rounding, which a bf16 cast may carry on)
+TRAIN_STEPS_BF16, BF16_FIRST_LOSS_REL = 8, 1e-4
 # cli.train --seed of the fresh runs: the validation bpsp must fall in a
 # majority of them. Within its first steps a fresh run at cr.cf's lr can
 # fall into a state where the loss stays at ~40 bpsp, and which runs do
@@ -1583,6 +2004,54 @@ def phase_train(net, cfg, card):
         log(f"[train] cli.l3c enc+dec with {new_dir[0]} (step {end}): "
             f"bit-exact, file bpsp {os.path.getsize(coded) * 8 / img.size:.6f}")
 
+        # ---- bfloat16: r5b resumed at the same settings with -p
+        # compute_dtype='bfloat16'
+        bf_cfg, bf_net = with_dtype(cfg, net, "bfloat16")
+        with torch.no_grad():
+            loss_bf = float(blueprint.compute_loss(bf_cfg, bf_net(
+                torch.from_numpy(batch).cuda().float())).loss_pc)
+        del bf_net
+        root_bf = os.path.join(d, "logs_bf16")
+        os.makedirs(root_bf)
+        os.symlink(os.path.dirname(os.path.dirname(CKPT)),
+                   os.path.join(root_bf, os.path.basename(
+                       os.path.dirname(os.path.dirname(CKPT)))))
+        seen.update(losses=[], steps=[], starts=[])
+        plain["nll_plain"] = 0
+        unpatch = count_cuda_calls(dmll, ["nll_plain"], plain)
+        try:
+            with patched(Trainer, "restore", restore), \
+                    patched(Trainer, "train_step", step):
+                kernels.reset_launches()
+                run_cli(train_cli.main, [
+                    ms_cf, dl_cf, root_bf, *data, "-p", "lr.schedule='none'",
+                    "-p", "compute_dtype='bfloat16'", "--restore", LOG_DATE,
+                    "--num_itr", str(TRAIN_STEPS_BF16), "--log_train", "4",
+                    "--log_val", "0"])
+                bf_launches = dict(kernels.launches)
+        finally:
+            unpatch()
+        want = {k: TRAIN_STEPS_BF16 * v for k, v in per_step.items()}
+        losses = seen["losses"]
+        rel = abs(losses[0] - loss_bf) / loss_bf
+        bf_ms = statistics.median(seen["steps"][TRAIN_WARMUP:]) * 1e3
+        log(f"[train] bf16: r5b resumed {TRAIN_STEPS_BF16} steps with "
+            f"compute_dtype='bfloat16': first loss_bpsp {losses[0]:.7f} vs "
+            f"the bf16 eval forward's {loss_bf:.7f} (rel {rel:.2e}; float32 "
+            f"eval {loss_eval:.7f}); losses {[round(v, 4) for v in losses]};"
+            f" step {bf_ms:.2f} ms (median after {TRAIN_WARMUP} warm-up); "
+            f"launches { {k: v for k, v in bf_launches.items() if v} }; "
+            f"plain nll calls on CUDA tensors {plain['nll_plain']} | {card}")
+        if {k: bf_launches.get(k, 0) for k in want} != want or \
+                plain["nll_plain"]:
+            raise RuntimeError("bf16 training did not run through K6 alone")
+        if rel > BF16_FIRST_LOSS_REL or not all(math.isfinite(v)
+                                                for v in losses):
+            raise RuntimeError("bf16 resumed losses wrong or not finite")
+        conv_determinism(seen["trainer"].net, batch)
+        profile_step(seen["trainer"], batch, bf_ms)
+        seen.pop("trainer")
+
         # ---- fresh initialisation, TRAIN_STEPS_FRESH steps a seed
         vals, falls = {}, []
 
@@ -1643,6 +2112,44 @@ def phase_train(net, cfg, card):
     for args in pending:
         record(*args)
     return recs
+
+
+def conv_determinism(net, batch):
+    """numerics_guard's deterministic cuDNN on every convolution of `net`
+    in its compute dtype: a training forward and backward run twice on
+    `batch` must give every conv's output and every parameter's gradient
+    bit for bit; raises naming the first conv that differs."""
+    outs = [{}, {}]
+    convs = [(n, m) for n, m in net.named_modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    for run in range(2):
+        hooks = [m.register_forward_hook(
+            lambda m_, i_, o_, n_=n: outs[run].__setitem__(n_, o_.detach()))
+            for n, m in convs]
+        net.zero_grad(set_to_none=True)
+        out = net(torch.from_numpy(batch).cuda().float(), train=True)
+        loss = blueprint.compute_loss(net.cfg, out).loss_pc
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        outs[run]["grads"] = {n: m.weight.grad.clone() for n, m in convs}
+    for n, m in convs:
+        if not torch.equal(outs[0][n], outs[1][n]):
+            raise RuntimeError(f"conv {n} ({outs[0][n].dtype}): two "
+                               "forwards differ; cuDNN picked a "
+                               "nondeterministic algorithm")
+        if not torch.equal(outs[0]["grads"][n], outs[1]["grads"][n]):
+            raise RuntimeError(f"conv {n}: two backwards give other weight "
+                               "gradients; cuDNN picked a nondeterministic "
+                               "algorithm")
+    net.zero_grad(set_to_none=True)
+    dts = sorted({str(outs[0][n].dtype) for n, _ in convs})
+    log(f"[train] {len(convs)} convolutions ({', '.join(dts)}; dilated "
+        f"ones included): forward outputs and weight gradients equal bit "
+        f"for bit over two runs (cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic}, benchmark "
+        f"{torch.backends.cudnn.benchmark}, allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32})")
 
 
 def profile_step(trainer, batch, step_ms):
@@ -1718,6 +2225,8 @@ def main() -> int:
     cli_counts = phase_cli(bc, imgs, theory, card)
     phase_profile(bc, imgs, round_ms)
     del bc
+    phase_serve(cfg, net, imgs, card)
+    phase_limits(cfg, card)
     recs += phase_train(net, cfg, card)
     for rec in recs:
         rec["cli_launches"] = cli_counts.get(rec["name"], 0)

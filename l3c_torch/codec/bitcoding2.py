@@ -14,6 +14,16 @@ smaller than fbatch are padded by repeating image 0 (encode) / file 0
 (decode). Everything downstream of pack_int_params is exact-integer math
 (ops/int_coder.py), identical in any program shape.
 
+Host and device overlap as in the JAX package: encode_batch_async,
+decode_batch_async and verify_batch_async dispatch a batch's device work
+on PyTorch's current stream and return a handle without waiting for the
+card; their _finish halves make the one fetch and the host's file work.
+Uploads go through pinned buffers (non_blocking), and an encode's lengths
+and words leave the card in one non_blocking copy into pinned memory
+behind an event. Dispatching batch i + 1 (or a decode) before finishing
+batch i keeps the card busy while the host writes or parses files; the
+bytes are those of the one-after-the-other order.
+
 Scale coding structure (per image, one file "unit" each):
   unit 0:            coarsest bottleneck, uniform prior, all channels
   per scale coarse->fine:
@@ -88,6 +98,51 @@ def _ungroup_syms(flat_gn: torch.Tensor, F: int, h: int, w: int
     """(C*F, n) -> (F,h,w,C)."""
     C = flat_gn.shape[0] // F
     return flat_gn.reshape(C, F, h, w).permute(1, 2, 3, 0)
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: on the card through a pinned buffer,
+    non_blocking on the current stream (PyTorch's pinned-memory cache
+    keeps the buffer until the copy has run), so the host goes on."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _fetch_async(parts: Sequence[Tuple[torch.Tensor, bool]]) -> dict:
+    """Start one device-to-host copy of (int32 tensor, wide) parts holding
+    u16 values (words) or, wide, int32 ones (lengths): flattened into one
+    int16 buffer on the device, copied non_blocking into pinned memory on
+    the current stream, an event recorded behind it. _fetch_finish
+    waits."""
+    flat = torch.cat([p.reshape(-1).view(torch.int16) if wide
+                      else p.reshape(-1).to(torch.int16)
+                      for p, wide in parts])
+    shapes = [(tuple(p.shape), wide) for p, wide in parts]
+    if flat.device.type != "cuda":
+        return dict(host=flat, event=None, shapes=shapes)
+    host = torch.empty(flat.shape, dtype=torch.int16, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return dict(host=host, event=event, shapes=shapes, src=flat)
+
+
+def _fetch_finish(fetch: dict) -> List[np.ndarray]:
+    """The arrays of _fetch_async, once its copy has run: int32 for the
+    wide parts, uint16 for the words."""
+    if fetch["event"] is not None:
+        fetch["event"].synchronize()
+    flat = fetch["host"].numpy()
+    out, off = [], 0
+    for shape, wide in fetch["shapes"]:
+        n = int(np.prod(shape)) * (2 if wide else 1)
+        part = flat[off:off + n]
+        off += n
+        out.append(part.view(np.int32).reshape(shape) if wide else
+                   part.view(np.uint16).reshape(shape))
+    return out
 
 
 def pack_int(spec: dmll_mod.DMLLSpec, l: torch.Tensor, C: int, topk: int
@@ -324,8 +379,7 @@ class TorchBitcoding:
             pad_tuples.append(tup)
         # pad the batch to the physical fbatch by repeating image 0; the
         # dummy slots are coded too (their streams are never written)
-        x = torch.from_numpy(np.stack(padded + [padded[0]] * (F - B))
-                             ).to(self.device)
+        x = _upload(np.stack(padded + [padded[0]] * (F - B)), self.device)
         return dict(x=x, pad_tuples=pad_tuples, B=B, F=F)
 
     def encode_batch(self, imgs: Optional[Sequence[np.ndarray]],
@@ -334,7 +388,20 @@ class TorchBitcoding:
         """Encode B same-shape uint8 images together; writes one v8 file
         each and returns their bpsp (over the pre-pad subpixels). With
         staged=stage_batch(...) (imgs None) the device-resident pixels are
-        coded without another upload."""
+        coded without another upload. (encode_batch_async +
+        encode_batch_finish.)"""
+        return self.encode_batch_finish(
+            self.encode_batch_async(imgs, pouts, staged))
+
+    def encode_batch_async(self, imgs: Optional[Sequence[np.ndarray]],
+                           pouts: Sequence[str],
+                           staged: Optional[dict] = None) -> dict:
+        """Dispatch a batch's encode without waiting for the card: the
+        forward, the get_Ps, the packs and the rANS encodes launch on the
+        current stream, then one non_blocking copy of every unit's lengths
+        and words (the full (streams, T + 2) matrices: what each stream
+        uses is known only from its length) to pinned memory. Returns the
+        handle for encode_batch_finish, which writes the files."""
         if staged is None:
             if imgs is None:
                 raise ValueError("encode_batch needs imgs or staged")
@@ -381,12 +448,24 @@ class TorchBitcoding:
                             units.append(self._enc_bn_unit(ip, target, T_u))
                             units_C.append(C_bn)
                             units_T.append(T_u)
-            with times.run("fetch"):
-                host = []
-                for words, lens in units:
-                    lens_np = lens.cpu().numpy().astype(np.int64)
-                    need = max(2, int(lens_np.max()))
-                    host.append((words[:, :need].cpu().numpy(), lens_np))
+            fetch = _fetch_async([(ln, True) for _, ln in units]
+                                 + [(w, False) for w, _ in units])
+        return dict(fetch=fetch, units_C=units_C, units_T=units_T,
+                    pouts=list(pouts), pad_tuples=pad_tuples, B=B, F=F,
+                    H=H, W=W, topk=topk)
+
+    def encode_batch_finish(self, handle: dict) -> List[float]:
+        """Wait for an encode handle's one fetch, write its files; their
+        bpsp."""
+        pouts, pad_tuples = handle["pouts"], handle["pad_tuples"]
+        F, H, W, topk = handle["F"], handle["H"], handle["W"], handle["topk"]
+        units_C, units_T = handle["units_C"], handle["units_T"]
+        S, times = self.cfg.num_scales, self.times
+        with times.run("fetch"):
+            arrs = _fetch_finish(handle["fetch"])
+            n_u = len(units_C)
+            host = [(w[:, :max(2, int(ln.max()))], ln.astype(np.int64))
+                    for w, ln in zip(arrs[n_u:], arrs[:n_u])]
         canary = self.canary(topk)
         bpsps = []
         self.last_unit_bytes = []
@@ -458,11 +537,12 @@ class TorchBitcoding:
     def decode_batch_async(self, pins: Sequence[str],
                            float_rows: bool = False) -> dict:
         """Decode B same-shape v8 files together and LEAVE the decoded
-        batch on the device: the handle holds `imgs`, (F,H,W,3) uint8
-        (padded, the dummy slots b >= B repeating file 0), for
-        verify_batch or a consumer on the device; decode_batch_finish
-        fetches the images. (The JAX package overlaps host and device work
-        through this pair; here it is one synchronous pass.)
+        batch on the device: the host reads and parses the files, uploads
+        every unit's words in one non_blocking copy from pinned memory,
+        and dispatches the decode without waiting for the card. The
+        handle holds `imgs`, (F,H,W,3) uint8 (padded, the dummy slots
+        b >= B repeating file 0), for verify_batch_async or a consumer on
+        the device; decode_batch_finish fetches the images.
 
         float_rows: also build the scale-0 v7 FLOAT CDF rows (coarse and
         fine, all three channels with the lambda chain on the decoded
@@ -507,8 +587,14 @@ class TorchBitcoding:
                     "build that wrote it.")
         times = self.times
         with times.run("upload"):
-            unit_words = [self._unit_words(per_file_units, ui, C, B, F)
-                          for ui, C in enumerate(unit_Cs)]
+            mats = [self._unit_words(per_file_units, ui, C, B, F)
+                    for ui, C in enumerate(unit_Cs)]
+            flat = _upload(np.concatenate([m.reshape(-1) for m, _ in mats]),
+                           self.device)
+            unit_words, off = [], 0
+            for m, T_u in mats:
+                unit_words.append((flat[off:off + m.size].view(m.shape), T_u))
+                off += m.size
         with torch.inference_mode():
             h, w = H >> S, W >> S
             with times.run("uniform decode"):
@@ -543,8 +629,8 @@ class TorchBitcoding:
         return dict(imgs=imgs, headers=headers, B=B)
 
     def decode_batch_finish(self, handle: dict) -> List[np.ndarray]:
-        """Fetch a decode handle's images -> (1,H,W,3) uint8 each, the
-        padding undone."""
+        """Fetch a decode handle's images (the one fetch, which waits for
+        the card) -> (1,H,W,3) uint8 each, the padding undone."""
         B = handle["B"]
         with self.times.run("fetch images"):
             imgs = handle["imgs"][:B].cpu().numpy()
@@ -564,12 +650,29 @@ class TorchBitcoding:
         pixels. Returns (all equal, u32 content hash of the decoded
         buffer): hash = sum_i px_i * ((i * 2654435761 mod 2^32) | 1) mod
         2^32 over the flattened (F,H,W,3) buffer, the JAX package's
-        verify_batch_finish value for the same pixels."""
-        return verify_pixels(dec_handle["imgs"], staged["x"])
+        verify_batch_finish value for the same pixels.
+        (verify_batch_async + verify_batch_finish.)"""
+        return self.verify_batch_finish(
+            self.verify_batch_async(dec_handle, staged))
+
+    @staticmethod
+    def verify_batch_async(dec_handle: dict, staged: dict) -> dict:
+        """Dispatch verify_batch's flag and hash on the device and start
+        their non_blocking copy (8 bytes' worth) to pinned memory; no
+        pixel leaves the card. The handle is verify_batch_finish's."""
+        return _fetch_async([(verify_pixels(dec_handle["imgs"],
+                                            staged["x"]), True)])
+
+    @staticmethod
+    def verify_batch_finish(handle: dict) -> Tuple[bool, int]:
+        """(all equal, u32 content hash) of a verify handle, once its copy
+        has run."""
+        flag, h = _fetch_finish(handle)[0]
+        return bool(flag), int(h) & 0xFFFFFFFF
 
     def _unit_words(self, per_file_units, ui: int, C: int, B: int, F: int
-                    ) -> Tuple[torch.Tensor, int]:
-        """One unit's (rows, cols) int32 word matrix on the device, rows
+                    ) -> Tuple[np.ndarray, int]:
+        """One unit's (rows, cols) int32 word matrix on the host, rows
         channel-major / batch-minor with the dummy slots b >= B repeating
         file 0, zero past each row's length."""
         Ts = {per_file_units[b][ui][0] for b in range(B)}
@@ -602,7 +705,7 @@ class TorchBitcoding:
         valid = col[None, :] < lens_all[:, None]
         padded = np.zeros((lens_all.shape[0], cols), np.int32)
         padded[valid] = dense_np[(offs[:, None] + col[None, :])[valid]]
-        return torch.from_numpy(padded).to(self.device), T_u
+        return padded, T_u
 
     def _decode_rgb(self, ip, w_coarse, w_fine, F, hs, ws, T_c, T_f):
         """Channel-sequential two-level RGB decode with the lambda chain on
@@ -647,16 +750,16 @@ def content_hash(flat: torch.Tensor) -> torch.Tensor:
     return torch.sum(flat.to(torch.int64) * w) & 0xFFFFFFFF
 
 
-def verify_pixels(dec: torch.Tensor, ref: torch.Tensor) -> Tuple[bool, int]:
-    """(dec == ref everywhere, content_hash(dec)); two scalars leave the
-    device."""
+def verify_pixels(dec: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """(dec == ref everywhere, content_hash(dec)) as an int32 pair on
+    dec's device (the hash's u32 bits)."""
     if dec.shape != ref.shape:
         raise ValueError(f"decoded batch {tuple(dec.shape)} vs staged "
                          f"{tuple(ref.shape)}")
     with torch.inference_mode():
-        out = torch.stack([torch.all(dec == ref).to(torch.int64),
-                           content_hash(dec.reshape(-1))]).cpu()
-    return bool(out[0]), int(out[1])
+        h = content_hash(dec.reshape(-1))
+        return torch.stack([torch.all(dec == ref).to(torch.int64),
+                            h - ((h >> 31) << 32)]).to(torch.int32)
 
 
 # ------------------------------------------------------------------ io

@@ -66,14 +66,15 @@ class MsConfig:
     learned_L: bool = False
     after_q1x1: bool = True
     x4_down_in_scale0: bool = False
-    # 'float32' only: 'bfloat16' convolutions are ROADMAP.md item 15
+    # 'float32' (reference parity) or 'bfloat16' (the conv stacks in
+    # bfloat16; to_q, the classifier's projection, the quantizer and the
+    # mixture stay float32, parameters too)
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype = {self.compute_dtype!r}: the port computes "
-                "in float32 only; bfloat16 is ROADMAP.md item 15")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype = {self.compute_dtype!r}: "
+                             "'float32' or 'bfloat16'")
         if (self.rgb_bicubic_baseline or self.shared_across_scales
                 or self.enc.cls != "EDSRLikeEnc"):
             raise NotImplementedError(

@@ -38,8 +38,12 @@ def numerics_guard() -> None:
     codec/bitcoding2.py). cuDNN convolutions default to TF32 and to
     benchmark-picked, possibly nondeterministic algorithms; either would
     let a decode diverge from its encode without raising. So: full float32
-    everywhere, deterministic algorithms, no autotuning. Training sets the
-    same (float32 is its compute type; runs repeat)."""
+    everywhere (no TF32), deterministic algorithms, no autotuning, in
+    float32 and in bfloat16 compute alike: cudnn.deterministic restricts
+    cuDNN to its deterministic algorithms for every convolution, forward
+    and backward, and where a convolution has none PyTorch raises at that
+    convolution's call rather than run another. Training sets the same
+    (runs repeat)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True

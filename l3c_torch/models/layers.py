@@ -3,29 +3,56 @@
 NCHW throughout (PyTorch's native layout, cuDNN's fast path). Conv
 padding is `k//2` for plain convs and `rate` for dilated ones, matching
 the reference's default_conv and the JAX package's explicit padding.
+
+`dtype` is the convolutions' compute dtype, the JAX package's
+`MsConfig.compute_dtype` (None: float32). Parameters stay float32 in
+either case, so checkpoints do not depend on it.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 # RGB statistics used for input normalization (EDSR / DIV2K means; scaled
 # by 255 at use sites).
 RGB_MEAN = np.asarray((0.4488, 0.4371, 0.4040), np.float32)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with flax's `nn.Conv(dtype=...)` rounding points: with a
+    compute dtype, the input, the kernel and the bias are cast to it, the
+    convolution's output is rounded to it, and the bias is added in it
+    (cuDNN and oneDNN would add it before rounding). Without one it is
+    nn.Conv2d."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+                     self.padding, self.dilation)
+        return y + self.bias.to(dt)[:, None, None]
+
+
 def conv(cin: int, cout: int, kernel_size: int, stride: int = 1,
-         rate: int = 1) -> nn.Conv2d:
-    """default_conv: same-pad (dilation-aware), OIHW weights, with bias.
-    Initialised as the JAX package's flax convs: weights U(+-1/sqrt(fan_in))
-    (PyTorch's default, = variance_scaling(1/3, fan_in, uniform)), biases
-    zero (flax's default; not PyTorch's U(+-1/sqrt(fan_in)))."""
+         rate: int = 1, dtype: Optional[torch.dtype] = None) -> Conv2d:
+    """default_conv: same-pad (dilation-aware), OIHW weights, with bias,
+    computing in `dtype` (None: float32). Initialised as the JAX package's
+    flax convs: weights U(+-1/sqrt(fan_in)) (PyTorch's default, =
+    variance_scaling(1/3, fan_in, uniform)), biases zero (flax's default;
+    not PyTorch's U(+-1/sqrt(fan_in)))."""
     pad = kernel_size // 2 if rate == 1 else rate
-    c = nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
-                  dilation=rate)
+    c = Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
+               dilation=rate, dtype=dtype)
     nn.init.zeros_(c.bias)
     return c
 
@@ -43,12 +70,14 @@ def init_conv(c: nn.Conv2d, generator: torch.Generator) -> None:
 class ResBlock(nn.Module):
     """conv-ReLU-conv with identity skip."""
 
-    def __init__(self, n_feats: int, kernel_size: int = 3):
+    def __init__(self, n_feats: int, kernel_size: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = conv(n_feats, n_feats, kernel_size)
-        self.conv2 = conv(n_feats, n_feats, kernel_size)
+        self.conv1 = conv(n_feats, n_feats, kernel_size, dtype=dtype)
+        self.conv2 = conv(n_feats, n_feats, kernel_size, dtype=dtype)
 
     def forward(self, x):
+        # in the compute dtype, as flax adds its bf16 output to x
         return x + self.conv2(torch.relu(self.conv1(x)))
 
 
@@ -61,12 +90,14 @@ def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
 class Upsampler(nn.Module):
     """conv(C -> 4C, 3x3) + pixel shuffle, once per x2 factor."""
 
-    def __init__(self, n_feats: int, scale: int = 2):
+    def __init__(self, n_feats: int, scale: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         assert scale & (scale - 1) == 0, "power-of-two scales only"
         self.n_ups = int(np.log2(scale))
         for i in range(self.n_ups):
-            self.add_module(f"up{i}", conv(n_feats, 4 * n_feats, 3))
+            self.add_module(f"up{i}", conv(n_feats, 4 * n_feats, 3,
+                                           dtype=dtype))
 
     def forward(self, x):
         for i in range(self.n_ups):
@@ -75,15 +106,17 @@ class Upsampler(nn.Module):
 
 
 class StackedAtrousConvs(nn.Module):
-    """Parallel dilated convs (rates 1,2,4) concatenated in rate order, then
-    a 1x1 projection to the mixture parameters, in float32."""
+    """Parallel dilated convs (rates 1,2,4) in the compute dtype,
+    concatenated in rate order, then a 1x1 projection to the mixture
+    parameters in float32 (the JAX package's, whatever the dtype)."""
 
     def __init__(self, rates: Sequence[int], Cin: int, Cout: int,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.rates = tuple(rates)
         for i, r in enumerate(self.rates):
-            self.add_module(f"atrous{i}", conv(Cin, Cin, kernel_size, rate=r))
+            self.add_module(f"atrous{i}", conv(Cin, Cin, kernel_size, rate=r,
+                                               dtype=dtype))
         self.lin = conv(len(self.rates) * Cin, Cout, 1)
 
     def forward(self, x):

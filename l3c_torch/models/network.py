@@ -27,6 +27,12 @@ from ..config import MsConfig
 from . import dmll, grids, layers, quantizer
 
 
+def compute_dtype(cfg: MsConfig) -> Optional[torch.dtype]:
+    """The conv stacks' compute dtype (the JAX package's `_cdtype`):
+    bfloat16, or None for float32. Parameters are float32 either way."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
 # Both layout changes COPY into a contiguous tensor: a permuted view would
 # hand the convolutions channels-last strides on one codec side and plain
 # NCHW on the other, and the backend may pick different algorithms (and
@@ -43,9 +49,9 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 class EncOut(NamedTuple):
     """Per-scale encoder result. bn (the straight-through bottleneck:
     forward hard, gradient soft; None outside training), bn_q, syms and
-    raw (the 1x1 conv's output before quantization) are NHWC; F is the
-    pre-quantization feature in NCHW (internal: only the next scale's head
-    reads it)."""
+    raw (the 1x1 conv's output before quantization) are NHWC float32; F is
+    the pre-quantization feature in NCHW, in the compute dtype (internal:
+    only the next scale's head reads it)."""
     bn: Optional[torch.Tensor]
     bn_q: torch.Tensor
     syms: torch.Tensor
@@ -68,12 +74,14 @@ class EDSRLikeEnc(nn.Module):
     def __init__(self, cfg: MsConfig):
         super().__init__()
         c = cfg
+        dt = compute_dtype(c)
         self.n_blocks = c.enc.num_blocks
-        self.down = layers.conv(c.Cf, c.Cf, 5, stride=2)
+        self.down = layers.conv(c.Cf, c.Cf, 5, stride=2, dtype=dt)
         for i in range(self.n_blocks):
-            self.add_module(f"block{i}", layers.ResBlock(c.Cf, c.kernel_size))
-        self.body_out = layers.conv(c.Cf, c.Cf, c.kernel_size)
-        self.to_q = layers.conv(c.Cf, c.q.C, 1)
+            self.add_module(f"block{i}", layers.ResBlock(c.Cf, c.kernel_size,
+                                                         dt))
+        self.body_out = layers.conv(c.Cf, c.Cf, c.kernel_size, dtype=dt)
+        self.to_q = layers.conv(c.Cf, c.q.C, 1)      # float32: the bottleneck
         self.sigma = c.q.sigma
         lo, hi = c.q.levels_range
         self.register_buffer(
@@ -86,7 +94,7 @@ class EDSRLikeEnc(nn.Module):
         for i in range(self.n_blocks):
             r = getattr(self, f"block{i}")(r)
         F = x + self.body_out(r)
-        raw = nhwc(self.to_q(F))
+        raw = nhwc(self.to_q(F.to(torch.float32)))
         q = quantizer.quantize(raw, self.levels,
                                self.sigma if train else None)
         return EncOut(bn=q.bn, bn_q=q.bn_q, syms=q.syms, F=F, raw=raw)
@@ -98,12 +106,14 @@ class EDSRDec(nn.Module):
     def __init__(self, cfg: MsConfig, c_in: int):
         super().__init__()
         c = cfg
+        dt = compute_dtype(c)
         self.n_blocks = c.dec.num_blocks
-        self.head = layers.conv(c_in, c.Cf, 1)
+        self.head = layers.conv(c_in, c.Cf, 1, dtype=dt)
         for i in range(self.n_blocks):
-            self.add_module(f"block{i}", layers.ResBlock(c.Cf, c.kernel_size))
-        self.body_out = layers.conv(c.Cf, c.Cf, c.kernel_size)
-        self.tail = layers.Upsampler(c.Cf, 2)
+            self.add_module(f"block{i}", layers.ResBlock(c.Cf, c.kernel_size,
+                                                         dt))
+        self.body_out = layers.conv(c.Cf, c.Cf, c.kernel_size, dtype=dt)
+        self.tail = layers.Upsampler(c.Cf, 2, dt)
 
     def forward(self, x, features_to_fuse=None):
         x = self.head(x)
@@ -121,7 +131,8 @@ class Head(nn.Module):
     def __init__(self, cfg: MsConfig, c_in: int, rgb: bool):
         super().__init__()
         self.rgb = rgb
-        self.conv = layers.conv(c_in, cfg.Cf, cfg.kernel_size)
+        self.conv = layers.conv(c_in, cfg.Cf, cfg.kernel_size,
+                                dtype=compute_dtype(cfg))
 
     def forward(self, x):
         return self.conv(x / 128.0 if self.rgb else x)
@@ -134,7 +145,8 @@ class AtrousProbabilityClassifier(nn.Module):
         super().__init__()
         Kp = dmll.non_shared_get_Kp(cfg.prob.K, C)
         self.atrous = layers.StackedAtrousConvs(rates, cfg.Cf, Kp,
-                                                cfg.kernel_size)
+                                                cfg.kernel_size,
+                                                compute_dtype(cfg))
 
     def forward(self, x):
         return self.atrous(x)

@@ -32,7 +32,16 @@ coders of `gpu_coder` (`encode_*` / `decode_*`), the codec's
 |                |                    | block through shared memory           |
 |                |                    | (cp.async), two lanes a (pixel,       |
 |                |                    | channel), sums over k by shuffles;    |
-|                |                    | C <= 8                                |
+|                |                    | 8 channels a block, a launch a group  |
+
+Every kernel takes the sizes the JAX package takes. Its fast variant
+covers K <= 10 components (and K1's L <= 32 edges, the coder's L <= 33
+symbols); beyond them the same launcher runs the source's generic variant
+(not tuned), never the plain version. What caps remain: K <= MAX_K = 255
+in K3-K6 (the JAX package ranks components as u8,
+l3c_tpu/ops/int_coder.py:216) and L <= MAX_L = 256 in K3/K4 (u8 symbols;
+the v8 evaluator's edge products stay exact below 2^24 only for edges
+<= 256). K1/K2 take any K and L.
 """
 from __future__ import annotations
 
@@ -75,9 +84,8 @@ def _launch(lib: str, fn: str, kernel: str, *args) -> None:
     launches[kernel] += 1
 
 
-MAX_K = 10          # mixture components: kMaxK of the csrc sources
-MAX_C = 8           # channels of dmll_nll / dmll_nll_grad: kMaxC of dmll.cu
-MAX_L = 32          # edges of mixture_cdf_q: kMaxL of csrc/float_cdf.cu
+MAX_K = 255         # components of K3-K6: kMaxKGeneric of the csrc sources
+MAX_L = 256         # symbols of K3/K4: kMaxL of csrc/rans.cu
 
 
 def _float_cdf_args(kernel: str, pi, mu, inv_s) -> Tuple[int, int]:
@@ -87,8 +95,8 @@ def _float_cdf_args(kernel: str, pi, mu, inv_s) -> Tuple[int, int]:
     P, K = pi.shape
     if mu.shape != (P, K) or inv_s.shape != (P, K):
         raise ValueError(f"{kernel}: shape mismatch")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"{kernel}: K={K}, the kernel takes 1..{MAX_K}")
+    if K < 1:
+        raise ValueError(f"{kernel}: K={K}")
     return P, K
 
 
@@ -97,12 +105,11 @@ def mixture_cdf_q(pi: torch.Tensor, mu: torch.Tensor, inv_s: torch.Tensor,
     """(P, K) f32 params, (L,) f32 edges -> (P, L) int32
     floor(clip(sum_k pi sigmoid((t-mu) inv_s), 0, 1) * (65536 - 2L)),
     within one step of the plain version (the kernel's sigmoid is the
-    special-function unit's)."""
+    special-function unit's). Any K >= 1 and L >= 1."""
     P, K = _float_cdf_args("mixture_cdf_q", pi, mu, inv_s)
     _check(t, "t", torch.float32, 1)
-    if t.shape != (L,) or not 1 <= L <= MAX_L:
-        raise ValueError(f"mixture_cdf_q: t {tuple(t.shape)}, L={L}; the "
-                         f"kernel takes 1..{MAX_L} edges")
+    if t.shape != (L,) or L < 1:
+        raise ValueError(f"mixture_cdf_q: t {tuple(t.shape)}, L={L}")
     out = torch.empty((P, L), dtype=torch.int32, device=pi.device)
     if P:
         _launch("float_cdf", "l3c_mixture_cdf_q", "mixture_cdf_q",
@@ -137,7 +144,8 @@ def pack_int(l: torch.Tensor, C: int, topk: int, lam: bool, bw: float,
     else 3) C K -> the IntParams fields (p, a, sc, v, w): exact-integer
     f32 (C, K', N H W) each, w (3, K', N H W) with lam (the RGB scale, C =
     3) else None. K' = topk where 0 < topk < K (the top-k components by pi
-    logit), else K. bw, t0: the spec's bin width and lowest edge."""
+    logit), else K. bw, t0: the spec's bin width and lowest edge. Takes
+    1 <= K <= MAX_K (255)."""
     _check(l, "l", torch.float32, 4)
     N, Kp, H, W = l.shape
     groups = 4 if lam else 3
@@ -202,16 +210,17 @@ def rans_decode(mode: str, words: torch.Tensor, n: int, T: int, L: int,
 
     words (lanes, W >= 2) int32 u16 values in decode order; streams of T
     symbols over groups of n pixels. mode: "uniform" (closed-form row),
-    "bn" (IntParams ip, L <= 33 edges, group g = pixels g % F of channel
+    "bn" (IntParams ip, group g = pixels g % F of channel
     g / F), "rgb_coarse" / "rgb_fine" (channel c of RGB IntParams, F
     groups; dec (>= c, N) u8 the decoded channel symbols for the lambda
     chain, asym (N,) u8 the coarse symbols for fine). ip is (p, a, sc, v,
-    w) lane-major (C, K', N) f32 with N = F n. Returns (groups, n) u8."""
+    w) lane-major (C, K', N) f32 with N = F n. Returns (groups, n) u8.
+    Takes K' <= MAX_K (255) and 2 <= L <= MAX_L (256)."""
     _check(words, "words", torch.int32, 2)
     lanes, W = words.shape
     G = _groups(lanes, n, T)
     ptrs, K, N = _int_params(ip, mode)
-    if W < 2 or not 2 <= L <= 33:
+    if W < 2 or not 2 <= L <= MAX_L:
         raise ValueError(f"rans_decode: W={W}, L={L} out of range")
     if mode != "uniform" and N != F * n:
         raise ValueError(f"IntParams hold {N} pixels, not F*n = {F * n}")
@@ -251,7 +260,8 @@ def rans_encode(mode: str, syms: torch.Tensor, n: int, T: int, L: int,
     ip, C F groups), "rgb" (syms the image's three channel planes; 6 F
     groups: the coarse symbols of channels 0..2, then the fine ones).
     Returns (words (lanes, T+2) int32 u16 values in decode order, unwritten
-    past each length; lengths (lanes,) int32)."""
+    past each length; lengths (lanes,) int32). Takes K' <= MAX_K (255)
+    and 2 <= L <= MAX_L (256)."""
     _check(syms, "syms", torch.uint8, 2)
     if mode not in ENC_MODES:
         raise ValueError(f"unknown encode mode {mode!r}")
@@ -264,8 +274,8 @@ def rans_encode(mode: str, syms: torch.Tensor, n: int, T: int, L: int,
         raise ValueError(f"{C} symbol planes, {ip[0].shape[0]} channels")
     if mode == "rgb" and C != 3:
         raise ValueError(f"RGB encode takes 3 planes, got {C}")
-    if L < 2:
-        raise ValueError(f"L={L}")
+    if not 2 <= L <= MAX_L:
+        raise ValueError(f"rans_encode: L={L} out of range")
     groups = (6 if mode == "rgb" else C) * F
     lanes = groups * -(-n // T)
     words = torch.empty((lanes, T + 2), dtype=torch.int32,
@@ -291,10 +301,6 @@ def _dmll_args(kernel: str, l: torch.Tensor, x: torch.Tensor, lam: bool
     if x.shape[:3] != (N, H, W) or (lam and C != 3):
         raise ValueError(f"{kernel}: l {tuple(l.shape)} and x "
                          f"{tuple(x.shape)} do not match")
-    if not 1 <= C <= MAX_C:
-        raise ValueError(f"{kernel}: C={C} channels; the kernel takes "
-                         f"1..{MAX_C} (two lanes a (pixel, channel) in a "
-                         "block of 32 pixels)")
     if K * groups * C != Kp or not 1 <= K <= MAX_K or N * H * W < 1:
         raise ValueError(f"{kernel}: {Kp} planes are not {groups} groups "
                          f"of C={C} channels with 1..{MAX_K} components")
@@ -310,10 +316,9 @@ def dmll_nll(l: torch.Tensor, x: torch.Tensor, lam: bool, half_bin: float,
     """K6 forward: the classifier's output l (N, Kp, H, W) f32 NCHW and the
     target x (N, H, W, C) f32 -> per-element mixture NLL (N, H, W, C).
     lam: the RGB scale's lambda groups (C = 3); half_bin, lower, upper:
-    half the spec's bin width and its open-tail thresholds. Takes
-    1 <= C <= MAX_C (8) channels and 1 <= K <= MAX_K (10) components:
-    a q.C above 8 raises here, in training and in every theory bpsp on
-    the card."""
+    half the spec's bin width and its open-tail thresholds. Takes any
+    C >= 1 (a launch a group of 8 channels) and 1 <= K <= MAX_K (255)
+    components."""
     N, HW, C, K = _dmll_args("dmll_nll", l, x, lam)
     out = torch.empty(x.shape, dtype=torch.float32, device=l.device)
     _launch("dmll", "l3c_dmll_nll", "dmll_nll", l.data_ptr(), x.data_ptr(),

@@ -77,6 +77,16 @@
 //  - The RGB coupling (channels 1 and 2's terms reach grad_x of channels
 //    0 and 1) is summed in shared memory in a fixed order, (own + from
 //    channel 1) + from channel 2, and stored once per pixel.
+//  - A block takes at most kMaxC channels. Bottleneck channels do not
+//    interact, so C > kMaxC runs one launch a group of kMaxC channels
+//    (the last one smaller), each block staging its group's planes only;
+//    C <= kMaxC is one launch of the whole, as before.
+//  - The tile and a lane's registers hold at most kMaxK components. For
+//    K > kMaxK (up to 255, the JAX package's u8 component rank) the
+//    launchers run dmll_generic: one thread a pixel, its channels in
+//    order, every value read where it lies and each term evaluated again
+//    in each pass that needs it; the same expressions and sums over k
+//    ascending. Not tuned.
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -86,8 +96,10 @@
 
 namespace {
 
-constexpr int kMaxK = 10;     // mixture components K
-constexpr int kMaxC = 8;      // channels C (threads a block: 32 C kSplit)
+constexpr int kMaxK = 10;     // mixture components K of the tile
+constexpr int kMaxKGeneric = 255;   // of dmll_generic
+constexpr int kMaxC = 8;      // channels a block (threads: 32 C kSplit)
+constexpr int kGenericThreads = 128;
 constexpr int kTile = 32;     // pixels a block
 constexpr int kSplit = 2;     // lanes a (pixel, channel)
 constexpr int kSlots = (kMaxK + kSplit - 1) / kSplit;   // components a lane
@@ -102,6 +114,7 @@ struct DmllArgs {
   float* nll;         // (n, C); forward only
   float *gl, *gx;     // (N, Kp, HW), (n, C); backward only
   int HW, C, K, tiles;   // tiles: a image's
+  int cg0, Cg;           // this launch's channels [cg0, cg0 + Cg)
   float half_bin, lower, upper;
 };
 
@@ -207,38 +220,61 @@ __device__ __forceinline__ void load_run(float* s, const float* g, int n) {
     ptx::cp_async4(s + i, g + i);
 }
 
+// the plane of tile row r: a group of channels holds rg = Cg K rows of
+// each parameter group, which lie skip = (C - Cg) K planes apart
+struct Rows {
+  int rg, skip;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return static_cast<size_t>(skip ? r + (r / rg) * skip : r);
+  }
+};
+
 // the tile's columns 0..n_px-1 of every plane: 16-byte pieces where the
 // planes' rows and g are 16-byte aligned, else 4-byte copies
 __device__ __forceinline__ void load_tile(float* tile, const float* g,
                                           int Kp, int HW, int n_px,
-                                          bool vec) {
+                                          bool vec, Rows row) {
   const int n4 = vec ? n_px >> 2 : 0;
   for (int i = threadIdx.x; i < Kp * n4; i += blockDim.x) {
     const int r = i / n4, q = 4 * (i - r * n4);
-    ptx::cp_async16(tile + slot(r, q),
-                    g + static_cast<size_t>(r) * HW + q);
+    ptx::cp_async16(tile + slot(r, q), g + row(r) * HW + q);
   }
   const int rest = n_px - 4 * n4;
   for (int i = threadIdx.x; i < Kp * rest; i += blockDim.x) {
     const int r = i / rest, q = 4 * n4 + (i - r * rest);
-    ptx::cp_async4(tile + slot(r, q), g + static_cast<size_t>(r) * HW + q);
+    ptx::cp_async4(tile + slot(r, q), g + row(r) * HW + q);
   }
 }
 
 // the tile back to the planes, as load_tile reads them
 __device__ __forceinline__ void store_tile(float* g, const float* tile,
                                            int Kp, int HW, int n_px,
-                                           bool vec) {
+                                           bool vec, Rows row) {
   const int n4 = vec ? n_px >> 2 : 0;
   for (int i = threadIdx.x; i < Kp * n4; i += blockDim.x) {
     const int r = i / n4, q = 4 * (i - r * n4);
-    *reinterpret_cast<float4*>(g + static_cast<size_t>(r) * HW + q) =
+    *reinterpret_cast<float4*>(g + row(r) * HW + q) =
         *reinterpret_cast<const float4*>(tile + slot(r, q));
   }
   const int rest = n_px - 4 * n4;
   for (int i = threadIdx.x; i < Kp * rest; i += blockDim.x) {
     const int r = i / rest, q = 4 * n4 + (i - r * rest);
-    g[static_cast<size_t>(r) * HW + q] = tile[slot(r, q)];
+    g[row(r) * HW + q] = tile[slot(r, q)];
+  }
+}
+
+// a group's (pixel, channel) values of an (n, C) array: one run where the
+// group is every channel, else Cg of every C
+__device__ __forceinline__ void load_group(float* s, const float* g,
+                                           int n_px, int C, int cg0,
+                                           int Cg) {
+  if (Cg == C) {
+    load_run(s, g, n_px * C);
+    return;
+  }
+  for (int i = threadIdx.x; i < n_px * Cg; i += blockDim.x) {
+    const int q = i / Cg;
+    ptx::cp_async4(s + i, g + static_cast<size_t>(q) * C + cg0 + (i - q * Cg));
   }
 }
 
@@ -253,27 +289,29 @@ template <bool GRAD, bool LAM>
 __global__ void __launch_bounds__(32 * kMaxC * kSplit)
     dmll_kernel(DmllArgs A) {
   extern __shared__ __align__(16) float smem[];
-  const int C = A.C, K = A.K, HW = A.HW;
+  const int C = A.C, K = A.K, HW = A.HW, cg0 = A.cg0, Cg = A.Cg;
   const int groups = LAM ? 4 : 3;
-  const int Kp = groups * C * K;
+  const int Kp = groups * Cg * K;      // the tile's planes
+  const Rows row{Cg * K, (C - Cg) * K};
   const int b = blockIdx.x / A.tiles;
   const int p0 = (blockIdx.x - b * A.tiles) * kTile;
   const int n_px = min(kTile, HW - p0);
   const size_t pix0 = static_cast<size_t>(b) * HW + p0;
-  const size_t base = static_cast<size_t>(b) * Kp * HW + p0;
+  const size_t base = (static_cast<size_t>(b) * groups * C + cg0) * K * HW +
+                      p0;
   const bool vec = (HW & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(A.l) |
                      reinterpret_cast<uintptr_t>(GRAD ? A.gl : A.l)) &
                     15) == 0;
   float* tile = smem;
   float* xs = tile + Kp * kTile;
-  float* gs = xs + kTile * C;
-  float* own = gs + kTile * C;      // (pixel, channel)
-  float* lam = own + kTile * C;     // [3][pixel]: 0 <- 1, 0 <- 2, 1 <- 2
+  float* gs = xs + kTile * Cg;
+  float* own = gs + kTile * Cg;     // (pixel, channel)
+  float* lam = own + kTile * Cg;    // [3][pixel]: 0 <- 1, 0 <- 2, 1 <- 2
 
-  load_tile(tile, A.l + base, Kp, HW, n_px, vec);
-  load_run(xs, A.x + pix0 * C, n_px * C);
-  if (GRAD) load_run(gs, A.g + pix0 * C, n_px * C);
+  load_tile(tile, A.l + base, Kp, HW, n_px, vec, row);
+  load_group(xs, A.x + pix0 * C, n_px, C, cg0, Cg);
+  if (GRAD) load_group(gs, A.g + pix0 * C, n_px, C, cg0, Cg);
   ptx::cp_async_wait_all();
   __syncthreads();
 
@@ -288,7 +326,7 @@ __global__ void __launch_bounds__(32 * kMaxC * kSplit)
   // (i C + ch) K + s + kSplit j, whose rows all have the parity of j = 0,
   // so component j lies kSplit rows on from component j - 1
   auto plane = [&](int i, int ch) {
-    return tile + slot((i * C + ch) * K + s, p);
+    return tile + slot((i * Cg + ch) * K + s, p);
   };
   constexpr int kNext = kSplit * kTile;
   float* const t_pi = plane(0, c);
@@ -296,9 +334,9 @@ __global__ void __launch_bounds__(32 * kMaxC * kSplit)
   float* const t_ls = plane(2, c);
   float* const t_l1 = LAM ? plane(3, c == 1 ? 0 : 1) : tile;  // lambda of x0
   float* const t_l2 = LAM ? plane(3, 2) : tile;               // lambda of x1
-  const float xc = xs[p * C + c];
-  const float x0 = LAM ? xs[p * C] : 0.0f;
-  const float x1 = LAM ? xs[p * C + 1] : 0.0f;
+  const float xc = xs[p * Cg + c];
+  const float x0 = LAM ? xs[p * Cg] : 0.0f;
+  const float x1 = LAM ? xs[p * Cg + 1] : 0.0f;
   const int branch =
       xc < A.lower ? kLower : (xc > A.upper ? kUpper : kMiddle);
 
@@ -350,11 +388,11 @@ __global__ void __launch_bounds__(32 * kMaxC * kSplit)
     if (s + kSplit * j < K) lw[j] = expf(lw[j] - wmax);
   const float sw = ordered_sum(lw, K, s);
   if (!GRAD) {
-    if (on && s == 0) A.nll[(pix0 + p) * C + c] = -(logf(sw) + wmax);
+    if (on && s == 0) A.nll[(pix0 + p) * C + cg0 + c] = -(logf(sw) + wmax);
     return;
   }
 
-  const float gv = gs[p * C + c];
+  const float gv = gs[p * Cg + c];
 #pragma unroll
   for (int j = 0; j < kSlots; ++j)
     if (s + kSplit * j < K) lw[j] = lw[j] / sw;              // r_k
@@ -394,7 +432,7 @@ __global__ void __launch_bounds__(32 * kMaxC * kSplit)
   const float gx0 = LAM ? ordered_sum(g0, K, s) : 0.0f;
   const float gx1 = LAM ? ordered_sum(g1, K, s) : 0.0f;
   if (on && s == 0) {
-    own[p * C + c] = gxc;
+    own[p * Cg + c] = gxc;
     if (LAM && c == 1) lam[p] = gx0;
     if (LAM && c == 2) {
       lam[kTile + p] = gx0;
@@ -402,32 +440,148 @@ __global__ void __launch_bounds__(32 * kMaxC * kSplit)
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_px * C; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n_px * Cg; i += blockDim.x) {
     float v = own[i];
+    const int q = i / Cg, ch = i - q * Cg;
     if (LAM) {
-      const int q = i / C, ch = i - q * C;
       if (ch == 0) v = (v + lam[q]) + lam[kTile + q];
       if (ch == 1) v = v + lam[2 * kTile + q];
     }
-    A.gx[pix0 * C + i] = v;
+    A.gx[Cg == C ? pix0 * C + i : (pix0 + q) * C + cg0 + ch] = v;
   }
-  store_tile(A.gl + base, tile, Kp, HW, n_px, vec);
+  store_tile(A.gl + base, tile, Kp, HW, n_px, vec, row);
 }
 
+// dmll_kernel's function for any K: thread i takes pixel i, its channels
+// in order, reading l where it lies; each pass over k evaluates its terms
+// again (the same values), the sums run k ascending
+template <bool GRAD, bool LAM>
+__global__ void __launch_bounds__(kGenericThreads)
+    dmll_generic(DmllArgs A, int n) {
+  const int i = blockIdx.x * kGenericThreads + threadIdx.x;
+  if (i >= n) return;
+  const int C = A.C, K = A.K, HW = A.HW;
+  const int Kp = (LAM ? 4 : 3) * C * K;
+  const int b = i / HW;
+  const size_t base = static_cast<size_t>(b) * Kp * HW + (i - b * HW);
+  // parameter group g, channel ch, component k of this pixel
+  auto at = [&](int g, int ch, int k) {
+    return base + static_cast<size_t>((g * C + ch) * K + k) * HW;
+  };
+  const float* xp = A.x + static_cast<size_t>(i) * C;
+  const float x0 = LAM ? xp[0] : 0.0f, x1 = LAM ? xp[1] : 0.0f;
+  float own[3] = {}, lam[3] = {};   // LAM: as dmll_kernel's shared arrays
+  for (int c = 0; c < C; ++c) {
+    const float xc = xp[c];
+    const int branch =
+        xc < A.lower ? kLower : (xc > A.upper ? kUpper : kMiddle);
+    // component k's weighted log-probability (lp + log softmax), with
+    // GRAD its derivatives and lambda sigmoids
+    auto weighted = [&](int k, float lmax, float lse_pi, float* dd,
+                        float* dls, float* s1, float* s2) {
+      float mean = A.l[at(1, c, k)];
+      *s1 = *s2 = 0.0f;
+      if (LAM && c == 1) {
+        *s1 = sigmoid(A.l[at(3, 0, k)]);
+        mean = mean + *s1 * x0;
+      } else if (LAM && c == 2) {
+        *s1 = sigmoid(A.l[at(3, 1, k)]);
+        *s2 = sigmoid(A.l[at(3, 2, k)]);
+        mean = (mean + *s1 * x0) + *s2 * x1;
+      }
+      const float lp = term<GRAD>(xc, mean, A.l[at(2, c, k)], branch,
+                                  A.half_bin, dd, dls);
+      return lp + ((A.l[at(0, c, k)] - lmax) - lse_pi);
+    };
+    float lmax = -INFINITY;
+    for (int k = 0; k < K; ++k) lmax = fmaxf(lmax, A.l[at(0, c, k)]);
+    float se = 0.0f;
+    for (int k = 0; k < K; ++k) se = se + expf(A.l[at(0, c, k)] - lmax);
+    const float lse_pi = logf(se);
+    float dd, dls, s1, s2, wmax = -INFINITY;
+    for (int k = 0; k < K; ++k)
+      wmax = fmaxf(wmax, weighted(k, lmax, lse_pi, &dd, &dls, &s1, &s2));
+    float sw = 0.0f;
+    for (int k = 0; k < K; ++k)
+      sw = sw + expf(weighted(k, lmax, lse_pi, &dd, &dls, &s1, &s2) - wmax);
+    if (!GRAD) {
+      A.nll[static_cast<size_t>(i) * C + c] = -(logf(sw) + wmax);
+      continue;
+    }
+    const float gv = A.g[static_cast<size_t>(i) * C + c];
+    float sum_r = 0.0f;
+    for (int k = 0; k < K; ++k)
+      sum_r = sum_r +
+              expf(weighted(k, lmax, lse_pi, &dd, &dls, &s1, &s2) - wmax) /
+                  sw;
+    float gxc = 0.0f, gx0 = 0.0f, gx1 = 0.0f;
+    for (int k = 0; k < K; ++k) {
+      const float r =
+          expf(weighted(k, lmax, lse_pi, &dd, &dls, &s1, &s2) - wmax) / sw;
+      const float pi = expf(A.l[at(0, c, k)] - lmax) / se;
+      const float G = -(gv * r);
+      const float gd = G * dd;
+      A.gl[at(0, c, k)] = gv * (pi * sum_r - r);
+      A.gl[at(1, c, k)] = -gd;
+      A.gl[at(2, c, k)] = G * dls;
+      if (LAM && c >= 1) {
+        A.gl[at(3, c == 1 ? 0 : 1, k)] = -gd * x0 * (s1 * (1.0f - s1));
+        gx0 = gx0 + -gd * s1;
+      }
+      if (LAM && c == 2) {
+        A.gl[at(3, 2, k)] = -gd * x1 * (s2 * (1.0f - s2));
+        gx1 = gx1 + -gd * s2;
+      }
+      gxc = gxc + gd;
+    }
+    if (!LAM) {
+      A.gx[static_cast<size_t>(i) * C + c] = gxc;
+      continue;
+    }
+    own[c] = gxc;
+    if (c == 1) lam[0] = gx0;
+    if (c == 2) {
+      lam[1] = gx0;
+      lam[2] = gx1;
+    }
+  }
+  if (GRAD && LAM) {
+    float* gx = A.gx + static_cast<size_t>(i) * C;
+    gx[0] = (own[0] + lam[0]) + lam[1];
+    gx[1] = own[1] + lam[2];
+    gx[2] = own[2];
+  }
+}
+
+// K <= kMaxK: one launch a group of kMaxC channels; else dmll_generic
 template <bool GRAD>
-int launch(const DmllArgs& A, int N, bool lam, cudaStream_t stream) {
-  const int grid = N * A.tiles, threads = 32 * A.C * kSplit;
-  const int Kp = (lam ? 4 : 3) * A.C * A.K;
-  const size_t bytes = sizeof(float) * smem_floats(Kp, A.C, GRAD);
-  if (lam)
-    dmll_kernel<GRAD, true><<<grid, threads, bytes, stream>>>(A);
-  else
-    dmll_kernel<GRAD, false><<<grid, threads, bytes, stream>>>(A);
-  return static_cast<int>(cudaGetLastError());
+int launch(DmllArgs A, int N, bool lam, cudaStream_t stream) {
+  if (A.K > kMaxK) {
+    const int n = N * A.HW;
+    const int blocks = (n + kGenericThreads - 1) / kGenericThreads;
+    if (lam)
+      dmll_generic<GRAD, true><<<blocks, kGenericThreads, 0, stream>>>(A, n);
+    else
+      dmll_generic<GRAD, false><<<blocks, kGenericThreads, 0, stream>>>(A, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  for (A.cg0 = 0; A.cg0 < A.C; A.cg0 += kMaxC) {
+    A.Cg = min(kMaxC, A.C - A.cg0);
+    const int grid = N * A.tiles, threads = 32 * A.Cg * kSplit;
+    const int Kp = (lam ? 4 : 3) * A.Cg * A.K;
+    const size_t bytes = sizeof(float) * smem_floats(Kp, A.Cg, GRAD);
+    if (lam)
+      dmll_kernel<GRAD, true><<<grid, threads, bytes, stream>>>(A);
+    else
+      dmll_kernel<GRAD, false><<<grid, threads, bytes, stream>>>(A);
+    const int e = static_cast<int>(cudaGetLastError());
+    if (e != 0) return e;
+  }
+  return 0;
 }
 
 bool bad_shape(int N, int HW, int C, int K, int lam) {
-  return K < 1 || K > kMaxK || C < 1 || C > kMaxC || N < 1 || HW < 1 ||
+  return K < 1 || K > kMaxKGeneric || C < 1 || N < 1 || HW < 1 ||
          (lam && C != 3) ||
          static_cast<long long>(N) * HW >= (1LL << 31);
 }
@@ -438,7 +592,7 @@ DmllArgs args(const void* l, const void* x, const void* g, void* nll,
   return DmllArgs{static_cast<const float*>(l), static_cast<const float*>(x),
                   static_cast<const float*>(g), static_cast<float*>(nll),
                   static_cast<float*>(gl), static_cast<float*>(gx), HW, C,
-                  K, (HW + kTile - 1) / kTile, half_bin, lower, upper};
+                  K, (HW + kTile - 1) / kTile, 0, C, half_bin, lower, upper};
 }
 
 }  // namespace

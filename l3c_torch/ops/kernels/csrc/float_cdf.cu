@@ -49,6 +49,12 @@
 //    so K2 takes the exact one, which rounds as the plain version's
 //    expression does (fixed k order, -fmad=false) at ~17 instructions a
 //    term.
+//  - The tiles hold at most kMaxK components a pixel and K1 kMaxL edges.
+//    Beyond them (the JAX package takes any K and L) the launchers run
+//    generic variants with the same arithmetic, a term's parameters read
+//    from global memory and no tile: one thread a pixel's group of 4
+//    edges (K1) or a pixel (K2), results equal to the tiled kernels'
+//    wherever both run. They are not tuned.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -224,6 +230,55 @@ __global__ void __launch_bounds__(kTile2)
     o[i] = rows[swizzle(i)];
 }
 
+// K1 for any K and L: one thread a (pixel, group of 4 edges), the
+// parameters and edges read where they lie
+__global__ void __launch_bounds__(kThreads1)
+    mixture_cdf_q_generic(const float* __restrict__ pi,
+                          const float* __restrict__ mu,
+                          const float* __restrict__ inv_s,
+                          const float* __restrict__ t,
+                          int32_t* __restrict__ out, int P, int K, int L,
+                          float M) {
+  const int groups = (L + 3) >> 2;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(P) * groups) return;
+  const size_t p = i / groups;
+  const int e0 = 4 * static_cast<int>(i - p * groups);
+  float te[4], c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) te[j] = e0 + j < L ? t[e0 + j] : 0.0f;
+  mixture<kCheap, 4>(pi + p * K, mu + p * K, inv_s + p * K, K, te, c);
+  int32_t* o = out + p * L + e0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (e0 + j < L) o[j] = quantize(c[j], M);
+}
+
+// K2 for any K: one thread a pixel, the parameters read where they lie
+__global__ void __launch_bounds__(kTile2)
+    fine_cdf_q_generic(const float* __restrict__ pi,
+                       const float* __restrict__ mu,
+                       const float* __restrict__ inv_s,
+                       const float* __restrict__ a, int32_t* __restrict__ out,
+                       int P, int K, float bw, float t0, int n_coarse,
+                       float M) {
+  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= static_cast<size_t>(P)) return;
+  const float ap = a[p];
+  const float b0 = ap * static_cast<float>(kFine);
+  float te[kFine + 1], c[kFine + 1];
+#pragma unroll
+  for (int e = 0; e <= kFine; ++e)
+    te[e] = (b0 + static_cast<float>(e)) * bw + t0;
+  mixture<kExact, kFine + 1>(pi + p * K, mu + p * K, inv_s + p * K, K, te, c);
+  const float lo = ap == 0.0f ? 0.0f : c[0];
+  const float hi = ap == static_cast<float>(n_coarse - 1) ? 1.0f : c[kFine];
+  const float denom = fmaxf(hi - lo, 1e-9f);
+#pragma unroll
+  for (int e = 0; e < kFine; ++e)
+    out[p * kFine + e] = quantize((c[e] - lo) / denom, M);
+}
+
 template <class Kernel, class... Args>
 int launch(Kernel kernel, int blocks, int threads, void* stream,
            Args... args) {
@@ -236,8 +291,17 @@ int launch(Kernel kernel, int blocks, int threads, void* stream,
 extern "C" int l3c_mixture_cdf_q(const void* pi, const void* mu,
                                  const void* inv_s, const void* t, void* out,
                                  int P, int K, int L, float M, void* stream) {
-  if (P < 1 || K < 1 || K > kMaxK || L < 1 || L > kMaxL)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 1 || K < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (K > kMaxK || L > kMaxL) {
+    const long long n = static_cast<long long>(P) * ((L + 3) >> 2);
+    return launch(mixture_cdf_q_generic,
+                  static_cast<int>((n + kThreads1 - 1) / kThreads1),
+                  kThreads1, stream, static_cast<const float*>(pi),
+                  static_cast<const float*>(mu),
+                  static_cast<const float*>(inv_s),
+                  static_cast<const float*>(t), static_cast<int32_t*>(out),
+                  P, K, L, M);
+  }
   return launch(mixture_cdf_q_kernel, (P + kTile1 - 1) / kTile1, kThreads1,
                 stream, static_cast<const float*>(pi),
                 static_cast<const float*>(mu),
@@ -250,9 +314,9 @@ extern "C" int l3c_fine_cdf_q(const void* pi, const void* mu,
                               const void* inv_s, const void* a, void* out,
                               int P, int K, float bw, float t0, int n_coarse,
                               float M, void* stream) {
-  if (P < 1 || K < 1 || K > kMaxK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(fine_cdf_q_kernel, (P + kTile2 - 1) / kTile2, kTile2, stream,
+  if (P < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(K > kMaxK ? fine_cdf_q_generic : fine_cdf_q_kernel,
+                (P + kTile2 - 1) / kTile2, kTile2, stream,
                 static_cast<const float*>(pi), static_cast<const float*>(mu),
                 static_cast<const float*>(inv_s),
                 static_cast<const float*>(a), static_cast<int32_t*>(out), P,

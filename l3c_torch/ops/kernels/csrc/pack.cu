@@ -29,6 +29,12 @@
 // The lambda slots (RGB scale): slot j conditions TARGET channel (1, 2, 2)
 // and follows that channel's selection and a_hat, so the thread of
 // channel 1 writes w slot 0 and the thread of channel 2 slots 1 and 2.
+//
+// The registers hold at most kMaxK components. Beyond them (up to 255,
+// the JAX package's u8 component rank) the launcher runs a generic
+// variant: the same thread mapping and expressions in the same order,
+// the logits read where they lie each time they are needed and the
+// selected components' indices kept in a local array. Not tuned.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -36,6 +42,7 @@
 namespace {
 
 constexpr int kMaxK = 10;     // mixture components K
+constexpr int kMaxKGeneric = 255;   // the generic variant's
 constexpr int kThreads = 256;
 
 // the plain version's constants (ops/int_coder.py, frozen by the format)
@@ -170,6 +177,73 @@ __global__ void __launch_bounds__(kThreads) pack_int_kernel(PackArgs A) {
   }
 }
 
+// pack_int_kernel's function for any K: component k's rank is counted
+// when it is needed, and slot r takes the lowest k of rank r (k = 0 when
+// there is none), as select does
+template <bool LAM>
+__global__ void __launch_bounds__(kThreads)
+    pack_int_generic(PackArgs A) {
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= A.n) return;
+  const int c = blockIdx.y;
+  const int K = A.K, KS = A.KS;
+  const bool sel = KS < K;
+  const size_t plane = static_cast<size_t>(A.HW);
+  const int b = pix / A.HW;
+  const int groups = LAM ? 4 : 3;
+  const float* img = A.l +
+                     (static_cast<size_t>(b) * groups * A.C * K) * plane +
+                     (pix - b * A.HW);
+  auto at = [&](int i, int ch, int k) {
+    return img[static_cast<size_t>((i * A.C + ch) * K + k) * plane];
+  };
+  uint8_t ks[kMaxKGeneric];       // slot r's component
+  for (int r = 0; r < KS; ++r) ks[r] = sel ? 0 : r;
+  if (sel) {
+    for (int k = K - 1; k >= 0; --k) {
+      const float xk = at(0, c, k);
+      int r = 0;
+      for (int j = 0; j < K; ++j) {
+        const float xj = at(0, c, j);
+        r += xk == xj ? (j < k) : (xj > xk);
+      }
+      if (r < KS) ks[r] = static_cast<uint8_t>(k);
+    }
+  }
+  float m = at(0, c, ks[0]);
+  for (int r = 1; r < KS; ++r) m = fmaxf(m, at(0, c, ks[r]));
+  float sum = 0.0f;
+  for (int r = 0; r < KS; ++r) sum = sum + expf(at(0, c, ks[r]) - m);
+  const size_t out0 = static_cast<size_t>(c) * KS * A.n + pix;
+  for (int r = 0; r < KS; ++r) {
+    const int k = ks[r];
+    const float pi = expf(at(0, c, k) - m) / sum;
+    const float inv_s = expf(-fmaxf(at(2, c, k), kLogScalesMin));
+    const float a_hat = fminf(fmaxf(inv_s * A.bw, kAMin), kAMax);
+    const float m_hat = (at(1, c, k) - A.t0) / A.bw;
+    const float vq = rintf(m_hat * a_hat * kQ10);
+    const size_t o = out0 + static_cast<size_t>(r) * A.n;
+    A.p[o] = rintf(pi * kPiQ);
+    A.a[o] = rintf(a_hat * kQ10);
+    A.sc[o] = rintf(a_hat * kScQ10);
+    A.v[o] = fminf(fmaxf(vq, -kVClamp), kVClamp);
+    if (LAM && c > 0) {
+      for (int j = c == 1 ? 0 : 1; j < (c == 1 ? 1 : 3); ++j) {
+        const float s = 1.0f / (1.0f + expf(-at(3, j, k)));
+        A.w[(static_cast<size_t>(j) * KS + r) * A.n + pix] =
+            rintf(s * a_hat * kQ10);
+      }
+    }
+  }
+}
+
+template <bool LAM>
+int launch_generic(const PackArgs& A, cudaStream_t stream) {
+  const dim3 grid((A.n + kThreads - 1) / kThreads, A.C);
+  pack_int_generic<LAM><<<grid, kThreads, 0, stream>>>(A);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int KP, bool LAM>
 int launch(const PackArgs& A, cudaStream_t stream) {
   const dim3 grid((A.n + kThreads - 1) / kThreads, A.C);
@@ -186,7 +260,7 @@ extern "C" int l3c_pack_int(const void* l, void* p, void* a, void* sc,
                             void* v, void* w, int N, int HW, int C, int K,
                             int KS, int lam, float bw, float t0,
                             void* stream) {
-  if (K < 1 || K > kMaxK || KS < 1 || KS > K || C < 1 || N < 1 || HW < 1 ||
+  if (K < 1 || K > kMaxKGeneric || KS < 1 || KS > K || C < 1 || N < 1 || HW < 1 ||
       (lam && (C != 3 || w == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const PackArgs A{static_cast<const float*>(l), static_cast<float*>(p),
@@ -194,6 +268,8 @@ extern "C" int l3c_pack_int(const void* l, void* p, void* a, void* sc,
                    static_cast<float*>(v),       static_cast<float*>(w),
                    N * HW, HW, C, K, KS, bw, t0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K > kMaxK) return lam ? launch_generic<true>(A, s)
+                            : launch_generic<false>(A, s);
   if (KS > 4)
     return lam ? launch<kMaxK, true>(A, s) : launch<kMaxK, false>(A, s);
   return lam ? launch<4, true>(A, s) : launch<4, false>(A, s);

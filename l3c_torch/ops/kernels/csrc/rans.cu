@@ -50,6 +50,15 @@
 // each renorm word at the end of its stream's word row and moves the run
 // to the front once (decode order), so the JAX compaction pass is not
 // needed.
+//
+// The tiles hold rows of at most 32 entries (L <= 33) and registers for
+// at most kMaxK components. Beyond them the launchers run generic
+// variants (one thread a stream, each row entry or lookup evaluated when
+// the walk needs it, the parameters read where they lie): the same
+// exact-integer expressions, so the same words and symbols as the tiled
+// kernels wherever both run, up to K' <= 255 (the JAX package's u8
+// component rank) and L <= 256 (u8 symbols; the evaluator's products
+// e a stay exact, below 2^24, for edges e <= 256). They are not tuned.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -65,6 +74,9 @@ constexpr int kBuilders = kThreads - 32;
 constexpr int kDecStreams = 8;              // streams per decode block
 constexpr int kEncStreams = 16;             // streams per encode block
 constexpr int kMaxK = 10;                   // mixture components K'
+constexpr int kMaxKGeneric = 255;           // K' of the generic variants
+constexpr int kMaxLTile = 33;               // the tiles' symbols
+constexpr int kMaxL = 256;                  // the generic variants'
 
 enum DecMode { kDecUniform = 0, kDecBn = 1, kDecCoarse = 2, kDecFine = 3 };
 enum EncMode { kEncUniform = 0, kEncBn = 1, kEncRgb = 2 };
@@ -522,6 +534,236 @@ __global__ void __launch_bounds__(kThreads)
   lengths[s] = nw + 2;
 }
 
+// ------------------------------------------------------------ generic
+
+// field f of channel c, component k at pixel pix, read where it lies
+__device__ __forceinline__ float ldk(const float* f, const Params& P, int c,
+                                     int k, size_t pix) {
+  return __ldg(f + at(P, c, k, pix));
+}
+
+// channel c's v of component k with the lambda chain, as load_chained_v
+__device__ __forceinline__ float chained_v(const Params& P, int c, int k,
+                                           size_t pix, float s0, float s1) {
+  const float v = ldk(P.v, P, c, k, pix);
+  if (c == 0) return v;
+  if (c == 1)
+    return apply_lambda_chain(v, 1, ldk(P.w, P, 0, k, pix), 0.0f, 0.0f, s0,
+                              s1);
+  return apply_lambda_chain(v, 2, 0.0f, ldk(P.w, P, 1, k, pix),
+                            ldk(P.w, P, 2, k, pix), s0, s1);
+}
+
+// what every entry of a pixel's row needs: the conditioning symbols and,
+// for fine rows, the coarse bin's bounds
+struct RowCtx {
+  float s0, s1, af, lo, d;
+};
+
+template <int MODE>
+__device__ __forceinline__ RowCtx row_ctx(const Params& P,
+                                          const uint16_t* tab,
+                                          const uint8_t* __restrict__ dec,
+                                          const uint8_t* __restrict__ asym,
+                                          int c, size_t pix) {
+  RowCtx r{0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  if (MODE == kDecCoarse || MODE == kDecFine) {
+    if (c > 0) r.s0 = static_cast<float>(__ldg(dec + pix));
+    if (c > 1) r.s1 = static_cast<float>(__ldg(dec + P.N + pix));
+  }
+  if (MODE == kDecFine) {
+    r.af = static_cast<float>(__ldg(asym + pix));
+    float c_lo = 0.0f, c_hi = 0.0f;
+    for (int k = 0; k < P.K; ++k) {
+      const float p = ldk(P.p, P, c, k, pix);
+      const float z_a = fine_za(r.af, ldk(P.sc, P, c, k, pix),
+                                chained_v(P, c, k, pix, r.s0, r.s1));
+      c_lo += table_term(tab, p, clip_z(z_a));
+      c_hi += table_term(
+          tab, p,
+          fine_z(z_a, static_cast<float>(kFineBins), ldk(P.a, P, c, k, pix)));
+    }
+    cond_bounds(r.af, cdf_clamp(c_lo), cdf_clamp(c_hi), &r.lo, &r.d);
+  }
+  return r;
+}
+
+// entry e (1..L-1) of channel c's row at pixel pix, as build_row makes it
+template <int MODE>
+__device__ __forceinline__ uint32_t row_entry(const Params& P,
+                                              const uint16_t* tab,
+                                              const RowCtx& r, int c,
+                                              size_t pix, int e, int L) {
+  if (MODE == kDecUniform) return static_cast<uint32_t>(uniform_edge(e, L));
+  const float ef = static_cast<float>(e);
+  float acc = 0.0f;
+  for (int k = 0; k < P.K; ++k) {
+    const float p = ldk(P.p, P, c, k, pix);
+    if (MODE == kDecBn) {
+      acc += table_term(
+          tab, p, bn_z(ef, ldk(P.a, P, c, k, pix), ldk(P.v, P, c, k, pix)));
+    } else if (MODE == kDecCoarse) {
+      acc += table_term(tab, p,
+                        coarse_z(ef, ldk(P.sc, P, c, k, pix),
+                                 chained_v(P, c, k, pix, r.s0, r.s1)));
+    } else {
+      const float z_a = fine_za(r.af, ldk(P.sc, P, c, k, pix),
+                                chained_v(P, c, k, pix, r.s0, r.s1));
+      acc += table_term(tab, p, fine_z(z_a, ef, ldk(P.a, P, c, k, pix)));
+    }
+  }
+  float cq = cdf_clamp(acc);
+  if (MODE == kDecFine) cq = cond_norm(cq, r.lo, r.d);
+  return static_cast<uint32_t>(quantize_edge(cq, ef, L));
+}
+
+// rans_decode_kernel's function for any K' and L: thread s walks stream s,
+// searching its row entry by entry (the same counts and extrema)
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+    rans_decode_generic(Params P, const uint8_t* __restrict__ dec,
+                        const uint8_t* __restrict__ asym,
+                        const int32_t* __restrict__ words,
+                        uint8_t* __restrict__ syms, Geom G, int W, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
+  if (table_bytes<MODE == kDecUniform>()) {
+    fill_sigmoid_table(tab, threadIdx.x, kThreads);
+    __syncthreads();
+  }
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= G.lanes) return;
+  const int32_t* wr = words + static_cast<size_t>(s) * W;
+  uint32_t x = static_cast<uint32_t>(wr[0]) |
+               (static_cast<uint32_t>(wr[1]) << 16);
+  int cur = 2;
+  const int g = s / G.ns_c, i0 = (s % G.ns_c) * G.T;
+  const int c = G.c0 + g / G.F;
+  const int nvalid = min(G.T, G.n - i0);
+  const size_t out = static_cast<size_t>(g) * G.n + i0;
+  for (int t = 0; t < nvalid; ++t) {
+    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i0 + t;
+    const RowCtx r = row_ctx<MODE>(P, tab, dec, asym, c, pix);
+    const uint32_t cf = x & 0xFFFFu;
+    uint32_t cnt = 0, lo = 0, hi = 65536;
+    for (int e = 1; e < L; ++e) {
+      const uint32_t q = row_entry<MODE>(P, tab, r, c, pix, e, L);
+      if (q <= cf) {
+        ++cnt;
+        lo = max(lo, q);
+      } else {
+        hi = min(hi, q);
+      }
+    }
+    const uint32_t x1 = (hi - lo) * (x >> 16) + cf - lo;
+    if (x1 < kRansL) {
+      x = (x1 << 16) | (cur < W ? static_cast<uint32_t>(wr[cur]) : 0u);
+      ++cur;
+    } else {
+      x = x1;
+    }
+    syms[out + t] = static_cast<uint8_t>(cnt);
+  }
+}
+
+// lookup's packed (start, freq) for any K'
+template <int MODE>
+__device__ __forceinline__ uint32_t lookup_generic(
+    const Params& P, const uint16_t* tab, const uint8_t* __restrict__ sym,
+    int c, size_t pix, int L) {
+  const int t = __ldg(sym + static_cast<size_t>(c) * P.N + pix);
+  if (MODE == kEncUniform) return pack_sf(uniform_edge(t, L),
+                                          uniform_edge(t + 1, L));
+  const float e = static_cast<float>(t);
+  float acc0 = 0.0f, acc1 = 0.0f;
+  for (int k = 0; k < P.K; ++k) {
+    const float p = ldk(P.p, P, c, k, pix), a = ldk(P.a, P, c, k, pix);
+    const float v = ldk(P.v, P, c, k, pix);
+    acc0 += table_term(tab, p, bn_z(e, a, v));
+    acc1 += table_term(tab, p, bn_z(e + 1.0f, a, v));
+  }
+  return pack_sf(quantize_edge(cdf_clamp(acc0), e, L),
+                 quantize_edge(cdf_clamp(acc1), e + 1.0f, L));
+}
+
+// lookup_rgb's coarse (.x) and fine (.y) pairs for any K'
+__device__ __forceinline__ uint2 lookup_rgb_generic(
+    const Params& P, const uint16_t* tab, const uint8_t* __restrict__ sym,
+    int c, size_t pix) {
+  const int t = __ldg(sym + static_cast<size_t>(c) * P.N + pix);
+  const float s0 = c > 0 ? static_cast<float>(__ldg(sym + pix)) : 0.0f;
+  const float s1 = c > 1 ? static_cast<float>(__ldg(sym + P.N + pix)) : 0.0f;
+  const float af = static_cast<float>(t >> 4);
+  const float bf = static_cast<float>(t & 15);
+  float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f, c_lo = 0.0f, c_hi = 0.0f;
+  for (int k = 0; k < P.K; ++k) {
+    const float p = ldk(P.p, P, c, k, pix), a = ldk(P.a, P, c, k, pix);
+    const float sc = ldk(P.sc, P, c, k, pix);
+    const float v = chained_v(P, c, k, pix, s0, s1);
+    a0 += table_term(tab, p, coarse_z(af, sc, v));
+    a1 += table_term(tab, p, coarse_z(af + 1.0f, sc, v));
+    const float z_a = fine_za(af, sc, v);
+    c_lo += table_term(tab, p, clip_z(z_a));
+    c_hi += table_term(tab, p, fine_z(z_a, static_cast<float>(kFineBins), a));
+    b0 += table_term(tab, p, fine_z(z_a, bf, a));
+    b1 += table_term(tab, p, fine_z(z_a, bf + 1.0f, a));
+  }
+  float lo, d;
+  cond_bounds(af, cdf_clamp(c_lo), cdf_clamp(c_hi), &lo, &d);
+  return make_uint2(
+      pack_sf(quantize_edge(cdf_clamp(a0), af, kCoarseBins),
+              quantize_edge(cdf_clamp(a1), af + 1.0f, kCoarseBins)),
+      pack_sf(quantize_edge(cond_norm(cdf_clamp(b0), lo, d), bf, kFineBins),
+              quantize_edge(cond_norm(cdf_clamp(b1), lo, d), bf + 1.0f,
+                            kFineBins)));
+}
+
+// rans_encode_kernel's function for any K': thread s codes lane s, each
+// symbol's pair evaluated when the walk reaches it
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+    rans_encode_generic(Params P, const uint8_t* __restrict__ sym,
+                        int32_t* __restrict__ words,
+                        int32_t* __restrict__ lengths, Geom G, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
+  if (table_bytes<MODE == kEncUniform>()) {
+    fill_sigmoid_table(tab, threadIdx.x, kThreads);
+    __syncthreads();
+  }
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= G.lanes) return;
+  const int pix_lanes = G.lanes / EncTile<MODE>::kLevels;
+  const int level = s / pix_lanes, ps = s - level * pix_lanes;
+  const int g = ps / G.ns_c, i0 = (ps % G.ns_c) * G.T;
+  const int nvalid = min(G.T, G.n - i0);
+  int32_t* row = words + static_cast<size_t>(s) * (G.T + 2);
+  uint32_t x = kRansL;
+  int nw = 0;
+  for (int t = nvalid - 1; t >= 0; --t) {     // rANS encodes in reverse
+    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i0 + t;
+    uint32_t v;
+    if (MODE == kEncRgb) {
+      const uint2 q = lookup_rgb_generic(P, tab, sym, g / G.F, pix);
+      v = level ? q.y : q.x;
+    } else {
+      v = lookup_generic<MODE>(P, tab, sym, g / G.F, pix, L);
+    }
+    const uint32_t st = v & 0xFFFFu, f = v >> 16;
+    if (x >= (f << 16)) {
+      row[G.T + 1 - nw] = static_cast<int32_t>(x & 0xFFFFu);
+      ++nw;
+      x >>= 16;
+    }
+    const uint32_t fs = f > 0 ? f : 1u;
+    x = ((x / fs) << 16) + (x % fs) + st;
+  }
+  for (int i = 0; i < nw; ++i) row[2 + i] = row[G.T + 2 - nw + i];
+  row[0] = static_cast<int32_t>(x & 0xFFFFu);
+  row[1] = static_cast<int32_t>(x >> 16);
+  lengths[s] = nw + 2;
+}
+
 // launch with `smem` bytes of dynamic shared memory (above 48 KB only
 // after raising the kernel's limit)
 template <typename... KArgs, typename... Args>
@@ -591,6 +833,65 @@ int decode_rows(int L, const Params& P, const void* dec, const void* asym,
   return decode_k<MODE, 32>(P, dec, asym, words, syms, G, W, L, stream);
 }
 
+template <int MODE>
+int decode_generic_mode(const Params& P, const void* dec, const void* asym,
+                        const void* words, void* syms, const Geom& G, int W,
+                        int L, cudaStream_t stream) {
+  return launch(rans_decode_generic<MODE>, G.lanes, kThreads,
+                table_bytes<MODE == kDecUniform>(), stream, P,
+                static_cast<const uint8_t*>(dec),
+                static_cast<const uint8_t*>(asym),
+                static_cast<const int32_t*>(words),
+                static_cast<uint8_t*>(syms), G, W, L);
+}
+
+int decode_generic(int mode, const Params& P, const void* dec,
+                   const void* asym, const void* words, void* syms,
+                   const Geom& G, int W, int L, cudaStream_t stream) {
+  switch (mode) {
+    case kDecUniform:
+      return decode_generic_mode<kDecUniform>(P, dec, asym, words, syms, G,
+                                              W, L, stream);
+    case kDecBn:
+      return decode_generic_mode<kDecBn>(P, dec, asym, words, syms, G, W, L,
+                                         stream);
+    case kDecCoarse:
+      return decode_generic_mode<kDecCoarse>(P, dec, asym, words, syms, G,
+                                             W, kCoarseBins, stream);
+    case kDecFine:
+      return decode_generic_mode<kDecFine>(P, dec, asym, words, syms, G, W,
+                                           kFineBins, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int MODE>
+int encode_generic_mode(const Params& P, const void* sym, void* words,
+                        void* lengths, const Geom& G, int L,
+                        cudaStream_t stream) {
+  return launch(rans_encode_generic<MODE>, G.lanes, kThreads,
+                table_bytes<MODE == kEncUniform>(), stream, P,
+                static_cast<const uint8_t*>(sym),
+                static_cast<int32_t*>(words), static_cast<int32_t*>(lengths),
+                G, L);
+}
+
+int encode_generic(int mode, const Params& P, const void* sym, void* words,
+                   void* lengths, const Geom& G, int L, cudaStream_t stream) {
+  switch (mode) {
+    case kEncUniform:
+      return encode_generic_mode<kEncUniform>(P, sym, words, lengths, G, L,
+                                              stream);
+    case kEncBn:
+      return encode_generic_mode<kEncBn>(P, sym, words, lengths, G, L,
+                                         stream);
+    case kEncRgb:
+      return encode_generic_mode<kEncRgb>(P, sym, words, lengths, G,
+                                          kFineBins, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 Params params(const void* p, const void* a, const void* sc, const void* v,
               const void* w, int K, int N) {
   return Params{static_cast<const float*>(p), static_cast<const float*>(a),
@@ -600,8 +901,8 @@ Params params(const void* p, const void* a, const void* sc, const void* v,
 
 }  // namespace
 
-// mode: 0 uniform (L <= 33), 1 bn (L <= 33), 2 RGB coarse, 3 RGB fine
-// (L = 16); channel c0 (RGB) or 0 (bn); F groups per channel.
+// mode: 0 uniform (L <= 256), 1 bn (L <= 256), 2 RGB coarse, 3 RGB fine
+// (L = 16); K' <= 255; channel c0 (RGB) or 0 (bn); F groups per channel.
 extern "C" int l3c_rans_decode(const void* p, const void* a, const void* sc,
                                const void* v, const void* w, const void* dec,
                                const void* asym, const void* words,
@@ -611,8 +912,10 @@ extern "C" int l3c_rans_decode(const void* p, const void* a, const void* sc,
   const Params P = params(p, a, sc, v, w, K, N);
   const Geom G{n, T, (n + T - 1) / T, lanes, F, c0};
   auto st = static_cast<cudaStream_t>(stream);
-  if (L < 2 || L > 33 || K > kMaxK)
+  if (L < 2 || L > kMaxL || K > kMaxKGeneric)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (K > kMaxK || (mode <= kDecBn && L > kMaxLTile))
+    return decode_generic(mode, P, dec, asym, words, syms, G, W, L, st);
   switch (mode) {
     case kDecUniform:
       return decode_rows<kDecUniform>(L, P, dec, asym, words, syms, G, W, st);
@@ -638,7 +941,9 @@ extern "C" int l3c_rans_encode(const void* p, const void* a, const void* sc,
   const Params P = params(p, a, sc, v, w, K, N);
   const Geom G{n, T, (n + T - 1) / T, lanes, F, 0};
   auto st = static_cast<cudaStream_t>(stream);
-  if (L < 2 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 2 || L > kMaxL || K > kMaxKGeneric)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (K > kMaxK) return encode_generic(mode, P, sym, words, lengths, G, L, st);
   switch (mode) {
     case kEncUniform:
       return encode<kEncUniform>(P, sym, words, lengths, G, L, st);

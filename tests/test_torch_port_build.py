@@ -157,6 +157,34 @@ def test_wrappers_refuse_inconsistent_shapes(monkeypatch):
             254.999)
 
 
+def test_wrappers_refuse_beyond_the_caps_that_remain(monkeypatch):
+    """K3-K6 take K <= 255 (the JAX package's u8 component rank) and K3/K4
+    L <= 256 symbols; beyond them the wrappers raise for a CUDA tensor and
+    launch nothing (no plain version in the kernels' place)."""
+    calls = _cpu_as_cuda(monkeypatch)
+    K = kernels.MAX_K + 1
+    bn = ic.IntParams(*[torch.zeros((1, K, 6)) for _ in range(4)], None)
+    u1 = torch.zeros((1, 6), dtype=torch.uint8)
+    words = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="256"):
+        kernels.rans_encode("bn", u1, 3, 8, 25, bn, 2)
+    with pytest.raises(ValueError, match="256"):
+        kernels.rans_decode("bn", words, 3, 8, 25, bn, 2)
+    L = kernels.MAX_L + 1
+    with pytest.raises(ValueError, match=f"L={L}"):
+        kernels.rans_encode("uniform", u1, 6, 8, L)
+    with pytest.raises(ValueError, match=f"L={L}"):
+        kernels.rans_decode("uniform", words[:1], 6, 8, L)
+    with pytest.raises(ValueError, match="components"):
+        kernels.pack_int(torch.zeros((1, 3 * K, 1, 2)), 1, 4, False, 0.08,
+                         -1.04)
+    with pytest.raises(ValueError, match="components"):
+        kernels.dmll_nll(torch.zeros((1, 3 * K, 1, 2)),
+                         torch.zeros((1, 1, 2, 1)), False, 0.04, -0.999,
+                         0.999)
+    assert calls == []
+
+
 def test_call_refuses_wrong_argument_count(monkeypatch):
     _cpu_as_cuda(monkeypatch)
     with pytest.raises(TypeError, match="takes 17 arguments"):

@@ -65,6 +65,11 @@ def _host_source(split: int = 0) -> str:
         assert old in src, f"dmll.cu no longer contains {old!r}"
         src = src.replace(old, "host_launch(grid, threads, [&] { "
                                f"dmll_kernel<GRAD, {lam}>(A); }});")
+        old = (f"dmll_generic<GRAD, {lam}><<<blocks, kGenericThreads, 0, "
+               "stream>>>(A, n);")
+        assert old in src, f"dmll.cu no longer contains {old!r}"
+        src = src.replace(old, "host_launch(blocks, kGenericThreads, [&] { "
+                               f"dmll_generic<GRAD, {lam}>(A, n); }});")
     dyn = "extern __shared__ __align__(16) float smem[];"
     assert dyn in src, f"dmll.cu no longer contains {dyn!r}"
     src = src.replace(dyn, "__shared__ __align__(16) float smem[1 << 14];")
@@ -215,23 +220,46 @@ def test_dmll_kernel_refuses_what_it_does_not_take(monkeypatch):
 
 
 def test_dmll_kernel_takes_at_most_eight_channels(host_lib, monkeypatch):
-    """K6 runs 2 x 32 C threads a block, so it takes C <= 8 (kMaxC): C = 8
-    matches the plain version; for C = 9 the wrappers name the limit and
-    the launchers themselves refuse it."""
+    """A block of K6 runs 2 x 32 C threads, so it takes at most eight
+    channels (kMaxC); a larger q.C runs one launch a group of eight behind
+    the same wrapper call. C = 8 and 9 match the plain version through
+    the wrappers."""
     _matches_plain(host_lib, monkeypatch, False, 2, 8, 1, 3, 5, 8)
-    x, l = dmll_inputs(False, 2, 0, N=1, H=3, W=5, C=9)
-    l_nchw = l.permute(0, 3, 1, 2).contiguous()
-    g = torch.ones_like(x)
+    _matches_plain(host_lib, monkeypatch, False, 2, 9, 1, 3, 5, 9)
+
+
+# q.C = 9 and 16 (two groups of channels, the second ragged or whole) at
+# K <= 10; K = 12 and 16 (the generic variant) on both scales' layouts,
+# with a ragged tile's worth of pixels
+@pytest.mark.parametrize("rgb,K,C,N,H,W", [
+    (False, 10, 9, 2, 5, 7), (False, 3, 16, 1, 8, 9),
+    (True, 12, 3, 2, 5, 7), (False, 12, 5, 1, 4, 13),
+    (True, 16, 3, 1, 6, 6), (False, 16, 9, 1, 3, 5)])
+def test_dmll_source_beyond_the_tile(host_lib, monkeypatch, rgb, K, C, N, H,
+                                     W):
+    """K6 where the JAX package's sizes pass the tile's (C > 8, K > 10)
+    against the plain version at the same bounds; one launch each way."""
+    _matches_plain(host_lib, monkeypatch, rgb, K, C, N, H, W, 3 * K + C)
+
+
+def test_dmll_channel_groups_are_the_one_group_kernel(host_lib, monkeypatch):
+    """q.C = 16 runs two launches of eight channels: each group's outputs
+    are those of a C = 8 call on its channels alone, bit for bit
+    (bottleneck channels do not interact)."""
+    spec = BN
+    x, l = dmll_inputs(False, 4, 5, N=2, H=5, W=7, C=16)
+    g = torch.from_numpy(np.random.RandomState(3).rand(*x.shape)
+                         .astype(np.float32))
+    K = 4
+    lg = l.reshape(*l.shape[:3], 3, 16, K)
     with monkeypatch.context() as m:
         _kernel_path(m, host_lib)
-        for call in (lambda: kernels.dmll_nll(l_nchw, x, False, 1 / 24,
-                                              -0.999, 0.999),
-                     lambda: kernels.dmll_nll_grad(l_nchw, x, g, False,
-                                                   1 / 24, -0.999, 0.999)):
-            with pytest.raises(ValueError, match=r"C=9 channels; the "
-                                                 r"kernel takes 1\.\.8"):
-                call()
-    for fn, ptrs in ((host_lib.l3c_dmll_nll, 3), (host_lib.l3c_dmll_nll_grad,
-                                                  5)):
-        assert fn(*[None] * ptrs, 1, 15, 9, 2, 0, 1 / 24, -0.999, 0.999,
-                  None) == 1             # cudaErrorInvalidValue
+        whole = _grads(dmll.nll, spec, x, l, g)
+        for c0 in (0, 8):
+            sub = lg[..., c0:c0 + 8, :].reshape(*l.shape[:3], -1)
+            part = _grads(dmll.nll, spec, x[..., c0:c0 + 8].contiguous(),
+                          sub.contiguous(), g[..., c0:c0 + 8].contiguous())
+            assert torch.equal(part[0], whole[0][..., c0:c0 + 8])
+            gl = whole[1].reshape(*l.shape[:3], 3, 16, K)[..., c0:c0 + 8, :]
+            assert torch.equal(part[1], gl.reshape(*l.shape[:3], -1))
+            assert torch.equal(part[2], whole[2][..., c0:c0 + 8])

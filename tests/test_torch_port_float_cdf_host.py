@@ -183,10 +183,13 @@ def _increasing(q):
 # K1's tile holds 64 pixels: several tiles with a ragged last one, one
 # whole tile, one pixel, one pixel over four tiles, one pixel short of two;
 # L = 16 and 32 take the 16-byte stores, the others the scalar ones with a
-# padded last group of edges; K from 1 to the kernels' 10
+# padded last group of edges; K from 1 to the tile's 10; K = 12 and 16 or
+# L = 40 the generic variant
 @pytest.mark.parametrize("P,K,L", [(300, 10, 16), (64, 3, 25), (1, 10, 16),
                                    (257, 4, 16), (127, 10, 32), (128, 1, 1),
-                                   (70, 7, 17), (200, 10, 6)])
+                                   (70, 7, 17), (200, 10, 6), (300, 12, 16),
+                                   (65, 16, 25), (130, 10, 40),
+                                   (70, 16, 40)])
 def test_mixture_cdf_q_source_matches_plain_and_pallas(
         host_lib, monkeypatch, P, K, L):
     """K1 of float_cdf.cu: <= 1 step from the plain version and from the
@@ -230,7 +233,18 @@ def test_fine_cdf_q_source_matches_plain_and_pallas(host_lib, monkeypatch,
     """K2 of float_cdf.cu: <= 2 steps from the plain version and from the
     Pallas kernel on well-conditioned rows; one launch; rows strictly
     increasing; a = 0 and a = 15 (the tail absorption) among the pixels."""
-    K, bw, t0 = 10, 1.0, -0.5
+    _fine_matches_plain_and_pallas(host_lib, monkeypatch, P, 10)
+
+
+@pytest.mark.parametrize("P,K", [(300, 12), (129, 16)])
+def test_fine_cdf_q_source_beyond_ten_components(host_lib, monkeypatch, P,
+                                                 K):
+    """K2's generic variant (K > 10), held as the tiled kernel is."""
+    _fine_matches_plain_and_pallas(host_lib, monkeypatch, P, K)
+
+
+def _fine_matches_plain_and_pallas(host_lib, monkeypatch, P, K):
+    bw, t0 = 1.0, -0.5
     pi, mu, inv_s, a = _fine_inputs(P, K, P)
     if P >= 16:
         assert (a == 0).any() and (a == 15).any()
@@ -282,13 +296,16 @@ def test_dispatch_and_misaligned_bases(host_lib, monkeypatch):
                .max()) <= 1
 
 
-@pytest.mark.parametrize("K,L,what", [(11, 16, "K=11"), (10, 33, "L=33"),
-                                      (10, 0, "L=0")])
+@pytest.mark.parametrize("K,L,what", [(0, 16, "K=0"), (10, 0, "L=0"),
+                                      (0, 0, "K=0")])
 def test_wrappers_refuse_sizes_outside_the_kernels_domain(host_lib,
                                                           monkeypatch, K, L,
                                                           what):
-    """K > 10 or L outside 1..32 raises for a CUDA tensor: no launch and no
-    plain version in the kernels' place."""
+    """No component or no edge raises for a CUDA tensor: no launch and no
+    plain version in the kernels' place. (K1 and K2 take any K >= 1 and K1
+    any L >= 1: beyond the tiles' K = 10 and L = 32 the generic variants
+    run, as test_mixture_cdf_q_source_matches_plain_and_pallas and
+    test_fine_cdf_q_source_matches_plain_and_pallas show.)"""
     f = torch.zeros((4, K))
     n0 = dict(kernels.launches)
     with monkeypatch.context() as m:
@@ -297,7 +314,7 @@ def test_wrappers_refuse_sizes_outside_the_kernels_domain(host_lib,
         m.setattr(float_cdf, "fine_cdf_q_plain", None)
         with pytest.raises(ValueError, match=what):
             float_cdf.mixture_cdf_q(f, f, f, torch.zeros(L), L)
-        if K > kernels.MAX_K:
+        if K < 1:
             with pytest.raises(ValueError, match=what):
                 float_cdf.fine_cdf_q(f, f, f, torch.zeros(4), 1.0, -0.5)
     assert dict(kernels.launches) == n0

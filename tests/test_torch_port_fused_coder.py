@@ -74,6 +74,16 @@ def _words(coded):
 
 @pytest.mark.parametrize("K", [2, 4])
 def test_bn_unit_matches_jax(K):
+    _bn_unit_matches_jax(K, L_BN)
+
+
+# where the kernels run their generic variants: K' = 12 and 16, L = 40
+@pytest.mark.parametrize("K,L", [(12, 25), (16, 40)])
+def test_bn_unit_matches_jax_beyond_the_tiles(K, L):
+    _bn_unit_matches_jax(K, L)
+
+
+def _bn_unit_matches_jax(K, L_BN):
     jip, tip = _int_params(K, False, seed=K)
     C = 5
     syms = np.random.RandomState(10 + K).randint(0, L_BN, (C, N))
@@ -96,7 +106,16 @@ def test_rgb_units_encode_matches_jax():
     """encode_rgb's stacked coarse + fine units vs enc_rgb_units: per
     channel the 2-edge lookups with the lambda chain on the true channel
     symbols, one scan over the 6F groups."""
-    jip, tip = _int_params(4, True, seed=20)
+    _rgb_units_encode_matches_jax(4)
+
+
+def test_rgb_units_encode_matches_jax_beyond_the_tiles():
+    """The same at K' = 12, where the kernels run their generic variant."""
+    _rgb_units_encode_matches_jax(12)
+
+
+def _rgb_units_encode_matches_jax(K):
+    jip, tip = _int_params(K, True, seed=20)
     img = np.random.RandomState(21).randint(0, 256, (3, N))
     lay6 = gc.layout_for(n, 6 * F, T)
 
@@ -151,6 +170,15 @@ def test_rgb_channel_decode_matches_jax(c):
 
 
 def test_uniform_unit_matches_jax():
+    _uniform_unit_matches_jax(L_BN)
+
+
+def test_uniform_unit_matches_jax_at_forty_symbols():
+    """L = 40: beyond the decode tiles' 33 symbols."""
+    _uniform_unit_matches_jax(40)
+
+
+def _uniform_unit_matches_jax(L_BN):
     C = 5
     syms = np.random.RandomState(50).randint(0, L_BN, (C * F * n,))
     lay = gc.layout_for(n, C * F, T)

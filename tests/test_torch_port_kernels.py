@@ -58,7 +58,20 @@ def test_rans_kernels_match_plain(cuda, mode, K):
     """K3 and K4 in every mode against their plain versions: lengths and
     used words identical, decoded symbols identical and equal to the
     encoded ones."""
-    F, n, T, L = 2, 3000, 1024, 25
+    _rans_on_card(cuda, mode, K, 25)
+
+
+# beyond the tiles: K' = 12 and 16 components, L = 40 symbols (the
+# generic variants)
+@pytest.mark.parametrize("mode,K,L", [("bn", 12, 25), ("bn", 16, 40),
+                                      ("uniform", 4, 40), ("bn", 4, 40),
+                                      ("rgb", 12, 16), ("rgb", 16, 16)])
+def test_rans_kernels_beyond_the_tiles(cuda, mode, K, L):
+    _rans_on_card(cuda, mode, K, L)
+
+
+def _rans_on_card(cuda, mode, K, L):
+    F, n, T = 2, 3000, 1024
     N = F * n
     rng = np.random.RandomState(K)
     n0 = dict(kernels.launches)
@@ -129,7 +142,8 @@ def test_canary_holds_the_kernels_on_card(cuda):
 
 @pytest.mark.parametrize("rgb,K,topk", [(True, 10, 4), (True, 10, 0),
                                         (False, 10, 4), (False, 10, 0),
-                                        (False, 3, 2)])
+                                        (False, 3, 2), (True, 12, 4),
+                                        (False, 16, 0), (False, 16, 4)])
 def test_pack_int_kernel_matches_plain(cuda, rgb, K, topk):
     """K5 against the plain version on the card, pi-logit ties and
     log-scales below the -7 clamp included: every output within one step,
@@ -181,7 +195,9 @@ def _mixture(rng, P, K):
 # sizes around the kernels' tiles (64 pixels in K1, 128 in K2): several
 # tiles and a ragged last one, less than a tile, one pixel
 @pytest.mark.parametrize("P,K,L", [(5000, 10, 16), (50, 10, 16), (1, 10, 16),
-                                   (5000, 3, 25), (257, 4, 16)])
+                                   (5000, 3, 25), (257, 4, 16),
+                                   (5000, 12, 16), (5000, 16, 40),
+                                   (257, 10, 40)])
 def test_mixture_cdf_q_kernel_matches_plain(cuda, P, K, L):
     rng = np.random.RandomState(0)
     pi, mu, inv_s = _mixture(rng, P, K)
@@ -206,10 +222,10 @@ def test_mixture_cdf_q_kernel_matches_plain(cuda, P, K, L):
     assert torch.equal(again.cpu(), got)
 
 
-@pytest.mark.parametrize("P", [5000, 50, 1, 129])
-def test_fine_cdf_q_kernel_matches_plain(cuda, P):
+@pytest.mark.parametrize("P,K", [(5000, 10), (50, 10), (1, 10), (129, 10),
+                                 (5000, 12), (129, 16)])
+def test_fine_cdf_q_kernel_matches_plain(cuda, P, K):
     rng = np.random.RandomState(1)
-    K = 10
     pi, mu, inv_s = _mixture(rng, P, K)
     a = torch.from_numpy(np.clip(mu[:, 0].numpy() / 16.0, 0, 15)
                          .astype(np.int64)).to(torch.float32)
@@ -233,17 +249,18 @@ def test_fine_cdf_q_kernel_matches_plain(cuda, P):
 
 
 def test_float_cdf_kernels_refuse_what_they_do_not_take(cuda):
-    """K > 10 or L > 32 raise for a CUDA tensor; nothing is launched and
-    no plain version runs in the kernel's place."""
-    f = torch.zeros((4, 11), device=cuda)
+    """No component or no edge raises for a CUDA tensor; nothing is
+    launched and no plain version runs in the kernel's place (K > 10 and
+    L > 32 run the generic variants: the tests above)."""
+    f = torch.zeros((4, 0), device=cuda)
     g = torch.zeros((4, 10), device=cuda)
     n0 = dict(kernels.launches)
-    with pytest.raises(ValueError, match="K=11"):
+    with pytest.raises(ValueError, match="K=0"):
         float_cdf.mixture_cdf_q(f, f, f, torch.zeros(16, device=cuda), 16)
-    with pytest.raises(ValueError, match="K=11"):
+    with pytest.raises(ValueError, match="K=0"):
         float_cdf.fine_cdf_q(f, f, f, torch.zeros(4, device=cuda), 1.0, -0.5)
-    with pytest.raises(ValueError, match="L=33"):
-        float_cdf.mixture_cdf_q(g, g, g, torch.zeros(33, device=cuda), 33)
+    with pytest.raises(ValueError, match="L=0"):
+        float_cdf.mixture_cdf_q(g, g, g, torch.zeros(0, device=cuda), 0)
     assert dict(kernels.launches) == n0
 
 
@@ -427,7 +444,9 @@ def _dmll_on_card(cuda, rgb, K, C, N, H, W, seed):
     (True, 10, 3, 1, 1, 1, 11), (False, 10, 5, 3, 5, 7, 115),
     (True, 3, 3, 3, 5, 7, 108), (False, 3, 5, 2, 4, 13, 107),
     (True, 10, 3, 2, 4, 13, 114), (False, 10, 5, 2, 16, 12, 394),
-    (True, 10, 3, 1, 8, 16, 138)])
+    (True, 10, 3, 1, 8, 16, 138), (False, 10, 9, 2, 5, 7, 9),
+    (False, 3, 16, 1, 8, 9, 16), (True, 12, 3, 2, 5, 7, 12),
+    (False, 16, 5, 1, 4, 13, 21), (False, 16, 9, 1, 3, 5, 25)])
 def test_dmll_kernel_matches_plain(cuda, rgb, K, C, N, H, W, seed):
     """K6 against the plain version on the card and on the CPU
     (_dmll_on_card's bounds)."""

@@ -83,10 +83,11 @@ BN = tdmll.DMLLSpec(False, -1.0, 1.0, 25)
 
 def _host_source() -> str:
     src = open(os.path.join(build.CSRC, "pack.cu")).read()
-    old = "pack_int_kernel<KP, LAM><<<grid, kThreads, 0, stream>>>(A);"
-    assert old in src, f"pack.cu no longer contains {old!r}"
-    src = src.replace(old, "host_launch(grid, kThreads, [&] { "
-                           "pack_int_kernel<KP, LAM>(A); });")
+    for kernel in ("pack_int_kernel<KP, LAM>", "pack_int_generic<LAM>"):
+        old = f"{kernel}<<<grid, kThreads, 0, stream>>>(A);"
+        assert old in src, f"pack.cu no longer contains {old!r}"
+        src = src.replace(old, "host_launch(grid, kThreads, [&] { "
+                               f"{kernel}(A); }});")
     assert "<<<" not in src
     return src
 
@@ -151,10 +152,12 @@ def _compare(got, want):
 
 @pytest.mark.parametrize("rgb,K,topk", [
     (True, 10, 4), (True, 10, 0), (False, 10, 4), (False, 10, 0),
-    (True, 2, 4), (False, 7, 3), (False, 3, 0)])
+    (True, 2, 4), (False, 7, 3), (False, 3, 0), (True, 12, 4),
+    (True, 16, 0), (False, 12, 0), (False, 16, 4)])
 def test_pack_source_matches_plain(host_lib, monkeypatch, rgb, K, topk):
     """K5 of pack.cu against the plain version: K' = 4 and 10 registers,
-    with and without the lambda slots, selection and no selection. The
+    K = 12 and 16 the generic variant, with and without the lambda slots,
+    selection and no selection. The
     selected components must be the plain version's exactly; the integer
     outputs within one step in <= 1e-3 of the entries."""
     spec = RGB if rgb else BN
@@ -200,6 +203,20 @@ def test_pack_source_matches_plain(host_lib, monkeypatch, rgb, K, topk):
 @pytest.mark.parametrize("rgb,topk", [(True, 0), (True, 4), (False, 0),
                                       (False, 4)])
 def test_pack_nchw_route_bitwise_and_vs_jax(rgb, topk, deep):
+    _pack_nchw_route_vs_jax(rgb, 10, topk, deep, bitwise=True)
+
+
+@pytest.mark.parametrize("rgb,K,topk", [(True, 12, 4), (True, 16, 0),
+                                        (False, 12, 0), (False, 16, 4)])
+def test_pack_plain_vs_jax_beyond_ten_components(rgb, K, topk):
+    """The plain version meets JAX at K = 12 and 16, where the kernel runs
+    its generic variant (held to the plain version above). (Its NCHW and
+    NHWC routes are not bitwise equal at K = 16 on the CPU: PyTorch's
+    reductions over K vectorise otherwise on the two layouts.)"""
+    _pack_nchw_route_vs_jax(rgb, K, topk, False, bitwise=False)
+
+
+def _pack_nchw_route_vs_jax(rgb, K, topk, deep, bitwise):
     """The plain version on the classifier's NCHW output gives what it
     gives on the NHWC tensor bit for bit on the CPU (the NHWC entry hands
     a view to the NCHW one), and hence JAX's within the bound of
@@ -215,11 +232,11 @@ def test_pack_nchw_route_bitwise_and_vs_jax(rgb, topk, deep):
     constant inputs XLA folds, attests the division, and with the product
     the port's CPU canary is no longer the JAX package's."""
     spec = RGB if rgb else BN
-    l, C = _logits(rgb, 10, 7 + topk, deep=deep)
+    l, C = _logits(rgb, K, 7 + topk, deep=deep)
     l_nhwc = l.permute(0, 2, 3, 1).contiguous()
     got = ic.pack_int_params_nchw(spec, l, C, topk)
     for g, w in zip(got, ic.pack_int_params(spec, l_nhwc, C, topk)):
-        assert (g is None and w is None) or torch.equal(g, w)
+        assert (g is None and w is None) or not bitwise or torch.equal(g, w)
     js = jdmll.DMLLSpec(True) if rgb else jdmll.DMLLSpec(False, -1.0, 1.0,
                                                           25)
     want = jax.jit(lambda x: jic.pack_int_params(js, x, C, topk))(
@@ -228,7 +245,8 @@ def test_pack_nchw_route_bitwise_and_vs_jax(rgb, topk, deep):
                           torch.from_numpy(np.array(w)) for w in want])
     n_v, all_v = _compare([got.v], [want.v])
     n_bad, n_all = _compare(got._replace(v=None), want._replace(v=None))
-    print(f"pack_int_params_nchw vs JAX rgb={rgb} topk={topk} deep={deep}: "
+    print(f"pack_int_params_nchw vs JAX rgb={rgb} K={K} topk={topk} "
+          f"deep={deep}: "
           f"v {n_v}/{all_v}, other fields {n_bad}/{n_all} entries differ")
     assert n_bad <= 1e-3 * n_all
     assert n_v <= (1e-2 if deep else 1e-3) * all_v

@@ -209,7 +209,20 @@ def test_rans_source_matches_plain(host_lib, monkeypatch, mode, K):
     words identical, symbols identical and equal to the coded ones. K' > 4
     takes the kernels' 10-component parameter registers, K' <= 4 the
     4-component ones; n = 150 is not a multiple of T = 64."""
-    lib = host_lib
+    _rans_matches_plain(host_lib, monkeypatch, mode, K, L_BN)
+
+
+# beyond the tiles: K' = 12 and 16, L = 40 (the generic variants)
+@pytest.mark.parametrize("mode,K,L", [
+    ("bn", 12, 25), ("bn", 16, 40), ("uniform", 0, 40), ("bn", 4, 40),
+    ("rgb", 12, 16), ("rgb", 16, 16)])
+def test_rans_source_beyond_the_tiles(host_lib, monkeypatch, mode, K, L):
+    """K3 and K4 where the JAX package's sizes pass the tiles' (K' > 10 or
+    L > 33): the same words, lengths and symbols as the plain versions."""
+    _rans_matches_plain(host_lib, monkeypatch, mode, K, L)
+
+
+def _rans_matches_plain(lib, monkeypatch, mode, K, L_BN):
     rng = np.random.RandomState(K)
     launches = dict(kernels.launches)
     if mode == "rgb":

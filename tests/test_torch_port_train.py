@@ -146,11 +146,23 @@ def test_quantize_straight_through_matches_jax():
 def test_nll_and_gradients_match_jax(rgb):
     """nll and d/dl, d/dx against jax.grad: both tails, log-scales below
     and at -7, and on the RGB scale the lambda path."""
+    _nll_matches_jax(rgb, 10, 3 if rgb else 5)
+
+
+# the sizes where K6 runs channel groups (q.C = 9, 16) or its generic
+# variant (K = 12, 16)
+@pytest.mark.parametrize("rgb,K,C", [(False, 10, 9), (False, 4, 16),
+                                     (True, 12, 3), (False, 16, 5)])
+def test_nll_and_gradients_match_jax_beyond_the_tile(rgb, K, C):
+    _nll_matches_jax(rgb, K, C)
+
+
+def _nll_matches_jax(rgb, K, C):
     spec_t = tdmll.DMLLSpec(True) if rgb else tdmll.DMLLSpec(False, -1.0,
                                                               1.0, 25)
     spec_j = jdmll.DMLLSpec(True) if rgb else jdmll.DMLLSpec(False, -1.0,
                                                               1.0, 25)
-    x, l = dmll_inputs(rgb, 10, 3 + rgb, H=11, W=13)
+    x, l = dmll_inputs(rgb, K, 3 + rgb, H=11, W=13, C=C)
     g = np.random.RandomState(2).rand(*x.shape).astype(np.float32)
 
     def j_fn(l_, x_):
@@ -358,8 +370,13 @@ def test_optimizers_match_make_optimizer(optim, wd):
 
 
 def test_bfloat16_and_heavy_summaries_raise():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tcfg.MsConfig(compute_dtype="bfloat16")
+    """compute_dtype = 'bfloat16' is taken (the conv stacks compute in
+    bf16: test_torch_port_bf16.py), a dtype neither package computes in
+    raises; --log_train_heavy still raises with its ROADMAP item."""
+    assert tcfg.MsConfig(compute_dtype="bfloat16").compute_dtype == \
+        "bfloat16"
+    with pytest.raises(ValueError, match="float16"):
+        tcfg.MsConfig(compute_dtype="float16")
     _, tc = tiny_cfgs()
     dl = tcfg.DlConfig(batchsize_train=2, crop_size=16)
     t = TTrainer(tc, dl, TNet(tc), iter(batches(1)), epoch_len=10,

@@ -252,7 +252,8 @@ def test_cli_train_on_cpu_then_both_testers_read_it(cli_world, capsys):
     """cli.train --device cpu: 3 steps, a checkpoint at 3 in a new log dir
     named after the configs; cli.test and the JAX tester read it, with
     theory bpsp within 1e-4 relative of each other; --debug takes one step
-    and one validation pass; --log_train_heavy and bfloat16 are refused."""
+    and one validation pass; --log_train_heavy is refused; -p
+    compute_dtype='bfloat16' trains a step in a log dir of its own."""
     w = cli_world
     assert _train(w, "--num_itr", "3") == 0
     out = capsys.readouterr().out
@@ -282,8 +283,12 @@ def test_cli_train_on_cpu_then_both_testers_read_it(cli_world, capsys):
     assert "'val_bpsp'" in out and "'loss_bpsp'" in out
     with pytest.raises(NotImplementedError, match="item 14"):
         _train(w, "--num_itr", "1", "--log_train_heavy", "1")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _train(w, "--num_itr", "1", "-p", "compute_dtype='bfloat16'")
+    n_dirs = len(os.listdir(w["logs"]))
+    assert _train(w, "--num_itr", "1", "-p", "compute_dtype='bfloat16'") == 0
+    out = capsys.readouterr().out
+    loss = float(out.split(" loss=")[1].split()[0])
+    assert np.isfinite(loss)
+    assert len(os.listdir(w["logs"])) == n_dirs + 1
 
 
 def test_cli_train_restore_flags(cli_world, capsys):
