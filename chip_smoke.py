@@ -59,7 +59,14 @@ Phases (each raises on failure; none carries on after another failed):
               3 x K6 forward)
   6. profile  device time by op and by kernel over one more encode+decode
               round (torch.profiler), and the device's busy share
-  7. serve    bench.py's serving configuration, in float32 and in
+  7. stages   the plain-PyTorch device stages the baselines, sampling and
+              the heavy summaries added, on 8 x 512^2, timed against their
+              bounds: bicubic_downsample_x2, dmll.sample and
+              mean_symbol_probs (L = 256) on r5b's scale-0 mixture
+     sample   cli.test --sample with r5b on two of the 512x512 PNGs: the
+              JAX package's file names, three scale sets each, uint8 of
+              the image's shape; only the theory bpsp's K6 launches
+  8. serve    bench.py's serving configuration, in float32 and in
               bfloat16 (r5b's parameters, the conv stacks in bf16): theory
               and file bpsp of the 8 images, a bit-exact round at fbatch 8
               and at fbatch 1, then its three shapes through the async
@@ -69,12 +76,12 @@ Phases (each raises on failure; none carries on after another failed):
               a warm-up; every round bit-exact, its files byte-identical
               to encode_batch's, its launches exactly an encode's and a
               decode's; MP/s, median round, device-busy share
-  8. limits   every kernel where the JAX package's sizes pass its fast
+  9. limits   every kernel where the JAX package's sizes pass its fast
               variant (K6 at q.C = 9 and 16; K1-K6 at K = 12 and 16; K1
               and K3/K4 at L = 40), 2 x 64^2 pixels, against its plain
               version at the main path's bounds (K3/K4 exact, round
               trip), each timed beside its plain version and bound
-  9. train    training through cli.train.main at full cr.cf width, batch
+ 10. train    training through cli.train.main at full cr.cf width, batch
               16 x 128^2 (oi_offline.cf) on seeded PNGs: K6 (the mixture
               NLL, forward and backward) against its plain version on r5b's
               outputs at the three scales, timed by CUDA events around one
@@ -87,13 +94,31 @@ Phases (each raises on failure; none carries on after another failed):
               512x512 image through cli.l3c bit-exactly; 40 steps from a
               fresh initialisation from each of three seeds lower the
               validation bpsp in at least two; every step
-              exactly 3 + 3 K6 launches and no plain nll on the card; step
+              exactly 3 + 3 K6 launches and no plain nll on the card; the
+              resumed run with --log_train_heavy 10: the heavy summaries'
+              tags in a recording writer, their activation counts and p_x
+              / p_y distributions held, each heavy step timed; step
               time, peak memory and one profiled step by kind; r5b resumed
               in bfloat16 (-p compute_dtype='bfloat16') for 8 steps, the
               first loss equal to the bf16 eval forward's, its step time
               and profiled step, and every convolution's output and
               weight gradient equal over two runs (deterministic cuDNN)
- 10. report   one JSON line of kernel records, the card line, then
+ 11. baselines  cr_rgb.cf and cr_rgb_shared.cf at full width from fresh
+              weights, each trained 30 steps through cli.train (the
+              validation bpsp must fall; K6 on C = 3 with lambda at every
+              scale); cr_rgb through cli.test (theory), cli.test
+              --write_to_files (size profile, bit-exact gate) and a
+              balanced top-4 fbatch 8 round of the 8 images: bit-exact,
+              exactly 4 K3, 19 K4 and 6 K5 (K3/K4 in RGB modes at every
+              scale, unit 0 at L = 256 through the generic variants), no
+              plain row/lookup/pack on the card, its time and device time;
+              each of that round's kernels and K6 on its training forward
+              against the plain version and timed (the `baselines`
+              records); cli.test --sample of it; cr_rgb_shared through
+              cli.test --recursive auto (three recursions) and its
+              non-recursive round (unit 0 the whole x2-downsampled image)
+ 12. report   one JSON line of kernel records (each with its path:
+              serving, train or baselines), the card line, then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
@@ -455,9 +480,10 @@ def phase_codec(bc, imgs, theory_bpsp, card):
 def coded_units(bc, imgs, logits=None):
     """What encode_batch codes, computed as it computes it: {unit: (ip,
     true symbols (C, N), n per group)} for unit 0 ("uniform", ip None), the
-    bn scales ("bn<scale>") and scale 0 ("rgb", the image planes). With a
-    dict `logits`, the classifier's output of each scale (N, Kp, H, W) is
-    left in it."""
+    bn scales ("bn<scale>") and the RGB scales ("rgb<scale>": scale 0's
+    image planes, and a baseline's downsampled images), coarse to fine.
+    With a dict `logits`, the classifier's output of each scale (N, Kp, H,
+    W) is left in it."""
     x = torch.from_numpy(np.concatenate(imgs)).to(bc.device)
     planes = lambda t: t.permute(3, 0, 1, 2).reshape(t.shape[3], -1)
     units = {}
@@ -471,7 +497,7 @@ def coded_units(bc, imgs, logits=None):
             if logits is not None:
                 logits[scale] = l
             t = x if scale == 0 else per_scale[scale - 1].syms
-            units["rgb" if scale == 0 else f"bn{scale}"] = (
+            units[f"{'rgb' if bc._rgb_at(scale) else 'bn'}{scale}"] = (
                 ip, planes(t), t.shape[1] * t.shape[2])
             if scale:
                 bn = per_scale[scale - 1].bn_q
@@ -618,17 +644,18 @@ def phase_float_rows(bc, record):
     bc.last_float_rows = None
 
 
-def make_recorder(recs, counts):
+def make_recorder(recs, counts, path):
     """record(name, err, ms, plain_ms, (bound ms, by), device_ms=None):
-    appends the kernel's record, with its launches on the main path from
-    `counts`; ms and plain_ms are CUDA events around one call (cuda_ms),
-    device_ms, where measured, device time a launch (queued_ms)."""
+    appends the kernel's record on `path` (serving, train, baselines), with
+    its launches on that path's counted run from `counts`; ms and plain_ms
+    are CUDA events around one call (cuda_ms), device_ms, where measured,
+    device time a launch (queued_ms)."""
     def record(name, err, ms, plain_ms, b, device_ms=None):
         src, repl = KERNEL_INFO[name]
         recs.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=counts[name], max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                         library_ms=None, device_ms=device_ms))
+                         library_ms=None, device_ms=device_ms, path=path))
         dev = "" if device_ms is None else f" (device {device_ms * 1e3:.1f})"
         log(f"[kernels] {name}: max|diff| {err} | {ms * 1e3:.1f} us/launch"
             f"{dev} | plain {plain_ms * 1e3:.1f} us | bound "
@@ -639,7 +666,7 @@ def make_recorder(recs, counts):
 
 def phase_kernels(bc, imgs, counts):
     recs = []
-    record = make_recorder(recs, counts)
+    record = make_recorder(recs, counts, "serving")
     phase_float_rows(bc, record)
 
     logits = {}
@@ -807,11 +834,12 @@ class CoderCase(NamedTuple):
 
 
 def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
-    """The 4 K3 and 9 K4 launches of a round of `imgs` (a float batch of
-    its own) at bc's stream profile and topk, at the shapes and inputs the
-    codec gives them: unit 0, the bn scales, the stacked scale-0 units (encode) and
-    each scale-0 channel's coarse and fine symbols (decode, the lambda
-    chain on the true symbols). The decodes read the encodes' words."""
+    """The K3 and K4 launches of a round of `imgs` (a float batch of its
+    own) at bc's stream profile and topk, at the shapes and inputs the
+    codec gives them: unit 0, the bn scales, each RGB scale's stacked units
+    (encode) and each of its channels' coarse and fine symbols (decode,
+    the lambda chain on the true symbols): 4 K3 and 9 K4 for cr.cf. The
+    decodes read the encodes' words."""
     gc, L, F = gpu_coder, bc._bn.L, fbatch_for(len(imgs))
     if F != len(imgs):
         raise ValueError("coder_cases takes a full float batch")
@@ -832,23 +860,27 @@ def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
                                            int(ln.sum()), c, L), F))
 
     with torch.inference_mode():
-        # ---- unit 0: the uniform prior over all bn channels
+        # ---- unit 0: the uniform prior over all its channels (L = 256
+        # for a baseline: the generic variants)
         _, syms, n = units["uniform"]
+        L_u = bc._uniform_unit()[1]
         lay = gc.layout_for(n, syms.shape[0] * F, t_policy(n))
         flat = syms.reshape(-1)
         # (the lambdas bind their inputs: the names are reused below)
-        w, ln = enc(f"uniform NS={lay.lanes} T={lay.T}",
-                    lambda s=flat, y=lay: gc.encode_uniform(s, L, y),
-                    lambda s=flat, y=lay: gc.encode_uniform_plain(s, L, y),
+        w, ln = enc(f"uniform L={L_u} NS={lay.lanes} T={lay.T}",
+                    lambda s=flat, y=lay: gc.encode_uniform(s, L_u, y),
+                    lambda s=flat, y=lay: gc.encode_uniform_plain(s, L_u,
+                                                                  y),
                     "enc uniform", None, flat.numel())
         wd = w[:, :int(ln.max())].contiguous()
-        dec(f"uniform L={L} NS={lay.lanes} T={lay.T}",
-            lambda w=wd, y=lay: gc.decode_uniform(w, L, y),
-            lambda w=wd, y=lay: gc.decode_uniform_plain(w, L, y), syms,
+        dec(f"uniform L={L_u} NS={lay.lanes} T={lay.T}",
+            lambda w=wd, y=lay: gc.decode_uniform(w, L_u, y),
+            lambda w=wd, y=lay: gc.decode_uniform_plain(w, L_u, y), syms,
             "dec uniform", None, ln)
-        # ---- the bn scales
-        for scale in range(bc.cfg.num_scales - 1, 0, -1):
-            ip, syms, n = units[f"bn{scale}"]
+        # ---- the bn scales, then the RGB scales
+        for key in [k for k in units if k.startswith("bn")]:
+            scale = int(key[2:])
+            ip, syms, n = units[key]
             lay = gc.layout_for(n, syms.shape[0] * F, t_policy(n))
             w, ln = enc(f"bn scale {scale} NS={lay.lanes} T={lay.T}",
                         lambda ip=ip, s=syms, y=lay: gc.encode_bn(ip, s, L, y),
@@ -859,40 +891,48 @@ def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
                 lambda ip=ip, w=wd, y=lay: gc.decode_bn(ip, w, L, y),
                 lambda ip=ip, w=wd, y=lay: gc.decode_bn_plain(ip, w, L, y),
                 syms, "dec bn", ip, ln)
-        # ---- scale 0: both units stacked (encode), per channel (decode)
-        ip, img, n = units["rgb"]
-        T = t_policy(n)
-        lay6 = gc.layout_for(n, 6 * F, T)
-        w6, l6 = enc(f"rgb NS={lay6.lanes} T={T}",
-                     lambda: gc.encode_rgb(ip, img, lay6),
-                     lambda: gc.encode_rgb_plain(ip, img, lay6), "enc rgb",
-                     ip, img.shape[1])
-        lay = gc.layout_for(n, F, T)
-        ns, half = F * lay.ns_c, lay6.lanes // 2
-        planes = img.to(torch.uint8).contiguous()   # the lambda chain's
-        a_true, b_true = planes >> 4, planes & 15     # decoded symbols
-        for c in range(3):
-            a_c = a_true[c].contiguous()
-            for level, r0 in (("coarse", c * ns), ("fine", half + c * ns)):
-                ln = l6[r0:r0 + ns]
-                wd = w6[r0:r0 + ns, :int(ln.max())].contiguous()
-                label = (f"rgb {level} c={c} L=16 NS={lay.lanes} T={T} "
-                         f"W={wd.shape[1]}")
-                if level == "coarse":
-                    dec(label,
-                        lambda c=c, w=wd: gc.decode_rgb_coarse(
-                            ip, c, planes, w, lay),
-                        lambda c=c, w=wd: gc.decode_rgb_coarse_plain(
-                            ip, c, planes, w, lay),
-                        a_true[c], "dec rgb_coarse", ip, ln, c)
-                else:
-                    dec(label,
-                        lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine(
-                            ip, c, planes, a, w, lay),
-                        lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine_plain(
-                            ip, c, planes, a, w, lay),
-                        b_true[c], "dec rgb_fine", ip, ln, c)
+        # ---- an RGB scale: both units stacked (encode), per channel
+        # (decode)
+        for key in [k for k in units if k.startswith("rgb")]:
+            rgb_cases(key, *units[key], enc, dec, t_policy, F)
     return cases
+
+
+def rgb_cases(key, ip, img, n, enc, dec, t_policy, F):
+    """coder_cases' launches of one RGB scale: the stacked encode of its
+    coarse and fine units, then each channel's coarse and fine decode."""
+    gc = gpu_coder
+    T = t_policy(n)
+    lay6 = gc.layout_for(n, 6 * F, T)
+    w6, l6 = enc(f"{key} NS={lay6.lanes} T={T}",
+                 lambda: gc.encode_rgb(ip, img, lay6),
+                 lambda: gc.encode_rgb_plain(ip, img, lay6), "enc rgb",
+                 ip, img.shape[1])
+    lay = gc.layout_for(n, F, T)
+    ns, half = F * lay.ns_c, lay6.lanes // 2
+    planes = img.to(torch.uint8).contiguous()   # the lambda chain's
+    a_true, b_true = planes >> 4, planes & 15     # decoded symbols
+    for c in range(3):
+        a_c = a_true[c].contiguous()
+        for level, r0 in (("coarse", c * ns), ("fine", half + c * ns)):
+            ln = l6[r0:r0 + ns]
+            wd = w6[r0:r0 + ns, :int(ln.max())].contiguous()
+            label = (f"{key} {level} c={c} L=16 NS={lay.lanes} T={T} "
+                     f"W={wd.shape[1]}")
+            if level == "coarse":
+                dec(label,
+                    lambda c=c, w=wd: gc.decode_rgb_coarse(
+                        ip, c, planes, w, lay),
+                    lambda c=c, w=wd: gc.decode_rgb_coarse_plain(
+                        ip, c, planes, w, lay),
+                    a_true[c], "dec rgb_coarse", ip, ln, c)
+            else:
+                dec(label,
+                    lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine(
+                        ip, c, planes, a, w, lay),
+                    lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine_plain(
+                        ip, c, planes, a, w, lay),
+                    b_true[c], "dec rgb_fine", ip, ln, c)
 
 
 def same_output(case: CoderCase, got, want) -> bool:
@@ -910,16 +950,25 @@ def same_output(case: CoderCase, got, want) -> bool:
 def phase_coder(bc, cases, record):
     """K3 and K4 in every mode at the main path's shapes and inputs,
     against their plain versions on the same inputs (exact); decodes also
-    against the coded symbols. The 13 calls are the round's launches, so
-    their sums are the round's coder time. Times by CUDA events (plain:
-    median of 3). Without `record` (the layouts of phase cli) the plain
-    versions run once, for the comparison, and are not timed."""
+    against the coded symbols. The calls are the round's launches, so
+    their sums are the round's coder time. Times by CUDA events: the
+    kernels a median of 5, the plain versions the comparison's one call
+    (no warm-up; a median of more cost ~40 s of a run, their Python scans
+    taking ~0.2-1.5 s a call). Without `record` (the layouts of phase cli)
+    the plain versions are not timed."""
     tag = (f"{bc.coder_profile} F={cases[0].fbatch} "
            f"K'={bc.coder_topk or bc.cfg.prob.K} ")
+    once = []
     with torch.inference_mode():
         for case in cases:
             got = case.run()
-            if not same_output(case, got, case.plain()):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in (0, 1))
+            t0.record()
+            want = case.plain()
+            t1.record()
+            torch.cuda.synchronize()
+            once.append(t0.elapsed_time(t1))
+            if not same_output(case, got, want):
                 raise RuntimeError(f"{case.kernel} {case.label}: kernel != "
                                    "plain")
             if case.truth is not None and not torch.equal(
@@ -927,9 +976,8 @@ def phase_coder(bc, cases, record):
                     case.truth.long()):
                 raise RuntimeError(f"{case.kernel} {case.label}: symbols "
                                    "not recovered")
-        times = [(cuda_ms(c.run),
-                  cuda_ms(c.plain, 3) if record else float("nan"))
-                 for c in cases]
+        times = [(cuda_ms(c.run), one if record else float("nan"))
+                 for c, one in zip(cases, once)]
     for c, (ms, pms) in zip(cases, times):
         plain = f"{pms * 1e3:.1f} us" if record else "equal, not timed"
         log(f"[kernels] {c.kernel} {tag}{c.label}: {ms * 1e3:.1f} us/launch"
@@ -1624,6 +1672,8 @@ def k6_bound(l_nchw, x, spec, grad: bool):
                                      else (Kp + 2 * C) * n_px * 4)
     return bound(n_bytes, ops)
 TRAIN_STEPS_RESUMED, TRAIN_STEPS_FRESH, TRAIN_WARMUP = 20, 40, 3
+# the resumed run's --log_train_heavy: the heavy summaries at steps 10, 20
+TRAIN_HEAVY_EVERY = 10
 # r5b resumed in bfloat16 (-p compute_dtype='bfloat16'): steps, and the
 # first loss's tolerance against the bf16 eval forward's (the training
 # forward reads the straight-through bottleneck, equal to the hard one up
@@ -1737,8 +1787,10 @@ def phase_k6(net, cfg, batch, record):
     worst = {"dmll_nll": 0.0, "dmll_nll_grad": 0.0}
     flush_buf = torch.empty(32 * 2 ** 20, device="cuda")     # 128 MB > L2
     flush = lambda: torch.sum(flush_buf)
+    baseline = cfg.rgb_bicubic_baseline
     for i, spec in enumerate(specs):
-        x = (out.S[0].float() if i == 0 else out.bn[i]).contiguous()
+        x = (out.S[i].float() if i == 0 or baseline else out.bn[i]
+             ).contiguous()
         l_nchw = out.P[i].permute(0, 3, 1, 2)        # the classifier's planes
         if not l_nchw.is_contiguous():
             raise RuntimeError("the training forward copied l")
@@ -1769,7 +1821,8 @@ def phase_k6(net, cfg, batch, record):
                                                             True)
         rows["dmll_nll"].append((fwd, plain_f, bf, fwd_dev))
         rows["dmll_nll_grad"].append((bwd, plain_fb - plain_f, bb, bwd_dev))
-        old = K6_ONE_THREAD_MS[i]
+        # the one-thread-a-pixel kernel's times are of cr.cf's shapes
+        old = ((float("nan"),) * 2 if baseline else K6_ONE_THREAD_MS[i])
         log(f"[train] K6 scale {i}: forward {fwd * 1e3:.1f} us a launch by "
             f"events around one call (one thread a pixel {old[0] * 1e3:.0f}"
             f"), {fwd_dev * 1e3:.1f} us of device time, bound "
@@ -1944,18 +1997,22 @@ def phase_train(net, cfg, card):
 
         plain = {"nll_plain": 0}
         unpatch = count_cuda_calls(dmll, ["nll_plain"], plain)
+        heavy = HeavyRecorder()
         try:
             with patched(Trainer, "restore", restore), \
-                    patched(Trainer, "train_step", step):
+                    patched(Trainer, "train_step", step), \
+                    heavy.recording():
                 kernels.reset_launches()
                 run_cli(train_cli.main, [
                     ms_cf, dl_cf, root, *data, "-p", "lr.schedule='none'",
                     "--restore", LOG_DATE, "--num_itr",
                     str(TRAIN_STEPS_RESUMED), "--log_train", "5",
-                    "--log_val", "0"])
+                    "--log_val", "0", "--log_train_heavy",
+                    str(TRAIN_HEAVY_EVERY)])
                 resumed = dict(kernels.launches)
         finally:
             unpatch()
+        heavy.check(cfg, dl, card)
         want = {k: TRAIN_STEPS_RESUMED * v for k, v in per_step.items()}
         log(f"[train] launches of the resumed run: "
             f"{ {k: v for k, v in resumed.items() if v} } (expected {want}); "
@@ -2108,10 +2165,444 @@ def phase_train(net, cfg, card):
             f"{peak / 2 ** 30:.3f} GiB | {card}")
         profile_step(seen["trainer"], batch, med)
     recs = []
-    record = make_recorder(recs, resumed)
+    record = make_recorder(recs, resumed, "train")
     for args in pending:
         record(*args)
     return recs
+
+
+# ------------------------------------------------------------- baselines
+
+# fresh cli.train steps of each RGB baseline (cr_rgb, cr_rgb_shared) at
+# oi_offline.cf's batch 16 x 128^2, from --seed 0
+BASE_STEPS = 30
+
+
+def codec_launches(cfg):
+    """(an encode's, a decode's) launches of a float batch, from the
+    codec's structure: unit 0 and one unit per bn scale coded alone, an
+    RGB scale's two units in one encode and six decodes (three channels,
+    coarse and fine); one pack a scale on either side. cr.cf: ENCODE,
+    DECODE."""
+    S = cfg.num_scales
+    rgb = S if cfg.rgb_bicubic_baseline else 1
+    return ({"rans_encode": 1 + S, "pack_int": S},
+            {"rans_decode": 1 + (S - rgb) + 6 * rgb, "pack_int": S})
+
+
+def theory_launches(cfg, n_imgs, recursive=0):
+    """K6 forward launches of the theory bpsp of n_imgs images (one
+    auto-crop tile each): one a scale, recursed ones included."""
+    return {"dmll_nll": (cfg.num_scales + recursive) * n_imgs}
+
+
+def train_fresh(train_cli, ms_cf, dl_cf, log_root, data, steps, label):
+    """cli.train of `ms_cf` from a fresh initialisation (--seed 0) for
+    `steps` steps, launch-counted; the validation bpsp before and after
+    (held to fall); returns (the new log dir's date, the run's
+    launches)."""
+    from l3c_torch.train.trainer import Trainer
+    vals = {}
+
+    def train(orig):
+        def run(self, *a, **k):
+            vals["before"] = self.validation_loop()
+            out_ = orig(self, *a, **k)
+            vals["after"] = self.validation_loop()
+            vals["n_val"] = len(self.val_batches)
+            return out_
+        return run
+
+    cfg = load_ms_config(ms_cf)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with patched(Trainer, "train", train):
+        run_cli(train_cli.main, [ms_cf, dl_cf, log_root, *data, "--num_itr",
+                                 str(steps), "--log_train", "10",
+                                 "--log_val", "0"])
+    secs = time.perf_counter() - t0
+    got = {k: v for k, v in kernels.launches.items() if v}
+    S = cfg.num_scales
+    want = {"dmll_nll": steps * S + 2 * vals["n_val"] * S,
+            "dmll_nll_grad": steps * S}
+    log(f"[baselines] {label}: {steps} fresh steps through cli.train in "
+        f"{secs:.1f} s: validation bpsp {vals['before']:.4f} -> "
+        f"{vals['after']:.4f}; launches {got} (expected {want})")
+    if got != want:
+        raise RuntimeError(f"{label} training launched {got}")
+    if not vals["after"] < vals["before"]:
+        raise RuntimeError(f"{label}: fresh training did not lower the "
+                           "validation bpsp")
+    (name,) = os.listdir(log_root)
+    return name.split()[0], got
+
+
+def phase_baselines(imgs, card):
+    """The RGB baselines on the card through the entry points a user
+    calls, at cr_rgb.cf's and cr_rgb_shared.cf's full width from fresh
+    weights: cr_rgb trained BASE_STEPS steps (K6 on C = 3 with lambda at
+    every scale), then through cli.test (theory bpsp of the 8 images) and
+    cli.test --write_to_files (size profile, all 10 components, the
+    tester's bit-exact gate) and TorchBitcoding's balanced top-4 round at
+    fbatch 8, launch-counted (K5 at every scale with the RGB spec, K3/K4 in
+    RGB modes at every scale and at L = 256 for unit 0), each kernel of
+    that round and K6 on its training forward held to its plain version
+    and timed (the `baselines` records); cli.test --sample of the trained
+    model; cr_rgb_shared trained the same way, then cli.test --recursive
+    auto (three recursions) and its non-recursive v8 round trip (unit 0
+    the whole x2-downsampled image at L = 256)."""
+    from l3c_torch.cli import train as train_cli
+    from l3c_torch.data.images import TrainBatches
+    roots = l3c_cli.default_config_roots()
+    dl_cf = os.path.join(roots[0], "dl", "oi_offline.cf")
+    recs = []
+    with tempfile.TemporaryDirectory(prefix="l3c_base_") as d:
+        train_dir, val_dir = train_pngs(d)
+        data = ["-p", f"dl.train_imgs_glob='{train_dir}'", "-p",
+                f"dl.val_glob='{val_dir}'", "-p", "dl.image_cache_pkl=None"]
+        img_dir = os.path.join(d, "imgs")
+        os.makedirs(img_dir)
+        for b, im in enumerate(imgs):
+            write_png(os.path.join(img_dir, f"im{b}.png"), im[0])
+        # ---- cr_rgb: train, then serve
+        ms_cf = os.path.join(roots[0], "ms", "cr_rgb.cf")
+        cfg = load_ms_config(ms_cf)
+        log_root = os.path.join(d, "cr_rgb")
+        date, trained = train_fresh(train_cli, ms_cf, dl_cf, log_root, data,
+                                    BASE_STEPS, "cr_rgb")
+        enc_l, dec_l = codec_launches(cfg)
+        total = {}
+        out = counted(total, "cli.test (cr_rgb)", lambda: run_cli(
+            test_cli.main, [log_root, date, img_dir, "--reset_cache"]),
+            theory_launches(cfg, B))
+        theory = float(out.strip().splitlines()[-1].split()[-1])
+        out_dir = os.path.join(d, "out")
+        out = counted(total, "cli.test --write_to_files (cr_rgb)",
+                      lambda: run_cli(test_cli.main, [
+                          log_root, date, img_dir, "--write_to_files",
+                          out_dir, "--reset_cache"]), enc_l, dec_l, CANARY)
+        size_bpsp = float(out.strip().splitlines()[-1].split()[-1])
+        log(f"[baselines] cr_rgb (fresh, {BASE_STEPS} steps): theory bpsp "
+            f"{theory:.4f}; cli.test --write_to_files {B} files bit-exact "
+            f"(size profile, K'={cfg.prob.K}): {size_bpsp:.4f} | {card}")
+        tester = MultiscaleTester.from_log_dir(find_log_dir(log_root, date),
+                                               roots, use_cache=False)
+        bc = TorchBitcoding(cfg, tester.net, device="cuda",
+                            coder_profile="balanced", coder_topk=4)
+        counts = baseline_round(bc, imgs, enc_l, dec_l, theory, card,
+                                "cr_rgb")
+        # K3-K5 launches: the counted round's; K6's: the training run's
+        record = make_recorder(recs, {**trained, **counts}, "baselines")
+        logits = {}
+        phase_coder(bc, coder_cases(bc, imgs, logits), record)
+        phase_pack(bc, logits, record)
+        del logits
+        tb = TrainBatches(sorted(os.path.join(train_dir, f)
+                                 for f in os.listdir(train_dir)),
+                          16, 128, seed=0)
+        batch = next(iter(tb))
+        tb.close()
+        phase_k6(tester.net, cfg, batch, record)
+        phase_sample(log_root, date, [imgs[0], imgs[1]], cfg, card,
+                     "cr_rgb (fresh)")
+        del bc, tester
+        # ---- cr_rgb_shared: train, theory with recursion, round trip
+        ms_cf = os.path.join(roots[0], "ms", "cr_rgb_shared.cf")
+        cfg = load_ms_config(ms_cf)
+        log_root = os.path.join(d, "cr_rgb_shared")
+        date, _ = train_fresh(train_cli, ms_cf, dl_cf, log_root, data,
+                              BASE_STEPS, "cr_rgb_shared")
+        out = counted(total, "cli.test --recursive auto (cr_rgb_shared)",
+                      lambda: run_cli(test_cli.main, [
+                          log_root, date, img_dir, "--recursive", "auto",
+                          "--reset_cache"]),
+                      theory_launches(cfg, B, recursive=3))
+        rec_bpsp = float(out.strip().splitlines()[-1].split()[-1])
+        tester = MultiscaleTester.from_log_dir(
+            find_log_dir(log_root, date), roots, use_cache=False,
+            recursive="auto")
+        res = tester.test(Testset(img_dir)).mean_bpsp()
+        t0 = MultiscaleTester(cfg, tester.net, use_cache=False)
+        plain_bpsp = t0.test(Testset(img_dir)).mean_bpsp()
+        # the tester reports the non-recursive sum (scale 0 and the tail
+        # of its x2 image, as the JAX tester does); the recursed pyramid's
+        # own bpsps are the loss's recursive_bpsps
+        with torch.inference_mode():
+            x = torch.from_numpy(np.concatenate(imgs)).cuda().float()
+            loss = blueprint.compute_loss(
+                cfg, tester.net(x, auto_recurse=3), auto_recursive_from=1)
+            rec = [float(b) for b in loss.recursive_bpsps]
+            non = [float(b) for b in loss.nonrecursive_bpsps]
+        log(f"[baselines] cr_rgb_shared (fresh, {BASE_STEPS} steps): "
+            f"cli.test --recursive auto (3) theory bpsp {rec_bpsp:.4f} "
+            f"(tester {res:.6f}); without recursion {plain_bpsp:.6f}; the "
+            f"8 images' forward with 3 recursions: non-recursive "
+            f"{[round(b, 4) for b in non]} = {sum(non):.4f}, recursive "
+            f"{[round(b, 4) for b in rec]} = {sum(rec):.4f} | {card}")
+        if tester.recursive != 3 or f"{res:.4f}" != f"{rec_bpsp:.4f}" or \
+                not all(math.isfinite(b) and b > 0 for b in rec + [res]) \
+                or len(rec) != 5 or abs(sum(non) - res) > 1e-4 * res:
+            raise RuntimeError("cr_rgb_shared's recursive bpsp is wrong")
+        enc_l, dec_l = codec_launches(cfg)
+        bc = TorchBitcoding(cfg, tester.net, device="cuda",
+                            coder_profile="balanced", coder_topk=4)
+        baseline_round(bc, imgs, enc_l, dec_l, plain_bpsp, card,
+                       "cr_rgb_shared")
+        # its unit 0 (the whole x2 image at L = 256), against the plain
+        # versions; its scale-0 units are cr_rgb's kind
+        phase_coder(bc, [c for c in coder_cases(bc, imgs)
+                         if c.label.startswith("uniform")], None)
+        del bc, tester, t0
+    return recs
+
+
+def baseline_round(bc, imgs, enc_l, dec_l, theory, card, label):
+    """One encode + decode round of a baseline's codec at fbatch 8 after a
+    warm-up one: bit-exact, exactly enc_l + dec_l launches (the canary
+    computed before), no int_coder row/lookup or plain pack call on the
+    card; its time and its device time (torch.profiler). Returns the
+    counted round's launches."""
+    plain_calls = {name: 0 for name in INT_CODER_ROWS + PLAIN_PACK}
+    with tempfile.TemporaryDirectory(prefix="l3c_bround_") as d:
+        paths = [os.path.join(d, f"w{b}.l3c") for b in range(B)]
+        bc.encode_batch(imgs, paths)            # warm-up, canary
+        bc.decode_batch(paths)
+        paths = [os.path.join(d, f"r{b}.l3c") for b in range(B)]
+        restore = count_cuda_calls(int_coder, INT_CODER_ROWS + PLAIN_PACK,
+                                   plain_calls)
+        try:
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bpsps = bc.encode_batch(imgs, paths)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outs = bc.decode_batch(paths)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts = dict(kernels.launches)
+        finally:
+            restore()
+        for im, o in zip(imgs, outs):
+            if not np.array_equal(o, im):
+                raise RuntimeError(f"{label}: round trip is NOT bit-exact")
+        paths2 = [os.path.join(d, f"p{b}.l3c") for b in range(B)]
+        busy = device_busy_ms(lambda: (bc.encode_batch(imgs, paths2),
+                                       bc.decode_batch(paths2)))
+    want = {k: enc_l.get(k, 0) + dec_l.get(k, 0) for k in kernels.KERNELS}
+    got = {k: counts.get(k, 0) for k in kernels.KERNELS}
+    log(f"[baselines] {label} round: launches "
+        f"{ {k: v for k, v in got.items() if v} }; plain row/lookup/pack "
+        f"calls on the card {sum(plain_calls.values())}")
+    if got != want or any(plain_calls.values()):
+        raise RuntimeError(f"{label}: the round launched {got}, expected "
+                           f"{want}, plain calls {plain_calls}")
+    e, dd = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    mp = B * SZ * SZ / 1e6
+    log(f"[baselines] {label}: bit-exact {B}x{SZ}x{SZ} fbatch 8 balanced "
+        f"top-4 | file bpsp {np.mean(bpsps):.6f} vs theory {theory:.6f} | "
+        f"enc {e:.1f} ms dec {dd:.1f} ms = {mp / (e + dd) * 1e3:.3f} MP/s "
+        f"| device busy {busy:.1f} ms of a round | {card}")
+    return counts
+
+
+# ---------------------------------------------------------------- sample
+
+# cli.test --sample writes these per image (the JAX tester's names)
+SAMPLE_SETS = ("", "0", "0_1")
+
+
+def phase_sample(log_root, date, sample_imgs, cfg, card, label):
+    """cli.test --sample of two of the 512x512 images: the three scale
+    sets' PNGs per image, named as the JAX package names them, the padded
+    image's shape; the call launches exactly the theory bpsp's K6 (sampling
+    itself is plain PyTorch). Prints each set's mean |sample - image|."""
+    with tempfile.TemporaryDirectory(prefix="l3c_sample_") as d:
+        img_dir, out_dir = os.path.join(d, "imgs"), os.path.join(d, "out")
+        os.makedirs(img_dir)
+        for b, im in enumerate(sample_imgs):
+            write_png(os.path.join(img_dir, f"s{b}.png"), im[0])
+        t0 = time.perf_counter()
+        counted({}, f"cli.test --sample ({label})", lambda: run_cli(
+            test_cli.main, [log_root, date, img_dir, "--sample", out_dir,
+                            "--reset_cache"]),
+            theory_launches(cfg, len(sample_imgs)))
+        secs = time.perf_counter() - t0
+        want = sorted(f"s{b}_sample{s}.png" for b in range(len(sample_imgs))
+                      for s in SAMPLE_SETS)
+        if sorted(os.listdir(out_dir)) != want:
+            raise RuntimeError(f"--sample wrote {os.listdir(out_dir)}")
+        gaps = []
+        for b, im in enumerate(sample_imgs):
+            for s in SAMPLE_SETS:
+                px = read_png(os.path.join(out_dir, f"s{b}_sample{s}.png"))
+                if px.shape != im[0].shape or px.dtype != np.uint8:
+                    raise RuntimeError(f"sample {px.shape} {px.dtype}")
+                gaps.append(float(np.abs(px.astype(np.float64)
+                                         - im[0]).mean()))
+    log(f"[sample] {label}: cli.test --sample of {len(sample_imgs)} "
+        f"{SZ}x{SZ} PNGs in {secs:.1f} s: {len(want)} PNGs (uint8, "
+        f"{SZ}x{SZ}x3); mean |sample - image| per set "
+        f"{[round(g, 2) for g in gaps]} | {card}")
+
+
+def phase_stages(net, cfg, imgs, card):
+    """The plain-PyTorch device stages the baselines, sampling and the
+    heavy summaries put on a path, timed on 8 x 512^2 (CUDA events around
+    one call) against their bounds: bicubic_downsample_x2 (the pyramid's
+    first level from the float image; bytes: the image in, the half-size
+    image out, float32), dmll.sample and mean_symbol_probs (L = 256) on
+    r5b's scale-0 mixture (bytes: l and x in, the draws or the L values
+    out; operations as counted below)."""
+    from l3c_torch.models import dmll
+    dev = next(net.parameters()).device
+    x = torch.from_numpy(np.concatenate(imgs)).to(dev).float()
+    n_px = x.numel() // 3
+    ms = cuda_ms(lambda: layers.bicubic_downsample_x2(x))
+    # two passes of 8 taps, a multiply and an add each, per output value
+    b = bound(x.numel() * 4 + x.numel() // 4 * 4,
+              2 * 8 * 2 * x.numel() // 2)
+    log(f"[stages] bicubic_downsample_x2 {tuple(x.shape)}: {ms:.4f} ms | "
+        f"bound {b[0]:.4f} ms ({b[1]}) | {card}")
+    with torch.inference_mode():
+        l = net(x).P[0]
+    K = cfg.prob.K
+    spec = blueprint.rgb_spec(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    ms = cuda_ms(lambda: dmll.sample(spec, l, 3, g))
+    # per (pixel, channel): K Gumbel terms (two logs and a subtraction) and
+    # the argmax, one logistic draw (exp, two logs), the lambda chain
+    b = bound(l.numel() * 4 + x.numel() * 4,
+              n_px * 3 * (K * (2 * OPS_EXP + 2) + 3 * OPS_EXP + 8))
+    log(f"[stages] dmll.sample {tuple(l.shape)}: {ms:.4f} ms | bound "
+        f"{b[0]:.4f} ms ({b[1]}) | {card}")
+    p_y = dmll.mean_symbol_probs(spec, x, l)
+    if abs(float(p_y.sum()) - 1) > 1e-3 or float(p_y.min()) < -1e-6:
+        raise RuntimeError(f"mean_symbol_probs sums to {float(p_y.sum())}")
+    ms = cuda_ms(lambda: dmll.mean_symbol_probs(spec, x, l), 3)
+    # per (pixel, channel, component) and interior edge: subtract,
+    # multiply, sigmoid (exp, add, divide), weight, sum
+    b = bound(l.numel() * 4 + x.numel() * 4 + spec.L * 4,
+              n_px * 3 * K * (spec.L - 1) * (4 + 2 * OPS_EXP))
+    log(f"[stages] mean_symbol_probs L={spec.L} {tuple(l.shape)}: "
+        f"{ms:.4f} ms | bound {b[0]:.4f} ms ({b[1]}) | {card}")
+
+
+class HeavyRecorder:
+    """The heavy summaries of a cli.train run, recorded: recording() puts a
+    writer that keeps every tag (the card has no tensorboard, so SafeWriter
+    would drop them) in place of SafeWriter, records ps_figure's inputs
+    (the card has no matplotlib, so no figure is drawn) and times each
+    Trainer._write_heavy_summaries call (synchronised); check() holds what
+    they hold."""
+
+    def __init__(self):
+        self.tags = {"scalar": set(), "image": set(), "histogram": set(),
+                     "histogram_counts": set(), "figure": set()}
+        self.counts, self.stats, self.ms = {}, [], []
+
+    @contextlib.contextmanager
+    def recording(self):
+        from l3c_torch.train import trainer as trainer_mod
+        from l3c_torch.utils import summarizer
+        rec = self
+
+        class Writer:
+            def __init__(self, log_dir):
+                pass
+
+            def __getattr__(self, name):
+                kind = name[len("add_"):]
+
+                def add(tag, value, *a, **k):
+                    rec.tags[kind].add(tag)
+                    if kind == "histogram_counts":
+                        rec.counts[tag] = np.asarray(value)
+                return add
+
+            def close(self):
+                pass
+
+        def figure(p_x, p_y):
+            self.stats.append((np.asarray(p_x), np.asarray(p_y)))
+            return None
+
+        def timed(orig):
+            def run(trainer, *a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig(trainer, *a, **k)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                if len(self.ms) == 1:
+                    # once more, profiled; what it adds is dropped again
+                    bufs = {t: list(b) for t, b in
+                            trainer._hist_buffers.items()}
+                    n_stats = len(self.stats)
+                    self.profile(lambda: orig(trainer, *a, **k))
+                    trainer._hist_buffers = bufs
+                    del self.stats[n_stats:]
+            return run
+
+        with patched(summarizer, "SafeWriter", lambda _: Writer), \
+                patched(trainer_mod, "ps_figure", lambda _: figure), \
+                patched(trainer_mod.Trainer, "_write_heavy_summaries",
+                        timed):
+            yield
+
+    @staticmethod
+    def profile(fn):
+        """One more heavy step under torch.profiler: its device time and
+        the ops that take the most host and device time."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        kern = [e for e in ev if str(e.device_type).endswith("CUDA")
+                and getattr(e, "self_device_time_total", 0) > 0]
+        log(f"[train] a heavy step, profiled: device busy "
+            f"{sum(e.self_device_time_total for e in kern) / 1e3:.2f} ms in "
+            f"{sum(e.count for e in kern)} kernels")
+        for key in ("self_cpu_time_total", "self_device_time_total"):
+            for e in sorted(ev, key=lambda e: -getattr(e, key, 0))[:6]:
+                log(f"[train]   by {key[5:8]} {getattr(e, key) / 1e3:8.2f} ms "
+                    f"{e.count:5d}x {e.key[:70]}")
+
+    def check(self, cfg, dl, card):
+        """Two heavy steps of cr.cf: an image per bottleneck channel and a
+        symbol histogram per bottleneck (scales 1..S), the encoders' activation
+        counts (summed over the buffered steps: the training batch's
+        activations twice), and per scale the observed counts of the first
+        validation image's symbols and a predicted distribution summing to
+        1."""
+        S, C = cfg.num_scales, cfg.q.C
+        n_heavy = TRAIN_STEPS_RESUMED // TRAIN_HEAVY_EVERY
+        want_img = {f"train_heavy/bn/{s}/c{c}" for s in range(1, S + 1)
+                    for c in range(C)}
+        want_cnt = {f"train/histo/enc_{s}_after_1x1" for s in range(1, S + 1)}
+        side = dl.crop_size
+        acts = [n_heavy * dl.batchsize_train * (side >> s) ** 2 * C
+                for s in range(1, S + 1)]
+        got = [int(self.counts[t].sum()) for t in sorted(want_cnt)]
+        subpx = [side * side * 3] + [(side >> s) ** 2 * C
+                                     for s in range(1, S)]
+        bad = (self.tags["image"] != want_img
+               or self.tags["histogram"] != {f"train_heavy/bn_syms/{s}"
+                                             for s in range(1, S + 1)}
+               or self.tags["histogram_counts"] != want_cnt or got != acts
+               or len(self.stats) != n_heavy * S)
+        for i, (p_x, p_y) in enumerate(self.stats):
+            bad |= int(p_x.sum()) != subpx[i % S] or abs(p_y.sum() - 1) > 1e-3
+        log(f"[train] heavy summaries (--log_train_heavy "
+            f"{TRAIN_HEAVY_EVERY}, {n_heavy} steps): {len(self.tags['image'])}"
+            f" images, {len(self.tags['histogram'])} symbol histograms, "
+            f"activation counts {got} (expected {acts}), {len(self.stats)} "
+            f"p_x / p_y pairs (ps_figure's inputs, recorded in its place); "
+            f"{[round(m, 1) for m in self.ms]} ms a heavy step | {card}")
+        if bad:
+            raise RuntimeError(f"heavy summaries: tags {self.tags}")
 
 
 def conv_determinism(net, batch):
@@ -2200,6 +2691,14 @@ def profile_step(trainer, batch, step_ms):
             f"{e.count:4d}x  {e.key[:80]}")
 
 
+def timed(name, fn, *args):
+    """fn(*args), its wall time logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2216,20 +2715,23 @@ def main() -> int:
     log(f"[forward] r5b @ step {step}: {n_params}"
         f" params, cr.cf (S=3 Cf=64 8+8 blocks q.C=5 q.L=25 K=10)")
     imgs = bench_images()
-    theory = phase_forward(cfg, net, imgs, card)
+    theory = timed("forward", phase_forward, cfg, net, imgs, card)
     bc = TorchBitcoding(cfg, net, device="cuda", coder_profile="balanced",
                         coder_topk=4)
-    counts, round_ms = phase_codec(bc, imgs, theory, card)
-    recs = phase_kernels(bc, imgs, counts)
-    phase_k6_ragged(cfg)
-    cli_counts = phase_cli(bc, imgs, theory, card)
-    phase_profile(bc, imgs, round_ms)
+    counts, round_ms = timed("codec", phase_codec, bc, imgs, theory, card)
+    recs = timed("kernels", phase_kernels, bc, imgs, counts)
+    timed("k6 ragged", phase_k6_ragged, cfg)
+    cli_counts = timed("cli", phase_cli, bc, imgs, theory, card)
+    timed("profile", phase_profile, bc, imgs, round_ms)
     del bc
-    phase_serve(cfg, net, imgs, card)
-    phase_limits(cfg, card)
-    recs += phase_train(net, cfg, card)
+    timed("stages", phase_stages, net, cfg, imgs, card)
+    timed("sample", phase_sample, ZOO, LOG_DATE, imgs[:2], cfg, card, "r5b")
+    timed("serve", phase_serve, cfg, net, imgs, card)
+    timed("limits", phase_limits, cfg, card)
+    recs += timed("train", phase_train, net, cfg, card)
     for rec in recs:
         rec["cli_launches"] = cli_counts.get(rec["name"], 0)
+    recs += timed("baselines", phase_baselines, imgs, card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

@@ -3,11 +3,12 @@
 Port of `l3c_tpu/cli/test.py`:
     python -m l3c_torch.cli.test LOG_DIR_ROOT LOG_DATES IMG_DIRS \
         [--names ...] [--restore_itr ...] [--write_to_files OUT]
-        [--max_imgs_per_folder N] [--time_report PATH] [--compare_theory]
-        [--sort_output ...] [--device cpu]
+        [--sample OUT] [--max_imgs_per_folder N] [--recursive N|auto]
+        [--time_report PATH] [--compare_theory] [--sort_output ...]
+        [--device cpu]
 Runs on the first CUDA card and raises when there is none; `--device cpu`
-runs the plain versions on the CPU. --sample, --fanout, --spatial_shard
-and --recursive other than 0 are not ported yet and say so.
+runs the plain versions on the CPU. --fanout, --spatial_shard and the
+host codec backend are not ported yet and say so.
 """
 from __future__ import annotations
 
@@ -36,10 +37,9 @@ def main(argv=None):
     p.add_argument("--max_imgs_per_folder", type=int, default=None)
     p.add_argument("--write_to_files", metavar="OUT_DIR", default=None,
                    help="real encode+decode round-trip per image")
-    p.add_argument("--sample", metavar="OUT_DIR", default=None,
-                   help="not ported yet")
+    p.add_argument("--sample", metavar="OUT_DIR", default=None)
     p.add_argument("--recursive", default="0",
-                   help="'auto' or an int; other than 0 is not ported yet")
+                   help="'auto' or an int; extra recursions (RGB Shared)")
     p.add_argument("--time_report", default=None)
     p.add_argument("--compare_theory", action="store_true")
     p.add_argument("--sort_output", "-s",
@@ -70,9 +70,8 @@ def main(argv=None):
     from ..utils import logdir as logdir_mod
     from ..utils.printer import AlignedPrinter
 
-    for name in ("sample", "fanout"):
-        if getattr(flags, name):
-            raise NotImplementedError(NOT_PORTED[name])
+    if flags.fanout:
+        raise NotImplementedError(NOT_PORTED["fanout"])
 
     config_roots = (flags.config_roots.split(":") if flags.config_roots
                     else default_config_roots())
@@ -112,6 +111,8 @@ def main(argv=None):
                 rows.append((os.path.basename(log_dir),
                              str(tester.restore_itr), ts.id,
                              f"{res.mean_bpsp():.4f}"))
+                if flags.sample:
+                    tester.sample(ts, flags.sample)
     col = {"exp": 0, "itr": 1, "testset": 2, "res": 3}[flags.sort_output]
     if flags.sort_output == "itr":
         rows.sort(key=lambda r: int(r[col]))  # numeric: '9' < '10'

@@ -3,12 +3,12 @@
 Port of `l3c_tpu/cli/train.py`:
     python -m l3c_torch.cli.train MS_CONFIG DL_CONFIG LOG_DIR_ROOT \
         [-p key=value ...] [--restore DATE ...] [--num_itr N] [--debug]
-        [--device cpu]
+        [--log_train_heavy N] [--device cpu]
 The same flags and behaviour; the checkpoints are the JAX package's
 format, and each package restores the other's. Runs on the first CUDA
 card and raises when there is none; `--device cpu` runs the plain
-versions on the CPU. Not ported: --log_train_heavy (ROADMAP.md item 14)
-and training on more than one device (item 13); both raise.
+versions on the CPU. Not ported: training on more than one device
+(ROADMAP.md item 13), which raises.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ def main(argv=None):
     p.add_argument("--log_train", type=int, default=100)
     p.add_argument("--log_val", type=int, default=500)
     p.add_argument("--log_train_heavy", type=int, default=0,
-                   help="not ported yet: other than 0 raises")
+                   help="heavy summaries (images, histograms, figures) "
+                        "every N steps; 0 = off")
     p.add_argument("--keep_tmp_itr", type=int, default=250)
     p.add_argument("--keep_every", type=int, default=10)
     p.add_argument("--keep_tmp_last", type=int, default=3)
@@ -52,10 +53,6 @@ def main(argv=None):
                    help="torch device; default: the first CUDA card "
                         "(an error without one). 'cpu' on request")
     flags = p.parse_args(argv)
-    if flags.log_train_heavy:
-        raise NotImplementedError(
-            "--log_train_heavy (images, histograms and figures) is not "
-            "ported yet: ROADMAP.md item 14")
     if os.environ.get("L3C_COORDINATOR"):
         raise NotImplementedError(
             "training over several processes or cards is not ported yet: "
@@ -160,7 +157,8 @@ def main(argv=None):
         num_itr = flags.num_itr if flags.num_itr is not None else 10 ** 9
         try:
             trainer.train(num_itr, log_every=flags.log_train,
-                          val_every=flags.log_val)
+                          val_every=flags.log_val,
+                          heavy_every=flags.log_train_heavy)
         except KeyboardInterrupt:
             print("interrupted; saving final checkpoint")
             trainer.saver.save(trainer.state_tree(), trainer.step)

@@ -32,6 +32,10 @@ Scale coding structure (per image, one file "unit" each):
     RGB scale 0:     TWO units (two-level coding): 16-ary coarse symbols,
                      then 16-ary fine symbols conditional on the coarse bin;
                      decode runs channel by channel through the lambda chain
+  The RGB baselines code every scale as scale 0 (two units each) and their
+  unit 0 is the coarsest downsampled image under the uniform prior over
+  L = 256; the next decoder reads a decoded scale's pixels minus the RGB
+  mean, as the encoder's bicubic pyramid hands it.
 
 File format v8:
   magic 'L3TP' | version=8 u8 | num_scales u8 | fbatch u8
@@ -336,8 +340,28 @@ class TorchBitcoding:
         encode and decode. The classifier's NCHW output goes to the pack
         as it lies. Returns (IntParams, decoder feature, l NCHW)."""
         l, F = self.net.get_P_nchw(scale, bn, dec_F)
-        spec, C = (self._rgb, 3) if scale == 0 else (self._bn, self.cfg.q.C)
+        spec, C = ((self._rgb, 3) if self._rgb_at(scale) else
+                   (self._bn, self.cfg.q.C))
         return pack_int(spec, l, C, topk), F, l
+
+    def _rgb_at(self, scale: int) -> bool:
+        """Whether `scale` codes RGB pixels (two units): scale 0, and
+        every scale of the RGB baselines."""
+        return scale == 0 or self.cfg.rgb_bicubic_baseline
+
+    def _uniform_unit(self) -> Tuple[int, int]:
+        """(channels, L) of unit 0: the coarsest bottleneck, or the
+        baselines' coarsest downsampled image."""
+        if self.cfg.rgb_bicubic_baseline:
+            return 3, self._rgb.L
+        return self.cfg.q.C, self._bn.L
+
+    @staticmethod
+    def _rgb_bn(pixels: torch.Tensor) -> torch.Tensor:
+        """A decoded baseline scale as the next decoder reads it: its
+        pixels minus the RGB mean, in float32, the bits of the encoder's
+        BicubicDownsamplingEnc.bn_q."""
+        return layers.sub_rgb_mean(pixels.to(torch.float32)).contiguous()
 
     # ------------------------------------------------------------ encode
 
@@ -423,10 +447,11 @@ class TorchBitcoding:
                 syms_c = per_scale[-1].syms
                 n_u = syms_c.shape[1] * syms_c.shape[2]
                 T_u = gc.t_policy(n_u, self.coder_profile)
+                C_u, L_u = self._uniform_unit()
                 units = [gc.encode_uniform(
-                    _group_syms(syms_c), self.cfg.q.L,
-                    gc.layout_for(n_u, C_bn * F, T_u))]
-            units_C, units_T = [C_bn], [T_u]
+                    _group_syms(syms_c), L_u,
+                    gc.layout_for(n_u, C_u * F, T_u))]
+            units_C, units_T = [C_u], [T_u]
             dec_F, bn_prev = None, per_scale[S - 1].bn_q
             for scale in reversed(range(S)):
                 with times.prefix_scope(f"[{scale}]"):
@@ -434,17 +459,18 @@ class TorchBitcoding:
                         ip, dec_F, _ = self._get_P_int(scale, topk, bn_prev,
                                                        dec_F)
                     target = x if scale == 0 else per_scale[scale - 1].syms
+                    if scale:
+                        bn_prev = per_scale[scale - 1].bn_q
                     n = target.shape[1] * target.shape[2]
                     T_u = gc.t_policy(n, self.coder_profile)
                     with times.run("lookups+rans"):
-                        if scale == 0:
+                        if self._rgb_at(scale):
                             wc, lc, wf, lf = self._enc_rgb_units(ip, target,
                                                                  T_u)
                             units += [(wc, lc), (wf, lf)]
                             units_C += [3, 3]
                             units_T += [T_u, T_u]
                         else:
-                            bn_prev = per_scale[scale - 1].bn_q
                             units.append(self._enc_bn_unit(ip, target, T_u))
                             units_C.append(C_bn)
                             units_T.append(T_u)
@@ -496,11 +522,11 @@ class TorchBitcoding:
 
     def unit_scale_map(self) -> List[str]:
         """The scale each file unit codes, aligned with last_unit_bytes:
-        ['uniform', 'scale_{S-1}', ..., 'scale_0', 'scale_0'] (the RGB
+        ['uniform', 'scale_{S-1}', ..., 'scale_0', 'scale_0'] (an RGB
         scale has two units, coarse and fine)."""
-        S = self.cfg.num_scales
-        return (["uniform"] + [f"scale_{s}" for s in range(S - 1, 0, -1)]
-                + ["scale_0", "scale_0"])
+        return ["uniform"] + [f"scale_{s}" for s in
+                              reversed(range(self.cfg.num_scales))
+                              for _ in range(2 if self._rgb_at(s) else 1)]
 
     def _enc_rgb_units(self, ip, target, T):
         """Both scale-0 units (coarse + fine) in ONE rANS launch over the
@@ -552,7 +578,9 @@ class TorchBitcoding:
         B = len(pins)
         S = self.cfg.num_scales
         C_bn = self.cfg.q.C
-        unit_Cs = [C_bn] + [C_bn] * (S - 1) + [3, 3]
+        C_u, L_u = self._uniform_unit()
+        unit_Cs = [C_u] + [C for s in reversed(range(S))
+                           for C in ([3, 3] if self._rgb_at(s) else [C_bn])]
         headers, per_file_units = [], []
         for pin in pins:
             hdr, units = _read_file(pin, S, len(unit_Cs))
@@ -599,11 +627,12 @@ class TorchBitcoding:
             h, w = H >> S, W >> S
             with times.run("uniform decode"):
                 words, T0 = unit_words[0]
-                syms = gc.decode_uniform(words, self._bn.L,
-                                         gc.layout_for(h * w, C_bn * F, T0))
-                bn_prev = levels_select(self._bn_levels,
-                                        _ungroup_syms(syms.long(), F, h, w))
-            dec_F = None
+                syms = _ungroup_syms(gc.decode_uniform(
+                    words, L_u, gc.layout_for(h * w, C_u * F, T0)).long(),
+                    F, h, w)
+                bn_prev = (self._rgb_bn(syms) if self.cfg.rgb_bicubic_baseline
+                           else levels_select(self._bn_levels, syms))
+            dec_F, ui = None, 1
             for scale in reversed(range(S)):
                 with times.prefix_scope(f"[{scale}]"):
                     with times.run("get_P"):
@@ -611,12 +640,16 @@ class TorchBitcoding:
                                                        dec_F)
                     hs, ws = H >> scale, W >> scale
                     with times.run("rows+rans"):
-                        if scale == 0:
-                            (w_c, T_c), (w_f, T_f) = unit_words[-2:]
+                        if self._rgb_at(scale):
+                            (w_c, T_c), (w_f, T_f) = unit_words[ui:ui + 2]
+                            ui += 2
                             decoded = self._decode_rgb(ip, w_c, w_f, F, hs,
                                                        ws, T_c, T_f)
+                            if scale:
+                                bn_prev = self._rgb_bn(decoded)
                         else:
-                            words, T_u = unit_words[S - scale]
+                            words, T_u = unit_words[ui]
+                            ui += 1
                             syms = gc.decode_bn(
                                 ip, words, self._bn.L,
                                 gc.layout_for(hs * ws, C_bn * F, T_u))

@@ -46,9 +46,11 @@ class ProbConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MsConfig:
-    """Network config; field names mirror configs/ms/cr.cf. Configs the
-    port cannot run yet (the RGB bicubic baselines, one network shared
-    across scales: ROADMAP.md item 10) raise NotImplementedError."""
+    """Network config; field names mirror configs/ms/cr.cf. The RGB
+    bicubic baselines set rgb_bicubic_baseline (every scale is RGB, q.C =
+    3); shared_across_scales is parsed as the JAX package parses it, and
+    the network does not read it (RGB Shared is one scale applied
+    recursively: eval.tester's `recursive`)."""
     num_scales: int = 3
     Cf: int = 64
     kernel_size: int = 3
@@ -75,19 +77,14 @@ class MsConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype = {self.compute_dtype!r}: "
                              "'float32' or 'bfloat16'")
-        if (self.rgb_bicubic_baseline or self.shared_across_scales
-                or self.enc.cls != "EDSRLikeEnc"):
-            raise NotImplementedError(
-                "the RGB bicubic baselines (rgb_bicubic_baseline, "
-                "shared_across_scales, enc.cls = "
-                f"{self.enc.cls!r}) are not ported yet: ROADMAP.md item "
-                "10 (RGB baselines)")
-        if self.q.C == 3:
+        if self.q.C == 3 and not self.rgb_bicubic_baseline:
             # the RGB-vs-bottleneck split keys on C == 3 (the reference's
             # logistic_mixture.py:68-73): a 3-channel bottleneck would get
-            # RGB-style 4-parameter mixtures
+            # RGB-style 4-parameter mixtures; the baselines' scales are RGB
             raise ValueError("q.C == 3 collides with the RGB channel-count "
-                             "heuristic; use C != 3 for bottlenecks")
+                             "heuristic; use C != 3 for bottlenecks (or "
+                             "rgb_bicubic_baseline, where every scale is "
+                             "RGB)")
 
     @property
     def padding_fac(self) -> int:

@@ -9,12 +9,14 @@ Port of `l3c_tpu/eval/tester.py` (the reference's multiscale_tester.py):
   per-stage timings, the end-to-end gate; same-shape images are coded in
   groups through the batched codec
 - results cached per (dataset id, restore_itr) in a pickle guarded by an
-  interprocess file lock (TestOutputCache).
+  interprocess file lock (TestOutputCache)
+- `recursive`: the RGB Shared baseline's last scale applied that many more
+  times ("auto": 3 for a one-scale baseline, else 0) in the bpsp eval
+- sample: sampled reconstructions per image (the paper's Fig. 5).
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
-recursive application (RGB Shared, item 10), sampling (item 11), the host
-codec backend (item 12), fan-out over several cards and spatial sharding
-(item 13).
+the host codec backend (item 12), fan-out over several cards and spatial
+sharding (item 13).
 """
 from __future__ import annotations
 
@@ -39,9 +41,6 @@ from ..utils import pad as pad_mod
 from .timer import StackTimer
 
 NOT_PORTED = {
-    "recursive": "--recursive (the recursively applied RGB Shared model) "
-                 "is not ported yet: ROADMAP.md item 10 (RGB baselines)",
-    "sample": "--sample is not ported yet: ROADMAP.md item 11 (sampling)",
     "host": "the host codec backend (format v1) is not ported yet: "
             "ROADMAP.md item 12 (host v2 codec)",
     "fanout": "--fanout over several cards is not ported yet: ROADMAP.md "
@@ -124,17 +123,20 @@ class MultiscaleTester:
                  codec_backend: str = "auto", crop: Optional[int] = None,
                  spatial_shard: bool = False, device: DeviceLike = None):
         """net: a MultiscaleNetwork with its weights loaded; it is moved to
-        `device` (the card unless the caller passes "cpu")."""
-        if recursive not in (0, "0", "auto"):
-            raise NotImplementedError(NOT_PORTED["recursive"])
+        `device` (the card unless the caller passes "cpu").
+        recursive: 0, an int or "auto" (decided from the parsed config:
+        3 for the RGB Shared baseline, a one-scale bicubic baseline, else
+        0): scales run after the config's, in the bpsp eval only."""
+        if recursive == "auto":
+            recursive = (3 if cfg.rgb_bicubic_baseline
+                         and cfg.num_scales == 1 else 0)
+        self.recursive = int(recursive)
         if spatial_shard:
             raise NotImplementedError(NOT_PORTED["spatial_shard"])
         if codec_backend in ("host", "cpu", "v1"):
             raise NotImplementedError(NOT_PORTED["host"])
         if codec_backend != "auto":
             raise ValueError(f"unknown codec backend {codec_backend!r}")
-        # 'auto' recursion is decided from the parsed config: only the RGB
-        # Shared baseline recurses, and MsConfig refuses that config
         self.device = resolve(device)
         numerics_guard()
         self.cfg = cfg
@@ -197,13 +199,18 @@ class MultiscaleTester:
 
     def _scale_bpsps(self, crop: np.ndarray) -> torch.Tensor:
         """Theory bpsp of one (1,h,w,3) crop per scale, [scale_0 ..
-        scale_{S-1}, uniform tail], over the crop's pre-pad subpixels."""
-        padded, _ = pad_mod.pad(crop, self.cfg.padding_fac, mode="constant")
+        scale_{S-1}, uniform tail], over the crop's pre-pad subpixels; with
+        recursion the crop is padded for the recursed scales too, and the
+        tail is that of the config's coarsest scale's symbols."""
+        fac = self.cfg.padding_fac * 2 ** self.recursive
+        padded, _ = pad_mod.pad(crop, fac, mode="constant")
         with torch.inference_mode():
             x = torch.from_numpy(padded).to(self.device).to(torch.float32)
             loss = blueprint.compute_loss(
-                self.cfg, self.net(x),
-                num_subpixels_before_pad=int(np.prod(crop.shape)))
+                self.cfg, self.net(x, auto_recurse=self.recursive),
+                num_subpixels_before_pad=int(np.prod(crop.shape)),
+                auto_recursive_from=(self.cfg.num_scales if self.recursive
+                                     else None))
             return torch.stack([torch.as_tensor(b, device=self.device)
                                 for b in loss.nonrecursive_bpsps])
 
@@ -233,6 +240,10 @@ class MultiscaleTester:
 
         compare_theory also evaluates the cross-entropy bpsp per image and
         prints the actual-vs-theory overhead."""
+        if self.recursive:
+            # neither package codes the recursively applied shared model
+            raise NotImplementedError(
+                "--write_to_files not implemented for --recursive")
         if fanout:
             raise NotImplementedError(NOT_PORTED["fanout"])
         os.makedirs(out_dir, exist_ok=True)
@@ -333,8 +344,28 @@ class MultiscaleTester:
 
     # --------------------------------------------------------- sampling
 
-    def sample(self, testset: Testset, out_dir: str):
-        raise NotImplementedError(NOT_PORTED["sample"])
+    def sample(self, testset: Testset, out_dir: str,
+               sample_scale_sets=((), (0,), (0, 1)), seed: int = 0):
+        """Write sampled reconstructions of every image, one PNG per scale
+        set, <stem>_sample<scales joined by _>.png (the padded image's
+        size): network.sample_forward with a generator seeded `seed` anew
+        for each set, clipped and truncated to uint8."""
+        os.makedirs(out_dir, exist_ok=True)
+        for p in testset:
+            padded, _ = pad_mod.pad(self._load(p), self.cfg.padding_fac,
+                                    mode="constant")
+            with torch.inference_mode():
+                x = torch.from_numpy(padded).to(self.device).to(
+                    torch.float32)
+                for scales in sample_scale_sets:
+                    g = torch.Generator(device=self.device).manual_seed(seed)
+                    s = self.net.sample_forward(x, g, tuple(scales))
+                    arr = np.clip(s[0].cpu().numpy(), 0, 255).astype(
+                        np.uint8)
+                    name = (os.path.splitext(os.path.basename(p))[0]
+                            + "_sample" + "_".join(map(str, scales))
+                            + ".png")
+                    write_png(os.path.join(out_dir, name), arr)
 
     # ------------------------------------------------- single-file codec
 

@@ -183,6 +183,63 @@ def bitcost(spec: DMLLSpec, x: torch.Tensor, l: torch.Tensor
     return torch.sum(nll(spec, x, l))
 
 
+def mean_symbol_probs(spec: DMLLSpec, x: torch.Tensor, l: torch.Tensor
+                      ) -> torch.Tensor:
+    """The mean PREDICTED symbol distribution p_y, (L,): each grid
+    symbol's discretized mixture probability averaged over every pixel and
+    channel (x, NHWC, gives the observed channels for the lambda chain, as
+    in nll). By linearity the mean of the bins' probabilities is the
+    difference of the mean CDFs at the L - 1 interior edges, so one edge
+    at a time reduces to a scalar and no (pixels, L) tensor is made; the
+    open tails go to the edge symbols (CDF 0 below, 1 above)."""
+    C = x.shape[-1]
+    logit_pis, means, log_scales = extract_params(spec, l, C, x)
+    pis = torch.softmax(logit_pis, dim=-1)
+    inv_s = torch.exp(-log_scales)
+    edges = (spec.x_min + spec.bin_width / 2.0 + spec.bin_width
+             * torch.arange(spec.L - 1, dtype=torch.float32, device=l.device))
+    m = torch.stack([torch.mean(torch.sum(
+        pis * torch.sigmoid((t - means) * inv_s), dim=-1)) for t in edges])
+    zero = torch.zeros(1, dtype=m.dtype, device=m.device)
+    return torch.diff(torch.cat([zero, m, zero + 1]))
+
+
+def sample(spec: DMLLSpec, l: torch.Tensor, C: int,
+           generator: torch.Generator) -> torch.Tensor:
+    """Draw x ~ p(.|l), (N,H,W,C) float, with `generator` (on l's
+    device): the component by Gumbel-max, then an inverse-CDF logistic
+    draw, uniforms in [1e-5, 1 - 1e-5); for RGB the selected components'
+    lambda coefficients shift G and B by the clamped earlier channels, and
+    every channel is clamped to [0, 255]."""
+    lr = _reshape_l(spec, l, C)
+    logit_pis = lr[..., 0, :, :]
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, dtype=l.dtype,
+                       device=l.device)
+        return 1e-5 + (1.0 - 2e-5) * u
+
+    sel = torch.argmax(logit_pis - torch.log(-torch.log(
+        uniform(logit_pis.shape))), dim=-1)                     # NHWC
+    pick = lambda a, s: torch.gather(a, -1, s.unsqueeze(-1)).squeeze(-1)
+    means = pick(lr[..., 1, :, :], sel)
+    log_scales = torch.clamp(pick(lr[..., 2, :, :], sel),
+                             min=LOG_SCALES_MIN)
+    u = uniform(means.shape)
+    x = means + torch.exp(log_scales) * (torch.log(u) - torch.log(1.0 - u))
+    if spec.rgb_scale:
+        assert C == 3
+        lam = torch.sigmoid(lr[..., 3, :, :])        # slots (g_r, b_r, b_g)
+        lam_gr = pick(lam[..., 0, :], sel[..., 1])
+        lam_br = pick(lam[..., 1, :], sel[..., 2])
+        lam_bg = pick(lam[..., 2, :], sel[..., 2])
+        x0 = torch.clamp(x[..., 0], 0.0, 255.0)
+        x1 = torch.clamp(x[..., 1] + lam_gr * x0, 0.0, 255.0)
+        x2 = torch.clamp(x[..., 2] + lam_br * x0 + lam_bg * x1, 0.0, 255.0)
+        x = torch.stack([x0, x1, x2], dim=-1)
+    return x
+
+
 def pack_coder_params(spec: DMLLSpec, l: torch.Tensor, C: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  Optional[torch.Tensor]]:

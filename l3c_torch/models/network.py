@@ -13,12 +13,17 @@ Structure per scale s:
          -> conv + pixel-shuffle x2
   clf:   3 dilated convs (1,2,4) concat -> 1x1 -> Kp
 
+The RGB baselines (`rgb_bicubic_baseline`: cr_rgb, cr_rgb_shared) have no
+heads, a parameter-free bicubic encoder per scale (the RGB pyramid) and C =
+3 classifiers; `auto_recurse` applies the last scale's modules that many
+more times (scale -1), as RGB Shared is evaluated.
+
 Submodule names follow the flax tree (head0, enc0/block0/conv1, ...), so a
 JAX checkpoint maps onto the state_dict by name (models/weights.py).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -51,12 +56,13 @@ class EncOut(NamedTuple):
     forward hard, gradient soft; None outside training), bn_q, syms and
     raw (the 1x1 conv's output before quantization) are NHWC float32; F is
     the pre-quantization feature in NCHW, in the compute dtype (internal:
-    only the next scale's head reads it)."""
+    only the next scale's head reads it). The bicubic encoder has no F and
+    no raw."""
     bn: Optional[torch.Tensor]
     bn_q: torch.Tensor
     syms: torch.Tensor
-    F: torch.Tensor
-    raw: torch.Tensor
+    F: Optional[torch.Tensor]
+    raw: Optional[torch.Tensor]
 
 
 class Out(NamedTuple):
@@ -98,6 +104,22 @@ class EDSRLikeEnc(nn.Module):
         q = quantizer.quantize(raw, self.levels,
                                self.sigma if train else None)
         return EncOut(bn=q.bn, bn_q=q.bn_q, syms=q.syms, F=F, raw=raw)
+
+
+class BicubicDownsamplingEnc(nn.Module):
+    """The RGB baselines' encoder, without parameters: the image of the
+    mean-subtracted NHWC input, rounded and clipped, downsampled x2 by
+    Pillow's bicubic filter; its symbols are the downsampled pixels and its
+    bottleneck (bn = bn_q) the same minus the mean, detached."""
+
+    def forward(self, x) -> EncOut:
+        mean = torch.as_tensor(255.0 * layers.RGB_MEAN, dtype=x.dtype,
+                               device=x.device)
+        img = torch.clamp(torch.round(x + mean), 0.0, 255.0)
+        img_ds = layers.bicubic_downsample_x2(img)
+        x_ds = layers.sub_rgb_mean(img_ds).detach()
+        return EncOut(bn=x_ds, bn_q=x_ds, syms=img_ds.to(torch.int64),
+                      F=None, raw=None)
 
 
 class EDSRDec(nn.Module):
@@ -153,66 +175,129 @@ class AtrousProbabilityClassifier(nn.Module):
 
 
 class MultiscaleNetwork(nn.Module):
-    """The L3C model: heads + per-scale enc/dec + prob classifiers."""
+    """The L3C model: heads + per-scale enc/dec + prob classifiers; for the
+    RGB baselines bicubic encoders, no heads, C = 3 classifiers."""
 
     def __init__(self, cfg: MsConfig):
         super().__init__()
         self.cfg = cfg
         c = cfg
         for s in range(c.num_scales):
-            # scale 0 reads the image, scales >= 1 the previous encoder's
-            # feature (feed_F) or its quantized bottleneck
-            c_head = 3 if s == 0 else (c.Cf if c.enc.feed_F else c.q.C)
-            self.add_module(f"head{s}", Head(c, c_head, rgb=(s == 0)))
-            self.add_module(f"enc{s}", EDSRLikeEnc(c))
+            if c.rgb_bicubic_baseline:
+                self.add_module(f"enc{s}", BicubicDownsamplingEnc())
+            else:
+                # scale 0 reads the image, scales >= 1 the previous
+                # encoder's feature (feed_F) or its quantized bottleneck
+                c_head = 3 if s == 0 else (c.Cf if c.enc.feed_F else c.q.C)
+                self.add_module(f"head{s}", Head(c, c_head, rgb=(s == 0)))
+                self.add_module(f"enc{s}", EDSRLikeEnc(c))
             self.add_module(f"dec{s}", EDSRDec(c, c.q.C))
             self.add_module(f"clf{s}", AtrousProbabilityClassifier(
-                c, C=(3 if s == 0 else c.q.C)))
+                c, C=(3 if s == 0 or c.rgb_bicubic_baseline else c.q.C)))
 
     def _m(self, kind: str, scale: int) -> nn.Module:
-        return getattr(self, f"{kind}{scale}")
+        """The module of `scale`; -1 (a recursed scale) is the last one's."""
+        return getattr(self, f"{kind}{scale % self.cfg.num_scales}")
 
-    def enc_forward(self, x: torch.Tensor, train: bool = False
-                    ) -> List[EncOut]:
+    def forward_scales(self, auto_recurse: int = 0) -> List[int]:
+        """The scales a forward runs, fine -> coarse: each of the config's,
+        then -1 (the last scale's modules again) auto_recurse times."""
+        return list(range(self.cfg.num_scales)) + [-1] * auto_recurse
+
+    def enc_forward(self, x: torch.Tensor, train: bool = False,
+                    auto_recurse: int = 0) -> List[EncOut]:
         """All encoders fine->coarse; `x` is the mean-subtracted NHWC image.
         With `train` each EncOut carries the straight-through `bn`."""
         enc_outs = []
+        if self.cfg.rgb_bicubic_baseline:
+            inp = x
+            for scale in self.forward_scales(auto_recurse):
+                enc_outs.append(self._m("enc", scale)(inp))
+                inp = enc_outs[-1].bn
+            return enc_outs
         inp = nchw(x)
-        for scale in range(self.cfg.num_scales):
+        for scale in self.forward_scales(auto_recurse):
             eo = self._m("enc", scale)(self._m("head", scale)(inp), train)
             enc_outs.append(eo)
             inp = (eo.F if self.cfg.enc.feed_F else
                    nchw(eo.bn if train else eo.bn_q))
         return enc_outs
 
-    def dec_forward(self, dec_inputs: List[torch.Tensor]
+    def dec_forward(self, dec_inputs: List[torch.Tensor],
+                    forward_scales: Optional[Sequence[int]] = None
                     ) -> List[torch.Tensor]:
         """Decoders coarse->fine with feature fusion; NHWC bottlenecks in,
-        NCHW features out, fine->coarse."""
-        S = self.cfg.num_scales
+        NCHW features out, fine->coarse. No feature is fused into the
+        largest scale's decoder or a recursed one's."""
+        if forward_scales is None:
+            forward_scales = self.forward_scales()
+        top = max(forward_scales)
         dec_Fs: List[torch.Tensor] = []
-        for scale in reversed(range(S)):
-            fuse = dec_Fs[0] if (self.cfg.dec.skip and scale != S - 1) \
-                else None
-            dec_Fs.insert(0, self._m("dec", scale)(nchw(dec_inputs[scale]),
+        for i, scale in reversed(list(enumerate(forward_scales))):
+            fuse = (dec_Fs[0] if self.cfg.dec.skip and scale not in (-1, top)
+                    else None)
+            dec_Fs.insert(0, self._m("dec", scale)(nchw(dec_inputs[i]),
                                                    fuse))
         return dec_Fs
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> Out:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                auto_recurse: int = 0) -> Out:
         """Full forward. `x`: NHWC float image in [0, 255]. With `train`
         the decoders read, and Out.bn holds, the straight-through
         bottlenecks (else the hard ones), and Out.P holds NHWC views of
         the classifier's NCHW output (the loss's K6 reads those planes
-        where they lie; inference gets contiguous NHWC copies)."""
+        where they lie; inference gets contiguous NHWC copies).
+        auto_recurse: recursed scales after the config's (RGB Shared)."""
         img_syms = torch.round(x).to(torch.int64)
-        enc_outs = self.enc_forward(layers.sub_rgb_mean(x), train)
+        xm = layers.sub_rgb_mean(x)
+        if self.cfg.rgb_bicubic_baseline:
+            xm = xm.detach()
+        enc_outs = self.enc_forward(xm, train, auto_recurse)
         bns = [eo.bn if train else eo.bn_q for eo in enc_outs]
-        dec_Fs = self.dec_forward(bns)
-        ls = [self._m("clf", s)(F) for s, F in enumerate(dec_Fs)]
+        scales = self.forward_scales(auto_recurse)
+        dec_Fs = self.dec_forward(bns, scales)
+        ls = [self._m("clf", s)(F) for s, F in zip(scales, dec_Fs)]
         Ps = tuple(l.permute(0, 2, 3, 1) if train else nhwc(l) for l in ls)
         S = (img_syms,) + tuple(eo.syms for eo in enc_outs)
         bn = (img_syms.to(torch.float32),) + tuple(bns)
         return Out(S=S, bn=bn, P=Ps)
+
+    def sample_forward(self, x: torch.Tensor, generator: torch.Generator,
+                       sample_scales: Sequence[int] = ()) -> torch.Tensor:
+        """Generative sampling (the paper's Fig. 5): decoders coarse->fine,
+        where a scale in `sample_scales` reads a SAMPLED bottleneck in
+        place of its encoder's, and scale 0's RGB output is always sampled
+        from its mixture. The coarsest sampled scale with nothing sampled
+        above it reads uniform noise on the level grid. `x`: NHWC image in
+        [0, 255]; draws from `generator` (on x's device). Returns the NHWC
+        sample in [0, 255]."""
+        cfg = self.cfg
+        enc_outs = self.enc_forward(layers.sub_rgb_mean(x))
+        rgb_spec = dmll.DMLLSpec(rgb_scale=True)
+        lo, hi = cfg.q.levels_range
+        bn_spec = (rgb_spec if cfg.rgb_bicubic_baseline else
+                   dmll.DMLLSpec(rgb_scale=False, x_min=lo, x_max=hi,
+                                 L=cfg.q.L))
+        levels = torch.from_numpy(grids.levels(lo, hi, cfg.q.L)).to(x.device)
+        prev, fuse = None, None
+        for scale in reversed(range(cfg.num_scales)):
+            if scale in sample_scales:
+                if prev is None:
+                    shape = enc_outs[-1].bn_q.shape
+                    fake = -1.0 + 2.0 * torch.rand(
+                        shape, generator=generator, device=x.device)
+                    prev = quantizer.quantize(fake, levels).bn_q
+                dec_inp = prev
+            else:
+                dec_inp = enc_outs[scale].bn_q
+            l, F = self.get_P(scale, dec_inp, fuse)
+            if cfg.dec.skip:
+                fuse = F
+            if scale == 0 or (scale - 1) in sample_scales:
+                spec, C = ((rgb_spec, 3) if scale == 0 else
+                           (bn_spec, cfg.q.C))
+                prev = dmll.sample(spec, l, C, generator)
+        return prev
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Draw every conv's weights from `generator` with the JAX package's

@@ -9,8 +9,12 @@ backward, the optimizer update at the schedule's lr, and the metrics
 epochless: the schedule is a function of the step, so a restored run
 needs no replay. Validation runs over fixed batches; checkpoints follow
 the keep policy of train/saver.py, and a run whose length is no multiple
-of keep_tmp_itr saves its last state too. Data parallelism and the heavy
-summaries are not ported (ROADMAP.md items 13 and 14).
+of keep_tmp_itr saves its last state too. Every `heavy_every` steps the
+heavy summaries go to the summary writer: the bottleneck images and symbol
+histograms, the observed-vs-predicted symbol distribution figures per scale
+and the encoders' activation histograms, each computed on the device with
+only counts and distributions crossing to the host. Data parallelism is
+not ported (ROADMAP.md item 13).
 """
 from __future__ import annotations
 
@@ -23,11 +27,59 @@ import torch
 from .. import blueprint
 from ..config import DlConfig, MsConfig
 from ..device import DeviceLike, resolve
+from ..models import dmll, layers
 from ..models.network import MultiscaleNetwork
 from ..models.weights import params_from_jax, params_to_jax
+from ..utils.summarizer import Summarizer, add_scale_summaries, ps_figure
 from . import optim as optim_mod
 from . import schedule as schedule_mod
 from .saver import Saver
+
+# The encoders' activation histogram: fixed buckets over the 1x1 conv's
+# output before the quantizer (the levels lie in [-1, 1]; +-4 catches
+# outliers), counted on the device; the last HIST_BUFFER heavy steps' counts
+# are summed into one histogram.
+HIST_LO, HIST_HI, HIST_BINS, HIST_BUFFER = -4.0, 4.0, 80, 10
+
+
+def make_enc_hist(net: MultiscaleNetwork):
+    """fn(batch (B,H,W,3) on the device) -> {tag: (HIST_BINS,) counts} of
+    every encoder's pre-quantizer activations, scales numbered from 1 (0 is
+    the image); the bicubic encoders have none."""
+    @torch.no_grad()
+    def enc_hist(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        eos = net.enc_forward(layers.sub_rgb_mean(batch.to(torch.float32)))
+        out = {}
+        for i, eo in enumerate(eos):
+            if eo.raw is None:
+                continue
+            idx = torch.clamp(((eo.raw.reshape(-1) - HIST_LO)
+                               / (HIST_HI - HIST_LO) * HIST_BINS).to(
+                                   torch.int32), 0, HIST_BINS - 1)
+            out[f"histo/enc_{i + 1}_after_1x1"] = torch.bincount(
+                idx, minlength=HIST_BINS)
+        return out
+    return enc_hist
+
+
+def make_ps_stats(cfg: MsConfig, net: MultiscaleNetwork):
+    """fn(img (N,H,W,3) on the device) -> {scale: (p_x, p_y)}: the
+    observed symbol counts (L,) of each scale's target and the mean
+    predicted distribution (dmll.mean_symbol_probs), both on the device."""
+    @torch.no_grad()
+    def ps_stats(img: torch.Tensor):
+        out = net(img.to(torch.float32), train=False)
+        spec0, spec_n = blueprint.rgb_spec(cfg), blueprint.bn_spec(cfg)
+        stats = {}
+        for i in range(len(out.P)):
+            spec = spec0 if i == 0 else spec_n
+            target = (out.S[i].to(torch.float32)
+                      if i == 0 or cfg.rgb_bicubic_baseline else out.bn[i])
+            p_x = torch.bincount(out.S[i].reshape(-1),
+                                 minlength=spec.L)[:spec.L]
+            stats[i] = (p_x, dmll.mean_symbol_probs(spec, target, out.P[i]))
+        return stats
+    return ps_stats
 
 
 class Values:
@@ -76,6 +128,9 @@ class Trainer:
         self.step = 0
         self.saver = Saver(out_dir) if out_dir else None
         self.start_itr = 0
+        self._enc_hist = make_enc_hist(self.net)
+        self._ps_stats = make_ps_stats(cfg, self.net)
+        self._hist_buffers: Dict[str, list] = {}   # tag -> recent counts
 
     # ------------------------------------------------------------ state
 
@@ -165,10 +220,6 @@ class Trainer:
     def train(self, num_itr: int, log_every: int = 100,
               val_every: int = 500, heavy_every: int = 0,
               log_fn=print) -> Dict[str, Any]:
-        if heavy_every:
-            raise NotImplementedError(
-                "the heavy summaries (--log_train_heavy) are not ported "
-                "yet: ROADMAP.md item 14")
         it = iter(self.train_batches)
         t0 = time.time()
         imgs = 0
@@ -183,6 +234,9 @@ class Trainer:
                 log_fn(Values.format(i + 1, metrics, imgs / max(dt, 1e-9)))
                 self._write_summaries("train", metrics, i + 1)
                 t0, imgs = time.time(), 0
+            if (heavy_every and (i + 1) % heavy_every == 0
+                    and self.summary_writer is not None):
+                self._write_heavy_summaries(batch, i + 1)
             if val_every and (i + 1) % val_every == 0 and self.val_batches:
                 val_bpsp = self.validation_loop()
                 log_fn(f"{i + 1:8d} VAL bpsp={val_bpsp:.4f}")
@@ -197,6 +251,33 @@ class Trainer:
         if self.saver is not None and num_itr and not self.saver.save_due(end):
             self.saver.save(self.state_tree(), end)
         return metrics
+
+    def _write_heavy_summaries(self, batch: np.ndarray, step: int):
+        """The heavy summaries of `step`, under train_heavy/ and train/:
+        on the first validation image (the training batch's first without
+        one, so the images stay comparable across steps) the bottleneck
+        images and symbol histograms per scale and the p_x / p_y figure per
+        scale; on the training batch the encoders' activation histograms,
+        summed over the last HIST_BUFFER heavy steps."""
+        img = self._place(self.val_batches[0][:1] if self.val_batches
+                          else batch[:1])
+        s = Summarizer(self.summary_writer)
+        s.enable("train_heavy", step)
+        with torch.no_grad():
+            out = self.net(img, train=False)
+        # symbols of the scales above 0: bottleneck levels, or pixels
+        add_scale_summaries(s, out, blueprint.bn_spec(self.cfg).L)
+        for scale, (p_x, p_y) in self._ps_stats(img).items():
+            s.figure(f"histo_out/{scale}", ps_figure(p_x.cpu().numpy(),
+                                                     p_y.cpu().numpy()))
+        edges = np.linspace(HIST_LO, HIST_HI, HIST_BINS + 1)
+        for tag, c in self._enc_hist(self._place(batch)).items():
+            buf = self._hist_buffers.setdefault(tag, [])
+            buf.append(c.cpu().numpy())
+            del buf[:-HIST_BUFFER]
+            if hasattr(self.summary_writer, "add_histogram_counts"):
+                self.summary_writer.add_histogram_counts(
+                    f"train/{tag}", np.sum(buf, axis=0), edges, step)
 
     def _write_summaries(self, prefix: str, metrics: Dict, step: int):
         sw = self.summary_writer

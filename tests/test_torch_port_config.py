@@ -9,8 +9,8 @@ JAX package's, on the CPU.
   package's answers on the `models_zoo/` names (spaces, `r@...`
   components and postfixes included), each package resolving against its
   own config root;
-- a config the port cannot run yet raises NotImplementedError that names
-  its ROADMAP item; it is never read as `cr`;
+- the RGB baseline configs (`cr_rgb.cf`, `cr_rgb_shared.cf`) load field
+  for field as the JAX package's; q.C == 3 outside a baseline is refused;
 - `weights.restore_params_only` picks the checkpoint `Restorer` picks.
 """
 import dataclasses
@@ -98,14 +98,20 @@ def test_parse_cf_inheritance_and_errors(tmp_path):
 
 @pytest.mark.parametrize("name", ["cr_rgb.cf", "cr_rgb_shared.cf"])
 def test_unported_configs_raise_with_their_roadmap_item(name):
-    """The RGB baselines parse in the JAX package; the port refuses them
-    by name instead of running them as cr."""
-    assert jcfg.load_ms_config(
-        os.path.join(J_CONFIGS, "ms", name)).rgb_bicubic_baseline
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        tcfg.load_ms_config(os.path.join(T_CONFIGS, "ms", name))
-    with pytest.raises(NotImplementedError, match="shared_across_scales"):
-        tcfg.MsConfig(shared_across_scales=True)
+    """The RGB baselines, once refused by name, now load as the JAX
+    package loads them (every field equal; shared_across_scales is parsed
+    and no network reads it); q.C == 3 is still refused outside a
+    baseline."""
+    j = jcfg.load_ms_config(os.path.join(J_CONFIGS, "ms", name))
+    t = tcfg.load_ms_config(os.path.join(T_CONFIGS, "ms", name))
+    assert j.rgb_bicubic_baseline and t.rgb_bicubic_baseline
+    for f in dataclasses.fields(t):
+        got, want = getattr(t, f.name), getattr(j, f.name)
+        assert (dataclasses.asdict(got) == dataclasses.asdict(want)
+                if dataclasses.is_dataclass(got) else got == want), f.name
+    assert (t.enc.cls, t.q.C, t.num_scales) == (
+        "BicubicSubsampling", 3, 3 if name == "cr_rgb.cf" else 1)
+    assert tcfg.MsConfig(shared_across_scales=True).shared_across_scales
     with pytest.raises(ValueError, match="q.C == 3"):
         tcfg.MsConfig(q=tcfg.QConfig(C=3))
 

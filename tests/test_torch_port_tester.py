@@ -21,8 +21,9 @@ Held, with the tolerances:
   differ by at large sizes is in ROADMAP.md section 3);
 - `verify_batch`: flag true and the u32 hash equal to the JAX package's
   `verify_batch_finish` and to the hash computed with numpy;
-- what is not ported raises NotImplementedError naming its ROADMAP item,
-  and the CLIs raise without a card unless `--device cpu`.
+- what is not ported raises NotImplementedError naming its ROADMAP item
+  (--sample and --recursive now run), and the CLIs raise without a card
+  unless `--device cpu`.
 
 The JAX side runs jitted, once per module.
 """
@@ -445,16 +446,42 @@ def test_result_cache_and_lock(world, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--sample", "out"], "item 11"),
-    (["--fanout", "--write_to_files", "out"], "item 13"),
-    (["--spatial_shard"], "item 13"),
-    (["--recursive", "3"], "item 10"),
-    (["--codec_backend", "host"], "item 12"),
+    # the ids of the cases before --sample and --recursive were ported
+    pytest.param(["--fanout", "--write_to_files", "out"], "item 13",
+                 id="extra1-item 13"),
+    pytest.param(["--spatial_shard"], "item 13", id="extra2-item 13"),
+    pytest.param(["--codec_backend", "host"], "item 12",
+                 id="extra4-item 12"),
 ])
 def test_cli_options_not_ported_raise(world, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         test_cli.main([world["logs"], "0102", world["imgs"]] + extra
                       + _cli_args(world))
+
+
+@pytest.mark.parametrize("option", ["--sample", "--recursive"])
+def test_cli_options_ported_run(world, tmp_path, option, capsys):
+    """--sample and --recursive, once refused: --sample writes the three
+    scale sets' samples of each image beside the table; --recursive 2 on
+    the tiny (non-baseline) model evaluates two more applications of its
+    last scale, a bpsp of its own, and --write_to_files refuses it."""
+    argv = [world["logs"], "0102", os.path.join(world["imgs"], "im3.png"),
+            "--reset_cache"] + _cli_args(world)
+    if option == "--sample":
+        out = tmp_path / "samples"
+        assert test_cli.main(argv + ["--sample", str(out)]) == 0
+        assert sorted(os.listdir(out)) == [
+            "im3_sample.png", "im3_sample0.png", "im3_sample0_1.png"]
+        assert read_png(str(out / "im3_sample0.png")).shape == (24, 32, 3)
+        return
+    assert test_cli.main(argv) == 0
+    plain = capsys.readouterr().out.strip().splitlines()[-1].split()[-1]
+    assert test_cli.main(argv + ["--recursive", "2"]) == 0
+    rec = capsys.readouterr().out.strip().splitlines()[-1].split()[-1]
+    assert float(rec) > 0 and rec != plain
+    with pytest.raises(NotImplementedError, match="--recursive"):
+        test_cli.main(argv + ["--recursive", "2", "--write_to_files",
+                              str(tmp_path / "o")])
 
 
 def test_entry_points_raise_without_a_card_or_a_runnable_config(world,
@@ -473,11 +500,12 @@ def test_entry_points_raise_without_a_card_or_a_runnable_config(world,
                           str(tmp_path / "o.l3c"), "--config_roots",
                           world["cfg_root"], "--device", "cuda"])
     assert not os.path.exists(tmp_path / "o.l3c")
-    # a log dir whose name mentions a config the port cannot run yet
+    # a log dir of a baseline config (runnable since the RGB baselines
+    # were ported) without checkpoints
     logs = tmp_path / "logs"
     (logs / "0303_0000 cr_rgb_shared oi_offline" / "ckpts").mkdir(
         parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         l3c_cli.main([str(logs), "0303", "enc", src, str(tmp_path / "o.l3c"),
                       "--device", "cpu"])
     with pytest.raises(FileNotFoundError, match="no log dir"):
@@ -487,13 +515,13 @@ def test_entry_points_raise_without_a_card_or_a_runnable_config(world,
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         l3c_cli.main([str(logs), "0505", "dec", src, str(tmp_path / "o.png"),
                       "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        world["tt"].sample(None, str(tmp_path))
+    world["tt"].sample(ImageSet(os.path.join(world["imgs"], "im0.png")),
+                       str(tmp_path / "s"), sample_scale_sets=((),))
+    assert os.listdir(tmp_path / "s") == ["im0_sample.png"]
     with pytest.raises(ValueError, match="unknown codec backend"):
         MultiscaleTester(world["tt"].cfg, world["tt"].net, device="cpu",
                          codec_backend="tpu")
-    assert set(tester_mod.NOT_PORTED) == {"recursive", "sample", "host",
-                                          "fanout", "spatial_shard"}
+    assert set(tester_mod.NOT_PORTED) == {"host", "fanout", "spatial_shard"}
 
 
 def test_timer_and_printer_equal_jax(monkeypatch):

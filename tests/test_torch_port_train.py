@@ -372,7 +372,9 @@ def test_optimizers_match_make_optimizer(optim, wd):
 def test_bfloat16_and_heavy_summaries_raise():
     """compute_dtype = 'bfloat16' is taken (the conv stacks compute in
     bf16: test_torch_port_bf16.py), a dtype neither package computes in
-    raises; --log_train_heavy still raises with its ROADMAP item."""
+    raises; the heavy summaries, once refused, now run (their tags against
+    JAX's: test_torch_port_heavy.py): without a summary writer a heavy
+    step writes nothing, and with one in bfloat16 it writes them."""
     assert tcfg.MsConfig(compute_dtype="bfloat16").compute_dtype == \
         "bfloat16"
     with pytest.raises(ValueError, match="float16"):
@@ -381,8 +383,16 @@ def test_bfloat16_and_heavy_summaries_raise():
     dl = tcfg.DlConfig(batchsize_train=2, crop_size=16)
     t = TTrainer(tc, dl, TNet(tc), iter(batches(1)), epoch_len=10,
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t.train(1, heavy_every=1)
+    m = t.train(1, heavy_every=1)
+    assert np.isfinite(float(m["loss_bpsp"])) and not t._hist_buffers
+    from tests.test_utils import FakeWriter
+    w = FakeWriter()
+    _, tb = tiny_cfgs(compute_dtype="bfloat16")
+    t = TTrainer(tb, dl, TNet(tb), iter(batches(1)), epoch_len=10,
+                 device="cpu", summary_writer=w)
+    t.train(1, log_every=0, heavy_every=1)
+    assert "train_heavy/bn/1/c0" in w.images
+    assert "train/histo/enc_1_after_1x1" in w.histos
 
 
 # --------------------------------------------------------- r5b, resumed

@@ -252,8 +252,9 @@ def test_cli_train_on_cpu_then_both_testers_read_it(cli_world, capsys):
     """cli.train --device cpu: 3 steps, a checkpoint at 3 in a new log dir
     named after the configs; cli.test and the JAX tester read it, with
     theory bpsp within 1e-4 relative of each other; --debug takes one step
-    and one validation pass; --log_train_heavy is refused; -p
-    compute_dtype='bfloat16' trains a step in a log dir of its own."""
+    and one validation pass; --log_train_heavy trains with the heavy
+    summaries in a log dir of its own, and -p compute_dtype='bfloat16'
+    trains a step in another."""
     w = cli_world
     assert _train(w, "--num_itr", "3") == 0
     out = capsys.readouterr().out
@@ -281,8 +282,12 @@ def test_cli_train_on_cpu_then_both_testers_read_it(cli_world, capsys):
     assert _train(w, "--debug") == 0
     out = capsys.readouterr().out
     assert "'val_bpsp'" in out and "'loss_bpsp'" in out
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _train(w, "--num_itr", "1", "--log_train_heavy", "1")
+    # --log_train_heavy (once refused) trains with the heavy summaries on
+    n_dirs = len(os.listdir(w["logs"]))
+    assert _train(w, "--num_itr", "2", "--log_train_heavy", "1") == 0
+    out = capsys.readouterr().out
+    assert np.isfinite(float(out.split(" loss=")[1].split()[0]))
+    assert len(os.listdir(w["logs"])) == n_dirs + 1
     n_dirs = len(os.listdir(w["logs"]))
     assert _train(w, "--num_itr", "1", "-p", "compute_dtype='bfloat16'") == 0
     out = capsys.readouterr().out
