@@ -89,7 +89,8 @@ Phases (each raises on failure; none carries on after another failed):
               K6 as one thread a pixel, and the bounds) and by device time
               (20 launches queued behind a sleeping kernel, L2 flushed
               between them); r5b resumed strictly (params, nu, count,
-              step) and trained 20 steps, the first
+              step) and trained 20 steps (a persistent checkpoint every
+              5, for phase host's SWA), the first
               loss equal to the eval forward's; that checkpoint codes a
               512x512 image through cli.l3c bit-exactly; 40 steps from a
               fresh initialisation from each of three seeds lower the
@@ -117,7 +118,26 @@ Phases (each raises on failure; none carries on after another failed):
               records); cli.test --sample of it; cr_rgb_shared through
               cli.test --recursive auto (three recursions) and its
               non-recursive round (unit 0 the whole x2-downsampled image)
- 12. report   one JSON line of kernel records (each with its path:
+ 12. host     the host codec (format v1: the network and the parameter
+              pack on the card, rANS in C++ on the host) and the host
+              tools, launch-counted (none of the kernels runs on them):
+              r5b through codec.bitcoding.Bitcoding, float32 on two of the
+              8 images and bfloat16 on one, bit-exact, file bpsp against
+              theory and against the v8 size profile's, per image the
+              encode and decode ms split into forward, get_P (card,
+              synchronised), the copy to the host and the entropy coder,
+              the device-busy share of a round, dmll.pack_coder_params'
+              ms against its bound; cli.l3c enc/dec and cli.test
+              --write_to_files with --codec_backend host, and cli.l3c dec
+              of a v8 file through the same version dispatch; phase
+              baselines' cr_rgb coded through the host backend; r5b
+              written in the reference's .pt layout and converted by
+              cli.convert (every leaf bitwise r5b's, cli.test's theory
+              bpsp r5b's); tools.swa over phase train's resumed run's
+              persistent checkpoints (restores, codes bit-exactly);
+              cli.classic --no_png over the 8 PNGs (.medl bpsp, ms an
+              image); the host CPU's model name beside every host time
+ 13. report   one JSON line of kernel records (each with its path:
               serving, train or baselines), the card line, then
               {"ok": true, "device": {...}} as the last line
 
@@ -131,6 +151,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1267,16 +1288,26 @@ def pipeline(disp, fin, n: int) -> List[float]:
     return rounds[1:]
 
 
-def device_busy_ms(fn) -> float:
-    """Device time of the kernels fn() launches (torch.profiler), ms."""
+def device_busy_split_ms(fn) -> Tuple[float, float]:
+    """(kernel ms, copy ms) on the device while fn() runs
+    (torch.profiler): the v1 codec's copies to the host are device time
+    that no kernel spends."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if getattr(e, "self_device_time_total", 0) > 0
-               and str(e.device_type).endswith("CUDA")) / 1e3
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "self_device_time_total", 0) > 0
+          and str(e.device_type).endswith("CUDA")]
+    copy = lambda e: e.key.startswith(("Memcpy", "Memset"))
+    return (sum(e.self_device_time_total for e in ev if not copy(e)) / 1e3,
+            sum(e.self_device_time_total for e in ev if copy(e)) / 1e3)
+
+
+def device_busy_ms(fn) -> float:
+    """Device time of what fn() runs on the card (torch.profiler), ms."""
+    return sum(device_busy_split_ms(fn))
 
 
 def serve_shape(bc, shape, imgs, d, warm, ref):
@@ -1672,6 +1703,9 @@ def k6_bound(l_nchw, x, spec, grad: bool):
                                      else (Kp + 2 * C) * n_px * 4)
     return bound(n_bytes, ops)
 TRAIN_STEPS_RESUMED, TRAIN_STEPS_FRESH, TRAIN_WARMUP = 20, 40, 3
+# the resumed run's persistent checkpoints, every TRAIN_SAVE_EVERY steps:
+# what phase host averages (SWA)
+TRAIN_SAVE_EVERY = 5
 # the resumed run's --log_train_heavy: the heavy summaries at steps 10, 20
 TRAIN_HEAVY_EVERY = 10
 # r5b resumed in bfloat16 (-p compute_dtype='bfloat16'): steps, and the
@@ -1910,7 +1944,7 @@ def phase_k6_ragged(cfg):
             f"vs plain: {stats}")
 
 
-def phase_train(net, cfg, card):
+def phase_train(net, cfg, card, keep):
     """Training on the card through the entry point a user calls
     (cli.train.main, in-process, no --device) at full cr.cf width with
     oi_offline.cf's shapes on seeded PNGs: K6 against its plain version on
@@ -1920,7 +1954,10 @@ def phase_train(net, cfg, card):
     from a fresh initialisation from each of FRESH_SEEDS, the validation
     bpsp falling in most; step time and memory of the first, and one
     profiled step. Every train step launches exactly 3 + 3
-    K6 kernels and calls the plain nll on no CUDA tensor."""
+    K6 kernels and calls the plain nll on no CUDA tensor. The resumed
+    run saves a persistent checkpoint every TRAIN_SAVE_EVERY steps; its
+    log dir is copied under `keep` for phase host's SWA, and its path
+    returned beside the records."""
     from l3c_torch.cli import train as train_cli
     from l3c_torch.data.images import TrainBatches
     from l3c_torch.models import dmll
@@ -2008,7 +2045,8 @@ def phase_train(net, cfg, card):
                     "--restore", LOG_DATE, "--num_itr",
                     str(TRAIN_STEPS_RESUMED), "--log_train", "5",
                     "--log_val", "0", "--log_train_heavy",
-                    str(TRAIN_HEAVY_EVERY)])
+                    str(TRAIN_HEAVY_EVERY), "--keep_tmp_itr",
+                    str(TRAIN_SAVE_EVERY), "--keep_every", "1"])
                 resumed = dict(kernels.launches)
         finally:
             unpatch()
@@ -2034,7 +2072,7 @@ def phase_train(net, cfg, card):
             raise RuntimeError(f"expected one new log dir: {new_dir}")
         end = 246250 + TRAIN_STEPS_RESUMED
         ck = os.path.join(root, new_dir[0], "ckpts",
-                          f"ckpt_{end:010d}.ckpt.tmp")
+                          f"ckpt_{end:010d}.ckpt")
         saved = read_checkpoint(ck)
         shape = lambda t: ({k: shape(v) for k, v in t.items()}
                            if isinstance(t, dict) else (t.shape, t.dtype.str))
@@ -2060,6 +2098,8 @@ def phase_train(net, cfg, card):
                                "image bit-exactly")
         log(f"[train] cli.l3c enc+dec with {new_dir[0]} (step {end}): "
             f"bit-exact, file bpsp {os.path.getsize(coded) * 8 / img.size:.6f}")
+        resumed_dir = os.path.join(keep, new_dir[0])
+        shutil.copytree(os.path.join(root, new_dir[0]), resumed_dir)
 
         # ---- bfloat16: r5b resumed at the same settings with -p
         # compute_dtype='bfloat16'
@@ -2168,7 +2208,7 @@ def phase_train(net, cfg, card):
     record = make_recorder(recs, resumed, "train")
     for args in pending:
         record(*args)
-    return recs
+    return recs, resumed_dir
 
 
 # ------------------------------------------------------------- baselines
@@ -2237,7 +2277,7 @@ def train_fresh(train_cli, ms_cf, dl_cf, log_root, data, steps, label):
     return name.split()[0], got
 
 
-def phase_baselines(imgs, card):
+def phase_baselines(imgs, card, keep):
     """The RGB baselines on the card through the entry points a user
     calls, at cr_rgb.cf's and cr_rgb_shared.cf's full width from fresh
     weights: cr_rgb trained BASE_STEPS steps (K6 on C = 3 with lambda at
@@ -2250,7 +2290,9 @@ def phase_baselines(imgs, card):
     and timed (the `baselines` records); cli.test --sample of the trained
     model; cr_rgb_shared trained the same way, then cli.test --recursive
     auto (three recursions) and its non-recursive v8 round trip (unit 0
-    the whole x2-downsampled image at L = 256)."""
+    the whole x2-downsampled image at L = 256). The trained cr_rgb's log
+    dir is copied under `keep` for phase host; returns (records, its log
+    root, its date)."""
     from l3c_torch.cli import train as train_cli
     from l3c_torch.data.images import TrainBatches
     roots = l3c_cli.default_config_roots()
@@ -2306,6 +2348,9 @@ def phase_baselines(imgs, card):
         phase_sample(log_root, date, [imgs[0], imgs[1]], cfg, card,
                      "cr_rgb (fresh)")
         del bc, tester
+        kept_root = os.path.join(keep, "cr_rgb")
+        shutil.copytree(log_root, kept_root)
+        kept = (kept_root, date)
         # ---- cr_rgb_shared: train, theory with recursion, round trip
         ms_cf = os.path.join(roots[0], "ms", "cr_rgb_shared.cf")
         cfg = load_ms_config(ms_cf)
@@ -2353,7 +2398,7 @@ def phase_baselines(imgs, card):
         phase_coder(bc, [c for c in coder_cases(bc, imgs)
                          if c.label.startswith("uniform")], None)
         del bc, tester, t0
-    return recs
+    return recs, kept
 
 
 def baseline_round(bc, imgs, enc_l, dec_l, theory, card, label):
@@ -2691,6 +2736,387 @@ def profile_step(trainer, batch, step_ms):
             f"{e.count:4d}x  {e.key[:80]}")
 
 
+# ------------------------------------------------------------------ host
+
+# r5b's v1 rounds: float32 on the first HOST_IMGS images, bfloat16 on one
+HOST_IMGS = 2
+# the v1 stages a StackTimer scope belongs to (Bitcoding's scope names)
+V1_STAGES = {"forward": ("forwardpass",), "get_P": ("get_P",),
+             "d2h": ("to host",), "coder": ("entropy", "uniform")}
+
+
+CPUID_BRAND = r"""
+#include <cpuid.h>
+#include <stdio.h>
+int main() {
+  unsigned r[12] = {0};
+  for (int i = 0; i < 3; ++i)
+    __get_cpuid(0x80000002u + i, &r[4 * i], &r[4 * i + 1], &r[4 * i + 2],
+                &r[4 * i + 3]);
+  fwrite(r, 1, sizeof r, stdout);
+  return 0;
+}
+"""
+
+
+def host_cpu() -> str:
+    """The host CPU's model name and count (the v1 coder's times are host
+    times): /proc/cpuinfo's, or where a sandbox reports it unknown, the
+    processor's brand string read by cpuid (a tiny g++ program)."""
+    name = "unknown"
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    if name.lower() in ("", "unknown"):
+        with tempfile.TemporaryDirectory(prefix="l3c_cpuid_") as d:
+            exe = os.path.join(d, "brand")
+            subprocess.run(["g++", "-x", "c++", "-", "-o", exe],
+                           input=CPUID_BRAND, text=True, check=True,
+                           timeout=60)
+            raw = subprocess.run([exe], capture_output=True, check=True,
+                                 timeout=10).stdout
+        name = raw.split(b"\0")[0].decode("ascii", "replace").strip() \
+            or "unknown"
+        name += " (cpuid; /proc/cpuinfo says unknown)"
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def v1_round(bc, img, path):
+    """One format-v1 encode and decode of `img` through Bitcoding `bc`:
+    (file bpsp, {side: {"ms": wall, stage: ms}}), each side's stages summed
+    over its scales from a StackTimer of its own (get_P ends in a
+    synchronize, so it is the card's work). Raises unless bit-exact."""
+    from l3c_torch.eval.timer import StackTimer
+    out = {}
+    for side in ("enc", "dec"):
+        bc.times = StackTimer(device=bc.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if side == "enc":
+            bpsp = bc.encode(img, path)
+        else:
+            got = bc.decode(path)
+        torch.cuda.synchronize()
+        lasts = bc.times.lasts()
+        st = {"ms": (time.perf_counter() - t0) * 1e3}
+        for stage, keys in V1_STAGES.items():
+            st[stage] = 1e3 * sum(v for k, v in lasts.items()
+                                  if any(key in k for key in keys))
+        out[side] = st
+    if not np.array_equal(got, img):
+        raise RuntimeError(f"v1 round trip of {path} is NOT bit-exact")
+    return bpsp, out
+
+
+def reference_state_dict(tree, cfg):
+    """Flax parameters in the reference's state_dict layout (OIHW,
+    Sequential index names) with the fixed MeanShift convs and the level
+    tables the importer verifies: the inverse of
+    l3c_torch.convert.torch_import.import_state_dict."""
+    from l3c_torch.models import grids
+    p = tree["params"]
+    sd = {}
+
+    def conv(key, leaf):
+        sd[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            leaf["kernel"].transpose(3, 2, 0, 1)))
+        sd[f"{key}.bias"] = torch.from_numpy(np.array(leaf["bias"]))
+
+    def blocks(prefix, m, n):
+        for i in range(n):
+            conv(f"{prefix}.{i}.body.0", m[f"block{i}"]["conv1"])
+            conv(f"{prefix}.{i}.body.2", m[f"block{i}"]["conv2"])
+
+    eye = np.eye(3, dtype=np.float32).reshape(3, 3, 1, 1)
+    sd["sub_rgb_mean.weight"] = torch.from_numpy(eye)
+    sd["sub_rgb_mean.bias"] = torch.from_numpy(
+        np.float32(-255.0) * layers.RGB_MEAN)
+    sd["heads.0.head.0.weight"] = torch.from_numpy(eye / np.float32(128))
+    sd["heads.0.head.0.bias"] = torch.zeros(3)
+    lo, hi = cfg.q.levels_range
+    nb_e, nb_d = cfg.enc.num_blocks, cfg.dec.num_blocks
+    for s in range(cfg.num_scales):
+        conv("heads.0.head.1.head" if s == 0 else f"heads.{s}.head",
+             p[f"head{s}"]["conv"])
+        e = p[f"enc{s}"]
+        conv(f"nets.{s}.enc.down", e["down"])
+        conv(f"nets.{s}.enc.to_q.0", e["to_q"])
+        conv(f"nets.{s}.enc.body.{nb_e}", e["body_out"])
+        blocks(f"nets.{s}.enc.body", e, nb_e)
+        sd[f"nets.{s}.enc.levels"] = torch.from_numpy(
+            grids.levels(lo, hi, cfg.q.L))
+        dec = p[f"dec{s}"]
+        conv(f"nets.{s}.dec.head", dec["head"])
+        conv(f"nets.{s}.dec.body.{nb_d}", dec["body_out"])
+        conv(f"nets.{s}.dec.tail.0", dec["tail"]["up0"])
+        blocks(f"nets.{s}.dec.body", dec, nb_d)
+        a = p[f"clf{s}"]["atrous"]
+        conv(f"prob_clfs.{s}.atrous.lin", a["lin"])
+        for i in range(len(a) - 1):
+            conv(f"prob_clfs.{s}.atrous.atrous.{i}", a[f"atrous{i}"])
+    return sd
+
+
+def phase_host(cfg, net, imgs, theory_bpsp, card, resumed_dir, cr_rgb):
+    """The host codec (format v1) and the host tools on the card machine,
+    through the entry points a user calls: r5b through Bitcoding (float32
+    on HOST_IMGS images, bfloat16 on one; bit-exact, per-stage times,
+    file bpsp against theory and against v8's, the device-busy share of a
+    round) and the pack stage's time against its bound; cli.l3c enc/dec
+    and cli.test --write_to_files with --codec_backend host, and a v8 file
+    through the same dispatch; phase baselines' cr_rgb through the host
+    backend (unit 0 at L = 256 under the uniform coder); r5b written in
+    the reference's .pt layout, converted by cli.convert (every leaf equal
+    to r5b's, the same theory bpsp through cli.test); SWA over phase
+    train's resumed run (it restores and codes); cli.classic --no_png over
+    the 8 PNGs. Every call's launch counts are exactly its path's: v1 and
+    the host tools launch none of the kernels."""
+    from l3c_torch.cli import classic as classic_cli
+    from l3c_torch.cli import convert as convert_cli
+    from l3c_torch.codec.bitcoding import Bitcoding
+    from l3c_torch.models.weights import (_flatten, read_checkpoint,
+                                         restore_params_only)
+    from l3c_torch.tools import swa
+    cpu = host_cpu()
+    roots = l3c_cli.default_config_roots()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="l3c_host_") as d:
+        # ---- r5b through Bitcoding on the card
+        for dtype, n in (("float32", HOST_IMGS), ("bfloat16", 1)):
+            c, m = (cfg, net) if dtype == "float32" else with_dtype(
+                cfg, net, dtype)
+            bc = Bitcoding(c, m, device="cuda")
+            v8 = TorchBitcoding(c, m, device="cuda", coder_profile="size")
+            v1_round(bc, imgs[0], os.path.join(d, f"warm_{dtype}.l3c"))
+            for i in range(n):
+                p1 = os.path.join(d, f"{dtype}{i}.l3c")
+                bpsp, st = counted(total, f"v1 round ({dtype}, image {i})",
+                                   lambda: v1_round(bc, imgs[i], p1), {})
+                with torch.inference_mode():
+                    x = torch.from_numpy(imgs[i]).cuda().float()
+                    th = float(blueprint.total_bpsp(
+                        blueprint.compute_loss(c, m(x))))
+                p8 = os.path.join(d, f"{dtype}{i}_v8.l3c")
+                b8 = v8.encode(imgs[i], p8)
+                if not np.array_equal(v8.decode(p8), imgs[i]):
+                    raise RuntimeError("v8 size-profile round not bit-exact")
+                wall = st["enc"]["ms"] + st["dec"]["ms"]
+                fmt = lambda s: ", ".join(f"{k} {v:.1f}" for k, v in s.items())
+                log(f"[host] r5b v1 {dtype} image {i} ({SZ}x{SZ}) bit-exact: "
+                    f"file bpsp {bpsp:.6f} vs theory {th:.6f} "
+                    f"({100 * (bpsp / th - 1):+.2f}%) vs v8 size profile "
+                    f"{b8:.6f} | enc ms: {fmt(st['enc'])} | dec ms: "
+                    f"{fmt(st['dec'])} | {SZ * SZ / 1e3 / wall:.4f} MP/s "
+                    f"enc+dec | {card} | host {cpu}")
+            p2 = os.path.join(d, f"busy_{dtype}.l3c")
+            kern, copies = device_busy_split_ms(
+                lambda: (bc.encode(imgs[0], p2), bc.decode(p2)))
+            log(f"[host] r5b v1 {dtype}: device busy {kern + copies:.1f} ms "
+                f"of the round's {wall:.1f} ms = "
+                f"{100 * (kern + copies) / wall:.1f}% (torch.profiler): "
+                f"kernels {kern:.1f} ms, copies {copies:.1f} ms | {card}")
+            if dtype == "float32":
+                with torch.inference_mode():
+                    l0 = m(torch.from_numpy(imgs[0]).cuda().float()).P[0]
+                    out = bc.pack(0, l0)
+                    ms = cuda_ms(lambda: bc.pack(0, l0))
+                # l read once, the four arrays written once; an exp a
+                # softmax and inv_s entry, an exp and a division a lambda
+                nbytes = 4 * (l0.numel() + sum(a.numel() for a in out))
+                b = bound(nbytes, OPS_EXP * (out[0].numel() + out[2].numel()
+                                             + 2 * out[3].numel()))
+                log(f"[host] stage dmll.pack_coder_params + (C,HW,K) layout "
+                    f"on r5b's scale 0, l {tuple(l0.shape)}: {ms:.4f} ms vs "
+                    f"bound {b[0]:.4f} ms ({b[1]}) | {card}")
+                # what the copy to the host costs: the codec's pageable
+                # .cpu() against the same bytes into pinned buffers
+                pinned = [torch.empty(a.shape, pin_memory=True) for a in out]
+
+                def host_ms(copy):
+                    times = []
+                    for _ in range(4):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        copy()
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    return statistics.median(times[1:])
+                pg = host_ms(lambda: [a.cpu() for a in out])
+                pn = host_ms(lambda: [h.copy_(a) for h, a in zip(pinned,
+                                                                 out)])
+                mb = 4 * sum(a.numel() for a in out) / 1e6
+                log(f"[host] scale 0's packed parameters to the host "
+                    f"({mb:.1f} MB): pageable .cpu() {pg:.2f} ms = "
+                    f"{mb / pg:.2f} GB/s; into pinned buffers {pn:.2f} ms = "
+                    f"{mb / pn:.2f} GB/s (median of 3 after one) | {card} | "
+                    f"host {cpu}")
+                del l0, out, pinned
+            del bc, v8, m
+        # ---- the CLIs with --codec_backend host, and v8 through dispatch
+        img_dir = os.path.join(d, "imgs")
+        two_dir = os.path.join(d, "two")
+        os.makedirs(img_dir)
+        os.makedirs(two_dir)
+        for b, im in enumerate(imgs):
+            write_png(os.path.join(img_dir, f"im{b}.png"), im[0])
+            if b < 2:
+                write_png(os.path.join(two_dir, f"im{b}.png"), im[0])
+        src = os.path.join(img_dir, "im0.png")
+        for backend, version, enc_l, dec_l in (
+                ("host", 2, ({},), ({},)),
+                ("auto", 8, (ENCODE, CANARY), (DECODE, CANARY))):
+            coded = os.path.join(d, f"cli_{backend}.l3c")
+            back = os.path.join(d, f"cli_{backend}.png")
+            t0 = time.perf_counter()
+            counted(total, f"cli.l3c enc --codec_backend {backend}",
+                    lambda: run_cli(l3c_cli.main, [
+                        ZOO, LOG_DATE, "enc", src, coded, "--codec_backend",
+                        backend]), *enc_l)
+            t1 = time.perf_counter()
+            counted(total, f"cli.l3c dec of a v{version} file",
+                    lambda: run_cli(l3c_cli.main, [
+                        ZOO, LOG_DATE, "dec", coded, back]), *dec_l)
+            t2 = time.perf_counter()
+            with open(coded, "rb") as f:
+                head = f.read(5)
+            if head[4] != version or not np.array_equal(read_png(back),
+                                                        imgs[0][0]):
+                raise RuntimeError(f"cli.l3c --codec_backend {backend}: "
+                                   f"version {head[4]} or pixels wrong")
+            log(f"[host] cli.l3c enc --codec_backend {backend} -> format "
+                f"byte {version}, dec through the version dispatch: "
+                f"bit-exact, enc {1e3 * (t1 - t0):.0f} ms dec "
+                f"{1e3 * (t2 - t1):.0f} ms (checkpoint load included)")
+        out_dir, rep = os.path.join(d, "out"), os.path.join(d, "times.txt")
+        out = counted(total, "cli.test --write_to_files --codec_backend "
+                      "host", lambda: run_cli(test_cli.main, [
+                          ZOO, LOG_DATE, two_dir, "--write_to_files",
+                          out_dir, "--codec_backend", "host",
+                          "--time_report", rep, "--reset_cache"]), {})
+        sizes = []
+        for b in range(2):
+            with open(os.path.join(out_dir, f"im{b}.l3c"), "rb") as f:
+                blob = f.read()
+            if blob[4] != 2:
+                raise RuntimeError("cli.test --codec_backend host wrote "
+                                   f"format byte {blob[4]}")
+            sizes.append(len(blob))
+        shown = float(out.strip().splitlines()[-1].split()[-1])
+        file_bpsp = float(np.mean(sizes)) * 8 / imgs[0].size
+        if f"{file_bpsp:.4f}" != f"{shown:.4f}":
+            raise RuntimeError("cli.test --codec_backend host: the table "
+                               "does not show the files' bpsp")
+        log(f"[host] cli.test --write_to_files --codec_backend host: 2 "
+            f"files bit-exact (the tester's gate), file bpsp "
+            f"{file_bpsp:.6f}; time report "
+            f"{open(rep).read().strip().replace(chr(10), '; ')}")
+        # ---- phase baselines' cr_rgb through the host backend
+        root, date = cr_rgb
+        coded, back = os.path.join(d, "cr_rgb.l3c"), os.path.join(
+            d, "cr_rgb.png")
+        t0 = time.perf_counter()
+        counted(total, "cli.l3c enc --codec_backend host (cr_rgb)",
+                lambda: run_cli(l3c_cli.main, [root, date, "enc", src, coded,
+                                               "--codec_backend", "host"]),
+                {})
+        counted(total, "cli.l3c dec (cr_rgb, v1)", lambda: run_cli(
+            l3c_cli.main, [root, date, "dec", coded, back]), {})
+        if not np.array_equal(read_png(back), imgs[0][0]):
+            raise RuntimeError("cr_rgb v1 round trip is NOT bit-exact")
+        cli_s = time.perf_counter() - t0
+        tester = MultiscaleTester.from_log_dir(find_log_dir(root, date),
+                                               roots, use_cache=False)
+        bc = Bitcoding(tester.cfg, tester.net, device="cuda")
+        v1_round(bc, imgs[0], os.path.join(d, "cr_rgb_warm.l3c"))
+        bpsp, st = counted(total, "v1 round (cr_rgb)", lambda: v1_round(
+            bc, imgs[0], os.path.join(d, "cr_rgb_timed.l3c")), {})
+        if bpsp != os.path.getsize(coded) * 8 / imgs[0].size:
+            raise RuntimeError("cr_rgb: the CLI's v1 file differs in size")
+        fmt = lambda s: ", ".join(f"{k} {v:.1f}" for k, v in s.items())
+        log(f"[host] cr_rgb (phase baselines) v1 round of one {SZ}x{SZ} "
+            f"image bit-exact through cli.l3c ({cli_s:.1f} s with two "
+            f"checkpoint loads) and Bitcoding: file bpsp {bpsp:.6f} (unit 0 "
+            f"at L = 256 under UniformCoder) | enc ms: {fmt(st['enc'])} | "
+            f"dec ms: {fmt(st['dec'])} | {card} | host {cpu}")
+        del bc, tester
+        # ---- convert: r5b in the reference's .pt layout -> cli.convert
+        r5b = read_checkpoint(CKPT)["params"]
+        pt = os.path.join(d, "ckpt_0000246250.pt")
+        torch.save({"net": reference_state_dict(r5b, cfg)}, pt)
+        conv_root = os.path.join(d, "converted")
+        counted(total, "cli.convert", lambda: run_cli(convert_cli.main, [
+            pt, os.path.join(roots[0], "ms", "cr.cf"), conv_root]), {})
+        (name,) = os.listdir(conv_root)
+        got = _flatten(read_checkpoint(os.path.join(
+            conv_root, name, "ckpts", "ckpt_0000246250.ckpt"))["params"])
+        want = _flatten(r5b)
+        same = got.keys() == want.keys() and all(
+            got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+            and got[k].tobytes() == want[k].tobytes() for k in want)
+        if not same:
+            raise RuntimeError("the converted parameters differ from r5b's")
+        out = counted(total, "cli.test (converted r5b)", lambda: run_cli(
+            test_cli.main, [conv_root, name.split()[0], img_dir,
+                            "--reset_cache"]), THEORY)
+        shown = out.strip().splitlines()[-1].split()[-1]
+        zoo = MultiscaleTester.from_log_dir(
+            find_log_dir(ZOO, LOG_DATE), roots, use_cache=False).test(
+                Testset(img_dir)).mean_bpsp()
+        conv = MultiscaleTester.from_log_dir(
+            os.path.join(conv_root, name), roots, use_cache=False).test(
+                Testset(img_dir)).mean_bpsp()
+        rel = abs(conv - theory_bpsp) / theory_bpsp
+        log(f"[host] cli.convert of r5b in the reference's .pt layout "
+            f"({name}): {len(got)} leaves bitwise equal to r5b's; theory "
+            f"bpsp of the 8 images {conv:.6f} (table {shown}) = r5b's "
+            f"{zoo:.6f}: {conv == zoo}; vs phase forward {theory_bpsp:.6f} "
+            f"rel {rel:.2e}")
+        if conv != zoo or rel > 1e-5 or shown != f"{conv:.4f}":
+            raise RuntimeError("the converted r5b's theory bpsp differs")
+        # ---- SWA over phase train's resumed run
+        persistent = sorted(f for f in os.listdir(os.path.join(
+            resumed_dir, "ckpts")) if f.endswith(".ckpt"))
+        swa_dir = os.path.join(d, "swa", "0909_0909 cr oi_offline swa")
+        t0 = time.perf_counter()
+        counted(total, "tools.swa", lambda: run_cli(swa.main, [
+            resumed_dir, swa_dir, "--last", str(len(persistent))]), {})
+        swa_s = time.perf_counter() - t0
+        itr, sd = restore_params_only(swa_dir)
+        check = MultiscaleNetwork(cfg)
+        check.load_state_dict(sd, strict=True)
+        leaves = [_flatten(read_checkpoint(os.path.join(
+            resumed_dir, "ckpts", f))["params"]) for f in persistent]
+        key = "params.clf0.atrous.lin.kernel"
+        mean = (np.sum([lv[key].astype(np.float64) for lv in leaves], 0)
+                / len(leaves)).astype(np.float32)
+        if not np.array_equal(_flatten(read_checkpoint(os.path.join(
+                swa_dir, "ckpts", f"ckpt_{itr:010d}.ckpt"))["params"])[key],
+                mean):
+            raise RuntimeError("SWA's leaf is not the checkpoints' mean")
+        coded, back = os.path.join(d, "swa.l3c"), os.path.join(d, "swa.png")
+        root = os.path.dirname(swa_dir)
+        counted(total, "cli.l3c enc (SWA)", lambda: run_cli(
+            l3c_cli.main, [root, "0909", "enc", src, coded]), ENCODE, CANARY)
+        counted(total, "cli.l3c dec (SWA)", lambda: run_cli(
+            l3c_cli.main, [root, "0909", "dec", coded, back]), DECODE, CANARY)
+        if not np.array_equal(read_png(back), imgs[0][0]):
+            raise RuntimeError("the SWA checkpoint did not code bit-exactly")
+        log(f"[host] tools.swa over the resumed run's {len(persistent)} "
+            f"persistent checkpoints ({persistent[0]}..{persistent[-1]}) in "
+            f"{swa_s:.2f} s: restores strictly at itr {itr}; one {SZ}x{SZ} "
+            f"image through cli.l3c (v8) bit-exact, file bpsp "
+            f"{os.path.getsize(coded) * 8 / imgs[0].size:.6f}")
+        # ---- the classical anchor
+        out = counted(total, "cli.classic --no_png", lambda: run_cli(
+            classic_cli.main, ["--no_png", img_dir]), {})
+        log(f"[host] cli.classic --no_png over the {B} PNGs (each round trip "
+            f"asserted): {out.strip().split(': ', 1)[1]} | host {cpu}")
+    log(f"[host] launches on this phase, all calls: "
+        f"{ {k: v for k, v in total.items() if v} }")
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -2728,10 +3154,17 @@ def main() -> int:
     timed("sample", phase_sample, ZOO, LOG_DATE, imgs[:2], cfg, card, "r5b")
     timed("serve", phase_serve, cfg, net, imgs, card)
     timed("limits", phase_limits, cfg, card)
-    recs += timed("train", phase_train, net, cfg, card)
-    for rec in recs:
-        rec["cli_launches"] = cli_counts.get(rec["name"], 0)
-    recs += timed("baselines", phase_baselines, imgs, card)
+    with tempfile.TemporaryDirectory(prefix="l3c_keep_") as keep:
+        train_recs, resumed_dir = timed("train", phase_train, net, cfg, card,
+                                        keep)
+        recs += train_recs
+        for rec in recs:
+            rec["cli_launches"] = cli_counts.get(rec["name"], 0)
+        base_recs, cr_rgb = timed("baselines", phase_baselines, imgs, card,
+                                  keep)
+        recs += base_recs
+        timed("host", phase_host, cfg, net, imgs, theory, card, resumed_dir,
+              cr_rgb)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

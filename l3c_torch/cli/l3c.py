@@ -3,6 +3,8 @@
 Port of `l3c_tpu/cli/l3c.py`:
     python -m l3c_torch.cli.l3c LOG_DIR_ROOT LOG_DATE enc IMG.png OUT.l3c
     python -m l3c_torch.cli.l3c LOG_DIR_ROOT LOG_DATE dec IN.l3c OUT.png
+`--codec_backend host` encodes format v1 (rANS on the host); dec decodes
+either format, chosen by the file's version byte.
 Runs on the first CUDA card and raises when there is none; `--device cpu`
 runs the plain versions on the CPU. Images are 8-bit PNGs (data/images).
 """
@@ -31,8 +33,9 @@ def main(argv=None):
     p.add_argument("--config_roots", default=None)
     p.add_argument("--codec_backend", default="auto",
                    choices=["auto", "host"],
-                   help="entropy backend; 'host' (format v1) is not "
-                        "ported yet")
+                   help="entropy backend of enc: 'auto' (format v8, "
+                        "rANS on the card) or 'host' (format v1, rANS on "
+                        "the host); dec reads the format from the file")
     p.add_argument("--device", default=None,
                    help="torch device; default: the first CUDA card "
                         "(an error without one). 'cpu' on request")

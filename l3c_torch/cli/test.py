@@ -7,8 +7,9 @@ Port of `l3c_tpu/cli/test.py`:
         [--time_report PATH] [--compare_theory] [--sort_output ...]
         [--device cpu]
 Runs on the first CUDA card and raises when there is none; `--device cpu`
-runs the plain versions on the CPU. --fanout, --spatial_shard and the
-host codec backend are not ported yet and say so.
+runs the plain versions on the CPU. --codec_backend host codes format v1
+(rANS on the host). --fanout and --spatial_shard are not ported yet and
+say so.
 """
 from __future__ import annotations
 
@@ -54,8 +55,9 @@ def main(argv=None):
                    help="colon-separated roots to resolve .cf names")
     p.add_argument("--codec_backend", default="auto",
                    choices=["auto", "host"],
-                   help="entropy backend for --write_to_files; 'host' "
-                        "(format v1) is not ported yet")
+                   help="entropy backend for --write_to_files: 'auto' "
+                        "(format v8, rANS on the card) or 'host' (format "
+                        "v1, rANS on the host)")
     p.add_argument("--fanout", action="store_true", help="not ported yet")
     p.add_argument("--eval_batch", type=int, default=8,
                    help="--write_to_files: images per batched codec "

@@ -12,11 +12,13 @@ Port of `l3c_tpu/eval/tester.py` (the reference's multiscale_tester.py):
   interprocess file lock (TestOutputCache)
 - `recursive`: the RGB Shared baseline's last scale applied that many more
   times ("auto": 3 for a one-scale baseline, else 0) in the bpsp eval
-- sample: sampled reconstructions per image (the paper's Fig. 5).
+- sample: sampled reconstructions per image (the paper's Fig. 5)
+- codec_backend: 'auto' codes format v8 (TorchBitcoding), 'host' format v1
+  (codec.Bitcoding: the network on the device, rANS on the host);
+  decode_file picks the codec from the file's version byte.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
-the host codec backend (item 12), fan-out over several cards and spatial
-sharding (item 13).
+fan-out over several cards and spatial sharding (item 13).
 """
 from __future__ import annotations
 
@@ -29,8 +31,7 @@ import numpy as np
 import torch
 
 from .. import blueprint
-from ..codec import auto_crop
-from ..codec.bitcoding2 import TorchBitcoding
+from ..codec import HOST_BACKENDS, auto_crop, make_bitcoding, open_decoder
 from ..config import MsConfig, load_ms_config
 from ..data.images import Testset, image_size, load_image_uint8, write_png
 from ..device import DeviceLike, numerics_guard, resolve
@@ -41,8 +42,6 @@ from ..utils import pad as pad_mod
 from .timer import StackTimer
 
 NOT_PORTED = {
-    "host": "the host codec backend (format v1) is not ported yet: "
-            "ROADMAP.md item 12 (host v2 codec)",
     "fanout": "--fanout over several cards is not ported yet: ROADMAP.md "
               "item 13 (parallelism)",
     "spatial_shard": "--spatial_shard is not ported yet: ROADMAP.md item "
@@ -133,10 +132,9 @@ class MultiscaleTester:
         self.recursive = int(recursive)
         if spatial_shard:
             raise NotImplementedError(NOT_PORTED["spatial_shard"])
-        if codec_backend in ("host", "cpu", "v1"):
-            raise NotImplementedError(NOT_PORTED["host"])
-        if codec_backend != "auto":
+        if codec_backend != "auto" and codec_backend not in HOST_BACKENDS:
             raise ValueError(f"unknown codec backend {codec_backend!r}")
+        self.codec_backend = codec_backend
         self.device = resolve(device)
         numerics_guard()
         self.cfg = cfg
@@ -164,10 +162,12 @@ class MultiscaleTester:
         net.load_state_dict(state_dict, strict=True)
         return cls(cfg, net, log_dir=log_dir, restore_itr=itr, **kw)
 
-    def _bitcoding(self, coder_profile: Optional[str] = None
-                   ) -> TorchBitcoding:
-        return TorchBitcoding(self.cfg, self.net, device=self.device,
-                              coder_profile=coder_profile, times=self.times)
+    def _bitcoding(self, coder_profile: Optional[str] = None):
+        """The codec of `codec_backend`: TorchBitcoding (v8) or Bitcoding
+        (v1, which ignores the profile)."""
+        return make_bitcoding(self.cfg, self.net, self.codec_backend,
+                              device=self.device, times=self.times,
+                              coder_profile=coder_profile)
 
     # ------------------------------------------------------------- bpsp
 
@@ -232,8 +232,9 @@ class MultiscaleTester:
 
         Same-shape images are grouped (up to `group` at a time) through
         the codec's BATCHED encode/decode so the rANS kernels run wide
-        instead of once per image. Images above the auto-crop threshold
-        keep the single-image path. Grouped files record their group's
+        instead of once per image. Images above the auto-crop threshold,
+        and every image of the host backend, take the single-image
+        path. Grouped files record their group's
         fbatch in the header (the determinism contract), so a file coded
         in a group of 8 has slightly different — equally valid — bytes
         than one coded alone.
@@ -268,7 +269,8 @@ class MultiscaleTester:
             return pout
 
         for (h, w), paths in sorted(by_shape.items()):
-            if h * w > auto_crop.needs_crop_dim():
+            if (not hasattr(bc, "encode_batch")
+                    or h * w > auto_crop.needs_crop_dim()):
                 for p in paths:
                     self._roundtrip_single(bc, p, pout_of(p), result,
                                            compare_theory)
@@ -377,8 +379,12 @@ class MultiscaleTester:
         return bc.encode(img, out_path)
 
     def decode_file(self, in_path: str, out_png: str):
+        """Decode a v8 or v1 file (or its .partN set) with the codec its
+        version byte names, whatever codec_backend is."""
         parts = in_path
         if not os.path.exists(in_path) and os.path.exists(
                 in_path + ".part0"):
             parts = in_path + ".part0"
-        write_png(out_png, self._bitcoding().decode(parts)[0])
+        bc = open_decoder(parts, self.cfg, self.net, device=self.device,
+                          times=self.times)
+        write_png(out_png, bc.decode(parts)[0])

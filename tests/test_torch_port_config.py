@@ -57,10 +57,24 @@ def test_cr_cf_equals_jax_field_by_field():
 
 def test_the_port_keeps_its_own_copy_of_the_config_files():
     for rel in ("ms/cr.cf", "ms/cr_rgb.cf", "ms/cr_rgb_shared.cf",
-                "dl/oi_offline.cf"):
+                "dl/oi_offline.cf", "dl/oi.cf", "dl/in32.cf", "dl/in64.cf"):
         assert (open(os.path.join(T_CONFIGS, rel)).read()
                 == open(os.path.join(J_CONFIGS, rel)).read()), rel
     assert os.path.samefile(default_config_roots()[0], T_CONFIGS)
+
+
+@pytest.mark.parametrize("name", ["oi.cf", "in32.cf", "in64.cf",
+                                  "oi_offline.cf"])
+def test_dl_configs_parse_to_jax_values(name):
+    """Every data config the port ships loads field for field (types
+    included) as the JAX package's own copy does; in32/in64 inherit oi.cf
+    through `use`."""
+    t = _flat(tcfg.load_dl_config(os.path.join(T_CONFIGS, "dl", name)))
+    j = _flat(jcfg.load_dl_config(os.path.join(J_CONFIGS, "dl", name)))
+    assert t == j
+    for k in t:
+        assert type(t[k]) is type(j[k]), k
+    assert t["crop_size"] == {"in32.cf": 32, "in64.cf": 64}.get(name, 128)
 
 
 @pytest.mark.parametrize("overrides", [

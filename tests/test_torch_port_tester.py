@@ -450,10 +450,21 @@ def test_result_cache_and_lock(world, tmp_path):
     pytest.param(["--fanout", "--write_to_files", "out"], "item 13",
                  id="extra1-item 13"),
     pytest.param(["--spatial_shard"], "item 13", id="extra2-item 13"),
+    # item 12 (the host codec, format v1) is ported since: its case now
+    # holds that the option codes every image bit-exactly instead
     pytest.param(["--codec_backend", "host"], "item 12",
                  id="extra4-item 12"),
 ])
-def test_cli_options_not_ported_raise(world, extra, match):
+def test_cli_options_not_ported_raise(world, extra, match, tmp_path):
+    if match == "item 12":
+        out = tmp_path / "v1"
+        assert test_cli.main([world["logs"], "0102", world["imgs"]] + extra
+                             + ["--write_to_files", str(out)]
+                             + _cli_args(world)) == 0
+        files = sorted(os.listdir(out))
+        assert files and all(open(out / f, "rb").read(5)[4] == 2
+                             for f in files)          # format v1's byte
+        return
     with pytest.raises(NotImplementedError, match=match):
         test_cli.main([world["logs"], "0102", world["imgs"]] + extra
                       + _cli_args(world))
@@ -521,7 +532,7 @@ def test_entry_points_raise_without_a_card_or_a_runnable_config(world,
     with pytest.raises(ValueError, match="unknown codec backend"):
         MultiscaleTester(world["tt"].cfg, world["tt"].net, device="cpu",
                          codec_backend="tpu")
-    assert set(tester_mod.NOT_PORTED) == {"host", "fanout", "spatial_shard"}
+    assert set(tester_mod.NOT_PORTED) == {"fanout", "spatial_shard"}
 
 
 def test_timer_and_printer_equal_jax(monkeypatch):
