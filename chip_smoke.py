@@ -137,8 +137,33 @@ Phases (each raises on failure; none carries on after another failed):
               persistent checkpoints (restores, codes bit-exactly);
               cli.classic --no_png over the 8 PNGs (.medl bpsp, ms an
               image); the host CPU's model name beside every host time
- 13. report   one JSON line of kernel records (each with its path:
-              serving, train or baselines), the card line, then
+ 13. parallel the parallel paths (l3c_torch/parallel) on the one card,
+              two ranks or slots on it where a path has several, each
+              launch-counted: cli.train as one NCCL rank under the L3C_*
+              variables in a subprocess (phase train's first 5 losses and
+              its step-5 checkpoint bit for bit, DDP's wrapper and the
+              nccl backend recorded); two gloo ranks on the card
+              (parallel.spawn) training r5b 3 steps at lr 5e-6 on 8 of the
+              same 16 x 128^2 crops each, against the single-process
+              Trainer on all 16 (loss 1e-5 relative, parameters rtol 2e-4
+              / atol 2e-6, the ranks' replicas equal, 3 + 3 K6 launches a
+              rank a step); CodecFanout over two slots on 16 x 512^2
+              (bench_images' 8 and 8 from seed 1), decoded on the slots
+              rotated: bit-exact, each file byte-identical to one codec's,
+              8 x K3 / 18 x K4 / 12 x K5 and no plain row/lookup/pack on
+              the card, both slots used, mixed cpu + cuda slots refused,
+              its MP/s beside phase codec's; eval_testset_sharded over two
+              slots (the 8, and a ragged 3) within 1e-5 of the per-image
+              mean; spatial_bpsp of a 2048 x 512 image in two slabs against
+              one at halo 512 (1e-4; halo 1024 on 4096 x 512 if that
+              misses), the gap to the unsharded forward at halos 128, 256
+              and 512 and each run's time; cli.test --spatial_shard (rtol
+              0.05 of auto-crop, the tester's cache engaged) and cli.test
+              --write_to_files --fanout (bit-exact, the files of the run
+              without --fanout) with two slots
+ 14. report   one JSON line of kernel records (each with its path:
+              serving, train or baselines, and its launches in phase cli
+              and phase parallel), the card line, then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
@@ -314,16 +339,18 @@ def bound(bytes_moved: float, ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def bench_images():
+def bench_images(seed=0, n=None, H=None, W=None):
     """bench.py's recipe: gradient base + noise, seed 0, the first draw
-    being bench.py's single warm-up image."""
-    rng = np.random.RandomState(0)
-    yy, xx = np.mgrid[0:SZ, 0:SZ]
+    being bench.py's single warm-up image; B images of SZ x SZ unless other
+    seeds, counts and sizes are asked for (phase parallel)."""
+    rng = np.random.RandomState(seed)
+    n, H, W = n or B, H or SZ, W or SZ
+    yy, xx = np.mgrid[0:H, 0:W]
     base = np.stack([yy % 256, xx % 256, (yy + xx) % 256], -1)
     draw = lambda: np.clip(base + rng.randint(-8, 8, base.shape), 0,
                            255).astype(np.uint8)[None]
     draw()
-    return [draw() for _ in range(B)]
+    return [draw() for _ in range(n)]
 
 
 def phase_device():
@@ -2061,6 +2088,7 @@ def phase_train(net, cfg, card, keep):
             raise RuntimeError("the resumed run did not train through K6 "
                                "alone")
         losses = seen["losses"]
+        resumed_losses = list(losses)
         rel = abs(losses[0] - loss_eval) / loss_eval
         log(f"[train] resumed r5b: lr {seen['lr']:.3e}; first step loss_bpsp "
             f"{losses[0]:.7f} vs the eval forward's loss_pc {loss_eval:.7f} "
@@ -2208,7 +2236,7 @@ def phase_train(net, cfg, card, keep):
     record = make_recorder(recs, resumed, "train")
     for args in pending:
         record(*args)
-    return recs, resumed_dir
+    return recs, resumed_dir, resumed_losses
 
 
 # ------------------------------------------------------------- baselines
@@ -3117,6 +3145,405 @@ def phase_host(cfg, net, imgs, theory_bpsp, card, resumed_dir, cr_rgb):
         f"{ {k: v for k, v in total.items() if v} }")
 
 
+# ------------------------------------------------------------- parallel
+
+# phase parallel: steps of the world-1 NCCL rank (phase train's resumed
+# float32 recipe) and of the two gloo ranks (r5b at its final lr); the
+# spatial image's height and halo, the second pair run only when the first
+# misses the gate (r5b's receptive field would then exceed 512 rows); the
+# halos whose gap to the unsharded forward is printed beside
+PAR_STEPS_W1, PAR_STEPS_W2, PAR_LR_W2 = 5, 3, 5e-6
+PAR_SPATIAL = ((2048, 512), (4096, 1024))
+PAR_HALOS = (128, 256)
+PAR_STEP = {"dmll_nll": 3, "dmll_nll_grad": 3}
+# the world-1 rank: cli.train with its train_step recorded (loss, host ms
+# around a synchronised step, the rank's world, wrapper and backend), the
+# kernel launches of the run, all written to the JSON file argv[1] names
+DDP_CHILD = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+from l3c_torch.cli import train as train_cli
+from l3c_torch.ops import kernels
+from l3c_torch.train.trainer import Trainer
+seen = {"losses": [], "ms": []}
+step = Trainer.train_step
+def run(self, batch):
+    if self.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(self, batch)
+    seen["losses"].append(float(m["loss_bpsp"]))
+    seen["ms"].append((time.perf_counter() - t0) * 1e3)
+    seen.update(world=self.world, ddp=type(self._dp).__name__,
+                backend=dist.get_backend())
+    return m
+Trainer.train_step = run
+kernels.reset_launches()
+rc = train_cli.main(sys.argv[2:])
+seen["launches"] = dict(kernels.launches)
+with open(sys.argv[1], "w") as f:
+    json.dump(seen, f)
+sys.exit(rc)
+"""
+
+
+def flat_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in flat_leaves(tree[k], f"{path}/{k}")]
+    return [(path, np.asarray(tree))]
+
+
+def within(got, want, rtol, atol) -> Tuple[bool, float]:
+    """(every leaf within atol + rtol |want|, the largest |got - want|)."""
+    ok, worst = True, 0.0
+    for (pa, a), (pb, b) in zip(flat_leaves(got), flat_leaves(want)):
+        if pa != pb or a.shape != b.shape:
+            return False, math.inf
+        d = np.abs(a.astype(np.float64) - b)
+        ok = ok and bool((d <= atol + rtol * np.abs(b)).all())
+        worst = max(worst, float(d.max()))
+    return ok, worst
+
+
+def phase_parallel(cfg, net, bc, imgs, round_ms, card, resumed_dir,
+                   resumed_losses, dev="cuda:0"):
+    """The parallel paths (l3c_torch/parallel) on one card, two slots or
+    ranks on it where a path has several: cli.train as one NCCL rank under
+    the L3C_* variables (phase train's losses bit for bit, its checkpoint);
+    two gloo ranks on one card against the single-process Trainer (JAX's DP
+    tolerances, 3 + 3 K6 launches a rank a step); CodecFanout over two
+    slots (bit-exact, each file byte-identical to bc's, exact launches,
+    none of the plain versions on the card; mixed device kinds refused);
+    eval_testset_sharded (8 images and a ragged 3) against the per-image
+    single-device mean; spatial_bpsp with two slabs against one; cli.test
+    --spatial_shard and --write_to_files --fanout with two slots. Returns
+    the launches of the phase's runs by kernel."""
+    from l3c_torch.data.images import TrainBatches
+    from l3c_torch.models.weights import params_to_jax, read_checkpoint
+    from l3c_torch.parallel import fanout, mesh, spatial
+    from l3c_torch.train.trainer import Trainer
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    slots = [torch.device(dev)] * 2
+    ms_cf = os.path.join(l3c_cli.default_config_roots()[0], "ms", "cr.cf")
+    dl_cf = os.path.join(l3c_cli.default_config_roots()[0], "dl",
+                         "oi_offline.cf")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="l3c_par_") as d:
+        # ---- DDP, world 1 over NCCL: cli.train in a subprocess, this
+        # process the coordinator's host
+        train_dir, val_dir = train_pngs(d)
+        root = os.path.join(d, "logs")
+        os.makedirs(root)
+        zoo_dir = os.path.dirname(os.path.dirname(CKPT))
+        os.symlink(zoo_dir, os.path.join(root, os.path.basename(zoo_dir)))
+        argv = [ms_cf, dl_cf, root, "-p", f"dl.train_imgs_glob='{train_dir}'",
+                "-p", f"dl.val_glob='{val_dir}'", "-p",
+                "dl.image_cache_pkl=None", "-p", "lr.schedule='none'",
+                "--restore", LOG_DATE, "--num_itr", str(PAR_STEPS_W1),
+                "--log_train", "1", "--log_val", "0", "--keep_tmp_itr",
+                str(PAR_STEPS_W1), "--keep_every", "1"]
+        if not cuda:
+            argv += ["--device", "cpu"]
+        got_json = os.path.join(d, "w1.json")
+        env = dict(os.environ, L3C_NUM_PROCS="1", L3C_PROC_ID="0",
+                   L3C_COORDINATOR=f"127.0.0.1:{mesh.free_port()}")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", DDP_CHILD, got_json,
+                              *argv], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        w1_s = time.perf_counter() - t0
+        for line in run.stdout.splitlines():
+            log(f"[parallel]   w1 | {line}")
+        if run.returncode:
+            log(run.stderr[-6000:])
+            raise RuntimeError(f"the world-1 rank exited {run.returncode}")
+        with open(got_json) as f:
+            w1 = json.load(f)
+        end = 246250 + PAR_STEPS_W1
+        name = f"ckpt_{end:010d}.ckpt"
+        (new,) = [n for n in os.listdir(root) if not n.startswith(LOG_DATE)]
+        ddp_ck = read_checkpoint(os.path.join(root, new, "ckpts", name))
+        one_ck = read_checkpoint(os.path.join(resumed_dir, "ckpts", name))
+        names_eq = ([p for p, _ in flat_leaves(ddp_ck)]
+                    == [p for p, _ in flat_leaves(one_ck)])
+        n_diff = sum(not np.array_equal(a, b) for (_, a), (_, b) in zip(
+            flat_leaves(ddp_ck), flat_leaves(one_ck)))
+        want = {k: PAR_STEPS_W1 * v for k, v in PAR_STEP.items()}
+        launches = {k: v for k, v in w1["launches"].items() if v}
+        log(f"[parallel] DDP world 1 ({w1['ddp']}, backend {w1['backend']},"
+            f" world {w1['world']}): cli.train under L3C_* resumed r5b "
+            f"{PAR_STEPS_W1} steps in {w1_s:.1f} s: losses {w1['losses']} vs "
+            f"phase train's {resumed_losses[:PAR_STEPS_W1]} (equal: "
+            f"{w1['losses'] == resumed_losses[:PAR_STEPS_W1]}); step ms "
+            f"{[round(v, 2) for v in w1['ms']]}; {name}: leaf names equal "
+            f"{names_eq}, {n_diff} leaves differ from phase train's; "
+            f"launches {launches} (expected {want}) | {card}")
+        if (w1["world"], w1["ddp"], w1["backend"]) != (
+                1, "DistributedDataParallel", mesh.backend_for(dev)):
+            raise RuntimeError("the world-1 run did not train under DDP")
+        if w1["losses"] != resumed_losses[:PAR_STEPS_W1]:
+            raise RuntimeError("world-1 DDP losses differ from phase train's")
+        if not names_eq or n_diff or launches != want:
+            raise RuntimeError("world-1 DDP checkpoint or launches wrong")
+        add(launches)
+
+        # ---- DDP, world 2 over gloo, both ranks on one card, against the
+        # single-process Trainer on the whole batch
+        dl = load_dl_config(dl_cf)
+        tb = TrainBatches(sorted(os.path.join(train_dir, f)
+                                 for f in os.listdir(train_dir)),
+                          dl.batchsize_train, dl.crop_size, seed=0,
+                          aug_strong=dl.aug_strong)
+        it = iter(tb)
+        batches = [next(it) for _ in range(PAR_STEPS_W2)]
+        tb.close()
+        cfg2 = dataclasses.replace(cfg, lr_initial=PAR_LR_W2,
+                                   lr_schedule="none")
+        state = read_checkpoint(CKPT)
+        ref = Trainer(cfg2, dl, MultiscaleNetwork(cfg2), [], epoch_len=10,
+                      device=dev)
+        ref.load_state_tree(state)
+        ref_losses, ref_params, ref_ms = [], [], []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            ref_losses.append(float(ref.train_step(b)["loss_bpsp"]))
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            ref_params.append(params_to_jax(
+                {k: v.clone() for k, v in ref.net.state_dict().items()}))
+        del ref
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(mesh.train_steps, 2, "gloo", slots,
+                           (cfg2, dl, state, batches), timeout=600)
+        w2_s = time.perf_counter() - t0
+        want = {k: PAR_STEPS_W2 * v for k, v in PAR_STEP.items()}
+        worst, bad = 0.0, []
+        for r, rk in enumerate(ranks):
+            launches = {k: v for k, v in rk["launches"].items() if v}
+            if launches != want:
+                bad.append(f"rank {r} launched {launches}")
+            add(launches)
+            for s_, (lo, want_lo) in enumerate(zip(rk["losses"],
+                                                   ref_losses)):
+                if abs(lo - want_lo) > 1e-5 * abs(want_lo):
+                    bad.append(f"rank {r} step {s_} loss {lo} vs {want_lo}")
+            for s_, (p, want_p) in enumerate(zip(rk["params"], ref_params)):
+                ok, w = within(p, want_p, 2e-4, 2e-6)
+                worst = max(worst, w)
+                if not ok:
+                    bad.append(f"rank {r} step {s_}: parameters beyond "
+                               f"rtol 2e-4 / atol 2e-6 (max |diff| {w:.3e})")
+        same = all(np.array_equal(a, b) for p0, p1 in zip(
+            ranks[0]["params"], ranks[1]["params"]) for (_, a), (_, b) in zip(
+                flat_leaves(p0), flat_leaves(p1)))
+        log(f"[parallel] DDP world 2 (gloo, both ranks on {dev}), r5b at lr "
+            f"{PAR_LR_W2:g}, {PAR_STEPS_W2} steps of {dl.batchsize_train} x "
+            f"{dl.crop_size}^2 in {w2_s:.1f} s: losses "
+            f"{ranks[0]['losses']} vs the single process's {ref_losses}; "
+            f"parameters' max |diff| {worst:.3e}; the ranks' replicas equal: "
+            f"{same}; step ms rank 0 {[round(v, 2) for v in ranks[0]['ms']]}"
+            f" rank 1 {[round(v, 2) for v in ranks[1]['ms']]} single process "
+            f"{[round(v, 2) for v in ref_ms]} | {card}")
+        if bad or not same:
+            raise RuntimeError(f"world-2 DDP: {bad or 'replicas differ'}")
+        del ranks, ref_params, state
+
+        # ---- the codec fan-out: two slots, 16 images, groups of B
+        imgs16 = list(imgs) + bench_images(seed=1)
+        fo = fanout.CodecFanout(cfg, net, slots, group=B,
+                                coder_profile="balanced", coder_topk=4)
+        rot = fanout.CodecFanout(cfg, net, slots[1:] + slots[:1], group=B,
+                                 coder_profile="balanced", coder_topk=4)
+        used = set()
+        for tag, f, meth in (("enc", fo, "encode_batch_async"),
+                             ("dec", rot, "decode_batch_async")):
+            for k, c in enumerate(f.codecs):
+                c.canary(c.coder_topk)       # headers' canaries: not counted
+                setattr(c, meth, lambda *a, _o=getattr(c, meth), _k=(tag, k):
+                        (used.add(_k), _o(*a))[1])
+        paths = [os.path.join(d, f"fan{i}.l3c") for i in range(len(imgs16))]
+        plain_calls = {name: 0 for name in INT_CODER_ROWS + PLAIN_PACK}
+        restore = count_cuda_calls(int_coder, INT_CODER_ROWS + PLAIN_PACK,
+                                   plain_calls)
+        try:
+            kernels.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            bpsps = fo.encode_paths(imgs16, paths)
+            t1 = time.perf_counter()
+            outs = rot.decode_paths(paths)
+            sync()
+            t2 = time.perf_counter()
+            fan = {k: v for k, v in kernels.launches.items() if v}
+        finally:
+            restore()
+        add(fan)
+        exact = all(np.array_equal(o, im) for o, im in zip(outs, imgs16))
+        same_files = True
+        for g in range(len(imgs16) // B):
+            one = [os.path.join(d, f"one{g}_{b}.l3c") for b in range(B)]
+            bc.encode_batch(imgs16[g * B: (g + 1) * B], one)
+            same_files &= all(
+                open(a, "rb").read() == open(paths[g * B + b], "rb").read()
+                for b, a in enumerate(one))
+        try:
+            fanout.CodecFanout(cfg, net, ["cpu", "cuda:0"])
+            mixed = "accepted"
+        except ValueError as e:
+            mixed = f"refused ({e})"
+        n_groups = len(imgs16) // B          # an encode and a decode each
+        want = {k: n_groups * (ENCODE.get(k, 0) + DECODE.get(k, 0))
+                for k in {**ENCODE, **DECODE}}
+        mp16 = len(imgs16) * SZ * SZ / 1e6
+        log(f"[parallel] fan-out over 2 slots on {dev}, {len(imgs16)} x "
+            f"{SZ}^2 in groups of {B} (balanced, top-4): bit-exact {exact}, "
+            f"files byte-identical to one codec's {same_files}, slots used "
+            f"{sorted(used)}; launches {fan} (expected {want}); plain "
+            f"row/lookup/pack calls on CUDA tensors {plain_calls}; enc "
+            f"{(t1 - t0) * 1e3:.1f} ms dec {(t2 - t1) * 1e3:.1f} ms = "
+            f"{mp16 / (t2 - t0):.3f} MP/s enc+dec (phase codec's synchronous"
+            f" round {B * SZ * SZ / 1e6 / (round_ms / 1e3):.3f} MP/s); "
+            f"mean file bpsp {np.mean(bpsps):.6f}; mixed cpu + cuda:0 slots "
+            f"{mixed} | {card}")
+        if not (exact and same_files) or fan != want or \
+                any(plain_calls.values()) or mixed == "accepted" or \
+                used != {(t, k) for t in ("enc", "dec") for k in (0, 1)}:
+            raise RuntimeError("the codec fan-out failed its gates")
+        del fo, rot
+
+        # ---- sharded eval: the 8 and a ragged 3 (the seed-1 images)
+        with torch.inference_mode():
+            singles = []
+            for im in imgs16[:B + 3]:
+                out = net(torch.from_numpy(im).to(dev).float())
+                singles.append(float(blueprint.total_bpsp(
+                    blueprint.compute_loss(cfg, out))))
+        for label, crops, want_b in (
+                (f"{B} images", [im[0] for im in imgs16[:B]],
+                 np.mean(singles[:B])),
+                ("a ragged 3", [im[0] for im in imgs16[B:B + 3]],
+                 np.mean(singles[B:]))):
+            n_fwd = 2 * math.ceil(len(crops) / 2)     # dummies run too
+            got = counted(total, f"eval_testset_sharded, {label}",
+                          lambda: fanout.eval_testset_sharded(
+                              cfg, net, slots, crops),
+                          {"dmll_nll": cfg.num_scales * n_fwd})
+            rel = abs(got - want_b) / want_b
+            log(f"[parallel] eval_testset_sharded over 2 slots, {label}: "
+                f"{got:.7f} vs the per-image single-device mean "
+                f"{want_b:.7f} (rel {rel:.2e})")
+            if rel > 1e-5:
+                raise RuntimeError("sharded eval differs from the per-image "
+                                   "mean")
+
+        # ---- spatial: two slabs against one, the same halo
+        fwd = {"dmll_nll": cfg.num_scales}
+        for H, halo in PAR_SPATIAL:
+            img = bench_images(seed=2, n=1, H=H)[0]
+            two = counted(total, f"spatial_bpsp 2 slabs, halo {halo}",
+                          lambda: spatial.spatial_bpsp(cfg, net, slots, img,
+                                                       halo), fwd, fwd)
+            one = counted(total, f"spatial_bpsp 1 slab, halo {halo}",
+                          lambda: spatial.spatial_bpsp(cfg, net, slots[:1],
+                                                       img, halo), fwd)
+            rel = abs(two - one) / one
+            log(f"[parallel] spatial {H}x{SZ}, halo {halo}: 2 slabs "
+                f"{two:.7f} vs 1 slab {one:.7f} (rel {rel:.2e})")
+            if rel <= 1e-4:
+                break
+            log(f"[parallel] FINDING: at halo {halo} two slabs miss one "
+                f"slab's bpsp by {rel:.2e} > 1e-4: r5b's receptive field "
+                f"exceeds {halo} rows")
+        else:
+            raise RuntimeError("spatial sharding: two slabs differ from one "
+                               "at every halo tried")
+        with torch.inference_mode():
+            full = float(blueprint.total_bpsp(blueprint.compute_loss(
+                cfg, net(torch.from_numpy(img).to(dev).float()))))
+        for h in sorted(set(PAR_HALOS + (halo,))):
+            spatial.spatial_bpsp(cfg, net, slots, img, h)   # cuDNN's first
+            sync()
+            t0 = time.perf_counter()
+            b = spatial.spatial_bpsp(cfg, net, slots, img, h)
+            t_ms = (time.perf_counter() - t0) * 1e3
+            log(f"[parallel] spatial {H}x{SZ} over 2 slabs, halo {h}: "
+                f"{b:.7f}, {100 * (b / full - 1):+.4f} % against the "
+                f"unsharded forward's {full:.7f}; {t_ms:.1f} ms (warm) | "
+                f"{card}")
+
+        # ---- the CLIs with two slots on the card
+        cli_dir, img_dir = os.path.join(d, "cli"), os.path.join(d, "imgs8")
+        os.makedirs(cli_dir)
+        os.makedirs(img_dir)
+        big = bench_images(seed=2, n=1, H=2 * SZ)[0][0]
+        write_png(os.path.join(cli_dir, "big.png"), big)
+        write_png(os.path.join(cli_dir, "im0.png"), imgs[0][0])
+        for b, im in enumerate(imgs):
+            write_png(os.path.join(img_dir, f"im{b}.png"), im[0])
+        cache_keys = []
+
+        def record_cache(orig):
+            def run_(self, img_):
+                out_ = orig(self, img_)
+                cache_keys.append(sorted(self._spatial_cache))
+                return out_
+            return run_
+
+        old = os.environ.get("AC_NEEDS_CROP_DIM")
+        os.environ["AC_NEEDS_CROP_DIM"] = f"{SZ},{SZ}"   # big.png needs it
+        try:
+            with patched(mesh, "local_devices",
+                         lambda orig: lambda device=None: slots), \
+                    patched(MultiscaleTester, "_spatial_bpsp", record_cache):
+                S = cfg.num_scales
+                sp = counted(total, "cli.test --spatial_shard", lambda: run_cli(
+                    test_cli.main, [ZOO, LOG_DATE, cli_dir, "--reset_cache",
+                                    "--spatial_shard"]),
+                    {"dmll_nll": 2 * S + S})
+                ac = counted(total, "cli.test (auto-crop)", lambda: run_cli(
+                    test_cli.main, [ZOO, LOG_DATE, cli_dir, "--reset_cache"]),
+                    {"dmll_nll": 4 * S + S})
+                outs = {}
+                for tag, extra, canaries in (("plain", [], [CANARY]),
+                                             ("fan", ["--fanout"],
+                                              [CANARY, CANARY])):
+                    out_dir = os.path.join(d, f"w2f_{tag}")
+                    counted(total, f"cli.test --write_to_files {' '.join(extra)}",
+                            lambda: run_cli(test_cli.main, [
+                                ZOO, LOG_DATE, img_dir, "--write_to_files",
+                                out_dir, "--eval_batch", str(B // 2),
+                                "--reset_cache", *extra]),
+                            ENCODE, ENCODE, DECODE, DECODE, *canaries)
+                    outs[tag] = [open(os.path.join(out_dir, f"im{b}.l3c"),
+                                      "rb").read() for b in range(B)]
+        finally:
+            if old is None:
+                os.environ.pop("AC_NEEDS_CROP_DIM")
+            else:
+                os.environ["AC_NEEDS_CROP_DIM"] = old
+        b_sp = float(sp.strip().splitlines()[-1].split()[-1])
+        b_ac = float(ac.strip().splitlines()[-1].split()[-1])
+        log(f"[parallel] cli.test --spatial_shard over 2 slots: {b_sp:.4f} "
+            f"vs auto-crop {b_ac:.4f} (rel {abs(b_sp - b_ac) / b_ac:.2e}); "
+            f"the tester's cache {cache_keys}; cli.test --write_to_files "
+            f"--fanout (groups of {B // 2} over 2 slots): bit-exact, files "
+            f"byte-identical to the run without --fanout "
+            f"{outs['fan'] == outs['plain']}")
+        if abs(b_sp - b_ac) > 0.05 * b_ac or cache_keys != [[(2 * SZ, SZ)]] \
+                or outs["fan"] != outs["plain"]:
+            raise RuntimeError("the CLIs' parallel paths failed their gates")
+    log(f"[parallel] launches in this phase, all runs: {total}")
+    return total
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -3155,8 +3582,8 @@ def main() -> int:
     timed("serve", phase_serve, cfg, net, imgs, card)
     timed("limits", phase_limits, cfg, card)
     with tempfile.TemporaryDirectory(prefix="l3c_keep_") as keep:
-        train_recs, resumed_dir = timed("train", phase_train, net, cfg, card,
-                                        keep)
+        train_recs, resumed_dir, resumed_losses = timed(
+            "train", phase_train, net, cfg, card, keep)
         recs += train_recs
         for rec in recs:
             rec["cli_launches"] = cli_counts.get(rec["name"], 0)
@@ -3165,6 +3592,12 @@ def main() -> int:
         recs += base_recs
         timed("host", phase_host, cfg, net, imgs, theory, card, resumed_dir,
               cr_rgb)
+        bc = TorchBitcoding(cfg, net, device="cuda", coder_profile="balanced",
+                            coder_topk=4)
+        par_counts = timed("parallel", phase_parallel, cfg, net, bc, imgs,
+                           round_ms, card, resumed_dir, resumed_losses)
+        for rec in recs:
+            rec["parallel_launches"] = par_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

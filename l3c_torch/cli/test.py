@@ -5,11 +5,11 @@ Port of `l3c_tpu/cli/test.py`:
         [--names ...] [--restore_itr ...] [--write_to_files OUT]
         [--sample OUT] [--max_imgs_per_folder N] [--recursive N|auto]
         [--time_report PATH] [--compare_theory] [--sort_output ...]
-        [--device cpu]
+        [--spatial_shard] [--fanout] [--device cpu]
 Runs on the first CUDA card and raises when there is none; `--device cpu`
 runs the plain versions on the CPU. --codec_backend host codes format v1
-(rANS on the host). --fanout and --spatial_shard are not ported yet and
-say so.
+(rANS on the host). --spatial_shard and --fanout use every card of the
+host (parallel/); on one card they take the single-device paths.
 """
 from __future__ import annotations
 
@@ -50,7 +50,10 @@ def main(argv=None):
                         "iteration, or result")
     p.add_argument("--reset_cache", action="store_true")
     p.add_argument("--spatial_shard", action="store_true",
-                   help="not ported yet")
+                   help="evaluate above-auto-crop-threshold images by "
+                        "height-sharding over the device mesh (ICI halo "
+                        "exchange) instead of independent auto-crop "
+                        "tiles; needs >1 device")
     p.add_argument("--config_roots", default=None,
                    help="colon-separated roots to resolve .cf names")
     p.add_argument("--codec_backend", default="auto",
@@ -58,7 +61,11 @@ def main(argv=None):
                    help="entropy backend for --write_to_files: 'auto' "
                         "(format v8, rANS on the card) or 'host' (format "
                         "v1, rANS on the host)")
-    p.add_argument("--fanout", action="store_true", help="not ported yet")
+    p.add_argument("--fanout", action="store_true",
+                   help="--write_to_files: round-robin same-shape image "
+                        "groups across all mesh devices (one codec "
+                        "instance per chip; degenerates to the single-"
+                        "device batched path on one chip)")
     p.add_argument("--eval_batch", type=int, default=8,
                    help="--write_to_files: images per batched codec "
                         "group (same-shape images are coded together)")
@@ -68,12 +75,9 @@ def main(argv=None):
     flags = p.parse_args(argv)
 
     from ..data.images import Testset
-    from ..eval.tester import NOT_PORTED, MultiscaleTester
+    from ..eval.tester import MultiscaleTester
     from ..utils import logdir as logdir_mod
     from ..utils.printer import AlignedPrinter
-
-    if flags.fanout:
-        raise NotImplementedError(NOT_PORTED["fanout"])
 
     config_roots = (flags.config_roots.split(":") if flags.config_roots
                     else default_config_roots())
@@ -107,7 +111,7 @@ def main(argv=None):
                         ts, flags.write_to_files,
                         time_report=flags.time_report,
                         compare_theory=flags.compare_theory,
-                        group=flags.eval_batch)
+                        group=flags.eval_batch, fanout=flags.fanout)
                 else:
                     res = tester.test(ts)
                 rows.append((os.path.basename(log_dir),

@@ -7,8 +7,13 @@ Port of `l3c_tpu/cli/train.py`:
 The same flags and behaviour; the checkpoints are the JAX package's
 format, and each package restores the other's. Runs on the first CUDA
 card and raises when there is none; `--device cpu` runs the plain
-versions on the CPU. Not ported: training on more than one device
-(ROADMAP.md item 13), which raises.
+versions on the CPU.
+
+Data-parallel (DDP, one process a card; parallel/mesh.py): with
+L3C_COORDINATOR=host:port, L3C_NUM_PROCS and L3C_PROC_ID set, this
+process is that rank (nccl on CUDA, gloo with --device cpu); without them
+and with more than one card, it starts one rank a card on localhost.
+Rank 0 creates the log dir, saves and logs.
 """
 from __future__ import annotations
 
@@ -52,13 +57,38 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; default: the first CUDA card "
                         "(an error without one). 'cpu' on request")
+    argv = sys.argv[1:] if argv is None else list(argv)
     flags = p.parse_args(argv)
-    if os.environ.get("L3C_COORDINATOR"):
-        raise NotImplementedError(
-            "training over several processes or cards is not ported yet: "
-            "ROADMAP.md item 13")
 
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import mesh
+
+    joined = mesh.maybe_init_distributed(flags.device)
+    if (not dist.is_initialized() and flags.device is None
+            and torch.cuda.device_count() > 1):
+        n = torch.cuda.device_count()     # rank 0 says so
+        mesh.spawn(_rank_main, n, "nccl",
+                   [torch.device("cuda", i) for i in range(n)], (argv,))
+        return 0
+    try:
+        return _train(flags)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _rank_main(rank, world, device, argv):
+    """One rank of a data-parallel run that `mesh.spawn` started."""
+    if main(argv):
+        raise RuntimeError(f"rank {rank} of {world} failed")
+
+
+def _train(flags) -> int:
     import numpy as np
+    import torch
+    import torch.distributed as dist
 
     from .. import config as config_mod
     from ..data.images import ImagesCached, TrainBatches, load_image_uint8
@@ -78,17 +108,24 @@ def main(argv=None):
     dl = config_mod.load_dl_config(flags.dl_config_p, dl_over)
     device = resolve(flags.device)
     numerics_guard()      # float32 convolutions (no TF32), deterministic
+    world = dist.get_world_size() if dist.is_initialized() else None
+    rank = dist.get_rank() if world else 0
+    if world and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    print_ = print if rank == 0 else (lambda *a, **k: None)
+    if world and world > 1:
+        print_(f"data-parallel over {world} devices")
 
     train_paths = ImagesCached(dl.train_imgs_glob,
                                dl.image_cache_pkl).paths()
     val_paths = ImagesCached(dl.val_glob, dl.image_cache_pkl,
                              dl.val_glob_min_size).paths()
-    print(f"{len(train_paths)} train / {len(val_paths)} val images")
+    print_(f"{len(train_paths)} train / {len(val_paths)} val images")
     if dl.real_oversample > 1:
         real = [q for q in train_paths
                 if not os.path.basename(q).startswith("x_synth")]
         train_paths = train_paths + real * (dl.real_oversample - 1)
-        print(f"real_oversample={dl.real_oversample}: {len(real)} real "
+        print_(f"real_oversample={dl.real_oversample}: {len(real)} real "
               f"tiles -> {len(train_paths)} sampled paths "
               f"({len(real) * dl.real_oversample / len(train_paths):.0%}"
               " real)")
@@ -120,7 +157,7 @@ def main(argv=None):
             if crop.shape[:2] == (ch, cw):
                 val_batches[0] = val_batches[0].copy()
                 val_batches[0][0] = crop
-                print(f"pinned fixed first val image: {fixed}")
+                print_(f"pinned fixed first val image: {fixed}")
 
         restore_dir = None
         if flags.restore:
@@ -128,17 +165,23 @@ def main(argv=None):
                                                   flags.restore)
         if flags.restore_continue and restore_dir:
             log_dir = restore_dir
-        else:
+        elif rank == 0:
             log_dir = logdir_mod.create_unique_log_dir(
                 flags.log_dir_root, [flags.ms_config_p, flags.dl_config_p],
                 postfix=[flags.postfix] if flags.postfix else None,
                 restore_dir=restore_dir)
-        print(f"log dir: {log_dir}")
+        if world:      # every rank saves on rank 0's schedule into its dir
+            shared = [log_dir if rank == 0 else None]
+            dist.broadcast_object_list(shared, src=0)
+            log_dir = shared[0]
+        print_(f"log dir: {log_dir}")
 
-        sw = SafeWriter(log_dir)  # no-ops if tensorboard is unavailable
+        # rank 0 writes the summaries; SafeWriter no-ops without tensorboard
+        sw = SafeWriter(log_dir) if rank == 0 else None
         trainer = Trainer(cfg, dl, MultiscaleNetwork(cfg), batches,
                           val_batches=val_batches, epoch_len=batches.epoch_len,
-                          seed=flags.seed, summary_writer=sw, device=device)
+                          seed=flags.seed, summary_writer=sw, device=device,
+                          world=world)
         trainer.saver = Saver(log_dir, flags.keep_tmp_itr, flags.keep_every,
                               flags.keep_tmp_last)
 
@@ -146,12 +189,12 @@ def main(argv=None):
             got = trainer.restore(Restorer(restore_dir), flags.restore_itr,
                                   restart=flags.restore_restart,
                                   strict=flags.restore_strict == "1")
-            print(f"restored itr {got} from {restore_dir}")
+            print_(f"restored itr {got} from {restore_dir}")
 
         if flags.debug:
-            m = trainer.debug_step()
-            print({k: float(np.asarray(v.cpu() if hasattr(v, "cpu") else v)
-                            .reshape(-1)[0]) for k, v in m.items()})
+            m = trainer.global_metrics(trainer.debug_step())
+            print_({k: float(np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+                             .reshape(-1)[0]) for k, v in m.items()})
             return 0
 
         num_itr = flags.num_itr if flags.num_itr is not None else 10 ** 9
@@ -160,9 +203,11 @@ def main(argv=None):
                           val_every=flags.log_val,
                           heavy_every=flags.log_train_heavy)
         except KeyboardInterrupt:
-            print("interrupted; saving final checkpoint")
-            trainer.saver.save(trainer.state_tree(), trainer.step)
-        sw.close()
+            print_("interrupted; saving final checkpoint")
+            if rank == 0:
+                trainer.saver.save(trainer.state_tree(), trainer.step)
+        if sw is not None:
+            sw.close()
     finally:
         batches.close()
     return 0

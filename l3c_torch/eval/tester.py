@@ -16,9 +16,10 @@ Port of `l3c_tpu/eval/tester.py` (the reference's multiscale_tester.py):
 - codec_backend: 'auto' codes format v8 (TorchBitcoding), 'host' format v1
   (codec.Bitcoding: the network on the device, rANS on the host);
   decode_file picks the codec from the file's version byte.
-
-Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
-fan-out over several cards and spatial sharding (item 13).
+- with more than one device slot (parallel.mesh.local_devices):
+  spatial_shard evaluates images above the auto-crop threshold by height
+  sharding (parallel.spatial), and write_to_files(fanout=True) deals the
+  groups round-robin over one codec a slot (parallel.fanout).
 """
 from __future__ import annotations
 
@@ -37,17 +38,10 @@ from ..data.images import Testset, image_size, load_image_uint8, write_png
 from ..device import DeviceLike, numerics_guard, resolve
 from ..models import weights
 from ..models.network import MultiscaleNetwork
+from ..parallel import mesh
 from ..utils import logdir as logdir_mod
 from ..utils import pad as pad_mod
 from .timer import StackTimer
-
-NOT_PORTED = {
-    "fanout": "--fanout over several cards is not ported yet: ROADMAP.md "
-              "item 13 (parallelism)",
-    "spatial_shard": "--spatial_shard is not ported yet: ROADMAP.md item "
-                     "13 (parallelism)",
-}
-
 
 class TestID(NamedTuple):
     dataset_id: str
@@ -120,18 +114,21 @@ class MultiscaleTester:
                  log_dir: Optional[str] = None, restore_itr: int = -1,
                  use_cache: bool = True, recursive=0,
                  codec_backend: str = "auto", crop: Optional[int] = None,
-                 spatial_shard: bool = False, device: DeviceLike = None):
+                 spatial_shard: bool = False, spatial_halo: int = 32,
+                 device: DeviceLike = None):
         """net: a MultiscaleNetwork with its weights loaded; it is moved to
         `device` (the card unless the caller passes "cpu").
         recursive: 0, an int or "auto" (decided from the parsed config:
         3 for the RGB Shared baseline, a one-scale bicubic baseline, else
-        0): scales run after the config's, in the bpsp eval only."""
+        0): scales run after the config's, in the bpsp eval only.
+        spatial_shard: with more than one device slot, images above the
+        auto-crop threshold are evaluated by height sharding over the
+        slots with a halo of `spatial_halo` rows instead of independent
+        auto-crop tiles."""
         if recursive == "auto":
             recursive = (3 if cfg.rgb_bicubic_baseline
                          and cfg.num_scales == 1 else 0)
         self.recursive = int(recursive)
-        if spatial_shard:
-            raise NotImplementedError(NOT_PORTED["spatial_shard"])
         if codec_backend != "auto" and codec_backend not in HOST_BACKENDS:
             raise ValueError(f"unknown codec backend {codec_backend!r}")
         self.codec_backend = codec_backend
@@ -139,6 +136,10 @@ class MultiscaleTester:
         numerics_guard()
         self.cfg = cfg
         self.net = net.to(self.device).eval()
+        self.spatial_shard = (spatial_shard
+                              and len(mesh.local_devices(self.device)) > 1)
+        self.spatial_halo = spatial_halo
+        self._spatial_cache = {}  # (Hp, Wp) -> the sharded bpsp fn
         self.restore_itr = restore_itr
         # --crop: center-crop every test image to crop x crop before
         # eval/coding
@@ -216,11 +217,46 @@ class MultiscaleTester:
 
     def _bpsp_of_image(self, path: str) -> float:
         img = self._load(path)
+        if (self.spatial_shard and auto_crop.needs_crop(img)
+                and not self.recursive):
+            return self._spatial_bpsp(img)
         comb = auto_crop.CropLossCombinator()
         for crop in auto_crop.iter_crops(img):
             comb.add(float(self._scale_bpsps(crop).sum()),
                      int(np.prod(crop.shape)))
         return comb.get_bpsp()
+
+    def _spatial_bpsp(self, img: np.ndarray) -> float:
+        """bpsp of one large image by height sharding over the slots: ONE
+        exact forward with the halo exchange instead of independent
+        auto-crop tiles. H is padded up to n * 2^S and W to padding_fac by
+        replicating the last row and column; the bpsp is rescaled from the
+        padded subpixel count to the true one, so numbers compare with
+        auto-crop's."""
+        from ..parallel import spatial
+        _, H, W, _ = img.shape
+        devices = mesh.local_devices(self.device)
+        n = len(devices)
+        S = self.cfg.num_scales
+        Hp = H + (-H) % (n * (1 << S))
+        # halo: a multiple of 2^S, at least one scale step, at most one
+        # slab (the exchange is single-hop)
+        halo = max(self.spatial_halo, 1 << S)
+        halo += (-halo) % (1 << S)
+        halo = min(halo, Hp // n)
+        Wp = W + (-W) % self.cfg.padding_fac
+        padded = np.zeros((1, Hp, Wp, 3), img.dtype)
+        padded[:, :H, :W] = img
+        if W < Wp:
+            padded[:, :H, W:] = img[:, :, -1:]          # replicate cols
+        if H < Hp:
+            padded[:, H:] = padded[:, H - 1: H]          # replicate rows
+        key = (Hp, Wp)
+        if key not in self._spatial_cache:
+            self._spatial_cache[key] = spatial.spatial_bpsp_fn(
+                self.cfg, self.net, devices, Hp, Wp, halo)
+        # the fn divides by the padded subpixel count
+        return self._spatial_cache[key](padded) * (Hp * Wp) / (H * W)
 
     # ------------------------------------------------------- round-trip
 
@@ -232,9 +268,12 @@ class MultiscaleTester:
 
         Same-shape images are grouped (up to `group` at a time) through
         the codec's BATCHED encode/decode so the rANS kernels run wide
-        instead of once per image. Images above the auto-crop threshold,
-        and every image of the host backend, take the single-image
-        path. Grouped files record their group's
+        instead of once per image; with `fanout` and more than one device
+        slot, `group`-sized groups are dealt round-robin over one codec a
+        slot (parallel.fanout.CodecFanout), the same groups as without.
+        Images above the auto-crop threshold, and every image of the host
+        backend, take the single-image path. Grouped files record their
+        group's
         fbatch in the header (the determinism contract), so a file coded
         in a group of 8 has slightly different — equally valid — bytes
         than one coded alone.
@@ -245,13 +284,19 @@ class MultiscaleTester:
             # neither package codes the recursively applied shared model
             raise NotImplementedError(
                 "--write_to_files not implemented for --recursive")
-        if fanout:
-            raise NotImplementedError(NOT_PORTED["fanout"])
         os.makedirs(out_dir, exist_ok=True)
         # `size` coder profile: eval numbers are bitrate headlines, so
         # spend longer rANS streams (fewer per-stream framing bytes) and
         # the full mixture; serving keeps the faster `balanced` default
         bc = self._bitcoding(coder_profile="size")
+        slots = mesh.local_devices(self.device)
+        fan = None
+        if fanout and len(slots) > 1 and hasattr(bc, "encode_batch"):
+            from ..parallel.fanout import CodecFanout
+            fan = CodecFanout(self.cfg, self.net, slots, group=group,
+                              coder_profile="size")
+        # images a codec call: a group on each slot
+        chunk_n = group * (len(fan.codecs) if fan is not None else 1)
         result = TestResult()
         # group by post-crop shape without decoding pixels yet
         by_shape: Dict[tuple, List[str]] = {}
@@ -275,15 +320,18 @@ class MultiscaleTester:
                     self._roundtrip_single(bc, p, pout_of(p), result,
                                            compare_theory)
                 continue
-            for i in range(0, len(paths), group):
-                chunk = paths[i: i + group]
+            coder = fan if fan is not None else bc
+            for i in range(0, len(paths), chunk_n):
+                chunk = paths[i: i + chunk_n]
                 imgs = [self._load(p) for p in chunk]
                 pouts = [pout_of(p) for p in chunk]
                 with self.times.run("enc"):
-                    bpsps = bc.encode_batch(imgs, pouts)
-                unit_bytes = bc.last_unit_bytes
+                    bpsps = (fan.encode_paths(imgs, pouts) if fan is not None
+                             else bc.encode_batch(imgs, pouts))
+                unit_bytes = coder.last_unit_bytes
                 with self.times.run("dec"):
-                    outs = bc.decode_batch(pouts)
+                    outs = (fan.decode_paths(pouts) if fan is not None
+                            else bc.decode_batch(pouts))
                 for b, (p, img, out, bpsp) in enumerate(
                         zip(chunk, imgs, outs, bpsps)):
                     if not np.array_equal(out, img):

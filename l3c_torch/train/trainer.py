@@ -13,8 +13,15 @@ of keep_tmp_itr saves its last state too. Every `heavy_every` steps the
 heavy summaries go to the summary writer: the bottleneck images and symbol
 histograms, the observed-vs-predicted symbol distribution figures per scale
 and the encoders' activation histograms, each computed on the device with
-only counts and distributions crossing to the host. Data parallelism is
-not ported (ROADMAP.md item 13).
+only counts and distributions crossing to the host.
+
+Data parallelism (`world`): this process is one rank of a process group
+(parallel/mesh.py). Every rank draws the same global batch, trains on its
+rows (`shard_batch`) through the network under DDP (made at the first
+step, so a restore on every rank comes before it), and logs the metrics
+averaged over the ranks. Checkpoints keep the bare network's names, the
+single-process format. Rank 0 alone saves, validates and writes summaries;
+the other ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import blueprint
 from ..config import DlConfig, MsConfig
@@ -30,6 +38,7 @@ from ..device import DeviceLike, resolve
 from ..models import dmll, layers
 from ..models.network import MultiscaleNetwork
 from ..models.weights import params_from_jax, params_to_jax
+from ..parallel.mesh import data_parallel, shard_batch
 from ..utils.summarizer import Summarizer, add_scale_summaries, ps_figure
 from . import optim as optim_mod
 from . import schedule as schedule_mod
@@ -111,7 +120,19 @@ class Trainer:
                  val_batches: Optional[list] = None,
                  out_dir: Optional[str] = None,
                  epoch_len: Optional[int] = None, seed: int = 0,
-                 summary_writer=None, device: DeviceLike = None):
+                 summary_writer=None, device: DeviceLike = None,
+                 world: Optional[int] = None):
+        """world: None trains in this process alone; else the size of
+        the initialized default process group this process is a rank of,
+        trained data-parallel. Every rank then holds the same saver
+        schedule (rank 0 alone writes) and the same loop arguments."""
+        if world is not None and (not dist.is_initialized()
+                                  or dist.get_world_size() != world):
+            raise ValueError(f"world={world} needs an initialized process "
+                             "group of that size")
+        self.world = world
+        self.rank = dist.get_rank() if world is not None else 0
+        self._dp = None    # the DDP wrapper, made at the first step
         self.cfg, self.dl_cfg = cfg, dl_cfg
         self.device = resolve(device)
         net.init_weights(torch.Generator().manual_seed(seed))
@@ -173,10 +194,17 @@ class Trainer:
         return x.to(self.device).float()
 
     def train_step(self, batch: np.ndarray) -> Dict[str, Any]:
-        """One update on a (B, H, W, 3) uint8 batch; metrics stay on the
-        device (reading them waits for it)."""
+        """One update on a (B, H, W, 3) uint8 batch (data-parallel: the
+        global batch, of which this rank trains its rows); metrics stay on
+        the device (reading them waits for it) and are this rank's."""
+        net = self.net
+        if self.world is not None:
+            batch = shard_batch(batch, self.rank, self.world)
+            if self._dp is None:
+                self._dp = data_parallel(self.net, self.device)
+            net = self._dp
         x = self._place(batch)
-        out = self.net(x, train=True)
+        out = net(x, train=True)
         loss = blueprint.compute_loss(self.cfg, out)
         self.optimizer.zero_grad(set_to_none=True)
         loss.loss_pc.backward()
@@ -198,6 +226,26 @@ class Trainer:
         self.count += 1
         self.step += 1
         return metrics
+
+    def global_metrics(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """metrics with loss_bpsp, bpsp_total and scale_bpsps averaged
+        over the ranks: each rank's are the mean over its rows, so with
+        equal shards the average is the global batch's, as JAX's.
+        grad_norm already reads the averaged gradients. A collective:
+        every rank calls it."""
+        if self.world is None:
+            return metrics
+        v = torch.cat([metrics["loss_bpsp"].reshape(1),
+                       metrics["bpsp_total"].reshape(1),
+                       metrics["scale_bpsps"]])
+        dist.all_reduce(v)
+        v = v / self.world
+        return dict(metrics, loss_bpsp=v[0], bpsp_total=v[1],
+                    scale_bpsps=v[2:])
+
+    def _barrier(self) -> None:
+        if self.world is not None:
+            dist.barrier()
 
     @torch.no_grad()
     def eval_bpsp(self, batch: np.ndarray) -> float:
@@ -224,33 +272,43 @@ class Trainer:
         t0 = time.time()
         imgs = 0
         metrics: Dict[str, Any] = {}
+        main = self.rank == 0
         for i in range(self.start_itr, self.start_itr + num_itr):
             batch = next(it)
             metrics = self.train_step(batch)
             imgs += batch.shape[0]
             if log_every and (i + 1) % log_every == 0:
-                float(metrics["loss_bpsp"])     # waits for the step
+                shown = self.global_metrics(metrics)
+                float(shown["loss_bpsp"])     # waits for the step
                 dt = time.time() - t0
-                log_fn(Values.format(i + 1, metrics, imgs / max(dt, 1e-9)))
-                self._write_summaries("train", metrics, i + 1)
+                if main:
+                    log_fn(Values.format(i + 1, shown,
+                                         imgs / max(dt, 1e-9)))
+                    self._write_summaries("train", shown, i + 1)
                 t0, imgs = time.time(), 0
-            if (heavy_every and (i + 1) % heavy_every == 0
-                    and self.summary_writer is not None):
+            heavy = heavy_every and (i + 1) % heavy_every == 0
+            val = val_every and (i + 1) % val_every == 0 and self.val_batches
+            save = self.saver is not None and self.saver.save_due(i + 1)
+            if main and heavy and self.summary_writer is not None:
                 self._write_heavy_summaries(batch, i + 1)
-            if val_every and (i + 1) % val_every == 0 and self.val_batches:
+            if main and val:
                 val_bpsp = self.validation_loop()
                 log_fn(f"{i + 1:8d} VAL bpsp={val_bpsp:.4f}")
                 if self.summary_writer is not None:
                     self.summary_writer.add_scalar("val/bpsp", val_bpsp,
                                                    i + 1)
-            if self.saver is not None and self.saver.save_due(i + 1):
+            if main and save:
                 self.saver.save(self.state_tree(), i + 1)
+            if heavy or val or save:
+                self._barrier()
         # the state the run ended with is saved even when the interval
         # saver would drop it (short runs stay restorable)
         end = self.start_itr + num_itr
         if self.saver is not None and num_itr and not self.saver.save_due(end):
-            self.saver.save(self.state_tree(), end)
-        return metrics
+            if main:
+                self.saver.save(self.state_tree(), end)
+            self._barrier()
+        return self.global_metrics(metrics) if metrics else metrics
 
     def _write_heavy_summaries(self, batch: np.ndarray, step: int):
         """The heavy summaries of `step`, under train_heavy/ and train/:

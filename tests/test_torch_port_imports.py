@@ -50,11 +50,19 @@ def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
         "train/optim.py", "train/saver.py", "train/schedule.py",
         "utils/summarizer.py", "ops/coder.py", "codec/__init__.py",
         "codec/bitcoding.py", "convert/torch_import.py", "cli/convert.py",
-        "tools/swa.py", "eval/classic.py", "cli/classic.py")} <= rel
+        "tools/swa.py", "eval/classic.py", "cli/classic.py",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/fanout.py",
+        "parallel/spatial.py")} <= rel
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                              & set(FORBIDDEN))
            for p in files}
     assert not {k: v for k, v in bad.items() if v}
+    # the parallel paths use torch.distributed (allowed: it is torch's)
+    tree = ast.parse(open(os.path.join(ROOT, "l3c_torch", "parallel",
+                                       "mesh.py")).read())
+    assert any(isinstance(n, ast.Import) and any(
+        a.name == "torch.distributed" for a in n.names)
+        for n in ast.walk(tree))
 
 
 def test_default_device_raises_without_cuda():

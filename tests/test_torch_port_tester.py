@@ -21,9 +21,9 @@ Held, with the tolerances:
   differ by at large sizes is in ROADMAP.md section 3);
 - `verify_batch`: flag true and the u32 hash equal to the JAX package's
   `verify_batch_finish` and to the hash computed with numpy;
-- what is not ported raises NotImplementedError naming its ROADMAP item
-  (--sample and --recursive now run), and the CLIs raise without a card
-  unless `--device cpu`.
+- the options once refused now run (--sample, --recursive, the host
+  codec, --fanout and --spatial_shard over several cpu device slots), and
+  the CLIs raise without a card unless `--device cpu`.
 
 The JAX side runs jitted, once per module.
 """
@@ -446,16 +446,60 @@ def test_result_cache_and_lock(world, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    # the ids of the cases before --sample and --recursive were ported
-    pytest.param(["--fanout", "--write_to_files", "out"], "item 13",
+    # the ids of the cases before --sample and --recursive were ported;
+    # items 12 and 13 are ported since: each case now holds the option's
+    # path
+    pytest.param(["--fanout", "--write_to_files"], "item 13",
                  id="extra1-item 13"),
     pytest.param(["--spatial_shard"], "item 13", id="extra2-item 13"),
-    # item 12 (the host codec, format v1) is ported since: its case now
-    # holds that the option codes every image bit-exactly instead
     pytest.param(["--codec_backend", "host"], "item 12",
                  id="extra4-item 12"),
 ])
-def test_cli_options_not_ported_raise(world, extra, match, tmp_path):
+def test_cli_options_not_ported_raise(world, extra, match, tmp_path,
+                                      monkeypatch, capsys):
+    from l3c_tpu.data.images import Testset as JImageSet
+    from l3c_torch.parallel import mesh
+    if extra[0] == "--fanout":
+        # two cpu slots: the groups are dealt over two codecs; every file
+        # is byte-identical to the JAX package's --fanout file
+        monkeypatch.setattr(mesh, "local_devices",
+                            lambda device=None: [torch.device("cpu")] * 2)
+        out, dj = tmp_path / "fan", str(tmp_path / "jax")
+        assert test_cli.main([world["logs"], "0102", world["imgs"]] + extra
+                             + [str(out), "--eval_batch", "2"]
+                             + _cli_args(world)) == 0
+        world["jt"].write_to_files(JImageSet(world["imgs"]), dj, group=2,
+                                   fanout=True)
+        files = sorted(os.listdir(out))
+        assert files == sorted(os.listdir(dj)) and len(files) == 4
+        for f in files:
+            assert open(out / f, "rb").read() == open(
+                os.path.join(dj, f), "rb").read(), f
+        return
+    if extra[0] == "--spatial_shard":
+        # eight cpu slots, as the JAX package's eight CPU devices, and a
+        # crop threshold every image exceeds: each image's bpsp is JAX's
+        # height-sharded bpsp within 1e-5 (float32 sums)
+        monkeypatch.setenv("AC_NEEDS_CROP_DIM", "16,16")
+        monkeypatch.setattr(mesh, "local_devices",
+                            lambda device=None: [torch.device("cpu")] * 8)
+        got = []
+        orig = MultiscaleTester._spatial_bpsp
+        monkeypatch.setattr(MultiscaleTester, "_spatial_bpsp",
+                            lambda self, img: got.append(orig(self, img))
+                            or got[-1])
+        assert test_cli.main([world["logs"], "0102", world["imgs"],
+                              "--reset_cache"] + extra
+                             + _cli_args(world)) == 0
+        shown = capsys.readouterr().out.strip().splitlines()[-1].split()[-1]
+        jt = JTester.from_log_dir(world["log_dir"], [world["cfg_root"]],
+                                  use_cache=False, spatial_shard=True)
+        want = jt.test(JImageSet(world["imgs"]))
+        assert len(got) == 4 and jt._spatial_cache
+        for g, w in zip(got, [want.per_img[f"im{i}.png"] for i in range(4)]):
+            assert g == pytest.approx(w, rel=1e-5)
+        assert shown == f"{np.mean(got):.4f}"
+        return
     if match == "item 12":
         out = tmp_path / "v1"
         assert test_cli.main([world["logs"], "0102", world["imgs"]] + extra
@@ -532,7 +576,10 @@ def test_entry_points_raise_without_a_card_or_a_runnable_config(world,
     with pytest.raises(ValueError, match="unknown codec backend"):
         MultiscaleTester(world["tt"].cfg, world["tt"].net, device="cpu",
                          codec_backend="tpu")
-    assert set(tester_mod.NOT_PORTED) == {"fanout", "spatial_shard"}
+    # spatial sharding needs more than one device slot; one cpu slot keeps
+    # the auto-crop path
+    assert not MultiscaleTester(world["tt"].cfg, world["tt"].net,
+                                device="cpu", spatial_shard=True).spatial_shard
 
 
 def test_timer_and_printer_equal_jax(monkeypatch):
