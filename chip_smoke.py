@@ -161,9 +161,28 @@ Phases (each raises on failure; none carries on after another failed):
               0.05 of auto-crop, the tester's cache engaged) and cli.test
               --write_to_files --fanout (bit-exact, the files of the run
               without --fanout) with two slots
- 14. report   one JSON line of kernel records (each with its path:
-              serving, train or baselines, and its launches in phase cli
-              and phase parallel), the card line, then
+ 14. prep     data prep on this machine (no Pillow here): every fixture of
+              l3c_torch/data/fixtures/prep (baseline JPEG at 4:4:4, 4:2:2
+              and 4:2:0, restart markers, grey; 16-bit, Adam7, palette and
+              grey PNG) decoded to Pillow's pixel digests (expected.json),
+              the progressive and the truncated JPEG refused with the
+              reason; cli.prep_pipeline --inp_dir over them: the JAX
+              pipeline's kept lists, output pixels and cache listing;
+              --offline without the corpus's packages: every source
+              reported missing, empty splits; cli.train resuming r5b 5
+              steps on the prepared train/ (validating on val/ at step 5):
+              finite losses, exactly 21 K6 forward and 15 backward
+              launches, the step-5 checkpoint restoring strictly;
+              cli.classic with the optimized-PNG column over the 8 bench
+              PNGs, its byte counts Pillow's where this host's zlib is the
+              one expected.json was made with; on the rate fixture (one
+              1024 x 768 baseline JPEG, l3c_torch/data/fixtures/rate) the
+              host's JPEG decode and Lanczos rates and prep_pipeline
+              --inp_dir --min_res 512's images/s over 32 copies with one
+              worker and with one per CPU, the host CPU named
+ 15. report   one JSON line of kernel records (each with its path:
+              serving, train or baselines, and its launches in phase cli,
+              phase parallel and phase prep), the card line, then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
@@ -172,16 +191,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -3544,6 +3566,227 @@ def phase_parallel(cfg, net, bc, imgs, round_ms, card, resumed_dir,
     return total
 
 
+# ------------------------------------------------------------------ prep
+
+PREP_FIXTURES = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "prep")
+PREP_STEPS = 5
+# a step's 3 + 3 K6 launches, and the validation at step 5: num_val_batches
+# (2) forwards of 3 scales
+PREP_TRAIN = {"dmll_nll": PREP_STEPS * 3 + 2 * 3,
+              "dmll_nll_grad": PREP_STEPS * 3}
+PREP_RATE = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "rate")
+PREP_RATE_COPIES = 32           # the rate fixture repeated for --inp_dir
+PREP_RATE_MIN_RES = 512         # prep's default, as users run it
+# prep_pipeline --inp_dir in a fresh process, as a user runs it, its
+# import and its work timed apart
+PREP_RATE_SCRIPT = """
+import json, sys, time
+t0 = time.perf_counter()
+from l3c_torch.cli import prep_pipeline
+from l3c_torch.data import images, prep, resample  # what main() reaches
+t1 = time.perf_counter()
+prep_pipeline.main(["--inp_dir", sys.argv[1], sys.argv[2], "--min_res",
+                    sys.argv[3], "--workers", sys.argv[4]])
+print(json.dumps({"import_s": t1 - t0,
+                  "main_s": time.perf_counter() - t1}))
+"""
+
+
+def pixel_digest(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def phase_prep(cfg, imgs, card):
+    """Data prep on the card machine, which has no Pillow: the port's
+    readers and prep against expected.json (Pillow's pixels and the JAX
+    pipeline's outputs, recorded with the fixtures), then training on what
+    it prepared. Returns the K6 launches of the training run."""
+    from l3c_torch.cli import classic as classic_cli
+    from l3c_torch.cli import prep_pipeline
+    from l3c_torch.cli import train as train_cli
+    from l3c_torch.data import images as timages
+    from l3c_torch.data import offline_corpus, resample
+    from l3c_torch.eval import classic
+    from l3c_torch.train.trainer import Trainer
+    with open(os.path.join(PREP_FIXTURES, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    # ---- 1. every fixture decoded (or refused) as expected
+    for n, e in sorted(exp["files"].items()):
+        p = os.path.join(PREP_FIXTURES, n)
+        head = (timages.image_mode(p), list(timages.image_size(p)))
+        if head != (e["mode"], e["size"]):
+            raise RuntimeError(f"{n}: mode/size {head}, expected "
+                               f"{(e['mode'], e['size'])}")
+        if "refused" in e:
+            try:
+                timages.load_image_uint8(p)
+            except ValueError as err:
+                if e["refused"] not in str(err):
+                    raise RuntimeError(f"{n} refused for another reason: "
+                                       f"{err}") from err
+            else:
+                raise RuntimeError(f"{n} decoded; it must be refused")
+        elif pixel_digest(timages.load_image_uint8(p)) != e["sha256"]:
+            raise RuntimeError(f"{n}: pixels differ from Pillow's")
+    log(f"[prep] {len(exp['files'])} fixtures: modes, sizes and pixel "
+        "digests equal Pillow's (expected.json), the progressive and the "
+        "truncated JPEG refused with the reason")
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="l3c_prep_") as d:
+        # ---- 2. prep_pipeline --inp_dir against the JAX pipeline's output
+        out = os.path.join(d, "out")
+        run_cli(prep_pipeline.main, ["--inp_dir", PREP_FIXTURES, out,
+                                     "--min_res", str(exp["min_res"])])
+        got = {sub: {n: pixel_digest(read_png(os.path.join(out, sub, n)))
+                     for n in sorted(os.listdir(os.path.join(out, sub)))}
+               for sub in ("train", "val")}
+        if got != exp["prep"]:
+            raise RuntimeError(f"prep_pipeline --inp_dir kept {got}, the "
+                               f"JAX pipeline {exp['prep']}")
+        with open(os.path.join(out, "cache.pkl"), "rb") as f:
+            cache = pickle.load(f)
+        listed = {os.path.basename(k[0]): sorted(map(os.path.basename, v))
+                  for k, v in cache.items()}
+        if listed != {sub: sorted(got[sub]) for sub in got}:
+            raise RuntimeError(f"the cache lists {listed}")
+        log(f"[prep] prep_pipeline --inp_dir --min_res {exp['min_res']}: "
+            f"train {sorted(got['train'])}, val {sorted(got['val'])}; every "
+            "output's pixels the JAX pipeline's, the cache listing both")
+        # ---- 3. --offline where the corpus's packages are absent
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            run_cli(prep_pipeline.main, ["--offline", os.path.join(d, "off")])
+        want = [f"offline corpus: missing {rel} (skipped)"
+                for rel, _, _ in offline_corpus.MANIFEST]
+        made = [n for sub in ("train", "val", "val_full")
+                for n in os.listdir(os.path.join(d, "off", sub))]
+        if err.getvalue().splitlines() != want or made:
+            raise RuntimeError(f"--offline: {err.getvalue()!r}, made "
+                               f"{len(made)} tiles")
+        log(f"[prep] --offline under {offline_corpus._site_packages()}: "
+            f"every one of the {len(want)} manifest sources and the skybox "
+            "reported missing, empty splits (as the JAX pipeline with no "
+            "sources)")
+        # ---- 4. r5b resumed on the prepared data, validating on its val
+        ms_cf = os.path.join(l3c_cli.default_config_roots()[0], "ms", "cr.cf")
+        dl_cf = os.path.join(l3c_cli.default_config_roots()[0], "dl",
+                             "oi_offline.cf")
+        root = os.path.join(d, "logs")
+        os.makedirs(root)
+        r5b_dir = os.path.dirname(os.path.dirname(CKPT))
+        os.symlink(r5b_dir, os.path.join(root, os.path.basename(r5b_dir)))
+        losses, steps = [], []
+
+        def step(orig):
+            def run(self, batch_):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = orig(self, batch_)
+                losses.append(float(m["loss_bpsp"]))
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                return m
+            return run
+
+        train_counts = {}
+        with patched(Trainer, "train_step", step):
+            counted(train_counts, "cli.train on the prepared data",
+                    lambda: run_cli(train_cli.main, [
+                        ms_cf, dl_cf, root, "-p",
+                        f"dl.train_imgs_glob='{os.path.join(out, 'train')}'",
+                        "-p", f"dl.val_glob='{os.path.join(out, 'val')}'",
+                        "-p", "dl.image_cache_pkl=None", "-p",
+                        "lr.schedule='none'", "--restore", LOG_DATE,
+                        "--num_itr", str(PREP_STEPS), "--log_train", "1",
+                        "--log_val", str(PREP_STEPS)]), PREP_TRAIN)
+        if len(losses) != PREP_STEPS or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"training on the prepared data: {losses}")
+        from l3c_torch.models.weights import list_ckpts
+        new = [n for n in os.listdir(root) if not n.startswith(LOG_DATE)]
+        end = 246250 + PREP_STEPS
+        itr, ck = list_ckpts(os.path.join(root, new[0]))[-1]
+        back = MultiscaleNetwork(cfg)
+        if itr != end or load_network_weights(back, ck) != end or not all(
+                torch.isfinite(p).all() for p in back.parameters()):
+            raise RuntimeError(f"{ck} does not restore")
+        log(f"[prep] cli.train, r5b resumed {PREP_STEPS} steps on the "
+            f"prepared train/ (batch 16 x 128^2), validating on val/: losses "
+            f"{[round(v, 4) for v in losses]}, step ms "
+            f"{[round(1e3 * v, 1) for v in steps]}; {os.path.basename(ck)} "
+            f"restores strictly (step {end}) | {card}")
+        # ---- 5. cli.classic with the PNG column on the bench images
+        img_dir = os.path.join(d, "bench")
+        os.makedirs(img_dir)
+        for i, im in enumerate(imgs):
+            write_png(os.path.join(img_dir, f"im{i}.png"), im[0])
+        line = run_cli(classic_cli.main, [img_dir]).strip()
+        sizes = [classic.png_size(im[0]) for im in imgs]
+        same = sizes == exp["classic_png_bytes"]
+        if zlib.ZLIB_RUNTIME_VERSION == exp["zlib"] and not same:
+            raise RuntimeError(f"optimized-PNG bytes {sizes}, Pillow's "
+                               f"{exp['classic_png_bytes']}")
+        held = (f"{'equal to' if same else 'unlike'} Pillow's optimize=True "
+                f"(expected.json, zlib {exp['zlib']}; this host's zlib "
+                f"{zlib.ZLIB_RUNTIME_VERSION}: "
+                f"{'held' if zlib.ZLIB_RUNTIME_VERSION == exp['zlib'] else 'reported, not held'})")
+        log(f"[prep] cli.classic over the {len(imgs)} bench PNGs: "
+            f"{line.split(': ', 1)[1]}; PNG bytes {sizes} {held}")
+        # ---- 6. host rates on a photograph-sized JPEG
+        (name, e), = exp["rate"].items()
+        photo = os.path.join(PREP_RATE, name)
+        h, w = e["size"]
+        t0 = time.perf_counter()
+        for _ in range(3):
+            arr = timages.load_image_uint8(photo)
+        jpeg_mps = 3 * h * w / (time.perf_counter() - t0) / 1e6
+        if pixel_digest(arr) != e["sha256"]:
+            raise RuntimeError(f"{name}: pixels differ from Pillow's")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            resample.resize(arr, (round(0.7 * w), round(0.7 * h)))
+        lanczos_mps = 3 * h * w / (time.perf_counter() - t0) / 1e6
+        dump = os.path.join(d, "dump")
+        os.makedirs(dump)
+        for c in range(PREP_RATE_COPIES):
+            os.symlink(photo, os.path.join(dump, f"{c:03d}_{name}"))
+        rates, outs = {}, {}
+        for workers in (1, os.cpu_count() or 1):
+            dst = os.path.join(d, f"rate{workers}")
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-c", PREP_RATE_SCRIPT, dump, dst,
+                 str(PREP_RATE_MIN_RES), str(workers)], cwd=ROOT,
+                capture_output=True, text=True, check=True, timeout=300)
+            wall = time.perf_counter() - t0
+            rates[workers] = (json.loads(run.stdout.splitlines()[-1]), wall)
+            outs[workers] = (run.stdout.splitlines()[:2], {
+                sub: {n: hashlib.sha256(open(os.path.join(dst, sub, n),
+                                             "rb").read()).hexdigest()
+                      for n in os.listdir(os.path.join(dst, sub))}
+                for sub in ("train", "val")})
+        if outs[1] != outs[os.cpu_count() or 1] or sum(
+                map(len, outs[1][1].values())) != PREP_RATE_COPIES:
+            raise RuntimeError(f"prep_pipeline over {PREP_RATE_COPIES} "
+                               f"copies: {outs[1][0]}; the outputs must "
+                               "not depend on --workers")
+        n_img, mp = PREP_RATE_COPIES, PREP_RATE_COPIES * h * w / 1e6
+        log(f"[prep] host rates on {name} ({w} x {h}, "
+            f"{os.path.getsize(photo)} bytes): baseline JPEG decode "
+            f"{jpeg_mps:.3f} MP/s; Lanczos -> {round(0.7 * w)} x "
+            f"{round(0.7 * h)} {lanczos_mps:.3f} input MP/s; prep_pipeline "
+            f"--inp_dir over {n_img} copies --min_res {PREP_RATE_MIN_RES} "
+            f"(all kept, the same outputs): "
+            + "; ".join(
+                f"{k} worker(s) {n_img / r['main_s']:.3f} images/s "
+                f"({mp / r['main_s']:.3f} MP/s) in main(), "
+                f"{n_img / wall:.3f} images/s with the process's start "
+                f"(import {r['import_s']:.2f} s, wall {wall:.2f} s)"
+                for k, (r, wall) in rates.items())
+            + f" | host {cpu}")
+    return train_counts
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -3598,6 +3841,9 @@ def main() -> int:
                            round_ms, card, resumed_dir, resumed_losses)
         for rec in recs:
             rec["parallel_launches"] = par_counts.get(rec["name"], 0)
+    prep_counts = timed("prep", phase_prep, cfg, imgs, card)
+    for rec in recs:
+        rec["prep_launches"] = prep_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

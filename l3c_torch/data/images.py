@@ -1,5 +1,5 @@
 """Image files for training, the tester and the codec CLIs: listings,
-training batches, testsets, PNG, PNM and BMP.
+training batches, testsets, PNG, JPEG, PNM and BMP.
 
 Port of `l3c_tpu/data/images.py` (`iter_images_in`, `ImagesCached`,
 `load_image_uint8`, `random_crop_flip`, `TrainBatches`, `Testset`). The
@@ -8,16 +8,19 @@ seed and flags: both draw from one np.random.RandomState in the same
 order. The JAX package reads images with Pillow; the port depends on
 torch, numpy and the standard library only, so it reads the formats
 itself, told apart by their first bytes as Pillow tells them:
-  - PNG (zlib + numpy; it also writes them): 8 bits per sample, colour
-    types 0 (grey), 2 (RGB), 3 (palette) and 6 (RGBA), non-interlaced,
-    all five row filters;
+  - PNG (zlib + numpy; it also writes them): every bit depth (1, 2, 4, 8
+    and 16) and colour type (grey, RGB, palette, grey + alpha, RGBA) the
+    standard defines, non-interlaced and Adam7, all five row filters;
+  - baseline JPEG (data/jpeg.py: Huffman sequential, grey or colour,
+    decoded as Pillow's libjpeg-turbo decodes it);
   - binary PNM: P6 (RGB) and P5 (grey), maxval 255;
   - BMP: uncompressed (BI_RGB), 24 and 32 bits a pixel (the fourth byte
     unused, as Pillow reads it), bottom-up and top-down rows.
-Anything else, JPEG and WebP among it (they need a decoder the port does
-not have), raises ValueError naming the format and the reason. Every
-image comes out as RGB the way Pillow's convert("RGB") gives it: grey
-replicated, the palette looked up, alpha dropped.
+Anything else (WebP, progressive JPEG, ...) raises ValueError naming the
+format and the reason. Every image comes out as RGB the way Pillow's
+convert("RGB") gives it: grey replicated, the palette looked up, alpha
+dropped, 16-bit samples cut to their high byte (16-bit grey clipped at
+255); `image_mode` gives the mode Pillow would open the file in.
 """
 from __future__ import annotations
 
@@ -32,9 +35,16 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import jpeg
+
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}     # colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}                       # colour type -> bit depths
+# Adam7's seven passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _is_image(p: str) -> bool:
@@ -79,32 +89,36 @@ def _chunks(f, path: str):
             return
 
 
-def _header(data: bytes, path: str) -> Tuple[int, int, int]:
-    """IHDR -> (width, height, colour type), refusing what is not read."""
+def _header(data: bytes, path: str) -> Tuple[int, int, int, int, int]:
+    """IHDR -> (width, height, bit depth, colour type, interlace),
+    refusing what the PNG standard does not define."""
     w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB",
                                                               data)
-    if depth != 8:
-        raise ValueError(f"{path}: bit depth {depth}; only 8-bit PNGs are "
-                         "read")
     if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: PNG colour type {ctype}; only 0 (grey), "
-                         "2 (RGB), 3 (palette) and 6 (RGBA) are read")
-    if interlace or comp or filt:
-        raise ValueError(f"{path}: interlaced PNGs (or unknown compression "
-                         "/ filter methods) are not read")
+        raise ValueError(f"{path}: PNG colour type {ctype} is not defined")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{path}: bit depth {depth} is not defined for "
+                         f"PNG colour type {ctype}")
+    if comp or filt or interlace > 1:
+        raise ValueError(f"{path}: unknown PNG compression, filter or "
+                         "interlace method")
     if w < 1 or h < 1:
         raise ValueError(f"{path}: empty image {w}x{h}")
-    return w, h, ctype
+    return w, h, depth, ctype, interlace
 
 
-def _png_size(path: str) -> Tuple[int, int]:
-    """(height, width) from the PNG header, without decoding pixels."""
+def _png_ihdr(path: str) -> Tuple[int, int, int, int, int]:
+    """_header of the file's IHDR, without decoding pixels."""
     with open(path, "rb") as f:
         ctype, data = next(_chunks(f, path))
     if ctype != b"IHDR":
         raise ValueError(f"{path}: PNG does not start with IHDR")
-    w, h, _ = _header(data, path)
-    return h, w
+    return _header(data, path)
+
+
+# Pillow's mode for a PNG's (colour type, bit depth)
+_PNG_MODES = {(0, 1): "1", (0, 16): "I;16", (4, 16): "RGBA", 0: "L",
+              2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -134,8 +148,56 @@ def _unfilter(ftype: np.ndarray, data: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def _samples(raw: bytes, w: int, h: int, ch: int, depth: int,
+             path: str) -> np.ndarray:
+    """Unfilter the h rows of a (sub)image w pixels wide from the start of
+    `raw`: (h, w, ch) samples (uint8, or uint16 at depth 16)."""
+    row = (w * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)          # the filters' byte distance
+    if len(raw) < h * (1 + row):
+        raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
+                         f"expected {h * (1 + row)}")
+    rows = np.frombuffer(raw, np.uint8, h * (1 + row)).reshape(h, 1 + row)
+    px = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, row // bpp, bpp))
+    px = px.reshape(h, row)
+    if depth == 16:
+        return px.view(">u2").reshape(h, w, ch).astype(np.uint16)
+    if depth < 8:
+        bits = np.unpackbits(px, axis=1).reshape(h, row * 8 // depth, depth)
+        px = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            2, dtype=np.uint8)[:, :w * ch]
+    return px.reshape(h, w, ch)
+
+
+def _png_pixels(raw: bytes, w: int, h: int, ch: int, depth: int,
+                interlace: int, path: str) -> np.ndarray:
+    """(h, w, ch) samples of the decompressed image data: one image, or
+    Adam7's seven passes one after another, each filtered on its own."""
+    if not interlace:
+        n = h * (1 + (w * ch * depth + 7) // 8)
+        if len(raw) != n:
+            raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
+                             f"expected {n}")
+        return _samples(raw, w, h, ch, depth, path)
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw < 1 or ph < 1:
+            continue                     # an empty pass has no bytes at all
+        out[y0::dy, x0::dx] = _samples(raw[at:], pw, ph, ch, depth, path)
+        at += ph * (1 + (pw * ch * depth + 7) // 8)
+    if at != len(raw):
+        raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
+                         f"expected {at}")
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNG file."""
+    """(H, W, 3) uint8 RGB of a PNG file, as Pillow's convert("RGB") gives
+    it: grey at 1, 2 and 4 bits scaled to 0..255 (16-bit grey clipped at
+    255), the palette looked up, 16-bit samples' high byte, grey + alpha
+    replicated and alpha dropped."""
     palette = None
     idat = []
     with open(path, "rb") as f:
@@ -143,28 +205,30 @@ def read_png(path: str) -> np.ndarray:
         ctype, data = next(chunks)
         if ctype != b"IHDR":
             raise ValueError(f"{path}: PNG does not start with IHDR")
-        w, h, colour = _header(data, path)
+        w, h, depth, colour, interlace = _header(data, path)
         for ctype, data in chunks:
             if ctype == b"PLTE":
-                palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
+                palette = np.frombuffer(data[:len(data) // 3 * 3],
+                                        np.uint8).reshape(-1, 3)
             elif ctype == b"IDAT":
                 idat.append(data)
-    bpp = _CHANNELS[colour]
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt PNG data ({e})") from e
-    if len(raw) != h * (1 + w * bpp):
-        raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
-                         f"expected {h * (1 + w * bpp)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp)
-    px = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
+    px = _png_pixels(raw, w, h, _CHANNELS[colour], depth, interlace, path)
     if colour == 3:
         if palette is None or int(px.max()) >= len(palette):
             raise ValueError(f"{path}: palette missing or too short")
         return palette[px[..., 0]]
     if colour == 0:
-        return np.repeat(px, 3, axis=2)
+        grey = (np.minimum(px, 255) if depth == 16
+                else px * np.uint8(255 // ((1 << depth) - 1)))
+        return np.repeat(grey.astype(np.uint8), 3, axis=2)
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
+    if colour == 4:
+        return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
 
 
@@ -286,33 +350,50 @@ def read_bmp(path: str) -> np.ndarray:
 
 
 def _format(path: str) -> str:
-    """'png', 'pnm' or 'bmp' from the file's first bytes; other formats
-    raise with the reason."""
+    """'png', 'jpeg', 'pnm' or 'bmp' from the file's first bytes; other
+    formats raise with the reason."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:8] == PNG_SIGNATURE:
         return "png"
+    if head[:3] == b"\xff\xd8\xff":
+        return "jpeg"
     if head[:1] == b"P" and head[1:2] in b"123456":
         return "pnm"
     if head[:2] == b"BM":
         return "bmp"
-    if head[:3] == b"\xff\xd8\xff":
-        kind = "JPEG"
-    elif head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        kind = "WebP"
-    else:
-        raise ValueError(f"{path}: unknown image format; the port reads "
-                         "PNG, PNM (P5, P6) and BMP")
-    raise ValueError(f"{path}: {kind} is not read by the port: it decodes "
-                     "PNG, PNM (P5, P6) and BMP itself and has no "
-                     f"{kind} decoder")
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        raise ValueError(f"{path}: WebP is not read by the port: it decodes "
+                         "PNG, JPEG, PNM (P5, P6) and BMP itself and has no "
+                         "WebP decoder")
+    raise ValueError(f"{path}: unknown image format; the port reads PNG, "
+                     "JPEG, PNM (P5, P6) and BMP")
+
+
+def image_mode(path: str) -> str:
+    """The mode Pillow's Image.open gives the file ("RGB", "L", "P", ...),
+    from its header alone."""
+    kind = _format(path)
+    if kind == "png":
+        _, _, depth, colour, _ = _png_ihdr(path)
+        return _PNG_MODES.get((colour, depth), _PNG_MODES[colour])
+    if kind == "jpeg":
+        return jpeg.jpeg_mode(path)
+    if kind == "pnm":
+        with open(path, "rb") as f:
+            ch, _, _ = _pnm_header(f, path)
+        return "L" if ch == 1 else "RGB"
+    return "RGB"
 
 
 def image_size(path: str) -> Tuple[int, int]:
     """(height, width) from the image's header, without decoding pixels."""
     kind = _format(path)
     if kind == "png":
-        return _png_size(path)
+        w, h = _png_ihdr(path)[:2]
+        return h, w
+    if kind == "jpeg":
+        return jpeg.jpeg_size(path)
     if kind == "pnm":
         with open(path, "rb") as f:
             _, w, h = _pnm_header(f, path)
@@ -323,10 +404,10 @@ def image_size(path: str) -> Tuple[int, int]:
 
 
 def load_image_uint8(p: str) -> np.ndarray:
-    """(H,W,3) uint8 RGB of a PNG, PNM or BMP; non-RGB images are
-    converted (grey replicated, palette looked up, alpha dropped)."""
-    return {"png": read_png, "pnm": read_pnm, "bmp": read_bmp}[
-        _format(p)](p)
+    """(H,W,3) uint8 RGB of a PNG, JPEG, PNM or BMP; non-RGB images are
+    converted as Pillow's convert("RGB") converts them."""
+    return {"png": read_png, "jpeg": jpeg.read_jpeg, "pnm": read_pnm,
+            "bmp": read_bmp}[_format(p)](p)
 
 
 class ImagesCached:

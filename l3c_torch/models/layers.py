@@ -10,13 +10,14 @@ either case, so checkpoints do not depend on it.
 """
 from __future__ import annotations
 
-import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..data import resample
 
 # RGB statistics used for input normalization (EDSR / DIV2K means; scaled
 # by 255 at use sites).
@@ -134,86 +135,13 @@ def sub_rgb_mean(x: torch.Tensor) -> torch.Tensor:
 
 def bicubic_downsample_x2(x_rgb_0_255: torch.Tensor) -> torch.Tensor:
     """Bicubic x0.5 of an NHWC [0, 255] image (even H and W), as float32
-    holding integers: Pillow's two-pass BICUBIC reduction bit for bit, the
-    pyramid the reference's RGB baselines were trained on. All integer, as
-    Pillow computes it: 22-bit coefficients per pass, int32 accumulation,
-    the horizontal pass clipped to uint8 before the vertical one."""
+    holding integers: Pillow's two-pass BICUBIC reduction bit for bit
+    (data/resample), the pyramid the reference's RGB baselines were
+    trained on."""
+    _, H, W, _ = x_rgb_0_255.shape
+    if H % 2 or W % 2:
+        raise ValueError(f"bicubic x2 takes even extents, got {H}x{W}")
     x = torch.clamp(torch.round(x_rgb_0_255.to(torch.float32)), 0, 255
                     ).to(torch.int32)
-    t = _pil_pass_x2(x, axis=2)                  # horizontal (Pillow's order)
-    return _pil_pass_x2(t, axis=1).to(torch.float32)
-
-
-_PIL_PREC = 22  # Pillow's PRECISION_BITS = 32 - 8 - 2
-
-
-@functools.lru_cache(maxsize=None)
-def _pil_x2_rows(in_size: int) -> Tuple[Tuple[int, Tuple[int, ...]], ...]:
-    """Pillow's precompute_coeffs for BICUBIC at exactly x2: per output
-    pixel (xmin, int coefficients), the weights normalised over the
-    clipped window in float64 and rounded to 22-bit fixed point. Every
-    interior output shares one 8-tap kernel; only the first and last two
-    differ."""
-    out_size = in_size // 2
-    if in_size != 2 * out_size or in_size < 2:
-        raise ValueError(f"bicubic x2 takes even extents, got {in_size}")
-
-    def keys(t, a=-0.5):
-        t = abs(t)
-        if t < 1.0:
-            return ((a + 2.0) * t - (a + 3.0)) * t * t + 1.0
-        if t < 2.0:
-            return (((t - 5.0) * t + 8.0) * t - 4.0) * a
-        return 0.0
-
-    rows = []
-    for i in range(out_size):
-        center = 2.0 * i + 1.0
-        xmin = max(0, int(center - 4.0 + 0.5))       # C's truncation
-        xmax = min(in_size, int(center + 4.0 + 0.5))
-        w = np.array([keys((x - center + 0.5) / 2.0)
-                      for x in range(xmin, xmax)])
-        w = w / w.sum()
-        k = np.where(w < 0, w * (1 << _PIL_PREC) - 0.5,
-                     w * (1 << _PIL_PREC) + 0.5).astype(np.int32)
-        rows.append((xmin, tuple(int(v) for v in k)))
-    return tuple(rows)
-
-
-def _pil_pass_x2(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """One Pillow resample pass along `axis`: int32 in, uint8-valued int32
-    out. |acc| <= 255 * sum|k| + 2^21 < 2^31, so int32 is exact; the floor
-    division is Pillow's arithmetic shift on negative sums, and clipping
-    after it gives Pillow's clip8 (0 for any sum <= 0)."""
-    rows = _pil_x2_rows(x.shape[axis])
-    out_size = len(rows)
-
-    def taps(start: int, n: int) -> torch.Tensor:
-        # n outputs' tap at input start, start + 2, ...
-        return x.narrow(axis, start, 2 * n - 1)[
-            (slice(None),) * axis + (slice(None, None, 2),)]
-
-    def acc_of(xmin: int, k: Sequence[int], n: int) -> torch.Tensor:
-        acc = torch.full((), 1 << (_PIL_PREC - 1), dtype=torch.int32,
-                         device=x.device)
-        for d, kd in enumerate(k):
-            acc = acc + kd * taps(xmin + d, n)
-        return acc
-
-    # outputs whose window a border clips; all others share the 8-tap
-    # kernel at offset 2i - 3
-    interior = [i for i in range(out_size)
-                if rows[i][0] == 2 * i - 3 and len(rows[i][1]) == 8]
-    pieces: List[torch.Tensor] = []
-    i = 0
-    while i < out_size:
-        if interior and i == interior[0]:
-            n = interior[-1] - i + 1
-            pieces.append(acc_of(2 * i - 3, rows[i][1], n))
-            i += n
-        else:
-            pieces.append(acc_of(rows[i][0], rows[i][1], 1))
-            i += 1
-    out = torch.cat(pieces, dim=axis)
-    return torch.clamp(torch.div(out, 1 << _PIL_PREC, rounding_mode="floor"),
-                       0, 255)
+    t = resample.resample_pass(x, 2, W // 2, "bicubic")   # Pillow's order
+    return resample.resample_pass(t, 1, H // 2, "bicubic").to(torch.float32)

@@ -7,8 +7,10 @@ against the JAX package's, on the CPU.
 - each package decodes the other's files to the source pixels;
 - the TSGD tables, the histogram quantizer and the MED predictor equal
   JAX's;
-- cli.classic refuses to run without --no_png, naming the reason, and
-  with it prints JAX's CLI's .medl bpsp for the same PNGs.
+- the optimized-PNG column (eval.classic.png_size, no Pillow) equals the
+  size of Pillow's optimize=True PNG, on seeded arrays and corpus images;
+- cli.classic prints JAX's CLI's line (.medl and PNG bpsp) for the same
+  PNGs, with zlib's version, and with --no_png JAX's .medl-only line.
 """
 import os
 
@@ -83,20 +85,66 @@ def test_bad_inputs_raise():
         tclassic.decode(b"\x00\x00\x03" + bytes(16))
 
 
+PNG_IMAGES = dict(IMAGES, **{
+    "structured 200x300x3": lambda: _structured(200, 300, 3, 5),
+    "noise 150x120x3": lambda: np.random.RandomState(6).randint(
+        0, 256, (150, 120, 3)).astype(np.uint8),
+    "blocks 61x47x3": lambda: np.repeat(np.repeat(
+        np.random.RandomState(7).randint(0, 256, (16, 12, 3)), 4, 0), 4,
+        1)[:61, :47].astype(np.uint8),
+})
+CORPUS = ("sklearn/datasets/images/china.jpg",
+          "gymnasium_robotics/envs/assets/kitchen_franka/kitchen_assets/"
+          "textures/metal1.png")
+
+
+def _pillow_png_size(img):
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG", optimize=True)
+    return buf.tell()
+
+
+@pytest.mark.parametrize("name", list(PNG_IMAGES) + list(CORPUS))
+def test_png_size_equals_pillow_optimize(name):
+    """Exact byte counts: the filter choice, deflate's settings and the
+    IDAT chunking all show in them (metal1's stream spans 5 chunks)."""
+    if name in CORPUS:
+        import sysconfig
+        from l3c_torch.data.images import load_image_uint8
+        p = os.path.join(sysconfig.get_paths()["purelib"], name)
+        if not os.path.isfile(p):
+            pytest.skip(f"corpus source {name} is not installed")
+        img = load_image_uint8(p)
+    else:
+        img = PNG_IMAGES[name]()
+    if img.shape[-1] == 1:
+        img = img[..., 0]
+    assert tclassic.png_size(img) == _pillow_png_size(img)
+
+
 def test_cli_requires_no_png_and_matches_jax(tmp_path, capsys):
+    """Without --no_png the port prints the JAX CLI's line, its PNG column
+    included, and the zlib version; with it the .medl column alone."""
+    import zlib
     d = tmp_path / "imgs"
     d.mkdir()
     for i, (h, w) in enumerate([(37, 53), (24, 20)]):
         write_png(str(d / f"im{i}.png"), _structured(h, w, 3, 10 + i))
-    assert tcli.main([str(d)]) == 2
-    err = capsys.readouterr().err
-    assert "--no_png" in err and "Pillow" in err
+    assert tcli.main([str(d)]) == 0
+    port = capsys.readouterr().out.strip()
+    assert jcli.main([str(d)]) == 0
+    jax_line = capsys.readouterr().out.strip()
+    assert "png_bpsp=" in jax_line
+    assert port.startswith(jax_line + f" zlib={zlib.ZLIB_RUNTIME_VERSION}"
+                           " enc+dec_ms=")
     assert tcli.main(["--no_png", str(d)]) == 0
     port = capsys.readouterr().out.strip()
     assert jcli.main(["--no_png", str(d)]) == 0
     jax_line = capsys.readouterr().out.strip()
     assert port.startswith(jax_line + " enc+dec_ms=")
-    assert f"{d}: n=2 med_bpsp=" in port
+    assert f"{d}: n=2 med_bpsp=" in port and "png_bpsp" not in port
     empty = tmp_path / "empty"
     empty.mkdir()
     assert tcli.main(["--no_png", str(empty)]) == 0

@@ -5,9 +5,9 @@ Files are written by Pillow from seeded arrays (top-down BMPs, PNM header
 comments and the refused variants Pillow does not write are made from
 Pillow's files or by hand); `load_image_uint8` and `image_size` of the
 port must give exactly what `l3c_tpu.data.images.load_image_uint8` and
-Pillow give, and the listing with a minimum size the JAX package's. What
-the port does not read, JPEG and WebP among it, raises ValueError with a
-message pinned here.
+Pillow give, and the listing with a minimum size (over PNG, PNM, BMP and JPEG files) the
+JAX package's. What the port does not read, progressive JPEG and WebP
+among it, raises ValueError with a message pinned here.
 """
 import io
 import struct
@@ -87,15 +87,16 @@ def _refused(tmp_path):
         im.save(buf, fmt, **kw)
         return buf.getvalue()
 
-    out.append(("x.jpg", pillow("x.jpg", Image.fromarray(img), "JPEG"),
-                "JPEG is not read by the port: it decodes PNG, PNM \\(P5, "
-                "P6\\) and BMP itself and has no JPEG decoder"))
+    out.append(("x.jpg", pillow("x.jpg", Image.fromarray(img), "JPEG",
+                                progressive=True),
+                "progressive JPEG is not decoded; the port reads baseline "
+                "\\(Huffman sequential\\) JPEG only"))
     # a WebP file's container, as Pillow tells the format (from its first
     # bytes; Pillow may be built without a WebP encoder)
     webp = b"RIFF" + struct.pack("<I", 12) + b"WEBPVP8 " + bytes(8)
     out.append(("x.webp", webp, "WebP is not read by the port: it decodes "
-                "PNG, PNM \\(P5, P6\\) and BMP itself and has no WebP "
-                "decoder"))
+                "PNG, JPEG, PNM \\(P5, P6\\) and BMP itself and has no "
+                "WebP decoder"))
     deep = Image.fromarray(img[..., 0].astype(np.int32) * 257, "I")
     out.append(("x16.ppm", pillow("x16.ppm", deep, "PPM"),
                 "PNM maxval 65535; only 8-bit PNMs \\(maxval 255\\) are "
@@ -112,29 +113,34 @@ def _refused(tmp_path):
                                  "BMP"),
                 "8-bit BMP; only 24- and 32-bit BMPs are read"))
     out.append(("x.ppm", b"not an image at all",
-                "unknown image format; the port reads PNG, PNM \\(P5, P6\\) "
-                "and BMP"))
+                "unknown image format; the port reads PNG, JPEG, PNM \\(P5, "
+                "P6\\) and BMP"))
     return out
 
 
 def test_what_is_not_read_raises_with_the_reason(tmp_path):
-    """JPEG, WebP, 16-bit and ASCII PNM, RLE, bitfield and 8-bit BMP and an
-    unknown format: ValueError naming the format and the reason, from the
-    reader and from the header read of the listing."""
+    """Progressive JPEG, WebP, 16-bit and ASCII PNM, RLE, bitfield and 8-bit
+    BMP and an unknown format: ValueError naming the format and the
+    reason, from the reader and from the header read of the listing (a
+    progressive JPEG's header gives Pillow's size: only its pixels are
+    refused)."""
     for name, blob, msg in _refused(tmp_path):
         p = str(tmp_path / name)
         open(p, "wb").write(blob)
         with pytest.raises(ValueError, match=msg):
             timages.load_image_uint8(p)
+        if name == "x.jpg":
+            assert timages.image_size(p) == Image.open(p).size[::-1]
+            continue
         with pytest.raises(ValueError, match=msg):
             timages.image_size(p)
 
 
 def test_listing_with_min_size_equals_jax(tmp_path):
     """ImagesCached with a minimum side over a directory of PNG, PNM and
-    BMP files of several sizes lists what the JAX package lists; a JPEG
-    among them makes the port raise while listing (the JAX package lists
-    it)."""
+    BMP files of several sizes lists what the JAX package lists, and so it
+    does with a baseline and a progressive JPEG among them (sizes from
+    their headers)."""
     sizes = {"a.png": (9, 12), "b.ppm": (7, 20), "c.bmp": (12, 8),
              "d.ppm": (15, 11), "sub/e.bmp": (3, 30), "sub/f.png": (8, 8),
              "sub/g.bmp": (10, 9)}
@@ -155,6 +161,9 @@ def test_listing_with_min_size_equals_jax(tmp_path):
         assert got == want, min_size
     assert len(timages.ImagesCached(root, min_size=9).paths()) == 3
     Image.fromarray(_rgb(16, 16, seed=0)).save(str(tmp_path / "h.jpg"))
-    assert len(jimages.ImagesCached(root, min_size=9).paths()) == 4
-    with pytest.raises(ValueError, match="JPEG is not read by the port"):
-        timages.ImagesCached(root, min_size=9).paths()
+    Image.fromarray(_rgb(8, 16, seed=0)).save(str(tmp_path / "i.jpg"),
+                                              progressive=True)
+    for min_size in (8, 9):
+        got = timages.ImagesCached(root, min_size=min_size).paths()
+        assert got == jimages.ImagesCached(root, min_size=min_size).paths()
+        assert len(got) == (7 if min_size == 8 else 4)

@@ -2,9 +2,12 @@
 
 l3c_torch, chip_smoke.py and the card scripts beside it (profile_k6.py,
 train_fresh.py) must import nothing of JAX (jax, flax, optax)
-and nothing of the JAX package (l3c_tpu) or its tools, and no Pillow or
-msgpack (the card machine is not known to have them). An `ast` scan, not
-a sys.modules check: the environment may preload jax into every process.
+and nothing of the JAX package (l3c_tpu) or its tools, and no Pillow,
+scipy, scikit-learn or msgpack (the card machine does not have them: the
+port reads images, resamples and prepares data itself). An `ast` scan,
+not a sys.modules check: the environment may preload jax into every
+process; it sees imports under `try:` and in functions too, and calls of
+importlib.import_module / __import__ with a forbidden name.
 """
 import ast
 import os
@@ -14,7 +17,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "l3c_tpu", "tools", "PIL",
-             "msgpack")
+             "msgpack", "scipy", "sklearn")
 
 
 def _port_files():
@@ -34,6 +37,12 @@ def _imported_roots(path):
                 yield a.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.args[0].value.split(".")[0]
 
 
 def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
@@ -52,7 +61,9 @@ def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
         "codec/bitcoding.py", "convert/torch_import.py", "cli/convert.py",
         "tools/swa.py", "eval/classic.py", "cli/classic.py",
         "parallel/__init__.py", "parallel/mesh.py", "parallel/fanout.py",
-        "parallel/spatial.py")} <= rel
+        "parallel/spatial.py", "data/jpeg.py", "data/resample.py",
+        "data/prep.py", "data/offline_corpus.py", "cli/prep_pipeline.py")} \
+        <= rel
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                              & set(FORBIDDEN))
            for p in files}
@@ -63,6 +74,16 @@ def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
     assert any(isinstance(n, ast.Import) and any(
         a.name == "torch.distributed" for a in n.names)
         for n in ast.walk(tree))
+
+
+def test_the_scan_sees_every_way_of_importing(tmp_path):
+    """Imports under try:, in functions and through importlib are seen."""
+    p = tmp_path / "m.py"
+    p.write_text("import os\ntry:\n    from PIL import Image\nexcept "
+                 "ImportError:\n    pass\ndef f():\n    import scipy.ndimage"
+                 "\n    return importlib.import_module('sklearn')\n")
+    assert set(_imported_roots(str(p))) & set(FORBIDDEN) == {
+        "PIL", "scipy", "sklearn"}
 
 
 def test_default_device_raises_without_cuda():
