@@ -161,7 +161,8 @@ Phases (each raises on failure; none carries on after another failed):
               0.05 of auto-crop, the tester's cache engaged) and cli.test
               --write_to_files --fanout (bit-exact, the files of the run
               without --fanout) with two slots
- 14. prep     data prep on this machine (no Pillow here): every fixture of
+ 14. prep     data prep on this machine (the port uses no Pillow): every
+              fixture of
               l3c_torch/data/fixtures/prep (baseline JPEG at 4:4:4, 4:2:2
               and 4:2:0, restart markers, grey; 16-bit, Adam7, palette and
               grey PNG) decoded to Pillow's pixel digests (expected.json),
@@ -180,9 +181,28 @@ Phases (each raises on failure; none carries on after another failed):
               host's JPEG decode and Lanczos rates and prep_pipeline
               --inp_dir --min_res 512's images/s over 32 copies with one
               worker and with one per CPU, the host CPU named
- 15. report   one JSON line of kernel records (each with its path:
+ 15. synth    the procedural source families (data/synth.py) on this
+              machine's host, in numpy as in JAX (the port uses no
+              Pillow or scipy): the seed-1 256^2 tile of each of the 33 families and
+              two jpegtex tiles against l3c_torch/data/fixtures/synth
+              (the JAX package's pixels), bit for bit where this host's
+              numpy probe is the fixtures', else within one grey level
+              with the count of such pixels printed a family; a 200 x 136
+              cut through the JPEG round trip at q 8 and 90: the encoder's
+              file Pillow's byte for byte, the decoded pixels Pillow's;
+              the encoder's and decoder's MP/s over the 33 tiles; then
+              prep_pipeline --offline --synth_families 33 --synth_tiles 2
+              --tile 256 in a fresh process: 66 x_synth_* train tiles,
+              the cache listing them, their pixels the JAX pipeline's
+              (digests, same rule), tiles/s and the slowest five
+              families with the host CPU named; cli.train resuming r5b 5
+              steps on that corpus, validating on two synth tiles held out
+              (other seeds): finite losses, exactly 21 K6 forward and 15
+              backward launches, the step-5 checkpoint restoring strictly
+ 16. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
-              phase parallel and phase prep), the card line, then
+              phase parallel, phase prep and phase synth), the card line,
+              then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
@@ -3597,7 +3617,7 @@ def pixel_digest(arr: np.ndarray) -> str:
 
 
 def phase_prep(cfg, imgs, card):
-    """Data prep on the card machine, which has no Pillow: the port's
+    """Data prep on the card machine, with no Pillow in the port: the port's
     readers and prep against expected.json (Pillow's pixels and the JAX
     pipeline's outputs, recorded with the fixtures), then training on what
     it prepared. Returns the K6 launches of the training run."""
@@ -3787,6 +3807,242 @@ def phase_prep(cfg, imgs, card):
     return train_counts
 
 
+# ----------------------------------------------------------------- synth
+
+SYNTH_FIXTURES = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                              "synth")
+SYNTH_FAMILIES, SYNTH_TILES, SYNTH_TILE = 33, 2, 256
+SYNTH_VAL_FAMILIES = ("spectral", "shapes")    # held out, other seeds
+SYNTH_STEPS = 5
+SYNTH_TRAIN = {"dmll_nll": SYNTH_STEPS * 3 + 2 * 3,
+               "dmll_nll_grad": SYNTH_STEPS * 3}
+SYNTH_CODEC_Q = 75          # the encoder's and decoder's rates: Pillow's
+                            # default quality
+# prep_pipeline.main(argv) in a fresh process, as `python -m
+# l3c_torch.cli.prep_pipeline` runs it: its import and its work timed
+# apart, and the JPEG blocks its round trips saturated
+SYNTH_CLI_SCRIPT = """
+import json, sys, time
+t0 = time.perf_counter()
+from l3c_torch.cli import prep_pipeline
+from l3c_torch.data import jpeg, synth  # what main() reaches
+t1 = time.perf_counter()
+rc = prep_pipeline.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "import_s": t1 - t0,
+                  "main_s": time.perf_counter() - t1,
+                  "saturated_blocks": jpeg.COUNTS["saturated_blocks"]}))
+"""
+
+
+def fixture_tile(exp, name, got, same_numpy) -> int:
+    """Pixels of `got` differing from fixture `name` by one grey level;
+    raises where any pixel differs on a host whose numpy probe is the
+    fixtures', or by more than one elsewhere."""
+    if pixel_digest(got) == exp["tiles"][name]:
+        return 0
+    if same_numpy:
+        raise RuntimeError(f"{name}: pixels differ from the JAX package's "
+                           "on a host whose numpy probe is the fixtures'")
+    d = np.abs(got.astype(np.int16) - read_png(os.path.join(
+        SYNTH_FIXTURES, name)))
+    if d.max() > 1:
+        raise RuntimeError(f"{name}: {int((d > 1).sum())} pixels differ from"
+                           f" the JAX package's by more than 1 (up to "
+                           f"{int(d.max())})")
+    return int((d > 0).sum())
+
+
+def phase_synth(cfg, card):
+    """The procedural source families on the card machine's host (numpy, as
+    in JAX; the port calls no Pillow or scipy) against the JAX package's
+    fixtures, the synth corpus built by prep_pipeline as a user builds
+    it, then training on it through K6. Returns the K6 launches of the
+    training run."""
+    from l3c_torch.cli import train as train_cli
+    from l3c_torch.data import jpeg, jpeg_encode, synth
+    from l3c_torch.models.weights import list_ckpts
+    from l3c_torch.train.trainer import Trainer
+    with open(os.path.join(SYNTH_FIXTURES, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    saturated = jpeg.COUNTS["saturated_blocks"]
+    probe = synth.numpy_probe()
+    same = probe == exp["probe"]
+    log(f"[synth] numpy {np.__version__}, probe {probe[:16]}: "
+        f"{'the fixtures' if same else 'unlike the fixtures'}' (numpy "
+        f"{exp['numpy']}, {exp['probe'][:16]}); tiles held "
+        f"{'bit for bit' if same else 'within one grey level'} | host {cpu}")
+    # ---- 1. the fixtures: each family's tile, two jpegtex tiles
+    render_s, off, tiles = {}, {}, {}
+    for name in sorted(exp["tiles"]):
+        jt = exp["jpegtex"].get(name)
+        fam, seed = (("jpegtex", jt["seed"]) if jt else
+                     (name[len("tile_"):-len(".png")], exp["seed"]))
+        t0 = time.perf_counter()
+        got = synth.render_tile(fam, np.random.RandomState(seed), exp["n"])
+        if not jt:
+            render_s[fam] = time.perf_counter() - t0
+            tiles[fam] = got
+        off[name] = fixture_tile(exp, name, got, same)
+    log(f"[synth] {len(exp['tiles'])} fixture tiles of {exp['n']}^2 (every "
+        f"family at seed {exp['seed']}, jpegtex at seeds "
+        f"{[v['seed'] for v in exp['jpegtex'].values()]} with "
+        f"{[v['family_roundtrips'] for v in exp['jpegtex'].values()]} JPEG "
+        f"round trips): pixels one grey level off, a tile: {off}")
+    rt = exp["roundtrip"]
+    src = np.ascontiguousarray(read_png(os.path.join(
+        SYNTH_FIXTURES, rt["from"]))[:rt["rows"], :rt["cols"]])
+    if pixel_digest(src) != rt["sha256"]:
+        raise RuntimeError(f"{rt['from']} does not hold the round trip's "
+                           "source")
+    for q in (8, 90):
+        blob = jpeg_encode.encode_jpeg(src, q)
+        if hashlib.sha256(blob).hexdigest() != rt[str(q)]["jpeg_sha256"]:
+            raise RuntimeError(f"encode_jpeg at q {q}: {len(blob)} bytes, "
+                               f"unlike Pillow's {rt[str(q)]['jpeg_bytes']}")
+        if pixel_digest(synth._jpeg_roundtrip(src, q)) != rt[str(q)][
+                "sha256"]:
+            raise RuntimeError(f"the JPEG round trip at q {q}: pixels "
+                               "differ from Pillow's")
+    mp = len(tiles) * exp["n"] ** 2 / 1e6
+    t0 = time.perf_counter()
+    blobs = [jpeg_encode.encode_jpeg(t, SYNTH_CODEC_Q)
+             for t in tiles.values()]
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in blobs:
+        jpeg.decode_jpeg(b, saturate=True)
+    dec_s = time.perf_counter() - t0
+    log(f"[synth] JPEG round trip of a {rt['cols']} x {rt['rows']} cut: "
+        f"encode_jpeg's files Pillow's byte for byte at q 8 and 90 "
+        f"({rt['8']['jpeg_bytes']} and {rt['90']['jpeg_bytes']} bytes), "
+        f"decoded pixels Pillow's; over the {len(tiles)} tiles at q "
+        f"{SYNTH_CODEC_Q}: encode {mp / enc_s:.3f} MP/s, decode "
+        f"{mp / dec_s:.3f} MP/s | host {cpu}")
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="l3c_synth_") as d:
+        # ---- 2. the corpus, as a user builds it, in a fresh process
+        out = os.path.join(d, "corpus")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", SYNTH_CLI_SCRIPT, "--offline", out,
+             "--synth_families", str(SYNTH_FAMILIES), "--synth_tiles",
+             str(SYNTH_TILES), "--tile", str(SYNTH_TILE)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if run.returncode:
+            raise RuntimeError(f"prep_pipeline --synth_families: rc "
+                               f"{run.returncode}\n{run.stdout}{run.stderr}")
+        res = json.loads(run.stdout.splitlines()[-1])
+        saturated -= res["saturated_blocks"]
+        n_tiles = SYNTH_FAMILIES * SYNTH_TILES
+        want_line = (f"[synth] {n_tiles} tiles across {SYNTH_FAMILIES} "
+                     f"families -> {os.path.join(out, 'synth')}")
+        if want_line not in run.stdout.splitlines():
+            raise RuntimeError(f"prep_pipeline printed {run.stdout!r}")
+        names = sorted(os.listdir(os.path.join(out, "synth")))
+        train = sorted(os.listdir(os.path.join(out, "train")))
+        if train != ["x_" + n for n in names] or len(names) != n_tiles:
+            raise RuntimeError(f"the train split holds {len(train)} files "
+                               f"({train[:4]}...), not the {n_tiles} "
+                               "x_synth_* tiles")
+        with open(os.path.join(out, "cache.pkl"), "rb") as f:
+            cache = pickle.load(f)
+        listed = {os.path.basename(k[0]): sorted(map(os.path.basename, v))
+                  for k, v in cache.items()}
+        if listed.get("train") != train or listed.get("val") != []:
+            raise RuntimeError(f"the cache lists {listed}")
+        fams = list(synth.FAMILIES)[:SYNTH_FAMILIES]
+        differ = []
+        for n in names:
+            px = read_png(os.path.join(out, "synth", n))
+            if read_png(os.path.join(out, "train", "x_" + n)).tobytes() \
+                    != px.tobytes():
+                raise RuntimeError(f"train/x_{n} is not synth/{n}")
+            if pixel_digest(px) == exp["prep"]["sha256"][n]:
+                continue
+            if same:
+                raise RuntimeError(f"{n}: pixels differ from the JAX "
+                                   "pipeline's")
+            fam, t = n[len("synth_"):-len(".png")].rsplit("_", 1)
+            again = synth.render_tile(fam, np.random.RandomState(
+                fams.index(fam) * 100003 + int(t) + 1), SYNTH_TILE)
+            if not np.array_equal(again, px):
+                raise RuntimeError(f"{n}: the CLI's tile is not render_tile's"
+                                   " for its seed")
+            differ.append(n)
+        slow = sorted(render_s.items(), key=lambda kv: -kv[1])[:5]
+        log(f"[synth] prep_pipeline --offline --synth_families "
+            f"{SYNTH_FAMILIES} --synth_tiles {SYNTH_TILES} --tile "
+            f"{SYNTH_TILE} in a fresh process: {n_tiles} x_synth_* train "
+            f"tiles and nothing else (no corpus package here), the cache "
+            f"listing them, pixels the JAX pipeline's "
+            + ("bit for bit" if not differ else
+               f"except {len(differ)} tiles, each render_tile's on this host")
+            + f"; {n_tiles / res['main_s']:.3f} tiles/s in main() "
+            f"({res['main_s']:.2f} s), {n_tiles / cli_s:.3f} with the "
+            f"process's start (import {res['import_s']:.2f} s, wall "
+            f"{cli_s:.2f} s); render_tile in-process "
+            f"{len(render_s) / sum(render_s.values()):.3f} tiles/s, slowest "
+            f"{[(k, round(1e3 * v, 1)) for k, v in slow]} ms | host {cpu}")
+        # ---- 3. r5b resumed on the synth corpus, validating on two synth
+        # tiles held out (seed 1 of generate_families: other tiles)
+        val = os.path.join(d, "val")
+        synth.generate_families(val, 1, n=SYNTH_TILE, seed=1,
+                                families=list(SYNTH_VAL_FAMILIES))
+        ms_cf = os.path.join(l3c_cli.default_config_roots()[0], "ms", "cr.cf")
+        dl_cf = os.path.join(l3c_cli.default_config_roots()[0], "dl",
+                             "oi_offline.cf")
+        root = os.path.join(d, "logs")
+        os.makedirs(root)
+        r5b_dir = os.path.dirname(os.path.dirname(CKPT))
+        os.symlink(r5b_dir, os.path.join(root, os.path.basename(r5b_dir)))
+        losses, steps = [], []
+
+        def step(orig):
+            def run_(self, batch_):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = orig(self, batch_)
+                losses.append(float(m["loss_bpsp"]))
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                return m
+            return run_
+
+        train_counts = {}
+        with patched(Trainer, "train_step", step):
+            counted(train_counts, "cli.train on the synth corpus",
+                    lambda: run_cli(train_cli.main, [
+                        ms_cf, dl_cf, root, "-p",
+                        f"dl.train_imgs_glob='{os.path.join(out, 'train')}'",
+                        "-p", f"dl.val_glob='{val}'",
+                        "-p", "dl.image_cache_pkl=None", "-p",
+                        "lr.schedule='none'", "--restore", LOG_DATE,
+                        "--num_itr", str(SYNTH_STEPS), "--log_train", "1",
+                        "--log_val", str(SYNTH_STEPS)]), SYNTH_TRAIN)
+        if len(losses) != SYNTH_STEPS or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"training on the synth corpus: {losses}")
+        new = [n for n in os.listdir(root) if not n.startswith(LOG_DATE)]
+        end = 246250 + SYNTH_STEPS
+        itr, ck = list_ckpts(os.path.join(root, new[0]))[-1]
+        back = MultiscaleNetwork(cfg)
+        if itr != end or load_network_weights(back, ck) != end or not all(
+                torch.isfinite(p).all() for p in back.parameters()):
+            raise RuntimeError(f"{ck} does not restore")
+        log(f"[synth] cli.train, r5b resumed {SYNTH_STEPS} steps on the "
+            f"{n_tiles} synth tiles (batch 16 x 128^2), validating on "
+            f"{len(SYNTH_VAL_FAMILIES)} synth tiles held out "
+            f"({', '.join(SYNTH_VAL_FAMILIES)}, generate_families seed 1): "
+            f"losses {[round(v, 4) for v in losses]}, step ms "
+            f"{[round(1e3 * v, 1) for v in steps]}; {os.path.basename(ck)} "
+            f"restores strictly (step {end}) | {card}")
+    n_sat = jpeg.COUNTS["saturated_blocks"] - saturated
+    log(f"[synth] JPEG blocks outside the inverse DCT's agreed range over "
+        f"every round trip of this phase (the CLI's included): {n_sat}")
+    return train_counts
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -3842,8 +4098,10 @@ def main() -> int:
         for rec in recs:
             rec["parallel_launches"] = par_counts.get(rec["name"], 0)
     prep_counts = timed("prep", phase_prep, cfg, imgs, card)
+    synth_counts = timed("synth", phase_synth, cfg, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
+        rec["synth_launches"] = synth_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

@@ -11,7 +11,8 @@ files, or by --offline, which assembles the photographic corpus bundled
 in installed packages, data.offline_corpus).
 
 Usage:
-    python -m l3c_torch.cli.prep_pipeline --offline OUT_ROOT
+    python -m l3c_torch.cli.prep_pipeline --offline OUT_ROOT \
+        [--synth_families N --synth_tiles T]
     python -m l3c_torch.cli.prep_pipeline --inp_dir DUMP OUT_ROOT \
         [--val_frac 0.02] [--min_res 512] [--workers N]
 """
@@ -20,11 +21,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-SYNTH_NOT_PORTED = (
-    "--synth_families needs data/synth, the procedural image families, "
-    "which l3c_torch does not have yet (ROADMAP item 17d)")
-
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
@@ -46,7 +42,9 @@ def main(argv=None):
     p.add_argument("--extra_train_dirs", default=None,
                    help="colon-separated dirs of ready tiles to mix in")
     p.add_argument("--synth_families", type=int, default=0,
-                   help="not available in l3c_torch yet")
+                   help="generate N procedural photo-statistics "
+                        "families (data.synth) and mix them into the "
+                        "offline corpus as extra training sources")
     p.add_argument("--synth_tiles", type=int, default=40,
                    help="tiles per synthetic family")
     p.add_argument("--tiles_scene", type=int, default=24,
@@ -57,10 +55,18 @@ def main(argv=None):
 
     if flags.offline:
         from ..data.offline_corpus import build_corpus
-        if flags.synth_families:
-            raise NotImplementedError(SYNTH_NOT_PORTED)
         extra = (flags.extra_train_dirs.split(":")
-                 if flags.extra_train_dirs else None)
+                 if flags.extra_train_dirs else [])
+        if flags.synth_families:
+            from ..data.synth import FAMILIES, generate_families
+            fams = list(FAMILIES)[: flags.synth_families]
+            synth_dir = os.path.join(flags.out_root, "synth")
+            n = len(generate_families(synth_dir, flags.synth_tiles,
+                                      n=flags.tile, families=fams))
+            print(f"[synth] {n} tiles across {len(fams)} families "
+                  f"-> {synth_dir}")
+            extra = extra + [synth_dir]
+        extra = extra or None
         train_dir, val_dir, _ = build_corpus(
             flags.out_root, tile=flags.tile, noise_frac=flags.noise_frac,
             tiles_scene=flags.tiles_scene,

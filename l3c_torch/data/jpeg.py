@@ -20,8 +20,10 @@ hierarchical and arithmetic-coded files, 12-bit samples, four components
 inverse DCT leaves the range [-512, 511] before the level shift: there
 libjpeg-turbo's C code (a lookup in a wrapping table) and its SIMD code
 (saturating packs) give different pixels, and the module does not guess
-which one the reader's Pillow runs. `jpeg_mode` gives Pillow's mode for
-the file from its header alone ("L", "RGB", "CMYK").
+which one the reader's Pillow runs (`decode_jpeg(..., saturate=True)`
+gives the SIMD code's pixels there, for bytes the caller wrote itself).
+`jpeg_mode` gives Pillow's mode for the file from its header alone ("L",
+"RGB", "CMYK").
 """
 from __future__ import annotations
 
@@ -335,16 +337,34 @@ def _idct_1d(x: np.ndarray, shift: int) -> np.ndarray:
     return (out + (1 << (shift - 1))) >> shift
 
 
-def idct_islow(coefs: np.ndarray, path: str = "") -> np.ndarray:
+# blocks decode_jpeg(..., saturate=True) found outside the range where
+# libjpeg-turbo's C and SIMD inverse DCTs agree, since the process began
+COUNTS = {"saturated_blocks": 0}
+
+
+def idct_islow(coefs: np.ndarray, path: str = "",
+               saturate: bool = False) -> np.ndarray:
     """(N, 8, 8) dequantized coefficients (natural order) -> (N, 8, 8)
-    uint8 samples: columns, then rows, then the level shift."""
+    uint8 samples: columns, then rows, then the level shift.
+
+    A block outside the range where libjpeg-turbo's C and SIMD code agree
+    raises, unless `saturate`: then it gets what the SIMD code gives (the
+    first pass's results saturated to 16 bits, the samples to 0..255,
+    which is Pillow's on an x86-64 host) and is counted in
+    COUNTS["saturated_blocks"]."""
     ws = _idct_1d(np.swapaxes(coefs.astype(np.int64), 1, 2),
                   CONST_BITS - PASS1_BITS)            # per column
+    wide = (np.abs(ws) > 32767).any((1, 2))
+    if saturate:
+        ws = np.clip(ws, -32768, 32767)
     x = _idct_1d(np.swapaxes(ws, 1, 2), CONST_BITS + PASS1_BITS + 3)
-    if (np.abs(ws) > 32767).any() or (x < -512).any() or (x > 511).any():
-        raise ValueError(f"{path}: JPEG coefficients outside the range "
-                         "where libjpeg-turbo's C and SIMD inverse DCTs "
-                         "agree; not decoded")
+    wide |= (x < -512).any((1, 2)) | (x > 511).any((1, 2))
+    if wide.any():
+        if not saturate:
+            raise ValueError(f"{path}: JPEG coefficients outside the range "
+                             "where libjpeg-turbo's C and SIMD inverse DCTs "
+                             "agree; not decoded")
+        COUNTS["saturated_blocks"] += int(wide.sum())
     return np.clip(x + 128, 0, 255).astype(np.uint8)
 
 
@@ -563,10 +583,17 @@ def _scan(blob, seg, after, frame, qt, dht, restart, coefs, qt_of, seen,
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a baseline JPEG, as Pillow's
+    """(H, W, 3) uint8 RGB of a baseline JPEG file, as Pillow's
     Image.open(path).convert("RGB") gives it (grey replicated)."""
     with open(path, "rb") as f:
-        blob = f.read()
+        return decode_jpeg(f.read(), path)
+
+
+def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>",
+                saturate: bool = False) -> np.ndarray:
+    """read_jpeg of a file's bytes; `path` names it in errors. With
+    `saturate`, a block outside the inverse DCT's agreed range gives
+    Pillow's pixels (see idct_islow) instead of raising."""
     frame, blocks = _decode(blob, path)
     comps = frame.comps
     hmax, vmax, _, _ = frame.grid
@@ -575,7 +602,8 @@ def read_jpeg(path: str) -> np.ndarray:
         by, bx, _ = cf.shape
         nat = np.empty_like(cf)
         nat[..., ZIGZAG] = cf
-        px = idct_islow(nat.reshape(-1, 8, 8), path).reshape(by, bx, 8, 8)
+        px = idct_islow(nat.reshape(-1, 8, 8), path, saturate).reshape(
+            by, bx, 8, 8)
         px = px.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
         dh = -(-frame.height * c.v // vmax)
         dw = -(-frame.width * c.h // hmax)

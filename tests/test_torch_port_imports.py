@@ -62,7 +62,8 @@ def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
         "tools/swa.py", "eval/classic.py", "cli/classic.py",
         "parallel/__init__.py", "parallel/mesh.py", "parallel/fanout.py",
         "parallel/spatial.py", "data/jpeg.py", "data/resample.py",
-        "data/prep.py", "data/offline_corpus.py", "cli/prep_pipeline.py")} \
+        "data/prep.py", "data/offline_corpus.py", "cli/prep_pipeline.py",
+        "data/synth.py", "data/ndimage.py", "data/jpeg_encode.py")} \
         <= rel
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                              & set(FORBIDDEN))

@@ -376,10 +376,54 @@ def test_process_one_and_main_equal_jax(tmp_path, capsys):
 
 def test_pipeline_refusals(tmp_path):
     from l3c_torch.cli import prep_pipeline as tpipe
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17d"):
-        tpipe.main(["--offline", str(tmp_path), "--synth_families", "2"])
     with pytest.raises(SystemExit):
         tpipe.main([str(tmp_path)])
+
+
+@pytest.mark.parametrize("extra", [False, True])
+def test_offline_synth_families_equal_jax(tmp_path, monkeypatch, capsys,
+                                          extra):
+    """--offline --synth_families 3 --synth_tiles 2 in both packages, with
+    no corpus package installed (both modules' _SP an empty directory) and
+    with and without --extra_train_dirs: the same [synth] line, the same
+    x_synth_* tiles in train/ with the same pixels, the same cache
+    listing."""
+    from l3c_tpu.cli import prep_pipeline as jpipe
+    from l3c_tpu.data import offline_corpus as joc
+    from l3c_torch.cli import prep_pipeline as tpipe
+    from l3c_torch.data import offline_corpus as toc
+    from l3c_torch.data.images import read_png, write_png
+    empty = tmp_path / "no_packages"
+    empty.mkdir()
+    monkeypatch.setattr(joc, "_SP", str(empty))
+    monkeypatch.setattr(toc, "_SP", str(empty))
+    args = ["--synth_families", "3", "--synth_tiles", "2", "--tile", "64"]
+    if extra:
+        xd = tmp_path / "extra"
+        xd.mkdir()
+        write_png(str(xd / "mine.png"), np.full((64, 64, 3), 7, np.uint8))
+        args += ["--extra_train_dirs", str(xd)]
+    outs = {}
+    for tag, main in (("t", tpipe.main), ("j", jpipe.main)):
+        out = tmp_path / tag
+        assert main(["--offline", str(out)] + args) == 0
+        lines = capsys.readouterr().out.splitlines()
+        synth_line = [ln for ln in lines if ln.startswith("[synth]")]
+        assert synth_line == [f"[synth] 6 tiles across 3 families -> "
+                              f"{out / 'synth'}"]
+        train = sorted(os.listdir(str(out / "train")))
+        cache = pickle.load(open(str(out / "cache.pkl"), "rb"))
+        outs[tag] = (train, [sorted(map(os.path.basename, v))
+                             for v in cache.values()])
+    assert outs["t"] == outs["j"]
+    train = outs["t"][0]
+    assert train == sorted((["x_mine.png"] if extra else []) + [
+        f"x_synth_{f}_{t:04d}.png" for f in ("spectral", "terrain", "aniso")
+        for t in range(2)])
+    for n in train:
+        np.testing.assert_array_equal(
+            read_png(str(tmp_path / "t" / "train" / n)),
+            np.asarray(Image.open(str(tmp_path / "j" / "train" / n))))
 
 
 if __name__ == "__main__":
