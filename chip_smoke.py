@@ -80,7 +80,13 @@ Phases (each raises on failure; none carries on after another failed):
               variant (K6 at q.C = 9 and 16; K1-K6 at K = 12 and 16; K1
               and K3/K4 at L = 40), 2 x 64^2 pixels, against its plain
               version at the main path's bounds (K3/K4 exact, round
-              trip), each timed beside its plain version and bound
+              trip), each timed beside its plain version and bound (K3/K4
+              with their variant, generic or tiled, NS and T); then cr.cf
+              at full width with K = 16 from fresh seeded weights on the
+              8 images: one size-profile round (top-k 0), bit-exact,
+              launch-counted, every bn and RGB K3/K4 launch the generic
+              variant (the launchers' arguments read), each launch held
+              to its plain version and timed
  10. train    training through cli.train.main at full cr.cf width, batch
               16 x 128^2 (oi_offline.cf) on seeded PNGs: K6 (the mixture
               NLL, forward and backward) against its plain version on r5b's
@@ -115,9 +121,12 @@ Phases (each raises on failure; none carries on after another failed):
               plain row/lookup/pack on the card, its time and device time;
               each of that round's kernels and K6 on its training forward
               against the plain version and timed (the `baselines`
-              records); cli.test --sample of it; cr_rgb_shared through
-              cli.test --recursive auto (three recursions) and its
+              records); unit 0 alone (K4 generic uniform at L = 256) at
+              balanced and at size (--write_to_files'), held and timed with
+              NS and T; cli.test --sample of it; cr_rgb_shared through
+              cli.test --recursive auto (three recursions), its
               non-recursive round (unit 0 the whole x2-downsampled image)
+              and its unit 0 the same way
  12. host     the host codec (format v1: the network and the parameter
               pack on the card, rANS in C++ on the host) and the host
               tools, launch-counted (none of the kernels runs on them):
@@ -921,6 +930,7 @@ class CoderCase(NamedTuple):
     truth: Optional[torch.Tensor]
     bound: Tuple[float, str]
     fbatch: int
+    T: int                    # serial steps of a stream
 
 
 def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
@@ -937,17 +947,18 @@ def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
     t_policy = lambda n: gc.t_policy(n, bc.coder_profile)
     cases = []
 
-    def enc(label, run, plain, mode, ip, n_px):
+    def enc(label, run, plain, mode, ip, n_px, T):
         w, ln = run()
         cases.append(CoderCase("rans_encode", label, run, plain, None,
                                coder_bound(mode, ip, n_px,
-                                           int(ln.sum()) + ln.numel()), F))
+                                           int(ln.sum()) + ln.numel()), F,
+                               T))
         return w, ln
 
-    def dec(label, run, plain, truth, mode, ip, ln, c=0):
+    def dec(label, run, plain, truth, mode, ip, ln, T, c=0):
         cases.append(CoderCase("rans_decode", label, run, plain, truth,
                                coder_bound(mode, ip, truth.numel(),
-                                           int(ln.sum()), c, L), F))
+                                           int(ln.sum()), c, L), F, T))
 
     with torch.inference_mode():
         # ---- unit 0: the uniform prior over all its channels (L = 256
@@ -961,12 +972,12 @@ def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
                     lambda s=flat, y=lay: gc.encode_uniform(s, L_u, y),
                     lambda s=flat, y=lay: gc.encode_uniform_plain(s, L_u,
                                                                   y),
-                    "enc uniform", None, flat.numel())
+                    "enc uniform", None, flat.numel(), lay.T)
         wd = w[:, :int(ln.max())].contiguous()
         dec(f"uniform L={L_u} NS={lay.lanes} T={lay.T}",
             lambda w=wd, y=lay: gc.decode_uniform(w, L_u, y),
             lambda w=wd, y=lay: gc.decode_uniform_plain(w, L_u, y), syms,
-            "dec uniform", None, ln)
+            "dec uniform", None, ln, lay.T)
         # ---- the bn scales, then the RGB scales
         for key in [k for k in units if k.startswith("bn")]:
             scale = int(key[2:])
@@ -975,12 +986,13 @@ def coder_cases(bc, imgs, logits=None) -> List[CoderCase]:
             w, ln = enc(f"bn scale {scale} NS={lay.lanes} T={lay.T}",
                         lambda ip=ip, s=syms, y=lay: gc.encode_bn(ip, s, L, y),
                         lambda ip=ip, s=syms, y=lay: gc.encode_bn_plain(
-                            ip, s, L, y), "enc bn", ip, syms.numel())
+                            ip, s, L, y), "enc bn", ip, syms.numel(),
+                        lay.T)
             wd = w[:, :int(ln.max())].contiguous()
             dec(f"bn scale {scale} L={L} NS={lay.lanes} T={lay.T}",
                 lambda ip=ip, w=wd, y=lay: gc.decode_bn(ip, w, L, y),
                 lambda ip=ip, w=wd, y=lay: gc.decode_bn_plain(ip, w, L, y),
-                syms, "dec bn", ip, ln)
+                syms, "dec bn", ip, ln, lay.T)
         # ---- an RGB scale: both units stacked (encode), per channel
         # (decode)
         for key in [k for k in units if k.startswith("rgb")]:
@@ -997,7 +1009,7 @@ def rgb_cases(key, ip, img, n, enc, dec, t_policy, F):
     w6, l6 = enc(f"{key} NS={lay6.lanes} T={T}",
                  lambda: gc.encode_rgb(ip, img, lay6),
                  lambda: gc.encode_rgb_plain(ip, img, lay6), "enc rgb",
-                 ip, img.shape[1])
+                 ip, img.shape[1], T)
     lay = gc.layout_for(n, F, T)
     ns, half = F * lay.ns_c, lay6.lanes // 2
     planes = img.to(torch.uint8).contiguous()   # the lambda chain's
@@ -1015,14 +1027,14 @@ def rgb_cases(key, ip, img, n, enc, dec, t_policy, F):
                         ip, c, planes, w, lay),
                     lambda c=c, w=wd: gc.decode_rgb_coarse_plain(
                         ip, c, planes, w, lay),
-                    a_true[c], "dec rgb_coarse", ip, ln, c)
+                    a_true[c], "dec rgb_coarse", ip, ln, T, c)
             else:
                 dec(label,
                     lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine(
                         ip, c, planes, a, w, lay),
                     lambda c=c, w=wd, a=a_c: gc.decode_rgb_fine_plain(
                         ip, c, planes, a, w, lay),
-                    b_true[c], "dec rgb_fine", ip, ln, c)
+                    b_true[c], "dec rgb_fine", ip, ln, T, c)
 
 
 def same_output(case: CoderCase, got, want) -> bool:
@@ -1045,7 +1057,7 @@ def phase_coder(bc, cases, record):
     kernels a median of 5, the plain versions the comparison's one call
     (no warm-up; a median of more cost ~40 s of a run, their Python scans
     taking ~0.2-1.5 s a call). Without `record` (the layouts of phase cli)
-    the plain versions are not timed."""
+    the plain versions are not timed. Returns [(case, ms, plain ms)]."""
     tag = (f"{bc.coder_profile} F={cases[0].fbatch} "
            f"K'={bc.coder_topk or bc.cfg.prob.K} ")
     once = []
@@ -1071,8 +1083,8 @@ def phase_coder(bc, cases, record):
     for c, (ms, pms) in zip(cases, times):
         plain = f"{pms * 1e3:.1f} us" if record else "equal, not timed"
         log(f"[kernels] {c.kernel} {tag}{c.label}: {ms * 1e3:.1f} us/launch"
-            f" | plain {plain} | bound {c.bound[0] * 1e3:.1f} us "
-            f"({c.bound[1]})")
+            f" ({ms / c.T * 1e6:.1f} ns a step) | plain {plain} | bound "
+            f"{c.bound[0] * 1e3:.1f} us ({c.bound[1]})")
     # the JSON records: per launch, averaged over the round's launches of
     # each kernel (so launches x (ms - bound) is the round's gap); bound
     # by whichever limit contributes more of the summed bound
@@ -1091,6 +1103,7 @@ def phase_coder(bc, cases, record):
             record(name, 0, sum(times[i][0] for i in ix) / n,
                    sum(times[i][1] for i in ix) / n,
                    (sum(by.values()) / n, max(by, key=by.get)))
+    return [(c, ms, pms) for c, (ms, pms) in zip(cases, times)]
 
 
 def np_content_hash(px: np.ndarray) -> int:
@@ -1528,16 +1541,29 @@ LIMIT_K6 = ((False, 10, 9), (False, 4, 16), (True, 12, 3), (False, 16, 5),
 LIMIT_SIDE, LIMIT_N = 64, 2
 
 
-def limit_line(label, ms, plain_ms, b):
-    log(f"[limits] {label}: {ms * 1e3:.1f} us/launch | plain "
+def limit_line(label, ms, plain_ms, b, T=None):
+    """A [limits] line; a coder launch's also with its serial steps T (a
+    stream's symbols) and its time a step."""
+    steps = "" if T is None else f" | T={T}: {ms / T * 1e6:.1f} ns a step"
+    log(f"[limits] {label}: {ms * 1e3:.1f} us/launch{steps} | plain "
         f"{plain_ms * 1e3:.1f} us | bound {b[0] * 1e3:.2f} us ({b[1]})")
 
 
-def phase_limits(cfg, card, dev="cuda"):
+def coder_variant(kernel, mode, K, L):
+    """'generic' or 'tiled': the variant rans.cu's launcher runs (generic
+    past the tiles' K' <= 10 components, and for K4's uniform and bn modes
+    past their 33 symbols)."""
+    past = K > 10 or (kernel == "rans_decode" and mode in ("uniform", "bn")
+                      and L > 33)
+    return "generic" if past else "tiled"
+
+
+def phase_limits(cfg, card, imgs, dev="cuda"):
     """Every kernel where the JAX package's sizes pass its fast variant,
     at LIMIT_N x LIMIT_SIDE^2 pixels, against its plain version on the
     card at the bound the kernel is held to on the main path; each timed
-    (CUDA events around one call) beside its plain version and bound."""
+    (CUDA events around one call) beside its plain version and bound; then
+    a full-width model past the tiles (limits_full_width)."""
     from l3c_torch.models import dmll
     n_px = LIMIT_N * LIMIT_SIDE ** 2
     # ---- K6: channel groups and the generic variant
@@ -1611,7 +1637,7 @@ def phase_limits(cfg, card, dev="cuda"):
                lambda w: gc.decode_uniform(w, 40, lay),
                lambda w: gc.decode_uniform_plain(w, 40, lay),
                syms.reshape(cfg.q.C, -1), ("enc uniform", "dec uniform"),
-               None, n_px * cfg.q.C, 40)
+               None, n_px * cfg.q.C, 40, lay.T)
     # ---- K1 / K2 at K = 12 and 16, K1 at L = 40
     bw, t0 = float_cdf._bw_t0(blueprint.rgb_spec(cfg))
     for K, L in ((12, 16), (16, 16), (10, 40), (16, 40)):
@@ -1638,13 +1664,106 @@ def phase_limits(cfg, card, dev="cuda"):
                       + P * (16 * OPS_FINE_ENTRY + OPS_FINE_PIXEL)))
     log(f"[limits] every kernel at q.C = 9 / 16, K = 12 / 16 and L = 40 "
         f"held to its plain version | {card}")
+    limits_full_width(cfg, imgs, card, dev)
+
+
+# the full-width model past the tiles: cr.cf with K = 16 mixture components
+# (the JAX package takes up to 255), fresh weights from this seed
+LIMIT_FULL_K, LIMIT_FULL_SEED = 16, 0
+
+
+def rans_params(fn: str) -> List[str]:
+    """The parameter names of launcher `fn` of csrc/rans.cu."""
+    with open(os.path.join(build.CSRC, "rans.cu")) as f:
+        found = dict(build._EXTERN.findall(f.read()))
+    return [p.replace("*", " ").split()[-1] for p in found[fn].split(",")]
+
+
+@contextlib.contextmanager
+def coder_args(seen: list):
+    """While open, every K3/K4 launch appends (kernel, mode, K', L, T,
+    lanes), as the wrappers pass them to the launchers."""
+    names = {fn: rans_params(fn) for fn in ("l3c_rans_encode",
+                                            "l3c_rans_decode")}
+    modes = {"l3c_rans_encode": {v: k for k, v in kernels.ENC_MODES.items()},
+             "l3c_rans_decode": {v: k for k, v in kernels.DEC_MODES.items()}}
+    orig = build.call
+
+    def call(lib, fn, *args):
+        if fn in names:
+            a = dict(zip(names[fn], args))
+            seen.append((fn[4:], modes[fn][a["mode"]], a["K"], a["L"],
+                         a["T"], a["lanes"]))
+        return orig(lib, fn, *args)
+
+    build.call = call
+    try:
+        yield
+    finally:
+        build.call = orig
+
+
+def coder_line(tag, case, ms):
+    """Log a K3/K4 case held to its plain version with its time, its
+    variant (read from the launcher's arguments of one more run), T and
+    its time a step."""
+    one = []
+    with coder_args(one):
+        case.run()
+    (k, m, K, L, T, _), = one
+    log(f"{tag} {k} {coder_variant(k, m, K, L)} {case.label}: "
+        f"{ms * 1e3:.1f} us/launch | T={T}: {ms / T * 1e6:.1f} ns a step | "
+        f"equal to the plain version | bound {case.bound[0] * 1e3:.2f} us "
+        f"({case.bound[1]})")
+
+
+def limits_full_width(cfg, imgs, card, dev="cuda"):
+    """cr.cf at full width with K = LIMIT_FULL_K components, fresh weights
+    (seed LIMIT_FULL_SEED), on the B images of bench.py's recipe: one
+    TorchBitcoding round at the size profile (top-k 0, so every bn and RGB
+    unit has K' = 16, as cli.test --write_to_files codes): every pixel
+    round-trips, the round launches exactly an encode's and a decode's
+    kernels and every bn and RGB K3/K4 launch runs the generic variant;
+    then each K3/K4 launch of the round held to its plain version and
+    timed, with its variant, NS and T."""
+    t_start = time.perf_counter()
+    cfg_k = dataclasses.replace(cfg, prob=dataclasses.replace(
+        cfg.prob, K=LIMIT_FULL_K))
+    torch.manual_seed(LIMIT_FULL_SEED)
+    net = MultiscaleNetwork(cfg_k).to(dev).eval()
+    bc = TorchBitcoding(cfg_k, net, device=dev, coder_profile="size")
+    label = f"cr.cf K={LIMIT_FULL_K} fresh, size"
+    seen = []
+    with tempfile.TemporaryDirectory(prefix="l3c_limits_") as d:
+        bc.encode_batch(imgs, [os.path.join(d, f"w{b}.l3c")
+                               for b in range(len(imgs))])   # the canary
+        paths = [os.path.join(d, f"r{b}.l3c") for b in range(len(imgs))]
+        with coder_args(seen):
+            outs = counted({}, f"{label} round", lambda: (
+                bc.encode_batch(imgs, paths), bc.decode_batch(paths))[1],
+                ENCODE, DECODE)
+    if not all(np.array_equal(o, im) for o, im in zip(outs, imgs)):
+        raise RuntimeError(f"{label}: the round trip is NOT bit-exact")
+    variants = [(k, m, coder_variant(k, m, K, L)) for k, m, K, L, _, _ in
+                seen]
+    log(f"[limits] {label}: {len(imgs)} x {imgs[0].shape[1]} x "
+        f"{imgs[0].shape[2]} bit-exact; K3/K4 launches (kernel, mode, K', "
+        f"L, T, NS): {seen}")
+    off = [v for v in variants if v[1] != "uniform" and v[2] != "generic"]
+    if off or len(variants) != ENCODE["rans_encode"] + DECODE["rans_decode"]:
+        raise RuntimeError(f"{label}: bn and RGB launches not all generic: "
+                           f"{variants}")
+    for c, ms, _ in phase_coder(bc, coder_cases(bc, imgs), None):
+        coder_line(f"[limits] {label}", c, ms)
+    log(f"[limits] {label}: every bn and RGB launch generic, held to its "
+        f"plain version ({time.perf_counter() - t_start:.1f} s) | {card}")
 
 
 def coder_pair(label, enc, enc_plain, dec, dec_plain, truth, modes, ip,
-               n_sym, L, c=0):
+               n_sym, L, T, c=0):
     """One K3 encode and its K4 decode against their plain versions:
     lengths and used words identical, symbols identical and equal to the
-    coded ones; both timed."""
+    coded ones; both timed, with their variant and T."""
     (w, ln), (wp, lp) = enc(), enc_plain()
     used = lambda w_, l_: w_[torch.arange(w_.shape[1], device=w_.device)[
         None] < l_[:, None]]
@@ -1656,11 +1775,16 @@ def coder_pair(label, enc, enc_plain, dec, dec_plain, truth, modes, ip,
             got.reshape(truth.shape).long(), truth.long()):
         raise RuntimeError(f"K4 {label}: symbols differ or do not round-trip")
     n_words = int(ln.sum())
-    limit_line(f"K3 {label}", cuda_ms(enc), cuda_ms(enc_plain, 1),
-               coder_bound(modes[0], ip, n_sym, n_words, c, L))
-    limit_line(f"K4 {label}", cuda_ms(lambda: dec(words)),
+    K = 0 if ip is None else ip.p.shape[1]
+    mode = modes[0].split()[1]
+    ns = f"NS={ln.numel()}"
+    limit_line(f"K3 {coder_variant('rans_encode', mode, K, L)} {label} {ns}",
+               cuda_ms(enc), cuda_ms(enc_plain, 1),
+               coder_bound(modes[0], ip, n_sym, n_words, c, L), T)
+    limit_line(f"K4 {coder_variant('rans_decode', mode, K, L)} {label} {ns}",
+               cuda_ms(lambda: dec(words)),
                cuda_ms(lambda: dec_plain(words), 1),
-               coder_bound(modes[1], ip, n_sym, n_words, c, L))
+               coder_bound(modes[1], ip, n_sym, n_words, c, L), T)
     log(f"[limits] K3/K4 {label}: words, lengths and symbols equal to the "
         "plain versions', round trip exact")
 
@@ -1679,7 +1803,7 @@ def coder_limits(tag, ip, rgb, C, L, dev):
                    lambda: gc.encode_bn_plain(ip, syms, L, lay),
                    lambda w: gc.decode_bn(ip, w, L, lay),
                    lambda w: gc.decode_bn_plain(ip, w, L, lay), syms,
-                   ("enc bn", "dec bn"), ip, N * C, L)
+                   ("enc bn", "dec bn"), ip, N * C, L, lay.T)
         return
     img = torch.from_numpy(rng.randint(0, 256, (3, N))).to(dev)
     lay6, lay = gc.layout_for(N, 6, 256), gc.layout_for(N, 1, 256)
@@ -1690,9 +1814,12 @@ def coder_limits(tag, ip, rgb, C, L, dev):
     if not (torch.equal(l6, lp) and torch.equal(used(w6, l6),
                                                 used(wp, lp))):
         raise RuntimeError(f"K3 RGB {tag} differs from its plain version")
-    limit_line(f"K3 RGB {tag}", cuda_ms(lambda: gc.encode_rgb(ip, img, lay6)),
+    K = ip.p.shape[1]
+    limit_line(f"K3 {coder_variant('rans_encode', 'rgb', K, 16)} RGB {tag} "
+               f"NS={lay6.lanes}",
+               cuda_ms(lambda: gc.encode_rgb(ip, img, lay6)),
                cuda_ms(lambda: gc.encode_rgb_plain(ip, img, lay6), 1),
-               coder_bound("enc rgb", ip, N, int(l6.sum())))
+               coder_bound("enc rgb", ip, N, int(l6.sum())), lay6.T)
     ns, half = lay.ns_c, lay6.lanes // 2
     dec = torch.zeros((3, N), dtype=torch.uint8, device=dev)
     for c in range(3):
@@ -1710,15 +1837,17 @@ def coder_limits(tag, ip, rgb, C, L, dev):
             raise RuntimeError(f"K4 RGB {tag} channel {c} differs from its "
                                "plain version")
         if c == 0:
-            limit_line(f"K4 RGB coarse {tag}", cuda_ms(
+            var = coder_variant("rans_decode", "rgb", K, 16)
+            limit_line(f"K4 {var} RGB coarse {tag} NS={ns}", cuda_ms(
                 lambda: gc.decode_rgb_coarse(ip, c, dec, wc, lay)), cuda_ms(
                 lambda: gc.decode_rgb_coarse_plain(ip, c, dec, wc, lay), 1),
-                coder_bound("dec rgb_coarse", ip, N, int(l6[:ns].sum())))
-            limit_line(f"K4 RGB fine {tag}", cuda_ms(
+                coder_bound("dec rgb_coarse", ip, N, int(l6[:ns].sum())),
+                lay.T)
+            limit_line(f"K4 {var} RGB fine {tag} NS={ns}", cuda_ms(
                 lambda: gc.decode_rgb_fine(ip, c, dec, a, wf, lay)), cuda_ms(
                 lambda: gc.decode_rgb_fine_plain(ip, c, dec, a, wf, lay), 1),
                 coder_bound("dec rgb_fine", ip, N,
-                            int(l6[half:half + ns].sum())))
+                            int(l6[half:half + ns].sum())), lay.T)
         dec[c] = (a << 4) | b
     if not torch.equal(dec.long(), img.long()):
         raise RuntimeError(f"K3/K4 RGB {tag}: no round trip")
@@ -2409,6 +2538,7 @@ def phase_baselines(imgs, card, keep):
         phase_coder(bc, coder_cases(bc, imgs, logits), record)
         phase_pack(bc, logits, record)
         del logits
+        unit0_lines(cfg, tester.net, imgs, "cr_rgb")
         tb = TrainBatches(sorted(os.path.join(train_dir, f)
                                  for f in os.listdir(train_dir)),
                           16, 128, seed=0)
@@ -2463,12 +2593,23 @@ def phase_baselines(imgs, card, keep):
                             coder_profile="balanced", coder_topk=4)
         baseline_round(bc, imgs, enc_l, dec_l, plain_bpsp, card,
                        "cr_rgb_shared")
-        # its unit 0 (the whole x2 image at L = 256), against the plain
-        # versions; its scale-0 units are cr_rgb's kind
-        phase_coder(bc, [c for c in coder_cases(bc, imgs)
-                         if c.label.startswith("uniform")], None)
+        # its unit 0 (the whole x2 image at L = 256); its scale-0 units are
+        # cr_rgb's kind
+        unit0_lines(cfg, tester.net, imgs, "cr_rgb_shared")
         del bc, tester, t0
     return recs, kept
+
+
+def unit0_lines(cfg, net, imgs, label):
+    """A baseline's unit 0 (uniform, L = 256) alone, K3 and K4 at the
+    balanced profile (the round's) and at size (cli.test --write_to_files'),
+    each held to its plain version and timed with its variant, NS and T."""
+    for profile in ("balanced", "size"):
+        bc = TorchBitcoding(cfg, net, device="cuda", coder_profile=profile)
+        cases = [c for c in coder_cases(bc, imgs)
+                 if c.label.startswith("uniform")]
+        for c, ms, _ in phase_coder(bc, cases, None):
+            coder_line(f"[baselines] {label} unit 0 {profile}", c, ms)
 
 
 def baseline_round(bc, imgs, enc_l, dec_l, theory, card, label):
@@ -4079,7 +4220,7 @@ def main() -> int:
     timed("stages", phase_stages, net, cfg, imgs, card)
     timed("sample", phase_sample, ZOO, LOG_DATE, imgs[:2], cfg, card, "r5b")
     timed("serve", phase_serve, cfg, net, imgs, card)
-    timed("limits", phase_limits, cfg, card)
+    timed("limits", phase_limits, cfg, card, imgs)
     with tempfile.TemporaryDirectory(prefix="l3c_keep_") as keep:
         train_recs, resumed_dir, resumed_losses = timed(
             "train", phase_train, net, cfg, card, keep)

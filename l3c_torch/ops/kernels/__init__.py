@@ -36,8 +36,10 @@ coders of `gpu_coder` (`encode_*` / `decode_*`), the codec's
 
 Every kernel takes the sizes the JAX package takes. Its fast variant
 covers K <= 10 components (and K1's L <= 32 edges, the coder's L <= 33
-symbols); beyond them the same launcher runs the source's generic variant
-(not tuned), never the plain version. What caps remain: K <= MAX_K = 255
+symbols); beyond them the same launcher runs the source's generic variant,
+never the plain version (K3/K4's: the RGB baselines' unit 0 at L = 256 and
+every model with K' > 10; csrc/rans.cu says how they are built). What
+caps remain: K <= MAX_K = 255
 in K3-K6 (the JAX package ranks components as u8,
 l3c_tpu/ops/int_coder.py:216) and L <= MAX_L = 256 in K3/K4 (u8 symbols;
 the v8 evaluator's edge products stay exact below 2^24 only for edges

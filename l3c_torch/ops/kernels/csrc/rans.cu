@@ -53,12 +53,40 @@
 //
 // The tiles hold rows of at most 32 entries (L <= 33) and registers for
 // at most kMaxK components. Beyond them the launchers run generic
-// variants (one thread a stream, each row entry or lookup evaluated when
-// the walk needs it, the parameters read where they lie): the same
-// exact-integer expressions, so the same words and symbols as the tiled
-// kernels wherever both run, up to K' <= 255 (the JAX package's u8
-// component rank) and L <= 256 (u8 symbols; the evaluator's products
-// e a stay exact, below 2^24, for edges e <= 256). They are not tuned.
+// variants, up to K' <= 255 (the JAX package's u8 component rank) and L <=
+// 256 (u8 symbols; the evaluator's products e a stay exact, below 2^24,
+// for edges e <= 256), with the same exact-integer expressions, so the same
+// words and symbols as the tiled kernels wherever both run:
+//   - K3 generic (K' > 10) is the tiled encoder itself with each lookup a
+//     loop over the components (a pixel's parameters loaded once each, no
+//     register array of K' entries) and 2 streams a block, so a launch of
+//     few streams still spreads over the SMs;
+//   - K4 uniform (L > 33) walks one stream a thread by the closed-form
+//     inverse of the row (edge e = floor(e 2^16 / L)): the symbol of cf is
+//     ((cf + 1) L - 1) >> 16, its two edges come from a table of the L + 1
+//     edges in shared memory; no row is built and no sigmoid evaluated; a
+//     block is one warp, so the streams spread over the SMs;
+//   - K4 bn, coarse and fine (K' > 10, or bn L > 33) give a block one
+//     stream: 7 builder warps evaluate the stream's rows a tile ahead of
+//     the walk into shared memory, a warp a row with lane j on edges
+//     j + 1 + 32 i (fine: edges 0..16, whose 0 and 16 are the coarse bin's
+//     bounds); the components come in chunks of 32, lane j loading
+//     component j's parameters (one load a field for the chunk) and
+//     staging them in shared memory, where every lane reads each with one
+//     broadcast 16-byte load. Warp 0 walks, searching a row with the whole
+//     warp (the reference's counts and extrema by __ballot_sync / __popc
+//     and warp max / min reductions, the next row's entries read a step
+//     ahead); the stream's renorm words come in coalesced windows of 32,
+//     the next window loaded a window ahead and the next word shuffled out
+//     a renorm ahead, so no load sits on the state's chain. The rows
+//     depend on the IntParams, dec and asym alone, never on the state, so
+//     building them ahead changes no result.
+// What bounds the generic variants is the serial chain of each stream
+// (T dependent steps; a few streams a launch), not bytes or operations:
+// their times are read a step (ms / T) beside the bounds.
+// A row entry sums its K' terms in k order, as int_coder does; each term
+// is an integer <= 16384 held in f32, so a sum of up to 255 terms stays
+// below 2^24 and is exact in any order (int_cdf.cuh).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -73,6 +101,7 @@ constexpr int kThreads = 256;               // warp 0 walks, 1..7 build
 constexpr int kBuilders = kThreads - 32;
 constexpr int kDecStreams = 8;              // streams per decode block
 constexpr int kEncStreams = 16;             // streams per encode block
+constexpr int kEncStreamsGeneric = 2;       // K3 generic's
 constexpr int kMaxK = 10;                   // mixture components K'
 constexpr int kMaxKGeneric = 255;           // K' of the generic variants
 constexpr int kMaxLTile = 33;               // the tiles' symbols
@@ -435,106 +464,7 @@ __device__ __forceinline__ uint2 lookup_rgb(const Params& P,
                             kFineBins)));
 }
 
-// encode tile geometry: kG streams x kS steps of packed (start, freq);
-// RGB blocks walk the coarse and the fine streams of the same kPix pixel
-// streams, whose lookups one builder computes from one read of the params
-template <int MODE>
-struct EncTile {
-  static constexpr int kLevels = MODE == kEncRgb ? 2 : 1;
-  static constexpr int kG = kEncStreams;
-  static constexpr int kPix = kG / kLevels;
-  static constexpr int kS = kBuilders / kPix;    // one pixel per builder
-  static constexpr size_t kBufBytes = 2 * kG * kS * sizeof(uint32_t);
-};
-
-// IntParams P; sym (C, N) u8 symbol planes (RGB: the image's three
-// channel planes) -> words (lanes, T + 2) int32 u16 values in decode
-// order [state_lo, state_hi, renorm words...], slots past a stream's
-// length left as they are; lengths (lanes,) int32 = renorm words + 2.
-// RGB: lanes [0, lanes/2) code the coarse symbols of groups 0..3F-1
-// (channel-major), lanes [lanes/2, lanes) the fine ones.
-template <int MODE, int KMAX>
-__global__ void __launch_bounds__(kThreads)
-    rans_encode_kernel(Params P, const uint8_t* __restrict__ sym,
-                       int32_t* __restrict__ words,
-                       int32_t* __restrict__ lengths, Geom G, int L) {
-  using E = EncTile<MODE>;
-  constexpr int kG = E::kG, kPix = E::kPix, kS = E::kS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
-  uint32_t* sf = reinterpret_cast<uint32_t*>(
-      smem + table_bytes<MODE == kEncUniform>());     // [2][kG][kS]
-  const int tid = threadIdx.x;
-  const int pix_lanes = G.lanes / E::kLevels;
-  const int s_first = blockIdx.x * kPix;
-  const int ntiles = (G.T + kS - 1) / kS;
-  if (table_bytes<MODE == kEncUniform>()) {
-    fill_sigmoid_table(tab, tid, kThreads);
-    __syncthreads();
-  }
-
-  auto build = [&](int t0, int buf) {
-    const int idx = tid - 32;
-    const int gl = idx / kS, tt = idx % kS;
-    const int s = s_first + gl, t = t0 + tt;
-    if (s >= pix_lanes || t >= G.T) return;
-    const int g = s / G.ns_c;
-    const int i = (s % G.ns_c) * G.T + t;
-    if (i >= G.n) return;
-    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i;
-    uint32_t* out = sf + (buf * kG + gl) * kS + tt;
-    if (MODE == kEncRgb) {
-      const uint2 q = lookup_rgb<KMAX>(P, tab, sym, g / G.F, pix);
-      out[0] = q.x;
-      out[kPix * kS] = q.y;                  // the fine stream's slot
-    } else {
-      out[0] = lookup<MODE, KMAX>(P, tab, sym, g / G.F, pix, L);
-    }
-  };
-
-  // walker tid codes level tid / kPix of pixel stream s_first + tid % kPix
-  const int ps = s_first + tid % kPix;
-  const bool walker = tid < kG && ps < pix_lanes;
-  const int s = (tid / kPix) * pix_lanes + ps;
-  int32_t* row = words + static_cast<size_t>(walker ? s : 0) * (G.T + 2);
-  const int nvalid = walker ? min(G.T, G.n - (ps % G.ns_c) * G.T) : 0;
-  uint32_t x = kRansL;
-  int nw = 0;                               // renorm words emitted so far
-  if (tid >= 32) build((ntiles - 1) * kS, 0);
-  for (int it = 0; it < ntiles; ++it) {     // rANS encodes in reverse
-    __syncthreads();
-    const int buf = it & 1;
-    const int t0 = (ntiles - 1 - it) * kS;
-    if (tid < 32) {
-      const int steps = walker ? min(kS, nvalid - t0) : 0;
-      const uint32_t* tile = sf + (buf * kG + tid) * kS;
-      for (int tt = steps - 1; tt >= 0; --tt) {
-        const uint32_t v = tile[tt];
-        const uint32_t st = v & 0xFFFFu, f = v >> 16;
-        if (x >= (f << 16)) {
-          // the k-th emitted word is the (n_emit-1-k)-th in decode order:
-          // park it at the row's end, counting down
-          row[G.T + 1 - nw] = static_cast<int32_t>(x & 0xFFFFu);
-          ++nw;
-          x >>= 16;
-        }
-        const uint32_t fs = f > 0 ? f : 1u;
-        x = ((x / fs) << 16) + (x % fs) + st;
-      }
-    } else if (it + 1 < ntiles) {
-      build(t0 - kS, buf ^ 1);
-    }
-  }
-  if (!walker) return;
-  // move the nw parked words [T+2-nw, T+2) to [2, 2+nw): dst < src, so an
-  // ascending copy never overwrites a word before it is read
-  for (int i = 0; i < nw; ++i) row[2 + i] = row[G.T + 2 - nw + i];
-  row[0] = static_cast<int32_t>(x & 0xFFFFu);
-  row[1] = static_cast<int32_t>(x >> 16);
-  lengths[s] = nw + 2;
-}
-
-// ------------------------------------------------------------ generic
+// ------------------------------------------------- generic lookups
 
 // field f of channel c, component k at pixel pix, read where it lies
 __device__ __forceinline__ float ldk(const float* f, const Params& P, int c,
@@ -554,119 +484,8 @@ __device__ __forceinline__ float chained_v(const Params& P, int c, int k,
                             ldk(P.w, P, 2, k, pix), s0, s1);
 }
 
-// what every entry of a pixel's row needs: the conditioning symbols and,
-// for fine rows, the coarse bin's bounds
-struct RowCtx {
-  float s0, s1, af, lo, d;
-};
-
-template <int MODE>
-__device__ __forceinline__ RowCtx row_ctx(const Params& P,
-                                          const uint16_t* tab,
-                                          const uint8_t* __restrict__ dec,
-                                          const uint8_t* __restrict__ asym,
-                                          int c, size_t pix) {
-  RowCtx r{0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  if (MODE == kDecCoarse || MODE == kDecFine) {
-    if (c > 0) r.s0 = static_cast<float>(__ldg(dec + pix));
-    if (c > 1) r.s1 = static_cast<float>(__ldg(dec + P.N + pix));
-  }
-  if (MODE == kDecFine) {
-    r.af = static_cast<float>(__ldg(asym + pix));
-    float c_lo = 0.0f, c_hi = 0.0f;
-    for (int k = 0; k < P.K; ++k) {
-      const float p = ldk(P.p, P, c, k, pix);
-      const float z_a = fine_za(r.af, ldk(P.sc, P, c, k, pix),
-                                chained_v(P, c, k, pix, r.s0, r.s1));
-      c_lo += table_term(tab, p, clip_z(z_a));
-      c_hi += table_term(
-          tab, p,
-          fine_z(z_a, static_cast<float>(kFineBins), ldk(P.a, P, c, k, pix)));
-    }
-    cond_bounds(r.af, cdf_clamp(c_lo), cdf_clamp(c_hi), &r.lo, &r.d);
-  }
-  return r;
-}
-
-// entry e (1..L-1) of channel c's row at pixel pix, as build_row makes it
-template <int MODE>
-__device__ __forceinline__ uint32_t row_entry(const Params& P,
-                                              const uint16_t* tab,
-                                              const RowCtx& r, int c,
-                                              size_t pix, int e, int L) {
-  if (MODE == kDecUniform) return static_cast<uint32_t>(uniform_edge(e, L));
-  const float ef = static_cast<float>(e);
-  float acc = 0.0f;
-  for (int k = 0; k < P.K; ++k) {
-    const float p = ldk(P.p, P, c, k, pix);
-    if (MODE == kDecBn) {
-      acc += table_term(
-          tab, p, bn_z(ef, ldk(P.a, P, c, k, pix), ldk(P.v, P, c, k, pix)));
-    } else if (MODE == kDecCoarse) {
-      acc += table_term(tab, p,
-                        coarse_z(ef, ldk(P.sc, P, c, k, pix),
-                                 chained_v(P, c, k, pix, r.s0, r.s1)));
-    } else {
-      const float z_a = fine_za(r.af, ldk(P.sc, P, c, k, pix),
-                                chained_v(P, c, k, pix, r.s0, r.s1));
-      acc += table_term(tab, p, fine_z(z_a, ef, ldk(P.a, P, c, k, pix)));
-    }
-  }
-  float cq = cdf_clamp(acc);
-  if (MODE == kDecFine) cq = cond_norm(cq, r.lo, r.d);
-  return static_cast<uint32_t>(quantize_edge(cq, ef, L));
-}
-
-// rans_decode_kernel's function for any K' and L: thread s walks stream s,
-// searching its row entry by entry (the same counts and extrema)
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-    rans_decode_generic(Params P, const uint8_t* __restrict__ dec,
-                        const uint8_t* __restrict__ asym,
-                        const int32_t* __restrict__ words,
-                        uint8_t* __restrict__ syms, Geom G, int W, int L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
-  if (table_bytes<MODE == kDecUniform>()) {
-    fill_sigmoid_table(tab, threadIdx.x, kThreads);
-    __syncthreads();
-  }
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= G.lanes) return;
-  const int32_t* wr = words + static_cast<size_t>(s) * W;
-  uint32_t x = static_cast<uint32_t>(wr[0]) |
-               (static_cast<uint32_t>(wr[1]) << 16);
-  int cur = 2;
-  const int g = s / G.ns_c, i0 = (s % G.ns_c) * G.T;
-  const int c = G.c0 + g / G.F;
-  const int nvalid = min(G.T, G.n - i0);
-  const size_t out = static_cast<size_t>(g) * G.n + i0;
-  for (int t = 0; t < nvalid; ++t) {
-    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i0 + t;
-    const RowCtx r = row_ctx<MODE>(P, tab, dec, asym, c, pix);
-    const uint32_t cf = x & 0xFFFFu;
-    uint32_t cnt = 0, lo = 0, hi = 65536;
-    for (int e = 1; e < L; ++e) {
-      const uint32_t q = row_entry<MODE>(P, tab, r, c, pix, e, L);
-      if (q <= cf) {
-        ++cnt;
-        lo = max(lo, q);
-      } else {
-        hi = min(hi, q);
-      }
-    }
-    const uint32_t x1 = (hi - lo) * (x >> 16) + cf - lo;
-    if (x1 < kRansL) {
-      x = (x1 << 16) | (cur < W ? static_cast<uint32_t>(wr[cur]) : 0u);
-      ++cur;
-    } else {
-      x = x1;
-    }
-    syms[out + t] = static_cast<uint8_t>(cnt);
-  }
-}
-
-// lookup's packed (start, freq) for any K'
+// lookup's packed (start, freq) for any K': a loop over the components,
+// each one's parameters loaded once for both edges
 template <int MODE>
 __device__ __forceinline__ uint32_t lookup_generic(
     const Params& P, const uint16_t* tab, const uint8_t* __restrict__ sym,
@@ -718,56 +537,382 @@ __device__ __forceinline__ uint2 lookup_rgb_generic(
                             kFineBins)));
 }
 
-// rans_encode_kernel's function for any K': thread s codes lane s, each
-// symbol's pair evaluated when the walk reaches it
-template <int MODE>
+// the encode builders' lookups: KMAX registers a parameter, or (KMAX = 0,
+// K3 generic) the loops above
+template <int MODE, int KMAX>
+__device__ __forceinline__ uint32_t lookup_any(
+    const Params& P, const uint16_t* tab, const uint8_t* __restrict__ sym,
+    int c, size_t pix, int L) {
+  if constexpr (KMAX == 0) {
+    return lookup_generic<MODE>(P, tab, sym, c, pix, L);
+  } else {
+    return lookup<MODE, KMAX>(P, tab, sym, c, pix, L);
+  }
+}
+
+template <int KMAX>
+__device__ __forceinline__ uint2 lookup_rgb_any(
+    const Params& P, const uint16_t* tab, const uint8_t* __restrict__ sym,
+    int c, size_t pix) {
+  if constexpr (KMAX == 0) {
+    return lookup_rgb_generic(P, tab, sym, c, pix);
+  } else {
+    return lookup_rgb<KMAX>(P, tab, sym, c, pix);
+  }
+}
+
+// encode tile geometry: kG streams x kS steps of packed (start, freq);
+// RGB blocks walk the coarse and the fine streams of the same kPix pixel
+// streams, whose lookups one builder computes from one read of the params
+// (kG = kEncStreams in the tiled kernels, kEncStreamsGeneric in K3 generic)
+template <int MODE, int NG = kEncStreams>
+struct EncTile {
+  static constexpr int kLevels = MODE == kEncRgb ? 2 : 1;
+  static constexpr int kG = NG;
+  static constexpr int kPix = kG / kLevels;
+  static constexpr int kS = kBuilders / kPix;    // one pixel per builder
+  static constexpr size_t kBufBytes = 2 * kG * kS * sizeof(uint32_t);
+};
+
+// IntParams P; sym (C, N) u8 symbol planes (RGB: the image's three
+// channel planes) -> words (lanes, T + 2) int32 u16 values in decode
+// order [state_lo, state_hi, renorm words...], slots past a stream's
+// length left as they are; lengths (lanes,) int32 = renorm words + 2.
+// RGB: lanes [0, lanes/2) code the coarse symbols of groups 0..3F-1
+// (channel-major), lanes [lanes/2, lanes) the fine ones. KMAX = 0 is K3
+// generic: any K', NG streams a block.
+template <int MODE, int KMAX, int NG = kEncStreams>
 __global__ void __launch_bounds__(kThreads)
-    rans_encode_generic(Params P, const uint8_t* __restrict__ sym,
-                        int32_t* __restrict__ words,
-                        int32_t* __restrict__ lengths, Geom G, int L) {
+    rans_encode_kernel(Params P, const uint8_t* __restrict__ sym,
+                       int32_t* __restrict__ words,
+                       int32_t* __restrict__ lengths, Geom G, int L) {
+  using E = EncTile<MODE, NG>;
+  constexpr int kG = E::kG, kPix = E::kPix, kS = E::kS;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* sf = reinterpret_cast<uint32_t*>(
+      smem + table_bytes<MODE == kEncUniform>());     // [2][kG][kS]
+  const int tid = threadIdx.x;
+  const int pix_lanes = G.lanes / E::kLevels;
+  const int s_first = blockIdx.x * kPix;
+  const int ntiles = (G.T + kS - 1) / kS;
   if (table_bytes<MODE == kEncUniform>()) {
-    fill_sigmoid_table(tab, threadIdx.x, kThreads);
+    fill_sigmoid_table(tab, tid, kThreads);
     __syncthreads();
   }
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= G.lanes) return;
-  const int pix_lanes = G.lanes / EncTile<MODE>::kLevels;
-  const int level = s / pix_lanes, ps = s - level * pix_lanes;
-  const int g = ps / G.ns_c, i0 = (ps % G.ns_c) * G.T;
-  const int nvalid = min(G.T, G.n - i0);
-  int32_t* row = words + static_cast<size_t>(s) * (G.T + 2);
-  uint32_t x = kRansL;
-  int nw = 0;
-  for (int t = nvalid - 1; t >= 0; --t) {     // rANS encodes in reverse
-    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i0 + t;
-    uint32_t v;
+
+  auto build = [&](int t0, int buf) {
+    const int idx = tid - 32;
+    const int gl = idx / kS, tt = idx % kS;
+    const int s = s_first + gl, t = t0 + tt;
+    if (s >= pix_lanes || t >= G.T) return;
+    const int g = s / G.ns_c;
+    const int i = (s % G.ns_c) * G.T + t;
+    if (i >= G.n) return;
+    const size_t pix = static_cast<size_t>(g % G.F) * G.n + i;
+    uint32_t* out = sf + (buf * kG + gl) * kS + tt;
     if (MODE == kEncRgb) {
-      const uint2 q = lookup_rgb_generic(P, tab, sym, g / G.F, pix);
-      v = level ? q.y : q.x;
+      const uint2 q = lookup_rgb_any<KMAX>(P, tab, sym, g / G.F, pix);
+      out[0] = q.x;
+      out[kPix * kS] = q.y;                  // the fine stream's slot
     } else {
-      v = lookup_generic<MODE>(P, tab, sym, g / G.F, pix, L);
+      out[0] = lookup_any<MODE, KMAX>(P, tab, sym, g / G.F, pix, L);
     }
-    const uint32_t st = v & 0xFFFFu, f = v >> 16;
-    if (x >= (f << 16)) {
-      row[G.T + 1 - nw] = static_cast<int32_t>(x & 0xFFFFu);
-      ++nw;
-      x >>= 16;
+  };
+
+  // walker tid codes level tid / kPix of pixel stream s_first + tid % kPix
+  const int ps = s_first + tid % kPix;
+  const bool walker = tid < kG && ps < pix_lanes;
+  const int s = (tid / kPix) * pix_lanes + ps;
+  int32_t* row = words + static_cast<size_t>(walker ? s : 0) * (G.T + 2);
+  const int nvalid = walker ? min(G.T, G.n - (ps % G.ns_c) * G.T) : 0;
+  uint32_t x = kRansL;
+  int nw = 0;                               // renorm words emitted so far
+  if (tid >= 32) build((ntiles - 1) * kS, 0);
+  for (int it = 0; it < ntiles; ++it) {     // rANS encodes in reverse
+    __syncthreads();
+    const int buf = it & 1;
+    const int t0 = (ntiles - 1 - it) * kS;
+    if (tid < 32) {
+      const int steps = walker ? min(kS, nvalid - t0) : 0;
+      const uint32_t* tile = sf + (buf * kG + tid) * kS;
+      for (int tt = steps - 1; tt >= 0; --tt) {
+        const uint32_t v = tile[tt];
+        const uint32_t st = v & 0xFFFFu, f = v >> 16;
+        if (x >= (f << 16)) {
+          // the k-th emitted word is the (n_emit-1-k)-th in decode order:
+          // park it at the row's end, counting down
+          row[G.T + 1 - nw] = static_cast<int32_t>(x & 0xFFFFu);
+          ++nw;
+          x >>= 16;
+        }
+        const uint32_t fs = f > 0 ? f : 1u;
+        x = ((x / fs) << 16) + (x % fs) + st;
+      }
+    } else if (it + 1 < ntiles) {
+      build(t0 - kS, buf ^ 1);
     }
-    const uint32_t fs = f > 0 ? f : 1u;
-    x = ((x / fs) << 16) + (x % fs) + st;
   }
+  if (!walker) return;
+  // move the nw parked words [T+2-nw, T+2) to [2, 2+nw): dst < src, so an
+  // ascending copy never overwrites a word before it is read
   for (int i = 0; i < nw; ++i) row[2 + i] = row[G.T + 2 - nw + i];
   row[0] = static_cast<int32_t>(x & 0xFFFFu);
   row[1] = static_cast<int32_t>(x >> 16);
   lengths[s] = nw + 2;
 }
 
-// launch with `smem` bytes of dynamic shared memory (above 48 KB only
-// after raising the kernel's limit)
+// ------------------------------------------------------ generic decode
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kUniThreads = 32;               // K4 uniform: a warp a block
+constexpr int kGenBuilders = kThreads / 32 - 1;   // K4 generic: warps 1..7
+constexpr int kGenRows = 8;                   // rows a builder warp a tile
+constexpr int kGenS = kGenBuilders * kGenRows;    // steps a tile
+constexpr int kMaxEpl = (kMaxL - 1 + 31) / 32;    // row entries a lane
+
+// edge e of the uniform row, floor(e 2^16 / L), for e = 0..L (edge L is
+// 2^16, the top)
+__device__ __forceinline__ uint32_t uniform_edge_u(uint32_t e, uint32_t L) {
+  return (e << 16) / L;
+}
+
+// the uniform symbol of cf: the largest s < L whose edge is <= cf. Since
+// floor(y) <= cf <=> y < cf + 1, edge(e) <= cf <=> e 2^16 < (cf + 1) L <=>
+// e <= ((cf + 1) L - 1) / 2^16, so the symbol is that floor, exactly (the
+// product is below 2^24), and it is at most L - 1 for every cf < 2^16
+__device__ __forceinline__ uint32_t uniform_symbol(uint32_t cf, uint32_t L) {
+  return ((cf + 1u) * L - 1u) >> 16;
+}
+
+// K4 uniform for any L: thread s walks stream s by the closed-form inverse
+__global__ void __launch_bounds__(kUniThreads)
+    rans_decode_uniform(const int32_t* __restrict__ words,
+                        uint8_t* __restrict__ syms, Geom G, int W, int L) {
+  __shared__ uint32_t edge[kMaxL + 1];
+  for (int e = threadIdx.x; e <= L; e += kUniThreads)
+    edge[e] = uniform_edge_u(e, L);
+  __syncthreads();
+  const int s = blockIdx.x * kUniThreads + threadIdx.x;
+  if (s >= G.lanes) return;
+  const int32_t* wr = words + static_cast<size_t>(s) * W;
+  uint32_t x = static_cast<uint32_t>(wr[0]) |
+               (static_cast<uint32_t>(wr[1]) << 16);
+  int cur = 2;
+  uint32_t wnext = cur < W ? static_cast<uint32_t>(wr[cur]) : 0u;
+  const int g = s / G.ns_c, i0 = (s % G.ns_c) * G.T;
+  const int nvalid = min(G.T, G.n - i0);
+  uint8_t* out = syms + static_cast<size_t>(g) * G.n + i0;
+  for (int t = 0; t < nvalid; ++t) {
+    const uint32_t cf = x & 0xFFFFu;
+    const uint32_t sym = uniform_symbol(cf, L);
+    const uint32_t lo = edge[sym], hi = edge[sym + 1];
+    const uint32_t x1 = (hi - lo) * (x >> 16) + cf - lo;
+    if (x1 < kRansL) {
+      x = (x1 << 16) | wnext;
+      ++cur;
+      wnext = cur < W ? static_cast<uint32_t>(wr[cur]) : 0u;
+    } else {
+      x = x1;
+    }
+    out[t] = static_cast<uint8_t>(sym);
+  }
+}
+
+// One pixel's row built by a warp into row[e - 1], e = 1..L-1: lane j
+// evaluates the edges e = j + e0 + 32 i, i < epl <= EPL, summing the K'
+// components in k order. The components come in chunks of 32: lane j
+// loads component k0 + j's parameters (one load a field for the chunk,
+// all in flight at once), computes its v with the lambda chain (fine: its
+// z_a) and stages (p, edge step, v) in the warp's `stage`; every lane then
+// reads each component's values with one broadcast 16-byte load. e0 =
+// 1, except in the fine mode, where e0 = 0 and lanes 0 and 16 evaluate
+// edges 0 and 16: the coarse bin's bounds c_lo (clip_z(z_a) = fine_z(z_a,
+// 0, a)) and c_hi (fine_z(z_a, 16, a)).
+template <int MODE, int EPL>
+__device__ __forceinline__ void build_row_warp(
+    const Params& P, const uint16_t* tab, const uint8_t* __restrict__ dec,
+    const uint8_t* __restrict__ asym, int c, size_t pix, int L, int epl,
+    int lane, float4* stage, uint16_t* row) {
+  constexpr int e0 = MODE == kDecFine ? 0 : 1;
+  float s0 = 0.0f, s1 = 0.0f, af = 0.0f;
+  if (MODE != kDecBn) {
+    if (c > 0) s0 = static_cast<float>(__ldg(dec + pix));
+    if (c > 1) s1 = static_cast<float>(__ldg(dec + P.N + pix));
+    if (MODE == kDecFine) af = static_cast<float>(__ldg(asym + pix));
+  }
+  float acc[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) acc[i] = 0.0f;
+  for (int k0 = 0; k0 < P.K; k0 += 32) {
+    // lane j: component k0 + j's p, edge step (a: bn, fine; sc: coarse)
+    // and v (fine: z_a)
+    const int k = k0 + lane;
+    float p_j = 0.0f, step_j = 0.0f, v_j = 0.0f;
+    if (k < P.K) {
+      p_j = ldk(P.p, P, c, k, pix);
+      step_j = ldk(MODE == kDecCoarse ? P.sc : P.a, P, c, k, pix);
+      if (MODE == kDecBn) {
+        v_j = ldk(P.v, P, c, k, pix);
+      } else {
+        v_j = chained_v(P, c, k, pix, s0, s1);
+        if (MODE == kDecFine) v_j = fine_za(af, ldk(P.sc, P, c, k, pix), v_j);
+      }
+    }
+    __syncwarp(kFull);              // the last chunk's reads are done
+    stage[lane] = make_float4(p_j, step_j, v_j, 0.0f);
+    __syncwarp(kFull);
+    const int nk = min(32, P.K - k0);
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      const float4 cp = stage[j];
+      const float p = cp.x, step = cp.y, v = cp.z;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) {
+        if (i < epl) {
+          const float ef = static_cast<float>(lane + e0 + 32 * i);
+          const float z = MODE == kDecBn     ? bn_z(ef, step, v)
+                          : MODE == kDecCoarse ? coarse_z(ef, step, v)
+                                               : fine_z(v, ef, step);
+          acc[i] += table_term(tab, p, z);
+        }
+      }
+    }
+  }
+  float lo = 0.0f, d = 1.0f;
+  if (MODE == kDecFine) {
+    const float c_lo = __shfl_sync(kFull, acc[0], 0);
+    const float c_hi = __shfl_sync(kFull, acc[0], kFineBins);
+    cond_bounds(af, cdf_clamp(c_lo), cdf_clamp(c_hi), &lo, &d);
+  }
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) {
+    const int e = lane + e0 + 32 * i;
+    if (i < epl && e >= 1 && e < L) {
+      float cq = cdf_clamp(acc[i]);
+      if (MODE == kDecFine) cq = cond_norm(cq, lo, d);
+      row[e - 1] = static_cast<uint16_t>(
+          quantize_edge(cq, static_cast<float>(e), L));
+    }
+  }
+}
+
+// K4 bn / coarse / fine for any K' and L (EPL = 1: L <= 33; 8: L <= 256):
+// block b decodes stream b. Warps 1..7 build tiles of kGenS rows (row
+// stride 32 epl u16, double-buffered in shared memory after the sigmoid
+// table, then each builder warp's component stage); warp 0 walks them,
+// every lane holding the state.
+template <int MODE, int EPL>
+__global__ void __launch_bounds__(kThreads)
+    rans_decode_generic(Params P, const uint8_t* __restrict__ dec,
+                        const uint8_t* __restrict__ asym,
+                        const int32_t* __restrict__ words,
+                        uint8_t* __restrict__ syms, Geom G, int W, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* rows = reinterpret_cast<uint16_t*>(smem + table_bytes<false>());
+  const int epl = MODE == kDecBn ? (L + 30) / 32 : 1;
+  const int rs = 32 * epl;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float4* stage = reinterpret_cast<float4*>(rows + 2 * kGenS * rs) +
+                  (warp > 0 ? warp - 1 : 0) * 32;
+  fill_sigmoid_table(tab, tid, kThreads);
+  __syncthreads();
+  const int s = blockIdx.x;
+  const int g = s / G.ns_c, i0 = (s % G.ns_c) * G.T;
+  const int c = G.c0 + g / G.F;
+  const int nvalid = min(G.T, G.n - i0);
+  const size_t pix0 = static_cast<size_t>(g % G.F) * G.n + i0;
+  const int ntiles = (nvalid + kGenS - 1) / kGenS;
+
+  // builder warp w takes rows w - 1, w - 1 + 7, ... of the tile at t0
+  auto build = [&](int t0, int buf) {
+    for (int j = 0; j < kGenRows; ++j) {
+      const int tt = j * kGenBuilders + warp - 1;
+      if (t0 + tt >= nvalid) break;
+      build_row_warp<MODE, EPL>(P, tab, dec, asym, c, pix0 + t0 + tt, L, epl,
+                                lane, stage,
+                                rows + (buf * kGenS + tt) * rs);
+    }
+  };
+
+  // the walker's renorm words in windows of 32, lane j holding word
+  // base + j of the current window (wa) and of the next (wb, loaded a
+  // window ahead); the next word is shuffled out a renorm ahead, so
+  // neither load nor shuffle sits on the state's chain
+  const int32_t* wr = words + static_cast<size_t>(s) * W;
+  auto word = [&](int i) {
+    return i < W ? static_cast<uint32_t>(wr[i]) : 0u;
+  };
+  uint32_t x = 0, wa = 0, wb = 0, wnext = 0;
+  int cur = 2, base = 2;
+  if (warp == 0) {
+    x = word(0) | (word(1) << 16);
+    wa = word(base + lane);
+    wb = word(base + 32 + lane);
+    wnext = __shfl_sync(kFull, wa, 0);
+  }
+  uint8_t* out = syms + static_cast<size_t>(g) * G.n + i0;
+  if (warp > 0) build(0, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    __syncthreads();     // tile it is built; the walk of it - 1 is done
+    const int buf = it & 1;
+    if (warp == 0) {
+      const int t0 = it * kGenS;
+      const int steps = min(kGenS, nvalid - t0);
+      const uint16_t* tile = rows + buf * kGenS * rs;
+      // this lane's entries of the step's row, read a step ahead
+      uint32_t q[EPL], qn[EPL];
+#pragma unroll
+      for (int i = 0; i < EPL; ++i)
+        q[i] = i < epl && steps > 0 ? tile[lane + 32 * i] : 0u;
+      for (int tt = 0; tt < steps; ++tt) {
+        const uint16_t* rn = tile + (tt + 1) * rs;
+#pragma unroll
+        for (int i = 0; i < EPL; ++i)
+          qn[i] = i < epl && tt + 1 < steps ? rn[lane + 32 * i] : 0u;
+        const uint32_t cf = x & 0xFFFFu;
+        // counts and extrema over entries 1..L-1 (entry 0 = 0 is always
+        // <= cf; no entry above cf leaves the top, 65536)
+        uint32_t cnt = 0, lo = 0, hi = 65536;
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) {
+          if (i < epl) {
+            const bool valid = lane + 1 + 32 * i < L;
+            const bool le = valid && q[i] <= cf;
+            cnt += __popc(__ballot_sync(kFull, le));
+            if (le) lo = max(lo, q[i]);
+            if (valid && !le) hi = min(hi, q[i]);
+          }
+        }
+        lo = __reduce_max_sync(kFull, lo);
+        hi = __reduce_min_sync(kFull, hi);
+        const uint32_t x1 = (hi - lo) * (x >> 16) + cf - lo;
+        if (x1 < kRansL) {         // the same on every lane
+          x = (x1 << 16) | wnext;
+          if (++cur - base == 32) {
+            base += 32;
+            wa = wb;
+            wb = word(base + 32 + lane);
+          }
+          wnext = __shfl_sync(kFull, wa, cur - base);
+        } else {
+          x = x1;
+        }
+        if (lane == 0) out[t0 + tt] = static_cast<uint8_t>(cnt);
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) q[i] = qn[i];
+      }
+    } else if (it + 1 < ntiles) {
+      build((it + 1) * kGenS, buf ^ 1);
+    }
+  }
+}
+
+// launch `blocks` blocks of `threads` with `smem` bytes of dynamic shared
+// memory (above 48 KB only after raising the kernel's limit)
 template <typename... KArgs, typename... Args>
-int launch(void (*kernel)(KArgs...), int lanes, int per_block, size_t smem,
+int launch(void (*kernel)(KArgs...), int blocks, int threads, size_t smem,
            cudaStream_t stream, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -775,9 +920,12 @@ int launch(void (*kernel)(KArgs...), int lanes, int per_block, size_t smem,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int blocks = (lanes + per_block - 1) / per_block;
-  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+int blocks_for(int items, int per_block) {
+  return (items + per_block - 1) / per_block;
 }
 
 template <int MODE, int LP, int KMAX>
@@ -786,8 +934,8 @@ int decode(const Params& P, const void* dec, const void* asym,
            cudaStream_t stream) {
   using D = DecTile<LP>;
   const size_t smem = table_bytes<MODE == kDecUniform>() + D::kRowBytes;
-  return launch(rans_decode_kernel<MODE, LP, KMAX>, G.lanes, D::kG, smem,
-                stream, P, static_cast<const uint8_t*>(dec),
+  return launch(rans_decode_kernel<MODE, LP, KMAX>, blocks_for(G.lanes, D::kG),
+                kThreads, smem, stream, P, static_cast<const uint8_t*>(dec),
                 static_cast<const uint8_t*>(asym),
                 static_cast<const int32_t*>(words),
                 static_cast<uint8_t*>(syms), G, W, L);
@@ -806,19 +954,27 @@ int decode_k(const Params& P, const void* dec, const void* asym,
   return decode<MODE, LP, 4>(P, dec, asym, words, syms, G, W, L, stream);
 }
 
+// KMAX = 0: K3 generic
+template <int MODE, int KMAX, int NG = kEncStreams>
+int encode_with(const Params& P, const void* sym, void* words, void* lengths,
+                const Geom& G, int L, cudaStream_t stream) {
+  using E = EncTile<MODE, NG>;
+  const size_t smem = table_bytes<MODE == kEncUniform>() + E::kBufBytes;
+  return launch(rans_encode_kernel<MODE, KMAX, NG>,
+                blocks_for(G.lanes / E::kLevels, E::kPix), kThreads, smem,
+                stream, P, static_cast<const uint8_t*>(sym),
+                static_cast<int32_t*>(words), static_cast<int32_t*>(lengths),
+                G, L);
+}
+
 template <int MODE>
 int encode(const Params& P, const void* sym, void* words, void* lengths,
            const Geom& G, int L, cudaStream_t stream) {
-  using E = EncTile<MODE>;
-  const size_t smem = table_bytes<MODE == kEncUniform>() + E::kBufBytes;
-  auto kernel = rans_encode_kernel<MODE, 4>;
   if constexpr (MODE != kEncUniform) {
-    if (P.K > 4) kernel = rans_encode_kernel<MODE, kMaxK>;
+    if (P.K > 4)
+      return encode_with<MODE, kMaxK>(P, sym, words, lengths, G, L, stream);
   }
-  return launch(kernel, G.lanes / E::kLevels, E::kPix, smem, stream, P,
-                static_cast<const uint8_t*>(sym),
-                static_cast<int32_t*>(words), static_cast<int32_t*>(lengths),
-                G, L);
+  return encode_with<MODE, 4>(P, sym, words, lengths, G, L, stream);
 }
 
 template <int MODE>
@@ -833,13 +989,16 @@ int decode_rows(int L, const Params& P, const void* dec, const void* asym,
   return decode_k<MODE, 32>(P, dec, asym, words, syms, G, W, L, stream);
 }
 
-template <int MODE>
+template <int MODE, int EPL>
 int decode_generic_mode(const Params& P, const void* dec, const void* asym,
                         const void* words, void* syms, const Geom& G, int W,
                         int L, cudaStream_t stream) {
-  return launch(rans_decode_generic<MODE>, G.lanes, kThreads,
-                table_bytes<MODE == kDecUniform>(), stream, P,
-                static_cast<const uint8_t*>(dec),
+  const int epl = MODE == kDecBn ? (L + 30) / 32 : 1;
+  const size_t smem = table_bytes<false>() +
+                      2 * kGenS * 32 * epl * sizeof(uint16_t) +
+                      kGenBuilders * 32 * sizeof(float4);
+  return launch(rans_decode_generic<MODE, EPL>, G.lanes, kThreads, smem,
+                stream, P, static_cast<const uint8_t*>(dec),
                 static_cast<const uint8_t*>(asym),
                 static_cast<const int32_t*>(words),
                 static_cast<uint8_t*>(syms), G, W, L);
@@ -850,44 +1009,38 @@ int decode_generic(int mode, const Params& P, const void* dec,
                    const Geom& G, int W, int L, cudaStream_t stream) {
   switch (mode) {
     case kDecUniform:
-      return decode_generic_mode<kDecUniform>(P, dec, asym, words, syms, G,
-                                              W, L, stream);
+      return launch(rans_decode_uniform, blocks_for(G.lanes, kUniThreads),
+                    kUniThreads, 0, stream,
+                    static_cast<const int32_t*>(words),
+                    static_cast<uint8_t*>(syms), G, W, L);
     case kDecBn:
-      return decode_generic_mode<kDecBn>(P, dec, asym, words, syms, G, W, L,
-                                         stream);
+      if (L <= kMaxLTile)
+        return decode_generic_mode<kDecBn, 1>(P, dec, asym, words, syms, G,
+                                              W, L, stream);
+      return decode_generic_mode<kDecBn, kMaxEpl>(P, dec, asym, words, syms,
+                                                  G, W, L, stream);
     case kDecCoarse:
-      return decode_generic_mode<kDecCoarse>(P, dec, asym, words, syms, G,
-                                             W, kCoarseBins, stream);
+      return decode_generic_mode<kDecCoarse, 1>(P, dec, asym, words, syms, G,
+                                                W, kCoarseBins, stream);
     case kDecFine:
-      return decode_generic_mode<kDecFine>(P, dec, asym, words, syms, G, W,
-                                           kFineBins, stream);
+      return decode_generic_mode<kDecFine, 1>(P, dec, asym, words, syms, G,
+                                              W, kFineBins, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int MODE>
-int encode_generic_mode(const Params& P, const void* sym, void* words,
-                        void* lengths, const Geom& G, int L,
-                        cudaStream_t stream) {
-  return launch(rans_encode_generic<MODE>, G.lanes, kThreads,
-                table_bytes<MODE == kEncUniform>(), stream, P,
-                static_cast<const uint8_t*>(sym),
-                static_cast<int32_t*>(words), static_cast<int32_t*>(lengths),
-                G, L);
 }
 
 int encode_generic(int mode, const Params& P, const void* sym, void* words,
                    void* lengths, const Geom& G, int L, cudaStream_t stream) {
   switch (mode) {
     case kEncUniform:
-      return encode_generic_mode<kEncUniform>(P, sym, words, lengths, G, L,
-                                              stream);
+      return encode_with<kEncUniform, 0, kEncStreamsGeneric>(
+          P, sym, words, lengths, G, L, stream);
     case kEncBn:
-      return encode_generic_mode<kEncBn>(P, sym, words, lengths, G, L,
-                                         stream);
+      return encode_with<kEncBn, 0, kEncStreamsGeneric>(P, sym, words,
+                                                        lengths, G, L, stream);
     case kEncRgb:
-      return encode_generic_mode<kEncRgb>(P, sym, words, lengths, G,
-                                          kFineBins, stream);
+      return encode_with<kEncRgb, 0, kEncStreamsGeneric>(
+          P, sym, words, lengths, G, kFineBins, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,11 +61,15 @@ def test_rans_kernels_match_plain(cuda, mode, K):
     _rans_on_card(cuda, mode, K, 25)
 
 
-# beyond the tiles: K' = 12 and 16 components, L = 40 symbols (the
-# generic variants)
+# beyond the tiles (the generic variants): K' = 12, 16, 32 and 255 (the
+# cap) components, L = 40 and 256 (the cap; the baselines' unit 0 is
+# uniform there) symbols
 @pytest.mark.parametrize("mode,K,L", [("bn", 12, 25), ("bn", 16, 40),
                                       ("uniform", 4, 40), ("bn", 4, 40),
-                                      ("rgb", 12, 16), ("rgb", 16, 16)])
+                                      ("rgb", 12, 16), ("rgb", 16, 16),
+                                      ("uniform", 4, 256), ("bn", 4, 256),
+                                      ("bn", 255, 25), ("rgb", 32, 16),
+                                      ("rgb", 255, 16)])
 def test_rans_kernels_beyond_the_tiles(cuda, mode, K, L):
     _rans_on_card(cuda, mode, K, L)
 

@@ -3,18 +3,24 @@ versions of ops/gpu_coder.py.
 
 There is no CUDA compiler here, so the test compiles rans.cu with g++
 against a small header that maps the CUDA constructs the file uses onto
-the host: each block runs as 256 std::threads, `__syncthreads` is a
-std::barrier, the four-lane shuffles exchange through memory behind a
-barrier of the four lanes, the SIMD intrinsics are written out, and
+the host: each block runs as its threads, one std::thread each,
+`__syncthreads` is a std::barrier, the warp intrinsics (shuffles,
+`__ballot_sync`, `__reduce_{max,min}_sync`, `__syncwarp`) exchange
+through memory behind a barrier of the lanes taking part (a warp, or the
+tiled decode's groups of four), the SIMD intrinsics are written out, and
 `kernel<<<...>>>(args)` becomes one such block run per block. Shared
 memory is a static array per kernel. The library is then bound in place
 of build.library("rans"), with tensors reporting is_cuda, so the
-channel-level functions take the kernels' path on CPU memory. This checks
-the kernels' index arithmetic, tiling, double buffering, word placement
-and search exactly, in every mode, at small sizes; it does not check what
-only the card can show (the CUDA compiler, the card's arithmetic, speed), which
+channel-level functions take the kernels' path on CPU memory. A test-only
+`extern "C"` shim appended to the compiled text reaches the generic
+variants where the launchers run the tiles, and the uniform row's
+closed-form inverse. This checks the kernels' index arithmetic, tiling,
+double buffering, word placement and search exactly, in every mode, at
+small sizes; it does not check what only the card can show (the CUDA
+compiler, the card's arithmetic, speed), which
 tests/test_torch_port_kernels.py and chip_smoke.py do on the card.
 """
+import ctypes
 import os
 import re
 import shutil
@@ -45,6 +51,7 @@ HOST_CUDA_H = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -62,23 +69,66 @@ struct Dim { int x = 0; };
 inline thread_local Dim threadIdx, blockIdx;
 inline std::barrier<>* g_block = nullptr;
 inline std::barrier<>* g_quad[64];
+inline std::barrier<>* g_warp[8];
 inline uint32_t g_lanes[256];
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
+struct float4 { float x, y, z, w; };
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return float4{a, b, c, d};
+}
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return uint4{a, b, c, d};
 }
-// rans.cu shuffles only within groups of four lanes
-inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int o) {
+// Warp intrinsics as exchanges through memory between two barriers of the
+// lanes taking part: the whole warp (mask 0xFFFFFFFF), or the four lanes
+// of the tiled decode's groups (any other mask rans.cu passes)
+inline void lanes_sync(unsigned mask) {
   const int t = threadIdx.x;
-  g_lanes[t] = v;
-  g_quad[t >> 2]->arrive_and_wait();
-  const uint32_t r = g_lanes[t ^ o];
-  g_quad[t >> 2]->arrive_and_wait();
+  if (mask == 0xFFFFFFFFu) g_warp[t >> 5]->arrive_and_wait();
+  else g_quad[t >> 2]->arrive_and_wait();
+}
+inline void __syncwarp(unsigned mask) { lanes_sync(mask); }
+template <class F> inline uint32_t exchange(unsigned mask, uint32_t v, F read) {
+  g_lanes[threadIdx.x] = v;
+  lanes_sync(mask);
+  const uint32_t r = read(g_lanes + (threadIdx.x & ~31));
+  lanes_sync(mask);
   return r;
+}
+template <class T> inline T shfl_from(unsigned mask, T v, int src) {
+  static_assert(sizeof(T) == 4);
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  u = exchange(mask, u, [&](const uint32_t* w) { return w[src & 31]; });
+  std::memcpy(&v, &u, 4);
+  return v;
+}
+template <class T> inline T __shfl_sync(unsigned m, T v, int src) {
+  return shfl_from(m, v, src);
+}
+template <class T> inline T __shfl_xor_sync(unsigned m, T v, int o) {
+  return shfl_from(m, v, (threadIdx.x & 31) ^ o);
+}
+inline uint32_t __ballot_sync(unsigned m, int pred) {
+  return exchange(m, pred != 0, [](const uint32_t* w) {
+    uint32_t r = 0;
+    for (int j = 0; j < 32; ++j) r |= w[j] << j;
+    return r;
+  });
+}
+inline uint32_t __reduce_max_sync(unsigned m, uint32_t v) {
+  return exchange(m, v, [](const uint32_t* w) {
+    return *std::max_element(w, w + 32);
+  });
+}
+inline uint32_t __reduce_min_sync(unsigned m, uint32_t v) {
+  return exchange(m, v, [](const uint32_t* w) {
+    return *std::min_element(w, w + 32);
+  });
 }
 inline uint32_t __vcmpleu2(uint32_t a, uint32_t b) {
   return ((a & 0xFFFF) <= (b & 0xFFFF) ? 0xFFFFu : 0u) |
@@ -100,10 +150,14 @@ inline int cudaGetLastError() { return 0; }
 template <class F> void host_launch(int blocks, int threads, F body) {
   for (int b = 0; b < blocks; ++b) {
     std::barrier<> block(threads);
-    std::vector<std::unique_ptr<std::barrier<>>> quads;
+    std::vector<std::unique_ptr<std::barrier<>>> groups;
     for (int q = 0; q < threads / 4; ++q) {
-      quads.emplace_back(new std::barrier<>(4));
-      g_quad[q] = quads.back().get();
+      groups.emplace_back(new std::barrier<>(4));
+      g_quad[q] = groups.back().get();
+    }
+    for (int w = 0; w < threads / 32; ++w) {
+      groups.emplace_back(new std::barrier<>(32));
+      g_warp[w] = groups.back().get();
     }
     g_block = &block;
     std::vector<std::thread> ts;
@@ -118,11 +172,46 @@ template <class F> void host_launch(int blocks, int threads, F body) {
 }
 """
 
+# Test-only entry points appended to the compiled text (rans.cu has none):
+# the launchers' generic variants called directly, where the launchers
+# would run the tiles, and the uniform row's closed-form inverse
+TEST_SHIM = r"""
+extern "C" int l3c_test_rans_decode_generic(
+    const void* p, const void* a, const void* sc, const void* v,
+    const void* w, const void* dec, const void* asym, const void* words,
+    void* syms, int mode, int K, int N, int n, int T, int W, int lanes,
+    int F, int c0, int L, void* stream) {
+  const Geom G{n, T, (n + T - 1) / T, lanes, F, c0};
+  return decode_generic(mode, params(p, a, sc, v, w, K, N), dec, asym, words,
+                        syms, G, W, L, static_cast<cudaStream_t>(stream));
+}
+extern "C" int l3c_test_rans_encode_generic(
+    const void* p, const void* a, const void* sc, const void* v,
+    const void* w, const void* sym, void* words, void* lengths, int mode,
+    int K, int N, int n, int T, int lanes, int F, int L, void* stream) {
+  const Geom G{n, T, (n + T - 1) / T, lanes, F, 0};
+  return encode_generic(mode, params(p, a, sc, v, w, K, N), sym, words,
+                        lengths, G, L, static_cast<cudaStream_t>(stream));
+}
+// (symbol, its edge, the next edge) of every cf in 0..65535 at L symbols
+extern "C" int l3c_test_uniform_symbols(int L, void* out) {
+  int32_t* o = static_cast<int32_t*>(out);
+  for (uint32_t cf = 0; cf < 65536; ++cf) {
+    const uint32_t s = uniform_symbol(cf, L);
+    o[3 * cf] = static_cast<int32_t>(s);
+    o[3 * cf + 1] = static_cast<int32_t>(uniform_edge_u(s, L));
+    o[3 * cf + 2] = static_cast<int32_t>(uniform_edge_u(s + 1, L));
+  }
+  return 0;
+}
+"""
+
+
 def _host_source() -> str:
     src = open(os.path.join(build.CSRC, "rans.cu")).read()
     for old, new in (
-            ("kernel<<<blocks, kThreads, smem, stream>>>(args...);",
-             "host_launch(blocks, kThreads, [&] { kernel(args...); });"),
+            ("kernel<<<blocks, threads, smem, stream>>>(args...);",
+             "host_launch(blocks, threads, [&] { kernel(args...); });"),
             ("extern __shared__ __align__(16) unsigned char smem[];",
              "static unsigned char smem[1 << 18] __attribute__((aligned(16)));"
              )):
@@ -140,7 +229,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to compile rans.cu for the host")
     d = tmp_path_factory.mktemp("rans_host")
     (d / "cuda_runtime.h").write_text(HOST_CUDA_H)
-    (d / "rans_host.cpp").write_text(_host_source())
+    (d / "rans_host.cpp").write_text(_host_source() + TEST_SHIM)
     out = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
          "-fno-gnu-unique",   # threadIdx: one per library, not shared
@@ -212,14 +301,96 @@ def test_rans_source_matches_plain(host_lib, monkeypatch, mode, K):
     _rans_matches_plain(host_lib, monkeypatch, mode, K, L_BN)
 
 
-# beyond the tiles: K' = 12 and 16, L = 40 (the generic variants)
+# beyond the tiles (the generic variants): K' = 12, 16, 32 and 255 (the
+# cap), L = 40 and 256 (the cap; the baselines' unit 0 is uniform there)
 @pytest.mark.parametrize("mode,K,L", [
     ("bn", 12, 25), ("bn", 16, 40), ("uniform", 0, 40), ("bn", 4, 40),
-    ("rgb", 12, 16), ("rgb", 16, 16)])
+    ("rgb", 12, 16), ("rgb", 16, 16), ("uniform", 0, 256), ("bn", 4, 256),
+    ("bn", 255, 25), ("rgb", 32, 16), ("rgb", 255, 16)])
 def test_rans_source_beyond_the_tiles(host_lib, monkeypatch, mode, K, L):
     """K3 and K4 where the JAX package's sizes pass the tiles' (K' > 10 or
     L > 33): the same words, lengths and symbols as the plain versions."""
     _rans_matches_plain(host_lib, monkeypatch, mode, K, L)
+
+
+def _generic(lib):
+    """`lib` with the launchers replaced by the test shim's, which run the
+    generic variants at every size."""
+    sigs = build.signatures("rans")
+    out = types.SimpleNamespace()
+    for name, shim in (("l3c_rans_decode", "l3c_test_rans_decode_generic"),
+                       ("l3c_rans_encode", "l3c_test_rans_encode_generic")):
+        fn = getattr(lib, shim)
+        fn.argtypes, fn.restype = sigs[name], ctypes.c_int
+        setattr(out, name, fn)
+    return out
+
+
+def _outputs(monkeypatch, lib, mode, K, L):
+    """K3's lengths and used words and K4's symbols through `lib`, on the
+    inputs _rans_matches_plain codes."""
+    rng = np.random.RandomState(K)
+    run = lambda fn: _run(monkeypatch, lib, fn)
+    if mode == "rgb":
+        ip = _int_params(K, True, 10 + K)
+        img = torch.from_numpy(rng.randint(0, 256, (3, N)))
+        lay6 = gc.layout_for(n, 6 * F, T)
+        w6, l6 = run(lambda: gc.encode_rgb(ip, img, lay6))
+        out = [l6, _cut(w6, l6)]
+        lay = gc.layout_for(n, F, T)
+        ns, half = F * lay.ns_c, lay6.lanes // 2
+        dec = img.to(torch.uint8)
+        for c in range(3):
+            wc = _cut(w6[c * ns:(c + 1) * ns], l6[c * ns:(c + 1) * ns])
+            r0 = half + c * ns
+            wf = _cut(w6[r0:r0 + ns], l6[r0:r0 + ns])
+            a = run(lambda: gc.decode_rgb_coarse(ip, c, dec, wc, lay))
+            out += [a, run(lambda: gc.decode_rgb_fine(ip, c, dec, a, wf,
+                                                      lay))]
+        return out
+    syms = torch.from_numpy(rng.randint(0, L, (5, N)))
+    lay = gc.layout_for(n, 5 * F, T)
+    if mode == "uniform":
+        w, ln = run(lambda: gc.encode_uniform(syms.reshape(-1), L, lay))
+        words = _cut(w, ln)
+        return [ln, words, run(lambda: gc.decode_uniform(words, L, lay))]
+    ip = _int_params(K, False, 20 + K)
+    w, ln = run(lambda: gc.encode_bn(ip, syms, L, lay))
+    words = _cut(w, ln)
+    return [ln, words, run(lambda: gc.decode_bn(ip, words, L, lay))]
+
+
+# where both run: K' <= 10, L <= 33
+@pytest.mark.parametrize("mode,K,L", [
+    ("uniform", 0, 25), ("uniform", 0, 33), ("bn", 1, 25), ("bn", 4, 33),
+    ("rgb", 4, 16), ("rgb", 10, 16)])
+def test_generic_variants_equal_the_tiles(host_lib, monkeypatch, mode, K, L):
+    """The generic variants of K3 and K4 give the tiled kernels' lengths,
+    words and symbols bit for bit where the launchers run the tiles (the
+    generic ones reached through a test-only shim)."""
+    tiled = _outputs(monkeypatch, host_lib, mode, K, L)
+    generic = _outputs(monkeypatch, _generic(host_lib), mode, K, L)
+    assert _same_coded(generic[1::-1], tiled[1::-1])
+    assert len(generic) == len(tiled)
+    for got, want in zip(generic[2:], tiled[2:]):
+        assert torch.equal(got, want)
+
+
+def test_uniform_inverse_is_exact(host_lib):
+    """K4 uniform's closed-form inverse of the uniform row, for every L in
+    2..256 and every cf in 0..65535: the symbol, its edge and the next edge
+    are those uniform_cdf_row's search gives (the last symbol's next edge
+    the top, 65536)."""
+    fn = host_lib.l3c_test_uniform_symbols
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    cf = np.arange(65536)
+    out = np.empty((65536, 3), np.int32)
+    for L in range(2, 257):
+        assert fn(L, out.ctypes.data) == 0
+        row = np.append(gc.uniform_cdf_row(L).astype(np.int64), 65536)
+        s = np.searchsorted(row[:L], cf, side="right") - 1
+        np.testing.assert_array_equal(out, np.stack([s, row[s], row[s + 1]],
+                                                    1), err_msg=f"L={L}")
 
 
 def _rans_matches_plain(lib, monkeypatch, mode, K, L_BN):
