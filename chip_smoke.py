@@ -173,9 +173,9 @@ Phases (each raises on failure; none carries on after another failed):
  14. prep     data prep on this machine (the port uses no Pillow): every
               fixture of
               l3c_torch/data/fixtures/prep (baseline JPEG at 4:4:4, 4:2:2
-              and 4:2:0, restart markers, grey; 16-bit, Adam7, palette and
-              grey PNG) decoded to Pillow's pixel digests (expected.json),
-              the progressive and the truncated JPEG refused with the
+              and 4:2:0, restart markers, grey, progressive; 16-bit,
+              Adam7, palette and grey PNG) decoded to Pillow's pixel
+              digests (expected.json), the truncated JPEG refused with the
               reason; cli.prep_pipeline --inp_dir over them: the JAX
               pipeline's kept lists, output pixels and cache listing;
               --offline without the corpus's packages: every source
@@ -208,10 +208,26 @@ Phases (each raises on failure; none carries on after another failed):
               steps on that corpus, validating on two synth tiles held out
               (other seeds): finite losses, exactly 21 K6 forward and 15
               backward launches, the step-5 checkpoint restoring strictly
- 16. report   one JSON line of kernel records (each with its path:
+ 16. formats  the loader's other formats on this machine's host (no
+              Pillow): every fixture of l3c_torch/data/fixtures/formats
+              (progressive JPEG 4:2:0, 4:4:4 with restarts and grey, CMYK
+              JPEG, lossy WebP with and without alpha, lossless WebP with
+              and without colour indexing, an animated WebP's first
+              frame, 8-bit grey BMP, 16-bit and ASCII PNM) to Pillow's
+              mode, size and pixel digest (expected.json); cli.l3c enc /
+              dec of the progressive JPEG and the lossy WebP (r5b, cr.cf,
+              balanced top-4) bit-exact against the loader's pixels, with
+              exact launch counts; cli.test --write_to_files
+              --compare_theory over the folder (every serving kernel
+              launched); prep_pipeline --inp_dir over it: the JAX
+              pipeline's outputs; the host's decode MP/s of a 1024 x 768
+              progressive JPEG, a 1024 x 768 lossy WebP and a 256 x 192
+              lossless WebP (l3c_torch/data/fixtures/formats_rate), each
+              held to its digest, the host CPU named
+ 17. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
-              phase parallel, phase prep and phase synth), the card line,
-              then
+              phase parallel, phase prep, phase synth and phase formats),
+              the card line, then
               {"ok": true, "device": {...}} as the last line
 
 Exits non-zero, printing no result, without CUDA or without the repo.
@@ -3791,8 +3807,8 @@ def phase_prep(cfg, imgs, card):
         elif pixel_digest(timages.load_image_uint8(p)) != e["sha256"]:
             raise RuntimeError(f"{n}: pixels differ from Pillow's")
     log(f"[prep] {len(exp['files'])} fixtures: modes, sizes and pixel "
-        "digests equal Pillow's (expected.json), the progressive and the "
-        "truncated JPEG refused with the reason")
+        "digests equal Pillow's (expected.json), the truncated JPEG refused "
+        "with the reason")
     kernels.reset_launches()
     with tempfile.TemporaryDirectory(prefix="l3c_prep_") as d:
         # ---- 2. prep_pipeline --inp_dir against the JAX pipeline's output
@@ -4184,6 +4200,120 @@ def phase_synth(cfg, card):
     return train_counts
 
 
+# --------------------------------------------------------------- formats
+
+FORMATS = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "formats")
+FORMATS_RATE = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                            "formats_rate")
+FORMATS_CODED = ("a_prog_420.jpg", "e_lossy.webp")   # through cli.l3c
+# every kernel of the serving path, in cli.test --write_to_files --
+# compare_theory over the folder (its grouping of the sizes decides how
+# often each runs)
+FORMATS_TEST_KERNELS = ("rans_encode", "rans_decode", "pack_int", "dmll_nll")
+
+
+def phase_formats(card):
+    """The formats the loader reads beyond PNG and baseline JPEG
+    (progressive and CMYK JPEG, lossy, lossless, alpha and animated WebP,
+    grey BMP, 16-bit and ASCII PNM), decoded on this machine's host with
+    no Pillow, held to Pillow's digests (expected.json); the codec CLIs
+    and prep over them; the host's decode rates. Returns the launches of
+    its CLI calls."""
+    from l3c_torch.cli import prep_pipeline
+    from l3c_torch.data import images as timages
+    with open(os.path.join(FORMATS, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    # ---- 1. every fixture's mode, size and pixels
+    for d, group in ((FORMATS, exp["files"]), (FORMATS_RATE, exp["rate"])):
+        for n, e in sorted(group.items()):
+            p = os.path.join(d, n)
+            head = (timages.image_mode(p), list(timages.image_size(p)))
+            if head != (e["mode"], e["size"]):
+                raise RuntimeError(f"{n}: mode/size {head}, expected "
+                                   f"{(e['mode'], e['size'])}")
+            if d == FORMATS and pixel_digest(timages.load_image_uint8(
+                    p)) != e["sha256"]:
+                raise RuntimeError(f"{n}: pixels differ from Pillow's")
+    log(f"[formats] {len(exp['files'])} fixtures "
+        f"({', '.join(sorted(exp['files']))}): modes, sizes and pixel "
+        "digests equal Pillow's (expected.json, "
+        f"made by Pillow {exp['made_by']['pillow']}, libjpeg-turbo "
+        f"{exp['made_by']['libjpeg_turbo']}, libwebp "
+        f"{exp['made_by']['libwebp']}); the {len(exp['rate'])} rate "
+        "fixtures' modes and sizes")
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="l3c_formats_") as d:
+        # ---- 2. cli.l3c enc / dec of a progressive JPEG and a lossy WebP
+        for name in FORMATS_CODED:
+            src = os.path.join(FORMATS, name)
+            coded = os.path.join(d, name + ".l3c")
+            back = os.path.join(d, name + ".png")
+            counted(total, f"cli.l3c enc {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "enc", src, coded]),
+                ENCODE, CANARY)
+            counted(total, f"cli.l3c dec {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
+                DECODE, CANARY)
+            if not np.array_equal(read_png(back),
+                                  timages.load_image_uint8(src)):
+                raise RuntimeError(f"cli.l3c dec of {name} differs from the "
+                                   "loader's pixels")
+            h, w = timages.image_size(src)
+            log(f"[formats] cli.l3c enc+dec of {name} ({w} x {h}) "
+                f"bit-exact against the loader's pixels: file bpsp "
+                f"{os.path.getsize(coded) * 8 / (3 * h * w):.4f} | {card}")
+        # ---- 3. cli.test --write_to_files over the folder
+        out_dir = os.path.join(d, "out")
+        kernels.reset_launches()
+        out = run_cli(test_cli.main, [ZOO, LOG_DATE, FORMATS,
+                                      "--write_to_files", out_dir,
+                                      "--compare_theory", "--reset_cache"])
+        got = {k: kernels.launches.get(k, 0) for k in kernels.KERNELS}
+        if any(got[k] < 1 for k in FORMATS_TEST_KERNELS):
+            raise RuntimeError(f"cli.test over the formats: launches {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        n_files = len([n for n in os.listdir(out_dir) if n.endswith(".l3c")])
+        if n_files != len(exp["files"]) or \
+                out.count("assumed:") != len(exp["files"]):
+            raise RuntimeError(f"cli.test wrote {n_files} files")
+        log(f"[formats] cli.test --write_to_files --compare_theory over the "
+            f"{n_files} fixtures: every file decoded bit-exactly (the "
+            f"tester's gate), bpsp {out.strip().splitlines()[-1].split()[-1]}"
+            f"; launches {({k: v for k, v in got.items() if v})} | {card}")
+        # ---- 4. prep_pipeline --inp_dir against the JAX pipeline's output
+        prep_out = os.path.join(d, "prep")
+        run_cli(prep_pipeline.main, ["--inp_dir", FORMATS, prep_out,
+                                     "--min_res", str(exp["min_res"])])
+        got = {sub: {n: pixel_digest(read_png(os.path.join(prep_out, sub,
+                                                           n)))
+                     for n in sorted(os.listdir(os.path.join(prep_out,
+                                                             sub)))}
+               for sub in ("train", "val")}
+        if got != exp["prep"]:
+            raise RuntimeError(f"prep_pipeline --inp_dir kept {got}, the "
+                               f"JAX pipeline {exp['prep']}")
+        log(f"[formats] prep_pipeline --inp_dir --min_res {exp['min_res']}: "
+            f"train {sorted(got['train'])}, val {sorted(got['val'])}: the "
+            "JAX pipeline's outputs, pixel for pixel")
+    # ---- 5. the host's decode rates, each decode held to its digest
+    rates = []
+    for n, e in sorted(exp["rate"].items()):
+        p = os.path.join(FORMATS_RATE, n)
+        t0 = time.perf_counter()
+        arr = timages.load_image_uint8(p)
+        dt = time.perf_counter() - t0
+        if pixel_digest(arr) != e["sha256"]:
+            raise RuntimeError(f"{n}: pixels differ from Pillow's")
+        h, w = e["size"]
+        rates.append(f"{n} ({w} x {h}, {os.path.getsize(p)} bytes) "
+                     f"{h * w / dt / 1e6:.4f} MP/s ({dt:.3f} s)")
+    log(f"[formats] host decode rates, one decode each, pixels Pillow's: "
+        f"{'; '.join(rates)} | host {cpu}")
+    return total
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -4240,9 +4370,11 @@ def main() -> int:
             rec["parallel_launches"] = par_counts.get(rec["name"], 0)
     prep_counts = timed("prep", phase_prep, cfg, imgs, card)
     synth_counts = timed("synth", phase_synth, cfg, card)
+    formats_counts = timed("formats", phase_formats, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
         rec["synth_launches"] = synth_counts.get(rec["name"], 0)
+        rec["formats_launches"] = formats_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

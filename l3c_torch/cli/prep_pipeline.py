@@ -6,7 +6,7 @@ four stages: [1] aws download of Open Images train_0/1/2 + validation,
 [2] unpack, [3] import_train_images.py (downscale/discard/PNG), [4]
 file-list cache build. This orchestrator reproduces stages 2-4 for an
 existing dump (stage 1 needs network: it is replaced either by --inp_dir
-pointing at a pre-downloaded dump of PNG, baseline JPEG, PNM or BMP
+pointing at a pre-downloaded dump of PNG, JPEG, WebP, PNM or BMP
 files, or by --offline, which assembles the photographic corpus bundled
 in installed packages, data.offline_corpus).
 

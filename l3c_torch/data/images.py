@@ -1,5 +1,5 @@
 """Image files for training, the tester and the codec CLIs: listings,
-training batches, testsets, PNG, JPEG, PNM and BMP.
+training batches, testsets, PNG, JPEG, WebP, PNM and BMP.
 
 Port of `l3c_tpu/data/images.py` (`iter_images_in`, `ImagesCached`,
 `load_image_uint8`, `random_crop_flip`, `TrainBatches`, `Testset`). The
@@ -11,16 +11,24 @@ itself, told apart by their first bytes as Pillow tells them:
   - PNG (zlib + numpy; it also writes them): every bit depth (1, 2, 4, 8
     and 16) and colour type (grey, RGB, palette, grey + alpha, RGBA) the
     standard defines, non-interlaced and Adam7, all five row filters;
-  - baseline JPEG (data/jpeg.py: Huffman sequential, grey or colour,
-    decoded as Pillow's libjpeg-turbo decodes it);
-  - binary PNM: P6 (RGB) and P5 (grey), maxval 255;
-  - BMP: uncompressed (BI_RGB), 24 and 32 bits a pixel (the fourth byte
-    unused, as Pillow reads it), bottom-up and top-down rows.
-Anything else (WebP, progressive JPEG, ...) raises ValueError naming the
-format and the reason. Every image comes out as RGB the way Pillow's
+  - JPEG (data/jpeg.py: Huffman sequential and progressive, grey, colour
+    and CMYK / YCCK, decoded as Pillow's libjpeg-turbo decodes them);
+  - WebP (data/webp.py: lossy, lossless, with alpha, extended, and an
+    animation's first frame, as Pillow's libwebp decodes them);
+  - PNM: P1 to P6, binary and ASCII, any maxval (scaled as Pillow scales
+    it; 16-bit grey as Pillow's mode "I");
+  - BMP: 1, 4 and 8-bit palettes (Pillow's "1" and "L" where the palette
+    is its grey ramp), RLE8 and RLE4, 16-bit (5-5-5 and 5-6-5), 24 and 32
+    bits with the bit-field layouts Pillow reads, OS/2, BITMAPINFOHEADER
+    and V4 / V5 headers, bottom-up and top-down rows.
+Anything else (arithmetic-coded JPEG, float PNM, JPEG-in-BMP, ...) raises
+ValueError naming the format and the reason; so does a variant Pillow
+reads inconsistently (a 4-bit BMP with a grey palette, which Pillow
+unpacks as 8-bit samples). Every image comes out as RGB the way Pillow's
 convert("RGB") gives it: grey replicated, the palette looked up, alpha
-dropped, 16-bit samples cut to their high byte (16-bit grey clipped at
-255); `image_mode` gives the mode Pillow would open the file in.
+dropped, CMYK through Pillow's cmyk2rgb, 16-bit samples cut to their
+high byte (16-bit grey clipped at 255); `image_mode` gives the mode
+Pillow would open the file in.
 """
 from __future__ import annotations
 
@@ -31,11 +39,11 @@ import queue
 import struct
 import threading
 import zlib
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import jpeg
+from . import jpeg, webp
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -260,114 +268,350 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 # ------------------------------------------------------------- PNM, BMP
 
+_WHITESPACE = b" \t\n\x0b\x0c\r"
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
+              b"P6": "RGB"}
 
-def _pnm_header(f, path: str) -> Tuple[int, int, int]:
-    """(channels, width, height) of a binary PNM, the file positioned at
-    its pixels; refuses what is not read."""
-    magic = f.read(2)
-    if magic not in (b"P5", b"P6"):
+
+class _Pnm(NamedTuple):
+    magic: bytes
+    width: int
+    height: int
+    maxval: int     # 1 for P1 and P4
+    mode: str       # Pillow's: "1", "L", "I" (grey past 8 bits) or "RGB"
+    offset: int     # of the pixel data
+
+
+def _pnm_header(blob: bytes, path: str) -> _Pnm:
+    """PpmImagePlugin's header walk: the magic up to whitespace, then
+    tokens of at most 10 bytes between whitespace and '#' comments, the
+    data starting after the byte that ends the last one."""
+    at, magic = 0, b""
+    while at < min(6, len(blob)):
+        c = blob[at:at + 1]
+        at += 1
+        if c in _WHITESPACE:
+            break
+        magic += c
+    if magic not in _PNM_MODES:
         raise ValueError(f"{path}: PNM type {magic.decode(errors='replace')}"
-                         "; only binary P5 (grey) and P6 (RGB) are read")
-    fields = []
-    c = f.read(1)
-    while len(fields) < 3:     # width, height, maxval; '#' comments between
-        if c == b"#":
-            while c not in (b"\n", b"\r", b""):
-                c = f.read(1)
-        elif c.isspace():
-            c = f.read(1)
-        elif c.isdigit():
-            tok = b""
-            while c.isdigit():
-                tok, c = tok + c, f.read(1)
-            fields.append(int(tok))
-        else:
+                         "; P1 to P6 are read")
+
+    def token():
+        nonlocal at
+        tok = b""
+        while len(tok) <= 10 and at < len(blob):
+            c = blob[at:at + 1]
+            at += 1
+            if c in _WHITESPACE:
+                if tok:
+                    break
+            elif c == b"#":
+                while at < len(blob) and blob[at:at + 1] not in b"\r\n":
+                    at += 1
+                at += 1
+            else:
+                tok += c
+        if not tok.isdigit() or len(tok) > 10:
             raise ValueError(f"{path}: malformed PNM header")
-    if not c.isspace():        # one whitespace byte before the pixels
-        raise ValueError(f"{path}: malformed PNM header")
-    w, h, maxval = fields
-    if maxval != 255:
-        raise ValueError(f"{path}: PNM maxval {maxval}; only 8-bit PNMs "
-                         "(maxval 255) are read" + (
-                             ", not 16-bit ones" if maxval > 255 else ""))
+        return int(tok)
+
+    w, h = token(), token()
+    maxval = 1 if magic in (b"P1", b"P4") else token()
+    if not 0 < maxval < 65536:
+        raise ValueError(f"{path}: PNM maxval {maxval} out of 1..65535")
     if w < 1 or h < 1:
         raise ValueError(f"{path}: empty image {w}x{h}")
-    return (1 if magic == b"P5" else 3), w, h
+    mode = _PNM_MODES[magic]
+    if mode == "L" and maxval > 255:
+        mode = "I"
+    return _Pnm(magic, w, h, maxval, mode, at)
+
+
+def _plain_tokens(data: bytes) -> List[bytes]:
+    """The ASCII (P1-P3) data's tokens, '#' comments to a line's end cut
+    out first."""
+    parts = data.split(b"#")
+    kept = [parts[0]]
+    for part in parts[1:]:
+        ends = [i for i in (part.find(b"\n"), part.find(b"\r")) if i >= 0]
+        kept.append(part[min(ends) + 1:] if ends else b"")
+    return b"".join(kept).split()
 
 
 def read_pnm(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a binary PNM (P5 grey replicated)."""
+    """(H, W, 3) uint8 RGB of a PNM (P1-P6) as Pillow's convert("RGB")
+    gives it: a maxval other than 255 (65535 for 16-bit grey) scaled by
+    Pillow's round(v / maxval * out_max), grey past 8 bits clipped at 255,
+    bitmaps 0 or 255, grey replicated."""
     with open(path, "rb") as f:
-        ch, w, h = _pnm_header(f, path)
-        data = f.read(w * h * ch)
-    if len(data) != w * h * ch:
-        raise ValueError(f"{path}: truncated PNM ({len(data)} of "
-                         f"{w * h * ch} pixel bytes)")
-    px = np.frombuffer(data, np.uint8).reshape(h, w, ch)
-    return np.repeat(px, 3, axis=2) if ch == 1 else px.copy()
+        blob = f.read()
+    hd = _pnm_header(blob, path)
+    w, h, maxval = hd.width, hd.height, hd.maxval
+    ch = 3 if hd.mode == "RGB" else 1
+    n = w * h * ch
+    data = blob[hd.offset:]
+    if hd.magic == b"P4":
+        row = (w + 7) // 8
+        if len(data) < row * h:
+            raise ValueError(f"{path}: truncated PNM ({len(data)} of "
+                             f"{row * h} pixel bytes)")
+        bits = np.unpackbits(np.frombuffer(data, np.uint8, row * h).reshape(
+            h, row), axis=1)[:, :w]
+        px = ((1 - bits) * 255).astype(np.uint8)[..., None]
+    elif hd.magic == b"P1":
+        digits = b"".join(_plain_tokens(data))[:n]
+        if digits.strip(b"01"):
+            raise ValueError(f"{path}: PNM bitmap data other than 0 and 1")
+        if len(digits) < n:
+            raise ValueError(f"{path}: truncated PNM ({len(digits)} of {n} "
+                             "samples)")
+        px = np.where(np.frombuffer(digits, np.uint8) == ord("1"), 0,
+                      255).astype(np.uint8).reshape(h, w, 1)
+    else:
+        if hd.magic in (b"P2", b"P3"):
+            toks = _plain_tokens(data)[:n]
+            if any(len(t) > 10 or not t.isdigit() for t in toks):
+                raise ValueError(f"{path}: malformed PNM sample")
+            v = np.array([int(t) for t in toks], np.int64)
+            if v.size and v.max() > maxval:
+                raise ValueError(f"{path}: PNM sample past maxval {maxval}")
+            raw = False
+        else:
+            size = 1 if maxval < 256 else 2
+            v = np.frombuffer(data, np.uint8 if size == 1 else ">u2",
+                              min(n, len(data) // size)).astype(np.int64)
+            raw = maxval == 255 or maxval == 65535 and hd.mode == "I"
+        if v.size < n:
+            raise ValueError(f"{path}: truncated PNM ({v.size} of {n} "
+                             "samples)")
+        if not raw:            # PpmDecoder / PpmPlainDecoder's scaling
+            out_max = 65535 if hd.mode == "I" else 255
+            v = np.minimum(out_max, np.round(v / maxval * out_max))
+        px = np.minimum(v, 255).astype(np.uint8).reshape(h, w, ch)
+    return np.repeat(px, 3, axis=2) if ch == 1 else px
 
 
 _BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS", 4: "JPEG",
                     5: "PNG", 6: "BI_ALPHABITFIELDS"}
+# BmpImagePlugin's bit-field layouts: (bits, masks) -> the byte of each of
+# R, G, B in a pixel (32 and 24 bits), or the 16-bit layout
+_BMP_FIELDS = {(32, (0xFF0000, 0xFF00, 0xFF, 0)): (2, 1, 0),
+               (32, (0xFF000000, 0xFF0000, 0xFF00, 0)): (3, 2, 1),
+               (32, (0xFF000000, 0xFF00, 0xFF, 0)): (3, 1, 0),
+               (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): (3, 2, 1),
+               (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): (0, 1, 2),
+               (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): (2, 1, 0),
+               (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): (3, 1, 0),
+               (32, (0, 0, 0, 0)): (2, 1, 0),
+               (24, (0xFF0000, 0xFF00, 0xFF)): (2, 1, 0),
+               (16, (0xF800, 0x7E0, 0x1F)): 565,
+               (16, (0x7C00, 0x3E0, 0x1F)): 555}
 
 
-def _bmp_header(head: bytes, path: str) -> Tuple[int, int, int, bool, int]:
-    """(width, height, bytes a pixel, top-down, pixel offset) of a BMP's
-    first 54 bytes; refuses what is not read."""
-    if len(head) < 30 or head[:2] != b"BM":
+class _Bmp(NamedTuple):
+    width: int
+    height: int
+    bits: int
+    compression: int
+    top_down: bool
+    offset: int              # of the pixel data
+    mode: str                # Pillow's: "1", "L", "P", "RGB" or "RGBA"
+    layout: object           # _BMP_FIELDS' value for RGB modes
+    palette: Optional[np.ndarray]    # (colors, 3) RGB for "P"
+
+
+def _bmp_header(blob: bytes, path: str) -> _Bmp:
+    """BmpImagePlugin's reading of the headers and the palette: OS/2 (12
+    bytes), BITMAPINFOHEADER (40) and its successors to V5 (124); refuses
+    what Pillow refuses, and the layouts it reads inconsistently."""
+    if len(blob) < 18 or blob[:2] != b"BM":
         raise ValueError(f"{path}: truncated BMP header")
-    offset, dib = struct.unpack("<II", head[10:18])
-    if dib < 40:
-        raise ValueError(f"{path}: BMP with a {dib}-byte (OS/2) header; "
-                         "only BITMAPINFOHEADER and later are read")
-    if len(head) < 54:
+    offset, hs = struct.unpack("<II", blob[10:18])
+    hd = blob[18:14 + hs]
+    if hs not in (12, 40, 52, 56, 64, 108, 124):
+        raise ValueError(f"{path}: BMP with a {hs}-byte header is not read")
+    if len(hd) < hs - 4:
         raise ValueError(f"{path}: truncated BMP header")
-    w, h, _, bits, comp = struct.unpack("<iiHHI", head[18:34])
-    if comp != 0:
-        raise ValueError(f"{path}: {_BMP_COMPRESSION.get(comp, comp)} BMP; "
-                         "only uncompressed (BI_RGB) BMPs are read")
-    if bits not in (24, 32):
-        raise ValueError(f"{path}: {bits}-bit BMP; only 24- and 32-bit "
-                         "BMPs are read")
-    if w < 1 or h == 0:
-        raise ValueError(f"{path}: empty image {w}x{abs(h)}")
-    return w, abs(h), bits // 8, h < 0, offset
+    at = 14 + hs
+    masks, colors, top_down = None, 0, False
+    if hs == 12:
+        w, h, _, bits = struct.unpack("<HHHH", hd[:8])
+        comp, pad = 0, 3
+    else:
+        top_down = hd[7] == 0xFF
+        w, h, _, bits, comp = struct.unpack("<IIHHI", hd[:16])
+        if top_down:
+            h = 2 ** 32 - h
+        colors = struct.unpack("<I", hd[28:32])[0]
+        pad = 4
+        if comp == 3:
+            if len(hd) >= 48:
+                masks = struct.unpack("<III", hd[36:48]) + (
+                    struct.unpack("<I", hd[48:52]) if len(hd) >= 52 else (0,))
+            else:
+                masks = struct.unpack("<III", blob[at:at + 12]) + (0,)
+                at += 12
+    colors = colors or 1 << bits
+    if offset == 14 + hs and bits <= 8:
+        offset += 4 * colors
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"{path}: {bits}-bit BMP is not read (Pillow reads "
+                         "1, 4, 8, 16, 24 and 32 bits)")
+    if w < 1 or h < 1:
+        raise ValueError(f"{path}: empty image {w}x{h}")
+    mode = "P" if bits <= 8 else "RGB"
+    layout: object = {16: 555, 24: (2, 1, 0), 32: (2, 1, 0)}.get(bits)
+    if comp == 3:
+        key = (bits, masks if bits == 32 else masks[:3])
+        if key not in _BMP_FIELDS:
+            raise ValueError(f"{path}: BI_BITFIELDS BMP with masks "
+                             f"{[hex(m) for m in masks]} at {bits} bits is "
+                             "not read (nor by Pillow)")
+        layout = _BMP_FIELDS[key]
+        if bits == 32 and masks[3]:
+            mode = "RGBA"
+    elif comp in (1, 2):
+        if mode != "P":
+            raise ValueError(f"{path}: {_BMP_COMPRESSION[comp]} BMP of "
+                             f"{bits} bits is not read (nor by Pillow)")
+    elif comp:
+        raise ValueError(f"{path}: {_BMP_COMPRESSION.get(comp, comp)} BMP is "
+                         "not read (nor by Pillow)")
+    palette = None
+    if mode == "P":
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{path}: BMP palette of {colors} colours")
+        pal = np.frombuffer(blob[at:at + pad * colors], np.uint8)
+        pal = pal[:len(pal) // pad * pad].reshape(-1, pad)[:, 2::-1]
+        grey = (0, 255) if colors == 2 else range(colors)
+        if len(pal) == colors and all((pal[i] == v).all()
+                                      for i, v in enumerate(grey)):
+            mode = "1" if colors == 2 else "L"
+            if bits != {"1": 1, "L": 8}[mode]:
+                # Pillow unpacks these rows as 1- or 8-bit samples
+                raise ValueError(f"{path}: {bits}-bit BMP with a "
+                                 f"{colors}-entry grey palette is not read")
+            if comp and mode == "1":
+                raise ValueError(f"{path}: RLE BMP with a two-entry grey "
+                                 "palette is not read (nor by Pillow)")
+        palette = np.ascontiguousarray(pal)
+    return _Bmp(w, h, bits, comp, top_down, offset, mode, layout, palette)
+
+
+def _bmp_rle(blob: bytes, at: int, w: int, h: int, rle4: bool,
+             path: str) -> np.ndarray:
+    """BmpRleDecoder's walk from file offset `at`: (h * w,) indices in
+    file row order (runs clipped at the row's end, absolute runs not,
+    a delta as Pillow reads it: two bytes skipped, then right and up)."""
+    data = bytearray()
+    x, dest = 0, w * h
+    while len(data) < dest and at + 2 <= len(blob):
+        n, byte = blob[at], blob[at + 1]
+        at += 2
+        if n:
+            n = max(0, w - x) if x + n > w else n
+            if rle4:
+                data += bytes([byte >> 4, byte & 15] * (n // 2 + 1))[:n]
+            else:
+                data += bytes([byte]) * n
+            x += n
+        elif byte == 0:
+            data += bytes(-len(data) % w)
+            x = 0
+        elif byte == 1:
+            break
+        elif byte == 2:
+            if at + 4 > len(blob):
+                break
+            right, up = blob[at + 2], blob[at + 3]
+            at += 4
+            data += bytes(right + up * w)
+            x = len(data) % w
+        else:
+            count = byte // 2 if rle4 else byte
+            got = blob[at:at + count]
+            at += len(got)
+            if rle4:
+                data += bytes(v for b in got for v in (b >> 4, b & 15))
+            else:
+                data += got
+            if len(got) < count:
+                break
+            x += byte
+            at += at % 2
+    if len(data) < dest:
+        raise ValueError(f"{path}: truncated RLE BMP ({len(data)} of {dest} "
+                         "pixels)")
+    return np.frombuffer(bytes(data[:dest]), np.uint8)
 
 
 def read_bmp(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of an uncompressed 24- or 32-bit BMP."""
+    """(H, W, 3) uint8 RGB of a BMP as Pillow's convert("RGB") gives it:
+    1, 4 and 8-bit palettes (grey ones as Pillow's "1" and "L"), RLE8 and
+    RLE4, 16-bit 5-5-5 and 5-6-5, 24 and 32 bits with Pillow's bit-field
+    layouts (alpha dropped), bottom-up and top-down rows."""
     with open(path, "rb") as f:
         blob = f.read()
-    w, h, bpp, top_down, offset = _bmp_header(blob[:54], path)
-    stride = (w * bpp + 3) // 4 * 4              # rows padded to 4 bytes
-    data = blob[offset:offset + stride * h]
-    if len(data) != stride * h:
-        raise ValueError(f"{path}: truncated BMP ({len(data)} of "
-                         f"{stride * h} pixel bytes)")
-    rows = np.frombuffer(data, np.uint8).reshape(h, stride)
-    px = rows[:, :w * bpp].reshape(h, w, bpp)[..., 2::-1]    # BGR -> RGB
-    return np.ascontiguousarray(px if top_down else px[::-1])
+    hd = _bmp_header(blob, path)
+    w, h, bits = hd.width, hd.height, hd.bits
+    if hd.compression in (1, 2):
+        px = _bmp_rle(blob, hd.offset, w, h, hd.compression == 2,
+                      path).reshape(h, w)
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3      # rows padded to 4 bytes
+        data = blob[hd.offset:hd.offset + stride * h]
+        if len(data) != stride * h:
+            raise ValueError(f"{path}: truncated BMP ({len(data)} of "
+                             f"{stride * h} pixel bytes)")
+        rows = np.frombuffer(data, np.uint8).reshape(h, stride)
+        if bits <= 8:
+            px = np.unpackbits(rows, axis=1).reshape(h, -1, bits) if bits < 8 \
+                else rows[..., None]
+            if bits < 8:
+                px = (px << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(
+                    2, dtype=np.uint8)
+            px = px.reshape(h, -1)[:, :w]
+        elif bits == 16:
+            v = rows[:, :2 * w].copy().view("<u2").astype(np.int32)
+            g6 = hd.layout == 565
+            px = np.stack([((v >> (11 if g6 else 10)) & 31) * 255 // 31,
+                           ((v >> 5) & (63 if g6 else 31)) * 255
+                           // (63 if g6 else 31),
+                           (v & 31) * 255 // 31], -1).astype(np.uint8)
+        else:
+            px = rows[:, :w * bits // 8].reshape(h, w, bits // 8)[
+                ..., list(hd.layout)]
+    if not hd.top_down:
+        px = px[::-1]
+    if hd.mode == "P":
+        if int(px.max()) >= len(hd.palette):
+            raise ValueError(f"{path}: BMP palette index past its "
+                             f"{len(hd.palette)} colours")
+        return hd.palette[px]
+    if hd.mode in ("1", "L"):
+        grey = px * np.uint8(255) if hd.mode == "1" else px
+        return np.repeat(grey[..., None], 3, axis=2)
+    return np.ascontiguousarray(px)
 
 
 def _format(path: str) -> str:
-    """'png', 'jpeg', 'pnm' or 'bmp' from the file's first bytes; other
-    formats raise with the reason."""
+    """'png', 'jpeg', 'pnm', 'bmp' or 'webp' from the file's first bytes;
+    other formats raise with the reason."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:8] == PNG_SIGNATURE:
         return "png"
     if head[:3] == b"\xff\xd8\xff":
         return "jpeg"
-    if head[:1] == b"P" and head[1:2] in b"123456":
-        return "pnm"
+    if head[:1] == b"P" and head[1:2] and head[1:2] in b"0123456fy":
+        return "pnm"                  # as Pillow accepts it; P1-P6 are read
     if head[:2] == b"BM":
         return "bmp"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise ValueError(f"{path}: WebP is not read by the port: it decodes "
-                         "PNG, JPEG, PNM (P5, P6) and BMP itself and has no "
-                         "WebP decoder")
+        return "webp"
     raise ValueError(f"{path}: unknown image format; the port reads PNG, "
-                     "JPEG, PNM (P5, P6) and BMP")
+                     "JPEG, PNM, BMP and WebP")
 
 
 def image_mode(path: str) -> str:
@@ -379,11 +623,11 @@ def image_mode(path: str) -> str:
         return _PNG_MODES.get((colour, depth), _PNG_MODES[colour])
     if kind == "jpeg":
         return jpeg.jpeg_mode(path)
-    if kind == "pnm":
-        with open(path, "rb") as f:
-            ch, _, _ = _pnm_header(f, path)
-        return "L" if ch == 1 else "RGB"
-    return "RGB"
+    if kind == "webp":
+        return webp.webp_mode(path)
+    with open(path, "rb") as f:
+        blob = f.read()
+    return (_pnm_header if kind == "pnm" else _bmp_header)(blob, path).mode
 
 
 def image_size(path: str) -> Tuple[int, int]:
@@ -394,20 +638,19 @@ def image_size(path: str) -> Tuple[int, int]:
         return h, w
     if kind == "jpeg":
         return jpeg.jpeg_size(path)
-    if kind == "pnm":
-        with open(path, "rb") as f:
-            _, w, h = _pnm_header(f, path)
-        return h, w
+    if kind == "webp":
+        return webp.webp_size(path)
     with open(path, "rb") as f:
-        w, h, _, _, _ = _bmp_header(f.read(54), path)
-    return h, w
+        blob = f.read()
+    hd = (_pnm_header if kind == "pnm" else _bmp_header)(blob, path)
+    return hd.height, hd.width
 
 
 def load_image_uint8(p: str) -> np.ndarray:
-    """(H,W,3) uint8 RGB of a PNG, JPEG, PNM or BMP; non-RGB images are
-    converted as Pillow's convert("RGB") converts them."""
+    """(H,W,3) uint8 RGB of a PNG, JPEG, PNM, BMP or WebP; non-RGB images
+    are converted as Pillow's convert("RGB") converts them."""
     return {"png": read_png, "jpeg": jpeg.read_jpeg, "pnm": read_pnm,
-            "bmp": read_bmp}[_format(p)](p)
+            "bmp": read_bmp, "webp": webp.read_webp}[_format(p)](p)
 
 
 class ImagesCached:

@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding, pixel for pixel as Pillow decodes it.
+"""JPEG decoding, pixel for pixel as Pillow decodes it.
 
 Pillow decodes JPEG through libjpeg-turbo with its defaults: the "islow"
 integer inverse DCT (jidctint.c), "fancy" (triangle-filter) chroma
@@ -9,14 +9,25 @@ after a serial Huffman walk in Python, so its pixels are Pillow's:
   - Huffman sequential DCT (SOF0 baseline and SOF1 extended, 8 bits a
     sample), interleaved and single-component scans, restart intervals
     (DRI / RSTn, the DC predictions reset at each), 0xFF00 stuffing;
-  - one component (grey) or three (YCbCr, or RGB where the file says so
+  - Huffman progressive DCT (SOF2, ITU T.81 Annex G): DC first and
+    refinement scans (interleaved or not), AC first scans with end-of-band
+    runs across blocks, AC refinement with its correction bits, restart
+    intervals resetting the runs and predictions; every scan is decoded
+    into the coefficients, and the pixel stages run once after the last,
+    as libjpeg-turbo's output of a complete file is a function of the
+    final coefficients only;
+  - one component (grey), three (YCbCr, or RGB where the file says so
     as libjpeg's jdapimin.c decides it: a JFIF marker means YCbCr, an
     Adobe marker with transform 0 means RGB, else component ids 'R', 'G',
-    'B' mean RGB), any integral sampling factors.
+    'B' mean RGB) or four (CMYK, or YCCK under Adobe transform 2, which
+    libjpeg turns into CMYK; Pillow reads the samples inverted and
+    converts them by its own cmyk2rgb), any integral sampling factors.
 
-What is outside that raises ValueError naming it: progressive, lossless,
-hierarchical and arithmetic-coded files, 12-bit samples, four components
-(CMYK / YCCK) and a corrupt or truncated stream. So does a block whose
+What is outside that raises ValueError naming it: lossless, hierarchical
+and arithmetic-coded files, 12-bit samples, a progressive file whose
+first nine AC coefficients are not all refined to Al = 0 (libjpeg-turbo
+smooths its blocks, jdcoefct.c's decompress_smooth_data, which is not
+ported) and a corrupt or truncated stream. So does a block whose
 inverse DCT leaves the range [-512, 511] before the level shift: there
 libjpeg-turbo's C code (a lookup in a wrapping table) and its SIMD code
 (saturating packs) give different pixels, and the module does not guess
@@ -39,7 +50,7 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5:
+_SOF_NAMES = {0xC3: "lossless", 0xC5:
               "differential sequential", 0xC6: "differential progressive",
               0xC7: "differential lossless", 0xC9:
               "arithmetic-coded sequential", 0xCA:
@@ -61,7 +72,9 @@ class Frame(NamedTuple):
     width: int
     height: int
     comps: Tuple[Component, ...]
-    rgb: bool       # stored as RGB, not YCbCr
+    rgb: bool       # three components stored as RGB, not YCbCr
+    ycck: bool      # four components stored as YCCK, not CMYK
+    progressive: bool
 
     @property
     def grid(self) -> Tuple[int, int, int, int]:
@@ -115,8 +128,8 @@ def _frame(marker: int, seg: bytes, path: str) -> Tuple[int, int, Tuple]:
     """SOFn -> (width, height, components); refuses what is not decoded."""
     if marker in _SOF_NAMES:
         raise ValueError(f"{path}: {_SOF_NAMES[marker]} JPEG is not "
-                         "decoded; the port reads baseline (Huffman "
-                         "sequential) JPEG only")
+                         "decoded; the port reads Huffman-coded sequential "
+                         "and progressive JPEG only")
     bits, width, height, n = _dims(seg, path)
     if bits != 8:
         raise ValueError(f"{path}: {bits}-bit JPEG is not decoded; the port "
@@ -261,6 +274,152 @@ def _decode_interval(data: bytes, blocks: list, tables: list, coefs: list,
                 k += 16
             else:
                 break
+        if p > end:
+            raise ValueError(f"{path}: truncated JPEG data")
+
+
+def _extend(v: int, s: int) -> int:
+    """HUFF_EXTEND: s bits read as a signed value."""
+    return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+
+def _dc_first(data: bytes, blocks: list, tables: list, coefs: list,
+              preds: list, al: int, path: str) -> None:
+    """A progressive DC first scan's interval (jdphuff.c decode_mcu_DC_first):
+    the DC differences of `blocks` (as _decode_interval's), shifted by
+    Al."""
+    W = _windows(data)
+    end = 8 * len(data)
+    p = 0
+    for ci, base in blocks:
+        e = tables[ci][(W[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+        if not e:
+            raise ValueError(f"{path}: corrupt JPEG data (bad Huffman code)")
+        p += e >> 8
+        s = e & 255
+        if s:
+            if s > 11:
+                raise ValueError(f"{path}: corrupt JPEG data (DC size {s})")
+            preds[ci] += _extend((W[p >> 3] >> (64 - (p & 7) - s))
+                                 & ((1 << s) - 1), s)
+            p += s
+        coefs[ci][base] = preds[ci] << al
+        if p > end:
+            raise ValueError(f"{path}: truncated JPEG data")
+
+
+def _dc_refine(data: bytes, blocks: list, coefs: list, al: int,
+               path: str) -> None:
+    """A DC refinement scan's interval: one bit a block, bit Al of its
+    DC."""
+    W = _windows(data)
+    p = 0
+    for ci, base in blocks:
+        if (W[p >> 3] >> (63 - (p & 7))) & 1:
+            coefs[ci][base] |= 1 << al
+        p += 1
+    if p > 8 * len(data):
+        raise ValueError(f"{path}: truncated JPEG data")
+
+
+def _ac_first(data: bytes, bases: list, ac: list, out: list, ss: int,
+              se: int, al: int, path: str) -> None:
+    """An AC first scan's interval (decode_mcu_AC_first): one component,
+    bands ss..se of the blocks at `bases`, end-of-band runs (EOBRUN)
+    across blocks."""
+    W = _windows(data)
+    end = 8 * len(data)
+    p = eobrun = 0
+    for base in bases:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            e = ac[(W[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+            if not e:
+                raise ValueError(f"{path}: corrupt JPEG data (bad Huffman "
+                                 "code)")
+            p += e >> 8
+            r, s = (e >> 4) & 15, e & 15
+            if s:
+                k += r
+                if k > se:
+                    raise ValueError(f"{path}: corrupt JPEG data (run past "
+                                     "the band's end)")
+                out[base + k] = _extend((W[p >> 3] >> (64 - (p & 7) - s))
+                                        & ((1 << s) - 1), s) << al
+                p += s
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (W[p >> 3] >> (64 - (p & 7) - r)) & (
+                        (1 << r) - 1)
+                    p += r
+                eobrun -= 1
+                break
+        if p > end:
+            raise ValueError(f"{path}: truncated JPEG data")
+
+
+def _ac_refine(data: bytes, bases: list, ac: list, out: list, ss: int,
+               se: int, al: int, path: str) -> None:
+    """An AC refinement scan's interval (decode_mcu_AC_refine): a
+    correction bit for every coefficient already nonzero that a run
+    passes, and the new coefficients +-(1 << Al)."""
+    W = _windows(data)
+    end = 8 * len(data)
+    p1, m1 = 1 << al, -1 << al
+    p = eobrun = 0
+    for base in bases:
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = ac[(W[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+                if not e:
+                    raise ValueError(f"{path}: corrupt JPEG data (bad "
+                                     "Huffman code)")
+                p += e >> 8
+                r, s = (e >> 4) & 15, e & 15
+                if s:                 # libjpeg takes any size as 1
+                    s = p1 if (W[p >> 3] >> (63 - (p & 7))) & 1 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (W[p >> 3] >> (64 - (p & 7) - r)) & (
+                            (1 << r) - 1)
+                        p += r
+                    break
+                while k <= se:
+                    c = out[base + k]
+                    if c:
+                        if (W[p >> 3] >> (63 - (p & 7))) & 1 and not c & p1:
+                            out[base + k] = c + p1 if c >= 0 else c + m1
+                        p += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s:
+                    if k > se:
+                        raise ValueError(f"{path}: corrupt JPEG data (run "
+                                         "past the band's end)")
+                    out[base + k] = s
+                k += 1
+        if eobrun:
+            while k <= se:
+                c = out[base + k]
+                if c:
+                    if (W[p >> 3] >> (63 - (p & 7))) & 1 and not c & p1:
+                        out[base + k] = c + p1 if c >= 0 else c + m1
+                    p += 1
+                k += 1
+            eobrun -= 1
         if p > end:
             raise ValueError(f"{path}: truncated JPEG data")
 
@@ -441,7 +600,7 @@ def _decode(blob: bytes, path: str) -> Tuple[Frame, List[np.ndarray]]:
     jfif, adobe = False, None
     coefs: List[list] = []
     qt_of: List[np.ndarray] = []
-    seen = set()
+    bits: List[List[int]] = []     # libjpeg's coef_bits: -1 = never sent
     segs = _segments(blob, path)
     item = next(segs)
     while True:
@@ -477,34 +636,45 @@ def _decode(blob: bytes, path: str) -> Tuple[Frame, List[np.ndarray]]:
             restart = struct.unpack(">H", seg[:2])[0]
         elif marker == 0xCC:
             raise ValueError(f"{path}: arithmetic-coded JPEG is not decoded;"
-                             " the port reads baseline (Huffman sequential) "
-                             "JPEG only")
+                             " the port reads Huffman-coded sequential and "
+                             "progressive JPEG only")
         elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8):
             if frame is not None:
                 raise ValueError(f"{path}: JPEG with two frame headers")
             width, height, comps = _frame(marker, seg, path)
-            if len(comps) not in (1, 3):
-                kind = "CMYK / YCCK" if len(comps) == 4 else "not grey " \
-                    "or colour"
+            if len(comps) not in (1, 3, 4):
                 raise ValueError(f"{path}: JPEG with {len(comps)} components"
-                                 f" ({kind}) is not decoded")
+                                 " (not grey, colour or CMYK) is not "
+                                 "decoded")
+            # jdapimin.c's colour space: 3 components are YCbCr unless RGB
+            # is signalled; 4 are YCCK under Adobe transform 2 (or any
+            # transform but 0), else CMYK
             rgb = len(comps) == 3 and not jfif and (
                 adobe == 0 if adobe is not None
                 else tuple(c.cid for c in comps) == (82, 71, 66))
-            frame = Frame(width, height, comps, rgb)
+            ycck = len(comps) == 4 and adobe not in (None, 0)
+            frame = Frame(width, height, comps, rgb, ycck, marker == 0xC2)
             _, _, mcux, mcuy = frame.grid
             coefs = [[0] * (mcuy * c.v * mcux * c.h * 64) for c in comps]
             qt_of = [None] * len(comps)
+            bits = [[-1] * 64 for _ in comps]
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError(f"{path}: JPEG scan before its frame header")
             item = segs.send(_scan(blob, seg, after, frame, qt, dht, restart,
-                                   coefs, qt_of, seen, path))
+                                   coefs, qt_of, bits, path))
             continue
         item = next(segs)
-    if frame is None or len(seen) != len(frame.comps):
+    if frame is None or any(q is None for q in qt_of):
         raise ValueError(f"{path}: JPEG ends before every component was "
                          "coded")
+    if frame.progressive and all(b[0] >= 0 for b in bits) and any(
+            b[k] for b in bits for k in range(1, 10)):
+        # jdcoefct.c's smoothing_ok: libjpeg-turbo smooths the blocks of a
+        # file whose first nine AC coefficients are not all sent to Al = 0
+        raise ValueError(f"{path}: incompletely refined progressive JPEG is "
+                         "not decoded (libjpeg's block smoothing is not "
+                         "ported)")
     _, _, mcux, mcuy = frame.grid
     blocks = [np.asarray(cf, np.int64).reshape(mcuy * c.v, mcux * c.h, 64)
               * qt_of[i] for i, (c, cf) in enumerate(zip(frame.comps,
@@ -512,12 +682,22 @@ def _decode(blob: bytes, path: str) -> Tuple[Frame, List[np.ndarray]]:
     return frame, blocks
 
 
-def _scan(blob, seg, after, frame, qt, dht, restart, coefs, qt_of, seen,
+def _scan(blob, seg, after, frame, qt, dht, restart, coefs, qt_of, bits,
           path) -> int:
     """Decode one scan into `coefs`; the offset of the marker after it."""
     ns = seg[0] if seg else 0
     if ns < 1 or len(seg) < 4 + 2 * ns:
         raise ValueError(f"{path}: corrupt JPEG scan header")
+    ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
+    ah, al = ahl >> 4, ahl & 15
+    if not frame.progressive:
+        if (ss, se, ahl) != (0, 63, 0):
+            raise ValueError(f"{path}: sequential JPEG scan with spectral "
+                             "selection or successive approximation")
+    elif (se != 0 if ss == 0 else se < ss or se > 63 or ns != 1) or (
+            ah and al != ah - 1) or al > 13:
+        raise ValueError(f"{path}: corrupt JPEG progression (scan "
+                         f"Ss={ss} Se={se} Ah={ah} Al={al})")
     ids = [c.cid for c in frame.comps]
     slots, tables = [], []
     for i in range(ns):
@@ -525,27 +705,30 @@ def _scan(blob, seg, after, frame, qt, dht, restart, coefs, qt_of, seen,
         if cid not in ids:
             raise ValueError(f"{path}: JPEG scan names component {cid}")
         ci = ids.index(cid)
-        if ci in seen:
-            raise ValueError(f"{path}: JPEG component {cid} coded twice "
-                             "(a progressive or refining scan)")
-        if (0, t >> 4) not in dht or (1, t & 15) not in dht:
+        if not frame.progressive and bits[ci][0] >= 0:
+            raise ValueError(f"{path}: JPEG component {cid} coded twice in "
+                             "a sequential file")
+        if not frame.progressive:
+            need = [(0, t >> 4), (1, t & 15)]
+        elif ss:
+            need = [(1, t & 15)]
+        else:                          # a DC refinement codes no symbols
+            need = [] if ah else [(0, t >> 4)]
+        if any(k not in dht for k in need):
             raise ValueError(f"{path}: JPEG scan uses an undefined Huffman "
                              "table")
         slots.append(ci)
-        tables.append((dht[0, t >> 4], dht[1, t & 15]))
-    ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahl) != (0, 63, 0):
-        raise ValueError(f"{path}: JPEG scan with spectral selection or "
-                         "successive approximation is not decoded")
-    # the table in force when the component's scan starts (zig-zag order,
-    # as the coefficients)
+        tables.append([dht[k] for k in need])
+    # jdinput.c latches a component's quantization table when its first
+    # scan starts (zig-zag order, as the coefficients)
     for ci in slots:
         tq = frame.comps[ci].tq
-        if tq not in qt:
-            raise ValueError(f"{path}: JPEG component uses an undefined "
-                             "quantization table")
-        qt_of[ci] = qt[tq]
-        seen.add(ci)
+        if qt_of[ci] is None:
+            if tq not in qt:
+                raise ValueError(f"{path}: JPEG component uses an undefined "
+                                 "quantization table")
+            qt_of[ci] = qt[tq]
+        bits[ci][ss:se + 1] = [al] * (se + 1 - ss)
     comps = frame.comps
     hmax, vmax, mcux, mcuy = frame.grid
     if ns == 1:            # one block an MCU, the component's own extent
@@ -577,16 +760,48 @@ def _scan(blob, seg, after, frame, qt, dht, restart, coefs, qt_of, seen,
                          f"restart intervals where {want} belong)")
     out = [coefs[ci] for ci in slots]
     for i, data in enumerate(intervals):
-        _decode_interval(data, order[i * per:(i + 1) * per], tables, out,
-                         [0] * ns, path)
+        part = order[i * per:(i + 1) * per]
+        if not frame.progressive:
+            _decode_interval(data, part, tables, out, [0] * ns, path)
+        elif ss == 0 and not ah:
+            _dc_first(data, part, [t[0] for t in tables], out, [0] * ns, al,
+                      path)
+        elif ss == 0:
+            _dc_refine(data, part, out, al, path)
+        else:
+            (_ac_refine if ah else _ac_first)(
+                data, [b for _, b in part], tables[0][0], out[0],
+                ss, se, al, path)
     return at
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a baseline JPEG file, as Pillow's
-    Image.open(path).convert("RGB") gives it (grey replicated)."""
+    """(H, W, 3) uint8 RGB of a JPEG file, as Pillow's
+    Image.open(path).convert("RGB") gives it (grey replicated, CMYK
+    through Pillow's cmyk2rgb)."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read(), path)
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pillow's MULDIV255: a * b / 255, rounded its way."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def cmyk_to_rgb(planes: List[np.ndarray], ycck: bool) -> np.ndarray:
+    """Four decoded planes -> (H, W, 3) uint8 as Pillow gives them: libjpeg
+    turns YCCK into CMYK (jdcolor.c's ycck_cmyk_convert: YCbCr -> RGB by the
+    same tables, then inverted; K as decoded), Pillow reads the samples
+    inverted ("CMYK;I", Adobe's polarity) and convert("RGB") applies its
+    cmyk2rgb."""
+    if ycck:
+        cmy = 255 - ycc_to_rgb(*planes[:3]).astype(np.int64)
+    else:
+        cmy = np.stack(planes[:3], -1).astype(np.int64)
+    cmy = 255 - cmy
+    nk = planes[3].astype(np.int64)[..., None]    # 255 - (255 - K)
+    return np.clip(nk - _muldiv255(cmy, nk), 0, 255).astype(np.uint8)
 
 
 def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>",
@@ -612,6 +827,8 @@ def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>",
         planes.append(up[:frame.height, :frame.width])
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2)
+    if len(planes) == 4:
+        return cmyk_to_rgb(planes, frame.ycck)
     if frame.rgb:
         return np.stack(planes, -1).astype(np.uint8)
     return ycc_to_rgb(*planes)

@@ -1,7 +1,7 @@
 """Offline training-data preparation (Open Images style).
 
 Port of `l3c_tpu/data/prep.py`, with the port's own image reader
-(data/images: PNG, baseline JPEG, PNM, BMP), Lanczos resample
+(data/images: PNG, JPEG, WebP, PNM, BMP), Lanczos resample
 (data/resample, Pillow's bit for bit) and PNG writer in place of Pillow:
 the same kept / skipped decisions and, for a kept image, the same pixels
 (the PNG bytes differ). The reference importer's rules
@@ -12,9 +12,9 @@ the same kept / skipped decisions and, for a kept image, the same pixels
 - non-RGB images (by the mode Pillow would open them in) and saturated
   ones (mean HSV saturation > 0.9 or mean value > 0.8) are discarded;
 - the result is saved as PNG (import_train_images.py:131).
-A file the port cannot read (corrupt, or a format it does not decode,
-such as progressive JPEG or WebP) is skipped with a "skipping PATH:
-REASON" line on stderr, as the JAX package skips what Pillow cannot read.
+A file the port cannot read (corrupt, or a variant it does not decode,
+such as arithmetic-coded JPEG) is skipped with a "skipping PATH: REASON"
+line on stderr, as the JAX package skips what Pillow cannot read.
 
 CLI:
     python -m l3c_torch.data.prep IN_DIR OUT_DIR [--min_res 512]

@@ -5,9 +5,12 @@ Files are written by Pillow from seeded arrays (top-down BMPs, PNM header
 comments and the refused variants Pillow does not write are made from
 Pillow's files or by hand); `load_image_uint8` and `image_size` of the
 port must give exactly what `l3c_tpu.data.images.load_image_uint8` and
-Pillow give, and the listing with a minimum size (over PNG, PNM, BMP and JPEG files) the
-JAX package's. What the port does not read, progressive JPEG and WebP
-among it, raises ValueError with a message pinned here.
+Pillow give, and the listing with a minimum size (over PNG, PNM, BMP and
+JPEG files) the JAX package's. PNM: P1 to P6, maxvals other than 255 and
+16-bit samples (Pillow's scaling); BMP: 1, 4 and 8-bit palettes (grey ones
+as Pillow's "1" and "L"), RLE8, RLE4, 16-bit, bit-field layouts, OS/2, V4
+and V5 headers. What the port does not read raises ValueError with a
+message pinned here.
 """
 import io
 import struct
@@ -37,16 +40,157 @@ def _top_down(blob: bytes) -> bytes:
             + b"".join(reversed(rows)))
 
 
+def _bmp(w, h, bits, rows, comp=0, header=40, palette=None, masks=None,
+         top_down=False):
+    """A BMP of the given rows (file order, each padded by the caller or
+    RLE-coded) with a header of `header` bytes (12: OS/2, 40, 108: V4,
+    124: V5), a palette of (n, 3) RGB and bit-field masks."""
+    pal = b""
+    if palette is not None:
+        ent = 3 if header == 12 else 4
+        pal = b"".join(bytes([b_, g, r]) + b"\0" * (ent - 3)
+                       for r, g, b_ in np.asarray(palette).tolist())
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bits, comp, len(rows), 2835, 2835,
+                           0 if palette is None else len(palette), 0)
+        if header > 40:
+            m = tuple(masks or (0, 0, 0, 0))
+            info += struct.pack("<IIII", *m) + bytes(header - 56)
+    extra = b"" if header > 40 or masks is None else struct.pack(
+        "<III", *masks[:3])
+    offset = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(rows), 0, 0, offset)
+            + info + extra + pal + rows)
+
+
+def _pad_rows(rows):
+    """(h, nbytes) uint8 rows, bottom-up, each padded to 4 bytes."""
+    rows = rows[::-1]
+    pad = -rows.shape[1] % 4
+    return np.concatenate([rows, np.zeros((rows.shape[0], pad), np.uint8)],
+                          1).tobytes()
+
+
+def _rle(idx, rle4):
+    """RLE8 / RLE4 rows of (h, w) indices, bottom-up: runs, absolute runs
+    (an even count for RLE4, as Pillow reads them) and the end codes."""
+    out = bytearray()
+    for row in idx[::-1].tolist():
+        x = 0
+        while x < len(row):
+            n = 1
+            while x + n < len(row) and n < 255 and row[x + n] == row[x]:
+                n += 1
+            lit = min(len(row) - x, 8)
+            lit -= lit % 2
+            if n == 1 and lit >= 4 and len(set(row[x:x + lit])) == lit:
+                out += bytes([0, lit])
+                if rle4:
+                    out += bytes(row[x + i] << 4 | row[x + i + 1]
+                                 for i in range(0, lit, 2))
+                    size = lit // 2
+                else:
+                    out += bytes(row[x:x + lit])
+                    size = lit
+                out += bytes(size % 2)
+                x += lit
+            else:
+                v = row[x] << 4 | row[x] if rle4 else row[x]
+                out += bytes([n, v])
+                x += n
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
 def _write(path, variant, img):
-    """img in the file format of `variant`, by Pillow."""
+    """img in the file format of `variant`, by Pillow or built here (PNM
+    header comments, plain and deep PNMs, palette, RLE, 16-bit, bit-field
+    and OS/2 / V4 / V5 BMPs)."""
+    h, w, _ = img.shape
+    grey = img[..., 1]
     if variant == "P6":
         Image.fromarray(img).save(path, "PPM")
     elif variant == "P5":
-        Image.fromarray(img[..., 1]).save(path, "PPM")
+        Image.fromarray(grey).save(path, "PPM")
+    elif variant == "P4":
+        Image.fromarray(grey).convert("1").save(path, "PPM")
+    elif variant == "P5 16-bit":
+        Image.fromarray(grey.astype(np.int32) * 257 // 3, "I").save(path,
+                                                                   "PPM")
+    elif variant.startswith("P6 maxval") or variant.startswith("P5 maxval"):
+        maxval = int(variant.split()[-1])
+        v = (img if variant[1] == "6" else grey).astype(np.int64) * maxval \
+            // 255
+        dt = np.uint8 if maxval < 256 else ">u2"
+        open(path, "wb").write(f"P{variant[1]}\n{w} {h}\n{maxval}\n".encode()
+                               + v.astype(dt).tobytes())
+    elif variant in ("P1", "P2", "P3"):
+        v = {"P1": grey > 127, "P2": grey, "P3": img}[variant].astype(int)
+        maxval = "" if variant == "P1" else "\n# max\n300\n" if \
+            variant == "P2" else "\n255\n"
+        sep = "" if variant == "P1" else " "
+        body = "\n".join(sep.join(map(str, row)) for row in v.reshape(h, -1))
+        open(path, "wb").write(f"{variant}\n{w} {h}{maxval}\n".encode()
+                               + body.encode() + b"\n")
     elif variant == "P6 comments":
-        h, w, _ = img.shape
         head = f"P6\n# a comment\n{w} # another\n{h}\n255\n".encode()
         open(path, "wb").write(head + img.tobytes())
+    elif variant in ("BMP1", "BMP8 grey", "BMP8 palette"):
+        im = Image.fromarray(grey).convert("1") if variant == "BMP1" else \
+            Image.fromarray(grey) if variant == "BMP8 grey" else \
+            Image.fromarray(img).quantize(37)
+        im.save(path, "BMP")
+    elif variant in ("BMP4 palette", "RLE8", "RLE4", "OS/2 8-bit"):
+        n = 16 if variant in ("BMP4 palette", "RLE4") else 200
+        idx = (grey.astype(np.int64) * n // 256).astype(np.uint8)
+        idx[::3, ::2] = idx[::3, :1]              # runs for the RLE coders
+        pal = np.random.RandomState(n).randint(0, 256, (n, 3))
+        if variant == "BMP4 palette":
+            packed = np.concatenate([idx, np.zeros((h, w % 2), np.uint8)], 1)
+            rows = _pad_rows(packed[:, 0::2] << 4 | packed[:, 1::2])
+            blob = _bmp(w, h, 4, rows, palette=pal)
+        elif variant == "OS/2 8-bit":
+            blob = _bmp(w, h, 8, _pad_rows(idx), header=12, palette=pal)
+        else:
+            blob = _bmp(w, h, 4 if variant == "RLE4" else 8,
+                        _rle(idx, variant == "RLE4"),
+                        comp=2 if variant == "RLE4" else 1, palette=pal)
+        open(path, "wb").write(blob)
+    elif variant.startswith("BMP16"):
+        g6 = variant.endswith("565")
+        r = img[..., 0].astype(np.uint16) >> 3
+        b_ = img[..., 2].astype(np.uint16) >> 3
+        g = img[..., 1].astype(np.uint16) >> (2 if g6 else 3)
+        v = r << (11 if g6 else 10) | g << 5 | b_
+        rows = _pad_rows(v.astype("<u2").view(np.uint8).reshape(h, 2 * w))
+        blob = _bmp(w, h, 16, rows, comp=3 if g6 else 0,
+                    masks=(0xF800, 0x7E0, 0x1F) if g6 else None)
+        open(path, "wb").write(blob)
+    elif variant in ("V5 BGRA", "V4 XBGR", "OS/2 24-bit", "V5 24-bit"):
+        if variant == "V5 BGRA":
+            px = np.concatenate([img[..., ::-1], grey[..., None] ^ 0x33], 2)
+            blob = _bmp(w, h, 32, _pad_rows(px.reshape(h, -1)), comp=3,
+                        header=124, masks=(0xFF0000, 0xFF00, 0xFF,
+                                           0xFF000000))
+        elif variant == "V4 XBGR":
+            px = np.concatenate([np.zeros((h, w, 1), np.uint8),
+                                 img[..., ::-1]], 2)
+            blob = _bmp(w, h, 32, _pad_rows(px.reshape(h, -1)), comp=3,
+                        header=108, masks=(0xFF000000, 0xFF0000, 0xFF00, 0),
+                        top_down=True)
+        else:
+            blob = _bmp(w, h, 24, _pad_rows(img[..., ::-1].reshape(h, -1)),
+                        header=12 if variant.startswith("OS/2") else 124)
+        if variant == "V4 XBGR":           # rows written top-down
+            off = struct.unpack("<I", blob[10:14])[0]
+            stride = len(blob[off:]) // h
+            rows = [blob[off + i * stride:off + (i + 1) * stride]
+                    for i in range(h)]
+            blob = blob[:off] + b"".join(reversed(rows))
+        open(path, "wb").write(blob)
     else:
         im = Image.fromarray(img)
         if variant.startswith("BMP32"):
@@ -60,21 +204,29 @@ def _write(path, variant, img):
                                else blob)
 
 
-@pytest.mark.parametrize("variant", ["P6", "P5", "P6 comments", "BMP24",
-                                     "BMP32", "BMP24 top-down",
-                                     "BMP32 top-down"])
+VARIANTS = ["P6", "P5", "P6 comments", "P4", "P1", "P2", "P3", "P5 16-bit",
+            "P6 maxval 15", "P5 maxval 1000", "P6 maxval 65535",
+            "BMP24", "BMP32", "BMP24 top-down", "BMP32 top-down", "BMP1",
+            "BMP8 grey", "BMP8 palette", "BMP4 palette", "RLE8", "RLE4",
+            "OS/2 8-bit", "OS/2 24-bit", "BMP16 555", "BMP16 565",
+            "V5 BGRA", "V4 XBGR", "V5 24-bit"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("hw", [(1, 1), (7, 13), (33, 20)])
 def test_pnm_and_bmp_read_as_the_jax_loader(tmp_path, variant, hw):
     """Every pixel equal to the JAX package's load_image_uint8; the size
-    from the header equal to Pillow's; odd widths pad BMP rows."""
-    ext = ".bmp" if variant.startswith("BMP") else ".ppm"
+    and mode from the header equal to Pillow's; odd widths pad BMP rows."""
+    ext = ".ppm" if variant.startswith("P") else ".bmp"
     p = str(tmp_path / f"im{ext}")
     _write(p, variant, _rgb(*hw, seed=hw[1]))
     want = jimages.load_image_uint8(p)
     got = timages.load_image_uint8(p)
     assert got.dtype == np.uint8 and got.shape == want.shape == (*hw, 3)
     np.testing.assert_array_equal(got, want)
-    assert timages.image_size(p) == hw == Image.open(p).size[::-1]
+    with Image.open(p) as im:
+        assert timages.image_size(p) == hw == im.size[::-1]
+        assert timages.image_mode(p) == im.mode
 
 
 def _refused(tmp_path):
@@ -82,56 +234,47 @@ def _refused(tmp_path):
     img = _rgb(6, 5, seed=3)
     out = []
 
-    def pillow(name, im, fmt, **kw):
+    def pillow(im, fmt, **kw):
         buf = io.BytesIO()
         im.save(buf, fmt, **kw)
         return buf.getvalue()
 
-    out.append(("x.jpg", pillow("x.jpg", Image.fromarray(img), "JPEG",
-                                progressive=True),
-                "progressive JPEG is not decoded; the port reads baseline "
-                "\\(Huffman sequential\\) JPEG only"))
-    # a WebP file's container, as Pillow tells the format (from its first
-    # bytes; Pillow may be built without a WebP encoder)
+    # a WebP file's container whose image chunk is cut short
     webp = b"RIFF" + struct.pack("<I", 12) + b"WEBPVP8 " + bytes(8)
-    out.append(("x.webp", webp, "WebP is not read by the port: it decodes "
-                "PNG, JPEG, PNM \\(P5, P6\\) and BMP itself and has no "
-                "WebP decoder"))
-    deep = Image.fromarray(img[..., 0].astype(np.int32) * 257, "I")
-    out.append(("x16.ppm", pillow("x16.ppm", deep, "PPM"),
-                "PNM maxval 65535; only 8-bit PNMs \\(maxval 255\\) are "
-                "read, not 16-bit ones"))
-    out.append(("x3.ppm", b"P3\n1 1\n255\n0 0 0\n",
-                "PNM type P3; only binary P5 \\(grey\\) and P6 \\(RGB\\) "
-                "are read"))
-    bmp = pillow("x.bmp", Image.fromarray(img), "BMP")
-    for comp, name in ((1, "RLE8"), (3, "BI_BITFIELDS")):
-        out.append((f"x{comp}.bmp", bmp[:30] + struct.pack("<I", comp)
-                    + bmp[34:], f"{name} BMP; only uncompressed \\(BI_RGB\\) "
-                    "BMPs are read"))
-    out.append(("x8.bmp", pillow("x8.bmp", Image.fromarray(img[..., 0]),
-                                 "BMP"),
-                "8-bit BMP; only 24- and 32-bit BMPs are read"))
+    out.append(("x.webp", webp, "truncated WebP VP8 frame header"))
+    out.append(("xf.ppm", pillow(Image.fromarray(img[..., 0]).convert("F"),
+                                 "PPM"), "PNM type Pf; P1 to P6 are read"))
+    bmp = pillow(Image.fromarray(img), "BMP")
+    out.append(("x1.bmp", bmp[:30] + struct.pack("<I", 1) + bmp[34:],
+                "RLE8 BMP of 24 bits is not read \\(nor by Pillow\\)"))
+    out.append(("x3.bmp", bmp[:30] + struct.pack("<I", 3) + bmp[34:],
+                "BI_BITFIELDS BMP with masks"))
+    out.append(("x4.bmp", bmp[:30] + struct.pack("<I", 4) + bmp[34:],
+                "JPEG BMP is not read \\(nor by Pillow\\)"))
+    idx = (img[..., 0] // 16).astype(np.uint8)
+    packed = np.concatenate([idx, np.zeros((6, 1), np.uint8)], 1)
+    out.append(("x16.bmp", _bmp(5, 6, 4, _pad_rows(packed[:, 0::2] << 4
+                                                    | packed[:, 1::2]),
+                                palette=np.repeat(np.arange(16)[:, None], 3,
+                                                  1)),
+                "4-bit BMP with a 16-entry grey palette is not read"))
     out.append(("x.ppm", b"not an image at all",
-                "unknown image format; the port reads PNG, JPEG, PNM \\(P5, "
-                "P6\\) and BMP"))
+                "unknown image format; the port reads PNG, JPEG, PNM, BMP "
+                "and WebP"))
     return out
 
 
 def test_what_is_not_read_raises_with_the_reason(tmp_path):
-    """Progressive JPEG, WebP, 16-bit and ASCII PNM, RLE, bitfield and 8-bit
-    BMP and an unknown format: ValueError naming the format and the
-    reason, from the reader and from the header read of the listing (a
-    progressive JPEG's header gives Pillow's size: only its pixels are
-    refused)."""
+    """A cut-short WebP, float PNM, RLE on a 24-bit BMP, bit-field masks
+    Pillow does not read, JPEG-in-BMP, a 4-bit BMP whose grey palette
+    Pillow reads as 8-bit samples and an unknown format: ValueError naming
+    the format and the reason, from the reader and from the header read of
+    the listing."""
     for name, blob, msg in _refused(tmp_path):
         p = str(tmp_path / name)
         open(p, "wb").write(blob)
         with pytest.raises(ValueError, match=msg):
             timages.load_image_uint8(p)
-        if name == "x.jpg":
-            assert timages.image_size(p) == Image.open(p).size[::-1]
-            continue
         with pytest.raises(ValueError, match=msg):
             timages.image_size(p)
 

@@ -63,12 +63,18 @@ def test_port_imports_no_jax_and_nothing_of_l3c_tpu():
         "parallel/__init__.py", "parallel/mesh.py", "parallel/fanout.py",
         "parallel/spatial.py", "data/jpeg.py", "data/resample.py",
         "data/prep.py", "data/offline_corpus.py", "cli/prep_pipeline.py",
-        "data/synth.py", "data/ndimage.py", "data/jpeg_encode.py")} \
-        <= rel
+        "data/synth.py", "data/ndimage.py", "data/jpeg_encode.py",
+        "data/webp.py", "data/webp_tables.py")} <= rel
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                              & set(FORBIDDEN))
            for p in files}
     assert not {k: v for k, v in bad.items() if v}
+    # the image readers decode every format themselves: no binding to a
+    # system library (libjpeg, libwebp) either
+    assert not {k: v for k, v in {
+        r: sorted(set(_imported_roots(os.path.join(ROOT, r)))
+                  & {"ctypes", "cffi", "PIL", "cv2", "imageio"})
+        for r in rel if r.startswith("l3c_torch/data/")}.items() if v}
     # the parallel paths use torch.distributed (allowed: it is torch's)
     tree = ast.parse(open(os.path.join(ROOT, "l3c_torch", "parallel",
                                        "mesh.py")).read())

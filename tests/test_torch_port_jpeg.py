@@ -11,8 +11,9 @@ the JAX package's load_image_uint8 decodes through (libjpeg-turbo).
   sampling factors, single-component (non-interleaved) scans, restart
   intervals over them, RGB by an Adobe marker or by component ids;
 every pixel equal, and the mode from the header equal to Pillow's.
-Progressive and other processes, CMYK, 12-bit and corrupt data raise
-ValueError naming the reason; so does a block whose inverse DCT leaves
+Lossless, hierarchical and arithmetic-coded processes, 12-bit and corrupt
+data raise ValueError naming the reason (progressive and four-component
+files: test_torch_port_jpeg_progressive.py); so does a block whose inverse DCT leaves
 the range where libjpeg-turbo's C and SIMD code agree (Pillow's pixels
 there are pinned beside the refusal).
 """
@@ -307,28 +308,28 @@ def test_colour_space_equals_pillow(tmp_path, app, ids):
 
 
 def test_what_is_not_decoded_raises_with_the_reason(tmp_path):
+    """Lossless and arithmetic-coded processes, 12-bit samples, a
+    truncated file and corrupt data; the header of each is still read.
+    (Progressive and CMYK files decode: test_torch_port_jpeg_progressive.)"""
     img = _content(24, 16, 0, "smooth")
     p = str(tmp_path / "x.jpg")
-    Image.fromarray(img).save(p, progressive=True)
-    with pytest.raises(ValueError, match="progressive JPEG is not decoded"):
-        timages.load_image_uint8(p)
-    assert timages.image_size(p) == (24, 16)         # the header is read
-    Image.fromarray(img).convert("CMYK").save(p)
-    assert timages.image_mode(p) == Image.open(p).mode == "CMYK"
-    with pytest.raises(ValueError, match="4 components \\(CMYK / YCCK\\)"):
-        timages.load_image_uint8(p)
     Image.fromarray(img).save(p)
     blob = open(p, "rb").read()
     sof = blob.index(b"\xff\xc0")
     for marker, msg in ((0xC3, "lossless JPEG"),
-                        (0xC9, "arithmetic-coded sequential JPEG")):
+                        (0xC9, "arithmetic-coded sequential JPEG"),
+                        (0xCA, "arithmetic-coded progressive JPEG"),
+                        (0xC5, "differential sequential JPEG")):
         open(p, "wb").write(blob[:sof + 1] + bytes([marker])
                             + blob[sof + 2:])
         with pytest.raises(ValueError, match=msg):
             timages.load_image_uint8(p)
+        assert timages.image_size(p) == (24, 16)     # the header is read
     open(p, "wb").write(blob[:sof + 4] + b"\x0c" + blob[sof + 5:])
     with pytest.raises(ValueError, match="12-bit JPEG is not decoded"):
         timages.load_image_uint8(p)
+    with pytest.raises(OSError):          # nor does Pillow open it here
+        Image.open(p)
     open(p, "wb").write(blob[:len(blob) // 2])
     with pytest.raises(ValueError, match="truncated"):
         timages.load_image_uint8(p)
