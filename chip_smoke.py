@@ -224,9 +224,28 @@ Phases (each raises on failure; none carries on after another failed):
               progressive JPEG, a 1024 x 768 lossy WebP and a 256 x 192
               lossless WebP (l3c_torch/data/fixtures/formats_rate), each
               held to its digest, the host CPU named
- 17. report   one JSON line of kernel records (each with its path:
+ 17. damaged  damaged and partly refined files on this machine's host
+              (no Pillow): every fixture of l3c_torch/data/fixtures/damaged
+              (corrupt entropy data in baseline, restart and progressive
+              JPEGs, one above 64 KiB; a scan cut short with EOI; a wrong
+              RST; progressive files block smoothing completes; a block
+              outside the inverse DCT's range; a PNG whose IDAT CRC is
+              wrong; arithmetic-coded and lossless JPEG, a float PNM, a
+              4-bit BMP with a grey palette) to Pillow's mode, size and
+              pixel digest
+              (expected.json), every file of damaged_refused refused;
+              where this host has Pillow, how many fixtures its decode
+              equals (reported, not held); cli.l3c enc / dec of the
+              damaged baseline JPEG and the PNG bit-exact against the
+              loader's pixels with exact launch counts; cli.test
+              --write_to_files --compare_theory over the folder; prep over
+              it: the JAX pipeline's outputs; the host's decode MP/s of
+              the clean 1024 x 768 baseline and progressive JPEGs and of
+              a damaged copy of each (held to Pillow's digest), one call
+ 18. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
-              phase parallel, phase prep, phase synth and phase formats),
+              phase parallel, phase prep, phase synth, phase formats and
+              phase damaged),
               the card line, then
               {"ok": true, "device": {...}} as the last line
 
@@ -4068,7 +4087,7 @@ def phase_synth(cfg, card):
     enc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for b in blobs:
-        jpeg.decode_jpeg(b, saturate=True)
+        jpeg.decode_jpeg(b)
     dec_s = time.perf_counter() - t0
     log(f"[synth] JPEG round trip of a {rt['cols']} x {rt['rows']} cut: "
         f"encode_jpeg's files Pillow's byte for byte at q 8 and 90 "
@@ -4314,6 +4333,162 @@ def phase_formats(card):
     return total
 
 
+DAMAGED = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "damaged")
+DAMAGED_REFUSED = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                               "damaged_refused")
+# through cli.l3c: a JPEG with damaged entropy data, a PNG whose IDAT CRC
+# is wrong
+DAMAGED_CODED = ("a_baseline_damaged.jpg", "j_png_bad_idat_crc.png")
+# run in a child process where the host has Pillow: how many of the
+# damaged fixtures its decode gives expected.json's digest for
+HOST_PILLOW_SCRIPT = r"""
+import hashlib, json, os, sys
+import numpy as np
+from PIL import Image, features
+d = sys.argv[1]
+exp = json.load(open(os.path.join(d, "expected.json")))["files"]
+equal = 0
+for n, e in exp.items():
+    with Image.open(os.path.join(d, n)) as im:
+        a = np.ascontiguousarray(np.asarray(im.convert("RGB")))
+    equal += hashlib.sha256(a.tobytes()).hexdigest() == e["sha256"]
+print(equal, Image.__version__, features.version("libjpeg_turbo"))
+"""
+
+
+def phase_damaged(card):
+    """Damaged and partly refined files (corrupt entropy data, cut scans,
+    a wrong restart marker, block smoothing, the inverse DCT out of range,
+    a PNG's IDAT CRC), decoded on this machine's host with no Pillow, held
+    to Pillow's digests (expected.json) and the refused ones refused; the
+    codec CLIs and prep over them; the host's decode rates of the clean
+    and damaged 1024 x 768 JPEGs. Returns the launches of its CLI calls."""
+    from l3c_torch.cli import prep_pipeline
+    from l3c_torch.data import images as timages
+    from l3c_torch.data import jpeg
+    with open(os.path.join(DAMAGED, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    # ---- 1. every fixture's mode, size and pixels; the refusals refused
+    for n, e in sorted(exp["files"].items()):
+        p = os.path.join(DAMAGED, n)
+        head = (timages.image_mode(p), list(timages.image_size(p)))
+        if head != (e["mode"], e["size"]):
+            raise RuntimeError(f"{n}: mode/size {head}, expected "
+                               f"{(e['mode'], e['size'])}")
+        if pixel_digest(timages.load_image_uint8(p)) != e["sha256"]:
+            raise RuntimeError(f"{n}: pixels differ from Pillow's")
+    reasons = []
+    for n in sorted(exp["refused"]):
+        try:
+            timages.load_image_uint8(os.path.join(DAMAGED_REFUSED, n))
+        except ValueError as e:
+            reasons.append(f"{n}: {str(e).split(': ', 1)[1]}")
+            continue
+        raise RuntimeError(f"{n}: read, where Pillow refuses it "
+                           f"({exp['refused'][n]['refused']})")
+    made = exp["made_by"]
+    log(f"[damaged] {len(exp['files'])} fixtures "
+        f"({', '.join(sorted(exp['files']))}): modes, sizes and pixel "
+        f"digests equal Pillow's (expected.json, made by Pillow "
+        f"{made['pillow']}, libjpeg-turbo {made['libjpeg_turbo']}, zlib "
+        f"{made['zlib']}); the {len(reasons)} files Pillow refuses refused "
+        f"too: {'; '.join(reasons)}")
+    # ---- 2. this host's Pillow, where it imports: information only (in
+    # a child process: the port and this script import no Pillow)
+    run = subprocess.run([sys.executable, "-c", HOST_PILLOW_SCRIPT, DAMAGED],
+                         capture_output=True, text=True, timeout=300)
+    if run.returncode:
+        log("[damaged] this host has no Pillow that imports: no second "
+            "decode to count")
+    else:
+        equal, version, lj = run.stdout.split()
+        log(f"[damaged] this host's Pillow {version} (libjpeg-turbo {lj}) "
+            f"decodes {equal} of the {len(exp['files'])} fixtures to "
+            "expected.json's pixels (not held: another libjpeg-turbo may "
+            "recover differently)")
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="l3c_damaged_") as d:
+        # ---- 3. cli.l3c enc / dec of a damaged JPEG and the bad-CRC PNG
+        for name in DAMAGED_CODED:
+            src = os.path.join(DAMAGED, name)
+            coded = os.path.join(d, name + ".l3c")
+            back = os.path.join(d, name + ".png")
+            counted(total, f"cli.l3c enc {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "enc", src, coded]),
+                ENCODE, CANARY)
+            counted(total, f"cli.l3c dec {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
+                DECODE, CANARY)
+            if not np.array_equal(read_png(back),
+                                  timages.load_image_uint8(src)):
+                raise RuntimeError(f"cli.l3c dec of {name} differs from the "
+                                   "loader's pixels")
+            h, w = timages.image_size(src)
+            log(f"[damaged] cli.l3c enc+dec of {name} ({w} x {h}) "
+                f"bit-exact against the loader's pixels: file bpsp "
+                f"{os.path.getsize(coded) * 8 / (3 * h * w):.4f} | {card}")
+        # ---- 4. cli.test --write_to_files over the folder
+        out_dir = os.path.join(d, "out")
+        kernels.reset_launches()
+        out = run_cli(test_cli.main, [ZOO, LOG_DATE, DAMAGED,
+                                      "--write_to_files", out_dir,
+                                      "--compare_theory", "--reset_cache"])
+        got = {k: kernels.launches.get(k, 0) for k in kernels.KERNELS}
+        if any(got[k] < 1 for k in FORMATS_TEST_KERNELS):
+            raise RuntimeError(f"cli.test over the damaged: launches {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        n_files = len([n for n in os.listdir(out_dir) if n.endswith(".l3c")])
+        if n_files != len(exp["files"]) or \
+                out.count("assumed:") != len(exp["files"]):
+            raise RuntimeError(f"cli.test wrote {n_files} files")
+        log(f"[damaged] cli.test --write_to_files --compare_theory over the "
+            f"{n_files} fixtures: every file decoded bit-exactly (the "
+            f"tester's gate), bpsp {out.strip().splitlines()[-1].split()[-1]}"
+            f"; launches {({k: v for k, v in got.items() if v})} | {card}")
+        # ---- 5. prep_pipeline --inp_dir against the JAX pipeline's output
+        prep_out = os.path.join(d, "prep")
+        run_cli(prep_pipeline.main, ["--inp_dir", DAMAGED, prep_out,
+                                     "--min_res", str(exp["min_res"])])
+        got = {sub: {n: pixel_digest(read_png(os.path.join(prep_out, sub,
+                                                           n)))
+                     for n in sorted(os.listdir(os.path.join(prep_out,
+                                                             sub)))}
+               for sub in ("train", "val")}
+        if got != exp["prep"]:
+            raise RuntimeError(f"prep_pipeline --inp_dir kept {got}, the "
+                               f"JAX pipeline {exp['prep']}")
+        log(f"[damaged] prep_pipeline --inp_dir --min_res {exp['min_res']}: "
+            f"train {sorted(got['train'])}, val {sorted(got['val'])}: the "
+            "JAX pipeline's outputs, pixel for pixel")
+    # ---- 6. the host's decode rates, clean and damaged, in this one call
+    rates = []
+    for rel, e in sorted(exp["rate"].items()):
+        blob = open(os.path.join(ROOT, "l3c_torch", "data", "fixtures", rel),
+                    "rb").read()
+        hurt = bytearray(blob)
+        hurt[e["at"]] ^= e["xor"]
+        h, w = e["size"]
+        for tag, b, want in (("clean", blob, None),
+                             ("damaged", bytes(hurt), e["sha256"])):
+            dt = math.inf
+            for _ in range(3):       # the fastest of three decodes
+                t0 = time.perf_counter()
+                arr = jpeg.decode_jpeg(b, rel)
+                dt = min(dt, time.perf_counter() - t0)
+            if want is not None and pixel_digest(arr) != want:
+                raise RuntimeError(f"{rel} damaged: pixels differ from "
+                                   "Pillow's")
+            rates.append(f"{os.path.basename(rel)} {tag} "
+                         f"{h * w / dt / 1e6:.4f} MP/s ({dt:.3f} s)")
+    hurt_at = ", ".join(str(e["at"]) for e in exp["rate"].values())
+    log(f"[damaged] host decode rates, same call, fastest of 3, the damaged "
+        f"copies' pixels Pillow's (byte {hurt_at} XORed): "
+        f"{'; '.join(rates)} | host {cpu} | {card}")
+    return total
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -4371,10 +4546,12 @@ def main() -> int:
     prep_counts = timed("prep", phase_prep, cfg, imgs, card)
     synth_counts = timed("synth", phase_synth, cfg, card)
     formats_counts = timed("formats", phase_formats, card)
+    damaged_counts = timed("damaged", phase_damaged, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
         rec["synth_launches"] = synth_counts.get(rec["name"], 0)
         rec["formats_launches"] = formats_counts.get(rec["name"], 0)
+        rec["damaged_launches"] = damaged_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

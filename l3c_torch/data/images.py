@@ -7,35 +7,47 @@ training batches are the JAX package's bit for bit for the same paths,
 seed and flags: both draw from one np.random.RandomState in the same
 order. The JAX package reads images with Pillow; the port depends on
 torch, numpy and the standard library only, so it reads the formats
-itself, told apart by their first bytes as Pillow tells them:
+itself, told apart by their first bytes as Pillow tells them, damaged
+files included, each as the JAX loader reads it or refused where it
+refuses:
   - PNG (zlib + numpy; it also writes them): every bit depth (1, 2, 4, 8
     and 16) and colour type (grey, RGB, palette, grey + alpha, RGBA) the
     standard defines, non-interlaced and Adam7, all five row filters;
-  - JPEG (data/jpeg.py: Huffman sequential and progressive, grey, colour
-    and CMYK / YCCK, decoded as Pillow's libjpeg-turbo decodes them);
+    read as PngImagePlugin reads it: the CRCs of the chunks before the
+    image data checked, IDAT's not, the data inflated only until the
+    image is complete (zlib's check read where its bytes come with the
+    last rows), the chunks after it unchecked, a palette's missing
+    entries black;
+  - JPEG (data/jpeg.py: Huffman and arithmetic-coded, sequential,
+    progressive and lossless, grey, colour and CMYK / YCCK, block
+    smoothing and libjpeg-turbo's recovery from corrupt data, decoded as
+    Pillow's libjpeg-turbo decodes them);
   - WebP (data/webp.py: lossy, lossless, with alpha, extended, and an
     animation's first frame, as Pillow's libwebp decodes them);
   - PNM: P1 to P6, binary and ASCII, any maxval (scaled as Pillow scales
-    it; 16-bit grey as Pillow's mode "I");
+    it; 16-bit grey as Pillow's mode "I"), float Pf (mode "F", clipped
+    to 0..255 and truncated) and Pillow's own P0CMYK, PyP, PyRGBA and
+    PyCMYK;
   - BMP: 1, 4 and 8-bit palettes (Pillow's "1" and "L" where the palette
-    is its grey ramp), RLE8 and RLE4, 16-bit (5-5-5 and 5-6-5), 24 and 32
-    bits with the bit-field layouts Pillow reads, OS/2, BITMAPINFOHEADER
-    and V4 / V5 headers, bottom-up and top-down rows.
-Anything else (arithmetic-coded JPEG, float PNM, JPEG-in-BMP, ...) raises
-ValueError naming the format and the reason; so does a variant Pillow
-reads inconsistently (a 4-bit BMP with a grey palette, which Pillow
-unpacks as 8-bit samples). Every image comes out as RGB the way Pillow's
-convert("RGB") gives it: grey replicated, the palette looked up, alpha
-dropped, CMYK through Pillow's cmyk2rgb, 16-bit samples cut to their
-high byte (16-bit grey clipped at 255); `image_mode` gives the mode
-Pillow would open the file in.
+    is its grey ramp, rows of fewer bits read as the JAX loader's Pillow
+    reads them from a file), RLE8 and RLE4, 16-bit (5-5-5 and 5-6-5), 24
+    and 32 bits with the bit-field layouts Pillow reads, OS/2,
+    BITMAPINFOHEADER and V4 / V5 headers, bottom-up and top-down rows.
+Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
+ValueError naming the format and the reason. Every image comes out as
+RGB the way Pillow's convert("RGB") gives it: grey replicated, the
+palette looked up, alpha dropped, CMYK through Pillow's cmyk2rgb, 16-bit
+samples cut to their high byte (16-bit grey clipped at 255); `image_mode`
+gives the mode Pillow would open the file in.
 """
 from __future__ import annotations
 
 import glob
+import math
 import os
 import pickle
 import queue
+import re
 import struct
 import threading
 import zlib
@@ -76,25 +88,99 @@ def iter_images_in(root_or_glob: str) -> List[str]:
 # ------------------------------------------------------------------- PNG
 
 
-def _chunks(f, path: str):
-    """(type, data) of each chunk of an open PNG file, CRC checked."""
-    if f.read(8) != PNG_SIGNATURE:
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w")    # PngImagePlugin's is_cid
+
+
+def _png_open(blob: bytes, path: str) -> Tuple[bytes, Optional[bytes], int,
+                                              int]:
+    """PngImagePlugin's _open: the signature, then every chunk up to the
+    first IDAT, its CRC checked -> (IHDR's data, PLTE's or None, the
+    offset of the first IDAT's data, its length as stated)."""
+    if blob[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file (the port reads PNG only)")
+    at, ihdr, palette = 8, None, None
     while True:
-        head = f.read(8)
-        if len(head) != 8:
-            raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
+        head = blob[at:at + 8]
+        if len(head) < 8 or not _CHUNK_TYPE.match(head[4:]):
+            raise ValueError(f"{path}: truncated or broken PNG (chunk "
+                             f"header {head!r})")
         size, ctype = struct.unpack(">I4s", head)
-        data = f.read(size)
-        crc = f.read(4)
+        at += 8
+        if ctype == b"IDAT":
+            if ihdr is None:
+                raise ValueError(f"{path}: PNG does not start with IHDR")
+            return ihdr, palette, at, size
+        if ctype == b"IEND":
+            raise ValueError(f"{path}: PNG without image data")
+        data, crc = blob[at:at + size], blob[at + size:at + size + 4]
         if len(data) != size or len(crc) != 4:
             raise ValueError(f"{path}: truncated PNG chunk {ctype!r}")
         if zlib.crc32(ctype + data) & 0xFFFFFFFF != struct.unpack(">I",
                                                                   crc)[0]:
             raise ValueError(f"{path}: CRC mismatch in chunk {ctype!r}")
-        yield ctype, data
-        if ctype == b"IEND":
+        if ctype == b"IHDR":
+            if size < 13:
+                raise ValueError(f"{path}: truncated PNG IHDR chunk")
+            ihdr = data[:13]
+        elif ctype == b"PLTE":
+            palette = data
+        at += size + 4
+
+
+def _png_data(blob: bytes, at: int, size: int, need: int, path: str
+              ) -> Tuple[bytes, int]:
+    """The image data as Pillow's ZipDecode inflates it -> (the first
+    `need` bytes, zero rows after an early end of the stream excepted;
+    the offset where PngImageFile.load_end goes on). Pillow feeds the
+    decoder what load_read returns: consecutive IDAT chunks' data, their
+    CRCs skipped, up to 64 KiB a read, so the decoder stops as soon as the
+    image is complete, and zlib's check is read only where its bytes came
+    with the last rows. A chunk header that breaks off the data refuses
+    the file where the image is not complete."""
+    d = zlib.decompressobj()
+    out, got, left = [], 0, size
+    while True:
+        while left == 0:
+            head = blob[at + 4:at + 12]
+            if len(head) < 8 or not _CHUNK_TYPE.match(head[4:]):
+                raise ValueError(f"{path}: truncated or broken PNG (chunk "
+                                 f"header {head!r} in the image data)")
+            left, ctype = struct.unpack(">I4s", head)
+            if ctype not in (b"IDAT", b"fdAT", b"DDAT"):
+                raise ValueError(f"{path}: truncated PNG data (holds "
+                                 f"{got} bytes, expected {need})")
+            at += 12
+            if ctype == b"fdAT":
+                at, left = at + 4, left - 4
+        n = min(1 << 16, left)
+        piece = blob[at:at + n]
+        at, left = at + n, left - n
+        if not piece:
+            raise ValueError(f"{path}: truncated PNG data (holds {got} "
+                             f"bytes, expected {need})")
+        try:
+            part = d.decompress(piece, need - got)
+        except zlib.error as e:
+            raise ValueError(f"{path}: corrupt PNG data ({e})") from e
+        out.append(part)
+        got += len(part)
+        if got >= need or d.eof:
+            return b"".join(out), at + left
+
+
+def _png_tail(blob: bytes, at: int, path: str) -> None:
+    """PngImageFile.load_end after the image data: chunks up to IEND, no
+    CRC checked; a broken chunk header ends the walk, a chunk whose data
+    the file cuts short refuses it."""
+    while True:
+        head = blob[at + 4:at + 12]
+        if len(head) < 8 or not _CHUNK_TYPE.match(head[4:]) or \
+                head[4:] == b"IEND":
             return
+        size = struct.unpack(">I", head[:4])[0]
+        at += 12 + size
+        if at > len(blob):
+            raise ValueError(f"{path}: truncated PNG chunk {head[4:]!r}")
 
 
 def _header(data: bytes, path: str) -> Tuple[int, int, int, int, int]:
@@ -116,12 +202,11 @@ def _header(data: bytes, path: str) -> Tuple[int, int, int, int, int]:
 
 
 def _png_ihdr(path: str) -> Tuple[int, int, int, int, int]:
-    """_header of the file's IHDR, without decoding pixels."""
+    """_header of the file's IHDR, the chunks before the image data
+    checked as Pillow's Image.open checks them, without decoding
+    pixels."""
     with open(path, "rb") as f:
-        ctype, data = next(_chunks(f, path))
-    if ctype != b"IHDR":
-        raise ValueError(f"{path}: PNG does not start with IHDR")
-    return _header(data, path)
+        return _header(_png_open(f.read(), path)[0], path)
 
 
 # Pillow's mode for a PNG's (colour type, bit depth)
@@ -177,58 +262,66 @@ def _samples(raw: bytes, w: int, h: int, ch: int, depth: int,
     return px.reshape(h, w, ch)
 
 
+def _png_size(w: int, h: int, ch: int, depth: int, interlace: int) -> int:
+    """Bytes of filtered image data: one image, or Adam7's seven passes."""
+    if not interlace:
+        return h * (1 + (w * ch * depth + 7) // 8)
+    n = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw > 0 and ph > 0:            # an empty pass has no bytes at all
+            n += ph * (1 + (pw * ch * depth + 7) // 8)
+    return n
+
+
 def _png_pixels(raw: bytes, w: int, h: int, ch: int, depth: int,
                 interlace: int, path: str) -> np.ndarray:
     """(h, w, ch) samples of the decompressed image data: one image, or
     Adam7's seven passes one after another, each filtered on its own."""
     if not interlace:
-        n = h * (1 + (w * ch * depth + 7) // 8)
-        if len(raw) != n:
-            raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
-                             f"expected {n}")
         return _samples(raw, w, h, ch, depth, path)
     out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
     at = 0
     for x0, y0, dx, dy in _ADAM7:
         pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
         if pw < 1 or ph < 1:
-            continue                     # an empty pass has no bytes at all
+            continue
         out[y0::dy, x0::dx] = _samples(raw[at:], pw, ph, ch, depth, path)
         at += ph * (1 + (pw * ch * depth + 7) // 8)
-    if at != len(raw):
-        raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
-                         f"expected {at}")
     return out
 
 
 def read_png(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB of a PNG file, as Pillow's convert("RGB") gives
     it: grey at 1, 2 and 4 bits scaled to 0..255 (16-bit grey clipped at
-    255), the palette looked up, 16-bit samples' high byte, grey + alpha
-    replicated and alpha dropped."""
-    palette = None
-    idat = []
+    255), the palette looked up (black past its end), 16-bit samples'
+    high byte, grey + alpha replicated and alpha dropped. The file is read
+    as Pillow reads it: the chunks before the image data CRC-checked, the
+    image data's (IDAT) CRCs not, the decoder stopping once the image is
+    complete (a stream that ends cleanly at a row before it leaves the
+    rest zero), the chunks after it unchecked."""
     with open(path, "rb") as f:
-        chunks = _chunks(f, path)
-        ctype, data = next(chunks)
-        if ctype != b"IHDR":
-            raise ValueError(f"{path}: PNG does not start with IHDR")
-        w, h, depth, colour, interlace = _header(data, path)
-        for ctype, data in chunks:
-            if ctype == b"PLTE":
-                palette = np.frombuffer(data[:len(data) // 3 * 3],
-                                        np.uint8).reshape(-1, 3)
-            elif ctype == b"IDAT":
-                idat.append(data)
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise ValueError(f"{path}: corrupt PNG data ({e})") from e
-    px = _png_pixels(raw, w, h, _CHANNELS[colour], depth, interlace, path)
+        blob = f.read()
+    ihdr, palette, at, size = _png_open(blob, path)
+    w, h, depth, colour, interlace = _header(ihdr, path)
+    ch = _CHANNELS[colour]
+    need = _png_size(w, h, ch, depth, interlace)
+    raw, at = _png_data(blob, at, size, need, path)
+    if len(raw) < need:
+        row = 1 + (w * ch * depth + 7) // 8
+        if interlace or len(raw) % row:
+            raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
+                             f"expected {need}")
+        raw += bytes(need - len(raw))
+    _png_tail(blob, at, path)
+    px = _png_pixels(raw, w, h, ch, depth, interlace, path)
     if colour == 3:
-        if palette is None or int(px.max()) >= len(palette):
-            raise ValueError(f"{path}: palette missing or too short")
-        return palette[px[..., 0]]
+        if palette is None:
+            raise ValueError(f"{path}: PNG palette missing")
+        lut = np.zeros((256, 3), np.uint8)
+        n = min(len(palette) // 3, 256)
+        lut[:n] = np.frombuffer(palette[:3 * n], np.uint8).reshape(n, 3)
+        return lut[px[..., 0]]
     if colour == 0:
         grey = (np.minimum(px, 255) if depth == 16
                 else px * np.uint8(255 // ((1 << depth) - 1)))
@@ -270,16 +363,18 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 _WHITESPACE = b" \t\n\x0b\x0c\r"
 _PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
-              b"P6": "RGB"}
+              b"P6": "RGB", b"Pf": "F", b"P0CMYK": "CMYK", b"PyP": "P",
+              b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}   # Pillow's extensions
+_PNM_CHANNELS = {"RGB": 3, "RGBA": 4, "CMYK": 4}
 
 
 class _Pnm(NamedTuple):
     magic: bytes
     width: int
     height: int
-    maxval: int     # 1 for P1 and P4
-    mode: str       # Pillow's: "1", "L", "I" (grey past 8 bits) or "RGB"
-    offset: int     # of the pixel data
+    maxval: int     # 1 for P1 and P4; Pf: -1 little-endian, 1 big-endian
+    mode: str       # Pillow's: "1", "L", "I" (grey past 8 bits), "RGB" or
+    offset: int     # "F" (Pf); the offset of the pixel data
 
 
 def _pnm_header(blob: bytes, path: str) -> _Pnm:
@@ -295,9 +390,10 @@ def _pnm_header(blob: bytes, path: str) -> _Pnm:
         magic += c
     if magic not in _PNM_MODES:
         raise ValueError(f"{path}: PNM type {magic.decode(errors='replace')}"
-                         "; P1 to P6 are read")
+                         "; P1 to P6, Pf and Pillow's P0CMYK, PyP, PyRGBA "
+                         "and PyCMYK are read")
 
-    def token():
+    def token(number=int):
         nonlocal at
         tok = b""
         while len(tok) <= 10 and at < len(blob):
@@ -312,11 +408,22 @@ def _pnm_header(blob: bytes, path: str) -> _Pnm:
                 at += 1
             else:
                 tok += c
-        if not tok.isdigit() or len(tok) > 10:
+        if len(tok) > 10 or number is int and not tok.isdigit():
             raise ValueError(f"{path}: malformed PNM header")
-        return int(tok)
+        try:
+            return number(tok)
+        except ValueError:
+            raise ValueError(f"{path}: malformed PNM header") from None
 
     w, h = token(), token()
+    if magic == b"Pf":                # the scale's sign gives the byte order
+        scale = token(float)
+        if scale == 0 or not math.isfinite(scale):
+            raise ValueError(f"{path}: PNM scale {scale}, not finite and "
+                             "non-zero")
+        if w < 1 or h < 1:
+            raise ValueError(f"{path}: empty image {w}x{h}")
+        return _Pnm(magic, w, h, -1 if scale < 0 else 1, "F", at)
     maxval = 1 if magic in (b"P1", b"P4") else token()
     if not 0 < maxval < 65536:
         raise ValueError(f"{path}: PNM maxval {maxval} out of 1..65535")
@@ -340,15 +447,28 @@ def _plain_tokens(data: bytes) -> List[bytes]:
 
 
 def read_pnm(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNM (P1-P6) as Pillow's convert("RGB")
-    gives it: a maxval other than 255 (65535 for 16-bit grey) scaled by
-    Pillow's round(v / maxval * out_max), grey past 8 bits clipped at 255,
-    bitmaps 0 or 255, grey replicated."""
+    """(H, W, 3) uint8 RGB of a PNM (P1-P6, Pf, and Pillow's own P0CMYK,
+    PyP, PyRGBA, PyCMYK) as Pillow's convert("RGB") gives it: a maxval
+    other than 255 (65535 for 16-bit grey) scaled by Pillow's round(v /
+    maxval * out_max), grey past 8 bits clipped at 255, bitmaps 0 or 255,
+    float samples clipped to 0..255 and truncated (NaN 0), grey
+    replicated, alpha dropped, CMYK by Pillow's cmyk2rgb, a palette
+    image without its palette black."""
     with open(path, "rb") as f:
         blob = f.read()
     hd = _pnm_header(blob, path)
     w, h, maxval = hd.width, hd.height, hd.maxval
-    ch = 3 if hd.mode == "RGB" else 1
+    if hd.mode == "F":          # float32 rows bottom-up; convert("RGB")
+        n = 4 * w * h           # clips at 0 and 255 and truncates
+        if len(blob) - hd.offset < n:
+            raise ValueError(f"{path}: truncated PNM ({len(blob) - hd.offset}"
+                             f" of {n} pixel bytes)")
+        v = np.frombuffer(blob, "<f4" if maxval < 0 else ">f4", w * h,
+                          hd.offset).reshape(h, w)[::-1]
+        with np.errstate(invalid="ignore"):
+            grey = np.where(np.isnan(v), 0, np.clip(v, 0, 255))
+        return np.repeat(grey.astype(np.uint8)[..., None], 3, axis=2)
+    ch = _PNM_CHANNELS.get(hd.mode, 1)
     n = w * h * ch
     data = blob[hd.offset:]
     if hd.magic == b"P4":
@@ -389,7 +509,13 @@ def read_pnm(path: str) -> np.ndarray:
             out_max = 65535 if hd.mode == "I" else 255
             v = np.minimum(out_max, np.round(v / maxval * out_max))
         px = np.minimum(v, 255).astype(np.uint8).reshape(h, w, ch)
-    return np.repeat(px, 3, axis=2) if ch == 1 else px
+    if hd.mode == "P":                  # no palette: Pillow's is black
+        return np.zeros((h, w, 3), np.uint8)
+    if hd.mode == "CMYK":               # not inverted, then cmyk2rgb
+        nk = 255 - px[..., 3:].astype(np.int64)
+        return (nk - jpeg._muldiv255(px[..., :3].astype(np.int64), nk)
+                ).astype(np.uint8)
+    return np.repeat(px, 3, axis=2) if ch == 1 else px[..., :3]
 
 
 _BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS", 4: "JPEG",
@@ -488,10 +614,6 @@ def _bmp_header(blob: bytes, path: str) -> _Bmp:
         if len(pal) == colors and all((pal[i] == v).all()
                                       for i, v in enumerate(grey)):
             mode = "1" if colors == 2 else "L"
-            if bits != {"1": 1, "L": 8}[mode]:
-                # Pillow unpacks these rows as 1- or 8-bit samples
-                raise ValueError(f"{path}: {bits}-bit BMP with a "
-                                 f"{colors}-entry grey palette is not read")
             if comp and mode == "1":
                 raise ValueError(f"{path}: RLE BMP with a two-entry grey "
                                  "palette is not read (nor by Pillow)")
@@ -548,9 +670,12 @@ def _bmp_rle(blob: bytes, at: int, w: int, h: int, rle4: bool,
 
 def read_bmp(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB of a BMP as Pillow's convert("RGB") gives it:
-    1, 4 and 8-bit palettes (grey ones as Pillow's "1" and "L"), RLE8 and
-    RLE4, 16-bit 5-5-5 and 5-6-5, 24 and 32 bits with Pillow's bit-field
-    layouts (alpha dropped), bottom-up and top-down rows."""
+    1, 4 and 8-bit palettes (black past their end; grey ones as Pillow's
+    "1" and "L", a row of fewer bits read as the JAX loader's Pillow reads
+    it from a file: its leading bytes as 1-bit samples, or w bytes from
+    its start as 8-bit ones), RLE8 and RLE4, 16-bit 5-5-5 and
+    5-6-5, 24 and 32 bits with Pillow's bit-field layouts (alpha dropped),
+    bottom-up and top-down rows."""
     with open(path, "rb") as f:
         blob = f.read()
     hd = _bmp_header(blob, path)
@@ -565,7 +690,14 @@ def read_bmp(path: str) -> np.ndarray:
             raise ValueError(f"{path}: truncated BMP ({len(data)} of "
                              f"{stride * h} pixel bytes)")
         rows = np.frombuffer(data, np.uint8).reshape(h, stride)
-        if bits <= 8:
+        if hd.mode == "1":    # Pillow unpacks a 1-bit row, whatever `bits`
+            px = np.unpackbits(rows, axis=1)[:, :w]
+        elif hd.mode == "L":  # and maps an 8-bit one onto the file (mmap),
+            # w bytes from each row's start, on into the next row and past
+            # the file's end (zeros) where the rows hold fewer
+            tail = np.frombuffer(blob[hd.offset:] + bytes(w), np.uint8)
+            px = np.stack([tail[i * stride:i * stride + w] for i in range(h)])
+        elif bits <= 8:
             px = np.unpackbits(rows, axis=1).reshape(h, -1, bits) if bits < 8 \
                 else rows[..., None]
             if bits < 8:
@@ -584,11 +716,10 @@ def read_bmp(path: str) -> np.ndarray:
                 ..., list(hd.layout)]
     if not hd.top_down:
         px = px[::-1]
-    if hd.mode == "P":
-        if int(px.max()) >= len(hd.palette):
-            raise ValueError(f"{path}: BMP palette index past its "
-                             f"{len(hd.palette)} colours")
-        return hd.palette[px]
+    if hd.mode == "P":                  # black past the palette's end
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:min(len(hd.palette), 256)] = hd.palette[:256]
+        return lut[px]
     if hd.mode in ("1", "L"):
         grey = px * np.uint8(255) if hd.mode == "1" else px
         return np.repeat(grey[..., None], 3, axis=2)

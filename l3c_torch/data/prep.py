@@ -12,9 +12,11 @@ the same kept / skipped decisions and, for a kept image, the same pixels
 - non-RGB images (by the mode Pillow would open them in) and saturated
   ones (mean HSV saturation > 0.9 or mean value > 0.8) are discarded;
 - the result is saved as PNG (import_train_images.py:131).
-A file the port cannot read (corrupt, or a variant it does not decode,
-such as arithmetic-coded JPEG) is skipped with a "skipping PATH: REASON"
-line on stderr, as the JAX package skips what Pillow cannot read.
+A damaged file is read as Pillow reads it (libjpeg-turbo's recovery
+from corrupt JPEG data, Pillow's PNG CRC rule); one Pillow refuses (cut
+short, a broken header, or a variant it does not decode, such as
+hierarchical JPEG) is skipped with a "skipping PATH: REASON" line on
+stderr, as the JAX package skips it.
 
 CLI:
     python -m l3c_torch.data.prep IN_DIR OUT_DIR [--min_res 512]

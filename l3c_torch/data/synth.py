@@ -358,8 +358,7 @@ def _jpeg_roundtrip(u8: np.ndarray, quality: int) -> np.ndarray:
     "RGB"): encode_jpeg writes Pillow's bytes and decode_jpeg reads them
     as Pillow does (saturating, as Pillow's SIMD inverse DCT, a block
     outside the range its C and SIMD code agree on)."""
-    return decode_jpeg(encode_jpeg(u8, int(quality)), "<synth JPEG>",
-                       saturate=True)
+    return decode_jpeg(encode_jpeg(u8, int(quality)), "<synth JPEG>")
 
 
 def _camera_degrade(u8: np.ndarray, rng: np.random.RandomState

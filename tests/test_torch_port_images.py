@@ -242,8 +242,8 @@ def _refused(tmp_path):
     # a WebP file's container whose image chunk is cut short
     webp = b"RIFF" + struct.pack("<I", 12) + b"WEBPVP8 " + bytes(8)
     out.append(("x.webp", webp, "truncated WebP VP8 frame header"))
-    out.append(("xf.ppm", pillow(Image.fromarray(img[..., 0]).convert("F"),
-                                 "PPM"), "PNM type Pf; P1 to P6 are read"))
+    out.append(("xf.ppm", b"Pf\n5 6\n0\n" + bytes(120),
+                "PNM scale 0.0, not finite and non-zero"))
     bmp = pillow(Image.fromarray(img), "BMP")
     out.append(("x1.bmp", bmp[:30] + struct.pack("<I", 1) + bmp[34:],
                 "RLE8 BMP of 24 bits is not read \\(nor by Pillow\\)"))
@@ -253,11 +253,11 @@ def _refused(tmp_path):
                 "JPEG BMP is not read \\(nor by Pillow\\)"))
     idx = (img[..., 0] // 16).astype(np.uint8)
     packed = np.concatenate([idx, np.zeros((6, 1), np.uint8)], 1)
-    out.append(("x16.bmp", _bmp(5, 6, 4, _pad_rows(packed[:, 0::2] << 4
+    out.append(("x16.bmp", _bmp(5, 6, 2, _pad_rows(packed[:, 0::2] << 4
                                                     | packed[:, 1::2]),
-                                palette=np.repeat(np.arange(16)[:, None], 3,
+                                palette=np.repeat(np.arange(4)[:, None], 3,
                                                   1)),
-                "4-bit BMP with a 16-entry grey palette is not read"))
+                "2-bit BMP is not read"))
     out.append(("x.ppm", b"not an image at all",
                 "unknown image format; the port reads PNG, JPEG, PNM, BMP "
                 "and WebP"))
@@ -265,11 +265,12 @@ def _refused(tmp_path):
 
 
 def test_what_is_not_read_raises_with_the_reason(tmp_path):
-    """A cut-short WebP, float PNM, RLE on a 24-bit BMP, bit-field masks
-    Pillow does not read, JPEG-in-BMP, a 4-bit BMP whose grey palette
-    Pillow reads as 8-bit samples and an unknown format: ValueError naming
-    the format and the reason, from the reader and from the header read of
-    the listing."""
+    """A cut-short WebP, a float PNM with a zero scale, RLE on a 24-bit
+    BMP, bit-field masks Pillow does not read, JPEG-in-BMP, a 2-bit BMP
+    and an unknown format: ValueError
+    naming the format and the reason, from the reader and from the header
+    read of the listing (a float PNM and grey-palette BMPs Pillow reads:
+    test_float_pnm_equals_pillow, test_grey_palette_bmps_equal_pillow)."""
     for name, blob, msg in _refused(tmp_path):
         p = str(tmp_path / name)
         open(p, "wb").write(blob)
@@ -277,6 +278,83 @@ def test_what_is_not_read_raises_with_the_reason(tmp_path):
             timages.load_image_uint8(p)
         with pytest.raises(ValueError, match=msg):
             timages.image_size(p)
+
+
+@pytest.mark.parametrize("order", ["<f4", ">f4"])
+def test_float_pnm_equals_pillow(tmp_path, order):
+    """Pf (Pillow's mode "F"): float32 rows bottom-up, the scale's sign
+    giving the byte order, convert("RGB") clipping at 0 and 255 and
+    truncating (NaN and -inf 0, inf 255); cut short, both refuse it."""
+    v = np.array([[0.5, 300, -2, np.nan, np.inf, -np.inf, 254.99, 1e10],
+                  [1, 2, 3, 127.5, 128.49, 0.999, -0.7, 255.5]], np.float32)
+    scale = "-1.0" if order == "<f4" else "2.5"
+    blob = (f"Pf\n# a comment\n8 2\n{scale}\n".encode()
+            + v[::-1].astype(order).tobytes())
+    p = str(tmp_path / "f.ppm")
+    open(p, "wb").write(blob)
+    np.testing.assert_array_equal(timages.load_image_uint8(p),
+                                  jimages.load_image_uint8(p))
+    with Image.open(p) as im:
+        assert timages.image_mode(p) == im.mode == "F"
+        assert timages.image_size(p) == im.size[::-1]
+    open(p, "wb").write(blob[:-3])
+    with pytest.raises(ValueError, match="truncated PNM"):
+        timages.load_image_uint8(p)
+    with pytest.raises(OSError):
+        jimages.load_image_uint8(p)
+
+
+@pytest.mark.parametrize("magic", [b"PyRGBA", b"PyCMYK", b"P0CMYK", b"PyP"])
+def test_pillows_own_pnm_types_equal_pillow(tmp_path, magic):
+    """Pillow's PNM extensions: RGBA (alpha dropped), CMYK (cmyk2rgb, not
+    inverted) and P (no palette: black), raw at maxval 255, scaled at
+    others, 16-bit past 255; cut short, both refuse."""
+    ch = 1 if magic == b"PyP" else 4
+    r = np.random.RandomState(len(magic))
+    p = str(tmp_path / "x.ppm")
+    for maxval in (255, 100, 1000):
+        data = r.randint(0, maxval + 1, (4, 5, ch)).astype(
+            ">u2" if maxval > 255 else np.uint8)
+        blob = magic + b"\n5 4\n" + str(maxval).encode() + b"\n" + \
+            data.tobytes()
+        open(p, "wb").write(blob)
+        np.testing.assert_array_equal(timages.load_image_uint8(p),
+                                      jimages.load_image_uint8(p))
+        with Image.open(p) as im:
+            assert timages.image_mode(p) == im.mode
+        open(p, "wb").write(blob[:-3])
+        with pytest.raises(ValueError, match="truncated PNM"):
+            timages.load_image_uint8(p)
+        with pytest.raises((OSError, ValueError)):   # mmap's or a decoder's
+            jimages.load_image_uint8(p)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_grey_palette_bmps_equal_pillow(tmp_path, bits):
+    """Palette BMPs whose palette Pillow takes as grey (a ramp 0, 1, 2, ...
+    or black and white) and so reads each row as 8- or 1-bit samples
+    whatever the file's bits (the 8-bit ones mapped onto the file, past
+    each row's end), and palettes shorter than their indices (black past
+    the end): pixels equal to the JAX loader's, or both refuse."""
+    p = str(tmp_path / "g.bmp")
+    r = np.random.RandomState(bits)
+    for pal in ([0, 255], list(range(16)), [0, 1, 2], [255, 0],
+                [7, 9, 200]):
+        if len(pal) > 1 << bits:
+            continue
+        for w in (3, 7, 8, 10, 33):
+            stride = ((w * bits + 31) >> 3) & ~3
+            rows = r.randint(0, 256, (5, stride)).astype(np.uint8)
+            open(p, "wb").write(_bmp(w, 5, bits, rows.tobytes(),
+                                     palette=np.repeat(np.array(pal)[:, None],
+                                                       3, 1)))
+            try:
+                want = jimages.load_image_uint8(p)
+            except OSError:
+                with pytest.raises(ValueError, match="not read"):
+                    timages.load_image_uint8(p)
+                continue
+            np.testing.assert_array_equal(timages.load_image_uint8(p), want)
 
 
 def test_listing_with_min_size_equals_jax(tmp_path):

@@ -11,11 +11,13 @@ the JAX package's load_image_uint8 decodes through (libjpeg-turbo).
   sampling factors, single-component (non-interleaved) scans, restart
   intervals over them, RGB by an Adobe marker or by component ids;
 every pixel equal, and the mode from the header equal to Pillow's.
-Lossless, hierarchical and arithmetic-coded processes, 12-bit and corrupt
-data raise ValueError naming the reason (progressive and four-component
-files: test_torch_port_jpeg_progressive.py); so does a block whose inverse DCT leaves
-the range where libjpeg-turbo's C and SIMD code agree (Pillow's pixels
-there are pinned beside the refusal).
+Lossless and hierarchical processes, 12-bit samples and a truncated file
+raise ValueError naming the reason (progressive and four-component files:
+test_torch_port_jpeg_progressive.py; arithmetic-coded ones:
+test_torch_port_jpeg_arith.py). A scan cut
+short and a block whose inverse DCT leaves the range where libjpeg-turbo's
+C and SIMD code agree decode as Pillow decodes them (damaged files:
+test_torch_port_damaged.py).
 """
 import io
 import itertools
@@ -29,6 +31,7 @@ from PIL import Image
 
 from l3c_tpu.data import images as jimages
 from l3c_torch.data import images as timages
+from l3c_torch.data import jpeg
 
 
 # ------------------------------------- a baseline encoder for the tests
@@ -308,23 +311,33 @@ def test_colour_space_equals_pillow(tmp_path, app, ids):
 
 
 def test_what_is_not_decoded_raises_with_the_reason(tmp_path):
-    """Lossless and arithmetic-coded processes, 12-bit samples, a
-    truncated file and corrupt data; the header of each is still read.
-    (Progressive and CMYK files decode: test_torch_port_jpeg_progressive.)"""
+    """Lossless and hierarchical processes, 12-bit samples, a truncated
+    file, a progressive frame over a sequential scan and a marker libjpeg
+    refuses inside the scan's data raise, as Pillow refuses them; the
+    header of each is still read (arithmetic-coded files:
+    test_torch_port_jpeg_arith.py).
+    Corrupt entropy data Pillow reads decodes as Pillow decodes it
+    (libjpeg-turbo's recovery; test_torch_port_damaged.py sweeps it). (Progressive and CMYK files
+    decode: test_torch_port_jpeg_progressive.)"""
     img = _content(24, 16, 0, "smooth")
     p = str(tmp_path / "x.jpg")
     Image.fromarray(img).save(p)
     blob = open(p, "rb").read()
     sof = blob.index(b"\xff\xc0")
     for marker, msg in ((0xC3, "lossless JPEG"),
-                        (0xC9, "arithmetic-coded sequential JPEG"),
-                        (0xCA, "arithmetic-coded progressive JPEG"),
+                        (0xCA, "corrupt JPEG progression"),
                         (0xC5, "differential sequential JPEG")):
         open(p, "wb").write(blob[:sof + 1] + bytes([marker])
                             + blob[sof + 2:])
         with pytest.raises(ValueError, match=msg):
             timages.load_image_uint8(p)
+        with pytest.raises(OSError):
+            jimages.load_image_uint8(p)
         assert timages.image_size(p) == (24, 16)     # the header is read
+    # Huffman data under an arithmetic-coded frame header: Pillow reads
+    # it as arithmetic-coded data, and so does the port
+    open(p, "wb").write(blob[:sof + 1] + b"\xc9" + blob[sof + 2:])
+    _check(p)
     open(p, "wb").write(blob[:sof + 4] + b"\x0c" + blob[sof + 5:])
     with pytest.raises(ValueError, match="12-bit JPEG is not decoded"):
         timages.load_image_uint8(p)
@@ -333,18 +346,24 @@ def test_what_is_not_decoded_raises_with_the_reason(tmp_path):
     open(p, "wb").write(blob[:len(blob) // 2])
     with pytest.raises(ValueError, match="truncated"):
         timages.load_image_uint8(p)
+    with pytest.raises(OSError, match="(?i)truncated"):
+        jimages.load_image_uint8(p)
     sos = blob.index(b"\xff\xda")
     n = struct.unpack(">H", blob[sos + 2:sos + 4])[0]
     open(p, "wb").write(blob[:sos + 2 + n] + b"\xff\xff\xff\xff"
                         + blob[sos + 2 + n + 4:])
-    with pytest.raises(ValueError, match="corrupt JPEG data"):
-        timages.load_image_uint8(p)
+    with pytest.raises(ValueError, match="unsupported JPEG marker 0xFF46"):
+        timages.load_image_uint8(p)       # the scan's data ends at 0xFF46,
+    with pytest.raises(OSError):          # a marker libjpeg refuses
+        jimages.load_image_uint8(p)
 
 
 @pytest.mark.parametrize("cut", [0, 7, 40, 150, 333])
-def test_scan_cut_short_raises_truncated(tmp_path, cut):
-    """A scan cut short with EOI appended: its last block reads past the
-    data, which is refused as truncated, not an IndexError."""
+def test_scan_cut_short_equals_pillow(tmp_path, cut):
+    """A scan cut short with EOI appended: libjpeg feeds zero bits to the
+    MCU the data ends in ("premature end of data segment") and leaves the
+    later ones grey, and Pillow reads the file; so does the port, pixel for
+    pixel. Without the EOI both refuse it as truncated."""
     img = np.random.RandomState(cut).randint(0, 256, (64, 64, 3)).astype(
         np.uint8)
     buf = io.BytesIO()
@@ -354,20 +373,28 @@ def test_scan_cut_short_raises_truncated(tmp_path, cut):
     start = sos + 2 + struct.unpack(">H", blob[sos + 2:sos + 4])[0]
     p = str(tmp_path / "cut.jpg")
     open(p, "wb").write(blob[:start + cut] + b"\xff\xd9")
-    with pytest.raises(ValueError, match="truncated JPEG data"):
+    _check(p)
+    np.testing.assert_array_equal(timages.load_image_uint8(p),
+                                  jimages.load_image_uint8(p))
+    open(p, "wb").write(blob[:start + cut + 1])
+    with pytest.raises(ValueError, match="truncated"):
         timages.load_image_uint8(p)
+    with pytest.raises(OSError, match="(?i)truncated"):
+        jimages.load_image_uint8(p)
 
 
 @pytest.mark.parametrize("dc,pillow", [(-1000, 0), (2000, 255)])
-def test_out_of_range_blocks_raise(tmp_path, dc, pillow):
+def test_out_of_range_blocks_equal_pillow(tmp_path, dc, pillow):
     """A DC so large the inverse DCT leaves [-512, 511]: Pillow (its SIMD
     code saturates) gives `pillow` across the block's first row, where
-    libjpeg-turbo's C table would wrap (dc 2000: 104); the port refuses."""
+    libjpeg-turbo's C table would wrap (dc 2000: 104); the port gives
+    Pillow's pixels and counts the block."""
     comps = [(1, 1, 0)]
     p = str(tmp_path / "big.jpg")
     with open(p, "wb") as f:
         f.write(encode(8, 8, comps, _coefs(comps, 8, 8, 3, dc=dc), QTS))
     with Image.open(p) as im:
         assert (np.asarray(im)[0] == pillow).all()
-    with pytest.raises(ValueError, match="C and SIMD inverse DCTs"):
-        timages.load_image_uint8(p)
+    before = jpeg.COUNTS["saturated_blocks"]
+    _check(p)
+    assert jpeg.COUNTS["saturated_blocks"] == before + 1

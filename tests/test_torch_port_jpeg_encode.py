@@ -4,9 +4,8 @@ Image.fromarray(rgb).save(f, format="JPEG", quality=q) writes (libjpeg-
 turbo), at qualities 1 to 100, sizes from 1 x 1 to 255 x 257 (none or
 some a multiple of the 16 x 16 MCU), on flat, seeded noise, smooth and
 procedural (data/synth.py) content. decode_jpeg(blob) gives
-read_jpeg(path)'s pixels and refusals on the data-prep fixtures, and with
-saturate=True Pillow's pixels for a block outside the inverse DCT's
-agreed range.
+read_jpeg(path)'s pixels and refusals on the data-prep fixtures, and
+Pillow's pixels for a block outside the inverse DCT's agreed range.
 """
 import glob
 import io
@@ -110,19 +109,15 @@ def test_decode_jpeg_equals_read_jpeg_on_the_fixtures():
 
 
 @pytest.mark.parametrize("dc,pillow", [(-1000, 0), (2000, 255)])
-def test_saturate_gives_pillows_pixels(dc, pillow):
-    """A block outside [-512, 511] after the inverse DCT: read_jpeg and
-    decode_jpeg refuse it; decode_jpeg(saturate=True) gives Pillow's
-    (saturated) pixels and counts the block."""
+def test_out_of_range_block_gives_pillows_pixels(dc, pillow):
+    """A block outside [-512, 511] after the inverse DCT: decode_jpeg gives
+    Pillow's (its SIMD code's saturated) pixels and counts the block."""
     comps = [(1, 1, 0)]
     blob = encode(8, 8, comps, _coefs(comps, 8, 8, 3, dc=dc), QTS)
     want = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
     assert (want[0] == pillow).all()
-    with pytest.raises(ValueError, match="C and SIMD inverse DCTs"):
-        jpeg.decode_jpeg(blob)
     before = jpeg.COUNTS["saturated_blocks"]
-    np.testing.assert_array_equal(jpeg.decode_jpeg(blob, saturate=True),
-                                  want)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(blob), want)
     assert jpeg.COUNTS["saturated_blocks"] == before + 1
 
 
