@@ -242,10 +242,24 @@ Phases (each raises on failure; none carries on after another failed):
               it: the JAX pipeline's outputs; the host's decode MP/s of
               the clean 1024 x 768 baseline and progressive JPEGs and of
               a damaged copy of each (held to Pillow's digest), one call
- 18. report   one JSON line of kernel records (each with its path:
+ 18. pillow_formats  the formats Pillow opens beyond those (GIF, TIFF,
+              TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB;
+              l3c_torch/data/fixtures/pillow_formats) to Pillow's format,
+              mode, size and pixel digest, JPEG 2000 and AVIF to Pillow's
+              mode and size and refused by name; cli.l3c enc / dec of a
+              GIF and an LZW TIFF bit-exact with exact launch counts;
+              cli.test --write_to_files --compare_theory over the folder
+              (its listing keeps a GIF named .png and a TIFF named .jpg,
+              as the JAX listing does) and on one TIFF alone, K3 to K6
+              launched; the listing-cache CLI with --min_size: the JAX
+              listing; the PNGs cli.l3c dec wrote held to this host's
+              Pillow's default save (image data and IDAT split; whole
+              bytes counted, with both zlib versions) in a child process;
+              the host's GIF and TIFF decode MP/s
+ 19. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
-              phase parallel, phase prep, phase synth, phase formats and
-              phase damaged),
+              phase parallel, phase prep, phase synth, phase formats,
+              phase damaged and phase pillow_formats),
               the card line, then
               {"ok": true, "device": {...}} as the last line
 
@@ -4489,6 +4503,205 @@ def phase_damaged(card):
     return total
 
 
+PILLOW_FORMATS = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                              "pillow_formats")
+# run in a child process where the host has Pillow: each PNG the port
+# wrote, held to Pillow's default save of its pixels (the inflated image
+# data, and the IDAT split), and counted where the whole files are equal;
+# it exits with NO_PILLOW where Pillow does not import, and only then
+NO_PILLOW = 75
+HOST_PNG_SCRIPT = r"""
+import io, struct, sys, zlib
+import numpy as np
+try:
+    from PIL import Image, features
+except ImportError as e:
+    print(e, file=sys.stderr)
+    sys.exit(75)                # NO_PILLOW
+
+def chunks(b):
+    out, at = [], 8
+    while at < len(b):
+        n, t = struct.unpack(">I4s", b[at:at + 8])
+        out.append((t, b[at + 8:at + 8 + n]))
+        at += 12 + n
+    return out
+
+payload = same = 0
+for p in sys.argv[1:]:
+    port = open(p, "rb").read()
+    with Image.open(p) as im:
+        f = io.BytesIO()
+        Image.fromarray(np.asarray(im.convert("RGB"))).save(f, "PNG")
+    pil = f.getvalue()
+    w = struct.unpack(">I", port[16:20])[0]
+    block = max(65536, 4 * w)
+    ok = True
+    for b in (port, pil):
+        idat = [d for t, d in chunks(b) if t == b"IDAT"]
+        ok &= all(len(d) == block for d in idat[:-1])
+    inflate = lambda b: zlib.decompress(b"".join(
+        d for t, d in chunks(b) if t == b"IDAT"))
+    ok &= [t for t, _ in chunks(port)] == [t for t, _ in chunks(pil)]
+    payload += ok and inflate(port) == inflate(pil)
+    same += port == pil
+print(payload, same, Image.__version__, features.version("zlib"),
+      zlib.ZLIB_RUNTIME_VERSION)
+"""
+
+
+def phase_pillow_formats(card):
+    """The formats Pillow opens beyond PNG, JPEG, PNM, BMP and WebP (GIF,
+    TIFF, TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB),
+    decoded on this machine's host with no Pillow and held to Pillow's
+    digests (expected.json), JPEG 2000 and AVIF refused by name with
+    Pillow's mode and size; cli.l3c on a GIF and an LZW TIFF, cli.test
+    over the folder (the listing keeps the mislabelled files) and on a
+    TIFF alone; the listing-cache CLI; the PNGs the port wrote held to
+    Pillow's default save; the host's GIF and TIFF decode rates. Returns
+    the launches of its CLI calls."""
+    from l3c_torch.data import gif, tiff
+    from l3c_torch.data import images as timages
+    with open(os.path.join(PILLOW_FORMATS, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    # ---- (a) every fixture's format, mode, size and pixels; the whole
+    # codecs refused by name
+    refused = []
+    for n, e in sorted(exp["files"].items()):
+        p = os.path.join(PILLOW_FORMATS, n)
+        head = (timages.image_format(p), timages.image_mode(p),
+                list(timages.image_size(p)))
+        if head != (e["format"], e["mode"], e["size"]):
+            raise RuntimeError(f"{n}: format/mode/size {head}, expected "
+                               f"{(e['format'], e['mode'], e['size'])}")
+        if "refused" in e:
+            try:
+                timages.load_image_uint8(p)
+            except ValueError as err:
+                if f"{e['refused']} is not decoded" not in str(err):
+                    raise
+                refused.append(n)
+                continue
+            raise RuntimeError(f"{n}: decoded, expected a refusal naming "
+                               f"{e['refused']}")
+        if pixel_digest(timages.load_image_uint8(p)) != e["sha256"]:
+            raise RuntimeError(f"{n}: pixels differ from Pillow's")
+    made = exp["made_by"]
+    log(f"[pillow_formats] {len(exp['files']) - len(refused)} fixtures "
+        f"({', '.join(sorted(set(exp['files']) - set(refused)))}): formats,"
+        f" modes, sizes and pixel digests equal Pillow's (expected.json, "
+        f"made by Pillow {made['pillow']}, libtiff {made['libtiff']}, "
+        f"libjpeg-turbo {made['libjpeg_turbo']}, zlib {made['zlib']}); "
+        f"{', '.join(refused)}: Pillow's mode and size, refused by name")
+    total, written = {}, []
+    with tempfile.TemporaryDirectory(prefix="l3c_pillow_formats_") as d:
+        # ---- (b) cli.l3c enc / dec of a GIF and an LZW TIFF
+        for name in exp["coded"]:
+            src = os.path.join(PILLOW_FORMATS, name)
+            coded = os.path.join(d, name + ".l3c")
+            back = os.path.join(d, name + ".png")
+            counted(total, f"cli.l3c enc {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "enc", src, coded]),
+                ENCODE, CANARY)
+            counted(total, f"cli.l3c dec {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
+                DECODE, CANARY)
+            if not np.array_equal(read_png(back),
+                                  timages.load_image_uint8(src)):
+                raise RuntimeError(f"cli.l3c dec of {name} differs from the "
+                                   "loader's pixels")
+            written.append(back)
+            h, w = timages.image_size(src)
+            log(f"[pillow_formats] cli.l3c enc+dec of {name} ({w} x {h}) "
+                f"bit-exact against the loader's pixels: file bpsp "
+                f"{os.path.getsize(coded) * 8 / (3 * h * w):.4f} | {card}")
+        # ---- (c) cli.test over the folder, then on one TIFF alone
+        tif = os.path.join(PILLOW_FORMATS, exp["coded"][1])
+        for spec, want in ((PILLOW_FORMATS, exp["tested"]),
+                           (tif, [os.path.basename(tif)])):
+            out_dir = os.path.join(d, "out_" + os.path.basename(spec))
+            kernels.reset_launches()
+            out = run_cli(test_cli.main, [ZOO, LOG_DATE, spec,
+                                          "--write_to_files", out_dir,
+                                          "--compare_theory",
+                                          "--reset_cache"])
+            got = {k: kernels.launches.get(k, 0) for k in kernels.KERNELS}
+            if any(got[k] < 1 for k in FORMATS_TEST_KERNELS):
+                raise RuntimeError(f"cli.test over {spec}: launches {got}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            files = sorted(n[:-4] for n in os.listdir(out_dir)
+                           if n.endswith(".l3c"))
+            if files != sorted(os.path.splitext(n)[0] for n in want) or \
+                    out.count("assumed:") != len(want):
+                raise RuntimeError(f"cli.test over {spec} wrote {files}, "
+                                   f"expected {want}")
+            log(f"[pillow_formats] cli.test --write_to_files "
+                f"--compare_theory on {os.path.basename(spec)}: {want} "
+                f"decoded bit-exactly (the tester's gate), bpsp "
+                f"{out.strip().splitlines()[-1].split()[-1]}; launches "
+                f"{({k: v for k, v in got.items() if v})} | {card}")
+        # ---- (d) the listing-cache CLI with --min_size
+        pkl = os.path.join(d, "cache.pkl")
+        size = str(exp["listing_min_size"])
+        run_cli(timages._cache_cli, ["update", pkl, PILLOW_FORMATS,
+                                     "--min_size", size])
+        shown = run_cli(timages._cache_cli, ["show", pkl])
+        with open(pkl, "rb") as f:
+            listed = [os.path.basename(p) for p in pickle.load(f)[
+                (PILLOW_FORMATS, int(size))]]
+        if listed != exp["listing"]:
+            raise RuntimeError(f"the cache CLI listed {listed}, the JAX "
+                               f"package {exp['listing']}")
+        log(f"[pillow_formats] the listing-cache CLI (what python -m "
+            f"l3c_torch.data.images runs) update --min_size {size}: "
+            f"{listed}, the JAX listing; show: {shown.strip()!r}")
+        # ---- (e) the PNGs the tester wrote against Pillow's default save,
+        # in a child process (the port and this script import no Pillow)
+        run = subprocess.run([sys.executable, "-c", HOST_PNG_SCRIPT,
+                              *written], capture_output=True, text=True,
+                             timeout=300)
+        fields = run.stdout.split()
+        if run.returncode == NO_PILLOW:
+            log("[pillow_formats] this host has no Pillow that imports: the "
+                f"written PNGs not held ({run.stderr.strip()[-200:]})")
+        elif run.returncode or len(fields) != 5 or \
+                not all(f.isdigit() for f in fields[:2]):
+            raise RuntimeError(f"holding the written PNGs to Pillow's save "
+                               f"failed (exit {run.returncode}): stdout "
+                               f"{run.stdout.strip()[-500:]!r}, stderr "
+                               f"{run.stderr.strip()[-2000:]}")
+        else:
+            payload, same, version, pz, pyz = fields
+            if int(payload) != len(written):
+                raise RuntimeError(f"{len(written) - int(payload)} written "
+                                   "PNGs differ from Pillow's image data")
+            log(f"[pillow_formats] the {len(written)} PNGs cli.l3c dec wrote:"
+                f" image data and IDAT split equal Pillow {version}'s default"
+                f" save; {same} of {len(written)} byte-equal (Pillow's zlib "
+                f"{pz}, Python's zlib {pyz})")
+    # ---- (f) the host's decode rates of the GIF and TIFF fixtures
+    rates = []
+    for name in exp["coded"]:
+        e = exp["files"][name]
+        blob = open(os.path.join(PILLOW_FORMATS, name), "rb").read()
+        decode = gif.decode_gif if e["format"] == "GIF" else tiff.decode_tiff
+        dt = math.inf
+        for _ in range(3):           # the fastest of three decodes
+            t0 = time.perf_counter()
+            arr = decode(blob, name)
+            dt = min(dt, time.perf_counter() - t0)
+        if pixel_digest(arr) != e["sha256"]:
+            raise RuntimeError(f"{name}: pixels differ from Pillow's")
+        h, w = e["size"]
+        rates.append(f"{name} ({w} x {h}, {len(blob)} bytes) "
+                     f"{h * w / dt / 1e6:.4f} MP/s ({dt * 1e3:.1f} ms)")
+    log(f"[pillow_formats] host decode rates, fastest of 3, pixels "
+        f"Pillow's: {'; '.join(rates)} | host {cpu}")
+    return total
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -4547,11 +4760,13 @@ def main() -> int:
     synth_counts = timed("synth", phase_synth, cfg, card)
     formats_counts = timed("formats", phase_formats, card)
     damaged_counts = timed("damaged", phase_damaged, card)
+    pillow_counts = timed("pillow_formats", phase_pillow_formats, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
         rec["synth_launches"] = synth_counts.get(rec["name"], 0)
         rec["formats_launches"] = formats_counts.get(rec["name"], 0)
         rec["damaged_launches"] = damaged_counts.get(rec["name"], 0)
+        rec["pillow_formats_launches"] = pillow_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

@@ -1,5 +1,7 @@
-"""Image files for training, the tester and the codec CLIs: listings,
-training batches, testsets, PNG, JPEG, WebP, PNM and BMP.
+"""Image files for training, the tester and the codec CLIs: listings (and
+their cache CLI, `python -m l3c_torch.data.images update|show CACHE_PKL
+[SPEC] [--min_size N]`), training batches, testsets, and the image
+formats.
 
 Port of `l3c_tpu/data/images.py` (`iter_images_in`, `ImagesCached`,
 `load_image_uint8`, `random_crop_flip`, `TrainBatches`, `Testset`). The
@@ -7,9 +9,9 @@ training batches are the JAX package's bit for bit for the same paths,
 seed and flags: both draw from one np.random.RandomState in the same
 order. The JAX package reads images with Pillow; the port depends on
 torch, numpy and the standard library only, so it reads the formats
-itself, told apart by their first bytes as Pillow tells them, damaged
-files included, each as the JAX loader reads it or refused where it
-refuses:
+itself, told apart by their bytes in the order Pillow's Image.open tries
+its plugins (`image_format`), damaged files included, each as the JAX
+loader reads it or refused where it refuses:
   - PNG (zlib + numpy; it also writes them): every bit depth (1, 2, 4, 8
     and 16) and colour type (grey, RGB, palette, grey + alpha, RGBA) the
     standard defines, non-interlaced and Adam7, all five row filters;
@@ -32,9 +34,16 @@ refuses:
     is its grey ramp, rows of fewer bits read as the JAX loader's Pillow
     reads them from a file), RLE8 and RLE4, 16-bit (5-5-5 and 5-6-5), 24
     and 32 bits with the bit-field layouts Pillow reads, OS/2,
-    BITMAPINFOHEADER and V4 / V5 headers, bottom-up and top-down rows.
+    BITMAPINFOHEADER and V4 / V5 headers, bottom-up and top-down rows;
+  - GIF (data/gif.py), TIFF (data/tiff.py), TGA, ICO, CUR, PCX, DCX,
+    SGI, QOI, IM, MSP, SUN, PSD (data/rasters.py), DDS (data/dds.py) and
+    DIB;
+  - JPEG 2000 and AVIF: Pillow's mode and size from their headers, and a
+    ValueError naming them for their pixels, as for the other formats
+    Pillow opens that the port does not decode yet.
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
-ValueError naming the format and the reason. Every image comes out as
+ValueError naming the format and the reason. PNGs are written with the
+bytes of Pillow's default save (`write_png`). Every image comes out as
 RGB the way Pillow's convert("RGB") gives it: grey replicated, the
 palette looked up, alpha dropped, CMYK through Pillow's cmyk2rgb, 16-bit
 samples cut to their high byte (16-bit grey clipped at 255); `image_mode`
@@ -55,7 +64,7 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import jpeg, webp
+from . import dds, gif, jpeg, rasters, tiff, webp
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -201,17 +210,17 @@ def _header(data: bytes, path: str) -> Tuple[int, int, int, int, int]:
     return w, h, depth, ctype, interlace
 
 
-def _png_ihdr(path: str) -> Tuple[int, int, int, int, int]:
-    """_header of the file's IHDR, the chunks before the image data
-    checked as Pillow's Image.open checks them, without decoding
-    pixels."""
-    with open(path, "rb") as f:
-        return _header(_png_open(f.read(), path)[0], path)
-
-
 # Pillow's mode for a PNG's (colour type, bit depth)
 _PNG_MODES = {(0, 1): "1", (0, 16): "I;16", (4, 16): "RGBA", 0: "L",
               2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+
+
+def png_header(blob: bytes, path: str) -> Tuple[str, int, int]:
+    """(Pillow's mode, height, width) from the IHDR, the chunks before the
+    image data checked as Pillow's Image.open checks them, without
+    decoding pixels."""
+    w, h, depth, colour, _ = _header(_png_open(blob, path)[0], path)
+    return _PNG_MODES.get((colour, depth), _PNG_MODES[colour]), h, w
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -301,7 +310,11 @@ def read_png(path: str) -> np.ndarray:
     complete (a stream that ends cleanly at a row before it leaves the
     rest zero), the chunks after it unchecked."""
     with open(path, "rb") as f:
-        blob = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(blob: bytes, path: str) -> np.ndarray:
+    """read_png of a file's bytes."""
     ihdr, palette, at, size = _png_open(blob, path)
     w, h, depth, colour, interlace = _header(ihdr, path)
     ch = _CHANNELS[colour]
@@ -333,20 +346,65 @@ def read_png(path: str) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
+# The row filters Pillow's ZipEncode.c tries, in its order: a later one is
+# taken only where its bytes are strictly better. Average is tried only
+# under save(..., optimize=True).
+PNG_FILTERS = (0, 2, 1, 4)               # None, Up, Sub, Paeth
+PNG_FILTERS_OPTIMIZE = (0, 2, 1, 3, 4)   # None, Up, Sub, Average, Paeth
+
+
+def png_filter_rows(img: np.ndarray, filters: Sequence[int] = PNG_FILTERS
+                    ) -> np.ndarray:
+    """(H, W[, C]) uint8 -> (H, 1 + W C) uint8 filtered rows, each with its
+    filter byte, as Pillow's ZipEncode.c filters them: each row takes the
+    first of `filters` whose filtered bytes v have the least sum of
+    min(v, 256 - v)."""
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    rows = img.reshape(h, w * bpp).astype(np.int32)
+    up = np.zeros_like(rows)
+    up[1:] = rows[:-1]
+    left = np.zeros_like(rows)
+    left[:, bpp:] = rows[:, :-bpp]
+    upleft = np.zeros_like(rows)
+    upleft[1:] = left[:-1]
+    pred = {0: 0, 1: left, 2: up, 3: (left + up) >> 1,
+            4: _paeth(left, up, upleft)}
+    cands = np.stack([(rows - pred[f]) & 255 for f in filters])
+    cost = np.minimum(cands, 256 - cands).sum(-1)     # (len(filters), h)
+    best = np.argmin(cost, 0)                         # first of the least
+    data = np.empty((h, 1 + w * bpp), np.uint8)
+    data[:, 0] = np.asarray(filters, np.uint8)[best]
+    data[:, 1:] = cands[best, np.arange(h)]
+    return data
+
+
+def png_deflate(rows: np.ndarray, level: int) -> bytes:
+    """The zlib stream ZipEncode.c writes for filtered rows: deflate at
+    `level`, window 15, memLevel 9, Z_FILTERED. Its bytes are this zlib's
+    (zlib.ZLIB_RUNTIME_VERSION): equal to Pillow's where both use one."""
+    z = zlib.compressobj(level, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    return z.compress(rows.tobytes()) + z.flush()
+
+
+def png_idat_block(w: int) -> int:
+    """Bytes of each IDAT chunk but the last: ImageFile._save's buffer for
+    an image w pixels wide."""
+    return max(65536, 4 * w)
+
+
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write (H, W, 3) uint8 RGB as an 8-bit colour-type-2 PNG, every row
-    Paeth-filtered (an encoder knows all neighbours, so it vectorises)."""
+    """Write (H, W, 3) uint8 RGB as an 8-bit colour-type-2 PNG with the
+    bytes of Pillow's default save (Image.fromarray(img).save(path)): rows
+    filtered by png_filter_rows, deflated at level 6, the stream cut into
+    IDAT chunks of png_idat_block(W) bytes."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"write_png takes (H, W, 3) uint8, got "
                          f"{img.dtype} {img.shape}")
     h, w, _ = img.shape
-    pad = np.zeros((h + 1, w + 1, 3), np.int32)
-    pad[1:, 1:] = img
-    pred = _paeth(pad[1:, :-1], pad[:-1, 1:], pad[:-1, :-1])
-    rows = np.empty((h, 1 + w * 3), np.uint8)
-    rows[:, 0] = 4
-    rows[:, 1:] = ((pad[1:, 1:] - pred) & 255).reshape(h, w * 3)
+    stream = png_deflate(png_filter_rows(img), 6)
+    block = png_idat_block(w)
 
     def chunk(ctype: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + ctype + data
@@ -355,7 +413,8 @@ def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE)
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        for at in range(0, len(stream), block):
+            f.write(chunk(b"IDAT", stream[at:at + block]))
         f.write(chunk(b"IEND", b""))
 
 
@@ -446,16 +505,14 @@ def _plain_tokens(data: bytes) -> List[bytes]:
     return b"".join(kept).split()
 
 
-def read_pnm(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNM (P1-P6, Pf, and Pillow's own P0CMYK,
-    PyP, PyRGBA, PyCMYK) as Pillow's convert("RGB") gives it: a maxval
-    other than 255 (65535 for 16-bit grey) scaled by Pillow's round(v /
-    maxval * out_max), grey past 8 bits clipped at 255, bitmaps 0 or 255,
-    float samples clipped to 0..255 and truncated (NaN 0), grey
-    replicated, alpha dropped, CMYK by Pillow's cmyk2rgb, a palette
-    image without its palette black."""
-    with open(path, "rb") as f:
-        blob = f.read()
+def decode_pnm(blob: bytes, path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a PNM's bytes (P1-P6, Pf, and Pillow's own
+    P0CMYK, PyP, PyRGBA, PyCMYK) as Pillow's convert("RGB") gives it: a
+    maxval other than 255 (65535 for 16-bit grey) scaled by Pillow's
+    round(v / maxval * out_max), grey past 8 bits clipped at 255, bitmaps
+    0 or 255, float samples clipped to 0..255 and truncated (NaN 0), grey
+    replicated, alpha dropped, CMYK by Pillow's cmyk2rgb, a palette image
+    without its palette black."""
     hd = _pnm_header(blob, path)
     w, h, maxval = hd.width, hd.height, hd.maxval
     if hd.mode == "F":          # float32 rows bottom-up; convert("RGB")
@@ -547,11 +604,16 @@ class _Bmp(NamedTuple):
     palette: Optional[np.ndarray]    # (colors, 3) RGB for "P"
 
 
-def _bmp_header(blob: bytes, path: str) -> _Bmp:
+def _bmp_header(blob: bytes, path: str, dib: bool = False,
+                halve: bool = False) -> _Bmp:
     """BmpImagePlugin's reading of the headers and the palette: OS/2 (12
     bytes), BITMAPINFOHEADER (40) and its successors to V5 (124); refuses
-    what Pillow refuses, and the layouts it reads inconsistently."""
-    if len(blob) < 18 or blob[:2] != b"BM":
+    what Pillow refuses, and the layouts it reads inconsistently. With
+    dib=True the blob's first 14 bytes stand for a file header that is not
+    there (a DIB file, or the bitmap in an ICO or CUR file): the pixel data
+    follows the palette. halve=True halves the height, as IcoImagePlugin
+    and CurImagePlugin do (the AND mask's rows follow the image's)."""
+    if len(blob) < 18 or blob[:2] != b"BM" and not dib:
         raise ValueError(f"{path}: truncated BMP header")
     offset, hs = struct.unpack("<II", blob[10:18])
     hd = blob[18:14 + hs]
@@ -578,6 +640,8 @@ def _bmp_header(blob: bytes, path: str) -> _Bmp:
             else:
                 masks = struct.unpack("<III", blob[at:at + 12]) + (0,)
                 at += 12
+    if halve:
+        h //= 2
     colors = colors or 1 << bits
     if offset == 14 + hs and bits <= 8:
         offset += 4 * colors
@@ -618,6 +682,8 @@ def _bmp_header(blob: bytes, path: str) -> _Bmp:
                 raise ValueError(f"{path}: RLE BMP with a two-entry grey "
                                  "palette is not read (nor by Pillow)")
         palette = np.ascontiguousarray(pal)
+    if dib:
+        offset = at + (pad * colors if bits <= 8 else 0)
     return _Bmp(w, h, bits, comp, top_down, offset, mode, layout, palette)
 
 
@@ -668,17 +734,16 @@ def _bmp_rle(blob: bytes, at: int, w: int, h: int, rle4: bool,
     return np.frombuffer(bytes(data[:dest]), np.uint8)
 
 
-def read_bmp(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a BMP as Pillow's convert("RGB") gives it:
-    1, 4 and 8-bit palettes (black past their end; grey ones as Pillow's
-    "1" and "L", a row of fewer bits read as the JAX loader's Pillow reads
-    it from a file: its leading bytes as 1-bit samples, or w bytes from
-    its start as 8-bit ones), RLE8 and RLE4, 16-bit 5-5-5 and
+def decode_bmp(blob: bytes, path: str, dib: bool = False,
+               halve: bool = False) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a BMP's bytes as Pillow's convert("RGB")
+    gives it: 1, 4 and 8-bit palettes (black past their end; grey ones as
+    Pillow's "1" and "L", a row of fewer bits read as the JAX loader's
+    Pillow reads it from a file: its leading bytes as 1-bit samples, or w
+    bytes from its start as 8-bit ones), RLE8 and RLE4, 16-bit 5-5-5 and
     5-6-5, 24 and 32 bits with Pillow's bit-field layouts (alpha dropped),
-    bottom-up and top-down rows."""
-    with open(path, "rb") as f:
-        blob = f.read()
-    hd = _bmp_header(blob, path)
+    bottom-up and top-down rows; dib and halve as in _bmp_header."""
+    hd = _bmp_header(blob, path, dib, halve)
     w, h, bits = hd.width, hd.height, hd.bits
     if hd.compression in (1, 2):
         px = _bmp_rle(blob, hd.offset, w, h, hd.compression == 2,
@@ -726,62 +791,241 @@ def read_bmp(path: str) -> np.ndarray:
     return np.ascontiguousarray(px)
 
 
-def _format(path: str) -> str:
-    """'png', 'jpeg', 'pnm', 'bmp' or 'webp' from the file's first bytes;
-    other formats raise with the reason."""
+# Pillow's Image.open tries its formats in this order: the five plugins it
+# imports first (preinit), then the others as Image.init registers them.
+# The first whose test of the file's first 16 bytes passes opens it; the
+# ones marked with a probe fall through to the next, as Pillow's do, where
+# their header does not parse (a TGA file can begin with the CUR magic).
+_u32 = lambda p, at=0, o="<": struct.unpack_from(o + "I", p.ljust(16, b"\0"),
+                                                 at)[0]
+_u16 = lambda p, at=0, o="<": struct.unpack_from(o + "H", p.ljust(16, b"\0"),
+                                                 at)[0]
+_ORDER = (
+    ("BMP", lambda p: p[:2] == b"BM"),
+    ("DIB", lambda p: _u32(p) in (12, 40, 52, 56, 64, 108, 124)),
+    ("GIF", lambda p: p[:6] in (b"GIF87a", b"GIF89a")),
+    ("JPEG", lambda p: p[:3] == b"\xff\xd8\xff"),
+    ("PPM", lambda p: p[:1] == b"P" and p[1:2] != b"" and p[1:2] in
+     b"0123456fy"),
+    ("PNG", lambda p: p[:8] == PNG_SIGNATURE),
+    ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in (
+        b"avif", b"avis", b"mif1", b"msf1")),
+    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2")),
+    ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC")),
+    ("CUR", lambda p: p[:4] == b"\0\0\2\0"),
+    ("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5)),
+    ("DCX", lambda p: len(p) >= 4 and _u32(p) == 987654321),
+    ("DDS", lambda p: p[:4] == b"DDS "),
+    ("EPS", lambda p: p[:4] == b"%!PS" or len(p) >= 4
+     and _u32(p) == 0xC6D3D0C5),
+    ("FITS", lambda p: p[:6] == b"SIMPLE"),
+    ("FLI", lambda p: len(p) >= 16 and _u16(p, 4) in (0xAF11, 0xAF12)
+     and _u16(p, 14) in (0, 3)),
+    ("FTEX", lambda p: p[:4] == b"FTEX"),
+    ("GBR", lambda p: len(p) >= 8 and _u32(p, 0, ">") >= 20
+     and _u32(p, 4, ">") in (1, 2)),
+    ("GRIB", lambda p: len(p) >= 8 and p[:4] == b"GRIB" and p[7] == 1),
+    ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n"),
+    ("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51"
+     or p[:12] == b"\0\0\0\x0cjP  \r\n\x87\n"),
+    ("ICNS", lambda p: p[:4] == b"icns"),
+    ("ICO", lambda p: p[:4] == b"\0\0\1\0"),
+    ("IM", None), ("IMT", None), ("IPTC", None),
+    ("MCIDAS", lambda p: p[:8] == b"\0\0\0\0\0\0\0\x04"),
+    ("MPEG", lambda p: p[:4] == b"\0\0\1\xb3"),
+    ("TIFF", lambda p: p[:4] in (b"MM\0\x2a", b"II\x2a\0", b"MM\x2a\0",
+                                 b"II\0\x2a", b"MM\0\x2b", b"II\x2b\0")),
+    ("MSP", lambda p: p[:4] in (b"DanM", b"LinS")),
+    ("PCD", None),
+    ("PIXAR", lambda p: p[:4] == b"\x80\xe8\0\0"),
+    ("PSD", lambda p: p[:4] == b"8BPS"),
+    ("QOI", lambda p: p[:4] == b"qoif"),
+    ("SGI", lambda p: len(p) >= 2 and _u16(p, 0, ">") == 474),
+    ("SPIDER", None),
+    ("SUN", lambda p: len(p) >= 4 and _u32(p, 0, ">") == 0x59A66A95),
+    ("TGA", None),
+    ("WEBP", lambda p: p[:4] == b"RIFF" and p[8:12] == b"WEBP"),
+    ("WMF", lambda p: p[:6] == b"\xd7\xcd\xc6\x9a\0\0"
+     or p[:4] == b"\x01\0\0\0"),
+    ("XBM", lambda p: p.lstrip()[:7] == b"#define"),
+    ("XPM", lambda p: p[:9] == b"/* XPM */"),
+    ("XVTHUMB", lambda p: p[:6] == b"P7 332"),
+)
+
+
+def _parses(fn, blob: bytes) -> bool:
+    try:
+        fn(blob, "")
+        return True
+    except (ValueError, IndexError, struct.error):
+        return False
+
+
+def _spider(blob: bytes) -> bool:
+    """SpiderImagePlugin's header test, big- then little-endian."""
+    if len(blob) < 92:
+        return False
+    for o in ">", "<":
+        t = (99.0,) + struct.unpack(o + "23f", blob[:92])
+        if not all(math.isfinite(t[i]) and t[i] == int(t[i])
+                   for i in (1, 2, 5, 12, 13, 22, 23)):
+            continue
+        if int(t[5]) in (1, 3, -11, -12, -21, -22) and \
+                int(t[22]) == int(t[13]) * int(t[23]):
+            return True
+    return False
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _imt(blob: bytes) -> bool:
+    """ImtImagePlugin's header: "key value" lines up to a form feed, a
+    width, a height and "pixel n8"."""
+    if b"\n" not in blob[:100]:
+        return False
+    at, w, h, grey = 0, 0, 0, False
+    while at < len(blob):
+        c = blob[at:at + 1]
+        at += 1
+        if c == b"\x0c":
+            break
+        end = blob.find(b"\n", at)
+        end = len(blob) if end < 0 else end
+        line, at = c + blob[at:end], end + 1
+        if len(line) == 1 or len(line) > 100:
+            break
+        if line[:1] == b"*":
+            continue
+        m = _IMT_FIELD.match(line)
+        if not m:
+            break
+        k, v = m.groups()
+        if k in (b"width", b"height"):
+            if not v.isdigit():
+                return False
+            w, h = (int(v), h) if k == b"width" else (w, int(v))
+        elif k == b"pixel" and v == b"n8":
+            grey = True
+    return w > 0 and h > 0 and grey
+
+
+# formats whose accepted header may still not open, and the formats
+# without a test of their first bytes: what Pillow's _open checks
+_PROBES = {
+    "CUR": rasters.cur_probe,
+    "PCX": lambda b: _parses(rasters.pcx_header, b),
+    "MSP": lambda b: _parses(rasters.msp_header, b),
+    "IM": rasters.im_probe,
+    "IMT": _imt,
+    "IPTC": lambda b: b[:1] == b"\x1c" and len(b) >= 5
+    and b[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240),
+    "PCD": lambda b: b[2048:2052] == b"PCD_",
+    "SPIDER": _spider,
+    "TGA": lambda b: _parses(rasters.tga_header, b),
+}
+
+def _head(hd) -> Tuple[str, int, int]:
+    return hd.mode, hd.height, hd.width
+
+
+# (header, decoder) of each format the port reads: header(blob, path) ->
+# (Pillow's mode, height, width), decoder(blob, path) -> (H, W, 3) uint8
+_FORMATS = {
+    "PNG": (png_header, decode_png),
+    "JPEG": (jpeg.jpeg_header, jpeg.decode_jpeg),
+    "PPM": (lambda b, p: _head(_pnm_header(b, p)), decode_pnm),
+    "BMP": (lambda b, p: _head(_bmp_header(b, p)), decode_bmp),
+    "WEBP": (webp.webp_header, webp.decode_webp),
+    "GIF": (gif.gif_header, gif.decode_gif),
+    "TIFF": (tiff.tiff_header, tiff.decode_tiff),
+    "TGA": (rasters.tga_header, rasters.decode_tga),
+    "ICO": (rasters.ico_header, rasters.decode_ico),
+    "CUR": (rasters.cur_header, rasters.decode_cur),
+    "PCX": (rasters.pcx_header, rasters.decode_pcx),
+    "DCX": (lambda b, p: rasters.pcx_header(b, p, dcx=True),
+            lambda b, p: rasters.decode_pcx(b, p, dcx=True)),
+    "SGI": (rasters.sgi_header, rasters.decode_sgi),
+    "QOI": (rasters.qoi_header, rasters.decode_qoi),
+    "IM": (rasters.im_header, rasters.decode_im),
+    "MSP": (rasters.msp_header, rasters.decode_msp),
+    "SUN": (rasters.sun_header, rasters.decode_sun),
+    "PSD": (rasters.psd_header, rasters.decode_psd),
+    "DDS": (dds.dds_header, dds.decode_dds),
+    "DIB": (lambda b, p: _head(_bmp_header(b"BM" + bytes(12) + b, p,
+                                           dib=True)),
+            lambda b, p: decode_bmp(b"BM" + bytes(12) + b, p, dib=True)),
+    "JPEG2000": (rasters.jpeg2000_header, None),
+    "AVIF": (rasters.avif_header, None),
+}
+_NAMES = {"JPEG2000": "JPEG 2000"}
+# formats Pillow opens but cannot load on these hosts: stubs without a
+# handler, EPS without Ghostscript, MPEG without a decoder, WMF off Windows
+_PILLOW_REFUSES = ("BUFR", "GRIB", "HDF5", "EPS", "MPEG", "WMF")
+
+
+def image_format(path: str) -> str:
+    """Pillow's format name for the file ("PNG", "JPEG", "GIF", "TIFF",
+    ...), from its bytes as Image.open decides it, whatever its name."""
     with open(path, "rb") as f:
-        head = f.read(12)
-    if head[:8] == PNG_SIGNATURE:
-        return "png"
-    if head[:3] == b"\xff\xd8\xff":
-        return "jpeg"
-    if head[:1] == b"P" and head[1:2] and head[1:2] in b"0123456fy":
-        return "pnm"                  # as Pillow accepts it; P1-P6 are read
-    if head[:2] == b"BM":
-        return "bmp"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        return "webp"
+        prefix = f.read(16)          # what Image.open hands the tests
+    blob = None
+    for name, accept in _ORDER:
+        if accept is not None and not accept(prefix):
+            continue
+        probe = _PROBES.get(name)
+        if probe is not None:
+            if blob is None:
+                with open(path, "rb") as f:
+                    blob = f.read()
+            if not probe(blob):
+                continue
+        return name
     raise ValueError(f"{path}: unknown image format; the port reads PNG, "
-                     "JPEG, PNM, BMP and WebP")
+                     "JPEG, PNM, BMP and WebP, and GIF, TIFF, TGA, ICO, CUR, "
+                     "PCX, DCX, SGI, QOI, IM, MSP, SUN, PSD, DDS and DIB "
+                     "(Pillow cannot identify the file either)")
+
+
+def _not_decoded(name: str, path: str) -> ValueError:
+    label = _NAMES.get(name, name)
+    if name in _PILLOW_REFUSES:
+        return ValueError(f"{path}: {label} file: Pillow opens it but cannot"
+                          " load its pixels on these hosts, and the port "
+                          "refuses it too")
+    return ValueError(f"{path}: {label} is not decoded by the port yet")
+
+
+def _header_of(path: str) -> Tuple[str, int, int]:
+    """(Pillow's mode, height, width) of any format the port knows."""
+    kind = image_format(path)
+    if kind not in _FORMATS:
+        raise _not_decoded(kind, path)
+    with open(path, "rb") as f:
+        return _FORMATS[kind][0](f.read(), path)
 
 
 def image_mode(path: str) -> str:
     """The mode Pillow's Image.open gives the file ("RGB", "L", "P", ...),
     from its header alone."""
-    kind = _format(path)
-    if kind == "png":
-        _, _, depth, colour, _ = _png_ihdr(path)
-        return _PNG_MODES.get((colour, depth), _PNG_MODES[colour])
-    if kind == "jpeg":
-        return jpeg.jpeg_mode(path)
-    if kind == "webp":
-        return webp.webp_mode(path)
-    with open(path, "rb") as f:
-        blob = f.read()
-    return (_pnm_header if kind == "pnm" else _bmp_header)(blob, path).mode
+    return _header_of(path)[0]
 
 
 def image_size(path: str) -> Tuple[int, int]:
     """(height, width) from the image's header, without decoding pixels."""
-    kind = _format(path)
-    if kind == "png":
-        w, h = _png_ihdr(path)[:2]
-        return h, w
-    if kind == "jpeg":
-        return jpeg.jpeg_size(path)
-    if kind == "webp":
-        return webp.webp_size(path)
-    with open(path, "rb") as f:
-        blob = f.read()
-    hd = (_pnm_header if kind == "pnm" else _bmp_header)(blob, path)
-    return hd.height, hd.width
+    return _header_of(path)[1:]
 
 
 def load_image_uint8(p: str) -> np.ndarray:
-    """(H,W,3) uint8 RGB of a PNG, JPEG, PNM, BMP or WebP; non-RGB images
-    are converted as Pillow's convert("RGB") converts them."""
-    return {"png": read_png, "jpeg": jpeg.read_jpeg, "pnm": read_pnm,
-            "bmp": read_bmp, "webp": webp.read_webp}[_format(p)](p)
+    """(H,W,3) uint8 RGB of any format the port reads; non-RGB images are
+    converted as Pillow's convert("RGB") converts them. A format Pillow
+    opens that the port does not decode yet raises ValueError naming it."""
+    kind = image_format(p)
+    decode = _FORMATS.get(kind, (None, None))[1]
+    if decode is None:
+        raise _not_decoded(kind, p)
+    with open(p, "rb") as f:
+        return decode(f.read(), p)
 
 
 class ImagesCached:
@@ -946,3 +1190,33 @@ class Testset:
 
     def __iter__(self):
         return iter(self.paths)
+
+
+def _cache_cli(argv=None):
+    """Maintain listing caches: `python -m l3c_torch.data.images
+    update|show CACHE_PKL [SPEC] [--min_size N]`, the JAX package's CLI
+    (its pickle, output lines and exit code)."""
+    import argparse
+    p = argparse.ArgumentParser(description=_cache_cli.__doc__)
+    p.add_argument("mode", choices=["update", "show"])
+    p.add_argument("cache_pkl")
+    p.add_argument("spec", nargs="?", default=None)
+    p.add_argument("--min_size", type=int, default=None)
+    flags = p.parse_args(argv)
+    if flags.mode == "update":
+        if not flags.spec:          # exit code 1, as the JAX CLI's assert
+            raise ValueError("update needs a dir/glob SPEC")
+        ps = ImagesCached(flags.spec, flags.cache_pkl,
+                          flags.min_size).paths(update_cache=True)
+        print(f"cached {len(ps)} paths for {flags.spec!r}")
+    else:
+        with open(flags.cache_pkl, "rb") as f:
+            cache = pickle.load(f)
+        for (spec, min_size), ps in cache.items():
+            print(f"{spec!r} min_size={min_size}: {len(ps)} paths")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(_cache_cli())

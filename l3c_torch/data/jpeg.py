@@ -50,8 +50,8 @@ a marker libjpeg does not know, broken headers, arithmetic-coded
 lossless files (SOF11). Under
 JSIMD_FORCENONE, libjpeg-turbo's C inverse DCT wraps where its SIMD code
 saturates, and Pillow's pixels then differ from these for such blocks.
-`jpeg_mode` gives Pillow's mode for the file from its header alone ("L",
-"RGB", "CMYK").
+`jpeg_header` gives Pillow's mode ("L", "RGB", "CMYK") and the size from
+the headers alone.
 """
 from __future__ import annotations
 
@@ -295,31 +295,20 @@ def _frame(marker: int, seg: bytes, path: str) -> Tuple[int, int, Tuple]:
     return width, height, comps
 
 
-def _header_dims(path: str) -> Tuple[int, int, int]:
-    """(width, height, components) from the frame header, whatever the
-    coding process (the size and mode do not depend on it)."""
-    with open(path, "rb") as f:
-        blob = f.read()
+def jpeg_header(blob: bytes, path: str) -> Tuple[str, int, int]:
+    """(Pillow's mode, height, width) from the frame header, whatever the
+    coding process (the size and mode do not depend on it): the number
+    of components decides the mode."""
     for marker, seg, _ in _segments(blob, path, header=True):
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            return _dims(seg, path)[1:]
+            width, height, n = _dims(seg, path)[1:]
+            if n not in (1, 3, 4):
+                raise ValueError(f"{path}: JPEG with {n} components is not "
+                                 "read")
+            return {1: "L", 3: "RGB", 4: "CMYK"}[n], height, width
         if marker in (0xDA, 0xD9):
             break
     raise ValueError(f"{path}: JPEG without a frame header")
-
-
-def jpeg_size(path: str) -> Tuple[int, int]:
-    """(height, width) from the frame header."""
-    width, height, _ = _header_dims(path)
-    return height, width
-
-
-def jpeg_mode(path: str) -> str:
-    """Pillow's mode for the file: its number of components decides it."""
-    n = _header_dims(path)[2]
-    if n not in (1, 3, 4):
-        raise ValueError(f"{path}: JPEG with {n} components is not read")
-    return {1: "L", 3: "RGB", 4: "CMYK"}[n]
 
 
 # ------------------------------------------------------------- Huffman
@@ -1793,8 +1782,12 @@ def cmyk_to_rgb(planes: List[np.ndarray], ycck: bool) -> np.ndarray:
     return np.clip(nk - _muldiv255(cmy, nk), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>") -> np.ndarray:
-    """read_jpeg of a file's bytes; `path` names it in errors."""
+def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>",
+                convert: bool = True) -> np.ndarray:
+    """read_jpeg of a file's bytes; `path` names it in errors. With
+    convert=False three components come out as decoded, with no colour
+    conversion (libjpeg's JCS_UNKNOWN output, as libtiff asks for it for a
+    JPEG-compressed TIFF that is not YCbCr)."""
     frame, coefs, qts = _decode(blob, path)
     comps = frame.comps
     hmax = max(c.h for c in comps)
@@ -1823,6 +1816,6 @@ def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>") -> np.ndarray:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2)
     if len(planes) == 4:
         return cmyk_to_rgb(planes, frame.ycck)
-    if frame.rgb:
+    if frame.rgb or not convert:
         return np.stack(planes, -1).astype(np.uint8)
     return ycc_to_rgb(*planes)

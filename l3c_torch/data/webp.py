@@ -20,8 +20,8 @@ RGB in Python and numpy:
 
 An animation gives its first frame on the canvas, as Pillow's Image.open
 shows it. Corrupt or truncated streams raise ValueError naming the
-fault. `webp_mode` and `webp_size` give Pillow's mode and size from the
-headers alone. The constant tables are in
+fault. `webp_header` gives Pillow's mode and size from the headers
+alone. The constant tables are in
 data/webp_tables.py.
 """
 from __future__ import annotations
@@ -89,11 +89,9 @@ def _image(chunks, path: str):
     raise ValueError(f"{path}: truncated WebP file (no image data)")
 
 
-def _parse(path: str) -> _Info:
+def _parse(blob: bytes, path: str) -> _Info:
     """libwebp's ParseHeadersInternal: the canvas's size, the alpha that
     decides the mode, and the (first) image's data."""
-    with open(path, "rb") as f:
-        blob = f.read()
     if len(blob) < 20 or blob[:4] != b"RIFF" or blob[8:12] != b"WEBP":
         raise ValueError(f"{path}: not a WebP file")
     end = min(len(blob), 8 + struct.unpack("<I", blob[4:8])[0])
@@ -132,23 +130,19 @@ def _parse(path: str) -> _Info:
                  or has_alph, data)
 
 
-def webp_size(path: str) -> Tuple[int, int]:
-    """(height, width) of the canvas."""
-    info = _parse(path)
-    return info.height, info.width
+def webp_header(blob: bytes, path: str) -> Tuple[str, int, int]:
+    """(Pillow's mode, height, width) of the canvas: "RGBA" where libwebp
+    reports alpha, else "RGB"."""
+    info = _parse(blob, path)
+    return "RGBA" if info.alpha else "RGB", info.height, info.width
 
 
-def webp_mode(path: str) -> str:
-    """Pillow's mode: "RGBA" where libwebp reports alpha, else "RGB"."""
-    return "RGBA" if _parse(path).alpha else "RGB"
-
-
-def read_webp(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a WebP file, as Pillow's convert("RGB")
-    gives it: an animation's first frame on its canvas, black where the
-    frame does not cover it (WebPAnimDecoder zero-fills a key frame's
-    canvas)."""
-    info = _parse(path)
+def decode_webp(blob: bytes, path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a WebP file's bytes, as Pillow's
+    convert("RGB") gives it: an animation's first frame on its canvas,
+    black where the frame does not cover it (WebPAnimDecoder zero-fills a
+    key frame's canvas)."""
+    info = _parse(blob, path)
     try:
         if info.lossless:
             argb = decode_vp8l(info.data, path)

@@ -49,6 +49,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..data import images
 from ..ops import coder as coder_mod
 
 _MAGIC = 0x4D45
@@ -304,33 +305,11 @@ def png_size(img: np.ndarray) -> int:
     - the stream cut into IDAT chunks of max(65536, 4 W) bytes.
     Deflate's output is zlib's: the sizes equal Pillow's where both use
     one zlib (zlib.ZLIB_RUNTIME_VERSION names it)."""
-    import zlib
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
         raise ValueError(f"png_size takes (H, W[, C]) uint8, got "
                          f"{img.dtype} {img.shape}")
-    h, w = img.shape[:2]
-    bpp = 1 if img.ndim == 2 else img.shape[2]
-    rows = img.reshape(h, w * bpp).astype(np.int32)
-    prev = np.zeros_like(rows)
-    prev[1:] = rows[:-1]
-    left = np.zeros_like(rows)
-    left[:, bpp:] = rows[:, :-bpp]
-    upleft = np.zeros_like(rows)
-    upleft[1:] = left[:-1]
-    pa, pb = np.abs(prev - upleft), np.abs(left - upleft)
-    pc = np.abs(left + prev - 2 * upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, prev, upleft))
-    cands = np.stack([rows, rows - prev, rows - left,
-                      rows - ((left + prev) >> 1), rows - paeth]) & 255
-    cost = np.minimum(cands, 256 - cands).sum(-1)     # (5, h)
-    best = np.argmin(cost, 0)                         # first of the least
-    ftype = np.array([0, 2, 1, 3, 4], np.uint8)[best]
-    data = np.empty((h, 1 + w * bpp), np.uint8)
-    data[:, 0] = ftype
-    data[:, 1:] = cands[best, np.arange(h)]
-    z = zlib.compressobj(9, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
-    n = len(z.compress(data.tobytes())) + len(z.flush())
-    block = max(65536, 4 * w)
+    rows = images.png_filter_rows(img, images.PNG_FILTERS_OPTIMIZE)
+    n = len(images.png_deflate(rows, 9))
+    block = images.png_idat_block(img.shape[1])
     return _PNG_FRAME + n + _PNG_CHUNK * -(-n // block)

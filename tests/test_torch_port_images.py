@@ -10,9 +10,13 @@ JPEG files) the JAX package's. PNM: P1 to P6, maxvals other than 255 and
 16-bit samples (Pillow's scaling); BMP: 1, 4 and 8-bit palettes (grey ones
 as Pillow's "1" and "L"), RLE8, RLE4, 16-bit, bit-field layouts, OS/2, V4
 and V5 headers. What the port does not read raises ValueError with a
-message pinned here.
+message pinned here. The listing-cache CLI (`python -m
+l3c_torch.data.images update|show CACHE_PKL [SPEC] [--min_size N]`) gives
+the JAX CLI's pickle, lines and exit codes over a folder with mislabelled
+GIF, TIFF and JPEG 2000 files.
 """
 import io
+import os
 import struct
 
 import numpy as np
@@ -388,3 +392,68 @@ def test_listing_with_min_size_equals_jax(tmp_path):
         got = timages.ImagesCached(root, min_size=min_size).paths()
         assert got == jimages.ImagesCached(root, min_size=min_size).paths()
         assert len(got) == (7 if min_size == 8 else 4)
+
+
+def _cli_folder(tmp_path):
+    """A folder with PNG, a GIF saved as .png, a TIFF saved as .jpg, a JPEG
+    2000 file saved as .png (its header read, its pixels not), and .gif
+    and .tif files the listing leaves out."""
+    root = tmp_path / "imgs"
+    (root / "sub").mkdir(parents=True)
+    for i, (name, hw, fmt) in enumerate([
+            ("a.png", (9, 12), "PNG"), ("sub/b.png", (20, 14), "PNG"),
+            ("gif_as.png", (14, 16), "GIF"), ("tif_as.jpg", (15, 14), "TIFF"),
+            ("sub/j2k_as.png", (13, 13), "JPEG2000"), ("c.gif", (30, 30),
+                                                       "GIF"),
+            ("d.tif", (30, 30), "TIFF")]):
+        im = Image.fromarray(_rgb(*hw, seed=i))
+        im.save(str(root / name), fmt)
+    return str(root)
+
+
+def test_cache_cli_equals_jax(tmp_path, capsys):
+    """`update` with --min_size and `show`, in both packages, on a folder
+    with mislabelled files: the same pickle contents, the same lines, and
+    either package shows the other's cache."""
+    import pickle
+    root = _cli_folder(tmp_path)
+    outs = {}
+    for tag, mod in (("port", timages), ("jax", jimages)):
+        pkl = str(tmp_path / f"{tag}.pkl")
+        lines = []
+        for min_size in (None, 12, 14):
+            argv = ["update", pkl, root] + (
+                [] if min_size is None else ["--min_size", str(min_size)])
+            assert mod._cache_cli(argv) == 0
+        assert mod._cache_cli(["show", pkl]) == 0
+        lines = capsys.readouterr().out.replace(str(tmp_path), "T")
+        with open(pkl, "rb") as f:
+            outs[tag] = (pickle.load(f), lines)
+    assert outs["port"] == outs["jax"]
+    cache = outs["port"][0]
+    assert sorted(os.path.basename(p) for p in cache[(root, 14)]) == [
+        "b.png", "gif_as.png", "tif_as.jpg"]
+    for reader, writer in ((timages, "jax"), (jimages, "port")):
+        assert reader._cache_cli(["show", str(tmp_path / f"{writer}.pkl")]) \
+            == 0
+        assert capsys.readouterr().out.replace(str(tmp_path), "T") == \
+            outs["port"][1].split("\n", 3)[3]
+
+
+def test_cache_cli_runs_as_a_module(tmp_path):
+    """`python -m l3c_torch.data.images update|show ...` prints the lines
+    and exits 0; update without SPEC fails as the JAX CLI's does."""
+    import subprocess
+    import sys
+    root = _cli_folder(tmp_path)
+    pkl = str(tmp_path / "c.pkl")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    run = lambda *a: subprocess.run([sys.executable, "-m",
+                                     "l3c_torch.data.images", *a],
+                                    capture_output=True, text=True, env=env)
+    r = run("update", pkl, root, "--min_size", "12")
+    assert r.returncode == 0 and r.stdout == f"cached 4 paths for {root!r}\n"
+    r = run("show", pkl)
+    assert r.returncode == 0 and r.stdout == f"{root!r} min_size=12: 4 paths\n"
+    assert run("update", pkl).returncode == 1
