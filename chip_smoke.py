@@ -243,10 +243,10 @@ Phases (each raises on failure; none carries on after another failed):
               the clean 1024 x 768 baseline and progressive JPEGs and of
               a damaged copy of each (held to Pillow's digest), one call
  18. pillow_formats  the formats Pillow opens beyond those (GIF, TIFF,
-              TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB;
-              l3c_torch/data/fixtures/pillow_formats) to Pillow's format,
-              mode, size and pixel digest, JPEG 2000 and AVIF to Pillow's
-              mode and size and refused by name; cli.l3c enc / dec of a
+              TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB,
+              JPEG 2000; l3c_torch/data/fixtures/pillow_formats) to
+              Pillow's format, mode, size and pixel digest, AVIF to
+              Pillow's mode and size and refused by name; cli.l3c enc / dec of a
               GIF and an LZW TIFF bit-exact with exact launch counts;
               cli.test --write_to_files --compare_theory over the folder
               (its listing keeps a GIF named .png and a TIFF named .jpg,
@@ -256,10 +256,25 @@ Phases (each raises on failure; none carries on after another failed):
               Pillow's default save (image data and IDAT split; whole
               bytes counted, with both zlib versions) in a child process;
               the host's GIF and TIFF decode MP/s
- 19. report   one JSON line of kernel records (each with its path:
+ 19. jpeg2000 JPEG 2000 and ICNS on this machine's host (no Pillow):
+              every file of l3c_torch/data/fixtures/jpeg2000 and
+              jpeg2000_coding (JP2 and raw codestreams, 5/3 and 9/7,
+              tiles, precincts, layers, every code-block style bit,
+              SOP / EPH / TLM / PLT / POC / PPT / PPM, ROI, sYCC, CMYK,
+              palettes, 4 to 16 bits, ICNS with RLE, PNG and JPEG 2000
+              icons) to Pillow's format, mode, size and pixel digest, a
+              truncated file and what Pillow refuses refused, HTJ2K by
+              name; this host's Pillow / OpenJPEG versions and how many
+              fixtures its decode equals (reported); cli.l3c enc / dec of
+              a 9/7 JP2 and a lossless codestream bit-exact with exact
+              launch counts; cli.test --write_to_files --compare_theory
+              over the folder (a JP2 named .png and a codestream named
+              .jpg listed), K3 to K6 launched; the host's decode MP/s of
+              the 256 x 256 9/7 and 128 x 128 5/3 files, fastest of 3
+ 20. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
-              phase damaged and phase pillow_formats),
+              phase damaged, phase pillow_formats and phase jpeg2000),
               the card line, then
               {"ok": true, "device": {...}} as the last line
 
@@ -4552,10 +4567,10 @@ print(payload, same, Image.__version__, features.version("zlib"),
 
 def phase_pillow_formats(card):
     """The formats Pillow opens beyond PNG, JPEG, PNM, BMP and WebP (GIF,
-    TIFF, TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB),
-    decoded on this machine's host with no Pillow and held to Pillow's
-    digests (expected.json), JPEG 2000 and AVIF refused by name with
-    Pillow's mode and size; cli.l3c on a GIF and an LZW TIFF, cli.test
+    TIFF, TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB, and
+    a JP2 and a raw JPEG 2000 codestream), decoded on this machine's host
+    with no Pillow and held to Pillow's digests (expected.json), AVIF
+    refused by name with Pillow's mode and size; cli.l3c on a GIF and an LZW TIFF, cli.test
     over the folder (the listing keeps the mislabelled files) and on a
     TIFF alone; the listing-cache CLI; the PNGs the port wrote held to
     Pillow's default save; the host's GIF and TIFF decode rates. Returns
@@ -4565,8 +4580,8 @@ def phase_pillow_formats(card):
     with open(os.path.join(PILLOW_FORMATS, "expected.json")) as f:
         exp = json.load(f)
     cpu = host_cpu()
-    # ---- (a) every fixture's format, mode, size and pixels; the whole
-    # codecs refused by name
+    # ---- (a) every fixture's format, mode, size and pixels; AVIF refused
+    # by name
     refused = []
     for n, e in sorted(exp["files"].items()):
         p = os.path.join(PILLOW_FORMATS, n)
@@ -4702,6 +4717,183 @@ def phase_pillow_formats(card):
     return total
 
 
+JPEG2000 = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "jpeg2000")
+JPEG2000_CODING = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                               "jpeg2000_coding")
+# run in a child process where the host has Pillow: its OpenJPEG version
+# and how many of the given files its decode gives the digest expected
+# (reported, not held); it exits with NO_PILLOW where Pillow does not
+# import, and only then
+HOST_J2K_SCRIPT = r"""
+import hashlib, json, sys
+import numpy as np
+try:
+    from PIL import Image, features
+except ImportError as e:
+    print(e, file=sys.stderr)
+    sys.exit(75)                # NO_PILLOW
+want = json.loads(sys.argv[1])
+same = 0
+for p, digest in want.items():
+    try:
+        with Image.open(p) as im:
+            px = np.ascontiguousarray(np.asarray(im.convert("RGB")))
+        same += hashlib.sha256(px.tobytes()).hexdigest() == digest
+    except Exception:
+        pass
+print(same, len(want), Image.__version__, features.version("jpg_2000"))
+"""
+
+
+def j2k_fixtures_hold(folder, exp) -> Tuple[List[str], List[str]]:
+    """Every file of `folder`'s expected.json: format, mode and size from
+    the header, and Pillow's pixel digest, or the refusal Pillow's (a
+    ValueError) or the port's by name. Returns (decoded, refused)."""
+    from l3c_torch.data import images as timages
+    decoded, refused = [], []
+    for n, e in sorted(exp.items()):
+        p = os.path.join(folder, n)
+        if "format" in e:
+            head = (timages.image_format(p), timages.image_mode(p),
+                    list(timages.image_size(p)))
+            if head != (e["format"], e["mode"], e["size"]):
+                raise RuntimeError(f"{n}: format/mode/size {head}, expected "
+                                   f"{(e['format'], e['mode'], e['size'])}")
+        if "sha256" in e:
+            if pixel_digest(timages.load_image_uint8(p)) != e["sha256"]:
+                raise RuntimeError(f"{n}: pixels differ from Pillow's")
+            decoded.append(n)
+            continue
+        try:
+            timages.load_image_uint8(p)
+        except ValueError as err:
+            if "refused" in e and f"{e['refused']} is not decoded" \
+                    not in str(err):
+                raise
+            refused.append(n)
+            continue
+        raise RuntimeError(f"{n}: decoded, expected a refusal")
+    return decoded, refused
+
+
+def phase_jpeg2000(card):
+    """JPEG 2000 (JP2 and raw codestreams) and ICNS, decoded on this
+    machine's host with no Pillow: every fixture of
+    l3c_torch/data/fixtures/jpeg2000 and jpeg2000_coding held to Pillow's
+    format, mode, size and pixel digest (expected.json), the truncated
+    file and the ones Pillow refuses refused, HTJ2K by name; cli.l3c enc
+    / dec of a lossy 9/7 JP2 and a lossless raw codestream bit-exact with
+    exact launch counts; cli.test --write_to_files --compare_theory over
+    the folder (its listing keeps a JP2 named .png and a codestream named
+    .jpg); this host's Pillow and OpenJPEG, and how many fixtures its
+    Pillow decodes to the digests (reported); the host's decode rates of
+    the two coded files. Returns the launches of its CLI calls."""
+    from l3c_torch.data import images as timages
+    from l3c_torch.data import jpeg2000
+    with open(os.path.join(JPEG2000, "expected.json")) as f:
+        exp = json.load(f)
+    with open(os.path.join(JPEG2000_CODING, "expected.json")) as f:
+        coding = json.load(f)
+    cpu = host_cpu()
+    # ---- (a) every fixture's format, mode, size and pixels; refusals
+    t0 = time.perf_counter()
+    decoded, refused = j2k_fixtures_hold(JPEG2000, exp["files"])
+    c_dec, c_ref = j2k_fixtures_hold(JPEG2000_CODING, coding["files"])
+    made = exp["made_by"]
+    log(f"[jpeg2000] {len(decoded)} fixtures ({', '.join(decoded)}) and "
+        f"{len(c_dec)} of jpeg2000_coding: formats, modes, sizes and pixel "
+        f"digests equal Pillow's (expected.json, made by Pillow "
+        f"{made['pillow']}, OpenJPEG {made['openjpeg']}, zlib "
+        f"{made['zlib']}); refused as Pillow or by name: "
+        f"{', '.join(refused)} and {len(c_ref)} of jpeg2000_coding "
+        f"({', '.join(c_ref)}); {time.perf_counter() - t0:.1f} s")
+    want = {os.path.join(JPEG2000, n): e["sha256"]
+            for n, e in exp["files"].items() if "sha256" in e}
+    want.update({os.path.join(JPEG2000_CODING, n): e["sha256"]
+                 for n, e in coding["files"].items() if "sha256" in e})
+    run = subprocess.run([sys.executable, "-c", HOST_J2K_SCRIPT,
+                          json.dumps(want)], capture_output=True, text=True,
+                         timeout=300)
+    if run.returncode == NO_PILLOW:
+        log("[jpeg2000] this host has no Pillow that imports: its OpenJPEG "
+            f"not known ({run.stderr.strip()[-200:]})")
+    elif run.returncode or len(run.stdout.split()) != 4:
+        raise RuntimeError(f"the host's Pillow check failed (exit "
+                           f"{run.returncode}): {run.stdout.strip()[-300:]!r}"
+                           f" {run.stderr.strip()[-1000:]}")
+    else:
+        same, n, version, opj = run.stdout.split()
+        log(f"[jpeg2000] this host's Pillow {version} (OpenJPEG {opj}) "
+            f"decodes {same} of the {n} decoded fixtures to the digests "
+            "(reported, not held)")
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="l3c_jpeg2000_") as d:
+        # ---- (b) cli.l3c enc / dec of the lossy JP2 and the lossless
+        # raw codestream
+        for name in exp["coded"]:
+            src = os.path.join(JPEG2000, name)
+            coded = os.path.join(d, name + ".l3c")
+            back = os.path.join(d, name + ".png")
+            counted(total, f"cli.l3c enc {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "enc", src, coded]),
+                ENCODE, CANARY)
+            counted(total, f"cli.l3c dec {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
+                DECODE, CANARY)
+            if not np.array_equal(read_png(back),
+                                  timages.load_image_uint8(src)):
+                raise RuntimeError(f"cli.l3c dec of {name} differs from the "
+                                   "loader's pixels")
+            h, w = timages.image_size(src)
+            log(f"[jpeg2000] cli.l3c enc+dec of {name} ({w} x {h}) "
+                f"bit-exact against the loader's pixels: file bpsp "
+                f"{os.path.getsize(coded) * 8 / (3 * h * w):.4f} | {card}")
+        # ---- (c) cli.test over the folder
+        out_dir = os.path.join(d, "out")
+        kernels.reset_launches()
+        out = run_cli(test_cli.main, [ZOO, LOG_DATE, JPEG2000,
+                                      "--write_to_files", out_dir,
+                                      "--compare_theory", "--reset_cache"])
+        got = {k: kernels.launches.get(k, 0) for k in kernels.KERNELS}
+        if any(got[k] < 1 for k in FORMATS_TEST_KERNELS):
+            raise RuntimeError(f"cli.test over the JPEG 2000 folder: "
+                               f"launches {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        files = sorted(n[:-4] for n in os.listdir(out_dir)
+                       if n.endswith(".l3c"))
+        if files != sorted(os.path.splitext(n)[0] for n in exp["tested"]) \
+                or out.count("assumed:") != len(exp["tested"]):
+            raise RuntimeError(f"cli.test over the JPEG 2000 folder wrote "
+                               f"{files}, expected {exp['tested']}")
+        log(f"[jpeg2000] cli.test --write_to_files --compare_theory on the "
+            f"folder: {exp['tested']} decoded bit-exactly (the tester's "
+            f"gate), bpsp {out.strip().splitlines()[-1].split()[-1]}; "
+            f"launches {({k: v for k, v in got.items() if v})} | {card}")
+    # ---- (d) the host's decode rates of the two coded files
+    rates = []
+    for name in exp["coded"]:
+        e = exp["files"][name]
+        blob = open(os.path.join(JPEG2000, name), "rb").read()
+        dt = math.inf
+        for _ in range(3):           # the fastest of three decodes
+            t0 = time.perf_counter()
+            arr = jpeg2000.decode_jpeg2000(blob, name)
+            dt = min(dt, time.perf_counter() - t0)
+        if pixel_digest(arr) != e["sha256"]:
+            raise RuntimeError(f"{name}: pixels differ from Pillow's")
+        h, w = e["size"]
+        rates.append(f"{name} ({w} x {h}, {len(blob)} bytes, "
+                     f"{len(blob) * 8 / (h * w):.3f} bits a pixel) "
+                     f"{h * w / dt / 1e6:.4f} MP/s ({dt * 1e3:.1f} ms)")
+    log(f"[jpeg2000] host decode rates, fastest of 3, pixels Pillow's: "
+        f"{'; '.join(rates)} | host {cpu}")
+    # ---- (e) the launches of the phase's CLI calls
+    log(f"[jpeg2000] launches of the cli.l3c and cli.test calls: "
+        f"{({k: v for k, v in total.items() if v})} | {card}")
+    return total
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -4761,12 +4953,14 @@ def main() -> int:
     formats_counts = timed("formats", phase_formats, card)
     damaged_counts = timed("damaged", phase_damaged, card)
     pillow_counts = timed("pillow_formats", phase_pillow_formats, card)
+    j2k_counts = timed("jpeg2000", phase_jpeg2000, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
         rec["synth_launches"] = synth_counts.get(rec["name"], 0)
         rec["formats_launches"] = formats_counts.get(rec["name"], 0)
         rec["damaged_launches"] = damaged_counts.get(rec["name"], 0)
         rec["pillow_formats_launches"] = pillow_counts.get(rec["name"], 0)
+        rec["jpeg2000_launches"] = j2k_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

@@ -35,12 +35,17 @@ loader reads it or refused where it refuses:
     reads them from a file), RLE8 and RLE4, 16-bit (5-5-5 and 5-6-5), 24
     and 32 bits with the bit-field layouts Pillow reads, OS/2,
     BITMAPINFOHEADER and V4 / V5 headers, bottom-up and top-down rows;
+  - JPEG 2000 (data/jpeg2000.py: JP2 files and raw codestreams, 5/3 and
+    9/7, every progression, tiles, precincts, layers, code-block style,
+    ROI, sub-sampled, palette and CMYK components, decoded as Pillow's
+    OpenJPEG 2.5 decodes them; HTJ2K refused by name);
   - GIF (data/gif.py), TIFF (data/tiff.py), TGA, ICO, CUR, PCX, DCX,
-    SGI, QOI, IM, MSP, SUN, PSD (data/rasters.py), DDS (data/dds.py) and
-    DIB;
-  - JPEG 2000 and AVIF: Pillow's mode and size from their headers, and a
-    ValueError naming them for their pixels, as for the other formats
-    Pillow opens that the port does not decode yet.
+    SGI, QOI, IM, MSP, SUN, PSD (data/rasters.py), DDS (data/dds.py), ICNS
+    (data/icns.py: RLE icons and their masks, PNG and JPEG 2000 payloads)
+    and DIB;
+  - AVIF: Pillow's mode and size from its header, and a ValueError naming
+    it for its pixels, as for the other formats Pillow opens that the
+    port does not decode yet.
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
 ValueError naming the format and the reason. PNGs are written with the
 bytes of Pillow's default save (`write_png`). Every image comes out as
@@ -64,7 +69,7 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import dds, gif, jpeg, rasters, tiff, webp
+from . import dds, gif, icns, jpeg, jpeg2000, rasters, tiff, webp
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -955,10 +960,10 @@ _FORMATS = {
     "DIB": (lambda b, p: _head(_bmp_header(b"BM" + bytes(12) + b, p,
                                            dib=True)),
             lambda b, p: decode_bmp(b"BM" + bytes(12) + b, p, dib=True)),
-    "JPEG2000": (rasters.jpeg2000_header, None),
+    "JPEG2000": (jpeg2000.jpeg2000_header, jpeg2000.decode_jpeg2000),
+    "ICNS": (icns.icns_header, icns.decode_icns),
     "AVIF": (rasters.avif_header, None),
 }
-_NAMES = {"JPEG2000": "JPEG 2000"}
 # formats Pillow opens but cannot load on these hosts: stubs without a
 # handler, EPS without Ghostscript, MPEG without a decoder, WMF off Windows
 _PILLOW_REFUSES = ("BUFR", "GRIB", "HDF5", "EPS", "MPEG", "WMF")
@@ -982,18 +987,17 @@ def image_format(path: str) -> str:
                 continue
         return name
     raise ValueError(f"{path}: unknown image format; the port reads PNG, "
-                     "JPEG, PNM, BMP and WebP, and GIF, TIFF, TGA, ICO, CUR, "
-                     "PCX, DCX, SGI, QOI, IM, MSP, SUN, PSD, DDS and DIB "
-                     "(Pillow cannot identify the file either)")
+                     "JPEG, PNM, BMP and WebP, and JPEG 2000, GIF, TIFF, TGA, "
+                     "ICO, ICNS, CUR, PCX, DCX, SGI, QOI, IM, MSP, SUN, PSD, "
+                     "DDS and DIB (Pillow cannot identify the file either)")
 
 
 def _not_decoded(name: str, path: str) -> ValueError:
-    label = _NAMES.get(name, name)
     if name in _PILLOW_REFUSES:
-        return ValueError(f"{path}: {label} file: Pillow opens it but cannot"
+        return ValueError(f"{path}: {name} file: Pillow opens it but cannot"
                           " load its pixels on these hosts, and the port "
                           "refuses it too")
-    return ValueError(f"{path}: {label} is not decoded by the port yet")
+    return ValueError(f"{path}: {name} is not decoded by the port yet")
 
 
 def _header_of(path: str) -> Tuple[str, int, int]:

@@ -1,6 +1,7 @@
 """The small raster formats Pillow opens, read as the JAX package's loader
 reads them (Image.open(p).convert("RGB") under Pillow 12.1), and the
-headers of JPEG 2000 and AVIF, whose pixels the port does not decode yet.
+header of AVIF, whose pixels the port does not decode yet (JPEG 2000 is
+in data/jpeg2000.py, ICNS in data/icns.py).
 
 Each format's `*_header(blob, path)` gives (Pillow's mode, height,
 width) from the bytes; `decode_*(blob, path)` gives (H, W, 3) uint8 RGB:
@@ -858,46 +859,7 @@ def decode_psd(blob: bytes, path: str) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-# ------------------------------------------------- JPEG 2000 and AVIF
-
-def jpeg2000_header(blob: bytes, path: str) -> Tuple[str, int, int]:
-    """Jpeg2KImagePlugin's size and mode: a raw codestream's SIZ segment,
-    or a JP2 file's ihdr, colr and pclr boxes."""
-    if blob[:4] == b"\xff\x4f\xff\x51":
-        siz = blob[4:]
-        if len(siz) < 39:
-            raise ValueError(f"{path}: truncated JPEG 2000 codestream")
-        _, _, xs, ys, xo, yo, _, _, _, _, c = struct.unpack_from(
-            ">HHIIIIIIIIH", siz)
-        mode = {1: "I;16" if (siz[38] & 0x7F) + 1 > 8 else "L", 2: "LA",
-                3: "RGB", 4: "RGBA"}.get(c)
-        if mode is None:
-            raise ValueError(f"{path}: JPEG 2000 of {c} components (Pillow: "
-                             "unable to determine J2K image mode)")
-        return mode, ys - yo, xs - xo
-    size = mode = None
-    nc = None
-    for typ, body in _boxes(blob, 0, len(blob)):
-        if typ != b"jp2h":
-            continue
-        for t, b in _boxes(body, 0, len(body)):
-            if t == b"ihdr" and len(b) >= 11:
-                h, w, nc, bpc = struct.unpack(">IIHB", b[:11])
-                size = (h, w)
-                mode = {1: "I;16" if bpc & 0x7F > 8 else "L", 2: "LA",
-                        3: "RGB", 4: "RGBA"}.get(nc)
-            elif t == b"colr" and nc == 4 and len(b) >= 7:
-                if b[0] == 1 and struct.unpack(">I", b[3:7])[0] == 12:
-                    mode = "CMYK"
-            elif t == b"pclr" and mode in ("L", "LA") and len(b) >= 3:
-                npc = b[2]
-                if max(b[3:3 + npc], default=0) <= 8:
-                    mode = "P" if mode == "L" else "PA"
-        break
-    if size is None or mode is None:
-        raise ValueError(f"{path}: malformed JP2 header")
-    return mode, size[0], size[1]
-
+# ------------------------------------------------------------------ AVIF
 
 def _boxes(blob: bytes, at: int, end: int):
     """ISO base media boxes between `at` and `end` -> (type, body)."""

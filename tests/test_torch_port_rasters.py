@@ -21,9 +21,10 @@ package's load_image_uint8 reads them through.
 - DIB (a BMP without its file header);
 every pixel equal to Pillow's convert("RGB") and to the JAX loader, and
 format, mode and size from the header equal to Pillow's. JPEG 2000 (JP2
-and raw codestreams) and AVIF give Pillow's mode and size and raise
-naming the format; so do the formats Pillow opens that the port does not
-decode yet; EPS is refused by both (no Ghostscript). A TGA file that
+and raw codestreams) decodes as Pillow decodes it (more in
+test_torch_port_jpeg2000*.py); AVIF gives Pillow's mode and size and
+raises naming the format, and so do the formats Pillow opens that the
+port does not decode yet; EPS is refused by both (no Ghostscript). A TGA file that
 starts with the CUR magic is a TGA file, as for Pillow, and files saved
 under another format's name are read by their bytes.
 """
@@ -617,6 +618,8 @@ def test_dib_equals_pillow(tmp_path):
     ("AVIF", "L", {})])
 def test_whole_codecs_give_pillows_header_and_raise_naming_them(
         tmp_path, fmt, mode, kw):
+    """JPEG 2000 decodes to Pillow's pixels (data/jpeg2000.py); AVIF gives
+    Pillow's header and raises naming it."""
     img = _img(21, 34, 2)
     im = Image.fromarray(img[..., 0].astype(np.uint16) * 100) \
         if mode == "I;16" else Image.fromarray(img).convert(mode)
@@ -626,13 +629,15 @@ def test_whole_codecs_give_pillows_header_and_raise_naming_them(
         assert timages.image_format(p) == pim.format
         assert timages.image_mode(p) == pim.mode
         assert timages.image_size(p) == pim.size[::-1]
-    name = {"JPEG2000": "JPEG 2000"}.get(fmt, fmt)
-    with pytest.raises(ValueError, match=f"{name} is not decoded by the port"):
+    if fmt == "JPEG2000":
+        check(p)
+        return
+    with pytest.raises(ValueError, match=f"{fmt} is not decoded by the port"):
         timages.load_image_uint8(p)
     assert jimages.load_image_uint8(p).shape == (21, 34, 3)
 
 
-@pytest.mark.parametrize("fmt, mode", [("ICNS", "RGB"), ("XBM", "1"),
+@pytest.mark.parametrize("fmt, mode", [("BLP", "P"), ("XBM", "1"),
                                        ("SPIDER", "F")])
 def test_formats_not_decoded_yet_raise_naming_them(tmp_path, fmt, mode):
     p = str(tmp_path / "x.bin")
@@ -692,8 +697,8 @@ def make_pillow_formats(d):
     """The fixtures: two files under another format's name that the
     listing keeps (a GIF as .png, an LZW TIFF as .jpg), the GIF and TIFF
     that chip_smoke codes and times, and one file of each other kind the
-    port reads, under names the listing leaves out; JPEG 2000 and AVIF,
-    which the port refuses by name."""
+    port reads, under names the listing leaves out, JPEG 2000 among them;
+    AVIF, which the port refuses by name."""
     from test_torch_port_tiff import make_tiff, _jpeg_strip
     os.makedirs(d, exist_ok=True)
     ph = lambda h, w, s: Image.fromarray(_photo(h, w, s))
@@ -774,9 +779,8 @@ def pillow_formats_expected_now():
         with Image.open(p) as im:
             e = {"format": im.format, "mode": im.mode,
                  "size": list(im.size[::-1])}
-        if e["format"] in ("JPEG2000", "AVIF"):
-            e["refused"] = {"JPEG2000": "JPEG 2000"}.get(e["format"],
-                                                         e["format"])
+        if e["format"] == "AVIF":
+            e["refused"] = "AVIF"
         else:
             e["sha256"] = _digest(jimages.load_image_uint8(p))
         files[n] = e
