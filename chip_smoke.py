@@ -271,10 +271,30 @@ Phases (each raises on failure; none carries on after another failed):
               over the folder (a JP2 named .png and a codestream named
               .jpg listed), K3 to K6 launched; the host's decode MP/s of
               the 256 x 256 9/7 and 128 x 128 5/3 files, fastest of 3
- 20. report   one JSON line of kernel records (each with its path:
+ 20. registry_formats
+              the rest of Pillow's registry (XBM, XPM, FITS, BLP, SPIDER,
+              GBR, FLI, FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb), IM's
+              YCbCr, packed, planar and numeric types and the TIFF
+              variants (CCITT RLE, RLEW, Group 3 and 4, LZMA, ZSTD,
+              old-style LZW and JPEG, ThunderScan, the float predictor,
+              YCbCr without JPEG, CIELAB, 12-bit grey) on this machine's
+              host (no Pillow): every file of
+              l3c_torch/data/fixtures/registry to Pillow's format, mode,
+              size and pixel digest, Pillow's refusals refused with the
+              port's message, AVIF by name; the same digests from this
+              host's Pillow wherever it has the codec (held), its libtiff
+              and which TIFF fixtures it reads; cli.l3c enc / dec of a
+              Group 4 page and a FITS file bit-exact with exact launch
+              counts;
+              cli.test --write_to_files --compare_theory over the folder
+              (an XPM named .png and a FITS named .jpg listed), K3 to K6
+              launched; the host's decode MP/s of a 1728 x 2200 Group 4
+              fax page and a 384 x 256 ZSTD RGB TIFF, fastest of 3
+ 21. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
-              phase damaged, phase pillow_formats and phase jpeg2000),
+              phase damaged, phase pillow_formats, phase jpeg2000 and
+              phase registry_formats),
               the card line, then
               {"ok": true, "device": {...}} as the last line
 
@@ -4745,10 +4765,12 @@ print(same, len(want), Image.__version__, features.version("jpg_2000"))
 """
 
 
-def j2k_fixtures_hold(folder, exp) -> Tuple[List[str], List[str]]:
+def fixtures_hold(folder, exp) -> Tuple[List[str], List[str]]:
     """Every file of `folder`'s expected.json: format, mode and size from
-    the header, and Pillow's pixel digest, or the refusal Pillow's (a
-    ValueError) or the port's by name. Returns (decoded, refused)."""
+    the header, and Pillow's pixel digest, or the port's refusal, a
+    ValueError that says what expected.json says: by name ("refused") or
+    as the port gives Pillow's reason ("port"). Returns (decoded,
+    refused)."""
     from l3c_torch.data import images as timages
     decoded, refused = [], []
     for n, e in sorted(exp.items()):
@@ -4767,13 +4789,66 @@ def j2k_fixtures_hold(folder, exp) -> Tuple[List[str], List[str]]:
         try:
             timages.load_image_uint8(p)
         except ValueError as err:
-            if "refused" in e and f"{e['refused']} is not decoded" \
-                    not in str(err):
-                raise
+            want = (f"{e['refused']} is not decoded" if "refused" in e
+                    else e.get("port"))
+            if want is None or want not in str(err):
+                raise RuntimeError(f"{n}: refused with {err}; expected "
+                                   f"{want!r}") from None
             refused.append(n)
             continue
         raise RuntimeError(f"{n}: decoded, expected a refusal")
     return decoded, refused
+
+
+def code_and_test(folder, exp, tag, card):
+    """cli.l3c enc / dec of each of expected.json's "coded" files,
+    bit-exact against the loader's pixels with exact launch counts, then
+    cli.test --write_to_files --compare_theory over the folder, whose
+    listing must be its "tested" files. Returns the launches of the
+    calls."""
+    from l3c_torch.data import images as timages
+    total = {}
+    with tempfile.TemporaryDirectory(prefix=f"l3c_{tag}_") as d:
+        for name in exp["coded"]:
+            src = os.path.join(folder, name)
+            coded = os.path.join(d, name + ".l3c")
+            back = os.path.join(d, name + ".png")
+            counted(total, f"cli.l3c enc {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "enc", src, coded]),
+                ENCODE, CANARY)
+            counted(total, f"cli.l3c dec {name}", lambda: run_cli(
+                l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
+                DECODE, CANARY)
+            if not np.array_equal(read_png(back),
+                                  timages.load_image_uint8(src)):
+                raise RuntimeError(f"cli.l3c dec of {name} differs from the "
+                                   "loader's pixels")
+            h, w = timages.image_size(src)
+            log(f"[{tag}] cli.l3c enc+dec of {name} ({w} x {h}, "
+                f"{timages.image_format(src)} {timages.image_mode(src)}) "
+                f"bit-exact against the loader's pixels: file bpsp "
+                f"{os.path.getsize(coded) * 8 / (3 * h * w):.4f} | {card}")
+        out_dir = os.path.join(d, "out")
+        kernels.reset_launches()
+        out = run_cli(test_cli.main, [ZOO, LOG_DATE, folder,
+                                      "--write_to_files", out_dir,
+                                      "--compare_theory", "--reset_cache"])
+        got = {k: kernels.launches.get(k, 0) for k in kernels.KERNELS}
+        if any(got[k] < 1 for k in FORMATS_TEST_KERNELS):
+            raise RuntimeError(f"cli.test over {folder}: launches {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        files = sorted(n[:-4] for n in os.listdir(out_dir)
+                       if n.endswith(".l3c"))
+        if files != sorted(os.path.splitext(n)[0] for n in exp["tested"]) \
+                or out.count("assumed:") != len(exp["tested"]):
+            raise RuntimeError(f"cli.test over {folder} wrote {files}, "
+                               f"expected {exp['tested']}")
+        log(f"[{tag}] cli.test --write_to_files --compare_theory on the "
+            f"folder: {exp['tested']} decoded bit-exactly (the tester's "
+            f"gate), bpsp {out.strip().splitlines()[-1].split()[-1]}; "
+            f"launches {({k: v for k, v in got.items() if v})} | {card}")
+    return total
 
 
 def phase_jpeg2000(card):
@@ -4788,7 +4863,6 @@ def phase_jpeg2000(card):
     .jpg); this host's Pillow and OpenJPEG, and how many fixtures its
     Pillow decodes to the digests (reported); the host's decode rates of
     the two coded files. Returns the launches of its CLI calls."""
-    from l3c_torch.data import images as timages
     from l3c_torch.data import jpeg2000
     with open(os.path.join(JPEG2000, "expected.json")) as f:
         exp = json.load(f)
@@ -4797,8 +4871,8 @@ def phase_jpeg2000(card):
     cpu = host_cpu()
     # ---- (a) every fixture's format, mode, size and pixels; refusals
     t0 = time.perf_counter()
-    decoded, refused = j2k_fixtures_hold(JPEG2000, exp["files"])
-    c_dec, c_ref = j2k_fixtures_hold(JPEG2000_CODING, coding["files"])
+    decoded, refused = fixtures_hold(JPEG2000, exp["files"])
+    c_dec, c_ref = fixtures_hold(JPEG2000_CODING, coding["files"])
     made = exp["made_by"]
     log(f"[jpeg2000] {len(decoded)} fixtures ({', '.join(decoded)}) and "
         f"{len(c_dec)} of jpeg2000_coding: formats, modes, sizes and pixel "
@@ -4826,50 +4900,9 @@ def phase_jpeg2000(card):
         log(f"[jpeg2000] this host's Pillow {version} (OpenJPEG {opj}) "
             f"decodes {same} of the {n} decoded fixtures to the digests "
             "(reported, not held)")
-    total = {}
-    with tempfile.TemporaryDirectory(prefix="l3c_jpeg2000_") as d:
-        # ---- (b) cli.l3c enc / dec of the lossy JP2 and the lossless
-        # raw codestream
-        for name in exp["coded"]:
-            src = os.path.join(JPEG2000, name)
-            coded = os.path.join(d, name + ".l3c")
-            back = os.path.join(d, name + ".png")
-            counted(total, f"cli.l3c enc {name}", lambda: run_cli(
-                l3c_cli.main, [ZOO, LOG_DATE, "enc", src, coded]),
-                ENCODE, CANARY)
-            counted(total, f"cli.l3c dec {name}", lambda: run_cli(
-                l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
-                DECODE, CANARY)
-            if not np.array_equal(read_png(back),
-                                  timages.load_image_uint8(src)):
-                raise RuntimeError(f"cli.l3c dec of {name} differs from the "
-                                   "loader's pixels")
-            h, w = timages.image_size(src)
-            log(f"[jpeg2000] cli.l3c enc+dec of {name} ({w} x {h}) "
-                f"bit-exact against the loader's pixels: file bpsp "
-                f"{os.path.getsize(coded) * 8 / (3 * h * w):.4f} | {card}")
-        # ---- (c) cli.test over the folder
-        out_dir = os.path.join(d, "out")
-        kernels.reset_launches()
-        out = run_cli(test_cli.main, [ZOO, LOG_DATE, JPEG2000,
-                                      "--write_to_files", out_dir,
-                                      "--compare_theory", "--reset_cache"])
-        got = {k: kernels.launches.get(k, 0) for k in kernels.KERNELS}
-        if any(got[k] < 1 for k in FORMATS_TEST_KERNELS):
-            raise RuntimeError(f"cli.test over the JPEG 2000 folder: "
-                               f"launches {got}")
-        for k, v in got.items():
-            total[k] = total.get(k, 0) + v
-        files = sorted(n[:-4] for n in os.listdir(out_dir)
-                       if n.endswith(".l3c"))
-        if files != sorted(os.path.splitext(n)[0] for n in exp["tested"]) \
-                or out.count("assumed:") != len(exp["tested"]):
-            raise RuntimeError(f"cli.test over the JPEG 2000 folder wrote "
-                               f"{files}, expected {exp['tested']}")
-        log(f"[jpeg2000] cli.test --write_to_files --compare_theory on the "
-            f"folder: {exp['tested']} decoded bit-exactly (the tester's "
-            f"gate), bpsp {out.strip().splitlines()[-1].split()[-1]}; "
-            f"launches {({k: v for k, v in got.items() if v})} | {card}")
+    # ---- (b) cli.l3c enc / dec of the lossy JP2 and the lossless raw
+    # codestream; (c) cli.test over the folder
+    total = code_and_test(JPEG2000, exp, "jpeg2000", card)
     # ---- (d) the host's decode rates of the two coded files
     rates = []
     for name in exp["coded"]:
@@ -4890,6 +4923,128 @@ def phase_jpeg2000(card):
         f"{'; '.join(rates)} | host {cpu}")
     # ---- (e) the launches of the phase's CLI calls
     log(f"[jpeg2000] launches of the cli.l3c and cli.test calls: "
+        f"{({k: v for k, v in total.items() if v})} | {card}")
+    return total
+
+
+REGISTRY = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "registry")
+# run in a child process where the host has Pillow: for each of the given
+# files whether its decode gives the digest expected, other pixels, or a
+# refusal (it lacks the codec), its libtiff, and whether its libtiff reads
+# WebP (the fixture whose strip is a lossless WebP file; reported); it
+# exits with NO_PILLOW where Pillow does not import, and only then
+HOST_REGISTRY_SCRIPT = r"""
+import hashlib, json, sys
+import numpy as np
+try:
+    from PIL import Image, features
+except ImportError as e:
+    print(e, file=sys.stderr)
+    sys.exit(75)                # NO_PILLOW
+want = json.loads(sys.argv[1])
+files = {}
+for p, digest in want.items():
+    try:
+        with Image.open(p) as im:
+            px = np.ascontiguousarray(np.asarray(im.convert("RGB")))
+        ok = hashlib.sha256(px.tobytes()).hexdigest() == digest
+        got = "same" if ok else "differs"
+    except Exception as e:
+        got = "refuses: " + (type(e).__name__ + ": " + str(e))[:80]
+    files[p.rsplit("/", 1)[-1]] = got
+try:
+    with Image.open(sys.argv[2]) as im:
+        px = np.asarray(im.convert("RGB"))
+    webp = "reads it: pixel (0, 0) " + str(px[0, 0].tolist())
+except Exception as e:
+    webp = "refuses it: " + str(e)[:80]
+print(json.dumps({"files": files, "pillow": Image.__version__,
+                  "libtiff": features.version("libtiff"), "webp": webp}))
+"""
+
+
+def phase_registry_formats(card):
+    """The rest of Pillow's registry (XBM, XPM, FITS, BLP, SPIDER, GBR, FLI,
+    FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb) and the TIFF and IM variants
+    (CCITT RLE / RLEW / Group 3 / Group 4, LZMA, ZSTD, old-style LZW and
+    JPEG, ThunderScan, the float predictor, YCbCr without JPEG, CIELAB,
+    12-bit grey; IM's YCbCr, packed, planar and bit types), decoded on
+    this machine's host with no Pillow: every fixture of
+    l3c_torch/data/fixtures/registry held to Pillow's format, mode, size
+    and pixel digest (expected.json), Pillow's refusals refused and AVIF
+    by name; cli.l3c enc / dec of a Group 4 page and a FITS file
+    bit-exact with exact launch counts; cli.test --write_to_files
+    --compare_theory over the folder (its listing keeps an XPM named .png
+    and a FITS named .jpg); this host's Pillow, where it has the codec,
+    decoding every fixture to its digest (held), and its libtiff; the
+    host's decode rates
+    of a 1728 x 2200 Group 4 fax page and a ZSTD RGB TIFF. Returns the
+    launches of its CLI calls."""
+    from l3c_torch.data import tiff
+    with open(os.path.join(REGISTRY, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    # ---- (a) every fixture's format, mode, size and pixels; refusals
+    t0 = time.perf_counter()
+    decoded, refused = fixtures_hold(REGISTRY, exp["files"])
+    made = exp["made_by"]
+    log(f"[registry_formats] {len(decoded)} fixtures decoded: formats, "
+        f"modes, sizes and pixel digests equal Pillow's (expected.json, made"
+        f" by Pillow {made['pillow']}, libtiff {made['libtiff']}); refused "
+        f"as Pillow or by name: {', '.join(refused)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = {os.path.join(REGISTRY, n): e["sha256"]
+            for n, e in exp["files"].items() if "sha256" in e}
+    run = subprocess.run([sys.executable, "-c", HOST_REGISTRY_SCRIPT,
+                          json.dumps(want), os.path.join(REGISTRY,
+                                                         "e_webp.tif")],
+                         capture_output=True, text=True, timeout=300)
+    if run.returncode == NO_PILLOW:
+        log("[registry_formats] this host has no Pillow that imports: its "
+            f"TIFF codecs not known ({run.stderr.strip()[-200:]})")
+    elif run.returncode:
+        raise RuntimeError(f"the host's Pillow check failed (exit "
+                           f"{run.returncode}): {run.stdout.strip()[-300:]!r}"
+                           f" {run.stderr.strip()[-1000:]}")
+    else:
+        host = json.loads(run.stdout.strip().splitlines()[-1])
+        got = host["files"]
+        differ = sorted(n for n, v in got.items() if v == "differs")
+        if differ:
+            raise RuntimeError(f"this host's Pillow {host['pillow']} decodes "
+                               f"{', '.join(differ)} to other pixels than "
+                               "expected.json's")
+        same = sorted(n for n, v in got.items() if v == "same")
+        lacks = {n: v for n, v in got.items() if v.startswith("refuses")}
+        tifs = [n for n in same if n.endswith(".tif")]
+        log(f"[registry_formats] this host's Pillow {host['pillow']} "
+            f"(libtiff {host['libtiff']}) decodes {len(same)} of the "
+            f"{len(got)} decoded fixtures, each to its digest (held); it "
+            f"lacks the codec of {lacks or 'none'}; the TIFF codecs it "
+            f"reads: {', '.join(tifs) or 'none'}; WebP-compressed TIFF: it "
+            f"{host['webp']}")
+    # ---- (b) cli.l3c enc / dec of the Group 4 page and the FITS file;
+    # (c) cli.test over the folder
+    total = code_and_test(REGISTRY, exp, "registry_formats", card)
+    # ---- (d) the host's decode rates of the fax page and the ZSTD TIFF
+    rates = []
+    for name in exp["rates"]:
+        e = exp["files"][name]
+        blob = open(os.path.join(REGISTRY, name), "rb").read()
+        dt = math.inf
+        for _ in range(3):           # the fastest of three decodes
+            t0 = time.perf_counter()
+            arr = tiff.decode_tiff(blob, name)
+            dt = min(dt, time.perf_counter() - t0)
+        if pixel_digest(arr) != e["sha256"]:
+            raise RuntimeError(f"{name}: pixels differ from Pillow's")
+        h, w = e["size"]
+        rates.append(f"{name} ({w} x {h}, {len(blob)} bytes) "
+                     f"{h * w / dt / 1e6:.4f} MP/s ({dt * 1e3:.1f} ms)")
+    log(f"[registry_formats] host decode rates, fastest of 3, pixels "
+        f"Pillow's: {'; '.join(rates)} | host {cpu}")
+    # ---- (e) the launches of the phase's CLI calls
+    log(f"[registry_formats] launches of the cli.l3c and cli.test calls: "
         f"{({k: v for k, v in total.items() if v})} | {card}")
     return total
 
@@ -4954,6 +5109,7 @@ def main() -> int:
     damaged_counts = timed("damaged", phase_damaged, card)
     pillow_counts = timed("pillow_formats", phase_pillow_formats, card)
     j2k_counts = timed("jpeg2000", phase_jpeg2000, card)
+    registry_counts = timed("registry_formats", phase_registry_formats, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
         rec["synth_launches"] = synth_counts.get(rec["name"], 0)
@@ -4961,6 +5117,8 @@ def main() -> int:
         rec["damaged_launches"] = damaged_counts.get(rec["name"], 0)
         rec["pillow_formats_launches"] = pillow_counts.get(rec["name"], 0)
         rec["jpeg2000_launches"] = j2k_counts.get(rec["name"], 0)
+        rec["registry_formats_launches"] = registry_counts.get(rec["name"],
+                                                               0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

@@ -39,13 +39,16 @@ loader reads it or refused where it refuses:
     9/7, every progression, tiles, precincts, layers, code-block style,
     ROI, sub-sampled, palette and CMYK components, decoded as Pillow's
     OpenJPEG 2.5 decodes them; HTJ2K refused by name);
-  - GIF (data/gif.py), TIFF (data/tiff.py), TGA, ICO, CUR, PCX, DCX,
-    SGI, QOI, IM, MSP, SUN, PSD (data/rasters.py), DDS (data/dds.py), ICNS
-    (data/icns.py: RLE icons and their masks, PNG and JPEG 2000 payloads)
-    and DIB;
+  - GIF (data/gif.py), TIFF (data/tiff.py, with data/ccitt.py for CCITT,
+    data/zstd.py for ZSTD and data/cielab.py for CIELAB), TGA, ICO, CUR,
+    PCX, DCX, SGI, QOI, IM, MSP, SUN, PSD (data/rasters.py), DDS
+    (data/dds.py), ICNS (data/icns.py: RLE icons and their masks, PNG and
+    JPEG 2000 payloads) and DIB;
+  - the rest of Pillow's registry (data/registry.py): XBM, XPM, FITS,
+    BLP, SPIDER, PCD, GBR, FLI, FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb;
   - AVIF: Pillow's mode and size from its header, and a ValueError naming
     it for its pixels, as for the other formats Pillow opens that the
-    port does not decode yet.
+    port does not decode yet (HTJ2K and AVIF).
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
 ValueError naming the format and the reason. PNGs are written with the
 bytes of Pillow's default save (`write_png`). Every image comes out as
@@ -69,7 +72,8 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import dds, gif, icns, jpeg, jpeg2000, rasters, tiff, webp
+from . import (dds, gif, icns, jpeg, jpeg2000, rasters, registry, tiff,
+               webp)
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -854,7 +858,7 @@ _ORDER = (
      or p[:4] == b"\x01\0\0\0"),
     ("XBM", lambda p: p.lstrip()[:7] == b"#define"),
     ("XPM", lambda p: p[:9] == b"/* XPM */"),
-    ("XVTHUMB", lambda p: p[:6] == b"P7 332"),
+    ("XVThumb", lambda p: p[:6] == b"P7 332"),
 )
 
 
@@ -866,55 +870,6 @@ def _parses(fn, blob: bytes) -> bool:
         return False
 
 
-def _spider(blob: bytes) -> bool:
-    """SpiderImagePlugin's header test, big- then little-endian."""
-    if len(blob) < 92:
-        return False
-    for o in ">", "<":
-        t = (99.0,) + struct.unpack(o + "23f", blob[:92])
-        if not all(math.isfinite(t[i]) and t[i] == int(t[i])
-                   for i in (1, 2, 5, 12, 13, 22, 23)):
-            continue
-        if int(t[5]) in (1, 3, -11, -12, -21, -22) and \
-                int(t[22]) == int(t[13]) * int(t[23]):
-            return True
-    return False
-
-
-_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-
-
-def _imt(blob: bytes) -> bool:
-    """ImtImagePlugin's header: "key value" lines up to a form feed, a
-    width, a height and "pixel n8"."""
-    if b"\n" not in blob[:100]:
-        return False
-    at, w, h, grey = 0, 0, 0, False
-    while at < len(blob):
-        c = blob[at:at + 1]
-        at += 1
-        if c == b"\x0c":
-            break
-        end = blob.find(b"\n", at)
-        end = len(blob) if end < 0 else end
-        line, at = c + blob[at:end], end + 1
-        if len(line) == 1 or len(line) > 100:
-            break
-        if line[:1] == b"*":
-            continue
-        m = _IMT_FIELD.match(line)
-        if not m:
-            break
-        k, v = m.groups()
-        if k in (b"width", b"height"):
-            if not v.isdigit():
-                return False
-            w, h = (int(v), h) if k == b"width" else (w, int(v))
-        elif k == b"pixel" and v == b"n8":
-            grey = True
-    return w > 0 and h > 0 and grey
-
-
 # formats whose accepted header may still not open, and the formats
 # without a test of their first bytes: what Pillow's _open checks
 _PROBES = {
@@ -922,11 +877,16 @@ _PROBES = {
     "PCX": lambda b: _parses(rasters.pcx_header, b),
     "MSP": lambda b: _parses(rasters.msp_header, b),
     "IM": rasters.im_probe,
-    "IMT": _imt,
-    "IPTC": lambda b: b[:1] == b"\x1c" and len(b) >= 5
-    and b[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240),
+    "IMT": registry.imt_probe,
+    "IPTC": registry.iptc_probe,
     "PCD": lambda b: b[2048:2052] == b"PCD_",
-    "SPIDER": _spider,
+    "SPIDER": registry.spider_probe,
+    "FITS": registry.fits_probe,
+    "FLI": registry.fli_probe,
+    "GBR": registry.gbr_probe,
+    "PIXAR": registry.pixar_probe,
+    "MCIDAS": registry.mcidas_probe,
+    "XBM": registry.xbm_probe,
     "TGA": lambda b: _parses(rasters.tga_header, b),
 }
 
@@ -962,6 +922,20 @@ _FORMATS = {
             lambda b, p: decode_bmp(b"BM" + bytes(12) + b, p, dib=True)),
     "JPEG2000": (jpeg2000.jpeg2000_header, jpeg2000.decode_jpeg2000),
     "ICNS": (icns.icns_header, icns.decode_icns),
+    "XBM": (registry.xbm_header, registry.decode_xbm),
+    "XPM": (registry.xpm_header, registry.decode_xpm),
+    "FITS": (registry.fits_header, registry.decode_fits),
+    "BLP": (registry.blp_header, registry.decode_blp),
+    "SPIDER": (registry.spider_header, registry.decode_spider),
+    "PCD": (registry.pcd_header, registry.decode_pcd),
+    "GBR": (registry.gbr_header, registry.decode_gbr),
+    "FLI": (registry.fli_header, registry.decode_fli),
+    "FTEX": (registry.ftex_header, registry.decode_ftex),
+    "PIXAR": (registry.pixar_header, registry.decode_pixar),
+    "MCIDAS": (registry.mcidas_header, registry.decode_mcidas),
+    "IMT": (registry.imt_header, registry.decode_imt),
+    "IPTC": (registry.iptc_header, registry.decode_iptc),
+    "XVThumb": (registry.xv_header, registry.decode_xv),
     "AVIF": (rasters.avif_header, None),
 }
 # formats Pillow opens but cannot load on these hosts: stubs without a
@@ -989,7 +963,9 @@ def image_format(path: str) -> str:
     raise ValueError(f"{path}: unknown image format; the port reads PNG, "
                      "JPEG, PNM, BMP and WebP, and JPEG 2000, GIF, TIFF, TGA, "
                      "ICO, ICNS, CUR, PCX, DCX, SGI, QOI, IM, MSP, SUN, PSD, "
-                     "DDS and DIB (Pillow cannot identify the file either)")
+                     "DDS, DIB, XBM, XPM, FITS, BLP, SPIDER, PCD, GBR, FLI, "
+                     "FTEX, PIXAR, MCIDAS, IMT, IPTC and XVThumb (Pillow "
+                     "cannot identify the file either)")
 
 
 def _not_decoded(name: str, path: str) -> ValueError:

@@ -267,16 +267,17 @@ def _dims(seg: bytes, path: str) -> Tuple[int, int, int, int]:
     return bits, width, height, n
 
 
-def _frame(marker: int, seg: bytes, path: str) -> Tuple[int, int, Tuple]:
+def _frame(marker: int, seg: bytes, path: str, precision: int = 8
+           ) -> Tuple[int, int, Tuple]:
     """SOFn -> (width, height, components); refuses what is not decoded."""
     if marker in _SOF_NAMES:
         raise ValueError(f"{path}: {_SOF_NAMES[marker]} JPEG is not "
                          "decoded; the port reads sequential and progressive "
                          "JPEG only")
     bits, width, height, n = _dims(seg, path)
-    if bits != 8:
+    if bits != precision:
         raise ValueError(f"{path}: {bits}-bit JPEG is not decoded; the port "
-                         "reads 8-bit samples only")
+                         f"reads {precision}-bit samples here only")
     if height == 0:
         raise ValueError(f"{path}: JPEG height given by a DNL marker is not "
                          "decoded")
@@ -1182,7 +1183,7 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 # -------------------------------------------------------------- decoder
 
 
-def _decode(blob: bytes, path: str
+def _decode(blob: bytes, path: str, precision: int = 8
             ) -> Tuple[Frame, List[np.ndarray], List[np.ndarray]]:
     """Parse and entropy-decode the file -> the frame, per component its
     MCU-padded 8x8 blocks as (by, bx, 64) int64 quantized coefficients in
@@ -1241,7 +1242,7 @@ def _decode(blob: bytes, path: str
             elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xCC):
                 if frame is not None:
                     raise ValueError(f"{path}: JPEG with two frame headers")
-                width, height, comps = _frame(marker, seg, path)
+                width, height, comps = _frame(marker, seg, path, precision)
                 if len(comps) not in (1, 3, 4):
                     raise ValueError(f"{path}: JPEG with {len(comps)} "
                                      "components (not grey, colour or "
@@ -1782,6 +1783,56 @@ def cmyk_to_rgb(planes: List[np.ndarray], ycck: bool) -> np.ndarray:
     return np.clip(nk - _muldiv255(cmy, nk), 0, 255).astype(np.uint8)
 
 
+def _plane(cf: np.ndarray, q: np.ndarray, idct=None) -> np.ndarray:
+    """A component's MCU-padded blocks (zig-zag coefficients) -> its
+    samples through `idct` (the 8-bit islow IDCT unless given), (8 by,
+    8 bx)."""
+    by, bx, _ = cf.shape
+    nat = np.empty_like(cf)
+    nat[..., ZIGZAG] = cf
+    qn = np.empty_like(q)
+    qn[ZIGZAG] = q
+    px = (idct or idct_islow)(nat.reshape(-1, 8, 8), qn.reshape(8, 8))
+    return px.reshape(by, bx, 8, 8).transpose(0, 2, 1, 3).reshape(
+        by * 8, bx * 8)
+
+
+def idct_islow12(coefs: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """(N, 8, 8) quantized coefficients (natural order) -> (N, 8, 8)
+    12-bit samples, as libjpeg-turbo's jpeg12_idct_islow gives them (C
+    arithmetic, PASS1_BITS 1; the post-IDCT range table: -2048..2047 to
+    0..4095, clamped within a quarter turn of the 16384 wrap)."""
+    c = coefs.astype(np.int64) * qt.astype(np.int64)
+    ws = np.swapaxes(_idct_1d(np.swapaxes(c, 1, 2), CONST_BITS - 1, False),
+                     1, 2)
+    x = _idct_1d(ws, CONST_BITS + 1 + 3, False) & 16383
+    return np.where(x < 2048, x + 2048, np.where(
+        x < 8192, 4095, np.where(x < 14336, 0, x - 14336)))
+
+
+def decode_jpeg12_grey(blob: bytes, path: str) -> np.ndarray:
+    """A one-component 12-bit JPEG (what libtiff's JPEG codec hands Pillow
+    for a 12-bit TIFF) -> (H, W) int64 samples 0..4095."""
+    frame, coefs, qts = _decode(blob, path, precision=12)
+    if len(frame.comps) != 1 or frame.lossless:
+        raise ValueError(f"{path}: 12-bit JPEG of {len(frame.comps)} "
+                         "components is not decoded by the port yet")
+    px = _plane(coefs[0], qts[0], idct_islow12)
+    return px[:frame.height, :frame.width]
+
+
+def raw_planes(blob: bytes, path: str = "<JPEG bytes>"
+               ) -> Tuple[Frame, List[np.ndarray]]:
+    """The frame and each component's samples as jpeg_read_raw_data gives
+    them (libtiff's old-style JPEG reads so): the islow IDCT of every
+    MCU-padded block, no upsampling, no colour conversion."""
+    frame, coefs, qts = _decode(blob, path)
+    if frame.lossless:
+        raise ValueError(f"{path}: a lossless JPEG has no raw DCT planes")
+    return frame, [_plane(cf, q).astype(np.uint8) for cf, q in zip(coefs,
+                                                                   qts)]
+
+
 def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>",
                 convert: bool = True) -> np.ndarray:
     """read_jpeg of a file's bytes; `path` names it in errors. With
@@ -1799,15 +1850,7 @@ def decode_jpeg(blob: bytes, path: str = "<JPEG bytes>",
             up = np.repeat(np.repeat(coefs[i].astype(np.int32), fv, 0), fh,
                            1)
         else:
-            cf, q = coefs[i], qts[i]
-            by, bx, _ = cf.shape
-            nat = np.empty_like(cf)
-            nat[..., ZIGZAG] = cf
-            qn = np.empty_like(q)
-            qn[ZIGZAG] = q
-            px = idct_islow(nat.reshape(-1, 8, 8), qn.reshape(8, 8)
-                            ).reshape(by, bx, 8, 8)
-            px = px.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
+            px = _plane(coefs[i], qts[i])
             dh = -(-frame.height * c.v // vmax)
             dw = -(-frame.width * c.h // hmax)
             up = _upsample(px[:dh, :dw].astype(np.int32), fh, fv)

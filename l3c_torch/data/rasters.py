@@ -20,7 +20,9 @@ width) from the bytes; `decode_*(blob, path)` gives (H, W, 3) uint8 RGB:
     interleaved planes, PcxDecode's RLE; DCX: its first page;
   - SGI: 8- and 16-bit (the high byte) grey, RGB and RGBA, raw and RLE;
   - QOI, as QoiImagePlugin's Python decoder reads it;
-  - IM: the 1, L, P (a Lut), LA, PA, RGB, RGBA, RGBX and CMYK types;
+  - IM: the 1, L, P (a Lut), LA, PA, RGB, RGBA, RGBX, CMYK and YCbCr
+    types, and the numeric ones (8- to 32-bit integer and float grey);
+    a Lut on grey or RGB values is left unapplied, as Pillow leaves it;
   - MSP: version 1 (raw) and 2 (RLE rows);
   - SUN: 1, 4 (grey), 8 (grey or palette), 24 and 32 bits, raw and RLE;
   - PSD: the merged composite of bitmap, grey, indexed, RGB(A), CMYK,
@@ -503,28 +505,29 @@ _IM_TAGS = {"Comment", "Date", "Digitalization equipment",
             "Image size (x*y)", "Image type"}
 # ImImagePlugin's image types without a reader here -> Pillow's mode
 _IM_MODES = {"RLB image": "RGB", "RYB image": "RGB", "B2 image": "P",
-             "B4 image": "P", "RGB3 image": "RGB", "RYB3 image": "RGB",
-             "YCC image": "YCbCr"}
-for _i in ("8", "8S", "16", "16S", "32", "32F"):
-    _IM_MODES[f"L {_i} image"] = _IM_MODES[f"L*{_i} image"] = "F"
-for _i in ("16", "16L", "16B"):
-    _IM_MODES[f"L {_i} image"] = _IM_MODES[f"L*{_i} image"] = f"I;{_i}"
-_IM_MODES["L 32S image"] = _IM_MODES["L*32S image"] = "I"
+             "B4 image": "P", "RGB3 image": "RGB", "RYB3 image": "RGB"}
 for _j in range(2, 33):
     _IM_MODES.setdefault(f"L*{_j} image", "F")
 # Image type -> (mode, samples a pixel, line-interleaved planes); the
-# 32-bit ones as (mode, little-endian dtype, None)
-_IM_TYPES = {"L 32S image": ("I", "<i4", None), "L*32S image": ("I", "<i4",
-                                                                 None),
-             "L 32F image": ("F", "<f4", None), "L*32F image": ("F", "<f4",
-                                                                None),
-             "0 1 image": ("1", 1, False), "L 1 image": ("1", 1, False),
+# one-sample numeric types as (mode, little- or big-endian dtype, None),
+# Pillow's F;8 .. F;32F, I;16, I;16L, I;16B and I;32S raw modes
+_IM_TYPES = {"0 1 image": ("1", 1, False), "L 1 image": ("1", 1, False),
              "B1 image": ("1", 1, False), "Greyscale image": ("L", 1, False),
              "Grayscale image": ("L", 1, False),
              "RGB image": ("RGB", 3, True), "X 24 image": ("RGB", 3, False),
              "LA image": ("LA", 2, True), "PA image": ("LA", 2, True),
              "RGBA image": ("RGBA", 4, True), "RGBX image": ("RGB", 4, True),
-             "CMYK image": ("CMYK", 4, True)}
+             "CMYK image": ("CMYK", 4, True),
+             "YCC image": ("YCbCr", 3, True)}
+for _i, _t in (("8", "u1"), ("8S", "i1"), ("16", "<u2"), ("16S", "<i2"),
+               ("32", "<u4"), ("32F", "<f4")):
+    _IM_TYPES[f"L {_i} image"] = _IM_TYPES[f"L*{_i} image"] = ("F", _t, None)
+for _i, _t in (("16", "<u2"), ("16L", "<u2"), ("16B", ">u2")):
+    _IM_TYPES[f"L {_i} image"] = _IM_TYPES[f"L*{_i} image"] = (
+        f"I;{_i}", _t, None)
+_IM_TYPES["L 32S image"] = _IM_TYPES["L*32S image"] = ("I", "<i4", None)
+for _i, _t in (("8", "u1"), ("16", "<u2"), ("32", "<u4")):
+    _IM_TYPES[f"L*{_i} image"] = ("F", _t, None)   # Pillow's L*n override
 
 
 def _im(blob: bytes, path: str):
@@ -583,12 +586,10 @@ def _im(blob: bytes, path: str):
                           ).reshape(3, 256)
         at += 768
         grey = (p[0] == p[1]).all() and (p[1] == p[2]).all()
-        linear = grey and (p[0] == np.arange(256)).all()
-        if mode in ("L", "LA") and not grey:
-            mode, pal = ("P" if mode == "L" else "PA"), p.T.copy()
-        elif not linear:
-            raise ValueError(f"{path}: IM with a grey or colour Lut applied"
-                             " to its values is not decoded by the port yet")
+        # a grey Lut on grey values, or any on RGB ones, becomes Pillow's
+        # `lut` attribute, which nothing applies: the values stay
+        if mode in ("L", "LA", "P", "PA") and not grey:
+            mode, pal = ("P" if mode in ("L", "P") else "PA"), p.T.copy()
     return w, h, mode, spec, pal, at, kind
 
 
@@ -605,15 +606,68 @@ def im_header(blob: bytes, path: str) -> Tuple[str, int, int]:
     return mode, h, w
 
 
+def _im_bits(data: bytes, w: int, h: int, bits: int) -> np.ndarray:
+    """Pillow's BitDecode with IM's arguments (bits, pad 8, fill 3, no
+    sign): bytes into the bit buffer LSB first, values out LSB first, the
+    bit count (not the buffer) reset at each row; rows bottom first."""
+    out = np.zeros((h, w), np.float64)
+    mask = (1 << bits) - 1
+    buf = count = x = 0
+    y = h - 1
+    for byte in data:
+        buf |= byte << count
+        count += 8
+        while count >= bits:
+            v = buf & mask
+            if count > 32:        # the buffer overflows: its last byte's bits
+                buf = byte >> (8 - (count - bits))
+            else:
+                buf >>= bits
+            count -= bits
+            out[y, x] = v
+            x += 1
+            if x >= w:
+                y -= 1
+                if y < 0:
+                    return out
+                x = 0
+                count = 0
+    return None
+
+
 def decode_im(blob: bytes, path: str) -> np.ndarray:
     w, h, mode, spec, pal, at, kind = _im(blob, path)
+    if kind in ("B2 image", "B4 image"):         # P;2 / P;4, bottom first
+        # a colour Lut makes Pillow's raw mode plain P, a byte a pixel
+        bits = 8 if pal is not None else 2 if kind[1] == "2" else 4
+        stride = (w * bits + 7) // 8
+        px = _bits(_need(blob[at:], stride * h, path, "IM"), h, stride, w,
+                   bits)[::-1]
+        # no Lut: Pillow's P image has no palette, and converts to black
+        return _lut(pal if pal is not None else np.zeros((0, 3), np.uint8)
+                    )[px]
+    if kind in ("RGB3 image", "RYB3 image"):     # planes G, R, B
+        n = w * h
+        d = np.frombuffer(_need(blob[at:], 3 * n, path, "IM"), np.uint8,
+                          3 * n).reshape(3, h, w)[:, ::-1]
+        return np.ascontiguousarray(np.stack([d[1], d[0], d[2]], -1))
+    if kind and kind.startswith("L*") and kind not in _IM_TYPES:
+        bits = int(kind[2:-6])
+        v = _im_bits(blob[at:], w, h, bits)
+        if v is None:
+            raise ValueError(f"{path}: truncated IM (image file is "
+                             "truncated)")
+        return _grey(np.clip(v, 0, 255).astype(np.uint8))
     if spec is None:
-        raise ValueError(f"{path}: IM of type {kind!r} is not decoded by the "
-                         "port yet")
+        raise ValueError(f"{path}: IM of type {kind!r}: Pillow has no raw "
+                         "mode for it and refuses it")
     _, ch, lines = spec
-    if lines is None:                   # 32-bit integer or float grey
-        v = np.frombuffer(_need(blob[at:], 4 * w * h, path, "IM"), ch,
+    if lines is None:                   # one numeric sample a pixel
+        n = np.dtype(ch).itemsize
+        v = np.frombuffer(_need(blob[at:], n * w * h, path, "IM"), ch,
                           w * h).reshape(h, w)[::-1].astype(np.float64)
+        if spec[0] == "F":              # through float32, as Pillow's F
+            v = v.astype(np.float32)
         with np.errstate(invalid="ignore"):
             return _grey(np.where(np.isnan(v), 0, np.clip(v, 0, 255)))
     if spec[0] == "1":
@@ -629,6 +683,9 @@ def decode_im(blob: bytes, path: str) -> np.ndarray:
         return _lut(pal)[px[..., 0]]
     if mode == "CMYK":
         return _cmyk(px)
+    if mode == "YCbCr":
+        from .jpeg2000 import ycbcr_to_rgb
+        return ycbcr_to_rgb(np.ascontiguousarray(px))
     if ch <= 2:
         return _grey(px[..., 0])
     return np.ascontiguousarray(px[..., :3])

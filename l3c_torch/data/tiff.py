@@ -10,16 +10,30 @@ Read here, as Pillow 12.1 with libtiff 4.7 reads them:
   - strips and tiles, contiguous and planar (PlanarConfiguration 1 and
     2), FillOrder 1 and 2;
   - compression none, LZW (libtiff's: MSB first, the code width growing
-    one code early), Deflate (8 and 32946), PackBits and JPEG (7, its
+    one code early; and its compat decoder of old-style LSB-first LZW),
+    Deflate (8 and 32946), PackBits, LZMA (the standard library's xz
+    reader), ZSTD (data/zstd.py), CCITT RLE, RLEW, Group 3 and Group 4
+    (data/ccitt.py), ThunderScan (4-bit runs and deltas), old-style JPEG
+    (6: libjpeg's raw planes of the JPEGInterchangeFormat stream or of one
+    made from the table tags, then libtiff's YCbCr conversion) and JPEG (7,
+    12-bit grey too through libjpeg's 12-bit islow IDCT; its
     JPEGTables spliced before each strip or tile, decoded by data/jpeg.py
     with libtiff's colour request: YCbCr turned into RGB, anything else
     left as coded), with the horizontal predictor (2) on 8-, 16- and
-    32-bit samples;
+    32-bit samples and the floating-point predictor (3: byte planes,
+    bytes differenced) on 16-, 24-, 32- and 64-bit floats;
+  - YCbCr without JPEG compression as libtiff's RGBA interface converts
+    it (Pillow reads it so): the YCbCrSubSampling blocks, then
+    TIFFYCbCrToRGB's integer tables from the YCbCrCoefficients and
+    ReferenceBlackWhite tags; an uncompressed one as Pillow's own decoder
+    reads it (RGBX: four bytes a pixel, the first three kept; planar
+    files band by band);
   - the modes of Pillow's OPEN_INFO table: bilevel, grey at 1, 2, 4, 8,
-    16 and 32 bits (min-is-black and min-is-white), float grey, grey +
+    12, 16 and 32 bits (min-is-black and min-is-white), float grey, grey +
     alpha, RGB at 8 and 16 bits with unused, unassociated or associated
     (premultiplied) extra samples, palettes at 1, 2, 4 and 8 bits, CMYK
-    at 8 and 16 bits; big-endian signed and float grey of a compressed
+    at 8 and 16 bits, CIELAB (LittleCMS's Lab -> sRGB, data/cielab.py);
+    big-endian signed and float grey of a compressed
     file byte-swapped, as Pillow unpacks libtiff's native samples with
     its big-endian raw mode;
   - the Orientation tag, applied as Pillow's load applies it
@@ -28,20 +42,20 @@ convert("RGB") as Pillow gives it: grey replicated, 16- and 32-bit grey
 clipped to 0..255, float grey clipped and truncated, 16-bit colour's high
 byte, associated alpha divided out (CLIP8(v * 255 / a)), other alpha
 dropped, palettes looked up (ColorMap // 256, black past the end), CMYK
-by Pillow's cmyk2rgb. What Pillow does not open raises with its reason;
-what it opens and the port does not decode yet (CCITT, old-style JPEG,
-LZMA, ZSTD, WebP, YCbCr without JPEG, CIELAB, the float predictor)
-raises naming it.
+by Pillow's cmyk2rgb. What Pillow does not open or load raises with its
+reason (LogL / LogLuv, whose photometrics Pillow has no mode for, and
+SGILog of any other; WebP, which this libtiff build lacks).
 """
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from . import jpeg
+from . import ccitt, cielab, jpeg, zstd
 
 # tag numbers
 _WIDTH, _LENGTH, _BPS, _COMPRESSION, _PHOTO = 256, 257, 258, 259, 262
@@ -49,6 +63,10 @@ _FILLORDER, _STRIPS, _ORIENTATION, _SPP, _ROWS = 266, 273, 274, 277, 278
 _STRIP_BYTES, _PLANAR, _PREDICTOR, _COLORMAP = 279, 284, 317, 320
 _TILE_W, _TILE_L, _TILES, _TILE_BYTES = 322, 323, 324, 325
 _EXTRA, _SAMPLE_FORMAT, _JPEG_TABLES = 338, 339, 347
+_T4OPTIONS, _YCC_COEFFS, _YCC_SUBSAMPLING, _REF_BW = 292, 529, 530, 532
+# old-style JPEG's tags
+_JIF, _JIF_LEN, _JPEG_RESTART = 513, 514, 515
+_JPEG_QT, _JPEG_DC, _JPEG_AC = 519, 520, 521
 
 # type -> (struct code, bytes an item)
 _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
@@ -58,11 +76,15 @@ _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
 
 _COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3",
                  4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
-                 7: "JPEG", 8: "Deflate", 32771: "raw 16", 32773: "PackBits",
+                 7: "JPEG", 8: "Deflate", 32771: "CCITT RLEW",
+                 32773: "PackBits",
                  32809: "ThunderScan", 32946: "Deflate", 34676: "SGILog",
                  34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD",
                  50001: "WebP"}
-_READ = (1, 5, 7, 8, 32773, 32946)
+_READ = (1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34925, 50000)
+_CCITT = (2, 3, 4, 32771)
+# codecs whose data libtiff runs the predictor over
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 # raw modes of FillOrder 2 that Pillow's own (uncompressed) decoder cannot
 # unpack; libtiff reverses the bits of compressed data itself
 _NO_UNPACKER = {"L;IR", "P;1R", "P;2R", "P;4R", "RGB;R", "I;16R"}
@@ -267,9 +289,8 @@ def lzw_decode(data: bytes, need: int, path: str) -> bytes:
     """libtiff's LZWDecode: up to `need` bytes of a TIFF LZW stream (codes
     MSB first, 256 clear, 257 end, the width growing when the next free
     code reaches 2^n - 1)."""
-    if data[:2] == b"\x00\x01":
-        raise ValueError(f"{path}: old-style (LSB-first) TIFF LZW is not "
-                         "decoded by the port yet")
+    if data[:1] == b"\0" and len(data) > 1 and data[1] & 1:
+        return _lzw_compat(data, need, path)
     first = [bytes([v]) for v in range(256)]
     table = first + [b"", b""]
     out = bytearray()
@@ -307,6 +328,55 @@ def lzw_decode(data: bytes, need: int, path: str) -> bytes:
     return bytes(out)
 
 
+def _lzw_compat(data: bytes, need: int, path: str) -> bytes:
+    """libtiff's LZWDecodeCompat, for old-style TIFF LZW (its stream
+    starts with a clear code written LSB first): codes LSB first, the
+    width growing once the next free entry passes 2^n - 1; a stream that
+    stops short of a code ends as at an end code."""
+    first = [bytes([v]) for v in range(256)]
+    table = first + [b"", b""]
+    out = bytearray()
+    acc, nacc, at = 0, 0, 0
+    size, maxcode = 9, 511
+    left = len(data) * 8
+    prev = None
+    while len(out) < need:
+        if left < size:
+            break
+        while nacc < size:
+            acc |= data[at] << nacc
+            at += 1
+            nacc += 8
+        c = acc & ((1 << size) - 1)
+        acc >>= size
+        nacc -= size
+        left -= size
+        if c == 257:
+            break
+        if c == 256:
+            table, size, maxcode, prev = first + [b"", b""], 9, 511, None
+            continue
+        if prev is None:
+            if c > 256:
+                raise ValueError(f"{path}: corrupted TIFF LZW table")
+            prev = table[c]
+            out += prev
+            continue
+        nxt = len(table)
+        if nxt >= 4096:
+            raise ValueError(f"{path}: corrupted TIFF LZW table")
+        if c > nxt:
+            raise ValueError(f"{path}: corrupted TIFF LZW data")
+        entry = table[c] if c < nxt else prev + prev[:1]
+        table.append(prev + entry[:1])
+        if len(table) > maxcode:
+            size = min(size + 1, 12)
+            maxcode = (1 << size) - 1
+        out += entry
+        prev = entry
+    return bytes(out)
+
+
 def packbits_decode(data: bytes, need: int) -> bytes:
     """PackBits: n < 128 copies n + 1 bytes, n > 128 repeats the next byte
     257 - n times, 128 is a no-op."""
@@ -324,20 +394,109 @@ def packbits_decode(data: bytes, need: int) -> bytes:
     return bytes(out)
 
 
-def _inflate(t: _Tiff, raw: bytes, need: int, path: str) -> bytes:
+def thunderscan_decode(data: bytes, width: int, rows: int, path: str
+                       ) -> bytes:
+    """libtiff's ThunderDecode, row by row: 4-bit samples from a byte's
+    two-bit code (a run of the last sample, three 2-bit or two 3-bit
+    deltas, a raw sample) and six bits of data; a row must come out at its
+    width exactly."""
+    two, three = (0, 1, 0, -1), (0, 1, 2, 3, 0, -3, -2, -1)
+    stride = (width + 1) // 2
+    out = bytearray(stride * rows)
+    at = 0
+    for r in range(rows):
+        op, n_px, last = r * stride, 0, 0
+
+        def put(v):
+            nonlocal last, n_px, op
+            last = v & 15
+            if n_px < width:
+                if n_px & 1:
+                    out[op] |= last
+                    op += 1
+                else:
+                    out[op] = last << 4
+                n_px += 1
+
+        while at < len(data) and n_px < width:
+            n = data[at]
+            at += 1
+            code = n & 0xC0
+            if code == 0x00:                    # a run of the last sample
+                n &= 0x3F
+                if n_px & 1:
+                    out[op] |= last
+                    last = out[op]
+                    op += 1
+                    n_px += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                n_px += n
+                if n_px <= width:
+                    while n > 0:
+                        out[op] = last
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    out[op] &= 0xF0
+                last &= 15
+            elif code == 0x40:
+                for sh in (4, 2, 0):
+                    d = (n >> sh) & 3
+                    if d != 2:
+                        put(last + two[d])
+            elif code == 0x80:
+                for sh in (3, 0):
+                    d = (n >> sh) & 7
+                    if d != 4:
+                        put(last + three[d])
+            else:
+                put(n)
+        if n_px != width:
+            raise ValueError(f"{path}: ThunderScan TIFF: "
+                             f"{'not enough' if n_px < width else 'too much'}"
+                             f" data at scanline {r} ({n_px} != {width})")
+    return bytes(out)
+
+
+def _inflate(t: _Tiff, raw: bytes, need: int, path: str, cw: int = 0,
+             rows: int = 0, fax: Optional[dict] = None, off: int = 0
+             ) -> bytes:
     if t.fillorder == 2 and t.compression != 1:
         raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
-    if t.compression == 1:
+    c = t.compression
+    if c == 1:
         out = raw
-    elif t.compression == 5:
+    elif c == 5:
         out = lzw_decode(raw, need, path)
-    elif t.compression in (8, 32946):
+    elif c in (8, 32946):
         d = zlib.decompressobj()
         try:
             out = d.decompress(raw, need)
         except zlib.error as e:
             raise ValueError(f"{path}: corrupt TIFF Deflate data ({e})") \
                 from None
+    elif c == 34925:
+        d = lzma.LZMADecompressor()
+        try:
+            out = d.decompress(raw, need)
+        except lzma.LZMAError as e:
+            raise ValueError(f"{path}: corrupt TIFF LZMA data ({e})") \
+                from None
+    elif c == 50000:
+        out = zstd.decompress(raw, need)
+    elif c in _CCITT:
+        try:
+            bits, _ = ccitt.decode(raw, cw, rows, c,
+                                   t.tags.get(_T4OPTIONS, (0,))[0], fax,
+                                   bool(off & 1))
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+        out = np.packbits(bits, axis=1).tobytes()
+    elif c == 32809:
+        out = thunderscan_decode(raw, cw, rows, path)
     else:
         out = packbits_decode(raw, need)
     if len(out) < need:
@@ -365,22 +524,90 @@ def _samples(t: _Tiff, data: bytes, rows: int, cols: int, spp: int,
         px = (px << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(
             2, dtype=np.uint8)[:, :cols * spp]
         return px.reshape(rows, cols, spp)
+    if bits == 12:              # Pillow's I;12 unpacker: MSB-first pairs
+        row = (cols * spp * 12 + 7) // 8
+        px = np.frombuffer(data, np.uint8, rows * row).reshape(rows, row)
+        px = np.unpackbits(px, axis=1)[:, :cols * spp * 12].reshape(
+            rows, cols * spp, 12)
+        v = (px.astype(np.uint16) << np.arange(11, -1, -1, dtype=np.uint16)
+             ).sum(2, dtype=np.uint16)
+        return v.reshape(rows, cols, spp)
     fmt = t.tags.get(_SAMPLE_FORMAT, (1,))[0]
     kind = {1: "u", 2: "i", 3: "f"}[fmt]
     dt = np.dtype(f"{t.order}{kind}{bits // 8}")
+    if predictor == 3:          # libtiff's fpAcc, row by row
+        nb = bits // 8
+        u = np.frombuffer(data, np.uint8, rows * cols * spp * nb).reshape(
+            rows, cols * nb, spp)
+        u = u.cumsum(1, dtype=np.uint64).astype(np.uint8).reshape(
+            rows, nb, cols * spp)
+        # byte planes, most significant first, whatever the file's order
+        px = np.ascontiguousarray(u.transpose(0, 2, 1)).view(
+            f">{kind}{nb}")[..., 0]
+        return px.astype(dt.newbyteorder("=")).reshape(rows, cols, spp)
     px = np.frombuffer(data, dt, rows * cols * spp).reshape(rows, cols * spp)
     if predictor == 2:
         px = _unpredict(px.view(f"{t.order}u{bits // 8}"), spp).view(dt)
     return px.astype(dt.newbyteorder("=")).reshape(rows, cols, spp)
 
 
-def _jpeg_chunk(t: _Tiff, raw: bytes, path: str) -> np.ndarray:
-    """A JPEG strip or tile, its tables spliced before it -> (rows, cols,
-    samples) uint8 as libtiff hands them over."""
+def _table_defs(stream: bytes, defs: dict) -> None:
+    """Each table that the DQT and DHT segments of a JPEG stream define
+    before its first SOS, as a segment of its own in `defs`, keyed by
+    (marker, table): a later definition replaces an earlier one, as in
+    libjpeg's one decoder object."""
+    at = 2
+    while at + 4 <= len(stream) and stream[at] == 0xFF:
+        marker = stream[at + 1]
+        n = struct.unpack(">H", stream[at + 2:at + 4])[0]
+        if marker == 0xDA:
+            break
+        seg, k = stream[at + 4:at + 2 + n], 0
+        while marker in (0xDB, 0xC4) and k < len(seg):
+            if marker == 0xDB:          # Pq|Tq, 64 bytes or 64 words
+                size, key = 1 + (128 if seg[k] >> 4 else 64), seg[k] & 15
+            else:                       # Tc|Th, 16 counts, their values
+                size, key = 17 + sum(seg[k + 1:k + 17]), seg[k]
+            if k + size > len(seg):
+                break                   # the strip's own decode says why
+            part = seg[k:k + size]
+            defs.pop((marker, key), None)
+            defs[(marker, key)] = (b"\xff" + bytes([marker])
+                                   + struct.pack(">H", 2 + size) + part)
+            k += size
+        at += 2 + n
+
+
+def _jpeg_chunk(t: _Tiff, raw: bytes, path: str, kept: dict
+                ) -> np.ndarray:
+    """A JPEG strip or tile -> (rows, cols, samples) as libtiff hands them
+    over: uint8, or 12-bit grey samples (libtiff's JPEG codec built for 12
+    bits, jpeg12_*). libtiff reads every strip with one libjpeg object,
+    so the JPEGTables and then the tables earlier strips defined (the
+    latest of each, `kept`) stand before each strip's own. Its 12-bit
+    packing writes sample pairs only: of an odd-width row the last sample
+    stays what Pillow's strip buffer held (the previous strip's; zeros
+    before the first)."""
     tables = t.tags.get(_JPEG_TABLES, (b"",))[0]
-    if tables[:2] == b"\xff\xd8" and raw[:2] == b"\xff\xd8":
-        raw = tables[:-2] + raw[2:] if tables[-2:] == b"\xff\xd9" \
-            else tables + raw[2:]
+    if raw[:2] == b"\xff\xd8":
+        defs = kept.setdefault("tables", {})
+        old = b"".join(defs.values())
+        _table_defs(raw, defs)
+        if tables[:2] == b"\xff\xd8":
+            head = tables[:-2] if tables[-2:] == b"\xff\xd9" else tables
+            raw = head + old + raw[2:]
+        elif old:
+            raw = b"\xff\xd8" + old + raw[2:]
+    if t.bps == (12,):
+        px = jpeg.decode_jpeg12_grey(raw, path).astype(np.uint16)
+        if px.shape[1] & 1:
+            last = kept.get("last")
+            px[:, -1] = 0
+            if last is not None:
+                n = min(len(last), len(px))
+                px[:n, -1] = last[:n]
+            kept["last"] = px[:, -1].copy()
+        return px[..., None]
     px = jpeg.decode_jpeg(raw, path, convert=t.photo == 6)
     if t.bps == (8,):
         return px[..., :1]
@@ -414,16 +641,25 @@ def _decode_samples(t: _Tiff, blob: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: TIFF with {len(offsets)} strips or tiles"
                          f", expected {across * down * planes}")
     predictor = t.tags.get(_PREDICTOR, (1,))[0]
-    if t.compression in (1, 7, 32773):
-        predictor = 1                  # libtiff applies it to LZW and Deflate
-    if predictor not in (1, 2):
-        raise ValueError(f"{path}: TIFF predictor {predictor} is not decoded "
-                         "by the port yet")
-    if predictor == 2 and t.bps[0] < 8:
+    if t.compression not in _PREDICTED:
+        predictor = 1         # libtiff runs it for these codecs alone
+    if predictor not in (1, 2, 3):
+        raise ValueError(f"{path}: TIFF predictor {predictor} (libtiff: "
+                         "\"Predictor\" value not supported)")
+    if predictor == 2 and t.bps[0] not in (8, 16, 32, 64):
         raise ValueError(f"{path}: TIFF horizontal predictor on "
                          f"{t.bps[0]}-bit samples (libtiff refuses it)")
+    if predictor == 3 and (t.bps[0] not in (16, 24, 32, 64) or t.tags.get(
+            _SAMPLE_FORMAT, (1,))[0] != 3):
+        raise ValueError(f"{path}: TIFF floating-point predictor on "
+                         f"{t.bps[0]}-bit non-float samples (libtiff "
+                         "refuses it)")
+    sub = _subsampling(t, path) if t.photo == 6 and t.compression not in (
+        1, 7) else None
     out = None
     tiled = _TILES in t.tags
+    fax: dict = {}                 # libtiff's CCITT run arrays, kept
+    kept: dict = {}                # what libjpeg and the strip buffer keep
     i = 0
     for p in range(planes):
         for ty in range(down):
@@ -435,15 +671,19 @@ def _decode_samples(t: _Tiff, blob: bytes, path: str) -> np.ndarray:
                 rows = ch if tiled else min(ch, t.height - ty * ch)
                 raw = blob[off:off + n]
                 if t.compression == 7:
-                    px = _jpeg_chunk(t, raw, path)
+                    px = _jpeg_chunk(t, raw, path, kept)
                     if px.shape[0] < rows or px.shape[1] < cw:
                         raise ValueError(f"{path}: TIFF JPEG chunk of "
                                          f"{px.shape[:2]}, expected "
                                          f"{(rows, cw)}")
                     px = px[:rows, :cw]
+                elif sub is not None and per == 3:
+                    px = _ycbcr_blocks(t, raw, rows, cw, sub, predictor,
+                                       path)
                 else:
                     row = (cw * per * t.bps[0] + 7) // 8
-                    data = _inflate(t, raw, rows * row, path)
+                    data = _inflate(t, raw, rows * row, path, cw, rows,
+                                    fax, off)
                     if t.compression == 1 and t.fillorder == 2:
                         data = _REVERSED[np.frombuffer(data, np.uint8)
                                          ].tobytes()
@@ -455,6 +695,97 @@ def _decode_samples(t: _Tiff, blob: bytes, path: str) -> np.ndarray:
                 out[y0:y0 + hh, x0:x0 + ww, p * per:(p + 1) * per] = \
                     px[:hh, :ww]
     return out
+
+
+def _subsampling(t: _Tiff, path: str) -> Tuple[int, int]:
+    """YCbCrSubSampling (libtiff's default 2, 2), as its RGBA reader
+    accepts it."""
+    h, v = (tuple(t.tags.get(_YCC_SUBSAMPLING, (2, 2))) + (2, 2))[:2]
+    if (h, v) not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2),
+                      (4, 4)) or (t.planar == 2 and (h, v) != (1, 1)):
+        raise ValueError(f"{path}: YCbCr subsampling {h}x{v} "
+                         f"(libtiff: cannot handle it)")
+    return h, v
+
+
+def _ycbcr_blocks(t: _Tiff, raw: bytes, rows: int, cw: int, sub,
+                  predictor: int, path: str) -> np.ndarray:
+    """A contiguous YCbCr chunk of h x v blocks (the Y samples, then Cb
+    and Cr) -> (rows, cw, 3) Y, Cb, Cr, each pixel with its block's
+    chroma. The horizontal predictor runs over libtiff's scanlines (a
+    block row's bytes / v), three samples apart."""
+    h, v = sub
+    bx, by = -(-cw // h), -(-rows // v)
+    need = bx * by * (h * v + 2)
+    # libtiff reads (rows rounded up to v) scanlines of a block row's
+    # bytes / v, rounded down: with v = 4 the last block can lose its
+    # last bytes, which stay zero
+    line = bx * (h * v + 2) // v
+    data = np.frombuffer(_inflate(t, raw, by * v * line, path), np.uint8)
+    if predictor == 2:
+        data = _unpredict(data.reshape(-1, line), 3).ravel()
+    data = np.concatenate([data, np.zeros(need - data.size, np.uint8)])
+    data = data.reshape(by, bx, h * v + 2)
+    y = data[..., :h * v].reshape(by, bx, v, h).transpose(0, 2, 1, 3)
+    y = y.reshape(by * v, bx * h)[:rows, :cw]
+    cb = np.repeat(np.repeat(data[..., h * v], v, 0), h, 1)[:rows, :cw]
+    cr = np.repeat(np.repeat(data[..., h * v + 1], v, 0), h, 1)[:rows, :cw]
+    return np.stack([y, cb, cr], -1)
+
+
+def _ycbcr_to_rgb(t: _Tiff, s: np.ndarray) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit tables and TIFFYCbCrtoRGB, from the
+    YCbCrCoefficients and ReferenceBlackWhite tags (float32 arithmetic,
+    as libtiff's)."""
+    f32 = np.float32
+    luma = [f32(x) for x in (tuple(t.tags.get(_YCC_COEFFS, ()))
+                             + (0.299, 0.587, 0.114)[len(
+                                 t.tags.get(_YCC_COEFFS, ())):])[:3]]
+    rbw = [f32(x) for x in (tuple(t.tags.get(_REF_BW, ())) + (
+        0, 255, 128, 255, 128, 255)[len(t.tags.get(_REF_BW, ())):])[:6]]
+
+    def fix(x):
+        return int(float(x) * 65536 + 0.5)
+
+    clamp = lambda f, lo, hi: min(max(f, lo), hi)
+    f1 = f32(2) - f32(2) * luma[0]
+    d1 = fix(clamp(f1, 0.0, 2.0))
+    f2 = luma[0] * f1 / luma[1]
+    d2 = -fix(clamp(f2, 0.0, 2.0))
+    f3 = f32(2) - f32(2) * luma[2]
+    d3 = fix(clamp(f3, 0.0, 2.0))
+    f4 = luma[2] * f3 / luma[1]
+    d4 = -fix(clamp(f4, 0.0, 2.0))
+
+    def code2v(c, rb, rw, cr):
+        den = (rw - rb) if rw - rb != 0 else f32(1)
+        return f32(f32(f32(c - int(rb)) * f32(cr)) / f32(den))
+
+    def clampw(f, lo, hi):
+        return int(lo if f < lo else hi if f > hi else f)
+
+    cr_r, cb_b, cr_g, cb_g, y_t = [], [], [], [], []
+    for i, x in zip(range(256), range(-128, 128)):
+        cr = clampw(code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127),
+                    -128.0 * 32, 128.0 * 32)
+        cb = clampw(code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127),
+                    -128.0 * 32, 128.0 * 32)
+        cr_r.append((d1 * cr + 32768) >> 16)
+        cb_b.append((d3 * cb + 32768) >> 16)
+        cr_g.append(d2 * cr)
+        cb_g.append(d4 * cb + 32768)
+        y_t.append(clampw(code2v(x + 128, rbw[0], rbw[1], 255),
+                          -128.0 * 32, 128.0 * 32))
+    tabs = [np.asarray(a, np.int64) for a in (cr_r, cb_b, cr_g, cb_g, y_t)]
+    cr_r, cb_b, cr_g, cb_g, y_t = tabs
+    yy = y_t[s[..., 0].astype(np.intp)]
+    cb = s[..., 1].astype(np.intp)
+    cr = s[..., 2].astype(np.intp)
+    r = yy + cr_r[cr]
+    g = yy + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = yy + cb_b[cb]
+    return np.stack([np.clip(r, 0, 255), np.clip(g, 0, 255),
+                     np.clip(b, 0, 255)], -1).astype(np.uint8)
 
 
 def _clip8(v: np.ndarray) -> np.ndarray:
@@ -496,6 +827,8 @@ def _to_rgb(t: _Tiff, s: np.ndarray, path: str) -> np.ndarray:
         px = s[..., :4].astype(np.int64)
         nk = 255 - px[..., 3:]
         return (nk - jpeg._muldiv255(px[..., :3], nk)).astype(np.uint8)
+    elif mode == "LAB":
+        return cielab.lab_to_rgb(s[..., :3].astype(np.uint8))
     elif mode in ("RGB", "RGBA"):
         rgb = s[..., :3].astype(np.uint8)
         if raw.startswith("RGBa"):               # associated alpha
@@ -521,34 +854,161 @@ def decode_tiff(blob: bytes, path: str = "<TIFF bytes>") -> np.ndarray:
     """(H, W, 3) uint8 RGB of a TIFF's first image, as Pillow's
     Image.open(...).convert("RGB") gives it."""
     t = _parse(blob, path)
+    if t.compression == 50001:
+        raise ValueError(f"{path}: WebP TIFF: Pillow's libtiff here is built"
+                         " without it and refuses it (WEBP compression "
+                         "support is not configured)")
+    if t.compression in (34676, 34677):
+        raise ValueError(f"{path}: SGILog TIFF of photometric {t.photo}: "
+                         "libtiff refuses it (Inappropriate photometric "
+                         "interpretation for SGILog compression; must be "
+                         "either LogLUV or LogL, for which Pillow has no "
+                         "mode)")
     if t.compression not in _READ:
         name = _COMPRESSIONS.get(t.compression, f"compression "
                                  f"{t.compression}")
         raise ValueError(f"{path}: {name} TIFF is not decoded by the port "
                          "yet")
-    if t.mode == "LAB":
-        raise ValueError(f"{path}: CIELAB TIFF is not decoded by the port "
-                         "yet")
-    if t.photo == 6 and len(t.bps) == 3 and (t.compression != 7
-                                             or t.planar != 1):
-        raise ValueError(f"{path}: YCbCr TIFF without JPEG compression is "
-                         "not decoded by the port yet")
+    if t.compression in _CCITT and t.bps != (1,):
+        raise ValueError(f"{path}: CCITT TIFF of {t.bps} bits a sample "
+                         "(libtiff: Bits/sample must be 1 for Group 3/4 "
+                         "encoding/decoding)")
+    if t.compression == 32809 and t.bps != (4,):
+        raise ValueError(f"{path}: ThunderScan TIFF of {t.bps} bits a sample"
+                         " (libtiff: Thunder decoder only supports 4bits "
+                         "per sample)")
     if t.compression == 1 and t.rawmode in _NO_UNPACKER:
         raise ValueError(f"{path}: uncompressed TIFF in raw mode {t.rawmode}"
                          " (FillOrder 2): Pillow has no unpacker for it and "
                          "refuses it")
-    if t.rawmode == "I;12":
-        raise ValueError(f"{path}: 12-bit TIFF is not decoded by the port "
-                         "yet")
-    if t.compression == 7 and t.bps[0] != 8:
-        raise ValueError(f"{path}: JPEG TIFF of {t.bps[0]}-bit samples is "
-                         "not decoded by the port yet")
-    samples = _decode_samples(t, blob, path)
-    if t.compression != 1 and t.rawmode in _SWAPPED:
-        samples = samples.byteswap()
-    rgb = _to_rgb(t, samples, path)
+    if t.compression == 7 and t.bps not in ((12,),) and t.bps[0] != 8:
+        raise ValueError(f"{path}: JPEG TIFF of {t.bps} samples: libtiff "
+                         "reads 8- and 12-bit JPEG only (Pillow refuses it)")
+    ycc = t.photo == 6 and len(t.bps) == 3 and t.compression != 7
+    if t.compression == 6:
+        rgb = _ojpeg(t, blob, path)
+    elif ycc and t.compression == 1:
+        rgb = _raw_rgbx(t, blob, path)
+    else:
+        samples = _decode_samples(t, blob, path)
+        if t.compression != 1 and t.rawmode in _SWAPPED:
+            samples = samples.byteswap()
+        rgb = _ycbcr_to_rgb(t, samples) if ycc else _to_rgb(t, samples,
+                                                             path)
     turn = _TRANSPOSE.get(t.tags.get(_ORIENTATION, (1,))[0])
     return np.ascontiguousarray(turn(rgb) if turn else rgb)
+
+
+def _ojpeg_stream(t: _Tiff, blob: bytes, path: str) -> bytes:
+    """The JPEG stream libtiff's OJPEG codec hands libjpeg: the
+    JPEGInterchangeFormat bytes where the tag is set, else SOI, DQT, DHT,
+    SOF0 and SOS made from the JPEGQTables / DCTables / ACTables tags and
+    the YCbCrSubSampling; then the strips' bytes, and an EOI (libtiff's
+    source manager ends the data with one)."""
+    tags = t.tags
+    strips = b"".join(blob[o:o + n] for o, n in zip(
+        tags.get(_STRIPS, ()), tags.get(_STRIP_BYTES, ())))
+    jif = tags.get(_JIF, (0,))[0]
+    if 0 < jif < len(blob):
+        n = tags.get(_JIF_LEN, (0,))[0]
+        if not n or jif + n > len(blob):
+            n = len(blob) - jif
+        return blob[jif:jif + n] + strips + b"\xff\xd9"
+    spp = len(t.bps)
+    qts, dcs, acs = (tags.get(k, ()) for k in (_JPEG_QT, _JPEG_DC, _JPEG_AC))
+    if len(qts) < spp or len(dcs) < spp or len(acs) < spp:
+        raise ValueError(f"{path}: old-style JPEG TIFF without its tables "
+                         "(libtiff refuses it)")
+    out = bytearray(b"\xff\xd8")
+    for i, off in enumerate(qts[:spp]):
+        q = blob[off:off + 64]
+        if len(q) < 64:
+            raise ValueError(f"{path}: truncated old-style JPEG table")
+        out += b"\xff\xdb\x00\x43" + bytes([i]) + q
+    for cls, offs in ((0, dcs), (1, acs)):
+        for i, off in enumerate(offs[:spp]):
+            counts = blob[off:off + 16]
+            n = sum(counts)
+            vals = blob[off + 16:off + 16 + n]
+            if len(counts) < 16 or len(vals) < n:
+                raise ValueError(f"{path}: truncated old-style JPEG table")
+            out += b"\xff\xc4" + struct.pack(">H", 3 + 16 + n) + \
+                bytes([cls << 4 | i]) + counts + vals
+    restart = tags.get(_JPEG_RESTART, (0,))[0]
+    if restart:
+        out += b"\xff\xdd\x00\x04" + struct.pack(">H", restart)
+    h, v = _subsampling(t, path) if t.photo == 6 else (1, 1)
+    out += b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * spp, 8, t.height,
+                                      t.width, spp)
+    for i in range(spp):
+        out += bytes([i + 1, (h << 4 | v) if i == 0 else 0x11, i])
+    out += b"\xff\xda" + struct.pack(">HB", 6 + 2 * spp, spp)
+    for i in range(spp):
+        out += bytes([i + 1, i << 4 | i])
+    out += b"\x00\x3f\x00"
+    return bytes(out) + strips + b"\xff\xd9"
+
+
+def _ojpeg(t: _Tiff, blob: bytes, path: str) -> np.ndarray:
+    """An old-style JPEG TIFF as libtiff's RGBA reader gives it to Pillow:
+    libjpeg's raw planes (no upsampling), each pixel with its block's
+    chroma, then TIFFYCbCrToRGB."""
+    if t.planar != 1 or len(t.bps) != 3 or t.bps != (8, 8, 8):
+        raise ValueError(f"{path}: old-style JPEG TIFF of {t.bps} samples "
+                         "is not decoded by the port yet")
+    frame, planes = jpeg.raw_planes(_ojpeg_stream(t, blob, path), path)
+    if len(planes) != 3 or frame.progressive:
+        raise ValueError(f"{path}: old-style JPEG TIFF of this stream is "
+                         "not decoded by the port yet")
+    hmax = max(c.h for c in frame.comps)
+    vmax = max(c.v for c in frame.comps)
+    if (frame.comps[1].h, frame.comps[1].v, frame.comps[2].h,
+            frame.comps[2].v) != (1, 1, 1, 1) or \
+            (frame.width, frame.height) != (t.width, t.height):
+        raise ValueError(f"{path}: old-style JPEG TIFF whose stream does "
+                         "not match its tags is not decoded by the port yet")
+    y = planes[0][:t.height, :t.width]
+    up = [np.repeat(np.repeat(c, vmax, 0), hmax, 1)[:t.height, :t.width]
+          for c in planes[1:]]
+    return _ycbcr_to_rgb(t, np.stack([y] + up, -1))
+
+
+def _raw_rgbx(t: _Tiff, blob: bytes, path: str) -> np.ndarray:
+    """An uncompressed YCbCr TIFF as Pillow's own decoder reads it: its raw
+    mode is RGBX, four bytes a pixel taken as R, G, B and a pad, from each
+    strip's or tile's offset, its rows the unpacker's four bytes a pixel
+    apart, or three a pixel where a tile overhangs the image (Pillow's
+    stride); planar files band by band, R, G and B."""
+    offsets, _, cw, ch = _chunks(t, path)
+    out = np.zeros((t.height, t.width, 3), np.uint8)
+    planar = t.planar == 2
+    i = 0
+    for layer in range(3 if planar else 1):
+        for y in range(0, t.height, ch):
+            for x in range(0, t.width, cw):
+                if i >= len(offsets):
+                    raise ValueError(f"{path}: TIFF with too few strips or "
+                                     "tiles")
+                off = offsets[i]
+                i += 1
+                ew, eh = min(cw, t.width - x), min(ch, t.height - y)
+                n = 1 if planar else 4
+                stride = cw * 3 // (3 if planar else 1) if x + cw > t.width \
+                    else ew * n
+                if len(blob) < off + stride * (eh - 1) + max(stride, 1):
+                    raise ValueError(f"{path}: image file is truncated "
+                                     "(Pillow reads an uncompressed YCbCr "
+                                     "TIFF as RGBX)")
+                for r in range(eh):
+                    at = off + r * stride
+                    row = np.frombuffer(blob[at:at + ew * n].ljust(ew * n,
+                                                                  b"\0"),
+                                        np.uint8)
+                    if planar:
+                        out[y + r, x:x + ew, layer] = row
+                    else:
+                        out[y + r, x:x + ew] = row.reshape(ew, 4)[:, :3]
+    return out
 
 
 def read_tiff(path: str) -> np.ndarray:

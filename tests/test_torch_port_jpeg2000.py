@@ -276,6 +276,10 @@ def make_jpeg2000_fixtures(d, tmp):
     put("s_htj2k.j2k", htj2k(w(rgb, (0, 0, 48, 40), levels=3)))
 
 
+# files Pillow refuses: what the port's refusal says
+_PORT_REFUSES = {"r_truncated.jp2": "tile-part longer than the file"}
+
+
 def jpeg2000_expected_now():
     """expected.json's content as Pillow and the JAX package give it."""
     files = {}
@@ -293,6 +297,7 @@ def jpeg2000_expected_now():
                 e["sha256"] = _digest(jimages.load_image_uint8(p))
             except OSError as err:
                 e["pillow_refuses"] = str(err).split(" (")[0]
+                e["port"] = _PORT_REFUSES[n]
         files[n] = e
     listing = jimages.ImagesCached(FIXTURES, min_size=LISTING_MIN_SIZE)
     return {"files": files, "listing_min_size": LISTING_MIN_SIZE,
@@ -334,8 +339,9 @@ def test_port_reads_the_jpeg2000_fixtures_as_expected():
                                "decoded by the port yet"):
                 timages.load_image_uint8(p)
         elif "pillow_refuses" in e:
-            with pytest.raises(ValueError, match="broken data stream"):
+            with pytest.raises(ValueError, match="broken data stream") as err:
                 timages.load_image_uint8(p)
+            assert e["port"] in str(err.value), n
         else:
             assert _digest(timages.load_image_uint8(p)) == e["sha256"], n
     got = timages.ImagesCached(FIXTURES, min_size=LISTING_MIN_SIZE).paths()

@@ -562,6 +562,19 @@ def _digest(arr):
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
+# files Pillow refuses: what the port's refusal says
+_PORT_REFUSES = {
+    "five_components.j2k": "JPEG 2000 of 5 components",
+    "jp2_esycc.jp2": "mode RGB, 3 components in colour space EYCC",
+    "jp2_grey_for_rgb.jp2": "mode RGB, 3 components in colour space GRAY",
+    "jp2_ihdr_larger.jp2": "the JP2 header's size is not the codestream's",
+    "jp2_ihdr_smaller.jp2": "the JP2 header's size is not the codestream's",
+    "jp2_one_for_three.jp2": "mode L, 3 components in colour space SRGB",
+    "jp2_one_srgb.jp2": "mode L, 1 components in colour space SRGB",
+    "jp2_palette_grey_space.jp2": "mode P, 1 components in colour space "
+                                  "GRAY"}
+
+
 def expected_now(d):
     """Each file's Pillow format, mode, size and JAX pixel digest, or what
     refuses it."""
@@ -578,6 +591,7 @@ def expected_now(d):
             e["sha256"] = _digest(jimages.load_image_uint8(p))
         except (OSError, SyntaxError, ValueError) as err:
             e["pillow_refuses"] = type(err).__name__
+            e["port"] = _PORT_REFUSES.get(n)     # HTJ2K's follows
         if n.startswith("htj2k"):
             e = {"refused": "HTJ2K"}
         out[n] = e
@@ -602,8 +616,9 @@ def test_coding_fixture_equals_pillow_and_jax(name):
     elif "pillow_refuses" in e:
         with pytest.raises(Exception):
             jimages.load_image_uint8(p)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError) as err:
             timages.load_image_uint8(p)
+        assert e["port"] in str(err.value)
     else:
         check(p)
         assert _digest(timages.load_image_uint8(p)) == e["sha256"]
