@@ -263,8 +263,8 @@ Phases (each raises on failure; none carries on after another failed):
               SOP / EPH / TLM / PLT / POC / PPT / PPM, ROI, sYCC, CMYK,
               palettes, 4 to 16 bits, ICNS with RLE, PNG and JPEG 2000
               icons) to Pillow's format, mode, size and pixel digest, a
-              truncated file and what Pillow refuses refused, HTJ2K by
-              name; this host's Pillow / OpenJPEG versions and how many
+              truncated file and what Pillow refuses refused (HT-marked
+              Part-1 codestreams with OpenJPEG's reason); this host's Pillow / OpenJPEG versions and how many
               fixtures its decode equals (reported); cli.l3c enc / dec of
               a 9/7 JP2 and a lossless codestream bit-exact with exact
               launch counts; cli.test --write_to_files --compare_theory
@@ -290,11 +290,25 @@ Phases (each raises on failure; none carries on after another failed):
               (an XPM named .png and a FITS named .jpg listed), K3 to K6
               launched; the host's decode MP/s of a 1728 x 2200 Group 4
               fax page and a 384 x 256 ZSTD RGB TIFF, fastest of 3
- 21. report   one JSON line of kernel records (each with its path:
+ 21. htj2k    HTJ2K (JPEG 2000 Part 15) on this machine's host (no
+              Pillow): every file of l3c_torch/data/fixtures/htj2k (HT
+              code-blocks of every size, 1 to 3 passes, VSC, tiles,
+              precincts, LRCP / RPCL, 8 to 16 bits, 4:2:0, RGBA, 5/3 and
+              9/7, every zero bit-plane count, damaged streams) to
+              Pillow's format, mode, size and pixel digest, OpenJPEG's
+              refusals refused with its reason; the same digests from
+              this host's Pillow wherever it imports (held), and its
+              refusals (reported); cli.l3c enc / dec of a 512 x 512
+              lossless codestream and a 256 x 256 9/7 JP2 bit-exact with
+              exact launch counts; cli.test --write_to_files
+              --compare_theory over the folder (an HT JP2 named .png
+              listed), K3 to K6 launched; the host's decode MP/s of the
+              two, fastest of 3
+ 22. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
-              phase damaged, phase pillow_formats, phase jpeg2000 and
-              phase registry_formats),
+              phase damaged, phase pillow_formats, phase jpeg2000,
+              phase registry_formats and phase htj2k),
               the card line, then
               {"ok": true, "device": {...}} as the last line
 
@@ -4856,7 +4870,7 @@ def phase_jpeg2000(card):
     machine's host with no Pillow: every fixture of
     l3c_torch/data/fixtures/jpeg2000 and jpeg2000_coding held to Pillow's
     format, mode, size and pixel digest (expected.json), the truncated
-    file and the ones Pillow refuses refused, HTJ2K by name; cli.l3c enc
+    file and the ones Pillow refuses refused; cli.l3c enc
     / dec of a lossy 9/7 JP2 and a lossless raw codestream bit-exact with
     exact launch counts; cli.test --write_to_files --compare_theory over
     the folder (its listing keeps a JP2 named .png and a codestream named
@@ -4930,10 +4944,11 @@ def phase_jpeg2000(card):
 REGISTRY = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "registry")
 # run in a child process where the host has Pillow: for each of the given
 # files whether its decode gives the digest expected, other pixels, or a
-# refusal (it lacks the codec), its libtiff, and whether its libtiff reads
-# WebP (the fixture whose strip is a lossless WebP file; reported); it
-# exits with NO_PILLOW where Pillow does not import, and only then
-HOST_REGISTRY_SCRIPT = r"""
+# refusal, its libtiff and OpenJPEG, and where a second file is given
+# whether its libtiff reads WebP (the fixture whose strip is a lossless
+# WebP file; reported); it exits with NO_PILLOW where Pillow does not
+# import, and only then
+HOST_FILES_SCRIPT = r"""
 import hashlib, json, sys
 import numpy as np
 try:
@@ -4952,14 +4967,17 @@ for p, digest in want.items():
     except Exception as e:
         got = "refuses: " + (type(e).__name__ + ": " + str(e))[:80]
     files[p.rsplit("/", 1)[-1]] = got
-try:
-    with Image.open(sys.argv[2]) as im:
-        px = np.asarray(im.convert("RGB"))
-    webp = "reads it: pixel (0, 0) " + str(px[0, 0].tolist())
-except Exception as e:
-    webp = "refuses it: " + str(e)[:80]
+webp = None
+if len(sys.argv) > 2:
+    try:
+        with Image.open(sys.argv[2]) as im:
+            px = np.asarray(im.convert("RGB"))
+        webp = "reads it: pixel (0, 0) " + str(px[0, 0].tolist())
+    except Exception as e:
+        webp = "refuses it: " + str(e)[:80]
 print(json.dumps({"files": files, "pillow": Image.__version__,
-                  "libtiff": features.version("libtiff"), "webp": webp}))
+                  "libtiff": features.version("libtiff"),
+                  "openjpeg": features.version("jpg_2000"), "webp": webp}))
 """
 
 
@@ -4995,7 +5013,7 @@ def phase_registry_formats(card):
         f"{time.perf_counter() - t0:.1f} s")
     want = {os.path.join(REGISTRY, n): e["sha256"]
             for n, e in exp["files"].items() if "sha256" in e}
-    run = subprocess.run([sys.executable, "-c", HOST_REGISTRY_SCRIPT,
+    run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
                           json.dumps(want), os.path.join(REGISTRY,
                                                          "e_webp.tif")],
                          capture_output=True, text=True, timeout=300)
@@ -5045,6 +5063,86 @@ def phase_registry_formats(card):
         f"Pillow's: {'; '.join(rates)} | host {cpu}")
     # ---- (e) the launches of the phase's CLI calls
     log(f"[registry_formats] launches of the cli.l3c and cli.test calls: "
+        f"{({k: v for k, v in total.items() if v})} | {card}")
+    return total
+
+
+HTJ2K = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "htj2k")
+
+
+def phase_htj2k(card):
+    """HTJ2K on this machine's host with no Pillow: every fixture of
+    l3c_torch/data/fixtures/htj2k held to Pillow's format, mode, size and
+    pixel digest (expected.json), OpenJPEG's refusals refused with its
+    reason; this host's Pillow, where it imports, decoding every decoded
+    fixture to its digest (held) and the refused ones (reported);
+    cli.l3c enc / dec of the 512 x 512 lossless codestream and the 256 x
+    256 9/7 JP2 bit-exact with exact launch counts; cli.test
+    --write_to_files --compare_theory over the folder; the host's decode
+    rates of the two, fastest of 3. Returns the launches of its CLI
+    calls."""
+    from l3c_torch.data import jpeg2000
+    with open(os.path.join(HTJ2K, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    # ---- (a) every fixture's format, mode, size and pixels; refusals
+    t0 = time.perf_counter()
+    decoded, refused = fixtures_hold(HTJ2K, exp["files"])
+    made = exp["made_by"]
+    log(f"[htj2k] {len(decoded)} fixtures decoded: formats, modes, sizes "
+        f"and pixel digests equal Pillow's (expected.json, made by Pillow "
+        f"{made['pillow']}, OpenJPEG {made['openjpeg']}, zlib "
+        f"{made['zlib']}); {len(refused)} refused with OpenJPEG's reason "
+        f"as Pillow refuses them ({', '.join(refused)}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {os.path.join(HTJ2K, n): e.get("sha256", "")
+             for n, e in exp["files"].items()}
+    run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
+                          json.dumps(paths)], capture_output=True, text=True,
+                         timeout=300)
+    if run.returncode == NO_PILLOW:
+        log("[htj2k] this host has no Pillow that imports: its OpenJPEG not"
+            f" known ({run.stderr.strip()[-200:]})")
+    elif run.returncode:
+        raise RuntimeError(f"the host's Pillow check failed (exit "
+                           f"{run.returncode}): {run.stdout.strip()[-300:]!r}"
+                           f" {run.stderr.strip()[-1000:]}")
+    else:
+        host = json.loads(run.stdout.strip().splitlines()[-1])
+        got = host["files"]
+        bad = sorted(n for n in decoded if got.get(n) != "same")
+        if bad:
+            raise RuntimeError(f"this host's Pillow {host['pillow']} "
+                               f"(OpenJPEG {host['openjpeg']}) decodes "
+                               f"{', '.join(bad)} otherwise than "
+                               f"expected.json: {[got.get(n) for n in bad]}")
+        agree = sum(got.get(n, "").startswith("refuses") for n in refused)
+        log(f"[htj2k] this host's Pillow {host['pillow']} (OpenJPEG "
+            f"{host['openjpeg']}) decodes all {len(decoded)} decoded "
+            f"fixtures to their digests (held) and refuses {agree} of the "
+            f"{len(refused)} refused ones (reported)")
+    # ---- (b) cli.l3c enc / dec of the two coded files; (c) cli.test
+    total = code_and_test(HTJ2K, exp, "htj2k", card)
+    # ---- (d) the host's decode rates of the two coded files
+    rates = []
+    for name in exp["coded"]:
+        e = exp["files"][name]
+        blob = open(os.path.join(HTJ2K, name), "rb").read()
+        dt = math.inf
+        for _ in range(3):           # the fastest of three decodes
+            t0 = time.perf_counter()
+            arr = jpeg2000.decode_jpeg2000(blob, name)
+            dt = min(dt, time.perf_counter() - t0)
+        if pixel_digest(arr) != e["sha256"]:
+            raise RuntimeError(f"{name}: pixels differ from Pillow's")
+        h, w = e["size"]
+        rates.append(f"{name} ({w} x {h}, {len(blob)} bytes, "
+                     f"{len(blob) * 8 / (h * w):.3f} bits a pixel) "
+                     f"{h * w / dt / 1e6:.4f} MP/s ({dt * 1e3:.1f} ms)")
+    log(f"[htj2k] host decode rates, fastest of 3, pixels Pillow's: "
+        f"{'; '.join(rates)} | host {cpu}")
+    # ---- (e) the launches of the phase's CLI calls
+    log(f"[htj2k] launches of the cli.l3c and cli.test calls: "
         f"{({k: v for k, v in total.items() if v})} | {card}")
     return total
 
@@ -5110,6 +5208,7 @@ def main() -> int:
     pillow_counts = timed("pillow_formats", phase_pillow_formats, card)
     j2k_counts = timed("jpeg2000", phase_jpeg2000, card)
     registry_counts = timed("registry_formats", phase_registry_formats, card)
+    htj2k_counts = timed("htj2k", phase_htj2k, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
         rec["synth_launches"] = synth_counts.get(rec["name"], 0)
@@ -5119,6 +5218,7 @@ def main() -> int:
         rec["jpeg2000_launches"] = j2k_counts.get(rec["name"], 0)
         rec["registry_formats_launches"] = registry_counts.get(rec["name"],
                                                                0)
+        rec["htj2k_launches"] = htj2k_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

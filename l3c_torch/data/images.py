@@ -37,8 +37,9 @@ loader reads it or refused where it refuses:
     BITMAPINFOHEADER and V4 / V5 headers, bottom-up and top-down rows;
   - JPEG 2000 (data/jpeg2000.py: JP2 files and raw codestreams, 5/3 and
     9/7, every progression, tiles, precincts, layers, code-block style,
-    ROI, sub-sampled, palette and CMYK components, decoded as Pillow's
-    OpenJPEG 2.5 decodes them; HTJ2K refused by name);
+    ROI, sub-sampled, palette and CMYK components, and HTJ2K's HT
+    code-blocks (data/jpeg2000_ht.py), decoded as Pillow's OpenJPEG 2.5
+    decodes them);
   - GIF (data/gif.py), TIFF (data/tiff.py, with data/ccitt.py for CCITT,
     data/zstd.py for ZSTD and data/cielab.py for CIELAB), TGA, ICO, CUR,
     PCX, DCX, SGI, QOI, IM, MSP, SUN, PSD (data/rasters.py), DDS
@@ -47,8 +48,8 @@ loader reads it or refused where it refuses:
   - the rest of Pillow's registry (data/registry.py): XBM, XPM, FITS,
     BLP, SPIDER, PCD, GBR, FLI, FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb;
   - AVIF: Pillow's mode and size from its header, and a ValueError naming
-    it for its pixels, as for the other formats Pillow opens that the
-    port does not decode yet (HTJ2K and AVIF).
+    it for its pixels: the one format Pillow opens that the port does
+    not decode yet.
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
 ValueError naming the format and the reason. PNGs are written with the
 bytes of Pillow's default save (`write_png`). Every image comes out as

@@ -1198,6 +1198,7 @@ def _decode(blob: bytes, path: str, precision: int = 8
     frame = None
     jfif, adobe = False, None
     st = _State()
+    st.precision = precision
     segs = _segments(blob, path)
     try:
         item = next(segs)
@@ -1546,20 +1547,20 @@ def _lossless_samples(W: list, p: int, order: list, tables: list,
 
 
 def _undifference(d: np.ndarray, first: np.ndarray, psv: int,
-                  pt: int) -> np.ndarray:
+                  pt: int, precision: int = 8) -> np.ndarray:
     """jdlossls.c on one component's (h, w) differences: rows whose flag
     in `first` is set start the prediction afresh (the left neighbour,
-    from 1 << (7 - Pt) at the row's start), any other row predicts by
-    predictor `psv` from it and the row above (its first sample from
-    above); the samples modulo 2 ** 16, shifted left by Pt, cut to 8
-    bits."""
+    from 1 << (precision - 1 - Pt) at the row's start), any other row
+    predicts by predictor `psv` from it and the row above (its first
+    sample from above); the samples modulo 2 ** 16, shifted left by Pt,
+    cut to `precision` bits (a byte, or the 12 bits libtiff packs)."""
     h, w = d.shape
     out = np.zeros((h, w), np.int64)
     for r in range(h):
         diff = d[r].tolist()
         row = [0] * w
         if first[r]:
-            ra = 1 << (7 - pt)
+            ra = 1 << (precision - 1 - pt)
             for x in range(w):
                 ra = (diff[x] + ra) & 0xFFFF
                 row[x] = ra
@@ -1578,7 +1579,7 @@ def _undifference(d: np.ndarray, first: np.ndarray, psv: int,
                 ra = (diff[x] + pred) & 0xFFFF
                 row[x] = ra
         out[r] = row
-    return (out << pt) & 0xFF
+    return (out << pt) & ((1 << precision) - 1)
 
 
 def _lossless_scan(blob, seg, after, frame, dht, restart, st, path) -> int:
@@ -1651,8 +1652,9 @@ def _lossless_scan(blob, seg, after, frame, dht, restart, st, path) -> int:
         first = np.repeat(np.asarray(fresh), vs[s])[:shapes[s][0]] & (
             np.arange(shapes[s][0]) % vs[s] == 0)
         hh, ww = real[s]
-        st.planes[ci] = _undifference(d[:hh, :ww], first[:hh], psv,
-                                      pt).astype(np.uint8)
+        st.planes[ci] = _undifference(d[:hh, :ww], first[:hh], psv, pt,
+                                      st.precision).astype(
+            np.uint8 if st.precision == 8 else np.uint16)
     st.single_done = ns == len(comps) and st.scans == 1
     return walk.end()
 
@@ -1811,12 +1813,16 @@ def idct_islow12(coefs: np.ndarray, qt: np.ndarray) -> np.ndarray:
 
 
 def decode_jpeg12_grey(blob: bytes, path: str) -> np.ndarray:
-    """A one-component 12-bit JPEG (what libtiff's JPEG codec hands Pillow
-    for a 12-bit TIFF) -> (H, W) int64 samples 0..4095."""
+    """A one-component 12-bit JPEG, DCT or lossless (what libtiff's JPEG
+    codec hands Pillow for a 12-bit TIFF) -> (H, W) int64 samples
+    0..4095."""
     frame, coefs, qts = _decode(blob, path, precision=12)
-    if len(frame.comps) != 1 or frame.lossless:
+    if len(frame.comps) != 1:
         raise ValueError(f"{path}: 12-bit JPEG of {len(frame.comps)} "
-                         "components is not decoded by the port yet")
+                         "components in a grey TIFF: libtiff refuses it "
+                         "(JPEGPreDecode: Improper JPEG component count)")
+    if frame.lossless:
+        return coefs[0][:frame.height, :frame.width].astype(np.int64)
     px = _plane(coefs[0], qts[0], idct_islow12)
     return px[:frame.height, :frame.width]
 

@@ -13,7 +13,11 @@ OpenJPEG 2.5 (Image.open(p).convert("RGB")), bit for bit.
     PPT, with their inclusion and zero-bit-plane tag trees, pass counts,
     Lblock and the codeword segments of BYPASS / TERMALL; every quality
     layer, at full resolution (Pillow's layers = 0, reduce = 0);
-  - Tier-1 in data/jpeg2000_t1.py;
+  - Tier-1 in data/jpeg2000_t1.py, and HTJ2K's (Part 15) HT code-blocks
+    in data/jpeg2000_ht.py: CAP and CPF are skipped as OpenJPEG skips
+    them, an HT block's first segment holds its cleanup pass alone and
+    the second the rest (opj_t2_read_packet_header), and the mixed HT
+    style (bit 0x80) is refused as OpenJPEG refuses it;
   - dequantisation (none, scalar derived, scalar expounded) with the
     guard bits, the ROI max-shift, the inverse DWT (5/3 in integers, 9/7
     in float32 with OpenJPEG's constants and order: rows, then columns,
@@ -28,8 +32,8 @@ OpenJPEG 2.5 (Image.open(p).convert("RGB")), bit for bit.
 
 Where Pillow raises (a tile-part longer than the file, which OpenJPEG's
 strict mode refuses; more than four components; a colour space Pillow has
-no unpacker for) the port raises ValueError with its reason. HTJ2K
-(Part 15) is refused by name.
+no unpacker for; an HT code-block OpenJPEG refuses) the port raises
+ValueError with its reason.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import jpeg2000_ht as ht
 from . import jpeg2000_t1 as t1
 from .rasters import _boxes, _cmyk, _grey, _lut
 
@@ -138,6 +143,9 @@ class _Coding:
         if self.levels > 32 or self.xcb > 10 or self.ycb > 10 or \
                 self.xcb + self.ycb > 12:
             raise _broken(path, "bad COD / COC segment")
+        if self.style & t1.HT_MIXED:
+            raise _broken(path, "Error reading SPCod SPCoc element. "
+                          "Unsupported Mixed HT code-block style found")
         n = self.levels + 1
         if custom_precincts:
             if len(b) < 5 + n:
@@ -209,9 +217,6 @@ class _Stream:
             marker, _, body, at_next = self._segment(cs, at)
             if marker == PPM:
                 ppm.append((body[0], body[1:]))
-            elif marker == CAP:
-                raise ValueError(f"{path}: HTJ2K is not decoded by the port "
-                                 "yet")
             else:
                 self._param(self.main, marker, body)
             at = at_next
@@ -242,9 +247,6 @@ class _Stream:
             raise _broken(self.path, "short SIZ")
         (rsiz, self.X1, self.Y1, self.X0, self.Y0, self.XT, self.YT,
          self.XT0, self.YT0, nc) = struct.unpack(">HIIIIIIIIH", b[:36])
-        if rsiz & 0x4000:
-            raise ValueError(f"{self.path}: HTJ2K is not decoded by the port "
-                             "yet")
         if len(b) < 36 + 3 * nc or nc == 0:
             raise _broken(self.path, "short SIZ")
         self.precision = [(b[36 + 3 * i] & 0x7F) + 1 for i in range(nc)]
@@ -344,9 +346,6 @@ class _Stream:
                     break
                 if marker == PPT:
                     tile["ppt"].append((body[0], body[1:]))
-                elif marker == CAP:
-                    raise ValueError(f"{self.path}: HTJ2K is not decoded by "
-                                     "the port yet")
                 elif tpsot == 0 or marker in (POC, PLT, COM):
                     self._param(tile["params"], marker, body)
                 at = at_next
@@ -456,12 +455,14 @@ class _TagTree:
 class _Block:
     """A code-block: its rectangle in band coordinates and what the
     packets gave it."""
-    __slots__ = ("x0", "y0", "x1", "y1", "numbps", "lblock", "segs")
+    __slots__ = ("x0", "y0", "x1", "y1", "numbps", "lblock", "segs",
+                 "chunks")
 
     def __init__(self, x0, y0, x1, y1):
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
         self.numbps = self.lblock = 0
         self.segs: List[list] = []       # [data chunks, passes, max passes]
+        self.chunks: List[Tuple[int, bytes]] = []  # (offset, data) as read
 
 
 class _Band:
@@ -701,7 +702,7 @@ def _read_packets(st: _Stream, tile_no: int, order, comps, styles, csty):
                 pr[3] = _TagTree(pr[1], pr[2]) if pr[1] * pr[2] else None
                 pr[4] = _TagTree(pr[1], pr[2]) if pr[1] * pr[2] else None
                 for blk in pr[0]:
-                    blk.segs = []
+                    blk.segs, blk.chunks = [], []
         if csty & 2 and body[at:at + 2] == b"\xff\x91" and \
                 len(body) - at >= 6:
             at += 6
@@ -714,6 +715,7 @@ def _read_packets(st: _Stream, tile_no: int, order, comps, styles, csty):
             for b in res.bands:
                 if b.x1 <= b.x0 or b.y1 <= b.y0:
                     continue
+                where = f"(p={p}, b={max(b.no - 1, 0)}, r={r}, c={c})"
                 blocks, cw, ch, incl, imsb = b.precs[p]
                 for k, blk in enumerate(blocks):
                     x, y = k % cw, k // cw
@@ -735,11 +737,15 @@ def _read_packets(st: _Stream, tile_no: int, order, comps, styles, csty):
                         blk.segs[-1][1] < blk.segs[-1][2] else \
                         _new_seg(blk, style)
                     while True:
-                        k_new = min(seg[2] - seg[1], n)
+                        if style & t1.HT:   # the cleanup pass alone first
+                            k_new = 1 if len(blk.segs) == 1 else n
+                        else:
+                            k_new = min(seg[2] - seg[1], n)
                         nbits = blk.lblock + int(math.log2(k_new))
                         if nbits > 32:
                             raise _broken(st.path, "bad codeword length")
-                        news.append((seg, k_new, bits.read(nbits)))
+                        news.append((blk, seg, bits.read(nbits),
+                                     f"codeblock {k} {where}"))
                         seg[1] += k_new
                         n -= k_new
                         if n <= 0:
@@ -757,11 +763,13 @@ def _read_packets(st: _Stream, tile_no: int, order, comps, styles, csty):
                 at += 2
             else:
                 hat += 2
-        for seg, k_new, n_bytes in news:
+        most = len(body) - at
+        for blk, seg, n_bytes, which in news:
             if at + n_bytes > len(body):
-                raise _broken(st.path, "code-block segment past the tile's "
-                              "data")
+                raise _broken(st.path, f"read: segment too long ({n_bytes}) "
+                              f"with max ({most}) for {which}")
             seg[0].append(body[at:at + n_bytes])
+            blk.chunks.append((at, body[at:at + n_bytes]))
             at += n_bytes
     if st.ppm is not None:
         st.ppm_at = hat
@@ -841,6 +849,27 @@ def _idwt(a: np.ndarray, res: List[_Res], reversible: bool) -> np.ndarray:
     return a
 
 
+def _decode_ht(blk: _Block, band: _Band, roi: int, style: int, path: str
+               ) -> Optional[np.ndarray]:
+    """An HT code-block through data/jpeg2000_ht.py, or None where it
+    holds no data. OpenJPEG hands every block to its HT decoder, so ROI
+    fails even an empty one."""
+    if not blk.segs and not roi:
+        return None
+    coded = b"".join(d for _, d in blk.chunks)
+    # one chunk is read where it lies in the tile's data, several from a
+    # fresh (aligned) buffer
+    align = blk.chunks[0][0] if len(blk.chunks) == 1 else 0
+    try:
+        return ht.decode_cblk(
+            blk.x1 - blk.x0, blk.y1 - blk.y0, coded,
+            [sum(len(c) for c in s[0]) for s in blk.segs],
+            [s[1] for s in blk.segs], band.numbps, blk.numbps, roi, style,
+            align)
+    except ht.HTError as e:
+        raise _broken(path, str(e)) from None
+
+
 def _decode_tile(st: _Stream, t: int) -> Tuple[tuple, List[np.ndarray]]:
     """One tile: its rectangle on the canvas and each component's int64
     samples after the MCT, the DC level shift and the clamp."""
@@ -853,8 +882,6 @@ def _decode_tile(st: _Stream, t: int) -> Tuple[tuple, List[np.ndarray]]:
     path = st.path
     comps, styles = [], []
     for c, (coding, quant, roi) in enumerate(params):
-        if coding.style & t1.HT:
-            raise ValueError(f"{path}: HTJ2K is not decoded by the port yet")
         tc = (_ceil(tx0, st.dx[c]), _ceil(ty0, st.dy[c]),
               _ceil(tx1, st.dx[c]), _ceil(ty1, st.dy[c]))
         comps.append((st.dx[c], st.dy[c], _resolutions(
@@ -875,12 +902,17 @@ def _decode_tile(st: _Stream, t: int) -> Tuple[tuple, List[np.ndarray]]:
                 oy = res[r - 1].y1 - res[r - 1].y0 if b.no & 2 else 0
                 for pr in b.precs:
                     for blk in pr[0]:
-                        if not blk.segs:
+                        if coding.style & t1.HT:
+                            v = _decode_ht(blk, b, roi, coding.style, path)
+                            if v is None:
+                                continue
+                        elif not blk.segs:
                             continue
-                        segs = [(b"".join(s[0]), s[1]) for s in blk.segs]
-                        v = t1.decode_cblk(blk.x1 - blk.x0, blk.y1 - blk.y0,
-                                           b.no, segs, blk.numbps, roi,
-                                           coding.style)
+                        else:
+                            segs = [(b"".join(s[0]), s[1]) for s in blk.segs]
+                            v = t1.decode_cblk(blk.x1 - blk.x0,
+                                               blk.y1 - blk.y0, b.no, segs,
+                                               blk.numbps, roi, coding.style)
                         if coding.reversible:
                             v = np.sign(v) * (np.abs(v) >> 1)
                         else:

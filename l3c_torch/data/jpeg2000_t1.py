@@ -26,6 +26,7 @@ import numpy as np
 
 # code-block style bits (COD/COC SPcod)
 BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM, HT = 1, 2, 4, 8, 16, 32, 64
+HT_MIXED = 128
 
 # Table C.2: Qe, the next state after an MPS and after an LPS, switch
 _QE = (0x5601, 0x3401, 0x1801, 0x0AC1, 0x0521, 0x0221, 0x5601, 0x5401,

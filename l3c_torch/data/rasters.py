@@ -26,9 +26,12 @@ width) from the bytes; `decode_*(blob, path)` gives (H, W, 3) uint8 RGB:
   - MSP: version 1 (raw) and 2 (RLE rows);
   - SUN: 1, 4 (grey), 8 (grey or palette), 24 and 32 bits, raw and RLE;
   - PSD: the merged composite of bitmap, grey, indexed, RGB(A), CMYK,
-    multichannel and duotone files, raw and PackBits (a packet cut at
-    the end of its row, as PackbitsDecode.c cuts it; the row counts and
-    planes Pillow reads are those of its mode's channels).
+    multichannel, duotone and Lab files, raw and PackBits (a packet cut
+    at the end of its row, as PackbitsDecode.c cuts it; the row counts
+    and planes Pillow reads are those of its mode's channels); Lab
+    through data/cielab.py's LittleCMS transform, an indexed file whose
+    colour-mode data is not a 768-byte palette black, as Pillow's empty
+    palette gives it.
 DDS is in data/dds.py. Where Pillow refuses a file the port refuses it;
 where Pillow reads one the port does not yet, it raises naming it.
 """
@@ -40,6 +43,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .cielab import lab_to_rgb
 from .jpeg import _muldiv255
 
 
@@ -858,14 +862,15 @@ def _packbits_rows(blob: bytes, at: int, rows: int, stride: int,
                    path: str) -> bytes:
     """PackbitsDecode.c over `rows` rows of `stride` bytes, from `at` on:
     a packet that runs past the end of its row is cut there (the rest of
-    it dropped), and 128 is a no-op."""
+    it dropped), 128 is a no-op, and a packet cut short by the end of the
+    file is the truncation Pillow refuses."""
     out = bytearray()
     for _ in range(rows):
         row = bytearray()
         while len(row) < stride:
-            if at >= len(blob):
+            n = blob[at] if at < len(blob) else 0
+            if at + (1 if n == 128 else 2 if n > 128 else n + 2) > len(blob):
                 raise ValueError(f"{path}: truncated PSD PackBits data")
-            n = blob[at]
             if n == 128:
                 at += 1
             elif n > 128:
@@ -880,11 +885,6 @@ def _packbits_rows(blob: bytes, at: int, rows: int, stride: int,
 
 def decode_psd(blob: bytes, path: str) -> np.ndarray:
     w, h, mode, ch, bits, pal, at = _psd(blob, path)
-    if mode == "LAB":
-        raise ValueError(f"{path}: Lab PSD is not decoded by the port yet")
-    if mode == "P" and pal is None:
-        raise ValueError(f"{path}: indexed PSD without a 768-byte palette "
-                         "is not decoded by the port yet")
     comp, = struct.unpack(">H", _need(blob[at:at + 2], 2, path, "PSD"))
     at += 2
     stride = (w * bits + 7) // 8
@@ -907,8 +907,11 @@ def decode_psd(blob: bytes, path: str) -> np.ndarray:
     px = np.stack(planes, -1)
     if mode == "1":
         return _grey(px[..., 0] * np.uint8(255))
-    if mode == "P":
-        return _lut(pal)[px[..., 0]]
+    if mode == "P":                 # no 768-byte palette: Pillow's empty one
+        return _lut(pal)[px[..., 0]] if pal is not None else \
+            np.zeros((h, w, 3), np.uint8)
+    if mode == "LAB":               # a and b stored offset by 128
+        return lab_to_rgb(px[..., :3] ^ np.array([0, 128, 128], np.uint8))
     if mode == "CMYK":
         return _cmyk(255 - px)
     if ch == 1:

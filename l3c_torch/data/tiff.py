@@ -74,14 +74,10 @@ _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
           11: ("f", 4), 12: ("d", 8), 13: ("I", 4), 16: ("Q", 8),
           17: ("q", 8), 18: ("Q", 8)}
 
-_COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3",
-                 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
-                 7: "JPEG", 8: "Deflate", 32771: "CCITT RLEW",
-                 32773: "PackBits",
-                 32809: "ThunderScan", 32946: "Deflate", 34676: "SGILog",
-                 34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD",
-                 50001: "WebP"}
-_READ = (1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34925, 50000)
+# the compressions Pillow 12.1 names (TiffImagePlugin.COMPRESSION_INFO); it
+# cannot identify a file of any other
+_COMPRESSIONS = frozenset((1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809,
+                           32946, 34676, 34677, 34925, 50000, 50001))
 _CCITT = (2, 3, 4, 32771)
 # codecs whose data libtiff runs the predictor over
 _PREDICTED = (5, 8, 32946, 34925, 50000)
@@ -232,6 +228,10 @@ def _parse(blob: bytes, path: str) -> _Tiff:
     order, tags = _directory(blob, path)
     one = lambda t, d: tags[t][0] if t in tags else d
     compression = one(_COMPRESSION, 1)
+    if compression not in _COMPRESSIONS:
+        raise ValueError(f"{path}: TIFF of compression {compression}, which "
+                         "Pillow has no codec for (it cannot identify the "
+                         "file either)")
     planar = one(_PLANAR, 1)
     photo = one(_PHOTO, 0)
     if compression == 6:
@@ -838,8 +838,9 @@ def _to_rgb(t: _Tiff, s: np.ndarray, path: str) -> np.ndarray:
             rgb = np.where(a == 0, 0, np.where(a == 255, rgb, div)).astype(
                 np.uint8)
         return np.ascontiguousarray(rgb)
-    else:
-        raise ValueError(f"{path}: {mode} TIFF is not decoded by the port yet")
+    else:               # OPEN_INFO gives no other mode
+        raise ValueError(f"{path}: TIFF of mode {mode}, which Pillow does "
+                         "not open")
     return np.repeat(grey[..., None], 3, axis=2)
 
 
@@ -864,11 +865,6 @@ def decode_tiff(blob: bytes, path: str = "<TIFF bytes>") -> np.ndarray:
                          "interpretation for SGILog compression; must be "
                          "either LogLUV or LogL, for which Pillow has no "
                          "mode)")
-    if t.compression not in _READ:
-        name = _COMPRESSIONS.get(t.compression, f"compression "
-                                 f"{t.compression}")
-        raise ValueError(f"{path}: {name} TIFF is not decoded by the port "
-                         "yet")
     if t.compression in _CCITT and t.bps != (1,):
         raise ValueError(f"{path}: CCITT TIFF of {t.bps} bits a sample "
                          "(libtiff: Bits/sample must be 1 for Group 3/4 "
@@ -937,7 +933,7 @@ def _ojpeg_stream(t: _Tiff, blob: bytes, path: str) -> bytes:
     restart = tags.get(_JPEG_RESTART, (0,))[0]
     if restart:
         out += b"\xff\xdd\x00\x04" + struct.pack(">H", restart)
-    h, v = _subsampling(t, path) if t.photo == 6 else (1, 1)
+    h, v = _subsampling(t, path) if spp == 3 else (1, 1)
     out += b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * spp, 8, t.height,
                                       t.width, spp)
     for i in range(spp):
@@ -949,24 +945,94 @@ def _ojpeg_stream(t: _Tiff, blob: bytes, path: str) -> bytes:
     return bytes(out) + strips + b"\xff\xd9"
 
 
+# the markers libtiff's OJPEGReadHeaderInfoSec walks past in a stream:
+# SOI, COM, APP0-15, DRI, DQT, DHT, SOF0, SOF1, SOF3 and SOS
+_OJPEG_MARKERS = {0xD8, 0xFE, 0xDD, 0xDB, 0xC4, 0xC0, 0xC1, 0xC3, 0xDA} | \
+    set(range(0xE0, 0xF0))
+
+
+def _ojpeg_refused(path: str, why: str) -> ValueError:
+    return ValueError(f"{path}: old-style JPEG TIFF: {why} (libtiff refuses "
+                      "it; Pillow: decoder error -2)")
+
+
+def _ojpeg_header(stream: bytes, path: str) -> None:
+    """OJPEGReadHeaderInfoSec's walk over the markers up to SOS: any other
+    marker is refused."""
+    at = 0
+    while at + 1 < len(stream) and stream[at] == 0xFF:
+        at += 1
+        while at < len(stream) and stream[at] == 0xFF:
+            at += 1
+        if at >= len(stream):
+            return
+        m = stream[at]
+        at += 1
+        if m not in _OJPEG_MARKERS:
+            raise _ojpeg_refused(path, "OJPEGReadHeaderInfoSec: Unknown "
+                                 f"marker type {m} in JPEG data")
+        if m == 0xDA:
+            return
+        if m != 0xD8:
+            at += struct.unpack(">H", stream[at:at + 2].ljust(2, b"\0"))[0]
+
+
 def _ojpeg(t: _Tiff, blob: bytes, path: str) -> np.ndarray:
-    """An old-style JPEG TIFF as libtiff's RGBA reader gives it to Pillow:
-    libjpeg's raw planes (no upsampling), each pixel with its block's
-    chroma, then TIFFYCbCrToRGB."""
-    if t.planar != 1 or len(t.bps) != 3 or t.bps != (8, 8, 8):
-        raise ValueError(f"{path}: old-style JPEG TIFF of {t.bps} samples "
-                         "is not decoded by the port yet")
-    frame, planes = jpeg.raw_planes(_ojpeg_stream(t, blob, path), path)
-    if len(planes) != 3 or frame.progressive:
-        raise ValueError(f"{path}: old-style JPEG TIFF of this stream is "
-                         "not decoded by the port yet")
-    hmax = max(c.h for c in frame.comps)
-    vmax = max(c.v for c in frame.comps)
-    if (frame.comps[1].h, frame.comps[1].v, frame.comps[2].h,
-            frame.comps[2].v) != (1, 1, 1, 1) or \
-            (frame.width, frame.height) != (t.width, t.height):
-        raise ValueError(f"{path}: old-style JPEG TIFF whose stream does "
-                         "not match its tags is not decoded by the port yet")
+    """An old-style JPEG TIFF as libtiff gives it to Pillow. libtiff takes
+    photometric RGB for YCbCr; YCbCr (three samples) goes through its RGBA
+    reader: libjpeg's raw planes (no upsampling), each pixel with its
+    block's chroma, then TIFFYCbCrToRGB, the planes contiguous or
+    separate alike; grey (one sample, MinIsBlack or MinIsWhite) is the
+    component as libjpeg decodes it. What libtiff refuses, and three
+    samples of another photometric, which Pillow's decoder fails, raise
+    with the reason."""
+    spp = len(t.bps)
+    photo = t.tags.get(_PHOTO, (0,))[0]
+    photo = 6 if photo == 2 else photo
+    if photo == 6 and spp != 3:
+        raise _ojpeg_refused(path, "TIFFVStripSize64: Invalid "
+                             "td_samplesperpixel value; TIFFReadDirectory: "
+                             "Cannot handle zero strip size")
+    if spp == 3 and photo != 6:
+        raise ValueError(f"{path}: old-style JPEG TIFF of three samples and "
+                         f"photometric {photo}: Pillow's libtiff decode "
+                         "fails (decoder error -2)")
+    stream = _ojpeg_stream(t, blob, path)
+    _ojpeg_header(stream, path)
+    frame, planes = jpeg.raw_planes(stream, path)
+    if frame.height < t.height:
+        raise _ojpeg_refused(path, "OJPEGReadHeaderInfoSecStreamSof: JPEG "
+                             "compressed data indicates unexpected height")
+    if frame.width < t.width:
+        raise _ojpeg_refused(path, "OJPEGReadHeaderInfoSecStreamSof: JPEG "
+                             "compressed data indicates unexpected width")
+    if frame.width > t.width:
+        raise _ojpeg_refused(path, "OJPEGReadHeaderInfoSecStreamSof: JPEG "
+                             "compressed data image width exceeds expected "
+                             "image width")
+    if len(planes) != spp:
+        raise _ojpeg_refused(path, "OJPEGReadHeaderInfoSecStreamSof: JPEG "
+                             "compressed data indicates unexpected number "
+                             "of samples")
+    comps = frame.comps
+    if spp == 1:
+        if (comps[0].h, comps[0].v) != (1, 1):
+            raise _ojpeg_refused(path, "OJPEGReadHeaderInfoSecStreamSof: "
+                                 "JPEG compressed data indicates unexpected "
+                                 "subsampling values")
+        return _to_rgb(t, planes[0][:t.height, :t.width, None], path)
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    if any((c.h, c.v) != (1, 1) for c in comps[1:]) or \
+            comps[0].h not in (1, 2, 4) or comps[0].v not in (1, 2, 4):
+        # libtiff leaves such sampling to libjpeg, then finds it unexpected
+        if sum(c.h * c.v for c in comps) > 10:
+            raise _ojpeg_refused(path, "LibJpeg: Sampling factors too large"
+                                 " for interleaved scan")
+        raise _ojpeg_refused(path, "OJPEGWriteHeaderInfo: "
+                             "jpeg_start_decompress() returned "
+                             f"max_h_samp_factor = {hmax} and "
+                             f"max_v_samp_factor = {vmax}, expected 1 and 1")
     y = planes[0][:t.height, :t.width]
     up = [np.repeat(np.repeat(c, vmax, 0), hmax, 1)[:t.height, :t.width]
           for c in planes[1:]]

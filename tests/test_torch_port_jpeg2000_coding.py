@@ -24,7 +24,8 @@ codestreams:
     bits;
 every pixel equal to Pillow's convert("RGB") and the JAX loader's, and the
 mode and size from the header equal to Pillow's; where Pillow refuses a
-file the port raises ValueError. An HTJ2K codestream is refused by name.
+file the port raises ValueError. A Part-1 codestream marked as HTJ2K is
+refused as OpenJPEG refuses it (its MQ passes read as HT code-blocks).
 
 The writer finds opj_cparameters_t's fields by what
 opj_set_default_encoder_parameters writes (numresolution 6 followed by the
@@ -565,6 +566,8 @@ def _digest(arr):
 # files Pillow refuses: what the port's refusal says
 _PORT_REFUSES = {
     "five_components.j2k": "JPEG 2000 of 5 components",
+    "htj2k.j2k": "We do not support more than 3 coding passes in an HT "
+                 "codeblock; This codeblocks has 19 passes.",
     "jp2_esycc.jp2": "mode RGB, 3 components in colour space EYCC",
     "jp2_grey_for_rgb.jp2": "mode RGB, 3 components in colour space GRAY",
     "jp2_ihdr_larger.jp2": "the JP2 header's size is not the codestream's",
@@ -591,9 +594,7 @@ def expected_now(d):
             e["sha256"] = _digest(jimages.load_image_uint8(p))
         except (OSError, SyntaxError, ValueError) as err:
             e["pillow_refuses"] = type(err).__name__
-            e["port"] = _PORT_REFUSES.get(n)     # HTJ2K's follows
-        if n.startswith("htj2k"):
-            e = {"refused": "HTJ2K"}
+            e["port"] = _PORT_REFUSES.get(n)
         out[n] = e
     return out
 

@@ -492,7 +492,8 @@ def test_sun_equals_pillow(tmp_path, case, rle):
 
 _PSD_KINDS = {"bitmap": (0, 1, 1), "grey": (1, 8, 1), "indexed": (2, 8, 1),
               "rgb": (3, 8, 3), "rgba": (3, 8, 4), "cmyk": (4, 8, 4),
-              "multichannel": (7, 8, 2), "duotone": (8, 8, 1)}
+              "multichannel": (7, 8, 2), "duotone": (8, 8, 1),
+              "lab": (9, 8, 3)}
 
 
 def make_psd(planes, kind, rle, cmdata=b""):
@@ -529,6 +530,53 @@ def test_psd_composite_equals_pillow(tmp_path, case, rle):
     if case == "indexed":
         cmdata = r.randint(0, 256, 768).astype(np.uint8).tobytes()
     check(_write(tmp_path, "p.psd", make_psd(planes, case, rle, cmdata)))
+
+
+@pytest.mark.parametrize("rle", [False, True])
+@pytest.mark.parametrize("hw", [(1, 1), (6, 33), (31, 8)])
+def test_lab_psd_equals_pillow(tmp_path, rle, hw):
+    """Lab PSDs, which Pillow opens as LAB and converts through
+    LittleCMS, at several sizes, every a / b sign."""
+    r = np.random.RandomState(hw[0] * 100 + hw[1] + rle)
+    planes = r.randint(0, 256, (3,) + hw).astype(np.uint8)
+    planes[1, 0, 0], planes[2, 0, 0] = 0x7F, 0x80
+    check(_write(tmp_path, "l.psd", make_psd(planes, "lab", rle)))
+
+
+@pytest.mark.parametrize("rle", [False, True])
+@pytest.mark.parametrize("seed", [10, 11])
+def test_lab_psd_with_a_fourth_channel_as_pillow(tmp_path, monkeypatch,
+                                                rle, seed):
+    """Pillow reads a Lab file's first three channels: raw ones as they
+    lie, PackBits ones after three channels' row counts, so the fourth
+    channel's counts are read as data; where that decode runs past the
+    end of the file Pillow and the port both refuse it (seed 11)."""
+    r = np.random.RandomState(seed)
+    planes = r.randint(0, 256, (4, 9, 14)).astype(np.uint8)
+    planes[:, 2, :] = 17
+    monkeypatch.setitem(_PSD_KINDS, "lab4", (9, 8, 4))
+    p = _write(tmp_path, "l.psd", make_psd(planes, "lab4", rle))
+    if not (rle and seed == 11):
+        check(p)
+        return
+    with pytest.raises(OSError, match="truncated"):
+        jimages.load_image_uint8(p)
+    with pytest.raises(ValueError, match="truncated PSD PackBits data"):
+        timages.load_image_uint8(p)
+
+
+@pytest.mark.parametrize("n", [0, 3, 767, 769])
+@pytest.mark.parametrize("rle", [False, True])
+@pytest.mark.parametrize("hw", [(4, 9), (16, 16)])
+def test_indexed_psd_without_a_768_byte_palette_equals_pillow(tmp_path, n,
+                                                              rle, hw):
+    """Colour-mode data of other lengths than 768 sets no palette: Pillow
+    looks every index up in an empty one."""
+    r = np.random.RandomState(n + rle)
+    planes = r.randint(0, 256, (1,) + hw).astype(np.uint8)
+    cmdata = r.randint(0, 256, n).astype(np.uint8).tobytes()
+    check(_write(tmp_path, "p.psd", make_psd(planes, "indexed", rle,
+                                             cmdata)))
 
 
 # ------------------------------------------------------------------ DDS
@@ -747,6 +795,7 @@ def make_pillow_formats(d):
     planes = _photo(40, 56, 20).transpose(2, 0, 1).copy()
     with open(os.path.join(d, "s.psd"), "wb") as f:
         f.write(make_psd(planes, "rgb", True))
+    write_psd_repairs(d)
     save("t_dxt5.dds", ph(48, 64, 21).convert("RGBA"), "DDS",
          pixel_format="DXT5")
     blocks = np.random.RandomState(22).randint(0, 256, 12 * 16 * 16).astype(
@@ -764,6 +813,16 @@ def make_pillow_formats(d):
     save("w.jp2", ph(48, 64, 24), "JPEG2000")
     save("x.j2k", ph(40, 40, 25).convert("L"), "JPEG2000", no_jp2=True)
     save("y.avif", ph(48, 56, 26).convert("RGBA"), "AVIF")
+
+
+def write_psd_repairs(d):
+    """A Lab PSD and an indexed PSD with a 767-byte colour-mode block."""
+    planes = _photo(40, 48, 28).transpose(2, 0, 1).copy()
+    with open(os.path.join(d, "s_lab.psd"), "wb") as f:
+        f.write(make_psd(planes, "lab", True))
+    with open(os.path.join(d, "s_short_palette.psd"), "wb") as f:
+        f.write(make_psd(planes[:1], "indexed", False, bytes(range(256)) * 2
+                         + bytes(255)))
 
 
 def _digest(arr):

@@ -688,6 +688,7 @@ def make_registry_fixtures(d):
     files["e_ojpeg_jif.tif"] = ojpeg_interchange(img, _jpeg(img))
     files["e_ojpeg_tables.tif"] = ojpeg_tables(img, _jpeg(img, "4:2:2"),
                                                (2, 1))
+    files.update(ojpeg_corner_files())
     rlew = bytearray()
     for row in bits[:8]:
         rlew += _mh_row(row)
@@ -766,6 +767,25 @@ def make_registry_fixtures(d):
             f.write(blob)
 
 
+def ojpeg_corner_files():
+    """Old-style JPEG at its corners: one grey sample from a taller stream,
+    separate planes; a progressive stream and chroma sampled 2 x 1 / 1 x 2,
+    which libtiff refuses."""
+    from test_torch_port_jpeg import QTS, _coefs, encode
+    from test_torch_port_tiff_codecs import _SAMPLINGS, _jpeg, ojpeg_file
+    img = _img(24, 32, 6)
+    comps = _SAMPLINGS["mixed"]
+    return {
+        "e_ojpeg_grey.tif": ojpeg_file(_jpeg(img[..., 0], "4:4:4"), 21, 32,
+                                       1, 1),
+        "e_ojpeg_planar.tif": ojpeg_file(_jpeg(img), 24, 32, sub=(2, 2),
+                                         planar=2),
+        "e_ojpeg_progressive.tif": ojpeg_file(_jpeg(img, progressive=True),
+                                              24, 32),
+        "e_ojpeg_sampling.tif": ojpeg_file(encode(
+            32, 24, comps, _coefs(comps, 32, 24, 6), QTS), 24, 32)}
+
+
 def _digest(a):
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
@@ -774,7 +794,13 @@ def _digest(a):
 _BY_NAME = {"o_avif.avif": "AVIF"}
 # files Pillow refuses: what the port's refusal says
 _PORT_REFUSES = {"e_webp.tif": "WEBP compression support is not configured",
-                 "n_im_rlb.im": "Pillow has no raw mode for it"}
+                 "n_im_rlb.im": "Pillow has no raw mode for it",
+                 "e_ojpeg_progressive.tif": "OJPEGReadHeaderInfoSec: Unknown "
+                                            "marker type 194 in JPEG data",
+                 "e_ojpeg_sampling.tif": "jpeg_start_decompress() returned "
+                                         "max_h_samp_factor = 2 and "
+                                         "max_v_samp_factor = 2, expected 1 "
+                                         "and 1"}
 
 
 def registry_expected_now():

@@ -410,6 +410,49 @@ def test_twelve_bit_grey_equals_pillow(tmp_path, comp, w):
     check(_write(tmp_path, "x.tif", blob))
 
 
+def _as_12_bit(jb, marker):
+    """`jb` with its frame header turned into `marker` at 12 bits."""
+    i = jb.index(b"\xff" + bytes([marker if marker == 0xC3 else 0xC0]))
+    b = bytearray(jb)
+    b[i + 1], b[i + 4] = marker, 12
+    return bytes(b)
+
+
+def test_jpeg12_lossless_and_wrong_streams_as_pillow(tmp_path):
+    """A lossless 12-bit stream in a 12-bit grey TIFF decodes as Pillow
+    decodes it (an even width: at an odd one libtiff leaves the last
+    sample of each row unwritten, and Pillow shows whatever its buffer
+    held); a three-component one is refused by both (libtiff: Improper
+    JPEG component count)."""
+    from test_torch_port_jpeg import QTS, _coefs, encode
+    from test_torch_port_jpeg_lossless import encode_lossless
+    r = np.random.RandomState(14)
+    h, w = 16, 22
+    for psv in (1, 4, 7):
+        jl = encode_lossless([r.randint(0, 256, (h, w))], [(1, 1)], psv=psv)
+        check(_write(tmp_path, f"l{psv}.tif", make_tiff(
+            np.zeros((h, w, 1), np.uint8), photo=1, bits=12, comp=7,
+            jpeg_chunks=[_as_12_bit(jl, 0xC3)])))
+    comps = [(1, 1, 0), (1, 1, 1), (1, 1, 1)]
+    jb = _as_12_bit(encode(w, h, comps, _coefs(comps, w, h, 3), QTS), 0xC1)
+    refused_by_both(_write(tmp_path, "c.tif", make_tiff(
+        np.zeros((h, w, 1), np.uint8), photo=1, bits=12, comp=7,
+        jpeg_chunks=[jb])), "Improper JPEG component count")
+
+
+@pytest.mark.parametrize("comp", [9, 32766, 32908, 34712, 50002])
+def test_compression_pillow_has_no_codec_for_is_refused_at_open(tmp_path,
+                                                                comp):
+    p = _write(tmp_path, "u.tif", make_tiff(
+        np.zeros((4, 6, 1), np.uint8), photo=1, bits=8, comp=comp,
+        jpeg_chunks=[bytes(24)]))
+    with pytest.raises(Exception):
+        Image.open(p)
+    with pytest.raises(ValueError, match="Pillow has no codec"):
+        timages.image_mode(p)
+    refused_by_both(p)
+
+
 # ------------------------------------------------------ old-style JPEG
 
 def _jpeg(img, subsampling="4:2:0", **kw):
@@ -422,10 +465,7 @@ def _jpeg(img, subsampling="4:2:0", **kw):
 def ojpeg_interchange(img, jb, sub=(2, 2)):
     """Compression 6 with JPEGInterchangeFormat pointing at the whole JPEG
     stream, which is also the one strip."""
-    h, w, _ = img.shape
-    blob = make_tiff(np.zeros((h, w, 3), np.uint8), photo=6, bits=8, comp=6,
-                     jpeg_chunks=[jb], ycbcr=sub)
-    return with_tags(blob, {513: (4, [8]), 514: (4, [len(jb)])})
+    return ojpeg_file(jb, *img.shape[:2], sub=sub)
 
 
 def _split_jpeg(jb):
@@ -455,13 +495,13 @@ def _split_jpeg(jb):
         at += 2 + n
 
 
-def ojpeg_tables(img, jb, sub=(2, 2)):
+def ojpeg_tables(img, jb, sub=(2, 2), spp=3, photo=6, planar=1):
     """Compression 6 without JPEGInterchangeFormat: the tables in the
     JPEGQTables / DCTables / ACTables tags, the strip only entropy data."""
-    h, w, _ = img.shape
+    h, w = img.shape[:2]
     q, dc, ac, data, restart = _split_jpeg(jb)
-    blob = make_tiff(np.zeros((h, w, 3), np.uint8), photo=6, bits=8, comp=6,
-                     jpeg_chunks=[data], ycbcr=sub)
+    blob = make_tiff(np.zeros((h, w, spp), np.uint8), photo=photo, bits=8,
+                     comp=6, jpeg_chunks=[data], ycbcr=sub, planar=planar)
     area, offs = bytearray(), {}
     for name, d in (("q", q), ("dc", dc), ("ac", ac)):
         for k, v in d.items():
@@ -469,7 +509,7 @@ def ojpeg_tables(img, jb, sub=(2, 2)):
             area += v
     tags = {512: (3, [1])}
     for tag, name in ((519, "q"), (520, "dc"), (521, "ac")):
-        tags[tag] = (4, [offs[name, 0], offs[name, 1], offs[name, 1]])
+        tags[tag] = (4, [offs[name, 0]] + [offs.get((name, 1), 0)] * (spp - 1))
     if restart:
         tags[515] = (3, [restart])
     return with_tags(blob + bytes(area), tags)
@@ -495,6 +535,106 @@ def test_old_style_jpeg_restarts_mismatch_and_truncation(tmp_path):
     jb = _jpeg(img, "4:2:0")
     refused_by_both(_write(tmp_path, "t.tif", ojpeg_interchange(
         img, jb[:len(jb) // 2])))
+
+
+def ojpeg_file(jb, h, w, spp=3, photo=6, sub=None, planar=1):
+    """Compression 6 with JPEGInterchangeFormat over `jb`, the tags saying
+    h x w, `spp` samples of photometric `photo`."""
+    blob = make_tiff(np.zeros((h, w, spp), np.uint8), photo=photo, bits=8,
+                     comp=6, jpeg_chunks=[jb], ycbcr=sub, planar=planar)
+    return with_tags(blob, {513: (4, [8]), 514: (4, [len(jb)])})
+
+
+@pytest.mark.parametrize("photo", [0, 1])
+@pytest.mark.parametrize("hw", [(32, 48), (13, 21)])
+@pytest.mark.parametrize("rows", [0, 5])
+def test_old_style_jpeg_grey_equals_pillow(tmp_path, photo, hw, rows):
+    """One sample, MinIsBlack or MinIsWhite: the component as libjpeg
+    decodes it (from JPEGInterchangeFormat, or the tables' tags), and a
+    stream taller than the tags, cut to them."""
+    g = _rgb(*hw, sum(hw) + photo)[..., 0]
+    jb = _jpeg(g, "4:4:4")
+    check(_write(tmp_path, "g.tif", ojpeg_file(jb, hw[0] - rows, hw[1], 1,
+                                               photo)))
+    check(_write(tmp_path, "t.tif", ojpeg_tables(g[:hw[0] - rows], jb, None,
+                                                 1, photo)))
+
+
+@pytest.mark.parametrize("planar", [1, 2])
+@pytest.mark.parametrize("rows", [1, 7, 15])
+def test_old_style_jpeg_taller_stream_and_separate_planes_equal_pillow(
+        tmp_path, planar, rows):
+    img = _rgb(32, 48, 11 + rows)
+    check(_write(tmp_path, "o.tif", ojpeg_file(
+        _jpeg(img, "4:2:0"), 32 - rows, 48, sub=(2, 2), planar=planar)))
+
+
+_SAMPLINGS = {"mixed": [(2, 2, 0), (2, 1, 1), (1, 2, 1)],
+              "chroma_2x2": [(1, 1, 0), (2, 2, 1), (1, 1, 1)],
+              "all_2x2": [(2, 2, 0), (2, 2, 1), (2, 2, 1)],
+              "luma_3x1": [(3, 1, 0), (1, 1, 1), (1, 1, 1)]}
+
+
+def _ojpeg_refusals():
+    """name -> (file bytes, libtiff's reason)."""
+    from test_torch_port_jpeg import QTS, _coefs, encode
+    img = _rgb(32, 48, 12)
+    g = img[..., 0]
+    out = {
+        "progressive": (ojpeg_file(_jpeg(img, progressive=True), 32, 48),
+                        "Unknown marker type 194 in JPEG data"),
+        "progressive_grey": (ojpeg_file(_jpeg(g, "4:4:4", progressive=True), 32,
+                                        48, 1, 1),
+                             "Unknown marker type 194 in JPEG data"),
+        "grey_sampled_2x2": (ojpeg_file(_jpeg(g), 32, 48, 1, 1),
+                             "indicates unexpected subsampling values"),
+        "grey_stream_three_samples": (
+            ojpeg_file(_jpeg(g, "4:4:4"), 32, 48),
+            "indicates unexpected number of samples"),
+        "colour_stream_one_sample": (
+            ojpeg_file(_jpeg(img, "4:4:4"), 32, 48, 1, 1),
+            "indicates unexpected number of samples"),
+        "one_sample_rgb": (ojpeg_file(_jpeg(g, "4:4:4"), 32, 48, 1, 2),
+                           "Cannot handle zero strip size"),
+        "one_sample_ycbcr": (ojpeg_file(_jpeg(g, "4:4:4"), 32, 48, 1, 6),
+                             "Cannot handle zero strip size"),
+        "shorter_stream": (ojpeg_file(_jpeg(img), 40, 48),
+                           "indicates unexpected height"),
+        "narrower_stream": (ojpeg_file(_jpeg(img), 32, 56),
+                            "indicates unexpected width"),
+        "wider_stream": (ojpeg_file(_jpeg(img), 32, 40),
+                         "image width exceeds expected image width"),
+    }
+    for photo in (0, 1, 5):
+        out[f"three_samples_photometric_{photo}"] = (
+            ojpeg_file(_jpeg(img), 32, 48, photo=photo),
+            "decoder error -2")
+    for name, comps in _SAMPLINGS.items():
+        jb = encode(48, 32, comps, _coefs(comps, 48, 32, 7), QTS)
+        why = "Sampling factors too large" if name == "all_2x2" else \
+            "returned max_h_samp_factor"
+        out[f"sampling_{name}"] = (ojpeg_file(jb, 32, 48), why)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_ojpeg_refusals()))
+def test_old_style_jpeg_refused_as_libtiff_refuses(tmp_path, name):
+    blob, why = _ojpeg_refusals()[name]
+    refused_by_both(_write(tmp_path, "r.tif", blob), match=why)
+
+
+def test_old_style_jpeg_of_four_samples_is_not_opened(tmp_path):
+    """Pillow takes old-style JPEG for YCbCr and has no mode for four
+    8-bit YCbCr samples: neither opens it."""
+    img = _rgb(16, 16, 13)
+    f = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(f, "JPEG")
+    p = _write(tmp_path, "c.tif", ojpeg_file(f.getvalue(), 16, 16, 4, 5))
+    with pytest.raises(Exception):
+        Image.open(p)
+    with pytest.raises(ValueError, match="unknown pixel mode"):
+        timages.image_mode(p)
+    refused_by_both(p)
 
 
 # ------------------------------------------- CCITT RLEW, raw YCbCr layouts
