@@ -245,8 +245,9 @@ Phases (each raises on failure; none carries on after another failed):
  18. pillow_formats  the formats Pillow opens beyond those (GIF, TIFF,
               TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB,
               JPEG 2000; l3c_torch/data/fixtures/pillow_formats) to
-              Pillow's format, mode, size and pixel digest, AVIF to
-              Pillow's mode and size and refused by name; cli.l3c enc / dec of a
+              Pillow's format, mode, size and pixel digest, AVIF (Pillow's
+              default save) to Pillow's mode and size and refused naming
+              its deblocking filter; cli.l3c enc / dec of a
               GIF and an LZW TIFF bit-exact with exact launch counts;
               cli.test --write_to_files --compare_theory over the folder
               (its listing keeps a GIF named .png and a TIFF named .jpg,
@@ -281,7 +282,8 @@ Phases (each raises on failure; none carries on after another failed):
               host (no Pillow): every file of
               l3c_torch/data/fixtures/registry to Pillow's format, mode,
               size and pixel digest, Pillow's refusals refused with the
-              port's message, AVIF by name; the same digests from this
+              port's message, AVIF naming its deblocking filter; the same
+              digests from this
               host's Pillow wherever it has the codec (held), its libtiff
               and which TIFF fixtures it reads; cli.l3c enc / dec of a
               Group 4 page and a FITS file bit-exact with exact launch
@@ -304,11 +306,27 @@ Phases (each raises on failure; none carries on after another failed):
               --compare_theory over the folder (an HT JP2 named .png
               listed), K3 to K6 launched; the host's decode MP/s of the
               two, fastest of 3
- 22. report   one JSON line of kernel records (each with its path:
+ 22. avif     AVIF stills whose AV1 frame runs no in-loop filter on this
+              machine's host (no Pillow): every file of
+              l3c_torch/data/fixtures/avif (AV1 lossless, filters-off
+              lossy at 4:4:4 / 4:2:2 / 4:2:0 / 4:0:0, full and limited
+              range, BT.601 / BT.709 / identity, CfL, palettes, filter
+              intra, directional, smooth and Paeth prediction, every
+              transform size, tiles, 128 superblocks, delta q) to
+              Pillow's format, mode, size and pixel digest, Pillow's
+              default saves and premultiplied alpha refused by name; the
+              same digests from this host's Pillow wherever it imports
+              (held), its libavif, dav1d, aom and libyuv logged; cli.l3c
+              enc / dec of a 512 x 512 lossy 4:2:0 file and a lossless
+              4:4:4 one bit-exact with exact launch counts; cli.test
+              --write_to_files --compare_theory over the folder (an AVIF
+              named .png listed), K3 to K6 launched; the host's decode
+              MP/s of the two, fastest of 3
+ 23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
               phase damaged, phase pillow_formats, phase jpeg2000,
-              phase registry_formats and phase htj2k),
+              phase registry_formats, phase htj2k and phase avif),
               the card line, then
               {"ok": true, "device": {...}} as the last line
 
@@ -4975,9 +4993,20 @@ if len(sys.argv) > 2:
         webp = "reads it: pixel (0, 0) " + str(px[0, 0].tolist())
     except Exception as e:
         webp = "refuses it: " + str(e)[:80]
+avif = {"libavif": features.version("avif")}
+try:                            # the AV1 codecs and libyuv Pillow bundles
+    import ctypes, glob, os
+    from PIL import _avif
+    avif["codecs"] = _avif.codec_versions()
+    lib = glob.glob(os.path.join(os.path.dirname(Image.__file__), "..",
+                                 "pillow.libs", "libavif*"))
+    avif["libyuv"] = ctypes.CDLL(lib[0]).avifLibYUVVersion() if lib else None
+except Exception as e:
+    avif["error"] = str(e)[:80]
 print(json.dumps({"files": files, "pillow": Image.__version__,
                   "libtiff": features.version("libtiff"),
-                  "openjpeg": features.version("jpg_2000"), "webp": webp}))
+                  "openjpeg": features.version("jpg_2000"), "webp": webp,
+                  "avif": avif}))
 """
 
 
@@ -5147,6 +5176,89 @@ def phase_htj2k(card):
     return total
 
 
+AVIF = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
+
+
+def phase_avif(card):
+    """AVIF stills whose AV1 frame runs no in-loop filter, decoded on this
+    machine's host with no Pillow (data/avif.py, av1_*.py, avif_yuv.py):
+    every fixture of l3c_torch/data/fixtures/avif held to Pillow's format,
+    mode, size and pixel digest (expected.json), the files with tools the
+    port does not decode yet refused by name; this host's Pillow, where it
+    imports, decoding every decoded fixture to its digest (a differing one
+    fails), its libavif, AV1 codecs and libyuv logged; cli.l3c enc / dec of
+    the 512 x 512 lossy 4:2:0 file and the lossless 4:4:4 one bit-exact
+    with exact launch counts; cli.test --write_to_files --compare_theory
+    over the folder (its listing keeps an AVIF named .png); the host's
+    decode rates of the two, fastest of 3. Returns the launches of its CLI
+    calls."""
+    from l3c_torch.data import avif
+    with open(os.path.join(AVIF, "expected.json")) as f:
+        exp = json.load(f)
+    cpu = host_cpu()
+    # ---- (a) every fixture's format, mode, size and pixels; refusals
+    t0 = time.perf_counter()
+    decoded, refused = fixtures_hold(AVIF, exp["files"])
+    made = exp["made_by"]
+    log(f"[avif] {len(decoded)} fixtures decoded: formats, modes, sizes and "
+        f"pixel digests equal Pillow's (expected.json, made by Pillow "
+        f"{made['pillow']}, libavif {made['libavif']}, dav1d "
+        f"{made['dav1d']}, aom {made['aom']}, libyuv {made['libyuv']}); "
+        f"{len(refused)} refused by name ({', '.join(refused)}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    # ---- (b) this host's Pillow on the same files
+    paths = {os.path.join(AVIF, n): e.get("sha256", "")
+             for n, e in exp["files"].items()}
+    run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
+                          json.dumps(paths)], capture_output=True, text=True,
+                         timeout=300)
+    if run.returncode == NO_PILLOW:
+        log("[avif] this host has no Pillow that imports: its libavif not "
+            f"known ({run.stderr.strip()[-200:]})")
+    elif run.returncode:
+        raise RuntimeError(f"the host's Pillow check failed (exit "
+                           f"{run.returncode}): {run.stdout.strip()[-300:]!r}"
+                           f" {run.stderr.strip()[-1000:]}")
+    else:
+        host = json.loads(run.stdout.strip().splitlines()[-1])
+        got = host["files"]
+        bad = sorted(n for n in decoded if got.get(n) != "same")
+        if bad:
+            raise RuntimeError(f"this host's Pillow {host['pillow']} "
+                               f"({host.get('avif')}) decodes "
+                               f"{', '.join(bad)} otherwise than "
+                               f"expected.json: {[got.get(n) for n in bad]}")
+        # a refused file has no digest: "differs" says this Pillow decoded it
+        ran = sum(got.get(n) == "differs" for n in refused)
+        log(f"[avif] this host's Pillow {host['pillow']} ({host.get('avif')})"
+            f" decodes all {len(decoded)} decoded fixtures to their digests "
+            f"(held) and {ran} of the {len(refused)} the port refuses by "
+            f"name (reported)")
+    # ---- (c) cli.l3c enc / dec of the two coded files; (d) cli.test
+    total = code_and_test(AVIF, exp, "avif", card)
+    # ---- (e) the host's decode rates of the two coded files
+    rates = []
+    for name in exp["coded"]:
+        e = exp["files"][name]
+        blob = open(os.path.join(AVIF, name), "rb").read()
+        dt = math.inf
+        for _ in range(3):           # the fastest of three decodes
+            t0 = time.perf_counter()
+            arr = avif.decode_avif(blob, name)
+            dt = min(dt, time.perf_counter() - t0)
+        if pixel_digest(arr) != e["sha256"]:
+            raise RuntimeError(f"{name}: pixels differ from Pillow's")
+        h, w = e["size"]
+        rates.append(f"{name} ({w} x {h}, {len(blob)} bytes, "
+                     f"{len(blob) * 8 / (h * w):.3f} bits a pixel) "
+                     f"{h * w / dt / 1e6:.4f} MP/s ({dt * 1e3:.1f} ms)")
+    log(f"[avif] host decode rates, fastest of 3, pixels Pillow's: "
+        f"{'; '.join(rates)} | host {cpu}")
+    log(f"[avif] launches of the cli.l3c and cli.test calls: "
+        f"{({k: v for k, v in total.items() if v})} | {card}")
+    return total
+
+
 def timed(name, fn, *args):
     """fn(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -5209,6 +5321,7 @@ def main() -> int:
     j2k_counts = timed("jpeg2000", phase_jpeg2000, card)
     registry_counts = timed("registry_formats", phase_registry_formats, card)
     htj2k_counts = timed("htj2k", phase_htj2k, card)
+    avif_counts = timed("avif", phase_avif, card)
     for rec in recs:
         rec["prep_launches"] = prep_counts.get(rec["name"], 0)
         rec["synth_launches"] = synth_counts.get(rec["name"], 0)
@@ -5219,6 +5332,7 @@ def main() -> int:
         rec["registry_formats_launches"] = registry_counts.get(rec["name"],
                                                                0)
         rec["htj2k_launches"] = htj2k_counts.get(rec["name"], 0)
+        rec["avif_launches"] = avif_counts.get(rec["name"], 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": recs}))
     print(card)

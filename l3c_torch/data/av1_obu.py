@@ -1,0 +1,538 @@
+"""AV1's OBU syntax for a still image (the AV1 specification, sections 5
+and 6): OBU headers, the sequence header with its colour config, and the
+uncompressed header of an intra frame with its tile info, quantizer,
+segmentation, delta and loop-filter / CDEF / restoration parameters,
+then the tile groups' tile sizes.
+
+`parse_av1(data, path)` returns the sequence header, the frame header
+and the tiles of the first shown frame. What this decoder does not
+decode yet (in-loop filters, superres, film grain, intra block copy,
+quantizer matrices, bit depths above 8, inter frames) is refused by name
+with "... is not decoded by the port yet"; a bitstream dav1d cannot
+parse is refused as damaged.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import List, Tuple
+
+OBU_SEQUENCE_HEADER, OBU_TEMPORAL_DELIMITER, OBU_FRAME_HEADER = 1, 2, 3
+OBU_TILE_GROUP, OBU_METADATA, OBU_FRAME = 4, 5, 6
+OBU_REDUNDANT_FRAME_HEADER, OBU_PADDING = 7, 15
+KEY_FRAME, INTRA_ONLY_FRAME = 0, 2
+SELECT = 2
+SEG_FEATURE_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
+SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
+SEG_FEATURE_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
+
+
+def damaged(path: str, what: str) -> ValueError:
+    return ValueError(f"{path}: AVIF: the AV1 bitstream is damaged ({what});"
+                      " dav1d refuses it, and so does Pillow")
+
+
+def not_yet(path: str, what: str, tool: str) -> ValueError:
+    return ValueError(f"{path}: AVIF with {what} is not decoded by the port "
+                      f"yet ({tool})")
+
+
+class Bits:
+    """MSB-first bit reader over `data[pos:end]` (f(n), su, le, uvlc,
+    leb128, ns)."""
+
+    def __init__(self, data: bytes, pos: int, end: int, path: str):
+        self.data, self.bit, self.end, self.path = data, pos * 8, end * 8, \
+            path
+
+    def f(self, n: int) -> int:
+        if self.bit + n > self.end:
+            raise damaged(self.path, "a header runs past its OBU")
+        x = 0
+        for _ in range(n):
+            x = (x << 1) | ((self.data[self.bit >> 3] >> (7 - (self.bit & 7)))
+                            & 1)
+            self.bit += 1
+        return x
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v & (1 << (n - 1)) else v
+
+    def uvlc(self) -> int:
+        lz = 0
+        while not self.f(1):
+            lz += 1
+            if lz >= 32:
+                return (1 << 32) - 1
+        return self.f(lz) + (1 << lz) - 1
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        if v < m:
+            return v
+        return (v << 1) - m + self.f(1)
+
+    def byte_alignment(self):
+        self.bit = (self.bit + 7) & ~7
+
+    @property
+    def pos(self) -> int:
+        return self.bit >> 3
+
+
+def leb128(data: bytes, at: int, path: str) -> Tuple[int, int]:
+    v = 0
+    for i in range(8):
+        if at + i >= len(data):
+            raise damaged(path, "an OBU size runs past the data")
+        b = data[at + i]
+        v |= (b & 0x7F) << (7 * i)
+        if not b & 0x80:
+            return v, at + i + 1
+    return v, at + 8
+
+
+def obus(data: bytes, path: str):
+    """(type, temporal_id, spatial_id, start, end) of each OBU."""
+    at = 0
+    while at < len(data):
+        h = data[at]
+        if h & 0x80:
+            raise damaged(path, "the OBU forbidden bit is set")
+        typ, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
+        at += 1
+        tid = sid = 0
+        if ext:
+            if at >= len(data):
+                raise damaged(path, "an OBU header is cut")
+            tid, sid = data[at] >> 5, (data[at] >> 3) & 3
+            at += 1
+        if has_size:
+            size, at = leb128(data, at, path)
+        else:
+            size = len(data) - at
+        if at + size > len(data):
+            raise damaged(path, "an OBU runs past the data")
+        yield typ, tid, sid, at, at + size
+        at += size
+
+
+def sequence_header(b: Bits) -> SimpleNamespace:
+    s = SimpleNamespace()
+    s.profile = b.f(3)
+    if s.profile > 2:
+        raise damaged(b.path, f"sequence profile {s.profile}")
+    s.still_picture = b.f(1)
+    s.reduced = b.f(1)
+    s.decoder_model_info = 0
+    s.equal_picture_interval = 0
+    s.op_idc = [0]
+    s.decoder_model_present = [0]
+    s.buffer_removal_time_length = 0
+    s.frame_presentation_time_length = 0
+    if s.reduced:
+        s.seq_level_idx = [b.f(5)]
+    else:
+        timing = b.f(1)
+        if timing:
+            b.f(32)
+            b.f(32)
+            s.equal_picture_interval = b.f(1)
+            if s.equal_picture_interval:
+                b.uvlc()
+            s.decoder_model_info = b.f(1)
+            if s.decoder_model_info:
+                buffer_delay_length = b.f(5) + 1
+                b.f(32)
+                s.buffer_removal_time_length = b.f(5) + 1
+                s.frame_presentation_time_length = b.f(5) + 1
+        delay_present = b.f(1)
+        cnt = b.f(5) + 1
+        s.op_idc, s.seq_level_idx, s.decoder_model_present = [], [], []
+        for _ in range(cnt):
+            s.op_idc.append(b.f(12))
+            lvl = b.f(5)
+            s.seq_level_idx.append(lvl)
+            if lvl > 7:
+                b.f(1)
+            present = 0
+            if s.decoder_model_info:
+                present = b.f(1)
+                if present:
+                    b.f(buffer_delay_length)
+                    b.f(buffer_delay_length)
+                    b.f(1)
+            s.decoder_model_present.append(present)
+            if delay_present and b.f(1):
+                b.f(4)
+    wbits, hbits = b.f(4) + 1, b.f(4) + 1
+    s.frame_width_bits, s.frame_height_bits = wbits, hbits
+    s.max_width, s.max_height = b.f(wbits) + 1, b.f(hbits) + 1
+    s.frame_id_numbers = 0 if s.reduced else b.f(1)
+    if s.frame_id_numbers:
+        s.delta_frame_id_length = b.f(4) + 2
+        s.frame_id_length = b.f(3) + 1 + s.delta_frame_id_length
+    s.sb128 = b.f(1)
+    s.enable_filter_intra = b.f(1)
+    s.enable_intra_edge_filter = b.f(1)
+    s.order_hint_bits = 0
+    s.enable_order_hint = 0
+    if s.reduced:
+        s.force_screen_content_tools = SELECT
+        s.force_integer_mv = SELECT
+    else:
+        b.f(4)          # interintra, masked compound, warped, dual filter
+        s.enable_order_hint = b.f(1)
+        if s.enable_order_hint:
+            b.f(2)      # jnt_comp, ref_frame_mvs
+        s.force_screen_content_tools = SELECT if b.f(1) else b.f(1)
+        if s.force_screen_content_tools > 0:
+            s.force_integer_mv = SELECT if b.f(1) else b.f(1)
+        else:
+            s.force_integer_mv = SELECT
+        if s.enable_order_hint:
+            s.order_hint_bits = b.f(3) + 1
+    s.enable_superres = b.f(1)
+    s.enable_cdef = b.f(1)
+    s.enable_restoration = b.f(1)
+    # colour config
+    high = b.f(1)
+    if s.profile == 2 and high:
+        s.bit_depth = 12 if b.f(1) else 10
+    else:
+        s.bit_depth = 10 if high else 8
+    s.mono = 0 if s.profile == 1 else b.f(1)
+    s.num_planes = 1 if s.mono else 3
+    if b.f(1):
+        s.cp, s.tc, s.mc = b.f(8), b.f(8), b.f(8)
+    else:
+        s.cp, s.tc, s.mc = 2, 2, 2
+    s.csp = 0
+    s.separate_uv_delta_q = 0
+    if s.mono:
+        s.full_range = b.f(1)
+        s.ssx = s.ssy = 1
+    elif s.cp == 1 and s.tc == 13 and s.mc == 0:
+        s.full_range = 1
+        s.ssx = s.ssy = 0
+        s.separate_uv_delta_q = b.f(1)
+    else:
+        s.full_range = b.f(1)
+        if s.profile == 0:
+            s.ssx = s.ssy = 1
+        elif s.profile == 1:
+            s.ssx = s.ssy = 0
+        elif s.bit_depth == 12:
+            s.ssx = b.f(1)
+            s.ssy = b.f(1) if s.ssx else 0
+        else:
+            s.ssx, s.ssy = 1, 0
+        if s.ssx and s.ssy:
+            s.csp = b.f(2)
+        s.separate_uv_delta_q = b.f(1)
+    s.film_grain_present = b.f(1)
+    return s
+
+
+def _tile_log2(blk: int, target: int) -> int:
+    k = 0
+    while (blk << k) < target:
+        k += 1
+    return k
+
+
+def _tile_info(b: Bits, f: SimpleNamespace, sb128: int):
+    sb_cols = (f.mi_cols + 31) >> 5 if sb128 else (f.mi_cols + 15) >> 4
+    sb_rows = (f.mi_rows + 31) >> 5 if sb128 else (f.mi_rows + 15) >> 4
+    sb_shift = 5 if sb128 else 4
+    sb_size = sb_shift + 2
+    max_w_sb = 4096 >> sb_size
+    max_area_sb = (4096 * 2304) >> (2 * sb_size)
+    min_log2_cols = _tile_log2(max_w_sb, sb_cols)
+    max_log2_cols = _tile_log2(1, min(sb_cols, 64))
+    max_log2_rows = _tile_log2(1, min(sb_rows, 64))
+    min_log2_tiles = max(min_log2_cols,
+                         _tile_log2(max_area_sb, sb_rows * sb_cols))
+    cols, rows = [], []
+    if b.f(1):
+        f.tile_cols_log2 = min_log2_cols
+        while f.tile_cols_log2 < max_log2_cols and b.f(1):
+            f.tile_cols_log2 += 1
+        w = (sb_cols + (1 << f.tile_cols_log2) - 1) >> f.tile_cols_log2
+        cols = [s << sb_shift for s in range(0, sb_cols, w)]
+        min_log2_rows = max(min_log2_tiles - f.tile_cols_log2, 0)
+        f.tile_rows_log2 = min_log2_rows
+        while f.tile_rows_log2 < max_log2_rows and b.f(1):
+            f.tile_rows_log2 += 1
+        h = (sb_rows + (1 << f.tile_rows_log2) - 1) >> f.tile_rows_log2
+        rows = [s << sb_shift for s in range(0, sb_rows, h)]
+    else:
+        widest, start = 0, 0
+        while start < sb_cols:
+            cols.append(start << sb_shift)
+            size = b.ns(min(sb_cols - start, max_w_sb)) + 1
+            widest = max(widest, size)
+            start += size
+        f.tile_cols_log2 = _tile_log2(1, len(cols))
+        area = (sb_rows * sb_cols) >> (min_log2_tiles + 1) \
+            if min_log2_tiles > 0 else sb_rows * sb_cols
+        max_h = max(area // widest, 1)
+        start = 0
+        while start < sb_rows:
+            rows.append(start << sb_shift)
+            start += b.ns(min(sb_rows - start, max_h)) + 1
+        f.tile_rows_log2 = _tile_log2(1, len(rows))
+    f.mi_col_starts = cols + [f.mi_cols]
+    f.mi_row_starts = rows + [f.mi_rows]
+    f.tile_cols, f.tile_rows = len(cols), len(rows)
+    f.tile_size_bytes = 4
+    if f.tile_cols_log2 or f.tile_rows_log2:
+        b.f(f.tile_rows_log2 + f.tile_cols_log2)    # context_update_tile_id
+        f.tile_size_bytes = b.f(2) + 1
+
+
+def _delta_q(b: Bits) -> int:
+    return b.su(7) if b.f(1) else 0
+
+
+def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
+    """uncompressed_header() of the first frame: a key frame or an
+    intra-only frame that is shown."""
+    f = SimpleNamespace()
+    path = b.path
+    if s.reduced:
+        f.frame_type, f.show_frame, error_resilient = KEY_FRAME, 1, 1
+    else:
+        if b.f(1):
+            raise damaged(path, "the first frame shows an existing frame")
+        f.frame_type = b.f(2)
+        f.show_frame = b.f(1)
+        if f.frame_type not in (KEY_FRAME, INTRA_ONLY_FRAME):
+            raise damaged(path, "the first frame is an inter frame")
+        if not f.show_frame:
+            raise not_yet(path, "a hidden first frame",
+                          "dav1d's show_existing_frame")
+        if s.decoder_model_info and not s.equal_picture_interval:
+            b.f(s.frame_presentation_time_length)
+        error_resilient = 1 if f.frame_type == KEY_FRAME else b.f(1)
+    f.disable_cdf_update = b.f(1)
+    if s.force_screen_content_tools == SELECT:
+        f.allow_screen_content_tools = b.f(1)
+    else:
+        f.allow_screen_content_tools = s.force_screen_content_tools
+    if f.allow_screen_content_tools and s.force_integer_mv == SELECT:
+        b.f(1)
+    if s.frame_id_numbers:
+        b.f(s.frame_id_length)
+    override = 0 if s.reduced else b.f(1)
+    b.f(s.order_hint_bits)
+    if s.decoder_model_info:
+        if b.f(1):
+            for i, idc in enumerate(s.op_idc):
+                if s.decoder_model_present[i]:
+                    if idc == 0 or ((idc >> 0) & 1 and (idc >> 8) & 1):
+                        b.f(s.buffer_removal_time_length)
+    if f.frame_type == INTRA_ONLY_FRAME:
+        refresh = b.f(8)
+        if refresh == 0xFF:
+            raise damaged(path, "an intra-only frame refreshes every "
+                                "reference")
+        if error_resilient and s.enable_order_hint:
+            for _ in range(8):
+                b.f(s.order_hint_bits)
+    if override:
+        f.width = b.f(s.frame_width_bits) + 1
+        f.height = b.f(s.frame_height_bits) + 1
+    else:
+        f.width, f.height = s.max_width, s.max_height
+    if s.enable_superres and b.f(1):
+        raise not_yet(path, "superres", "dav1d's super-resolution "
+                                          "upscaling")
+    f.mi_cols = 2 * ((f.width + 7) >> 3)
+    f.mi_rows = 2 * ((f.height + 7) >> 3)
+    if b.f(1):                          # render size
+        b.f(16)
+        b.f(16)
+    f.allow_intrabc = 0
+    if f.allow_screen_content_tools:
+        f.allow_intrabc = b.f(1)
+    if f.allow_intrabc:
+        raise not_yet(path, "intra block copy", "dav1d's intrabc")
+    if not (s.reduced or f.disable_cdf_update):
+        b.f(1)                          # disable_frame_end_update_cdf
+    _tile_info(b, f, s.sb128)
+    # quantization_params
+    f.base_q_idx = b.f(8)
+    f.dq = [[_delta_q(b), 0, 0], [0, 0, 0], [0, 0, 0]]   # [plane][dc, ac]
+    if s.num_planes > 1:
+        diff_uv = b.f(1) if s.separate_uv_delta_q else 0
+        udc, uac = _delta_q(b), _delta_q(b)
+        vdc, vac = (_delta_q(b), _delta_q(b)) if diff_uv else (udc, uac)
+        f.dq = [[f.dq[0][0], 0], [udc, uac], [vdc, vac]]
+    else:
+        f.dq = [[f.dq[0][0], 0], [0, 0], [0, 0]]
+    if b.f(1):
+        raise not_yet(path, "quantizer matrices", "dav1d's using_qmatrix")
+    # segmentation_params
+    f.seg_enabled = b.f(1)
+    f.seg_feature = [[None] * 8 for _ in range(8)]
+    if f.seg_enabled:
+        for i in range(8):
+            for j in range(8):
+                if b.f(1):
+                    bits, lim = SEG_FEATURE_BITS[j], SEG_FEATURE_MAX[j]
+                    if SEG_FEATURE_SIGNED[j]:
+                        v = max(-lim, min(lim, b.su(1 + bits)))
+                    else:
+                        v = min(lim, b.f(bits))
+                    f.seg_feature[i][j] = v
+    f.seg_id_pre_skip, f.last_active_seg_id = 0, 0
+    for i in range(8):
+        for j in range(8):
+            if f.seg_feature[i][j] is not None:
+                f.last_active_seg_id = i
+                if j >= 5:
+                    f.seg_id_pre_skip = 1
+    if any(f.seg_feature[i][5] is not None or f.seg_feature[i][7]
+           is not None for i in range(8)):
+        raise not_yet(path, "segment reference features",
+                      "dav1d's SEG_LVL_REF_FRAME / GLOBALMV")
+    # delta_q_params, delta_lf_params
+    f.delta_q_present = b.f(1) if f.base_q_idx > 0 else 0
+    f.delta_q_res = b.f(2) if f.delta_q_present else 0
+    f.delta_lf_present = f.delta_lf_res = f.delta_lf_multi = 0
+    if f.delta_q_present:
+        f.delta_lf_present = b.f(1)
+        if f.delta_lf_present:
+            f.delta_lf_res = b.f(2)
+            f.delta_lf_multi = b.f(1)
+    f.lossless = []
+    for seg in range(8):
+        q = qindex(f, seg, None)
+        f.lossless.append(q == 0 and f.dq[0][0] == 0 and
+                          f.dq[1] == [0, 0] and f.dq[2] == [0, 0])
+    f.coded_lossless = all(f.lossless)
+    # loop_filter_params
+    if not f.coded_lossless:
+        lf = [b.f(6), b.f(6)]
+        if s.num_planes > 1 and (lf[0] or lf[1]):
+            lf += [b.f(6), b.f(6)]
+        b.f(3)                                  # sharpness
+        if b.f(1) and b.f(1):                   # delta enabled, update
+            for _ in range(8):
+                if b.f(1):
+                    b.su(7)
+            for _ in range(2):
+                if b.f(1):
+                    b.su(7)
+        if lf[0] or lf[1]:
+            raise not_yet(path, "the deblocking loop filter",
+                              f"dav1d's deblocking filter, levels {lf[0]}, "
+                              f"{lf[1]}")
+        # cdef_params
+        if s.enable_cdef:
+            b.f(2)
+            cdef_bits = b.f(2)
+            strengths = []
+            for _ in range(1 << cdef_bits):
+                strengths += [b.f(4), b.f(2)]
+                if s.num_planes > 1:
+                    strengths += [b.f(4), b.f(2)]
+            if cdef_bits or any(strengths):
+                raise not_yet(path, "CDEF", "dav1d's CDEF filter")
+        # lr_params
+        if s.enable_restoration:
+            types = [b.f(2) for _ in range(s.num_planes)]
+            if any(types):
+                raise not_yet(path, "loop restoration",
+                              "dav1d's Wiener / self-guided filters")
+    f.tx_mode_select = 0 if f.coded_lossless else b.f(1)
+    f.reduced_tx_set = b.f(1)
+    if s.film_grain_present and f.show_frame and b.f(1):
+        raise not_yet(path, "film grain", "dav1d's film grain synthesis")
+    return f
+
+
+def qindex(f: SimpleNamespace, seg: int, current) -> int:
+    """get_qindex: `current` is CurrentQIndex, or None to ignore the
+    block's delta q."""
+    data = f.seg_feature[seg][0] if f.seg_enabled else None
+    if data is not None:
+        q = (current if current is not None and f.delta_q_present
+             else f.base_q_idx) + data
+        return max(0, min(255, q))
+    if current is not None and f.delta_q_present:
+        return current
+    return f.base_q_idx
+
+
+def parse_av1(data: bytes, path: str):
+    """(sequence header, frame header, tiles) of the first shown frame;
+    tiles as (tile_row, tile_col, start, end) into `data`."""
+    seq = frame = None
+    tiles: List[Tuple[int, int, int, int]] = []
+    for typ, tid, sid, at, end in obus(data, path):
+        if typ == OBU_SEQUENCE_HEADER:
+            if seq is None:
+                seq = sequence_header(Bits(data, at, end, path))
+            continue
+        if typ in (OBU_TEMPORAL_DELIMITER, OBU_METADATA, OBU_PADDING,
+                   OBU_REDUNDANT_FRAME_HEADER):
+            continue
+        if seq is None:
+            raise damaged(path, "a frame comes before the sequence header")
+        idc = seq.op_idc[0]
+        if idc and not ((idc >> tid) & 1 and (idc >> (sid + 8)) & 1):
+            continue
+        if typ in (OBU_FRAME, OBU_FRAME_HEADER):
+            if frame is not None:
+                if typ == OBU_FRAME_HEADER:
+                    continue
+                break
+            b = Bits(data, at, end, path)
+            frame = frame_header(b, seq)
+            if typ == OBU_FRAME_HEADER:
+                continue
+            b.byte_alignment()
+            at = b.pos
+        elif typ == OBU_TILE_GROUP:
+            if frame is None:
+                raise damaged(path, "a tile group comes before its frame "
+                                    "header")
+        else:
+            continue
+        tiles += _tile_group(data, at, end, frame, path)
+        if len(tiles) == frame.tile_cols * frame.tile_rows:
+            return seq, frame, tiles
+    if frame is None:
+        raise damaged(path, "no frame")
+    raise damaged(path, "tiles are missing")
+
+
+def _tile_group(data: bytes, at: int, end: int, f: SimpleNamespace,
+                path: str):
+    n = f.tile_cols * f.tile_rows
+    b = Bits(data, at, end, path)
+    start, last = 0, n - 1
+    if n > 1 and b.f(1):
+        bits = f.tile_cols_log2 + f.tile_rows_log2
+        start, last = b.f(bits), b.f(bits)
+    b.byte_alignment()
+    at = b.pos
+    out = []
+    for t in range(start, last + 1):
+        if t == last:
+            size = end - at
+        else:
+            if at + f.tile_size_bytes > end:
+                raise damaged(path, "a tile size runs past its OBU")
+            size = int.from_bytes(data[at:at + f.tile_size_bytes],
+                                  "little") + 1
+            at += f.tile_size_bytes
+        if size <= 0 or at + size > end:
+            raise damaged(path, "a tile runs past its OBU")
+        out.append((t // f.tile_cols, t % f.tile_cols, at, at + size))
+        at += size
+    return out

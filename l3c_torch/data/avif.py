@@ -1,0 +1,403 @@
+"""AVIF stills: the ISO base media file format container around an AV1
+frame, read and checked as Pillow's AVIF plugin has libavif 1.3.0 read
+it, then decoded by data/av1_*.py and converted to RGB by
+data/avif_yuv.py.
+
+The container: `ftyp`; `meta` with `hdlr` (pict), `pitm`, `iinf` (`infe`
+versions 2 and 3), `iloc` (versions 0-2, construction methods 0 and 1,
+the latter from `idat`, several extents), `iprp` / `ipco` / `ipma`
+(`ispe`, `av1C`, `pixi`, `colr` nclx or ICC, `auxC`, `irot`, `imir`,
+`clap`, `a1op`, `lsel`) and `iref` (`auxl`, `prem`, `dimg`). The primary
+item's OBUs are decoded; `irot` / `imir` / `clap` are not applied (Pillow
+turns orientation into EXIF, which the loader ignores), and an alpha item
+is not decoded (convert("RGB") drops it) unless the file marks it
+premultiplied, which the port does not decode yet.
+"""
+from __future__ import annotations
+
+import struct
+from types import SimpleNamespace
+from typing import Tuple
+
+import numpy as np
+
+from . import av1_block, av1_obu, avif_yuv
+
+_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+               b"urn:mpeg:hevc:2015:auxid:1")
+
+
+def _refuse(path: str, what: str) -> ValueError:
+    return ValueError(f"{path}: AVIF: {what} (libavif refuses it, and so "
+                      "does Pillow)")
+
+
+class _Stream:
+    """libavif's bounds-checked reads (avifROStream) over one box."""
+
+    def __init__(self, b: bytes, path: str, what: str):
+        self.b, self.at, self.path, self.what = b, 0, path, what
+
+    def read(self, n: int) -> bytes:
+        if self.at + n > len(self.b):
+            raise _refuse(self.path, f"Box[{self.what}] is cut short")
+        self.at += n
+        return self.b[self.at - n:self.at]
+
+    def uint(self, n: int) -> int:
+        return int.from_bytes(self.read(n), "big")
+
+    def version(self, allowed) -> int:
+        v = self.uint(1)
+        self.read(3)
+        if v not in allowed:
+            raise _refuse(self.path, f"Box[{self.what}] has version {v}")
+        return v
+
+    def string(self):
+        end = self.b.find(b"\0", self.at)
+        if end < 0:
+            raise _refuse(self.path, f"Box[{self.what}] has a string "
+                                     "without its terminating zero")
+        self.at = end + 1
+
+    def left(self) -> int:
+        return len(self.b) - self.at
+
+    def boxes(self):
+        """The child boxes to the end, each one checked to fit."""
+        while self.left():
+            head = self.left()
+            size, typ = self.uint(4), self.read(4)
+            if size == 1:
+                size = self.uint(8) - 16
+            elif size == 0:
+                size = self.left()
+            else:
+                size -= 8
+            if typ == b"uuid":
+                self.read(16)
+                size -= 16
+            if size < 0 or size > self.left():
+                raise _refuse(self.path, f"Box[{typ.decode('latin-1')}] is "
+                                         f"larger than what holds it "
+                                         f"({head} bytes)")
+            yield typ, self.read(size)
+
+
+_SUPPORTED = (b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot",
+              b"imir", b"pixi", b"a1op", b"lsel", b"a1lx", b"clli")
+
+
+def parse(blob: bytes, path: str) -> SimpleNamespace:
+    """The meta box's items, properties and references, read and checked
+    as libavif's avifParse / avifDecoderReset read them (Pillow's
+    Image.open): boxes that do not fit, versions libavif does not know,
+    misordered or repeated entries and bad indices are refused."""
+    m = SimpleNamespace(primary=None, props=[], items={}, refs=[],
+                        idat=None, ftyp=None)
+    seen = set()
+    at = 0
+    while at + 8 <= len(blob) and b"meta" not in seen:
+        size, typ = struct.unpack(">I4s", blob[at:at + 8])
+        head = 8
+        if size == 1:
+            size, = struct.unpack(">Q", blob[at + 8:at + 16])
+            head = 16
+        elif size == 0:
+            size = len(blob) - at
+        if size < head or at + size > len(blob):
+            if typ in (b"ftyp", b"meta") or size < head:
+                raise _refuse(path, f"Box[{typ.decode('latin-1')}] runs "
+                                    "past the end of the file")
+            break                       # a cut mdat: read when decoded
+        body = blob[at + head:at + size]
+        at += size
+        if not seen and typ != b"ftyp":
+            raise _refuse(path, "the first box is not ftyp")
+        if typ in seen and typ == b"ftyp":
+            raise _refuse(path, "a second ftyp box")
+        seen.add(typ)
+        if typ == b"ftyp":
+            if len(body) < 8 or len(body) % 4:
+                raise _refuse(path, "Box[ftyp] has a broken size")
+            m.ftyp = [body[i:i + 4] for i in range(0, len(body), 4)
+                      if i != 4]
+        elif typ == b"meta":
+            _meta(_Stream(body, path, "meta"), m, path)
+    if m.ftyp is None:
+        raise _refuse(path, "the file does not start with an ftyp box")
+    if b"meta" not in seen:
+        raise ValueError(f"{path}: AVIF without a meta box (an image "
+                         "sequence) is not read by the port yet")
+    if b"avif" not in m.ftyp and b"avis" not in m.ftyp:
+        raise _refuse(path, "its ftyp box names neither avif nor avis")
+    item = m.items.get(m.primary)
+    if m.primary is None or item is None or item.type is None:
+        raise _refuse(path, "it has no primary item")
+    if item.unsupported:
+        raise _refuse(path, "the primary item has an essential property or "
+                            "a construction method libavif does not know")
+    if item.type == b"av01":
+        for typ in (b"av1C", b"ispe"):
+            if _prop(m, m.primary, typ) is None:
+                raise _refuse(path, "the primary item has no "
+                                    f"{typ.decode()} property")
+    return m
+
+
+def _meta(st: _Stream, m: SimpleNamespace, path: str):
+    st.version((0,))
+    first, seen = True, set()
+    for typ, body in st.boxes():
+        if first and typ != b"hdlr":
+            raise _refuse(path, "Box[meta] does not start with Box[hdlr]")
+        first = False
+        if typ in (b"hdlr", b"iloc", b"pitm", b"idat", b"iprp", b"iinf",
+                   b"iref"):
+            if typ in seen:
+                raise _refuse(path, f"Box[meta] has two Box[{typ.decode()}]")
+            seen.add(typ)
+        sub = _Stream(body, path, typ.decode("latin-1"))
+        if typ == b"hdlr":
+            sub.version((0,))
+            if sub.uint(4):
+                raise _refuse(path, "Box[hdlr] has a nonzero pre_defined")
+            if sub.read(4) != b"pict":
+                raise _refuse(path, "Box[hdlr]'s handler is not pict")
+            sub.read(12)
+            sub.string()
+        elif typ == b"pitm":
+            m.primary = sub.uint(2 if sub.version((0, 1)) == 0 else 4)
+        elif typ == b"iinf":
+            n = sub.uint(2 if sub.version((0, 1)) == 0 else 4)
+            kids = sub.boxes()
+            for _ in range(n):
+                t2, b2 = next(kids, (None, None))
+                if t2 != b"infe":
+                    raise _refuse(path, "Box[iinf] holds something other "
+                                        "than its Box[infe] entries")
+                _infe(_Stream(b2, path, "infe"), m, path)
+        elif typ == b"iloc":
+            _iloc(sub, m, path)
+        elif typ == b"idat":
+            m.idat = body
+        elif typ == b"iprp":
+            _iprp(sub, m, path)
+        elif typ == b"iref":
+            wide = sub.version((0, 1))
+            step = 4 if wide else 2
+            for t2, b2 in sub.boxes():
+                r = _Stream(b2, path, "iref")
+                src, cnt = r.uint(step), r.uint(2)
+                m.refs.append((t2, src, [r.uint(step) for _ in range(cnt)]))
+    if first:
+        raise _refuse(path, "Box[meta] is empty")
+
+
+def _item(m: SimpleNamespace, item: int, path: str) -> SimpleNamespace:
+    if item == 0:
+        raise _refuse(path, "an item has ID 0")
+    if item not in m.items:
+        m.items[item] = SimpleNamespace(type=None, props=[], method=0,
+                                        extents=None, unsupported=False,
+                                        ipma=False)
+    return m.items[item]
+
+
+def _infe(st: _Stream, m: SimpleNamespace, path: str):
+    v = st.version((2, 3))
+    it = _item(m, st.uint(2 if v == 2 else 4), path)
+    st.uint(2)                                   # protection index
+    typ = st.read(4)
+    st.string()                                  # item_name
+    if typ == b"mime":
+        st.string()
+    if it.type is not None:
+        raise _refuse(path, "an item has two Box[infe]")
+    it.type = typ
+
+
+def _iloc(st: _Stream, m: SimpleNamespace, path: str):
+    v = st.version((0, 1, 2))
+    b = st.uint(1)
+    osz, lsz = b >> 4, b & 15
+    b = st.uint(1)
+    bsz, isz = b >> 4, (b & 15) if v in (1, 2) else 0
+    if any(n not in (0, 4, 8) for n in (osz, lsz, bsz, isz)):
+        raise _refuse(path, "Box[iloc] has a field size other than 0, 4 "
+                            "or 8")
+    for _ in range(st.uint(2 if v < 2 else 4)):
+        it = _item(m, st.uint(2 if v < 2 else 4), path)
+        if it.extents is not None:
+            raise _refuse(path, "an item has two sets of extents")
+        if v in (1, 2):
+            it.method = st.uint(2) & 15
+            if it.method not in (0, 1):
+                it.unsupported = True
+        st.uint(2)                                   # data_reference_index
+        base = st.uint(bsz)
+        it.extents = []
+        for _ in range(st.uint(2)):
+            st.uint(isz)
+            off, ln = st.uint(osz), st.uint(lsz)
+            it.extents.append((base + off, ln))
+
+
+def _iprp(st: _Stream, m: SimpleNamespace, path: str):
+    kids = st.boxes()
+    t, body = next(kids, (None, None))
+    if t != b"ipco":
+        raise _refuse(path, "Box[iprp] does not start with Box[ipco]")
+    m.props = [_property(t2, b2, path)
+               for t2, b2 in _Stream(body, path, "ipco").boxes()]
+    for t, body in kids:
+        if t == b"ipma":
+            _ipma(_Stream(body, path, "ipma"), m, path)
+
+
+def _property(typ: bytes, body: bytes, path: str):
+    st = _Stream(body, path, typ.decode("latin-1"))
+    if typ in (b"ispe", b"pixi", b"auxC"):
+        st.version((0,))
+    if typ == b"ispe":
+        st.read(8)
+    elif typ == b"pixi":
+        n = st.uint(1)
+        if n < 1:
+            raise _refuse(path, "Box[pixi] has no channel")
+        st.read(n)
+    elif typ == b"auxC":
+        st.string()
+    elif typ == b"av1C":
+        if st.read(4)[0] != 0x81:
+            raise _refuse(path, "Box[av1C] has a bad marker or version")
+    elif typ == b"colr":
+        kind = st.read(4)
+        if kind == b"nclx":
+            st.read(7)
+    elif typ in (b"irot", b"imir"):
+        if st.uint(1) & 0xFC if typ == b"irot" else 0:
+            raise _refuse(path, "Box[irot] has reserved bits set")
+    return typ, body
+
+
+def _ipma(st: _Stream, m: SimpleNamespace, path: str):
+    v = st.uint(1)
+    flags = st.uint(3)
+    prev = 0
+    for _ in range(st.uint(4)):
+        item = st.uint(2 if v < 1 else 4)
+        if item <= prev:
+            raise _refuse(path, "Box[ipma]'s item IDs do not increase")
+        prev = item
+        it = _item(m, item, path)
+        if it.ipma:
+            raise _refuse(path, "an item has two Box[ipma] entries")
+        it.ipma = True
+        for _ in range(st.uint(1)):
+            x = st.uint(2 if flags & 1 else 1)
+            essential = x >> (15 if flags & 1 else 7)
+            idx = x & (0x7FFF if flags & 1 else 0x7F)
+            if idx == 0:
+                continue
+            if idx > len(m.props):
+                raise _refuse(path, f"Box[ipma] names property {idx} of "
+                                    f"{len(m.props)}")
+            typ = m.props[idx - 1][0]
+            if typ in _SUPPORTED:
+                if essential and typ == b"a1lx" or not essential and \
+                        typ in (b"a1op", b"lsel"):
+                    raise _refuse(path, f"property {typ.decode()} is marked "
+                                        "essential against the rules")
+                it.props.append(m.props[idx - 1])
+            elif essential:
+                it.unsupported = True
+
+
+def _prop(m: SimpleNamespace, item: int, typ: bytes, nclx=None):
+    it = m.items.get(item)
+    for t, body in it.props if it else ():
+        if t == typ and (nclx is None or body[:4] == nclx):
+            return body
+    return None
+
+
+def _alpha_of(m: SimpleNamespace, item: int):
+    for typ, src, dst in m.refs:
+        if typ == b"auxl" and item in dst and (_prop(m, src, b"auxC") or
+                                               b"")[4:].startswith(
+                                                   _ALPHA_URNS):
+            return src
+    return None
+
+
+def avif_header(blob: bytes, path: str) -> Tuple[str, int, int]:
+    """libavif's size and Pillow's mode of an AVIF still: the primary
+    item's ispe, "RGBA" where an auxiliary alpha item refers to it."""
+    m = parse(blob, path)
+    ispe = _prop(m, m.primary, b"ispe")
+    w, h = struct.unpack(">II", ispe[4:12])
+    return ("RGBA" if _alpha_of(m, m.primary) is not None else "RGB"), h, w
+
+
+def _item_bytes(blob: bytes, m: SimpleNamespace, item: int, path: str):
+    it = m.items[item]
+    if not it.extents:
+        raise _refuse(path, f"item {item} has no data")
+    src = blob if it.method == 0 else m.idat
+    if src is None:
+        raise _refuse(path, f"item {item} is in a missing Box[idat]")
+    out = bytearray()
+    for off, ln in it.extents:
+        if ln == 0:
+            ln = len(src) - off
+        if off + ln > len(src):
+            raise _refuse(path, f"item {item} runs past the file")
+        out += src[off:off + ln]
+    return bytes(out)
+
+
+def decode_avif(blob: bytes, path: str) -> np.ndarray:
+    """(H, W, 3) uint8: Pillow's Image.open(path).convert("RGB")."""
+    m = parse(blob, path)
+    item = m.primary
+    typ = m.items[item].type
+    if typ == b"grid":
+        raise ValueError(f"{path}: AVIF with a grid image is not decoded by "
+                         "the port yet (libavif's grid derived item)")
+    if typ != b"av01":
+        raise _refuse(path, f"the primary item has type {typ!r}")
+    ispe = _prop(m, item, b"ispe")
+    w, h = struct.unpack(">II", ispe[4:12])
+    alpha = _alpha_of(m, item)
+    if alpha is not None and any(t == b"prem" and (s == alpha or
+                                                   alpha in d)
+                                 for t, s, d in m.refs):
+        raise ValueError(f"{path}: AVIF with premultiplied alpha is not "
+                         "decoded by the port yet (libavif's prem)")
+    data = _item_bytes(blob, m, item, path)
+    seq, frame, tiles = av1_obu.parse_av1(data, path)
+    if seq.bit_depth != 8:
+        raise ValueError(f"{path}: AVIF with {seq.bit_depth}-bit samples is "
+                         "not decoded by the port yet (dav1d's high bit "
+                         "depth)")
+    pixi = _prop(m, item, b"pixi")
+    if pixi is not None and (pixi[4] != seq.num_planes or any(
+            d != seq.bit_depth for d in pixi[5:5 + pixi[4]])):
+        raise _refuse(path, "its pixi property does not describe the AV1 "
+                            "frame")
+    if (frame.width, frame.height) != (w, h):
+        raise ValueError(f"{path}: AVIF with an AV1 frame of another size "
+                         "than ispe is not decoded by the port yet "
+                         "(libavif's scaling to ispe)")
+    try:
+        planes = av1_block.decode_frame(seq, frame, tiles, data, path)
+    except (IndexError, KeyError) as e:
+        raise av1_obu.damaged(path, f"its tile data breaks the decoder ("
+                                    f"{type(e).__name__})") from None
+    nclx = _prop(m, item, b"colr", b"nclx")
+    mc = struct.unpack(">H", nclx[8:10])[0] if nclx is not None and \
+        len(nclx) >= 11 else seq.mc
+    return avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
+                           seq.full_range, path)

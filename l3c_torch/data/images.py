@@ -47,9 +47,12 @@ loader reads it or refused where it refuses:
     JPEG 2000 payloads) and DIB;
   - the rest of Pillow's registry (data/registry.py): XBM, XPM, FITS,
     BLP, SPIDER, PCD, GBR, FLI, FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb;
-  - AVIF: Pillow's mode and size from its header, and a ValueError naming
-    it for its pixels: the one format Pillow opens that the port does
-    not decode yet.
+  - AVIF stills whose AV1 frame runs no in-loop filter (data/avif.py:
+    libavif's container checks, the AV1 intra decoder of data/av1_*.py,
+    libyuv's YUV to RGB in data/avif_yuv.py), as Pillow's libavif 1.3.0,
+    dav1d 1.5.1 and libyuv give them; the tools the port does not decode
+    yet (deblocking, CDEF, restoration, grids, ...) raise ValueError
+    naming them.
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
 ValueError naming the format and the reason. PNGs are written with the
 bytes of Pillow's default save (`write_png`). Every image comes out as
@@ -73,8 +76,8 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import (dds, gif, icns, jpeg, jpeg2000, rasters, registry, tiff,
-               webp)
+from . import (avif, dds, gif, icns, jpeg, jpeg2000, rasters, registry,
+               tiff, webp)
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -937,7 +940,7 @@ _FORMATS = {
     "IMT": (registry.imt_header, registry.decode_imt),
     "IPTC": (registry.iptc_header, registry.decode_iptc),
     "XVThumb": (registry.xv_header, registry.decode_xv),
-    "AVIF": (rasters.avif_header, None),
+    "AVIF": (avif.avif_header, avif.decode_avif),
 }
 # formats Pillow opens but cannot load on these hosts: stubs without a
 # handler, EPS without Ghostscript, MPEG without a decoder, WMF off Windows
@@ -965,8 +968,8 @@ def image_format(path: str) -> str:
                      "JPEG, PNM, BMP and WebP, and JPEG 2000, GIF, TIFF, TGA, "
                      "ICO, ICNS, CUR, PCX, DCX, SGI, QOI, IM, MSP, SUN, PSD, "
                      "DDS, DIB, XBM, XPM, FITS, BLP, SPIDER, PCD, GBR, FLI, "
-                     "FTEX, PIXAR, MCIDAS, IMT, IPTC and XVThumb (Pillow "
-                     "cannot identify the file either)")
+                     "FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb and AVIF "
+                     "(Pillow cannot identify the file either)")
 
 
 def _not_decoded(name: str, path: str) -> ValueError:

@@ -1,7 +1,7 @@
 """The small raster formats Pillow opens, read as the JAX package's loader
-reads them (Image.open(p).convert("RGB") under Pillow 12.1), and the
-header of AVIF, whose pixels the port does not decode yet (JPEG 2000 is
-in data/jpeg2000.py, ICNS in data/icns.py).
+reads them (Image.open(p).convert("RGB") under Pillow 12.1) (JPEG 2000
+is in data/jpeg2000.py, ICNS in data/icns.py, AVIF in data/avif.py,
+whose header is reachable from here too).
 
 Each format's `*_header(blob, path)` gives (Pillow's mode, height,
 width) from the bytes; `decode_*(blob, path)` gives (H, W, 3) uint8 RGB:
@@ -43,6 +43,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .avif import avif_header  # noqa: F401  (moved there)
 from .cielab import lab_to_rgb
 from .jpeg import _muldiv255
 
@@ -919,7 +920,7 @@ def decode_psd(blob: bytes, path: str) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-# ------------------------------------------------------------------ AVIF
+# ------------------------------------------ ISO base media boxes (JP2)
 
 def _boxes(blob: bytes, at: int, end: int):
     """ISO base media boxes between `at` and `end` -> (type, body)."""
@@ -935,71 +936,3 @@ def _boxes(blob: bytes, at: int, end: int):
             break
         yield typ, blob[at + head:at + size]
         at += size
-
-
-def avif_header(blob: bytes, path: str) -> Tuple[str, int, int]:
-    """libavif's size and Pillow's mode of an AVIF still: the primary
-    item's ispe, "RGBA" where an auxiliary alpha item refers to it."""
-    meta = next((b for t, b in _boxes(blob, 0, len(blob)) if t == b"meta"),
-                None)
-    if meta is None:
-        raise ValueError(f"{path}: AVIF without a meta box (an image "
-                         "sequence) is not read by the port yet")
-    primary, props, assoc, auxl = None, [], {}, []
-    for t, b in _boxes(meta, 4, len(meta)):
-        if t == b"pitm":
-            primary = struct.unpack(">H" if b[0] == 0 else ">I",
-                                    b[4:6] if b[0] == 0 else b[4:8])[0]
-        elif t == b"iprp":
-            for t2, b2 in _boxes(b, 0, len(b)):
-                if t2 == b"ipco":
-                    props = list(_boxes(b2, 0, len(b2)))
-                elif t2 == b"ipma":
-                    ver, flags = b2[0], int.from_bytes(b2[1:4], "big")
-                    n, = struct.unpack(">I", b2[4:8])
-                    at = 8
-                    for _ in range(n):
-                        if ver < 1:
-                            item, = struct.unpack(">H", b2[at:at + 2])
-                            at += 2
-                        else:
-                            item, = struct.unpack(">I", b2[at:at + 4])
-                            at += 4
-                        k = b2[at]
-                        at += 1
-                        idx = []
-                        for _ in range(k):
-                            if flags & 1:
-                                idx.append(struct.unpack(">H", b2[at:at + 2]
-                                                         )[0] & 0x7FFF)
-                                at += 2
-                            else:
-                                idx.append(b2[at] & 0x7F)
-                                at += 1
-                        assoc[item] = idx
-        elif t == b"iref":
-            wide = b[0] != 0
-            for t2, b2 in _boxes(b, 4, len(b)):
-                fmt, step = (">I", 4) if wide else (">H", 2)
-                src, = struct.unpack(fmt, b2[:step])
-                cnt, = struct.unpack(">H", b2[step:step + 2])
-                dst = [struct.unpack(fmt, b2[step + 2 + i * step:step + 2 +
-                                             (i + 1) * step])[0]
-                       for i in range(cnt)]
-                if t2 == b"auxl":
-                    auxl.append((src, dst))
-
-    def prop(item, typ):
-        for i in assoc.get(item, ()):
-            if 0 < i <= len(props) and props[i - 1][0] == typ:
-                return props[i - 1][1]
-        return None
-
-    ispe = prop(primary, b"ispe")
-    if ispe is None or len(ispe) < 12:
-        raise ValueError(f"{path}: AVIF without the primary item's size")
-    w, h = struct.unpack(">II", ispe[4:12])
-    alpha = any(primary in dst and (prop(src, b"auxC") or b"")[4:].startswith(
-        (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
-         b"urn:mpeg:hevc:2015:auxid:1")) for src, dst in auxl)
-    return ("RGBA" if alpha else "RGB"), h, w

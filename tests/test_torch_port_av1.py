@@ -1,0 +1,459 @@
+"""The port's AV1 decoder parts (l3c_torch/data/av1_*.py) on their own:
+the tables against the bundled libavif (which links dav1d and aom's
+common code), the range decoder against a test-only range encoder (aom's
+od_ec encoder with the whole low word kept), the inverse transforms
+against their real-valued definitions, the lossless WHT round trip, and
+the frame-header refusals on AV1 headers written here.
+
+`python tests/test_torch_port_av1.py` rewrites l3c_torch/data/av1_tables.py
+from the library: each table is found by its leading values and read in
+the layout its owner keeps (aom's CDFs as 32768 - cdf with the closing 0
+and a counter, padded to the array's largest alphabet; dav1d's as its
+inverse CDF and counter; the others as their C arrays).
+"""
+from __future__ import annotations
+
+import glob
+import math
+import os
+import textwrap
+
+import numpy as np
+import PIL
+import pytest
+
+from l3c_torch.data import av1_obu, av1_recon, av1_tables
+from l3c_torch.data.av1_symbol import SymbolReader
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TABLES = os.path.join(ROOT, "l3c_torch", "data", "av1_tables.py")
+
+
+def libavif():
+    libs = glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..",
+                                  "pillow.libs", "libavif*"))
+    return libs[0] if libs else None
+
+
+# ------------------------------------------------------------ the tables
+
+# name -> (owner, slot, alphabet(s)): the CDF arrays in the library
+# (owner "aom": slot = the padded size of one CDF in u16; "dav1d": the
+# alphabet's inverse CDF with the counter in its last place)
+_CDF_LAYOUT = {
+    "KF_Y_MODE": ("aom", 14, 13), "ANGLE_DELTA": ("aom", 8, 7),
+    "UV_MODE_CFL_NOT_ALLOWED": ("aom", 15, 13),
+    "UV_MODE_CFL_ALLOWED": ("aom", 15, 14),
+    "PARTITION": ("aom", 11, (4,) * 4 + (10,) * 12 + (8,) * 4),
+    "INTRA_TX_SET1": ("aom", 17, 7), "INTRA_TX_SET2": ("aom", 17, 5),
+    "CFL_ALPHA": ("aom", 17, 16),
+    "TX_DEPTH": ("aom", 4, (2,) * 3 + (3,) * 9),
+    "DELTA_LF_MULTI": ("aom", 5, 4), "FILTER_INTRA": ("aom", 3, 2),
+    "PALETTE_Y_SIZE": ("aom", 8, 7), "PALETTE_UV_SIZE": ("aom", 8, 7),
+    "PALETTE_Y_COLOR": ("aom", 9, tuple(i // 5 + 2 for i in range(35))),
+    "PALETTE_UV_COLOR": ("aom", 9, tuple(i // 5 + 2 for i in range(35))),
+    "PALETTE_Y_MODE": ("aom", 3, 2),
+    "EOB_PT_16": ("aom", 6, 5), "EOB_PT_32": ("aom", 7, 6),
+    "EOB_PT_64": ("aom", 8, 7), "EOB_PT_128": ("aom", 9, 8),
+    "EOB_PT_256": ("aom", 10, 9), "EOB_PT_512": ("aom", 11, 10),
+    "EOB_PT_1024": ("aom", 12, 11), "COEFF_BASE_EOB": ("aom", 4, 3),
+    "COEFF_BASE": ("aom", 5, 4), "COEFF_BR": ("aom", 5, 4),
+    "DC_SIGN": ("aom", 3, 2), "EOB_EXTRA": ("aom", 3, 2),
+    "TXB_SKIP": ("aom", 3, 2),
+    "CFL_SIGN": ("dav1d", 8, 8), "FILTER_INTRA_MODE": ("dav1d", 8, 5),
+    "SEGMENT_ID": ("dav1d", 8, 8), "SKIP": ("dav1d", 2, 2),
+    "PALETTE_UV_MODE": ("dav1d", 2, 2),
+    "DELTA_Q": ("aom", 5, 4), "DELTA_LF": ("aom", 5, 4),
+}
+# the other tables: (numpy type, count)
+_PLAIN = {"DC_QLOOKUP": ("<i2", 256), "AC_QLOOKUP": ("<i2", 256),
+          "DR_INTRA_DERIVATIVE": ("<i2", 90), "SM_WEIGHTS": ("u1", 124),
+          "FILTER_INTRA_TAPS": ("i1", 320), "COS128": ("<i4", 64),
+          "SINPI": ("<i4", 5)}
+
+
+def _count(shape):
+    return int(np.prod(shape)) if shape else 1
+
+
+def _find(lib, pat):
+    at = lib.find(pat)
+    assert at >= 0, "a table's leading values are not in the library"
+    return at
+
+
+def _read_cdfs(lib, name, shape, anchor):
+    owner, slot, ns = _CDF_LAYOUT[name]
+    n = _count(shape)
+    ns = (ns,) * n if isinstance(ns, int) else ns
+    pat, at = [], 0
+    for k in ns[:3]:                  # the first three CDFs, padded
+        c = list(anchor[at:at + k])
+        at += k
+        c = c[:-1] + ([0, 0] if owner == "aom" else [0])
+        pat += c + [0] * (slot - len(c))
+    at = _find(lib, np.array(pat, "<u2").tobytes())
+    out = []
+    for i, k in enumerate(ns):
+        cdf = np.frombuffer(lib, "<u2", k, at + 2 * slot * i).tolist()
+        cdf[-1] = 0                    # dav1d's counter -> the closing 0
+        out.append(tuple(cdf))
+    return out
+
+
+def tables_from(lib: bytes) -> dict:
+    """Every table re-read from the library, the committed one's leading
+    values leading the way."""
+    got = {"CDFS": {}}
+    for name, (shape, ns, flat) in av1_tables.CDFS.items():
+        cdfs = _read_cdfs(lib, name, shape, flat)
+        got["CDFS"][name] = (shape, ns, tuple(v for c in cdfs for v in c))
+    for name, (dt, n) in _PLAIN.items():
+        want = np.array(getattr(av1_tables, name)[:n], dt)
+        at = _find(lib, want[:min(n, 12)].tobytes())
+        got[name] = tuple(int(v) for v in np.frombuffer(lib, dt, n, at))
+    got["COS128"] += (0,)               # cos(pi / 2), the table's 65th entry
+    return got
+
+
+def test_tables_are_the_bundled_librarys():
+    """Each committed table is the library's bytes: found by its leading
+    values and read whole in its owner's layout."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    with open(path, "rb") as f:
+        lib = f.read()
+    got = tables_from(lib)
+    assert got["CDFS"] == av1_tables.CDFS
+    for name in _PLAIN:
+        assert got[name] == tuple(getattr(av1_tables, name)), name
+
+
+def test_cdf_tables_are_well_formed():
+    """Inverse CDFs: strictly decreasing, ending in 0, of the alphabet
+    their syntax element has; the coefficient CDFs in four q contexts."""
+    for name, (shape, ns, flat) in av1_tables.CDFS.items():
+        ns = (ns,) * _count(shape) if isinstance(ns, int) else ns
+        assert sum(ns) == len(flat), name
+        at = 0
+        for k in ns:
+            c = flat[at:at + k]
+            assert c[-1] == 0 and all(a > b for a, b in zip(c, c[1:])), name
+            assert c[0] < 32768, name
+            at += k
+        if name.startswith(("COEFF", "EOB", "DC_SIGN", "TXB")):
+            assert shape[0] == 4, name
+
+
+# ------------------------------------------------------ the range decoder
+
+class RangeEncoder:
+    """aom's od_ec encoder (od_ec_encode_q15), its low word kept whole:
+    the stream is `low` itself, zero-padded, which lies in the final
+    interval."""
+
+    def __init__(self):
+        self.low, self.rng, self.bits = 0, 0x8000, 15
+
+    def symbol(self, s, icdf):
+        n = len(icdf) - 1
+        r = self.rng
+        v = ((r >> 8) * (icdf[s] >> 6) >> 1) + 4 * (n - s)
+        if s > 0:
+            u = ((r >> 8) * (icdf[s - 1] >> 6) >> 1) + 4 * (n - s + 1)
+            self.low += r - u
+            r = u - v
+        else:
+            r -= v
+        d = 16 - r.bit_length()
+        self.low <<= d
+        self.rng = r << d
+        self.bits += d
+
+    def bool(self, b):
+        self.symbol(b, [16384, 0])
+
+    def data(self) -> bytes:
+        pad = -self.bits % 8
+        return (self.low << pad).to_bytes((self.bits + pad) // 8, "big")
+
+
+def _adapt(cdf, s, cnt):
+    """The specification's CDF update (independent of the decoder's)."""
+    n = len(cdf)
+    rate = 3 + (cnt > 15) + (cnt > 31) + min(int(math.log2(n)), 2)
+    for i in range(n - 1):
+        tmp = 32768 if i >= s else 0
+        c = 32768 - cdf[i]
+        c = c - ((c - tmp) >> rate) if tmp < c else c + ((tmp - c) >> rate)
+        cdf[i] = 32768 - c
+    return min(cnt + 1, 32)
+
+
+def _random_icdf(r, n):
+    cuts = np.sort(r.choice(np.arange(1, 32768), n - 1, replace=False))
+    return [32768 - int(c) for c in cuts] + [0]
+
+
+@pytest.mark.parametrize("disable_update", [False, True])
+def test_symbol_decoder_against_a_range_encoder(disable_update):
+    r = np.random.RandomState(3 + disable_update)
+    cdfs = [_random_icdf(r, n) for n in range(2, 17)]
+    enc_cdfs = [list(c) for c in cdfs]
+    counts = [0] * len(cdfs)
+    ops = []
+    enc = RangeEncoder()
+    for _ in range(4000):
+        kind = r.randint(3)
+        if kind == 0:
+            k = r.randint(len(cdfs))
+            c = enc_cdfs[k]
+            p = np.diff([0] + [32768 - v for v in c]) / 32768.0
+            s = int(r.choice(len(c), p=p / p.sum()))
+            enc.symbol(s, c)
+            if not disable_update:
+                counts[k] = _adapt(c, s, counts[k])
+            ops.append(("s", k, s))
+        elif kind == 1:
+            b = int(r.randint(2))
+            enc.bool(b)
+            ops.append(("b", b))
+        else:
+            n = int(r.randint(1, 9))
+            v = int(r.randint(1 << n))
+            for i in range(n - 1, -1, -1):
+                enc.bool((v >> i) & 1)
+            ops.append(("l", n, v))
+    data = enc.data()
+    rd = SymbolReader(data, 0, len(data), disable_update)
+    dec_cdfs = [list(c) + [0] for c in cdfs]
+    for op in ops:
+        if op[0] == "s":
+            assert rd.symbol(dec_cdfs[op[1]]) == op[2]
+        elif op[0] == "b":
+            assert rd.bool() == op[1]
+        else:
+            assert rd.literal(op[1]) == op[2]
+    if not disable_update:
+        assert [c[:-1] for c in dec_cdfs] == enc_cdfs
+    else:
+        assert [c[:-1] for c in dec_cdfs] == cdfs
+
+
+def test_symbol_decoder_reads_zeros_past_the_end():
+    """Past its bytes a tile reads as zero data (the specification's
+    padding), which the inverted value holds as ones: every bool is 0."""
+    rd = SymbolReader(b"", 0, 0, True)
+    assert [rd.bool() for _ in range(40)] == [0] * 40
+
+
+# ---------------------------------------------------- inverse transforms
+
+def _dct_ref(x):
+    n = len(x)
+    i = np.arange(n)[:, None]
+    k = np.arange(n)[None, :]
+    m = np.cos(np.pi * (2 * i + 1) * k / (2 * n))
+    m[:, 0] = 1 / math.sqrt(2)
+    return m @ np.asarray(x, float)
+
+
+def _adst_ref(x):
+    n = len(x)
+    i = np.arange(n)[:, None]
+    k = np.arange(n)[None, :]
+    if n == 4:
+        m = np.sin(np.pi * (i + 1) * (2 * k + 1) / 9) * 2 * math.sqrt(2) / 3
+    else:
+        m = np.sin(np.pi * (2 * i + 1) * (2 * k + 1) / (4 * n))
+    return m @ np.asarray(x, float)
+
+
+def _run(fn, x):
+    return np.array([int(v[0]) for v in fn([np.array([v]) for v in x])])
+
+
+def _tol(n, x):
+    """A rounding to an integer at each of log2(n) stages, and cosines
+    held to 12 bits (an error of at most 2^-13 a product)."""
+    return math.log2(n) + np.abs(x).sum() * 2.0 ** -12
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_idct_equals_its_definition_within_its_rounding(n):
+    """Each rotation rounds once (12-bit cosines): the result stays
+    within its rounding of the real DCT over 50 random inputs."""
+    r = np.random.RandomState(n)
+    for _ in range(50):
+        x = r.randint(-4000, 4001, n)
+        assert np.abs(_run(av1_recon.idct, x) - _dct_ref(x)).max() <= \
+            _tol(n, x)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_iadst_equals_its_definition_within_its_rounding(n):
+    r = np.random.RandomState(100 + n)
+    for _ in range(50):
+        x = r.randint(-4000, 4001, n)
+        assert np.abs(_run(av1_recon.iadst, x) - _adst_ref(x)).max() <= \
+            _tol(n, x)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_identity_scales_by_its_factor(n):
+    x = np.random.RandomState(200 + n).randint(-4000, 4001, n)
+    got = _run(av1_recon.iidentity, x)
+    scale = {4: 5793 / 4096, 8: 2, 16: 11586 / 4096, 32: 4}[n]
+    assert np.abs(got - scale * x).max() <= 0.5           # sqrt 2 in 12 bits
+    exact = {4: math.sqrt(2), 8: 2, 16: 2 * math.sqrt(2), 32: 4}[n]
+    assert abs(scale / exact - 1) < 2 ** -12
+
+
+def _fwht_1d(o):
+    """The forward step that undoes one inverse WHT step exactly."""
+    a_out, b_out, c_out, d_out = o
+    d2 = d_out - c_out
+    a2 = a_out + b_out
+    e = (a2 - d2) >> 1
+    c0, b0 = e - c_out, e - b_out
+    return [a2 - c0, c0, d2 + b0, b0]       # positions 0..3: a, c, d, b
+
+
+def test_wht_round_trips_bit_exactly():
+    """Lossless: coefficients found by undoing the inverse columns, then
+    rows, come back to every residual exactly."""
+    r = np.random.RandomState(7)
+    for _ in range(300):
+        res = r.randint(-255, 256, (4, 4))
+        cols = np.array([_fwht_1d(list(res[:, j])) for j in range(4)]).T
+        coef = np.array([_fwht_1d(list(cols[i])) for i in range(4)])
+        got = av1_recon.inverse_wht([int(4 * v) for v in coef.ravel()])
+        assert np.array_equal(np.array(got), res)
+
+
+def test_flipped_adst_is_the_adst_reversed():
+    r = np.random.RandomState(9)
+    c = np.zeros((8, 8), np.int64)
+    c[:4, :4] = r.randint(-300, 301, (4, 4))
+    tx = 1                                            # TX_8X8
+    a = av1_recon.inverse_transform(c, 3, tx, 8, 8)   # ADST_ADST
+    assert np.array_equal(av1_recon.inverse_transform(c, 6, tx, 8, 8),
+                          a[::-1, ::-1])              # FLIPADST_FLIPADST
+    assert np.array_equal(av1_recon.inverse_transform(c, 7, tx, 8, 8),
+                          a[:, ::-1])                 # ADST_FLIPADST
+
+
+# -------------------------------------------------------- header refusals
+
+class BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def f(self, n, v):
+        self.bits += [(v >> (n - 1 - i)) & 1 for i in range(n)]
+        return self
+
+    def data(self, trailing=True):
+        b = self.bits + ([1] if trailing else [])
+        b += [0] * (-len(b) % 8)
+        return bytes(int("".join(map(str, b[i:i + 8])), 2)
+                     for i in range(0, len(b), 8))
+
+
+def _obu(typ, payload):
+    return bytes([(typ << 3) | 2, len(payload)]) + payload
+
+
+def av1_still(w=16, h=16, high=0, cdef=(0, 0), lr=0, superres=0, grain=0,
+              qmatrix=0, lf=(0, 0), screen=0, intrabc=0, base_q=40):
+    """A reduced-still-picture sequence header and a frame OBU whose
+    header carries the given tools (one tile of zero data)."""
+    s = BitWriter().f(3, 0).f(1, 1).f(1, 1).f(5, 0)   # profile 0, still
+    s.f(4, 15).f(4, 15).f(16, w - 1).f(16, h - 1)
+    s.f(1, 0).f(1, 1).f(1, 1)                   # sb64, filter intra, edge
+    s.f(1, superres).f(1, int(any(cdef))).f(1, lr)
+    s.f(1, high).f(1, 0).f(1, 0).f(1, 1)        # 8/10 bit, colour, range
+    s.f(2, 0).f(1, 0).f(1, grain)               # csp, separate uv, grain
+    fh = BitWriter().f(1, 0).f(1, screen)       # cdf update, screen tools
+    if screen:
+        fh.f(1, 0)                              # force_integer_mv
+    if superres:
+        fh.f(1, 1).f(3, 0)
+    fh.f(1, 0)                                  # render size
+    if screen:
+        fh.f(1, intrabc)
+    fh.f(1, 1)                                  # uniform tiles
+    fh.f(8, base_q).f(1, 0).f(1, 0).f(1, 0)     # base q, dc/uv deltas
+    fh.f(1, qmatrix)
+    if qmatrix:
+        fh.f(4, 0).f(4, 0)
+    fh.f(1, 0).f(1, 0)                          # segmentation, delta q
+    fh.f(6, lf[0]).f(6, lf[1])
+    if any(lf):
+        fh.f(6, 0).f(6, 0)
+    fh.f(3, 0).f(1, 0)                          # sharpness, lf deltas
+    if any(cdef):
+        fh.f(2, 0).f(2, 0).f(4, cdef[0]).f(2, 0).f(4, cdef[1]).f(2, 0)
+    if lr:
+        fh.f(2, 1).f(2, 0).f(2, 0).f(2, 0)      # Y restored
+    fh.f(1, 0).f(1, 0)                          # tx mode, reduced tx set
+    if grain:
+        fh.f(1, 1).f(16, 0)
+    return _obu(1, s.data()) + _obu(6, fh.data(trailing=False) + bytes(8))
+
+
+def test_written_header_parses():
+    seq, f, tiles = av1_obu.parse_av1(av1_still(24, 40), "x")
+    assert (f.width, f.height, f.base_q_idx, seq.bit_depth) == (24, 40, 40,
+                                                                8)
+    assert len(tiles) == 1 and tiles[0][3] - tiles[0][2] == 8
+    seq, _, _ = av1_obu.parse_av1(av1_still(high=1), "x")
+    assert seq.bit_depth == 10
+
+
+@pytest.mark.parametrize("kw, what, tool", [
+    (dict(lf=(3, 0)), "the deblocking loop filter", "levels 3, 0"),
+    (dict(cdef=(2, 1)), "CDEF", "dav1d's CDEF filter"),
+    (dict(lr=1), "loop restoration", "Wiener / self-guided"),
+    (dict(superres=1), "superres", "super-resolution"),
+    (dict(grain=1), "film grain", "film grain synthesis"),
+    (dict(qmatrix=1), "quantizer matrices", "using_qmatrix"),
+    (dict(screen=1, intrabc=1), "intra block copy", "intrabc")])
+def test_tools_not_decoded_yet_are_refused_by_name(kw, what, tool):
+    with pytest.raises(ValueError) as e:
+        av1_obu.parse_av1(av1_still(**kw), "x")
+    assert f"AVIF with {what} is not decoded by the port yet" in \
+        str(e.value)
+    assert tool in str(e.value)
+
+
+def test_damaged_headers_are_refused():
+    good = av1_still()
+    for blob, why in ((good[:5], "runs past"), (b"\x80" + good[1:],
+                                                 "forbidden bit"),
+                      (good[2 + good[1]:], "before the sequence")):
+        with pytest.raises(ValueError, match="damaged") as e:
+            av1_obu.parse_av1(blob, "x")
+        assert why in str(e.value)
+
+
+if __name__ == "__main__":
+    with open(libavif(), "rb") as f:
+        t = tables_from(f.read())
+    head = av1_tables.__doc__
+    out = [f'"""{head}"""\n\n', "CDFS = {\n"]
+    for name, (shape, ns, flat) in t["CDFS"].items():
+        body = ", ".join(map(str, flat))
+        out.append(f"    {name!r}: ({shape!r}, {ns!r}, (\n" + textwrap.fill(
+            body, 72, initial_indent=" " * 8, subsequent_indent=" " * 8) +
+            ")),\n")
+    out.append("}\n")
+    for name in _PLAIN:
+        body = ", ".join(map(str, t[name]))
+        out.append(f"\n{name} = (\n" + textwrap.fill(
+            body, 76, initial_indent="    ", subsequent_indent="    ") +
+            ")\n")
+    with open(TABLES, "w") as f:
+        f.write("".join(out))
+    print(f"wrote {TABLES}")

@@ -1,0 +1,818 @@
+"""The port's AVIF reader (l3c_torch/data/avif.py, av1_*.py, avif_yuv.py)
+against Pillow 12.1's AVIF plugin (libavif 1.3.0, dav1d 1.5.1, libyuv)
+and the JAX package's loader.
+
+The committed fixtures (l3c_torch/data/fixtures/avif, written by
+`python tests/test_torch_port_avif.py`) are Pillow's own AVIF saves, aom
+3.12.1 inside libavif, with the in-loop filters switched off
+(`advanced=OFF`) and aom's keys steering the coding tools; the matrices
+Pillow's save cannot set (BT.709, identity) are Pillow's files with their
+colour description rewritten (`set_cicp`). expected.json holds Pillow's
+format, mode, size and the digest of convert("RGB"), or the port's
+refusal; together the decoded files cover the tools the decoder has
+(`test_fixtures_cover_the_decoder`).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import io
+import json
+import os
+import struct
+import sys
+
+import numpy as np
+import PIL
+import pytest
+from PIL import Image
+
+from l3c_tpu.data import images as jimages
+from l3c_torch.data import av1_block, av1_obu, av1_recon, avif
+from l3c_torch.data import images as timages
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
+OFF = {"enable-cdef": "0", "enable-restoration": "0",
+       "loopfilter-control": "0"}
+CODED = ("y_coded_lossy_512_420.avif", "z_coded_lossless_444.avif")
+LISTING_MIN_SIZE = 20
+
+
+def save(img: np.ndarray, **kw) -> bytes:
+    f = io.BytesIO()
+    Image.fromarray(img).save(f, "AVIF", **kw)
+    return f.getvalue()
+
+
+def photo(h, w, seed):
+    from test_torch_port_prep import _photo
+    return _photo(h, w, seed, noise=6)
+
+
+def textured(h, w, seed):
+    from test_torch_port_prep import _photo_textured
+    return _photo_textured(h, w, seed)
+
+
+def waves(h, w, seed):
+    """Crossed sinusoids and a ramp with grain (directional, filter-intra
+    and 1:4 transforms)."""
+    r = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([128 + 100 * np.sin(x / 7.0 + seed) * np.cos(y / 11.0),
+                    128 + 90 * np.cos((x + y) / 9.0),
+                    x * 255 // max(1, w - 1)], -1)
+    return np.clip(img + r.randint(-20, 21, img.shape), 0, 255).astype(
+        np.uint8)
+
+
+def screen(h, w, seed):
+    """Flat rectangles of a few colours (screen content: palettes)."""
+    r = np.random.RandomState(seed)
+    img = np.zeros((h, w, 3), np.uint8) + r.randint(0, 256, 3).astype(
+        np.uint8)
+    for _ in range(12):
+        y0, x0 = r.randint(0, h), r.randint(0, w)
+        img[y0:y0 + r.randint(2, h // 2), x0:x0 + r.randint(2, w // 2)] = \
+            r.randint(0, 256, 3)
+    return img
+
+
+def bands(h, w, seed, period, vertical):
+    """Bands `period` wide of flat colours with a ripple across them
+    (rectangular partitions: 64 x 32 / 32 x 64 / 64 x 16 transforms)."""
+    r = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    k = (x if vertical else y) // period
+    out = r.randint(40, 220, (k.max() + 1, 3))[k] + \
+        (np.sin((y if vertical else x) / 3.0) * 25)[..., None] + \
+        r.randint(-3, 4, (h, w, 3))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _seq_positions(obu: bytes) -> dict:
+    """Bit positions of the sequence header's colour primaries and matrix
+    coefficients in the OBU (`obu` starts at its header byte)."""
+    reads = []
+
+    class Log(av1_obu.Bits):
+        def f(self, n):
+            reads.append((self.bit, n))
+            return super().f(n)
+    typ, _, _, at, end = next(av1_obu.obus(obu, "x"))
+    assert typ == av1_obu.OBU_SEQUENCE_HEADER
+    av1_obu.sequence_header(Log(obu, at, end, "x"))
+    for i in range(len(reads) - 2):
+        if [n for _, n in reads[i:i + 3]] == [8, 8, 8] and \
+                reads[i - 1][1] == 1:
+            return {"cp": reads[i][0], "mc": reads[i + 2][0]}
+    return None                     # no colour description in the header
+
+
+def _put(b: bytearray, bit: int, n: int, v: int):
+    for k in range(n):
+        byte, sh = (bit + k) >> 3, 7 - ((bit + k) & 7)
+        b[byte] = (b[byte] & ~(1 << sh)) | (((v >> (n - 1 - k)) & 1) << sh)
+
+
+def set_cicp(blob: bytes, cp: int, mc: int) -> bytes:
+    """Pillow's file with another colour description: the colr nclx box,
+    and the sequence headers (in av1C and in the item's OBUs) where they
+    carry one (aom's do not: libavif takes the matrix from nclx)."""
+    b = bytearray(blob)
+    i = b.find(b"colrnclx")
+    struct.pack_into(">H", b, i + 8, cp)
+    struct.pack_into(">H", b, i + 12, mc)
+    c = b.find(b"av1C")
+    starts = [b.find(b"mdat") + 4]
+    if struct.unpack(">I", b[c - 4:c])[0] > 12:        # configOBUs
+        starts.append(c + 8)
+    for at in starts:
+        while b[at] >> 3 & 15 != av1_obu.OBU_SEQUENCE_HEADER:
+            at += 1
+        pos = _seq_positions(bytes(b[at:]))
+        if pos:
+            _put(b, 8 * at + pos["cp"], 8, cp)
+            _put(b, 8 * at + pos["mc"], 8, mc)
+    return bytes(b)
+
+
+def corpus():
+    """name -> (pixels, Pillow's save keywords, cicp rewrite or None)."""
+    adv = lambda **kw: dict(OFF, **kw)  # noqa: E731
+    tx = adv(**{"enable-tx64": "1", "enable-rect-partitions": "1",
+                "enable-1to4-partitions": "1", "min-partition-size": "16",
+                "enable-ab-partitions": "1"})
+    return {
+        "a_lossless_444.avif": (photo(40, 52, 1), dict(
+            quality=100, subsampling="4:4:4"), None),
+        "b_q94_444_odd.avif": (photo(45, 61, 2), dict(
+            quality=94, subsampling="4:4:4", advanced=adv()), None),
+        "c_q80_422.avif": (photo(50, 70, 3), dict(
+            quality=80, subsampling="4:2:2", advanced=adv(
+                **{"enable-cfl-intra": "1"})), None),
+        "d_q60_420_tools.avif": (waves(96, 96, 4), dict(
+            quality=60, subsampling="4:2:0", speed=2, advanced=adv(
+                **{"enable-filter-intra": "1", "enable-cfl-intra": "1",
+                   "enable-smooth-intra": "1", "enable-paeth-intra": "1",
+                   "enable-angle-delta": "1"})), None),
+        "d_q60_420_smooth.avif": (textured(96, 96, 4), dict(
+            quality=60, subsampling="4:2:0", speed=2, advanced=adv(
+                **{"enable-smooth-intra": "1", "enable-paeth-intra": "1",
+                   "enable-angle-delta": "1"})), None),
+        "e_q30_400.avif": (photo(40, 56, 5), dict(
+            quality=30, subsampling="4:0:0", advanced=adv()), None),
+        "f_limited_420.avif": (photo(37, 29, 6), dict(
+            quality=70, subsampling="4:2:0", range="limited",
+            advanced=adv()), None),
+        "g_bt709_444.avif": (photo(36, 44, 7), dict(
+            quality=85, subsampling="4:4:4", advanced=adv()), (1, 1)),
+        "g_bt709_limited_420.avif": (photo(33, 35, 8), dict(
+            quality=75, subsampling="4:2:0", range="limited",
+            advanced=adv()), (1, 1)),
+        "h_identity_lossless.avif": (photo(30, 42, 9), dict(
+            quality=100, subsampling="4:4:4"), (2, 0)),
+        "i_palette_screen_444.avif": (screen(64, 80, 10), dict(
+            quality=85, subsampling="4:4:4", advanced=adv(
+                **{"tune-content": "screen", "enable-palette": "1"})),
+            None),
+        "i_palette_screen_420.avif": (screen(48, 72, 11), dict(
+            quality=70, subsampling="4:2:0", advanced=adv(
+                **{"tune-content": "screen", "enable-palette": "1"})),
+            None),
+        "j_tiles_sb128.avif": (photo(160, 272, 12), dict(
+            quality=50, subsampling="4:2:0", tile_rows=1, tile_cols=1,
+            advanced=adv(**{"sb-size": "128"})), None),
+        "k_bands_h32.avif": (bands(128, 128, 0, 32, False), dict(
+            quality=80, subsampling="4:2:0", speed=0, advanced=tx), None),
+        "k_bands_v32.avif": (bands(128, 128, 1, 32, True), dict(
+            quality=80, subsampling="4:2:0", speed=0, advanced=tx), None),
+        "k_bands_h16.avif": (bands(128, 128, 2, 16, False), dict(
+            quality=80, subsampling="4:2:0", speed=0, advanced=tx), None),
+        "l_deltaq_444.avif": (textured(64, 64, 13), dict(
+            quality=70, subsampling="4:4:4", advanced=adv(
+                **{"deltaq-mode": "2", "delta-lf-mode": "1"})), None),
+        "m_q60_420_as.png": (textured(48, 64, 14), dict(
+            quality=60, subsampling="4:2:0", advanced=adv()), None),
+        # Pillow's default saves: every in-loop filter on
+        "r_default_rgb.avif": (photo(40, 48, 20), {}, None),
+        "r_default_rgba.avif": (np.dstack([photo(32, 40, 21), np.full(
+            (32, 40), 200, np.uint8)]), {}, None),
+        # at quality 90 aom writes no in-loop filter into a default save
+        "u_default_q90.avif": (photo(40, 48, 22), dict(quality=90), None),
+        "t_premultiplied.avif": (np.dstack([photo(24, 32, 23), np.full(
+            (24, 32), 128, np.uint8)]), dict(alpha_premultiplied=True,
+                                              advanced=OFF), None),
+        CODED[0]: (textured(512, 512, 30), dict(
+            quality=80, subsampling="4:2:0", advanced=adv()), None),
+        CODED[1]: (textured(96, 128, 31), dict(
+            quality=100, subsampling="4:4:4"), None),
+    }
+
+
+def make_avif_fixtures(d):
+    os.makedirs(d, exist_ok=True)
+    for name, (img, kw, cicp) in corpus().items():
+        blob = save(img, **kw)
+        if cicp:
+            blob = set_cicp(blob, *cicp)
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(blob)
+
+
+def _digest(arr):
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _refusal(p):
+    try:
+        timages.load_image_uint8(p)
+    except ValueError as e:
+        return str(e).split(": ", 1)[1].split(" is not decoded")[0]
+    return None
+
+
+def avif_expected_now(folder=FIXTURES):
+    """expected.json's content as Pillow and the JAX package give it;
+    where the port refuses a file Pillow decodes, the port's reason."""
+    files = {}
+    for n in sorted(os.listdir(folder)):
+        if n == "expected.json":
+            continue
+        p = os.path.join(folder, n)
+        with Image.open(p) as im:
+            e = {"format": im.format, "mode": im.mode,
+                 "size": list(im.size[::-1])}
+        reason = _refusal(p) if n[0] in "rt" else None
+        if reason:
+            e["refused"] = reason
+        else:
+            e["sha256"] = _digest(jimages.load_image_uint8(p))
+        files[n] = e
+    listing = jimages.ImagesCached(folder, min_size=LISTING_MIN_SIZE)
+    return {"files": files, "listing_min_size": LISTING_MIN_SIZE,
+            "listing": [os.path.basename(p) for p in listing.paths()],
+            "tested": [os.path.basename(p)
+                       for p in jimages.iter_images_in(folder)],
+            "coded": list(CODED)}
+
+
+def libavif():
+    libs = glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..",
+                                  "pillow.libs", "libavif*"))
+    return libs[0] if libs else None
+
+
+def _versions():
+    from PIL import _avif
+    codecs = dict(c.split(":", 1) for c in
+                  _avif.codec_versions().replace(" [dec]", "").replace(
+                      " [enc]", "").split(", "))
+    lib = libavif()
+    yuv = ctypes.CDLL(lib).avifLibYUVVersion() if lib else None
+    return {"pillow": PIL.__version__,
+            "libavif": PIL.features.version("avif"),
+            "dav1d": codecs.get("dav1d"), "aom": codecs.get("aom"),
+            "libyuv": yuv}
+
+
+def _expected():
+    with open(os.path.join(FIXTURES, "expected.json")) as f:
+        return json.load(f)
+
+
+# ------------------------------------------------------------- the tests
+
+def test_avif_expected_json_equals_pillow_and_jax_now():
+    want = _expected()
+    got = avif_expected_now()
+    assert got == {k: want[k] for k in got}
+    assert sum(os.path.getsize(os.path.join(FIXTURES, n))
+               for n in os.listdir(FIXTURES)) < 500_000
+    assert want["tested"] == ["m_q60_420_as.png"]
+    assert want["made_by"]["libavif"] == "1.3.0"
+
+
+def _names():
+    if not os.path.exists(os.path.join(FIXTURES, "expected.json")):
+        return []                     # before the maker's first run
+    return sorted(_expected()["files"])
+
+
+@pytest.mark.parametrize("name", _names())
+def test_port_reads_each_fixture_as_expected(name):
+    e = _expected()["files"][name]
+    p = os.path.join(FIXTURES, name)
+    assert timages.image_format(p) == e["format"] == "AVIF"
+    assert timages.image_mode(p) == e["mode"]
+    assert list(timages.image_size(p)) == e["size"]
+    if "refused" in e:
+        with pytest.raises(ValueError) as err:
+            timages.load_image_uint8(p)
+        assert f"{e['refused']} is not decoded by the port yet" in \
+            str(err.value)
+    else:
+        got = timages.load_image_uint8(p)
+        assert _digest(got) == e["sha256"]
+        assert np.array_equal(got, jimages.load_image_uint8(p))
+
+
+def test_listing_keeps_the_avif_named_png():
+    got = timages.ImagesCached(FIXTURES, min_size=LISTING_MIN_SIZE).paths()
+    assert [os.path.basename(p) for p in got] == _expected()["listing"]
+
+
+def decode_counting(paths):
+    """Decode the files, counting the tools the decoder ran."""
+    c = collections.Counter()
+    R, B = av1_recon, av1_block
+    saved = {}
+
+    def wrap(mod, name, key):
+        f = getattr(mod, name)
+        saved[(mod, name)] = f
+
+        def g(*a, **k):
+            c[key(*a) if callable(key) else key] += 1
+            return f(*a, **k)
+        setattr(mod, name, g)
+    wrap(R, "pred_filter_intra", "filter_intra")
+    wrap(R, "cfl", "cfl")
+    wrap(R, "upsample", "edge_upsample")
+    wrap(R, "edge_filter", lambda e, sz, st: f"edge_filter_{st}")
+    wrap(R, "pred_smooth", lambda a, l_, w, h, m: f"smooth_{m}")
+    wrap(R, "pred_paeth", "paeth")
+    wrap(R, "pred_directional", lambda a, l_, w, h, ang, *r:
+         "directional_delta" if ang % 45 and ang not in (113, 157, 203, 67)
+         else "directional")
+    wrap(R, "inverse_transform", lambda co, t, tx, w, h: f"tx_{w}x{h}")
+    wrap(R, "inverse_wht", "wht")
+    wrap(B.FrameDecoder, "_palette_colors", lambda self, b, p, n:
+         f"palette_{'uv' if p else 'y'}")
+    wrap(B.FrameDecoder, "decode_tile", lambda self, *a: "tile")
+    wrap(B.FrameDecoder, "_delta_q_lf", lambda self, b: "delta_q" if
+         self.read_deltas else "no_delta_q")
+    try:
+        for p in paths:
+            with open(p, "rb") as f:
+                blob = f.read()
+            m = avif.parse(blob, p)
+            seq, frame, tiles = av1_obu.parse_av1(avif._item_bytes(
+                blob, m, m.primary, p), p)
+            q = frame.base_q_idx
+            c[f"qctx_{(q > 20) + (q > 60) + (q > 120)}"] += 1
+            c[f"ss_{seq.ssx}{seq.ssy}{seq.mono}"] += 1
+            c[f"sb128_{seq.sb128}"] += 1
+            c[f"lossless_{frame.coded_lossless}"] += 1
+            timages.load_image_uint8(p)
+    finally:
+        for (mod, name), f in saved.items():
+            setattr(mod, name, f)
+    return c
+
+
+def test_fixtures_cover_the_decoder():
+    """The decoded fixtures (the two coded files aside) run every coding
+    tool and transform size the decoder has."""
+    e = _expected()["files"]
+    paths = [os.path.join(FIXTURES, n) for n in sorted(e)
+             if "sha256" in e[n] and n not in CODED]
+    c = decode_counting(paths)
+    need = ["filter_intra", "cfl", "edge_upsample", "edge_filter_1",
+            "edge_filter_2", "edge_filter_3", "smooth_9", "smooth_10",
+            "smooth_11", "paeth", "directional", "directional_delta", "wht",
+            "palette_y", "palette_uv", "delta_q", "qctx_0", "qctx_1",
+            "qctx_2", "qctx_3", "ss_000", "ss_100", "ss_110", "ss_111",
+            "sb128_1", "lossless_True"]
+    need += [f"tx_{w}x{h}" for w, h in av1_block.TX_WH]
+    assert [k for k in need if not c[k]] == []
+    assert c["tile"] > len(paths)            # a file with several tiles
+
+
+# ------------------------------------------------- the colour conversion
+
+def _libavif_rgb(lib, blob, planes):
+    """libavif's avifImageYUVToRGB (Pillow's call) of `planes` written into
+    the image it decodes from `blob`: the file gives the matrix, range and
+    layout."""
+    c = ctypes
+    lib.avifDecoderCreate.restype = c.c_void_p
+    lib.avifImageCreateEmpty.restype = c.c_void_p
+    dec, img = lib.avifDecoderCreate(), lib.avifImageCreateEmpty()
+    try:
+        assert lib.avifDecoderReadMemory(c.c_void_p(dec), c.c_void_p(img),
+                                         blob, c.c_size_t(len(blob))) == 0
+        w, h = (c.c_uint32 * 2).from_address(img)
+        ptrs = (c.c_void_p * 3).from_address(img + 24)
+        rows = (c.c_uint32 * 3).from_address(img + 48)
+        for k, p in enumerate(planes):
+            ph, pw = p.shape
+            dst = np.ctypeslib.as_array((c.c_uint8 * (rows[k] * ph))
+                                        .from_address(ptrs[k]))
+            dst.reshape(ph, rows[k])[:, :pw] = p
+        rgb = c.create_string_buffer(256)    # avifRGBImage, 64 bytes
+        lib.avifRGBImageSetDefaults(rgb, c.c_void_p(img))
+        assert struct.unpack_from("<III", rgb, 0) == (w, h, 8)
+        struct.pack_into("<I", rgb, 12, 0)    # AVIF_RGB_FORMAT_RGB
+        lib.avifRGBImageAllocatePixels(rgb)
+        try:
+            assert lib.avifImageYUVToRGB(c.c_void_p(img), rgb) == 0
+            ptr, = struct.unpack_from("<Q", rgb, 48)
+            stride, = struct.unpack_from("<I", rgb, 56)
+            out = np.ctypeslib.as_array((c.c_uint8 * (stride * h))
+                                        .from_address(ptr))
+            return out.reshape(h, stride)[:, :3 * w].reshape(h, w, 3).copy()
+        finally:
+            lib.avifRGBImageFreePixels(rgb)
+    finally:
+        lib.avifImageDestroy(c.c_void_p(img))
+        lib.avifDecoderDestroy(c.c_void_p(dec))
+
+
+@pytest.mark.parametrize("rng, cicp", [("full", None), ("limited", None),
+                                       ("full", (1, 1)),
+                                       ("limited", (1, 1))])
+def test_every_yuv_triple_converts_as_libavif(rng, cicp):
+    """All 2^24 (y, u, v) at 4:4:4 through libavif's own conversion (the
+    library Pillow bundles, ctypes): BT.601 and BT.709, full and limited,
+    equal to `avif_yuv.to_rgb`. libyuv picks its row functions at run
+    time (AVX2 here and on the card host, whose CPUs both have it; this
+    build has no switch to force its C rows); the port's formula is the
+    C rows', and the equality here shows the rows libyuv runs agree."""
+    from l3c_torch.data import avif_yuv
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    lib = ctypes.CDLL(path)
+    blob = save(photo(512, 512, 44), quality=50, subsampling="4:4:4",
+                speed=9, range=rng, advanced=OFF)
+    if cicp:
+        blob = set_cicp(blob, *cicp)
+    mc = cicp[1] if cicp else 6
+    every = np.arange(1 << 24, dtype=np.uint32)
+    for k in range(64):
+        part = every[k << 18:(k + 1) << 18].reshape(512, 512)
+        planes = [((part >> s) & 255).astype(np.uint8) for s in (16, 8, 0)]
+        want = _libavif_rgb(lib, blob, planes)
+        got = avif_yuv.to_rgb(planes, 0, 0, 0, mc, rng == "full", "x")
+        assert np.array_equal(got, want), k
+
+
+@pytest.mark.parametrize("ss, shape", [("4:2:0", (37, 29)),
+                                       ("4:2:0", (36, 48)),
+                                       ("4:2:2", (21, 35)),
+                                       ("4:0:0", (19, 23))])
+def test_subsampled_chroma_converts_as_libavif(ss, shape):
+    """Random planes through libavif's conversion at 4:2:0 / 4:2:2
+    (libyuv's bilinear upsampling, edges included) and 4:0:0 (its own
+    grey path), full and limited range."""
+    from l3c_torch.data import avif_yuv
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    lib = ctypes.CDLL(path)
+    h, w = shape
+    sx, sy = (1, 1) if ss == "4:2:0" else (1, 0) if ss == "4:2:2" else (0, 0)
+    r = np.random.RandomState(h * w)
+    for rng in ("full", "limited"):
+        blob = save(photo(h, w, 45), quality=50, subsampling=ss, speed=9,
+                    range=rng, advanced=OFF)
+        planes = [r.randint(0, 256, (h, w)).astype(np.uint8)]
+        if ss != "4:0:0":
+            ch, cw = (h + sy) >> sy, (w + sx) >> sx
+            planes += [r.randint(0, 256, (ch, cw)).astype(np.uint8)
+                       for _ in (1, 2)]
+        want = _libavif_rgb(lib, blob, planes)
+        got = avif_yuv.to_rgb(planes, sx, sy, int(ss == "4:0:0"), 6,
+                              rng == "full", "x")
+        assert np.array_equal(got, want), rng
+
+
+# ------------------------------------------------------ the container
+
+def _box(t, body):
+    return struct.pack(">I", 8 + len(body)) + t + body
+
+
+def _full(t, v, flags, body):
+    return _box(t, bytes([v]) + flags.to_bytes(3, "big") + body)
+
+
+def remux(blob, iloc=0, ipma=0, ipma_wide=False, idat=False, extents=1,
+          index_size=0, data=None):
+    """Pillow's still with its item written again by a test-only writer:
+    `iloc` version 0-2 (construction method 1 puts the data in `idat`),
+    the data in `extents` pieces, `ipma` version 0 / 1 with one- or
+    two-byte property indices (av1C marked essential); `data` replaces
+    the item's OBUs."""
+    m = avif.parse(blob, "x")
+    if data is None:
+        data = avif._item_bytes(blob, m, m.primary, "x")
+    props = [avif._prop(m, m.primary, t) for t in (b"ispe", b"pixi",
+                                                    b"av1C")]
+    colr = avif._prop(m, m.primary, b"colr")
+    ipco = _box(b"ipco", _box(b"ispe", props[0]) + _box(b"pixi", props[1])
+                + _box(b"av1C", props[2]) + _box(b"colr", colr))
+    n = 2 if ipma_wide else 1
+    idx = [(i | (0x8000 if i == 3 else 0)) if ipma_wide else
+           (i | (0x80 if i == 3 else 0)) for i in (1, 2, 3, 4)]
+    ipma_body = struct.pack(">I", 1) + (struct.pack(">I", 1) if ipma else
+                                        struct.pack(">H", 1)) + bytes([4])
+    ipma_body += b"".join(v.to_bytes(n, "big") for v in idx)
+    iprp = _box(b"iprp", ipco + _full(b"ipma", ipma, int(ipma_wide),
+                                      ipma_body))
+    hdlr = _full(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(13))
+    pitm = _full(b"pitm", 0, 0, struct.pack(">H", 1))
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", 1) + _full(
+        b"infe", 2, 0, struct.pack(">HH", 1, 0) + b"av01" + b"\0"))
+    cuts = np.linspace(0, len(data), extents + 1).astype(int)
+    pieces = [(int(a), int(b) - int(a)) for a, b in zip(cuts, cuts[1:])]
+
+    def iloc_box(base):
+        body = bytes([0x44, index_size if iloc else 0])
+        body += struct.pack(">I" if iloc == 2 else ">H", 1)
+        body += struct.pack(">I" if iloc == 2 else ">H", 1)
+        if iloc:
+            body += struct.pack(">H", 1 if idat else 0)
+        body += struct.pack(">HH", 0, len(pieces))
+        for k, (off, ln) in enumerate(pieces):
+            if iloc and index_size:
+                body += struct.pack(">I", k)
+            body += struct.pack(">II", base + off, ln)
+        return _full(b"iloc", iloc, 0, body)
+    ftyp = _box(b"ftyp", b"avif" + bytes(4) + b"mif1avifmiaf")
+    extra = _box(b"idat", data) if idat else b""
+    meta = _full(b"meta", 0, 0, hdlr + pitm + iloc_box(0) + iinf + iprp +
+                 extra)
+    base = 0 if idat else len(ftyp) + len(meta) + 8
+    meta = _full(b"meta", 0, 0, hdlr + pitm + iloc_box(base) + iinf + iprp
+                 + extra)
+    return ftyp + meta + (b"" if idat else _box(b"mdat", data))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(iloc=0), dict(iloc=0, extents=3), dict(iloc=1), dict(
+        iloc=1, idat=True), dict(iloc=2, extents=2), dict(
+        iloc=2, idat=True, extents=3), dict(iloc=1, index_size=4,
+                                            extents=2),
+    dict(ipma=1), dict(ipma_wide=True), dict(ipma=1, ipma_wide=True,
+                                             iloc=2)])
+def test_container_variants_read_as_pillow_reads_them(tmp_path, kw):
+    """The item's location (iloc versions, idat, several extents) and its
+    properties' association (ipma versions and index widths) as the test
+    writer lays them out: Pillow's mode, size and pixels, the port's
+    too."""
+    blob = remux(save(photo(26, 34, 40), quality=70, advanced=OFF), **kw)
+    p = str(tmp_path / "x.avif")
+    with open(p, "wb") as f:
+        f.write(blob)
+    with Image.open(p) as im:
+        mode, size = im.mode, im.size[::-1]
+        want = np.asarray(im.convert("RGB"))
+    assert timages.image_format(p) == "AVIF"
+    assert timages.image_mode(p) == mode
+    assert timages.image_size(p) == size
+    assert np.array_equal(timages.load_image_uint8(p), want)
+
+
+def _obu(typ, payload):
+    size, n = bytearray(), len(payload)
+    while True:
+        size.append((n & 0x7F) | (0x80 if n >> 7 else 0))
+        n >>= 7
+        if not n:
+            break
+    return bytes([(typ << 3) | 2]) + bytes(size) + payload
+
+
+def _bits(data, start, stop):
+    """data's bits [start, stop) as a list."""
+    return [(data[i >> 3] >> (7 - (i & 7))) & 1 for i in range(start, stop)]
+
+
+def _pack(bits):
+    bits = bits + [0] * (-len(bits) % 8)
+    return bytes(int("".join(map(str, bits[i:i + 8])), 2)
+                 for i in range(0, len(bits), 8))
+
+
+def split_tile_groups(data, first):
+    """The item's OBU_FRAME as an OBU_FRAME_HEADER and two OBU_TILE_GROUPs
+    (tiles [0, first) and [first, n), tile_start_and_end_present_flag
+    set), as an encoder that sends tiles early writes them."""
+    obus = list(av1_obu.obus(data, "x"))
+    head = [o for o in obus if o[0] == av1_obu.OBU_SEQUENCE_HEADER][0]
+    seq = av1_obu.sequence_header(av1_obu.Bits(data, head[3], head[4], "x"))
+    typ, _, _, at, end = obus[-1]
+    assert typ == av1_obu.OBU_FRAME
+    b = av1_obu.Bits(data, at, end, "x")
+    f = av1_obu.frame_header(b, seq)
+    out = b"".join(data[o[3] - 2 if o[4] - o[3] < 128 else o[3] - 3:o[4]]
+                   for o in obus[:-1])
+    out += _obu(av1_obu.OBU_FRAME_HEADER, _pack(_bits(data, 8 * at, b.bit)
+                                                + [1]))
+    b.byte_alignment()
+    tiles = av1_obu._tile_group(data, b.pos, end, f, "x")
+    n_bits = f.tile_cols_log2 + f.tile_rows_log2
+    for lo, hi in ((0, first), (first, len(tiles))):
+        bits = [1] + [(v >> (n_bits - 1 - i)) & 1 for v in (lo, hi - 1)
+                      for i in range(n_bits)]
+        payload = _pack(bits)
+        for k in range(lo, hi):
+            s, e = tiles[k][2:]
+            if k < hi - 1:
+                payload += (e - s - 1).to_bytes(f.tile_size_bytes, "little")
+            payload += data[s:e]
+        out += _obu(av1_obu.OBU_TILE_GROUP, payload)
+    return out
+
+
+def test_frame_header_and_tile_group_obus_as_pillow(tmp_path):
+    """A frame sent as a frame header OBU and two tile group OBUs decodes
+    as its one frame OBU does, in Pillow and in the port."""
+    with open(os.path.join(FIXTURES, "j_tiles_sb128.avif"), "rb") as f:
+        blob = f.read()
+    m = avif.parse(blob, "x")
+    data = avif._item_bytes(blob, m, m.primary, "x")
+    assert len(av1_obu.parse_av1(data, "x")[2]) == 4
+    p = str(tmp_path / "tg.avif")
+    with open(p, "wb") as f:
+        f.write(remux(blob, data=split_tile_groups(data, 1)))
+    want = jimages.load_image_uint8(os.path.join(FIXTURES,
+                                                 "j_tiles_sb128.avif"))
+    assert np.array_equal(np.asarray(Image.open(p).convert("RGB")), want)
+    assert np.array_equal(timages.load_image_uint8(p), want)
+
+
+def test_high_bit_depth_is_refused_by_name(tmp_path):
+    """A 10-bit AV1 still (a written header) is refused by name."""
+    from test_torch_port_av1 import av1_still
+    blob = remux(save(photo(16, 16, 43), quality=70, advanced=OFF),
+                 data=av1_still(16, 16, high=1))
+    p = str(tmp_path / "hbd.avif")
+    with open(p, "wb") as f:
+        f.write(blob)
+    with pytest.raises(ValueError, match="AVIF with 10-bit samples is not "
+                       "decoded by the port yet"):
+        timages.load_image_uint8(p)
+
+
+def test_image_sequence_with_meta_gives_its_first_frame(tmp_path):
+    """Pillow's save_all writes an avis file with tracks and a primary
+    item: Pillow shows the first frame, the port decodes the item."""
+    p = str(tmp_path / "seq.avif")
+    frames = [Image.fromarray(photo(32, 40, k)) for k in (41, 42)]
+    frames[0].save(p, "AVIF", save_all=True, append_images=frames[1:],
+                   advanced=OFF)
+    with Image.open(p) as im:
+        assert im.n_frames == 2
+        want = np.asarray(im.convert("RGB"))
+    assert np.array_equal(timages.load_image_uint8(p), want)
+
+
+# ------------------------------------------------- Pillow's saves and refusals
+
+_KEYS = [{}, {"tune-content": "screen", "enable-palette": "1"},
+         {"enable-filter-intra": "1"}, {"enable-cfl-intra": "1"},
+         {"enable-smooth-intra": "1"}, {"enable-paeth-intra": "1"},
+         {"enable-angle-delta": "1"}, {"enable-tx64": "1"},
+         {"enable-rect-partitions": "1"}, {"deltaq-mode": "2"}]
+
+
+@pytest.mark.parametrize("k", range(len(_KEYS)))
+def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
+    r = np.random.RandomState(50 + k)
+    h, w = (int(v) for v in r.randint(8, 97, 2))
+    img = (screen if k == 1 else waves if k % 2 else photo)(h, w, 50 + k)
+    ss = ("4:4:4", "4:2:2", "4:2:0", "4:0:0")[k % 4]
+    p = str(tmp_path / "x.avif")
+    with open(p, "wb") as f:
+        f.write(save(img, quality=int(r.randint(30, 96)), subsampling=ss,
+                     speed=int(r.choice([4, 6, 8])), range=("full",
+                                                            "limited")[k % 2],
+                     advanced=dict(OFF, **_KEYS[k])))
+    got = timages.load_image_uint8(p)
+    assert np.array_equal(got, np.asarray(Image.open(p).convert("RGB")))
+    assert np.array_equal(got, jimages.load_image_uint8(p))
+
+
+def _outcome(p):
+    """Pillow's pixels or None where Pillow refuses; the port's pixels,
+    None where it refuses, or "not yet" where it refuses naming a tool it
+    does not decode yet."""
+    try:
+        with Image.open(p) as im:
+            pil = np.asarray(im.convert("RGB"))
+    except Exception:                  # noqa: BLE001 (Pillow's refusals)
+        pil = None
+    try:
+        port = timages.load_image_uint8(p)
+    except ValueError as e:
+        port = "not yet" if "not decoded by the port yet" in str(e) \
+            else None
+    return pil, port
+
+
+def test_truncated_and_bit_flipped_files_as_pillow(tmp_path):
+    """Cut anywhere, or with a bit flipped in its container, headers or
+    tile data: where Pillow decodes, the port gives its pixels (dav1d's
+    and the port's walk of damaged tile data agree) or names a tool it
+    does not decode yet (a flip that switches the deblocking filter on);
+    where Pillow refuses, the port refuses (libavif's box checks, dav1d's
+    tile overread and 4:2:2 partition checks)."""
+    blob = save(waves(40, 48, 60), quality=60, subsampling="4:2:0",
+                advanced=OFF)
+    r = np.random.RandomState(61)
+    cases = [blob[:n] for n in (len(blob) - 1, len(blob) - 40,
+                                len(blob) // 2, 300, 40)]
+    for _ in range(40):
+        b = bytearray(blob)
+        b[r.randint(len(b))] ^= 1 << r.randint(8)
+        cases.append(bytes(b))
+    decoded = 0
+    for k, b in enumerate(cases):
+        p = str(tmp_path / f"c{k}.avif")
+        with open(p, "wb") as f:
+            f.write(b)
+        pil, port = _outcome(p)
+        if pil is None:
+            assert port is None, k
+        elif not isinstance(port, str):
+            assert np.array_equal(pil, port), k
+            decoded += 1
+    assert 20 <= decoded < len(cases)
+
+
+def test_defaults_decode_where_aom_wrote_no_filter(tmp_path):
+    """Pillow's default save runs the deblocking filter below quality 90
+    (refused by name, Pillow decodes it); from 90 aom writes no in-loop
+    filter and the file decodes to Pillow's pixels."""
+    img = photo(40, 48, 62)
+    for q, decodes in ((75, False), (89, False), (90, True), (100, True)):
+        p = str(tmp_path / f"q{q}.avif")
+        with open(p, "wb") as f:
+            f.write(save(img, quality=q))
+        if decodes:
+            assert np.array_equal(timages.load_image_uint8(p),
+                                  jimages.load_image_uint8(p))
+        else:
+            with pytest.raises(ValueError, match="AVIF with the deblocking "
+                               "loop filter is not decoded by the port yet"):
+                timages.load_image_uint8(p)
+            assert jimages.load_image_uint8(p).shape == (40, 48, 3)
+
+
+def test_prep_inp_dir_over_avif_equals_jax(tmp_path, capsys):
+    from l3c_tpu.cli import prep_pipeline as jpipe
+    from l3c_torch.cli import prep_pipeline as tpipe
+    dump = tmp_path / "dump"
+    dump.mkdir()
+    with open(str(dump / "photo.jpg"), "wb") as f:
+        f.write(save(textured(200, 232, 63), quality=70, advanced=OFF))
+    with open(str(dump / "still.avif"), "wb") as f:
+        f.write(save(photo(176, 192, 64), quality=100,
+                     subsampling="4:4:4"))
+    outs = []
+    for main, name in ((tpipe.main, "t"), (jpipe.main, "j")):
+        out = str(tmp_path / name)
+        assert main(["--inp_dir", str(dump), out, "--min_res", "160"]) == 0
+        outs.append(out)
+    capsys.readouterr()
+    listing = lambda o: sorted(os.path.relpath(os.path.join(b, f), o)  # noqa
+                               for b, _, fs in os.walk(o) for f in fs
+                               if f.endswith(".png"))
+    assert listing(outs[0]) == listing(outs[1]) and listing(outs[0])
+    for rel in listing(outs[0]):
+        np.testing.assert_array_equal(
+            timages.read_png(os.path.join(outs[0], rel)),
+            np.asarray(Image.open(os.path.join(outs[1], rel)).convert(
+                "RGB")))
+
+
+def test_cli_l3c_codes_an_avif_bit_exactly_on_the_cpu(tmp_path):
+    from l3c_torch.cli import l3c as l3c_cli
+    src = os.path.join(FIXTURES, "m_q60_420_as.png")
+    coded, back = str(tmp_path / "x.l3c"), str(tmp_path / "x.png")
+    zoo = os.path.join(ROOT, "models_zoo")
+    assert l3c_cli.main([zoo, "0820_0345", "enc", src, coded,
+                         "--device", "cpu"]) == 0
+    assert l3c_cli.main([zoo, "0820_0345", "dec", coded, back,
+                         "--device", "cpu"]) == 0
+    assert np.array_equal(timages.read_png(back),
+                          timages.load_image_uint8(src))
+
+
+if __name__ == "__main__":
+    for n in os.listdir(FIXTURES) if os.path.isdir(FIXTURES) else ():
+        os.remove(os.path.join(FIXTURES, n))
+    make_avif_fixtures(FIXTURES)
+    exp = {**avif_expected_now(), "made_by": _versions()}
+    with open(os.path.join(FIXTURES, "expected.json"), "w") as f:
+        json.dump(exp, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {len(exp['files'])} fixtures and expected.json to "
+          f"{FIXTURES}")

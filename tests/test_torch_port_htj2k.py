@@ -1169,9 +1169,13 @@ def test_tile_data_cut_short_as_openjpeg(tmp_path, cut):
 
 def test_only_avif_is_left_not_decoded_by_the_port():
     """Every other refusal of the loader is Pillow's own (held in the
-    format's tests): "not decoded / read by the port yet" is said of AVIF
-    alone."""
+    format's tests): "not decoded / read by the port yet" is said only of
+    the AVIF tools the port does not decode yet (the in-loop filters,
+    grids, premultiplied alpha, high bit depths, ...: data/av1_obu.py,
+    data/avif.py, data/avif_yuv.py) and in the loader's fallback; AVIF
+    itself now has a decoder."""
     import re
+    from l3c_torch.data import avif as tavif
     data = os.path.join(ROOT, "l3c_torch", "data")
     found = []
     for n in sorted(os.listdir(data)):
@@ -1180,11 +1184,14 @@ def test_only_avif_is_left_not_decoded_by_the_port():
                 text = f.read()
             found += [(n, m.start()) for m in re.finditer(
                 r"by the port yet", text)]
-    assert [n for n, _ in found] == ["images.py", "rasters.py"]
-    with open(os.path.join(data, "rasters.py")) as f:
+    assert sorted({n for n, _ in found}) == ["av1_obu.py", "avif.py",
+                                             "avif_yuv.py", "images.py"]
+    with open(os.path.join(data, "avif.py")) as f:
         assert "AVIF without a meta box" in f.read()
     assert [n for n, (_, dec) in timages._FORMATS.items()
-            if dec is None] == ["AVIF"]
+            if dec is None] == []
+    assert timages._FORMATS["AVIF"] == (tavif.avif_header,
+                                        tavif.decode_avif)
     assert not [n for n, _ in timages._ORDER
                 if n not in timages._FORMATS and
                 n not in timages._PILLOW_REFUSES]
