@@ -246,8 +246,8 @@ Phases (each raises on failure; none carries on after another failed):
               TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB,
               JPEG 2000; l3c_torch/data/fixtures/pillow_formats) to
               Pillow's format, mode, size and pixel digest, AVIF (Pillow's
-              default save) to Pillow's mode and size and refused naming
-              its deblocking filter; cli.l3c enc / dec of a
+              default save, its AV1 frame deblocked) among them; cli.l3c
+              enc / dec of a
               GIF and an LZW TIFF bit-exact with exact launch counts;
               cli.test --write_to_files --compare_theory over the folder
               (its listing keeps a GIF named .png and a TIFF named .jpg,
@@ -281,9 +281,9 @@ Phases (each raises on failure; none carries on after another failed):
               YCbCr without JPEG, CIELAB, 12-bit grey) on this machine's
               host (no Pillow): every file of
               l3c_torch/data/fixtures/registry to Pillow's format, mode,
-              size and pixel digest, Pillow's refusals refused with the
-              port's message, AVIF naming its deblocking filter; the same
-              digests from this
+              size and pixel digest (Pillow's default AVIF save among
+              them), Pillow's refusals refused with the port's message;
+              the same digests from this
               host's Pillow wherever it has the codec (held), its libtiff
               and which TIFF fixtures it reads; cli.l3c enc / dec of a
               Group 4 page and a FITS file bit-exact with exact launch
@@ -306,22 +306,24 @@ Phases (each raises on failure; none carries on after another failed):
               --compare_theory over the folder (an HT JP2 named .png
               listed), K3 to K6 launched; the host's decode MP/s of the
               two, fastest of 3
- 22. avif     AVIF stills whose AV1 frame runs no in-loop filter on this
-              machine's host (no Pillow): every file of
-              l3c_torch/data/fixtures/avif (AV1 lossless, filters-off
-              lossy at 4:4:4 / 4:2:2 / 4:2:0 / 4:0:0, full and limited
-              range, BT.601 / BT.709 / identity, CfL, palettes, filter
-              intra, directional, smooth and Paeth prediction, every
-              transform size, tiles, 128 superblocks, delta q) to
-              Pillow's format, mode, size and pixel digest, Pillow's
-              default saves and premultiplied alpha refused by name; the
-              same digests from this host's Pillow wherever it imports
-              (held), its libavif, dav1d, aom and libyuv logged; cli.l3c
-              enc / dec of a 512 x 512 lossy 4:2:0 file and a lossless
-              4:4:4 one bit-exact with exact launch counts; cli.test
-              --write_to_files --compare_theory over the folder (an AVIF
-              named .png listed), K3 to K6 launched; the host's decode
-              MP/s of the two, fastest of 3
+ 22. avif     AVIF stills on this machine's host (no Pillow): every file
+              of l3c_torch/data/fixtures/avif (AV1 lossless, lossy at
+              4:4:4 / 4:2:2 / 4:2:0 / 4:0:0, full and limited range,
+              BT.601 / BT.709 / identity, CfL, palettes, filter intra,
+              directional, smooth and Paeth prediction, every transform
+              size, tiles, 128 superblocks, delta q; the in-loop filters:
+              deblocking, CDEF, Wiener and self-guided restoration,
+              Pillow's default saves) to Pillow's format, mode, size and
+              pixel digest, premultiplied alpha refused by name; the same
+              digests from this host's Pillow wherever it imports (held),
+              its libavif, dav1d, aom and libyuv logged; cli.l3c enc /
+              dec of a 512 x 512 filters-off lossy 4:2:0 file, a lossless
+              4:4:4 one and a 512 x 512 default save bit-exact with exact
+              launch counts; cli.test --write_to_files --compare_theory
+              over the folder (an AVIF named .png listed), K3 to K6
+              launched; the host's decode MP/s of the three, fastest of 3,
+              and the default save's time by stage (the symbol walk, each
+              in-loop filter)
  23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
@@ -4621,8 +4623,8 @@ def phase_pillow_formats(card):
     """The formats Pillow opens beyond PNG, JPEG, PNM, BMP and WebP (GIF,
     TIFF, TGA, ICO, CUR, PCX, SGI, QOI, IM, MSP, SUN, PSD, DDS, DIB, and
     a JP2 and a raw JPEG 2000 codestream), decoded on this machine's host
-    with no Pillow and held to Pillow's digests (expected.json), AVIF
-    refused by name with Pillow's mode and size; cli.l3c on a GIF and an LZW TIFF, cli.test
+    with no Pillow and held to Pillow's digests (expected.json), Pillow's
+    default AVIF save among them; cli.l3c on a GIF and an LZW TIFF, cli.test
     over the folder (the listing keeps the mislabelled files) and on a
     TIFF alone; the listing-cache CLI; the PNGs the port wrote held to
     Pillow's default save; the host's GIF and TIFF decode rates. Returns
@@ -4632,8 +4634,8 @@ def phase_pillow_formats(card):
     with open(os.path.join(PILLOW_FORMATS, "expected.json")) as f:
         exp = json.load(f)
     cpu = host_cpu()
-    # ---- (a) every fixture's format, mode, size and pixels; AVIF refused
-    # by name
+    # ---- (a) every fixture's format, mode, size and pixels; refusals by
+    # name where expected.json has them
     refused = []
     for n, e in sorted(exp["files"].items()):
         p = os.path.join(PILLOW_FORMATS, n)
@@ -4660,7 +4662,8 @@ def phase_pillow_formats(card):
         f" modes, sizes and pixel digests equal Pillow's (expected.json, "
         f"made by Pillow {made['pillow']}, libtiff {made['libtiff']}, "
         f"libjpeg-turbo {made['libjpeg_turbo']}, zlib {made['zlib']}); "
-        f"{', '.join(refused)}: Pillow's mode and size, refused by name")
+        f"refused by name with Pillow's mode and size: "
+        f"{', '.join(refused) or 'none'}")
     total, written = {}, []
     with tempfile.TemporaryDirectory(prefix="l3c_pillow_formats_") as d:
         # ---- (b) cli.l3c enc / dec of a GIF and an LZW TIFF
@@ -5018,8 +5021,8 @@ def phase_registry_formats(card):
     12-bit grey; IM's YCbCr, packed, planar and bit types), decoded on
     this machine's host with no Pillow: every fixture of
     l3c_torch/data/fixtures/registry held to Pillow's format, mode, size
-    and pixel digest (expected.json), Pillow's refusals refused and AVIF
-    by name; cli.l3c enc / dec of a Group 4 page and a FITS file
+    and pixel digest (expected.json), Pillow's refusals refused; cli.l3c
+    enc / dec of a Group 4 page and a FITS file
     bit-exact with exact launch counts; cli.test --write_to_files
     --compare_theory over the folder (its listing keeps an XPM named .png
     and a FITS named .jpg); this host's Pillow, where it has the codec,
@@ -5180,18 +5183,20 @@ AVIF = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 
 
 def phase_avif(card):
-    """AVIF stills whose AV1 frame runs no in-loop filter, decoded on this
-    machine's host with no Pillow (data/avif.py, av1_*.py, avif_yuv.py):
-    every fixture of l3c_torch/data/fixtures/avif held to Pillow's format,
-    mode, size and pixel digest (expected.json), the files with tools the
-    port does not decode yet refused by name; this host's Pillow, where it
-    imports, decoding every decoded fixture to its digest (a differing one
-    fails), its libavif, AV1 codecs and libyuv logged; cli.l3c enc / dec of
-    the 512 x 512 lossy 4:2:0 file and the lossless 4:4:4 one bit-exact
-    with exact launch counts; cli.test --write_to_files --compare_theory
-    over the folder (its listing keeps an AVIF named .png); the host's
-    decode rates of the two, fastest of 3. Returns the launches of its CLI
-    calls."""
+    """AVIF stills, their AV1 frames' in-loop filters (deblocking, CDEF,
+    loop restoration) included, decoded on this machine's host with no
+    Pillow (data/avif.py, av1_*.py, avif_yuv.py): every fixture of
+    l3c_torch/data/fixtures/avif held to Pillow's format, mode, size and
+    pixel digest (expected.json), the files with tools the port does not
+    decode yet refused by name; this host's Pillow, where it imports,
+    decoding every decoded fixture to its digest (a differing one fails),
+    its libavif, AV1 codecs and libyuv logged; cli.l3c enc / dec of the
+    "coded" files (512 x 512 filters-off lossy 4:2:0, lossless 4:4:4, a
+    512 x 512 Pillow default save) bit-exact with exact launch counts;
+    cli.test --write_to_files --compare_theory over the folder (its
+    listing keeps an AVIF named .png); the host's decode rates of the
+    coded files, fastest of 3, and the default save's time by stage.
+    Returns the launches of its CLI calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
@@ -5254,9 +5259,57 @@ def phase_avif(card):
                      f"{h * w / dt / 1e6:.4f} MP/s ({dt * 1e3:.1f} ms)")
     log(f"[avif] host decode rates, fastest of 3, pixels Pillow's: "
         f"{'; '.join(rates)} | host {cpu}")
+    # ---- (f) the default save's decode by stage: the filters' share; and
+    # two fixtures that run CDEF and loop restoration
+    for name in (exp["coded"][2], "o_cdef_422.avif",
+                 "p_lr_q60_switchable.avif"):
+        blob = open(os.path.join(AVIF, name), "rb").read()
+        ms = avif_stages_ms(blob, name)
+        filters = ms["deblock"] + ms["cdef"] + ms["restoration"]
+        h, w = exp["files"][name]["size"]
+        log(f"[avif] {name} ({w} x {h}) by stage, ms, fastest of 3: "
+            f"{ {k: round(v, 1) for k, v in ms.items()} }; the in-loop "
+            f"filters {filters:.1f} ms = "
+            f"{100 * filters / ms['total']:.1f} % of the decode, "
+            f"{filters / ms['walk']:.3f} x the symbol walk | host {cpu}")
     log(f"[avif] launches of the cli.l3c and cli.test calls: "
         f"{({k: v for k, v in total.items() if v})} | {card}")
     return total
+
+
+def avif_stages_ms(blob, name):
+    """An AVIF still's host decode split into the container and headers,
+    the symbol walk (prediction and transforms included), each in-loop
+    filter, and the YUV to RGB conversion: ms, fastest of 3 each, and the
+    fastest total; the pixels held to the loader's."""
+    from l3c_torch.data import av1_block, av1_obu, avif, avif_yuv
+    best = {}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = avif.parse(blob, name)
+        data = avif._item_bytes(blob, m, m.primary, name)
+        seq, frame, tiles = av1_obu.parse_av1(data, name)
+        t1 = time.perf_counter()
+        d = av1_block.FrameDecoder(seq, frame, name)
+        for tr, tc, start, end in tiles:
+            d.decode_tile(data, start, end, tr, tc)
+        t2 = time.perf_counter()
+        times = {}
+        planes = av1_block.filter_frame(d, seq, frame, times=times)
+        t3 = time.perf_counter()
+        nclx = avif._prop(m, m.primary, b"colr", b"nclx")
+        mc = int.from_bytes(nclx[8:10], "big") if nclx is not None and \
+            len(nclx) >= 11 else seq.mc
+        rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
+                              seq.full_range, name)
+        t4 = time.perf_counter()
+        for k, v in (("headers", t1 - t0), ("walk", t2 - t1),
+                     ("yuv_to_rgb", t4 - t3), ("total", t4 - t0),
+                     *times.items()):
+            best[k] = min(best.get(k, math.inf), 1e3 * v)
+    if not np.array_equal(rgb, avif.decode_avif(blob, name)):
+        raise RuntimeError(f"{name}: the staged decode differs")
+    return best
 
 
 def timed(name, fn, *args):

@@ -5,20 +5,28 @@ colour cache and colour-index maps, filter intra), transform sizes and
 types, the coefficients and their dequantization, each transform block
 predicted and reconstructed in decoding order.
 
-`decode_frame(seq, frame, tiles, data)` returns the reconstructed planes
-(uint8 numpy arrays, cropped to the frame size). The symbol walk is plain
-Python; prediction and the transforms are numpy (data/av1_recon.py).
+The walk also reads what the in-loop filters need (CDEF indices,
+restoration units) and keeps each plane's transform sizes for the
+deblocking filter. `decode_frame(seq, frame, tiles, data, path)` returns
+the planes deblocked (data/av1_loopfilter.py), CDEF-filtered
+(data/av1_cdef.py) and restored (data/av1_restoration.py) as the frame
+header asks, uint8 numpy arrays cropped to the frame size. The symbol
+walk is plain Python; prediction and the transforms are numpy
+(data/av1_recon.py), and so are the filters.
 """
 from __future__ import annotations
 
+import time
 from types import SimpleNamespace
 from typing import List
 
 import numpy as np
 
+from . import av1_cdef, av1_loopfilter, av1_restoration
 from . import av1_recon as R
 from . import av1_tables as T
-from .av1_obu import damaged, qindex
+from .av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, RESTORE_WIENER,
+                      damaged, qindex)
 from .av1_symbol import SymbolReader, cdf_copy
 
 # block sizes: (width, height) in 4-sample units
@@ -185,6 +193,9 @@ class _Cdfs:
         self.dc_sign = getq("DC_SIGN")
         self.eob_extra = getq("EOB_EXTRA")
         self.txb_skip = getq("TXB_SKIP")
+        self.lr_switch = get("RESTORE_SWITCHABLE")[0]
+        self.lr_wiener = get("RESTORE_WIENER")[0]
+        self.lr_sgr = get("RESTORE_SGRPROJ")[0]
 
 
 def _nest(lst, shape):
@@ -220,6 +231,26 @@ class FrameDecoder:
         self.tx_types = {}
         self.sb4 = 32 if seq.sb128 else 16
         self.sb_size = BLOCK_128X128 if seq.sb128 else BLOCK_64X64
+        # for the in-loop filters: each plane's tx size per 4 x 4, the
+        # CDEF index per 64 x 64, the restoration units
+        self.lf_tx = [np.zeros((p.shape[0] >> 2, p.shape[1] >> 2), np.int8)
+                      for p in self.frame]
+        self.cdef_idx = np.full(((rows >> 4) + 2, (cols >> 4) + 2), -1,
+                                np.int64)
+        self.lr = []
+        for p in range(self.planes):
+            if f.lr_type[p] == RESTORE_NONE:
+                self.lr.append(None)
+                continue
+            sx = self.ssx if p else 0
+            sy = self.ssy if p else 0
+            size = f.lr_unit_size[p]
+            n_r = av1_restoration.units(size, (f.height + sy) >> sy)
+            n_c = av1_restoration.units(size, (f.width + sx) >> sx)
+            self.lr.append(SimpleNamespace(
+                type=np.zeros((n_r, n_c), np.int64),
+                wiener=np.zeros((n_r, n_c, 2, 3), np.int64),
+                sgr=np.zeros((n_r, n_c, 3), np.int64)))
 
     # ------------------------------------------------------------- tiles
     def decode_tile(self, data, start, end, tile_row, tile_col):
@@ -231,6 +262,9 @@ class FrameDecoder:
         self.col_start = f.mi_col_starts[tile_col]
         self.col_end = f.mi_col_starts[tile_col + 1]
         self.current_q = f.base_q_idx
+        self.ref_wiener = [[list(T.WIENER_TAPS_MID) for _ in (0, 1)]
+                           for _ in range(self.planes)]
+        self.ref_sgr = [list(T.SGRPROJ_XQD_MID) for _ in range(self.planes)]
         n = self.mi_cols + 32
         self.above_level = [[0] * n for _ in range(3)]
         self.above_dc = [[0] * n for _ in range(3)]
@@ -241,6 +275,7 @@ class FrameDecoder:
             for c in range(self.col_start, self.col_end, self.sb4):
                 self.read_deltas = f.delta_q_present
                 self._clear_decoded(r, c)
+                self._read_lr(r, c)
                 self.decode_partition(r, c, self.sb_size)
         if self.r.max_bits() < -14:
             # the specification's bound on SymbolMaxBits, which dav1d
@@ -265,6 +300,79 @@ class FrameDecoder:
                         g[y + 1][x + 1] = 1
             g[(sb4 >> sy) + 1][0] = 0
             self.decoded.append(g)
+
+    # ------------------------------------------------------- restoration
+    def _read_lr(self, r, c):
+        """read_lr: the restoration units whose top-left corner lies in
+        the superblock at (r, c)."""
+        f = self.f
+        for p in range(self.planes):
+            if f.lr_type[p] == RESTORE_NONE:
+                continue
+            sx = self.ssx if p else 0
+            sy = self.ssy if p else 0
+            size = f.lr_unit_size[p]
+            n_r, n_c = self.lr[p].type.shape
+            r0 = (r * (4 >> sy) + size - 1) // size
+            r1 = min(n_r, ((r + self.sb4) * (4 >> sy) + size - 1) // size)
+            c0 = (c * (4 >> sx) + size - 1) // size
+            c1 = min(n_c, ((c + self.sb4) * (4 >> sx) + size - 1) // size)
+            for ur in range(r0, r1):
+                for uc in range(c0, c1):
+                    self._read_lr_unit(p, ur, uc)
+
+    def _read_lr_unit(self, p, ur, uc):
+        rd, ft, unit = self.r, self.f.lr_type[p], self.lr[p]
+        if ft == RESTORE_WIENER:
+            t = RESTORE_WIENER if rd.symbol(self.cdf.lr_wiener) else \
+                RESTORE_NONE
+        elif ft == RESTORE_SGRPROJ:
+            t = RESTORE_SGRPROJ if rd.symbol(self.cdf.lr_sgr) else \
+                RESTORE_NONE
+        else:
+            t = rd.symbol(self.cdf.lr_switch)
+        unit.type[ur, uc] = t
+        if t == RESTORE_WIENER:
+            for ps in (0, 1):
+                ref = self.ref_wiener[p][ps]
+                for j in range(1 if p else 0, 3):
+                    ref[j] = self._subexp(T.WIENER_TAPS_MIN[j],
+                                          T.WIENER_TAPS_MAX[j] + 1,
+                                          T.WIENER_TAPS_K[j], ref[j])
+                    unit.wiener[ur, uc, ps, j] = ref[j]
+        elif t == RESTORE_SGRPROJ:
+            st = rd.literal(4)
+            ref = self.ref_sgr[p]
+            for i in (0, 1):
+                lo, hi = T.SGRPROJ_XQD_MIN[i], T.SGRPROJ_XQD_MAX[i]
+                if T.SGR_PARAMS[4 * st + i]:              # the radius
+                    v = self._subexp(lo, hi + 1, 4, ref[i])
+                elif i == 1:
+                    v = max(lo, min(hi, 128 - ref[0]))
+                else:
+                    v = 0
+                ref[i] = v
+            unit.sgr[ur, uc] = (st, ref[0], ref[1])
+
+    def _subexp(self, low, high, k, ref):
+        """decode_signed_subexp_with_ref_bool."""
+        rd = self.r
+        mx, r = high - low, ref - low
+        i = mk = 0
+        while True:
+            b2 = k + i - 1 if i else k
+            a = 1 << b2
+            if mx <= mk + 3 * a:
+                v = rd.ns(mx - mk) + mk
+                break
+            if not rd.literal(1):
+                v = rd.literal(b2) + mk
+                break
+            i += 1
+            mk += a
+        if (r << 1) <= mx:
+            return _inverse_recenter(r, v) + low
+        return mx - 1 - _inverse_recenter(mx - 1 - r, v) + low
 
     def inside(self, r, c):
         return self.col_start <= c < self.col_end and \
@@ -392,6 +500,8 @@ class FrameDecoder:
         if not f.seg_id_pre_skip:
             b.seg = self._segment_id(b)
         b.lossless = f.lossless[b.seg]
+        if not (b.skip or f.coded_lossless or not self.s.enable_cdef):
+            self._read_cdef(b)
         self._delta_q_lf(b)
         self.read_deltas = 0
         above = self.y_mode[r - 1][c] if b.avail_u else 0
@@ -488,6 +598,16 @@ class FrameDecoder:
         v = _neg_deinterleave(v, pred, mx)
         return max(0, min(f.last_active_seg_id, v))
 
+    def _read_cdef(self, b):
+        """read_cdef: the 64 x 64's index, once, at its first non-skip
+        block (each 64 x 64 a block of 128 covers)."""
+        r64, c64 = b.r >> 4, b.c >> 4
+        if self.cdef_idx[r64, c64] == -1:
+            bw4, bh4 = BLOCK_WH[b.size]
+            self.cdef_idx[r64:r64 + max(1, bh4 >> 4),
+                          c64:c64 + max(1, bw4 >> 4)] = \
+                self.r.literal(self.f.cdef_bits)
+
     def _delta_q_lf(self, b):
         f, rd = self.f, self.r
         if b.size == self.sb_size and b.skip:
@@ -503,7 +623,8 @@ class FrameDecoder:
             self.current_q = max(1, min(255, self.current_q +
                                         (a << f.delta_q_res)))
         if f.delta_lf_present:
-            # read and dropped: the loop filter they steer is off
+            # read and dropped: a frame that has them with the deblocking
+            # filter on is refused (av1_obu), so they steer nothing here
             cnt = (4 if self.planes > 1 else 2) if f.delta_lf_multi else 1
             for i in range(cnt):
                 cd = self.cdf.delta_lf_multi[i] if f.delta_lf_multi else \
@@ -764,6 +885,8 @@ class FrameDecoder:
             eob = self._coeffs(b, p, sx0, sy0, tx)
             if eob > 0:
                 self._reconstruct(b, p, sx0, sy0, tx)
+        self.lf_tx[p][sy0 >> 2:(sy0 >> 2) + step_y,
+                      sx0 >> 2:(sx0 >> 2) + step_x] = tx
         dec = self.decoded[p]
         for i in range(step_y):
             rowd = dec[sbr + i + 1]
@@ -1123,6 +1246,14 @@ def _subsize(part, w, h):
     return BLOCK_BY_WH[wh]
 
 
+def _inverse_recenter(r, v):
+    if v > 2 * r:
+        return v
+    if v & 1:
+        return r - ((v + 1) >> 1)
+    return r + (v >> 1)
+
+
 def _neg_deinterleave(diff, ref, mx):
     if not ref:
         return diff
@@ -1138,12 +1269,40 @@ def _neg_deinterleave(diff, ref, mx):
 
 
 def decode_frame(seq, frame, tiles, data, path):
+    """The frame's planes: the tiles' reconstruction, deblocked, CDEF,
+    restored (each in-loop filter as the frame header sets it), cropped."""
     d = FrameDecoder(seq, frame, path)
     for tr, tc, start, end in tiles:
         d.decode_tile(data, start, end, tr, tc)
+    return filter_frame(d, seq, frame)
+
+
+def filter_frame(d, seq, frame, stages=None, times=None):
+    """Deblocking, then CDEF (keeping the deblocked planes loop
+    restoration reads past its stripes), then loop restoration; the
+    cropped planes. `stages`, a list, gets the planes after the first
+    two; `times`, a dict, each filter's seconds."""
+    times = {} if times is None else times
+    planes = d.frame
+    t0 = time.perf_counter()
+    av1_loopfilter.deblock(planes, frame, seq, np.array(d.seg_ids, np.int64),
+                           d.lf_tx, TX_WH)
+    t1 = time.perf_counter()
+    if stages is not None:
+        stages.append([p.copy() for p in planes])
+    if seq.enable_cdef and not frame.coded_lossless:
+        planes, _ = av1_cdef.cdef(planes, frame, seq,
+                                  np.array(d.skips, bool), d.cdef_idx)
+    t2 = time.perf_counter()
+    if stages is not None:
+        stages.append([p.copy() for p in planes])
+    if any(frame.lr_type):
+        planes = av1_restoration.restore(planes, d.frame, frame, seq, d.lr)
+    times.update(deblock=t1 - t0, cdef=t2 - t1,
+                 restoration=time.perf_counter() - t2)
     h, w = frame.height, frame.width
-    out = [d.frame[0][:h, :w]]
+    out = [planes[0][:h, :w]]
     if seq.num_planes > 1:
         ch, cw = (h + seq.ssy) >> seq.ssy, (w + seq.ssx) >> seq.ssx
-        out += [d.frame[1][:ch, :cw], d.frame[2][:ch, :cw]]
+        out += [planes[1][:ch, :cw], planes[2][:ch, :cw]]
     return [o.astype(np.uint8) for o in out]

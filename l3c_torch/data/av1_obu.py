@@ -1,13 +1,14 @@
 """AV1's OBU syntax for a still image (the AV1 specification, sections 5
 and 6): OBU headers, the sequence header with its colour config, and the
 uncompressed header of an intra frame with its tile info, quantizer,
-segmentation, delta and loop-filter / CDEF / restoration parameters,
+segmentation, delta, loop filter, CDEF and loop restoration parameters,
 then the tile groups' tile sizes.
 
 `parse_av1(data, path)` returns the sequence header, the frame header
 and the tiles of the first shown frame. What this decoder does not
-decode yet (in-loop filters, superres, film grain, intra block copy,
-quantizer matrices, bit depths above 8, inter frames) is refused by name
+decode yet (superres, per-block loop filter deltas with the deblocking
+filter on, film grain, intra block copy, quantizer matrices, bit depths
+above 8, inter frames) is refused by name
 with "... is not decoded by the port yet"; a bitstream dav1d cannot
 parse is refused as damaged.
 """
@@ -24,6 +25,11 @@ SELECT = 2
 SEG_FEATURE_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
 SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 SEG_FEATURE_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
+# setup_past_independence's loop filter deltas (INTRA_FRAME, LAST, LAST2,
+# LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF)
+LF_REF_DELTAS = (1, 0, 0, 0, -1, 0, -1, -1)
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = 0, 1, 2, 3
+LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
 
 
 def damaged(path: str, what: str) -> ValueError:
@@ -293,6 +299,12 @@ def _tile_info(b: Bits, f: SimpleNamespace, sb128: int):
         f.tile_size_bytes = b.f(2) + 1
 
 
+def _cdef_strength(b: Bits):
+    """(primary, secondary) strengths; a coded secondary 3 means 4."""
+    pri, sec = b.f(4), b.f(2)
+    return pri, sec + (sec == 3)
+
+
 def _delta_q(b: Bits) -> int:
     return b.su(7) if b.f(1) else 0
 
@@ -414,40 +426,56 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
         f.lossless.append(q == 0 and f.dq[0][0] == 0 and
                           f.dq[1] == [0, 0] and f.dq[2] == [0, 0])
     f.coded_lossless = all(f.lossless)
-    # loop_filter_params
+    # loop_filter_params, cdef_params, lr_params (all off when every
+    # segment is lossless)
+    f.lf_level = [0, 0, 0, 0]
+    f.lf_sharpness = 0
+    f.lf_delta_enabled = 0
+    f.lf_ref_deltas = list(LF_REF_DELTAS)
+    f.lf_mode_deltas = [0, 0]
+    f.cdef_damping, f.cdef_bits = 3, 0
+    f.cdef_y, f.cdef_uv = [(0, 0)], [(0, 0)]      # (primary, secondary)
+    f.lr_type = [RESTORE_NONE] * 3
+    f.lr_unit_size = [0, 0, 0]
     if not f.coded_lossless:
-        lf = [b.f(6), b.f(6)]
-        if s.num_planes > 1 and (lf[0] or lf[1]):
-            lf += [b.f(6), b.f(6)]
-        b.f(3)                                  # sharpness
-        if b.f(1) and b.f(1):                   # delta enabled, update
-            for _ in range(8):
+        f.lf_level[:2] = [b.f(6), b.f(6)]
+        if s.num_planes > 1 and (f.lf_level[0] or f.lf_level[1]):
+            f.lf_level[2:] = [b.f(6), b.f(6)]
+        f.lf_sharpness = b.f(3)
+        f.lf_delta_enabled = b.f(1)
+        if f.lf_delta_enabled and b.f(1):       # delta update
+            for i in range(8):
                 if b.f(1):
-                    b.su(7)
-            for _ in range(2):
+                    f.lf_ref_deltas[i] = b.su(7)
+            for i in range(2):
                 if b.f(1):
-                    b.su(7)
-        if lf[0] or lf[1]:
-            raise not_yet(path, "the deblocking loop filter",
-                              f"dav1d's deblocking filter, levels {lf[0]}, "
-                              f"{lf[1]}")
-        # cdef_params
+                    f.lf_mode_deltas[i] = b.su(7)
+        if f.delta_lf_present and (f.lf_level[0] or f.lf_level[1]):
+            raise not_yet(path, "per-block loop filter deltas",
+                          "dav1d's delta_lf")
         if s.enable_cdef:
-            b.f(2)
-            cdef_bits = b.f(2)
-            strengths = []
-            for _ in range(1 << cdef_bits):
-                strengths += [b.f(4), b.f(2)]
+            f.cdef_damping = b.f(2) + 3
+            f.cdef_bits = b.f(2)
+            f.cdef_y, f.cdef_uv = [], []
+            for _ in range(1 << f.cdef_bits):
+                f.cdef_y.append(_cdef_strength(b))
                 if s.num_planes > 1:
-                    strengths += [b.f(4), b.f(2)]
-            if cdef_bits or any(strengths):
-                raise not_yet(path, "CDEF", "dav1d's CDEF filter")
-        # lr_params
+                    f.cdef_uv.append(_cdef_strength(b))
+                else:
+                    f.cdef_uv.append((0, 0))
         if s.enable_restoration:
-            types = [b.f(2) for _ in range(s.num_planes)]
-            if any(types):
-                raise not_yet(path, "loop restoration",
-                              "dav1d's Wiener / self-guided filters")
+            f.lr_type = [LR_TYPE[b.f(2)] for _ in range(s.num_planes)] + \
+                [RESTORE_NONE] * (3 - s.num_planes)
+            if any(f.lr_type):
+                shift = b.f(1)
+                if s.sb128:
+                    shift += 1
+                elif shift:
+                    shift += b.f(1)
+                size = 64 << shift
+                uv_shift = b.f(1) if s.ssx and s.ssy and any(
+                    f.lr_type[1:]) else 0
+                f.lr_unit_size = [size, size >> uv_shift, size >> uv_shift]
     f.tx_mode_select = 0 if f.coded_lossless else b.f(1)
     f.reduced_tx_set = b.f(1)
     if s.film_grain_present and f.show_frame and b.f(1):

@@ -47,12 +47,12 @@ loader reads it or refused where it refuses:
     JPEG 2000 payloads) and DIB;
   - the rest of Pillow's registry (data/registry.py): XBM, XPM, FITS,
     BLP, SPIDER, PCD, GBR, FLI, FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb;
-  - AVIF stills whose AV1 frame runs no in-loop filter (data/avif.py:
-    libavif's container checks, the AV1 intra decoder of data/av1_*.py,
-    libyuv's YUV to RGB in data/avif_yuv.py), as Pillow's libavif 1.3.0,
-    dav1d 1.5.1 and libyuv give them; the tools the port does not decode
-    yet (deblocking, CDEF, restoration, grids, ...) raise ValueError
-    naming them.
+  - AVIF stills (data/avif.py: libavif's container checks, the AV1
+    intra decoder of data/av1_*.py with its in-loop filters, deblocking,
+    CDEF and loop restoration, libyuv's YUV to RGB in data/avif_yuv.py),
+    as Pillow's libavif 1.3.0, dav1d 1.5.1 and libyuv give them; the
+    tools the port does not decode yet (superres, film grain, grids, ...)
+    raise ValueError naming them.
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
 ValueError naming the format and the reason. PNGs are written with the
 bytes of Pillow's default save (`write_png`). Every image comes out as

@@ -64,12 +64,24 @@ _CDF_LAYOUT = {
     "SEGMENT_ID": ("dav1d", 8, 8), "SKIP": ("dav1d", 2, 2),
     "PALETTE_UV_MODE": ("dav1d", 2, 2),
     "DELTA_Q": ("aom", 5, 4), "DELTA_LF": ("aom", 5, 4),
+    "RESTORE_SWITCHABLE": ("dav1d", 4, 3), "RESTORE_WIENER": ("dav1d", 2, 2),
+    "RESTORE_SGRPROJ": ("dav1d", 2, 2),
 }
 # the other tables: (numpy type, count)
 _PLAIN = {"DC_QLOOKUP": ("<i2", 256), "AC_QLOOKUP": ("<i2", 256),
           "DR_INTRA_DERIVATIVE": ("<i2", 90), "SM_WEIGHTS": ("u1", 124),
           "FILTER_INTRA_TAPS": ("i1", 320), "COS128": ("<i4", 64),
-          "SINPI": ("<i4", 5)}
+          "SINPI": ("<i4", 5), "SGR_PARAMS": ("<i4", 64),
+          "X_BY_XPLUS1": ("<i4", 256), "ONE_BY_X": ("<i4", 25),
+          "CDEF_UV_DIR": ("u1", 16), "CDEF_DIRECTIONS": ("i1", 24),
+          "CDEF_PRI_TAPS": ("<i4", 4), "CDEF_DIV_TABLE": ("<i4", 9),
+          "WIENER_TAPS_MID": ("<i4", 3)}
+# constants neither library keeps as an array (macros, inline code): the
+# specification's values, kept by the rewrite
+_SPEC = {"WIENER_TAPS_MIN": (-5, -23, -17), "WIENER_TAPS_MAX": (10, 8, 46),
+         "WIENER_TAPS_K": (1, 2, 3), "SGRPROJ_XQD_MIN": (-96, -32),
+         "SGRPROJ_XQD_MAX": (31, 95), "SGRPROJ_XQD_MID": (-32, 31),
+         "CDEF_SEC_TAPS": (2, 1, 2, 1)}
 
 
 def _count(shape):
@@ -366,7 +378,8 @@ def _obu(typ, payload):
 
 
 def av1_still(w=16, h=16, high=0, cdef=(0, 0), lr=0, superres=0, grain=0,
-              qmatrix=0, lf=(0, 0), screen=0, intrabc=0, base_q=40):
+              qmatrix=0, lf=(0, 0), screen=0, intrabc=0, base_q=40,
+              delta_lf=0):
     """A reduced-still-picture sequence header and a frame OBU whose
     header carries the given tools (one tile of zero data)."""
     s = BitWriter().f(3, 0).f(1, 1).f(1, 1).f(5, 0)   # profile 0, still
@@ -388,7 +401,9 @@ def av1_still(w=16, h=16, high=0, cdef=(0, 0), lr=0, superres=0, grain=0,
     fh.f(1, qmatrix)
     if qmatrix:
         fh.f(4, 0).f(4, 0)
-    fh.f(1, 0).f(1, 0)                          # segmentation, delta q
+    fh.f(1, 0).f(1, int(delta_lf))              # segmentation, delta q
+    if delta_lf:
+        fh.f(2, 0).f(1, 1).f(2, 0).f(1, 0)      # res, delta lf, res, multi
     fh.f(6, lf[0]).f(6, lf[1])
     if any(lf):
         fh.f(6, 0).f(6, 0)
@@ -396,7 +411,7 @@ def av1_still(w=16, h=16, high=0, cdef=(0, 0), lr=0, superres=0, grain=0,
     if any(cdef):
         fh.f(2, 0).f(2, 0).f(4, cdef[0]).f(2, 0).f(4, cdef[1]).f(2, 0)
     if lr:
-        fh.f(2, 1).f(2, 0).f(2, 0).f(2, 0)      # Y restored
+        fh.f(2, 1).f(2, 0).f(2, 0).f(1, 0)      # Y switchable, 64 units
     fh.f(1, 0).f(1, 0)                          # tx mode, reduced tx set
     if grain:
         fh.f(1, 1).f(16, 0)
@@ -412,6 +427,16 @@ def test_written_header_parses():
     assert seq.bit_depth == 10
 
 
+# the in-loop filters, refused until the port decoded them: their headers
+# now parse, each keeping what it sets
+FILTERS_NOW = {
+    "the deblocking loop filter": lambda f: f.lf_level == [3, 0, 0, 0],
+    "CDEF": lambda f: (f.cdef_bits, f.cdef_y, f.cdef_uv) == (0, [(2, 0)],
+                                                            [(1, 0)]),
+    "loop restoration": lambda f: (f.lr_type, f.lr_unit_size) == (
+        [av1_obu.RESTORE_SWITCHABLE, 0, 0], [64, 64, 64])}
+
+
 @pytest.mark.parametrize("kw, what, tool", [
     (dict(lf=(3, 0)), "the deblocking loop filter", "levels 3, 0"),
     (dict(cdef=(2, 1)), "CDEF", "dav1d's CDEF filter"),
@@ -421,11 +446,78 @@ def test_written_header_parses():
     (dict(qmatrix=1), "quantizer matrices", "using_qmatrix"),
     (dict(screen=1, intrabc=1), "intra block copy", "intrabc")])
 def test_tools_not_decoded_yet_are_refused_by_name(kw, what, tool):
+    if what in FILTERS_NOW:
+        _, f, _ = av1_obu.parse_av1(av1_still(**kw), "x")
+        assert FILTERS_NOW[what](f)
+        return
     with pytest.raises(ValueError) as e:
         av1_obu.parse_av1(av1_still(**kw), "x")
     assert f"AVIF with {what} is not decoded by the port yet" in \
         str(e.value)
     assert tool in str(e.value)
+
+
+@pytest.mark.parametrize("lf, refused", [((3, 0), True), ((0, 5), True),
+                                         ((0, 0), False)])
+def test_delta_lf_with_deblocking_is_refused_by_name(lf, refused):
+    """Per-block loop filter deltas steer the deblocking levels: with a
+    level on they are refused by name (no writer here makes them); with
+    both luma levels 0 nothing is deblocked and the frame parses."""
+    blob = av1_still(lf=lf, delta_lf=1)
+    if not refused:
+        _, f, _ = av1_obu.parse_av1(blob, "x")
+        assert f.delta_lf_present == 1 and f.lf_level == [0, 0, 0, 0]
+        return
+    with pytest.raises(ValueError, match="AVIF with per-block loop filter "
+                       "deltas is not decoded by the port yet .dav1d's "
+                       "delta_lf."):
+        av1_obu.parse_av1(blob, "x")
+
+
+def test_loop_filter_deltas_and_sharpness_parse():
+    """A loop filter delta update and sharpness (written here) are kept:
+    setup_past_independence's ref deltas where no update is sent."""
+    _, f, _ = av1_obu.parse_av1(av1_still(lf=(9, 4)), "x")
+    assert f.lf_ref_deltas == [1, 0, 0, 0, -1, 0, -1, -1]
+    assert f.lf_mode_deltas == [0, 0] and f.lf_delta_enabled == 0
+
+
+def test_spec_constants_of_the_filters():
+    """The in-loop filters' tables against the specification's printed
+    values: the default restoration CDFs (9413, 22581; 11570; 16855),
+    Sgr_Params, Cdef_Directions, Cdef_Uv_Dir, the CDEF taps and divisors,
+    the Wiener and self-guided coefficient bounds."""
+    T = av1_tables
+    spec_cdf = {"RESTORE_SWITCHABLE": (9413, 22581), "RESTORE_WIENER":
+                (11570,), "RESTORE_SGRPROJ": (16855,)}
+    for name, cdf in spec_cdf.items():
+        assert T.CDFS[name][2] == tuple(32768 - v for v in cdf) + (0,)
+    spec_sgr = ((2, 140, 1, 3236), (2, 112, 1, 2158), (2, 93, 1, 1618),
+                (2, 80, 1, 1438), (2, 70, 1, 1295), (2, 58, 1, 1177),
+                (2, 47, 1, 1079), (2, 37, 1, 996), (2, 30, 1, 925),
+                (2, 25, 1, 863), (0, -1, 1, 2589), (0, -1, 1, 1618),
+                (0, -1, 1, 1177), (0, -1, 1, 925), (2, 56, 0, -1),
+                (2, 22, 0, -1))
+    for k, (r0, s0, r1, s1) in enumerate(spec_sgr):
+        assert T.SGR_PARAMS[4 * k:4 * k + 4] == (r0, r1, s0, s1)
+    from l3c_torch.data import av1_cdef
+    assert av1_cdef.DIRS == (((-1, 1), (-2, 2)), ((0, 1), (-1, 2)),
+                             ((0, 1), (0, 2)), ((0, 1), (1, 2)),
+                             ((1, 1), (2, 2)), ((1, 0), (2, 1)),
+                             ((1, 0), (2, 0)), ((1, 0), (2, -1)))
+    assert T.CDEF_UV_DIR == tuple(range(8)) + (7, 0, 2, 4, 5, 6, 6, 6)
+    assert T.CDEF_PRI_TAPS == (4, 2, 3, 3) and T.CDEF_SEC_TAPS == (2, 1,
+                                                                   2, 1)
+    assert T.CDEF_DIV_TABLE == (0, 840, 420, 280, 210, 168, 140, 120, 105)
+    assert (T.WIENER_TAPS_MIN, T.WIENER_TAPS_MID, T.WIENER_TAPS_MAX,
+            T.WIENER_TAPS_K) == ((-5, -23, -17), (3, -7, 15), (10, 8, 46),
+                                 (1, 2, 3))
+    assert (T.SGRPROJ_XQD_MIN, T.SGRPROJ_XQD_MID, T.SGRPROJ_XQD_MAX) == (
+        (-96, -32), (-32, 31), (31, 95))
+    # x / (x + 1) in 8 bits and 1 / x in 12, as the spec computes them
+    assert T.X_BY_XPLUS1 == (1,) + tuple(((z << 8) + z // 2) // (z + 1)
+                                         for z in range(1, 255)) + (256,)
+    assert T.ONE_BY_X == tuple((4096 + n // 2) // n for n in range(1, 26))
 
 
 def test_damaged_headers_are_refused():
@@ -449,8 +541,8 @@ if __name__ == "__main__":
             body, 72, initial_indent=" " * 8, subsequent_indent=" " * 8) +
             ")),\n")
     out.append("}\n")
-    for name in _PLAIN:
-        body = ", ".join(map(str, t[name]))
+    for name in list(_PLAIN) + list(_SPEC):
+        body = ", ".join(map(str, t.get(name, _SPEC.get(name))))
         out.append(f"\n{name} = (\n" + textwrap.fill(
             body, 76, initial_indent="    ", subsequent_indent="    ") +
             ")\n")

@@ -4,13 +4,17 @@ and the JAX package's loader.
 
 The committed fixtures (l3c_torch/data/fixtures/avif, written by
 `python tests/test_torch_port_avif.py`) are Pillow's own AVIF saves, aom
-3.12.1 inside libavif, with the in-loop filters switched off
-(`advanced=OFF`) and aom's keys steering the coding tools; the matrices
-Pillow's save cannot set (BT.709, identity) are Pillow's files with their
-colour description rewritten (`set_cicp`). expected.json holds Pillow's
-format, mode, size and the digest of convert("RGB"), or the port's
-refusal; together the decoded files cover the tools the decoder has
-(`test_fixtures_cover_the_decoder`).
+3.12.1 inside libavif: with the in-loop filters switched off
+(`advanced=OFF`) and aom's keys steering the coding tools, and with them
+on (Pillow's default saves run the deblocking filter; `speed=2` adds
+loop restoration, `enable-cdef=1` CDEF); the matrices Pillow's save
+cannot set (BT.709, identity) are Pillow's files with their colour
+description rewritten (`set_cicp`). expected.json holds Pillow's format,
+mode, size and the digest of convert("RGB"), or the port's refusal;
+together the decoded files cover the tools the decoder has
+(`test_fixtures_cover_the_decoder`). Each filter is held stage by stage
+to dav1d's planes with the later filters switched off (its exported API,
+`Dav1dSettings.inloop_filters`), and the decoded planes to libavif's.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import pytest
 from PIL import Image
 
 from l3c_tpu.data import images as jimages
-from l3c_torch.data import av1_block, av1_obu, av1_recon, avif
+from l3c_torch.data import (av1_block, av1_cdef, av1_loopfilter, av1_obu,
+                            av1_recon, av1_restoration, avif)
 from l3c_torch.data import images as timages
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,7 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 OFF = {"enable-cdef": "0", "enable-restoration": "0",
        "loopfilter-control": "0"}
-CODED = ("y_coded_lossy_512_420.avif", "z_coded_lossless_444.avif")
+CODED = ("y_coded_lossy_512_420.avif", "z_coded_lossless_444.avif",
+         "x_coded_default_512_420.avif")
 LISTING_MIN_SIZE = 20
 
 
@@ -117,6 +123,21 @@ def _put(b: bytearray, bit: int, n: int, v: int):
     for k in range(n):
         byte, sh = (bit + k) >> 3, 7 - ((bit + k) & 7)
         b[byte] = (b[byte] & ~(1 << sh)) | (((v >> (n - 1 - k)) & 1) << sh)
+
+
+def strip(h, w, seed):
+    """Texture, a flat band and a photo side by side (restoration units
+    that differ: Wiener, self-guided, none)."""
+    img = textured(h, w, seed).copy()
+    img[:, w // 3:2 * w // 3] = (90, 140, 200)
+    img[:, 2 * w // 3:] = photo(h, w - 2 * w // 3, seed + 1)
+    return img
+
+
+def flat_middle(h, w, seed):
+    img = textured(h, w, seed).copy()
+    img[h // 4:3 * h // 4, w // 4:3 * w // 4] = (30, 200, 90)
+    return img
 
 
 def set_cicp(blob: bytes, cp: int, mc: int) -> bytes:
@@ -198,7 +219,36 @@ def corpus():
                 **{"deltaq-mode": "2", "delta-lf-mode": "1"})), None),
         "m_q60_420_as.png": (textured(48, 64, 14), dict(
             quality=60, subsampling="4:2:0", advanced=adv()), None),
-        # Pillow's default saves: every in-loop filter on
+        # the deblocking filter at low quality (14-tap edges), sharpness
+        "n_deblock_q20_422_sharp.avif": (photo(56, 72, 70), dict(
+            quality=20, subsampling="4:2:2", advanced={"sharpness": "3"}),
+            None),
+        "n_deblock_q14_444.avif": (photo(48, 64, 71), dict(
+            quality=14, subsampling="4:4:4"), None),
+        "n_deblock_q18_400.avif": (photo(52, 60, 72), dict(
+            quality=18, subsampling="4:0:0"), None),
+        # CDEF (speed 2 adds loop restoration)
+        "o_cdef_420.avif": (flat_middle(96, 160, 3), dict(
+            quality=50, speed=2, advanced={"enable-cdef": "1"}), None),
+        "o_cdef_422.avif": (waves(120, 136, 8), dict(
+            quality=40, speed=2, subsampling="4:2:2",
+            advanced={"enable-cdef": "1"}), None),
+        "o_cdef_sb128.avif": (textured(136, 200, 75), dict(
+            quality=35, speed=2, advanced={"enable-cdef": "1",
+                                           "sb-size": "128"}), None),
+        # loop restoration at speed 2: Wiener and self-guided units, 256
+        # and 128 units, past one stripe, a last unit merged, two tiles
+        "p_lr_q30_wiener.avif": (photo(120, 320, 76), dict(
+            quality=30, speed=2), None),
+        "p_lr_q60_switchable.avif": (strip(72, 640, 1), dict(
+            quality=60, speed=2), None),
+        "p_lr_q75_units128.avif": (strip(72, 640, 4), dict(
+            quality=75, speed=2), None),
+        "p_lr_q75_r1_0.avif": (waves(80, 384, 5), dict(
+            quality=75, speed=2), None),
+        "p_lr_tiles.avif": (textured(96, 320, 77), dict(
+            quality=60, speed=2, tile_cols=1), None),
+        # Pillow's default saves: the deblocking filter on
         "r_default_rgb.avif": (photo(40, 48, 20), {}, None),
         "r_default_rgba.avif": (np.dstack([photo(32, 40, 21), np.full(
             (32, 40), 200, np.uint8)]), {}, None),
@@ -211,6 +261,7 @@ def corpus():
             quality=80, subsampling="4:2:0", advanced=adv()), None),
         CODED[1]: (textured(96, 128, 31), dict(
             quality=100, subsampling="4:4:4"), None),
+        CODED[2]: (textured(512, 512, 30), dict(quality=75), None),
     }
 
 
@@ -356,6 +407,7 @@ def decode_counting(paths):
     wrap(B.FrameDecoder, "decode_tile", lambda self, *a: "tile")
     wrap(B.FrameDecoder, "_delta_q_lf", lambda self, b: "delta_q" if
          self.read_deltas else "no_delta_q")
+    wrap_filters(c, saved)
     try:
         for p in paths:
             with open(p, "rb") as f:
@@ -375,9 +427,52 @@ def decode_counting(paths):
     return c
 
 
+def wrap_filters(c, saved):
+    """Count what the in-loop filters ran: deblocking lengths (y4, y8,
+    y14, uv4, uv6), CDEF blocks by strengths, restoration frame types,
+    unit sizes, unit types and self-guided set kinds."""
+    LF, CD, LR = av1_loopfilter, av1_cdef, av1_restoration
+
+    def deblock(*a, **k):
+        ran = saved[(LF, "deblock")](*a, **k)
+        c.update({key: 1 for key, v in ran.items() if v})
+        return ran
+
+    def cdef(*a, **k):
+        out, ran = saved[(CD, "cdef")](*a, **k)
+        c.update({key: 1 for key, v in ran.items() if v})
+        return out, ran
+
+    def restore(cdef_planes, pre, f, seq, lr):
+        for p, u in enumerate(lr):
+            if u is None:
+                continue
+            c[f"lr_size_{f.lr_unit_size[p]}"] += 1
+            for t, st in zip(u.type.ravel(), u.sgr[..., 0].ravel()):
+                if t == av1_obu.RESTORE_WIENER:
+                    c["lr_wiener"] += 1
+                elif t == av1_obu.RESTORE_SGRPROJ:
+                    r0, r1 = LR.SGR[st, 0], LR.SGR[st, 1]
+                    c["sgr_both" if r0 and r1 else "sgr_r1_0" if r0
+                      else "sgr_r0_0"] += 1
+                elif f.lr_type[p] == av1_obu.RESTORE_SWITCHABLE:
+                    c["lr_none_in_switchable"] += 1
+        return saved[(LR, "restore")](cdef_planes, pre, f, seq, lr)
+    for mod, name, fn in ((LF, "deblock", deblock), (CD, "cdef", cdef),
+                          (LR, "restore", restore)):
+        saved[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, fn)
+
+
 def test_fixtures_cover_the_decoder():
-    """The decoded fixtures (the two coded files aside) run every coding
-    tool and transform size the decoder has."""
+    """The decoded fixtures (the coded files aside) run every coding
+    tool and transform size the decoder has, and every path of the
+    in-loop filters aom writes: each deblocking length, CDEF primary-only,
+    secondary-only and both, Wiener, each self-guided set kind,
+    RESTORE_NONE inside a switchable frame, two unit sizes. (A 64 x 64
+    whose blocks all skip, CDEF's cdef_idx -1, comes from no writer here:
+    aom marks no intra block skipped; `test_cdef_leaves_unsignalled_and_
+    skipped_blocks` holds that path.)"""
     e = _expected()["files"]
     paths = [os.path.join(FIXTURES, n) for n in sorted(e)
              if "sha256" in e[n] and n not in CODED]
@@ -389,8 +484,220 @@ def test_fixtures_cover_the_decoder():
             "qctx_2", "qctx_3", "ss_000", "ss_100", "ss_110", "ss_111",
             "sb128_1", "lossless_True"]
     need += [f"tx_{w}x{h}" for w, h in av1_block.TX_WH]
+    need += ["y4", "y8", "y14", "uv4", "uv6", "cdef_pri", "cdef_sec",
+             "cdef_both", "lr_wiener", "sgr_both", "sgr_r0_0", "sgr_r1_0",
+             "lr_none_in_switchable"]
     assert [k for k in need if not c[k]] == []
     assert c["tile"] > len(paths)            # a file with several tiles
+    assert len([k for k in c if k.startswith("lr_size_")]) >= 2
+
+
+# ------------------------------------------------------ the in-loop filters
+
+def _dav1d_planes(lib, obus, filters):
+    """dav1d's decoded planes of raw OBUs through the API libavif exports
+    (dav1d 1.5: Dav1dSettings.inloop_filters at byte 72, a mask of
+    deblocking 1, CDEF 2, restoration 4; Dav1dPicture's data at 16,
+    strides at 40, width, height and layout at 56)."""
+    c = ctypes
+    lib.dav1d_data_create.restype = c.c_void_p
+    settings = c.create_string_buffer(1024)
+    lib.dav1d_default_settings(settings)
+    struct.pack_into("<ii", settings, 0, 1, 1)      # one thread, no delay
+    assert struct.unpack_from("<i", settings, 72)[0] == 7
+    struct.pack_into("<i", settings, 72, filters)
+    ctx = c.c_void_p()
+    assert lib.dav1d_open(c.byref(ctx), settings) == 0
+    try:
+        data = c.create_string_buffer(256)
+        buf = lib.dav1d_data_create(data, c.c_size_t(len(obus)))
+        c.memmove(buf, obus, len(obus))
+        assert lib.dav1d_send_data(ctx, data) == 0
+        pic = c.create_string_buffer(1024)
+        assert lib.dav1d_get_picture(ctx, pic) == 0
+        ptrs = struct.unpack_from("<3Q", pic, 16)
+        strides = struct.unpack_from("<2q", pic, 40)
+        w, h, layout = struct.unpack_from("<3i", pic, 56)
+        sx, sy = int(layout in (1, 2)), int(layout == 1)
+        out = []
+        for k in range(1 if layout == 0 else 3):
+            pw, ph = (w, h) if k == 0 else ((w + sx) >> sx, (h + sy) >> sy)
+            st = strides[min(k, 1)]
+            a = np.ctypeslib.as_array((c.c_uint8 * (st * ph)).from_address(
+                ptrs[k]))
+            out.append(a.reshape(ph, st)[:, :pw].copy())
+        lib.dav1d_picture_unref(pic)
+        return out
+    finally:
+        lib.dav1d_close(c.byref(ctx))
+
+
+def _libavif_planes(lib, blob):
+    """The YUV planes libavif's avifDecoderReadMemory decodes (Pillow's
+    decoder): the avifImage's planes at 24, their row bytes at 48."""
+    c = ctypes
+    lib.avifDecoderCreate.restype = c.c_void_p
+    lib.avifImageCreateEmpty.restype = c.c_void_p
+    dec, img = lib.avifDecoderCreate(), lib.avifImageCreateEmpty()
+    try:
+        assert lib.avifDecoderReadMemory(c.c_void_p(dec), c.c_void_p(img),
+                                         blob, c.c_size_t(len(blob))) == 0
+        w, h, depth, fmt = (c.c_uint32 * 4).from_address(img)
+        ptrs = (c.c_void_p * 3).from_address(img + 24)
+        rows = (c.c_uint32 * 3).from_address(img + 48)
+        sx, sy = int(fmt in (2, 3)), int(fmt == 3)   # 444 1, 422 2, 420 3
+        out = []
+        for k in range(1 if fmt == 4 else 3):        # 400 4
+            pw, ph = (w, h) if k == 0 else ((w + sx) >> sx, (h + sy) >> sy)
+            a = np.ctypeslib.as_array((c.c_uint8 * (rows[k] * ph))
+                                      .from_address(ptrs[k]))
+            out.append(a.reshape(ph, rows[k])[:, :pw].copy())
+        return out
+    finally:
+        lib.avifImageDestroy(c.c_void_p(img))
+        lib.avifDecoderDestroy(c.c_void_p(dec))
+
+
+def port_stages(data):
+    """The port's cropped planes after each in-loop filter: deblocking,
+    CDEF, loop restoration (the decoded planes)."""
+    seq, f, tiles = av1_obu.parse_av1(data, "x")
+    d = av1_block.FrameDecoder(seq, f, "x")
+    for tr, tc, start, end in tiles:
+        d.decode_tile(data, start, end, tr, tc)
+    stages = []
+    final = av1_block.filter_frame(d, seq, f, stages=stages)
+    h, w = f.height, f.width
+    ch, cw = (h + seq.ssy) >> seq.ssy, (w + seq.ssx) >> seq.ssx
+    crop = lambda pl: [pl[0][:h, :w].astype(np.uint8)] + [  # noqa: E731
+        q[:ch, :cw].astype(np.uint8) for q in pl[1:seq.num_planes]]
+    return [crop(st) for st in stages] + [final]
+
+
+def _first_difference(got, want):
+    for p, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a, b):
+            y, x = np.argwhere(a != b)[0]
+            return (f"plane {p}, 4x4 block ({y // 4}, {x // 4}): "
+                    f"{int(a[y, x])} against {int(b[y, x])}")
+    return None
+
+
+FILTERED = sorted(n for n in _names() if n[0] in "noprx")
+
+
+@pytest.mark.parametrize("name", FILTERED)
+def test_each_filter_stage_equals_dav1ds(name):
+    """Deblocking, CDEF and restoration in turn against dav1d's planes
+    with the later filters switched off, and the planes against
+    libavif's: a fault shows as the first plane and 4 x 4 block of the
+    first stage that differs."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    lib = ctypes.CDLL(path)
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        blob = f.read()
+    m = avif.parse(blob, name)
+    data = avif._item_bytes(blob, m, m.primary, name)
+    got = port_stages(data)
+    for k, (stage, mask) in enumerate((("deblocking", 1), ("CDEF", 3),
+                                       ("restoration", 7))):
+        want = _dav1d_planes(lib, data, mask)
+        assert _first_difference(got[k], want) is None, \
+            (stage, _first_difference(got[k], want))
+    assert _first_difference(got[2], _libavif_planes(lib, blob)) is None
+
+
+def _cdef_reference(planes, f, seq, skips, cdef_idx):
+    """The specification's CDEF process (7.15), a sample at a time."""
+    def constrain(diff, t, damping):
+        if not t:
+            return 0
+        adj = max(0, damping - (t.bit_length() - 1))
+        v = min(abs(diff), max(0, t - (abs(diff) >> adj)))
+        return v if diff > 0 else -v
+    out = [p.copy() for p in planes]
+    for r in range(0, f.mi_rows, 2):
+        for c in range(0, f.mi_cols, 2):
+            idx = cdef_idx[r >> 4, c >> 4]
+            if idx == -1 or skips[r:r + 2, c:c + 2].all():
+                continue
+            y_dir, var = av1_cdef.direction(
+                planes[0][4 * r:4 * r + 8, 4 * c:4 * c + 8][None])
+            y_dir, var = int(y_dir[0]), int(var[0])
+            for p in range(seq.num_planes):
+                sx = seq.ssx if p else 0
+                sy = seq.ssy if p else 0
+                pri, sec = (f.cdef_uv if p else f.cdef_y)[idx]
+                damping = f.cdef_damping - (p > 0)
+                if p == 0:
+                    dr = y_dir if pri else 0
+                    vs = min((var >> 6).bit_length() - 1, 12) \
+                        if var >> 6 else 0
+                    pri = (pri * (4 + vs) + 8) >> 4 if var else 0
+                else:
+                    dr = int(av1_cdef.UV_DIR[int(sx and not sy)][y_dir]) \
+                        if pri else 0
+                x0, y0 = (4 * c) >> sx, (4 * r) >> sy
+                ah, aw = (4 * f.mi_rows) >> sy, (4 * f.mi_cols) >> sx
+                src = planes[p]
+                for i in range(8 >> sy):
+                    for j in range(8 >> sx):
+                        x = int(src[y0 + i, x0 + j])
+                        total, lo, hi = 0, x, x
+                        for k in (0, 1):
+                            for sign in (1, -1):
+                                for d, taps, st in (
+                                        (dr, av1_cdef.PRI_TAPS, pri),
+                                        ((dr + 2) & 7, av1_cdef.SEC_TAPS,
+                                         sec),
+                                        ((dr - 2) & 7, av1_cdef.SEC_TAPS,
+                                         sec)):
+                                    dy, dx = av1_cdef.DIRS[d][k]
+                                    yy = y0 + i + sign * dy
+                                    xx = x0 + j + sign * dx
+                                    if not (0 <= yy < ah and 0 <= xx < aw):
+                                        continue
+                                    v = int(src[yy, xx])
+                                    total += int(taps[pri & 1][k]) * \
+                                        constrain(v - x, st, damping)
+                                    lo, hi = min(lo, v), max(hi, v)
+                        out[p][y0 + i, x0 + j] = min(hi, max(
+                            lo, x + ((8 + total - (total < 0)) >> 4)))
+    return out
+
+
+@pytest.mark.parametrize("ssx, ssy", [(1, 1), (1, 0), (0, 0)])
+def test_cdef_leaves_unsignalled_and_skipped_blocks(ssx, ssy):
+    """CDEF on seeded planes against the specification's process a
+    sample at a time: a 64 x 64 whose cdef_idx is -1 (all its blocks
+    skipped, so no index was read) and 8 x 8s whose four mi skip are
+    left as they are, every other block filtered with its index's
+    strengths (primary only, secondary only, both), taps outside the mi
+    area left out."""
+    from types import SimpleNamespace
+    r = np.random.RandomState(80 + 2 * ssx + ssy)
+    f = SimpleNamespace(mi_rows=30, mi_cols=34, cdef_damping=4, cdef_bits=2,
+                        cdef_y=[(0, 2), (9, 0), (6, 4), (15, 1)],
+                        cdef_uv=[(3, 1), (0, 2), (7, 0), (12, 4)])
+    seq = SimpleNamespace(num_planes=3, ssx=ssx, ssy=ssy)
+    smooth = np.cumsum(r.randint(-3, 4, (192, 192)), 1) + 128
+    planes = [np.clip(smooth + r.randint(-12, 13, (192, 192)), 0, 255)]
+    planes += [np.clip(smooth[::1 + ssy, ::1 + ssx] +
+                       r.randint(-9, 10, (192 >> ssy, 192 >> ssx)), 0, 255)
+               for _ in (1, 2)]
+    skips = r.rand(64, 64) < 0.3
+    skips[16:32, :16] = True                 # a 64 x 64 with no index
+    cdef_idx = np.zeros((6, 6), np.int64)
+    cdef_idx[:2, :3] = [[0, 1, 2], [-1, 3, 1]]   # the frame's 64 x 64s
+    got, ran = av1_cdef.cdef(planes, f, seq, skips, cdef_idx)
+    want = _cdef_reference(planes, f, seq, skips, cdef_idx)
+    for p in range(3):
+        assert np.array_equal(got[p], want[p]), p
+    assert ran["cdef_idx_-1"] > 0 and ran["cdef_pri"] and ran["cdef_sec"] \
+        and ran["cdef_both"]
+    assert np.array_equal(got[0][64:128, :64], planes[0][64:128, :64])
 
 
 # ------------------------------------------------- the colour conversion
@@ -700,10 +1007,18 @@ def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
     assert np.array_equal(got, jimages.load_image_uint8(p))
 
 
+# the tools ROADMAP F6 still lists, which the port refuses by name
+F6_TOOLS = ("superres", "per-block loop filter deltas", "film grain",
+            "intra block copy", "quantizer matrices", "-bit samples",
+            "a hidden first frame", "segment reference features",
+            "a grid image", "premultiplied alpha", "another size than ispe",
+            "the identity matrix", "matrix coefficients")
+
+
 def _outcome(p):
     """Pillow's pixels or None where Pillow refuses; the port's pixels,
-    None where it refuses, or "not yet" where it refuses naming a tool it
-    does not decode yet."""
+    None where it refuses, or its message where it refuses naming a tool
+    it does not decode yet."""
     try:
         with Image.open(p) as im:
             pil = np.asarray(im.convert("RGB"))
@@ -712,58 +1027,101 @@ def _outcome(p):
     try:
         port = timages.load_image_uint8(p)
     except ValueError as e:
-        port = "not yet" if "not decoded by the port yet" in str(e) \
-            else None
+        port = str(e) if "not decoded by the port yet" in str(e) else None
     return pil, port
+
+
+def _names_an_f6_tool(msg):
+    return any(f"AVIF with {t}" in msg or t in msg.split(
+        "not decoded")[0] for t in F6_TOOLS)
 
 
 def test_truncated_and_bit_flipped_files_as_pillow(tmp_path):
     """Cut anywhere, or with a bit flipped in its container, headers or
-    tile data: where Pillow decodes, the port gives its pixels (dav1d's
-    and the port's walk of damaged tile data agree) or names a tool it
-    does not decode yet (a flip that switches the deblocking filter on);
-    where Pillow refuses, the port refuses (libavif's box checks, dav1d's
-    tile overread and 4:2:2 partition checks)."""
-    blob = save(waves(40, 48, 60), quality=60, subsampling="4:2:0",
-                advanced=OFF)
+    tile data, a filters-off save and one with every in-loop filter on:
+    where Pillow decodes, the port gives its pixels (dav1d's and the
+    port's walk of damaged tile data agree, a flip in a filter's header
+    fields or symbols included) or names a tool ROADMAP F6 still lists (a
+    flip that switches superres on); where Pillow refuses, the port
+    refuses (libavif's box checks, dav1d's tile overread and 4:2:2
+    partition checks), as damaged or, where a tool F6 lists comes first,
+    by that tool's name."""
+    blobs = [save(waves(40, 48, 60), quality=60, subsampling="4:2:0",
+                  advanced=OFF),
+             save(waves(72, 80, 62), quality=40, subsampling="4:2:0",
+                  speed=2, advanced={"enable-cdef": "1"})]
     r = np.random.RandomState(61)
-    cases = [blob[:n] for n in (len(blob) - 1, len(blob) - 40,
-                                len(blob) // 2, 300, 40)]
-    for _ in range(40):
-        b = bytearray(blob)
-        b[r.randint(len(b))] ^= 1 << r.randint(8)
-        cases.append(bytes(b))
-    decoded = 0
-    for k, b in enumerate(cases):
-        p = str(tmp_path / f"c{k}.avif")
-        with open(p, "wb") as f:
-            f.write(b)
-        pil, port = _outcome(p)
-        if pil is None:
-            assert port is None, k
-        elif not isinstance(port, str):
-            assert np.array_equal(pil, port), k
-            decoded += 1
-    assert 20 <= decoded < len(cases)
+    for n, blob in enumerate(blobs):
+        cases = [blob[:n] for n in (len(blob) - 1, len(blob) - 40,
+                                    len(blob) // 2, 300, 40)]
+        for _ in range(40 + 30 * n):     # the filters' file: more flips
+            b = bytearray(blob)
+            b[r.randint(len(b))] ^= 1 << r.randint(8)
+            cases.append(bytes(b))
+        decoded = 0
+        for k, b in enumerate(cases):
+            p = str(tmp_path / f"c{n}_{k}.avif")
+            with open(p, "wb") as f:
+                f.write(b)
+            pil, port = _outcome(p)
+            if pil is None:
+                # refused: as damaged, or naming a tool F6 lists that the
+                # port meets before the damage (a flipped frame size)
+                assert port is None or _names_an_f6_tool(port), (n, k)
+            elif isinstance(port, str):
+                assert _names_an_f6_tool(port), (n, k, port)
+            else:
+                assert np.array_equal(pil, port), (n, k)
+                decoded += 1
+        assert 20 <= decoded < len(cases), n
 
 
 def test_defaults_decode_where_aom_wrote_no_filter(tmp_path):
-    """Pillow's default save runs the deblocking filter below quality 90
-    (refused by name, Pillow decodes it); from 90 aom writes no in-loop
-    filter and the file decodes to Pillow's pixels."""
+    """Pillow's default save runs the deblocking filter below quality 90,
+    and from 90 aom writes no in-loop filter: both decode to Pillow's
+    pixels."""
     img = photo(40, 48, 62)
-    for q, decodes in ((75, False), (89, False), (90, True), (100, True)):
+    for q, deblocked in ((75, True), (89, True), (90, False),
+                         (100, False)):
         p = str(tmp_path / f"q{q}.avif")
         with open(p, "wb") as f:
             f.write(save(img, quality=q))
-        if decodes:
-            assert np.array_equal(timages.load_image_uint8(p),
-                                  jimages.load_image_uint8(p))
-        else:
-            with pytest.raises(ValueError, match="AVIF with the deblocking "
-                               "loop filter is not decoded by the port yet"):
-                timages.load_image_uint8(p)
-            assert jimages.load_image_uint8(p).shape == (40, 48, 3)
+        m = avif.parse(open(p, "rb").read(), p)
+        _, fr, _ = av1_obu.parse_av1(avif._item_bytes(
+            open(p, "rb").read(), m, m.primary, p), p)
+        assert bool(fr.lf_level[0] or fr.lf_level[1]) == deblocked
+        got = timages.load_image_uint8(p)
+        assert np.array_equal(got, jimages.load_image_uint8(p))
+        assert np.array_equal(got, np.asarray(Image.open(p).convert("RGB")))
+
+
+@pytest.mark.parametrize("speed", [None, 2])
+@pytest.mark.parametrize("ss", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+def test_seeded_filtered_saves_equal_pillow_and_jax(tmp_path, speed, ss):
+    """Pillow's saves with the in-loop filters on, seeded: its default
+    speed (deblocking) and speed 2 (loop restoration; CDEF switched on in
+    every other file), qualities 20-89, RGB and RGBA, sizes 17-160: each
+    equal to Pillow and the JAX loader, or refused naming a tool ROADMAP
+    F6 still lists."""
+    r = np.random.RandomState(90 + (speed or 0) + ord(ss[2]))
+    for k in range(3):
+        h, w = (int(v) for v in r.randint(17, 161, 2))
+        img = (photo, textured, waves)[k](h, w, 91 + k)
+        if k == 1:
+            img = np.dstack([img, r.randint(100, 256, (h, w)).astype(
+                np.uint8)])
+        kw = dict(quality=int(r.randint(20, 90)), subsampling=ss)
+        if speed:
+            kw.update(speed=speed, advanced={"enable-cdef": str(k % 2)})
+        p = str(tmp_path / f"s{k}.avif")
+        with open(p, "wb") as f:
+            f.write(save(img, **kw))
+        pil, port = _outcome(p)
+        if isinstance(port, str):
+            assert _names_an_f6_tool(port), (kw, port)
+            continue
+        assert np.array_equal(port, pil), kw
+        assert np.array_equal(port, jimages.load_image_uint8(p)), kw
 
 
 def test_prep_inp_dir_over_avif_equals_jax(tmp_path, capsys):

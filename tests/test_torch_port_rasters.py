@@ -22,9 +22,8 @@ package's load_image_uint8 reads them through.
 every pixel equal to Pillow's convert("RGB") and to the JAX loader, and
 format, mode and size from the header equal to Pillow's. JPEG 2000 (JP2
 and raw codestreams) decodes as Pillow decodes it (more in
-test_torch_port_jpeg2000*.py); AVIF gives Pillow's mode and size, and
-Pillow's default save raises naming the in-loop filter its AV1 frame runs
-(more in test_torch_port_avif.py); EPS is refused by both (no Ghostscript). A TGA file that
+test_torch_port_jpeg2000*.py); AVIF too, Pillow's default save (its AV1
+frame deblocked) included (more in test_torch_port_avif.py); EPS is refused by both (no Ghostscript). A TGA file that
 starts with the CUR magic is a TGA file, as for Pillow, and files saved
 under another format's name are read by their bytes.
 """
@@ -669,7 +668,8 @@ def test_whole_codecs_give_pillows_header_and_raise_naming_them(
         tmp_path, fmt, mode, kw):
     """JPEG 2000 decodes to Pillow's pixels (data/jpeg2000.py); AVIF
     (data/avif.py) gives Pillow's header, and Pillow's default save, whose
-    AV1 frame runs the deblocking filter, raises naming the filter."""
+    AV1 frame runs the deblocking filter, once refused naming the filter,
+    decodes to Pillow's pixels."""
     img = _img(21, 34, 2)
     im = Image.fromarray(img[..., 0].astype(np.uint16) * 100) \
         if mode == "I;16" else Image.fromarray(img).convert(mode)
@@ -679,13 +679,7 @@ def test_whole_codecs_give_pillows_header_and_raise_naming_them(
         assert timages.image_format(p) == pim.format
         assert timages.image_mode(p) == pim.mode
         assert timages.image_size(p) == pim.size[::-1]
-    if fmt == "JPEG2000":
-        check(p)
-        return
-    with pytest.raises(ValueError, match=f"{fmt} with the deblocking loop "
-                       "filter is not decoded by the port"):
-        timages.load_image_uint8(p)
-    assert jimages.load_image_uint8(p).shape == (21, 34, 3)
+    check(p)
 
 
 @pytest.mark.parametrize("fmt, mode", [("BLP", "P"), ("XBM", "1"),
@@ -748,9 +742,8 @@ def make_pillow_formats(d):
     """The fixtures: two files under another format's name that the
     listing keeps (a GIF as .png, an LZW TIFF as .jpg), the GIF and TIFF
     that chip_smoke codes and times, and one file of each other kind the
-    port reads, under names the listing leaves out, JPEG 2000 among them;
-    AVIF, Pillow's default save, which the port refuses naming its
-    deblocking filter."""
+    port reads, under names the listing leaves out, JPEG 2000 among them,
+    and AVIF, Pillow's default save (its AV1 frame deblocked)."""
     from test_torch_port_tiff import make_tiff, _jpeg_strip
     os.makedirs(d, exist_ok=True)
     ph = lambda h, w, s: Image.fromarray(_photo(h, w, s))
@@ -842,10 +835,7 @@ def pillow_formats_expected_now():
         with Image.open(p) as im:
             e = {"format": im.format, "mode": im.mode,
                  "size": list(im.size[::-1])}
-        if e["format"] == "AVIF":    # aom's default save: deblocking on
-            e["refused"] = "AVIF with the deblocking loop filter"
-        else:
-            e["sha256"] = _digest(jimages.load_image_uint8(p))
+        e["sha256"] = _digest(jimages.load_image_uint8(p))
         files[n] = e
     listing = jimages.ImagesCached(FIXTURES, min_size=LISTING_MIN_SIZE)
     return {"files": files, "listing_min_size": LISTING_MIN_SIZE,

@@ -790,9 +790,9 @@ def _digest(a):
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-# files Pillow reads that the port refuses by name: Pillow's default AVIF
-# save, whose AV1 frame runs the deblocking filter (ROADMAP F6)
-_BY_NAME = {"o_avif.avif": "AVIF with the deblocking loop filter"}
+# files Pillow reads that the port refuses by name (none since the port
+# decodes Pillow's default AVIF save, its AV1 frame deblocked)
+_BY_NAME = {}
 # files Pillow refuses: what the port's refusal says
 _PORT_REFUSES = {"e_webp.tif": "WEBP compression support is not configured",
                  "n_im_rlb.im": "Pillow has no raw mode for it",
