@@ -98,7 +98,7 @@ Phases (each raises on failure; none carries on after another failed):
               step) and trained 20 steps (a persistent checkpoint every
               5, for phase host's SWA), the first
               loss equal to the eval forward's; that checkpoint codes a
-              512x512 image through cli.l3c bit-exactly; 40 steps from a
+              512x512 image through cli.l3c bit-exactly; 25 steps from a
               fresh initialisation from each of three seeds lower the
               validation bpsp in at least two; every step
               exactly 3 + 3 K6 launches and no plain nll on the card; the
@@ -313,17 +313,19 @@ Phases (each raises on failure; none carries on after another failed):
               directional, smooth and Paeth prediction, every transform
               size, tiles, 128 superblocks, delta q; the in-loop filters:
               deblocking, CDEF, Wiener and self-guided restoration,
-              Pillow's default saves) to Pillow's format, mode, size and
-              pixel digest, premultiplied alpha refused by name; the same
+              Pillow's default saves; film grain, quantizer matrices,
+              intra block copy, premultiplied alpha) to Pillow's format,
+              mode, size and pixel digest; the same
               digests from this host's Pillow wherever it imports (held),
               its libavif, dav1d, aom and libyuv logged; cli.l3c enc /
               dec of a 512 x 512 filters-off lossy 4:2:0 file, a lossless
-              4:4:4 one and a 512 x 512 default save bit-exact with exact
+              4:4:4 one, a 512 x 512 default save and a 512 x 512 save
+              with aom's denoiser's film grain bit-exact with exact
               launch counts; cli.test --write_to_files --compare_theory
               over the folder (an AVIF named .png listed), K3 to K6
-              launched; the host's decode MP/s of the three, fastest of 3,
-              and the default save's time by stage (the symbol walk, each
-              in-loop filter)
+              launched; the host's decode MP/s of the four, fastest of 3,
+              and the default and grain saves' time by stage (the symbol
+              walk, each in-loop filter, film grain)
  23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
@@ -2018,7 +2020,10 @@ def k6_bound(l_nchw, x, spec, grad: bool):
     n_bytes = (Kp + C) * n_px * 4 + (C * n_px * 4 if not grad
                                      else (Kp + 2 * C) * n_px * 4)
     return bound(n_bytes, ops)
-TRAIN_STEPS_RESUMED, TRAIN_STEPS_FRESH, TRAIN_WARMUP = 20, 40, 3
+# the fresh runs take 25 steps a seed (40 until the loader's phases grew
+# the script past 900 s of its 1200: the loader-bound step is ~0.76 s
+# there, and a run that is not stuck has left ~40 bpsp well before step 25)
+TRAIN_STEPS_RESUMED, TRAIN_STEPS_FRESH, TRAIN_WARMUP = 20, 25, 3
 # the resumed run's persistent checkpoints, every TRAIN_SAVE_EVERY steps:
 # what phase host averages (SWA)
 TRAIN_SAVE_EVERY = 5
@@ -5184,19 +5189,21 @@ AVIF = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 
 def phase_avif(card):
     """AVIF stills, their AV1 frames' in-loop filters (deblocking, CDEF,
-    loop restoration) included, decoded on this machine's host with no
-    Pillow (data/avif.py, av1_*.py, avif_yuv.py): every fixture of
+    loop restoration), film grain, quantizer matrices, intra block copy
+    and premultiplied alpha included, decoded on this machine's host with
+    no Pillow (data/avif.py, av1_*.py, avif_yuv.py): every fixture of
     l3c_torch/data/fixtures/avif held to Pillow's format, mode, size and
     pixel digest (expected.json), the files with tools the port does not
     decode yet refused by name; this host's Pillow, where it imports,
     decoding every decoded fixture to its digest (a differing one fails),
     its libavif, AV1 codecs and libyuv logged; cli.l3c enc / dec of the
     "coded" files (512 x 512 filters-off lossy 4:2:0, lossless 4:4:4, a
-    512 x 512 Pillow default save) bit-exact with exact launch counts;
+    512 x 512 Pillow default save, a 512 x 512 default save with aom's
+    denoiser's film grain) bit-exact with exact launch counts;
     cli.test --write_to_files --compare_theory over the folder (its
     listing keeps an AVIF named .png); the host's decode rates of the
-    coded files, fastest of 3, and the default save's time by stage.
-    Returns the launches of its CLI calls."""
+    coded files, fastest of 3, and the default and grain saves' time by
+    stage. Returns the launches of its CLI calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
@@ -5259,9 +5266,10 @@ def phase_avif(card):
                      f"{h * w / dt / 1e6:.4f} MP/s ({dt * 1e3:.1f} ms)")
     log(f"[avif] host decode rates, fastest of 3, pixels Pillow's: "
         f"{'; '.join(rates)} | host {cpu}")
-    # ---- (f) the default save's decode by stage: the filters' share; and
-    # two fixtures that run CDEF and loop restoration
-    for name in (exp["coded"][2], "o_cdef_422.avif",
+    # ---- (f) the default save's decode by stage: the filters' share; the
+    # grain save's (the grain stage); two fixtures that run CDEF and loop
+    # restoration
+    for name in (exp["coded"][2], exp["coded"][3], "o_cdef_422.avif",
                  "p_lr_q60_switchable.avif"):
         blob = open(os.path.join(AVIF, name), "rb").read()
         ms = avif_stages_ms(blob, name)
@@ -5271,7 +5279,9 @@ def phase_avif(card):
             f"{ {k: round(v, 1) for k, v in ms.items()} }; the in-loop "
             f"filters {filters:.1f} ms = "
             f"{100 * filters / ms['total']:.1f} % of the decode, "
-            f"{filters / ms['walk']:.3f} x the symbol walk | host {cpu}")
+            f"{filters / ms['walk']:.3f} x the symbol walk; film grain "
+            f"{ms['grain']:.1f} ms = {100 * ms['grain'] / ms['total']:.1f} "
+            f"% | host {cpu}")
     log(f"[avif] launches of the cli.l3c and cli.test calls: "
         f"{({k: v for k, v in total.items() if v})} | {card}")
     return total
@@ -5280,8 +5290,9 @@ def phase_avif(card):
 def avif_stages_ms(blob, name):
     """An AVIF still's host decode split into the container and headers,
     the symbol walk (prediction and transforms included), each in-loop
-    filter, and the YUV to RGB conversion: ms, fastest of 3 each, and the
-    fastest total; the pixels held to the loader's."""
+    filter, film grain synthesis and the YUV to RGB conversion: ms,
+    fastest of 3 each, and the fastest total; the pixels held to the
+    loader's."""
     from l3c_torch.data import av1_block, av1_obu, avif, avif_yuv
     best = {}
     for _ in range(3):
@@ -5296,12 +5307,13 @@ def avif_stages_ms(blob, name):
         t2 = time.perf_counter()
         times = {}
         planes = av1_block.filter_frame(d, seq, frame, times=times)
+        t_grain = time.perf_counter()
+        planes = av1_block.add_grain(planes, seq, frame)
         t3 = time.perf_counter()
-        nclx = avif._prop(m, m.primary, b"colr", b"nclx")
-        mc = int.from_bytes(nclx[8:10], "big") if nclx is not None and \
-            len(nclx) >= 11 else seq.mc
+        times["grain"] = t3 - t_grain
+        mc, full_range = avif.colour(m, m.primary, seq)
         rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
-                              seq.full_range, name)
+                              full_range, name)
         t4 = time.perf_counter()
         for k, v in (("headers", t1 - t0), ("walk", t2 - t1),
                      ("yuv_to_rgb", t4 - t3), ("total", t4 - t0),

@@ -1,8 +1,10 @@
 """AV1's block layer for intra frames (the AV1 specification, sections
 5.11 and 7): partitions, intra mode info (segment ids, skip, delta q /
 lf, y and uv modes with angle deltas, CfL alphas, palettes with their
-colour cache and colour-index maps, filter intra), transform sizes and
-types, the coefficients and their dequantization, each transform block
+colour cache and colour-index maps, filter intra; intra block copy's
+DVs, data/av1_intrabc.py), transform sizes (an intrabc block's transform
+tree) and types, the coefficients and their dequantization (with the
+quantizer matrices where the frame uses them), each transform block
 predicted and reconstructed in decoding order.
 
 The walk also reads what the in-loop filters need (CDEF indices,
@@ -10,20 +12,23 @@ restoration units) and keeps each plane's transform sizes for the
 deblocking filter. `decode_frame(seq, frame, tiles, data, path)` returns
 the planes deblocked (data/av1_loopfilter.py), CDEF-filtered
 (data/av1_cdef.py) and restored (data/av1_restoration.py) as the frame
-header asks, uint8 numpy arrays cropped to the frame size. The symbol
+header asks, uint8 numpy arrays cropped to the frame size, with film
+grain (data/av1_filmgrain.py) where the header carries it. The symbol
 walk is plain Python; prediction and the transforms are numpy
 (data/av1_recon.py), and so are the filters.
 """
 from __future__ import annotations
 
+import os
 import time
 from types import SimpleNamespace
 from typing import List
 
 import numpy as np
 
-from . import av1_cdef, av1_loopfilter, av1_restoration
+from . import av1_cdef, av1_filmgrain, av1_intrabc, av1_loopfilter
 from . import av1_recon as R
+from . import av1_restoration
 from . import av1_tables as T
 from .av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, RESTORE_WIENER,
                       damaged, qindex)
@@ -81,6 +86,9 @@ IDTX, V_DCT, H_DCT = 9, 10, 11
 V_TYPES, H_TYPES = (10, 12, 14), (11, 13, 15)
 INV_SET1 = (IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST)
 INV_SET2 = (IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST)
+# the inter sets (intra block copy): all 16 types, 12, IDTX and DCT
+INTER_INV = ((9, 10, 11, 12, 13, 14, 15, 0, 1, 2, 4, 5, 3, 6, 7, 8),
+             (9, 10, 11, 0, 1, 2, 4, 5, 3, 6, 7, 8), (9, 0))
 IN_SET_INTRA = ((DCT_DCT,), (DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, IDTX,
                              V_DCT, H_DCT),
                 (DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, IDTX))
@@ -196,6 +204,13 @@ class _Cdfs:
         self.lr_switch = get("RESTORE_SWITCHABLE")[0]
         self.lr_wiener = get("RESTORE_WIENER")[0]
         self.lr_sgr = get("RESTORE_SGRPROJ")[0]
+        self.intrabc = get("INTRABC")[0]
+        self.txfm_split = get("TXFM_SPLIT")
+        self.inter_tx = [get(f"INTER_TX_SET{k}") for k in (1, 2, 3)]
+        self.mv_joint = get("MV_JOINT")[0]
+        self.mv_comp = [SimpleNamespace(
+            cls=get("MV_CLASS")[0], class0=get("MV_CLASS0")[0],
+            sign=get("MV_SIGN")[0], bits=get("MV_BITS")) for _ in (0, 1)]
 
 
 def _nest(lst, shape):
@@ -228,6 +243,10 @@ class FrameDecoder:
         self.pal_sizes = [[[0] * cols for _ in range(rows)] for _ in (0, 1)]
         self.pal_colors = [[[None] * cols for _ in range(rows)]
                            for _ in (0, 1)]
+        # intra block copy: which blocks copy, their DVs, what is decoded
+        self.is_inter = [[0] * cols for _ in range(rows)]
+        self.dvs = [[(0, 0)] * cols for _ in range(rows)]
+        self.written = [[0] * cols for _ in range(rows)]
         self.tx_types = {}
         self.sb4 = 32 if seq.sb128 else 16
         self.sb_size = BLOCK_128X128 if seq.sb128 else BLOCK_64X64
@@ -500,10 +519,78 @@ class FrameDecoder:
         if not f.seg_id_pre_skip:
             b.seg = self._segment_id(b)
         b.lossless = f.lossless[b.seg]
-        if not (b.skip or f.coded_lossless or not self.s.enable_cdef):
+        if not (b.skip or f.coded_lossless or not self.s.enable_cdef or
+                f.allow_intrabc):
             self._read_cdef(b)
         self._delta_q_lf(b)
         self.read_deltas = 0
+        b.is_inter = rd.symbol(cdf.intrabc) if f.allow_intrabc else 0
+        if b.is_inter:
+            self._intrabc_info(b)
+        else:
+            self._intra_info(b)
+        self._palette_tokens(b)
+        self._read_tx_size(b)
+        if b.skip:
+            self._reset_block_context(b)
+        for y in range(bh4):
+            ry = r + y
+            for x in range(bw4):
+                cx = c + x
+                self.y_mode[ry][cx] = b.y_mode
+                if b.has_chroma:
+                    self.uv_mode[ry][cx] = b.uv_mode
+                self.mi_size[ry][cx] = bsize
+                self.skips[ry][cx] = b.skip
+                self.seg_ids[ry][cx] = b.seg
+                if not b.var_tx:
+                    self.tx_sizes[ry][cx] = b.tx_size
+                self.pal_sizes[0][ry][cx] = b.pal_y
+                self.pal_sizes[1][ry][cx] = b.pal_uv
+                self.pal_colors[0][ry][cx] = b.pal_colors[0]
+                self.pal_colors[1][ry][cx] = b.pal_colors[1]
+                self.is_inter[ry][cx] = b.is_inter
+                self.dvs[ry][cx] = b.dv
+                self.written[ry][cx] = 1
+        if b.is_inter:
+            self._intrabc_predict(b)
+        self._residual(b)
+
+    def _intrabc_info(self, b):
+        """An intra block copy block: its DV; DC_PRED for the neighbours'
+        mode contexts, no palette, CfL or filter intra."""
+        b.y_mode = b.uv_mode = R.DC_PRED
+        b.angle_y = b.angle_uv = 0
+        b.cfl_u = b.cfl_v = 0
+        b.pal_y = b.pal_uv = 0
+        b.pal_colors = [None, None, None]
+        b.filter_intra = -1
+        dv = av1_intrabc.read_dv(self.r, self.cdf, av1_intrabc.pred_dv(
+            self, b, BLOCK_WH))
+        b.dv = av1_intrabc.clip_dv(self, b, dv, BLOCK_WH)
+
+    def _intrabc_predict(self, b):
+        """compute_prediction of an intrabc block: each plane's block
+        (a subsampled block's chroma whole, with its own DV) copied."""
+        f = self.f
+        for p in range(1 + 2 * b.has_chroma):
+            sx = self.ssx if p else 0
+            sy = self.ssy if p else 0
+            pw4, ph4 = BLOCK_WH[self._plane_bsize(b.size, p)]
+            x, y = (b.c >> sx) * 4, (b.r >> sy) * 4
+            self.frame[p][y:y + 4 * ph4, x:x + 4 * pw4] = \
+                av1_intrabc.predict(self.frame[p], x, y, 4 * pw4, 4 * ph4,
+                                    b.dv, sx, sy,
+                                    ((f.width + sx) >> sx) - 1,
+                                    ((f.height + sy) >> sy) - 1)
+
+    def _intra_info(self, b):
+        """intra_frame_mode_info's intra half: the y mode and angle, the uv
+        mode with CfL alphas and angle, palettes, filter intra."""
+        rd, cdf, f = self.r, self.cdf, self.f
+        r, c, bsize = b.r, b.c, b.size
+        bw4, bh4 = BLOCK_WH[bsize]
+        b.dv = (0, 0)
         above = self.y_mode[r - 1][c] if b.avail_u else 0
         left = self.y_mode[r][c - 1] if b.avail_l else 0
         b.y_mode = rd.symbol(cdf.kf_y[INTRA_MODE_CONTEXT[above]]
@@ -542,26 +629,6 @@ class FrameDecoder:
                 b.pal_y == 0 and max(bw4, bh4) <= 8:
             if rd.symbol(cdf.filter_intra[bsize]):
                 b.filter_intra = rd.symbol(cdf.filter_mode)
-        self._palette_tokens(b)
-        self._read_tx_size(b)
-        if b.skip:
-            self._reset_block_context(b)
-        for y in range(bh4):
-            ry = r + y
-            for x in range(bw4):
-                cx = c + x
-                self.y_mode[ry][cx] = b.y_mode
-                if b.has_chroma:
-                    self.uv_mode[ry][cx] = b.uv_mode
-                self.mi_size[ry][cx] = bsize
-                self.skips[ry][cx] = b.skip
-                self.seg_ids[ry][cx] = b.seg
-                self.tx_sizes[ry][cx] = b.tx_size
-                self.pal_sizes[0][ry][cx] = b.pal_y
-                self.pal_sizes[1][ry][cx] = b.pal_uv
-                self.pal_colors[0][ry][cx] = b.pal_colors[0]
-                self.pal_colors[1][ry][cx] = b.pal_colors[1]
-        self._residual(b)
 
     def _plane_bsize(self, bsize, plane):
         w, h = BLOCK_WH[bsize]
@@ -779,22 +846,84 @@ class FrameDecoder:
 
     # ---------------------------------------------------------- tx size
     def _read_tx_size(self, b):
+        """read_block_tx_size: an intrabc block's transform tree
+        (txfm_split) where it has residual and the frame selects sizes;
+        otherwise the one size, its depth read for an intra block."""
         f = self.f
+        b.var_tx = 0
         if b.lossless:
             b.tx_size = TX_4X4
             return
         mx = MAX_TX_RECT[b.size]
         b.tx_size = mx
-        if b.size > BLOCK_4X4 and f.tx_mode_select:
+        if b.is_inter and not b.skip and f.tx_mode_select and \
+                b.size > BLOCK_4X4:
+            b.var_tx = 1
+            bw4, bh4 = BLOCK_WH[b.size]
+            tw4, th4 = TX_WH[mx][0] >> 2, TX_WH[mx][1] >> 2
+            for row in range(b.r, b.r + bh4, th4):
+                for col in range(b.c, b.c + bw4, tw4):
+                    self._read_var_tx(b, row, col, mx, 0)
+            return
+        if b.size > BLOCK_4X4 and f.tx_mode_select and not b.is_inter:
             depth_max = MAX_TX_DEPTH[b.size]
             tw, th = TX_WH[mx]
             r, c = b.r, b.c
-            aw = TX_WH[self.tx_sizes[r - 1][c]][0] if b.avail_u else 0
-            lh = TX_WH[self.tx_sizes[r][c - 1]][1] if b.avail_l else 0
+            if b.avail_u and self.is_inter[r - 1][c]:
+                aw = BLOCK_WH[self.mi_size[r - 1][c]][0] * 4
+            else:
+                aw = TX_WH[self.tx_sizes[r - 1][c]][0] if b.avail_u else 0
+            if b.avail_l and self.is_inter[r][c - 1]:
+                lh = BLOCK_WH[self.mi_size[r][c - 1]][1] * 4
+            else:
+                lh = TX_WH[self.tx_sizes[r][c - 1]][1] if b.avail_l else 0
             ctx = int(aw >= tw) + int(lh >= th)
             d = self.r.symbol(self.cdf.tx_depth[depth_max - 1][ctx])
             for _ in range(d):
                 b.tx_size = SPLIT_TX[b.tx_size]
+
+    def _read_var_tx(self, b, row, col, tx, depth):
+        """read_var_tx_size: split while txfm_split says so (twice at
+        most), the leaves' sizes into InterTxSizes."""
+        if row >= self.mi_rows or col >= self.mi_cols:
+            return
+        tw4, th4 = TX_WH[tx][0] >> 2, TX_WH[tx][1] >> 2
+        split = 0
+        if tx != TX_4X4 and depth < 2:
+            bw4, bh4 = BLOCK_WH[b.size]
+            above = self._above_tx_w(b, row, col) < TX_WH[tx][0]
+            left = self._left_tx_h(b, row, col) < TX_WH[tx][1]
+            mx = _SQ[min(64, 4 * max(bw4, bh4))]
+            ctx = (TX_SQR_UP[tx] != mx) * 3 + (4 - mx) * 6 + above + left
+            split = self.r.symbol(self.cdf.txfm_split[ctx])
+        if split:
+            sub = SPLIT_TX[tx]
+            sw4, sh4 = TX_WH[sub][0] >> 2, TX_WH[sub][1] >> 2
+            for i in range(0, th4, sh4):
+                for j in range(0, tw4, sw4):
+                    self._read_var_tx(b, row + i, col + j, sub, depth + 1)
+            return
+        for i in range(th4):
+            rw = self.tx_sizes[row + i]
+            for j in range(tw4):
+                rw[col + j] = tx
+        b.tx_size = tx
+
+    def _above_tx_w(self, b, row, col):
+        if row == b.r:
+            if not b.avail_u:
+                return 64
+            if self.skips[row - 1][col] and self.is_inter[row - 1][col]:
+                return BLOCK_WH[self.mi_size[row - 1][col]][0] * 4
+        return TX_WH[self.tx_sizes[row - 1][col]][0]
+
+    def _left_tx_h(self, b, row, col):
+        if col == b.c:
+            if not b.avail_l:
+                return 64
+            if self.skips[row][col - 1] and self.is_inter[row][col - 1]:
+                return BLOCK_WH[self.mi_size[row][col - 1]][1] * 4
+        return TX_WH[self.tx_sizes[row][col - 1]][1]
 
     def _reset_block_context(self, b):
         bw4, bh4 = BLOCK_WH[b.size]
@@ -816,6 +945,9 @@ class FrameDecoder:
         for cy in range(hchunks):
             for cx in range(wchunks):
                 for p in range(1 + 2 * b.has_chroma):
+                    if p == 0 and b.is_inter and not b.lossless:
+                        self._transform_tree(b, cx, cy)
+                        continue
                     if b.lossless:
                         tx = TX_4X4
                     elif p == 0:
@@ -833,6 +965,33 @@ class FrameDecoder:
                             self._transform_block(
                                 b, p, bx, by, tx, x + ((cx << 4) >> sx),
                                 y + ((cy << 4) >> sy))
+
+    def _transform_tree(self, b, cx, cy):
+        """The luma transform blocks of an intrabc block's 64 x 64 chunk:
+        each largest transform split down to its InterTxSizes."""
+        bw4, bh4 = BLOCK_WH[b.size]
+        tw, th = TX_WH[MAX_TX_RECT[b.size]]
+        x0, y0 = (b.c + (cx << 4)) * 4, (b.r + (cy << 4)) * 4
+        for y in range(y0, y0 + min(64, 4 * bh4), th):
+            for x in range(x0, x0 + min(64, 4 * bw4), tw):
+                self._tree(b, x, y, tw, th)
+
+    def _tree(self, b, x, y, w, h):
+        if x >= self.mi_cols * 4 or y >= self.mi_rows * 4:
+            return
+        tx = self.tx_sizes[y >> 2][x >> 2]
+        if w <= TX_WH[tx][0] and h <= TX_WH[tx][1]:
+            self._transform_block(b, 0, x, y, tx, 0, 0)
+        elif w > h:
+            self._tree(b, x, y, w // 2, h)
+            self._tree(b, x + w // 2, y, w // 2, h)
+        elif w < h:
+            self._tree(b, x, y, w, h // 2)
+            self._tree(b, x, y + h // 2, w, h // 2)
+        else:
+            for dy in (0, h // 2):
+                for dx in (0, w // 2):
+                    self._tree(b, x + dx, y + dy, w // 2, h // 2)
 
     def _uv_tx(self, b):
         uv = MAX_TX_RECT[self._plane_bsize(b.size, 1)]
@@ -860,7 +1019,9 @@ class FrameDecoder:
         sbr, sbc = (row & mask) >> sy, (col & mask) >> sx
         step_x, step_y = tw >> 2, th >> 2
         plane = self.frame[p]
-        if (p == 0 and b.pal_y) or (p and b.pal_uv):
+        if b.is_inter:
+            pass                        # predicted whole beforehand
+        elif (p == 0 and b.pal_y) or (p and b.pal_uv):
             cm = b.color_map[0 if p == 0 else 1]
             pal = np.array(b.pal_colors[p], np.int64)
             plane[sy0:sy0 + th, sx0:sx0 + tw] = \
@@ -1157,9 +1318,14 @@ class FrameDecoder:
             ld[y4 + i] = dcc
         return b.eob
 
-    def _tx_set(self, tx):
+    def _tx_set(self, tx, inter=0):
+        """get_tx_set: intra sets 1-2, inter sets 1-3, 0 DCT only."""
         if TX_SQR_UP[tx] > 3:
             return 0
+        if inter:
+            if self.f.reduced_tx_set or TX_SQR_UP[tx] == 3:
+                return 3
+            return 2 if TX_SQR[tx] == 2 else 1
         if TX_SQR_UP[tx] == 3:
             return 0
         if self.f.reduced_tx_set:
@@ -1168,10 +1334,13 @@ class FrameDecoder:
 
     def _read_tx_type(self, b, tx, x4, y4):
         f = self.f
-        st = self._tx_set(tx)
+        st = self._tx_set(tx, b.is_inter)
         t_type = DCT_DCT
         q = qindex(f, b.seg, None) if f.seg_enabled else f.base_q_idx
-        if st > 0 and q > 0:
+        if st > 0 and q > 0 and b.is_inter:
+            t_type = INTER_INV[st - 1][self.r.symbol(
+                self.cdf.inter_tx[st - 1][TX_SQR[tx]])]
+        elif st > 0 and q > 0:
             d = FILTER_TO_DIR[b.filter_intra] if b.filter_intra >= 0 \
                 else b.y_mode
             if st == 1:
@@ -1188,6 +1357,12 @@ class FrameDecoder:
             return DCT_DCT
         if p == 0:
             return self.tx_types[(y4, x4)]
+        if b.is_inter:
+            t_type = self.tx_types[(max(b.r, y4 << self.ssy),
+                                    max(b.c, x4 << self.ssx))]
+            st = self._tx_set(tx, 1)
+            return t_type if st == 1 or t_type in INTER_INV[st - 1] \
+                else DCT_DCT
         t_type = MODE_TO_TXFM[b.uv_mode]
         if t_type not in IN_SET_INTRA[self._tx_set(tx)]:
             return DCT_DCT
@@ -1212,6 +1387,9 @@ class FrameDecoder:
         qa = np.array(b.quant, np.int64).reshape(ah, aw)
         mul = np.full((ah, aw), acq, np.int64)
         mul[0, 0] = dcq
+        level = (f.qm_y, f.qm_u, f.qm_v)[p]
+        if level < 15 and b.plane_tx_type < IDTX:
+            mul = (mul * qmatrix(level, p > 0, TX_ADJ[tx]) + 16) >> 5
         dq = ((np.abs(qa) * mul) & 0xFFFFFF) >> shift
         dq = np.where(qa < 0, -dq, dq)
         dq = np.clip(dq, -(1 << 15), (1 << 15) - 1)
@@ -1220,6 +1398,29 @@ class FrameDecoder:
         res = R.inverse_transform(coef, b.plane_tx_type, tx, tw, th)
         plane[y:y + th, x:x + tw] = np.clip(
             plane[y:y + th, x:x + tw] + res, 0, 255)
+
+
+# the quantizer matrices' offsets in a level's set (libaom's layout: the
+# sizes up to 32 x 32 in transform-size order, each stored by columns)
+QM_OFFSET = {}
+_at = 0
+for _t, (_w, _h) in enumerate(TX_WH):
+    if TX_ADJ[_t] == _t:
+        QM_OFFSET[_t] = _at
+        _at += _w * _h
+_QM = []
+
+
+def qmatrix(level: int, chroma: bool, tx: int) -> np.ndarray:
+    """The (h, w) dequantization weights of matrix `level` (0-14) for the
+    plane type and the transform size `tx` (at most 32 x 32), in 1/32."""
+    if not _QM:
+        _QM.append(np.fromfile(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "av1_qm.bin"), np.uint8).reshape(
+                15, 2, _at).astype(np.int64))
+    w, h = TX_WH[tx]
+    at = QM_OFFSET[tx]
+    return _QM[0][level, int(chroma), at:at + w * h].reshape(w, h).T
 
 
 def _psum(cdf, parts):
@@ -1270,11 +1471,19 @@ def _neg_deinterleave(diff, ref, mx):
 
 def decode_frame(seq, frame, tiles, data, path):
     """The frame's planes: the tiles' reconstruction, deblocked, CDEF,
-    restored (each in-loop filter as the frame header sets it), cropped."""
+    restored (each in-loop filter as the frame header sets it), cropped,
+    with the film grain the header carries."""
     d = FrameDecoder(seq, frame, path)
     for tr, tc, start, end in tiles:
         d.decode_tile(data, start, end, tr, tc)
-    return filter_frame(d, seq, frame)
+    return add_grain(filter_frame(d, seq, frame), seq, frame)
+
+
+def add_grain(planes, seq, frame):
+    """The output planes: film grain synthesis where the frame has it."""
+    if frame.grain is None:
+        return planes
+    return av1_filmgrain.apply_grain(planes, frame.grain, seq)
 
 
 def filter_frame(d, seq, frame, stages=None, times=None):
@@ -1290,7 +1499,7 @@ def filter_frame(d, seq, frame, stages=None, times=None):
     t1 = time.perf_counter()
     if stages is not None:
         stages.append([p.copy() for p in planes])
-    if seq.enable_cdef and not frame.coded_lossless:
+    if seq.enable_cdef and not (frame.coded_lossless or frame.allow_intrabc):
         planes, _ = av1_cdef.cdef(planes, frame, seq,
                                   np.array(d.skips, bool), d.cdef_idx)
     t2 = time.perf_counter()

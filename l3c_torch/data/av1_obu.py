@@ -5,11 +5,14 @@ segmentation, delta, loop filter, CDEF and loop restoration parameters,
 then the tile groups' tile sizes.
 
 `parse_av1(data, path)` returns the sequence header, the frame header
-and the tiles of the first shown frame. What this decoder does not
-decode yet (superres, per-block loop filter deltas with the deblocking
-filter on, film grain, intra block copy, quantizer matrices, bit depths
-above 8, inter frames) is refused by name
-with "... is not decoded by the port yet"; a bitstream dav1d cannot
+and the tiles of the first shown frame. The header keeps what the tools
+it names need: the quantizer matrix levels (`using_qmatrix`, `qm_y`,
+`qm_u`, `qm_v`), `allow_intrabc` (which switches the loop filter, CDEF
+and loop restoration off and reads no per-block loop filter deltas) and
+the film grain parameters (`frame.grain`, None without grain). What this
+decoder does not decode yet (superres, per-block loop filter deltas with
+the deblocking filter on, bit depths above 8, inter frames) is refused by
+name with "... is not decoded by the port yet"; a bitstream dav1d cannot
 parse is refused as damaged.
 """
 from __future__ import annotations
@@ -101,12 +104,12 @@ def leb128(data: bytes, at: int, path: str) -> Tuple[int, int]:
 
 
 def obus(data: bytes, path: str):
-    """(type, temporal_id, spatial_id, start, end) of each OBU."""
+    """(type, temporal_id, spatial_id, start, end) of each OBU; as dav1d
+    without strict standard compliance (libavif's setting), a set
+    forbidden bit is passed over."""
     at = 0
     while at < len(data):
-        h = data[at]
-        if h & 0x80:
-            raise damaged(path, "the OBU forbidden bit is set")
+        h = data[at]                    # the forbidden bit is not checked
         typ, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
         at += 1
         tid = sid = 0
@@ -335,7 +338,7 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
     else:
         f.allow_screen_content_tools = s.force_screen_content_tools
     if f.allow_screen_content_tools and s.force_integer_mv == SELECT:
-        b.f(1)
+        b.f(1)                          # force_integer_mv: 1 in intra frames
     if s.frame_id_numbers:
         b.f(s.frame_id_length)
     override = 0 if s.reduced else b.f(1)
@@ -370,8 +373,6 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
     f.allow_intrabc = 0
     if f.allow_screen_content_tools:
         f.allow_intrabc = b.f(1)
-    if f.allow_intrabc:
-        raise not_yet(path, "intra block copy", "dav1d's intrabc")
     if not (s.reduced or f.disable_cdf_update):
         b.f(1)                          # disable_frame_end_update_cdf
     _tile_info(b, f, s.sb128)
@@ -385,8 +386,11 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
         f.dq = [[f.dq[0][0], 0], [udc, uac], [vdc, vac]]
     else:
         f.dq = [[f.dq[0][0], 0], [0, 0], [0, 0]]
-    if b.f(1):
-        raise not_yet(path, "quantizer matrices", "dav1d's using_qmatrix")
+    f.using_qmatrix = b.f(1)
+    f.qm_y = f.qm_u = f.qm_v = 15
+    if f.using_qmatrix:
+        f.qm_y, f.qm_u = b.f(4), b.f(4)
+        f.qm_v = b.f(4) if s.separate_uv_delta_q else f.qm_u
     # segmentation_params
     f.seg_enabled = b.f(1)
     f.seg_feature = [[None] * 8 for _ in range(8)]
@@ -415,7 +419,7 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
     f.delta_q_present = b.f(1) if f.base_q_idx > 0 else 0
     f.delta_q_res = b.f(2) if f.delta_q_present else 0
     f.delta_lf_present = f.delta_lf_res = f.delta_lf_multi = 0
-    if f.delta_q_present:
+    if f.delta_q_present and not f.allow_intrabc:
         f.delta_lf_present = b.f(1)
         if f.delta_lf_present:
             f.delta_lf_res = b.f(2)
@@ -427,7 +431,7 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
                           f.dq[1] == [0, 0] and f.dq[2] == [0, 0])
     f.coded_lossless = all(f.lossless)
     # loop_filter_params, cdef_params, lr_params (all off when every
-    # segment is lossless)
+    # segment is lossless, or with intra block copy)
     f.lf_level = [0, 0, 0, 0]
     f.lf_sharpness = 0
     f.lf_delta_enabled = 0
@@ -437,7 +441,7 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
     f.cdef_y, f.cdef_uv = [(0, 0)], [(0, 0)]      # (primary, secondary)
     f.lr_type = [RESTORE_NONE] * 3
     f.lr_unit_size = [0, 0, 0]
-    if not f.coded_lossless:
+    if not (f.coded_lossless or f.allow_intrabc):
         f.lf_level[:2] = [b.f(6), b.f(6)]
         if s.num_planes > 1 and (f.lf_level[0] or f.lf_level[1]):
             f.lf_level[2:] = [b.f(6), b.f(6)]
@@ -478,9 +482,58 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
                 f.lr_unit_size = [size, size >> uv_shift, size >> uv_shift]
     f.tx_mode_select = 0 if f.coded_lossless else b.f(1)
     f.reduced_tx_set = b.f(1)
+    f.grain = None
     if s.film_grain_present and f.show_frame and b.f(1):
-        raise not_yet(path, "film grain", "dav1d's film grain synthesis")
+        f.grain = _film_grain_params(b, s)
     return f
+
+
+def _film_grain_params(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
+    """film_grain_params() after apply_grain of a shown intra frame (whose
+    update_grain is implied): the points as (value, scaling) pairs, the
+    AR coefficients less 128, the multipliers and offsets as coded."""
+    g = SimpleNamespace(seed=b.f(16))
+    g.y_points = _points(b, 14)
+    g.chroma_from_luma = 0 if s.mono else b.f(1)
+    g.cb_points, g.cr_points = [], []
+    if not (s.mono or g.chroma_from_luma or
+            (s.ssx and s.ssy and not g.y_points)):
+        g.cb_points = _points(b, 10)
+        g.cr_points = _points(b, 10)
+        if s.ssx and s.ssy and bool(g.cb_points) != bool(g.cr_points):
+            raise damaged(b.path, "film grain on one 4:2:0 chroma plane")
+    g.scaling_shift = b.f(2) + 8
+    g.ar_lag = b.f(2)
+    n_luma = 2 * g.ar_lag * (g.ar_lag + 1)
+    n_chroma = n_luma + (1 if g.y_points else 0)
+    g.ar_y = [b.f(8) - 128 for _ in range(n_luma)] if g.y_points else []
+    g.ar_cb = [b.f(8) - 128 for _ in range(n_chroma)] \
+        if g.chroma_from_luma or g.cb_points else [0] * n_chroma
+    g.ar_cr = [b.f(8) - 128 for _ in range(n_chroma)] \
+        if g.chroma_from_luma or g.cr_points else [0] * n_chroma
+    g.ar_shift = b.f(2) + 6
+    g.grain_scale_shift = b.f(2)
+    g.cb_mult = g.cb_luma_mult = g.cb_offset = 0
+    g.cr_mult = g.cr_luma_mult = g.cr_offset = 0
+    if g.cb_points:
+        g.cb_mult, g.cb_luma_mult, g.cb_offset = b.f(8), b.f(8), b.f(9)
+    if g.cr_points:
+        g.cr_mult, g.cr_luma_mult, g.cr_offset = b.f(8), b.f(8), b.f(9)
+    g.overlap = b.f(1)
+    g.clip_restricted = b.f(1)
+    return g
+
+
+def _points(b: Bits, most: int):
+    """A scaling function's points, (value, scaling) each; dav1d refuses
+    more than `most` and values that do not increase."""
+    n = b.f(4)
+    if n > most:
+        raise damaged(b.path, f"{n} film grain points")
+    pts = [(b.f(8), b.f(8)) for _ in range(n)]
+    if any(a[0] >= c[0] for a, c in zip(pts, pts[1:])):
+        raise damaged(b.path, "film grain points do not increase")
+    return pts
 
 
 def qindex(f: SimpleNamespace, seg: int, current) -> int:
@@ -506,9 +559,8 @@ def parse_av1(data: bytes, path: str):
             if seq is None:
                 seq = sequence_header(Bits(data, at, end, path))
             continue
-        if typ in (OBU_TEMPORAL_DELIMITER, OBU_METADATA, OBU_PADDING,
-                   OBU_REDUNDANT_FRAME_HEADER):
-            continue
+        if typ not in (OBU_FRAME, OBU_FRAME_HEADER, OBU_TILE_GROUP):
+            continue            # dav1d skips the others, reserved types too
         if seq is None:
             raise damaged(path, "a frame comes before the sequence header")
         idc = seq.op_idc[0]
@@ -525,12 +577,9 @@ def parse_av1(data: bytes, path: str):
                 continue
             b.byte_alignment()
             at = b.pos
-        elif typ == OBU_TILE_GROUP:
-            if frame is None:
-                raise damaged(path, "a tile group comes before its frame "
-                                    "header")
-        else:
-            continue
+        elif frame is None:
+            raise damaged(path, "a tile group comes before its frame "
+                                "header")
         tiles += _tile_group(data, at, end, frame, path)
         if len(tiles) == frame.tile_cols * frame.tile_rows:
             return seq, frame, tiles

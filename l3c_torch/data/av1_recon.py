@@ -10,7 +10,13 @@ chroma-from-luma step. The inverse transforms (DCT 4-64, ADST 4-16 with
 their flips, identity 4-32, the lossless WHT) run one 1-D pass over all
 rows (or all columns) of a block at once: each of the `n` inputs is a
 numpy vector. The DCT and ADST butterflies are the ones libaom and dav1d
-use (12-bit cosines, a rounding after every rotation).
+use (12-bit cosines, a rounding after every rotation), every sum and
+difference clipped to 16 bits as dav1d's 8-bit transforms clip it
+(`itx_1d.c`; a valid stream never reaches the clip, a damaged one can).
+The clips run only where a pass could reach them: no sum or difference
+of the DCT or ADST networks weighs an input by more than 1
+(`test_torch_port_av1.py` measures it), so a pass whose inputs' absolute
+sum stays `MARGIN` below 2^15 runs unclipped.
 """
 from __future__ import annotations
 
@@ -22,6 +28,17 @@ from . import av1_tables as T
 
 COS = T.COS128
 SINPI = T.SINPI
+LO, HI = -(1 << 15), (1 << 15) - 1       # dav1d's 8-bit intermediate range
+MARGIN = 512            # past the roundings a pass's values can gather
+
+
+def _clip(v):
+    return np.clip(v, LO, HI)
+
+
+def _keep(v):
+    return v
+
 
 # modes (V_PRED .. D67_PRED, 1-8, are the directional ones)
 DC_PRED, SMOOTH, SMOOTH_V, SMOOTH_H, UV_CFL = 0, 9, 10, 11, 13
@@ -256,14 +273,15 @@ def _hb(w0, a, w1, b):
     return (w0 * a + w1 * b + 2048) >> 12
 
 
-def idct(x: List) -> List:
+def idct(x: List, clip=_keep) -> List:
     """The DCT of len(x) = 2^n inputs (n = 1..6): even half recursively,
-    odd half through libaom's butterfly network."""
+    odd half through libaom's butterfly network; `clip` (none by default)
+    after each sum and difference."""
     n = len(x)
     c32 = COS[32]
     if n == 2:
         return [_hb(c32, x[0], c32, x[1]), _hb(c32, x[0], -c32, x[1])]
-    e = idct(x[0::2])
+    e = idct(x[0::2], clip)
     m = n // 2
     bits = m.bit_length() - 1
     o = [x[2 * _brev(bits, j) + 1] for j in range(m)]
@@ -277,11 +295,11 @@ def idct(x: List) -> List:
         o[m - 1 - j] = _hb(COS[b], p, COS[a], q)
     g = 2
     while g < m:
-        _bfly(o, g)
+        _bfly(o, g, clip)
         _odd_rot(o, g, m)
         g *= 2
-    return [e[i] + o[m - 1 - i] for i in range(m)] + \
-        [e[m - 1 - i] - o[i] for i in range(m)]
+    return [clip(e[i] + o[m - 1 - i]) for i in range(m)] + \
+        [clip(e[m - 1 - i] - o[i]) for i in range(m)]
 
 
 def _brev(bits: int, v: int) -> int:
@@ -292,15 +310,15 @@ def _brev(bits: int, v: int) -> int:
     return r
 
 
-def _bfly(o, g):
+def _bfly(o, g, clip):
     for t in range(len(o) // g):
         s = t * g
         for i in range(g // 2):
             a, b = o[s + i], o[s + g - 1 - i]
             if t % 2 == 0:
-                o[s + i], o[s + g - 1 - i] = a + b, a - b
+                o[s + i], o[s + g - 1 - i] = clip(a + b), clip(a - b)
             else:
-                o[s + i], o[s + g - 1 - i] = b - a, a + b
+                o[s + i], o[s + g - 1 - i] = clip(b - a), clip(a + b)
 
 
 def _odd_rot(o, g, m):
@@ -349,7 +367,7 @@ _ADST_OUT = {8: (0, -4, 6, -2, 3, -7, 5, -1),
                   -1)}
 
 
-def iadst(x: List) -> List:
+def iadst(x: List, clip=_keep) -> List:
     n = len(x)
     if n == 4:
         return iadst4(x)
@@ -368,7 +386,7 @@ def iadst(x: List) -> List:
         for s in range(0, n, 2 * span):
             for i in range(span):
                 p, q = b[s + i], b[s + i + span]
-                b[s + i], b[s + i + span] = p + q, p - q
+                b[s + i], b[s + i + span] = clip(p + q), clip(p - q)
         # rotations on the second half of each block of 2 * span
         u = 64 // span
         npairs = span // 2
@@ -408,12 +426,15 @@ TX_KINDS = ((DCT, DCT), (ADST, DCT), (DCT, ADST), (ADST, ADST),
 ROW_SHIFT = (0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2)
 
 
-def _one_d(kind, vecs):
-    if kind == DCT:
-        return idct(vecs)
+def _one_d(kind, vecs, l1):
+    """One pass; `l1`, the largest absolute sum of a transform's inputs,
+    says whether the network's clips can act."""
     if kind == IDTX:
         return iidentity(vecs)
-    return iadst(vecs)
+    clip = _clip if l1 > HI - MARGIN else _keep
+    if kind == DCT:
+        return idct(vecs, clip)
+    return iadst(vecs, clip)
 
 
 def inverse_transform(coef: np.ndarray, tx_type: int, tx_size: int,
@@ -426,7 +447,8 @@ def inverse_transform(coef: np.ndarray, tx_type: int, tx_size: int,
     c = coef[:rows].astype(np.int64)
     if abs(lw - lh) == 1:
         c = (c * 2896 + 2048) >> 12
-    out = _one_d(hk, [c[:, j] for j in range(w)])
+    out = _one_d(hk, [c[:, j] for j in range(w)],
+                 int(np.abs(c).sum(1).max()))
     r = np.stack(out, 1)
     sh = ROW_SHIFT[tx_size]
     if sh:
@@ -434,7 +456,7 @@ def inverse_transform(coef: np.ndarray, tx_type: int, tx_size: int,
     r = np.clip(r, -32768, 32767)
     if rows < h:
         r = np.concatenate([r, np.zeros((h - rows, w), np.int64)])
-    out = _one_d(vk, [r[i] for i in range(h)])
+    out = _one_d(vk, [r[i] for i in range(h)], int(np.abs(r).sum(0).max()))
     res = (np.stack(out, 0) + 8) >> 4
     if hk == FLIPADST:
         res = res[:, ::-1]

@@ -9,9 +9,12 @@ the latter from `idat`, several extents), `iprp` / `ipco` / `ipma`
 (`ispe`, `av1C`, `pixi`, `colr` nclx or ICC, `auxC`, `irot`, `imir`,
 `clap`, `a1op`, `lsel`) and `iref` (`auxl`, `prem`, `dimg`). The primary
 item's OBUs are decoded; `irot` / `imir` / `clap` are not applied (Pillow
-turns orientation into EXIF, which the loader ignores), and an alpha item
-is not decoded (convert("RGB") drops it) unless the file marks it
-premultiplied, which the port does not decode yet.
+turns orientation into EXIF, which the loader ignores). An alpha item is
+decoded as libavif decodes it for Pillow's RGBA (a damaged one fails the
+file); convert("RGB") drops it, unless the file marks it premultiplied
+(`prem`): then libavif converts YUV to RGB and divides the colour by the
+alpha plane through libyuv's ARGBUnattenuate (`unpremultiply`), whose
+result convert("RGB") keeps.
 """
 from __future__ import annotations
 
@@ -143,7 +146,23 @@ def parse(blob: bytes, path: str) -> SimpleNamespace:
             if _prop(m, m.primary, typ) is None:
                 raise _refuse(path, "the primary item has no "
                                     f"{typ.decode()} property")
+        _check_depths(m, m.primary, path)
+    alpha = _alpha_of(m, m.primary)
+    if alpha is not None and m.items[alpha].type == b"av01":
+        _check_depths(m, alpha, path)
     return m
+
+
+def _check_depths(m: SimpleNamespace, item: int, path: str):
+    """avifDecoderItemValidateProperties: each pixi depth is av1C's."""
+    av1c, pixi = _prop(m, item, b"av1C"), _prop(m, item, b"pixi")
+    if av1c is None:
+        raise _refuse(path, f"item {item} has no av1C property")
+    b = av1c[2]             # twelve_bit first, as libavif reads it
+    depth = 12 if b & 0x20 else 10 if b & 0x40 else 8
+    if pixi is not None and any(d != depth for d in pixi[5:5 + pixi[4]]):
+        raise _refuse(path, f"item {item}'s pixi depths are not its av1C "
+                            f"depth {depth}")
 
 
 def _meta(st: _Stream, m: SimpleNamespace, path: str):
@@ -274,8 +293,8 @@ def _property(typ: bytes, body: bytes, path: str):
             raise _refuse(path, "Box[av1C] has a bad marker or version")
     elif typ == b"colr":
         kind = st.read(4)
-        if kind == b"nclx":
-            st.read(7)
+        if kind == b"nclx" and st.read(7)[6] & 0x7F:
+            raise _refuse(path, "Box[colr] has nonzero reserved bits")
     elif typ in (b"irot", b"imir"):
         if st.uint(1) & 0xFC if typ == b"irot" else 0:
             raise _refuse(path, "Box[irot] has reserved bits set")
@@ -323,11 +342,24 @@ def _prop(m: SimpleNamespace, item: int, typ: bytes, nclx=None):
     return None
 
 
+def _skipped(m: SimpleNamespace, item: int) -> bool:
+    """libavif's avifDecoderItemShouldBeSkipped: no data, an essential
+    property it does not know, a type it cannot decode, a thumbnail."""
+    it = m.items.get(item)
+    return it is None or not it.extents or not sum(
+        ln for _, ln in it.extents) or it.unsupported or it.type not in (
+            b"av01", b"grid") or any(t == b"thmb" and s == item
+                                     for t, s, _ in m.refs)
+
+
 def _alpha_of(m: SimpleNamespace, item: int):
+    """The item's alpha, as libavif finds it: an auxl item whose auxC names
+    alpha, skipping the items libavif skips."""
     for typ, src, dst in m.refs:
         if typ == b"auxl" and item in dst and (_prop(m, src, b"auxC") or
                                                b"")[4:].startswith(
-                                                   _ALPHA_URNS):
+                                                   _ALPHA_URNS) and \
+                not _skipped(m, src):
             return src
     return None
 
@@ -339,6 +371,28 @@ def avif_header(blob: bytes, path: str) -> Tuple[str, int, int]:
     ispe = _prop(m, m.primary, b"ispe")
     w, h = struct.unpack(">II", ispe[4:12])
     return ("RGBA" if _alpha_of(m, m.primary) is not None else "RGB"), h, w
+
+
+def _inverse_alpha() -> np.ndarray:
+    """libyuv's fixed_invtbl8: 65536 / a in 8.8 fixed point (0 for 0,
+    0xFFFF for 1, 0x100 for 255)."""
+    t = np.array([0, 0xFFFF] + [0x10000 // a for a in range(2, 255)] +
+                 [0x100], np.int64)
+    return t
+
+
+_INV_ALPHA = _inverse_alpha()
+
+
+def unpremultiply(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    """libyuv's ARGBUnattenuate (libavif's avifRGBImageUnpremultiplyAlpha
+    of 8-bit RGBA): each colour c of a pixel with alpha a becomes
+    (c * 257 * inv[a]) >> 16 clamped to 0..255, the product a signed
+    32-bit one (at alpha 1, colours from 128 wrap negative and give 0)."""
+    ia = _INV_ALPHA[alpha.astype(np.int64)][..., None]
+    p = rgb.astype(np.int64) * 257 * ia
+    p = np.where(p >= 1 << 31, p - (1 << 32), p)
+    return np.clip(p >> 16, 0, 255).astype(np.uint8)
 
 
 def _item_bytes(blob: bytes, m: SimpleNamespace, item: int, path: str):
@@ -371,11 +425,43 @@ def decode_avif(blob: bytes, path: str) -> np.ndarray:
     ispe = _prop(m, item, b"ispe")
     w, h = struct.unpack(">II", ispe[4:12])
     alpha = _alpha_of(m, item)
-    if alpha is not None and any(t == b"prem" and (s == alpha or
-                                                   alpha in d)
-                                 for t, s, d in m.refs):
-        raise ValueError(f"{path}: AVIF with premultiplied alpha is not "
-                         "decoded by the port yet (libavif's prem)")
+    planes, seq = _decode_item(blob, m, item, w, h, path)
+    mc, full_range = colour(m, item, seq)
+    rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
+                          full_range, path)
+    if alpha is not None:
+        ispe = _prop(m, alpha, b"ispe")
+        if ispe is None or m.items[alpha].type != b"av01":
+            raise _refuse(path, "its alpha item is not an AV1 image with "
+                                "a size")
+        aw, ah = struct.unpack(">II", ispe[4:12])
+        if (aw, ah) != (w, h):
+            raise ValueError(f"{path}: AVIF with an alpha item of another "
+                             "size than its image is not decoded by the "
+                             "port yet (libavif's alpha scaling)")
+        # libavif decodes the alpha item whatever its use (a damaged one
+        # fails the file); convert("RGB") keeps only a premultiplied
+        # image's division by it
+        a = _decode_item(blob, m, alpha, w, h, path)[0][0]
+        if any(t == b"prem" and (s == alpha or alpha in d)
+               for t, s, d in m.refs):
+            rgb = unpremultiply(rgb, a)
+    return rgb
+
+
+def colour(m: SimpleNamespace, item: int, seq: SimpleNamespace):
+    """(matrix coefficients, full range) as libavif takes them: from the
+    item's colr nclx box where it has one, else from the sequence
+    header."""
+    nclx = _prop(m, item, b"colr", b"nclx")
+    if nclx is not None and len(nclx) >= 11:
+        return struct.unpack(">H", nclx[8:10])[0], nclx[10] >> 7
+    return seq.mc, seq.full_range
+
+
+def _decode_item(blob: bytes, m: SimpleNamespace, item: int, w: int,
+                 h: int, path: str):
+    """(planes, sequence header) of an AV1 item of size w x h."""
     data = _item_bytes(blob, m, item, path)
     seq, frame, tiles = av1_obu.parse_av1(data, path)
     if seq.bit_depth != 8:
@@ -396,8 +482,4 @@ def decode_avif(blob: bytes, path: str) -> np.ndarray:
     except (IndexError, KeyError) as e:
         raise av1_obu.damaged(path, f"its tile data breaks the decoder ("
                                     f"{type(e).__name__})") from None
-    nclx = _prop(m, item, b"colr", b"nclx")
-    mc = struct.unpack(">H", nclx[8:10])[0] if nclx is not None and \
-        len(nclx) >= 11 else seq.mc
-    return avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
-                           seq.full_range, path)
+    return planes, seq

@@ -16,7 +16,8 @@ through libavif's own grey path: Y as it is in full range, in limited
 range avifLimitedToFullY's integer rescaling of 16..235. The
 identity matrix (MC 0, lossless RGB) goes through libavif's own path:
 G = Y, B = U, R = V in full range. Other matrices, and identity in
-limited range, are not decoded by the port yet.
+limited range, are not decoded by the port yet; the ones libavif never
+converts (`refused_matrix`) are refused as Pillow refuses them.
 """
 from __future__ import annotations
 
@@ -79,20 +80,33 @@ def upsample_420(c: np.ndarray, h: int, w: int) -> np.ndarray:
     return out
 
 
+def refused_matrix(mc: int, full_range: int, subsampled: bool) -> bool:
+    """The matrix coefficients libavif 1.3.0 converts to RGB in no case
+    (avifPrepareReformatState: reserved 3, the constant-luminance and
+    ICtCp ones, YCgCo-R at 8 bits, YCgCo in limited range, values past
+    its list; identity with subsampled chroma), grey images included."""
+    return mc == 3 or mc in (10, 11, 13, 14, 16, 17) or mc >= 18 or (
+        mc == 8 and not full_range) or (mc == 0 and subsampled)
+
+
 def to_rgb(planes, ssx: int, ssy: int, mono: int, mc: int,
            full_range: int, path: str) -> np.ndarray:
     y = planes[0].astype(np.int32)
     h, w = y.shape
+    if refused_matrix(mc, full_range, not mono and (ssx or ssy)):
+        raise ValueError(f"{path}: AVIF: matrix coefficients {mc} "
+                         f"{'' if full_range else 'in limited range '}"
+                         "(libavif refuses to convert them, and so does "
+                         "Pillow)")
     if mono:
         if not full_range:
             y = ((np.clip(y, 16, 235) - 16) * 255 + 109) // 219
         return np.repeat(y.astype(np.uint8)[..., None], 3, -1)
     if mc == 0:
-        if ssx or ssy or not full_range:
+        if not full_range:
             raise ValueError(f"{path}: AVIF with the identity matrix "
-                             f"{'in limited range ' if not full_range else ''}"
-                             "is not decoded by the port yet (libavif's "
-                             "built-in conversion)")
+                             "in limited range is not decoded by the port "
+                             "yet (libavif's built-in conversion)")
         return np.stack([planes[2], planes[0], planes[1]], -1).astype(
             np.uint8)
     if mc in (2, 5, 6):                 # unspecified: libavif takes BT.601

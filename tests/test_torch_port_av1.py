@@ -9,7 +9,8 @@ the frame-header refusals on AV1 headers written here.
 from the library: each table is found by its leading values and read in
 the layout its owner keeps (aom's CDFs as 32768 - cdf with the closing 0
 and a counter, padded to the array's largest alphabet; dav1d's as its
-inverse CDF and counter; the others as their C arrays).
+inverse CDF and counter; the others as their C arrays); and
+l3c_torch/data/av1_qm.bin, libaom's dequantization matrices.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from l3c_torch.data.av1_symbol import SymbolReader
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TABLES = os.path.join(ROOT, "l3c_torch", "data", "av1_tables.py")
+QM = os.path.join(ROOT, "l3c_torch", "data", "av1_qm.bin")
 
 
 def libavif():
@@ -66,6 +68,11 @@ _CDF_LAYOUT = {
     "DELTA_Q": ("aom", 5, 4), "DELTA_LF": ("aom", 5, 4),
     "RESTORE_SWITCHABLE": ("dav1d", 4, 3), "RESTORE_WIENER": ("dav1d", 2, 2),
     "RESTORE_SGRPROJ": ("dav1d", 2, 2),
+    "INTRABC": ("aom", 3, 2), "TXFM_SPLIT": ("aom", 3, 2),
+    "INTER_TX_SET1": ("aom", 17, 16), "INTER_TX_SET2": ("aom", 17, 12),
+    "INTER_TX_SET3": ("aom", 17, 2), "MV_JOINT": ("aom", 5, 4),
+    "MV_CLASS": ("aom", 12, 11), "MV_CLASS0": ("aom", 3, 2),
+    "MV_SIGN": ("aom", 3, 2), "MV_BITS": ("aom", 3, 2),
 }
 # the other tables: (numpy type, count)
 _PLAIN = {"DC_QLOOKUP": ("<i2", 256), "AC_QLOOKUP": ("<i2", 256),
@@ -75,7 +82,8 @@ _PLAIN = {"DC_QLOOKUP": ("<i2", 256), "AC_QLOOKUP": ("<i2", 256),
           "X_BY_XPLUS1": ("<i4", 256), "ONE_BY_X": ("<i4", 25),
           "CDEF_UV_DIR": ("u1", 16), "CDEF_DIRECTIONS": ("i1", 24),
           "CDEF_PRI_TAPS": ("<i4", 4), "CDEF_DIV_TABLE": ("<i4", 9),
-          "WIENER_TAPS_MID": ("<i4", 3)}
+          "WIENER_TAPS_MID": ("<i4", 3),
+          "GAUSSIAN_SEQUENCE": ("<i2", 2048)}
 # constants neither library keeps as an array (macros, inline code): the
 # specification's values, kept by the rewrite
 _SPEC = {"WIENER_TAPS_MIN": (-5, -23, -17), "WIENER_TAPS_MAX": (10, 8, 46),
@@ -344,6 +352,48 @@ def test_wht_round_trips_bit_exactly():
         assert np.array_equal(np.array(got), res)
 
 
+@pytest.mark.parametrize("kind, n", [("dct", 4), ("dct", 8), ("dct", 16),
+                                     ("dct", 32), ("dct", 64), ("adst", 8),
+                                     ("adst", 16)])
+def test_transform_sums_weigh_inputs_by_at_most_one(kind, n):
+    """Every sum and difference of the DCT / ADST networks (where dav1d
+    clips to 16 bits) weighs each input by at most 1: driven by one input
+    at 2^24 at a time, none exceeds it. So a pass whose inputs' absolute
+    sum is below 2^15 - MARGIN cannot reach the clip, and
+    `inverse_transform` skips it there."""
+    seen = []
+
+    def record(v):
+        seen.append(int(np.abs(v).max()))
+        return v
+    fn = av1_recon.idct if kind == "dct" else av1_recon.iadst
+    scale = 1 << 24
+    for j in range(n):
+        for sign in (1, -1):
+            seen.clear()
+            fn([np.array([sign * scale * (i == j)], np.int64)
+                for i in range(n)], record)
+            assert seen and max(seen) <= scale, (j, sign)
+
+
+def test_clipped_and_unclipped_passes_agree_below_the_margin():
+    """Seeded blocks whose rows sum below the margin: the clipped and the
+    unclipped networks give the same values; above it the clips act."""
+    r = np.random.RandomState(12)
+    lim = av1_recon.HI - av1_recon.MARGIN
+    for n, fn in ((8, av1_recon.idct), (32, av1_recon.idct),
+                  (16, av1_recon.iadst)):
+        x = r.randint(-4000, 4001, (50, n))
+        x = x * (lim // np.abs(x).sum(1, keepdims=True).clip(1)) // 2
+        vec = [x[:, j] for j in range(n)]
+        a = fn(vec, av1_recon._clip)
+        b = fn(vec, av1_recon._keep)
+        assert all(np.array_equal(u, v) for u, v in zip(a, b))
+        big = [np.full(50, 30000 - 100 * j, np.int64) for j in range(n)]
+        assert any(not np.array_equal(u, v) for u, v in zip(
+            fn(big, av1_recon._clip), fn(big, av1_recon._keep)))
+
+
 def test_flipped_adst_is_the_adst_reversed():
     r = np.random.RandomState(9)
     c = np.zeros((8, 8), np.int64)
@@ -437,6 +487,18 @@ FILTERS_NOW = {
         [av1_obu.RESTORE_SWITCHABLE, 0, 0], [64, 64, 64])}
 
 
+# and the tools decoded since: film grain (its parameters), quantizer
+# matrices (the levels), intra block copy (which turns the filters off)
+TOOLS_NOW = {
+    "film grain": lambda f: (f.grain.seed, f.grain.y_points,
+                             f.grain.cb_points, f.grain.overlap) == (
+                                 0, [], [], 0),
+    "quantizer matrices": lambda f: (f.using_qmatrix, f.qm_y, f.qm_u,
+                                     f.qm_v) == (1, 0, 0, 0),
+    "intra block copy": lambda f: f.allow_intrabc == 1 and
+    f.lf_level == [0, 0, 0, 0] and f.lr_type == [0, 0, 0]}
+
+
 @pytest.mark.parametrize("kw, what, tool", [
     (dict(lf=(3, 0)), "the deblocking loop filter", "levels 3, 0"),
     (dict(cdef=(2, 1)), "CDEF", "dav1d's CDEF filter"),
@@ -446,9 +508,12 @@ FILTERS_NOW = {
     (dict(qmatrix=1), "quantizer matrices", "using_qmatrix"),
     (dict(screen=1, intrabc=1), "intra block copy", "intrabc")])
 def test_tools_not_decoded_yet_are_refused_by_name(kw, what, tool):
-    if what in FILTERS_NOW:
+    """Superres is refused by name; the filters and the tools decoded
+    since parse, each keeping what it sets."""
+    now = dict(FILTERS_NOW, **TOOLS_NOW)
+    if what in now:
         _, f, _ = av1_obu.parse_av1(av1_still(**kw), "x")
-        assert FILTERS_NOW[what](f)
+        assert now[what](f)
         return
     with pytest.raises(ValueError) as e:
         av1_obu.parse_av1(av1_still(**kw), "x")
@@ -520,14 +585,128 @@ def test_spec_constants_of_the_filters():
     assert T.ONE_BY_X == tuple((4096 + n // 2) // n for n in range(1, 26))
 
 
+def test_film_grain_points_dav1d_refuses_are_damaged():
+    """dav1d refuses film grain points whose values do not increase, more
+    than 14 luma points, and grain on one 4:2:0 chroma plane only."""
+    def still(fg_bits):
+        blob = bytearray(av1_still(grain=1))
+        head = blob.rfind(bytes([(6 << 3) | 2]))    # the frame OBU
+        at, end = head + 2, head + 2 + blob[head + 1]
+        _, f, _ = av1_obu.parse_av1(bytes(blob), "x")
+        bits = "".join(f"{v:08b}" for v in blob[at:end])
+        cut = _grain_at(bytes(blob))
+        bits = bits[:cut] + fg_bits + bits[cut + len(fg_bits):]
+        blob[at:end] = int(bits, 2).to_bytes(end - at, "big")
+        return bytes(blob)
+    seed = "0" * 16
+    pts = lambda vals: f"{len(vals):04b}" + "".join(  # noqa: E731
+        f"{v:08b}{40:08b}" for v in vals)
+    for fg, why in ((seed + pts([10, 10]), "do not increase"),
+                    (seed + "1111", "15 film grain points"),
+                    (seed + pts([10]) + "0" + pts([20]) + pts([]),
+                     "one 4:2:0 chroma plane")):
+        with pytest.raises(ValueError, match="damaged") as e:
+            av1_obu.parse_av1(still(fg), "x")
+        assert why in str(e.value)
+
+
+def _grain_at(blob):
+    """The bit (in its OBU's payload) where film_grain_params' seed starts
+    in a written still with grain."""
+    reads = []
+
+    class Log(av1_obu.Bits):
+        def f(self, n):
+            reads.append((self.bit, n))
+            return super().f(n)
+    obus = list(av1_obu.obus(blob, "x"))
+    seq = av1_obu.sequence_header(av1_obu.Bits(blob, obus[0][3], obus[0][4],
+                                               "x"))
+    _, _, _, at, end = obus[1]
+    av1_obu.frame_header(Log(blob, at, end, "x"), seq)
+    k = [i for i, (_, n) in enumerate(reads) if n == 16][-1]
+    return reads[k][0] - 8 * at
+
+
+def test_gaussian_sequence_and_quantizer_matrices():
+    """The two large tables the new tools read: film grain's 2048-entry
+    Gaussian sequence (in av1_tables) and the 15 levels x 2 plane types x
+    3344 dequantization weights (av1_qm.bin, libaom's iqm_tbl layout:
+    the sizes to 32 x 32 in transform-size order, each by columns), by
+    digest, by the specification's printed entries, and against the
+    bundled library's bytes."""
+    import hashlib
+    from l3c_torch.data import av1_block
+    g = np.array(av1_tables.GAUSSIAN_SEQUENCE, "<i2")
+    assert hashlib.sha256(g.tobytes()).hexdigest() == \
+        "3b46df1c6c84b2c0e374d10e3fbaf443d2b5f87a857f903d16486defc52525a9"
+    assert g[:13].tolist() == [56, 568, -180, 172, 124, -84, 172, -64,
+                               -900, 24, 820, 224, 1248]
+    assert g[-3:].tolist() == [944, 428, -484]
+    with open(QM, "rb") as f:
+        qm = f.read()
+    assert len(qm) == 15 * 2 * 3344
+    assert hashlib.sha256(qm).hexdigest() == \
+        "f1d670f202256018637ba4b9d784c70b1e4404ae69316d94963e17fbc9f5a297"
+    assert av1_block.qmatrix(0, 0, 0).ravel().tolist() == [
+        32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110, 150, 200]
+    assert av1_block.qmatrix(14, 1, 0).ravel().tolist() == [31] * 16
+    for lvl in range(15):
+        for c in (0, 1):
+            for tx, at in av1_block.QM_OFFSET.items():
+                m = av1_block.qmatrix(lvl, c, tx)
+                w, h = av1_block.TX_WH[tx]
+                assert m.shape == (h, w) and m[0, 0] <= 32 + 4 * c
+                # a square's weights are symmetric, a rectangle's are
+                # its transposed partner's (w x h against h x w)
+                other = av1_block.TX_BY_WH[(h, w)]
+                assert np.array_equal(m, av1_block.qmatrix(lvl, c, other).T)
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    with open(path, "rb") as f:
+        lib = f.read()
+    assert lib.find(qm) >= 0
+    assert lib.find(g.tobytes()) >= 0
+
+
+def test_inter_transform_sets_are_the_librarys():
+    """The inter transform sets' symbol -> type maps (intra block copy)
+    are libaom's av1_ext_tx_inv rows in the bundled library, which holds
+    the intra ones the decoder had beside them."""
+    from l3c_torch.data import av1_block as B
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    with open(path, "rb") as f:
+        lib = f.read()
+    at = lib.find(np.array(B.INV_SET1 + (0,) * 9, "<i4").tobytes())
+    assert at >= 0
+    rows = np.frombuffer(lib, "<i4", 16 * 3, at + 64).reshape(3, 16)
+    assert tuple(rows[0, :12]) == B.INTER_INV[1]
+    assert tuple(rows[1]) == B.INTER_INV[0]
+    first = np.frombuffer(lib, "<i4", 16 * 3, at - 3 * 64).reshape(3, 16)
+    assert tuple(first[1, :2]) == B.INTER_INV[2]
+    assert tuple(first[2, :5]) == B.INV_SET2
+
+
 def test_damaged_headers_are_refused():
+    """Cut headers and a frame before its sequence header are refused; a
+    set forbidden bit is passed over, as dav1d without strict standard
+    compliance (libavif's setting) passes it over, and so is an OBU of a
+    reserved type."""
     good = av1_still()
-    for blob, why in ((good[:5], "runs past"), (b"\x80" + good[1:],
-                                                 "forbidden bit"),
+    for blob, why in ((good[:5], "runs past"),
                       (good[2 + good[1]:], "before the sequence")):
         with pytest.raises(ValueError, match="damaged") as e:
             av1_obu.parse_av1(blob, "x")
         assert why in str(e.value)
+    want = av1_obu.parse_av1(good, "x")
+    reserved = bytes([(10 << 3) | 2, 1, 0])
+    for blob in (bytes([good[0] | 0x80]) + good[1:], reserved + good):
+        got = av1_obu.parse_av1(blob, "x")
+        assert (vars(got[0]), vars(got[1])) == (vars(want[0]),
+                                                vars(want[1]))
 
 
 if __name__ == "__main__":
@@ -548,4 +727,11 @@ if __name__ == "__main__":
             ")\n")
     with open(TABLES, "w") as f:
         f.write("".join(out))
-    print(f"wrote {TABLES}")
+    with open(libavif(), "rb") as f:
+        lib = f.read()
+    first = bytes([32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97,
+                   110, 150, 200])            # level 0's luma 4 x 4
+    at = _find(lib, first)
+    with open(QM, "wb") as f:
+        f.write(lib[at:at + 15 * 2 * 3344])
+    print(f"wrote {TABLES} and {QM}")

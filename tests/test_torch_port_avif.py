@@ -14,7 +14,12 @@ mode, size and the digest of convert("RGB"), or the port's refusal;
 together the decoded files cover the tools the decoder has
 (`test_fixtures_cover_the_decoder`). Each filter is held stage by stage
 to dav1d's planes with the later filters switched off (its exported API,
-`Dav1dSettings.inloop_filters`), and the decoded planes to libavif's.
+`Dav1dSettings.inloop_filters`), and the decoded planes to libavif's;
+film grain to dav1d's planes with `Dav1dSettings.apply_grain` at 0 and
+at 1 (Pillow's pixels carry the grain: libavif's planes are dav1d's with
+it on); quantizer-matrix and intra-block-copy frames to dav1d's planes
+with every filter off; premultiplied alpha to libavif's own
+avifRGBImageUnpremultiplyAlpha over every colour and alpha.
 """
 from __future__ import annotations
 
@@ -34,8 +39,9 @@ import pytest
 from PIL import Image
 
 from l3c_tpu.data import images as jimages
-from l3c_torch.data import (av1_block, av1_cdef, av1_loopfilter, av1_obu,
-                            av1_recon, av1_restoration, avif)
+from l3c_torch.data import (av1_block, av1_cdef, av1_filmgrain, av1_intrabc,
+                            av1_loopfilter, av1_obu, av1_recon,
+                            av1_restoration, avif)
 from l3c_torch.data import images as timages
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +50,8 @@ FIXTURES = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 OFF = {"enable-cdef": "0", "enable-restoration": "0",
        "loopfilter-control": "0"}
 CODED = ("y_coded_lossy_512_420.avif", "z_coded_lossless_444.avif",
-         "x_coded_default_512_420.avif")
+         "x_coded_default_512_420.avif", "w_coded_grain_512_420.avif")
+SCREEN = {"tune-content": "screen", "enable-intrabc": "1"}
 LISTING_MIN_SIZE = 20
 
 
@@ -98,6 +105,22 @@ def bands(h, w, seed, period, vertical):
         (np.sin((y if vertical else x) / 3.0) * 25)[..., None] + \
         r.randint(-3, 4, (h, w, 3))
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def glyphs(h, w, seed, gh=9, gw=6, n=8, step=(11, 7), noise=0):
+    """Screen text: `n` random glyphs of gh x gw in three inks, set on a
+    grid `step` apart, with seeded noise (intra block copy: odd steps put
+    4:2:0 chroma half a sample off, noise leaves the copies residual)."""
+    r = np.random.RandomState(seed)
+    bank = [(r.rand(gh, gw) < 0.45) for _ in range(n)]
+    img = np.full((h, w, 3), 240, np.int64)
+    for y in range(1, h - gh, step[0]):
+        for x in range(1, w - gw, step[1]):
+            img[y:y + gh, x:x + gw][bank[r.randint(n)]] = (
+                20 + r.randint(0, 3) * 60, 30, 90)
+    if noise:
+        img += r.randint(-noise, noise + 1, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def _seq_positions(obu: bytes) -> dict:
@@ -257,11 +280,54 @@ def corpus():
         "t_premultiplied.avif": (np.dstack([photo(24, 32, 23), np.full(
             (24, 32), 128, np.uint8)]), dict(alpha_premultiplied=True,
                                               advanced=OFF), None),
+        # quantizer matrices (aom's qm-min / qm-max pick the levels)
+        "q_qm_420.avif": (textured(96, 128, 3), dict(
+            quality=40, subsampling="4:2:0", speed=6, advanced={
+                "enable-qm": "1", "qm-min": "0", "qm-max": "4"}), None),
+        "q_qm_444_deltaq.avif": (textured(72, 104, 32), dict(
+            quality=60, subsampling="4:4:4", speed=0, advanced={
+                "enable-qm": "1", "qm-min": "6", "qm-max": "12",
+                "deltaq-mode": "2", "enable-rect-partitions": "1",
+                "enable-1to4-partitions": "1"}), None),
+        # intra block copy: inter transform sets 1-3, split transforms,
+        # 4:2:0 chroma half a sample off and of sub-8 x 8 blocks, sb128
+        "s_intrabc_444.avif": (glyphs(160, 160, 6, 20, 18, 5, (23, 21), 6),
+                               dict(quality=60, subsampling="4:4:4", speed=2,
+                                    advanced=SCREEN), None),
+        "s_intrabc_444_reduced.avif": (glyphs(160, 160, 6, noise=8), dict(
+            quality=60, subsampling="4:4:4", speed=2, advanced=dict(
+                SCREEN, **{"reduced-tx-type-set": "1"})), None),
+        "s_intrabc_420.avif": (glyphs(160, 160, 5, noise=8), dict(
+            quality=60, subsampling="4:2:0", speed=2, advanced=SCREEN), None),
+        "s_intrabc_420_sub8x8.avif": (glyphs(160, 160, 5), dict(
+            quality=60, subsampling="4:2:0", speed=2, advanced=SCREEN), None),
+        "s_intrabc_sb128.avif": (glyphs(160, 160, 6, noise=8), dict(
+            quality=60, subsampling="4:4:4", speed=2, advanced=dict(
+                SCREEN, **{"sb-size": "128"})), None),
+        # film grain: aom's test vectors 5 (AR lag 3), 15 (chroma scaled
+        # from luma), 16 and 1 (no overlap); its denoiser's own table
+        "v_grain05_420.avif": (photo(64, 80, 24), dict(
+            quality=55, subsampling="4:2:0", advanced={
+                "film-grain-test": "5"}), None),
+        "v_grain15_422.avif": (photo(56, 72, 25), dict(
+            quality=55, subsampling="4:2:2", advanced={
+                "film-grain-test": "15"}), None),
+        "v_grain16_444_odd.avif": (photo(45, 67, 26), dict(
+            quality=55, subsampling="4:4:4", advanced={
+                "film-grain-test": "16"}), None),
+        "v_grain01_400.avif": (photo(48, 64, 27), dict(
+            quality=55, subsampling="4:0:0", advanced={
+                "film-grain-test": "1"}), None),
+        "v_denoise_420_odd.avif": (photo(153, 149, 7), dict(
+            quality=60, subsampling="4:2:0", advanced={
+                "denoise-noise-level": "25"}), None),
         CODED[0]: (textured(512, 512, 30), dict(
             quality=80, subsampling="4:2:0", advanced=adv()), None),
         CODED[1]: (textured(96, 128, 31), dict(
             quality=100, subsampling="4:4:4"), None),
         CODED[2]: (textured(512, 512, 30), dict(quality=75), None),
+        CODED[3]: (textured(512, 512, 30), dict(advanced={
+            "denoise-noise-level": "20"}), None),
     }
 
 
@@ -408,6 +474,7 @@ def decode_counting(paths):
     wrap(B.FrameDecoder, "_delta_q_lf", lambda self, b: "delta_q" if
          self.read_deltas else "no_delta_q")
     wrap_filters(c, saved)
+    wrap_new_tools(c, saved)
     try:
         for p in paths:
             with open(p, "rb") as f:
@@ -464,6 +531,67 @@ def wrap_filters(c, saved):
         setattr(mod, name, fn)
 
 
+def wrap_new_tools(c, saved):
+    """Count film grain (its kinds), quantizer matrices, premultiplied
+    alpha and intra block copy: blocks, DVs half a chroma sample off,
+    sub-8 x 8 chroma whose neighbour copies too, split transforms, each
+    inter transform set."""
+    B, FG, IB = av1_block, av1_filmgrain, av1_intrabc
+
+    def keep(mod, name, fn):
+        saved[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, fn)
+
+    def grain(planes, g, seq):
+        c["grain"] += 1
+        c["grain_lag3"] += g.ar_lag == 3
+        c["grain_from_luma"] += g.chroma_from_luma
+        c["grain_overlap"] += g.overlap
+        c["grain_no_overlap"] += not g.overlap
+        c[f"grain_ss_{seq.ssx}{seq.ssy}{seq.mono}"] += 1
+        return saved[(FG, "apply_grain")](planes, g, seq)
+
+    def qm(level, chroma, tx):
+        c["qm"] += 1
+        return saved[(B, "qmatrix")](level, chroma, tx)
+
+    def unpremultiply(rgb, alpha):
+        c["premultiplied"] += 1
+        return saved[(avif, "unpremultiply")](rgb, alpha)
+
+    def predict(plane, x, y, w, h, dv, ssx, ssy, *a):
+        px, py = (x << 4) + ((2 * dv[1]) >> ssx), (y << 4) + (
+            (2 * dv[0]) >> ssy)
+        c["intrabc_bilinear"] += bool((px | py) & 15)
+        return saved[(IB, "predict")](plane, x, y, w, h, dv, ssx, ssy, *a)
+
+    def info(self, b):
+        saved[(B.FrameDecoder, "_intrabc_info")](self, b)
+        c["intrabc"] += 1
+        bw4, bh4 = B.BLOCK_WH[b.size]
+        if b.has_chroma and self.ssx and (
+                bw4 == 1 and self.is_inter[b.r][b.c - 1] or
+                bh4 == 1 and self.ssy and self.is_inter[b.r - 1][b.c]):
+            c["intrabc_sub8x8_chroma"] += 1
+
+    def var_tx(self, b, row, col, tx, depth):
+        c[f"var_tx_depth_{depth}"] += 1
+        return saved[(B.FrameDecoder, "_read_var_tx")](self, b, row, col, tx,
+                                                      depth)
+
+    def tx_type(self, b, tx, x4, y4):
+        if b.is_inter:
+            c[f"inter_tx_set_{self._tx_set(tx, 1)}"] += 1
+        return saved[(B.FrameDecoder, "_read_tx_type")](self, b, tx, x4, y4)
+    keep(FG, "apply_grain", grain)
+    keep(B, "qmatrix", qm)
+    keep(avif, "unpremultiply", unpremultiply)
+    keep(IB, "predict", predict)
+    keep(B.FrameDecoder, "_intrabc_info", info)
+    keep(B.FrameDecoder, "_read_var_tx", var_tx)
+    keep(B.FrameDecoder, "_read_tx_type", tx_type)
+
+
 def test_fixtures_cover_the_decoder():
     """The decoded fixtures (the coded files aside) run every coding
     tool and transform size the decoder has, and every path of the
@@ -487,6 +615,12 @@ def test_fixtures_cover_the_decoder():
     need += ["y4", "y8", "y14", "uv4", "uv6", "cdef_pri", "cdef_sec",
              "cdef_both", "lr_wiener", "sgr_both", "sgr_r0_0", "sgr_r1_0",
              "lr_none_in_switchable"]
+    need += ["grain", "grain_lag3", "grain_from_luma", "grain_overlap",
+             "grain_no_overlap", "grain_ss_110", "grain_ss_100",
+             "grain_ss_000", "grain_ss_111", "qm", "premultiplied",
+             "intrabc", "intrabc_bilinear", "intrabc_sub8x8_chroma",
+             "var_tx_depth_0", "var_tx_depth_1", "inter_tx_set_1",
+             "inter_tx_set_2", "inter_tx_set_3"]
     assert [k for k in need if not c[k]] == []
     assert c["tile"] > len(paths)            # a file with several tiles
     assert len([k for k in c if k.startswith("lr_size_")]) >= 2
@@ -494,18 +628,21 @@ def test_fixtures_cover_the_decoder():
 
 # ------------------------------------------------------ the in-loop filters
 
-def _dav1d_planes(lib, obus, filters):
+def _dav1d_planes(lib, obus, filters, grain=1):
     """dav1d's decoded planes of raw OBUs through the API libavif exports
-    (dav1d 1.5: Dav1dSettings.inloop_filters at byte 72, a mask of
-    deblocking 1, CDEF 2, restoration 4; Dav1dPicture's data at 16,
-    strides at 40, width, height and layout at 56)."""
+    (dav1d 1.5: Dav1dSettings.apply_grain at byte 8, default 1;
+    Dav1dSettings.inloop_filters at byte 72, a mask of deblocking 1, CDEF
+    2, restoration 4; Dav1dPicture's data at 16, strides at 40, width,
+    height and layout at 56)."""
     c = ctypes
     lib.dav1d_data_create.restype = c.c_void_p
     settings = c.create_string_buffer(1024)
     lib.dav1d_default_settings(settings)
     struct.pack_into("<ii", settings, 0, 1, 1)      # one thread, no delay
     assert struct.unpack_from("<i", settings, 72)[0] == 7
+    assert struct.unpack_from("<i", settings, 8)[0] == 1
     struct.pack_into("<i", settings, 72, filters)
+    struct.pack_into("<i", settings, 8, grain)
     ctx = c.c_void_p()
     assert lib.dav1d_open(c.byref(ctx), settings) == 0
     try:
@@ -607,6 +744,158 @@ def test_each_filter_stage_equals_dav1ds(name):
         assert _first_difference(got[k], want) is None, \
             (stage, _first_difference(got[k], want))
     assert _first_difference(got[2], _libavif_planes(lib, blob)) is None
+
+
+GRAIN = sorted(n for n in _names() if n[0] == "v")
+UNFILTERED = sorted(n for n in _names() if n[0] in "qs")
+
+
+def _item_data(name):
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        blob = f.read()
+    m = avif.parse(blob, name)
+    return blob, avif._item_bytes(blob, m, m.primary, name)
+
+
+@pytest.mark.parametrize("name", GRAIN)
+def test_grain_stage_equals_dav1ds(name):
+    """Film grain against dav1d: the filtered planes equal dav1d's with
+    `apply_grain` at 0, the planes with grain dav1d's with it at 1; and
+    libavif's planes (Pillow's decoder) are the latter, not the former:
+    Pillow's pixels carry the grain."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    lib = ctypes.CDLL(path)
+    blob, data = _item_data(name)
+    seq, f, _ = av1_obu.parse_av1(data, name)
+    pre = port_stages(data)[-1]
+    off, on = (_dav1d_planes(lib, data, 7, grain=g) for g in (0, 1))
+    assert _first_difference(pre, off) is None
+    assert _first_difference(av1_block.add_grain(pre, seq, f), on) is None
+    pillow = _libavif_planes(lib, blob)
+    assert _first_difference(pillow, on) is None
+    assert _first_difference(pillow, off) is not None
+
+
+def _header_bits(data):
+    """(OBU start, [(bit, n)] of each read) of the frame header."""
+    reads = []
+
+    class Log(av1_obu.Bits):
+        def f(self, n):
+            reads.append((self.bit, n))
+            return super().f(n)
+    obus = list(av1_obu.obus(data, "x"))
+    seq_obu = [o for o in obus if o[0] == av1_obu.OBU_SEQUENCE_HEADER][0]
+    seq = av1_obu.sequence_header(av1_obu.Bits(data, seq_obu[3],
+                                               seq_obu[4], "x"))
+    at, end = obus[-1][3], obus[-1][4]
+    av1_obu.frame_header(Log(data, at, end, "x"), seq)
+    return reads
+
+
+@pytest.mark.parametrize("clip, overlap", [(1, 1), (1, 0), (0, 0)])
+def test_grain_clip_and_overlap_flags_as_dav1d(clip, overlap):
+    """clip_to_restricted_range (no aom vector sets it) and overlap_flag,
+    the grain parameters' last two bits, rewritten in a file with grain:
+    the port's planes equal dav1d's."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    _, data = _item_data("v_grain05_420.avif")
+    reads = _header_bits(data)
+    b = bytearray(data)
+    _put(b, reads[-2][0], 1, overlap)
+    _put(b, reads[-1][0], 1, clip)
+    data = bytes(b)
+    seq, f, tiles = av1_obu.parse_av1(data, "x")
+    assert (f.grain.clip_restricted, f.grain.overlap) == (clip, overlap)
+    got = av1_block.decode_frame(seq, f, tiles, data, "x")
+    want = _dav1d_planes(ctypes.CDLL(path), data, 7)
+    assert _first_difference(got, want) is None
+
+
+def port_unfiltered(data):
+    """The port's reconstruction before any in-loop filter, cropped."""
+    seq, f, tiles = av1_obu.parse_av1(data, "x")
+    d = av1_block.FrameDecoder(seq, f, "x")
+    for tr, tc, start, end in tiles:
+        d.decode_tile(data, start, end, tr, tc)
+    h, w = f.height, f.width
+    ch, cw = (h + seq.ssy) >> seq.ssy, (w + seq.ssx) >> seq.ssx
+    return [d.frame[0][:h, :w].astype(np.uint8)] + [
+        q[:ch, :cw].astype(np.uint8) for q in d.frame[1:seq.num_planes]], d
+
+
+@pytest.mark.parametrize("name", UNFILTERED)
+def test_qm_and_intrabc_frames_equal_dav1ds_unfiltered(name):
+    """Dequantization with quantizer matrices and intra block copy against
+    dav1d's planes with every in-loop filter off (a fault shows as the
+    first plane and 4 x 4 block that differ), then the decoded planes
+    against libavif's."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    lib = ctypes.CDLL(path)
+    blob, data = _item_data(name)
+    got, d = port_unfiltered(data)
+    assert _first_difference(got, _dav1d_planes(lib, data, 0)) is None
+    if name[0] == "s":
+        assert d.f.allow_intrabc and sum(map(sum, d.is_inter)) > 0
+    else:
+        assert d.f.using_qmatrix and min(d.f.qm_y, d.f.qm_u) < 15
+    final = av1_block.add_grain(av1_block.filter_frame(d, d.s, d.f), d.s,
+                                d.f)
+    assert _first_difference(final, _libavif_planes(lib, blob)) is None
+
+
+def test_intrabc_sub8x8_chroma_at_420():
+    """4:2:0 chroma of a sub-8 x 8 intrabc block whose left or upper
+    neighbour copies too: in an intra frame every block's RefFrame[0] is
+    INTRA_FRAME, so the specification (someUseIntra) and dav1d
+    (ref[0] > 0) both predict the whole chroma block with the block's own
+    DV, not the neighbours'. The file has such blocks, DVs half a chroma
+    sample off among them, and its chroma equals dav1d's."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    _, data = _item_data("s_intrabc_420_sub8x8.avif")
+    c = collections.Counter()
+    saved = {}
+    wrap_new_tools(c, saved)
+    try:
+        got, _ = port_unfiltered(data)
+    finally:
+        for (mod, name), f in saved.items():
+            setattr(mod, name, f)
+    assert c["intrabc_sub8x8_chroma"] > 0 and c["intrabc_bilinear"] > 0
+    want = _dav1d_planes(ctypes.CDLL(path), data, 0)
+    assert _first_difference(got[1:], want[1:]) is None
+
+
+def test_premultiplied_alpha_unattenuates_as_libavif():
+    """Every (colour, alpha) pair through libavif's
+    avifRGBImageUnpremultiplyAlpha on an 8-bit RGBA image (libyuv's
+    ARGBUnattenuate, which Pillow's RGBA decode of a `prem` file runs)
+    equals `avif.unpremultiply`."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    lib = ctypes.CDLL(path)
+    c, a = np.mgrid[0:256, 0:256]
+    px = np.stack([c, 255 - c, c // 2, a], -1).astype(np.uint8)
+    buf = ctypes.create_string_buffer(px.tobytes(), px.nbytes)
+    rgb = ctypes.create_string_buffer(64)
+    struct.pack_into("<IIII", rgb, 0, 256, 256, 8, 1)   # RGBA
+    struct.pack_into("<I", rgb, 32, 1)                  # alphaPremultiplied
+    struct.pack_into("<Q", rgb, 48, ctypes.addressof(buf))
+    struct.pack_into("<I", rgb, 56, 256 * 4)
+    assert lib.avifRGBImageUnpremultiplyAlpha(rgb) == 0
+    want = np.frombuffer(buf.raw, np.uint8).reshape(256, 256, 4)
+    assert np.array_equal(want[..., 3], px[..., 3])
+    assert np.array_equal(avif.unpremultiply(px[..., :3], px[..., 3]),
+                          want[..., :3])
 
 
 def _cdef_reference(planes, f, seq, skips, cdef_idx):
@@ -1008,11 +1297,11 @@ def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
 
 
 # the tools ROADMAP F6 still lists, which the port refuses by name
-F6_TOOLS = ("superres", "per-block loop filter deltas", "film grain",
-            "intra block copy", "quantizer matrices", "-bit samples",
+F6_TOOLS = ("superres", "per-block loop filter deltas", "-bit samples",
             "a hidden first frame", "segment reference features",
-            "a grid image", "premultiplied alpha", "another size than ispe",
-            "the identity matrix", "matrix coefficients")
+            "a grid image", "another size than ispe",
+            "an alpha item of another size", "the identity matrix",
+            "matrix coefficients")
 
 
 def _outcome(p):
@@ -1036,9 +1325,135 @@ def _names_an_f6_tool(msg):
         "not decoded")[0] for t in F6_TOOLS)
 
 
+@pytest.mark.parametrize("ss", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+def test_seeded_saves_with_grain_qm_and_intrabc_equal_pillow_and_jax(
+        tmp_path, ss):
+    """Pillow's saves with aom's keys for the tools decoded since the
+    filters, seeded: a film grain test vector, a denoiser's grain table,
+    quantizer matrices over a random level range, screen text with intra
+    block copy; each equal to Pillow and the JAX loader, or refused naming
+    a tool ROADMAP F6 still lists."""
+    r = np.random.RandomState(95 + ord(ss[2]) + ord(ss[4]))
+    lo = int(r.randint(0, 12))
+    cases = [
+        (photo(int(r.randint(17, 97)), int(r.randint(17, 97)), 96),
+         {"film-grain-test": str(r.randint(1, 17))}),
+        (photo(97, 113, 97), {"denoise-noise-level": "20"}),
+        (textured(int(r.randint(17, 97)), int(r.randint(17, 97)), 98),
+         {"enable-qm": "1", "qm-min": str(lo),
+          "qm-max": str(int(r.randint(lo, 16)))}),
+        (glyphs(144, 160, 99, noise=int(r.randint(0, 9))), SCREEN)]
+    for k, (img, adv) in enumerate(cases):
+        if ss == "4:2:2" and "denoise-noise-level" in adv:
+            continue             # aom's denoiser refuses 4:2:2
+        kw = dict(quality=int(r.randint(40, 85)), subsampling=ss,
+                  speed=2 if adv is SCREEN else 6, advanced=adv)
+        p = str(tmp_path / f"n{k}.avif")
+        with open(p, "wb") as f:
+            f.write(save(img, **kw))
+        pil, port = _outcome(p)
+        if isinstance(port, str):
+            assert _names_an_f6_tool(port), (kw, port)
+            continue
+        assert np.array_equal(port, pil), kw
+        assert np.array_equal(port, jimages.load_image_uint8(p)), kw
+
+
+def _flip(blob: bytes, at: int, mask: int) -> bytes:
+    b = bytearray(blob)
+    b[at] ^= mask
+    return bytes(b)
+
+
+def test_header_and_container_damage_as_pillow(tmp_path):
+    """Damage a sweep of single-bit flips found where the port and Pillow
+    parted: colr nclx's range flag (libavif takes the range from it, not
+    from the sequence header) and its reserved bits (refused); matrix
+    coefficients libavif never converts, grey images included (refused);
+    a set OBU forbidden bit and an OBU of a reserved type (dav1d passes
+    over both); an av1C depth against pixi (refused); an alpha item that
+    is damaged (libavif decodes it for Pillow's RGBA: refused) or has no
+    data (skipped: an RGB file). Each as Pillow: equal pixels and mode,
+    or both refuse."""
+    grey = save(photo(24, 32, 80), quality=60, subsampling="4:0:0")
+    rgb = save(photo(24, 32, 81), quality=60, subsampling="4:2:0",
+               range="limited")
+    rgba = save(np.dstack([photo(24, 32, 82), np.full((24, 32), 90,
+                                                      np.uint8)]),
+                quality=60)
+    m = avif.parse(rgba, "x")
+    alpha = avif._alpha_of(m, m.primary)
+    a_at, a_len = m.items[alpha].extents[0]
+    nclx = rgb.find(b"colrnclx") + 14
+    seq_at = m.items[m.primary].extents[0][0] + 2
+    item = avif._item_bytes(rgb, avif.parse(rgb, "x"), 1, "x")
+    obu_at = rgb.find(item)
+    assert item[:2] == bytes([(av1_obu.OBU_TEMPORAL_DELIMITER << 3) | 2, 0])
+    cases = [_flip(rgb, nclx, 0x80), _flip(rgb, nclx, 0x01),
+             _flip(rgba, seq_at, 0x80),
+             rgba[:a_at] + bytes(a_len) + rgba[a_at + a_len:],
+             _flip(rgb, rgb.find(b"av1C") + 6, 0x40),
+             _flip(rgb, obu_at, (av1_obu.OBU_TEMPORAL_DELIMITER ^ 10) << 3)]
+    iloc = rgba.find(b"iloc")
+    two = rgba.find(struct.pack(">H", alpha), iloc + 12)
+    cases.append(rgba[:two] + struct.pack(">H", 0x2002) + rgba[two + 2:])
+    cases += [set_cicp(grey, 2, mc) for mc in (3, 8, 10, 13, 15, 16, 40)]
+    cases += [set_cicp(rgb, 2, mc) for mc in (0, 3, 8, 11, 255)]
+    agree = 0
+    for k, blob in enumerate(cases):
+        p = str(tmp_path / f"h{k}.avif")
+        with open(p, "wb") as f:
+            f.write(blob)
+        pil, port = _outcome(p)
+        if pil is None:
+            assert port is None or _names_an_f6_tool(port), k
+            continue
+        assert not isinstance(port, str) or _names_an_f6_tool(port), k
+        if not isinstance(port, str):
+            assert np.array_equal(pil, port), k
+            with Image.open(p) as im:
+                assert timages.image_mode(p) == im.mode, k
+            agree += 1
+    assert agree >= 5
+
+
+def test_coefficients_past_dav1ds_clips_as_pillow(tmp_path):
+    """Two bit flips found in tile data that give coefficients far past
+    an encoder's (a 32 x 32 DCT with a level of 1689 in a CDEF and
+    restoration save; a premultiplied file's alpha item): dav1d clips the
+    transforms' sums to 16 bits, and so does the port, to Pillow's
+    pixels."""
+    alpha = np.random.RandomState(1).randint(0, 256, (32, 40)).astype(
+        np.uint8)
+    cases = [(save(waves(48, 64, 7), quality=40, speed=2,
+                   advanced={"enable-cdef": "1"}), 354, 0x02),
+             (save(np.dstack([photo(32, 40, 3), alpha]),
+                   alpha_premultiplied=True, quality=70), 981, 0x40)]
+    clipped = []
+    real = av1_recon._clip
+
+    def clip(v):
+        clipped.append(bool((v < av1_recon.LO).any() or
+                            (v > av1_recon.HI).any()))
+        return real(v)
+    av1_recon._clip = clip
+    try:
+        for k, (blob, at, mask) in enumerate(cases):
+            p = str(tmp_path / f"c{k}.avif")
+            with open(p, "wb") as f:
+                f.write(_flip(blob, at, mask))
+            clipped.clear()
+            pil, port = _outcome(p)
+            assert pil is not None and np.array_equal(pil, port), k
+            assert any(clipped), k
+    finally:
+        av1_recon._clip = real
+
+
 def test_truncated_and_bit_flipped_files_as_pillow(tmp_path):
     """Cut anywhere, or with a bit flipped in its container, headers or
-    tile data, a filters-off save and one with every in-loop filter on:
+    tile data, a filters-off save, one with every in-loop filter on and
+    one with film grain and quantizer matrices:
     where Pillow decodes, the port gives its pixels (dav1d's and the
     port's walk of damaged tile data agree, a flip in a filter's header
     fields or symbols included) or names a tool ROADMAP F6 still lists (a
@@ -1049,12 +1464,14 @@ def test_truncated_and_bit_flipped_files_as_pillow(tmp_path):
     blobs = [save(waves(40, 48, 60), quality=60, subsampling="4:2:0",
                   advanced=OFF),
              save(waves(72, 80, 62), quality=40, subsampling="4:2:0",
-                  speed=2, advanced={"enable-cdef": "1"})]
+                  speed=2, advanced={"enable-cdef": "1"}),
+             save(waves(40, 56, 64), quality=50, subsampling="4:2:0",
+                  advanced={"film-grain-test": "5", "enable-qm": "1"})]
     r = np.random.RandomState(61)
     for n, blob in enumerate(blobs):
         cases = [blob[:n] for n in (len(blob) - 1, len(blob) - 40,
                                     len(blob) // 2, 300, 40)]
-        for _ in range(40 + 30 * n):     # the filters' file: more flips
+        for _ in range(40 + 30 * (n == 1)):  # the filters' file: more
             b = bytearray(blob)
             b[r.randint(len(b))] ^= 1 << r.randint(8)
             cases.append(bytes(b))
