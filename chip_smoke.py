@@ -314,18 +314,21 @@ Phases (each raises on failure; none carries on after another failed):
               size, tiles, 128 superblocks, delta q; the in-loop filters:
               deblocking, CDEF, Wiener and self-guided restoration,
               Pillow's default saves; film grain, quantizer matrices,
-              intra block copy, premultiplied alpha) to Pillow's format,
-              mode, size and pixel digest; the same
+              intra block copy, premultiplied alpha; grids, frames and
+              alpha scaled to ispe, the FCC, SMPTE 240, BT.2020, YCgCo,
+              chroma-derived and limited identity matrices) to Pillow's
+              format, mode, size and pixel digest; the same
               digests from this host's Pillow wherever it imports (held),
               its libavif, dav1d, aom and libyuv logged; cli.l3c enc /
               dec of a 512 x 512 filters-off lossy 4:2:0 file, a lossless
-              4:4:4 one, a 512 x 512 default save and a 512 x 512 save
-              with aom's denoiser's film grain bit-exact with exact
-              launch counts; cli.test --write_to_files --compare_theory
-              over the folder (an AVIF named .png listed), K3 to K6
-              launched; the host's decode MP/s of the four, fastest of 3,
-              and the default and grain saves' time by stage (the symbol
-              walk, each in-loop filter, film grain)
+              4:4:4 one, a 512 x 512 default save, a 512 x 512 save
+              with aom's denoiser's film grain and a 1024 x 1024 grid of
+              four 512 x 512 cells bit-exact with exact launch counts;
+              cli.test --write_to_files --compare_theory over the folder
+              (an AVIF named .png listed), K3 to K6 launched; the host's
+              decode MP/s of the five, fastest of 3, and the default,
+              grain and grid saves' time by stage (the symbol walk, each
+              in-loop filter, film grain, the grid's assembly)
  23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
@@ -4859,8 +4862,12 @@ def code_and_test(folder, exp, tag, card):
             counted(total, f"cli.l3c dec {name}", lambda: run_cli(
                 l3c_cli.main, [ZOO, LOG_DATE, "dec", coded, back]),
                 DECODE, CANARY)
-            if not np.array_equal(read_png(back),
-                                  timages.load_image_uint8(src)):
+            # fixtures_hold held the loader's pixels to this digest: a
+            # second decode of a slow file is saved
+            want = exp["files"].get(name, {}).get("sha256")
+            if not (pixel_digest(read_png(back)) == want if want else
+                    np.array_equal(read_png(back),
+                                   timages.load_image_uint8(src))):
                 raise RuntimeError(f"cli.l3c dec of {name} differs from the "
                                    "loader's pixels")
             h, w = timages.image_size(src)
@@ -5190,8 +5197,10 @@ AVIF = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 def phase_avif(card):
     """AVIF stills, their AV1 frames' in-loop filters (deblocking, CDEF,
     loop restoration), film grain, quantizer matrices, intra block copy
-    and premultiplied alpha included, decoded on this machine's host with
-    no Pillow (data/avif.py, av1_*.py, avif_yuv.py): every fixture of
+    and premultiplied alpha included, grids, frames and alpha scaled to
+    ispe and the matrices libavif converts itself, decoded on this
+    machine's host with no Pillow (data/avif.py, av1_*.py, avif_yuv.py,
+    avif_scale.py): every fixture of
     l3c_torch/data/fixtures/avif held to Pillow's format, mode, size and
     pixel digest (expected.json), the files with tools the port does not
     decode yet refused by name; this host's Pillow, where it imports,
@@ -5199,11 +5208,12 @@ def phase_avif(card):
     its libavif, AV1 codecs and libyuv logged; cli.l3c enc / dec of the
     "coded" files (512 x 512 filters-off lossy 4:2:0, lossless 4:4:4, a
     512 x 512 Pillow default save, a 512 x 512 default save with aom's
-    denoiser's film grain) bit-exact with exact launch counts;
-    cli.test --write_to_files --compare_theory over the folder (its
-    listing keeps an AVIF named .png); the host's decode rates of the
-    coded files, fastest of 3, and the default and grain saves' time by
-    stage. Returns the launches of its CLI calls."""
+    denoiser's film grain, a 1024 x 1024 grid of four 512 x 512 cells at
+    Pillow's default quality and speed) bit-exact with exact launch
+    counts; cli.test --write_to_files --compare_theory over the folder
+    (its listing keeps an AVIF named .png); the host's decode rates of
+    the coded files, fastest of 3, and the default, grain and grid saves'
+    time by stage. Returns the launches of its CLI calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
@@ -5267,12 +5277,13 @@ def phase_avif(card):
     log(f"[avif] host decode rates, fastest of 3, pixels Pillow's: "
         f"{'; '.join(rates)} | host {cpu}")
     # ---- (f) the default save's decode by stage: the filters' share; the
-    # grain save's (the grain stage); two fixtures that run CDEF and loop
+    # grain save's (the grain stage); the 1024 x 1024 grid's (its cells'
+    # stages summed, the assembly); two fixtures that run CDEF and loop
     # restoration
-    for name in (exp["coded"][2], exp["coded"][3], "o_cdef_422.avif",
-                 "p_lr_q60_switchable.avif"):
+    for name in (exp["coded"][2], exp["coded"][3], exp["coded"][4],
+                 "o_cdef_422.avif", "p_lr_q60_switchable.avif"):
         blob = open(os.path.join(AVIF, name), "rb").read()
-        ms = avif_stages_ms(blob, name)
+        ms = avif_stages_ms(blob, name, exp["files"][name]["sha256"])
         filters = ms["deblock"] + ms["cdef"] + ms["restoration"]
         h, w = exp["files"][name]["size"]
         log(f"[avif] {name} ({w} x {h}) by stage, ms, fastest of 3: "
@@ -5281,45 +5292,62 @@ def phase_avif(card):
             f"{100 * filters / ms['total']:.1f} % of the decode, "
             f"{filters / ms['walk']:.3f} x the symbol walk; film grain "
             f"{ms['grain']:.1f} ms = {100 * ms['grain'] / ms['total']:.1f} "
-            f"% | host {cpu}")
+            f"%; a grid's assembly {ms['assemble']:.2f} ms | host {cpu}")
     log(f"[avif] launches of the cli.l3c and cli.test calls: "
         f"{({k: v for k, v in total.items() if v})} | {card}")
     return total
 
 
-def avif_stages_ms(blob, name):
+def avif_stages_ms(blob, name, digest):
     """An AVIF still's host decode split into the container and headers,
     the symbol walk (prediction and transforms included), each in-loop
-    filter, film grain synthesis and the YUV to RGB conversion: ms,
-    fastest of 3 each, and the fastest total; the pixels held to the
-    loader's."""
+    filter, film grain synthesis, a grid's assembly of its cells and the
+    YUV to RGB conversion (a grid's stages summed over its cells): ms,
+    fastest of 3 each, and the fastest total; the pixels held to Pillow's
+    digest (an RGB file: no alpha to fold in)."""
     from l3c_torch.data import av1_block, av1_obu, avif, avif_yuv
     best = {}
     for _ in range(3):
         t0 = time.perf_counter()
         m = avif.parse(blob, name)
-        data = avif._item_bytes(blob, m, m.primary, name)
-        seq, frame, tiles = av1_obu.parse_av1(data, name)
+        grid = m.grids.get(m.primary)
+        frames = []
+        seq = None
+        for item in grid.cells if grid else [m.primary]:
+            data = avif._item_bytes(blob, m, item, name)
+            frames.append((data,) + av1_obu.parse_av1(data, name, seq))
+            seq = frames[-1][1]
         t1 = time.perf_counter()
-        d = av1_block.FrameDecoder(seq, frame, name)
-        for tr, tc, start, end in tiles:
-            d.decode_tile(data, start, end, tr, tc)
+        walked = []
+        for data, seq, frame, tiles in frames:
+            d = av1_block.FrameDecoder(seq, frame, name)
+            for tr, tc, start, end in tiles:
+                d.decode_tile(data, start, end, tr, tc)
+            walked.append(d)
         t2 = time.perf_counter()
-        times = {}
-        planes = av1_block.filter_frame(d, seq, frame, times=times)
-        t_grain = time.perf_counter()
-        planes = av1_block.add_grain(planes, seq, frame)
+        times, cells = {}, []
+        for d, (_, seq, frame, _) in zip(walked, frames):
+            each = {}
+            planes = av1_block.filter_frame(d, seq, frame, times=each)
+            t_grain = time.perf_counter()
+            planes = av1_block.add_grain(planes, seq, frame)
+            each["grain"] = time.perf_counter() - t_grain
+            for k, v in each.items():
+                times[k] = times.get(k, 0.0) + v
+            cells.append((planes, seq))
         t3 = time.perf_counter()
-        times["grain"] = t3 - t_grain
-        mc, full_range = avif.colour(m, m.primary, seq)
+        planes = avif.assemble(grid, cells, name) if grid else cells[0][0]
+        seq = cells[0][1]
+        t_rgb = time.perf_counter()
+        mc, full_range, cp = avif.colour(m, m.primary, seq)
         rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
-                              full_range, name)
+                              full_range, name, cp)
         t4 = time.perf_counter()
         for k, v in (("headers", t1 - t0), ("walk", t2 - t1),
-                     ("yuv_to_rgb", t4 - t3), ("total", t4 - t0),
-                     *times.items()):
+                     ("assemble", t_rgb - t3), ("yuv_to_rgb", t4 - t_rgb),
+                     ("total", t4 - t0), *times.items()):
             best[k] = min(best.get(k, math.inf), 1e3 * v)
-    if not np.array_equal(rgb, avif.decode_avif(blob, name)):
+    if pixel_digest(rgb) != digest:
         raise RuntimeError(f"{name}: the staged decode differs")
     return best
 

@@ -135,6 +135,9 @@ def sequence_header(b: Bits) -> SimpleNamespace:
         raise damaged(b.path, f"sequence profile {s.profile}")
     s.still_picture = b.f(1)
     s.reduced = b.f(1)
+    if s.reduced and not s.still_picture:
+        raise damaged(b.path, "a reduced still picture header that is not "
+                              "a still picture")
     s.decoder_model_info = 0
     s.equal_picture_interval = 0
     s.op_idc = [0]
@@ -549,15 +552,18 @@ def qindex(f: SimpleNamespace, seg: int, current) -> int:
     return f.base_q_idx
 
 
-def parse_av1(data: bytes, path: str):
+def parse_av1(data: bytes, path: str, seq: SimpleNamespace = None):
     """(sequence header, frame header, tiles) of the first shown frame;
-    tiles as (tile_row, tile_col, start, end) into `data`."""
-    seq = frame = None
+    tiles as (tile_row, tile_col, start, end) into `data`. `seq`, where
+    given, is the sequence header a decoder kept from earlier data (a
+    grid's cells go through one dav1d context); the first one in `data`
+    takes its place."""
+    own = frame = None
     tiles: List[Tuple[int, int, int, int]] = []
     for typ, tid, sid, at, end in obus(data, path):
         if typ == OBU_SEQUENCE_HEADER:
-            if seq is None:
-                seq = sequence_header(Bits(data, at, end, path))
+            if own is None:
+                seq = own = sequence_header(Bits(data, at, end, path))
             continue
         if typ not in (OBU_FRAME, OBU_FRAME_HEADER, OBU_TILE_GROUP):
             continue            # dav1d skips the others, reserved types too
@@ -586,6 +592,19 @@ def parse_av1(data: bytes, path: str):
     if frame is None:
         raise damaged(path, "no frame")
     raise damaged(path, "tiles are missing")
+
+
+def read_rest(data: bytes, seq: SimpleNamespace, path: str):
+    """The OBUs after the frame, which dav1d reads too: a sequence header
+    among them replaces `seq` (for the next data of the same context); an
+    OBU that runs past the data, or a tile group with no frame header
+    before it, fails the decode. Returns the sequence header."""
+    for typ, _, _, at, end in obus(data, path):
+        if typ == OBU_SEQUENCE_HEADER:
+            seq = sequence_header(Bits(data, at, end, path))
+        elif typ == OBU_TILE_GROUP:
+            raise damaged(path, "a tile group comes after its frame")
+    return seq
 
 
 def _tile_group(data: bytes, at: int, end: int, f: SimpleNamespace,

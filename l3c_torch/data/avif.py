@@ -8,7 +8,14 @@ versions 2 and 3), `iloc` (versions 0-2, construction methods 0 and 1,
 the latter from `idat`, several extents), `iprp` / `ipco` / `ipma`
 (`ispe`, `av1C`, `pixi`, `colr` nclx or ICC, `auxC`, `irot`, `imir`,
 `clap`, `a1op`, `lsel`) and `iref` (`auxl`, `prem`, `dimg`). The primary
-item's OBUs are decoded; `irot` / `imir` / `clap` are not applied (Pillow
+item's OBUs are decoded, each frame scaled to its item's `ispe` where it
+is another size (data/avif_scale.py); a `grid` primary item's cells (its
+`dimg` references, in their order) are decoded, checked, laid side by
+side and cropped to its ImageGrid output before one conversion, with
+the grid's colour description, else its first cell's sequence header's;
+Pillow reads libavif's buffer by `ispe`, so a grid whose output is
+another size comes out re-strided (`_as_opened`). `irot` / `imir` /
+`clap` are not applied (Pillow
 turns orientation into EXIF, which the loader ignores). An alpha item is
 decoded as libavif decodes it for Pillow's RGBA (a damaged one fails the
 file); convert("RGB") drops it, unless the file marks it premultiplied
@@ -24,7 +31,7 @@ from typing import Tuple
 
 import numpy as np
 
-from . import av1_block, av1_obu, avif_yuv
+from . import av1_block, av1_obu, avif_scale, avif_yuv
 
 _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                b"urn:mpeg:hevc:2015:auxid:1")
@@ -67,24 +74,30 @@ class _Stream:
     def left(self) -> int:
         return len(self.b) - self.at
 
+    def header(self):
+        """A child box's type and body size, checked to fit; the stream is
+        left at its body."""
+        head = self.left()
+        size, typ = self.uint(4), self.read(4)
+        if size == 1:
+            size = self.uint(8) - 16
+        elif size == 0:
+            size = self.left()
+        else:
+            size -= 8
+        if typ == b"uuid":
+            self.read(16)
+            size -= 16
+        if size < 0 or size > self.left():
+            raise _refuse(self.path, f"Box[{typ.decode('latin-1')}] is "
+                                     f"larger than what holds it "
+                                     f"({head} bytes)")
+        return typ, size
+
     def boxes(self):
         """The child boxes to the end, each one checked to fit."""
         while self.left():
-            head = self.left()
-            size, typ = self.uint(4), self.read(4)
-            if size == 1:
-                size = self.uint(8) - 16
-            elif size == 0:
-                size = self.left()
-            else:
-                size -= 8
-            if typ == b"uuid":
-                self.read(16)
-                size -= 16
-            if size < 0 or size > self.left():
-                raise _refuse(self.path, f"Box[{typ.decode('latin-1')}] is "
-                                         f"larger than what holds it "
-                                         f"({head} bytes)")
+            typ, size = self.header()
             yield typ, self.read(size)
 
 
@@ -136,26 +149,49 @@ def parse(blob: bytes, path: str) -> SimpleNamespace:
     if b"avif" not in m.ftyp and b"avis" not in m.ftyp:
         raise _refuse(path, "its ftyp box names neither avif nor avis")
     item = m.items.get(m.primary)
-    if m.primary is None or item is None or item.type is None:
+    if m.primary is None or item is None or item.type is None or \
+            _skipped(m, m.primary) and not item.unsupported:
         raise _refuse(path, "it has no primary item")
     if item.unsupported:
         raise _refuse(path, "the primary item has an essential property or "
                             "a construction method libavif does not know")
-    if item.type == b"av01":
-        for typ in (b"av1C", b"ispe"):
+    if item.type in (b"av01", b"grid"):
+        for typ in (b"av1C", b"ispe") if item.type == b"av01" else (
+                b"ispe",):
             if _prop(m, m.primary, typ) is None:
                 raise _refuse(path, "the primary item has no "
                                     f"{typ.decode()} property")
-        _check_depths(m, m.primary, path)
-    alpha = _alpha_of(m, m.primary)
-    if alpha is not None and m.items[alpha].type == b"av01":
-        _check_depths(m, alpha, path)
+    # avifReadColorProperties: one nclx and one ICC profile at most
+    kinds = [b[:4] for t, b in item.props if t == b"colr"]
+    if kinds.count(b"nclx") > 1 or sum(kinds.count(k) for k in (
+            b"prof", b"rICC")) > 1:
+        raise _refuse(path, "the primary item has two colr boxes of a kind")
+    for k in m.items:       # alpha items too: Pillow keeps that rule strict
+        if not _skipped(m, k) and _prop(m, k, b"ispe") is None:
+            raise _refuse(path, f"item {k} has no ispe property")
+    # avifDecoderReset: the colour grid, the alpha (a grid of the cells'
+    # own alpha items where the colour grid has none), the alpha grid,
+    # then each image's configuration and depths
+    m.grids = {}
+    if item.type == b"grid":
+        m.grids[m.primary] = _grid(blob, m, m.primary, path)
+    m.alpha = _alpha_of(m, m.primary)
+    if m.alpha is None and item.type == b"grid":
+        m.alpha = _cell_alphas(m, path)
+    elif m.alpha is not None and m.items[m.alpha].type == b"grid":
+        m.grids[m.alpha] = _grid(blob, m, m.alpha, path)
+    for it in (m.primary, m.alpha):
+        if it is not None:
+            _check_depths(m, it, path)
     return m
 
 
 def _check_depths(m: SimpleNamespace, item: int, path: str):
-    """avifDecoderItemValidateProperties: each pixi depth is av1C's."""
-    av1c, pixi = _prop(m, item, b"av1C"), _prop(m, item, b"pixi")
+    """avifDecoderItemValidateProperties: each pixi depth is av1C's (a
+    grid's: its first cell's)."""
+    grid = m.grids.get(item)
+    av1c = _prop(m, grid.cells[0] if grid else item, b"av1C")
+    pixi = _prop(m, item, b"pixi")
     if av1c is None:
         raise _refuse(path, f"item {item} has no av1C property")
     b = av1c[2]             # twelve_bit first, as libavif reads it
@@ -204,12 +240,23 @@ def _meta(st: _Stream, m: SimpleNamespace, path: str):
         elif typ == b"iprp":
             _iprp(sub, m, path)
         elif typ == b"iref":
-            wide = sub.version((0, 1))
-            step = 4 if wide else 2
-            for t2, b2 in sub.boxes():
-                r = _Stream(b2, path, "iref")
-                src, cnt = r.uint(step), r.uint(2)
-                m.refs.append((t2, src, [r.uint(step) for _ in range(cnt)]))
+            # libavif reads each reference on from the iref box's own
+            # stream, whatever its box's size says, and skips an iref of a
+            # version it does not know
+            v = sub.uint(1)
+            sub.read(3)
+            step = 4 if v else 2
+            while v in (0, 1) and sub.left():
+                t2, _ = sub.header()
+                src, cnt = sub.uint(step), sub.uint(2)
+                if t2 == b"dimg" and any(t == t2 and s == src
+                                         for t, s, _ in m.refs):
+                    raise _refuse(path, "Box[iref] has two dimg boxes from "
+                                        f"item {src}")
+                dst = [sub.uint(step) for _ in range(cnt)]
+                if not src or 0 in dst:
+                    raise _refuse(path, "Box[iref] names item 0")
+                m.refs.append((t2, src, dst))
     if first:
         raise _refuse(path, "Box[meta] is empty")
 
@@ -251,7 +298,10 @@ def _iloc(st: _Stream, m: SimpleNamespace, path: str):
         if it.extents is not None:
             raise _refuse(path, "an item has two sets of extents")
         if v in (1, 2):
-            it.method = st.uint(2) & 15
+            x = st.uint(2)
+            if x >> 4:
+                raise _refuse(path, "Box[iloc] has a nonzero reserved field")
+            it.method = x
             if it.method not in (0, 1):
                 it.unsupported = True
         st.uint(2)                                   # data_reference_index
@@ -348,29 +398,67 @@ def _skipped(m: SimpleNamespace, item: int) -> bool:
     it = m.items.get(item)
     return it is None or not it.extents or not sum(
         ln for _, ln in it.extents) or it.unsupported or it.type not in (
-            b"av01", b"grid") or any(t == b"thmb" and s == item
-                                     for t, s, _ in m.refs)
+            b"av01", b"grid") or _target(m, b"thmb", item) is not None
+
+
+def _target(m: SimpleNamespace, typ: bytes, src: int):
+    """The item a reference of type `typ` from `src` names, as libavif
+    keeps it: one per item and type, the last its iref boxes list."""
+    out = None
+    for t, s, d in m.refs:
+        if t == typ and s == src and d:
+            out = d[-1]
+    return out
 
 
 def _alpha_of(m: SimpleNamespace, item: int):
-    """The item's alpha, as libavif finds it: an auxl item whose auxC names
-    alpha, skipping the items libavif skips."""
-    for typ, src, dst in m.refs:
-        if typ == b"auxl" and item in dst and (_prop(m, src, b"auxC") or
-                                               b"")[4:].startswith(
-                                                   _ALPHA_URNS) and \
-                not _skipped(m, src):
+    """The item's alpha, as libavif finds it: the first item (in its
+    order) whose auxl names this one and whose auxC names alpha, skipping
+    the items libavif skips."""
+    for src in m.items:
+        if _is_alpha(m, src, item) and not _skipped(m, src):
             return src
     return None
 
 
+def _is_alpha(m: SimpleNamespace, item: int, of: int) -> bool:
+    return _target(m, b"auxl", item) == of and (
+        _prop(m, item, b"auxC") or b"")[4:].startswith(_ALPHA_URNS)
+
+
+def _cell_alphas(m: SimpleNamespace, path: str):
+    """libavif's avifMetaFindAlphaItem for a colour grid with no alpha
+    item: where each cell (in the items' order) has one alpha item of its
+    own, an alpha grid of those made up under a new item ID, the colour
+    grid's shape; None where a cell has none; refused where a cell has two
+    or its alpha is itself some grid's cell."""
+    grid = m.grids[m.primary]
+    cells = [k for k in m.items if k in grid.cells]
+    in_grids = {x for t, _, d in m.refs if t == b"dimg" for x in d}
+    alphas = []
+    for c in cells:
+        own = [a for a in m.items if _is_alpha(m, a, c)]
+        if len(own) > 1 or own and own[0] in in_grids:
+            raise _refuse(path, f"its grid's cell {c} has two alpha items, "
+                                "or its alpha is a grid's cell")
+        if not own:
+            return None
+        alphas += own
+    # libavif's first ID past every item, iref's too
+    made = max([*m.items] + [x for _, s, d in m.refs for x in (s, *d)]) + 1
+    m.grids[made] = SimpleNamespace(rows=grid.rows, cols=grid.cols,
+                                    w=grid.w, h=grid.h, cells=alphas)
+    return made
+
+
 def avif_header(blob: bytes, path: str) -> Tuple[str, int, int]:
     """libavif's size and Pillow's mode of an AVIF still: the primary
-    item's ispe, "RGBA" where an auxiliary alpha item refers to it."""
+    item's ispe, "RGBA" where an auxiliary alpha item refers to it (or,
+    for a grid, to each of its cells)."""
     m = parse(blob, path)
     ispe = _prop(m, m.primary, b"ispe")
     w, h = struct.unpack(">II", ispe[4:12])
-    return ("RGBA" if _alpha_of(m, m.primary) is not None else "RGB"), h, w
+    return ("RGBA" if m.alpha is not None else "RGB"), h, w
 
 
 def _inverse_alpha() -> np.ndarray:
@@ -404,12 +492,124 @@ def _item_bytes(blob: bytes, m: SimpleNamespace, item: int, path: str):
         raise _refuse(path, f"item {item} is in a missing Box[idat]")
     out = bytearray()
     for off, ln in it.extents:
-        if ln == 0:
-            ln = len(src) - off
         if off + ln > len(src):
             raise _refuse(path, f"item {item} runs past the file")
         out += src[off:off + ln]
     return bytes(out)
+
+
+def _grid(blob: bytes, m: SimpleNamespace, item: int, path: str):
+    """A grid item's ImageGrid payload and cells, checked as libavif's
+    avifParseImageGridBox, avifDecoderItemReadAndParse,
+    avifDecoderGenerateImageGridTiles and avifDecoderItemValidateProperties
+    check them when Pillow opens the file."""
+    st = _Stream(_item_bytes(blob, m, item, path), path, "grid")
+    if st.uint(1):
+        raise _refuse(path, "Box[grid] has a version other than 0")
+    wide = st.uint(1) & 1
+    rows, cols = st.uint(1) + 1, st.uint(1) + 1
+    w, h = st.uint(4 if wide else 2), st.uint(4 if wide else 2)
+    if not w or not h:
+        raise _refuse(path, f"its grid is {w} x {h}")
+    if w > 32768 or h > 32768 or w * h > 16384 * 16384:
+        raise _refuse(path, f"its grid of {w} x {h} is past libavif's "
+                            "limits")
+    if st.left():
+        raise _refuse(path, "Box[grid] has bytes past its fields")
+    # the dimg reference of each item, the last one where several name it
+    dimg = {}
+    for typ, src, dst in m.refs:
+        if typ == b"dimg":
+            for k, x in enumerate(dst):
+                dimg[x] = (src, k)
+    cells = sorted((k, x) for x, (src, k) in dimg.items() if src == item)
+    n = rows * cols
+    if len(cells) != n or any(k >= n for k, _ in cells):
+        raise _refuse(path, f"its grid of {rows} x {cols} cells names "
+                            f"{len(cells)} of them")
+    cells = [x for _, x in cells]
+    its = [m.items.get(x) for x in cells]
+    if not any(it is not None and it.type == b"av01" for it in its):
+        raise _refuse(path, "its grid has no AV1 cell")
+    for x, it in zip(cells, its):
+        if it is None or it.type != b"av01":
+            raise _refuse(path, f"its grid's cell {x} is not an AV1 item")
+        if it.unsupported:
+            raise _refuse(path, f"its grid's cell {x} has an essential "
+                                "property libavif does not know")
+    first = _prop(m, cells[0], b"av1C")
+    if first is None:
+        raise _refuse(path, "its grid's first cell has no av1C property")
+    for x in cells:
+        av1c = _prop(m, x, b"av1C")
+        if av1c is None or av1c[1:3] != first[1:3]:
+            raise _refuse(path, f"its grid's cell {x} has another av1C "
+                                "than the first")
+    return SimpleNamespace(rows=rows, cols=cols, w=w, h=h, cells=cells)
+
+
+def _planes(blob: bytes, m: SimpleNamespace, item: int, path: str,
+            alpha: bool = False, ctx: SimpleNamespace = None):
+    """(planes, sequence headers) of an AV1 or grid item as libavif gives
+    them: an AV1 frame scaled to its ispe (avifImageScale); a grid's cells
+    so scaled, then `assemble`d; a header for each cell. `ctx`, where the
+    cells share one dav1d context, holds the sequence header that context
+    kept from the cell before (a cell without one decodes with it)."""
+    grid = m.grids.get(item)
+    if grid is None:
+        w, h = struct.unpack(">II", _prop(m, item, b"ispe")[4:12])
+        planes, seq = _decode_item(blob, m, item, path, ctx)
+        if planes[0].shape != (h, w):
+            # avifImageScaleWithLimit's and ScalePlane's limits
+            if not w or not h or w > 32768 or h > 32768 or \
+                    w * h > 16384 * 16384 or max(planes[0].shape) > 16384:
+                raise _refuse(path, f"its AV1 frame cannot be scaled to "
+                                    f"its ispe of {w} x {h}")
+            planes = avif_scale.scale_planes(planes, seq.ssx, seq.ssy, w, h)
+        return planes, [seq]
+    cells = []
+    for x in grid.cells:
+        planes, (seq,) = _planes(blob, m, x, path, ctx=ctx)
+        cells.append((planes, seq))
+    return assemble(grid, cells, path, alpha), [q for _, q in cells]
+
+
+def assemble(grid: SimpleNamespace, cells, path: str, alpha: bool = False):
+    """A grid's frame from its cells' (planes, sequence header), as
+    libavif's avifDecoderDataFillImageGrid: the cells checked to match
+    (size, depth, layout; a colour grid's range and colour description
+    too), to be 64 or more and even where chroma is subsampled, and to
+    cover the output without a spare row or column; laid side by side and
+    cropped to the output size."""
+    seq = cells[0][1]
+
+    def key(planes, s):
+        k = (planes[0].shape, s.bit_depth)
+        return k if alpha else k + (s.mono, s.ssx, s.ssy, s.full_range,
+                                    s.cp, s.tc, s.mc)
+    if any(key(*c) != key(*cells[0]) for c in cells):
+        raise _refuse(path, "its grid's cells do not match (size, format, "
+                            "range or colour description)")
+    ch, cw = cells[0][0][0].shape
+    if cw * grid.cols < grid.w or ch * grid.rows < grid.h:
+        raise _refuse(path, "its grid's cells do not cover its output")
+    if cw * (grid.cols - 1) >= grid.w or ch * (grid.rows - 1) >= grid.h:
+        raise _refuse(path, "its grid's last row or column of cells lies "
+                            "outside its output")
+    ssx = 0 if alpha or seq.mono else seq.ssx
+    ssy = 0 if alpha or seq.mono else seq.ssy
+    if cw < 64 or ch < 64 or ssx and (grid.w | cw) & 1 or \
+            ssy and (grid.h | ch) & 1:
+        raise _refuse(path, f"its grid's cells of {cw} x {ch} are below 64 "
+                            "or not even where chroma is subsampled")
+    out = []
+    for p in range(len(cells[0][0])):
+        sx, sy = (ssx, ssy) if p else (0, 0)
+        whole = np.block([[cells[r * grid.cols + c][0][p]
+                           for c in range(grid.cols)]
+                          for r in range(grid.rows)])
+        out.append(whole[:(grid.h + sy) >> sy, :(grid.w + sx) >> sx])
+    return out
 
 
 def decode_avif(blob: bytes, path: str) -> np.ndarray:
@@ -417,66 +617,81 @@ def decode_avif(blob: bytes, path: str) -> np.ndarray:
     m = parse(blob, path)
     item = m.primary
     typ = m.items[item].type
-    if typ == b"grid":
-        raise ValueError(f"{path}: AVIF with a grid image is not decoded by "
-                         "the port yet (libavif's grid derived item)")
-    if typ != b"av01":
+    if typ not in (b"av01", b"grid"):
         raise _refuse(path, f"the primary item has type {typ!r}")
-    ispe = _prop(m, item, b"ispe")
-    w, h = struct.unpack(">II", ispe[4:12])
-    alpha = _alpha_of(m, item)
-    planes, seq = _decode_item(blob, m, item, w, h, path)
-    mc, full_range = colour(m, item, seq)
-    rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
-                          full_range, path)
+    w, h = struct.unpack(">II", _prop(m, item, b"ispe")[4:12])
+    alpha = m.alpha
+    # avifTilesCanBeDecodedWithSameCodecInstance: one dav1d context for
+    # every cell unless the colour or the alpha is a single item and the
+    # other is there too
+    counts = [len(m.grids[i].cells) if i in m.grids else 1
+              for i in (item, alpha) if i is not None]
+    ctx = SimpleNamespace(seq=None) if len(counts) == 1 or 1 not in counts \
+        else None
+    planes, seqs = _planes(blob, m, item, path, ctx=ctx)
+    seq = seqs[0]
+    mc, full_range, cp = colour(m, item, seq)
+    a, prem = None, False
     if alpha is not None:
-        ispe = _prop(m, alpha, b"ispe")
-        if ispe is None or m.items[alpha].type != b"av01":
-            raise _refuse(path, "its alpha item is not an AV1 image with "
-                                "a size")
-        aw, ah = struct.unpack(">II", ispe[4:12])
-        if (aw, ah) != (w, h):
-            raise ValueError(f"{path}: AVIF with an alpha item of another "
-                             "size than its image is not decoded by the "
-                             "port yet (libavif's alpha scaling)")
         # libavif decodes the alpha item whatever its use (a damaged one
         # fails the file); convert("RGB") keeps only a premultiplied
         # image's division by it
-        a = _decode_item(blob, m, alpha, w, h, path)[0][0]
-        if any(t == b"prem" and (s == alpha or alpha in d)
-               for t, s, d in m.refs):
+        a = _planes(blob, m, alpha, path, alpha=True, ctx=ctx)[0][0]
+        if a.shape != planes[0].shape:
+            raise _refuse(path, "its alpha plane is not the size of its "
+                                "colour planes")
+        prem = _target(m, b"prem", item) == alpha
+    rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
+                          full_range, path, cp, a, prem)
+    if alpha is not None:
+        if prem and not avif_yuv.divides_alpha(seq.ssx, seq.ssy, seq.mono,
+                                               mc, cp, full_range):
             rgb = unpremultiply(rgb, a)
-    return rgb
+        rgb = np.dstack([rgb, a])
+    return _as_opened(rgb, w, h, path)
+
+
+def _as_opened(px: np.ndarray, w: int, h: int, path: str) -> np.ndarray:
+    """Pillow's pixels of libavif's RGB(A) buffer: Pillow sizes the image
+    by ispe and reads the buffer as rows of that width, so a grid whose
+    output is another size comes out re-strided, or, where the buffer is
+    short, refused."""
+    if px.shape[:2] != (h, w):
+        n = h * w * px.shape[2]
+        if px.size < n:
+            raise ValueError(f"{path}: AVIF: its grid's output is smaller "
+                             "than its ispe (Pillow refuses it: image file "
+                             "is truncated)")
+        px = px.reshape(-1)[:n].reshape(h, w, -1)
+    return np.ascontiguousarray(px[..., :3])
 
 
 def colour(m: SimpleNamespace, item: int, seq: SimpleNamespace):
-    """(matrix coefficients, full range) as libavif takes them: from the
-    item's colr nclx box where it has one, else from the sequence
-    header."""
+    """(matrix coefficients, full range, colour primaries) as libavif takes
+    them: from the item's colr nclx box where it has one (a grid's own,
+    not its cells'), else from the sequence header (a grid's first
+    cell's)."""
     nclx = _prop(m, item, b"colr", b"nclx")
     if nclx is not None and len(nclx) >= 11:
-        return struct.unpack(">H", nclx[8:10])[0], nclx[10] >> 7
-    return seq.mc, seq.full_range
+        return (struct.unpack(">H", nclx[8:10])[0], nclx[10] >> 7,
+                struct.unpack(">H", nclx[4:6])[0])
+    return seq.mc, seq.full_range, seq.cp
 
 
-def _decode_item(blob: bytes, m: SimpleNamespace, item: int, w: int,
-                 h: int, path: str):
-    """(planes, sequence header) of an AV1 item of size w x h."""
+def _decode_item(blob: bytes, m: SimpleNamespace, item: int, path: str,
+                 ctx: SimpleNamespace = None):
+    """(planes, sequence header) of an AV1 item, at its frame's size,
+    through the shared dav1d context `ctx` where there is one."""
     data = _item_bytes(blob, m, item, path)
-    seq, frame, tiles = av1_obu.parse_av1(data, path)
+    seq, frame, tiles = av1_obu.parse_av1(data, path, ctx and ctx.seq)
+    # dav1d reads the data after the frame too
+    kept = av1_obu.read_rest(data[tiles[-1][3]:], seq, path)
+    if ctx:
+        ctx.seq = kept
     if seq.bit_depth != 8:
         raise ValueError(f"{path}: AVIF with {seq.bit_depth}-bit samples is "
                          "not decoded by the port yet (dav1d's high bit "
                          "depth)")
-    pixi = _prop(m, item, b"pixi")
-    if pixi is not None and (pixi[4] != seq.num_planes or any(
-            d != seq.bit_depth for d in pixi[5:5 + pixi[4]])):
-        raise _refuse(path, "its pixi property does not describe the AV1 "
-                            "frame")
-    if (frame.width, frame.height) != (w, h):
-        raise ValueError(f"{path}: AVIF with an AV1 frame of another size "
-                         "than ispe is not decoded by the port yet "
-                         "(libavif's scaling to ispe)")
     try:
         planes = av1_block.decode_frame(seq, frame, tiles, data, path)
     except (IndexError, KeyError) as e:

@@ -15,8 +15,18 @@ between rows, the edges as its "Any" wrappers leave them. 4:0:0 goes
 through libavif's own grey path: Y as it is in full range, in limited
 range avifLimitedToFullY's integer rescaling of 16..235. The
 identity matrix (MC 0, lossless RGB) goes through libavif's own path:
-G = Y, B = U, R = V in full range. Other matrices, and identity in
-limited range, are not decoded by the port yet; the ones libavif never
+G = Y, B = U, R = V in full range. BT.2020 (MC 9) goes through libyuv's
+2020 / V2020 constants; the chroma-derived matrix (MC 12) through
+libyuv's BT.709 constants over BT.709 or unspecified primaries, BT.601's
+over BT.470BG / BT.601 ones and BT.2020's over BT.2020 ones.
+
+libyuv knows no other matrix, so libavif converts the rest itself
+(`builtin`, reformat.c's avifImageYUV8ToRGB8Color and
+avifImageYUVAnyToRGBAnySlow): FCC (4), SMPTE 240 (7), YCgCo in full range
+(8), identity in limited range (0), MC 12 over other primaries (kr and kb
+derived from them, H.273 equations 32-37) and unlisted values such as 15
+(BT.601's kr and kb), in float32 with its own bilinear chroma weights
+(9, 3, 3, 1 / 16, the nearest sample first). The ones libavif never
 converts (`refused_matrix`) are refused as Pillow refuses them.
 """
 from __future__ import annotations
@@ -28,6 +38,26 @@ _I601 = (18997, -1160, 128, 25, 52, 102)
 _JPEG = (16320, 32, 113, 22, 46, 90)
 _H709 = (18997, -1160, 128, 14, 34, 115)
 _F709 = (16320, 32, 119, 12, 30, 101)
+_2020 = (19003, -1160, 128, 12, 42, 107)
+_V2020 = (16320, 32, 120, 11, 37, 94)
+
+# libavif's matrixCoefficientsTables (kr, kb) and avifColorPrimariesTables
+# (rx, ry, gx, gy, bx, by, wx, wy), float literals
+_KR_KB = {1: (0.2126, 0.0722), 4: (0.30, 0.11), 5: (0.299, 0.114),
+          6: (0.299, 0.114), 7: (0.212, 0.087), 9: (0.2627, 0.0593)}
+_BT709 = (0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.3290)
+_PRIMARIES = {
+    1: _BT709, 4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+    12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.3290)}
+F32 = np.float32
 
 
 def _linear_up(s: np.ndarray, n: int) -> np.ndarray:
@@ -89,8 +119,128 @@ def refused_matrix(mc: int, full_range: int, subsampled: bool) -> bool:
         mc == 8 and not full_range) or (mc == 0 and subsampled)
 
 
+def libyuv_constants(mc: int, cp: int, full_range: int):
+    """The YuvConstants libavif hands libyuv (reformat_libyuv.c), None
+    where libyuv has none and libavif converts itself."""
+    if mc == 12:                        # chroma-derived: by the primaries
+        mc = {1: 1, 2: 1, 5: 6, 6: 6, 9: 9}.get(cp, -1)
+    if mc in (2, 5, 6):                 # unspecified: libavif takes BT.601
+        return _JPEG if full_range else _I601
+    if mc == 1:
+        return _F709 if full_range else _H709
+    if mc == 9:
+        return _V2020 if full_range else _2020
+    return None
+
+
+def kr_kb(mc: int, cp: int):
+    """avifCalcYUVCoefficients in float32: the table's kr and kb (BT.601's
+    where the matrix is not listed), or for MC 12 kr and kb from the
+    primaries (BT.709's where they are not listed), kg = 1 - kr - kb."""
+    one = F32(1)
+    if mc == 12:
+        rx, ry, gx, gy, bx, by, wx, wy = (F32(v) for v in _PRIMARIES.get(
+            cp, _BT709))
+        rz, gz = one - (rx + ry), one - (gx + gy)
+        bz, wz = one - (bx + by), one - (wx + wy)
+        den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz) +
+                    bx * (ry * gz - gy * rz))
+        kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz) +
+                    wz * (gx * by - bx * gy))) / den
+        kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz) +
+                    wz * (rx * gy - gx * ry))) / den
+    else:
+        kr, kb = (F32(v) for v in _KR_KB.get(mc, (0.299, 0.114)))
+    return kr, one - kr - kb, kb
+
+
+def _builtin_chroma(t: np.ndarray, ssx: int, ssy: int, h: int, w: int):
+    """avifImageYUVAnyToRGBAnySlow's chroma at each pixel: the nearest
+    sample 9/16, its neighbours across and down 3/16 each, the diagonal
+    1/16 (a neighbour past the edge, or down in 4:2:2, is the sample
+    itself), summed in that order in float32."""
+    i, j = np.arange(w), np.arange(h)
+    ci, cj = i >> ssx, j >> ssy
+    ai = np.where((i == 0) | ((i == w - 1) & (i % 2 == 1)), 0,
+                  np.where(i % 2 == 1, 1, -1)) if ssx else 0 * i
+    aj = np.where((j == 0) | ((j == h - 1) & (j % 2 == 1)) | (ssy == 0),
+                  0, np.where(j % 2 == 1, 1, -1))
+    r0, r1 = cj[:, None], (cj + aj)[:, None]
+    c0, c1 = ci[None], (ci + ai)[None]
+    return (t[r0, c0] * F32(9 / 16) + t[r0, c1] * F32(3 / 16) +
+            t[r1, c0] * F32(3 / 16) + t[r1, c1] * F32(1 / 16))
+
+
+def builtin(planes, ssx: int, ssy: int, mc: int, cp: int,
+            full_range: int, alpha: np.ndarray = None) -> np.ndarray:
+    """libavif's own 8-bit YUV to RGB in float32: unorm tables
+    ((v - bias) / range), chroma upsampled as `_builtin_chroma`, then
+    identity (G = Y, B = Cb, R = Cr), YCgCo or kr / kb's matrix (grey: Y
+    for all three), clamped to [0, 1], where `alpha` is given divided by
+    it (a = alpha / 255: 0 where a is 0, min(c / a, 1) where a < 1), and
+    stored as (uint8)(0.5 + 255 x)."""
+    one, two = F32(1), F32(2)
+    ramp = np.arange(256, dtype=F32)
+    if full_range:
+        ty = ramp / F32(255)
+        tuv = (ramp - F32(128)) / F32(255)
+    else:
+        ty = (ramp - F32(16)) / F32(219)
+        tuv = (ramp - F32(128)) / F32(224)
+    if mc == 0:                         # identity: chroma as luma
+        tuv = ty
+    y = ty[planes[0]]
+    h, w = y.shape
+    if len(planes) == 1:                # grey
+        r = g = b = y
+    else:
+        if ssx or ssy:
+            cb = _builtin_chroma(tuv[planes[1]], ssx, ssy, h, w)
+            cr = _builtin_chroma(tuv[planes[2]], ssx, ssy, h, w)
+        else:
+            cb, cr = tuv[planes[1]], tuv[planes[2]]
+        if mc == 0:
+            r, g, b = cr, y, cb
+        elif mc == 8:
+            t = y - cb
+            r, g, b = t + cr, y + cb, t - cr
+        else:
+            kr, kg, kb = kr_kb(mc, cp)
+            r = y + (two * (one - kr)) * cr
+            b = y + (two * (one - kb)) * cb
+            g = y - ((two * ((kr * (one - kr) * cr) +
+                             (kb * (one - kb) * cb))) / kg)
+    rgb = np.clip(np.stack([r, g, b], -1), F32(0), one)
+    if alpha is not None:
+        a = (alpha.astype(F32) / F32(255))[..., None]
+        part = np.minimum(np.divide(rgb, a, out=np.zeros_like(rgb),
+                                    where=a > 0), one)
+        rgb = np.where(a < one, part, rgb)
+    return (F32(0.5) + rgb * F32(255)).astype(np.uint8)
+
+
+def divides_alpha(ssx: int, ssy: int, mono: int, mc: int, cp: int,
+                  full_range: int) -> bool:
+    """Whether libavif converts Pillow's RGBA of a premultiplied image
+    by avifImageYUVAnyToRGBAnySlow, dividing the colour by the alpha in
+    float32 as it goes (`builtin`'s `alpha`), rather than converting and
+    then running libyuv's ARGBUnattenuate (`avif.unpremultiply`): where
+    neither libyuv nor a fast path of its own takes the image (chroma
+    subsampled, YCgCo, identity in limited range; grey only for YCgCo)."""
+    if mono:
+        return mc == 8
+    return libyuv_constants(mc, cp, full_range) is None and (
+        bool(ssx or ssy) or mc == 8 or (mc == 0 and not full_range))
+
+
 def to_rgb(planes, ssx: int, ssy: int, mono: int, mc: int,
-           full_range: int, path: str) -> np.ndarray:
+           full_range: int, path: str, cp: int = 2,
+           alpha: np.ndarray = None, prem: bool = False) -> np.ndarray:
+    """Pillow's RGB of 8-bit planes. `alpha`, where the image has one:
+    Pillow asks for RGBA, and libavif then converts grey through libyuv's
+    I400ToARGBMatrix (identity as BT.601) where it has constants; `prem`:
+    the colour is divided by it where `divides_alpha` says (elsewhere the
+    caller runs `avif.unpremultiply` after)."""
     y = planes[0].astype(np.int32)
     h, w = y.shape
     if refused_matrix(mc, full_range, not mono and (ssx or ssy)):
@@ -98,24 +248,22 @@ def to_rgb(planes, ssx: int, ssy: int, mono: int, mc: int,
                          f"{'' if full_range else 'in limited range '}"
                          "(libavif refuses to convert them, and so does "
                          "Pillow)")
+    if prem and divides_alpha(ssx, ssy, mono, mc, cp, full_range):
+        return builtin(planes[:1] if mono else planes, ssx, ssy, mc, cp,
+                       full_range, alpha)
     if mono:
-        if not full_range:
+        k = libyuv_constants(mc or 6, cp, full_range)
+        if alpha is not None and k is not None:
+            y = np.clip((((y * 0x0101 * k[0]) >> 16) + k[1]) >> 6, 0, 255)
+        elif not full_range:
             y = ((np.clip(y, 16, 235) - 16) * 255 + 109) // 219
         return np.repeat(y.astype(np.uint8)[..., None], 3, -1)
-    if mc == 0:
-        if not full_range:
-            raise ValueError(f"{path}: AVIF with the identity matrix "
-                             "in limited range is not decoded by the port "
-                             "yet (libavif's built-in conversion)")
+    if mc == 0 and full_range:
         return np.stack([planes[2], planes[0], planes[1]], -1).astype(
             np.uint8)
-    if mc in (2, 5, 6):                 # unspecified: libavif takes BT.601
-        k = _JPEG if full_range else _I601
-    elif mc == 1:
-        k = _F709 if full_range else _H709
-    else:
-        raise ValueError(f"{path}: AVIF with matrix coefficients {mc} is not "
-                         "decoded by the port yet (libavif's conversion)")
+    k = libyuv_constants(mc, cp, full_range)
+    if k is None:
+        return builtin(planes, ssx, ssy, mc, cp, full_range)
     if ssx and ssy:
         u = upsample_420(planes[1], h, w)
         v = upsample_420(planes[2], h, w)

@@ -50,7 +50,8 @@ FIXTURES = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 OFF = {"enable-cdef": "0", "enable-restoration": "0",
        "loopfilter-control": "0"}
 CODED = ("y_coded_lossy_512_420.avif", "z_coded_lossless_444.avif",
-         "x_coded_default_512_420.avif", "w_coded_grain_512_420.avif")
+         "x_coded_default_512_420.avif", "w_coded_grain_512_420.avif",
+         "grid_coded_1024_420.avif")
 SCREEN = {"tune-content": "screen", "enable-intrabc": "1"}
 LISTING_MIN_SIZE = 20
 
@@ -331,6 +332,242 @@ def corpus():
     }
 
 
+def libavif_lib():
+    lib = ctypes.CDLL(libavif())
+    for n in ("avifEncoderCreate", "avifImageCreate", "avifDecoderCreate",
+              "avifImageCreateEmpty"):
+        getattr(lib, n).restype = ctypes.c_void_p
+    return lib
+
+
+_LAYOUTS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}
+
+
+def _avif_image(lib, px, subsampling, full, cicp, premultiplied):
+    """An avifImage (offsets of libavif 1.3.0: yuvRange 16,
+    alphaPremultiplied 80, CICP 104) converted from RGB(A) by
+    avifImageRGBToYUV; returns it and the pixel buffer it borrows."""
+    c = ctypes
+    h, w, ch = px.shape
+    im = lib.avifImageCreate(w, h, 8, _LAYOUTS[subsampling])
+    struct.pack_into("<I", (c.c_char * 4).from_address(im + 16), 0,
+                     int(full))
+    struct.pack_into("<I", (c.c_char * 4).from_address(im + 80), 0,
+                     int(premultiplied))
+    struct.pack_into("<3H", (c.c_char * 6).from_address(im + 104), 0, *cicp)
+    rgb = c.create_string_buffer(128)              # avifRGBImage
+    lib.avifRGBImageSetDefaults(rgb, c.c_void_p(im))
+    struct.pack_into("<I", rgb, 12, 0 if ch == 3 else 1)   # RGB / RGBA
+    buf = c.create_string_buffer(np.ascontiguousarray(px).tobytes())
+    struct.pack_into("<Q", rgb, 48, c.addressof(buf))
+    struct.pack_into("<I", rgb, 56, w * ch)
+    assert lib.avifImageRGBToYUV(c.c_void_p(im), rgb) == 0
+    return im, buf
+
+
+def libavif_encode(cells, subsampling="4:2:0", full=True, cicp=(1, 13, 6),
+                   quality=75, speed=6, premultiplied=False, advanced=None):
+    """libavif's encoder through its API (ctypes): `cells`, rows of (h, w,
+    3 or 4) uint8 arrays, as one still (avifEncoderAddImage) or a grid
+    (avifEncoderAddImageGrid), at the CICP and range given (the matrix
+    Pillow's save cannot set), one thread, auto tiling as Pillow sets it
+    (avifEncoder offsets: maxThreads 4, speed 8, quality and qualityAlpha
+    32, autoTiling 64)."""
+    c = ctypes
+    lib = libavif_lib()
+    enc = lib.avifEncoderCreate()
+    struct.pack_into("<ii", (c.c_char * 8).from_address(enc + 4), 0, 1,
+                     speed)
+    struct.pack_into("<ii", (c.c_char * 8).from_address(enc + 32), 0,
+                     quality, quality)
+    struct.pack_into("<i", (c.c_char * 4).from_address(enc + 64), 0, 1)
+    for k, v in (advanced or {}).items():
+        assert lib.avifEncoderSetCodecSpecificOption(
+            c.c_void_p(enc), k.encode(), v.encode()) == 0
+    keep = [_avif_image(lib, px, subsampling, full, cicp, premultiplied)
+            for row in cells for px in row]
+    ims = (c.c_void_p * len(keep))(*[k[0] for k in keep])
+    try:
+        if len(keep) == 1:
+            r = lib.avifEncoderAddImage(c.c_void_p(enc), c.c_void_p(ims[0]),
+                                        c.c_uint64(1), 2)   # SINGLE
+        else:
+            r = lib.avifEncoderAddImageGrid(c.c_void_p(enc), len(cells[0]),
+                                            len(cells), ims, 2)
+        assert r == 0, r
+        out = (c.c_uint64 * 2)()                   # avifRWData
+        assert lib.avifEncoderFinish(c.c_void_p(enc), out) == 0
+        blob = c.string_at(out[0], out[1])
+        lib.avifRWDataFree(out)
+        return blob
+    finally:
+        for im, _ in keep:
+            lib.avifImageDestroy(c.c_void_p(im))
+        lib.avifEncoderDestroy(c.c_void_p(enc))
+
+
+def items_of(blob):
+    """A file's items, references and primary item, as `mux` writes them
+    back: each item's type, data, properties [(type, body, essential)]
+    and whether its data goes to idat."""
+    m = avif.parse(blob, "x")
+    items = {k: dict(type=it.type, data=avif._item_bytes(blob, m, k, "x"),
+                     props=[(t, b, t == b"av1C") for t, b in it.props],
+                     idat=False) for k, it in sorted(m.items.items())}
+    return dict(items=items, refs=[list(r) for r in m.refs],
+                primary=m.primary)
+
+
+def mux(f):
+    """A test-only writer of `items_of`'s dict: ftyp, meta (hdlr, pitm,
+    iloc version 1 with construction methods 0 and 1, iinf, iref, iprp,
+    idat) and mdat."""
+    ids = sorted(f["items"])
+    props, assoc = [], {}
+    for k in ids:
+        for t, b, ess in f["items"][k]["props"]:
+            if (t, b) not in props:
+                props.append((t, b))
+            assoc.setdefault(k, []).append((props.index((t, b)) + 1, ess))
+    ipco = _box(b"ipco", b"".join(_box(t, b) for t, b in props))
+    ipma = struct.pack(">I", len(assoc)) + b"".join(
+        struct.pack(">HB", k, len(assoc[k])) + bytes(
+            i | (0x80 if e else 0) for i, e in assoc[k]) for k in sorted(
+                assoc))
+    iprp = _box(b"iprp", ipco + _full(b"ipma", 0, 0, ipma))
+    hdlr = _full(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(13))
+    pitm = _full(b"pitm", 0, 0, struct.pack(">H", f["primary"]))
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", len(ids)) + b"".join(
+        _full(b"infe", 2, 0, struct.pack(">HH", k, 0) +
+              f["items"][k]["type"] + b"\0") for k in ids))
+    iref = _full(b"iref", 0, 0, b"".join(
+        _box(t, struct.pack(">HH", s, len(d)) + b"".join(
+            struct.pack(">H", x) for x in d))
+        for t, s, d in f["refs"])) if f["refs"] else b""
+    idat = b"".join(f["items"][k]["data"] for k in ids
+                    if f["items"][k]["idat"])
+
+    def iloc(base):
+        body = bytes([0x44, 0]) + struct.pack(">H", len(ids))
+        at = {False: base, True: 0}
+        for k in ids:
+            it = f["items"][k]
+            body += struct.pack(">HHHHII", k, int(it["idat"]), 0, 1,
+                                at[it["idat"]], len(it["data"]))
+            at[it["idat"]] += len(it["data"])
+        return _full(b"iloc", 1, 0, body)
+    ftyp = _box(b"ftyp", b"avif" + bytes(4) + b"mif1avifmiaf")
+    rest = iinf + iref + iprp + (_box(b"idat", idat) if idat else b"")
+    size = len(_full(b"meta", 0, 0, hdlr + pitm + iloc(0) + rest))
+    meta = _full(b"meta", 0, 0, hdlr + pitm + iloc(len(ftyp) + size + 8) +
+                 rest)
+    return ftyp + meta + _box(b"mdat", b"".join(
+        f["items"][k]["data"] for k in ids if not f["items"][k]["idat"]))
+
+
+def set_prop(f, item, typ, body):
+    f["items"][item]["props"] = [(t, body if t == typ else b, e)
+                                 for t, b, e in f["items"][item]["props"]]
+
+
+def set_ispe(f, item, w, h):
+    set_prop(f, item, b"ispe", bytes(4) + struct.pack(">II", w, h))
+
+
+def quarters(img, rows, cols):
+    """img cut into rows x cols cells of equal size."""
+    h, w = img.shape[0] // rows, img.shape[1] // cols
+    return [[img[r * h:(r + 1) * h, c * w:(c + 1) * w] for c in range(cols)]
+            for r in range(rows)]
+
+
+def with_alpha(img, seed):
+    h, w = img.shape[:2]
+    y, x = np.mgrid[0:h, 0:w]
+    a = 60 + (x * 3 + y * 2) % 190 + np.random.RandomState(seed).randint(
+        0, 6, (h, w))
+    return np.dstack([img, a.astype(np.uint8)])
+
+
+def cropped_grid():
+    """A 2 x 2 grid of 64 x 64 4:2:0 cells whose ImageGrid output and ispe
+    say 120 x 112: libavif crops the assembled frame."""
+    f = items_of(libavif_encode(quarters(photo(128, 128, 103), 2, 2),
+                                quality=60))
+    f["items"][f["primary"]]["data"] = bytes([0, 0, 1, 1]) + struct.pack(
+        ">HH", 120, 112)
+    f["items"][f["primary"]]["idat"] = True       # construction method 1
+    set_ispe(f, f["primary"], 120, 112)
+    return mux(f)
+
+
+def scaled_frame(w, h, alpha_from=None):
+    """A 64 x 48 Pillow save with ispe rewritten to w x h (libavif scales
+    the frame to it), or an RGBA one whose alpha item's data is that of an
+    RGBA save of alpha_from (w, h): its alpha frame is scaled to 64 x
+    48."""
+    if alpha_from is None:
+        f = items_of(save(photo(48, 64, 104), quality=70))
+        set_ispe(f, f["primary"], w, h)
+        return mux(f)
+    f = items_of(save(with_alpha(photo(48, 64, 105), 5), quality=70))
+    aw, ah = alpha_from
+    g = items_of(save(with_alpha(photo(ah, aw, 106), 6), quality=70))
+    alpha = [s for t, s, d in f["refs"] if t == b"auxl"][0]
+    f["items"][alpha]["data"] = g["items"][alpha]["data"]
+    return mux(f)
+
+
+# the matrices libavif 1.3.0 converts and Pillow opens that Pillow's save
+# cannot write: (colour primaries, matrix), the ranges each opens
+MATRICES = {"mc04": ((2, 4), (1, 0)), "mc07": ((2, 7), (1, 0)),
+            "mc09": ((9, 9), (1, 0)), "mc12": ((12, 12), (1, 0)),
+            "mc15": ((2, 15), (1, 0)), "mc08": ((2, 8), (1,)),
+            "mc00": ((2, 0), (0,))}
+
+
+def libavif_corpus():
+    """name -> a function writing the file: libavif's encoder (grids, the
+    matrices), and Pillow saves with a rewritten ispe or alpha item."""
+    grid = lambda img, r, c, **kw: lambda: libavif_encode(  # noqa: E731
+        quarters(img, r, c), **kw)
+    out = {
+        "grid_2x2_420.avif": grid(photo(128, 128, 100), 2, 2, quality=60,
+                                  advanced=OFF),
+        "grid_3x1_444.avif": grid(waves(192, 64, 101), 3, 1, quality=70,
+                                  subsampling="4:4:4", advanced=OFF),
+        "grid_1x2_400.avif": grid(photo(64, 128, 102), 1, 2, quality=60,
+                                  subsampling="4:0:0", advanced=OFF),
+        "grid_cropped_420.avif": cropped_grid,
+        "grid_rgba_420.avif": grid(with_alpha(photo(128, 128, 107), 7), 2, 2,
+                                   quality=60, advanced=OFF),
+        "grid_premultiplied.avif": grid(with_alpha(textured(128, 128, 108),
+                                                   8), 2, 2, quality=60,
+                                        premultiplied=True, advanced=OFF),
+        # cells that run deblocking, CDEF and loop restoration
+        "grid_filters_420.avif": grid(waves(128, 128, 109), 2, 2,
+                                      quality=50, speed=2,
+                                      advanced={"enable-cdef": "1"}),
+        CODED[4]: grid(textured(1024, 1024, 33), 2, 2),
+        "ispe_down_420.avif": lambda: scaled_frame(56, 40),
+        "ispe_up_420.avif": lambda: scaled_frame(80, 60),
+        "ispe_box_420.avif": lambda: scaled_frame(20, 15),
+        "ispe_alpha_up.avif": lambda: scaled_frame(64, 48, (56, 40)),
+        "ispe_alpha_down.avif": lambda: scaled_frame(64, 48, (128, 96)),
+    }
+    for name, (cicp, ranges) in MATRICES.items():
+        for ss in ("4:2:0", "4:4:4"):
+            for full in ranges:
+                if cicp[1] == 0 and ss != "4:4:4":
+                    continue            # identity: no subsampled chroma
+                n = f"{name}_{ss[-1]}{'_full' if full else '_limited'}.avif"
+                out[n] = (lambda cicp=cicp, ss=ss, full=full: libavif_encode(
+                    [[photo(27, 35, cicp[1] * 2 + full)]], subsampling=ss,
+                    full=full, cicp=(cicp[0], 13, cicp[1]), quality=70,
+                    advanced=OFF))
+    return out
+
+
 def make_avif_fixtures(d):
     os.makedirs(d, exist_ok=True)
     for name, (img, kw, cicp) in corpus().items():
@@ -339,6 +576,9 @@ def make_avif_fixtures(d):
             blob = set_cicp(blob, *cicp)
         with open(os.path.join(d, name), "wb") as f:
             f.write(blob)
+    for name, make in libavif_corpus().items():
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(make())
 
 
 def _digest(arr):
@@ -480,8 +720,9 @@ def decode_counting(paths):
             with open(p, "rb") as f:
                 blob = f.read()
             m = avif.parse(blob, p)
+            grid = m.grids.get(m.primary)
             seq, frame, tiles = av1_obu.parse_av1(avif._item_bytes(
-                blob, m, m.primary, p), p)
+                blob, m, grid.cells[0] if grid else m.primary, p), p)
             q = frame.base_q_idx
             c[f"qctx_{(q > 20) + (q > 60) + (q > 120)}"] += 1
             c[f"ss_{seq.ssx}{seq.ssy}{seq.mono}"] += 1
@@ -1031,11 +1272,16 @@ def _libavif_rgb(lib, blob, planes):
 
 @pytest.mark.parametrize("rng, cicp", [("full", None), ("limited", None),
                                        ("full", (1, 1)),
-                                       ("limited", (1, 1))])
+                                       ("limited", (1, 1)),
+                                       ("full", (12, 12)),
+                                       ("limited", (2, 0)),
+                                       ("limited", (2, 9))])
 def test_every_yuv_triple_converts_as_libavif(rng, cicp):
     """All 2^24 (y, u, v) at 4:4:4 through libavif's own conversion (the
     library Pillow bundles, ctypes): BT.601 and BT.709, full and limited,
-    equal to `avif_yuv.to_rgb`. libyuv picks its row functions at run
+    equal to `avif_yuv.to_rgb`; so are the chroma-derived matrix over P3
+    primaries (kr and kb derived in float32) and identity in limited
+    range, both libavif's float path, and BT.2020 in limited range. libyuv picks its row functions at run
     time (AVX2 here and on the card host, whose CPUs both have it; this
     build has no switch to force its C rows); the port's formula is the
     C rows', and the equality here shows the rows libyuv runs agree."""
@@ -1048,13 +1294,13 @@ def test_every_yuv_triple_converts_as_libavif(rng, cicp):
                 speed=9, range=rng, advanced=OFF)
     if cicp:
         blob = set_cicp(blob, *cicp)
-    mc = cicp[1] if cicp else 6
+    cp, mc = cicp if cicp else (2, 6)
     every = np.arange(1 << 24, dtype=np.uint32)
     for k in range(64):
         part = every[k << 18:(k + 1) << 18].reshape(512, 512)
         planes = [((part >> s) & 255).astype(np.uint8) for s in (16, 8, 0)]
         want = _libavif_rgb(lib, blob, planes)
-        got = avif_yuv.to_rgb(planes, 0, 0, 0, mc, rng == "full", "x")
+        got = avif_yuv.to_rgb(planes, 0, 0, 0, mc, rng == "full", "x", cp)
         assert np.array_equal(got, want), k
 
 
@@ -1086,6 +1332,436 @@ def test_subsampled_chroma_converts_as_libavif(ss, shape):
         got = avif_yuv.to_rgb(planes, sx, sy, int(ss == "4:0:0"), 6,
                               rng == "full", "x")
         assert np.array_equal(got, want), rng
+
+
+# each matrix libavif converts in float32 (and BT.2020 through libyuv), as
+# (colour primaries, matrix coefficients, range)
+NEW_MATRICES = [(2, 4, "full"), (2, 4, "limited"), (2, 7, "limited"),
+                (9, 9, "full"), (2, 9, "limited"), (12, 12, "full"),
+                (22, 12, "limited"), (2, 12, "full"), (4, 12, "limited"),
+                (2, 15, "full"), (2, 8, "full"), (2, 0, "limited")]
+
+
+@pytest.mark.parametrize("cp, mc, rng", NEW_MATRICES)
+def test_new_matrices_convert_as_libavif(cp, mc, rng):
+    """Random planes at 4:4:4, 4:2:0 and 4:2:2, odd sizes included,
+    through libavif's avifImageYUVToRGB with the file's primaries, matrix
+    and range: FCC, SMPTE 240, YCgCo, identity in limited range, the
+    chroma-derived matrix over several primaries and an unlisted matrix
+    go through libavif's float conversion and its bilinear chroma, BT.2020
+    through libyuv's constants; `avif_yuv.to_rgb` gives the same bytes
+    (identity has no subsampled layout)."""
+    from l3c_torch.data import avif_yuv
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    lib = ctypes.CDLL(path)
+    r = np.random.RandomState(cp * 32 + mc)
+    for ss, (h, w) in (("4:4:4", (37, 29)), ("4:2:0", (37, 29)),
+                       ("4:2:0", (36, 48)), ("4:2:2", (21, 35))):
+        if mc == 0 and ss != "4:4:4":
+            continue
+        sx, sy = (ss != "4:4:4") * 1, (ss == "4:2:0") * 1
+        blob = set_cicp(save(photo(h, w, 45), quality=50, subsampling=ss,
+                             speed=9, range=rng, advanced=OFF), cp, mc)
+        ch, cw = (h + sy) >> sy, (w + sx) >> sx
+        planes = [r.randint(0, 256, (h, w)).astype(np.uint8)] + [
+            r.randint(0, 256, (ch, cw)).astype(np.uint8) for _ in (1, 2)]
+        want = _libavif_rgb(lib, blob, planes)
+        got = avif_yuv.to_rgb(planes, sx, sy, 0, mc, rng == "full", "x", cp)
+        assert np.array_equal(got, want), (ss, h, w)
+
+
+@pytest.mark.parametrize("ss", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+def test_alpha_and_premultiplied_alpha_convert_as_pillow(tmp_path, ss):
+    """RGBA stills of libavif's encoder over the matrices and ranges, plain
+    and premultiplied, with alpha 0, 1, 254 and 255 among the rest:
+    Pillow asks libavif for RGBA, so grey goes through libyuv's
+    I400ToARGBMatrix where libavif has its constants (identity as
+    BT.601), and a premultiplied colour is divided by its alpha in
+    libavif's float path where that path converts it (subsampled chroma,
+    YCgCo, identity in limited range), elsewhere by libyuv's
+    ARGBUnattenuate after the conversion."""
+    img = with_alpha(photo(24, 32, 112), 10)
+    img[:4, :, 3], img[4:6, :, 3] = 0, 1
+    img[6:8, :, 3], img[8:10, :, 3] = 255, 254
+    cases = [(1, 1), (2, 6), (9, 9), (2, 4), (2, 7), (12, 12), (2, 12),
+             (2, 15), (2, 8), (2, 0)]
+    for prem in (False, True):
+        for full in (1, 0):
+            for cp, mc in cases:
+                if mc == 8 and not full or mc == 0 and ss not in (
+                        "4:4:4", "4:0:0"):
+                    continue        # refused, or not written
+                blob = libavif_encode([[img]], subsampling=ss, full=full,
+                                      premultiplied=prem, quality=80,
+                                      advanced=OFF)
+                p = str(tmp_path / "a.avif")
+                with open(p, "wb") as f:
+                    f.write(set_cicp(blob, cp, mc))
+                pil, port = _outcome(p)
+                assert pil is not None and np.array_equal(port, pil), (
+                    prem, full, cp, mc)
+
+
+# ------------------------------------------------- grids and scaling to ispe
+
+GRIDS_AND_SCALED = sorted(n for n in _names()
+                          if n.startswith(("grid_", "ispe_")) and
+                          n not in CODED)
+
+
+@pytest.mark.parametrize("name", GRIDS_AND_SCALED)
+def test_grid_and_scaled_planes_equal_libavifs(name):
+    """The YUV planes the port hands to the conversion, a grid's cells
+    assembled and cropped, a frame scaled to its ispe, against the planes
+    libavif's decoder gives (a fault shows as the first plane and 4 x 4
+    block that differ); and the alpha plane's size, which libavif checks
+    against the colour planes after scaling."""
+    path = libavif()
+    if path is None:
+        pytest.skip("this Pillow bundles no libavif")
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        blob = f.read()
+    m = avif.parse(blob, name)
+    planes, _ = avif._planes(blob, m, m.primary, name)
+    want = _libavif_planes(ctypes.CDLL(path), blob)
+    assert _first_difference(planes, want) is None
+    alpha = avif._alpha_of(m, m.primary)
+    if alpha is not None:
+        a = avif._planes(blob, m, alpha, name, alpha=True)[0][0]
+        assert a.shape == planes[0].shape
+
+
+def _scale_by_libavif(plane, w, h):
+    """libavif's avifImageScale of a grey avifImage (libyuv's ScalePlane
+    under libavif's filter)."""
+    c = ctypes
+    lib = libavif_lib()
+    ph, pw = plane.shape
+    im = lib.avifImageCreate(pw, ph, 8, _LAYOUTS["4:0:0"])
+    try:
+        assert lib.avifImageAllocatePlanes(c.c_void_p(im), 1) == 0
+        row = (c.c_uint32 * 1).from_address(im + 48)[0]
+        ptr = (c.c_void_p * 1).from_address(im + 24)[0]
+        np.ctypeslib.as_array((c.c_uint8 * (row * ph)).from_address(
+            ptr)).reshape(ph, row)[:, :pw] = plane
+        assert lib.avifImageScale(c.c_void_p(im), w, h,
+                                  c.create_string_buffer(512)) == 0
+        row = (c.c_uint32 * 1).from_address(im + 48)[0]
+        ptr = (c.c_void_p * 1).from_address(im + 24)[0]
+        return np.ctypeslib.as_array((c.c_uint8 * (row * h)).from_address(
+            ptr)).reshape(h, row)[:, :w].copy()
+    finally:
+        lib.avifImageDestroy(c.c_void_p(im))
+
+
+# ScalePlane's paths under kFilterBox: (source w, h) -> [(target w, h)]
+SCALE_PATHS = {
+    "bilinear_down": [(64, 48, 56, 40), (63, 47, 40, 30), (100, 30, 70, 17)],
+    "bilinear_up": [(64, 48, 80, 60), (63, 47, 200, 150), (33, 17, 100, 30)],
+    "vertical": [(64, 48, 64, 30), (64, 48, 64, 96), (40, 9, 40, 5)],
+    "linear": [(64, 48, 30, 48), (64, 48, 130, 48), (64, 48, 129, 48)],
+    "box": [(64, 48, 20, 15), (640, 480, 100, 70), (100, 30, 33, 10)],
+    "down34": [(64, 48, 48, 36), (96, 96, 72, 72), (72, 24, 54, 18)],
+    "down2": [(64, 48, 32, 24), (70, 26, 35, 13)],
+    "down38": [(64, 48, 24, 18), (72, 24, 27, 9), (88, 37, 33, 14)],
+    "down4": [(64, 64, 16, 16), (72, 44, 18, 11)],
+    "up2": [(64, 48, 128, 96), (64, 48, 127, 95), (17, 9, 33, 18)],
+    "point": [(1, 5, 3, 9), (5, 1, 9, 3), (90, 5, 30, 5)],
+}
+
+
+@pytest.mark.parametrize("path_name", sorted(SCALE_PATHS))
+def test_scale_plane_equals_libavifs(path_name):
+    """Each path libyuv's ScalePlane takes under libavif's box filter
+    (after ScaleFilterReduce), on seeded random planes and a smooth one,
+    against libavif's own avifImageScale: the SSSE3 rows' arithmetic of
+    the 3/4 and 3/8 reductions included."""
+    from l3c_torch.data import avif_scale
+    if libavif() is None:
+        pytest.skip("this Pillow bundles no libavif")
+    r = np.random.RandomState(len(path_name))
+    for sw, sh, dw, dh in SCALE_PATHS[path_name]:
+        for plane in (r.randint(0, 256, (sh, sw)),
+                      np.cumsum(r.randint(-4, 5, (sh, sw)), 1) + 128):
+            plane = np.clip(plane, 0, 255).astype(np.uint8)
+            assert np.array_equal(avif_scale.scale_plane(plane, dw, dh),
+                                  _scale_by_libavif(plane, dw, dh)), \
+                (sw, sh, dw, dh)
+
+
+def _base_grid():
+    return items_of(libavif_encode(quarters(photo(128, 128, 110), 2, 2),
+                                   quality=60, advanced=OFF))
+
+
+def _edit(fn):
+    f = _base_grid()
+    fn(f)
+    return mux(f)
+
+
+def _drop(f, item, typ):
+    f["items"][item]["props"] = [p for p in f["items"][item]["props"]
+                                 if p[0] != typ]
+
+
+def _payload(f, body):
+    f["items"][1]["data"] = bytes.fromhex(body)
+
+
+# hand-edited grids: True where libavif 1.3.0 decodes the edit (Pillow's
+# pixels), False where it refuses (Pillow refuses too)
+GRID_EDITS = {
+    "no_grid_ispe": (lambda f: _drop(f, 1, b"ispe"), False),
+    "no_cell_ispe": (lambda f: _drop(f, 3, b"ispe"), False),
+    "no_first_cell_av1c": (lambda f: _drop(f, 2, b"av1C"), False),
+    "no_later_cell_av1c": (lambda f: _drop(f, 3, b"av1C"), False),
+    "cell_av1c_level": (lambda f: set_prop(f, 3, b"av1C", bytes.fromhex(
+        "81000d00")), False),
+    "cell_ispe_other": (lambda f: set_ispe(f, 3, 64, 56), False),
+    "odd_output": (lambda f: (_payload(f, "00000101007f0080"),
+                              set_ispe(f, 1, 127, 128)), False),
+    "spare_column": (lambda f: (_payload(f, "0000010100400080"),
+                                set_ispe(f, 1, 64, 128)), False),
+    "not_covered": (lambda f: (_payload(f, "0000010100820080"),
+                               set_ispe(f, 1, 130, 128)), False),
+    "version_1": (lambda f: _payload(f, "0100010100800080"), False),
+    "bytes_past": (lambda f: _payload(f, "0001010100000080000000800000"),
+                   False),
+    "cut_short": (lambda f: _payload(f, "00000101008000"), False),
+    "zero_width": (lambda f: _payload(f, "0000010100000080"), False),
+    "three_refs": (lambda f: f.update(refs=[[b"dimg", 1, [2, 3, 4]]]),
+                   False),
+    "ref_twice": (lambda f: f.update(refs=[[b"dimg", 1, [2, 3, 4, 4]]]),
+                  False),
+    "two_dimg_boxes": (lambda f: f.update(refs=[[b"dimg", 1, [2, 3]],
+                                                [b"dimg", 1, [4, 5]]]),
+                       False),
+    "cell_is_grid": (lambda f: f["items"][3].update(type=b"grid"), False),
+    "cell_essential": (lambda f: f["items"][3]["props"].append(
+        (b"xxxx", b"abcd", True)), False),
+    "cells_range_differs": (lambda f: f["items"][3].update(
+        data=_seq_range(f["items"][3]["data"], 0)), False),
+    "output_past_ispe": (lambda f: _payload(f, "0000010100780070"), False),
+    "wide_fields": (lambda f: _payload(f, "000101010000008000000080"),
+                    True),
+    "other_flags": (lambda f: _payload(f, "0002010100800080"), True),
+    "cells_reordered": (lambda f: f.update(refs=[[b"dimg", 1,
+                                                  [3, 2, 5, 4]]]), True),
+    "payload_in_idat": (lambda f: f["items"][1].update(idat=True), True),
+    "no_grid_colr_limited_cells": (lambda f: (_drop(f, 1, b"colr"), [
+        f["items"][k].update(data=_seq_range(f["items"][k]["data"], 0))
+        for k in (2, 3, 4, 5)]), True),
+    "grid_colr_over_cells": (lambda f: [f["items"][k].update(
+        data=_seq_range(f["items"][k]["data"], 0)) for k in (2, 3, 4, 5)],
+        True),
+    "ispe_below_output": (lambda f: set_ispe(f, 1, 120, 112), True),
+    # one dav1d context decodes every cell: a later cell without a
+    # sequence header takes the one before; the first cell has none
+    "later_cell_without_sequence_header": (lambda f: f["items"][4].update(
+        data=_without_sequence_header(f["items"][4]["data"])), True),
+    "first_cell_without_sequence_header": (lambda f: f["items"][2].update(
+        data=_without_sequence_header(f["items"][2]["data"])), False),
+    # dav1d reads the data after a cell's frame: an OBU cut short there
+    # fails the grid, a temporal delimiter does not
+    "cut_obu_after_a_cell": (lambda f: f["items"][3].update(
+        data=f["items"][3]["data"] + bytes([0x0A, 0x0B, 0])), False),
+    "delimiter_after_the_last_cell": (lambda f: f["items"][5].update(
+        data=f["items"][5]["data"] + bytes([0x12, 0])), True),
+}
+
+
+def _without_sequence_header(data):
+    return b"".join(data[o[3] - 2:o[4]] for o in av1_obu.obus(data, "x")
+                    if o[0] != av1_obu.OBU_SEQUENCE_HEADER)
+
+
+def _seq_range(data, full):
+    """An item's OBUs with the sequence header's colour range flag set to
+    `full` (the bit read after color_description_present_flag)."""
+    reads = []
+
+    class Log(av1_obu.Bits):
+        def f(self, n):
+            reads.append((self.bit, n))
+            return super().f(n)
+    typ, _, _, at, end = next(o for o in av1_obu.obus(data, "x")
+                              if o[0] == av1_obu.OBU_SEQUENCE_HEADER)
+    seq = av1_obu.sequence_header(Log(data, at, end, "x"))
+    assert not seq.mono and seq.ssx and seq.ssy    # 4:2:0: range, csp
+    b = bytearray(data)
+    _put(b, reads[-4][0], 1, full)
+    return bytes(b)
+
+
+def _iloc_reserved(blob):
+    """The first item's construction-method field with a reserved bit
+    set (iloc version 1, as `mux` writes it)."""
+    i = blob.find(b"iloc") + 4 + 4 + 2 + 2 + 2
+    return blob[:i] + b"\x01" + blob[i + 1:]
+
+
+def _still_flag_cleared(data):
+    """An item's OBUs with the sequence header's still_picture flag
+    cleared under its reduced_still_picture_header."""
+    typ, _, _, at, end = next(o for o in av1_obu.obus(data, "x")
+                              if o[0] == av1_obu.OBU_SEQUENCE_HEADER)
+    b = bytearray(data)
+    assert b[at] & 0x18 == 0x18
+    b[at] &= ~0x10
+    return bytes(b)
+
+
+def _rgba_edit(fn, **kw):
+    f = items_of(save(with_alpha(photo(32, 40, 111), 9), quality=70, **kw))
+    fn(f)
+    return mux(f)
+
+
+def _second_colour(f, refs):
+    """A copy of the colour item as item 3, and iref `refs`."""
+    f["items"][3] = dict(f["items"][1])
+    f["refs"] = refs
+
+
+# container and header rules a seeded flip sweep over the grid, scaled and
+# new-matrix fixtures found: True where libavif decodes the edit
+CONTAINER_EDITS = {
+    "iloc_reserved_bits": (lambda: _iloc_reserved(_rgba_edit(
+        lambda f: None)), False),
+    "iref_item_0": (lambda: _rgba_edit(lambda f: f.update(
+        refs=[[b"auxl", 2, [0]]])), False),
+    "unreferenced_av01_without_ispe": (lambda: _rgba_edit(
+        lambda f: f["items"].update({3: dict(
+            type=b"av01", data=f["items"][2]["data"], props=[],
+            idat=False)})), False),
+    "alpha_without_ispe": (lambda: _rgba_edit(lambda f: f["items"][2].update(
+        props=[p for p in f["items"][2]["props"] if p[0] != b"ispe"])),
+        False),
+    "pixi_of_one_channel": (lambda: _rgba_edit(lambda f: set_prop(
+        f, 1, b"pixi", bytes.fromhex("000000000108"))), True),
+    "pixi_and_av1c_of_10_bits": (lambda: _rgba_edit(lambda f: (set_prop(
+        f, 1, b"pixi", bytes.fromhex("00000000030a0a0a")), set_prop(
+        f, 1, b"av1C", bytes.fromhex("81004c00")))), True),
+    "cut_obu_after_the_frame": (lambda: _rgba_edit(
+        lambda f: f["items"][1].update(data=f["items"][1]["data"] + bytes(
+            [0x0A, 0x0B, 0]))), False),
+    # libavif keeps one target per item and reference type, the last
+    "prem_from_the_alpha": (lambda: _rgba_edit(lambda f: f.update(
+        refs=[[b"auxl", 2, [1]], [b"prem", 2, [1]]]),
+        alpha_premultiplied=True), True),
+    "prem_naming_another_item_last": (lambda: _rgba_edit(
+        lambda f: _second_colour(f, [[b"auxl", 2, [1]],
+                                     [b"prem", 1, [2, 3]]]),
+        alpha_premultiplied=True), True),
+    "auxl_naming_another_item_last": (lambda: _rgba_edit(
+        lambda f: _second_colour(f, [[b"auxl", 2, [1, 3]]])), True),
+    "two_nclx_colr": (lambda: _rgba_edit(lambda f: f["items"][1][
+        "props"].append((b"colr", bytes.fromhex("6e636c780002000d000680"),
+                         False))), False),
+    "two_icc_colr": (lambda: _rgba_edit(lambda f: f["items"][1][
+        "props"].extend([(b"colr", b"prof" + bytes(16), False),
+                         (b"colr", b"rICC" + bytes(8), False)])), False),
+    "primary_of_no_bytes": (lambda: _rgba_edit(
+        lambda f: f["items"][1].update(data=b"")), False),
+    "tile_group_after_the_frame": (lambda: _rgba_edit(
+        lambda f: f["items"][1].update(data=f["items"][1]["data"] + bytes(
+            [0x22, 1, 0]))), False),
+    "reduced_header_not_still": (lambda: _rgba_edit(
+        lambda f: f["items"][1].update(data=_still_flag_cleared(
+            f["items"][1]["data"]))), False),
+}
+
+
+@pytest.mark.parametrize("edit", sorted(CONTAINER_EDITS))
+def test_container_rules_as_libavif(tmp_path, edit):
+    """An RGBA Pillow save written again by `mux` with one edit: a
+    nonzero reserved field in iloc, item 0 in iref, an AV1 item (an alpha
+    one too) without ispe, libavif's refusals; a pixi that disagrees with
+    the frame's planes or depth, which libavif does not check against the
+    frame; two colr boxes of one kind (nclx, ICC) on the image, libavif's
+    refusal; an item of no bytes (an extent's length 0 is 0 bytes, and
+    libavif skips the item); dav1d's refusals of a reduced still picture
+    header not marked a still picture and of an OBU cut short or a tile
+    group after the frame (dav1d reads the item's data to its end); a
+    prem or auxl reference that names
+    another item last (libavif keeps the last), a prem from the alpha.
+    Each as Pillow, mode included."""
+    make, decodes = CONTAINER_EDITS[edit]
+    p = str(tmp_path / "c.avif")
+    with open(p, "wb") as f:
+        f.write(make())
+    pil, port = _outcome(p)
+    if decodes:
+        assert pil is not None and np.array_equal(port, pil)
+        with Image.open(p) as im:
+            assert timages.image_mode(p) == im.mode
+    else:
+        assert pil is None and port is None, port
+
+
+def _cells_own_alphas(drop=0, extra=False, prem=False):
+    """The RGBA grid fixture with its alpha grid taken away and each
+    alpha cell made the alpha of a colour cell (`drop` of them left
+    without; `extra`: cell 2 given a second alpha; `prem`: a prem
+    reference from the colour grid to an ID no item has)."""
+    with open(os.path.join(FIXTURES, "grid_rgba_420.avif"), "rb") as f:
+        g = items_of(f.read())
+    del g["items"][6]
+    pairs = list(zip((7, 8, 9, 10), (2, 3, 4, 5)))[drop:]
+    g["refs"] = [[b"dimg", 1, [2, 3, 4, 5]]] + [[b"auxl", a, [c]]
+                                                for a, c in pairs]
+    if extra:
+        g["items"][11] = dict(g["items"][7])
+        g["refs"].append([b"auxl", 11, [2]])
+    if prem:
+        g["refs"].append([b"prem", 1, [11]])
+    return mux(g)
+
+
+@pytest.mark.parametrize("kind, mode", [
+    ({}, "RGBA"), ({"drop": 1}, "RGB"), ({"extra": True}, None),
+    ({"prem": True}, "RGBA")])
+def test_grid_cells_with_their_own_alpha_as_pillow(tmp_path, kind, mode):
+    """A colour grid with no alpha item whose cells each have one: libavif
+    makes up an alpha grid of them under an ID past every ID the file
+    names (so no prem reference can name it: not premultiplied); Pillow's
+    RGBA; RGB where a cell has none; refused where a cell has two."""
+    p = str(tmp_path / "g.avif")
+    with open(p, "wb") as f:
+        f.write(_cells_own_alphas(**kind))
+    pil, port = _outcome(p)
+    if mode is None:
+        assert pil is None and port is None, port
+        return
+    with Image.open(p) as im:
+        assert im.mode == timages.image_mode(p) == mode
+    assert np.array_equal(port, pil)
+
+
+@pytest.mark.parametrize("edit", sorted(GRID_EDITS))
+def test_grid_rules_as_libavif(tmp_path, edit):
+    """A 2 x 2 grid of libavif's encoder, hand-edited: libavif's refusals
+    (the ImageGrid payload's version, sizes and length, the cells' count,
+    types, essential properties, ispe and av1C, the cells' sizes and
+    sequence headers, covering the output without a spare row or column,
+    even sizes under subsampled chroma, two dimg boxes from one item;
+    Pillow's where the output is larger than ispe) refused by the port
+    with Pillow; the edits libavif takes (32-bit fields, other flags, the
+    cells' order from iref, the payload in idat, the colour from the
+    grid's colr box or else the first cell's sequence header, an ispe
+    smaller than the output) decoded to Pillow's pixels."""
+    fn, decodes = GRID_EDITS[edit]
+    p = str(tmp_path / "g.avif")
+    with open(p, "wb") as f:
+        f.write(_edit(fn))
+    pil, port = _outcome(p)
+    if decodes:
+        assert pil is not None and np.array_equal(port, pil)
+    else:
+        assert pil is None and port is None, port
 
 
 # ------------------------------------------------------ the container
@@ -1298,10 +1974,7 @@ def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
 
 # the tools ROADMAP F6 still lists, which the port refuses by name
 F6_TOOLS = ("superres", "per-block loop filter deltas", "-bit samples",
-            "a hidden first frame", "segment reference features",
-            "a grid image", "another size than ispe",
-            "an alpha item of another size", "the identity matrix",
-            "matrix coefficients")
+            "a hidden first frame", "segment reference features")
 
 
 def _outcome(p):
@@ -1452,8 +2125,9 @@ def test_coefficients_past_dav1ds_clips_as_pillow(tmp_path):
 
 def test_truncated_and_bit_flipped_files_as_pillow(tmp_path):
     """Cut anywhere, or with a bit flipped in its container, headers or
-    tile data, a filters-off save, one with every in-loop filter on and
-    one with film grain and quantizer matrices:
+    tile data, a filters-off save, one with every in-loop filter on, one
+    with film grain and quantizer matrices, a grid of two cells and a file
+    of the chroma-derived matrix (libavif's float conversion):
     where Pillow decodes, the port gives its pixels (dav1d's and the
     port's walk of damaged tile data agree, a flip in a filter's header
     fields or symbols included) or names a tool ROADMAP F6 still lists (a
@@ -1466,7 +2140,11 @@ def test_truncated_and_bit_flipped_files_as_pillow(tmp_path):
              save(waves(72, 80, 62), quality=40, subsampling="4:2:0",
                   speed=2, advanced={"enable-cdef": "1"}),
              save(waves(40, 56, 64), quality=50, subsampling="4:2:0",
-                  advanced={"film-grain-test": "5", "enable-qm": "1"})]
+                  advanced={"film-grain-test": "5", "enable-qm": "1"}),
+             libavif_encode(quarters(waves(64, 128, 65), 1, 2), quality=50,
+                            advanced=OFF),
+             libavif_encode([[photo(48, 64, 66)]], cicp=(12, 13, 12),
+                            quality=85, advanced=OFF)]
     r = np.random.RandomState(61)
     for n, blob in enumerate(blobs):
         cases = [blob[:n] for n in (len(blob) - 1, len(blob) - 40,

@@ -1170,10 +1170,10 @@ def test_tile_data_cut_short_as_openjpeg(tmp_path, cut):
 def test_only_avif_is_left_not_decoded_by_the_port():
     """Every other refusal of the loader is Pillow's own (held in the
     format's tests): "not decoded / read by the port yet" is said only of
-    the AVIF tools the port does not decode yet (superres, film grain,
-    grids, premultiplied alpha, high bit depths, ...: data/av1_obu.py,
-    data/avif.py, data/avif_yuv.py) and in the loader's fallback; AVIF
-    itself now has a decoder."""
+    the AVIF tools the port does not decode yet (superres, high bit
+    depths, sequences without meta, ...: data/av1_obu.py, data/avif.py;
+    data/avif_yuv.py converts every matrix libavif converts) and in the
+    loader's fallback; AVIF itself now has a decoder."""
     import re
     from l3c_torch.data import avif as tavif
     data = os.path.join(ROOT, "l3c_torch", "data")
@@ -1185,7 +1185,7 @@ def test_only_avif_is_left_not_decoded_by_the_port():
             found += [(n, m.start()) for m in re.finditer(
                 r"by the port yet", text)]
     assert sorted({n for n, _ in found}) == ["av1_obu.py", "avif.py",
-                                             "avif_yuv.py", "images.py"]
+                                             "images.py"]
     with open(os.path.join(data, "avif.py")) as f:
         assert "AVIF without a meta box" in f.read()
     assert [n for n, (_, dec) in timages._FORMATS.items()
