@@ -328,7 +328,12 @@ Phases (each raises on failure; none carries on after another failed):
               (an AVIF named .png listed), K3 to K6 launched; the host's
               decode MP/s of the five, fastest of 3, and the default,
               grain and grid saves' time by stage (the symbol walk, each
-              in-loop filter, film grain, the grid's assembly)
+              in-loop filter, film grain, the grid's assembly); the 10-
+              and 12-bit files of l3c_torch/data/fixtures/avif_deep to
+              Pillow's digests or its refusals, the host Pillow's digests
+              held, cli.l3c enc / dec of the 512 x 512 default save at
+              10 bits, its decode MP/s beside the 8-bit save's and its
+              time by stage
  23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
@@ -4843,12 +4848,12 @@ def fixtures_hold(folder, exp) -> Tuple[List[str], List[str]]:
     return decoded, refused
 
 
-def code_and_test(folder, exp, tag, card):
+def code_and_test(folder, exp, tag, card, test=True):
     """cli.l3c enc / dec of each of expected.json's "coded" files,
-    bit-exact against the loader's pixels with exact launch counts, then
-    cli.test --write_to_files --compare_theory over the folder, whose
-    listing must be its "tested" files. Returns the launches of the
-    calls."""
+    bit-exact against the loader's pixels with exact launch counts, then,
+    where `test`, cli.test --write_to_files --compare_theory over the
+    folder, whose listing must be its "tested" files. Returns the
+    launches of the calls."""
     from l3c_torch.data import images as timages
     total = {}
     with tempfile.TemporaryDirectory(prefix=f"l3c_{tag}_") as d:
@@ -4875,6 +4880,8 @@ def code_and_test(folder, exp, tag, card):
                 f"{timages.image_format(src)} {timages.image_mode(src)}) "
                 f"bit-exact against the loader's pixels: file bpsp "
                 f"{os.path.getsize(coded) * 8 / (3 * h * w):.4f} | {card}")
+        if not test:
+            return total
         out_dir = os.path.join(d, "out")
         kernels.reset_launches()
         out = run_cli(test_cli.main, [ZOO, LOG_DATE, folder,
@@ -5192,6 +5199,7 @@ def phase_htj2k(card):
 
 
 AVIF = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
+AVIF_DEEP = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif_deep")
 
 
 def phase_avif(card):
@@ -5213,10 +5221,18 @@ def phase_avif(card):
     counts; cli.test --write_to_files --compare_theory over the folder
     (its listing keeps an AVIF named .png); the host's decode rates of
     the coded files, fastest of 3, and the default, grain and grid saves'
-    time by stage. Returns the launches of its CLI calls."""
+    time by stage. The 10- and 12-bit fixtures of
+    l3c_torch/data/fixtures/avif_deep (the 8-bit files' streams with their
+    depth rewritten) likewise: held to Pillow's digests, or refused as
+    Pillow refuses them, the host's Pillow's digests held; cli.l3c enc /
+    dec of the 512 x 512 default save at 10 bits, its decode rate beside
+    the 8-bit save's and its time by stage. Returns the launches of its
+    CLI calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
+    with open(os.path.join(AVIF_DEEP, "expected.json")) as f:
+        deep = json.load(f)
     cpu = host_cpu()
     # ---- (a) every fixture's format, mode, size and pixels; refusals
     t0 = time.perf_counter()
@@ -5228,9 +5244,17 @@ def phase_avif(card):
         f"{made['dav1d']}, aom {made['aom']}, libyuv {made['libyuv']}); "
         f"{len(refused)} refused by name ({', '.join(refused)}); "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d_dec, d_ref = fixtures_hold(AVIF_DEEP, deep["files"])
+    log(f"[avif] {len(d_dec)} 10- and 12-bit fixtures decoded to Pillow's "
+        f"digests (avif_deep/expected.json); {len(d_ref)} refused as Pillow "
+        f"{deep['made_by']['pillow']} refuses them ({', '.join(d_ref)}); "
+        f"{time.perf_counter() - t0:.1f} s")
     # ---- (b) this host's Pillow on the same files
     paths = {os.path.join(AVIF, n): e.get("sha256", "")
              for n, e in exp["files"].items()}
+    paths.update({os.path.join(AVIF_DEEP, n): e.get("sha256", "")
+                  for n, e in deep["files"].items()})
     run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
                           json.dumps(paths)], capture_output=True, text=True,
                          timeout=300)
@@ -5244,7 +5268,7 @@ def phase_avif(card):
     else:
         host = json.loads(run.stdout.strip().splitlines()[-1])
         got = host["files"]
-        bad = sorted(n for n in decoded if got.get(n) != "same")
+        bad = sorted(n for n in decoded + d_dec if got.get(n) != "same")
         if bad:
             raise RuntimeError(f"this host's Pillow {host['pillow']} "
                                f"({host.get('avif')}) decodes "
@@ -5252,17 +5276,26 @@ def phase_avif(card):
                                f"expected.json: {[got.get(n) for n in bad]}")
         # a refused file has no digest: "differs" says this Pillow decoded it
         ran = sum(got.get(n) == "differs" for n in refused)
+        deep_ran = [n for n in d_ref if not got.get(n, "").startswith(
+            "refuses")]
         log(f"[avif] this host's Pillow {host['pillow']} ({host.get('avif')})"
-            f" decodes all {len(decoded)} decoded fixtures to their digests "
-            f"(held) and {ran} of the {len(refused)} the port refuses by "
-            f"name (reported)")
+            f" decodes all {len(decoded)} decoded fixtures and the "
+            f"{len(d_dec)} decoded 10- and 12-bit ones to their digests "
+            f"(held), {ran} of the {len(refused)} the port refuses by "
+            f"name and {len(deep_ran)} of the {len(d_ref)} deep ones Pillow "
+            f"{deep['made_by']['pillow']} refuses ({deep_ran}; reported)")
     # ---- (c) cli.l3c enc / dec of the two coded files; (d) cli.test
     total = code_and_test(AVIF, exp, "avif", card)
+    for k, v in code_and_test(AVIF_DEEP, deep, "avif", card,
+                              test=False).items():
+        total[k] = total.get(k, 0) + v
     # ---- (e) the host's decode rates of the two coded files
     rates = []
-    for name in exp["coded"]:
-        e = exp["files"][name]
-        blob = open(os.path.join(AVIF, name), "rb").read()
+    coded = [(AVIF, exp, n) for n in exp["coded"]] + \
+        [(AVIF_DEEP, deep, n) for n in deep["coded"]]
+    for folder, ex, name in coded:
+        e = ex["files"][name]
+        blob = open(os.path.join(folder, name), "rb").read()
         dt = math.inf
         for _ in range(3):           # the fastest of three decodes
             t0 = time.perf_counter()
@@ -5280,12 +5313,14 @@ def phase_avif(card):
     # grain save's (the grain stage); the 1024 x 1024 grid's (its cells'
     # stages summed, the assembly); two fixtures that run CDEF and loop
     # restoration
-    for name in (exp["coded"][2], exp["coded"][3], exp["coded"][4],
-                 "o_cdef_422.avif", "p_lr_q60_switchable.avif"):
-        blob = open(os.path.join(AVIF, name), "rb").read()
-        ms = avif_stages_ms(blob, name, exp["files"][name]["sha256"])
+    for folder, ex, name in [(AVIF, exp, n) for n in (
+            exp["coded"][2], exp["coded"][3], exp["coded"][4],
+            "o_cdef_422.avif", "p_lr_q60_switchable.avif")] + [
+                (AVIF_DEEP, deep, deep["coded"][0])]:
+        blob = open(os.path.join(folder, name), "rb").read()
+        ms = avif_stages_ms(blob, name, ex["files"][name]["sha256"])
         filters = ms["deblock"] + ms["cdef"] + ms["restoration"]
-        h, w = exp["files"][name]["size"]
+        h, w = ex["files"][name]["size"]
         log(f"[avif] {name} ({w} x {h}) by stage, ms, fastest of 3: "
             f"{ {k: round(v, 1) for k, v in ms.items()} }; the in-loop "
             f"filters {filters:.1f} ms = "
@@ -5341,7 +5376,7 @@ def avif_stages_ms(blob, name, digest):
         t_rgb = time.perf_counter()
         mc, full_range, cp = avif.colour(m, m.primary, seq)
         rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
-                              full_range, name, cp)
+                              full_range, name, cp, depth=seq.bit_depth)
         t4 = time.perf_counter()
         for k, v in (("headers", t1 - t0), ("walk", t2 - t1),
                      ("assemble", t_rgb - t3), ("yuv_to_rgb", t4 - t_rgb),

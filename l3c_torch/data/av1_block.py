@@ -12,9 +12,10 @@ restoration units) and keeps each plane's transform sizes for the
 deblocking filter. `decode_frame(seq, frame, tiles, data, path)` returns
 the planes deblocked (data/av1_loopfilter.py), CDEF-filtered
 (data/av1_cdef.py) and restored (data/av1_restoration.py) as the frame
-header asks, uint8 numpy arrays cropped to the frame size, with film
-grain (data/av1_filmgrain.py) where the header carries it. The symbol
-walk is plain Python; prediction and the transforms are numpy
+header asks, uint8 numpy arrays (uint16 at 10 and 12 bits) cropped to
+the frame size, with film grain (data/av1_filmgrain.py) where the header
+carries it. The symbol walk is plain Python and the same at every depth
+but for palette colours; prediction and the transforms are numpy
 (data/av1_recon.py), and so are the filters.
 """
 from __future__ import annotations
@@ -223,6 +224,7 @@ class FrameDecoder:
     def __init__(self, seq: SimpleNamespace, f: SimpleNamespace, path: str):
         self.s, self.f, self.path = seq, f, path
         self.ssx, self.ssy = seq.ssx, seq.ssy
+        self.bd = seq.bit_depth
         self.planes = seq.num_planes
         self.mi_rows, self.mi_cols = f.mi_rows, f.mi_cols
         pad_h = ((f.mi_rows * 4 + 127) // 128) * 128 + 64
@@ -582,7 +584,7 @@ class FrameDecoder:
                 av1_intrabc.predict(self.frame[p], x, y, 4 * pw4, 4 * ph4,
                                     b.dv, sx, sy,
                                     ((f.width + sx) >> sx) - 1,
-                                    ((f.height + sy) >> sy) - 1)
+                                    ((f.height + sy) >> sy) - 1, self.bd)
 
     def _intra_info(self, b):
         """intra_frame_mode_info's intra half: the y mode and angle, the uv
@@ -745,25 +747,26 @@ class FrameDecoder:
                 b.pal_uv = rd.symbol(cdf.pal_size[1][bctx]) + 2
                 n = b.pal_uv
                 b.pal_colors[1] = self._palette_colors(b, 1, n)
+                bd = self.bd
                 if rd.literal(1):
-                    bits = 8 - 4 + rd.literal(2)
-                    v = [rd.literal(8)]
+                    bits = bd - 4 + rd.literal(2)
+                    v = [rd.literal(bd)]
                     for _ in range(1, n):
                         d = rd.literal(bits)
                         if d and rd.literal(1):
                             d = -d
                         val = v[-1] + d
                         if val < 0:
-                            val += 256
-                        if val >= 256:
-                            val -= 256
-                        v.append(max(0, min(255, val)))
+                            val += 1 << bd
+                        if val >= 1 << bd:
+                            val -= 1 << bd
+                        v.append(max(0, min((1 << bd) - 1, val)))
                 else:
-                    v = [rd.literal(8) for _ in range(n)]
+                    v = [rd.literal(bd) for _ in range(n)]
                 b.pal_colors[2] = tuple(v)
 
     def _palette_colors(self, b, plane, n):
-        rd = self.r
+        rd, bd = self.r, self.bd
         cache = self._palette_cache(b, plane)
         colors = []
         for v in cache:
@@ -772,16 +775,16 @@ class FrameDecoder:
             if rd.literal(1):
                 colors.append(v)
         if len(colors) < n:
-            colors.append(rd.literal(8))
+            colors.append(rd.literal(bd))
             if len(colors) < n:
-                bits = 8 - 3 + rd.literal(2)
+                bits = bd - 3 + rd.literal(2)
                 while len(colors) < n:
                     d = rd.literal(bits)
                     if plane == 0:
                         d += 1
-                    v = max(0, min(255, colors[-1] + d))
+                    v = max(0, min((1 << bd) - 1, colors[-1] + d))
                     colors.append(v)
-                    rng = 256 - v - (1 if plane == 0 else 0)
+                    rng = (1 << bd) - v - (1 if plane == 0 else 0)
                     bits = min(bits, (rng - 1).bit_length() if rng > 1
                                else 0)
         return tuple(sorted(colors))
@@ -1063,7 +1066,7 @@ class FrameDecoder:
         if not have_a and have_l:
             above[1:] = plane[y, x - 1]
         elif not have_a:
-            above[1:] = 127
+            above[1:] = (1 << (self.bd - 1)) - 1
         else:
             lim = min(max_x - 1, x + (2 * w if have_ar else w) - 1)
             idx = np.minimum(np.arange(x, x + n), lim)
@@ -1071,7 +1074,7 @@ class FrameDecoder:
         if not have_l and have_a:
             left[1:] = plane[y - 1, x]
         elif not have_l:
-            left[1:] = 129
+            left[1:] = (1 << (self.bd - 1)) + 1
         else:
             lim = min(max_y - 1, y + (2 * h if have_bl else h) - 1)
             idx = np.minimum(np.arange(y, y + n), lim)
@@ -1083,10 +1086,11 @@ class FrameDecoder:
         elif have_l:
             corner = plane[y, x - 1]
         else:
-            corner = 128
+            corner = 1 << (self.bd - 1)
         above[0] = left[0] = corner
         if p == 0 and b.filter_intra >= 0:
-            return R.pred_filter_intra(above, left, w, h, b.filter_intra)
+            return R.pred_filter_intra(above, left, w, h, b.filter_intra,
+                                       bd=self.bd)
         if 1 <= mode <= 8:
             angle = R.MODE_TO_ANGLE[mode] + 3 * (b.angle_y if p == 0
                                                  else b.angle_uv)
@@ -1095,11 +1099,11 @@ class FrameDecoder:
             return R.pred_directional(above, left, w, h, angle, have_a,
                                       have_l, ftype,
                                       self.s.enable_intra_edge_filter,
-                                      max_x - x, max_y - y)
+                                      max_x - x, max_y - y, bd=self.bd)
         if mode in (R.SMOOTH, R.SMOOTH_V, R.SMOOTH_H):
             return R.pred_smooth(above, left, w, h, mode)
         if mode == R.DC_PRED:
-            return R.pred_dc(above, left, w, h, have_a, have_l)
+            return R.pred_dc(above, left, w, h, have_a, have_l, bd=self.bd)
         return R.pred_paeth(above, left, w, h)
 
     def _filter_type(self, b, p):
@@ -1135,7 +1139,7 @@ class FrameDecoder:
             for dx in range(sx + 1):
                 t += luma[(ys + dy)[:, None], (xs + dx)[None, :]]
         lum = t << (3 - sx - sy)
-        return R.cfl(pred, lum, b.cfl_u if p == 1 else b.cfl_v)
+        return R.cfl(pred, lum, b.cfl_u if p == 1 else b.cfl_v, bd=self.bd)
 
     # ------------------------------------------------------ coefficients
     def _coeffs(self, b, p, x, y, tx):
@@ -1369,17 +1373,19 @@ class FrameDecoder:
         return t_type
 
     def _reconstruct(self, b, p, x, y, tx):
-        f = self.f
+        f, bd = self.f, self.bd
         tw, th = TX_WH[tx]
         plane = self.frame[p]
+        pmax = (1 << bd) - 1
         if b.lossless:
             res = R.inverse_wht([4 * v for v in b.quant])
             blk = plane[y:y + 4, x:x + 4]
-            plane[y:y + 4, x:x + 4] = np.clip(blk + np.array(res), 0, 255)
+            plane[y:y + 4, x:x + 4] = np.clip(blk + np.array(res), 0, pmax)
             return
         q = qindex(f, b.seg, self.current_q)
-        dcq = T.DC_QLOOKUP[max(0, min(255, q + f.dq[p][0]))]
-        acq = T.AC_QLOOKUP[max(0, min(255, q + f.dq[p][1]))]
+        dc_table, ac_table = QLOOKUP[bd]
+        dcq = dc_table[max(0, min(255, q + f.dq[p][0]))]
+        acq = ac_table[max(0, min(255, q + f.dq[p][1]))]
         shift = 2 if TX_SQR_UP[tx] == 4 and tx not in (TX_16X64, TX_64X16) \
             else 1 if tx in (TX_32X32, TX_16X32, TX_32X16, TX_16X64,
                              TX_64X16) else 0
@@ -1392,14 +1398,19 @@ class FrameDecoder:
             mul = (mul * qmatrix(level, p > 0, TX_ADJ[tx]) + 16) >> 5
         dq = ((np.abs(qa) * mul) & 0xFFFFFF) >> shift
         dq = np.where(qa < 0, -dq, dq)
-        dq = np.clip(dq, -(1 << 15), (1 << 15) - 1)
+        # dav1d's cf_max: the coefficients of (bd + 8)-bit storage
+        dq = np.clip(dq, -(1 << (bd + 7)), (1 << (bd + 7)) - 1)
         coef = np.zeros((th, tw), np.int64)
         coef[:ah, :aw] = dq
-        res = R.inverse_transform(coef, b.plane_tx_type, tx, tw, th)
+        res = R.inverse_transform(coef, b.plane_tx_type, tx, tw, th, bd=bd)
         plane[y:y + th, x:x + tw] = np.clip(
-            plane[y:y + th, x:x + tw] + res, 0, 255)
+            plane[y:y + th, x:x + tw] + res, 0, pmax)
 
 
+# the DC / AC quantizer lookups by bit depth
+QLOOKUP = {8: (T.DC_QLOOKUP, T.AC_QLOOKUP),
+           10: (T.DC_QLOOKUP_10, T.AC_QLOOKUP_10),
+           12: (T.DC_QLOOKUP_12, T.AC_QLOOKUP_12)}
 # the quantizer matrices' offsets in a level's set (libaom's layout: the
 # sizes up to 32 x 32 in transform-size order, each stored by columns)
 QM_OFFSET = {}
@@ -1501,7 +1512,8 @@ def filter_frame(d, seq, frame, stages=None, times=None):
         stages.append([p.copy() for p in planes])
     if seq.enable_cdef and not (frame.coded_lossless or frame.allow_intrabc):
         planes, _ = av1_cdef.cdef(planes, frame, seq,
-                                  np.array(d.skips, bool), d.cdef_idx)
+                                  np.array(d.skips, bool), d.cdef_idx,
+                                  bd=seq.bit_depth)
     t2 = time.perf_counter()
     if stages is not None:
         stages.append([p.copy() for p in planes])
@@ -1514,4 +1526,5 @@ def filter_frame(d, seq, frame, stages=None, times=None):
     if seq.num_planes > 1:
         ch, cw = (h + seq.ssy) >> seq.ssy, (w + seq.ssx) >> seq.ssx
         out += [planes[1][:ch, :cw], planes[2][:ch, :cw]]
-    return [o.astype(np.uint8) for o in out]
+    return [o.astype(np.uint8 if seq.bit_depth == 8 else np.uint16)
+            for o in out]

@@ -9,7 +9,9 @@ mi are all skipped. Luma gives each block its direction and variance
 direction (through the 4:2:2 table) and damping - 1. A tap is available
 inside the frame's mi area (MiRows x MiCols), whatever the tile. Every
 block reads only the deblocked input, so all blocks of a plane are
-filtered at once in numpy, a tap a gather.
+filtered at once in numpy, a tap a gather. At 10 and 12 bits (sh = bd -
+8) the direction search runs on the samples shifted right by sh, the
+strengths shift left by sh and the damping grows by sh, as in dav1d.
 """
 from __future__ import annotations
 
@@ -93,10 +95,11 @@ def _constrain(diff, threshold, shift):
     return np.where(diff < 0, -val, val)
 
 
-def cdef(planes, f, seq, skips, cdef_idx):
+def cdef(planes, f, seq, skips, cdef_idx, bd=8):
     """The CDEF frame of the deblocked `planes` (padded arrays, the frame
-    at their origin); `skips` per mi, `cdef_idx` per 64 x 64. Returns the
-    new planes and counts of the blocks filtered by kind."""
+    at their origin) of depth `bd`; `skips` per mi, `cdef_idx` per 64 x
+    64. Returns the new planes and counts of the blocks filtered by
+    kind."""
     ran = {}
     mi_rows, mi_cols = f.mi_rows, f.mi_cols
     nby, nbx = mi_rows // 2, mi_cols // 2
@@ -111,9 +114,10 @@ def cdef(planes, f, seq, skips, cdef_idx):
     k = idx[by, bx]
     ys = 8 * by[:, None, None] + np.arange(8)[None, :, None]
     xs = 8 * bx[:, None, None] + np.arange(8)[None, None, :]
-    ydir, var = direction(planes[0][ys, xs])
-    ypri = np.array([s[0] for s in f.cdef_y])[k]
-    ysec = np.array([s[1] for s in f.cdef_y])[k]
+    sh = bd - 8
+    ydir, var = direction(planes[0][ys, xs] >> sh)
+    ypri = np.array([s[0] for s in f.cdef_y])[k] << sh
+    ysec = np.array([s[1] for s in f.cdef_y])[k] << sh
     vstr = np.where(var >> 6, np.minimum(_floor_log2(var >> 6), 12), 0)
     adj = np.where(var > 0, (ypri * (4 + vstr) + 8) >> 4, 0)
     dirs = np.where(ypri == 0, 0, ydir)
@@ -121,13 +125,13 @@ def cdef(planes, f, seq, skips, cdef_idx):
                       ("cdef_sec", (adj == 0) & (ysec > 0)),
                       ("cdef_both", (adj > 0) & (ysec > 0))):
         ran[name] = int(sel.sum())
-    jobs = [(0, 0, 0, adj, ysec, f.cdef_damping, dirs)]
+    jobs = [(0, 0, 0, adj, ysec, f.cdef_damping + sh, dirs)]
     if seq.num_planes > 1:
-        upri = np.array([s[0] for s in f.cdef_uv])[k]
-        usec = np.array([s[1] for s in f.cdef_uv])[k]
+        upri = np.array([s[0] for s in f.cdef_uv])[k] << sh
+        usec = np.array([s[1] for s in f.cdef_uv])[k] << sh
         row = int(seq.ssx and not seq.ssy)
         udirs = np.where(upri == 0, 0, UV_DIR[row][ydir])
-        jobs += [(p, seq.ssy, seq.ssx, upri, usec, f.cdef_damping - 1,
+        jobs += [(p, seq.ssy, seq.ssx, upri, usec, f.cdef_damping - 1 + sh,
                   udirs) for p in (1, 2)]
     for p, sy, sx, pri, sec, damping, dr in jobs:
         bh, bw = 8 >> sy, 8 >> sx
@@ -137,11 +141,11 @@ def cdef(planes, f, seq, skips, cdef_idx):
         for c in range(0, len(by), CHUNK):
             part = slice(c, c + CHUNK)
             _filter(pad, out[p], by[part], bx[part], bh, bw, pri[part],
-                    sec[part], damping, dr[part])
+                    sec[part], damping, dr[part], sh)
     return out, ran
 
 
-def _filter(pad, dst, by, bx, bh, bw, pri, sec, damping, dirs):
+def _filter(pad, dst, by, bx, bh, bw, pri, sec, damping, dirs, sh=0):
     """cdef_filter of blocks (by, bx) of size bh x bw; `pad` holds the
     plane's available (mi) area with 2 samples of UNAVAILABLE around it,
     taps that are left out: constrain gives them 0, the maximum never
@@ -156,7 +160,7 @@ def _filter(pad, dst, by, bx, bh, bw, pri, sec, damping, dirs):
     pri_b, sec_b = col(pri), col(sec)
     pri_sh = col(np.maximum(0, damping - _floor_log2(pri)))
     sec_sh = col(np.maximum(0, damping - _floor_log2(sec)))
-    taps = pri & 1
+    taps = (pri >> sh) & 1
     total = np.zeros_like(x)
     lo, hi = x.view(np.uint32).copy(), x.copy()
     for k in (0, 1):

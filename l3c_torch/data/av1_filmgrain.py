@@ -1,5 +1,5 @@
-"""AV1's film grain synthesis for 8-bit frames (the AV1 specification,
-section 7.18.3), as dav1d 1.5 applies it to the frames it outputs
+"""AV1's film grain synthesis (the AV1 specification, section 7.18.3), as
+dav1d 1.5 applies it to the 8-, 10- and 12-bit frames it outputs
 (`filmgrain_tmpl.c`, `fg_apply_tmpl.c`), which is what Pillow's libavif
 hands on: dav1d's `apply_grain` is on there.
 
@@ -8,12 +8,16 @@ the frame header's `grain` parameters (av1_obu) and returns the planes
 with grain: the 16-bit LFSR; the 73 x 82 luma grain template and the
 chroma templates (38 x 44 at 4:2:0, 73 x 44 at 4:2:2, 73 x 82 at 4:4:4)
 from the Gaussian sequence; their autoregressive filter (serial along a
-row, the rows above as numpy); the 256-entry scaling functions; the noise
+row, the rows above as numpy); the scaling functions (256 entries, at
+10 and 12 bits 2^bd, interpolated between them as dav1d's
+generate_scaling does); the noise
 of each 32-row stripe from 32 x 32 blocks at random offsets seeded by the
 stripe's number, blended over two columns (one at half width) where
 blocks meet and over two rows (one) where stripes meet; chroma scaled by
 its own points or from luma; the result clipped to the restricted range
-where the header asks.
+where the header asks. Above 8 bits (sh = bd - 8) the grain's range
+and the clip ranges scale by 2^sh, the Gaussian values are rounded by sh
+bits less and the chroma offset shifts left by sh.
 """
 from __future__ import annotations
 
@@ -25,7 +29,6 @@ import numpy as np
 from . import av1_tables as T
 
 GAUSS = np.array(T.GAUSSIAN_SEQUENCE, np.int64)
-GRAIN_MIN, GRAIN_MAX = -128, 127
 
 
 class _Lfsr:
@@ -46,12 +49,13 @@ def _gaussian(seed: int, h: int, w: int, shift: int) -> np.ndarray:
 
 
 def _autoregress(buf: np.ndarray, coeffs, lag: int, shift: int,
-                 luma=None):
+                 luma=None, sh: int = 0):
     """The AR filter over buf[3:, 3:-3] in place: `coeffs` in raster order
     over the rows above and the samples to the left; `luma`, where given,
     the co-located luma grain times the last coefficient."""
     h, w = buf.shape
     rnd = 1 << (shift - 1)
+    lo, hi = -(128 << sh), (128 << sh) - 1
     taps = list(zip([(dy, dx) for dy in range(-lag, 1)
                      for dx in range(-lag, lag + 1) if (dy, dx) < (0, 0)],
                     coeffs))
@@ -70,20 +74,20 @@ def _autoregress(buf: np.ndarray, coeffs, lag: int, shift: int,
             for dx, c in left:
                 s += c * row[x + dx]
             v = row[x] + ((s + rnd) >> shift)
-            row[x] = GRAIN_MIN if v < GRAIN_MIN else GRAIN_MAX if \
-                v > GRAIN_MAX else v
+            row[x] = lo if v < lo else hi if v > hi else v
         buf[y] = row
 
 
 def templates(g: SimpleNamespace, seq: SimpleNamespace) -> List:
     """The grain templates of the planes: luma 73 x 82, chroma by its
     subsampling (None where the plane gets no grain)."""
-    shift = 4 + g.grain_scale_shift
+    sh = seq.bit_depth - 8
+    shift = 4 - sh + g.grain_scale_shift
     n_luma = 2 * g.ar_lag * (g.ar_lag + 1)
     luma = np.zeros((73, 82), np.int64)
     if g.y_points:
         luma = _gaussian(g.seed, 73, 82, shift)
-        _autoregress(luma, g.ar_y, g.ar_lag, g.ar_shift)
+        _autoregress(luma, g.ar_y, g.ar_lag, g.ar_shift, sh=sh)
     out = [luma if g.y_points else None]
     if seq.mono:
         return out
@@ -106,35 +110,46 @@ def templates(g: SimpleNamespace, seq: SimpleNamespace) -> List:
             continue
         buf = _gaussian(g.seed ^ seed_x, ch, cw, shift)
         _autoregress(buf, ar[:n_luma], g.ar_lag, g.ar_shift,
-                     None if lum is None else ar[n_luma] * lum)
+                     None if lum is None else ar[n_luma] * lum, sh)
         out.append(buf)
     return out
 
 
-def scaling_lut(points) -> np.ndarray:
-    """The 256-entry piecewise-linear scaling function of the points."""
-    lut = np.zeros(256, np.int64)
+def scaling_lut(points, sh: int = 0) -> np.ndarray:
+    """The piecewise-linear scaling function of the points: 256 entries,
+    or at depth 8 + sh the 256 at every 2^sh-th entry and the ones between
+    rounded from their neighbours, (range * n + 2^(sh - 1)) >> sh."""
+    lut = np.zeros(256 << sh, np.int64)
     if not points:
         return lut
-    lut[:points[0][0]] = points[0][1]
+    lut[:points[0][0] << sh] = points[0][1]
     for (bx, by), (ex, ey) in zip(points, points[1:]):
         dx = ex - bx
         delta = (ey - by) * ((0x10000 + (dx >> 1)) // dx)
         x = np.arange(dx, dtype=np.int64)
-        lut[bx:ex] = by + ((x * delta + 0x8000) >> 16)
-    lut[points[-1][0]:] = points[-1][1]
+        lut[(bx + x) << sh] = by + ((x * delta + 0x8000) >> 16)
+    lut[points[-1][0] << sh:] = points[-1][1]
+    if sh:
+        pad = 1 << sh
+        for (bx, _), (ex, _) in zip(points, points[1:]):
+            at = np.arange(bx << sh, ex << sh, pad)
+            rng = lut[at + pad] - lut[at]
+            n = np.arange(1, pad)
+            lut[at[:, None] + n] = lut[at][:, None] + (
+                (pad >> 1) + rng[:, None] * n >> sh)
     return lut
 
 
-def _blend(old, new, w_old, w_new):
-    return np.clip((old * w_old + new * w_new + 16) >> 5, GRAIN_MIN,
-                   GRAIN_MAX)
+def _blend(old, new, w_old, w_new, sh):
+    return np.clip((old * w_old + new * w_new + 16) >> 5, -(128 << sh),
+                   (128 << sh) - 1)
 
 
 def noise_planes(g: SimpleNamespace, seq: SimpleNamespace, h: int, w: int,
                  tmpl: List) -> List:
     """Each plane's noise image (None where the plane gets no grain): the
     stripes' 32 x 32 blocks at their random offsets, overlapped."""
+    sh = seq.bit_depth - 8
     stripes = []
     rows = (h + 1) // 2
     cols = (w + 1) // 2
@@ -165,10 +180,11 @@ def noise_planes(g: SimpleNamespace, seq: SimpleNamespace, h: int, w: int,
                 x0 = k * step_x
                 if g.overlap and k:
                     if sx:
-                        blk[:, 0] = _blend(st[:, x0], blk[:, 0], 23, 22)
+                        blk[:, 0] = _blend(st[:, x0], blk[:, 0], 23, 22, sh)
                     else:
-                        blk[:, 0] = _blend(st[:, x0], blk[:, 0], 27, 17)
-                        blk[:, 1] = _blend(st[:, x0 + 1], blk[:, 1], 17, 27)
+                        blk[:, 0] = _blend(st[:, x0], blk[:, 0], 27, 17, sh)
+                        blk[:, 1] = _blend(st[:, x0 + 1], blk[:, 1], 17, 27,
+                                           sh)
                 st[:, x0:x0 + bw] = blk
             stripe_list.append(st)
         img = np.zeros((len(stripe_list) * step_y, stripe_w), np.int64)
@@ -177,29 +193,33 @@ def noise_planes(g: SimpleNamespace, seq: SimpleNamespace, h: int, w: int,
             if g.overlap and k:
                 prev = stripe_list[k - 1]
                 if sy:
-                    top[0] = _blend(prev[step_y], top[0], 23, 22)
+                    top[0] = _blend(prev[step_y], top[0], 23, 22, sh)
                 else:
-                    top[0] = _blend(prev[step_y], top[0], 27, 17)
-                    top[1] = _blend(prev[step_y + 1], top[1], 17, 27)
+                    top[0] = _blend(prev[step_y], top[0], 27, 17, sh)
+                    top[1] = _blend(prev[step_y + 1], top[1], 17, 27, sh)
             img[k * step_y:(k + 1) * step_y] = top
         out.append(img[:ph, :pw])
     return out
 
 
 def apply_grain(planes, g: SimpleNamespace, seq: SimpleNamespace):
-    """The planes (uint8, cropped) with the frame's film grain added."""
+    """The planes (uint8, or uint16 above 8 bits; cropped) with the
+    frame's film grain added."""
     h, w = planes[0].shape
     tmpl = templates(g, seq)
     noise = noise_planes(g, seq, h, w, tmpl)
     shift = g.scaling_shift
-    lo, hi_y, hi_c = (16, 235, 235 if seq.mc == 0 else 240) if \
-        g.clip_restricted else (0, 255, 255)
+    sh = seq.bit_depth - 8
+    dtype = planes[0].dtype
+    lo, hi_y, hi_c = (16 << sh, 235 << sh, (235 if seq.mc == 0 else 240)
+                      << sh) if g.clip_restricted else (0,) + (
+                          (256 << sh) - 1,) * 2
     y = planes[0].astype(np.int64)
     out = []
     if noise[0] is not None:
-        lut = scaling_lut(g.y_points)
+        lut = scaling_lut(g.y_points, sh)
         out.append(np.clip(y + ((lut[y] * noise[0] + (1 << shift >> 1))
-                                >> shift), lo, hi_y).astype(np.uint8))
+                                >> shift), lo, hi_y).astype(dtype))
     else:
         out.append(planes[0])
     if seq.mono:
@@ -222,11 +242,12 @@ def apply_grain(planes, g: SimpleNamespace, seq: SimpleNamespace):
         orig = planes[p].astype(np.int64)
         if g.chroma_from_luma:
             merged = avg
-            lut = scaling_lut(g.y_points)
+            lut = scaling_lut(g.y_points, sh)
         else:
             combined = avg * (luma_mult - 128) + orig * (mult - 128)
-            merged = np.clip((combined >> 6) + offset - 256, 0, 255)
-            lut = scaling_lut(points)
+            merged = np.clip((combined >> 6) + ((offset - 256) << sh), 0,
+                             (256 << sh) - 1)
+            lut = scaling_lut(points, sh)
         n = (lut[merged] * noise[p] + (1 << shift >> 1)) >> shift
-        out.append(np.clip(orig + n, lo, hi_c).astype(np.uint8))
+        out.append(np.clip(orig + n, lo, hi_c).astype(dtype))
     return out

@@ -223,17 +223,24 @@ def clip_dv(d, b, dv, wh):
 
 
 def predict(plane: np.ndarray, x: int, y: int, w: int, h: int, dv, ssx: int,
-            ssy: int, last_x: int, last_y: int) -> np.ndarray:
+            ssy: int, last_x: int, last_y: int, bd: int = 8) -> np.ndarray:
     """The block's prediction in one plane: the samples the DV points at
     (positions clipped to the frame), bilinear where a subsampled plane
-    lands between samples (the inter predictor's rounding: 3 bits after
-    the rows, 11 after the columns, which for two taps is (16 - f) a + f b
-    across, then ((16 - g) p + g q + 128) >> 8 down)."""
+    lands between samples, as dav1d's put_bilin rounds it with its
+    intermediate bits ib (4 up to 10 bits, 2 at 12): (16 - f) a + f b
+    across rounded by 4 - ib bits, then ((16 - g) p + g q) rounded by 4 +
+    ib bits down, or, with no step down, by ib bits (at 8 and 10 bits
+    ((16 - g) p + g q + 128) >> 8 of the unrounded rows)."""
     px = (x << 4) + ((2 * dv[1]) >> ssx)
     py = (y << 4) + ((2 * dv[0]) >> ssy)
     fx, fy = px & 15, py & 15
     cols = np.clip(np.arange(px >> 4, (px >> 4) + w + 1), 0, last_x)
     rows = np.clip(np.arange(py >> 4, (py >> 4) + h + 1), 0, last_y)
     src = plane[rows[:, None], cols[None, :]]
-    across = (16 - fx) * src[:, :w] + fx * src[:, 1:]
-    return ((16 - fy) * across[:h] + fy * across[1:] + 128) >> 8
+    ib = 4 if bd <= 10 else 2
+    across = ((16 - fx) * src[:, :w] + fx * src[:, 1:] +
+              ((1 << (4 - ib)) >> 1)) >> (4 - ib)
+    if not fy:
+        return (across[:h] + ((1 << ib) >> 1)) >> ib
+    return ((16 - fy) * across[:h] + fy * across[1:] + (1 << (3 + ib))) >> \
+        (4 + ib)

@@ -12,7 +12,8 @@ the edges' order within a row; but no edge reads or writes a sample
 past half its filter size, which both transforms it joins hold, so the
 edges of a row touch disjoint samples and every edge of the pass is
 filtered at once in numpy, in any order; the horizontal pass is the same
-on the transposed plane.
+on the transposed plane. At 10 and 12 bits the limits, the flatness
+threshold and the narrow filter's signed range scale by 2^(bd - 8).
 """
 from __future__ import annotations
 
@@ -76,7 +77,8 @@ def deblock(planes, f, seq, seg_ids, lf_tx, tx_wh):
     if not (f.lf_level[0] or f.lf_level[1]):
         return ran
     lvl_tab = levels(f)
-    lut = limits(f.lf_sharpness)
+    sh = seq.bit_depth - 8
+    lut = tuple(v << sh for v in limits(f.lf_sharpness))
     txw = np.array([w for w, _ in tx_wh])
     txh = np.array([h for _, h in tx_wh])
     for p in range(seq.num_planes):
@@ -96,14 +98,14 @@ def deblock(planes, f, seq, seg_ids, lf_tx, tx_wh):
         for pas in (0, 1):
             lvl = lvl_tab[seg, pas if p == 0 else p + 1]
             if pas == 0:
-                _edges(work, txw[tx], lvl, p == 0, lut, ran)
+                _edges(work, txw[tx], lvl, p == 0, lut, ran, sh)
             else:
-                _edges(work.T, txh[tx].T, lvl.T, p == 0, lut, ran)
+                _edges(work.T, txh[tx].T, lvl.T, p == 0, lut, ran, sh)
         planes[p][...] = work[PAD:PAD + h, PAD:PAD + w]
     return ran
 
 
-def _edges(V, across, lvl, luma, lut, ran):
+def _edges(V, across, lvl, luma, lut, ran, sh=0):
     """Every edge between V's columns 4k - 1 and 4k (padded by PAD), the
     grid's transform size across the edge and level per 4 x 4, all at
     once: an edge of filter size s reads and writes only the s / 2
@@ -130,7 +132,7 @@ def _edges(V, across, lvl, luma, lut, ran):
         lv_k = np.repeat(lv[r4[part], k[part]], 4)
         win = V[rows[:, None], xs[:, None] + np.arange(-8, 8)]
         out = _filter(win, c, lim[lv_k], blim[lv_k], thr[lv_k], ran,
-                      "y" if luma else "uv")
+                      "y" if luma else "uv", sh)
         for n in (4, 8, 16):
             sel = s == n
             if sel.any():
@@ -139,10 +141,11 @@ def _edges(V, across, lvl, luma, lut, ran):
                     out[sel][:, cols]
 
 
-def _filter(win, code, lim, blim, thr, ran, tag):
+def _filter(win, code, lim, blim, thr, ran, tag, sh=0):
     """The filter mask process and the narrow and wide filters (7.14.6)
-    on rows of samples p7..p0 q0..q7; `ran` counts the rows each filter
-    (`tag` + its taps) changed."""
+    on rows of samples p7..p0 q0..q7 of depth 8 + sh (the limits already
+    scaled); `ran` counts the rows each filter (`tag` + its taps)
+    changed."""
     win = win.astype(np.int64)
     p = [win[:, 7 - j] for j in range(7)]
     q = [win[:, 8 + j] for j in range(7)]
@@ -153,27 +156,30 @@ def _filter(win, code, lim, blim, thr, ran, tag):
     c8 = code >= 8
     fm &= ~c6 | ((a(p[2] - p[1]) <= lim) & (a(q[2] - q[1]) <= lim))
     fm &= ~c8 | ((a(p[3] - p[2]) <= lim) & (a(q[3] - q[2]) <= lim))
-    flat = c6 & (a(p[1] - p[0]) <= 1) & (a(q[1] - q[0]) <= 1) & \
-        (a(p[2] - p[0]) <= 1) & (a(q[2] - q[0]) <= 1)
-    flat &= ~c8 | ((a(p[3] - p[0]) <= 1) & (a(q[3] - q[0]) <= 1))
+    one = 1 << sh
+    flat = c6 & (a(p[1] - p[0]) <= one) & (a(q[1] - q[0]) <= one) & \
+        (a(p[2] - p[0]) <= one) & (a(q[2] - q[0]) <= one)
+    flat &= ~c8 | ((a(p[3] - p[0]) <= one) & (a(q[3] - q[0]) <= one))
     flat2 = (code == 16) & flat
     for j in (4, 5, 6):
-        flat2 &= (a(p[j] - p[0]) <= 1) & (a(q[j] - q[0]) <= 1)
+        flat2 &= (a(p[j] - p[0]) <= one) & (a(q[j] - q[0]) <= one)
     out = win.copy()
     # narrow filter (7.14.6.3)
     nar = fm & ~flat
     if nar.any():
         hev = (a(p[1] - p[0]) > thr) | (a(q[1] - q[0]) > thr)
-        ps1, ps0, qs0, qs1 = p[1] - 128, p[0] - 128, q[0] - 128, q[1] - 128
-        f = np.where(hev, np.clip(ps1 - qs1, -128, 127), 0)
-        f = np.clip(f + 3 * (qs0 - ps0), -128, 127)
-        f1 = np.clip(f + 4, -128, 127) >> 3
-        f2 = np.clip(f + 3, -128, 127) >> 3
+        mid = 128 << sh
+        lo, hi = -mid, mid - 1
+        ps1, ps0, qs0, qs1 = p[1] - mid, p[0] - mid, q[0] - mid, q[1] - mid
+        f = np.where(hev, np.clip(ps1 - qs1, lo, hi), 0)
+        f = np.clip(f + 3 * (qs0 - ps0), lo, hi)
+        f1 = np.clip(f + 4, lo, hi) >> 3
+        f2 = np.clip(f + 3, lo, hi) >> 3
         f = (f1 + 1) >> 1
         nh = nar & ~hev
         for at, sel, v in ((8, nar, qs0 - f1), (7, nar, ps0 + f2),
                            (9, nh, qs1 - f), (6, nh, ps1 + f)):
-            out[:, at] = np.where(sel, np.clip(v, -128, 127) + 128,
+            out[:, at] = np.where(sel, np.clip(v, lo, hi) + mid,
                                   out[:, at])
         ran[tag + "4"] = ran.get(tag + "4", 0) + int(nar.sum())
     # wide filters (7.14.6.4): 14 taps, 8 taps (luma), 6 taps (chroma)

@@ -11,7 +11,7 @@ it names need: the quantizer matrix levels (`using_qmatrix`, `qm_y`,
 and loop restoration off and reads no per-block loop filter deltas) and
 the film grain parameters (`frame.grain`, None without grain). What this
 decoder does not decode yet (superres, per-block loop filter deltas with
-the deblocking filter on, bit depths above 8, inter frames) is refused by
+the deblocking filter on, inter frames) is refused by
 name with "... is not decoded by the port yet"; a bitstream dav1d cannot
 parse is refused as damaged.
 """

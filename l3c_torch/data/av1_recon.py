@@ -1,6 +1,6 @@
 """AV1 intra prediction and inverse transforms (the AV1 specification,
-sections 7.11.2 and 7.13), in integers, as dav1d computes them for 8-bit
-samples.
+sections 7.11.2 and 7.13), in integers, as dav1d computes them for 8-,
+10- and 12-bit samples (`bd`; predictions clip to its range).
 
 Prediction works on the edge arrays the specification builds (`above`
 and `left`, index 0 standing for position -1, two more entries in front
@@ -11,12 +11,13 @@ their flips, identity 4-32, the lossless WHT) run one 1-D pass over all
 rows (or all columns) of a block at once: each of the `n` inputs is a
 numpy vector. The DCT and ADST butterflies are the ones libaom and dav1d
 use (12-bit cosines, a rounding after every rotation), every sum and
-difference clipped to 16 bits as dav1d's 8-bit transforms clip it
-(`itx_1d.c`; a valid stream never reaches the clip, a damaged one can).
-The clips run only where a pass could reach them: no sum or difference
-of the DCT or ADST networks weighs an input by more than 1
-(`test_torch_port_av1.py` measures it), so a pass whose inputs' absolute
-sum stays `MARGIN` below 2^15 runs unclipped.
+difference clipped as dav1d's transforms clip it (`itx_1d.c`; a valid
+stream never reaches the clip, a damaged one can): to 16 bits at 8-bit
+depth, else the rows to bd + 8 bits and the columns to max(bd + 6, 16)
+(`clip_ranges`). The clips run only where a pass could reach them: no
+sum or difference of the DCT or ADST networks weighs an input by more
+than 1 (`test_torch_port_av1.py` measures it), so a pass whose inputs'
+absolute sum stays `MARGIN` below its clip runs unclipped.
 """
 from __future__ import annotations
 
@@ -40,6 +41,14 @@ def _keep(v):
     return v
 
 
+def clip_ranges(bd: int):
+    """dav1d's (row, column) clip maxima of the inverse transforms at
+    depth bd (the minima are -max - 1)."""
+    if bd == 8:
+        return HI, HI
+    return (1 << (bd + 7)) - 1, (1 << max(bd + 5, 15)) - 1
+
+
 # modes (V_PRED .. D67_PRED, 1-8, are the directional ones)
 DC_PRED, SMOOTH, SMOOTH_V, SMOOTH_H, UV_CFL = 0, 9, 10, 11, 13
 MODE_TO_ANGLE = (0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 0, 0)
@@ -52,7 +61,7 @@ FILTER_TAPS = np.array(T.FILTER_INTRA_TAPS, np.int64).reshape(5, 8, 8)[
 
 # ------------------------------------------------------------ prediction
 
-def pred_dc(above, left, w, h, have_a, have_l):
+def pred_dc(above, left, w, h, have_a, have_l, bd=8):
     if have_a and have_l:
         s = int(above[1:w + 1].sum()) + int(left[1:h + 1].sum())
         v = (s + ((w + h) >> 1)) // (w + h)
@@ -61,7 +70,7 @@ def pred_dc(above, left, w, h, have_a, have_l):
     elif have_a:
         v = (int(above[1:w + 1].sum()) + (w >> 1)) >> (w.bit_length() - 1)
     else:
-        v = 128
+        v = 1 << (bd - 1)
     return np.full((h, w), v, np.int64)
 
 
@@ -90,7 +99,7 @@ def pred_paeth(above, left, w, h):
                     np.where(pt <= ptl, a, tl)).astype(np.int64)
 
 
-def pred_filter_intra(above, left, w, h, mode):
+def pred_filter_intra(above, left, w, h, mode, bd=8):
     taps = FILTER_TAPS[mode]
     pred = np.zeros((h, w), np.int64)
     for i2 in range(h >> 1):
@@ -113,7 +122,7 @@ def pred_filter_intra(above, left, w, h, mode):
             pr = taps @ pv
             pr = np.where(pr >= 0, (pr + 8) >> 4, -((-pr + 8) >> 4))
             pred[(i2 << 1):(i2 << 1) + 2, (j4 << 2):(j4 << 2) + 4] = \
-                np.clip(pr, 0, 255).reshape(2, 4)
+                np.clip(pr, 0, (1 << bd) - 1).reshape(2, 4)
     return pred
 
 
@@ -164,7 +173,7 @@ def use_upsample(w, h, ftype, delta):
     return int(w + h <= (8 if ftype else 16))
 
 
-def upsample(edge, num_px):
+def upsample(edge, num_px, bd=8):
     """upsample(numPx): edge (index 0 = position -1) -> the doubled edge
     with index 0 = position -2."""
     dup = np.empty(num_px + 3, np.int64)
@@ -175,14 +184,14 @@ def upsample(edge, num_px):
     out[0] = dup[0]                                  # position -2
     s = -dup[0:num_px] + 9 * dup[1:num_px + 1] + 9 * dup[2:num_px + 2] - \
         dup[3:num_px + 3]
-    s = np.clip((s + 8) >> 4, 0, 255)
+    s = np.clip((s + 8) >> 4, 0, (1 << bd) - 1)
     out[1:2 * num_px + 1:2] = s                      # positions 2i - 1
     out[2:2 * num_px + 2:2] = dup[2:num_px + 2]      # positions 2i
     return out
 
 
 def pred_directional(above, left, w, h, p_angle, have_a, have_l, ftype,
-                     edge_on, max_x_px, max_y_px):
+                     edge_on, max_x_px, max_y_px, bd=8):
     """`above` / `left` hold w + h + 1 entries from position -1;
     max_x_px / max_y_px: pixels from the block's origin to the plane's
     decoded edge."""
@@ -204,10 +213,10 @@ def pred_directional(above, left, w, h, p_angle, have_a, have_l, ftype,
                 edge_filter(left, n, st)
         up_a = use_upsample(w, h, ftype, p_angle - 90)
         if up_a:
-            above = upsample(above, w + (h if p_angle < 90 else 0))
+            above = upsample(above, w + (h if p_angle < 90 else 0), bd=bd)
         up_l = use_upsample(w, h, ftype, p_angle - 180)
         if up_l:
-            left = upsample(left, h + (w if p_angle > 180 else 0))
+            left = upsample(left, h + (w if p_angle > 180 else 0), bd=bd)
     # index offsets: position p lives at p + 1 (+1 more when upsampled)
     oa = 2 if up_a else 1
     ol = 2 if up_l else 1
@@ -257,14 +266,14 @@ def pred_directional(above, left, w, h, p_angle, have_a, have_l, ftype,
     return np.where(use_a, pa, pl)
 
 
-def cfl(pred_dc_block, luma, alpha):
+def cfl(pred_dc_block, luma, alpha, bd=8):
     """predict_chroma_from_luma on the DC prediction, `luma` the
     subsampled, padded luma values (L in the specification)."""
     h, w = pred_dc_block.shape
     avg = (int(luma.sum()) + ((w * h) >> 1)) >> ((w * h).bit_length() - 1)
     d = alpha * (luma - avg)
     scaled = np.where(d >= 0, (d + 32) >> 6, -((-d + 32) >> 6))
-    return np.clip(pred_dc_block + scaled, 0, 255)
+    return np.clip(pred_dc_block + scaled, 0, (1 << bd) - 1)
 
 
 # ------------------------------------------------------ inverse transforms
@@ -273,15 +282,32 @@ def _hb(w0, a, w1, b):
     return (w0 * a + w1 * b + 2048) >> 12
 
 
-def idct(x: List, clip=_keep) -> List:
+def _wrap32(v):
+    """v as a 32-bit two's-complement integer."""
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _hb_wrap(w0, a, w1, b):
+    """A rotation whose products wrap in 32-bit lanes (dav1d's 12-bit
+    transforms on x86 multiply by the whole 12-bit constants)."""
+    return _wrap32(w0 * a + w1 * b + 2048) >> 12
+
+
+def _hb_sat16(w0, a, w1, b):
+    """A rotation whose result saturates to 16 bits (the second pass of
+    dav1d's 10-bit transforms on x86 runs in 16-bit lanes)."""
+    return np.clip((w0 * a + w1 * b + 2048) >> 12, LO, HI)
+
+
+def idct(x: List, clip=_keep, hb=_hb) -> List:
     """The DCT of len(x) = 2^n inputs (n = 1..6): even half recursively,
     odd half through libaom's butterfly network; `clip` (none by default)
-    after each sum and difference."""
+    after each sum and difference, `hb` each rotation."""
     n = len(x)
     c32 = COS[32]
     if n == 2:
-        return [_hb(c32, x[0], c32, x[1]), _hb(c32, x[0], -c32, x[1])]
-    e = idct(x[0::2], clip)
+        return [hb(c32, x[0], c32, x[1]), hb(c32, x[0], -c32, x[1])]
+    e = idct(x[0::2], clip, hb)
     m = n // 2
     bits = m.bit_length() - 1
     o = [x[2 * _brev(bits, j) + 1] for j in range(m)]
@@ -291,12 +317,12 @@ def idct(x: List, clip=_keep) -> List:
         b = unit * (1 + 4 * _brev(half_bits, j))
         a = 64 - b
         p, q = o[j], o[m - 1 - j]
-        o[j] = _hb(COS[a], p, -COS[b], q)
-        o[m - 1 - j] = _hb(COS[b], p, COS[a], q)
+        o[j] = hb(COS[a], p, -COS[b], q)
+        o[m - 1 - j] = hb(COS[b], p, COS[a], q)
     g = 2
     while g < m:
         _bfly(o, g, clip)
-        _odd_rot(o, g, m)
+        _odd_rot(o, g, m, hb)
         g *= 2
     return [clip(e[i] + o[m - 1 - i]) for i in range(m)] + \
         [clip(e[m - 1 - i] - o[i]) for i in range(m)]
@@ -321,7 +347,7 @@ def _bfly(o, g, clip):
                 o[s + i], o[s + g - 1 - i] = clip(b - a), clip(a + b)
 
 
-def _odd_rot(o, g, m):
+def _odd_rot(o, g, m, hb):
     c32 = COS[32]
     size = 2 * g
     if size == m:
@@ -330,8 +356,8 @@ def _odd_rot(o, g, m):
                 break
             q = m - 1 - p
             a, b = o[p], o[q]
-            o[p] = _hb(-c32, a, c32, b)
-            o[q] = _hb(c32, a, c32, b)
+            o[p] = hb(-c32, a, c32, b)
+            o[q] = hb(c32, a, c32, b)
         return
     pairs = m // size // 2
     unit = 16 // pairs
@@ -344,22 +370,26 @@ def _odd_rot(o, g, m):
             q = m - 1 - p
             a, b = o[p], o[q]
             if k < g // 2:
-                o[p] = _hb(-ct, a, cc, b)
-                o[q] = _hb(cc, a, ct, b)
+                o[p] = hb(-ct, a, cc, b)
+                o[q] = hb(cc, a, ct, b)
             else:
-                o[p] = _hb(-cc, a, -ct, b)
-                o[q] = _hb(-ct, a, cc, b)
+                o[p] = hb(-cc, a, -ct, b)
+                o[q] = hb(-ct, a, cc, b)
 
 
-def iadst4(x: List) -> List:
+def iadst4(x: List, hb=_hb) -> List:
+    """The 4-point ADST; with `hb` _hb_wrap its sums wrap to 32 bits, with
+    _hb_sat16 its outputs saturate to 16 bits, as the rotations do."""
     s1, s2, s3, s4 = SINPI[1:5]
     x0, x1, x2, x3 = x
-    a0 = s1 * x0 + s4 * x2 + s2 * x3
-    a1 = s2 * x0 - s1 * x2 - s4 * x3
-    a2 = s3 * (x0 - x2 + x3)
-    a3 = s3 * x1
-    return [(a0 + a3 + 2048) >> 12, (a1 + a3 + 2048) >> 12,
-            (a2 + 2048) >> 12, (a0 + a1 - a3 + 2048) >> 12]
+    wrap = _wrap32 if hb is _hb_wrap else _keep
+    a0 = wrap(s1 * x0 + s4 * x2 + s2 * x3)
+    a1 = wrap(s2 * x0 - s1 * x2 - s4 * x3)
+    a2 = wrap(s3 * (x0 - x2 + x3))
+    a3 = wrap(s3 * x1)
+    out = [wrap(a0 + a3 + 2048) >> 12, wrap(a1 + a3 + 2048) >> 12,
+           wrap(a2 + 2048) >> 12, wrap(a0 + a1 - a3 + 2048) >> 12]
+    return [np.clip(v, LO, HI) for v in out] if hb is _hb_sat16 else out
 
 
 _ADST_OUT = {8: (0, -4, 6, -2, 3, -7, 5, -1),
@@ -367,10 +397,10 @@ _ADST_OUT = {8: (0, -4, 6, -2, 3, -7, 5, -1),
                   -1)}
 
 
-def iadst(x: List, clip=_keep) -> List:
+def iadst(x: List, clip=_keep, hb=_hb) -> List:
     n = len(x)
     if n == 4:
-        return iadst4(x)
+        return iadst4(x, hb)
     b = [None] * n
     for k in range(n // 2):
         b[2 * k] = x[n - 1 - 2 * k]
@@ -379,8 +409,8 @@ def iadst(x: List, clip=_keep) -> List:
     for k in range(n // 2):
         al = unit * (1 + 4 * k)
         p, q = b[2 * k], b[2 * k + 1]
-        b[2 * k] = _hb(COS[al], p, COS[64 - al], q)
-        b[2 * k + 1] = _hb(COS[64 - al], p, -COS[al], q)
+        b[2 * k] = hb(COS[al], p, COS[64 - al], q)
+        b[2 * k + 1] = hb(COS[64 - al], p, -COS[al], q)
     span = n // 2
     while span >= 2:
         for s in range(0, n, 2 * span):
@@ -396,11 +426,11 @@ def iadst(x: List, clip=_keep) -> List:
                 j = s + span + 2 * k
                 p, q = b[j], b[j + 1]
                 if k < max(1, npairs // 2):
-                    b[j] = _hb(COS[th], p, COS[64 - th], q)
-                    b[j + 1] = _hb(COS[64 - th], p, -COS[th], q)
+                    b[j] = hb(COS[th], p, COS[64 - th], q)
+                    b[j + 1] = hb(COS[64 - th], p, -COS[th], q)
                 else:
-                    b[j] = _hb(-COS[64 - th], p, COS[th], q)
-                    b[j + 1] = _hb(COS[th], p, COS[64 - th], q)
+                    b[j] = hb(-COS[64 - th], p, COS[th], q)
+                    b[j + 1] = hb(COS[th], p, COS[64 - th], q)
         span //= 2
     return [b[v] if v >= 0 else -b[-v] for v in _ADST_OUT[n]]
 
@@ -426,21 +456,39 @@ TX_KINDS = ((DCT, DCT), (ADST, DCT), (DCT, ADST), (ADST, ADST),
 ROW_SHIFT = (0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2)
 
 
-def _one_d(kind, vecs, l1):
+def _one_d(kind, vecs, l1, hi=HI, hb=_hb):
     """One pass; `l1`, the largest absolute sum of a transform's inputs,
-    says whether the network's clips can act."""
+    says whether the network's clips to [-hi - 1, hi] can act, and
+    whether `hb`'s saturation (as the clips) or wrapping (no product sum
+    of a pass passes 8192 l1, so not below l1 = 2^18) can."""
     if kind == IDTX:
-        return iidentity(vecs)
-    clip = _clip if l1 > HI - MARGIN else _keep
+        out = iidentity(vecs)
+        return [np.clip(v, LO, HI) for v in out] if hb is _hb_sat16 else out
+    if l1 <= hi - MARGIN:
+        clip = _keep
+    elif hi == HI:
+        clip = _clip
+    else:
+        def clip(v):
+            return np.clip(v, -hi - 1, hi)
+    if hb is _hb_wrap and l1 < 1 << 18 or hb is _hb_sat16 and \
+            clip is _keep:
+        hb = _hb
     if kind == DCT:
-        return idct(vecs, clip)
-    return iadst(vecs, clip)
+        return idct(vecs, clip, hb)
+    return iadst(vecs, clip, hb)
 
 
 def inverse_transform(coef: np.ndarray, tx_type: int, tx_size: int,
-                      w: int, h: int) -> np.ndarray:
+                      w: int, h: int, bd: int = 8) -> np.ndarray:
     """The 2-D inverse transform of the (h, w) dequantized block (zero
-    outside its top-left 32 x 32), flips applied: the residual."""
+    outside its top-left 32 x 32), flips applied: the residual. Past the
+    range of valid coefficients the x86 code dav1d runs is followed: at
+    10 bits the columns' rotations, 4-point ADSTs and identities saturate
+    to 16 bits, at 12 bits the products wrap to 32 bits."""
+    row_hi, col_hi = clip_ranges(bd)
+    row_hb, col_hb = {8: (_hb, _hb), 10: (_hb, _hb_sat16),
+                      12: (_hb_wrap, _hb_wrap)}[bd]
     vk, hk = TX_KINDS[tx_type]
     lw, lh = w.bit_length() - 1, h.bit_length() - 1
     rows = min(h, 32)
@@ -448,15 +496,16 @@ def inverse_transform(coef: np.ndarray, tx_type: int, tx_size: int,
     if abs(lw - lh) == 1:
         c = (c * 2896 + 2048) >> 12
     out = _one_d(hk, [c[:, j] for j in range(w)],
-                 int(np.abs(c).sum(1).max()))
+                 int(np.abs(c).sum(1).max()), row_hi, row_hb)
     r = np.stack(out, 1)
     sh = ROW_SHIFT[tx_size]
     if sh:
         r = (r + (1 << (sh - 1))) >> sh
-    r = np.clip(r, -32768, 32767)
+    r = np.clip(r, -col_hi - 1, col_hi)
     if rows < h:
         r = np.concatenate([r, np.zeros((h - rows, w), np.int64)])
-    out = _one_d(vk, [r[i] for i in range(h)], int(np.abs(r).sum(0).max()))
+    out = _one_d(vk, [r[i] for i in range(h)], int(np.abs(r).sum(0).max()),
+                 col_hi, col_hb)
     res = (np.stack(out, 0) + 8) >> 4
     if hk == FLIPADST:
         res = res[:, ::-1]

@@ -11,8 +11,9 @@ edge reads its neighbour's samples). A stripe lies in one unit row, and
 the units split it by columns (the last unit of a row or column takes
 up to 1.5 units), so the stripes of a unit column that share a filter
 type are filtered at once in numpy with their units' parameters:
-Wiener's 8-bit InterRound0 / 1 and its intermediate clip, the
-self-guided box sums by cumulative sums (r = 2 on every other row).
+Wiener's InterRound0 / 1 (3 / 11, at 12 bits 5 / 9) and its intermediate
+clip, the self-guided box sums by cumulative sums (r = 2 on every other
+row), rounded to 8 bits for the filter strength at 10 and 12 bits.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def restore(cdef_planes, pre_planes, f, seq, lr):
                     if not len(sel):
                         continue
                     res = fn(src[sel, :, c0:c1 + 6], par[urow[g[sel]], uc],
-                             sh, c1 - c0)
+                             sh, c1 - c0, seq.bit_depth)
                     for k, r in zip(g[sel], res):
                         y0, y1 = max(0, start[k]), min(ph, start[k] + sh)
                         plane[y0:y1, c0:c1] = r[y0 - start[k]:y1 - start[k]]
@@ -93,10 +94,12 @@ def _stripes(cdef, pre, start, sh, pw, ph):
     return np.where((above | below)[..., None], b, a).astype(np.int64)
 
 
-def _wiener(src, coef, sh, w):
-    """wiener_filter (7.17.4), 8-bit, of stripes of one unit column
-    (coef: (n, pass, 3) per stripe): vertical taps from pass 0,
-    horizontal from pass 1, each symmetric around 128 - 2 * their sum."""
+def _wiener(src, coef, sh, w, bd=8):
+    """wiener_filter (7.17.4) of stripes of one unit column (coef: (n,
+    pass, 3) per stripe): vertical taps from pass 0, horizontal from pass
+    1, each symmetric around 128 - 2 * their sum; the horizontal sums
+    rounded by r0 bits and clipped to bd + 8 - r0 bits, offset by their
+    2^(bd + 6 - r0) bias, the vertical ones rounded by r1."""
     def taps(c):
         c = c[:, None, None, :]
         mid = 128 - 2 * c.sum(-1)
@@ -107,11 +110,14 @@ def _wiener(src, coef, sh, w):
     acc = np.zeros((src.shape[0], sh + 6, w), np.int64)
     for t in range(7):
         acc += hf[t] * src[:, :, t:t + w]
-    inter = np.clip((acc + 4) >> 3, -2048, 8191 - 2048)
+    r0, r1 = (5, 9) if bd == 12 else (3, 11)
+    off = 1 << (bd + 6 - r0)
+    inter = np.clip((acc + (1 << (r0 - 1))) >> r0, -off,
+                    (1 << (bd + 8 - r0)) - 1 - off)
     acc = np.zeros((src.shape[0], sh, w), np.int64)
     for t in range(7):
         acc += vf[t] * inter[:, t:t + sh, :]
-    return np.clip((acc + 1024) >> 11, 0, 255)
+    return np.clip((acc + (1 << (r1 - 1))) >> r1, 0, (1 << bd) - 1)
 
 
 def _box(src, r):
@@ -130,12 +136,15 @@ def _box(src, r):
     return out
 
 
-def _box_filter(src, r, s, sh, w):
+def _box_filter(src, r, s, sh, w, bd=8):
     """box_filter (7.17.3) of radius r and scale s (per stripe) over
     stripes of one unit column: the filtered stripes (n, sh, w)."""
     b, a = _box(src, r)
     nn = (2 * r + 1) ** 2
-    p = np.maximum(0, a * nn - b * b)
+    d = bd - 8
+    a8 = (a + ((1 << (2 * d)) >> 1)) >> (2 * d)
+    b8 = (b + ((1 << d) >> 1)) >> d
+    p = np.maximum(0, a8 * nn - b8 * b8)
     z = (p * s[:, None, None] + (1 << 19)) >> 20
     A = X_BY_XPLUS1[np.clip(z, 0, 255)]
     B = ((256 - A) * b * T.ONE_BY_X[nn - 1] + (1 << 11)) >> 12
@@ -165,7 +174,7 @@ def _cross(M, sh, w):
     return 4 * cross + 3 * diag
 
 
-def _self_guided(src, sgr, sh, w):
+def _self_guided(src, sgr, sh, w, bd=8):
     """self_guided_filter (7.17.3) of stripes of one unit column (sgr:
     (n, 3) set, xqd0, xqd1 per stripe): the set's two box filters (a
     radius of 0 leaves its pass out) projected with the xqd."""
@@ -181,6 +190,6 @@ def _self_guided(src, sgr, sh, w):
         on = radius > 0
         if on.any():
             flt = u.copy()
-            flt[on] = _box_filter(src[on], r, scale[on], sh, w)
+            flt[on] = _box_filter(src[on], r, scale[on], sh, w, bd)
         v = v + wt * flt
-    return np.clip((v + (1 << 10)) >> 11, 0, 255)
+    return np.clip((v + (1 << 10)) >> 11, 0, (1 << bd) - 1)

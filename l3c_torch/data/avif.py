@@ -21,7 +21,11 @@ decoded as libavif decodes it for Pillow's RGBA (a damaged one fails the
 file); convert("RGB") drops it, unless the file marks it premultiplied
 (`prem`): then libavif converts YUV to RGB and divides the colour by the
 alpha plane through libyuv's ARGBUnattenuate (`unpremultiply`), whose
-result convert("RGB") keeps.
+result convert("RGB") keeps. Frames of 10 and 12 bits are decoded,
+scaled and assembled at their depth (uint16 planes) and converted to
+Pillow's 8-bit RGB by data/avif_yuv.py, their alpha brought to 8 bits as
+libavif brings it (`avif_yuv.alpha_8bit`); an alpha item of another depth
+than the colour's fails the file, as it fails libavif.
 """
 from __future__ import annotations
 
@@ -565,7 +569,8 @@ def _planes(blob: bytes, m: SimpleNamespace, item: int, path: str,
                     w * h > 16384 * 16384 or max(planes[0].shape) > 16384:
                 raise _refuse(path, f"its AV1 frame cannot be scaled to "
                                     f"its ispe of {w} x {h}")
-            planes = avif_scale.scale_planes(planes, seq.ssx, seq.ssy, w, h)
+            planes = avif_scale.scale_planes(planes, seq.ssx, seq.ssy, w, h,
+                                             seq.bit_depth)
         return planes, [seq]
     cells = []
     for x in grid.cells:
@@ -636,16 +641,26 @@ def decode_avif(blob: bytes, path: str) -> np.ndarray:
         # libavif decodes the alpha item whatever its use (a damaged one
         # fails the file); convert("RGB") keeps only a premultiplied
         # image's division by it
-        a = _planes(blob, m, alpha, path, alpha=True, ctx=ctx)[0][0]
+        a, aseqs = _planes(blob, m, alpha, path, alpha=True, ctx=ctx)
+        a = a[0]
         if a.shape != planes[0].shape:
             raise _refuse(path, "its alpha plane is not the size of its "
                                 "colour planes")
+        if aseqs[0].bit_depth != seq.bit_depth:
+            # libavif fails the alpha plane ("Decoding of alpha plane
+            # failed" in Pillow)
+            raise _refuse(path, f"its alpha item's depth of "
+                                f"{aseqs[0].bit_depth} bits is not its "
+                                f"colour's {seq.bit_depth}")
         prem = _target(m, b"prem", item) == alpha
+    depth = seq.bit_depth
     rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
-                          full_range, path, cp, a, prem)
+                          full_range, path, cp, a, prem, depth)
     if alpha is not None:
+        a = avif_yuv.alpha_8bit(a, depth, seq.ssx, seq.ssy, seq.mono, mc, cp,
+                                full_range)
         if prem and not avif_yuv.divides_alpha(seq.ssx, seq.ssy, seq.mono,
-                                               mc, cp, full_range):
+                                               mc, cp, full_range, depth):
             rgb = unpremultiply(rgb, a)
         rgb = np.dstack([rgb, a])
     return _as_opened(rgb, w, h, path)
@@ -688,10 +703,6 @@ def _decode_item(blob: bytes, m: SimpleNamespace, item: int, path: str,
     kept = av1_obu.read_rest(data[tiles[-1][3]:], seq, path)
     if ctx:
         ctx.seq = kept
-    if seq.bit_depth != 8:
-        raise ValueError(f"{path}: AVIF with {seq.bit_depth}-bit samples is "
-                         "not decoded by the port yet (dav1d's high bit "
-                         "depth)")
     try:
         planes = av1_block.decode_frame(seq, frame, tiles, data, path)
     except (IndexError, KeyError) as e:

@@ -1,7 +1,8 @@
-"""libavif 1.3.0's avifImageScale of 8-bit planes: an AV1 frame of
-another size than its item's `ispe` (a grid's cell, an alpha item too) is
-scaled to it before conversion, each plane to its own subsampled size,
-by libyuv's ScalePlane under kFilterBox (AVIF_LIBYUV_FILTER_MODE).
+"""libavif 1.3.0's avifImageScale: an AV1 frame of another size than its
+item's `ispe` (a grid's cell, an alpha item too) is scaled to it before
+conversion, each plane to its own subsampled size, by libyuv's
+ScalePlane under kFilterBox (AVIF_LIBYUV_FILTER_MODE), or ScalePlane_16
+for 10- and 12-bit frames, which are scaled at their depth.
 
 ScalePlane first reduces the filter (ScaleFilterReduce: box only where
 both axes shrink below one half, else bilinear; linear where the height
@@ -12,6 +13,8 @@ bilinear enlargements, bilinear up or down in 16.16 fixed point, or
 point sampling. Each path here is libyuv's row functions' integer
 arithmetic as they run on x86: ScaleFilterCols' 7-bit blend, the
 interpolation of two rows in 8 bits, the box sums scaled by 65536 / n.
+The 16-bit paths are the same but for ScaleFilterCols_16's 16-bit blend
+and the 3/4 and 3/8 reductions, which run their C rows throughout.
 """
 from __future__ import annotations
 
@@ -88,12 +91,17 @@ def _interpolate(r0: np.ndarray, r1: np.ndarray, f: int) -> np.ndarray:
     return (r0 * (256 - f) + r1 * f + 128) >> 8
 
 
-def _filter_cols(row: np.ndarray, n: int, x: int, dx: int) -> np.ndarray:
-    """ScaleFilterCols (x86): a + ((f >> 9) * (b - a) + 64) >> 7."""
+def _filter_cols(row: np.ndarray, n: int, x: int, dx: int,
+                 depth: int = 8) -> np.ndarray:
+    """ScaleFilterCols (x86): a + ((f >> 9) * (b - a) + 64) >> 7; for
+    16-bit samples ScaleFilterCols_16's C row: a + (f (b - a) + 2^15) >>
+    16."""
     xs = x + dx * np.arange(n, dtype=np.int64)
     xi = xs >> 16
     a = row[xi]
     b = row[np.minimum(xi + 1, len(row) - 1)]
+    if depth > 8:
+        return a + (((xs & 0xFFFF) * (b - a) + 0x8000) >> 16)
     return a + ((((xs & 0xFFFF) >> 9) * (b - a) + 0x40) >> 7)
 
 
@@ -124,12 +132,13 @@ def _down4(src, dw, dh):
             8) >> 4
 
 
-def _row34(s, t, dw, kind):
+def _row34(s, t, dw, kind, depth=8):
     """ScaleRowDown34_0_Box (kind 0: t blended into s 1 : 3) or _1_Box
     (kind 1: 1 : 1) over dw outputs. The "Any" wrapper runs the SSSE3 row
     over the first multiple of 24 outputs (rows first, by pavgb: (s + t +
     1) >> 1, for 3 : 1 that again with s; then columns 3 : 1, 1 : 1, 1 : 3
-    + 2 >> 2) and the C row over the rest (columns first, then rows)."""
+    + 2 >> 2) and the C row over the rest (columns first, then rows);
+    16-bit samples take the C row throughout."""
     n = dw // 3
     s4, t4 = s[:4 * n].reshape(n, 4), t[:4 * n].reshape(n, 4)
 
@@ -139,7 +148,7 @@ def _row34(s, t, dw, kind):
                          (r[:, 2] + r[:, 3] * 3 + 2) >> 2], 1)
     a, b = h(s4), h(t4)
     c = (a * 3 + b + 2) >> 2 if kind == 0 else (a + b + 1) >> 1
-    simd = (dw - dw % 24) // 3
+    simd = (dw - dw % 24) // 3 if depth == 8 else 0
     v = (s4[:simd] + t4[:simd] + 1) >> 1
     if kind == 0:
         v = (s4[:simd] + v + 1) >> 1
@@ -147,30 +156,31 @@ def _row34(s, t, dw, kind):
     return c.reshape(-1)
 
 
-def _down34(src, dw, dh):
+def _down34(src, dw, dh, depth=8):
     """ScalePlaneDown34 (a 3/4 reduction is always bilinear, 3 | dh):
     of each four source rows, rows 0-1 3 : 1, 1-2 1 : 1, 3-2 3 : 1."""
     out = []
     for sy in range(0, 4 * dh // 3, 4):
-        out += [_row34(src[sy], src[sy + 1], dw, 0),
-                _row34(src[sy + 1], src[sy + 2], dw, 1),
-                _row34(src[sy + 3], src[sy + 2], dw, 0)]
+        out += [_row34(src[sy], src[sy + 1], dw, 0, depth),
+                _row34(src[sy + 1], src[sy + 2], dw, 1, depth),
+                _row34(src[sy + 3], src[sy + 2], dw, 0, depth)]
     return np.stack(out)
 
 
-def _row38(rows, dw):
+def _row38(rows, dw, depth=8):
     """ScaleRowDown38_3_Box / _2_Box over len(rows) source rows: each
     output the sum of its 3 x k (the third 2 x k) sources times
     65536 / (3k) >> 16. For two rows the "Any" wrapper's SSSE3 part (the
     first multiple of 6 outputs) averages the rows by pavgb first and
-    scales the column sums by 65536 / 3 (/ 2)."""
+    scales the column sums by 65536 / 3 (/ 2); 16-bit samples take the C
+    row throughout."""
     n = dw // 3
     k = len(rows)
     s = sum(r[:8 * n] for r in rows).reshape(n, 8)
     out = np.stack([s[:, 0:3].sum(1) * (65536 // (3 * k)) >> 16,
                     s[:, 3:6].sum(1) * (65536 // (3 * k)) >> 16,
                     s[:, 6:8].sum(1) * (65536 // (2 * k)) >> 16], 1)
-    if k == 2:
+    if k == 2 and depth == 8:
         simd = (dw - dw % 6) // 3
         v = ((rows[0][:8 * simd] + rows[1][:8 * simd] + 1) >> 1).reshape(
             simd, 8)
@@ -180,19 +190,20 @@ def _row38(rows, dw):
     return out.reshape(-1)
 
 
-def _down38(src, dw, dh):
+def _down38(src, dw, dh, depth=8):
     """ScalePlaneDown38 (a 3/8 reduction is always a box, 3 | dh): output
     rows from 3, 3 and 2 source rows of each eight."""
     out = []
     for sy in range(0, 8 * dh // 3, 8):
-        out += [_row38(src[sy:sy + 3], dw), _row38(src[sy + 3:sy + 6], dw),
-                _row38(src[sy + 6:sy + 8], dw)]
+        out += [_row38(src[sy:sy + 3], dw, depth),
+                _row38(src[sy + 3:sy + 6], dw, depth),
+                _row38(src[sy + 6:sy + 8], dw, depth)]
     return np.stack(out)
 
 
-def _box(src, dw, dh):
+def _box(src, dw, dh, mask=255):
     """ScalePlaneBox: each output the mean of its box of sources, the sum
-    times 65536 / (box width x height) >> 16."""
+    times 65536 / (box width x height) >> 16, stored in `mask`'s bits."""
     sh, sw = src.shape
     x, y, dx, dy = _slope(sw, sh, dw, dh, BOX)
     max_y = sh << 16
@@ -220,7 +231,7 @@ def _box(src, dw, dh):
         else:
             scale = 65536 // (bw * bh)
         out[j] = (sums * scale & 0xFFFFFFFF) >> 16
-    return out & 255
+    return out & mask
 
 
 def _up2_linear(src, dw, dh):
@@ -234,7 +245,7 @@ def _up2_linear(src, dw, dh):
     return _linear_up(src[ys], dw)
 
 
-def _bilinear_up(src, dw, dh, f):
+def _bilinear_up(src, dw, dh, f, depth=8):
     """ScalePlaneBilinearUp: source rows widened into two row buffers as y
     steps past them, then blended (its source pointer rule kept)."""
     sh, sw = src.shape
@@ -243,10 +254,10 @@ def _bilinear_up(src, dw, dh, f):
     y = min(y, max_y)
     yi = y >> 16
     src_row = yi
-    rows = [_filter_cols(src[src_row], dw, x, dx), None]
+    rows = [_filter_cols(src[src_row], dw, x, dx, depth), None]
     if sh > 1:
         src_row += 1
-    rows[1] = _filter_cols(src[src_row], dw, x, dx)
+    rows[1] = _filter_cols(src[src_row], dw, x, dx, depth)
     if sh > 2:
         src_row += 1
     cur, lasty, out = 0, yi, []
@@ -258,7 +269,7 @@ def _bilinear_up(src, dw, dh, f):
                 yi = y >> 16
                 src_row = yi
             if yi != lasty:
-                rows[cur] = _filter_cols(src[src_row], dw, x, dx)
+                rows[cur] = _filter_cols(src[src_row], dw, x, dx, depth)
                 cur ^= 1
                 lasty = yi
                 if y + 65536 < max_y:
@@ -271,7 +282,7 @@ def _bilinear_up(src, dw, dh, f):
     return np.stack(out)
 
 
-def _bilinear_down(src, dw, dh, f):
+def _bilinear_down(src, dw, dh, f, depth=8):
     """ScalePlaneBilinearDown: each output row a blend of two source rows,
     then its columns filtered."""
     sh, sw = src.shape
@@ -286,7 +297,7 @@ def _bilinear_down(src, dw, dh, f):
         else:
             row = _interpolate(src[yi], src[min(yi + 1, sh - 1)],
                                (y >> 8) & 255)
-        out.append(_filter_cols(row, dw, x, dx))
+        out.append(_filter_cols(row, dw, x, dx, depth))
         y = min(y + dy, max_y)
     return np.stack(out)
 
@@ -300,8 +311,10 @@ def _simple(src, dw, dh):
     return src[ys][:, xs]
 
 
-def scale_plane(plane: np.ndarray, dw: int, dh: int) -> np.ndarray:
-    """libyuv's ScalePlane(kFilterBox) of one 8-bit plane to dw x dh."""
+def scale_plane(plane: np.ndarray, dw: int, dh: int,
+                depth: int = 8) -> np.ndarray:
+    """libyuv's ScalePlane(kFilterBox) of one 8-bit plane to dw x dh, or
+    ScalePlane_16 of a deeper one."""
     src = plane.astype(np.int64)
     sh, sw = src.shape
     f = reduce_filter(sw, sh, dw, dh, BOX)
@@ -316,33 +329,34 @@ def scale_plane(plane: np.ndarray, dw: int, dh: int) -> np.ndarray:
             dy = _fixed_div1(sh, dh)
         out = _vertical(src, dh, y, dy, f)
     elif 4 * dw == 3 * sw and 4 * dh == 3 * sh:
-        out = _down34(src, dw, dh)
+        out = _down34(src, dw, dh, depth)
     elif 2 * dw == sw and 2 * dh == sh:
         out = _down2(src, dw, dh)
     elif 8 * dw == 3 * sw and 8 * dh == 3 * sh:
-        out = _down38(src, dw, dh)
+        out = _down38(src, dw, dh, depth)
     elif 4 * dw == sw and 4 * dh == sh:
         out = _down4(src, dw, dh)
     elif f == BOX and dh * 2 < sh:
-        out = _box(src, dw, dh)
+        out = _box(src, dw, dh, 255 if depth == 8 else 0xFFFF)
     elif (dw + 1) // 2 == sw and f == LINEAR:
         out = _up2_linear(src, dw, dh)
     elif (dh + 1) // 2 == sh and (dw + 1) // 2 == sw and f in (BILINEAR,
                                                                 BOX):
         out = upsample_420(src, dh, dw)
     elif f and dh > sh:
-        out = _bilinear_up(src, dw, dh, f)
+        out = _bilinear_up(src, dw, dh, f, depth)
     elif f:
-        out = _bilinear_down(src, dw, dh, f)
+        out = _bilinear_down(src, dw, dh, f, depth)
     else:
         out = _simple(src, dw, dh)
-    return out.astype(np.uint8)
+    return out.astype(np.uint8 if depth == 8 else np.uint16)
 
 
-def scale_planes(planes, ssx: int, ssy: int, w: int, h: int):
+def scale_planes(planes, ssx: int, ssy: int, w: int, h: int,
+                 depth: int = 8):
     """avifImageScale: Y (or alpha) to w x h, chroma to its subsampled
-    size."""
-    out = [scale_plane(planes[0], w, h)]
+    size, at the frame's depth (before any conversion to 8 bits)."""
+    out = [scale_plane(planes[0], w, h, depth)]
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
-    out += [scale_plane(p, cw, ch) for p in planes[1:]]
+    out += [scale_plane(p, cw, ch, depth) for p in planes[1:]]
     return out

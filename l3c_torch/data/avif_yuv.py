@@ -1,5 +1,5 @@
-"""libavif's YUV to RGB conversion of 8-bit images, as Pillow's build
-runs it (libavif 1.3.0 with libyuv 1909 linked in).
+"""libavif's YUV to RGB conversion of 8-, 10- and 12-bit images to 8-bit
+RGB, as Pillow's build runs it (libavif 1.3.0 with libyuv 1909 linked in).
 
 With libyuv, libavif converts BT.601 (MC 5 / 6, and 2, unspecified)
 and BT.709 (MC 1) in
@@ -28,6 +28,22 @@ derived from them, H.273 equations 32-37) and unlisted values such as 15
 (BT.601's kr and kb), in float32 with its own bilinear chroma weights
 (9, 3, 3, 1 / 16, the nearest sample first). The ones libavif never
 converts (`refused_matrix`) are refused as Pillow refuses them.
+
+10- and 12-bit images (`to_rgb`'s `depth`), as found against libavif's
+avifImageYUVToRGB: Pillow asks for RGB where the image has no alpha, and
+libavif then downshifts the planes to 8 bits (v >> (depth - 8)) and
+converts those as above wherever libyuv has the matrix; for RGBA it
+converts 10-bit frames through libyuv's I010 / I210 / I410
+AlphaToARGBMatrix rows (`_yuv16`: luma widened to 16 bits by
+replication, chroma upsampled at full depth then truncated to 8 bits,
+the alpha truncated) and 12-bit 4:2:0 through I012ToARGBMatrix (nearest
+chroma, the alpha scaled by libavif), and downshifts 12-bit 4:2:2 and
+4:4:4. Grey (RGBA grey through libyuv's I400 on the downshifted luma),
+identity and the matrices libyuv lacks go through libavif's float32
+path at full depth (`builtin`), which also takes YCgCo-Re (MC 16) at 10
+bits in full range; a premultiplied image's colour is divided there for
+identity too. Alpha that libyuv does not convert reaches 8 bits as
+libavif scales it, (uint8)(0.5 + 255 a / (2^depth - 1)) (`alpha_8bit`).
 """
 from __future__ import annotations
 
@@ -110,12 +126,16 @@ def upsample_420(c: np.ndarray, h: int, w: int) -> np.ndarray:
     return out
 
 
-def refused_matrix(mc: int, full_range: int, subsampled: bool) -> bool:
-    """The matrix coefficients libavif 1.3.0 converts to RGB in no case
-    (avifPrepareReformatState: reserved 3, the constant-luminance and
-    ICtCp ones, YCgCo-R at 8 bits, YCgCo in limited range, values past
-    its list; identity with subsampled chroma), grey images included."""
-    return mc == 3 or mc in (10, 11, 13, 14, 16, 17) or mc >= 18 or (
+def refused_matrix(mc: int, full_range: int, subsampled: bool,
+                   depth: int = 8) -> bool:
+    """The matrix coefficients libavif 1.3.0 converts to 8-bit RGB in no
+    case (avifPrepareReformatState: reserved 3, the constant-luminance
+    and ICtCp ones, YCgCo-Re but from 10-bit full range, YCgCo-Ro, YCgCo
+    in limited range, values past its list; identity with subsampled
+    chroma), grey images included."""
+    if mc == 16:
+        return depth != 10 or not full_range
+    return mc == 3 or mc in (10, 11, 13, 14, 17) or mc >= 18 or (
         mc == 8 and not full_range) or (mc == 0 and subsampled)
 
 
@@ -172,21 +192,26 @@ def _builtin_chroma(t: np.ndarray, ssx: int, ssy: int, h: int, w: int):
 
 
 def builtin(planes, ssx: int, ssy: int, mc: int, cp: int,
-            full_range: int, alpha: np.ndarray = None) -> np.ndarray:
-    """libavif's own 8-bit YUV to RGB in float32: unorm tables
-    ((v - bias) / range), chroma upsampled as `_builtin_chroma`, then
-    identity (G = Y, B = Cb, R = Cr), YCgCo or kr / kb's matrix (grey: Y
+            full_range: int, alpha: np.ndarray = None,
+            depth: int = 8) -> np.ndarray:
+    """libavif's own YUV to 8-bit RGB in float32: unorm tables ((v -
+    bias) / range at the planes' depth), chroma upsampled as
+    `_builtin_chroma`, then identity (G = Y, B = Cb, R = Cr), YCgCo,
+    YCgCo-Re (integers: Cg and Co the chroma's unorm values times 2^depth
+    - 1, rounded half up, t = Y - (Cg >> 1), G = t + Cg, B = t - (Co >>
+    1), R = B + Co, each clamped to 0..255) or kr / kb's matrix (grey: Y
     for all three), clamped to [0, 1], where `alpha` is given divided by
-    it (a = alpha / 255: 0 where a is 0, min(c / a, 1) where a < 1), and
-    stored as (uint8)(0.5 + 255 x)."""
+    it (a = alpha / (2^depth - 1): 0 where a is 0, min(c / a, 1) where a
+    < 1), and stored as (uint8)(0.5 + 255 x)."""
     one, two = F32(1), F32(2)
-    ramp = np.arange(256, dtype=F32)
+    sh, top = depth - 8, (1 << depth) - 1
+    ramp = np.arange(1 << depth, dtype=F32)
     if full_range:
-        ty = ramp / F32(255)
-        tuv = (ramp - F32(128)) / F32(255)
+        ty = ramp / F32(top)
+        tuv = (ramp - F32(128 << sh)) / F32(top)
     else:
-        ty = (ramp - F32(16)) / F32(219)
-        tuv = (ramp - F32(128)) / F32(224)
+        ty = (ramp - F32(16 << sh)) / F32(219 << sh)
+        tuv = (ramp - F32(128 << sh)) / F32(224 << sh)
     if mc == 0:                         # identity: chroma as luma
         tuv = ty
     y = ty[planes[0]]
@@ -201,6 +226,15 @@ def builtin(planes, ssx: int, ssy: int, mc: int, cp: int,
             cb, cr = tuv[planes[1]], tuv[planes[2]]
         if mc == 0:
             r, g, b = cr, y, cb
+        elif mc == 16:
+            yy = planes[0].astype(np.int64)
+            cg = np.floor(cb * F32(top) + F32(0.5)).astype(np.int64)
+            co = np.floor(cr * F32(top) + F32(0.5)).astype(np.int64)
+            t = yy - (cg >> 1)
+            g = np.clip(t + cg, 0, 255)
+            b = np.clip(t - (co >> 1), 0, 255)
+            r = np.clip(b + co, 0, 255)
+            r, g, b = (v.astype(F32) / F32(255) for v in (r, g, b))
         elif mc == 8:
             t = y - cb
             r, g, b = t + cr, y + cb, t - cr
@@ -212,7 +246,7 @@ def builtin(planes, ssx: int, ssy: int, mc: int, cp: int,
                              (kb * (one - kb) * cb))) / kg)
     rgb = np.clip(np.stack([r, g, b], -1), F32(0), one)
     if alpha is not None:
-        a = (alpha.astype(F32) / F32(255))[..., None]
+        a = (alpha.astype(F32) / F32(top))[..., None]
         part = np.minimum(np.divide(rgb, a, out=np.zeros_like(rgb),
                                     where=a > 0), one)
         rgb = np.where(a < one, part, rgb)
@@ -220,34 +254,109 @@ def builtin(planes, ssx: int, ssy: int, mc: int, cp: int,
 
 
 def divides_alpha(ssx: int, ssy: int, mono: int, mc: int, cp: int,
-                  full_range: int) -> bool:
+                  full_range: int, depth: int = 8) -> bool:
     """Whether libavif converts Pillow's RGBA of a premultiplied image
     by avifImageYUVAnyToRGBAnySlow, dividing the colour by the alpha in
     float32 as it goes (`builtin`'s `alpha`), rather than converting and
     then running libyuv's ARGBUnattenuate (`avif.unpremultiply`): where
     neither libyuv nor a fast path of its own takes the image (chroma
-    subsampled, YCgCo, identity in limited range; grey only for YCgCo)."""
+    subsampled, YCgCo and YCgCo-Re, identity in limited range or above 8
+    bits; grey only for the YCgCo ones)."""
     if mono:
-        return mc == 8
+        return mc in (8, 16)
     return libyuv_constants(mc, cp, full_range) is None and (
-        bool(ssx or ssy) or mc == 8 or (mc == 0 and not full_range))
+        bool(ssx or ssy) or mc in (8, 16) or
+        (mc == 0 and (not full_range or depth > 8)))
+
+
+def alpha_8bit(alpha: np.ndarray, depth: int, ssx: int, ssy: int,
+               mono: int, mc: int, cp: int, full_range: int) -> np.ndarray:
+    """The 8-bit alpha of Pillow's RGBA: as it is at 8 bits; truncated
+    where libyuv converts it with the colour (10 bits, and 12-bit 4:4:4
+    and 4:2:2, through libyuv's matrices); else libavif's scaling."""
+    if depth == 8:
+        return alpha
+    if not mono and libyuv_constants(mc, cp, full_range) is not None and \
+            (depth == 10 or not (ssx and ssy)):
+        return (alpha >> (depth - 8)).astype(np.uint8)
+    return (F32(0.5) + (alpha.astype(F32) / F32((1 << depth) - 1)) *
+            F32(255)).astype(np.uint8)
+
+
+def _yuv16(planes, depth: int, ssx: int, ssy: int, k,
+           nearest: bool) -> np.ndarray:
+    """libyuv's YuvPixel10 / YuvPixel12 rows (I010 / I210 / I410
+    AlphaToARGBMatrix, I012ToARGBMatrix): luma widened to 16 bits by
+    replicating its top bits, chroma upsampled at full depth (bilinear,
+    or nearest for I012) and truncated to 8 bits, then the 8-bit
+    formula."""
+    y = planes[0].astype(np.int64)
+    h, w = y.shape
+    sh = depth - 8
+    uv = []
+    for p in planes[1:]:
+        if nearest:
+            c = np.repeat(np.repeat(p, 1 + ssy, 0), 1 + ssx, 1)[:h, :w]
+        elif ssx and ssy:
+            c = upsample_420(p, h, w)
+        elif ssx:
+            c = _linear_up(p, w)
+        else:
+            c = p
+        uv.append(np.minimum(c.astype(np.int64) >> sh, 255) - 128)
+    u, v = uv
+    yg, yb, ub, ug, vg, vr = k
+    y1 = ((((y << (16 - depth)) | (y >> (2 * depth - 16))) * yg) >> 16) + yb
+    b = (y1 + ub * u) >> 6
+    g = (y1 - ug * u - vg * v) >> 6
+    r = (y1 + vr * v) >> 6
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _deep(planes, depth: int, ssx: int, ssy: int, mono: int, mc: int,
+          full_range: int, path: str, cp: int, alpha: np.ndarray,
+          prem: bool) -> np.ndarray:
+    """10- and 12-bit planes to Pillow's 8-bit RGB (the module's
+    docstring)."""
+    sh = depth - 8
+    if prem and divides_alpha(ssx, ssy, mono, mc, cp, full_range, depth):
+        return builtin(planes[:1] if mono else planes, ssx, ssy, mc, cp,
+                       full_range, alpha, depth)
+    k = libyuv_constants((mc or 6) if mono else mc, cp, full_range)
+    if mono:
+        if alpha is not None and k is not None:
+            return to_rgb([planes[0] >> sh], ssx, ssy, 1, mc, full_range,
+                          path, cp, alpha >> sh)
+        return builtin(planes[:1], ssx, ssy, mc, cp, full_range, None,
+                       depth)
+    if k is None:
+        return builtin(planes, ssx, ssy, mc, cp, full_range, None, depth)
+    if alpha is None or (depth == 12 and not (ssx and ssy)):
+        return to_rgb([p >> sh for p in planes], ssx, ssy, 0, mc,
+                      full_range, path, cp)
+    return _yuv16(planes, depth, ssx, ssy, k, depth == 12)
 
 
 def to_rgb(planes, ssx: int, ssy: int, mono: int, mc: int,
            full_range: int, path: str, cp: int = 2,
-           alpha: np.ndarray = None, prem: bool = False) -> np.ndarray:
-    """Pillow's RGB of 8-bit planes. `alpha`, where the image has one:
-    Pillow asks for RGBA, and libavif then converts grey through libyuv's
-    I400ToARGBMatrix (identity as BT.601) where it has constants; `prem`:
-    the colour is divided by it where `divides_alpha` says (elsewhere the
-    caller runs `avif.unpremultiply` after)."""
+           alpha: np.ndarray = None, prem: bool = False,
+           depth: int = 8) -> np.ndarray:
+    """Pillow's RGB of 8-bit planes, or of 10- and 12-bit ones (`depth`).
+    `alpha`, where the image has one: Pillow asks for RGBA, and libavif
+    then converts grey through libyuv's I400ToARGBMatrix (identity as
+    BT.601) where it has constants; `prem`: the colour is divided by it
+    where `divides_alpha` says (elsewhere the caller runs
+    `avif.unpremultiply` after, with `alpha_8bit`)."""
     y = planes[0].astype(np.int32)
     h, w = y.shape
-    if refused_matrix(mc, full_range, not mono and (ssx or ssy)):
+    if refused_matrix(mc, full_range, not mono and (ssx or ssy), depth):
         raise ValueError(f"{path}: AVIF: matrix coefficients {mc} "
                          f"{'' if full_range else 'in limited range '}"
                          "(libavif refuses to convert them, and so does "
                          "Pillow)")
+    if depth > 8:
+        return _deep([p.astype(np.int64) for p in planes], depth, ssx, ssy,
+                     mono, mc, full_range, path, cp, alpha, prem)
     if prem and divides_alpha(ssx, ssy, mono, mc, cp, full_range):
         return builtin(planes[:1] if mono else planes, ssx, ssy, mc, cp,
                        full_range, alpha)

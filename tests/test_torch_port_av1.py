@@ -121,6 +121,22 @@ def _read_cdfs(lib, name, shape, anchor):
     return out
 
 
+# dav1d's dq_tbl: (DC, AC) pairs by depth 8, 10, 12, the 8-bit pairs
+# found by the committed 8-bit lookups
+DEEP_Q = ("DC_QLOOKUP_10", "AC_QLOOKUP_10", "DC_QLOOKUP_12", "AC_QLOOKUP_12")
+
+
+def deep_qlookups(lib: bytes) -> dict:
+    """The 10- and 12-bit DC / AC lookups: dav1d's pairs table after its
+    8-bit pairs."""
+    pairs = np.stack([av1_tables.DC_QLOOKUP, av1_tables.AC_QLOOKUP],
+                     1).astype("<u2")
+    at = _find(lib, pairs.tobytes())
+    tbl = np.frombuffer(lib, "<u2", 3 * 512, at).reshape(3, 256, 2)
+    return {name: tuple(int(v) for v in tbl[1 + k // 2, :, k % 2])
+            for k, name in enumerate(DEEP_Q)}
+
+
 def tables_from(lib: bytes) -> dict:
     """Every table re-read from the library, the committed one's leading
     values leading the way."""
@@ -133,6 +149,7 @@ def tables_from(lib: bytes) -> dict:
         at = _find(lib, want[:min(n, 12)].tobytes())
         got[name] = tuple(int(v) for v in np.frombuffer(lib, dt, n, at))
     got["COS128"] += (0,)               # cos(pi / 2), the table's 65th entry
+    got.update(deep_qlookups(lib))
     return got
 
 
@@ -720,7 +737,7 @@ if __name__ == "__main__":
             body, 72, initial_indent=" " * 8, subsequent_indent=" " * 8) +
             ")),\n")
     out.append("}\n")
-    for name in list(_PLAIN) + list(_SPEC):
+    for name in list(_PLAIN) + list(DEEP_Q) + list(_SPEC):
         body = ", ".join(map(str, t.get(name, _SPEC.get(name))))
         out.append(f"\n{name} = (\n" + textwrap.fill(
             body, 76, initial_indent="    ", subsequent_indent="    ") +

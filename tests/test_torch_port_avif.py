@@ -873,8 +873,9 @@ def _dav1d_planes(lib, obus, filters, grain=1):
     """dav1d's decoded planes of raw OBUs through the API libavif exports
     (dav1d 1.5: Dav1dSettings.apply_grain at byte 8, default 1;
     Dav1dSettings.inloop_filters at byte 72, a mask of deblocking 1, CDEF
-    2, restoration 4; Dav1dPicture's data at 16, strides at 40, width,
-    height and layout at 56)."""
+    2, restoration 4; Dav1dPicture's data at 16, strides (in bytes) at
+    40, width, height, layout and bits per component at 56): uint8, or
+    uint16 above 8 bits."""
     c = ctypes
     lib.dav1d_data_create.restype = c.c_void_p
     settings = c.create_string_buffer(1024)
@@ -895,14 +896,14 @@ def _dav1d_planes(lib, obus, filters, grain=1):
         assert lib.dav1d_get_picture(ctx, pic) == 0
         ptrs = struct.unpack_from("<3Q", pic, 16)
         strides = struct.unpack_from("<2q", pic, 40)
-        w, h, layout = struct.unpack_from("<3i", pic, 56)
+        w, h, layout, bpc = struct.unpack_from("<4i", pic, 56)
         sx, sy = int(layout in (1, 2)), int(layout == 1)
+        t = c.c_uint8 if bpc == 8 else c.c_uint16
         out = []
         for k in range(1 if layout == 0 else 3):
             pw, ph = (w, h) if k == 0 else ((w + sx) >> sx, (h + sy) >> sy)
-            st = strides[min(k, 1)]
-            a = np.ctypeslib.as_array((c.c_uint8 * (st * ph)).from_address(
-                ptrs[k]))
+            st = strides[min(k, 1)] // c.sizeof(t)
+            a = np.ctypeslib.as_array((t * (st * ph)).from_address(ptrs[k]))
             out.append(a.reshape(ph, st)[:, :pw].copy())
         lib.dav1d_picture_unref(pic)
         return out
@@ -912,7 +913,8 @@ def _dav1d_planes(lib, obus, filters, grain=1):
 
 def _libavif_planes(lib, blob):
     """The YUV planes libavif's avifDecoderReadMemory decodes (Pillow's
-    decoder): the avifImage's planes at 24, their row bytes at 48."""
+    decoder): the avifImage's planes at 24, their row bytes at 48; uint8,
+    or uint16 above 8 bits."""
     c = ctypes
     lib.avifDecoderCreate.restype = c.c_void_p
     lib.avifImageCreateEmpty.restype = c.c_void_p
@@ -924,12 +926,13 @@ def _libavif_planes(lib, blob):
         ptrs = (c.c_void_p * 3).from_address(img + 24)
         rows = (c.c_uint32 * 3).from_address(img + 48)
         sx, sy = int(fmt in (2, 3)), int(fmt == 3)   # 444 1, 422 2, 420 3
+        t = c.c_uint8 if depth == 8 else c.c_uint16
         out = []
         for k in range(1 if fmt == 4 else 3):        # 400 4
             pw, ph = (w, h) if k == 0 else ((w + sx) >> sx, (h + sy) >> sy)
-            a = np.ctypeslib.as_array((c.c_uint8 * (rows[k] * ph))
-                                      .from_address(ptrs[k]))
-            out.append(a.reshape(ph, rows[k])[:, :pw].copy())
+            st = rows[k] // c.sizeof(t)
+            a = np.ctypeslib.as_array((t * (st * ph)).from_address(ptrs[k]))
+            out.append(a.reshape(ph, st)[:, :pw].copy())
         return out
     finally:
         lib.avifImageDestroy(c.c_void_p(img))
@@ -947,8 +950,9 @@ def port_stages(data):
     final = av1_block.filter_frame(d, seq, f, stages=stages)
     h, w = f.height, f.width
     ch, cw = (h + seq.ssy) >> seq.ssy, (w + seq.ssx) >> seq.ssx
-    crop = lambda pl: [pl[0][:h, :w].astype(np.uint8)] + [  # noqa: E731
-        q[:ch, :cw].astype(np.uint8) for q in pl[1:seq.num_planes]]
+    t = final[0].dtype
+    crop = lambda pl: [pl[0][:h, :w].astype(t)] + [  # noqa: E731
+        q[:ch, :cw].astype(t) for q in pl[1:seq.num_planes]]
     return [crop(st) for st in stages] + [final]
 
 
@@ -1433,24 +1437,25 @@ def test_grid_and_scaled_planes_equal_libavifs(name):
         assert a.shape == planes[0].shape
 
 
-def _scale_by_libavif(plane, w, h):
-    """libavif's avifImageScale of a grey avifImage (libyuv's ScalePlane
-    under libavif's filter)."""
+def _scale_by_libavif(plane, w, h, depth=8):
+    """libavif's avifImageScale of a grey avifImage of `depth` bits
+    (libyuv's ScalePlane, or ScalePlane_16, under libavif's filter)."""
     c = ctypes
     lib = libavif_lib()
+    t = c.c_uint8 if depth == 8 else c.c_uint16
     ph, pw = plane.shape
-    im = lib.avifImageCreate(pw, ph, 8, _LAYOUTS["4:0:0"])
+    im = lib.avifImageCreate(pw, ph, depth, _LAYOUTS["4:0:0"])
     try:
         assert lib.avifImageAllocatePlanes(c.c_void_p(im), 1) == 0
-        row = (c.c_uint32 * 1).from_address(im + 48)[0]
+        row = (c.c_uint32 * 1).from_address(im + 48)[0] // c.sizeof(t)
         ptr = (c.c_void_p * 1).from_address(im + 24)[0]
-        np.ctypeslib.as_array((c.c_uint8 * (row * ph)).from_address(
+        np.ctypeslib.as_array((t * (row * ph)).from_address(
             ptr)).reshape(ph, row)[:, :pw] = plane
         assert lib.avifImageScale(c.c_void_p(im), w, h,
                                   c.create_string_buffer(512)) == 0
-        row = (c.c_uint32 * 1).from_address(im + 48)[0]
+        row = (c.c_uint32 * 1).from_address(im + 48)[0] // c.sizeof(t)
         ptr = (c.c_void_p * 1).from_address(im + 24)[0]
-        return np.ctypeslib.as_array((c.c_uint8 * (row * h)).from_address(
+        return np.ctypeslib.as_array((t * (row * h)).from_address(
             ptr)).reshape(h, row)[:, :w].copy()
     finally:
         lib.avifImageDestroy(c.c_void_p(im))
@@ -1921,16 +1926,19 @@ def test_frame_header_and_tile_group_obus_as_pillow(tmp_path):
 
 
 def test_high_bit_depth_is_refused_by_name(tmp_path):
-    """A 10-bit AV1 still (a written header) is refused by name."""
+    """A 10-bit AV1 still (a written header, one tile of zero data in an
+    8-bit save's container) was refused by name until the port decoded
+    10 and 12 bits; now it is not refused, and the port gives Pillow's
+    pixels (tests/test_torch_port_avif_deep.py holds the deep path)."""
     from test_torch_port_av1 import av1_still
     blob = remux(save(photo(16, 16, 43), quality=70, advanced=OFF),
                  data=av1_still(16, 16, high=1))
     p = str(tmp_path / "hbd.avif")
     with open(p, "wb") as f:
         f.write(blob)
-    with pytest.raises(ValueError, match="AVIF with 10-bit samples is not "
-                       "decoded by the port yet"):
-        timages.load_image_uint8(p)
+    pil, port = _outcome(p)
+    assert pil is not None and not isinstance(port, str)
+    assert np.array_equal(port, pil)
 
 
 def test_image_sequence_with_meta_gives_its_first_frame(tmp_path):
@@ -1973,7 +1981,7 @@ def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
 
 
 # the tools ROADMAP F6 still lists, which the port refuses by name
-F6_TOOLS = ("superres", "per-block loop filter deltas", "-bit samples",
+F6_TOOLS = ("superres", "per-block loop filter deltas",
             "a hidden first frame", "segment reference features")
 
 
