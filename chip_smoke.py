@@ -333,7 +333,13 @@ Phases (each raises on failure; none carries on after another failed):
               Pillow's digests or its refusals, the host Pillow's digests
               held, cli.l3c enc / dec of the 512 x 512 default save at
               10 bits, its decode MP/s beside the 8-bit save's and its
-              time by stage
+              time by stage; the image sequences of
+              l3c_torch/data/fixtures/avif_seq (frame 0 of the colour
+              track, with and without a meta box, flipped, refused, the
+              track or the item as the brands choose) to Pillow's
+              digests or its refusals, the host Pillow's digests held,
+              cli.l3c enc / dec of a 512 x 512 two-frame default save and
+              its decode MP/s
  23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
@@ -5200,6 +5206,7 @@ def phase_htj2k(card):
 
 AVIF = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 AVIF_DEEP = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif_deep")
+AVIF_SEQ = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif_seq")
 
 
 def phase_avif(card):
@@ -5226,13 +5233,21 @@ def phase_avif(card):
     depth rewritten) likewise: held to Pillow's digests, or refused as
     Pillow refuses them, the host's Pillow's digests held; cli.l3c enc /
     dec of the 512 x 512 default save at 10 bits, its decode rate beside
-    the 8-bit save's and its time by stage. Returns the launches of its
-    CLI calls."""
+    the 8-bit save's and its time by stage. The image sequences of
+    l3c_torch/data/fixtures/avif_seq (Pillow's save_all files, read as
+    frame 0 of their colour track, with and without a meta box, flipped
+    and refused ones, the track or the item as the brands choose, 10 and
+    12 bits) likewise: held to Pillow's digests, or refused as Pillow
+    refuses them, the host's Pillow's digests held; cli.l3c enc / dec of
+    a 512 x 512 two-frame default save, its decode rate beside the
+    still's. Returns the launches of its CLI calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
     with open(os.path.join(AVIF_DEEP, "expected.json")) as f:
         deep = json.load(f)
+    with open(os.path.join(AVIF_SEQ, "expected.json")) as f:
+        seqs = json.load(f)
     cpu = host_cpu()
     # ---- (a) every fixture's format, mode, size and pixels; refusals
     t0 = time.perf_counter()
@@ -5250,11 +5265,18 @@ def phase_avif(card):
         f"digests (avif_deep/expected.json); {len(d_ref)} refused as Pillow "
         f"{deep['made_by']['pillow']} refuses them ({', '.join(d_ref)}); "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s_dec, s_ref = fixtures_hold(AVIF_SEQ, seqs["files"])
+    log(f"[avif] {len(s_dec)} image sequences decoded to Pillow's digests "
+        f"of their first frame (avif_seq/expected.json); {len(s_ref)} "
+        f"refused as Pillow {seqs['made_by']['pillow']} refuses them "
+        f"({', '.join(s_ref)}); {time.perf_counter() - t0:.1f} s")
     # ---- (b) this host's Pillow on the same files
     paths = {os.path.join(AVIF, n): e.get("sha256", "")
              for n, e in exp["files"].items()}
-    paths.update({os.path.join(AVIF_DEEP, n): e.get("sha256", "")
-                  for n, e in deep["files"].items()})
+    for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs)):
+        paths.update({os.path.join(folder, n): e.get("sha256", "")
+                      for n, e in ex["files"].items()})
     run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
                           json.dumps(paths)], capture_output=True, text=True,
                          timeout=300)
@@ -5268,7 +5290,8 @@ def phase_avif(card):
     else:
         host = json.loads(run.stdout.strip().splitlines()[-1])
         got = host["files"]
-        bad = sorted(n for n in decoded + d_dec if got.get(n) != "same")
+        bad = sorted(n for n in decoded + d_dec + s_dec
+                     if got.get(n) != "same")
         if bad:
             raise RuntimeError(f"this host's Pillow {host['pillow']} "
                                f"({host.get('avif')}) decodes "
@@ -5278,21 +5301,27 @@ def phase_avif(card):
         ran = sum(got.get(n) == "differs" for n in refused)
         deep_ran = [n for n in d_ref if not got.get(n, "").startswith(
             "refuses")]
+        seq_ran = [n for n in s_ref if not got.get(n, "").startswith(
+            "refuses")]
         log(f"[avif] this host's Pillow {host['pillow']} ({host.get('avif')})"
-            f" decodes all {len(decoded)} decoded fixtures and the "
-            f"{len(d_dec)} decoded 10- and 12-bit ones to their digests "
-            f"(held), {ran} of the {len(refused)} the port refuses by "
-            f"name and {len(deep_ran)} of the {len(d_ref)} deep ones Pillow "
-            f"{deep['made_by']['pillow']} refuses ({deep_ran}; reported)")
+            f" decodes all {len(decoded)} decoded fixtures, the "
+            f"{len(d_dec)} decoded 10- and 12-bit ones and the {len(s_dec)} "
+            f"decoded sequences to their digests (held), {ran} of the "
+            f"{len(refused)} the port refuses by name, {len(deep_ran)} of "
+            f"the {len(d_ref)} deep ones and {len(seq_ran)} of the "
+            f"{len(s_ref)} sequences Pillow {deep['made_by']['pillow']} "
+            f"refuses ({deep_ran}, {seq_ran}; reported)")
     # ---- (c) cli.l3c enc / dec of the two coded files; (d) cli.test
     total = code_and_test(AVIF, exp, "avif", card)
-    for k, v in code_and_test(AVIF_DEEP, deep, "avif", card,
-                              test=False).items():
-        total[k] = total.get(k, 0) + v
-    # ---- (e) the host's decode rates of the two coded files
+    for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs)):
+        for k, v in code_and_test(folder, ex, "avif", card,
+                                  test=False).items():
+            total[k] = total.get(k, 0) + v
+    # ---- (e) the host's decode rates of the coded files
     rates = []
     coded = [(AVIF, exp, n) for n in exp["coded"]] + \
-        [(AVIF_DEEP, deep, n) for n in deep["coded"]]
+        [(AVIF_DEEP, deep, n) for n in deep["coded"]] + \
+        [(AVIF_SEQ, seqs, n) for n in seqs["coded"]]
     for folder, ex, name in coded:
         e = ex["files"][name]
         blob = open(os.path.join(folder, name), "rb").read()

@@ -1,9 +1,19 @@
-"""AVIF stills: the ISO base media file format container around an AV1
-frame, read and checked as Pillow's AVIF plugin has libavif 1.3.0 read
-it, then decoded by data/av1_*.py and converted to RGB by
-data/avif_yuv.py.
+"""AVIF stills and image sequences: the ISO base media file format
+container around AV1 frames, read and checked as Pillow's AVIF plugin
+has libavif 1.3.0 read it, then decoded by data/av1_*.py and converted
+to RGB by data/avif_yuv.py.
 
-The container: `ftyp`; `meta` with `hdlr` (pict), `pitm`, `iinf` (`infe`
+The top-level boxes are read until those ftyp's brands ask for are
+(`meta` for avif, `moov` for avis; a sequence may have no meta box). A
+file whose major brand is avis, or is not avif and that has a `moov`
+box, is read from its tracks (data/avif_moov.py): the colour track's
+first sample decoded and scaled to `tkhd`'s size, its colour
+description from the sample entry's `colr` nclx box, else the sequence
+header's; an alpha track's first sample likewise (one of another size
+or depth fails the file), divided out where the colour track's `prem`
+names it. Any other file is read from its primary item:
+
+`ftyp`; `meta` with `hdlr` (pict), `pitm`, `iinf` (`infe`
 versions 2 and 3), `iloc` (versions 0-2, construction methods 0 and 1,
 the latter from `idat`, several extents), `iprp` / `ipco` / `ipma`
 (`ispe`, `av1C`, `pixi`, `colr` nclx or ICC, `auxC`, `irot`, `imir`,
@@ -35,7 +45,7 @@ from typing import Tuple
 
 import numpy as np
 
-from . import av1_block, av1_obu, avif_scale, avif_yuv
+from . import av1_block, av1_obu, avif_moov, avif_scale, avif_yuv
 
 _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                b"urn:mpeg:hevc:2015:auxid:1")
@@ -79,14 +89,16 @@ class _Stream:
         return len(self.b) - self.at
 
     def header(self):
-        """A child box's type and body size, checked to fit; the stream is
-        left at its body."""
+        """A child box's type and body size, checked to fit (a child box
+        of size 0 is refused, as avifROStreamReadBoxHeader refuses it);
+        the stream is left at its body."""
         head = self.left()
         size, typ = self.uint(4), self.read(4)
         if size == 1:
             size = self.uint(8) - 16
         elif size == 0:
-            size = self.left()
+            raise _refuse(self.path, f"Box[{self.what}]: Non-top-level box "
+                                     "with size 0")
         else:
             size -= 8
         if typ == b"uuid":
@@ -110,48 +122,101 @@ _SUPPORTED = (b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot",
 
 
 def parse(blob: bytes, path: str) -> SimpleNamespace:
-    """The meta box's items, properties and references, read and checked
-    as libavif's avifParse / avifDecoderReset read them (Pillow's
-    Image.open): boxes that do not fit, versions libavif does not know,
-    misordered or repeated entries and bad indices are refused."""
+    """The file's boxes read and checked as libavif's avifParse /
+    avifDecoderParse / avifDecoderReset read them (Pillow's Image.open):
+    the top-level boxes until every box ftyp's brands ask for is read
+    (`meta` for avif, `moov` for avis), then the source libavif takes by
+    AVIF_DECODER_SOURCE_AUTO: the tracks where the major brand is avis,
+    or is not avif and the file has a track (`m.source` "tracks",
+    `m.seq` from data/avif_moov.py), else the primary item with its
+    properties and references. Boxes that do not fit, versions libavif
+    does not know, misordered or repeated entries and bad indices are
+    refused."""
     m = SimpleNamespace(primary=None, props=[], items={}, refs=[],
-                        idat=None, ftyp=None)
+                        idat=None, ftyp=None, tracks=None, source="item")
     seen = set()
     at = 0
-    while at + 8 <= len(blob) and b"meta" not in seen:
+    while at < len(blob):
+        head, left = 8, len(blob) - at
+        if left < 8:
+            raise _refuse(path, "a top-level box header is cut short")
         size, typ = struct.unpack(">I4s", blob[at:at + 8])
-        head = 8
         if size == 1:
+            if left < 16:
+                raise _refuse(path, "a top-level box header is cut short")
             size, = struct.unpack(">Q", blob[at + 8:at + 16])
             head = 16
-        elif size == 0:
-            size = len(blob) - at
-        if size < head or at + size > len(blob):
-            if typ in (b"ftyp", b"meta") or size < head:
-                raise _refuse(path, f"Box[{typ.decode('latin-1')}] runs "
-                                    "past the end of the file")
-            break                       # a cut mdat: read when decoded
+        if typ == b"uuid":
+            head += 16
+        key = typ in (b"ftyp", b"meta", b"moov")
+        name = typ.decode("latin-1")
+        if size == 0:
+            if not key:
+                raise _refuse(path, f"Box[{name}] has size 0 before the "
+                                    "boxes its brands ask for")
+            size = left
+        elif size < head:
+            raise _refuse(path, "File-level box header: Header size "
+                                "overflow check failure")
+        elif key and size > left:
+            raise _refuse(path, f"Box[{name}] runs past the end of the file")
         body = blob[at + head:at + size]
         at += size
         if not seen and typ != b"ftyp":
             raise _refuse(path, "the first box is not ftyp")
-        if typ in seen and typ == b"ftyp":
-            raise _refuse(path, "a second ftyp box")
+        if key and typ in seen:
+            raise _refuse(path, f"a second {name} box")
         seen.add(typ)
         if typ == b"ftyp":
             if len(body) < 8 or len(body) % 4:
                 raise _refuse(path, "Box[ftyp] has a broken size")
             m.ftyp = [body[i:i + 4] for i in range(0, len(body), 4)
                       if i != 4]
+            if b"avif" not in m.ftyp and b"avis" not in m.ftyp:
+                raise _refuse(path, "its ftyp box names neither avif nor "
+                                    "avis")
         elif typ == b"meta":
             _meta(_Stream(body, path, "meta"), m, path)
+        elif typ == b"moov":
+            m.tracks = avif_moov.parse_moov(body, path)
+        # avifParse stops once it has read what the brands ask for
+        if all(t in seen for b, t in ((b"avif", b"meta"), (b"avis", b"moov"))
+               if b in m.ftyp):
+            break
+    else:
+        if at > len(blob):
+            raise _refuse(path, "a box runs past the end of the file")
     if m.ftyp is None:
         raise _refuse(path, "the file does not start with an ftyp box")
-    if b"meta" not in seen:
-        raise ValueError(f"{path}: AVIF without a meta box (an image "
-                         "sequence) is not read by the port yet")
-    if b"avif" not in m.ftyp and b"avis" not in m.ftyp:
-        raise _refuse(path, "its ftyp box names neither avif nor avis")
+    if b"avif" in m.ftyp and b"meta" not in seen or \
+            b"avis" in m.ftyp and b"moov" not in seen:
+        raise _refuse(path, "a meta box (brand avif) or a moov box (brand "
+                            "avis) is missing (Truncated data)")
+    if b"tmap" in m.ftyp and not any(it.type == b"tmap"
+                                     for it in m.items.values()):
+        raise _refuse(path, "its ftyp box names tmap and it has no tmap "
+                            "item")
+    # avifDecoderParse: every item libavif does not skip (alpha items too)
+    # has an ispe within libavif's limits, whichever source it then takes
+    for k in m.items:
+        if _skipped(m, k):
+            continue
+        ispe = _prop(m, k, b"ispe")
+        if ispe is None:
+            raise _refuse(path, f"item {k} has no ispe property")
+        w, h = struct.unpack(">II", ispe[4:12])
+        if not w or not h:
+            raise _refuse(path, f"Item ID [{k}] has an invalid size "
+                                f"[{w}x{h}]")
+        if w > avif_moov.DIMENSION_LIMIT or h > avif_moov.DIMENSION_LIMIT \
+                or w * h > avif_moov.SIZE_LIMIT:
+            raise _refuse(path, f"Item ID [{k}] dimensions are too large "
+                                f"[{w}x{h}]")
+    major = m.ftyp[0]
+    if major == b"avis" or major != b"avif" and m.tracks:
+        m.source = "tracks"
+        m.seq = avif_moov.select(m.tracks or [], len(blob), path)
+        return m
     item = m.items.get(m.primary)
     if m.primary is None or item is None or item.type is None or \
             _skipped(m, m.primary) and not item.unsupported:
@@ -170,9 +235,6 @@ def parse(blob: bytes, path: str) -> SimpleNamespace:
     if kinds.count(b"nclx") > 1 or sum(kinds.count(k) for k in (
             b"prof", b"rICC")) > 1:
         raise _refuse(path, "the primary item has two colr boxes of a kind")
-    for k in m.items:       # alpha items too: Pillow keeps that rule strict
-        if not _skipped(m, k) and _prop(m, k, b"ispe") is None:
-            raise _refuse(path, f"item {k} has no ispe property")
     # avifDecoderReset: the colour grid, the alpha (a grid of the cells'
     # own alpha items where the colour grid has none), the alpha grid,
     # then each image's configuration and depths
@@ -329,18 +391,23 @@ def _iprp(st: _Stream, m: SimpleNamespace, path: str):
             _ipma(_Stream(body, path, "ipma"), m, path)
 
 
-def _property(typ: bytes, body: bytes, path: str):
-    st = _Stream(body, path, typ.decode("latin-1"))
-    if typ in (b"ispe", b"pixi", b"auxC"):
+def _property(typ: bytes, body: bytes, path: str, track: bool = False):
+    """A property box checked as libavif's
+    avifParseItemPropertyContainerBox checks it; in a track's sample
+    entry (`track`) `auxi` is read as `auxC` is."""
+    kind = b"auxC" if track and typ == b"auxi" else typ
+    st = _Stream(body, path, kind.decode("latin-1"))
+    if kind in (b"ispe", b"pixi", b"auxC"):
         st.version((0,))
-    if typ == b"ispe":
+    if kind == b"ispe":
         st.read(8)
-    elif typ == b"pixi":
+    elif kind == b"pixi":
         n = st.uint(1)
-        if n < 1:
-            raise _refuse(path, "Box[pixi] has no channel")
-        st.read(n)
-    elif typ == b"auxC":
+        if not 1 <= n <= 4:
+            raise _refuse(path, f"Box[pixi] has {n} channels")
+        if len(set(st.read(n))) > 1:
+            raise _refuse(path, "Box[pixi] has channels of different depths")
+    elif kind == b"auxC":
         st.string()
     elif typ == b"av1C":
         if st.read(4)[0] != 0x81:
@@ -456,13 +523,18 @@ def _cell_alphas(m: SimpleNamespace, path: str):
 
 
 def avif_header(blob: bytes, path: str) -> Tuple[str, int, int]:
-    """libavif's size and Pillow's mode of an AVIF still: the primary
+    """libavif's size and Pillow's mode of an AVIF file: the primary
     item's ispe, "RGBA" where an auxiliary alpha item refers to it (or,
-    for a grid, to each of its cells)."""
+    for a grid, to each of its cells); a sequence's colour track's tkhd
+    size, "RGBA" where it has an alpha track."""
     m = parse(blob, path)
-    ispe = _prop(m, m.primary, b"ispe")
-    w, h = struct.unpack(">II", ispe[4:12])
-    return ("RGBA" if m.alpha is not None else "RGB"), h, w
+    if m.source == "tracks":
+        w, h, alpha = m.seq.colour.width, m.seq.colour.height, m.seq.alpha
+    else:
+        w, h = struct.unpack(">II", _prop(m, m.primary, b"ispe")[4:12])
+        alpha = m.alpha
+    _check_pixels(w, h, path)
+    return ("RGBA" if alpha is not None else "RGB"), h, w
 
 
 def _inverse_alpha() -> np.ndarray:
@@ -563,20 +635,25 @@ def _planes(blob: bytes, m: SimpleNamespace, item: int, path: str,
     if grid is None:
         w, h = struct.unpack(">II", _prop(m, item, b"ispe")[4:12])
         planes, seq = _decode_item(blob, m, item, path, ctx)
-        if planes[0].shape != (h, w):
-            # avifImageScaleWithLimit's and ScalePlane's limits
-            if not w or not h or w > 32768 or h > 32768 or \
-                    w * h > 16384 * 16384 or max(planes[0].shape) > 16384:
-                raise _refuse(path, f"its AV1 frame cannot be scaled to "
-                                    f"its ispe of {w} x {h}")
-            planes = avif_scale.scale_planes(planes, seq.ssx, seq.ssy, w, h,
-                                             seq.bit_depth)
-        return planes, [seq]
+        return _scaled(planes, seq, w, h, path), [seq]
     cells = []
     for x in grid.cells:
         planes, (seq,) = _planes(blob, m, x, path, ctx=ctx)
         cells.append((planes, seq))
     return assemble(grid, cells, path, alpha), [q for _, q in cells]
+
+
+def _scaled(planes, seq: SimpleNamespace, w: int, h: int, path: str):
+    """A decoded frame's planes scaled to the w x h its item's ispe or
+    its track's tkhd gives (avifImageScaleWithLimit, with its and
+    ScalePlane's limits)."""
+    if planes[0].shape == (h, w):
+        return planes
+    if not w or not h or w > 32768 or h > 32768 or \
+            w * h > 16384 * 16384 or max(planes[0].shape) > 16384:
+        raise _refuse(path, f"its AV1 frame cannot be scaled to {w} x {h}")
+    return avif_scale.scale_planes(planes, seq.ssx, seq.ssy, w, h,
+                                   seq.bit_depth)
 
 
 def assemble(grid: SimpleNamespace, cells, path: str, alpha: bool = False):
@@ -618,13 +695,17 @@ def assemble(grid: SimpleNamespace, cells, path: str, alpha: bool = False):
 
 
 def decode_avif(blob: bytes, path: str) -> np.ndarray:
-    """(H, W, 3) uint8: Pillow's Image.open(path).convert("RGB")."""
+    """(H, W, 3) uint8: Pillow's Image.open(path).convert("RGB"), the
+    first frame of a sequence read from its track."""
     m = parse(blob, path)
+    if m.source == "tracks":
+        return _decode_track(blob, m.seq, path)
     item = m.primary
     typ = m.items[item].type
     if typ not in (b"av01", b"grid"):
         raise _refuse(path, f"the primary item has type {typ!r}")
     w, h = struct.unpack(">II", _prop(m, item, b"ispe")[4:12])
+    _check_pixels(w, h, path)
     alpha = m.alpha
     # avifTilesCanBeDecodedWithSameCodecInstance: one dav1d context for
     # every cell unless the colour or the alpha is a single item and the
@@ -635,7 +716,6 @@ def decode_avif(blob: bytes, path: str) -> np.ndarray:
         else None
     planes, seqs = _planes(blob, m, item, path, ctx=ctx)
     seq = seqs[0]
-    mc, full_range, cp = colour(m, item, seq)
     a, prem = None, False
     if alpha is not None:
         # libavif decodes the alpha item whatever its use (a damaged one
@@ -653,17 +733,72 @@ def decode_avif(blob: bytes, path: str) -> np.ndarray:
                                 f"{aseqs[0].bit_depth} bits is not its "
                                 f"colour's {seq.bit_depth}")
         prem = _target(m, b"prem", item) == alpha
+    rgb = _rgb(planes, seq, colour(m, item, seq), a, prem, path)
+    return _as_opened(rgb, w, h, path)
+
+
+def _decode_track(blob: bytes, s: SimpleNamespace, path: str) -> np.ndarray:
+    """The first sample of the colour track (and of its alpha track),
+    decoded, scaled to each track's tkhd size and converted as for an
+    item, with the colour description of the sample entry's colr nclx
+    box, else the sequence header's."""
+    c = s.colour
+    _check_pixels(c.width, c.height, path)
+    planes, seq = _decode_sample(blob, c, s.first, path)
+    a = None
+    if s.alpha is not None:
+        a, aseq = _decode_sample(blob, s.alpha, s.alpha_first, path)
+        a = a[0]
+        if a.shape != planes[0].shape or aseq.bit_depth != seq.bit_depth:
+            raise _refuse(path, "The color image item does not match the "
+                                "alpha image item in width, height, or bit "
+                                "depth")
+    if not c.timescale:
+        raise ValueError(f"{path}: AVIF: its colour track's timescale is 0 "
+                         "(Pillow divides the frame's timestamp by it and "
+                         "refuses the file: division by zero)")
+    nclx = next((b for t, b in s.props if t == b"colr" and
+                 b[:4] == b"nclx"), None)
+    rgb = _rgb(planes, seq, _nclx_colour(nclx, seq), a, s.premultiplied,
+               path)
+    return _as_opened(rgb, c.width, c.height, path)
+
+
+def _decode_sample(blob: bytes, track: SimpleNamespace, sample, path: str):
+    off, size = sample
+    planes, seq = _decode_data(blob[off:off + size], path)
+    return _scaled(planes, seq, track.width, track.height, path), seq
+
+
+def _rgb(planes, seq: SimpleNamespace, cicp, a, prem: bool,
+         path: str) -> np.ndarray:
+    """Pillow's RGB(A) pixels of a decoded frame: libavif's conversion at
+    the frame's depth with the colour description `cicp` (matrix
+    coefficients, full range, colour primaries), the alpha plane `a`
+    brought to 8 bits and, where premultiplied, divided out."""
+    mc, full_range, cp = cicp
     depth = seq.bit_depth
     rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
                           full_range, path, cp, a, prem, depth)
-    if alpha is not None:
+    if a is not None:
         a = avif_yuv.alpha_8bit(a, depth, seq.ssx, seq.ssy, seq.mono, mc, cp,
                                 full_range)
         if prem and not avif_yuv.divides_alpha(seq.ssx, seq.ssy, seq.mono,
                                                mc, cp, full_range, depth):
             rgb = unpremultiply(rgb, a)
         rgb = np.dstack([rgb, a])
-    return _as_opened(rgb, w, h, path)
+    return rgb
+
+
+# Pillow's Image.open refuses images past twice its MAX_IMAGE_PIXELS
+_PILLOW_MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+
+def _check_pixels(w: int, h: int, path: str):
+    if w * h > _PILLOW_MAX_PIXELS:
+        raise ValueError(f"{path}: AVIF: its {w} x {h} pixels are past "
+                         "Pillow's decompression bomb limit, and Pillow "
+                         "refuses it")
 
 
 def _as_opened(px: np.ndarray, w: int, h: int, path: str) -> np.ndarray:
@@ -686,7 +821,10 @@ def colour(m: SimpleNamespace, item: int, seq: SimpleNamespace):
     them: from the item's colr nclx box where it has one (a grid's own,
     not its cells'), else from the sequence header (a grid's first
     cell's)."""
-    nclx = _prop(m, item, b"colr", b"nclx")
+    return _nclx_colour(_prop(m, item, b"colr", b"nclx"), seq)
+
+
+def _nclx_colour(nclx, seq: SimpleNamespace):
     if nclx is not None and len(nclx) >= 11:
         return (struct.unpack(">H", nclx[8:10])[0], nclx[10] >> 7,
                 struct.unpack(">H", nclx[4:6])[0])
@@ -697,7 +835,11 @@ def _decode_item(blob: bytes, m: SimpleNamespace, item: int, path: str,
                  ctx: SimpleNamespace = None):
     """(planes, sequence header) of an AV1 item, at its frame's size,
     through the shared dav1d context `ctx` where there is one."""
-    data = _item_bytes(blob, m, item, path)
+    return _decode_data(_item_bytes(blob, m, item, path), path, ctx)
+
+
+def _decode_data(data: bytes, path: str, ctx: SimpleNamespace = None):
+    """(planes, sequence header) of one AV1 item's or sample's data."""
     seq, frame, tiles = av1_obu.parse_av1(data, path, ctx and ctx.seq)
     # dav1d reads the data after the frame too
     kept = av1_obu.read_rest(data[tiles[-1][3]:], seq, path)

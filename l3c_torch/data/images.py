@@ -47,10 +47,14 @@ loader reads it or refused where it refuses:
     JPEG 2000 payloads) and DIB;
   - the rest of Pillow's registry (data/registry.py): XBM, XPM, FITS,
     BLP, SPIDER, PCD, GBR, FLI, FTEX, PIXAR, MCIDAS, IMT, IPTC, XVThumb;
-  - AVIF stills (data/avif.py: libavif's container checks, the AV1
+  - AVIF stills and image sequences (data/avif.py: libavif's container
+    checks and its choice between the primary item and the tracks;
+    a sequence, with or without a meta box, read as frame 0 of its
+    colour track, data/avif_moov.py; the AV1
     intra decoder of data/av1_*.py with its in-loop filters, deblocking,
     CDEF and loop restoration, film grain, grids of cells, frames scaled
-    to ispe by libyuv's ScalePlane in data/avif_scale.py, libyuv's and
+    to ispe (a track's frames to tkhd's size) by libyuv's ScalePlane in
+    data/avif_scale.py, libyuv's and
     libavif's own YUV to RGB in data/avif_yuv.py; 8, 10 and 12 bits), as
     Pillow's libavif 1.3.0, dav1d 1.5.1 and libyuv give them; the tools
     the port does not decode yet (superres, per-block loop filter deltas,
