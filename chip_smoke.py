@@ -339,7 +339,13 @@ Phases (each raises on failure; none carries on after another failed):
               track or the item as the brands choose) to Pillow's
               digests or its refusals, the host Pillow's digests held,
               cli.l3c enc / dec of a 512 x 512 two-frame default save and
-              its decode MP/s
+              its decode MP/s; the files of
+              l3c_torch/data/fixtures/avif_tools (superres, per-block
+              loop filter deltas, segment reference features) to
+              Pillow's digests or its refusals, the host Pillow's digests
+              held, cli.l3c enc / dec of a 512 x 512 superres file (256
+              coded wide), its decode MP/s and its time by stage (the
+              upscale among them)
  23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
@@ -5207,6 +5213,8 @@ def phase_htj2k(card):
 AVIF = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif")
 AVIF_DEEP = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif_deep")
 AVIF_SEQ = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif_seq")
+AVIF_TOOLS = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                          "avif_tools")
 
 
 def phase_avif(card):
@@ -5240,7 +5248,16 @@ def phase_avif(card):
     12 bits) likewise: held to Pillow's digests, or refused as Pillow
     refuses them, the host's Pillow's digests held; cli.l3c enc / dec of
     a 512 x 512 two-frame default save, its decode rate beside the
-    still's. Returns the launches of its CLI calls."""
+    still's. The AV1 tools of l3c_torch/data/fixtures/avif_tools (superres
+    at denominators 9 to 16 in every layout, with alpha, grain, tiles,
+    restoration, screen content, at 10 and 12 bits, in a sequence;
+    per-block loop filter deltas; segment reference features; Pillow's
+    files rewritten) likewise: held to Pillow's digests, or refused as
+    Pillow refuses them, the host Pillow's digests held; cli.l3c enc / dec
+    of a 256-wide default save coded at superres denominator 16 (512 x
+    512 upscaled), its decode rate beside the still's and its time by
+    stage (the upscale's included). Returns the launches of its CLI
+    calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
@@ -5248,6 +5265,8 @@ def phase_avif(card):
         deep = json.load(f)
     with open(os.path.join(AVIF_SEQ, "expected.json")) as f:
         seqs = json.load(f)
+    with open(os.path.join(AVIF_TOOLS, "expected.json")) as f:
+        tools = json.load(f)
     cpu = host_cpu()
     # ---- (a) every fixture's format, mode, size and pixels; refusals
     t0 = time.perf_counter()
@@ -5271,10 +5290,18 @@ def phase_avif(card):
         f"of their first frame (avif_seq/expected.json); {len(s_ref)} "
         f"refused as Pillow {seqs['made_by']['pillow']} refuses them "
         f"({', '.join(s_ref)}); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    t_dec, t_ref = fixtures_hold(AVIF_TOOLS, tools["files"])
+    log(f"[avif] {len(t_dec)} files with superres, per-block loop filter "
+        f"deltas or segment reference features decoded to Pillow's digests "
+        f"(avif_tools/expected.json); {len(t_ref)} refused as Pillow "
+        f"{tools['made_by']['pillow']} refuses them ({', '.join(t_ref)}); "
+        f"{time.perf_counter() - t0:.1f} s")
     # ---- (b) this host's Pillow on the same files
     paths = {os.path.join(AVIF, n): e.get("sha256", "")
              for n, e in exp["files"].items()}
-    for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs)):
+    for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs),
+                       (AVIF_TOOLS, tools)):
         paths.update({os.path.join(folder, n): e.get("sha256", "")
                       for n, e in ex["files"].items()})
     run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
@@ -5290,7 +5317,7 @@ def phase_avif(card):
     else:
         host = json.loads(run.stdout.strip().splitlines()[-1])
         got = host["files"]
-        bad = sorted(n for n in decoded + d_dec + s_dec
+        bad = sorted(n for n in decoded + d_dec + s_dec + t_dec
                      if got.get(n) != "same")
         if bad:
             raise RuntimeError(f"this host's Pillow {host['pillow']} "
@@ -5303,17 +5330,22 @@ def phase_avif(card):
             "refuses")]
         seq_ran = [n for n in s_ref if not got.get(n, "").startswith(
             "refuses")]
+        tools_ran = [n for n in t_ref if not got.get(n, "").startswith(
+            "refuses")]
         log(f"[avif] this host's Pillow {host['pillow']} ({host.get('avif')})"
             f" decodes all {len(decoded)} decoded fixtures, the "
-            f"{len(d_dec)} decoded 10- and 12-bit ones and the {len(s_dec)} "
-            f"decoded sequences to their digests (held), {ran} of the "
+            f"{len(d_dec)} decoded 10- and 12-bit ones, the {len(s_dec)} "
+            f"decoded sequences and the {len(t_dec)} decoded tools files "
+            f"to their digests (held), {ran} of the "
             f"{len(refused)} the port refuses by name, {len(deep_ran)} of "
-            f"the {len(d_ref)} deep ones and {len(seq_ran)} of the "
-            f"{len(s_ref)} sequences Pillow {deep['made_by']['pillow']} "
-            f"refuses ({deep_ran}, {seq_ran}; reported)")
+            f"the {len(d_ref)} deep ones, {len(seq_ran)} of the "
+            f"{len(s_ref)} sequences and {len(tools_ran)} of the "
+            f"{len(t_ref)} tools files Pillow {deep['made_by']['pillow']} "
+            f"refuses ({deep_ran}, {seq_ran}, {tools_ran}; reported)")
     # ---- (c) cli.l3c enc / dec of the two coded files; (d) cli.test
     total = code_and_test(AVIF, exp, "avif", card)
-    for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs)):
+    for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs),
+                       (AVIF_TOOLS, tools)):
         for k, v in code_and_test(folder, ex, "avif", card,
                                   test=False).items():
             total[k] = total.get(k, 0) + v
@@ -5321,7 +5353,8 @@ def phase_avif(card):
     rates = []
     coded = [(AVIF, exp, n) for n in exp["coded"]] + \
         [(AVIF_DEEP, deep, n) for n in deep["coded"]] + \
-        [(AVIF_SEQ, seqs, n) for n in seqs["coded"]]
+        [(AVIF_SEQ, seqs, n) for n in seqs["coded"]] + \
+        [(AVIF_TOOLS, tools, n) for n in tools["coded"]]
     for folder, ex, name in coded:
         e = ex["files"][name]
         blob = open(os.path.join(folder, name), "rb").read()
@@ -5341,11 +5374,12 @@ def phase_avif(card):
     # ---- (f) the default save's decode by stage: the filters' share; the
     # grain save's (the grain stage); the 1024 x 1024 grid's (its cells'
     # stages summed, the assembly); two fixtures that run CDEF and loop
-    # restoration
+    # restoration; the superres save's (the upscale)
     for folder, ex, name in [(AVIF, exp, n) for n in (
             exp["coded"][2], exp["coded"][3], exp["coded"][4],
             "o_cdef_422.avif", "p_lr_q60_switchable.avif")] + [
-                (AVIF_DEEP, deep, deep["coded"][0])]:
+                (AVIF_DEEP, deep, deep["coded"][0]),
+                (AVIF_TOOLS, tools, tools["coded"][0])]:
         blob = open(os.path.join(folder, name), "rb").read()
         ms = avif_stages_ms(blob, name, ex["files"][name]["sha256"])
         filters = ms["deblock"] + ms["cdef"] + ms["restoration"]
@@ -5354,7 +5388,8 @@ def phase_avif(card):
             f"{ {k: round(v, 1) for k, v in ms.items()} }; the in-loop "
             f"filters {filters:.1f} ms = "
             f"{100 * filters / ms['total']:.1f} % of the decode, "
-            f"{filters / ms['walk']:.3f} x the symbol walk; film grain "
+            f"{filters / ms['walk']:.3f} x the symbol walk; the superres "
+            f"upscale {ms.get('superres', 0.0):.1f} ms; film grain "
             f"{ms['grain']:.1f} ms = {100 * ms['grain'] / ms['total']:.1f} "
             f"%; a grid's assembly {ms['assemble']:.2f} ms | host {cpu}")
     log(f"[avif] launches of the cli.l3c and cli.test calls: "

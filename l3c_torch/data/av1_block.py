@@ -8,15 +8,17 @@ quantizer matrices where the frame uses them), each transform block
 predicted and reconstructed in decoding order.
 
 The walk also reads what the in-loop filters need (CDEF indices,
-restoration units) and keeps each plane's transform sizes for the
+restoration units, of the upscaled frame with superres; each block's
+loop filter deltas) and keeps each plane's transform sizes for the
 deblocking filter. `decode_frame(seq, frame, tiles, data, path)` returns
 the planes deblocked (data/av1_loopfilter.py), CDEF-filtered
-(data/av1_cdef.py) and restored (data/av1_restoration.py) as the frame
-header asks, uint8 numpy arrays (uint16 at 10 and 12 bits) cropped to
-the frame size, with film grain (data/av1_filmgrain.py) where the header
-carries it. The symbol walk is plain Python and the same at every depth
-but for palette colours; prediction and the transforms are numpy
-(data/av1_recon.py), and so are the filters.
+(data/av1_cdef.py), upscaled where the frame codes superres
+(data/av1_superres.py) and restored (data/av1_restoration.py) as the
+frame header asks, uint8 numpy arrays (uint16 at 10 and 12 bits)
+cropped to the frame size, with film grain (data/av1_filmgrain.py) where
+the header carries it. The symbol walk is plain Python and the same at
+every depth but for palette colours; prediction and the transforms are
+numpy (data/av1_recon.py), and so are the filters.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import numpy as np
 
 from . import av1_cdef, av1_filmgrain, av1_intrabc, av1_loopfilter
 from . import av1_recon as R
-from . import av1_restoration
+from . import av1_restoration, av1_superres
 from . import av1_tables as T
 from .av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, RESTORE_WIENER,
                       damaged, qindex)
@@ -241,6 +243,11 @@ class FrameDecoder:
         self.uv_mode = [[0] * cols for _ in range(rows)]
         self.skips = [[0] * cols for _ in range(rows)]
         self.seg_ids = [[0] * cols for _ in range(rows)]
+        # per-block loop filter deltas: each block's set of deltas as an
+        # index into lf_sets (set 0: no deltas)
+        self.lf_ids = [[0] * cols for _ in range(rows)] \
+            if f.delta_lf_present else None
+        self.lf_sets = {(0, 0, 0, 0): 0}
         self.tx_sizes = [[0] * cols for _ in range(rows)]
         self.pal_sizes = [[[0] * cols for _ in range(rows)] for _ in (0, 1)]
         self.pal_colors = [[[None] * cols for _ in range(rows)]
@@ -267,7 +274,8 @@ class FrameDecoder:
             sy = self.ssy if p else 0
             size = f.lr_unit_size[p]
             n_r = av1_restoration.units(size, (f.height + sy) >> sy)
-            n_c = av1_restoration.units(size, (f.width + sx) >> sx)
+            n_c = av1_restoration.units(size,
+                                        (f.upscaled_width + sx) >> sx)
             self.lr.append(SimpleNamespace(
                 type=np.zeros((n_r, n_c), np.int64),
                 wiener=np.zeros((n_r, n_c, 2, 3), np.int64),
@@ -283,6 +291,8 @@ class FrameDecoder:
         self.col_start = f.mi_col_starts[tile_col]
         self.col_end = f.mi_col_starts[tile_col + 1]
         self.current_q = f.base_q_idx
+        self.delta_lf = [0, 0, 0, 0]
+        self.lf_id = 0
         self.ref_wiener = [[list(T.WIENER_TAPS_MID) for _ in (0, 1)]
                            for _ in range(self.planes)]
         self.ref_sgr = [list(T.SGRPROJ_XQD_MID) for _ in range(self.planes)]
@@ -325,7 +335,8 @@ class FrameDecoder:
     # ------------------------------------------------------- restoration
     def _read_lr(self, r, c):
         """read_lr: the restoration units whose top-left corner lies in
-        the superblock at (r, c)."""
+        the superblock at (r, c); with superres its columns are those of
+        the upscaled frame."""
         f = self.f
         for p in range(self.planes):
             if f.lr_type[p] == RESTORE_NONE:
@@ -336,8 +347,9 @@ class FrameDecoder:
             n_r, n_c = self.lr[p].type.shape
             r0 = (r * (4 >> sy) + size - 1) // size
             r1 = min(n_r, ((r + self.sb4) * (4 >> sy) + size - 1) // size)
-            c0 = (c * (4 >> sx) + size - 1) // size
-            c1 = min(n_c, ((c + self.sb4) * (4 >> sx) + size - 1) // size)
+            num, den = (4 >> sx) * f.superres_denom, size * 8
+            c0 = (c * num + den - 1) // den
+            c1 = min(n_c, ((c + self.sb4) * num + den - 1) // den)
             for ur in range(r0, r1):
                 for uc in range(c0, c1):
                     self._read_lr_unit(p, ur, uc)
@@ -554,6 +566,9 @@ class FrameDecoder:
                 self.is_inter[ry][cx] = b.is_inter
                 self.dvs[ry][cx] = b.dv
                 self.written[ry][cx] = 1
+        if self.lf_ids is not None:
+            for ry in range(r, r + bh4):
+                self.lf_ids[ry][c:c + bw4] = [self.lf_id] * bw4
         if b.is_inter:
             self._intrabc_predict(b)
         self._residual(b)
@@ -692,8 +707,9 @@ class FrameDecoder:
             self.current_q = max(1, min(255, self.current_q +
                                         (a << f.delta_q_res)))
         if f.delta_lf_present:
-            # read and dropped: a frame that has them with the deblocking
-            # filter on is refused (av1_obu), so they steer nothing here
+            # DeltaLF: one, or one a level with delta_lf_multi, kept
+            # across the tile's blocks (the deblocking levels of this
+            # block and those after it)
             cnt = (4 if self.planes > 1 else 2) if f.delta_lf_multi else 1
             for i in range(cnt):
                 cd = self.cdf.delta_lf_multi[i] if f.delta_lf_multi else \
@@ -702,8 +718,12 @@ class FrameDecoder:
                 if a == 3:
                     n = rd.literal(3) + 1
                     a = rd.literal(n) + (1 << n) + 1
-                if a:
-                    rd.literal(1)
+                if a and rd.literal(1):
+                    a = -a
+                self.delta_lf[i] = max(-63, min(63, self.delta_lf[i] +
+                                                (a << f.delta_lf_res)))
+            self.lf_id = self.lf_sets.setdefault(tuple(self.delta_lf),
+                                                 len(self.lf_sets))
 
     # ----------------------------------------------------------- palette
     def _palette_cache(self, b, plane):
@@ -1499,14 +1519,16 @@ def add_grain(planes, seq, frame):
 
 def filter_frame(d, seq, frame, stages=None, times=None):
     """Deblocking, then CDEF (keeping the deblocked planes loop
-    restoration reads past its stripes), then loop restoration; the
-    cropped planes. `stages`, a list, gets the planes after the first
-    two; `times`, a dict, each filter's seconds."""
+    restoration reads past its stripes), then the superres upscale of
+    both, then loop restoration; the cropped planes. `stages`, a list,
+    gets the planes after the first two (and the upscale, with
+    superres); `times`, a dict, each stage's seconds."""
     times = {} if times is None else times
     planes = d.frame
     t0 = time.perf_counter()
+    lf_ids = None if d.lf_ids is None else np.array(d.lf_ids, np.int64)
     av1_loopfilter.deblock(planes, frame, seq, np.array(d.seg_ids, np.int64),
-                           d.lf_tx, TX_WH)
+                           d.lf_tx, TX_WH, lf_ids, list(d.lf_sets))
     t1 = time.perf_counter()
     if stages is not None:
         stages.append([p.copy() for p in planes])
@@ -1517,11 +1539,19 @@ def filter_frame(d, seq, frame, stages=None, times=None):
     t2 = time.perf_counter()
     if stages is not None:
         stages.append([p.copy() for p in planes])
+    pre = d.frame
+    if frame.width != frame.upscaled_width:
+        planes = av1_superres.upscale(planes, frame, seq)
+        if any(frame.lr_type):
+            pre = av1_superres.upscale(pre, frame, seq)
+        if stages is not None:
+            stages.append([p.copy() for p in planes])
+    t3 = time.perf_counter()
     if any(frame.lr_type):
-        planes = av1_restoration.restore(planes, d.frame, frame, seq, d.lr)
-    times.update(deblock=t1 - t0, cdef=t2 - t1,
-                 restoration=time.perf_counter() - t2)
-    h, w = frame.height, frame.width
+        planes = av1_restoration.restore(planes, pre, frame, seq, d.lr)
+    times.update(deblock=t1 - t0, cdef=t2 - t1, superres=t3 - t2,
+                 restoration=time.perf_counter() - t3)
+    h, w = frame.height, frame.upscaled_width
     out = [planes[0][:h, :w]]
     if seq.num_planes > 1:
         ch, cw = (h + seq.ssy) >> seq.ssy, (w + seq.ssx) >> seq.ssx

@@ -5,7 +5,9 @@ every horizontal one, on the 4 x 4 grid inside FrameWidth x FrameHeight.
 An edge is a transform block's edge (the tx sizes of the plane, per 4 x
 4, as the block walk recorded them); its filter length is the smaller
 transform across it (luma 4 / 8 / 14 taps, chroma 4 / 6), its level the
-block's (segment feature, intra reference delta), or its left or upper
+block's (its loop filter deltas, segment feature, intra reference delta:
+a table by segment, or by segment and set of deltas where the frame has
+per-block deltas), or its left or upper
 neighbour's where that is 0; sharpness sets the limits. In a pass the
 rows of samples do not interact, and the spec's raster order only sets
 the edges' order within a row; but no edge reads or writes a sample
@@ -38,21 +40,24 @@ WIDE = {16: _wide_taps(6, 1, 4), 8: _wide_taps(3, 0, 3),
         6: _wide_taps(2, 1, 3)}
 
 
-def levels(f):
-    """Filter level by [segment][plane and pass: y vertical, y horizontal,
-    u, v] (7.14.4; no per-block deltas)."""
-    out = np.zeros((8, 4), np.int64)
-    for seg in range(8):
-        for i in range(4):
-            lvl = f.lf_level[i]
-            if i >= 2 and not lvl:
-                continue                      # chroma off: dav1d's zeros
-            feat = f.seg_feature[seg][1 + i] if f.seg_enabled else None
-            if feat is not None:
-                lvl = max(0, min(63, lvl + feat))
-            if f.lf_delta_enabled:
-                lvl = max(0, min(63, lvl + (f.lf_ref_deltas[0] << (lvl >> 5))))
-            out[seg, i] = lvl
+def levels(f, deltas=((0, 0, 0, 0),)):
+    """Filter level by [set of per-block deltas][segment][plane and pass:
+    y vertical, y horizontal, u, v] (7.14.4, dav1d_calc_lf_values): the
+    frame's level plus the block's DeltaLF (the one for the pass with
+    delta_lf_multi, else the first), clipped, then the segment feature
+    and the intra reference delta."""
+    out = np.zeros((len(deltas), 8, 4), np.int64)
+    for k, seg, i in np.ndindex(out.shape):
+        lvl = f.lf_level[i]
+        if i >= 2 and not lvl:
+            continue                          # chroma off: dav1d's zeros
+        lvl = max(0, min(63, lvl + deltas[k][i if f.delta_lf_multi else 0]))
+        feat = f.seg_feature[seg][1 + i] if f.seg_enabled else None
+        if feat is not None:
+            lvl = max(0, min(63, lvl + feat))
+        if f.lf_delta_enabled:
+            lvl = max(0, min(63, lvl + (f.lf_ref_deltas[0] << (lvl >> 5))))
+        out[k, seg, i] = lvl
     return out
 
 
@@ -67,16 +72,20 @@ def limits(sharpness):
     return lim, 2 * (lvl + 2) + lim, lvl >> 4
 
 
-def deblock(planes, f, seq, seg_ids, lf_tx, tx_wh):
+def deblock(planes, f, seq, seg_ids, lf_tx, tx_wh, lf_ids=None,
+            lf_sets=((0, 0, 0, 0),)):
     """Filter `planes` (padded int arrays, the frame at their origin) in
     place. `seg_ids`: segment per mi; `lf_tx[p]`: tx size index per 4 x 4
-    of plane p; `tx_wh`: (width, height) of each tx size. Returns the
-    number of rows of samples each filter ran on ("y4", "y8", "y14",
-    "uv4", "uv6")."""
+    of plane p; `tx_wh`: (width, height) of each tx size; `lf_ids`, where
+    the frame has per-block loop filter deltas: each mi's index into
+    `lf_sets`, the sets of deltas. Returns the number of rows of samples
+    each filter ran on ("y4", "y8", "y14", "uv4", "uv6")."""
     ran = {}
     if not (f.lf_level[0] or f.lf_level[1]):
         return ran
-    lvl_tab = levels(f)
+    lvl_tab = levels(f, lf_sets).reshape(-1, 4)
+    if lf_ids is not None:
+        seg_ids = lf_ids * 8 + seg_ids
     sh = seq.bit_depth - 8
     lut = tuple(v << sh for v in limits(f.lf_sharpness))
     txw = np.array([w for w, _ in tx_wh])

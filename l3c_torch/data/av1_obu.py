@@ -8,12 +8,16 @@ then the tile groups' tile sizes.
 and the tiles of the first shown frame. The header keeps what the tools
 it names need: the quantizer matrix levels (`using_qmatrix`, `qm_y`,
 `qm_u`, `qm_v`), `allow_intrabc` (which switches the loop filter, CDEF
-and loop restoration off and reads no per-block loop filter deltas) and
-the film grain parameters (`frame.grain`, None without grain). What this
-decoder does not decode yet (superres, per-block loop filter deltas with
-the deblocking filter on, inter frames) is refused by
-name with "... is not decoded by the port yet"; a bitstream dav1d cannot
-parse is refused as damaged.
+and loop restoration off and reads no per-block loop filter deltas), the
+film grain parameters (`frame.grain`, None without grain), superres
+(`use_superres`, `superres_denom`; `width` is the coded FrameWidth,
+`upscaled_width` the frame's), the per-block loop filter deltas'
+`delta_lf_present`, `delta_lf_res` and `delta_lf_multi`, and the segment
+features (the reference features 5 and 7 act in an intra frame only
+through `seg_id_pre_skip`). A hidden first frame, which dav1d shows
+through a later show_existing_frame, is refused by name with "... is not
+decoded by the port yet"; a bitstream dav1d cannot parse is refused as
+damaged.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ OBU_TILE_GROUP, OBU_METADATA, OBU_FRAME = 4, 5, 6
 OBU_REDUNDANT_FRAME_HEADER, OBU_PADDING = 7, 15
 KEY_FRAME, INTRA_ONLY_FRAME = 0, 2
 SELECT = 2
+SUPERRES_NUM = 8
 SEG_FEATURE_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
 SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 SEG_FEATURE_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
@@ -365,17 +370,24 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
         f.height = b.f(s.frame_height_bits) + 1
     else:
         f.width, f.height = s.max_width, s.max_height
-    if s.enable_superres and b.f(1):
-        raise not_yet(path, "superres", "dav1d's super-resolution "
-                                          "upscaling")
+    # superres_params: the frame is coded at a width of 8 / SuperresDenom
+    # (dav1d keeps it at least min(16, UpscaledWidth)) and upscaled after
+    # CDEF (data/av1_superres.py)
+    f.upscaled_width, f.superres_denom = f.width, SUPERRES_NUM
+    f.use_superres = b.f(1) if s.enable_superres else 0
+    if f.use_superres:
+        f.superres_denom = b.f(3) + 9
+        f.width = max((f.upscaled_width * SUPERRES_NUM +
+                       (f.superres_denom >> 1)) // f.superres_denom,
+                      min(16, f.upscaled_width))
     f.mi_cols = 2 * ((f.width + 7) >> 3)
     f.mi_rows = 2 * ((f.height + 7) >> 3)
     if b.f(1):                          # render size
         b.f(16)
         b.f(16)
     f.allow_intrabc = 0
-    if f.allow_screen_content_tools:
-        f.allow_intrabc = b.f(1)
+    if f.allow_screen_content_tools and not f.use_superres:
+        f.allow_intrabc = b.f(1)        # dav1d: not with superres coded
     if not (s.reduced or f.disable_cdf_update):
         b.f(1)                          # disable_frame_end_update_cdf
     _tile_info(b, f, s.sb128)
@@ -414,10 +426,6 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
                 f.last_active_seg_id = i
                 if j >= 5:
                     f.seg_id_pre_skip = 1
-    if any(f.seg_feature[i][5] is not None or f.seg_feature[i][7]
-           is not None for i in range(8)):
-        raise not_yet(path, "segment reference features",
-                      "dav1d's SEG_LVL_REF_FRAME / GLOBALMV")
     # delta_q_params, delta_lf_params
     f.delta_q_present = b.f(1) if f.base_q_idx > 0 else 0
     f.delta_q_res = b.f(2) if f.delta_q_present else 0
@@ -434,7 +442,8 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
                           f.dq[1] == [0, 0] and f.dq[2] == [0, 0])
     f.coded_lossless = all(f.lossless)
     # loop_filter_params, cdef_params, lr_params (all off when every
-    # segment is lossless, or with intra block copy)
+    # segment is lossless, but restoration with superres coded; all off
+    # with intra block copy)
     f.lf_level = [0, 0, 0, 0]
     f.lf_sharpness = 0
     f.lf_delta_enabled = 0
@@ -457,9 +466,6 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
             for i in range(2):
                 if b.f(1):
                     f.lf_mode_deltas[i] = b.su(7)
-        if f.delta_lf_present and (f.lf_level[0] or f.lf_level[1]):
-            raise not_yet(path, "per-block loop filter deltas",
-                          "dav1d's delta_lf")
         if s.enable_cdef:
             f.cdef_damping = b.f(2) + 3
             f.cdef_bits = b.f(2)
@@ -470,19 +476,20 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
                     f.cdef_uv.append(_cdef_strength(b))
                 else:
                     f.cdef_uv.append((0, 0))
-        if s.enable_restoration:
-            f.lr_type = [LR_TYPE[b.f(2)] for _ in range(s.num_planes)] + \
-                [RESTORE_NONE] * (3 - s.num_planes)
-            if any(f.lr_type):
-                shift = b.f(1)
-                if s.sb128:
-                    shift += 1
-                elif shift:
-                    shift += b.f(1)
-                size = 64 << shift
-                uv_shift = b.f(1) if s.ssx and s.ssy and any(
-                    f.lr_type[1:]) else 0
-                f.lr_unit_size = [size, size >> uv_shift, size >> uv_shift]
+    if s.enable_restoration and not f.allow_intrabc and (
+            not f.coded_lossless or f.use_superres):
+        f.lr_type = [LR_TYPE[b.f(2)] for _ in range(s.num_planes)] + \
+            [RESTORE_NONE] * (3 - s.num_planes)
+        if any(f.lr_type):
+            shift = b.f(1)
+            if s.sb128:
+                shift += 1
+            elif shift:
+                shift += b.f(1)
+            size = 64 << shift
+            uv_shift = b.f(1) if s.ssx and s.ssy and any(
+                f.lr_type[1:]) else 0
+            f.lr_unit_size = [size, size >> uv_shift, size >> uv_shift]
     f.tx_mode_select = 0 if f.coded_lossless else b.f(1)
     f.reduced_tx_set = b.f(1)
     f.grain = None

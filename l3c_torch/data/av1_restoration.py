@@ -1,6 +1,7 @@
 """AV1's loop restoration on an intra frame (the AV1 specification,
 section 7.17), as dav1d runs it: the Wiener filter and the self-guided
-filter, per restoration unit, on the CDEF frame.
+filter, per restoration unit, on the CDEF frame (with superres, both it
+and the deblocked frame upscaled: units and planes of UpscaledWidth).
 
 A plane is filtered in stripes of 64 luma rows (64 >> ss_y in the
 plane), the first starting 8 luma rows above the frame. Inside a stripe
@@ -43,7 +44,7 @@ def restore(cdef_planes, pre_planes, f, seq, lr):
             continue
         sx = seq.ssx if p else 0
         sy = seq.ssy if p else 0
-        pw = (f.width + sx) >> sx
+        pw = (f.upscaled_width + sx) >> sx
         ph = (f.height + sy) >> sy
         size = f.lr_unit_size[p]
         u = lr[p]

@@ -55,10 +55,11 @@ loader reads it or refused where it refuses:
     CDEF and loop restoration, film grain, grids of cells, frames scaled
     to ispe (a track's frames to tkhd's size) by libyuv's ScalePlane in
     data/avif_scale.py, libyuv's and
-    libavif's own YUV to RGB in data/avif_yuv.py; 8, 10 and 12 bits), as
-    Pillow's libavif 1.3.0, dav1d 1.5.1 and libyuv give them; the tools
-    the port does not decode yet (superres, per-block loop filter deltas,
-    ...) raise ValueError naming them.
+    libavif's own YUV to RGB in data/avif_yuv.py; 8, 10 and 12 bits;
+    superres, per-block loop filter deltas and segment reference
+    features), as Pillow's libavif 1.3.0, dav1d 1.5.1 and libyuv give
+    them; the one AV1 case the port does not decode yet, a hidden first
+    frame, raises ValueError naming it.
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
 ValueError naming the format and the reason. PNGs are written with the
 bytes of Pillow's default save (`write_png`). Every image comes out as

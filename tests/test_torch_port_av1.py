@@ -83,7 +83,7 @@ _PLAIN = {"DC_QLOOKUP": ("<i2", 256), "AC_QLOOKUP": ("<i2", 256),
           "CDEF_UV_DIR": ("u1", 16), "CDEF_DIRECTIONS": ("i1", 24),
           "CDEF_PRI_TAPS": ("<i4", 4), "CDEF_DIV_TABLE": ("<i4", 9),
           "WIENER_TAPS_MID": ("<i4", 3),
-          "GAUSSIAN_SEQUENCE": ("<i2", 2048)}
+          "GAUSSIAN_SEQUENCE": ("<i2", 2048), "RESIZE_FILTER": ("i1", 512)}
 # constants neither library keeps as an array (macros, inline code): the
 # specification's values, kept by the rewrite
 _SPEC = {"WIENER_TAPS_MIN": (-5, -23, -17), "WIENER_TAPS_MAX": (10, 8, 46),
@@ -505,8 +505,12 @@ FILTERS_NOW = {
 
 
 # and the tools decoded since: film grain (its parameters), quantizer
-# matrices (the levels), intra block copy (which turns the filters off)
+# matrices (the levels), intra block copy (which turns the filters off),
+# superres (16 wide at denominator 9: dav1d's floor keeps FrameWidth at
+# min(16, UpscaledWidth))
 TOOLS_NOW = {
+    "superres": lambda f: (f.use_superres, f.superres_denom, f.width,
+                           f.upscaled_width, f.mi_cols) == (1, 9, 16, 16, 4),
     "film grain": lambda f: (f.grain.seed, f.grain.y_points,
                              f.grain.cb_points, f.grain.overlap) == (
                                  0, [], [], 0),
@@ -525,8 +529,8 @@ TOOLS_NOW = {
     (dict(qmatrix=1), "quantizer matrices", "using_qmatrix"),
     (dict(screen=1, intrabc=1), "intra block copy", "intrabc")])
 def test_tools_not_decoded_yet_are_refused_by_name(kw, what, tool):
-    """Superres is refused by name; the filters and the tools decoded
-    since parse, each keeping what it sets."""
+    """The filters and the tools decoded since (superres the last) parse,
+    each keeping what it sets; none is refused by name now."""
     now = dict(FILTERS_NOW, **TOOLS_NOW)
     if what in now:
         _, f, _ = av1_obu.parse_av1(av1_still(**kw), "x")
@@ -542,18 +546,13 @@ def test_tools_not_decoded_yet_are_refused_by_name(kw, what, tool):
 @pytest.mark.parametrize("lf, refused", [((3, 0), True), ((0, 5), True),
                                          ((0, 0), False)])
 def test_delta_lf_with_deblocking_is_refused_by_name(lf, refused):
-    """Per-block loop filter deltas steer the deblocking levels: with a
-    level on they are refused by name (no writer here makes them); with
-    both luma levels 0 nothing is deblocked and the frame parses."""
-    blob = av1_still(lf=lf, delta_lf=1)
-    if not refused:
-        _, f, _ = av1_obu.parse_av1(blob, "x")
-        assert f.delta_lf_present == 1 and f.lf_level == [0, 0, 0, 0]
-        return
-    with pytest.raises(ValueError, match="AVIF with per-block loop filter "
-                       "deltas is not decoded by the port yet .dav1d's "
-                       "delta_lf."):
-        av1_obu.parse_av1(blob, "x")
+    """Per-block loop filter deltas steer the deblocking levels: once
+    refused by name with a level on, they now parse with the levels on or
+    off, keeping their resolution and multi flag (their pixels:
+    tests/test_torch_port_avif_tools.py)."""
+    _, f, _ = av1_obu.parse_av1(av1_still(lf=lf, delta_lf=1), "x")
+    assert (f.delta_lf_present, f.delta_lf_res, f.delta_lf_multi) == (1, 0, 0)
+    assert f.lf_level[:2] == list(lf) and bool(any(lf)) == refused
 
 
 def test_loop_filter_deltas_and_sharpness_parse():

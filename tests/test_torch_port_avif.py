@@ -1980,9 +1980,10 @@ def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
     assert np.array_equal(got, jimages.load_image_uint8(p))
 
 
-# the tools ROADMAP F6 still lists, which the port refuses by name
-F6_TOOLS = ("superres", "per-block loop filter deltas",
-            "a hidden first frame", "segment reference features")
+# the tool ROADMAP F6 still lists, which the port refuses by name
+# (superres, per-block loop filter deltas and segment reference features
+# are decoded: tests/test_torch_port_avif_tools.py)
+F6_TOOLS = ("a hidden first frame",)
 
 
 def _outcome(p):
@@ -2138,8 +2139,9 @@ def test_truncated_and_bit_flipped_files_as_pillow(tmp_path):
     of the chroma-derived matrix (libavif's float conversion):
     where Pillow decodes, the port gives its pixels (dav1d's and the
     port's walk of damaged tile data agree, a flip in a filter's header
-    fields or symbols included) or names a tool ROADMAP F6 still lists (a
-    flip that switches superres on); where Pillow refuses, the port
+    fields or symbols included, and a flip that switches superres, delta_lf
+    or a segment feature on) or names a tool ROADMAP F6 still lists;
+    where Pillow refuses, the port
     refuses (libavif's box checks, dav1d's tile overread and 4:2:2
     partition checks), as damaged or, where a tool F6 lists comes first,
     by that tool's name."""

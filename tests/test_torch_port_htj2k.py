@@ -1170,8 +1170,8 @@ def test_tile_data_cut_short_as_openjpeg(tmp_path, cut):
 def test_only_avif_is_left_not_decoded_by_the_port():
     """Every other refusal of the loader is Pillow's own (held in the
     format's tests): "not decoded / read by the port yet" is said only of
-    the AVIF tools the port does not decode yet (superres, per-block
-    loop filter deltas, ...: data/av1_obu.py; data/avif.py reads
+    the AVIF tool the port does not decode yet (a hidden first frame:
+    data/av1_obu.py; data/avif.py reads
     sequences with or without a meta box, data/avif_yuv.py converts
     every matrix libavif converts) and in the loader's fallback; AVIF
     itself now has a decoder."""
