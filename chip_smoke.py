@@ -345,7 +345,17 @@ Phases (each raises on failure; none carries on after another failed):
               Pillow's digests or its refusals, the host Pillow's digests
               held, cli.l3c enc / dec of a 512 x 512 superres file (256
               coded wide), its decode MP/s and its time by stage (the
-              upscale among them)
+              upscale among them); the files of
+              l3c_torch/data/fixtures/avif_hidden (frames hidden in
+              dav1d's reference slots and shown by show_existing_frame,
+              in stills, alpha, a grid's cells and a track; the inter
+              frame after a hidden key frame refused by name; the f11_
+              files, whose transforms run past valid coefficients) to
+              Pillow's digests or its refusals, the host Pillow's
+              digests held (the f11_ ones reported) beside the host
+              CPU's AVX-512 flags, cli.l3c enc / dec of a 512 x 512
+              default save hidden behind a second picture, its decode
+              MP/s and its time by stage (both frames walked)
  23. report   one JSON line of kernel records (each with its path:
               serving, train or baselines, and its launches in phase cli,
               phase parallel, phase prep, phase synth, phase formats,
@@ -5215,6 +5225,23 @@ AVIF_DEEP = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif_deep")
 AVIF_SEQ = os.path.join(ROOT, "l3c_torch", "data", "fixtures", "avif_seq")
 AVIF_TOOLS = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
                           "avif_tools")
+AVIF_HIDDEN = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                           "avif_hidden")
+# the x86 flags that choose dav1d's transform code at run time
+DAV1D_FLAGS = ("avx2", "avx512f", "avx512bw", "avx512vl", "avx512vbmi",
+               "avx512_vbmi2", "avx512_vnni", "avx512_bitalg", "avx512ifma",
+               "gfni", "vpclmulqdq")
+
+
+def host_cpu_flags():
+    """Which of DAV1D_FLAGS this host's /proc/cpuinfo lists (None where
+    it lists no flags)."""
+    with open("/proc/cpuinfo") as f:
+        line = next((x for x in f if x.startswith("flags")), None)
+    if line is None:
+        return None
+    have = set(line.split(":", 1)[1].split())
+    return [x for x in DAV1D_FLAGS if x in have]
 
 
 def phase_avif(card):
@@ -5256,8 +5283,17 @@ def phase_avif(card):
     Pillow refuses them, the host Pillow's digests held; cli.l3c enc / dec
     of a 256-wide default save coded at superres denominator 16 (512 x
     512 upscaled), its decode rate beside the still's and its time by
-    stage (the upscale's included). Returns the launches of its CLI
-    calls."""
+    stage (the upscale's included). The hidden frames of
+    l3c_torch/data/fixtures/avif_hidden (shown through
+    show_existing_frame; the inter frame after a hidden key frame
+    refused by name, its Pillow digest held on the host) likewise, and
+    the f11_ files (transforms past valid coefficients): the host
+    Pillow's digests of the f11_ files reported beside this host's
+    AVX-512 flags and those the fixtures were made under (dav1d picks its
+    transform code by the CPU); cli.l3c enc / dec of a 512 x 512 default
+    save hidden in slot 3 behind a second 512 x 512 picture, its decode
+    rate (both frames walked) beside the still's and its time by stage.
+    Returns the launches of its CLI calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
@@ -5267,6 +5303,8 @@ def phase_avif(card):
         seqs = json.load(f)
     with open(os.path.join(AVIF_TOOLS, "expected.json")) as f:
         tools = json.load(f)
+    with open(os.path.join(AVIF_HIDDEN, "expected.json")) as f:
+        hid = json.load(f)
     cpu = host_cpu()
     # ---- (a) every fixture's format, mode, size and pixels; refusals
     t0 = time.perf_counter()
@@ -5297,13 +5335,24 @@ def phase_avif(card):
         f"(avif_tools/expected.json); {len(t_ref)} refused as Pillow "
         f"{tools['made_by']['pillow']} refuses them ({', '.join(t_ref)}); "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    h_dec, h_ref = fixtures_hold(AVIF_HIDDEN, hid["files"])
+    flags = host_cpu_flags()
+    log(f"[avif] {len(h_dec)} files with hidden frames shown through "
+        f"show_existing_frame or with transforms past valid coefficients "
+        f"(f11_) decoded to Pillow's digests (avif_hidden/expected.json); "
+        f"{len(h_ref)} refused as Pillow {hid['made_by']['pillow']} refuses"
+        f" them or by name ({', '.join(h_ref)}); "
+        f"{time.perf_counter() - t0:.1f} s; this host's dav1d CPU flags "
+        f"{flags}, the fixtures' {hid['made_by']['cpu_flags']}")
     # ---- (b) this host's Pillow on the same files
     paths = {os.path.join(AVIF, n): e.get("sha256", "")
              for n, e in exp["files"].items()}
     for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs),
-                       (AVIF_TOOLS, tools)):
-        paths.update({os.path.join(folder, n): e.get("sha256", "")
-                      for n, e in ex["files"].items()})
+                       (AVIF_TOOLS, tools), (AVIF_HIDDEN, hid)):
+        paths.update({os.path.join(folder, n): e.get(
+            "sha256", e.get("pillow_sha256", "")) for n, e in
+            ex["files"].items()})
     run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
                           json.dumps(paths)], capture_output=True, text=True,
                          timeout=300)
@@ -5317,7 +5366,12 @@ def phase_avif(card):
     else:
         host = json.loads(run.stdout.strip().splitlines()[-1])
         got = host["files"]
-        bad = sorted(n for n in decoded + d_dec + s_dec + t_dec
+        # the inter frame the port refuses: Pillow's digest held; the
+        # f11_ files: reported (dav1d's transform code follows the CPU)
+        f11 = [n for n in h_dec if n.startswith("f11_")]
+        inter = [n for n in h_ref if "refused" in hid["files"][n]]
+        bad = sorted(n for n in decoded + d_dec + s_dec + t_dec + inter +
+                     [n for n in h_dec if n not in f11]
                      if got.get(n) != "same")
         if bad:
             raise RuntimeError(f"this host's Pillow {host['pillow']} "
@@ -5332,6 +5386,17 @@ def phase_avif(card):
             "refuses")]
         tools_ran = [n for n in t_ref if not got.get(n, "").startswith(
             "refuses")]
+        hid_ran = [n for n in h_ref if n not in inter and not got.get(
+            n, "").startswith("refuses")]
+        log(f"[avif] this host's Pillow on the f11_ files (its dav1d CPU "
+            f"flags {flags}, the fixtures' "
+            f"{hid['made_by']['cpu_flags']}): "
+            f"{ {n: got.get(n) for n in f11} } (reported); on the hidden "
+            f"frames' {len(h_dec) - len(f11)} decoded files and the inter "
+            f"frame's Pillow digest: the same (held); {len(hid_ran)} of "
+            f"the {len(h_ref) - len(inter)} Pillow "
+            f"{hid['made_by']['pillow']} refuses decoded ({hid_ran}; "
+            f"reported)")
         log(f"[avif] this host's Pillow {host['pillow']} ({host.get('avif')})"
             f" decodes all {len(decoded)} decoded fixtures, the "
             f"{len(d_dec)} decoded 10- and 12-bit ones, the {len(s_dec)} "
@@ -5345,7 +5410,7 @@ def phase_avif(card):
     # ---- (c) cli.l3c enc / dec of the two coded files; (d) cli.test
     total = code_and_test(AVIF, exp, "avif", card)
     for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs),
-                       (AVIF_TOOLS, tools)):
+                       (AVIF_TOOLS, tools), (AVIF_HIDDEN, hid)):
         for k, v in code_and_test(folder, ex, "avif", card,
                                   test=False).items():
             total[k] = total.get(k, 0) + v
@@ -5354,7 +5419,8 @@ def phase_avif(card):
     coded = [(AVIF, exp, n) for n in exp["coded"]] + \
         [(AVIF_DEEP, deep, n) for n in deep["coded"]] + \
         [(AVIF_SEQ, seqs, n) for n in seqs["coded"]] + \
-        [(AVIF_TOOLS, tools, n) for n in tools["coded"]]
+        [(AVIF_TOOLS, tools, n) for n in tools["coded"]] + \
+        [(AVIF_HIDDEN, hid, n) for n in hid["coded"]]
     for folder, ex, name in coded:
         e = ex["files"][name]
         blob = open(os.path.join(folder, name), "rb").read()
@@ -5379,7 +5445,8 @@ def phase_avif(card):
             exp["coded"][2], exp["coded"][3], exp["coded"][4],
             "o_cdef_422.avif", "p_lr_q60_switchable.avif")] + [
                 (AVIF_DEEP, deep, deep["coded"][0]),
-                (AVIF_TOOLS, tools, tools["coded"][0])]:
+                (AVIF_TOOLS, tools, tools["coded"][0]),
+                (AVIF_HIDDEN, hid, hid["coded"][0])]:
         blob = open(os.path.join(folder, name), "rb").read()
         ms = avif_stages_ms(blob, name, ex["files"][name]["sha256"])
         filters = ms["deblock"] + ms["cdef"] + ms["restoration"]
@@ -5399,41 +5466,42 @@ def phase_avif(card):
 
 def avif_stages_ms(blob, name, digest):
     """An AVIF still's host decode split into the container and headers,
-    the symbol walk (prediction and transforms included), each in-loop
-    filter, film grain synthesis, a grid's assembly of its cells and the
-    YUV to RGB conversion (a grid's stages summed over its cells): ms,
-    fastest of 3 each, and the fastest total; the pixels held to Pillow's
-    digest (an RGB file: no alpha to fold in)."""
+    the symbol walk (prediction and transforms included; every frame the
+    data holds, a hidden one too), each in-loop filter, film grain
+    synthesis, a grid's assembly of its cells and the YUV to RGB
+    conversion (a grid's stages summed over its cells): ms, fastest of 3
+    each, and the fastest total; the pixels held to Pillow's digest (an
+    RGB file: no alpha to fold in)."""
     from l3c_torch.data import av1_block, av1_obu, avif, avif_yuv
     best = {}
     for _ in range(3):
         t0 = time.perf_counter()
         m = avif.parse(blob, name)
         grid = m.grids.get(m.primary)
-        frames = []
-        seq = None
+        walks = []
+        ctx = av1_obu.context()
         for item in grid.cells if grid else [m.primary]:
             data = avif._item_bytes(blob, m, item, name)
-            frames.append((data,) + av1_obu.parse_av1(data, name, seq))
-            seq = frames[-1][1]
+            walks.append(av1_obu.walk_av1(data, name, ctx))
         t1 = time.perf_counter()
-        walked = []
-        for data, seq, frame, tiles in frames:
-            d = av1_block.FrameDecoder(seq, frame, name)
-            for tr, tc, start, end in tiles:
-                d.decode_tile(data, start, end, tr, tc)
-            walked.append(d)
+        for frames, _ in walks:
+            for fr in frames:
+                fr.decoder = av1_block.walk_frame(fr.seq, fr.frame,
+                                                  fr.tiles, fr.data, name)
         t2 = time.perf_counter()
         times, cells = {}, []
-        for d, (_, seq, frame, _) in zip(walked, frames):
+        for _, shown in walks:
             each = {}
-            planes = av1_block.filter_frame(d, seq, frame, times=each)
+            if shown.planes is None:
+                shown.planes = av1_block.filter_frame(
+                    shown.decoder, shown.seq, shown.frame, times=each)
             t_grain = time.perf_counter()
-            planes = av1_block.add_grain(planes, seq, frame)
+            planes = av1_block.add_grain(shown.planes, shown.seq,
+                                         shown.frame)
             each["grain"] = time.perf_counter() - t_grain
             for k, v in each.items():
                 times[k] = times.get(k, 0.0) + v
-            cells.append((planes, seq))
+            cells.append((planes, shown.seq))
         t3 = time.perf_counter()
         planes = avif.assemble(grid, cells, name) if grid else cells[0][0]
         seq = cells[0][1]

@@ -1500,13 +1500,20 @@ def _neg_deinterleave(diff, ref, mx):
     return mx - (diff + 1)
 
 
+def walk_frame(seq, frame, tiles, data, path):
+    """The frame's symbol walk: its FrameDecoder with every tile decoded
+    (reconstructed, the in-loop filters not yet run)."""
+    d = FrameDecoder(seq, frame, path)
+    for tr, tc, start, end in tiles:
+        d.decode_tile(data, start, end, tr, tc)
+    return d
+
+
 def decode_frame(seq, frame, tiles, data, path):
     """The frame's planes: the tiles' reconstruction, deblocked, CDEF,
     restored (each in-loop filter as the frame header sets it), cropped,
     with the film grain the header carries."""
-    d = FrameDecoder(seq, frame, path)
-    for tr, tc, start, end in tiles:
-        d.decode_tile(data, start, end, tr, tc)
+    d = walk_frame(seq, frame, tiles, data, path)
     return add_grain(filter_frame(d, seq, frame), seq, frame)
 
 

@@ -1,23 +1,30 @@
-"""AV1's OBU syntax for a still image (the AV1 specification, sections 5
-and 6): OBU headers, the sequence header with its colour config, and the
-uncompressed header of an intra frame with its tile info, quantizer,
-segmentation, delta, loop filter, CDEF and loop restoration parameters,
-then the tile groups' tile sizes.
+"""AV1's OBU syntax for AVIF's intra frames (the AV1 specification,
+sections 5 and 6): OBU headers, the sequence header with its colour
+config, and the uncompressed header of a key or intra-only frame, shown
+or hidden, with its tile info, quantizer, segmentation, delta, loop
+filter, CDEF and loop restoration parameters, then the tile groups' tile
+sizes; and show_existing_frame headers.
 
-`parse_av1(data, path)` returns the sequence header, the frame header
-and the tiles of the first shown frame. The header keeps what the tools
-it names need: the quantizer matrix levels (`using_qmatrix`, `qm_y`,
-`qm_u`, `qm_v`), `allow_intrabc` (which switches the loop filter, CDEF
-and loop restoration off and reads no per-block loop filter deltas), the
-film grain parameters (`frame.grain`, None without grain), superres
+`walk_av1(data, path, ctx)` follows a dav1d context through the data: it
+reads every frame in it (dav1d decodes them all, shown or not), keeps
+each in the reference slots its refresh_frame_flags name, and returns the
+frames and the first one shown, by show_frame or by a later
+show_existing_frame (a slot of this data or of data a grid's earlier
+cell sent to the same context). `parse_av1(data, path)` returns the
+sequence header, the frame header and the tiles of the frame shown. The
+header keeps what the tools it names need: the quantizer matrix levels
+(`using_qmatrix`, `qm_y`, `qm_u`, `qm_v`), `allow_intrabc` (which
+switches the loop filter, CDEF and loop restoration off and reads no
+per-block loop filter deltas), the film grain parameters (`frame.grain`,
+None without grain; read for a hidden frame that is showable), superres
 (`use_superres`, `superres_denom`; `width` is the coded FrameWidth,
 `upscaled_width` the frame's), the per-block loop filter deltas'
-`delta_lf_present`, `delta_lf_res` and `delta_lf_multi`, and the segment
+`delta_lf_present`, `delta_lf_res` and `delta_lf_multi`, the segment
 features (the reference features 5 and 7 act in an intra frame only
-through `seg_id_pre_skip`). A hidden first frame, which dav1d shows
-through a later show_existing_frame, is refused by name with "... is not
-decoded by the port yet"; a bitstream dav1d cannot parse is refused as
-damaged.
+through `seg_id_pre_skip`), and what a slot keeps (`frame_id`,
+`showable_frame`, `refresh`). An inter frame, which dav1d predicts from
+its slots, is refused by name with "... is not decoded by the port yet";
+a bitstream dav1d cannot parse is refused as damaged.
 """
 from __future__ import annotations
 
@@ -170,6 +177,10 @@ def sequence_header(b: Bits) -> SimpleNamespace:
         s.op_idc, s.seq_level_idx, s.decoder_model_present = [], [], []
         for _ in range(cnt):
             s.op_idc.append(b.f(12))
+            if s.op_idc[-1] and not (s.op_idc[-1] & 0xFF and
+                                     s.op_idc[-1] & 0xF00):
+                raise damaged(b.path, "an operating point names no "
+                                      "temporal or no spatial layer")
             lvl = b.f(5)
             s.seq_level_idx.append(lvl)
             if lvl > 7:
@@ -321,25 +332,40 @@ def _delta_q(b: Bits) -> int:
 
 
 def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
-    """uncompressed_header() of the first frame: a key frame or an
-    intra-only frame that is shown."""
-    f = SimpleNamespace()
+    """uncompressed_header() as dav1d reads it: a show_existing_frame
+    header (`show_existing_frame` set, the slot `frame_to_show` and, with
+    frame ids, `display_frame_id`; nothing else read), or an intra frame
+    (a key frame or an intra-only frame), shown or hidden, with
+    `error_resilient` and what a reference slot keeps of it (`frame_id`,
+    `showable_frame`, the slots it refreshes, `refresh`, and its film
+    grain). Of an inter frame only `frame_type` and `show_frame` are
+    read: the port does not predict one, and whether dav1d can (its
+    references are there) is the caller's to say."""
+    f = SimpleNamespace(show_existing_frame=0, showable_frame=0,
+                        frame_id=0)
     path = b.path
     if s.reduced:
-        f.frame_type, f.show_frame, error_resilient = KEY_FRAME, 1, 1
+        f.frame_type, f.show_frame = KEY_FRAME, 1
     else:
-        if b.f(1):
-            raise damaged(path, "the first frame shows an existing frame")
+        f.show_existing_frame = b.f(1)
+        if f.show_existing_frame:
+            f.frame_to_show = b.f(3)
+            if s.decoder_model_info and not s.equal_picture_interval:
+                b.f(s.frame_presentation_time_length)
+            f.display_frame_id = b.f(s.frame_id_length) \
+                if s.frame_id_numbers else None
+            return f
         f.frame_type = b.f(2)
         f.show_frame = b.f(1)
         if f.frame_type not in (KEY_FRAME, INTRA_ONLY_FRAME):
-            raise damaged(path, "the first frame is an inter frame")
-        if not f.show_frame:
-            raise not_yet(path, "a hidden first frame",
-                          "dav1d's show_existing_frame")
-        if s.decoder_model_info and not s.equal_picture_interval:
+            return f
+        if f.show_frame and s.decoder_model_info and \
+                not s.equal_picture_interval:
             b.f(s.frame_presentation_time_length)
-        error_resilient = 1 if f.frame_type == KEY_FRAME else b.f(1)
+        f.showable_frame = 0 if f.show_frame else b.f(1)
+    # a shown key frame is error resilient and refreshes every slot
+    shown_key = f.frame_type == KEY_FRAME and f.show_frame
+    f.error_resilient = 1 if shown_key else b.f(1)
     f.disable_cdf_update = b.f(1)
     if s.force_screen_content_tools == SELECT:
         f.allow_screen_content_tools = b.f(1)
@@ -348,7 +374,7 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
     if f.allow_screen_content_tools and s.force_integer_mv == SELECT:
         b.f(1)                          # force_integer_mv: 1 in intra frames
     if s.frame_id_numbers:
-        b.f(s.frame_id_length)
+        f.frame_id = b.f(s.frame_id_length)
     override = 0 if s.reduced else b.f(1)
     b.f(s.order_hint_bits)
     if s.decoder_model_info:
@@ -357,14 +383,10 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
                 if s.decoder_model_present[i]:
                     if idc == 0 or ((idc >> 0) & 1 and (idc >> 8) & 1):
                         b.f(s.buffer_removal_time_length)
-    if f.frame_type == INTRA_ONLY_FRAME:
-        refresh = b.f(8)
-        if refresh == 0xFF:
-            raise damaged(path, "an intra-only frame refreshes every "
-                                "reference")
-        if error_resilient and s.enable_order_hint:
-            for _ in range(8):
-                b.f(s.order_hint_bits)
+    f.refresh = 0xFF if shown_key else b.f(8)       # refresh_frame_flags
+    if f.refresh != 0xFF and f.error_resilient and s.enable_order_hint:
+        for _ in range(8):
+            b.f(s.order_hint_bits)              # ref_order_hint
     if override:
         f.width = b.f(s.frame_width_bits) + 1
         f.height = b.f(s.frame_height_bits) + 1
@@ -493,7 +515,8 @@ def frame_header(b: Bits, s: SimpleNamespace) -> SimpleNamespace:
     f.tx_mode_select = 0 if f.coded_lossless else b.f(1)
     f.reduced_tx_set = b.f(1)
     f.grain = None
-    if s.film_grain_present and f.show_frame and b.f(1):
+    if s.film_grain_present and (f.show_frame or f.showable_frame) and \
+            b.f(1):
         f.grain = _film_grain_params(b, s)
     return f
 
@@ -559,21 +582,54 @@ def qindex(f: SimpleNamespace, seg: int, current) -> int:
     return f.base_q_idx
 
 
-def parse_av1(data: bytes, path: str, seq: SimpleNamespace = None):
-    """(sequence header, frame header, tiles) of the first shown frame;
-    tiles as (tile_row, tile_col, start, end) into `data`. `seq`, where
-    given, is the sequence header a decoder kept from earlier data (a
-    grid's cells go through one dav1d context); the first one in `data`
-    takes its place."""
-    own = frame = None
+def context(seq: SimpleNamespace = None) -> SimpleNamespace:
+    """A dav1d context's state across the data sent to it: the sequence
+    header it keeps (`seq`) and its 8 reference slots (`refs`, each None
+    or the frame a refresh left there)."""
+    return SimpleNamespace(seq=seq, refs=[None] * 8)
+
+
+def walk_av1(data: bytes, path: str, ctx: SimpleNamespace):
+    """The frames dav1d decodes from `data` through the context `ctx`, in
+    order, and the one it shows. dav1d reads the data to its end: every
+    frame in it is decoded (a damaged one fails the file, shown or not),
+    and its picture is the first frame shown, by show_frame or by a frame
+    header with show_existing_frame, which shows a slot (a frame of this
+    data or of data sent earlier). Returns (frames, shown): each frame
+    decoded as a namespace (`seq`, `frame`, `tiles` as (tile_row,
+    tile_col, start, end) into its `data`, `planes` None until filtered).
+
+    `ctx` is updated as dav1d updates it: a sequence header replaces the
+    one kept, and one that differs empties the slots (and drops a frame
+    whose tiles are still to come); a decoded frame fills the slots its
+    refresh_frame_flags name; a key frame shown from a slot fills every
+    slot. Refused as damaged where dav1d fails: a slot shown that is
+    empty, or whose frame id is not display_frame_id; a frame OBU with
+    show_existing_frame; a frame header OBU with no room for its trailing
+    bit; a tile group with no frame header before it; an inter frame with
+    every slot empty; data that shows nothing. A redundant frame header
+    is read as a frame header where no frame waits for its tiles, as
+    dav1d reads it. An inter frame that has references is refused by
+    name."""
+    frames, shown = [], None
+    frame = fseq = None
     tiles: List[Tuple[int, int, int, int]] = []
     for typ, tid, sid, at, end in obus(data, path):
         if typ == OBU_SEQUENCE_HEADER:
-            if own is None:
-                seq = own = sequence_header(Bits(data, at, end, path))
+            s = sequence_header(Bits(data, at, end, path))
+            if ctx.seq is not None and vars(s) != vars(ctx.seq):
+                ctx.refs = [None] * 8
+                frame, tiles = None, []
+            ctx.seq = s
             continue
-        if typ not in (OBU_FRAME, OBU_FRAME_HEADER, OBU_TILE_GROUP):
+        if typ not in (OBU_FRAME, OBU_FRAME_HEADER, OBU_TILE_GROUP,
+                       OBU_REDUNDANT_FRAME_HEADER):
             continue            # dav1d skips the others, reserved types too
+        if typ == OBU_REDUNDANT_FRAME_HEADER:
+            if frame is not None:
+                continue
+            typ = OBU_FRAME_HEADER      # dav1d reads one as a frame header
+        seq = ctx.seq
         if seq is None:
             raise damaged(path, "a frame comes before the sequence header")
         idc = seq.op_idc[0]
@@ -585,8 +641,21 @@ def parse_av1(data: bytes, path: str, seq: SimpleNamespace = None):
                     continue
                 break
             b = Bits(data, at, end, path)
-            frame = frame_header(b, seq)
+            f = frame_header(b, seq)
+            if f.show_existing_frame:
+                if typ == OBU_FRAME:
+                    raise damaged(path, "a frame OBU shows an existing frame")
+                slot = _show_existing(b, f, ctx)
+                shown = shown or slot
+                continue
+            if f.frame_type not in (KEY_FRAME, INTRA_ONLY_FRAME):
+                if any(ctx.refs):
+                    raise not_yet(path, "an inter frame",
+                                  "dav1d's inter prediction")
+                raise damaged(path, "an inter frame has no reference frame")
+            frame, fseq = f, seq
             if typ == OBU_FRAME_HEADER:
+                b.f(1)                  # trailing_one_bit, as dav1d checks
                 continue
             b.byte_alignment()
             at = b.pos
@@ -595,23 +664,48 @@ def parse_av1(data: bytes, path: str, seq: SimpleNamespace = None):
                                 "header")
         tiles += _tile_group(data, at, end, frame, path)
         if len(tiles) == frame.tile_cols * frame.tile_rows:
-            return seq, frame, tiles
-    if frame is None:
-        raise damaged(path, "no frame")
-    raise damaged(path, "tiles are missing")
+            done = SimpleNamespace(seq=fseq, frame=frame, tiles=tiles,
+                                   data=data, planes=None)
+            frames.append(done)
+            ctx.refs = [done if (frame.refresh >> i) & 1 else r
+                        for i, r in enumerate(ctx.refs)]
+            if frame.show_frame:
+                shown = shown or done
+            frame, tiles = None, []
+    if frame is not None:
+        raise damaged(path, "tiles are missing")
+    if shown is None:
+        raise damaged(path, "no frame is shown" if frames else "no frame")
+    return frames, shown
 
 
-def read_rest(data: bytes, seq: SimpleNamespace, path: str):
-    """The OBUs after the frame, which dav1d reads too: a sequence header
-    among them replaces `seq` (for the next data of the same context); an
-    OBU that runs past the data, or a tile group with no frame header
-    before it, fails the decode. Returns the sequence header."""
-    for typ, _, _, at, end in obus(data, path):
-        if typ == OBU_SEQUENCE_HEADER:
-            seq = sequence_header(Bits(data, at, end, path))
-        elif typ == OBU_TILE_GROUP:
-            raise damaged(path, "a tile group comes after its frame")
-    return seq
+def _show_existing(b: Bits, f: SimpleNamespace, ctx: SimpleNamespace):
+    """The slot a show_existing_frame header shows, after dav1d's checks
+    (the trailing bit, an empty slot, the frame id); a key frame so shown
+    fills every slot (dav1d does not check showable_frame: libavif leaves
+    strict_std_compliance off)."""
+    b.f(1)                              # trailing_one_bit
+    slot = ctx.refs[f.frame_to_show]
+    if slot is None:
+        raise damaged(b.path, f"show_existing_frame shows slot "
+                              f"{f.frame_to_show}, which is empty")
+    if f.display_frame_id is not None and \
+            f.display_frame_id != slot.frame.frame_id:
+        raise damaged(b.path, "show_existing_frame's display_frame_id is "
+                              "not its slot's frame id")
+    if slot.frame.frame_type == KEY_FRAME:
+        ctx.refs = [slot] * 8
+    return slot
+
+
+def parse_av1(data: bytes, path: str, seq: SimpleNamespace = None):
+    """(sequence header, frame header, tiles) of the frame `data` shows,
+    decoded from it through a fresh context (`walk_av1`); tiles as
+    (tile_row, tile_col, start, end) into `data`. `seq`, where given, is
+    the sequence header a decoder kept from earlier data (a grid's cells
+    go through one dav1d context); one in `data` takes its place."""
+    _, shown = walk_av1(data, path, context(seq))
+    return shown.seq, shown.frame, shown.tiles
 
 
 def _tile_group(data: bytes, at: int, end: int, f: SimpleNamespace,

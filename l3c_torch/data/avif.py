@@ -629,8 +629,10 @@ def _planes(blob: bytes, m: SimpleNamespace, item: int, path: str,
     """(planes, sequence headers) of an AV1 or grid item as libavif gives
     them: an AV1 frame scaled to its ispe (avifImageScale); a grid's cells
     so scaled, then `assemble`d; a header for each cell. `ctx`, where the
-    cells share one dav1d context, holds the sequence header that context
-    kept from the cell before (a cell without one decodes with it)."""
+    cells share one dav1d context (`av1_obu.context`), holds what that
+    context kept from the data sent before: the sequence header (a cell
+    without one decodes with it) and the reference slots (a cell may
+    show a frame an earlier cell left there)."""
     grid = m.grids.get(item)
     if grid is None:
         w, h = struct.unpack(">II", _prop(m, item, b"ispe")[4:12])
@@ -712,7 +714,7 @@ def decode_avif(blob: bytes, path: str) -> np.ndarray:
     # other is there too
     counts = [len(m.grids[i].cells) if i in m.grids else 1
               for i in (item, alpha) if i is not None]
-    ctx = SimpleNamespace(seq=None) if len(counts) == 1 or 1 not in counts \
+    ctx = av1_obu.context() if len(counts) == 1 or 1 not in counts \
         else None
     planes, seqs = _planes(blob, m, item, path, ctx=ctx)
     seq = seqs[0]
@@ -839,15 +841,26 @@ def _decode_item(blob: bytes, m: SimpleNamespace, item: int, path: str,
 
 
 def _decode_data(data: bytes, path: str, ctx: SimpleNamespace = None):
-    """(planes, sequence header) of one AV1 item's or sample's data."""
-    seq, frame, tiles = av1_obu.parse_av1(data, path, ctx and ctx.seq)
-    # dav1d reads the data after the frame too
-    kept = av1_obu.read_rest(data[tiles[-1][3]:], seq, path)
-    if ctx:
-        ctx.seq = kept
+    """(planes, sequence header) of the frame one AV1 item's or sample's
+    data shows, through the dav1d context `ctx` (`av1_obu.context`; a
+    fresh one where None). Every frame dav1d decodes from the data is
+    walked, shown or not, since its tile data's checks fail the file as
+    they fail dav1d; the frame shown is filtered once (a slot shown
+    again keeps its planes) and given its film grain."""
+    ctx = ctx or av1_obu.context()
+    frames, shown = av1_obu.walk_av1(data, path, ctx)
     try:
-        planes = av1_block.decode_frame(seq, frame, tiles, data, path)
+        for fr in frames:
+            fr.decoder = av1_block.walk_frame(fr.seq, fr.frame, fr.tiles,
+                                              fr.data, path)
+        if shown.planes is None:
+            shown.planes = av1_block.filter_frame(shown.decoder, shown.seq,
+                                                  shown.frame)
     except (IndexError, KeyError) as e:
         raise av1_obu.damaged(path, f"its tile data breaks the decoder ("
                                     f"{type(e).__name__})") from None
-    return planes, seq
+    for fr in frames:        # a decoder is kept for a slot to filter only
+        if fr.planes is not None or all(fr is not r for r in ctx.refs):
+            fr.decoder = None
+    return av1_block.add_grain(shown.planes, shown.seq, shown.frame), \
+        shown.seq

@@ -57,8 +57,9 @@ loader reads it or refused where it refuses:
     data/avif_scale.py, libyuv's and
     libavif's own YUV to RGB in data/avif_yuv.py; 8, 10 and 12 bits;
     superres, per-block loop filter deltas and segment reference
-    features), as Pillow's libavif 1.3.0, dav1d 1.5.1 and libyuv give
-    them; the one AV1 case the port does not decode yet, a hidden first
+    features; hidden frames shown by show_existing_frame), as Pillow's
+    libavif 1.3.0, dav1d 1.5.1 and libyuv give them; the one AV1 case
+    the port does not decode yet, an inter frame after a hidden key
     frame, raises ValueError naming it.
 Anything else (hierarchical JPEG, JPEG-in-BMP, a 2-bit BMP, ...) raises
 ValueError naming the format and the reason. PNGs are written with the

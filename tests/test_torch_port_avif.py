@@ -1980,10 +1980,10 @@ def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
     assert np.array_equal(got, jimages.load_image_uint8(p))
 
 
-# the tool ROADMAP F6 still lists, which the port refuses by name
-# (superres, per-block loop filter deltas and segment reference features
-# are decoded: tests/test_torch_port_avif_tools.py)
-F6_TOOLS = ("a hidden first frame",)
+# what the port refuses by name: an inter frame (ROADMAP F12; hidden
+# frames shown through show_existing_frame are decoded:
+# tests/test_torch_port_avif_hidden.py)
+F6_TOOLS = ("an inter frame",)
 
 
 def _outcome(p):

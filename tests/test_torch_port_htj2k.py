@@ -1170,7 +1170,7 @@ def test_tile_data_cut_short_as_openjpeg(tmp_path, cut):
 def test_only_avif_is_left_not_decoded_by_the_port():
     """Every other refusal of the loader is Pillow's own (held in the
     format's tests): "not decoded / read by the port yet" is said only of
-    the AVIF tool the port does not decode yet (a hidden first frame:
+    the AVIF tool the port does not decode yet (an inter frame:
     data/av1_obu.py; data/avif.py reads
     sequences with or without a meta box, data/avif_yuv.py converts
     every matrix libavif converts) and in the loader's fallback; AVIF
