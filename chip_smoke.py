@@ -5227,6 +5227,8 @@ AVIF_TOOLS = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
                           "avif_tools")
 AVIF_HIDDEN = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
                            "avif_hidden")
+AVIF_INTER = os.path.join(ROOT, "l3c_torch", "data", "fixtures",
+                          "avif_inter")
 # the x86 flags that choose dav1d's transform code at run time
 DAV1D_FLAGS = ("avx2", "avx512f", "avx512bw", "avx512vl", "avx512vbmi",
                "avx512_vbmi2", "avx512_vnni", "avx512_bitalg", "avx512ifma",
@@ -5285,15 +5287,25 @@ def phase_avif(card):
     512 upscaled), its decode rate beside the still's and its time by
     stage (the upscale's included). The hidden frames of
     l3c_torch/data/fixtures/avif_hidden (shown through
-    show_existing_frame; the inter frame after a hidden key frame
-    refused by name, its Pillow digest held on the host) likewise, and
-    the f11_ files (transforms past valid coefficients): the host
-    Pillow's digests of the f11_ files reported beside this host's
-    AVX-512 flags and those the fixtures were made under (dav1d picks its
-    transform code by the CPU); cli.l3c enc / dec of a 512 x 512 default
-    save hidden in slot 3 behind a second 512 x 512 picture, its decode
-    rate (both frames walked) beside the still's and its time by stage.
-    Returns the launches of its CLI calls."""
+    show_existing_frame, an inter frame after a hidden key frame among
+    them) likewise, and the f11_ files (transforms past valid
+    coefficients): the host Pillow's digests of the f11_ files reported
+    beside this host's AVX-512 flags and those the fixtures were made
+    under (dav1d picks its transform code by the CPU); cli.l3c enc / dec
+    of a 512 x 512 default save hidden in slot 3 behind a second 512 x
+    512 picture, its decode rate (both frames walked) beside the still's
+    and its time by stage. The inter frames of
+    l3c_torch/data/fixtures/avif_inter (Pillow's sequences, their
+    rewrites at 10 and 12 bits, with superres and global motion, hidden
+    frames, layered items, the f13_ transforms) likewise, the host
+    Pillow's digests of the f13_ files reported as the f11_ ones, the
+    rest held, the layered items (libavif's choice of layer) among them;
+    every
+    frame of every avif_inter file held to Pillow's seek(k) digests;
+    cli.l3c enc / dec of a 512 x 512 layered still that shows an inter
+    frame, its decode rate beside the still's and its time by stage, the
+    inter prediction among them. Returns the launches of its CLI
+    calls."""
     from l3c_torch.data import avif
     with open(os.path.join(AVIF, "expected.json")) as f:
         exp = json.load(f)
@@ -5305,6 +5317,8 @@ def phase_avif(card):
         tools = json.load(f)
     with open(os.path.join(AVIF_HIDDEN, "expected.json")) as f:
         hid = json.load(f)
+    with open(os.path.join(AVIF_INTER, "expected.json")) as f:
+        itr = json.load(f)
     cpu = host_cpu()
     # ---- (a) every fixture's format, mode, size and pixels; refusals
     t0 = time.perf_counter()
@@ -5342,17 +5356,44 @@ def phase_avif(card):
         f"show_existing_frame or with transforms past valid coefficients "
         f"(f11_) decoded to Pillow's digests (avif_hidden/expected.json); "
         f"{len(h_ref)} refused as Pillow {hid['made_by']['pillow']} refuses"
-        f" them or by name ({', '.join(h_ref)}); "
+        f" them ({', '.join(h_ref)}); "
         f"{time.perf_counter() - t0:.1f} s; this host's dav1d CPU flags "
         f"{flags}, the fixtures' {hid['made_by']['cpu_flags']}")
+    t0 = time.perf_counter()
+    i_dec, i_ref = fixtures_hold(AVIF_INTER, itr["files"])
+    log(f"[avif] {len(i_dec)} files whose shown frame is an inter frame "
+        f"(sequences, layered items, hidden frames) or with f13_ "
+        f"transforms decoded to Pillow's digests (avif_inter/expected.json);"
+        f" {len(i_ref)} refused as Pillow {itr['made_by']['pillow']} "
+        f"refuses them ({', '.join(i_ref)}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    walked = [n for n in i_dec if "frames" in itr["files"][n]]
+    frames = 0
+    for name in walked:
+        with open(os.path.join(AVIF_INTER, name), "rb") as f:
+            blob = f.read()
+        got = []
+        try:
+            for x in avif.sequence_frames(blob, name):
+                got.append(pixel_digest(x))
+        except ValueError:
+            got.append("refused")
+        if got != itr["files"][name]["frames"]:
+            raise RuntimeError(f"{name}: frames differ from Pillow's seek(k)")
+        frames += len(got)
+    log(f"[avif] every frame of the {len(walked)} avif_inter files "
+        f"({frames} frames, sequences walked through one dav1d context a "
+        f"track) equal to Pillow's seek(k) digests; "
+        f"{time.perf_counter() - t0:.1f} s")
     # ---- (b) this host's Pillow on the same files
     paths = {os.path.join(AVIF, n): e.get("sha256", "")
              for n, e in exp["files"].items()}
     for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs),
-                       (AVIF_TOOLS, tools), (AVIF_HIDDEN, hid)):
-        paths.update({os.path.join(folder, n): e.get(
-            "sha256", e.get("pillow_sha256", "")) for n, e in
-            ex["files"].items()})
+                       (AVIF_TOOLS, tools), (AVIF_HIDDEN, hid),
+                       (AVIF_INTER, itr)):
+        paths.update({os.path.join(folder, n): e.get("sha256", "")
+                      for n, e in ex["files"].items()})
     run = subprocess.run([sys.executable, "-c", HOST_FILES_SCRIPT,
                           json.dumps(paths)], capture_output=True, text=True,
                          timeout=300)
@@ -5366,12 +5407,14 @@ def phase_avif(card):
     else:
         host = json.loads(run.stdout.strip().splitlines()[-1])
         got = host["files"]
-        # the inter frame the port refuses: Pillow's digest held; the
-        # f11_ files: reported (dav1d's transform code follows the CPU)
+        # the f11_ and f13_ files: reported (dav1d's transform code
+        # follows the CPU); every other decoded file, the layered items
+        # (libavif's choice of layer) among them: held
         f11 = [n for n in h_dec if n.startswith("f11_")]
-        inter = [n for n in h_ref if "refused" in hid["files"][n]]
-        bad = sorted(n for n in decoded + d_dec + s_dec + t_dec + inter +
-                     [n for n in h_dec if n not in f11]
+        f13 = [n for n in i_dec if n.startswith("f13_")]
+        layered = [n for n in i_dec if n.startswith("l_")]
+        bad = sorted(n for n in decoded + d_dec + s_dec + t_dec +
+                     [n for n in h_dec + i_dec if n not in f11 + f13]
                      if got.get(n) != "same")
         if bad:
             raise RuntimeError(f"this host's Pillow {host['pillow']} "
@@ -5386,17 +5429,21 @@ def phase_avif(card):
             "refuses")]
         tools_ran = [n for n in t_ref if not got.get(n, "").startswith(
             "refuses")]
-        hid_ran = [n for n in h_ref if n not in inter and not got.get(
-            n, "").startswith("refuses")]
-        log(f"[avif] this host's Pillow on the f11_ files (its dav1d CPU "
-            f"flags {flags}, the fixtures' "
+        hid_ran = [n for n in h_ref if not got.get(n, "").startswith(
+            "refuses")]
+        inter_ran = [n for n in i_ref if not got.get(n, "").startswith(
+            "refuses")]
+        log(f"[avif] this host's Pillow on the f11_ and f13_ files (its "
+            f"dav1d CPU flags {flags}, the fixtures' "
             f"{hid['made_by']['cpu_flags']}): "
-            f"{ {n: got.get(n) for n in f11} } (reported); on the hidden "
-            f"frames' {len(h_dec) - len(f11)} decoded files and the inter "
-            f"frame's Pillow digest: the same (held); {len(hid_ran)} of "
-            f"the {len(h_ref) - len(inter)} Pillow "
-            f"{hid['made_by']['pillow']} refuses decoded ({hid_ran}; "
-            f"reported)")
+            f"{ {n: got.get(n) for n in f11 + f13} } (reported); on the "
+            f"hidden frames' {len(h_dec) - len(f11)} and the inter "
+            f"frames' {len(i_dec) - len(f13)} other decoded files, the "
+            f"{len(layered)} layered items among them: the same (held); "
+            f"{len(hid_ran)} of the {len(h_ref)} hidden and "
+            f"{len(inter_ran)} of the {len(i_ref)} inter files Pillow "
+            f"{hid['made_by']['pillow']} refuses decoded ({hid_ran}, "
+            f"{inter_ran}; reported)")
         log(f"[avif] this host's Pillow {host['pillow']} ({host.get('avif')})"
             f" decodes all {len(decoded)} decoded fixtures, the "
             f"{len(d_dec)} decoded 10- and 12-bit ones, the {len(s_dec)} "
@@ -5410,7 +5457,8 @@ def phase_avif(card):
     # ---- (c) cli.l3c enc / dec of the two coded files; (d) cli.test
     total = code_and_test(AVIF, exp, "avif", card)
     for folder, ex in ((AVIF_DEEP, deep), (AVIF_SEQ, seqs),
-                       (AVIF_TOOLS, tools), (AVIF_HIDDEN, hid)):
+                       (AVIF_TOOLS, tools), (AVIF_HIDDEN, hid),
+                       (AVIF_INTER, itr)):
         for k, v in code_and_test(folder, ex, "avif", card,
                                   test=False).items():
             total[k] = total.get(k, 0) + v
@@ -5420,7 +5468,8 @@ def phase_avif(card):
         [(AVIF_DEEP, deep, n) for n in deep["coded"]] + \
         [(AVIF_SEQ, seqs, n) for n in seqs["coded"]] + \
         [(AVIF_TOOLS, tools, n) for n in tools["coded"]] + \
-        [(AVIF_HIDDEN, hid, n) for n in hid["coded"]]
+        [(AVIF_HIDDEN, hid, n) for n in hid["coded"]] + \
+        [(AVIF_INTER, itr, n) for n in itr["coded"]]
     for folder, ex, name in coded:
         e = ex["files"][name]
         blob = open(os.path.join(folder, name), "rb").read()
@@ -5446,7 +5495,8 @@ def phase_avif(card):
             "o_cdef_422.avif", "p_lr_q60_switchable.avif")] + [
                 (AVIF_DEEP, deep, deep["coded"][0]),
                 (AVIF_TOOLS, tools, tools["coded"][0]),
-                (AVIF_HIDDEN, hid, hid["coded"][0])]:
+                (AVIF_HIDDEN, hid, hid["coded"][0]),
+                (AVIF_INTER, itr, itr["coded"][0])]:
         blob = open(os.path.join(folder, name), "rb").read()
         ms = avif_stages_ms(blob, name, ex["files"][name]["sha256"])
         filters = ms["deblock"] + ms["cdef"] + ms["restoration"]
@@ -5458,7 +5508,9 @@ def phase_avif(card):
             f"{filters / ms['walk']:.3f} x the symbol walk; the superres "
             f"upscale {ms.get('superres', 0.0):.1f} ms; film grain "
             f"{ms['grain']:.1f} ms = {100 * ms['grain'] / ms['total']:.1f} "
-            f"%; a grid's assembly {ms['assemble']:.2f} ms | host {cpu}")
+            f"%; a grid's assembly {ms['assemble']:.2f} ms; inter "
+            f"prediction {ms['prediction']:.1f} ms = "
+            f"{100 * ms['prediction'] / ms['total']:.1f} % | host {cpu}")
     log(f"[avif] launches of the cli.l3c and cli.test calls: "
         f"{({k: v for k, v in total.items() if v})} | {card}")
     return total
@@ -5466,54 +5518,70 @@ def phase_avif(card):
 
 def avif_stages_ms(blob, name, digest):
     """An AVIF still's host decode split into the container and headers,
-    the symbol walk (prediction and transforms included; every frame the
-    data holds, a hidden one too), each in-loop filter, film grain
+    the symbol walk (intra and inter prediction and transforms included;
+    every frame the data holds, a hidden one and a lower layer too, each
+    filtered once a later frame predicts from it), the inter prediction
+    within it, each in-loop filter of the frame shown, film grain
     synthesis, a grid's assembly of its cells and the YUV to RGB
     conversion (a grid's stages summed over its cells): ms, fastest of 3
     each, and the fastest total; the pixels held to Pillow's digest (an
     RGB file: no alpha to fold in)."""
     from l3c_torch.data import av1_block, av1_obu, avif, avif_yuv
     best = {}
-    for _ in range(3):
-        t0 = time.perf_counter()
-        m = avif.parse(blob, name)
-        grid = m.grids.get(m.primary)
-        walks = []
-        ctx = av1_obu.context()
-        for item in grid.cells if grid else [m.primary]:
-            data = avif._item_bytes(blob, m, item, name)
-            walks.append(av1_obu.walk_av1(data, name, ctx))
-        t1 = time.perf_counter()
-        for frames, _ in walks:
-            for fr in frames:
-                fr.decoder = av1_block.walk_frame(fr.seq, fr.frame,
-                                                  fr.tiles, fr.data, name)
-        t2 = time.perf_counter()
-        times, cells = {}, []
-        for _, shown in walks:
-            each = {}
-            if shown.planes is None:
-                shown.planes = av1_block.filter_frame(
-                    shown.decoder, shown.seq, shown.frame, times=each)
-            t_grain = time.perf_counter()
-            planes = av1_block.add_grain(shown.planes, shown.seq,
-                                         shown.frame)
-            each["grain"] = time.perf_counter() - t_grain
-            for k, v in each.items():
-                times[k] = times.get(k, 0.0) + v
-            cells.append((planes, shown.seq))
-        t3 = time.perf_counter()
-        planes = avif.assemble(grid, cells, name) if grid else cells[0][0]
-        seq = cells[0][1]
-        t_rgb = time.perf_counter()
-        mc, full_range, cp = avif.colour(m, m.primary, seq)
-        rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
-                              full_range, name, cp, depth=seq.bit_depth)
-        t4 = time.perf_counter()
-        for k, v in (("headers", t1 - t0), ("walk", t2 - t1),
-                     ("assemble", t_rgb - t3), ("yuv_to_rgb", t4 - t_rgb),
-                     ("total", t4 - t0), *times.items()):
-            best[k] = min(best.get(k, math.inf), 1e3 * v)
+    fd = av1_block.FrameDecoder
+    predict = fd._inter_predict
+    spent = [0.0]
+
+    def timed_predict(self, b):
+        t = time.perf_counter()
+        predict(self, b)
+        spent[0] += time.perf_counter() - t
+    fd._inter_predict = timed_predict
+    try:
+        for _ in range(3):
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            m = avif.parse(blob, name)
+            grid = m.grids.get(m.primary)
+            walks = []
+            ctx = av1_obu.context()
+            for item in grid.cells if grid else [m.primary]:
+                data = avif._item_bytes(blob, m, item, name)
+                walks.append(av1_obu.walk_av1(data, name, ctx))
+            t1 = time.perf_counter()
+            for frames, _ in walks:
+                for fr in frames:
+                    av1_block.decode_walked(fr, name)
+            t2 = time.perf_counter()
+            times, cells = {}, []
+            for _, shown in walks:
+                each = {}
+                if shown.planes is None:
+                    shown.planes = av1_block.filter_frame(
+                        shown.decoder, shown.seq, shown.frame, times=each)
+                t_grain = time.perf_counter()
+                planes = av1_block.add_grain(shown.planes, shown.seq,
+                                             shown.frame)
+                each["grain"] = time.perf_counter() - t_grain
+                for k, v in each.items():
+                    times[k] = times.get(k, 0.0) + v
+                cells.append((planes, shown.seq))
+            t3 = time.perf_counter()
+            planes = avif.assemble(grid, cells, name) if grid else \
+                cells[0][0]
+            seq = cells[0][1]
+            t_rgb = time.perf_counter()
+            mc, full_range, cp = avif.colour(m, m.primary, seq)
+            rgb = avif_yuv.to_rgb(planes, seq.ssx, seq.ssy, seq.mono, mc,
+                                  full_range, name, cp, depth=seq.bit_depth)
+            t4 = time.perf_counter()
+            for k, v in (("headers", t1 - t0), ("walk", t2 - t1),
+                         ("prediction", spent[0]),
+                         ("assemble", t_rgb - t3), ("yuv_to_rgb", t4 - t_rgb),
+                         ("total", t4 - t0), *times.items()):
+                best[k] = min(best.get(k, math.inf), 1e3 * v)
+    finally:
+        fd._inter_predict = predict
     if pixel_digest(rgb) != digest:
         raise RuntimeError(f"{name}: the staged decode differs")
     return best

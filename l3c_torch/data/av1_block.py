@@ -29,12 +29,16 @@ from typing import List
 
 import numpy as np
 
-from . import av1_cdef, av1_filmgrain, av1_intrabc, av1_loopfilter
+from . import av1_cdef, av1_filmgrain, av1_inter, av1_intrabc
+from . import av1_loopfilter, av1_mvs
 from . import av1_recon as R
 from . import av1_restoration, av1_superres
 from . import av1_tables as T
-from .av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, RESTORE_WIENER,
-                      damaged, qindex)
+from .av1_mvs import (GLOBAL_GLOBALMV, GLOBALMV, NEAREST_NEARESTMV,
+                      NEARESTMV, NEARMV, NEWMV, NEW_NEWMV, ZERO)
+from .av1_obu import (PRIMARY_REF_NONE, RESTORE_NONE, RESTORE_SGRPROJ,
+                      RESTORE_WIENER, SWITCHABLE, TRANSLATION, damaged,
+                      get_relative_dist, qindex)
 from .av1_symbol import SymbolReader, cdf_copy
 
 # block sizes: (width, height) in 4-sample units
@@ -42,7 +46,9 @@ BLOCK_WH = ((1, 1), (1, 2), (2, 1), (2, 2), (2, 4), (4, 2), (4, 4), (4, 8),
             (8, 4), (8, 8), (8, 16), (16, 8), (16, 16), (16, 32), (32, 16),
             (32, 32), (1, 4), (4, 1), (2, 8), (8, 2), (4, 16), (16, 4))
 BLOCK_BY_WH = {wh: i for i, wh in enumerate(BLOCK_WH)}
-BLOCK_4X4, BLOCK_8X8, BLOCK_64X64, BLOCK_128X128 = 0, 3, 12, 15
+_BW4 = np.array([w for w, _ in BLOCK_WH], np.int64)
+_BH4 = np.array([h for _, h in BLOCK_WH], np.int64)
+BLOCK_4X4, BLOCK_8X8, BLOCK_32X32, BLOCK_64X64, BLOCK_128X128 = 0, 3, 9, 12, 15
 # transform sizes: (width, height) in samples
 TX_WH = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4),
          (8, 16), (16, 8), (16, 32), (32, 16), (32, 64), (64, 32), (4, 16),
@@ -83,6 +89,22 @@ MAX_TX_DEPTH = tuple(_depth(t) for t in MAX_TX_RECT)
 PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT = 0, 1, 2, 3
 HORZ_A, HORZ_B, VERT_A, VERT_B, HORZ_4, VERT_4 = 4, 5, 6, 7, 8, 9
 INTRA_MODE_CONTEXT = (0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0)
+SIZE_GROUP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 0, 0, 1, 1, 2,
+              2)
+# the sizes with wedges (Wedge_Bits 4): 8x8 .. 32x32, 8x32, 32x8
+WEDGE_SIZES = frozenset((3, 4, 5, 6, 7, 8, 9, 18, 19))
+COMPOUND_MODE_CTX = ((0, 1, 1, 1, 1), (1, 2, 3, 4, 4), (4, 4, 5, 6, 7))
+SIMPLE, OBMC, LOCALWARP = 0, 1, 2
+SEG_REF_FRAME, SEG_SKIP, SEG_GLOBALMV = 5, 6, 7
+LAST, LAST2, LAST3, GOLDEN, BWDREF, ALTREF2, ALTREF = 1, 2, 3, 4, 5, 6, 7
+II_MODE = (0, 1, 2, 9)              # II_DC, II_V, II_H, II_SMOOTH -> intra
+_HAS_NEAR = frozenset((NEARMV, 18, 21, 22))     # NEAR_NEAR, NEAR_NEW, NEW_NEAR
+# get_mode: each reference's single mode of a (compound) mode
+_MODE_OF = {NEARESTMV: (NEARESTMV,), NEARMV: (NEARMV,), GLOBALMV: (GLOBALMV,),
+            NEWMV: (NEWMV,), 17: (NEARESTMV, NEARESTMV), 18: (NEARMV, NEARMV),
+            19: (NEARESTMV, NEWMV), 20: (NEWMV, NEARESTMV),
+            21: (NEARMV, NEWMV), 22: (NEWMV, NEARMV),
+            23: (GLOBALMV, GLOBALMV), 24: (NEWMV, NEWMV)}
 # tx types
 DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST = 0, 1, 2, 3
 IDTX, V_DCT, H_DCT = 9, 10, 11
@@ -161,7 +183,10 @@ def _tx_class(t):
 
 
 class _Cdfs:
-    """The frame's initial CDFs, copied for a tile."""
+    """The frame's initial CDFs (the defaults, the coefficients' by
+    base_q_idx), copied for a tile; `copy` gives a frame's CDFs to keep in
+    a slot (the adaptation counters cleared, as dav1d keeps them) or to
+    start a tile or a later frame from."""
 
     def __init__(self, base_q_idx: int):
         C = T.CDFS
@@ -210,10 +235,55 @@ class _Cdfs:
         self.intrabc = get("INTRABC")[0]
         self.txfm_split = get("TXFM_SPLIT")
         self.inter_tx = [get(f"INTER_TX_SET{k}") for k in (1, 2, 3)]
-        self.mv_joint = get("MV_JOINT")[0]
-        self.mv_comp = [SimpleNamespace(
-            cls=get("MV_CLASS")[0], class0=get("MV_CLASS0")[0],
-            sign=get("MV_SIGN")[0], bits=get("MV_BITS")) for _ in (0, 1)]
+        # the MV contexts: 0 for inter blocks, 1 (MV_INTRABC_CONTEXT)
+        # for intra block copy
+        self.mv = [SimpleNamespace(joint=get("MV_JOINT")[0], comp=[
+            SimpleNamespace(
+                cls=get("MV_CLASS")[0], class0=get("MV_CLASS0")[0],
+                sign=get("MV_SIGN")[0], bits=get("MV_BITS"),
+                class0_fr=get("MV_CLASS0_FR"), fr=get("MV_FR")[0],
+                class0_hp=get("MV_CLASS0_HP")[0], hp=get("MV_HP")[0])
+            for _ in (0, 1)]) for _ in (0, 1)]
+        # inter frames
+        self.y_mode = get("Y_MODE")
+        self.is_inter = get("IS_INTER")
+        self.skip_mode = get("SKIP_MODE")
+        self.seg_pred = get("SEGMENT_PRED")
+        self.comp_mode = get("COMP_MODE")
+        self.comp_ref_type = get("COMP_REF_TYPE")
+        self.uni_comp_ref = get("UNI_COMP_REF")
+        self.comp_ref = get("COMP_REF")
+        self.comp_bwd_ref = get("COMP_BWD_REF")
+        self.single_ref = get("SINGLE_REF")
+        self.new_mv = get("NEW_MV")
+        self.zero_mv = get("ZERO_MV")
+        self.ref_mv = get("REF_MV")
+        self.drl = get("DRL")
+        self.compound_mode = get("COMPOUND_MODE")
+        self.interintra = get("INTERINTRA")
+        self.interintra_mode = get("INTERINTRA_MODE")
+        self.wedge_interintra = get("WEDGE_INTERINTRA")
+        self.wedge_idx = get("WEDGE_IDX")
+        self.compound_type = get("COMPOUND_TYPE")
+        self.comp_group_idx = get("COMP_GROUP_IDX")
+        self.compound_idx = get("COMPOUND_IDX")
+        self.motion_mode = get("MOTION_MODE")
+        self.obmc = get("OBMC")
+        self.interp = get("SWITCHABLE_INTERP")
+
+    def copy(self) -> "_Cdfs":
+        out = object.__new__(_Cdfs)
+        out.__dict__ = {k: _clone(v) for k, v in vars(self).items()}
+        return out
+
+
+def _clone(x):
+    """A deep copy of CDF lists, each counter cleared."""
+    if isinstance(x, SimpleNamespace):
+        return SimpleNamespace(**{k: _clone(v) for k, v in vars(x).items()})
+    if x and isinstance(x[0], int):
+        return x[:-1] + [0]
+    return [_clone(v) for v in x]
 
 
 def _nest(lst, shape):
@@ -252,10 +322,17 @@ class FrameDecoder:
         self.pal_sizes = [[[0] * cols for _ in range(rows)] for _ in (0, 1)]
         self.pal_colors = [[[None] * cols for _ in range(rows)]
                            for _ in (0, 1)]
-        # intra block copy: which blocks copy, their DVs, what is decoded
+        # inter blocks (intra block copy's too: their reference is the
+        # intra frame, their DV the first MV), what is decoded
         self.is_inter = [[0] * cols for _ in range(rows)]
-        self.dvs = [[(0, 0)] * cols for _ in range(rows)]
+        self.ref_frames = [[(0, -1)] * cols for _ in range(rows)]
+        self.mvs = [[(ZERO, ZERO)] * cols for _ in range(rows)]
         self.written = [[0] * cols for _ in range(rows)]
+        self.skip_modes = [[0] * cols for _ in range(rows)]
+        self.comp_groups = [[0] * cols for _ in range(rows)]
+        self.compound_idxs = [[1] * cols for _ in range(rows)]
+        self.interps = [[(0, 0)] * cols for _ in range(rows)]
+        self._setup_refs(seq, f)
         self.tx_types = {}
         self.sb4 = 32 if seq.sb128 else 16
         self.sb_size = BLOCK_128X128 if seq.sb128 else BLOCK_64X64
@@ -281,11 +358,51 @@ class FrameDecoder:
                 wiener=np.zeros((n_r, n_c, 2, 3), np.int64),
                 sgr=np.zeros((n_r, n_c, 3), np.int64)))
 
+    def _setup_refs(self, seq, f):
+        """What a frame takes from its slots: its initial CDFs (the
+        primary reference frame's, else the defaults), the previous
+        segment map, the projected motion field, the references' planes
+        and scales, global motion's shear."""
+        prf = f.primary_ref_frame
+        prev = f.refs[f.ref_frame_idx[prf]] if prf != PRIMARY_REF_NONE \
+            else None
+        self.prev_cdfs = None if prev is None else prev.cdfs
+        self.saved_cdfs = self._initial_cdfs()
+        self.prev_seg = None
+        if f.seg_enabled and prev is not None and \
+                prev.frame.mi_rows == f.mi_rows and \
+                prev.frame.mi_cols == f.mi_cols:
+            self.prev_seg = prev.seg_map
+        self.tpl = av1_mvs.motion_field(seq, f) if f.use_ref_frame_mvs \
+            else None
+        self.ref_slots = [None] * 8
+        self.scales = [None] * 8
+        self.gm_warp = [None] * 8
+        if f.intra:
+            return
+        for ref in range(1, 8):
+            slot = f.refs[f.ref_frame_idx[ref - 1]]
+            planes_of(slot)
+            self.ref_slots[ref] = slot
+            self.scales[ref] = av1_inter.scale_of(
+                slot.frame.upscaled_width, slot.frame.height, f.width,
+                f.height)
+            if f.gm_type[ref] > TRANSLATION:
+                sh = av1_inter.setup_shear(f.gm_params[ref])
+                if sh[0] and not f.force_integer_mv and \
+                        self.scales[ref] == (1 << 14, 1 << 14):
+                    self.gm_warp[ref] = sh
+
+    def _initial_cdfs(self):
+        if self.prev_cdfs is None:
+            return _Cdfs(self.f.base_q_idx)
+        return self.prev_cdfs.copy()
+
     # ------------------------------------------------------------- tiles
     def decode_tile(self, data, start, end, tile_row, tile_col):
         f = self.f
         self.r = SymbolReader(data, start, end, f.disable_cdf_update)
-        self.cdf = _Cdfs(f.base_q_idx)
+        self.cdf = self._initial_cdfs()
         self.row_start = f.mi_row_starts[tile_row]
         self.row_end = f.mi_row_starts[tile_row + 1]
         self.col_start = f.mi_col_starts[tile_col]
@@ -299,10 +416,12 @@ class FrameDecoder:
         n = self.mi_cols + 32
         self.above_level = [[0] * n for _ in range(3)]
         self.above_dc = [[0] * n for _ in range(3)]
+        self.above_seg_pred = [0] * n
         for r in range(self.row_start, self.row_end, self.sb4):
             m = self.mi_rows + 32
             self.left_level = [[0] * m for _ in range(3)]
             self.left_dc = [[0] * m for _ in range(3)]
+            self.left_seg_pred = [0] * m
             for c in range(self.col_start, self.col_end, self.sb4):
                 self.read_deltas = f.delta_q_present
                 self._clear_decoded(r, c)
@@ -312,6 +431,9 @@ class FrameDecoder:
             # the specification's bound on SymbolMaxBits, which dav1d
             # enforces as it ends a tile's superblock row
             raise damaged(self.path, "a tile reads past its end")
+        if tile_row * f.tile_cols + tile_col == f.context_update_tile_id \
+                and not f.disable_frame_end_update_cdf:
+            self.saved_cdfs = self.cdf.copy()
 
     def _clear_decoded(self, r, c):
         sb4 = self.sb4
@@ -518,7 +640,56 @@ class FrameDecoder:
                 b.avail_lc = self.inside(r, c - 2)
         else:
             b.avail_uc = b.avail_lc = False
-        # intra_frame_mode_info
+        b.pal_y = b.pal_uv = 0
+        b.pal_colors = [None, None, None]
+        b.ref_frame, b.mv = (0, -1), (ZERO, ZERO)
+        b.skip_mode = b.motion_mode = b.interintra = 0
+        b.comp_group_idx, b.compound_idx = 0, 1
+        b.interp = (0, 0)
+        if f.intra:
+            self._intra_frame_mode_info(b)
+        else:
+            self._inter_frame_mode_info(b)
+        self._palette_tokens(b)
+        self._read_tx_size(b)
+        if b.skip:
+            self._reset_block_context(b)
+        for y in range(bh4):
+            ry = r + y
+            for x in range(bw4):
+                cx = c + x
+                self.y_mode[ry][cx] = b.y_mode
+                if b.has_chroma:
+                    self.uv_mode[ry][cx] = b.uv_mode
+                self.mi_size[ry][cx] = bsize
+                self.skips[ry][cx] = b.skip
+                self.seg_ids[ry][cx] = b.seg
+                if not b.var_tx:
+                    self.tx_sizes[ry][cx] = b.tx_size
+                self.pal_sizes[0][ry][cx] = b.pal_y
+                self.pal_sizes[1][ry][cx] = b.pal_uv
+                self.pal_colors[0][ry][cx] = b.pal_colors[0]
+                self.pal_colors[1][ry][cx] = b.pal_colors[1]
+                self.is_inter[ry][cx] = b.is_inter
+                self.ref_frames[ry][cx] = b.ref_frame
+                self.mvs[ry][cx] = b.mv
+                self.skip_modes[ry][cx] = b.skip_mode
+                self.comp_groups[ry][cx] = b.comp_group_idx
+                self.compound_idxs[ry][cx] = b.compound_idx
+                self.interps[ry][cx] = b.interp
+                self.written[ry][cx] = 1
+        if self.lf_ids is not None:
+            for ry in range(r, r + bh4):
+                self.lf_ids[ry][c:c + bw4] = [self.lf_id] * bw4
+        if b.is_inter and f.intra:
+            self._intrabc_predict(b)
+        elif b.is_inter:
+            self._inter_predict(b)
+        self._residual(b)
+
+    def _intra_frame_mode_info(self, b):
+        f, rd, cdf = self.f, self.r, self.cdf
+        r, c = b.r, b.c
         b.seg = 0
         b.skip = 0
         if f.seg_id_pre_skip:
@@ -543,35 +714,589 @@ class FrameDecoder:
             self._intrabc_info(b)
         else:
             self._intra_info(b)
-        self._palette_tokens(b)
-        self._read_tx_size(b)
-        if b.skip:
-            self._reset_block_context(b)
-        for y in range(bh4):
-            ry = r + y
-            for x in range(bw4):
-                cx = c + x
-                self.y_mode[ry][cx] = b.y_mode
-                if b.has_chroma:
-                    self.uv_mode[ry][cx] = b.uv_mode
-                self.mi_size[ry][cx] = bsize
-                self.skips[ry][cx] = b.skip
-                self.seg_ids[ry][cx] = b.seg
-                if not b.var_tx:
-                    self.tx_sizes[ry][cx] = b.tx_size
-                self.pal_sizes[0][ry][cx] = b.pal_y
-                self.pal_sizes[1][ry][cx] = b.pal_uv
-                self.pal_colors[0][ry][cx] = b.pal_colors[0]
-                self.pal_colors[1][ry][cx] = b.pal_colors[1]
-                self.is_inter[ry][cx] = b.is_inter
-                self.dvs[ry][cx] = b.dv
-                self.written[ry][cx] = 1
-        if self.lf_ids is not None:
-            for ry in range(r, r + bh4):
-                self.lf_ids[ry][c:c + bw4] = [self.lf_id] * bw4
+
+    # ------------------------------------------------------ inter frames
+    def _seg_feat(self, b, j):
+        f = self.f
+        return f.seg_enabled and f.seg_feature[b.seg][j] is not None
+
+    def _inter_frame_mode_info(self, b):
+        """inter_frame_mode_info: the segment id (before or after skip,
+        spatially or temporally predicted), skip mode, skip, CDEF and
+        delta parameters, is_inter, then the intra or inter block's
+        modes."""
+        f, rd, cdf = self.f, self.r, self.cdf
+        r, c = b.r, b.c
+        bw4, bh4 = BLOCK_WH[b.size]
+        b.skip = 0
+        self._inter_segment_id(b, 1)
+        if f.skip_mode_present and min(bw4, bh4) >= 2 and not (
+                self._seg_feat(b, SEG_SKIP) or
+                self._seg_feat(b, SEG_REF_FRAME) or
+                self._seg_feat(b, SEG_GLOBALMV)):
+            ctx = (self.skip_modes[r - 1][c] if b.avail_u else 0) + \
+                (self.skip_modes[r][c - 1] if b.avail_l else 0)
+            b.skip_mode = rd.symbol(cdf.skip_mode[ctx])
+        if b.skip_mode:
+            b.skip = 1
+        elif f.seg_id_pre_skip and self._seg_feat(b, SEG_SKIP):
+            b.skip = 1
+        else:
+            ctx = (self.skips[r - 1][c] if b.avail_u else 0) + \
+                (self.skips[r][c - 1] if b.avail_l else 0)
+            b.skip = rd.symbol(cdf.skip[ctx])
+        if not f.seg_id_pre_skip:
+            self._inter_segment_id(b, 0)
+        b.lossless = f.lossless[b.seg]
+        if not (b.skip or f.coded_lossless or not self.s.enable_cdef):
+            self._read_cdef(b)
+        self._delta_q_lf(b)
+        self.read_deltas = 0
+        au = self.ref_frames[r - 1][c] if b.avail_u else None
+        al = self.ref_frames[r][c - 1] if b.avail_l else None
+        b.nb = (au, al)
+        if b.skip_mode:
+            b.is_inter = 1
+        elif self._seg_feat(b, SEG_REF_FRAME):
+            b.is_inter = int(f.seg_feature[b.seg][SEG_REF_FRAME] != 0)
+        elif self._seg_feat(b, SEG_GLOBALMV):
+            b.is_inter = 1
+        else:
+            ai = au is not None and au[0] <= 0
+            li = al is not None and al[0] <= 0
+            if au is not None and al is not None:
+                ctx = 3 if ai and li else int(ai or li)
+            elif au is not None or al is not None:
+                ctx = 2 * int(ai if au is not None else li)
+            else:
+                ctx = 0
+            b.is_inter = rd.symbol(cdf.is_inter[ctx])
         if b.is_inter:
-            self._intrabc_predict(b)
-        self._residual(b)
+            self._inter_block_info(b)
+        else:
+            self._intra_info(b)
+
+    def _inter_segment_id(self, b, pre_skip):
+        f = self.f
+        if not f.seg_enabled:
+            b.seg = 0
+            return
+        bw4, bh4 = BLOCK_WH[b.size]
+        if self.prev_seg is None:
+            pred = 0
+        else:
+            pred = int(self.prev_seg[b.r:min(self.mi_rows, b.r + bh4),
+                                     b.c:min(self.mi_cols, b.c + bw4)].min())
+        if not f.seg_update_map:
+            b.seg = pred
+            return
+        if pre_skip and not f.seg_id_pre_skip:
+            b.seg = 0
+            return
+        if not pre_skip and b.skip:
+            self._seg_pred_ctx(b, 0)
+            b.seg = self._segment_id(b)
+            return
+        if f.seg_temporal_update:
+            ctx = self.left_seg_pred[b.r] + self.above_seg_pred[b.c]
+            flag = self.r.symbol(self.cdf.seg_pred[ctx])
+            b.seg = pred if flag else self._segment_id(b)
+            self._seg_pred_ctx(b, flag)
+        else:
+            b.seg = self._segment_id(b)
+
+    def _seg_pred_ctx(self, b, flag):
+        bw4, bh4 = BLOCK_WH[b.size]
+        self.above_seg_pred[b.c:b.c + bw4] = [flag] * bw4
+        self.left_seg_pred[b.r:b.r + bh4] = [flag] * bh4
+
+    def _count_refs(self, b):
+        n = [0] * 8
+        for nb in b.nb:
+            if nb is not None and nb[0] > 0:
+                n[nb[0]] += 1
+                if nb[1] > 0:
+                    n[nb[1]] += 1
+        return n
+
+    def _read_ref_frames(self, b):
+        """read_ref_frames: skip mode's pair, a segment's reference, or
+        single / compound (uni- or bidirectional) references read with
+        their neighbours' counts as contexts."""
+        f, rd, cdf = self.f, self.r, self.cdf
+        if b.skip_mode:
+            return f.skip_mode_frame
+        if self._seg_feat(b, SEG_REF_FRAME):
+            return f.seg_feature[b.seg][SEG_REF_FRAME], -1
+        if self._seg_feat(b, SEG_SKIP) or self._seg_feat(b, SEG_GLOBALMV):
+            return LAST, -1
+        bw4, bh4 = BLOCK_WH[b.size]
+        n = self._count_refs(b)
+
+        def cc(a, bb):
+            return 0 if a < bb else 1 if a == bb else 2
+        comp = 0
+        if f.reference_select and min(bw4, bh4) >= 2:
+            comp = rd.symbol(cdf.comp_mode[self._comp_mode_ctx(b)])
+        if comp:
+            if rd.symbol(cdf.comp_ref_type[self._comp_ref_type_ctx(b)]):
+                ctx = cc(n[1] + n[2], n[3] + n[4])
+                if not rd.symbol(cdf.comp_ref[ctx][0]):
+                    r0 = LAST2 if rd.symbol(
+                        cdf.comp_ref[cc(n[1], n[2])][1]) else LAST
+                else:
+                    r0 = GOLDEN if rd.symbol(
+                        cdf.comp_ref[cc(n[3], n[4])][2]) else LAST3
+                if not rd.symbol(cdf.comp_bwd_ref[cc(n[5] + n[6],
+                                                     n[7])][0]):
+                    r1 = ALTREF2 if rd.symbol(
+                        cdf.comp_bwd_ref[cc(n[5], n[6])][1]) else BWDREF
+                else:
+                    r1 = ALTREF
+                return r0, r1
+            ctx = cc(n[1] + n[2] + n[3] + n[4], n[5] + n[6] + n[7])
+            if rd.symbol(cdf.uni_comp_ref[ctx][0]):
+                return BWDREF, ALTREF
+            if rd.symbol(cdf.uni_comp_ref[cc(n[2], n[3] + n[4])][1]):
+                if rd.symbol(cdf.uni_comp_ref[cc(n[3], n[4])][2]):
+                    return LAST, GOLDEN
+                return LAST, LAST3
+            return LAST, LAST2
+        if rd.symbol(cdf.single_ref[cc(n[1] + n[2] + n[3] + n[4],
+                                       n[5] + n[6] + n[7])][0]):
+            if not rd.symbol(cdf.single_ref[cc(n[5] + n[6], n[7])][1]):
+                return (ALTREF2 if rd.symbol(cdf.single_ref[cc(
+                    n[5], n[6])][5]) else BWDREF), -1
+            return ALTREF, -1
+        if rd.symbol(cdf.single_ref[cc(n[1] + n[2], n[3] + n[4])][2]):
+            return (GOLDEN if rd.symbol(cdf.single_ref[cc(
+                n[3], n[4])][4]) else LAST3), -1
+        return (LAST2 if rd.symbol(cdf.single_ref[cc(n[1], n[2])][3])
+                else LAST), -1
+
+    def _comp_mode_ctx(self, b):
+        au, al = b.nb
+
+        def bwd(rf):
+            return int(rf[0] >= BWDREF)
+        if au is not None and al is not None:
+            if au[1] <= 0 and al[1] <= 0:
+                return bwd(au) ^ bwd(al)
+            if au[1] <= 0:
+                return 2 + int(bwd(au) or au[0] <= 0)
+            if al[1] <= 0:
+                return 2 + int(bwd(al) or al[0] <= 0)
+            return 4
+        e = au if au is not None else al
+        if e is not None:
+            return bwd(e) if e[1] <= 0 else 3
+        return 1
+
+    def _comp_ref_type_ctx(self, b):
+        au, al = b.nb
+
+        def uni(rf):
+            return rf[1] > 0 and (rf[0] >= BWDREF) == (rf[1] >= BWDREF)
+
+        def same(a, bb):
+            return int((a[0] >= BWDREF) == (bb[0] >= BWDREF))
+        if au is not None and al is not None:
+            ai, li = au[0] <= 0, al[0] <= 0
+            if ai and li:
+                return 2
+            if ai or li:
+                e = al if ai else au
+                return 2 if e[1] <= 0 else 1 + 2 * uni(e)
+            asg, lsg = au[1] <= 0, al[1] <= 0
+            if asg and lsg:
+                return 1 + 2 * same(au, al)
+            if asg or lsg:
+                if not uni(al if asg else au):
+                    return 1
+                return 3 + same(au, al)
+            ua, ul = uni(au), uni(al)
+            if not ua and not ul:
+                return 0
+            if not ua or not ul:
+                return 2
+            return 3 + int((au[0] == BWDREF) == (al[0] == BWDREF))
+        e = au if au is not None else al
+        if e is not None:
+            if e[0] <= 0 or e[1] <= 0:
+                return 2
+            return 4 * uni(e)
+        return 2
+
+    def _inter_block_info(self, b):
+        """inter_block_mode_info: references, the MV stack, the mode, the
+        dynamic reference list index, the MVs (read_mv for a new one),
+        inter-intra, the motion mode (OBMC, local warp with its samples),
+        the compound type and the interpolation filters."""
+        f, s, rd, cdf = self.f, self.s, self.r, self.cdf
+        bw4, bh4 = BLOCK_WH[b.size]
+        b.y_mode = NEARESTMV
+        b.uv_mode = R.DC_PRED
+        b.angle_y = b.angle_uv = 0
+        b.cfl_u = b.cfl_v = 0
+        b.filter_intra = -1
+        b.dv = (0, 0)
+        b.ref_frame = self._read_ref_frames(b)
+        comp = int(b.ref_frame[1] > 0)
+        st = av1_mvs.find_mv_stack(self, b, b.ref_frame, BLOCK_WH)
+        if b.skip_mode:
+            b.y_mode = NEAREST_NEARESTMV
+        elif self._seg_feat(b, SEG_SKIP) or self._seg_feat(b, SEG_GLOBALMV):
+            b.y_mode = GLOBALMV
+        elif comp:
+            ctx = COMPOUND_MODE_CTX[st.ref_ctx >> 1][min(st.new_ctx, 4)]
+            b.y_mode = NEAREST_NEARESTMV + rd.symbol(cdf.compound_mode[ctx])
+        elif rd.symbol(cdf.new_mv[st.new_ctx]) == 0:
+            b.y_mode = NEWMV
+        elif rd.symbol(cdf.zero_mv[st.zero_ctx]) == 0:
+            b.y_mode = GLOBALMV
+        else:
+            b.y_mode = NEARMV if rd.symbol(cdf.ref_mv[st.ref_ctx]) else \
+                NEARESTMV
+        ref_idx = 0
+        if b.y_mode in (NEWMV, NEW_NEWMV):
+            for idx in (0, 1):
+                if st.num > idx + 1:
+                    if not rd.symbol(cdf.drl[st.drl_ctx[idx]]):
+                        ref_idx = idx
+                        break
+                    ref_idx = idx + 1
+        elif b.y_mode in _HAS_NEAR:
+            ref_idx = 1
+            for idx in (1, 2):
+                if st.num > idx + 1:
+                    if not rd.symbol(cdf.drl[st.drl_ctx[idx]]):
+                        ref_idx = idx
+                        break
+                    ref_idx = idx + 1
+        mv = []
+        for i in range(1 + comp):
+            mode = _MODE_OF[b.y_mode][i]
+            if mode == GLOBALMV:
+                pred = st.gmv[i]
+            else:
+                pos = 0 if mode == NEARESTMV else ref_idx
+                if mode == NEWMV and st.num <= 1:
+                    pos = 0
+                pred = st.mvs[pos][i]
+            if mode == NEWMV:
+                pred = av1_mvs.read_mv(rd, cdf.mv[0], pred,
+                                       f.allow_high_precision_mv,
+                                       f.force_integer_mv)
+            mv.append(pred)
+        b.mv = (mv[0], mv[1] if comp else ZERO)
+        # inter-intra
+        if not b.skip_mode and s.enable_interintra_compound and not comp \
+                and BLOCK_8X8 <= b.size <= BLOCK_32X32:
+            grp = SIZE_GROUP[b.size]
+            b.interintra = rd.symbol(cdf.interintra[grp])
+            if b.interintra:
+                b.ii_mode = rd.symbol(cdf.interintra_mode[grp])
+                b.ref_frame = (b.ref_frame[0], 0)
+                b.wedge_ii = rd.symbol(cdf.wedge_interintra[b.size])
+                if b.wedge_ii:
+                    b.wedge_index = rd.symbol(cdf.wedge_idx[b.size])
+                    b.wedge_sign = 0
+        # motion mode
+        b.motion_mode = SIMPLE
+        if not b.skip_mode and f.is_motion_mode_switchable and \
+                min(bw4, bh4) >= 2 and not (
+                    not f.force_integer_mv and
+                    b.y_mode in (GLOBALMV, GLOBAL_GLOBALMV) and
+                    f.gm_type[b.ref_frame[0]] > TRANSLATION) and \
+                not comp and b.ref_frame[1] != 0 and self._overlappable(b):
+            b.samples = av1_mvs.warp_samples(self, b, b.mv[0], BLOCK_WH)
+            if f.force_integer_mv or not b.samples or \
+                    not f.allow_warped_motion or \
+                    self.scales[b.ref_frame[0]] != (1 << 14, 1 << 14):
+                b.motion_mode = OBMC if rd.symbol(cdf.obmc[b.size]) else \
+                    SIMPLE
+            else:
+                b.motion_mode = rd.symbol(cdf.motion_mode[b.size])
+        # compound type
+        b.compound_type = av1_inter.COMPOUND_AVERAGE
+        if b.skip_mode:
+            pass
+        elif comp:
+            if s.enable_masked_compound:
+                b.comp_group_idx = rd.symbol(cdf.comp_group_idx[
+                    self._comp_group_ctx(b)])
+            if b.comp_group_idx == 0:
+                if s.enable_jnt_comp:
+                    b.compound_idx = rd.symbol(cdf.compound_idx[
+                        self._compound_idx_ctx(b)])
+                    if not b.compound_idx:
+                        b.compound_type = av1_inter.COMPOUND_DISTANCE
+            elif b.size not in WEDGE_SIZES:
+                b.compound_type = av1_inter.COMPOUND_DIFFWTD
+            else:
+                b.compound_type = rd.symbol(cdf.compound_type[b.size])
+            if b.compound_type == av1_inter.COMPOUND_WEDGE:
+                b.wedge_index = rd.symbol(cdf.wedge_idx[b.size])
+                b.wedge_sign = rd.literal(1)
+            elif b.compound_type == av1_inter.COMPOUND_DIFFWTD:
+                b.mask_type = rd.literal(1)
+        elif b.interintra:
+            b.compound_type = av1_inter.COMPOUND_WEDGE if b.wedge_ii \
+                else av1_inter.COMPOUND_INTRA
+        # interpolation filters
+        if f.interpolation_filter == SWITCHABLE:
+            filt = [0, 0]
+            for d in range(2 if s.enable_dual_filter else 1):
+                if self._needs_interp(b):
+                    filt[d] = rd.symbol(cdf.interp[self._interp_ctx(b, d)])
+            if not s.enable_dual_filter:
+                filt[1] = filt[0]
+            b.interp = tuple(filt)
+        else:
+            b.interp = (f.interpolation_filter, f.interpolation_filter)
+
+    def _overlappable(self, b):
+        """has_overlappable_candidates: an inter block above or left."""
+        bw4, bh4 = BLOCK_WH[b.size]
+        if b.avail_u:
+            for x4 in range(b.c, min(self.mi_cols, b.c + bw4), 2):
+                x5 = min(x4 | 1, self.mi_cols - 1)
+                if self.ref_frames[b.r - 1][x5][0] > 0:
+                    return True
+        if b.avail_l:
+            for y4 in range(b.r, min(self.mi_rows, b.r + bh4), 2):
+                y5 = min(y4 | 1, self.mi_rows - 1)
+                if self.ref_frames[y5][b.c - 1][0] > 0:
+                    return True
+        return False
+
+    def _comp_group_ctx(self, b):
+        ctx = 0
+        for nb, (rr, cc) in zip(b.nb, ((b.r - 1, b.c), (b.r, b.c - 1))):
+            if nb is None:
+                continue
+            if nb[1] > 0:
+                ctx += self.comp_groups[rr][cc]
+            elif nb[0] == ALTREF:
+                ctx += 3
+        return min(5, ctx)
+
+    def _compound_idx_ctx(self, b):
+        f = self.f
+        fwd = abs(get_relative_dist(self.s, f.order_hints[b.ref_frame[1]],
+                                    f.order_hint))
+        bck = abs(get_relative_dist(self.s, f.order_hint,
+                                    f.order_hints[b.ref_frame[0]]))
+        ctx = 3 * int(fwd == bck)
+        for nb, (rr, cc) in zip(b.nb, ((b.r - 1, b.c), (b.r, b.c - 1))):
+            if nb is None:
+                continue
+            if nb[1] > 0:
+                ctx += self.compound_idxs[rr][cc]
+            elif nb[0] == ALTREF:
+                ctx += 1
+        return ctx
+
+    def _needs_interp(self, b):
+        f = self.f
+        bw4, bh4 = BLOCK_WH[b.size]
+        large = min(bw4, bh4) >= 2
+        if b.skip_mode or b.motion_mode == LOCALWARP:
+            return False
+        if large and b.y_mode == GLOBALMV:
+            return f.gm_type[b.ref_frame[0]] == TRANSLATION
+        if large and b.y_mode == GLOBAL_GLOBALMV:
+            return f.gm_type[b.ref_frame[0]] == TRANSLATION or \
+                f.gm_type[b.ref_frame[1]] == TRANSLATION
+        return True
+
+    def _interp_ctx(self, b, d):
+        ctx = ((d & 1) * 2 + int(b.ref_frame[1] > 0)) * 4
+        ref = b.ref_frame[0]
+        types = []
+        for nb, (rr, cc) in zip((b.nb[1], b.nb[0]),
+                                ((b.r, b.c - 1), (b.r - 1, b.c))):
+            t = 3
+            if nb is not None and (nb[0] == ref or nb[1] == ref):
+                t = self.interps[rr][cc][d]
+            types.append(t)
+        lt, at = types
+        if lt == at:
+            return ctx + lt
+        if lt == 3:
+            return ctx + at
+        if at == 3:
+            return ctx + lt
+        return ctx + 3
+
+    # ------------------------------------------------- inter prediction
+    def _ref_pred(self, p, x, y, w, h, ref, mv, filt, comp, warp=None):
+        """One reference's prediction of a plane block: warped where
+        `warp` (parameters, shear) is given, else by its MV."""
+        sx = self.ssx if p else 0
+        sy = self.ssy if p else 0
+        slot = self.ref_slots[ref]
+        plane = slot.planes[p]
+        wh = (slot.frame.upscaled_width, slot.frame.height)
+        if warp is not None:
+            return av1_inter.warp(plane, x, y, w, h, warp[0], warp[1], sx,
+                                  sy, wh, self.bd, comp)
+        return av1_inter.predict(plane, x, y, w, h, mv, sx, sy,
+                                 self.scales[ref], wh, filt, self.bd, comp)
+
+    def _warp_of(self, b, ref, w, h):
+        """The warp an 8 x 8 or larger plane block takes: local warp's
+        where its fit is valid, global motion's for a global mode."""
+        if w < 8 or h < 8 or self.f.force_integer_mv:
+            return None
+        if b.motion_mode == LOCALWARP and b.local is not None:
+            return b.local
+        if b.y_mode in (GLOBALMV, GLOBAL_GLOBALMV) and \
+                self.gm_warp[ref] is not None:
+            return self.f.gm_params[ref], self.gm_warp[ref]
+        return None
+
+    def _inter_predict(self, b):
+        """compute_prediction of an inter block: each plane predicted
+        (a subsampled block's chroma from each of the blocks it covers,
+        unless one is intra), then combined (compound average, distance
+        weights, wedge or difference-weighted mask), blended with its
+        intra prediction (inter-intra) and with its neighbours' (OBMC)."""
+        bd = self.bd
+        bw4, bh4 = BLOCK_WH[b.size]
+        comp = b.ref_frame[1] > 0
+        b.local = None
+        if b.motion_mode == LOCALWARP:
+            p = av1_inter.warp_estimate(b.samples, b.r, b.c, bw4, bh4,
+                                        b.mv[0])
+            if p is not None:
+                sh = av1_inter.setup_shear(p)
+                if sh[0]:
+                    b.local = (p, sh)
+        mask = None
+        for p in range(1 + 2 * b.has_chroma):
+            sx = self.ssx if p else 0
+            sy = self.ssy if p else 0
+            pw4, ph4 = BLOCK_WH[self._plane_bsize(b.size, p)]
+            pw, ph = pw4 * 4, ph4 * 4
+            bx, by = (b.c >> sx) * 4, (b.r >> sy) * 4
+            cr, cc = (b.r >> sy) << sy, (b.c >> sx) << sx
+            step_w, step_h = (bw4 * 4) >> sx, (bh4 * 4) >> sy
+            if any(self.ref_frames[cr + y][cc + x][0] <= 0
+                   for y in range(ph4 << sy) for x in range(pw4 << sx)):
+                step_w, step_h, cr, cc = pw, ph, b.r, b.c
+            if step_w < pw or step_h < ph:
+                out = np.zeros((ph, pw), np.int64)
+                for i, y in enumerate(range(0, ph, step_h)):
+                    for j, x in enumerate(range(0, pw, step_w)):
+                        rf = self.ref_frames[cr + i][cc + j]
+                        out[y:y + step_h, x:x + step_w] = self._ref_pred(
+                            p, bx + x, by + y, step_w, step_h, rf[0],
+                            self.mvs[cr + i][cc + j][0],
+                            self.interps[cr + i][cc + j], False)
+            else:
+                preds = [self._ref_pred(
+                    p, bx, by, pw, ph, b.ref_frame[i], b.mv[i], b.interp,
+                    comp, self._warp_of(b, b.ref_frame[i], pw, ph))
+                    for i in range(1 + comp)]
+                if comp:
+                    out, mask = self._combine(b, p, preds, mask)
+                else:
+                    out = preds[0]
+            if b.interintra:
+                out = self._interintra(b, p, bx, by, pw, ph, out)
+            if b.motion_mode == OBMC:
+                out = self._obmc(b, p, bx, by, pw, ph, out)
+            self.frame[p][by:by + ph, bx:bx + pw] = out
+
+    def _combine(self, b, p, preds, mask):
+        bd = self.bd
+        sx = self.ssx if p else 0
+        sy = self.ssy if p else 0
+        _, _, post = av1_inter.rounding(bd, True)
+        p0, p1 = preds
+        t = b.compound_type
+        pmax = (1 << bd) - 1
+        if t in (av1_inter.COMPOUND_WEDGE, av1_inter.COMPOUND_DIFFWTD):
+            if p == 0:
+                bw4, bh4 = BLOCK_WH[b.size]
+                if t == av1_inter.COMPOUND_WEDGE:
+                    mask = av1_inter.wedge_mask(bw4 * 4, bh4 * 4,
+                                                b.wedge_sign, b.wedge_index)
+                else:
+                    mask = av1_inter.diff_mask(p0, p1, b.mask_type, bd, post)
+                m = mask
+            else:
+                m = av1_inter.subsample(mask, sx, sy)
+            out = (m * p0 + (64 - m) * p1 + (1 << (5 + post))) >> (6 + post)
+        elif t == av1_inter.COMPOUND_DISTANCE:
+            fw, bw = av1_inter.distance_weights(self.s, self.f, b.ref_frame)
+            out = (fw * p0 + bw * p1 + (1 << (3 + post))) >> (4 + post)
+        else:
+            out = (p0 + p1 + (1 << post)) >> (1 + post)
+        return np.clip(out, 0, pmax), mask
+
+    def _interintra(self, b, p, x, y, w, h, inter):
+        """Inter-intra: the block's intra prediction (DC, V, H or smooth)
+        blended in by the smooth mask of its mode or a wedge."""
+        sx = self.ssx if p else 0
+        sy = self.ssy if p else 0
+        max_x = (self.mi_cols * 4) >> sx
+        max_y = (self.mi_rows * 4) >> sy
+        have_l = b.avail_l if p == 0 else b.avail_lc
+        have_a = b.avail_u if p == 0 else b.avail_uc
+        intra = self._predict(b, p, x, y, w, h, II_MODE[b.ii_mode], have_l,
+                              have_a, False, False, max_x, max_y)
+        if b.wedge_ii:
+            bw4, bh4 = BLOCK_WH[b.size]
+            m = av1_inter.wedge_mask(bw4 * 4, bh4 * 4, 0, b.wedge_index)
+            m = av1_inter.subsample(m, sx, sy)
+        else:
+            m = av1_inter.ii_mask(b.ii_mode, w, h)
+        return (inter * (64 - m) + intra * m + 32) >> 6
+
+    def _obmc(self, b, p, x, y, w, h, cur):
+        """OBMC as dav1d runs it: the above neighbours' predictions of
+        the block's first rows (not for chroma blocks under 8 x 8 in
+        sum of sides 16), then the left ones' of its first columns."""
+        sx = self.ssx if p else 0
+        sy = self.ssy if p else 0
+        bw4, bh4 = BLOCK_WH[b.size]
+        hm, vm = 4 >> sx, 4 >> sy
+        cur = cur.copy()
+        if b.avail_u and (p == 0 or bw4 * hm + bh4 * vm >= 16):
+            n, xx = 0, 0
+            while xx < bw4 and n < min(bw4.bit_length() - 1, 4):
+                rr, cc = b.r - 1, b.c + xx + 1
+                step = max(2, min(16, BLOCK_WH[self.mi_size[rr][cc]][0]))
+                rf = self.ref_frames[rr][cc]
+                if rf[0] > 0:
+                    ow4, oh4 = min(step, bw4), min(bh4, 16) >> 1
+                    nb = self._ref_pred(p, x + xx * hm, y, ow4 * hm,
+                                        oh4 * vm, rf[0], self.mvs[rr][cc][0],
+                                        self.interps[rr][cc], False)
+                    seg = cur[:oh4 * vm, xx * hm:xx * hm + ow4 * hm]
+                    cur[:oh4 * vm, xx * hm:xx * hm + ow4 * hm] = \
+                        av1_inter.obmc_blend(seg, nb, True)
+                    n += 1
+                xx += step
+        if b.avail_l:
+            n, yy = 0, 0
+            while yy < bh4 and n < min(bh4.bit_length() - 1, 4):
+                rr, cc = b.r + yy + 1, b.c - 1
+                step = max(2, min(16, BLOCK_WH[self.mi_size[rr][cc]][1]))
+                rf = self.ref_frames[rr][cc]
+                if rf[0] > 0:
+                    ow4, oh4 = min(bw4, 16) >> 1, min(step, bh4)
+                    nb = self._ref_pred(p, x, y + yy * vm, ow4 * hm,
+                                        oh4 * vm, rf[0], self.mvs[rr][cc][0],
+                                        self.interps[rr][cc], False)
+                    seg = cur[yy * vm:yy * vm + oh4 * vm, :ow4 * hm]
+                    cur[yy * vm:yy * vm + oh4 * vm, :ow4 * hm] = \
+                        av1_inter.obmc_blend(seg, nb, False)
+                    n += 1
+                yy += step
+        return cur
 
     def _intrabc_info(self, b):
         """An intra block copy block: its DV; DC_PRED for the neighbours'
@@ -579,16 +1304,17 @@ class FrameDecoder:
         b.y_mode = b.uv_mode = R.DC_PRED
         b.angle_y = b.angle_uv = 0
         b.cfl_u = b.cfl_v = 0
-        b.pal_y = b.pal_uv = 0
-        b.pal_colors = [None, None, None]
         b.filter_intra = -1
         dv = av1_intrabc.read_dv(self.r, self.cdf, av1_intrabc.pred_dv(
             self, b, BLOCK_WH))
         b.dv = av1_intrabc.clip_dv(self, b, dv, BLOCK_WH)
+        b.mv = (b.dv, ZERO)
 
     def _intrabc_predict(self, b):
         """compute_prediction of an intrabc block: each plane's block
-        (a subsampled block's chroma whole, with its own DV) copied."""
+        (a subsampled block's chroma whole, with its own DV) predicted
+        from the frame before filtering through the bilinear filter at
+        unit scale."""
         f = self.f
         for p in range(1 + 2 * b.has_chroma):
             sx = self.ssx if p else 0
@@ -596,22 +1322,28 @@ class FrameDecoder:
             pw4, ph4 = BLOCK_WH[self._plane_bsize(b.size, p)]
             x, y = (b.c >> sx) * 4, (b.r >> sy) * 4
             self.frame[p][y:y + 4 * ph4, x:x + 4 * pw4] = \
-                av1_intrabc.predict(self.frame[p], x, y, 4 * pw4, 4 * ph4,
-                                    b.dv, sx, sy,
-                                    ((f.width + sx) >> sx) - 1,
-                                    ((f.height + sy) >> sy) - 1, self.bd)
+                av1_inter.predict(self.frame[p], x, y, 4 * pw4, 4 * ph4,
+                                  b.dv, sx, sy, (1 << 14, 1 << 14),
+                                  (f.width, f.height),
+                                  (av1_inter.BILINEAR, av1_inter.BILINEAR),
+                                  self.bd, False)
 
     def _intra_info(self, b):
-        """intra_frame_mode_info's intra half: the y mode and angle, the uv
-        mode with CfL alphas and angle, palettes, filter intra."""
+        """intra_frame_mode_info's intra half (intra_block_mode_info in an
+        inter frame, whose y mode's context is the block's size): the y
+        mode and angle, the uv mode with CfL alphas and angle, palettes,
+        filter intra."""
         rd, cdf, f = self.r, self.cdf, self.f
         r, c, bsize = b.r, b.c, b.size
         bw4, bh4 = BLOCK_WH[bsize]
         b.dv = (0, 0)
-        above = self.y_mode[r - 1][c] if b.avail_u else 0
-        left = self.y_mode[r][c - 1] if b.avail_l else 0
-        b.y_mode = rd.symbol(cdf.kf_y[INTRA_MODE_CONTEXT[above]]
-                             [INTRA_MODE_CONTEXT[left]])
+        if f.intra:
+            above = self.y_mode[r - 1][c] if b.avail_u else 0
+            left = self.y_mode[r][c - 1] if b.avail_l else 0
+            b.y_mode = rd.symbol(cdf.kf_y[INTRA_MODE_CONTEXT[above]]
+                                 [INTRA_MODE_CONTEXT[left]])
+        else:
+            b.y_mode = rd.symbol(cdf.y_mode[SIZE_GROUP[bsize]])
         b.angle_y = b.angle_uv = 0
         if bsize >= BLOCK_8X8 and 1 <= b.y_mode <= 8:
             b.angle_y = rd.symbol(cdf.angle[b.y_mode - 1]) - 3
@@ -636,8 +1368,6 @@ class FrameDecoder:
                     b.cfl_v = -a if sv == 1 else a
             if bsize >= BLOCK_8X8 and 1 <= b.uv_mode <= 8:
                 b.angle_uv = rd.symbol(cdf.angle[b.uv_mode - 1]) - 3
-        b.pal_y = b.pal_uv = 0
-        b.pal_colors = [None, None, None]
         if bsize >= BLOCK_8X8 and bw4 <= 16 and bh4 <= 16 and \
                 f.allow_screen_content_tools:
             self._palette_mode_info(b)
@@ -1500,6 +2230,28 @@ def _neg_deinterleave(diff, ref, mx):
     return mx - (diff + 1)
 
 
+def decode_walked(fr, path):
+    """Decode a frame av1_obu.walk_av1 found (its namespace `fr`): its
+    tiles through a FrameDecoder (`fr.decoder`, kept until the frame is
+    filtered), and what a slot keeps of it for the frames that predict
+    from it: its CDFs (`cdfs`), motion field (`saved_mvs`) and segment
+    map (`seg_map`)."""
+    d = walk_frame(fr.seq, fr.frame, fr.tiles, fr.data, path)
+    fr.decoder = d
+    fr.cdfs = d.saved_cdfs
+    fr.saved_mvs = av1_mvs.saved_mvs(d)
+    fr.seg_map = np.array(d.seg_ids, np.int64)[:d.mi_rows, :d.mi_cols]
+    return d
+
+
+def planes_of(fr):
+    """A decoded frame's planes after the in-loop filters and superres
+    (before film grain), filtered once."""
+    if fr.planes is None:
+        fr.planes = filter_frame(fr.decoder, fr.seq, fr.frame)
+    return fr.planes
+
+
 def walk_frame(seq, frame, tiles, data, path):
     """The frame's symbol walk: its FrameDecoder with every tile decoded
     (reconstructed, the in-loop filters not yet run)."""
@@ -1534,8 +2286,20 @@ def filter_frame(d, seq, frame, stages=None, times=None):
     planes = d.frame
     t0 = time.perf_counter()
     lf_ids = None if d.lf_ids is None else np.array(d.lf_ids, np.int64)
+    inter = None
+    if not frame.intra:
+        ref = np.array([[rf[0] for rf in row] for row in d.ref_frames],
+                       np.int64)
+        mode = np.array(d.y_mode, np.int64)
+        size = np.array(d.mi_size, np.int64)
+        inter = SimpleNamespace(
+            ref=np.maximum(ref, 0),
+            mode=((mode >= NEARESTMV) & (mode != GLOBALMV) &
+                  (mode != GLOBAL_GLOBALMV) & (ref > 0)).astype(np.int64),
+            skip=np.array(d.skips, bool) & (ref > 0),
+            bw4=_BW4[size], bh4=_BH4[size])
     av1_loopfilter.deblock(planes, frame, seq, np.array(d.seg_ids, np.int64),
-                           d.lf_tx, TX_WH, lf_ids, list(d.lf_sets))
+                           d.lf_tx, TX_WH, lf_ids, list(d.lf_sets), inter)
     t1 = time.perf_counter()
     if stages is not None:
         stages.append([p.copy() for p in planes])

@@ -1,14 +1,15 @@
-"""AV1's deblocking loop filter on an intra frame (the AV1 specification,
-section 7.14), as dav1d runs it: per plane every vertical edge, then
+"""AV1's deblocking loop filter (the AV1 specification, section 7.14), as
+dav1d runs it: per plane every vertical edge, then
 every horizontal one, on the 4 x 4 grid inside FrameWidth x FrameHeight.
 
 An edge is a transform block's edge (the tx sizes of the plane, per 4 x
 4, as the block walk recorded them); its filter length is the smaller
 transform across it (luma 4 / 8 / 14 taps, chroma 4 / 6), its level the
-block's (its loop filter deltas, segment feature, intra reference delta:
-a table by segment, or by segment and set of deltas where the frame has
-per-block deltas), or its left or upper
-neighbour's where that is 0; sharpness sets the limits. In a pass the
+block's (its loop filter deltas, segment feature, reference and mode
+deltas: a table by segment, reference and mode, and by set of deltas
+where the frame has per-block deltas), or its left or upper
+neighbour's where that is 0; a skipped inter block's transform edges
+inside it are not filtered; sharpness sets the limits. In a pass the
 rows of samples do not interact, and the spec's raster order only sets
 the edges' order within a row; but no edge reads or writes a sample
 past half its filter size, which both transforms it joins hold, so the
@@ -41,13 +42,14 @@ WIDE = {16: _wide_taps(6, 1, 4), 8: _wide_taps(3, 0, 3),
 
 
 def levels(f, deltas=((0, 0, 0, 0),)):
-    """Filter level by [set of per-block deltas][segment][plane and pass:
-    y vertical, y horizontal, u, v] (7.14.4, dav1d_calc_lf_values): the
-    frame's level plus the block's DeltaLF (the one for the pass with
-    delta_lf_multi, else the first), clipped, then the segment feature
-    and the intra reference delta."""
-    out = np.zeros((len(deltas), 8, 4), np.int64)
-    for k, seg, i in np.ndindex(out.shape):
+    """Filter level by [set of per-block deltas][segment][reference frame
+    (0 intra)][mode type (1: a mode with an MV other than global)][plane
+    and pass: y vertical, y horizontal, u, v] (7.14.4,
+    dav1d_calc_lf_values): the frame's level plus the block's DeltaLF
+    (the one for the pass with delta_lf_multi, else the first), clipped,
+    then the segment feature and the reference and mode deltas."""
+    out = np.zeros((len(deltas), 8, 8, 2, 4), np.int64)
+    for k, seg, i in np.ndindex(len(deltas), 8, 4):
         lvl = f.lf_level[i]
         if i >= 2 and not lvl:
             continue                          # chroma off: dav1d's zeros
@@ -55,9 +57,16 @@ def levels(f, deltas=((0, 0, 0, 0),)):
         feat = f.seg_feature[seg][1 + i] if f.seg_enabled else None
         if feat is not None:
             lvl = max(0, min(63, lvl + feat))
+        out[k, seg, :, :, i] = lvl
         if f.lf_delta_enabled:
-            lvl = max(0, min(63, lvl + (f.lf_ref_deltas[0] << (lvl >> 5))))
-        out[k, seg, i] = lvl
+            sh = lvl >> 5
+            out[k, seg, 0, :, i] = max(0, min(63, lvl + (
+                f.lf_ref_deltas[0] << sh)))
+            for ref in range(1, 8):
+                for mode in (0, 1):
+                    out[k, seg, ref, mode, i] = max(0, min(63, lvl + (
+                        f.lf_ref_deltas[ref] << sh) + (
+                        f.lf_mode_deltas[mode] << sh)))
     return out
 
 
@@ -73,19 +82,26 @@ def limits(sharpness):
 
 
 def deblock(planes, f, seq, seg_ids, lf_tx, tx_wh, lf_ids=None,
-            lf_sets=((0, 0, 0, 0),)):
+            lf_sets=((0, 0, 0, 0),), inter=None):
     """Filter `planes` (padded int arrays, the frame at their origin) in
     place. `seg_ids`: segment per mi; `lf_tx[p]`: tx size index per 4 x 4
     of plane p; `tx_wh`: (width, height) of each tx size; `lf_ids`, where
     the frame has per-block loop filter deltas: each mi's index into
-    `lf_sets`, the sets of deltas. Returns the number of rows of samples
-    each filter ran on ("y4", "y8", "y14", "uv4", "uv6")."""
+    `lf_sets`, the sets of deltas; `inter`, of an inter frame, per mi:
+    `ref` (the first reference, 0 intra), `mode` (the mode delta's
+    index), `skip` (a skipped inter block, whose transform edges inside
+    it are not filtered), `bw4` and `bh4` (its block's size). Returns the
+    number of rows of samples each filter ran on ("y4", "y8", "y14",
+    "uv4", "uv6")."""
     ran = {}
     if not (f.lf_level[0] or f.lf_level[1]):
         return ran
     lvl_tab = levels(f, lf_sets).reshape(-1, 4)
     if lf_ids is not None:
         seg_ids = lf_ids * 8 + seg_ids
+    seg_ids = seg_ids * 16
+    if inter is not None:
+        seg_ids = seg_ids + inter.ref * 2 + inter.mode
     sh = seq.bit_depth - 8
     lut = tuple(v << sh for v in limits(f.lf_sharpness))
     txw = np.array([w for w, _ in tx_wh])
@@ -101,20 +117,30 @@ def deblock(planes, f, seq, seg_ids, lf_tx, tx_wh, lf_ids=None,
         mi_c = (np.arange(n4c) << sx) | sx
         seg = seg_ids[np.ix_(mi_r, mi_c)]
         tx = lf_tx[p][:n4r, :n4c]
+        allow = [None, None]
+        if inter is not None:
+            mi = np.ix_(mi_r, mi_c)
+            skip = inter.skip[mi]
+            pbw = np.maximum(4, (inter.bw4[mi] * 4) >> sx)
+            pbh = np.maximum(4, (inter.bh4[mi] * 4) >> sy)
+            allow = [~skip | (4 * np.arange(n4c)[None, :] % pbw == 0),
+                     ~skip | (4 * np.arange(n4r)[:, None] % pbh == 0)]
         h, w = planes[p].shape
         work = np.zeros((h + 2 * PAD, w + 2 * PAD), np.int32)
         work[PAD:PAD + h, PAD:PAD + w] = planes[p]
         for pas in (0, 1):
             lvl = lvl_tab[seg, pas if p == 0 else p + 1]
+            ok = allow[pas]
             if pas == 0:
-                _edges(work, txw[tx], lvl, p == 0, lut, ran, sh)
+                _edges(work, txw[tx], lvl, p == 0, lut, ran, sh, ok)
             else:
-                _edges(work.T, txh[tx].T, lvl.T, p == 0, lut, ran, sh)
+                _edges(work.T, txh[tx].T, lvl.T, p == 0, lut, ran, sh,
+                       None if ok is None else ok.T)
         planes[p][...] = work[PAD:PAD + h, PAD:PAD + w]
     return ran
 
 
-def _edges(V, across, lvl, luma, lut, ran, sh=0):
+def _edges(V, across, lvl, luma, lut, ran, sh=0, allow=None):
     """Every edge between V's columns 4k - 1 and 4k (padded by PAD), the
     grid's transform size across the edge and level per 4 x 4, all at
     once: an edge of filter size s reads and writes only the s / 2
@@ -129,6 +155,8 @@ def _edges(V, across, lvl, luma, lut, ran, sh=0):
     size = np.minimum(np.minimum(cur, prev), 16 if luma else 8)
     lv = np.where(lvl[:, 1:] == 0, lvl[:, :-1], lvl[:, 1:])
     on = (x4 % cur == 0) & (lv > 0)
+    if allow is not None:
+        on &= allow[:, 1:]
     code = np.where(size == 8, 8 if luma else 6, size)
     lim, blim, thr = lut
     r4, k = np.nonzero(on)

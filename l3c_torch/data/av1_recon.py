@@ -22,12 +22,12 @@ absolute sum stays `MARGIN` below its clip runs unclipped.
 Past valid coefficients (damaged streams; a valid one never gets there)
 the arithmetic of the x86 code dav1d runs is followed, as Pillow's
 pixels show it on an AVX-512 host: at 8 bits the rotations of the 4- to
-32-point DCT passes, the 8- and 16-point ADST rows and the 8-point ADST
-columns saturate to 16 bits or keep their low 16 bits (`DCT_8BIT`,
-`ADST_8BIT`); at 10 bits
-the columns' rotations, 4-point ADSTs and identities saturate to 16
-bits; at 12 bits the products wrap to 32 bits but for the ADST's last
-rotations (`_ADST_12BIT`).
+32-point DCT passes and the 8- and 16-point ADST passes saturate to 16
+bits or keep their low 16 bits, by pass and, where dav1d's code for a
+shape differs, by transform shape (`DCT_8BIT`, `ADST_8BIT`,
+`SHAPE_8BIT`); at 10 bits the columns' rotations, 4-point ADSTs and
+identities saturate to 16 bits; at 12 bits the products wrap to 32 bits
+but for the ADST's last rotations (`_ADST_12BIT`).
 """
 from __future__ import annotations
 
@@ -321,9 +321,16 @@ def _hb_low16(w0, a, w1, b):
 # DCT or ADST named here saturates its rotations to 16 bits but for
 # those its table names, which keep the low 16 bits ("odd", n: the first
 # rotations of a DCT's odd half or of an ADST; "rot", n, g: a DCT's later
-# ones on groups of g, an ADST's after its sums over g). Found by holding
-# files to Pillow (tests/test_torch_port_avif_hidden.py); the 64-point
-# DCT, the 4-point ADST and the identities follow dav1d's C code.
+# ones on groups of g, an ADST's after its sums over g). `DCT_8BIT` and
+# `ADST_8BIT` give a pass of any transform; `SHAPE_8BIT`, by (kind,
+# pass, width, height) and, where the other pass's kind matters, that
+# kind, the passes whose code differs (the rectangular DCTs of 16 x 32,
+# 32 x 16, 8 x 32 and 4 x 16, the 16-point ADST columns, the 16-point
+# ADST rows of 16 x 8 and 16 x 4, the 4 x 16 ADSTs). Found by holding
+# files to Pillow
+# (tests/test_torch_port_avif_hidden.py,
+# tests/test_torch_port_avif_inter.py); the 64-point DCT, the 4-point
+# ADST and the identities follow dav1d's C code.
 DCT_8BIT = {4: {}, 8: {("odd", 8): _hb_low16},
             16: {("odd", 8): _hb_low16, ("odd", 16): _hb_low16,
                  ("rot", 16, 2): _hb_low16},
@@ -332,6 +339,24 @@ ADST_8BIT = {("row", 8): {("odd", 8): _hb_low16, ("rot", 8, 4): _hb_low16},
              ("col", 8): {},
              ("row", 16): {("odd", 16): _hb_low16, ("rot", 16, 8): _hb_low16,
                            ("rot", 16, 4): _hb_low16}}
+_ADST16_WIDE = {("odd", 16): _hb_low16, ("rot", 16, 8): _hb_low16}
+_DCT16_RECT = {("odd", 8): _hb_low16, ("odd", 16): _hb_low16}
+_DCT32_RECT = {("rot", 32, 2): _hb_low16, ("rot", 32, 4): _hb_low16,
+               ("rot", 16, 2): _hb_low16}
+SHAPE_8BIT = {
+    ("DCT", "col", 16, 32): _DCT32_RECT, ("DCT", "row", 16, 32): _DCT16_RECT,
+    ("DCT", "row", 32, 16): _DCT32_RECT,
+    ("DCT", "col", 32, 16): _DCT16_RECT,
+    ("ADST", "col", 16, 16): ADST_8BIT["row", 16],
+    ("ADST", "col", 8, 16): {("rot", 16, 8): _hb_low16},
+    ("ADST", "col", 4, 16): {("rot", 16, 8): _hb_low16},
+    ("ADST", "row", 4, 16): {},
+    ("DCT", "row", 8, 32): {},
+    ("DCT", "col", 4, 16, "DCT"): _DCT16_RECT,
+    ("DCT", "row", 4, 16, "DCT"): {("odd", 4): _hb_low16,
+                                   ("odd", 2): _hb_low16},
+    ("ADST", "row", 16, 8): _ADST16_WIDE,
+    ("ADST", "row", 16, 4): _ADST16_WIDE}
 # dav1d's 12-bit ADST (32-bit lanes): the last rotations, by cos(pi / 4),
 # do not wrap
 _ADST_12BIT = {("rot", 8, 2): _hb, ("rot", 16, 2): _hb}
@@ -530,13 +555,20 @@ def _one_d(kind, vecs, l1, hi=HI, hb=_hb, stages=None):
     return iadst(vecs, clip, hb, stages)
 
 
-def _avx512_8bit(kind, n, hb, pass_):
-    """(rotation, stages) of an 8-bit pass (`pass_` "row" or "col") of an
-    n-point transform of kind `kind`, as dav1d's AVX-512 code computes it
-    where known (`DCT_8BIT`, `ADST_8BIT`), else `hb` (dav1d's C)."""
+def _avx512_8bit(kind, hb, pass_, w, h, other):
+    """(rotation, stages) of an 8-bit pass (`pass_` "row" or "col") of a
+    w x h transform, the pass of kind `kind` and the other of kind
+    `other`, as dav1d's AVX-512 code computes it where known
+    (`SHAPE_8BIT`, `DCT_8BIT`, `ADST_8BIT`), else `hb` (dav1d's C)."""
+    n = w if pass_ == "row" else h
+    names = {DCT: "DCT", ADST: "ADST", FLIPADST: "ADST", IDTX: "IDTX"}
+    kind, name = ADST if kind == FLIPADST else kind, names[kind]
+    for key in ((name, pass_, w, h, names[other]), (name, pass_, w, h)):
+        if key in SHAPE_8BIT:
+            return _hb_sat16, SHAPE_8BIT[key]
     if kind == DCT and n in DCT_8BIT:
         return _hb_sat16, DCT_8BIT[n]
-    if kind in (ADST, FLIPADST) and (pass_, n) in ADST_8BIT:
+    if kind == ADST and (pass_, n) in ADST_8BIT:
         return _hb_sat16, ADST_8BIT[pass_, n]
     return hb, None
 
@@ -556,8 +588,8 @@ def inverse_transform(coef: np.ndarray, tx_type: int, tx_size: int,
     vk, hk = TX_KINDS[tx_type]
     row_st = col_st = _ADST_12BIT if bd == 12 else None
     if bd == 8:
-        row_hb, row_st = _avx512_8bit(hk, w, row_hb, "row")
-        col_hb, col_st = _avx512_8bit(vk, h, col_hb, "col")
+        row_hb, row_st = _avx512_8bit(hk, row_hb, "row", w, h, vk)
+        col_hb, col_st = _avx512_8bit(vk, col_hb, "col", w, h, hk)
     lw, lh = w.bit_length() - 1, h.bit_length() - 1
     rows = min(h, 32)
     c = coef[:rows].astype(np.int64)

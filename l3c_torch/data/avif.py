@@ -249,7 +249,44 @@ def parse(blob: bytes, path: str) -> SimpleNamespace:
     for it in (m.primary, m.alpha):
         if it is not None:
             _check_depths(m, it, path)
+            for x in m.grids[it].cells if it in m.grids else (it,):
+                _layer(m, x, path)
     return m
+
+
+def _layer(m: SimpleNamespace, item: int, path: str):
+    """(the bytes of the item's data dav1d is given, the spatial layer
+    libavif takes its picture from, None for dav1d's own choice), as
+    avifCodecDecodeInputFillFromDecoderItem sets them from `lsel` (a
+    layer other than 0xFFFF) and `a1lx` (the layer sizes, the last one
+    what is left; lsel then takes the layers up to its own)."""
+    lsel = _prop(m, item, b"lsel")
+    layer = struct.unpack(">H", lsel[:2])[0] if lsel and len(lsel) >= 2 \
+        else None
+    if layer in (None, 0xFFFF):
+        return None, None
+    a1lx = _prop(m, item, b"a1lx")
+    if a1lx is None:
+        return None, layer
+    wide = a1lx[0] & 1
+    sizes = struct.unpack(">3I" if wide else ">3H",
+                          a1lx[1:13 if wide else 7])
+    left = sum(n for _, n in m.items[item].extents)
+    layers = []
+    for n in sizes:
+        if not n:
+            break
+        if n >= left:
+            raise _refuse(path, f"a1lx layer index [{len(layers)}] does "
+                                "not fit in item size")
+        layers.append(n)
+        left -= n
+    layers.append(left)
+    if layer >= len(layers):
+        raise _refuse(path, f"lsel property requests layer index "
+                            f"[{layer}] which isn't present in a1lx "
+                            f"property ([{len(layers)}] layers)")
+    return sum(layers[:layer + 1]), layer
 
 
 def _check_depths(m: SimpleNamespace, item: int, path: str):
@@ -744,32 +781,58 @@ def _decode_track(blob: bytes, s: SimpleNamespace, path: str) -> np.ndarray:
     decoded, scaled to each track's tkhd size and converted as for an
     item, with the colour description of the sample entry's colr nclx
     box, else the sequence header's."""
+    return next(_track_frames(blob, s, path))
+
+
+def _track_frames(blob: bytes, s: SimpleNamespace, path: str):
+    """Each sample of the colour track (with its alpha track's), decoded
+    in order through one dav1d context a track (an inter frame predicts
+    from the frames before it) and converted as _decode_track says."""
     c = s.colour
     _check_pixels(c.width, c.height, path)
-    planes, seq = _decode_sample(blob, c, s.first, path)
-    a = None
-    if s.alpha is not None:
-        a, aseq = _decode_sample(blob, s.alpha, s.alpha_first, path)
-        a = a[0]
-        if a.shape != planes[0].shape or aseq.bit_depth != seq.bit_depth:
-            raise _refuse(path, "The color image item does not match the "
-                                "alpha image item in width, height, or bit "
-                                "depth")
-    if not c.timescale:
-        raise ValueError(f"{path}: AVIF: its colour track's timescale is 0 "
-                         "(Pillow divides the frame's timestamp by it and "
-                         "refuses the file: division by zero)")
     nclx = next((b for t, b in s.props if t == b"colr" and
                  b[:4] == b"nclx"), None)
-    rgb = _rgb(planes, seq, _nclx_colour(nclx, seq), a, s.premultiplied,
-               path)
-    return _as_opened(rgb, c.width, c.height, path)
+    ctx, actx = av1_obu.context(), av1_obu.context()
+    alphas = s.alpha_samples
+    for k, sample in enumerate(s.samples):
+        planes, seq = _decode_sample(blob, c, sample, path, ctx)
+        a = None
+        if s.alpha is not None:
+            if k >= len(alphas):
+                raise _refuse(path, f"its alpha track has no sample {k}")
+            a, aseq = _decode_sample(blob, s.alpha, alphas[k], path, actx)
+            a = a[0]
+            if a.shape != planes[0].shape or \
+                    aseq.bit_depth != seq.bit_depth:
+                raise _refuse(path, "The color image item does not match "
+                                    "the alpha image item in width, "
+                                    "height, or bit depth")
+        if not c.timescale:
+            raise ValueError(f"{path}: AVIF: its colour track's timescale "
+                             "is 0 (Pillow divides the frame's timestamp "
+                             "by it and refuses the file: division by "
+                             "zero)")
+        rgb = _rgb(planes, seq, _nclx_colour(nclx, seq), a,
+                   s.premultiplied, path)
+        yield _as_opened(rgb, c.width, c.height, path)
 
 
-def _decode_sample(blob: bytes, track: SimpleNamespace, sample, path: str):
+def _decode_sample(blob: bytes, track: SimpleNamespace, sample, path: str,
+                   ctx: SimpleNamespace = None):
     off, size = sample
-    planes, seq = _decode_data(blob[off:off + size], path)
+    planes, seq = _decode_data(blob[off:off + size], path, ctx)
     return _scaled(planes, seq, track.width, track.height, path), seq
+
+
+def sequence_frames(blob: bytes, path: str):
+    """Each frame as Pillow's seek(k) and convert("RGB") give it: every
+    sample of a sequence read from its track, or an item's one frame.
+    The loader reads only the first (decode_avif)."""
+    m = parse(blob, path)
+    if m.source != "tracks":
+        yield decode_avif(blob, path)
+        return
+    yield from _track_frames(blob, m.seq, path)
 
 
 def _rgb(planes, seq: SimpleNamespace, cicp, a, prem: bool,
@@ -837,10 +900,14 @@ def _decode_item(blob: bytes, m: SimpleNamespace, item: int, path: str,
                  ctx: SimpleNamespace = None):
     """(planes, sequence header) of an AV1 item, at its frame's size,
     through the shared dav1d context `ctx` where there is one."""
-    return _decode_data(_item_bytes(blob, m, item, path), path, ctx)
+    a1op = _prop(m, item, b"a1op")
+    size, layer = _layer(m, item, path)
+    return _decode_data(_item_bytes(blob, m, item, path)[:size], path, ctx,
+                        a1op[0] if a1op else 0, layer)
 
 
-def _decode_data(data: bytes, path: str, ctx: SimpleNamespace = None):
+def _decode_data(data: bytes, path: str, ctx: SimpleNamespace = None,
+                 op: int = 0, layer=None):
     """(planes, sequence header) of the frame one AV1 item's or sample's
     data shows, through the dav1d context `ctx` (`av1_obu.context`; a
     fresh one where None). Every frame dav1d decodes from the data is
@@ -848,14 +915,11 @@ def _decode_data(data: bytes, path: str, ctx: SimpleNamespace = None):
     they fail dav1d; the frame shown is filtered once (a slot shown
     again keeps its planes) and given its film grain."""
     ctx = ctx or av1_obu.context()
-    frames, shown = av1_obu.walk_av1(data, path, ctx)
+    frames, shown = av1_obu.walk_av1(data, path, ctx, op, layer)
     try:
         for fr in frames:
-            fr.decoder = av1_block.walk_frame(fr.seq, fr.frame, fr.tiles,
-                                              fr.data, path)
-        if shown.planes is None:
-            shown.planes = av1_block.filter_frame(shown.decoder, shown.seq,
-                                                  shown.frame)
+            av1_block.decode_walked(fr, path)
+        av1_block.planes_of(shown)
     except (IndexError, KeyError) as e:
         raise av1_obu.damaged(path, f"its tile data breaks the decoder ("
                                     f"{type(e).__name__})") from None

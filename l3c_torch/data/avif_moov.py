@@ -315,6 +315,6 @@ def select(tracks: list, size_hint: int, path: str) -> SimpleNamespace:
                                  "av1C box")
     return SimpleNamespace(
         colour=colour, alpha=alpha, props=props,
-        first=samples[id(colour)][0],
-        alpha_first=samples[id(alpha)][0] if alpha is not None else None,
+        samples=samples[id(colour)],
+        alpha_samples=samples[id(alpha)] if alpha is not None else (),
         premultiplied=alpha is not None and colour.prem_by == alpha.id)

@@ -73,7 +73,24 @@ _CDF_LAYOUT = {
     "INTER_TX_SET3": ("aom", 17, 2), "MV_JOINT": ("aom", 5, 4),
     "MV_CLASS": ("aom", 12, 11), "MV_CLASS0": ("aom", 3, 2),
     "MV_SIGN": ("aom", 3, 2), "MV_BITS": ("aom", 3, 2),
+    # inter frames
+    "Y_MODE": ("aom", 14, 13), "SWITCHABLE_INTERP": ("aom", 4, 3),
+    "INTERINTRA_MODE": ("aom", 5, 4), "WEDGE_INTERINTRA": ("aom", 3, 2),
+    "WEDGE_IDX": ("aom", 17, 16), "COMPOUND_TYPE": ("aom", 3, 2),
+    "COMPOUND_MODE": ("aom", 9, 8), "OBMC": ("aom", 3, 2),
+    "MOTION_MODE": ("aom", 4, 3), "REF_MV": ("aom", 3, 2),
+    "NEW_MV": ("aom", 3, 2), "COMP_GROUP_IDX": ("aom", 3, 2),
+    "COMPOUND_IDX": ("aom", 3, 2), "SINGLE_REF": ("aom", 3, 2),
+    "COMP_BWD_REF": ("aom", 3, 2), "COMP_REF": ("aom", 3, 2),
+    "UNI_COMP_REF": ("aom", 3, 2), "MV_CLASS0_FR": ("aom", 5, 4),
+    "MV_FR": ("aom", 5, 4), "MV_CLASS0_HP": ("aom", 3, 2),
+    "MV_HP": ("aom", 3, 2), "SKIP_MODE": ("dav1d", 2, 2),
+    "ZERO_MV": ("dav1d", 2, 2), "DRL": ("dav1d", 2, 2),
+    "IS_INTER": ("dav1d", 2, 2), "COMP_MODE": ("dav1d", 2, 2),
+    "COMP_REF_TYPE": ("dav1d", 2, 2), "INTERINTRA": ("dav1d", 2, 2),
+    "SEGMENT_PRED": ("dav1d", 2, 2),
 }
+INTER_CDFS = tuple(list(_CDF_LAYOUT)[list(_CDF_LAYOUT).index("Y_MODE"):])
 # the other tables: (numpy type, count)
 _PLAIN = {"DC_QLOOKUP": ("<i2", 256), "AC_QLOOKUP": ("<i2", 256),
           "DR_INTRA_DERIVATIVE": ("<i2", 90), "SM_WEIGHTS": ("u1", 124),
@@ -83,7 +100,20 @@ _PLAIN = {"DC_QLOOKUP": ("<i2", 256), "AC_QLOOKUP": ("<i2", 256),
           "CDEF_UV_DIR": ("u1", 16), "CDEF_DIRECTIONS": ("i1", 24),
           "CDEF_PRI_TAPS": ("<i4", 4), "CDEF_DIV_TABLE": ("<i4", 9),
           "WIENER_TAPS_MID": ("<i4", 3),
-          "GAUSSIAN_SEQUENCE": ("<i2", 2048), "RESIZE_FILTER": ("i1", 512)}
+          "GAUSSIAN_SEQUENCE": ("<i2", 2048), "RESIZE_FILTER": ("i1", 512),
+          # inter prediction: dav1d's subpel filters (halved taps, phases
+          # 1-15 of regular, smooth, sharp, 4-tap regular, 4-tap smooth,
+          # bilinear), its warp filter and OBMC masks (the neighbour's
+          # weight); aom's division LUT, wedge master lines (oblique odd,
+          # oblique even) and codebooks (h < w, h > w, h == w), inter-intra
+          # weights, distance weights and lookup, and MV projection
+          # multipliers
+          "MC_SUBPEL_FILTERS": ("i1", 720), "MC_WARP_FILTER": ("i1", 1544),
+          "OBMC_MASKS": ("u1", 64), "DIV_LUT": ("<u2", 257),
+          "WEDGE_MASTER": ("u1", 128), "WEDGE_MASTER_VERTICAL": ("u1", 64),
+          "WEDGE_CODEBOOK": ("<i4", 144), "II_WEIGHTS_1D": ("u1", 128),
+          "QUANT_DIST": ("<i4", 16), "DIV_MULT": ("<i4", 32)}
+INTER_PLAIN = tuple(list(_PLAIN)[list(_PLAIN).index("MC_SUBPEL_FILTERS"):])
 # constants neither library keeps as an array (macros, inline code): the
 # specification's values, kept by the rewrite
 _SPEC = {"WIENER_TAPS_MIN": (-5, -23, -17), "WIENER_TAPS_MAX": (10, 8, 46),
@@ -107,7 +137,9 @@ def _read_cdfs(lib, name, shape, anchor):
     n = _count(shape)
     ns = (ns,) * n if isinstance(ns, int) else ns
     pat, at = [], 0
-    for k in ns[:3]:                  # the first three CDFs, padded
+    # the first three CDFs, padded (an inter table whole: many of them
+    # lead with the same uniform CDFs)
+    for k in ns if name in INTER_CDFS else ns[:3]:
         c = list(anchor[at:at + k])
         at += k
         c = c[:-1] + ([0, 0] if owner == "aom" else [0])
@@ -146,7 +178,10 @@ def tables_from(lib: bytes) -> dict:
         got["CDFS"][name] = (shape, ns, tuple(v for c in cdfs for v in c))
     for name, (dt, n) in _PLAIN.items():
         want = np.array(getattr(av1_tables, name)[:n], dt)
-        at = _find(lib, want[:min(n, 12)].tobytes())
+        # the inter tables are found by their leading non-zero values
+        lead = int(np.flatnonzero(want)[0]) if name in INTER_PLAIN else 0
+        at = _find(lib, want[lead:lead + 12].tobytes()) - \
+            lead * want.itemsize
         got[name] = tuple(int(v) for v in np.frombuffer(lib, dt, n, at))
     got["COS128"] += (0,)               # cos(pi / 2), the table's 65th entry
     got.update(deep_qlookups(lib))

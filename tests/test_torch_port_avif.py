@@ -39,7 +39,7 @@ import pytest
 from PIL import Image
 
 from l3c_tpu.data import images as jimages
-from l3c_torch.data import (av1_block, av1_cdef, av1_filmgrain, av1_intrabc,
+from l3c_torch.data import (av1_block, av1_cdef, av1_filmgrain,
                             av1_loopfilter, av1_obu, av1_recon,
                             av1_restoration, avif)
 from l3c_torch.data import images as timages
@@ -777,7 +777,7 @@ def wrap_new_tools(c, saved):
     alpha and intra block copy: blocks, DVs half a chroma sample off,
     sub-8 x 8 chroma whose neighbour copies too, split transforms, each
     inter transform set."""
-    B, FG, IB = av1_block, av1_filmgrain, av1_intrabc
+    B, FG = av1_block, av1_filmgrain
 
     def keep(mod, name, fn):
         saved[(mod, name)] = getattr(mod, name)
@@ -800,11 +800,14 @@ def wrap_new_tools(c, saved):
         c["premultiplied"] += 1
         return saved[(avif, "unpremultiply")](rgb, alpha)
 
-    def predict(plane, x, y, w, h, dv, ssx, ssy, *a):
-        px, py = (x << 4) + ((2 * dv[1]) >> ssx), (y << 4) + (
-            (2 * dv[0]) >> ssy)
-        c["intrabc_bilinear"] += bool((px | py) & 15)
-        return saved[(IB, "predict")](plane, x, y, w, h, dv, ssx, ssy, *a)
+    def predict(self, b):
+        for p in range(1 + 2 * b.has_chroma):
+            ssx, ssy = (self.ssx, self.ssy) if p else (0, 0)
+            x, y, dv = (b.c >> ssx) * 4, (b.r >> ssy) * 4, b.dv
+            px, py = (x << 4) + ((2 * dv[1]) >> ssx), (y << 4) + (
+                (2 * dv[0]) >> ssy)
+            c["intrabc_bilinear"] += bool((px | py) & 15)
+        return saved[(B.FrameDecoder, "_intrabc_predict")](self, b)
 
     def info(self, b):
         saved[(B.FrameDecoder, "_intrabc_info")](self, b)
@@ -827,7 +830,7 @@ def wrap_new_tools(c, saved):
     keep(FG, "apply_grain", grain)
     keep(B, "qmatrix", qm)
     keep(avif, "unpremultiply", unpremultiply)
-    keep(IB, "predict", predict)
+    keep(B.FrameDecoder, "_intrabc_predict", predict)
     keep(B.FrameDecoder, "_intrabc_info", info)
     keep(B.FrameDecoder, "_read_var_tx", var_tx)
     keep(B.FrameDecoder, "_read_tx_type", tx_type)
@@ -876,6 +879,12 @@ def _dav1d_planes(lib, obus, filters, grain=1):
     2, restoration 4; Dav1dPicture's data at 16, strides (in bytes) at
     40, width, height, layout and bits per component at 56): uint8, or
     uint16 above 8 bits."""
+    return _dav1d_pictures(lib, [obus], filters, grain)[0]
+
+
+def _dav1d_pictures(lib, samples, filters, grain=1):
+    """_dav1d_planes of each of `samples` (raw OBUs) sent in turn to one
+    dav1d context: a sequence's pictures."""
     c = ctypes
     lib.dav1d_data_create.restype = c.c_void_p
     settings = c.create_string_buffer(1024)
@@ -887,26 +896,31 @@ def _dav1d_planes(lib, obus, filters, grain=1):
     struct.pack_into("<i", settings, 8, grain)
     ctx = c.c_void_p()
     assert lib.dav1d_open(c.byref(ctx), settings) == 0
+    pictures = []
     try:
-        data = c.create_string_buffer(256)
-        buf = lib.dav1d_data_create(data, c.c_size_t(len(obus)))
-        c.memmove(buf, obus, len(obus))
-        assert lib.dav1d_send_data(ctx, data) == 0
-        pic = c.create_string_buffer(1024)
-        assert lib.dav1d_get_picture(ctx, pic) == 0
-        ptrs = struct.unpack_from("<3Q", pic, 16)
-        strides = struct.unpack_from("<2q", pic, 40)
-        w, h, layout, bpc = struct.unpack_from("<4i", pic, 56)
-        sx, sy = int(layout in (1, 2)), int(layout == 1)
-        t = c.c_uint8 if bpc == 8 else c.c_uint16
-        out = []
-        for k in range(1 if layout == 0 else 3):
-            pw, ph = (w, h) if k == 0 else ((w + sx) >> sx, (h + sy) >> sy)
-            st = strides[min(k, 1)] // c.sizeof(t)
-            a = np.ctypeslib.as_array((t * (st * ph)).from_address(ptrs[k]))
-            out.append(a.reshape(ph, st)[:, :pw].copy())
-        lib.dav1d_picture_unref(pic)
-        return out
+        for obus in samples:
+            data = c.create_string_buffer(256)
+            buf = lib.dav1d_data_create(data, c.c_size_t(len(obus)))
+            c.memmove(buf, obus, len(obus))
+            assert lib.dav1d_send_data(ctx, data) == 0
+            pic = c.create_string_buffer(1024)
+            assert lib.dav1d_get_picture(ctx, pic) == 0
+            ptrs = struct.unpack_from("<3Q", pic, 16)
+            strides = struct.unpack_from("<2q", pic, 40)
+            w, h, layout, bpc = struct.unpack_from("<4i", pic, 56)
+            sx, sy = int(layout in (1, 2)), int(layout == 1)
+            t = c.c_uint8 if bpc == 8 else c.c_uint16
+            out = []
+            for k in range(1 if layout == 0 else 3):
+                pw, ph = (w, h) if k == 0 else ((w + sx) >> sx,
+                                                (h + sy) >> sy)
+                st = strides[min(k, 1)] // c.sizeof(t)
+                a = np.ctypeslib.as_array((t * (st * ph)).from_address(
+                    ptrs[k]))
+                out.append(a.reshape(ph, st)[:, :pw].copy())
+            lib.dav1d_picture_unref(pic)
+            pictures.append(out)
+        return pictures
     finally:
         lib.dav1d_close(c.byref(ctx))
 
@@ -1980,10 +1994,9 @@ def test_seeded_saves_over_aoms_keys_equal_pillow_and_jax(tmp_path, k):
     assert np.array_equal(got, jimages.load_image_uint8(p))
 
 
-# what the port refuses by name: an inter frame (ROADMAP F12; hidden
-# frames shown through show_existing_frame are decoded:
-# tests/test_torch_port_avif_hidden.py)
-F6_TOOLS = ("an inter frame",)
+# what the port refuses by name: nothing since inter frames are decoded
+# (tests/test_torch_port_avif_inter.py)
+F6_TOOLS = ()
 
 
 def _outcome(p):

@@ -202,12 +202,14 @@ def _first_sample(fn):
         d, "x")) else d
 
 
-def seq_set_superres(blob: bytes, denom: int) -> bytes:
+def seq_set_superres(blob: bytes, denom: int, samples=None) -> bytes:
     """A Pillow sequence whose first frame codes superres at `denom` (its
     sample's OBUs, each av1C's sequence header, ispe and the colour
     track's tkhd width); the upscaled width must keep frame_width_bits,
     so that av1C and ispe keep their size. The later frames are not
-    rewritten: a still read decodes the first."""
+    rewritten: a still read decodes the first. `samples(upscaled
+    width)`, where given, is the function of a sample's bytes that
+    writes the samples instead."""
     nodes = S.parse_boxes(blob)
     first = S.track_samples(S.get(nodes, b"moov", b"trak"))[0]
     w0 = _frame_width(blob[first[0]:first[0] + first[1]])
@@ -232,7 +234,7 @@ def seq_set_superres(blob: bytes, denom: int) -> bytes:
             body[at + 4:at - 4 + size] = fix_av1c(box) if typ == b"av1C" \
                 else box[:4] + struct.pack(">I", up) + box[8:]
         return bytes(body)
-    out = S.rewrite_samples(blob, _first_sample(
+    out = S.rewrite_samples(blob, samples(up) if samples else _first_sample(
         lambda d: superres_obus(d, up, denom)), entry, meta)
     nodes = S.parse_boxes(out)
     tkhd = S.get(nodes, b"moov", b"trak", b"tkhd")
@@ -767,7 +769,7 @@ def _frame_data(name):
     blob = _read(name)
     m = avif.parse(blob, name)
     if m.source == "tracks":
-        off, size = m.seq.first
+        off, size = m.seq.samples[0]
         return blob[off:off + size]
     return avif._item_bytes(blob, m, m.primary, name)
 
